@@ -1,0 +1,563 @@
+"""Per-model runtime: device state + synchronous scheduling primitives.
+
+Counterpart of the per-op serving subset of
+`dashinfer_tpu.engine.model_runtime`: request validation, prefill buckets,
+KV-pool planning, the decide/execute split of prefill admission and of the
+single-step decode tick, token drains, finishing, OOM eviction and
+stop/release. The Engine's control loop (engine/engine.py) calls into this.
+
+Page accounting: the allocator hands out LOGICAL pages; logical page `g`
+owns physical pages `g*L + l` for each layer l.
+
+Token drains: a step's sampled tokens stay on the device until the step
+after it has been launched; the drain then reads them with a plain `.cpu()`,
+which waits only for the earlier step. Prefill first tokens are read the
+same way at the next drain.
+"""
+
+import dataclasses
+import math
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from dashinfer_tpu_torch.config import (EvictionStrategy, GenerationConfig,
+                                        ModelConfig, RuntimeConfig)
+from dashinfer_tpu_torch.engine import steps as steps_mod
+from dashinfer_tpu_torch.engine.stats import EngineStat
+from dashinfer_tpu_torch.loader.convert import torch_dtype
+from dashinfer_tpu_torch.models.transformer import check_supported
+from dashinfer_tpu_torch.runtime.batch_state import make_decode_state
+from dashinfer_tpu_torch.runtime.kv_cache import (create_kv_cache,
+                                                  logical_page_bytes)
+from dashinfer_tpu_torch.runtime.page_allocator import (NoFreePages,
+                                                        PageAllocator)
+from dashinfer_tpu_torch.runtime.request import (GenerateRequestStatus,
+                                                 Request)
+from dashinfer_tpu_torch.runtime.result_queue import ResultQueue
+from dashinfer_tpu_torch.utils import EnvConfig, get_logger
+
+logger = get_logger("model_runtime")
+
+
+@dataclasses.dataclass
+class PrefillDecision:
+    """One admission decision (request, slot, pages)."""
+
+    req: Request
+    slot: int
+    pages: List[int]
+
+
+@dataclasses.dataclass
+class DecodeDecision:
+    """One decode-tick decision: which slots step, which new pages they
+    get."""
+
+    act: List[Request]
+    new_page_ids: np.ndarray      # [B] logical page per slot, -1 = none
+
+
+def _unported_runtime_features(rt: RuntimeConfig) -> List[str]:
+    return [name for name, on in (
+        ("prefix cache", rt.enable_prefix_cache),
+        ("LoRA", rt.enable_lora),
+        ("tensor/data-parallel mesh", tuple(rt.mesh_shape) != (1, 1)),
+        ("chunked prefill (max_prefill_chunk)", rt.max_prefill_chunk > 0),
+        ("multi-step decode (decode_steps_per_launch)",
+         rt.decode_steps_per_launch > 1),
+        ("JSON mode", rt.enable_json_mode),
+    ) if on]
+
+
+def _unported_request_features(g: GenerationConfig) -> List[str]:
+    return [name for name, on in (
+        ("logprobs", g.logprobs or g.top_logprobs > 0),
+        ("response_format", bool(g.response_format)),
+        ("bad_words_ids", bool(g.bad_words_ids)),
+        ("no_repeat_ngram_size", g.no_repeat_ngram_size > 0),
+        ("lora_name", g.lora_name is not None),
+        ("multimodal inputs", g.mm_info is not None or
+         g.mrope_positions is not None or g.mrope_position_delta != 0),
+    ) if on]
+
+
+def _weight_bytes(params) -> int:
+    if isinstance(params, dict):
+        return sum(_weight_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+class ModelRuntime:
+    def __init__(self, name: str, cfg: ModelConfig, params: Dict,
+                 rt: RuntimeConfig, device="cuda"):
+        """params: the stacked param tree as tensors on `device`
+        (loader.params_from_numpy)."""
+        check_supported(cfg)
+        missing = _unported_runtime_features(rt)
+        if missing:
+            raise NotImplementedError(
+                f"{', '.join(missing)}: not ported to the PyTorch package yet")
+        if rt.enable_megakernel:
+            logger.info("the decode/prefill megakernels are not ported to "
+                        "the PyTorch package yet; serving the per-op path")
+        self.name = name
+        self.cfg = cfg
+        self.rt = rt
+        self.device = torch.device(device)
+        self.dtype = torch_dtype(rt.dtype)
+        self.params = params
+
+        # the last launched decode step's (tokens, batch), drained one tick
+        # later; prefill first tokens awaiting the same drain
+        self._inflight = None
+        self._inflight_prefills: List = []
+
+        self.buckets = self._make_buckets()
+        self.num_logical_pages = self._plan_pool()
+        # + 1: the sink page for inactive decode slots (ops/kv_ops.py)
+        self.cache = create_kv_cache(
+            cfg, rt.cache, self.num_logical_pages * cfg.num_layers + 1,
+            self.dtype, self.device)
+        self.state = make_decode_state(cfg, rt, self.device)
+        self.allocator = PageAllocator(self.num_logical_pages)
+
+        self._decode_step = steps_mod.build_decode_step(cfg, rt)
+        self._prefill_steps: Dict[int, Callable] = {}
+        self._deactivate = steps_mod.build_deactivate(cfg, rt)
+
+        self.pending: deque = deque()           # Requests awaiting prefill
+        self.requests: Dict[str, Request] = {}  # uuid -> Request (all live)
+        self.slots: List[Optional[Request]] = [None] * rt.max_batch
+        self.queues: Dict[str, ResultQueue] = {}
+        self.stat = EngineStat(model_name=name)
+        self._cached_len: Dict[str, int] = {}
+
+    # -- planning ------------------------------------------------------------
+    def _plan_pool(self) -> int:
+        """KV pool size in logical pages: the configured count, else the
+        free device memory (the weights are already resident) less an
+        activation headroom, else (on the CPU) what max_batch sequences can
+        use."""
+        rt, cfg = self.rt, self.cfg
+        if rt.cache.num_pages:
+            return self._check_pool_vs_workload(rt.cache.num_pages)
+        lpb = logical_page_bytes(cfg, rt.cache, self.dtype)
+        cap = rt.max_batch * rt.max_pages_per_seq
+        kv_bytes = rt.kv_pool_bytes or EnvConfig.kv_pool_bytes()
+        if not kv_bytes and self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            w = _weight_bytes(self.params)
+            act = min(2 * 1024**3, max(512 * 1024**2, w // 4))
+            kv_bytes = int(free * EnvConfig.hbm_mem_ratio()) - act
+        elif not kv_bytes and rt.hbm_bytes:
+            w = _weight_bytes(self.params)
+            act = min(2 * 1024**3, max(512 * 1024**2, w // 4))
+            kv_bytes = int(rt.hbm_bytes * EnvConfig.hbm_mem_ratio()) - w - act
+        n = cap if not kv_bytes else max(kv_bytes // lpb, 2 * rt.max_batch)
+        n = min(n, cap)
+        logger.info("KV pool: %d logical pages (%.2f GiB)", n,
+                    n * lpb / 1024**3)
+        return self._check_pool_vs_workload(int(n))
+
+    def _check_pool_vs_workload(self, n: int) -> int:
+        """With typical_seq_len set, cap admission at the concurrency the
+        pool can hold instead of serving through OOM-eviction churn."""
+        rt = self.rt
+        self.admission_cap = rt.max_batch
+        if rt.typical_seq_len > 0:
+            typ = min(rt.typical_seq_len, rt.max_length)
+            per_seq = -(-typ // rt.cache.page_size)
+            cap = max(1, min(rt.max_batch, n // per_seq))
+            if cap < rt.max_batch:
+                logger.warning(
+                    "KV pool (%d logical pages) cannot hold %d concurrent "
+                    "sequences of typical length %d; admission capped at %d",
+                    n, rt.max_batch, typ, cap)
+            self.admission_cap = cap
+        return n
+
+    def validate_request(self, input_ids, gen_cfg: GenerationConfig) -> None:
+        """start_request-time guards (user thread)."""
+        missing = _unported_request_features(gen_cfg)
+        if missing:
+            raise NotImplementedError(
+                f"{', '.join(missing)}: not ported to the PyTorch package yet")
+        if self.rt.max_prompt_len and \
+                len(input_ids) > self.rt.max_prompt_len:
+            raise ValueError(
+                f"prompt length {len(input_ids)} exceeds max_prompt_len "
+                f"{self.rt.max_prompt_len}")
+
+    def _make_buckets(self) -> List[int]:
+        rt = self.rt
+        b, out = rt.min_prefill_bucket, []
+        while b < rt.max_length:
+            out.append(b)
+            b *= 2
+        out.append(rt.max_length)
+        return out
+
+    def bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"length {n} exceeds max_length {self.rt.max_length}")
+
+    def _prefill_fn(self, bucket: int) -> Callable:
+        if bucket not in self._prefill_steps:
+            self._prefill_steps[bucket] = steps_mod.build_prefill_step(
+                self.cfg, self.rt, bucket)
+        return self._prefill_steps[bucket]
+
+    # -- request entry -------------------------------------------------------
+    def register(self, req: Request, queue: ResultQueue):
+        """Called on the USER thread before the enqueue message is
+        submitted, so sync_request observes the request immediately."""
+        self.requests[req.uuid] = req
+        self.queues[req.uuid] = queue
+
+    def enqueue(self, req: Request, queue: ResultQueue = None):
+        if req.release_requested:
+            return
+        self.pending.append(req)
+        self.stat.pendings += 1
+
+    def free_slot_index(self) -> int:
+        if sum(1 for r in self.slots if r is not None) >= self.admission_cap:
+            return -1
+        for i, r in enumerate(self.slots):
+            if r is None:
+                return i
+        return -1
+
+    # -- prefill admission ---------------------------------------------------
+    def try_prefill_one(self) -> bool:
+        d = self.prefill_decide()
+        if d is None:
+            return False
+        self.prefill_execute(d)
+        return True
+
+    def prefill_decide(self) -> Optional[PrefillDecision]:
+        """Which request, which slot, which pages. Host bookkeeping only.
+        Returns None when nothing can be admitted."""
+        if not self.pending:
+            return None
+        slot = self.free_slot_index()
+        if slot < 0:
+            self._drain_inflight()
+            slot = self.free_slot_index()
+            if slot < 0:
+                return None
+        req: Request = self.pending[0]
+        need_pages = math.ceil(req.prompt_len / self.rt.cache.page_size)
+        if need_pages > self.allocator.num_pages:
+            # PERMANENTLY infeasible: the prompt alone wants more pages
+            # than the whole pool -- fail it now instead of deadlocking
+            logger.error(
+                "request %s needs %d pages but the pool has %d total; "
+                "failing (raise kv pool / reduce prompt or max_length)",
+                req.uuid[:8], need_pages, self.allocator.num_pages)
+            self.pending.popleft()
+            self.stat.pendings -= 1
+            req.status = GenerateRequestStatus.InternalError
+            q = self.queues.get(req.uuid)
+            if q is not None:
+                q.set_status(GenerateRequestStatus.InternalError)
+            return None
+        if not self.allocator.reserve(req.uuid, need_pages):
+            # a finished in-flight request may free pages; then retry
+            self._drain_inflight()
+            if not self.allocator.reserve(req.uuid, need_pages):
+                return None  # no memory; stay pending
+        try:
+            pages = self.allocator.commit(req.uuid, need_pages)
+        finally:
+            self.allocator.release_reservation(req.uuid)
+        req.logical_pages = [[p] for p in pages]
+        req.slot = slot
+        self.slots[slot] = req
+        self.pending.popleft()
+        self.stat.pendings -= 1
+        self.stat.runnings += 1
+        return PrefillDecision(req=req, slot=slot, pages=pages)
+
+    def prefill_execute(self, d: PrefillDecision) -> None:
+        req, slot, pages = d.req, d.slot, d.pages
+        total_len = req.prompt_len
+        bucket = self.bucket_for(total_len)
+        # one page-row length per bucket: trailing zero pages are ignored by
+        # the step's length masks
+        maxPb = -(-bucket // self.rt.cache.page_size)
+        page_row = np.zeros((maxPb,), np.int32)
+        npg = min(len(pages), maxPb)
+        page_row[:npg] = pages[:npg]
+        tok_buf = np.zeros((bucket,), np.int32)
+        tok_buf[:total_len] = req.input_ids
+
+        fn = self._prefill_fn(bucket)
+        t0 = time.monotonic()
+        try:
+            tok, self.cache, self.state = fn(
+                self.params, self.cache, self.state,
+                steps_mod.to_device(tok_buf, self.device),
+                steps_mod.to_device(page_row, self.device),
+                0, total_len, self._slot_init(req, slot))
+        except Exception:
+            # fail THIS request (reference converts per-rank exceptions to
+            # request status, as_engine_prefill.cpp:216-232)
+            logger.exception("prefill failed for %s", req.uuid[:8])
+            self._fail_admitted(req)
+            return
+        self._cached_len[req.uuid] = total_len
+        req.prefilled_len = total_len
+        req.status = GenerateRequestStatus.Generating
+        req.stat.time_in_queue = t0 - req.enqueue_time
+        self._inflight_prefills.append((tok, req, t0))
+        self.stat.total_prefill_tokens += total_len
+
+    def _fail_admitted(self, req: Request) -> None:
+        """Tear down an admitted-but-unserved request: clear its slot,
+        release pages, mark InternalError."""
+        if req.slot >= 0 and self.slots[req.slot] is req:
+            self.slots[req.slot] = None
+        req.slot = -1
+        self.stat.runnings -= 1
+        self._release_pages(req)
+        req.status = GenerateRequestStatus.InternalError
+        q = self.queues.get(req.uuid)
+        if q is not None:
+            q.set_status(GenerateRequestStatus.InternalError)
+
+    def _slot_init(self, req: Request, slot: int) -> steps_mod.SlotInit:
+        g = req.gen_cfg
+        max_stop = self.rt.max_stop_token_ids
+        stop_ids = []
+        if g.eos_token_id >= 0 and g.early_stopping:
+            stop_ids.append(g.eos_token_id)
+        for w in g.stop_words_ids:
+            if len(w) == 1:
+                stop_ids.append(int(w[0]))
+        stop_ids = (stop_ids + [-1] * max_stop)[:max_stop]
+        return steps_mod.SlotInit(
+            slot=slot, temperature=float(g.temperature),
+            top_k=int(g.top_k if g.do_sample else 1), top_p=float(g.top_p),
+            repetition_penalty=float(g.repetition_penalty),
+            presence_penalty=float(g.presence_penalty),
+            frequency_penalty=float(g.frequency_penalty),
+            seed=int(g.seed) & 0xFFFFFFFF, min_gen_len=int(g.min_length),
+            stop_token_ids=tuple(stop_ids))
+
+    # -- decode --------------------------------------------------------------
+    def active_requests(self) -> List[Request]:
+        return [r for r in self.slots if r is not None]
+
+    def decode_tick(self) -> int:
+        """One batched decode step over all active slots; returns the number
+        of requests stepped. The step is launched before the previous
+        step's tokens are drained, so the host prepares step N+1 while the
+        device runs step N."""
+        d = self.decode_decide()
+        if d is None:
+            return 0
+        return self.decode_execute(d)
+
+    def decode_decide(self) -> Optional[DecodeDecision]:
+        act = self.active_requests()
+        if not act:
+            self._drain_inflight()
+            return None
+        near_limit = any(
+            self._cached_len.get(r.uuid, 0) >=
+            min(r.gen_cfg.max_length, self.rt.max_length) for r in act)
+        if near_limit and (self._inflight is not None or
+                           self._inflight_prefills):
+            # never launch a step past a request that is about to finish
+            self._drain_inflight()
+            act = self.active_requests()
+            if not act:
+                return None
+        B, ps = self.rt.max_batch, self.rt.cache.page_size
+        new_page_ids = np.full((B,), -1, np.int32)
+        # allocate pages for slots whose incoming token starts a new page
+        for req in list(act):
+            clen = self._cached_len.get(req.uuid)
+            if clen is None:  # defensive: orphaned slot
+                logger.error("slot %d holds unknown request %s; clearing",
+                             req.slot, req.uuid[:8])
+                self._finish(req, GenerateRequestStatus.InternalError)
+                continue
+            if clen % ps == 0:
+                g = None
+                while True:
+                    try:
+                        g = self.allocator.alloc(1)[0]
+                        break
+                    except NoFreePages:
+                        if not self._evict_victim(exclude=req.uuid):
+                            self._interrupt(req)
+                            break
+                if g is None:
+                    continue
+                req.logical_pages.append([g])
+                new_page_ids[req.slot] = g
+        act = self.active_requests()
+        if not act:
+            return None
+        return DecodeDecision(act=act, new_page_ids=new_page_ids)
+
+    def decode_execute(self, d: DecodeDecision) -> int:
+        act = d.act
+        noise_rows: List = [None] * self.rt.max_batch
+        for r in act:
+            if r.gen_cfg.do_sample and r.gen_cfg.top_k != 1:
+                noise_rows[r.slot] = (int(r.gen_cfg.seed) & 0xFFFFFFFF,
+                                      self._cached_len[r.uuid])
+        tokens, self.cache, self.state = self._decode_step(
+            self.params, self.cache, self.state,
+            steps_mod.to_device(d.new_page_ids, self.device), noise_rows)
+        for req in act:
+            self._cached_len[req.uuid] += 1
+        prev, self._inflight = self._inflight, (tokens, act)
+        if prev is not None:
+            self._drain_batch(prev)
+        return len(act)
+
+    def _drain_inflight(self):
+        """Wait for the in-flight decode step (if any) and emit its tokens."""
+        self._drain_prefill_tokens()
+        batch, self._inflight = self._inflight, None
+        if batch is not None:
+            self._drain_batch(batch)
+
+    def _drain_prefill_tokens(self):
+        """Emit first tokens of launched prefills (oldest first), before any
+        decode-batch drain so each request's token order is preserved."""
+        lst, self._inflight_prefills = self._inflight_prefills, []
+        for tok_t, req, t_launch in lst:
+            if self.requests.get(req.uuid) is not req or req.slot < 0:
+                continue   # stopped/evicted while the prefill was in flight
+            try:
+                tok = int(tok_t.cpu())
+            except Exception:
+                logger.exception("prefill drain failed for %s", req.uuid[:8])
+                self._finish(req, GenerateRequestStatus.InternalError)
+                continue
+            t1 = time.monotonic()
+            req.stat.first_token_time = t1
+            req.stat.time_to_first_token = t1 - req.enqueue_time
+            req.stat.context_tps = req.prefilled_len / max(t1 - t_launch,
+                                                           1e-9)
+            self._emit(req, [tok])
+            self._maybe_finish(req, tok)
+
+    def _drain_batch(self, batch):
+        self._drain_prefill_tokens()
+        tokens_t, act = batch
+        tokens = tokens_t.cpu().numpy()
+        n = 0
+        for req in act:
+            if self.requests.get(req.uuid) is not req or req.slot < 0:
+                continue  # stopped/evicted while the step was in flight
+            tok = int(tokens[req.slot])
+            self._emit(req, [tok])
+            self._maybe_finish(req, tok)
+            n += 1
+        self.stat.total_gen_tokens += n
+
+    # -- token emission & finish ---------------------------------------------
+    def _emit(self, req: Request, toks: List[int]):
+        req.generated_ids.extend(toks)
+        q = self.queues.get(req.uuid)
+        if q is not None:
+            q.append(toks)
+
+    def _maybe_finish(self, req: Request, last_tok: int):
+        g = req.gen_cfg
+        finished = (g.early_stopping and g.eos_token_id >= 0 and
+                    last_tok == g.eos_token_id)
+        if not finished and \
+                req.prompt_len + len(req.generated_ids) >= g.max_length:
+            finished = True
+        if not finished and g.stop_words_ids:
+            gen = req.generated_ids
+            finished = any(len(w) <= len(gen) and gen[-len(w):] == list(w)
+                           for w in g.stop_words_ids)
+        if finished:
+            self._finish(req, GenerateRequestStatus.GenerateFinished)
+
+    def _finish(self, req: Request, status: GenerateRequestStatus):
+        req.status = status
+        if req.slot >= 0:
+            self.state = self._deactivate(self.state, [req.slot])
+            self.slots[req.slot] = None
+            req.slot = -1
+            self.stat.runnings -= 1
+        self._release_pages(req)
+        gen_time = time.monotonic() - (req.stat.first_token_time or
+                                       time.monotonic())
+        if len(req.generated_ids) > 1 and gen_time > 0:
+            req.stat.generate_tps = (len(req.generated_ids) - 1) / gen_time
+        q = self.queues.get(req.uuid)
+        if q is not None:
+            q.set_stat(req.stat)
+            q.set_status(status)
+
+    def _release_pages(self, req: Request):
+        pages = [g for grp in req.logical_pages for g in grp]
+        if pages:
+            self.allocator.free(pages)
+        req.logical_pages = []
+
+    # -- eviction (reference ChooseVictimRequest, as_engine_decode.cpp) ------
+    def _evict_victim(self, exclude: Optional[str] = None) -> bool:
+        self._drain_inflight()  # a finished in-flight request may free pages
+        cands = [r for r in self.active_requests() if r.uuid != exclude]
+        if not cands:
+            return False
+        if self.rt.eviction_strategy == EvictionStrategy.MAX_LENGTH:
+            victim = max(cands, key=lambda r: self._cached_len[r.uuid])
+        else:
+            import random
+            victim = random.choice(cands)
+        logger.warning("cache OOM: interrupting request %s (len %d)",
+                       victim.uuid[:8], self._cached_len[victim.uuid])
+        self._interrupt(victim)
+        return True
+
+    def _interrupt(self, req: Request):
+        req.interrupted = True
+        self.stat.interrupted += 1
+        self._finish(req, GenerateRequestStatus.GenerateInterrupted)
+
+    def stop_request(self, uuid: str) -> bool:
+        self._drain_inflight()
+        req = self.requests.get(uuid)
+        if req is None:
+            return False
+        if req in self.pending:
+            self.pending.remove(req)
+            self.stat.pendings -= 1
+            self._finish(req, GenerateRequestStatus.GenerateInterrupted)
+            return True
+        if req.status in (GenerateRequestStatus.Generating,
+                          GenerateRequestStatus.ContextFinished):
+            self._finish(req, GenerateRequestStatus.GenerateInterrupted)
+        return True
+
+    def release_request(self, uuid: str):
+        self.stop_request(uuid)
+        self.requests.pop(uuid, None)
+        self.queues.pop(uuid, None)
+        self._cached_len.pop(uuid, None)
+
+    # -- stats ----------------------------------------------------------------
+    def update_stats(self):
+        s = self.stat
+        s.total_span = self.allocator.num_pages
+        s.free_span = self.allocator.num_free
+        s.used_span = s.total_span - s.free_span

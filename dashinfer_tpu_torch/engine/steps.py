@@ -1,0 +1,219 @@
+"""Engine step functions (counterpart of `dashinfer_tpu.engine.steps`).
+
+  prefill step [bucket S]: model prefill + KV page writes + first-token
+      sampling + slot-state initialization.
+  decode step: page-table growth + batched model decode + sampler + state
+      bookkeeping.
+
+The JAX package jits each step with donated buffers; here they are plain
+functions that update the KV pool and the DecodeState tensors in place.
+Host-known per-request values (slot config, the (seed, step) of each
+sampling row) come in as Python values, so a step never reads a device
+value back. On the card the decode step's model forward is captured once in
+a CUDA graph and replayed every step: its inputs are the persistent state
+and pool tensors, so one graph launch replaces the forward's ~2,000 kernel
+launches.
+"""
+
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dashinfer_tpu_torch.config import ModelConfig, RuntimeConfig
+from dashinfer_tpu_torch.models import transformer
+from dashinfer_tpu_torch.ops import sampling as sampling_ops
+from dashinfer_tpu_torch.runtime.batch_state import (DecodeState,
+                                                     SamplingParams)
+from dashinfer_tpu_torch.runtime.kv_cache import KVCache
+
+
+class SlotInit(NamedTuple):
+    """Per-request scalars written into a slot at admission."""
+
+    slot: int
+    temperature: float
+    top_k: int
+    top_p: float
+    repetition_penalty: float
+    presence_penalty: float
+    frequency_penalty: float
+    seed: int
+    min_gen_len: int
+    stop_token_ids: Tuple[int, ...]   # padded to MAX_STOP with -1
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """Host array -> device tensor without waiting for the device: a small
+    pageable host->device copy is staged by the CUDA runtime, so it may be
+    enqueued asynchronously."""
+    t = torch.as_tensor(np.asarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device, non_blocking=True)
+
+
+def _write_slot_sampling(sp: SamplingParams, init: SlotInit) -> None:
+    s = init.slot
+    for name in ("temperature", "top_k", "top_p", "repetition_penalty",
+                 "presence_penalty", "frequency_penalty", "min_gen_len"):
+        getattr(sp, name)[s] = getattr(init, name)
+    sp.stop_token_ids[s] = to_device(init.stop_token_ids,
+                                     sp.stop_token_ids.device, torch.int32)
+
+
+def _slot_sampling_params(init: SlotInit, device) -> SamplingParams:
+    """1-row SamplingParams for first-token sampling."""
+    def one(v, dt):
+        return torch.full((1,), v, dtype=dt, device=device)
+
+    return SamplingParams(
+        temperature=one(init.temperature, torch.float32),
+        top_k=one(init.top_k, torch.int32),
+        top_p=one(init.top_p, torch.float32),
+        repetition_penalty=one(init.repetition_penalty, torch.float32),
+        presence_penalty=one(init.presence_penalty, torch.float32),
+        frequency_penalty=one(init.frequency_penalty, torch.float32),
+        min_gen_len=one(init.min_gen_len, torch.int32),
+        stop_token_ids=to_device(init.stop_token_ids, device,
+                                 torch.int32)[None],
+    )
+
+
+def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig,
+                       bucket: int) -> Callable:
+    """Returns fn(params, cache, state, tokens [S], page_row [maxPb],
+    prefix_len, total_len, init: SlotInit) -> (token (0-d device tensor),
+    cache, state). page_row holds LOGICAL page ids."""
+    mode = rt.cache.mode
+    V = cfg.vocab_size
+    K = min(rt.sampler_max_top_k, V)
+
+    def step(params, cache: KVCache, state: DecodeState, tokens, page_row,
+             prefix_len: int, total_len: int, init: SlotInit):
+        dev = tokens.device
+        logits, cache = transformer.prefill_forward(
+            cfg, params, tokens, cache, page_row, prefix_len, total_len,
+            mode=mode)
+
+        # prompt token occurrence counts (penalties run over
+        # prompt + generated tokens)
+        num_new = total_len - prefix_len
+        counts = torch.zeros((V,), dtype=torch.int32, device=dev)
+        counts.index_add_(0, tokens[:num_new].long().clamp(0, V - 1),
+                          torch.ones((num_new,), dtype=torch.int32,
+                                     device=dev))
+        noise = None
+        if init.top_k != 1:
+            noise = sampling_ops.gumbel_noise([(init.seed, total_len)], K,
+                                              dev)
+        out = sampling_ops.sample(
+            logits[None], _slot_sampling_params(init, dev), counts[None],
+            torch.zeros((1,), dtype=torch.int32, device=dev), noise,
+            max_top_k=rt.sampler_max_top_k)
+        tok = out[0]
+        counts.index_add_(0, tok[None].long(),
+                          torch.ones((1,), dtype=torch.int32, device=dev))
+
+        s = init.slot
+        state.token_ids[s] = tok
+        state.context_lens[s] = total_len
+        state.gen_lens[s] = 1
+        state.page_tables[s] = 0
+        state.page_tables[s, :page_row.shape[0]] = page_row
+        state.active[s] = True
+        state.token_counts[s] = counts
+        _write_slot_sampling(state.sampling, init)
+        return tok, cache, state
+
+    return step
+
+
+class _DecodeForward:
+    """transformer.decode_forward over the state's tensors. For CUDA tensors
+    the first call captures it in a CUDA graph (after one eager warm-up
+    run) and every call replays it, so every call must pass the same
+    params, pool and state objects (the runtime owns one of each)."""
+
+    def __init__(self, cfg: ModelConfig, rt: RuntimeConfig):
+        self.cfg, self.mode = cfg, rt.cache.mode
+        self._graph = None
+        self._logits = None
+
+    def _run(self, params, cache: KVCache, state: DecodeState):
+        logits, _ = transformer.decode_forward(
+            self.cfg, params, state.token_ids, cache, state.page_tables,
+            state.context_lens, state.active, mode=self.mode)
+        return logits
+
+    def __call__(self, params, cache: KVCache, state: DecodeState):
+        if not state.token_ids.is_cuda:
+            return self._run(params, cache, state)
+        if self._graph is None:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._run(params, cache, state)   # warm-up (same writes)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._logits = self._run(params, cache, state)
+            self._graph = graph
+        self._graph.replay()
+        return self._logits
+
+
+def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig) -> Callable:
+    """Returns fn(params, cache, state, new_page_ids [B], noise_rows)
+    -> (tokens [B], cache, state).
+
+    new_page_ids[b] >= 0 installs a fresh LOGICAL page for slot b at the
+    page-table column the incoming token starts. noise_rows[b] is the
+    (seed, step) of a sampling slot or None (greedy / inactive)."""
+    ps = rt.cache.page_size
+    V = cfg.vocab_size
+    K = min(rt.sampler_max_top_k, V)
+    forward = _DecodeForward(cfg, rt)
+
+    def step(params, cache: KVCache, state: DecodeState,
+             new_page_ids: torch.Tensor,
+             noise_rows: Sequence[Optional[Tuple[int, int]]]):
+        B = state.max_batch
+        dev = state.token_ids.device
+        lens = state.context_lens
+        col = (lens // ps).long().clamp(0, state.page_tables.shape[1] - 1)
+        b_idx = torch.arange(B, device=dev)
+        old = state.page_tables[b_idx, col]
+        state.page_tables[b_idx, col] = torch.where(new_page_ids >= 0,
+                                                    new_page_ids, old)
+
+        logits = forward(params, cache, state)
+        noise = None
+        if any(r is not None for r in noise_rows):
+            noise = sampling_ops.gumbel_noise(noise_rows, K, dev)
+        out = sampling_ops.sample(
+            logits, state.sampling, state.token_counts, state.gen_lens,
+            noise, max_top_k=rt.sampler_max_top_k)
+
+        active = state.active
+        tok = torch.where(active, out, state.token_ids)
+        inc = active.to(torch.int32)
+        state.token_counts.index_put_((b_idx, tok.long().clamp(0, V - 1)),
+                                      inc, accumulate=True)
+        state.token_ids.copy_(tok)
+        state.context_lens.add_(inc)
+        state.gen_lens.add_(inc)
+        return tok, cache, state
+
+    return step
+
+
+def build_deactivate(cfg: ModelConfig, rt: RuntimeConfig) -> Callable:
+    """fn(state, slots: list of slot indices) -> state with them released."""
+
+    def fn(state: DecodeState, slots: List[int]) -> DecodeState:
+        for s in slots:
+            state.active[s] = False
+        return state
+
+    return fn

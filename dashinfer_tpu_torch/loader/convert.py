@@ -1,0 +1,53 @@
+"""Param-tree conversion: the JAX package's stacked numpy tree -> tensors.
+
+The tree keeps the JAX package's layout exactly (leading num_layers dim on
+every `layers` leaf; linear leaves `{"w"}` or `{"w_q", "scale", "zero"}` plus
+optional `"b"`), so one checkpoint conversion serves both packages and the
+tests can hand the same arrays to each.
+"""
+
+from typing import Dict, Union
+
+import numpy as np
+import torch
+
+_QPARAM_KEYS = ("scale", "zero")
+
+
+def _leaf_to_tensor(x, key: str, device, dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        t = x
+    else:
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":
+            # ml_dtypes.bfloat16 has no torch counterpart in from_numpy:
+            # carry the bits over as uint16 and reinterpret them
+            t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                 ).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.is_floating_point():
+        # quantization qparams stay f32 (the kernels read them as f32);
+        # every other float leaf is held in the model dtype
+        t = t.to(torch.float32 if key in _QPARAM_KEYS else dtype)
+    # int8 / packed-u4 uint8 payloads travel byte for byte
+    return t.to(device).contiguous()
+
+
+def params_from_numpy(tree: Dict, device: Union[str, torch.device] = "cuda",
+                      dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Convert a (nested dict) param tree of numpy / ml_dtypes arrays (or
+    tensors) to contiguous tensors on `device`."""
+
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return _leaf_to_tensor(node, key, device, dtype)
+
+    return walk(tree)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """RuntimeConfig.dtype string -> torch dtype."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]

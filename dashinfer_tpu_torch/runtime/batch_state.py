@@ -1,0 +1,84 @@
+"""Device-side continuous-batching state (counterpart of
+`dashinfer_tpu.runtime.batch_state`).
+
+Fixed `max_batch` decode slots: every per-request quantity lives in a
+`[max_batch]` tensor and inactive slots are masked. The steps of
+engine/steps.py update these tensors in place. The JAX package's token
+history, bad-words, n-gram, LoRA and mRoPE fields belong to features this
+port does not serve yet and are left out, as are its per-slot seeds and
+prompt lengths: the sampler's seeds come from the host (engine/steps.py).
+"""
+
+import dataclasses
+
+import torch
+
+from dashinfer_tpu_torch.config import ModelConfig, RuntimeConfig
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    """Per-slot generation config (all [B] unless noted)."""
+
+    temperature: torch.Tensor      # f32; 0 => greedy
+    top_k: torch.Tensor            # i32; 0 => full window, 1 => greedy
+    top_p: torch.Tensor            # f32
+    repetition_penalty: torch.Tensor  # f32
+    presence_penalty: torch.Tensor    # f32
+    frequency_penalty: torch.Tensor   # f32
+    min_gen_len: torch.Tensor      # i32: suppress stop tokens before this
+    stop_token_ids: torch.Tensor   # i32 [B, MAX_STOP]; -1 = unused
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """All mutable per-slot state read by the decode step."""
+
+    token_ids: torch.Tensor       # i32 [B] next input token
+    context_lens: torch.Tensor    # i32 [B] tokens currently in KV cache
+    gen_lens: torch.Tensor        # i32 [B] tokens generated so far
+    page_tables: torch.Tensor     # i32 [B, max_pages_per_seq] LOGICAL pages
+    active: torch.Tensor          # bool [B]
+    token_counts: torch.Tensor    # i32 [B, vocab] occurrences (penalties)
+    sampling: SamplingParams
+
+    @property
+    def max_batch(self) -> int:
+        return self.token_ids.shape[0]
+
+
+def make_sampling_params(max_batch: int, max_stop: int,
+                         device) -> SamplingParams:
+    B = max_batch
+
+    def full(v, dt, shape=(B,)):
+        return torch.full(shape, v, dtype=dt, device=device)
+
+    return SamplingParams(
+        temperature=full(1.0, torch.float32),
+        top_k=full(1, torch.int32),
+        top_p=full(1.0, torch.float32),
+        repetition_penalty=full(1.0, torch.float32),
+        presence_penalty=full(0.0, torch.float32),
+        frequency_penalty=full(0.0, torch.float32),
+        min_gen_len=full(0, torch.int32),
+        stop_token_ids=full(-1, torch.int32, (B, max_stop)),
+    )
+
+
+def make_decode_state(model_cfg: ModelConfig, rt_cfg: RuntimeConfig,
+                      device) -> DecodeState:
+    B = rt_cfg.max_batch
+
+    def zeros(shape, dt=torch.int32):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return DecodeState(
+        token_ids=zeros((B,)),
+        context_lens=zeros((B,)),
+        gen_lens=zeros((B,)),
+        page_tables=zeros((B, rt_cfg.max_pages_per_seq)),
+        active=zeros((B,), torch.bool),
+        token_counts=zeros((B, model_cfg.vocab_size)),
+        sampling=make_sampling_params(B, rt_cfg.max_stop_token_ids, device),
+    )

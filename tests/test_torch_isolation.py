@@ -1,0 +1,89 @@
+"""The port stands alone: it imports and serves with JAX blocked, and no
+module of it (nor chip_smoke.py) imports JAX or the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SERVE_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import numpy as np
+import dashinfer_tpu_torch as tp
+from dashinfer_tpu_torch.config import ModelConfig
+
+L, hid, inter, V, H, KH, D = 2, 64, 128, 256, 4, 2, 16
+rng = np.random.RandomState(0)
+def lin(i, o):
+    return {"w": (rng.randn(L, i, o) * 0.1).astype(np.float32),
+            "b": np.zeros((L, o), np.float32)}
+params = {"embed_tokens": {"w": rng.randn(V, hid).astype(np.float32)},
+          "norm": np.ones(hid, np.float32),
+          "lm_head": {"w": (rng.randn(hid, V) * 0.1).astype(np.float32)},
+          "layers": {"input_layernorm": np.ones((L, hid), np.float32),
+                     "post_attention_layernorm": np.ones((L, hid), np.float32),
+                     "q_proj": lin(hid, H * D), "k_proj": lin(hid, KH * D),
+                     "v_proj": lin(hid, KH * D), "o_proj": lin(H * D, hid),
+                     "gate_proj": lin(hid, inter), "up_proj": lin(hid, inter),
+                     "down_proj": lin(inter, hid)}}
+cfg = ModelConfig(arch="qwen2", vocab_size=V, hidden_size=hid,
+                  intermediate_size=inter, num_layers=L, num_heads=H,
+                  num_kv_heads=KH, head_dim=D, qkv_bias=True)
+rt = (tp.RuntimeConfigBuilder("m").max_length(64).max_batch(2)
+      .kv_cache_page_size(16).kv_cache_mode(tp.CacheMode.INT8)
+      .weight_quant("a16w4", 32).dtype("float32").build())
+eng = tp.Engine().install_model("m", rt, params=params, model_config=cfg,
+                                device="cpu").start_model("m")
+_, h, q = eng.start_request("m", [1, 2, 3], tp.GenerationConfig(
+    max_length=12, do_sample=False, top_k=1, eos_token_id=-1))
+eng.sync_request("m", h, timeout_s=120)
+eng.release_model("m")
+assert q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+assert len(q.GetAllGeneratedTokens()) == 9
+assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "dashinfer_tpu" or m.startswith("dashinfer_tpu.")
+               for m in sys.modules)
+print("SERVED")
+"""
+
+
+def test_port_serves_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", _SERVE_WITHOUT_JAX], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "SERVED" in r.stdout
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "dashinfer_tpu_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "dashinfer_tpu")
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0 and _forbidden(node.module):
+            bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
