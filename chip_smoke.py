@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (dashinfer_tpu_torch) on one NVIDIA H100.
 
-    python3 chip_smoke.py [--details out/chip_smoke.json]
+    python3 chip_smoke.py [--details out/chip_smoke.json] [--only a,b,...]
 
-Phases (any failure exits non-zero):
-  1. environment: device name, `nvidia-smi` name + power limit, and the
-     build of every CUDA kernel of the per-op path (one nvcc per source, all
-     started together);
-  2. kernels: each kernel's wrapper on the card at the shapes the serving
-     path gives it, held against its plain PyTorch version on the same
-     inputs, and timed beside the plain version and one library call;
-  3. the slice end to end: Qwen2-7B width (28 layers, random a16w4 group-128
-     weights made on the card from a seed), INT8 KV, per-op path, serving
-     concurrent greedy and seeded top-k requests through `Engine` after one
-     warm-up request; the kernels' launch counts are zeroed just before the
-     timed requests and read just after; then
-     one decode step's logits through the kernels against the same step
-     through the plain versions.
+Phases (any failure exits non-zero; `--only` runs a subset while working
+on one of them, and then prints no final result line):
+  build       device name, `nvidia-smi` name + power limit, and the build of
+              every CUDA kernel (one nvcc per source, all started together);
+  quant_matmul, paged_attention, stream_probe, megakernel
+              each kernel's wrapper on the card at the shapes the serving
+              path gives it, held against its plain PyTorch version on the
+              same inputs, and timed beside the plain version and, where one
+              PyTorch call computes the same function, that call. The
+              megakernel: one decode step at Qwen2-7B width for INT8, UINT4
+              and DEFAULT KV and for the u4 and the per-channel i8 weight
+              stream, logits and pool writes against the plain version;
+              then ms per step at B = 8 and 32 beside the byte bound and the
+              per-op forward's graph replay on the same state;
+  serve       the slice end to end: Qwen2-7B width (28 layers, random a16w4
+              group-128 weights made on the card from a seed), INT8 KV,
+              concurrent greedy and seeded top-k requests through `Engine`
+              after one warm-up request, first through the decode megakernel
+              (`enable_megakernel` at its default), then through the per-op
+              path; each kernel's launch count is zeroed just before the
+              timed requests and read just after;
+  decode_logits
+              one per-op decode step's logits through the kernels against
+              the same step through their plain versions, and its profile.
 It prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. It needs the repository around it (the
 `dashinfer_tpu_torch` package) and a CUDA card; without either it exits
@@ -67,9 +77,25 @@ PROJECTIONS = [("q_proj+o_proj", 3584, 3584, 2 * 28),
 # through 28 layers whose bf16 activations may round differently after an
 # f32 order change; the readings were ~1e-3 * max|ref| at B=4, so they are
 # held to max|d| <= 1e-2 * max|ref|.
+# The decode megakernel against its plain version: logits of the active
+# rows as above (1e-2 * max|ref|) with equal argmax, where a row whose two
+# best logits the plain version holds closer than twice the measured
+# difference counts as a tie; the written token's payload at most one
+# quantization level apart (for an unquantized pool one bf16 step on top of
+# the tolerance the qparams get) and its qparams within 1e-3 of the token's range in layer 0, where both sides see
+# the same input (readings ~1e-6). Deeper layers quantize activations that
+# already differ between the two sides: a slot that attends hundreds of
+# random cached tokens has an attention output ~1/sqrt(n) of its terms,
+# and under UINT4 the affine-after-dot score cancels two large f32 terms,
+# so a different summation order moves that slot's small early-layer
+# activations by up to ~2e-2 of their range (INT8: 3e-4) while the logits
+# stay within 5e-4 of max|ref|; those layers are held to 5e-2. Every other
+# pool byte is unchanged.
 KERNEL_RTOL = 1e-3
 BF16_STEP = 2.0 ** -7
 LOGITS_RTOL = 1e-2
+QPARAM_RTOL = 1e-3
+DEEP_QPARAM_RTOL = 5e-2
 
 
 class SmokeFailure(Exception):
@@ -295,7 +321,33 @@ def check_paged_attention(gen, dev, details):
         print(f"paged_attention {mode.value:7s} err={err:.2e} ms={ms:.4f} "
               f"bound={row['bytes_ms']:.4f} plain={plain_ms:.3f} "
               f"lib={library_ms:.4f}", flush=True)
+    # the same kernel on a pool larger than the 50 MB L2: one launch per
+    # layer over the 28 layers' pages of one long-context state (cold), and
+    # layer 0 alone again and again (L2-warm), at the same work per launch
+    long_lens = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
+    mode = CacheMode.INT8
+    st = mk_state(cfg, mode, DECODE_BATCH, long_lens, None, gen, dev)
+    L = cfg.num_layers
+    qb = torch.randn((DECODE_BATCH, cfg.num_heads, cfg.head_dim),
+                     generator=gen, device=dev).to(torch.bfloat16)
+    per_layer = [(qb, st["cache"], mode, (st["pt"] * L + l).to(torch.int32),
+                  st["lens"], scale) for l in range(L)]
+    cold_ms = time_ms(pa.paged_attention, per_layer, iters=L)
+    warm_ms = time_ms(pa.paged_attention, per_layer[:1], iters=L)
+    nbytes = kv_bytes_read(cfg, mode, long_lens, [1] * DECODE_BATCH) // L \
+        + 2 * qb.numel() * 2
+    pool_mb = sum(t.numel() * t.element_size() for t in
+                  (st["cache"].k, st["cache"].v, st["cache"].k_qparams,
+                   st["cache"].v_qparams)) / 1e6
+    big = dict(mode="int8", lens=long_lens, pool_mb=pool_mb, cold_ms=cold_ms,
+               warm_ms=warm_ms, **bounds(nbytes, 4.0 * sum(long_lens) *
+                                         cfg.num_heads * cfg.head_dim))
+    print(f"paged_attention int8 on a {pool_mb:.0f} MB pool, "
+          f"{sum(long_lens)} cached tokens: cold {cold_ms:.4f} ms/launch, "
+          f"L2-warm {warm_ms:.4f}, bound {big['bytes_ms']:.4f}", flush=True)
+    del st, per_layer
     details["paged_attention"] = rows
+    details["paged_attention_large_pool"] = big
     # the served model's INT8 cache: one launch per layer per decode step
     int8 = next(r for r in rows if r["mode"] == "int8")
     return dict(max_abs_err=max_err,
@@ -304,71 +356,45 @@ def check_paged_attention(gen, dev, details):
 
 # -- phase 3: the slice end to end ------------------------------------------
 
-def random_qwen2_7b_params(seed: int, dev):
+def random_qwen2_7b_params(seed: int, dev, stream: str = "u4"):
     """Random a16w4 group-128 weights (the distribution of bench.py's
-    build_qwen2_7b_params(quantize_lm=True)), made on the card."""
-    import torch
-    cfg = QWEN2_7B
-    L, D = cfg["num_layers"], cfg["head_dim"]
-    H, KH = cfg["num_heads"], cfg["num_kv_heads"]
-    hid, inter, V = (cfg["hidden_size"], cfg["intermediate_size"],
-                     cfg["vocab_size"])
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-
-    def qlin(kin, kout, layers=True, bias=False):
-        lead = (L,) if layers else ()
-        w_q = torch.randint(0, 256, lead + (kin, kout // 2),
-                            dtype=torch.uint8, generator=gen, device=dev)
-        scale = torch.rand(lead + (kin // GROUP, kout), generator=gen,
-                           device=dev) * 0.002 + 1e-4
-        d = {"w_q": w_q, "scale": scale, "zero": -scale * 8.0}
-        if bias:
-            d["b"] = torch.zeros(lead + (kout,), dtype=torch.bfloat16,
-                                 device=dev)
-        return d
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.bfloat16, device=dev)
-
-    return {
-        "embed_tokens": {"w": (torch.randn((V, hid), generator=gen,
-                                           device=dev) * 0.02
-                               ).to(torch.bfloat16)},
-        "norm": ones(hid),
-        "lm_head": qlin(hid, V, layers=False),
-        "layers": {
-            "input_layernorm": ones(L, hid),
-            "post_attention_layernorm": ones(L, hid),
-            "q_proj": qlin(hid, H * D, bias=True),
-            "k_proj": qlin(hid, KH * D, bias=True),
-            "v_proj": qlin(hid, KH * D, bias=True),
-            "o_proj": qlin(H * D, hid),
-            "gate_proj": qlin(hid, inter),
-            "up_proj": qlin(hid, inter),
-            "down_proj": qlin(inter, hid),
-        },
-    }
+    build_qwen2_7b_params(quantize_lm=True)), made on the card; with
+    stream="i8", per-channel int8 leaves as the u4 -> i8 rule makes them."""
+    from dashinfer_tpu_torch.config import ModelConfig
+    from dashinfer_tpu_torch.tools import bench_stream
+    return bench_stream.random_a16w4_params(ModelConfig(**QWEN2_7B), seed,
+                                            dev, GROUP, stream)
 
 
-def serve(params, dev, details):
+PROMPT_LENS = [20, 90, 200, 450, 700, 1000]   # buckets 32 .. 1024
+
+
+def serve(params, dev, details, megakernel: bool, new_tokens: int):
+    """Six concurrent requests through `Engine`, on the megakernel path
+    (`enable_megakernel` left at its default) or the per-op path. Returns
+    (launch counts of the timed requests, generated tokens per request)."""
     import torch
     from dashinfer_tpu_torch import (CacheMode, Engine, GenerateRequestStatus,
                                      GenerationConfig, ModelConfig,
                                      RuntimeConfigBuilder)
+    from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import paged_attention as pa
     from dashinfer_tpu_torch.ops import quant_matmul as qm
+    path = "megakernel" if megakernel else "per-op"
+    counters = {"quant_matmul": qm.quant_matmul.counter,
+                "paged_attention": pa.paged_attention.counter,
+                "decode_megakernel": mk.decode_megakernel.counter}
     cfg = ModelConfig(**QWEN2_7B)
-    rt = (RuntimeConfigBuilder("qwen2-7b").max_length(2048)
-          .max_batch(DECODE_BATCH).kv_cache_page_size(PAGE)
-          .kv_cache_mode(CacheMode.INT8).dtype("bfloat16")
-          .update({"enable_megakernel": False}).build())
+    b = (RuntimeConfigBuilder("qwen2-7b").max_length(2048)
+         .max_batch(DECODE_BATCH).kv_cache_page_size(PAGE)
+         .kv_cache_mode(CacheMode.INT8).dtype("bfloat16"))
+    if not megakernel:
+        b = b.update({"enable_megakernel": False})
+    rt = b.build()
+    check(rt.enable_megakernel == megakernel, "enable_megakernel default")
     eng = Engine().install_model("qwen2-7b", rt, params=params,
                                  model_config=cfg, device=dev)
     eng.start_model("qwen2-7b")
-    new_tokens = 64
-    # prompt lengths over the buckets 32 .. 1024 (one <= 32, two > 512)
-    prompt_lens = [20, 90, 200, 450, 700, 1000]
     g = torch.Generator().manual_seed(7)
     try:
         # warm-up request: the process's first use of each PyTorch kernel
@@ -381,11 +407,11 @@ def serve(params, dev, details):
         eng.sync_request("qwen2-7b", h, timeout_s=600)
         # the kernels count their own launches on the card (CUDA graph
         # replays of the decode forward included)
-        qm.quant_matmul.counter.reset()
-        pa.paged_attention.counter.reset()
+        for c in counters.values():
+            c.reset()
         t0 = time.monotonic()
         handles = []
-        for i, n in enumerate(prompt_lens):
+        for i, n in enumerate(PROMPT_LENS):
             ids = torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
             gc = GenerationConfig(max_length=n + new_tokens,
                                   do_sample=bool(i % 2), top_k=20,
@@ -396,13 +422,13 @@ def serve(params, dev, details):
         for h, _, _ in handles:
             eng.sync_request("qwen2-7b", h, timeout_s=600)
         wall = time.monotonic() - t0
-        launches = {"quant_matmul": qm.quant_matmul.counter.read(),
-                    "paged_attention": pa.paged_attention.counter.read()}
+        launches = {k: c.read() for k, c in counters.items()}
     finally:
         eng.release_model("qwen2-7b")
-    reqs = []
-    for (h, q, sampled), n in zip(handles, prompt_lens):
+    reqs, tokens = [], []
+    for (h, q, sampled), n in zip(handles, PROMPT_LENS):
         toks = q.GetAllGeneratedTokens()
+        tokens.append(list(toks))
         st = q.RequestStatInfo()
         status = q.GenerateStatus()
         reqs.append(dict(prompt_len=n, sampled=sampled, status=status.value,
@@ -411,33 +437,384 @@ def serve(params, dev, details):
                          decode_ms_per_step=(1e3 / st["generate_tps"]
                                              if st["generate_tps"] else None)))
         check(status == GenerateRequestStatus.GenerateFinished,
-              f"request (prompt {n}) ended {status.value}")
+              f"{path}: request (prompt {n}) ended {status.value}")
         check(len(toks) == new_tokens and
               all(0 <= t < cfg.vocab_size for t in toks),
-              f"request (prompt {n}): {len(toks)} tokens")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched while serving")
-    # every decode step runs paged_attention once per layer and quant_matmul
-    # for the 7 projections of each layer and the lm_head; a prefill runs
-    # quant_matmul on its lm_head row, and on every projection when its
-    # bucket fits the kernel (M <= 32)
+              f"{path}: request (prompt {n}): {len(toks)} tokens")
+    # a prefill runs quant_matmul on its lm_head row, and on every
+    # projection when its bucket fits the kernel (M <= 32)
     L = cfg.num_layers
     per_step = 7 * L + 1
-    steps = launches["paged_attention"] // L
-    prefill = sum(per_step if n <= 32 else 1 for n in prompt_lens)
-    check(launches["paged_attention"] % L == 0 and steps >= new_tokens - 1
-          and launches["quant_matmul"] == per_step * steps + prefill,
-          f"launch counts {launches} do not match {steps} decode steps and "
-          f"{len(prompt_lens)} prefills")
-    details["serving"] = dict(requests=reqs, launches=launches, wall_s=wall)
+    prefill = sum(per_step if n <= 32 else 1 for n in PROMPT_LENS)
+    if megakernel:
+        # one megakernel launch is one decode step; nothing else of a step
+        # reaches the per-op kernels
+        steps = launches["decode_megakernel"]
+        check(steps >= new_tokens - 1 and launches["paged_attention"] == 0
+              and launches["quant_matmul"] == prefill,
+              f"megakernel path: launch counts {launches} do not match "
+              f"{steps} decode steps and the prefills' {prefill} "
+              "quant_matmul launches")
+    else:
+        # every decode step runs paged_attention once per layer and
+        # quant_matmul for the 7 projections of each layer and the lm_head
+        steps = launches["paged_attention"] // L
+        check(launches["paged_attention"] % L == 0 and steps >= new_tokens - 1
+              and launches["quant_matmul"] == per_step * steps + prefill
+              and launches["decode_megakernel"] == 0,
+              f"per-op path: launch counts {launches} do not match {steps} "
+              f"decode steps and {len(PROMPT_LENS)} prefills")
+    details[f"serving_{path}"] = dict(requests=reqs, launches=launches,
+                                      wall_s=wall, decode_steps=steps)
     for r in reqs:
-        print(f"request prompt={r['prompt_len']:4d} "
+        print(f"{path} request prompt={r['prompt_len']:4d} "
               f"{'top-k' if r['sampled'] else 'greedy':6s} {r['status']} "
               f"tokens={r['n_tokens']} ttft_ms={r['ttft_ms']:.1f} "
               f"decode_ms/step={r['decode_ms_per_step']:.2f}", flush=True)
-    print(f"served {len(reqs)} requests in {wall:.2f} s; launches {launches}",
-          flush=True)
-    return launches
+    print(f"{path}: served {len(reqs)} requests in {wall:.2f} s, {steps} "
+          f"decode steps; launches {launches}", flush=True)
+    return launches, tokens
+
+
+def check_serving(params, dev, details):
+    """Both serving paths on the same params; the greedy requests' first 8
+    tokens must agree (the paths round differently by design: the
+    megakernel attends the new token unquantized)."""
+    mk_launches, mk_tokens = serve(params, dev, details, True, 64)
+    op_launches, op_tokens = serve(params, dev, details, False, 64)
+    agree = []
+    for i, (a, b) in enumerate(zip(mk_tokens, op_tokens)):
+        if i % 2:
+            continue            # sampled
+        n = min(len(a), len(b))
+        same = next((j for j in range(n) if a[j] != b[j]), n)
+        agree.append(same)
+        print(f"greedy request prompt={PROMPT_LENS[i]}: megakernel and "
+              f"per-op paths agree on the first {same} of {n} tokens "
+              f"compared (megakernel generated {len(a)})", flush=True)
+        check(same >= 8, f"greedy request (prompt {PROMPT_LENS[i]}): the "
+              f"megakernel and per-op paths agree on only {same} tokens")
+    details["greedy_agreement"] = agree
+    return mk_launches, op_launches
+
+
+# -- the decode megakernel against its plain version -------------------------
+
+MK_LENS = [37, 64, 150, 300, 1, 127, 256, 500]   # 64, 256: page boundaries
+MK_INACTIVE = 5
+
+
+def mk_state(cfg, mode, B, lens, inactive, gen, dev, max_len=2048):
+    """A random pool (payload and qparams) with distinct logical pages per
+    slot, and the step's inputs."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheConfig, CacheMode
+    from dashinfer_tpu_torch.engine.steps import _rope_tiles
+    from dashinfer_tpu_torch.runtime.kv_cache import create_kv_cache
+    maxP, L = max_len // PAGE, cfg.num_layers
+    # logical pages 1 .. B*maxP; the last physical page is the per-op
+    # path's sink for inactive slots
+    cache = create_kv_cache(cfg, CacheConfig(page_size=PAGE, mode=mode),
+                            (B * maxP + 1) * L + 1, torch.bfloat16, dev)
+    for t in (cache.k, cache.v):
+        if mode == CacheMode.DEFAULT:
+            t.normal_(generator=gen)
+        else:
+            t.view(torch.uint8).random_(0, 256, generator=gen)
+    if mode != CacheMode.DEFAULT:
+        lo = 0.008 if mode == CacheMode.INT8 else 0.13
+        for t in (cache.k_qparams, cache.v_qparams):
+            t.uniform_(0.5 * lo, lo, generator=gen)
+            if mode == CacheMode.UINT4:
+                t[:, 1::2] *= -7.5          # zero = min
+            else:
+                t[:, 1::2] -= 0.75 * lo
+    pt = (1 + torch.arange(B * maxP, dtype=torch.int32, device=dev)
+          ).reshape(B, maxP)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    if inactive is not None:
+        active[inactive] = False
+    tokens = torch.randint(1, cfg.vocab_size, (B,), generator=gen, device=dev)
+    cos, sin = _rope_tiles(cfg, lens_t)
+    return dict(cache=cache, pt=pt, lens=lens_t, active=active, tokens=tokens,
+                cos=cos, sin=sin)
+
+
+def mk_plan_pack(cfg, params, B, mode):
+    """(plan, packed) of the megakernel for a max_batch-B runtime."""
+    from dashinfer_tpu_torch.config import RuntimeConfigBuilder
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    rt = (RuntimeConfigBuilder("mk").max_length(2048).max_batch(B)
+          .kv_cache_page_size(PAGE).kv_cache_mode(mode).dtype("bfloat16")
+          .build())
+    check(mk.supports(cfg, rt, params), "megakernel.supports said no")
+    plan = mk.make_plan(cfg, rt, params)
+    return plan, mk.pack_params(cfg, plan, params)
+
+
+def kv_bytes_read(cfg, mode, lens, active) -> int:
+    """Bytes of cached K/V (payload + qparams) one step must read."""
+    from dashinfer_tpu_torch.config import CacheMode
+    per_tok = {CacheMode.DEFAULT: 2 * cfg.head_dim,
+               CacheMode.INT8: cfg.head_dim + 8,
+               CacheMode.UINT4: cfg.head_dim // 2 + 8}[mode]
+    ntok = sum(n for n, a in zip(lens, active) if a)
+    return 2 * ntok * cfg.num_kv_heads * per_tok * cfg.num_layers
+
+
+def kv_levels(t, mode):
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    if mode == CacheMode.UINT4:
+        return torch.cat([t & 0xF, t >> 4], dim=-1).to(torch.int32)
+    return t.to(torch.int32) if mode == CacheMode.INT8 else t.float()
+
+
+def check_megakernel_case(cfg, params, stream, mode, gen, dev,
+                          lens=None, inactive=None):
+    """One step (B = 8 unless `lens` says otherwise) through the kernel and
+    through the plain version, on clones of one pool: logits of the active
+    rows, the written token, and every other pool byte."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    if lens is None:
+        lens, inactive = MK_LENS, MK_INACTIVE
+    B, L = len(lens), cfg.num_layers
+    plan, packed = mk_plan_pack(cfg, params, B, mode)
+    st = mk_state(cfg, mode, B, lens, inactive, gen, dev)
+    x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
+    before = st["cache"]
+    caches = {True: before.clone(), False: before.clone()}
+    out = {}
+    for kernel in (True, False):
+        fn = mk.decode_megakernel if kernel else mk.decode_megakernel_ref
+        out[kernel] = fn(plan, packed, x0, st["cos"], st["sin"], st["pt"],
+                         st["lens"], st["active"], caches[kernel])
+    mk.check_status(plan, dev)
+    torch.cuda.synchronize()
+    what = f"megakernel {stream}/{mode.value}" + (
+        f" B={B}" if B != DECODE_BATCH else "")
+    act = st["active"]
+    got, ref = out[True][act], out[False][act]
+    check(bool(torch.isfinite(got).all()), f"{what}: logits not finite")
+    err = (got - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    check(err <= LOGITS_RTOL * ref_max,
+          f"{what}: logits differ {err:.3e} > {LOGITS_RTOL} * {ref_max:.3e}")
+    # equal argmax, unless the plain version itself holds the two
+    # candidates closer than twice the measured difference (a tie)
+    pick = got.argmax(-1)
+    tie = ref.max(-1).values - ref.gather(1, pick[:, None])[:, 0]
+    same = int((pick == ref.argmax(-1)).sum().item())
+    check(bool((tie <= 2 * err).all()), f"{what}: argmax differs")
+    # the pool: only the new token's rows may change
+    written = torch.zeros(before.k.shape[:2], dtype=torch.bool, device=dev)
+    for b in range(B):
+        if b == inactive:
+            continue
+        g, off = int(st["pt"][b, lens[b] // PAGE]), lens[b] % PAGE
+        written[g * L:(g + 1) * L, off] = True
+    pool_err = qp_err = qp_err0 = 0.0
+    quant = mode != CacheMode.DEFAULT
+    for name in ("k", "v"):
+        a, r, b0 = (getattr(c, name) for c in (caches[True], caches[False],
+                                               before))
+        check(bool((a[~written] == b0[~written]).all()),
+              f"{what}: {name} pool changed outside the written tokens")
+        check(bool((a[written] != b0[written]).any(-1).all()),
+              f"{what}: a new token's {name} row was not written")
+        d = (kv_levels(a[written], mode) - kv_levels(r[written], mode)).abs()
+        if quant:       # at most one quantization level apart
+            pool_err = max(pool_err, float(d.max().item()))
+            check(pool_err <= 1, f"{what}: {name} payload {pool_err} levels")
+        else:           # one bf16 step on top of the qparams' tolerances
+            rv = kv_levels(r[written], mode).abs()
+            layer0 = (torch.arange(written.shape[0], device=dev)[:, None]
+                      .expand_as(written)[written] % L == 0)[:, None]
+            tol = BF16_STEP * rv + rv.amax(-1, keepdim=True) * torch.where(
+                layer0, QPARAM_RTOL, DEEP_QPARAM_RTOL)
+            check(bool((d <= tol).all()), f"{what}: {name} payload differs "
+                  f"by up to {d.max().item():.3e} (max|ref| "
+                  f"{rv.max().item():.3e})")
+        if quant:
+            a, r, b0 = (getattr(c, name + "_qparams") for c in
+                        (caches[True], caches[False], before))
+            wq = written[:, None, :].expand_as(a)
+            check(bool((a[~wq] == b0[~wq]).all()),
+                  f"{what}: {name} qparams changed outside the written "
+                  "tokens")
+            # [pages, ps, 2*KH] at the written tokens: scale rows even,
+            # zero rows odd; both relative to the token's range
+            aw, rw = (t.permute(0, 2, 1)[written] for t in (a, r))
+            rng_ = rw[:, 0::2] * (255.0 if mode == CacheMode.INT8 else 15.0)
+            rel = torch.maximum(
+                (aw[:, 0::2] - rw[:, 0::2]).abs() / rw[:, 0::2],
+                (aw[:, 1::2] - rw[:, 1::2]).abs() / rng_).amax(-1)
+            layer = torch.arange(written.shape[0], device=dev)[:, None] \
+                .expand_as(written)[written] % L
+            qp_err0 = max(qp_err0, rel[layer == 0].max().item())
+            qp_err = max(qp_err, rel.max().item())
+            by_layer = [round(rel[layer == l].max().item(), 5)
+                        for l in range(L)]
+            check(qp_err0 <= QPARAM_RTOL and qp_err <= DEEP_QPARAM_RTOL,
+                  f"{what}: {name} qparams differ: layer 0 {qp_err0:.2e}, "
+                  f"all layers {qp_err:.2e}; by layer {by_layer}")
+    print(f"{what}: logits max|d|={err:.3e} (ref max {ref_max:.3e}), argmax "
+          f"equal {same}/{int(act.sum())}, written payload within "
+          f"{pool_err:g} level, qparams rel {qp_err0:.1e} (layer 0) "
+          f"{qp_err:.1e} (all layers), rest of the pool "
+          "unchanged", flush=True)
+    return dict(stream=stream, mode=mode.value, max_abs_err=err,
+                ref_max=ref_max, argmax_equal=same, pool_levels=pool_err,
+                qparam_rel_layer0=qp_err0, qparam_rel=qp_err)
+
+
+def time_megakernel(cfg, params, stream, B, lens, gen, dev, per_op=True):
+    """ms per decode forward (graph replay, CUDA events) through the
+    megakernel, through it without its attention phases, and through the
+    per-op forward, on the same INT8 state."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.models import transformer
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    mode = CacheMode.INT8
+    plan, packed = mk_plan_pack(cfg, params, B, mode)
+    st = mk_state(cfg, mode, B, lens, None, gen, dev)
+    x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
+
+    def run(skip):
+        return mk.decode_megakernel(plan, packed, x0, st["cos"], st["sin"],
+                                    st["pt"], st["lens"], st["active"],
+                                    st["cache"], skip_attention=skip)
+
+    row = dict(stream=stream, B=B, lens_sum=sum(lens),
+               geometry=mk.launch_geometry(plan, dev),
+               ms=time_ms(run, [(False,)], iters=5),
+               no_attention_ms=time_ms(run, [(True,)], iters=5))
+    mk.check_status(plan, dev)
+    # where one launch's time goes: block 0's timestamps, by phase kind
+    trace = torch.zeros(mk.trace_len(plan), dtype=torch.int64, device=dev)
+    mk.decode_megakernel(plan, packed, x0, st["cos"], st["sin"], st["pt"],
+                         st["lens"], st["active"], st["cache"], trace=trace)
+    torch.cuda.synchronize()
+    row["phases"] = mk.phase_times(plan, trace)
+    if per_op:
+        row["per_op_ms"] = time_ms(
+            lambda: transformer.decode_forward(
+                cfg, params, st["tokens"], st["cache"], st["pt"], st["lens"],
+                st["active"], mode=mode), [()], iters=3)
+    nbytes = (plan.weight_bytes + kv_bytes_read(cfg, mode, lens, [1] * B) +
+              B * plan.V * 4)
+    n_w = sum(sp.K * sp.Ntot * (1 if sp.name == "lm" else plan.L)
+              for sp in plan.streams)
+    ops = 2.0 * B * n_w
+    row.update(weight_bytes=plan.weight_bytes, **bounds(nbytes, ops))
+    print(f"megakernel {stream} B={B} (cached tokens {sum(lens)}): "
+          f"{row['ms']:.3f} ms/step, without attention "
+          f"{row['no_attention_ms']:.3f}, byte bound {row['bytes_ms']:.3f}"
+          + (f", per-op graph {row['per_op_ms']:.3f}" if per_op else "")
+          + f"; grid {row['geometry']['grid']}, K splits "
+          f"{row['geometry']['splits']}", flush=True)
+    print("  phases, ms work+wait (block 0, one traced launch): "
+          + ", ".join(f"{k} {v['work']:.2f}+{v['wait']:.2f}"
+                      for k, v in row["phases"].items()), flush=True)
+    return row
+
+
+def check_megakernel(params, dev, details):
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode, ModelConfig
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.tools import bench_stream
+    cfg = ModelConfig(**QWEN2_7B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    i8_params = random_qwen2_7b_params(SEED + 1, dev, stream="i8")
+    i8_params["embed_tokens"] = params["embed_tokens"]
+    cases, times = [], []
+    for stream, p in (("u4", params), ("i8", i8_params)):
+        for mode in (CacheMode.INT8, CacheMode.UINT4, CacheMode.DEFAULT):
+            cases.append(check_megakernel_case(cfg, p, stream, mode, gen,
+                                               dev))
+    # B = 32: the kernel's two-m-tile instantiation, several norm items a
+    # block
+    lens32 = [(37 + 61 * i) % 1500 + 1 for i in range(32)]
+    cases.append(check_megakernel_case(cfg, params, "u4", CacheMode.INT8, gen,
+                                       dev, lens32, 17))
+    cases.append(check_megakernel_case(cfg, i8_params, "i8", CacheMode.INT8,
+                                       gen, dev, lens32, 17))
+    # the plain version's time (one run, host clock around a synchronize)
+    plan, packed = mk_plan_pack(cfg, params, DECODE_BATCH, CacheMode.INT8)
+    st = mk_state(cfg, CacheMode.INT8, DECODE_BATCH, MK_LENS, None, gen, dev)
+    x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mk.decode_megakernel_ref(plan, packed, x0, st["cos"], st["sin"],
+                             st["pt"], st["lens"], st["active"], st["cache"])
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    del st, plan, packed
+    long_lens = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
+    times.append(time_megakernel(cfg, params, "u4", 8, MK_LENS, gen, dev))
+    times.append(time_megakernel(cfg, params, "u4", 8, long_lens, gen, dev))
+    times.append(time_megakernel(cfg, params, "u4", 32, lens32, gen, dev))
+    times.append(time_megakernel(cfg, i8_params, "i8", 32, lens32, gen, dev,
+                                 per_op=False))
+    times.append(time_megakernel(cfg, i8_params, "i8", 8, MK_LENS, gen, dev,
+                                 per_op=False))
+    del i8_params
+    torch.cuda.empty_cache()
+    replica = bench_stream.measure_replica(DECODE_BATCH, dev, num_layers=4)
+    print(f"bench_stream replica (4 layers + lm_head, B={DECODE_BATCH}): "
+          f"{replica['ms']:.3f} ms, {replica['gbps']:.0f} GB/s", flush=True)
+    details["megakernel"] = dict(cases=cases, times=times, plain_ms=plain_ms,
+                                 replica=replica)
+    base = times[0]
+    print(f"megakernel plain version: {plain_ms:.1f} ms/step", flush=True)
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=base["ms"], plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(base["bytes_ms"], base["ops_ms"]),
+                bound_by=("bytes" if base["bytes_ms"] >= base["ops_ms"]
+                          else "operations"))
+
+
+def check_stream_probe(dev, details):
+    """csrc/stream_probe.cu through the tool's entry point: every format
+    against its plain version, and its rate."""
+    from dashinfer_tpu_torch.tools import bench_stream
+    bench_stream.counter.reset()
+    rows = bench_stream.measure_rates(DECODE_BATCH, dev)
+    launches = bench_stream.counter.read()
+    rows += bench_stream.measure_rates(32, dev,
+                                       formats=("i8_pc", "u4_g128"))
+    for r in rows:
+        r.update(bounds(r["bytes"], 0 if r["format"] == "copy"
+                        else 2.0 * r["B"] * r["K"] * r["N"]))
+        print(f"stream_probe {r['format']:8s} B={r['B']:2d} "
+              f"{r['bytes'] / 1e6:6.1f} MB err={r['max_abs_err']:.2e} "
+              f"ms={r['ms']:.4f} ({r['gbps']:.0f} GB/s) "
+              f"bound={r['bytes_ms']:.4f} plain={r['plain_ms']:.3f}"
+              + (f"; loads only {r['nodot_ms']:.4f}, dot only "
+                 f"{r['noload_ms']:.4f}, compute only "
+                 f"{r['computeonly_ms']:.4f}, pipeline only "
+                 f"{r['pipeonly_ms']:.4f}" if "nodot_ms" in r else ""),
+              flush=True)
+        check(r["max_abs_err"] <= KERNEL_RTOL * r["ref_max"],
+              f"stream_probe {r['format']} B={r['B']}: max|d| "
+              f"{r['max_abs_err']:.3e} vs max|ref| {r['ref_max']:.3e}")
+    check(launches > 0, "stream_probe was not launched by measure_rates")
+    details["stream_probe"] = rows
+    u4 = next(r for r in rows if r["format"] == "u4_g128"
+              and r["B"] == DECODE_BATCH)
+    return dict(launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows
+                                if r["format"] != "copy"),
+                ms=u4["ms"], plain_ms=u4["plain_ms"], library_ms=None,
+                bound_ms=max(u4["bytes_ms"], u4["ops_ms"]),
+                bound_by="bytes" if u4["bytes_ms"] >= u4["ops_ms"]
+                else "operations")
 
 
 def check_decode_logits(params, dev, details):
@@ -529,10 +906,20 @@ def check_decode_logits(params, dev, details):
         print(f"  {ms:8.3f} ms  {name[:90]}", flush=True)
 
 
+PHASES = ("quant_matmul", "paged_attention", "stream_probe", "megakernel",
+          "serve", "decode_logits")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", help="write per-shape results as JSON here")
+    ap.add_argument("--only", help="comma-separated subset of "
+                    f"{', '.join(PHASES)} (after the build); prints no "
+                    "final result line")
     args = ap.parse_args(argv)
+    only = tuple(args.only.split(",")) if args.only else PHASES
+    if any(p not in PHASES for p in only):
+        ap.error(f"--only takes {PHASES}")
 
     import torch
     if not torch.cuda.is_available():
@@ -547,7 +934,15 @@ def main(argv=None) -> int:
         return 3
 
     dev = torch.device("cuda", 0)
-    details = {}
+    details, res = {}, {}
+    t_start = time.monotonic()
+
+    def phase(name):
+        if name in only:
+            print(f"-- {name} (t = {time.monotonic() - t_start:.0f} s)",
+                  flush=True)
+        return name in only
+
     try:
         with torch.no_grad():
             name = torch.cuda.get_device_name(0)
@@ -564,12 +959,21 @@ def main(argv=None) -> int:
 
             gen = torch.Generator(device=dev)
             gen.manual_seed(SEED)
-            qmm = check_quant_matmul(gen, dev, details)
-            pa = check_paged_attention(gen, dev, details)
-
+            if phase("quant_matmul"):
+                res["quant_matmul"] = check_quant_matmul(gen, dev, details)
+            if phase("paged_attention"):
+                res["paged_attention"] = check_paged_attention(gen, dev,
+                                                               details)
+            if phase("stream_probe"):
+                res["stream_probe"] = check_stream_probe(dev, details)
             params = random_qwen2_7b_params(SEED, dev)
-            launches = serve(params, dev, details)
-            check_decode_logits(params, dev, details)
+            if phase("megakernel"):
+                res["decode_megakernel"] = check_megakernel(params, dev,
+                                                            details)
+            if phase("serve"):
+                mk_launches, op_launches = check_serving(params, dev, details)
+            if phase("decode_logits"):
+                check_decode_logits(params, dev, details)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -579,17 +983,40 @@ def main(argv=None) -> int:
                         exist_ok=True)
             with open(args.details, "w") as f:
                 json.dump(details, f, indent=1, default=str)
+    print(f"-- done (t = {time.monotonic() - t_start:.0f} s)", flush=True)
+    if only != PHASES:
+        return 0
 
+    # launches: each kernel's count over the timed requests of the path it
+    # serves (the per-op path for the first two, the megakernel path for
+    # the third), and over the probe tool's rate run for the fourth
+    csrc = "dashinfer_tpu_torch/csrc/"
     kernels = [
         dict(name="quant_matmul", route="cuda",
-             source="dashinfer_tpu_torch/csrc/quant_matmul.cu",
+             source=csrc + "quant_matmul.cu",
              replaces="dashinfer_tpu/ops/pallas/quant_matmul.py:80",
-             launches=launches["quant_matmul"], **qmm),
+             launches=op_launches["quant_matmul"], **res["quant_matmul"]),
         dict(name="paged_attention", route="cuda",
-             source="dashinfer_tpu_torch/csrc/paged_attention.cu",
+             source=csrc + "paged_attention.cu",
              replaces="dashinfer_tpu/ops/pallas/paged_attention.py:148",
-             launches=launches["paged_attention"], **pa),
+             launches=op_launches["paged_attention"],
+             **res["paged_attention"]),
+        dict(name="decode_megakernel", route="cuda",
+             source=csrc + "megakernel.cu",
+             replaces="dashinfer_tpu/ops/pallas/megakernel.py:1297",
+             launches=mk_launches["decode_megakernel"],
+             **res["decode_megakernel"]),
+        dict(name="stream_probe", route="cuda",
+             source=csrc + "stream_probe.cu",
+             replaces="tools/bench_stream.py:41", **res["stream_probe"]),
     ]
+    for k in kernels:
+        check_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms")
+        if any(key not in k for key in check_keys) or k["launches"] <= 0:
+            print(f"chip_smoke: FAIL: kernel line of {k['name']}: {k}",
+                  file=sys.stderr)
+            return 1
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -177,8 +177,8 @@ class RuntimeConfig:
     enable_json_mode: bool = False
 
     # whole-model decode megakernel fast path (auto-disabled when the
-    # architecture/quant combination is unsupported). The PyTorch port has
-    # no megakernel yet: it logs that once and serves the per-op path.
+    # architecture/quant combination is unsupported: the runtime then logs
+    # why and serves the per-op path).
     enable_megakernel: bool = True
 
     # decode steps fused into one jitted launch (lax.scan): amortizes the

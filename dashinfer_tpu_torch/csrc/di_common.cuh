@@ -1,0 +1,156 @@
+// Device code shared by the kernels of this directory (sm_90a): type
+// helpers, warp reductions, cp.async, the mma.sync m16n8k16 dot, quant_matmul's
+// B fragments made from row-major u4 / int8 payload, and the KV-pool row loads
+// of the attention kernels.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
+
+namespace di {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float2 bf16_round2(float2 v) {
+  return __bfloat1622float2(__float22bfloat162_rn(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += A (16x16 bf16, row) * B (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(v)));
+}
+
+// B fragments of one k16 step for the low- and high-column mma tiles of a
+// 256-column weight tile staged in shared memory, `row_bytes` per K row:
+// rows r, r+1 (b0) and r+8, r+9 (b1), lower k in the low half.
+//   BITS 4: byte `col` holds columns col (low nibble) and col + 128 (high);
+//           level n -> bf16(128 + n) = 0x4300 | n (the caller takes the
+//           128 * sum(x) back off in the group affine);
+//   BITS 8: int8 at byte col and col + 128, exact in bf16.
+template <int BITS>
+__device__ __forceinline__ void b_frags(const uint8_t* w_s, int row_bytes,
+                                        int r, int col, uint32_t (&lo)[2],
+                                        uint32_t (&hi)[2]) {
+  if (BITS == 4) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = r + 8 * i;
+      const uint32_t pair = static_cast<uint32_t>(w_s[rr * row_bytes + col]) |
+                            (static_cast<uint32_t>(
+                                 w_s[(rr + 1) * row_bytes + col]) << 16);
+      lo[i] = (pair & 0x000F000Fu) | 0x43004300u;
+      hi[i] = ((pair >> 4) & 0x000F000Fu) | 0x43004300u;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = r + 8 * i;
+      const int8_t* p0 = reinterpret_cast<const int8_t*>(w_s + rr * row_bytes);
+      const int8_t* p1 = p0 + row_bytes;
+      lo[i] = bf16_bits((float)p0[col]) | (bf16_bits((float)p1[col]) << 16);
+      hi[i] = bf16_bits((float)p0[col + 128]) |
+              (bf16_bits((float)p1[col + 128]) << 16);
+    }
+  }
+}
+
+// KV pool payload kinds (the wrappers pass these numbers).
+enum KvKind { kF32 = 0, kBF16 = 1, kI8 = 2, kU4 = 3 };
+
+// Loads the DPL head dims this lane owns from one token's head row.
+// Lane l owns dims l*DPL .. l*DPL+DPL-1, except under UINT4, where it owns
+// the bytes l*DPL/2 .. and so dims (lo) l*DPL/2 + i and (hi) D/2 + l*DPL/2 + i.
+template <int KIND, int DPL>
+__device__ __forceinline__ void load_row(const void* pool, size_t base,
+                                         int lane, float (&v)[DPL]) {
+  if (KIND == kF32) {
+    const float* p = static_cast<const float*>(pool) + base + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) v[i] = p[i];
+  } else if (KIND == kBF16) {
+    const __nv_bfloat16* p =
+        static_cast<const __nv_bfloat16*>(pool) + base + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) v[i] = __bfloat162float(p[i]);
+  } else if (KIND == kI8) {
+    const int8_t* p = static_cast<const int8_t*>(pool) + base + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) v[i] = (float)p[i];
+  } else {
+    const uint8_t* p =
+        static_cast<const uint8_t*>(pool) + base + lane * (DPL / 2);
+#pragma unroll
+    for (int i = 0; i < DPL / 2; ++i) {
+      const uint8_t b = p[i];
+      v[i] = (float)(b & 0xF);
+      v[i + DPL / 2] = (float)(b >> 4);
+    }
+  }
+}
+
+// The head dim of register i of lane `lane` under load_row's ownership.
+template <int KIND, int DPL>
+__device__ __forceinline__ int dim_of(int lane, int i) {
+  if (KIND == kU4)
+    return i < DPL / 2 ? lane * (DPL / 2) + i
+                       : 16 * DPL + lane * (DPL / 2) + (i - DPL / 2);
+  return lane * DPL + i;
+}
+
+}  // namespace di

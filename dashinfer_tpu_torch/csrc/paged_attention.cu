@@ -28,71 +28,14 @@
 // a sequential grid axis is a loop inside the block; chunks and pages past
 // lens[b] are never read.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stdint.h>
+#include "di_common.cuh"
 
 namespace {
 
+using namespace di;
+
 constexpr int kWarps = 4;
 constexpr int kMaxG = 8;
-
-enum KvKind { kF32 = 0, kBF16 = 1, kI8 = 2, kU4 = 3 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Loads the DPL head dims this lane owns from one token's head row.
-// Lane l owns dims l*DPL .. l*DPL+DPL-1, except under UINT4, where it owns
-// the bytes l*DPL/2 .. and so dims (lo) l*DPL/2 + i and (hi) D/2 + l*DPL/2 + i.
-template <int KIND, int DPL>
-__device__ __forceinline__ void load_row(const void* pool, size_t base,
-                                         int lane, float (&v)[DPL]) {
-  if (KIND == kF32) {
-    const float* p = static_cast<const float*>(pool) + base + lane * DPL;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) v[i] = p[i];
-  } else if (KIND == kBF16) {
-    const __nv_bfloat16* p =
-        static_cast<const __nv_bfloat16*>(pool) + base + lane * DPL;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) v[i] = __bfloat162float(p[i]);
-  } else if (KIND == kI8) {
-    const int8_t* p = static_cast<const int8_t*>(pool) + base + lane * DPL;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) v[i] = (float)p[i];
-  } else {
-    const uint8_t* p =
-        static_cast<const uint8_t*>(pool) + base + lane * (DPL / 2);
-#pragma unroll
-    for (int i = 0; i < DPL / 2; ++i) {
-      const uint8_t b = p[i];
-      v[i] = (float)(b & 0xF);
-      v[i + DPL / 2] = (float)(b >> 4);
-    }
-  }
-}
-
-template <int KIND, int DPL>
-__device__ __forceinline__ int dim_of(int lane, int i) {
-  if (KIND == kU4)
-    return i < DPL / 2 ? lane * (DPL / 2) + i
-                       : 16 * DPL + lane * (DPL / 2) + (i - DPL / 2);
-  return lane * DPL + i;
-}
 
 // grid = (KH, B, n_chunks); block = 32 * kWarps threads;
 // dynamic shared memory = kWarps * G * (D + 2) floats. Writes the chunk's

@@ -33,13 +33,13 @@
 // K range is split across blocks (grid.y) and a second small kernel sums the
 // f32 partials.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "di_common.cuh"
 
 #include <algorithm>
 
 namespace {
+
+using namespace di;
 
 constexpr int kTileN = 256;     // output columns per block
 constexpr int kChunkK = 64;     // K rows staged per step
@@ -47,79 +47,6 @@ constexpr int kThreads = 256;   // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kXStride = kChunkK + 8;   // bf16; keeps A-fragment loads
                                         // free of bank conflicts
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// d += A (16x16 bf16, row) * B (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(float v) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(v)));
-}
-
-// B fragments of one k16 step for the low- and high-column mma tiles of
-// byte column `col`: rows r, r+1 (b0) and r+8, r+9 (b1), lower k in the low
-// half. u4: level n -> bf16(128 + n) = 0x4300 | n. i8: exact bf16 of q.
-template <int BITS>
-__device__ __forceinline__ void b_frags(const uint8_t* w_s, int row_bytes,
-                                        int r, int col, uint32_t (&lo)[2],
-                                        uint32_t (&hi)[2]) {
-  if (BITS == 4) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rr = r + 8 * i;
-      const uint32_t pair = static_cast<uint32_t>(w_s[rr * row_bytes + col]) |
-                            (static_cast<uint32_t>(
-                                 w_s[(rr + 1) * row_bytes + col]) << 16);
-      lo[i] = (pair & 0x000F000Fu) | 0x43004300u;
-      hi[i] = ((pair >> 4) & 0x000F000Fu) | 0x43004300u;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rr = r + 8 * i;
-      const int8_t* p0 = reinterpret_cast<const int8_t*>(w_s + rr * row_bytes);
-      const int8_t* p1 = p0 + row_bytes;
-      lo[i] = bf16_bits((float)p0[col]) | (bf16_bits((float)p1[col]) << 16);
-      hi[i] = bf16_bits((float)p0[col + 128]) |
-              (bf16_bits((float)p1[col + 128]) << 16);
-    }
-  }
-}
 
 // Per-call x preparation, one block per K chunk (64 rows of one quant
 // group): the chunk's x as the bf16 dot operand, zero past M and past the

@@ -1,10 +1,13 @@
 """Per-model runtime: device state + synchronous scheduling primitives.
 
-Counterpart of the per-op serving subset of
-`dashinfer_tpu.engine.model_runtime`: request validation, prefill buckets,
+Counterpart of the single-device serving subset of
+`dashinfer_tpu.engine.model_runtime`: the megakernel install (weight-only
+view, stream rule, plan, pack), request validation, prefill buckets,
 KV-pool planning, the decide/execute split of prefill admission and of the
 single-step decode tick, token drains, finishing, OOM eviction and
 stop/release. The Engine's control loop (engine/engine.py) calls into this.
+Decode runs through the decode megakernel when `ops.megakernel.supports`
+admits the model, else through the per-op path; prefill is per-op.
 
 Page accounting: the allocator hands out LOGICAL pages; logical page `g`
 owns physical pages `g*L + l` for each layer l.
@@ -28,8 +31,10 @@ from dashinfer_tpu_torch.config import (EvictionStrategy, GenerationConfig,
                                         ModelConfig, RuntimeConfig)
 from dashinfer_tpu_torch.engine import steps as steps_mod
 from dashinfer_tpu_torch.engine.stats import EngineStat
-from dashinfer_tpu_torch.loader.convert import torch_dtype
+from dashinfer_tpu_torch.loader.convert import (params_from_numpy,
+                                                torch_dtype)
 from dashinfer_tpu_torch.models.transformer import check_supported
+from dashinfer_tpu_torch.ops import megakernel as mk
 from dashinfer_tpu_torch.runtime.batch_state import make_decode_state
 from dashinfer_tpu_torch.runtime.kv_cache import (create_kv_cache,
                                                   logical_page_bytes)
@@ -88,7 +93,34 @@ def _unported_request_features(g: GenerationConfig) -> List[str]:
 def _weight_bytes(params) -> int:
     if isinstance(params, dict):
         return sum(_weight_bytes(v) for v in params.values())
+    if isinstance(params, np.ndarray):
+        return params.nbytes
     return params.numel() * params.element_size()
+
+
+def _has_leaf_key(tree, key: str) -> bool:
+    if not isinstance(tree, dict):
+        return False
+    return key in tree or any(_has_leaf_key(v, key) for v in tree.values())
+
+
+def _host_tree(tree):
+    """Tensor tree -> numpy tree (bf16 leaves as float32)."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _shape_tree(tree):
+    """Tensor tree -> numpy leaves of the same shape and dtype that hold no
+    data (for the shape-only `expand_u4_to_i8(meta_only=True)`)."""
+    if isinstance(tree, dict):
+        return {k: _shape_tree(v) for k, v in tree.items()}
+    dt = {torch.uint8: np.uint8, torch.int8: np.int8}.get(tree.dtype,
+                                                         np.float32)
+    return np.lib.stride_tricks.as_strided(
+        np.zeros((), dt), tuple(tree.shape), (0,) * tree.dim())
 
 
 class ModelRuntime:
@@ -101,15 +133,15 @@ class ModelRuntime:
         if missing:
             raise NotImplementedError(
                 f"{', '.join(missing)}: not ported to the PyTorch package yet")
-        if rt.enable_megakernel:
-            logger.info("the decode/prefill megakernels are not ported to "
-                        "the PyTorch package yet; serving the per-op path")
         self.name = name
         self.cfg = cfg
         self.rt = rt
         self.device = torch.device(device)
         self.dtype = torch_dtype(rt.dtype)
         self.params = params
+        self.mega_plan = None
+        self.mega_params = None
+        self._install_megakernel()
 
         # the last launched decode step's (tokens, batch), drained one tick
         # later; prefill first tokens awaiting the same drain
@@ -125,7 +157,8 @@ class ModelRuntime:
         self.state = make_decode_state(cfg, rt, self.device)
         self.allocator = PageAllocator(self.num_logical_pages)
 
-        self._decode_step = steps_mod.build_decode_step(cfg, rt)
+        self._decode_step = steps_mod.build_decode_step(
+            cfg, rt, megakernel_plan=self.mega_plan)
         self._prefill_steps: Dict[int, Callable] = {}
         self._deactivate = steps_mod.build_deactivate(cfg, rt)
 
@@ -135,6 +168,119 @@ class ModelRuntime:
         self.queues: Dict[str, ResultQueue] = {}
         self.stat = EngineStat(model_name=name)
         self._cached_len: Dict[str, int] = {}
+
+    # -- megakernel install ---------------------------------------------------
+    def _install_megakernel(self) -> None:
+        """The JAX runtime's install order: weight-only view -> stream rule
+        (u4 leaves re-expanded to per-channel i8 at large max_batch, dense
+        models only, when the card can hold them beside the raw params) ->
+        supports -> make_plan -> pack_params -> mega_params = {"packed",
+        "embed"} with the one embedding copy. A model `supports` turns down
+        is served per-op, with the reason logged."""
+        rt, cfg = self.rt, self.cfg
+        res = EnvConfig.weight_residency() or rt.weight_residency
+        if res not in ("auto", "both", "pack_only"):
+            logger.warning("unknown weight_residency %r; using auto", res)
+            res = "auto"
+        if res == "pack_only":
+            # needs the prefill megakernel, which the port does not have yet
+            raise ValueError(
+                "weight_residency=pack_only needs the decode AND prefill "
+                "megakernels active on a single-chip mesh without LoRA "
+                f"(megakernel={rt.enable_megakernel}, prefill_buckets=[], "
+                f"mesh=False, lora={rt.enable_lora})")
+        if not (rt.enable_megakernel and EnvConfig.megakernel_enabled()):
+            logger.info("megakernel disabled by configuration; serving the "
+                        "per-op path")
+            return
+        t0 = time.monotonic()
+        src = self.params
+        if _has_leaf_key(src, "w_q8") or _has_leaf_key(src, "w_f8"):
+            view = mk.weight_only_decode_view(_host_tree(src))
+            if view is None:
+                logger.info("megakernel: the model has no weight-only decode "
+                            "view; serving the per-op path")
+                return
+            src = params_from_numpy(view, self.device, self.dtype)
+        stream = EnvConfig.mk_stream()
+        expanded = False
+        if stream != "u4" and cfg.moe is None and (
+                stream == "i8" or rt.max_batch >= EnvConfig.mk_i8_batch()):
+            meta = mk.expand_u4_to_i8(_shape_tree(src), meta_only=True)
+            if meta is not None and self._i8_pack_fits(meta):
+                if not mk.supports(cfg, rt, meta):
+                    self._log_unsupported(meta)
+                    return
+                logger.info("decode stream: u4 -> per-channel i8 "
+                            "re-expansion (max_batch=%d)", rt.max_batch)
+                i8 = mk.expand_u4_to_i8_tensors({"layers": {
+                    n: src["layers"][n] for _, names in mk._LAYER_STREAMS
+                    for n in names}, "lm_head": src["lm_head"]})
+                src = dict(src, lm_head=i8["lm_head"],
+                           layers=dict(src["layers"], **i8["layers"]))
+                expanded = True
+        if not mk.supports(cfg, rt, src):
+            self._log_unsupported(src)
+            return
+        plan = mk.make_plan(cfg, rt, src)
+        if self.device.type == "cuda":
+            gaps = mk.cuda_kernel_gaps(plan)
+            if gaps:
+                logger.warning("megakernel: the CUDA kernel does not take "
+                               "this model (%s); serving the per-op path",
+                               "; ".join(gaps))
+                return
+        packed = mk.pack_params(cfg, plan, src)
+        self.mega_plan = plan
+        self.mega_params = {"packed": packed,
+                            "embed": self.params["embed_tokens"]["w"]}
+        extra = mk.packed_extra_bytes(packed, self.params)
+        logger.info(
+            "megakernel packed in %.1fs: streams %s, %.2f GiB streamed per "
+            "step; weight residency both (requested %s): raw params %.2f "
+            "GiB, pack %.2f GiB beside them (%s)",
+            time.monotonic() - t0,
+            "/".join(f"{s.name}:{s.bits}b" for s in plan.streams),
+            plan.weight_bytes / 1024**3, res,
+            _weight_bytes(self.params) / 1024**3, extra / 1024**3,
+            "the i8 re-expansion in fragment order" if expanded
+            else "a fragment-ordered copy of the payloads")
+
+    def _i8_pack_fits(self, meta) -> bool:
+        """The raw params stay resident (prefill and the per-op path read
+        them), so the i8 pack must fit beside them."""
+        est = _weight_bytes({"layers": {
+            n: {k: v for k, v in meta["layers"][n].items() if k != "b"}
+            for _, names in mk._LAYER_STREAMS for n in names},
+            "lm_head": meta["lm_head"]})
+        total = self.rt.hbm_bytes
+        if not total and self.device.type == "cuda":
+            total = torch.cuda.get_device_properties(self.device).total_memory
+        if not total:
+            return True
+        raw_b = _weight_bytes(self.params)
+        budget = int(total * EnvConfig.hbm_mem_ratio())
+        if raw_b + est + 512 * 1024**2 > budget:
+            logger.warning(
+                "i8 stream re-expansion skipped: raw params stay resident "
+                "(residency=both) and raw %.2f GiB + estimated i8 pack %.2f "
+                "GiB exceeds the %.2f GiB budget; keeping the u4 stream",
+                raw_b / 1024**3, est / 1024**3, budget / 1024**3)
+            return False
+        return True
+
+    def _log_unsupported(self, src) -> None:
+        rt64 = dataclasses.replace(self.rt, max_batch=mk.MAX_BATCH)
+        if self.rt.max_batch > mk.MAX_BATCH and \
+                mk.supports(self.cfg, rt64, src):
+            logger.warning(
+                "max_batch=%d exceeds the decode megakernel's supported "
+                "batch (%d); decode falls back to the per-op path",
+                self.rt.max_batch, mk.MAX_BATCH)
+        else:
+            logger.info("megakernel: the model or its quantization is not "
+                        "supported (ops.megakernel.supports); serving the "
+                        "per-op path")
 
     # -- planning ------------------------------------------------------------
     def _plan_pool(self) -> int:
@@ -418,7 +564,8 @@ class ModelRuntime:
                 noise_rows[r.slot] = (int(r.gen_cfg.seed) & 0xFFFFFFFF,
                                       self._cached_len[r.uuid])
         tokens, self.cache, self.state = self._decode_step(
-            self.params, self.cache, self.state,
+            self.params if self.mega_plan is None else self.mega_params,
+            self.cache, self.state,
             steps_mod.to_device(d.new_page_ids, self.device), noise_rows)
         for req in act:
             self._cached_len[req.uuid] += 1
@@ -459,6 +606,9 @@ class ModelRuntime:
         self._drain_prefill_tokens()
         tokens_t, act = batch
         tokens = tokens_t.cpu().numpy()
+        if self.mega_plan is not None:
+            # a grid barrier that gave up leaves its mark here: raise
+            mk.check_status(self.mega_plan, self.device)
         n = 0
         for req in act:
             if self.requests.get(req.uuid) is not req or req.slot < 0:

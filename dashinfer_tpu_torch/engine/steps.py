@@ -12,7 +12,8 @@ sampling row) come in as Python values, so a step never reads a device
 value back. On the card the decode step's model forward is captured once in
 a CUDA graph and replayed every step: its inputs are the persistent state
 and pool tensors, so one graph launch replaces the forward's ~2,000 kernel
-launches.
+launches. With a megakernel plan the forward is the embedding gather, the
+RoPE tiles and ONE launch of the decode megakernel (ops/megakernel.py).
 """
 
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -22,7 +23,9 @@ import torch
 
 from dashinfer_tpu_torch.config import ModelConfig, RuntimeConfig
 from dashinfer_tpu_torch.models import transformer
+from dashinfer_tpu_torch.ops import megakernel as mk
 from dashinfer_tpu_torch.ops import sampling as sampling_ops
+from dashinfer_tpu_torch.ops.rotary import compute_inv_freq, rope_cos_sin
 from dashinfer_tpu_torch.runtime.batch_state import (DecodeState,
                                                      SamplingParams)
 from dashinfer_tpu_torch.runtime.kv_cache import KVCache
@@ -129,18 +132,44 @@ def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig,
     return step
 
 
-class _DecodeForward:
-    """transformer.decode_forward over the state's tensors. For CUDA tensors
-    the first call captures it in a CUDA graph (after one eager warm-up
-    run) and every call replays it, so every call must pass the same
-    params, pool and state objects (the runtime owns one of each)."""
+def _rope_tiles(cfg: ModelConfig, pos: torch.Tensor):
+    """Full-D cos/sin tiles [len(pos), D] bf16 for the megakernel
+    (half-split rope convention, ops/rotary.py)."""
+    cos, sin = rope_cos_sin(pos, compute_inv_freq(cfg, pos.device))
+    return (torch.cat([cos, cos], dim=-1).to(torch.bfloat16),
+            torch.cat([sin, sin], dim=-1).to(torch.bfloat16))
 
-    def __init__(self, cfg: ModelConfig, rt: RuntimeConfig):
+
+def _megakernel_forward(cfg: ModelConfig, plan, params, state: DecodeState,
+                        cache: KVCache) -> torch.Tensor:
+    """One whole-model decode forward through the megakernel. params is
+    the mega params dict {"packed", "embed"}; the pool is updated in
+    place. Returns logits [B, vocab] f32."""
+    x0 = params["embed"][state.token_ids.long()].to(torch.bfloat16)
+    cos, sin = _rope_tiles(cfg, state.context_lens)
+    return mk.decode_megakernel(plan, params["packed"], x0, cos, sin,
+                                state.page_tables, state.context_lens,
+                                state.active, cache)
+
+
+class _DecodeForward:
+    """The decode forward over the state's tensors: the megakernel when a
+    plan is given, else transformer.decode_forward. For CUDA tensors the
+    first call captures it in a CUDA graph (after one eager warm-up run)
+    and every call replays it, so every call must pass the same params,
+    pool and state objects (the runtime owns one of each)."""
+
+    def __init__(self, cfg: ModelConfig, rt: RuntimeConfig,
+                 megakernel_plan=None):
         self.cfg, self.mode = cfg, rt.cache.mode
+        self.plan = megakernel_plan
         self._graph = None
         self._logits = None
 
     def _run(self, params, cache: KVCache, state: DecodeState):
+        if self.plan is not None:
+            return _megakernel_forward(self.cfg, self.plan, params, state,
+                                       cache)
         logits, _ = transformer.decode_forward(
             self.cfg, params, state.token_ids, cache, state.page_tables,
             state.context_lens, state.active, mode=self.mode)
@@ -163,9 +192,12 @@ class _DecodeForward:
         return self._logits
 
 
-def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig) -> Callable:
+def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig,
+                      megakernel_plan=None) -> Callable:
     """Returns fn(params, cache, state, new_page_ids [B], noise_rows)
-    -> (tokens [B], cache, state).
+    -> (tokens [B], cache, state). With `megakernel_plan` the forward is
+    one launch of the decode megakernel and params must be the mega params
+    dict {"packed": ..., "embed": [V, hid]}.
 
     new_page_ids[b] >= 0 installs a fresh LOGICAL page for slot b at the
     page-table column the incoming token starts. noise_rows[b] is the
@@ -173,7 +205,7 @@ def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig) -> Callable:
     ps = rt.cache.page_size
     V = cfg.vocab_size
     K = min(rt.sampler_max_top_k, V)
-    forward = _DecodeForward(cfg, rt)
+    forward = _DecodeForward(cfg, rt, megakernel_plan)
 
     def step(params, cache: KVCache, state: DecodeState,
              new_page_ids: torch.Tensor,

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled by `nvcc` for
 `sm_90a` into `build/kernels/lib<name>-<hash>.so` at the repository root
-(the hash covers the source and the flags, so an edited source rebuilds) and
+(the hash covers the source, the shared headers and the flags, so an edited
+source rebuilds) and
 loaded with ctypes. Building takes seconds per source; `build()` compiles
 several sources in parallel. Nothing is built or imported when this module
 is imported: the CPU-only test environment imports every module.
@@ -20,7 +21,8 @@ from typing import Dict, Iterable
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("quant_matmul", "paged_attention")
+SOURCES = ("quant_matmul", "paged_attention", "megakernel", "stream_probe")
+HEADERS = ("di_common.cuh", "di_product.cuh")   # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 
@@ -41,8 +43,10 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(repr(NVCC_FLAGS).encode())
+    for fname in (f"{name}.cu",) + HEADERS:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -33,3 +33,27 @@ class EnvConfig:
     @staticmethod
     def log_status_interval_s() -> float:
         return _get("DI_LOG_STATUS_INTERVAL", 30.0)
+
+    @staticmethod
+    def megakernel_enabled() -> bool:
+        # DI_MEGAKERNEL=0 serves the per-op path whatever the config says
+        return _get("DI_MEGAKERNEL", "1") != "0"
+
+    @staticmethod
+    def mk_stream() -> str:
+        # decode megakernel weight-stream format: "auto" (u4 checkpoints
+        # re-expand to per-channel i8 at max_batch >= DI_MK_I8_BATCH),
+        # "u4" (never re-expand), "i8" (always re-expand)
+        return str(_get("DI_MK_STREAM", "auto"))
+
+    @staticmethod
+    def mk_i8_batch() -> int:
+        # batch threshold of the auto u4 -> i8 re-expansion (the JAX
+        # package's default; whether it pays on this card: PERF.md)
+        return _get("DI_MK_I8_BATCH", 24)
+
+    @staticmethod
+    def weight_residency() -> str:
+        # DI_WEIGHT_RESIDENCY overrides RuntimeConfig.weight_residency
+        # ("auto" | "both" | "pack_only"); "" = use the config field
+        return str(_get("DI_WEIGHT_RESIDENCY", ""))

@@ -1,4 +1,5 @@
 """The port's Engine on the CPU: the verify drive against the JAX Engine,
+the megakernel path against the JAX Engine's interpret-mode megakernel,
 fail-fast for impossible requests, stop/release, unported request features,
 seeded sampling."""
 
@@ -137,3 +138,115 @@ def test_seeded_sampling_is_reproducible():
         assert a != c
     finally:
         eng.release_model("m")
+
+
+def _megakernel_fixture():
+    """tests/test_megakernel.py's tiny a16w4 model (head_dim 128, L 2, hid
+    256), INT8 KV, as numpy leaves for both packages."""
+    import dataclasses
+    import jax
+    from dashinfer_tpu.config import CacheMode, QuantConfig
+    from dashinfer_tpu.loader.quantize import quantize_params
+    from tests.test_megakernel import _tiny
+    cfg, rt, params = _tiny(B=2)
+    rt = dataclasses.replace(
+        rt, max_length=48,
+        cache=dataclasses.replace(rt.cache, mode=CacheMode.INT8))
+    params = quantize_params(params, QuantConfig(mode="a16w4",
+                                                 group_size=128))
+    return cfg, rt, params, jax.tree.map(np.asarray, params)
+
+
+def _port_megakernel_engine(cfg, rt, np_params, **update):
+    import dashinfer_tpu_torch as tp
+    trt = (tp.RuntimeConfigBuilder("mk").max_length(rt.max_length)
+           .max_batch(rt.max_batch).kv_cache_page_size(rt.cache.page_size)
+           .kv_cache_num_pages(rt.cache.num_pages)
+           .kv_cache_mode(tp.CacheMode.INT8).dtype(rt.dtype)
+           .update({"min_prefill_bucket": rt.min_prefill_bucket, **update})
+           .build())
+    eng = tp.Engine().install_model("mk", trt, params=np_params,
+                                    model_config=port_config(cfg),
+                                    device="cpu")
+    return eng, eng._models["mk"]
+
+
+def test_default_megakernel_path_same_tokens_as_jax_megakernel():
+    """`enable_megakernel` left at its default: the port's runtime plans,
+    packs and decodes through `decode_megakernel` (its plain version on the
+    CPU), and gives the greedy tokens of the JAX engine whose megakernel
+    runs in interpret mode. Both round to bf16 at the same points but sum
+    in another order, and a late near-tie of a random tiny model may flip:
+    the first 10 of 14 tokens must agree (the JAX package's own tolerance
+    between its megakernel and its fallback)."""
+    import dashinfer_tpu as jp
+    import dashinfer_tpu_torch as tp
+    from dashinfer_tpu.engine.model_runtime import ModelRuntime as JRuntime
+    cfg, rt, params, np_params = _megakernel_fixture()
+    # use_kernel normally needs a TPU; forcing it makes the runtime pack
+    jrt = JRuntime("mk", cfg, params, rt, use_kernel=True)
+    assert jrt.mega_plan is not None
+    jeng = jp.Engine()
+    jeng._models["mk"] = jrt
+    jeng.start_model("mk")
+    try:
+        _, h, jq = jeng.start_request("mk", PROMPT, _greedy(jp))
+        jeng.sync_request("mk", h, timeout_s=900)
+    finally:
+        jeng.release_model("mk")
+    assert rt.enable_megakernel          # the default, untouched
+    teng, trun = _port_megakernel_engine(cfg, rt, np_params)
+    assert trun.mega_plan is not None and trun.rt.enable_megakernel
+    assert trun.mega_params["embed"] is trun.params["embed_tokens"]["w"]
+    teng.start_model("mk")
+    try:
+        _, h, tq = teng.start_request("mk", PROMPT, _greedy(tp))
+        teng.sync_request("mk", h, timeout_s=300)
+    finally:
+        teng.release_model("mk")
+    want, got = jq.GetAllGeneratedTokens(), tq.GetAllGeneratedTokens()
+    assert len(want) == len(got) == 14
+    assert got[:10] == want[:10], (got, want)
+
+
+def test_megakernel_install_rules(monkeypatch):
+    """The install order's branches: off by config or by DI_MEGAKERNEL=0,
+    an unsupported model served per-op, the u4 -> i8 stream rule, and
+    weight_residency."""
+    import dashinfer_tpu_torch as tp
+    cfg, rt, _, np_params = _megakernel_fixture()
+    _, run = _port_megakernel_engine(cfg, rt, np_params,
+                                     enable_megakernel=False)
+    assert run.mega_plan is None
+    monkeypatch.setenv("DI_MEGAKERNEL", "0")
+    _, run = _port_megakernel_engine(cfg, rt, np_params)
+    assert run.mega_plan is None
+    monkeypatch.delenv("DI_MEGAKERNEL")
+    # head_dim 16: `supports` says no, the per-op path serves (and the
+    # verify drive above still gives the HF model's tokens)
+    eng = _port_engine()
+    try:
+        assert eng._models["m"].mega_plan is None
+    finally:
+        eng.release_model("m")
+    # the stream rule: u4 below the batch threshold, per-channel i8 at it
+    _, run = _port_megakernel_engine(cfg, rt, np_params)
+    assert run.mega_plan.qkv.bits == 4 and run.mega_plan.lm.bits == 16
+    monkeypatch.setenv("DI_MK_I8_BATCH", "2")
+    _, run = _port_megakernel_engine(cfg, rt, np_params)
+    assert run.mega_plan.qkv.bits == 8 and run.mega_plan.dn.gs == \
+        cfg.intermediate_size
+    import torch
+    assert run.params["layers"]["q_proj"]["w_q"].dtype == torch.uint8
+    monkeypatch.setenv("DI_MK_STREAM", "u4")
+    _, run = _port_megakernel_engine(cfg, rt, np_params)
+    assert run.mega_plan.qkv.bits == 4
+    monkeypatch.delenv("DI_MK_STREAM")
+    monkeypatch.delenv("DI_MK_I8_BATCH")
+    # pack_only needs the prefill megakernel too: the reference's error
+    with pytest.raises(ValueError, match="pack_only"):
+        _port_megakernel_engine(cfg, rt, np_params,
+                                weight_residency="pack_only")
+    _, run = _port_megakernel_engine(cfg, rt, np_params,
+                                     weight_residency="both")
+    assert run.mega_plan is not None

@@ -87,3 +87,12 @@ def test_no_jax_or_reference_imports(path):
                 node.level == 0 and _forbidden(node.module):
             bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_the_new_modules_are_checked():
+    """The megakernel module and the probe tool are among the sources the
+    import check walks."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {"dashinfer_tpu_torch/ops/megakernel.py",
+            "dashinfer_tpu_torch/tools/bench_stream.py",
+            "dashinfer_tpu_torch/engine/steps.py"} <= rel
