@@ -1,7 +1,8 @@
 // Device code shared by the kernels of this directory (sm_90a): type
-// helpers, warp reductions, cp.async, the mma.sync m16n8k16 dot, quant_matmul's
-// B fragments made from row-major u4 / int8 payload, and the KV-pool row loads
-// of the attention kernels.
+// helpers, warp reductions, cp.async, ldmatrix, the mma.sync m16n8k16 dot, quant_matmul's
+// B fragments made from row-major u4 / int8 payload, the KV-pool row loads
+// of the attention kernels, and the grid-wide barrier of the persistent
+// (megakernel) grids.
 
 #pragma once
 
@@ -70,6 +71,34 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory into mma fragments (lane i gives
+// the address of row i % 8 of matrix i / 8); `_trans` transposes each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* smem_ptr) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* smem_ptr) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Two floats rounded to bf16, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 __device__ __forceinline__ uint32_t bf16_bits(float v) {
@@ -151,6 +180,58 @@ __device__ __forceinline__ int dim_of(int lane, int i) {
     return i < DPL / 2 ? lane * (DPL / 2) + i
                        : 16 * DPL + lane * (DPL / 2) + (i - DPL / 2);
   return lane * DPL + i;
+}
+
+constexpr unsigned long long kBarrierTimeoutNs = 4000000000ull;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Grid-wide barrier of a persistent grid whose blocks are all co-resident:
+// every block arrives, block 0's arrival carries the complement so that the
+// counter's top bit flips when all have arrived. The fences make what the
+// blocks wrote before it visible after it. A wait longer than
+// kBarrierTimeoutNs marks `status` with the phase and lets every block run
+// to the end, so a grid that is not co-resident ends as an error and not as
+// a hang. With a trace buffer, block 0 stamps the end of its part of the
+// phase (trace[2 phase + 1]) and the time it leaves the barrier
+// (trace[2 phase + 2]): the difference is what the phase's slowest block
+// and the barrier itself add.
+__device__ __forceinline__ void grid_barrier(unsigned* barrier, int* status_p,
+                                             unsigned long long* trace,
+                                             int phase) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (trace != nullptr && blockIdx.x == 0)
+      trace[2 * phase + 1] = global_ns();
+    volatile unsigned* arrived = barrier;
+    volatile int* status = status_p;
+    const unsigned nb =
+        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(barrier, nb);
+    unsigned spins = 0;
+    unsigned long long t0 = 0;
+    while (((old ^ *arrived) & 0x80000000u) == 0) {
+      if ((++spins & 0x3FFu) == 0) {
+        if (*status != 0) break;
+        const unsigned long long now = global_ns();
+        if (t0 == 0) {
+          t0 = now;
+        } else if (now - t0 > kBarrierTimeoutNs) {
+          atomicCAS(status_p, 0, phase + 1);
+          break;
+        }
+      }
+    }
+    __threadfence();
+    if (trace != nullptr && blockIdx.x == 0)
+      trace[2 * phase + 2] = global_ns();
+  }
+  __syncthreads();
 }
 
 }  // namespace di

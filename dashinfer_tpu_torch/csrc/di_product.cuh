@@ -15,7 +15,6 @@ constexpr int kChunkK = 64;               // K rows per pipeline stage
 constexpr int kD = 128;                   // head_dim
 constexpr int kDPL = 4;                   // head dims per lane
 constexpr int kMaxG = 8;                  // query heads per KV head
-constexpr unsigned long long kBarrierTimeoutNs = 4000000000ull;
 
 enum StreamId { kQkv = 0, kO = 1, kGu = 2, kDn = 3, kLm = 4, kStreams = 5 };
 

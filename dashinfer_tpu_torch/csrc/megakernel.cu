@@ -66,51 +66,8 @@ constexpr int kAttUnit = 64;      // tokens per unit of a stripe (wrapper)
 constexpr int kAttDepth = 4;      // tokens a warp keeps in flight
 constexpr int kAttSlotMax = 2 * 4 * kD + 16;   // f32 K row + V row + qparams
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Grid-wide barrier: every block arrives, block 0's arrival carries the
-// complement so that the counter's top bit flips when all have arrived.
-// The fences make what the blocks wrote before it visible after it. A wait
-// longer than kBarrierTimeoutNs marks `status` with the phase and lets
-// every block run to the end, so a grid that is not co-resident ends as an
-// error and not as a hang.
 __device__ __forceinline__ void grid_barrier(const Args& a, int phase) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    // block 0 stamps the end of its part of the phase and, below, the time
-    // it leaves the barrier: the difference is what the phase's slowest
-    // block and the barrier itself add
-    if (a.trace != nullptr && blockIdx.x == 0)
-      a.trace[2 * phase + 1] = global_ns();
-    volatile unsigned* arrived = a.barrier;
-    volatile int* status = a.status;
-    const unsigned nb =
-        blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
-    __threadfence();
-    const unsigned old = atomicAdd(a.barrier, nb);
-    unsigned spins = 0;
-    unsigned long long t0 = 0;
-    while (((old ^ *arrived) & 0x80000000u) == 0) {
-      if ((++spins & 0x3FFu) == 0) {
-        if (*status != 0) break;
-        const unsigned long long now = global_ns();
-        if (t0 == 0) {
-          t0 = now;
-        } else if (now - t0 > kBarrierTimeoutNs) {
-          atomicCAS(a.status, 0, phase + 1);
-          break;
-        }
-      }
-    }
-    __threadfence();
-    if (a.trace != nullptr && blockIdx.x == 0)
-      a.trace[2 * phase + 2] = global_ns();
-  }
-  __syncthreads();
+  di::grid_barrier(a.barrier, a.status, a.trace, phase);
 }
 
 // The residual update and RMSNorm before a product, in two phases with a

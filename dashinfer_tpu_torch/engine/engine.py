@@ -211,7 +211,9 @@ class Engine:
     def release_model(self, name: str):
         self.stop_model(name)
         with self._lock:
-            self._models.pop(name, None)
+            runtime = self._models.pop(name, None)
+        if runtime is not None:
+            runtime.release()
         return self
 
     # -- requests -------------------------------------------------------------

@@ -7,7 +7,11 @@ KV-pool planning, the decide/execute split of prefill admission and of the
 single-step decode tick, token drains, finishing, OOM eviction and
 stop/release. The Engine's control loop (engine/engine.py) calls into this.
 Decode runs through the decode megakernel when `ops.megakernel.supports`
-admits the model, else through the per-op path; prefill is per-op.
+admits the model, else through the per-op path. A fresh prompt whose bucket
+is a multiple of 128 up to 1024 is prefilled by one launch of the prefill
+megakernel from the same pack; other buckets go per-op. Under
+`weight_residency` "pack_only" the pack is the only weight copy on the card
+and every prompt is served through the two megakernels.
 
 Page accounting: the allocator hands out LOGICAL pages; logical page `g`
 owns physical pages `g*L + l` for each layer l.
@@ -35,6 +39,7 @@ from dashinfer_tpu_torch.loader.convert import (params_from_numpy,
                                                 torch_dtype)
 from dashinfer_tpu_torch.models.transformer import check_supported
 from dashinfer_tpu_torch.ops import megakernel as mk
+from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
 from dashinfer_tpu_torch.runtime.batch_state import make_decode_state
 from dashinfer_tpu_torch.runtime.kv_cache import (create_kv_cache,
                                                   logical_page_bytes)
@@ -98,6 +103,22 @@ def _weight_bytes(params) -> int:
     return params.numel() * params.element_size()
 
 
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _resident_bytes(*trees) -> int:
+    """Bytes the trees hold on their device, each tensor counted once (the
+    pack aliases some of the param tree's leaves)."""
+    seen = {t.data_ptr(): t.numel() * t.element_size()
+            for tree in trees if tree is not None for t in _tensors(tree)}
+    return sum(seen.values())
+
+
 def _has_leaf_key(tree, key: str) -> bool:
     if not isinstance(tree, dict):
         return False
@@ -141,14 +162,19 @@ class ModelRuntime:
         self.params = params
         self.mega_plan = None
         self.mega_params = None
-        self._install_megakernel()
+        plan_src = self._install_megakernel()
+        self.buckets = self._make_buckets()
+        self._install_prefill_megakernel(plan_src)
+        del plan_src            # it may hold the raw params
+        self.residency = "both"
+        self._raw_params_host = None
+        self._decide_residency()
 
         # the last launched decode step's (tokens, batch), drained one tick
         # later; prefill first tokens awaiting the same drain
         self._inflight = None
         self._inflight_prefills: List = []
 
-        self.buckets = self._make_buckets()
         self.num_logical_pages = self._plan_pool()
         # + 1: the sink page for inactive decode slots (ops/kv_ops.py)
         self.cache = create_kv_cache(
@@ -159,7 +185,7 @@ class ModelRuntime:
 
         self._decode_step = steps_mod.build_decode_step(
             cfg, rt, megakernel_plan=self.mega_plan)
-        self._prefill_steps: Dict[int, Callable] = {}
+        self._prefill_steps: Dict = {}     # (bucket, mega) -> step
         self._deactivate = steps_mod.build_deactivate(cfg, rt)
 
         self.pending: deque = deque()           # Requests awaiting prefill
@@ -170,29 +196,19 @@ class ModelRuntime:
         self._cached_len: Dict[str, int] = {}
 
     # -- megakernel install ---------------------------------------------------
-    def _install_megakernel(self) -> None:
+    def _install_megakernel(self) -> Optional[Dict]:
         """The JAX runtime's install order: weight-only view -> stream rule
         (u4 leaves re-expanded to per-channel i8 at large max_batch, dense
         models only, when the card can hold them beside the raw params) ->
         supports -> make_plan -> pack_params -> mega_params = {"packed",
         "embed"} with the one embedding copy. A model `supports` turns down
-        is served per-op, with the reason logged."""
+        is served per-op, with the reason logged. Returns the tree the plan
+        was made from (None without a plan)."""
         rt, cfg = self.rt, self.cfg
-        res = EnvConfig.weight_residency() or rt.weight_residency
-        if res not in ("auto", "both", "pack_only"):
-            logger.warning("unknown weight_residency %r; using auto", res)
-            res = "auto"
-        if res == "pack_only":
-            # needs the prefill megakernel, which the port does not have yet
-            raise ValueError(
-                "weight_residency=pack_only needs the decode AND prefill "
-                "megakernels active on a single-chip mesh without LoRA "
-                f"(megakernel={rt.enable_megakernel}, prefill_buckets=[], "
-                f"mesh=False, lora={rt.enable_lora})")
         if not (rt.enable_megakernel and EnvConfig.megakernel_enabled()):
             logger.info("megakernel disabled by configuration; serving the "
                         "per-op path")
-            return
+            return None
         t0 = time.monotonic()
         src = self.params
         if _has_leaf_key(src, "w_q8") or _has_leaf_key(src, "w_f8"):
@@ -200,7 +216,7 @@ class ModelRuntime:
             if view is None:
                 logger.info("megakernel: the model has no weight-only decode "
                             "view; serving the per-op path")
-                return
+                return None
             src = params_from_numpy(view, self.device, self.dtype)
         stream = EnvConfig.mk_stream()
         expanded = False
@@ -210,7 +226,7 @@ class ModelRuntime:
             if meta is not None and self._i8_pack_fits(meta):
                 if not mk.supports(cfg, rt, meta):
                     self._log_unsupported(meta)
-                    return
+                    return None
                 logger.info("decode stream: u4 -> per-channel i8 "
                             "re-expansion (max_batch=%d)", rt.max_batch)
                 i8 = mk.expand_u4_to_i8_tensors({"layers": {
@@ -221,7 +237,7 @@ class ModelRuntime:
                 expanded = True
         if not mk.supports(cfg, rt, src):
             self._log_unsupported(src)
-            return
+            return None
         plan = mk.make_plan(cfg, rt, src)
         if self.device.type == "cuda":
             gaps = mk.cuda_kernel_gaps(plan)
@@ -229,37 +245,174 @@ class ModelRuntime:
                 logger.warning("megakernel: the CUDA kernel does not take "
                                "this model (%s); serving the per-op path",
                                "; ".join(gaps))
-                return
+                return None
         packed = mk.pack_params(cfg, plan, src)
         self.mega_plan = plan
         self.mega_params = {"packed": packed,
                             "embed": self.params["embed_tokens"]["w"]}
-        extra = mk.packed_extra_bytes(packed, self.params)
         logger.info(
             "megakernel packed in %.1fs: streams %s, %.2f GiB streamed per "
-            "step; weight residency both (requested %s): raw params %.2f "
-            "GiB, pack %.2f GiB beside them (%s)",
+            "step; pack %.2f GiB beyond the raw params (%s)",
             time.monotonic() - t0,
             "/".join(f"{s.name}:{s.bits}b" for s in plan.streams),
-            plan.weight_bytes / 1024**3, res,
-            _weight_bytes(self.params) / 1024**3, extra / 1024**3,
+            plan.weight_bytes / 1024**3,
+            mk.packed_extra_bytes(packed, self.params) / 1024**3,
             "the i8 re-expansion in fragment order" if expanded
             else "a fragment-ordered copy of the payloads")
+        return src
+
+    def _install_prefill_megakernel(self, src: Optional[Dict]) -> None:
+        """A prefill plan for every qualifying bucket, sharing the decode
+        pack (the stream geometry does not depend on the bucket); `src` is
+        the tree the decode plan was made from. Under the u4 -> i8 stream
+        prefill serves from the re-expanded pack too.
+        DI_PREFILL_MEGAKERNEL=0 disables."""
+        self._pmk_plans: Dict[int, pmk.PrefillPlan] = {}
+        if self.mega_plan is None or \
+                not EnvConfig.prefill_megakernel_enabled():
+            return
+        cfg, rt = self.cfg, self.rt
+        qual = [b for b in self.buckets
+                if b <= pmk.MAX_BUCKET and b % 128 == 0 and
+                pmk.supports_prefill(cfg, rt, src, b)]
+        plans = {b: pmk.make_prefill_plan(cfg, rt, src, b,
+                                          decode_plan=self.mega_plan)
+                 for b in qual}
+        if qual and self.device.type == "cuda":
+            gaps = pmk.cuda_kernel_gaps(plans[qual[0]])
+            if gaps:
+                logger.warning("prefill megakernel: the CUDA kernel does "
+                               "not take this model (%s); prefilling per-op",
+                               "; ".join(gaps))
+                return
+        self._pmk_plans = plans
+        if qual:
+            logger.info("prefill megakernel shares the decode pack "
+                        "(buckets %s)", qual)
+        if qual and self.device.type == "cuda":
+            # one scratch set for every bucket, on the card before the KV
+            # pool is planned from what is free
+            logger.info("prefill megakernel scratch: %.2f GiB",
+                        pmk.reserve_scratch(plans.values(), self.device)
+                        / 1024**3)
+
+    def release(self) -> None:
+        """Frees what the runtime holds on the device beyond its own
+        tensors: the prefill megakernel's scratch."""
+        if self._pmk_plans and self.device.type == "cuda":
+            pmk.release_scratch(self.device)
+
+    # -- weight residency ----------------------------------------------------
+    def _decide_residency(self) -> None:
+        """Whether the raw params stay on the card beside the megakernel
+        pack ("both") or go to host memory ("pack_only"). The pack is the
+        one weight set of the two kernels; the raw params only serve the
+        per-op path (buckets the prefill megakernel does not take). "auto"
+        drops them when the configured workload could not fit otherwise."""
+        rt = self.rt
+        res = EnvConfig.weight_residency() or rt.weight_residency
+        if res not in ("auto", "both", "pack_only"):
+            logger.warning("unknown weight_residency %r; using auto", res)
+            res = "auto"
+        eligible = bool(self._pmk_plans) and not rt.enable_lora
+        if res == "pack_only" and not eligible:
+            raise ValueError(
+                "weight_residency=pack_only needs the decode AND prefill "
+                "megakernels active on a single-chip mesh without LoRA "
+                f"(megakernel={self.mega_params is not None}, "
+                f"prefill_buckets={sorted(self._pmk_plans)}, "
+                f"mesh=False, lora={rt.enable_lora})")
+        before = _resident_bytes(self.params, self.mega_params)
+        if eligible and (res == "pack_only" or
+                         (res == "auto" and self._auto_pack_only())):
+            self._demote_raw_params()
+        logger.info(
+            "weight residency: %s (requested %s): %.2f GiB of weights on "
+            "the device, %.2f GiB before the decision; the megakernels' "
+            "params %.2f GiB", self.residency, res,
+            _resident_bytes(self.params, self.mega_params) / 1024**3,
+            before / 1024**3, _resident_bytes(self.mega_params) / 1024**3)
+
+    def _device_budget(self) -> int:
+        total = self.rt.hbm_bytes
+        if not total and self.device.type == "cuda":
+            total = torch.cuda.get_device_properties(self.device).total_memory
+        return int(total * EnvConfig.hbm_mem_ratio())
+
+    def _auto_pack_only(self) -> bool:
+        """auto residency: demote the raw params only when the
+        both-resident KV pool could NOT hold the configured workload
+        (typical_seq_len x max_batch) but the prompts still fit the prefill
+        megakernel's bucket coverage. Host-side arithmetic only."""
+        rt = self.rt
+        if rt.typical_seq_len <= 0 or rt.cache.num_pages or \
+                rt.kv_pool_bytes or EnvConfig.kv_pool_bytes():
+            return False
+        if not (0 < rt.max_prompt_len <= max(self._pmk_plans)):
+            return False      # prompts not provably within the coverage
+        budget = self._device_budget()
+        if not budget:
+            return False      # no device size to plan against (CPU)
+        lpb = logical_page_bytes(self.cfg, rt.cache, self.dtype)
+        w_both = _resident_bytes(self.params, self.mega_params)
+        act = min(2 * 1024**3, max(512 * 1024**2, w_both // 4))
+        n_both = max((budget - w_both - act) // lpb, 2 * rt.max_batch)
+        per_seq = -(-min(rt.typical_seq_len, rt.max_length) //
+                    rt.cache.page_size)
+        if n_both >= rt.max_batch * per_seq:
+            return False
+        logger.warning(
+            "both-resident KV pool (~%d pages) cannot hold the workload "
+            "(%d slots x %d pages); auto weight_residency selects "
+            "pack_only", n_both, rt.max_batch, per_seq)
+        return True
+
+    def _demote_raw_params(self) -> None:
+        """Move what the pack does not alias (the loader's payloads of the
+        packed leaves; under the i8 stream their u4 qparams too) to host
+        memory; serving continues through the megakernel pack alone. The
+        scale / zero leaves and the embedding the pack points at stay where
+        they are. The host copy is kept so a later install can reload it."""
+        kept = {t.data_ptr() for t in _tensors(self.mega_params)}
+
+        def demote(tree):
+            if isinstance(tree, dict):
+                return {k: demote(v) for k, v in tree.items()}
+            return tree if tree.data_ptr() in kept else tree.cpu()
+
+        self._raw_params_host = demote(self.params)
+        self.params = None
+        self.residency = "pack_only"
+        self._pack_only_buckets = sorted(self._pmk_plans)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()    # the pool is planned from free memory
+        logger.warning(
+            "weight residency: pack_only -- raw params demoted to host; "
+            "serving through the megakernels only (prefill buckets %s). "
+            "Prompts above %d tokens are rejected at start_request.",
+            self._pack_only_buckets, max(self._pack_only_buckets))
+
+    def _weights_resident(self) -> bool:
+        if self.residency == "pack_only":
+            return self.mega_params is not None
+        return self.params is not None
 
     def _i8_pack_fits(self, meta) -> bool:
-        """The raw params stay resident (prefill and the per-op path read
-        them), so the i8 pack must fit beside them."""
+        """Unless the raw params may leave the card (a residency other than
+        "both" with max_prompt_len set, no LoRA), the i8 pack must fit
+        beside them."""
+        rt = self.rt
+        res = EnvConfig.weight_residency() or rt.weight_residency
+        if res != "both" and not rt.enable_lora and rt.max_prompt_len > 0:
+            return True
         est = _weight_bytes({"layers": {
             n: {k: v for k, v in meta["layers"][n].items() if k != "b"}
             for _, names in mk._LAYER_STREAMS for n in names},
             "lm_head": meta["lm_head"]})
-        total = self.rt.hbm_bytes
-        if not total and self.device.type == "cuda":
-            total = torch.cuda.get_device_properties(self.device).total_memory
-        if not total:
+        budget = self._device_budget()
+        if not budget:
             return True
         raw_b = _weight_bytes(self.params)
-        budget = int(total * EnvConfig.hbm_mem_ratio())
         if raw_b + est + 512 * 1024**2 > budget:
             logger.warning(
                 "i8 stream re-expansion skipped: raw params stay resident "
@@ -285,9 +438,9 @@ class ModelRuntime:
     # -- planning ------------------------------------------------------------
     def _plan_pool(self) -> int:
         """KV pool size in logical pages: the configured count, else the
-        free device memory (the weights are already resident) less an
-        activation headroom, else (on the CPU) what max_batch sequences can
-        use."""
+        free device memory (the weights that stay are already resident:
+        the residency decision has been taken) less an activation headroom,
+        else (on the CPU) what max_batch sequences can use."""
         rt, cfg = self.rt, self.cfg
         if rt.cache.num_pages:
             return self._check_pool_vs_workload(rt.cache.num_pages)
@@ -296,11 +449,11 @@ class ModelRuntime:
         kv_bytes = rt.kv_pool_bytes or EnvConfig.kv_pool_bytes()
         if not kv_bytes and self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
-            w = _weight_bytes(self.params)
+            w = _resident_bytes(self.params, self.mega_params)
             act = min(2 * 1024**3, max(512 * 1024**2, w // 4))
             kv_bytes = int(free * EnvConfig.hbm_mem_ratio()) - act
         elif not kv_bytes and rt.hbm_bytes:
-            w = _weight_bytes(self.params)
+            w = _resident_bytes(self.params, self.mega_params)
             act = min(2 * 1024**3, max(512 * 1024**2, w // 4))
             kv_bytes = int(rt.hbm_bytes * EnvConfig.hbm_mem_ratio()) - w - act
         n = cap if not kv_bytes else max(kv_bytes // lpb, 2 * rt.max_batch)
@@ -337,6 +490,16 @@ class ModelRuntime:
             raise ValueError(
                 f"prompt length {len(input_ids)} exceeds max_prompt_len "
                 f"{self.rt.max_prompt_len}")
+        if self.residency != "pack_only":
+            return
+        # pack_only serves only what the megakernels cover (LoRA and
+        # multimodal requests are refused above under every residency)
+        cap = max(self._pack_only_buckets)
+        if len(input_ids) > cap:
+            raise ValueError(
+                f"prompt length {len(input_ids)} exceeds the prefill "
+                f"megakernel coverage ({cap} tokens) under "
+                "weight_residency=pack_only")
 
     def _make_buckets(self) -> List[int]:
         rt = self.rt
@@ -353,11 +516,13 @@ class ModelRuntime:
                 return b
         raise ValueError(f"length {n} exceeds max_length {self.rt.max_length}")
 
-    def _prefill_fn(self, bucket: int) -> Callable:
-        if bucket not in self._prefill_steps:
-            self._prefill_steps[bucket] = steps_mod.build_prefill_step(
-                self.cfg, self.rt, bucket)
-        return self._prefill_steps[bucket]
+    def _prefill_fn(self, bucket: int, mega: bool = False) -> Callable:
+        key = (bucket, mega)
+        if key not in self._prefill_steps:
+            self._prefill_steps[key] = steps_mod.build_prefill_step(
+                self.cfg, self.rt, bucket,
+                mega_plan=self._pmk_plans[bucket] if mega else None)
+        return self._prefill_steps[key]
 
     # -- request entry -------------------------------------------------------
     def register(self, req: Request, queue: ResultQueue):
@@ -435,7 +600,14 @@ class ModelRuntime:
     def prefill_execute(self, d: PrefillDecision) -> None:
         req, slot, pages = d.req, d.slot, d.pages
         total_len = req.prompt_len
-        bucket = self.bucket_for(total_len)
+        if self.residency == "pack_only":
+            # snap to the smallest prefill-megakernel bucket (every admitted
+            # prompt fits one: validate_request); a smaller bucket would
+            # take the per-op path, which the raw params no longer serve
+            bucket = next(b for b in self._pack_only_buckets
+                          if total_len <= b)
+        else:
+            bucket = self.bucket_for(total_len)
         # one page-row length per bucket: trailing zero pages are ignored by
         # the step's length masks
         maxPb = -(-bucket // self.rt.cache.page_size)
@@ -445,11 +617,22 @@ class ModelRuntime:
         tok_buf = np.zeros((bucket,), np.int32)
         tok_buf[:total_len] = req.input_ids
 
-        fn = self._prefill_fn(bucket)
+        # prefill megakernel: whole-bucket fresh prefill (prefix_len == 0,
+        # the only kind the port has)
+        use_mega = bucket in self._pmk_plans
+        if self.residency == "pack_only" and not use_mega:
+            # defense in depth: validate_request should make this
+            # unreachable; never run a per-op prefill against params=None
+            logger.error("pack_only prefill fell off the megakernel path "
+                         "(bucket=%d) -- failing request", bucket)
+            self._fail_admitted(req)
+            return
+        fn = self._prefill_fn(bucket, mega=use_mega)
         t0 = time.monotonic()
         try:
             tok, self.cache, self.state = fn(
-                self.params, self.cache, self.state,
+                self.mega_params if use_mega else self.params,
+                self.cache, self.state,
                 steps_mod.to_device(tok_buf, self.device),
                 steps_mod.to_device(page_row, self.device),
                 0, total_len, self._slot_init(req, slot))
@@ -463,7 +646,8 @@ class ModelRuntime:
         req.prefilled_len = total_len
         req.status = GenerateRequestStatus.Generating
         req.stat.time_in_queue = t0 - req.enqueue_time
-        self._inflight_prefills.append((tok, req, t0))
+        self._inflight_prefills.append(
+            (tok, req, t0, self._pmk_plans[bucket] if use_mega else None))
         self.stat.total_prefill_tokens += total_len
 
     def _fail_admitted(self, req: Request) -> None:
@@ -585,7 +769,7 @@ class ModelRuntime:
         """Emit first tokens of launched prefills (oldest first), before any
         decode-batch drain so each request's token order is preserved."""
         lst, self._inflight_prefills = self._inflight_prefills, []
-        for tok_t, req, t_launch in lst:
+        for tok_t, req, t_launch, mega_plan in lst:
             if self.requests.get(req.uuid) is not req or req.slot < 0:
                 continue   # stopped/evicted while the prefill was in flight
             try:
@@ -594,6 +778,9 @@ class ModelRuntime:
                 logger.exception("prefill drain failed for %s", req.uuid[:8])
                 self._finish(req, GenerateRequestStatus.InternalError)
                 continue
+            if mega_plan is not None:
+                # a grid barrier that gave up leaves its mark here: raise
+                pmk.check_status(self.device)
             t1 = time.monotonic()
             req.stat.first_token_time = t1
             req.stat.time_to_first_token = t1 - req.enqueue_time

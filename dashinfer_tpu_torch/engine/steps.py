@@ -13,7 +13,9 @@ value back. On the card the decode step's model forward is captured once in
 a CUDA graph and replayed every step: its inputs are the persistent state
 and pool tensors, so one graph launch replaces the forward's ~2,000 kernel
 launches. With a megakernel plan the forward is the embedding gather, the
-RoPE tiles and ONE launch of the decode megakernel (ops/megakernel.py).
+RoPE tiles and ONE launch of the decode megakernel (ops/megakernel.py); a
+prefill step built with a prefill plan is the same around ONE launch of the
+prefill megakernel (ops/prefill_megakernel.py), run eagerly.
 """
 
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -24,6 +26,7 @@ import torch
 from dashinfer_tpu_torch.config import ModelConfig, RuntimeConfig
 from dashinfer_tpu_torch.models import transformer
 from dashinfer_tpu_torch.ops import megakernel as mk
+from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
 from dashinfer_tpu_torch.ops import sampling as sampling_ops
 from dashinfer_tpu_torch.ops.rotary import compute_inv_freq, rope_cos_sin
 from dashinfer_tpu_torch.runtime.batch_state import (DecodeState,
@@ -83,11 +86,29 @@ def _slot_sampling_params(init: SlotInit, device) -> SamplingParams:
     )
 
 
-def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig,
-                       bucket: int) -> Callable:
+def _prefill_mega_forward(cfg: ModelConfig, plan, params, cache: KVCache,
+                          tokens, page_row, n_tokens: int):
+    """Whole-prefill forward through the prefill megakernel. params is the
+    mega params dict {"packed", "embed"}; requires prefix_len == 0. The pool
+    is updated in place. Returns (logits [vocab] f32, cache)."""
+    dev = tokens.device
+    x0 = params["embed"][tokens.long()].to(torch.bfloat16)
+    cos, sin = _rope_tiles(cfg, torch.arange(plan.S, device=dev))
+    logits = pmk.prefill_megakernel(
+        plan, params["packed"], x0, cos, sin, page_row * cfg.num_layers,
+        to_device(np.asarray([n_tokens], np.int32), dev), cache)
+    return logits[:cfg.vocab_size], cache
+
+
+def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
+                       mega_plan=None) -> Callable:
     """Returns fn(params, cache, state, tokens [S], page_row [maxPb],
     prefix_len, total_len, init: SlotInit) -> (token (0-d device tensor),
-    cache, state). page_row holds LOGICAL page ids."""
+    cache, state). page_row holds LOGICAL page ids.
+
+    With `mega_plan` the model forward is ONE launch of the prefill
+    megakernel; params must be the mega params dict {"packed", "embed"} and
+    the caller guarantees prefix_len == 0."""
     mode = rt.cache.mode
     V = cfg.vocab_size
     K = min(rt.sampler_max_top_k, V)
@@ -95,9 +116,13 @@ def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig,
     def step(params, cache: KVCache, state: DecodeState, tokens, page_row,
              prefix_len: int, total_len: int, init: SlotInit):
         dev = tokens.device
-        logits, cache = transformer.prefill_forward(
-            cfg, params, tokens, cache, page_row, prefix_len, total_len,
-            mode=mode)
+        if mega_plan is not None:
+            logits, cache = _prefill_mega_forward(
+                cfg, mega_plan, params, cache, tokens, page_row, total_len)
+        else:
+            logits, cache = transformer.prefill_forward(
+                cfg, params, tokens, cache, page_row, prefix_len, total_len,
+                mode=mode)
 
         # prompt token occurrence counts (penalties run over
         # prompt + generated tokens)

@@ -28,10 +28,14 @@ tile's 64-row chunks one after the other (a chunk is one contiguous run of
 lane needs next to each other, so a stage reads its operands with 16-byte
 loads. q, k, v, o, gate, up, down and lm_head stay separate leaves; the f32
 `scale` / `zero` `[L, G, N]` are streamed as the loader holds them. The
-pack is a second copy of the payloads, since the raw params stay resident
-for prefill and the per-op path (`weight_residency` "both"): for Qwen2-7B
+prefill megakernel (ops/prefill_megakernel.py) reads the same pack. The
+pack is a second copy of the payloads while the raw params stay resident
+for the per-op path (`weight_residency` "both": prefill buckets the
+prefill megakernel does not take, or a model it turns down): for Qwen2-7B
 a16w4 3.3 GiB beside 4.7 GiB of raw params, which the runtime logs at
-install; under the u4 -> i8 stream rule the pack is the int8 re-expansion
+install; under `weight_residency` "pack_only" the runtime moves the raw
+payloads to host memory and the pack is the only copy on the card. Under
+the u4 -> i8 stream rule the pack is the int8 re-expansion
 itself (6.6 GiB). It also holds three small f32 arrays: the norm weights
 and the fused q|k|v bias, rounded to bf16 as the TPU pack rounds them. A
 plain tile-major copy without the fragment order was measured too and
@@ -783,9 +787,9 @@ def stream_args(sp: StreamPlan, leaves: List[Dict], layered: bool,
 
 
 def _check_leaf(sp: StreamPlan, leaf: Dict, n: int, lead: Tuple[int, ...],
-                dev) -> None:
+                dev, who: str = "decode_megakernel") -> None:
     if "w_f" not in leaf:
-        raise ValueError(f"decode_megakernel: {sp.name} is not packed "
+        raise ValueError(f"{who}: {sp.name} is not packed "
                          "(pack_params / packed_leaf)")
     pay_dt = {16: torch.bfloat16, 8: torch.int8, 4: torch.uint8}[sp.bits]
     ts = {"w_f": (leaf["w_f"], pay_dt,
@@ -799,7 +803,7 @@ def _check_leaf(sp: StreamPlan, leaf: Dict, n: int, lead: Tuple[int, ...],
         if t.dtype != dt or tuple(t.shape) != shape or t.device != dev or \
                 not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
-                f"decode_megakernel: {sp.name}.{key} is {t.dtype} "
+                f"{who}: {sp.name}.{key} is {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}; the kernel takes "
                 f"contiguous 16-byte aligned {dt} {shape} on {dev}")
 
@@ -1025,8 +1029,13 @@ def phase_times(plan: MegaPlan, trace: torch.Tensor) -> Dict[str, Dict]:
     spent in the grid barrier (the phase's slower blocks and the barrier's
     own cost). The kernel writes trace[0] at its start, trace[2p + 1] where
     block 0 ends phase p and trace[2p + 2] where it leaves p's barrier."""
-    t = trace[:trace_len(plan)].cpu().tolist()
-    names = LAYER_PHASES * plan.L + TAIL_PHASES
+    return phase_times_of(LAYER_PHASES * plan.L + TAIL_PHASES,
+                          trace[:trace_len(plan)])
+
+
+def phase_times_of(names, trace: torch.Tensor) -> Dict[str, Dict]:
+    """`phase_times` for any kernel that stamps its phases this way."""
+    t = trace.cpu().tolist()
     out: Dict[str, Dict] = {}
     for p, name in enumerate(names):
         d = out.setdefault(name, dict(work=0.0, wait=0.0))

@@ -1,0 +1,544 @@
+"""Whole-model PREFILL megakernel: one kernel launch per fresh prefill.
+
+Counterpart of `dashinfer_tpu.ops.pallas.prefill_megakernel`. A prompt whose
+bucket S is a multiple of 128 up to 1024 is prefilled by ONE launch of
+csrc/prefill_megakernel.cu, which reads the decode pack already on the card
+(`ops.megakernel.pack_params`: q, k, v, o, gate, up, down and lm_head as
+separate fragment-ordered leaves, so the two kernels share one weight set
+and no payload is copied a third time), writes the prompt's K/V straight
+into the paged pool and returns the last valid token's logits. What lives
+here:
+
+* `supports_prefill`, `PrefillPlan`, `make_prefill_plan`: which buckets
+  take the path and the shapes of one launch (the decode plan's
+  `StreamPlan`s adopted verbatim);
+* `prefill_megakernel_ref`, the plain PyTorch version, and
+  `prefill_megakernel`, the wrapper that launches the kernel on CUDA
+  tensors (and takes the plain version only for CPU tensors), with its
+  launch count `prefill_megakernel.counter`.
+
+Numerics (the TPU kernel's rounding points): residual in f32; x_norm bf16;
+WEIGHT-SIDE dequant, `w = bf16(f32(q) * s + z)` with s and z rounded to
+bf16 where they are applied, then a plain bf16 x bf16 product with f32
+sums (not the decode kernel's affine after the dot); the q|k|v result in
+f32, bias added in f32, RoPE from bf16 cos/sin tiles in f32 (V gets bias
+and no RoPE); causal softmax over scores scaled by 1/sqrt(D), `p` and `v`
+rounded to bf16 for the PV product, attn_out bf16; K/V quantized per token
+and KV head from the unquantized f32 values; the SwiGLU activation rounded
+to bf16; the last valid row n-1 through the final norm, bf16, then the
+lm_head in f32. The TPU kernel feeds the score product f32 q and k; the
+CUDA kernel's tensor-core operands are bf16, which `bf16_scores=True`
+reproduces in the plain version. The pool rows `< n` of the owned pages
+are written and nothing else (the TPU kernel copies whole pages).
+"""
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dashinfer_tpu_torch.config import CacheMode, ModelConfig, RuntimeConfig
+from dashinfer_tpu_torch.ops import kernel_build, kv_ops
+from dashinfer_tpu_torch.ops import megakernel as mk
+from dashinfer_tpu_torch.ops.megakernel import MegaPlan, StreamPlan
+from dashinfer_tpu_torch.ops.u4pack import weight_levels
+from dashinfer_tpu_torch.runtime.kv_cache import KVCache
+
+MAX_BUCKET = 1024
+M_TILE = 128        # prompt rows per product item and per attention item
+_NEG_INF = torch.finfo(torch.float32).min
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    S: int                    # padded bucket length (tokens)
+    L: int
+    hid: int
+    H: int
+    KH: int
+    D: int
+    G: int
+    inter: int
+    QKVN: int
+    V: int
+    ps: int
+    maxPb: int                # pages covering S
+    kv_mode: CacheMode
+    kv_bits: int
+    kv_dtype_name: str
+    has_qkv_bias: bool
+    qkv: StreamPlan
+    o: StreamPlan
+    gu: StreamPlan
+    dn: StreamPlan
+    lm: StreamPlan
+    rms_eps: float
+
+    @property
+    def streams(self) -> Tuple[StreamPlan, ...]:
+        return (self.qkv, self.o, self.gu, self.dn, self.lm)
+
+    @property
+    def weight_bytes(self) -> int:
+        """Bytes one launch must stream: every payload and qparam once."""
+        per_layer = sum(s.payload_bytes + s.qparam_bytes
+                        for s in self.streams[:4])
+        return self.L * per_layer + self.lm.payload_bytes + \
+            self.lm.qparam_bytes
+
+    def operations(self, n: int) -> float:
+        """Multiply-adds x 2 that n valid prompt rows need: the layer
+        products for each row, causal attention, and the lm_head for one."""
+        per_row = 2.0 * self.L * sum(s.K * s.Ntot for s in self.streams[:4])
+        attn = 2.0 * self.L * self.H * self.D * n * (n + 1)   # QK^T and PV
+        return n * per_row + attn + 2.0 * self.lm.K * self.lm.Ntot
+
+
+def supports_prefill(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
+                     bucket: int) -> bool:
+    """Whether a fresh prompt of this bucket takes the prefill megakernel:
+    the JAX package's rules for dense models (bucket rule, weight-only
+    view, `supports`, equal bits over gate / up / down, down's groups a
+    multiple of 128 or one group). QK-norm, ALiBi and MoE are branches the
+    port's model code lacks: `ops.megakernel.supports` turns them down."""
+    if bucket > MAX_BUCKET or bucket % 128:
+        return False
+    view = mk.weight_only_decode_view(params)
+    if view is None or not mk.supports(cfg, rt, view):
+        return False
+    lp = view["layers"]
+    bits = {mk._weight_bits(lp[n]) for n in ("gate_proj", "up_proj",
+                                             "down_proj")}
+    if len(bits) != 1:
+        return False
+    dnl = lp["down_proj"]
+    if "w_q" in dnl:
+        Kdn = dnl["w_q"].shape[1]
+        gs = Kdn // dnl["scale"].shape[1]
+        if gs % 128 and gs != Kdn:
+            return False
+    return True
+
+
+def make_prefill_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
+                      bucket: int,
+                      decode_plan: Optional[MegaPlan] = None) -> PrefillPlan:
+    """Shapes of one prefill launch. `decode_plan`: the decode MegaPlan
+    whose StreamPlans this plan adopts verbatim, so that both kernels index
+    ONE packed weight set; without it the plan is made from `params`."""
+    dp = decode_plan
+    if dp is None:
+        dp = mk.make_plan(cfg, rt, mk.weight_only_decode_view(params))
+    mode = rt.cache.mode
+    if mode == CacheMode.DEFAULT:
+        kv_dtype_name = "float32" if rt.dtype == "float32" else "bfloat16"
+    else:
+        kv_dtype_name = "int8" if mode == CacheMode.INT8 else "uint8"
+    return PrefillPlan(
+        S=bucket, L=dp.L, hid=dp.hid, H=dp.H, KH=dp.KH, D=dp.D, G=dp.G,
+        inter=dp.inter, QKVN=dp.QKVN, V=dp.V, ps=rt.cache.page_size,
+        maxPb=-(-bucket // rt.cache.page_size), kv_mode=mode,
+        kv_bits={CacheMode.DEFAULT: 16, CacheMode.INT8: 8,
+                 CacheMode.UINT4: 4}[mode],
+        kv_dtype_name=kv_dtype_name, has_qkv_bias=dp.has_qkv_bias,
+        qkv=dp.qkv, o=dp.o, gu=dp.gu, dn=dp.dn, lm=dp.lm,
+        rms_eps=dp.rms_eps)
+
+
+def cuda_kernel_gaps(plan: PrefillPlan) -> List[str]:
+    """Why csrc/prefill_megakernel.cu cannot run this plan (empty = it
+    can): the pack's 256-column tiles and 64-row chunks, head_dim 128."""
+    gaps = [g for sp in plan.streams for g in mk.stream_gaps(sp)]
+    if plan.D != 128:
+        gaps.append("head_dim != 128")
+    if plan.S % M_TILE or plan.S > MAX_BUCKET:
+        gaps.append(f"bucket {plan.S} not a multiple of {M_TILE} up to "
+                    f"{MAX_BUCKET}")
+    return gaps
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def dequantized_leaf(leaf: Dict) -> torch.Tensor:
+    """One leaf (a layer's slice, either layout) as the kernel's product
+    sees it: f32 values of `bf16(f32(q) * s + z)` [K, N], with s and z
+    rounded to bf16; a bf16 leaf as it is."""
+    leaf = mk.loader_view(leaf)
+    if "w" in leaf:
+        return leaf["w"].to(torch.bfloat16).float()
+    scale = leaf["scale"].to(torch.bfloat16).float()
+    zero = leaf["zero"].to(torch.bfloat16).float()
+    q = weight_levels(leaf["w_q"]).float()
+    gs = q.shape[0] // scale.shape[0]
+    w = q * scale.repeat_interleave(gs, dim=0) + \
+        zero.repeat_interleave(gs, dim=0)
+    return w.to(torch.bfloat16).float()
+
+
+def _wdeq_dot(x: torch.Tensor, packed: Dict, sp: StreamPlan,
+              layer: Optional[int]) -> torch.Tensor:
+    """x [M, K] bf16 . the stream's leaves, dequantized weight-side -> f32
+    [M, Ntot]."""
+    xf = x.float()
+    outs = []
+    for name in sp.leaves:
+        leaf = packed["lm_head"] if layer is None else \
+            {k: v[layer] for k, v in packed["layers"][name].items()}
+        outs.append(xf @ dequantized_leaf(leaf))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """x [S, n, D] f32; cos/sin [S, D] f32 full-D tiles (half-split)."""
+    h = x.shape[-1] // 2
+    rot = torch.cat([-x[..., h:], x[..., :h]], dim=-1)
+    return x * cos[:, None, :] + rot * sin[:, None, :]
+
+
+def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
+                           cos: torch.Tensor, sin: torch.Tensor,
+                           page_row: torch.Tensor, n_tokens, cache: KVCache,
+                           bf16_scores: bool = False) -> torch.Tensor:
+    """The whole prefill, phase by phase (see `prefill_megakernel`).
+    Updates the pool in place; returns logits [V] f32 of token n-1.
+    `bf16_scores` rounds q and k to bf16 before the score product, as the
+    CUDA kernel's tensor-core operands are."""
+    S, L, H, KH, D, G = plan.S, plan.L, plan.H, plan.KH, plan.D, plan.G
+    bf = torch.bfloat16
+    HD, KD = H * D, KH * D
+    n = int(n_tokens)
+    dev = x0.device
+    cosf, sinf = cos.to(bf).float(), sin.to(bf).float()
+    scale = 1.0 / math.sqrt(D)
+    pos = torch.arange(n, device=dev)
+    pages0 = page_row.long()[(pos // plan.ps).clamp(0, plan.maxPb - 1)]
+    offs = pos % plan.ps
+    t = torch.arange(S, device=dev)
+    causal = t[None, :] <= t[:, None]                       # [q, k]
+    norms = packed["norms"]
+    resid = x0.to(bf).float()
+    for l in range(L):
+        x = mk._rms(resid, norms[l, 0], plan.rms_eps).to(bf)
+        qkv = _wdeq_dot(x, packed, plan.qkv, l)
+        if packed["qkv_b"] is not None:
+            qkv = qkv + packed["qkv_b"][l]
+        q = _rope(qkv[:, :HD].reshape(S, H, D), cosf, sinf)
+        k = _rope(qkv[:, HD:HD + KD].reshape(S, KH, D), cosf, sinf)
+        v = qkv[:, HD + KD:].reshape(S, KH, D)
+        qs, ks = (q.to(bf).float(), k.to(bf).float()) if bf16_scores \
+            else (q, k)
+        s = torch.einsum("qhgd,khd->hgqk", qs.reshape(S, KH, G, D), ks) * scale
+        s = torch.where(causal, s, _NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        attn = torch.einsum("hgqk,khd->qhgd", p.to(bf).float(),
+                            v.to(bf).float()).reshape(S, HD).to(bf)
+        kv_ops._write(cache, plan.kv_mode, k[:n], v[:n], pages0 + l, offs)
+        resid = resid + _wdeq_dot(attn, packed, plan.o, l)
+        x = mk._rms(resid, norms[l, 1], plan.rms_eps).to(bf)
+        gu = _wdeq_dot(x, packed, plan.gu, l)
+        g, u = gu[:, :plan.inter], gu[:, plan.inter:]
+        act = (g * torch.sigmoid(g) * u).to(bf)
+        resid = resid + _wdeq_dot(act, packed, plan.dn, l)
+    x = mk._rms(resid[n - 1:n], packed["final_norm"], plan.rms_eps).to(bf)
+    return _wdeq_dot(x, packed, plan.lm, None)[0]
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+# order of the integer arguments of di_prefill_megakernel
+# (csrc/prefill_megakernel.cu IArg)
+_IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "page_row",
+          "n_tokens", "k_pool", "v_pool", "k_qp", "v_qp", "logits", "resid",
+          "xn", "partial", "qb", "kb", "vb", "attn", "act", "x_last",
+          "barrier", "status", "launches", "trace", "S", "L", "hid", "H",
+          "KH", "inter", "V", "ps", "maxPb", "kv_kind", "ql", "grid")
+_P, _I = mk._P, mk._I
+
+# the kernel's phases, in order, each followed by a grid barrier
+LAYER_PHASES = ("norm1", "qkv", "rope_kv", "attention", "o", "norm2",
+                "gate_up", "swiglu", "down")
+TAIL_PHASES = ("final_norm", "lm_head")
+
+
+def choose_split(tiles: int, chunks: int, mtiles: int,
+                 grid: int) -> Tuple[int, int]:
+    """K split of one product: (ksplit, chunks per split). An item is one
+    (256-column tile, split, 128-row tile); a block walks its items one
+    after the other. The cost of a split, in chunk times on the slowest
+    block: waves x (chunks of an item + the pipeline's fill and the
+    epilogue, which with a split also writes partial sums that the next
+    phase reads back)."""
+    best = None
+    for ks in range(1, chunks + 1):
+        cps = -(-chunks // ks)
+        if -(-chunks // cps) != ks:
+            continue
+        items = tiles * ks * mtiles
+        cost = -(-items // grid) * (cps + (8 if ks > 1 else 4))
+        if best is None or cost < best[0]:
+            best = (cost, ks, cps)
+    return best[1], best[2]
+
+
+# the kernel's scratch buffers (flat; IArg names of the same spelling)
+_SCRATCH_DTYPES = dict(
+    partial=torch.float32, resid=torch.float32, xn=torch.bfloat16,
+    qb=torch.bfloat16, kb=torch.bfloat16, vb=torch.bfloat16,
+    attn=torch.bfloat16, act=torch.bfloat16, x_last=torch.bfloat16,
+    barrier=torch.int32, status=torch.int32)
+
+
+class _Launch:
+    """Per (plan, device) launch geometry of the kernel: grid, K splits and
+    what the plan needs of the device's scratch (elements per buffer)."""
+
+    def __init__(self, plan: PrefillPlan, dev: torch.device):
+        gaps = cuda_kernel_gaps(plan)
+        if gaps:
+            raise ValueError("prefill_megakernel: " + "; ".join(gaps))
+        lib = kernel_build.load("prefill_megakernel")
+        self.fn = kernel_build.function(
+            "prefill_megakernel", "di_prefill_megakernel", [_P, _P, _P])
+        grid_fn = lib.di_prefill_megakernel_grid
+        grid_fn.argtypes, grid_fn.restype = [_I], _I
+        idx = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        self.grid = grid_fn(idx)
+        if self.grid <= 0:
+            raise RuntimeError("prefill_megakernel: the kernel does not fit "
+                               "on the device (occupancy query gave 0)")
+        S = plan.S
+        mtiles = S // M_TILE
+        self.splits = {}
+        for sp in plan.streams:
+            if sp.name == "lm":     # one row: its sums ARE the logits
+                self.splits[sp.name] = (1, sp.K // mk.CHUNK_K)
+            else:
+                self.splits[sp.name] = choose_split(
+                    sp.Ntot // 256, sp.K // mk.CHUNK_K, mtiles, self.grid)
+        HD, KD = plan.H * plan.D, plan.KH * plan.D
+        self.need = dict(
+            partial=max(self.splits[sp.name][0] * S * sp.Ntot
+                        for sp in plan.streams[:4]),
+            resid=S * plan.hid, xn=S * plan.hid, qb=S * HD, kb=S * KD,
+            vb=S * KD, attn=S * HD, act=S * plan.inter,
+            x_last=16 * plan.hid,           # row 0 is written
+            barrier=1, status=1)
+
+    def scratch_bytes(self) -> int:
+        return sum(n * _SCRATCH_DTYPES[k].itemsize
+                   for k, n in self.need.items())
+
+
+class _Scratch:
+    """One device's scratch. Prefills run one after the other on one stream,
+    so every bucket's launches share ONE set of flat buffers, each as large
+    as the largest plan seen so far needs: the kernel strides them by the
+    launch's own S. A buffer is zeroed when it is allocated (rows 1.. of
+    x_last must be zero; the rest is written before it is read)."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.bufs: Dict[str, torch.Tensor] = {}
+
+    def fit(self, need: Dict[str, int]) -> None:
+        for name, n in need.items():
+            t = self.bufs.get(name)
+            if t is not None and t.numel() >= n:
+                continue
+            if self.dev.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "prefill_megakernel: the scratch of a plan must be "
+                    "reserved (or its first launch made) outside CUDA graph "
+                    "capture")
+            self.bufs[name] = torch.zeros(n, dtype=_SCRATCH_DTYPES[name],
+                                          device=self.dev)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.bufs.values())
+
+
+_launches: Dict = {}      # (plan, device) -> _Launch
+_scratch: Dict = {}       # device -> _Scratch
+
+
+def _launch_state(plan: PrefillPlan, dev: torch.device):
+    """(geometry, scratch) of a launch of `plan`, the scratch grown to it."""
+    key = (plan, dev)
+    st = _launches.get(key)
+    if st is None:
+        st = _launches[key] = _Launch(plan, dev)
+    sc = _scratch.get(dev)
+    if sc is None:
+        sc = _scratch[dev] = _Scratch(dev)
+    sc.fit(st.need)
+    return st, sc
+
+
+def reserve_scratch(plans, device) -> int:
+    """Builds the kernel and allocates the device's scratch for the largest
+    of `plans` now (an installer calls this before it sizes the KV pool from
+    free memory). Returns the scratch bytes on the device."""
+    dev = mk._indexed(device)
+    for plan in plans:
+        _launch_state(plan, dev)
+    return scratch_bytes(dev)
+
+
+def scratch_bytes(device) -> int:
+    """Bytes of prefill scratch the device holds now."""
+    sc = _scratch.get(mk._indexed(device))
+    return sc.nbytes() if sc else 0
+
+
+def release_scratch(device) -> None:
+    """Frees the device's scratch; a later launch allocates it anew."""
+    _scratch.pop(mk._indexed(device), None)
+
+
+def check_status(device) -> None:
+    """Waits for the device and raises if a prefill launch on it gave up at
+    a grid barrier (blocks that never became co-resident)."""
+    sc = _scratch.get(mk._indexed(device))
+    if sc is None or "status" not in sc.bufs:
+        return
+    code = int(sc.bufs["status"].item())
+    if code:
+        sc.bufs["status"].zero_()
+        sc.bufs["barrier"].zero_()
+        raise RuntimeError(f"prefill_megakernel: grid barrier after phase "
+                           f"{code - 1} timed out")
+
+
+def launch_geometry(plan: PrefillPlan, device) -> Dict:
+    """Grid and K splits of this plan's launches, the scratch bytes the
+    plan needs and those the device holds for all its plans."""
+    st, sc = _launch_state(plan, mk._indexed(device))
+    return dict(grid=st.grid, splits=dict(st.splits),
+                scratch_bytes=st.scratch_bytes(),
+                device_scratch_bytes=sc.nbytes())
+
+
+def prefill_megakernel(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
+                       cos: torch.Tensor, sin: torch.Tensor,
+                       page_row: torch.Tensor, n_tokens: torch.Tensor,
+                       cache: KVCache,
+                       trace: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One whole fresh prefill of a bucket.
+
+    x0 [S, hid] bf16: the embedded prompt, padded to the bucket; cos/sin
+    [S, D] bf16: the full-D RoPE tiles of positions 0..S-1; page_row
+    [maxPb] int32: the PHYSICAL base row `g * L` of each logical page g the
+    request owns (layer l's page is base + l); n_tokens: int32 tensor with
+    one element, the prompt length n (1 <= n <= S); cache: the pool,
+    updated in place at rows `< n` of the owned pages. Returns logits [V]
+    f32 of token n-1. CPU tensors take `prefill_megakernel_ref`; CUDA
+    tensors launch the kernel or raise. Nothing is read back, and the
+    device's one scratch set is allocated at `reserve_scratch` or at the
+    first launch of a larger plan. `trace` (int64 [trace_len(plan)] on
+    the card) receives block 0's timestamps: see `phase_times`."""
+    if x0.device.type == "cpu":
+        return prefill_megakernel_ref(plan, packed, x0, cos, sin, page_row,
+                                      n_tokens, cache)
+    if not x0.is_cuda:
+        raise ValueError(f"prefill_megakernel: unsupported device "
+                         f"{x0.device}")
+    dev = x0.device
+    S = plan.S
+    for name, t, dt, shape in (
+            ("x0", x0, torch.bfloat16, (S, plan.hid)),
+            ("cos", cos, torch.bfloat16, (S, plan.D)),
+            ("sin", sin, torch.bfloat16, (S, plan.D)),
+            ("page_row", page_row, torch.int32, (plan.maxPb,)),
+            ("norms", packed["norms"], torch.float32, (plan.L, 2, plan.hid)),
+            ("final_norm", packed["final_norm"], torch.float32,
+             (plan.hid,))):
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != dev or \
+                not t.is_contiguous():
+            raise ValueError(f"prefill_megakernel: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}; expected "
+                             f"contiguous {dt} {shape} on {dev}")
+    if not isinstance(n_tokens, torch.Tensor) or n_tokens.numel() != 1 or \
+            n_tokens.dtype != torch.int32 or n_tokens.device != dev:
+        raise ValueError("prefill_megakernel: n_tokens must be an int32 "
+                         f"tensor with one element on {dev}")
+    kv_dt = getattr(torch, plan.kv_dtype_name)
+    Ds = plan.D // 2 if plan.kv_bits == 4 else plan.D
+    quant = plan.kv_bits != 16
+    for t in (cache.k, cache.v):
+        if t.dtype != kv_dt or t.shape[1:] != (plan.ps, plan.KH * Ds) or \
+                t.device != dev or not t.is_contiguous():
+            raise ValueError("prefill_megakernel: pool "
+                             f"{t.dtype} {tuple(t.shape)} for {plan.kv_mode}")
+    if quant and (cache.k_qparams is None or
+                  cache.k_qparams.shape[1] != 2 * plan.KH or
+                  cache.k_qparams.dtype != torch.float32):
+        raise ValueError("prefill_megakernel: pool qparams missing or "
+                         "misshaped")
+    if packed["qkv_b"] is not None and \
+            tuple(packed["qkv_b"].shape) != (plan.L, plan.QKVN):
+        raise ValueError("prefill_megakernel: qkv_b shape")
+    if trace is not None and (
+            trace.dtype != torch.int64 or trace.device != dev or
+            trace.numel() < trace_len(plan) or not trace.is_contiguous()):
+        raise ValueError("prefill_megakernel: trace must be contiguous int64 "
+                         f"[{trace_len(plan)}] on {dev}")
+    st, sc = _launch_state(plan, dev)
+    buf = sc.bufs
+    logits = torch.empty((plan.V,), dtype=torch.float32, device=dev)
+    vals = dict(
+        norms=packed["norms"].data_ptr(),
+        final_norm=packed["final_norm"].data_ptr(),
+        qkv_b=0 if packed["qkv_b"] is None else packed["qkv_b"].data_ptr(),
+        x0=x0.data_ptr(), cos=cos.data_ptr(), sin=sin.data_ptr(),
+        page_row=page_row.data_ptr(), n_tokens=n_tokens.data_ptr(),
+        k_pool=cache.k.data_ptr(), v_pool=cache.v.data_ptr(),
+        k_qp=cache.k_qparams.data_ptr() if quant else 0,
+        v_qp=cache.v_qparams.data_ptr() if quant else 0,
+        logits=logits.data_ptr(),
+        **{k: buf[k].data_ptr() for k in _SCRATCH_DTYPES},
+        launches=prefill_megakernel.counter.pointer(dev),
+        trace=0 if trace is None else trace.data_ptr(),
+        S=S, L=plan.L, hid=plan.hid, H=plan.H, KH=plan.KH, inter=plan.inter,
+        V=plan.V, ps=plan.ps, maxPb=plan.maxPb,
+        kv_kind=mk._KV_KIND[plan.kv_dtype_name],
+        ql=cache.k_qparams.shape[2] if quant else 0, grid=st.grid)
+    ia = [vals[k] for k in _IARGS]
+    for sp in plan.streams:
+        layered = sp.name != "lm"
+        leaves = [packed["layers"][n] if layered else packed["lm_head"]
+                  for n in sp.leaves]
+        for leaf, n in zip(leaves, sp.N):
+            mk._check_leaf(sp, leaf, n, (plan.L,) if layered else (), dev,
+                           "prefill_megakernel")
+        ia += mk.stream_args(sp, leaves, layered, *st.splits[sp.name])
+    ia_arr = np.asarray(ia, np.int64)
+    fa_arr = np.asarray([plan.rms_eps, 1.0 / math.sqrt(plan.D)], np.float64)
+    rc = st.fn(ia_arr.ctypes.data, fa_arr.ctypes.data,
+               kernel_build.stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"prefill_megakernel launch failed: CUDA error "
+                           f"{rc}")
+    return logits
+
+
+prefill_megakernel.counter = kernel_build.LaunchCounter()
+
+
+def trace_len(plan: PrefillPlan) -> int:
+    return 2 * (len(LAYER_PHASES) * plan.L + len(TAIL_PHASES)) + 1
+
+
+def phase_times(plan: PrefillPlan, trace: torch.Tensor) -> Dict[str, Dict]:
+    """A traced launch's time by phase kind, summed over the layers, in ms
+    (`ops.megakernel.phase_times`' layout: work, then wait at the grid
+    barrier, from block 0's timestamps)."""
+    return mk.phase_times_of(LAYER_PHASES * plan.L + TAIL_PHASES,
+                             trace[:trace_len(plan)])

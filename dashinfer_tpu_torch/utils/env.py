@@ -40,6 +40,12 @@ class EnvConfig:
         return _get("DI_MEGAKERNEL", "1") != "0"
 
     @staticmethod
+    def prefill_megakernel_enabled() -> bool:
+        # DI_PREFILL_MEGAKERNEL=0 prefills every bucket through the per-op
+        # model (the decode megakernel stays on)
+        return _get("DI_PREFILL_MEGAKERNEL", "1") != "0"
+
+    @staticmethod
     def mk_stream() -> str:
         # decode megakernel weight-stream format: "auto" (u4 checkpoints
         # re-expand to per-channel i8 at max_batch >= DI_MK_I8_BATCH),

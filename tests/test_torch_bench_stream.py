@@ -72,6 +72,7 @@ def test_choose_split_covers_k_exactly(tiles, chunks, grid):
 def test_kernel_sources_are_registered():
     from dashinfer_tpu_torch.ops import kernel_build
     assert set(kernel_build.SOURCES) == {"quant_matmul", "paged_attention",
-                                         "megakernel", "stream_probe"}
+                                         "megakernel", "stream_probe",
+                                         "prefill_megakernel", "probes"}
     for name in kernel_build.SOURCES:     # hash covers the shared headers
         assert kernel_build.lib_path(name).endswith(".so")

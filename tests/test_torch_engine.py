@@ -1,7 +1,7 @@
 """The port's Engine on the CPU: the verify drive against the JAX Engine,
-the megakernel path against the JAX Engine's interpret-mode megakernel,
-fail-fast for impossible requests, stop/release, unported request features,
-seeded sampling."""
+the decode and prefill megakernel paths against the JAX Engine's
+interpret-mode megakernels, weight residency, fail-fast for impossible
+requests, stop/release, unported request features, seeded sampling."""
 
 import numpy as np
 import pytest
@@ -140,7 +140,7 @@ def test_seeded_sampling_is_reproducible():
         eng.release_model("m")
 
 
-def _megakernel_fixture():
+def _megakernel_fixture(max_length=48):
     """tests/test_megakernel.py's tiny a16w4 model (head_dim 128, L 2, hid
     256), INT8 KV, as numpy leaves for both packages."""
     import dataclasses
@@ -150,7 +150,7 @@ def _megakernel_fixture():
     from tests.test_megakernel import _tiny
     cfg, rt, params = _tiny(B=2)
     rt = dataclasses.replace(
-        rt, max_length=48,
+        rt, max_length=max_length,
         cache=dataclasses.replace(rt.cache, mode=CacheMode.INT8))
     params = quantize_params(params, QuantConfig(mode="a16w4",
                                                  group_size=128))
@@ -243,10 +243,162 @@ def test_megakernel_install_rules(monkeypatch):
     assert run.mega_plan.qkv.bits == 4
     monkeypatch.delenv("DI_MK_STREAM")
     monkeypatch.delenv("DI_MK_I8_BATCH")
-    # pack_only needs the prefill megakernel too: the reference's error
-    with pytest.raises(ValueError, match="pack_only"):
+    # pack_only needs the prefill megakernel too: with max_length 48 no
+    # bucket qualifies for it, and with the megakernel off nothing does:
+    # the reference's error
+    with pytest.raises(ValueError, match=r"pack_only needs .*"
+                       r"megakernel=True, prefill_buckets=\[\]"):
         _port_megakernel_engine(cfg, rt, np_params,
+                                weight_residency="pack_only")
+    cfg2, rt2, _, np2 = _megakernel_fixture(max_length=192)
+    with pytest.raises(ValueError, match=r"pack_only needs .*"
+                       r"megakernel=False"):
+        _port_megakernel_engine(cfg2, rt2, np2, enable_megakernel=False,
                                 weight_residency="pack_only")
     _, run = _port_megakernel_engine(cfg, rt, np_params,
                                      weight_residency="both")
     assert run.mega_plan is not None
+
+
+def test_default_prefill_megakernel_path_same_tokens_as_jax():
+    """The default configuration routes a 70-token prompt (bucket 128)
+    through the prefill megakernel (its plain version on the CPU) and then
+    decodes from the pages it wrote; the JAX engine does the same with both
+    Pallas kernels in interpret mode. The two sum in another order, and the
+    JAX package's own test of this path holds its two numeric classes to
+    the first 3 tokens on this random model; here all 8 of 8 agreed when
+    the test was written, and the first 3 are required."""
+    import dashinfer_tpu as jp
+    import dashinfer_tpu_torch as tp
+    from dashinfer_tpu.engine.model_runtime import ModelRuntime as JRuntime
+    cfg, rt, params, np_params = _megakernel_fixture(max_length=192)
+    prompt = np.random.RandomState(3).randint(
+        1, cfg.vocab_size, size=70).tolist()
+
+    def gen(mod):
+        return mod.GenerationConfig(max_length=len(prompt) + 8,
+                                    do_sample=False, top_k=1, eos_token_id=-1)
+
+    jrt = JRuntime("mk", cfg, params, rt, use_kernel=True)
+    assert 128 in jrt._pmk_plans
+    jeng = jp.Engine()
+    jeng._models["mk"] = jrt
+    jeng.start_model("mk")
+    try:
+        _, h, jq = jeng.start_request("mk", prompt, gen(jp))
+        jeng.sync_request("mk", h, timeout_s=900)
+    finally:
+        jeng.release_model("mk")
+    teng, trun = _port_megakernel_engine(cfg, rt, np_params)
+    assert sorted(trun._pmk_plans) == [128] and trun.residency == "both"
+    assert trun._pmk_plans[128].qkv is trun.mega_plan.qkv
+    teng.start_model("mk")
+    try:
+        _, h, tq = teng.start_request("mk", prompt, gen(tp))
+        teng.sync_request("mk", h, timeout_s=300)
+        # a 20-token prompt (bucket 32) goes per-op
+        _, h2, tq2 = teng.start_request("mk", prompt[:20], gen(tp))
+        teng.sync_request("mk", h2, timeout_s=300)
+    finally:
+        teng.release_model("mk")
+    assert set(trun._prefill_steps) == {(128, True), (32, False)}
+    assert tq2.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+    want, got = jq.GetAllGeneratedTokens(), tq.GetAllGeneratedTokens()
+    assert len(want) == len(got) == 8
+    assert got[:3] == want[:3], (got, want)
+
+
+def test_prefill_megakernel_switch(monkeypatch):
+    cfg, rt, _, np_params = _megakernel_fixture(max_length=192)
+    monkeypatch.setenv("DI_PREFILL_MEGAKERNEL", "0")
+    _, run = _port_megakernel_engine(cfg, rt, np_params)
+    assert run.mega_plan is not None and run._pmk_plans == {}
+    monkeypatch.delenv("DI_PREFILL_MEGAKERNEL")
+    monkeypatch.setenv("DI_WEIGHT_RESIDENCY", "pack_only")
+    _, run = _port_megakernel_engine(cfg, rt, np_params)
+    assert run.residency == "pack_only"
+
+
+def test_pack_only_serves_from_the_pack_alone():
+    """`weight_residency="pack_only"`: the raw params leave the device
+    tree, what the pack points at stays, a 20-token prompt is served from
+    bucket 128 through the prefill megakernel with the tokens of the
+    both-resident engine, and a prompt beyond the coverage is refused at
+    start_request with the reference's message."""
+    import dashinfer_tpu_torch as tp
+    cfg, rt, _, np_params = _megakernel_fixture(max_length=192)
+    prompt = np.random.RandomState(5).randint(
+        1, cfg.vocab_size, size=20).tolist()
+    gen = tp.GenerationConfig(max_length=28, do_sample=False, top_k=1,
+                              eos_token_id=-1)
+    toks = {}
+    for res in ("both", "pack_only"):
+        eng, run = _port_megakernel_engine(cfg, rt, np_params,
+                                           weight_residency=res)
+        assert run.residency == res and run._weights_resident()
+        if res == "pack_only":
+            assert run.params is None and run._pack_only_buckets == [128]
+            host = run._raw_params_host
+            packed = run.mega_params["packed"]
+            # the pack aliases the loader's scale / zero and the embedding
+            assert host["layers"]["q_proj"]["scale"] is \
+                packed["layers"]["q_proj"]["scale"]
+            assert host["embed_tokens"]["w"] is run.mega_params["embed"]
+            assert host["layers"]["q_proj"]["w_q"].device.type == "cpu"
+        eng.start_model("mk")
+        try:
+            _, h, q = eng.start_request("mk", prompt, gen)
+            eng.sync_request("mk", h, timeout_s=300)
+            if res == "pack_only":
+                with pytest.raises(ValueError, match="exceeds the prefill "
+                                   "megakernel coverage \\(128 tokens\\) "
+                                   "under weight_residency=pack_only"):
+                    eng.start_request("mk", list(range(1, 151)), gen)
+        finally:
+            eng.release_model("mk")
+        assert q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+        toks[res] = q.GetAllGeneratedTokens()
+        assert set(run._prefill_steps) == \
+            {(128, True) if res == "pack_only" else (32, False)}
+    # bucket 128 through the megakernel against bucket 32 per-op: two
+    # numeric classes; the prefill's own argmax must agree
+    assert len(toks["both"]) == len(toks["pack_only"]) == 8
+    assert toks["both"][0] == toks["pack_only"][0]
+
+
+MIB = 1024 ** 2
+
+
+@pytest.mark.parametrize("hbm,typical,max_prompt,num_pages,want", [
+    (520 * MIB, 128, 100, 0, True),     # the pool could not hold 2 x 8 pages
+    (8192 * MIB, 128, 100, 0, False),   # it could
+    (520 * MIB, 0, 100, 0, False),      # no workload stated
+    (520 * MIB, 128, 0, 0, False),      # prompts not bounded
+    (520 * MIB, 128, 150, 0, False),    # prompts may exceed bucket 128
+    (520 * MIB, 128, 100, 64, False),   # an explicit pool is never resized
+])
+def test_auto_residency_decides_as_the_jax_runtime(hbm, typical, max_prompt,
+                                                   num_pages, want):
+    """`auto` follows `_auto_pack_only` of the JAX runtime (called here on
+    a stand-in that carries the same configuration and weight bytes)."""
+    import dataclasses
+    import types
+    import jax.numpy as jnp
+    from dashinfer_tpu.engine.model_runtime import ModelRuntime as JRuntime
+    cfg, rt, _, np_params = _megakernel_fixture(max_length=192)
+    update = dict(hbm_bytes=hbm, typical_seq_len=typical,
+                  max_prompt_len=max_prompt, weight_residency="auto")
+    eng, run = _port_megakernel_engine(
+        cfg, dataclasses.replace(rt, cache=dataclasses.replace(
+            rt.cache, num_pages=num_pages)), np_params, **update)
+    assert (run.residency == "pack_only") == want
+    from dashinfer_tpu_torch.engine.model_runtime import _resident_bytes
+    w_both = _resident_bytes(run._raw_params_host or run.params,
+                             run.mega_params)
+    jrt = dataclasses.replace(
+        rt, cache=dataclasses.replace(rt.cache, num_pages=num_pages),
+        **{k: v for k, v in update.items()})
+    stand_in = types.SimpleNamespace(
+        rt=jrt, cfg=cfg, dtype=jnp.float32, params=None, mega_params=None,
+        _pmk_plans={128: None}, _per_device_nbytes=lambda tree: w_both)
+    assert JRuntime._auto_pack_only(stand_in, None) == want

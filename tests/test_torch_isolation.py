@@ -90,9 +90,12 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_the_new_modules_are_checked():
-    """The megakernel module and the probe tool are among the sources the
+    """The megakernel modules and the probe tools are among the sources the
     import check walks."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {"dashinfer_tpu_torch/ops/megakernel.py",
+            "dashinfer_tpu_torch/ops/prefill_megakernel.py",
             "dashinfer_tpu_torch/tools/bench_stream.py",
+            "dashinfer_tpu_torch/tools/probe_magic_dequant.py",
+            "dashinfer_tpu_torch/tools/probe_reshape.py",
             "dashinfer_tpu_torch/engine/steps.py"} <= rel
