@@ -7,12 +7,15 @@ Phases (any failure exits non-zero; `--only` runs a subset while working
 on one of them, and then prints no final result line):
   build       device name, `nvidia-smi` name + power limit, and the build of
               every CUDA kernel (one nvcc per source, all started together);
-  quant_matmul, paged_attention, stream_probe, probes, megakernel,
-  prefill_megakernel
+  quant_matmul, paged_attention, grouped_quant_matmul, stream_probe, probes,
+  megakernel, prefill_megakernel
               each kernel's wrapper on the card at the shapes the serving
               path gives it, held against its plain PyTorch version on the
               same inputs, and timed beside the plain version and, where one
               PyTorch call computes the same function, that call. The
+              grouped GEMM: Qwen1.5-MoE's expert shapes at the bucket-32 and
+              bucket-128 prefills (and the ragged route against it at a
+              decode batch). The
               megakernel: one decode step at Qwen2-7B width for INT8, UINT4
               and DEFAULT KV and for the u4 and the per-channel i8 weight
               stream, logits and pool writes against the plain version;
@@ -38,6 +41,13 @@ on one of them, and then prints no final result line):
   decode_logits
               one per-op decode step's logits through the kernels against
               the same step through their plain versions, and its profile.
+Then Qwen2-7B's weights go, and the MoE slice runs at Qwen1.5-MoE-A2.7B width
+(24 layers, 60 experts top-4 + a shared expert, random a16w4 weights made on
+the card): `megakernel` and `prefill_megakernel` hold the two kernels' MoE
+branches against their plain versions (KV modes, B = 8 / 32, every bucket
+128 .. 1024 the serving launches; a router near-tie that routes a row
+differently is counted and capped) and time them beside the routed bounds;
+`serve` serves the MoE model with every flag at its default and per-op.
 It prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. It needs the repository around it (the
 `dashinfer_tpu_torch` package) and a CUDA card; without either it exits
@@ -65,6 +75,18 @@ QWEN2_7B = dict(arch="qwen2", vocab_size=152064, hidden_size=3584,
                 intermediate_size=18944, num_layers=28, num_heads=28,
                 num_kv_heads=4, head_dim=128, qkv_bias=True,
                 rope_theta=1000000.0)
+# Qwen1.5-MoE-A2.7B (bench.py's MoE shape): vocab 151936, hidden 2048, 24
+# layers, 16 heads on 16 KV heads (one query head a KV head), head_dim 128,
+# qkv bias; 60 experts, top-4, expert width 1408, a shared expert of 5632
+# with a sigmoid gate, norm_topk_prob False
+QWEN15_MOE = dict(arch="qwen2_moe", vocab_size=151936, hidden_size=2048,
+                  intermediate_size=5632, num_layers=24, num_heads=16,
+                  num_kv_heads=16, head_dim=128, qkv_bias=True,
+                  rope_theta=1000000.0)
+QWEN15_MOE_EXPERTS = dict(num_experts=60, num_experts_per_tok=4,
+                          moe_intermediate_size=1408,
+                          shared_expert_intermediate_size=5632,
+                          norm_topk_prob=False)
 GROUP = 128
 DECODE_BATCH = 8          # max_batch of the served model and of the timings
 PAGE = 64
@@ -132,6 +154,46 @@ DEEP_QPARAM_RTOL = 5e-2
 F32_SCORES_RTOL = 3e-2
 PREFILL_POOL_RTOL = 1e-2
 ILL_ROWS_MAX = 16
+# MoE: kernel and plain version route with the same bf16 router, but their
+# inputs to it differ by the roundings above (an x_norm element one bf16
+# step apart moves a router logit by ~2e-4 here), which can flip a near-tie
+# top-k choice in some layer; from there on that row's activations
+# legitimately differ. The checks compare every layer's routing of the
+# two and count the rows (decode) or tokens (prefill) with a flip; a flip
+# passes only where the plain version's own logits hold the two candidates
+# (its k-th and k+1-th) within TIE_LOGIT at the first layer that flipped
+# (router logits spread ~2.3 here), for at most MAX_FLIPPED_ROWS rows, or
+# MAX_FLIPPED_SHARE of a prompt's tokens (read: 1 of 90, 5 of 200, 18 of
+# 450, 36 of 1000; gaps 3e-5 .. 5e-3, first layers 0-5), or
+# MAX_FLIPPED_ROW_SHARE of a decode batch's active rows, each routed in 24
+# layers (read: 0-2 of 7 at B = 8, 3 of 31 at B = 32; gaps 1e-5 .. 3e-2).
+# A flipped row is exempt from the logits check and from the pool check in
+# every layer: such a row can drift before its first flip (B = 8 int8 read a
+# row whose K qparams differ 1e-3 of their range at layer 1, growing ~1.9x a
+# layer to 0.14 at layer 9, where it flipped; with the uint4 pool the same
+# row does not flip and is held within the tolerances), so the flip is
+# where the drift shows, not where it starts. Every other row is held to the
+# tolerances above. A planted router fault shows that the caps
+# lie between a sound kernel and a faulty one: the plain version's router
+# logits with PLANTED_ROUTER_ERR of noise added (under 1% of their spread)
+# must route enough rows differently from the plain version to fail them.
+MAX_FLIPPED_ROWS = 2
+MAX_FLIPPED_SHARE = 0.05
+MAX_FLIPPED_ROW_SHARE = 0.1
+TIE_LOGIT = 5e-2
+PLANTED_ROUTER_ERR = 2e-2
+# The decode megakernel's MoE pool: a deeper layer's written row is held in
+# dequantized values, within one and a half of its levels plus
+# DEEP_QPARAM_RTOL (the bound the dense check puts on deeper layers'
+# qparams) of the largest range among that layer's written rows (of that KV
+# head). Deeper layers quantize activations that already differ between the
+# two sides, and a MoE row's differences pass its routed experts' gates and
+# the long-context rows' small attention outputs (~1/sqrt(n)) on: a deep
+# row's scale moves by up to ~1e-2 (UINT4: 6.7e-3 read), which shifts the
+# far end of an INT8 row's levels by ~3 (B = 32), and one V row of the
+# B = 32 state (contexts to 1,500 tokens) read 2.9e-2 of its own range and
+# 2.1e-2 of its layer's while the logits held 5e-4 of their largest.
+MOE_DEEP_RTOL = DEEP_QPARAM_RTOL
 
 
 class SmokeFailure(Exception):
@@ -279,16 +341,170 @@ def check_quant_matmul(gen, dev, details):
                 **aggregate(step, [r["launches_per_step"] for r in step]))
 
 
-def paged_case(mode, gen, dev):
-    """B=8, H=28, KH=4, D=128, ps=64: ragged lens (incl. 0 and non-multiples
-    of the page), page tables shuffled over the pool, garbage past lens."""
+def check_grouped_quant_matmul(dev, details):
+    """csrc/grouped_quant_matmul.cu at Qwen1.5-MoE width (60 experts, top-4;
+    gate / up 2048 -> 1408, padded to 1536 columns by the install, down
+    1408 -> 2048) at the shapes bucket-32 and bucket-128 prefills give it
+    (128 and 512 routed rows), u4 and once int8, against its plain version;
+    timed beside its bound, the plain version and `torch._grouped_mm` on
+    pre-dequantized bf16 stacks where the installed torch has it. Then one
+    MoE layer's experts at a decode batch (T = 8) through the grouped route
+    and through the ragged route (`DI_MOE_GROUPED=0`): the measured reason
+    for taking the grouped kernel at every T on this card."""
+    import torch
+    from dashinfer_tpu_torch.ops import grouped_quant_matmul as gqm
+    from dashinfer_tpu_torch.ops import moe as moe_ops
+    cfg = moe_config(layers=1)
+    moe = cfg.moe
+    E, k, hid, Im = (moe.num_experts, moe.num_experts_per_tok,
+                     cfg.hidden_size, moe.moe_intermediate_size)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+
+    def qlin(kin, kout, bits=4):
+        scale = torch.rand((1, E, kin // GROUP, kout), generator=gen,
+                           device=dev) * 0.002 + 1e-4
+        if bits == 4:
+            w_q = torch.randint(0, 256, (1, E, kin, kout // 2),
+                                dtype=torch.uint8, generator=gen, device=dev)
+            zero = -scale * 8.0
+        else:
+            w_q = torch.randint(-128, 128, (1, E, kin, kout),
+                                dtype=torch.int8, generator=gen, device=dev)
+            zero = torch.zeros_like(scale)
+        return {"w_q": w_q, "scale": scale, "zero": zero}
+
+    lp = {"router": {"w": torch.randn((1, hid, E), generator=gen,
+                                      device=dev) * 0.05},
+          "experts": {"gate_proj": qlin(hid, Im), "up_proj": qlin(hid, Im),
+                      "down_proj": qlin(Im, hid)}}
+    i8 = {"layers": {"experts": {"gate_proj": qlin(hid, Im, 8)}}}
+    gqm.prepare_grouped_experts({"layers": lp}, cfg)
+    gqm.prepare_grouped_experts(i8, cfg)
+
+    def layer0(tree):
+        return {k_: layer0(v) if isinstance(v, dict) else v[0]
+                for k_, v in tree.items()}
+
+    lp = layer0(lp)
+    leaves = {"gate": (lp["experts"]["gate_proj"], hid, Im),
+              "down": (lp["experts"]["down_proj"], Im, hid),
+              "gate (int8)": (layer0(i8)["layers"]["experts"]["gate_proj"],
+                              hid, Im)}
+    TM = gqm.default_tm()
+    rows, max_err = [], 0.0
+    for T in (32, 128):
+        topk_i = torch.rand((T, E), generator=gen, device=dev).topk(k).indices
+        order, stok, pos, te = gqm.build_group_layout(topk_i, E, TM)
+        n_tiles = te.shape[0]
+        trows = gqm.tile_row_counts(pos, n_tiles, TM)
+        used = torch.unique(topk_i).numel()
+        for name, (leaf, K, N) in leaves.items():
+            if name == "gate (int8)" and T != 32:
+                continue
+            xs = torch.zeros((n_tiles * TM, K), dtype=torch.bfloat16,
+                             device=dev)
+            xs[pos] = torch.randn((T * k, K), generator=gen,
+                                  device=dev).to(torch.bfloat16)
+            got = gqm.grouped_quant_matmul(xs, te, leaf, tile_rows=trows)
+            ref = gqm.grouped_quant_matmul_plain(xs, te, leaf)
+            torch.cuda.synchronize()
+            what = f"grouped_quant_matmul {name} T={T} ({T * k} rows)"
+            err = held_to_plain(got, ref, what)
+            max_err = max(max_err, err)
+            ms = time_ms(lambda: gqm.grouped_quant_matmul(
+                xs, te, leaf, tile_rows=trows), [()], iters=20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gqm.grouped_quant_matmul_plain(xs, te, leaf)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            # yardstick: one grouped product of the library on the sorted
+            # rows and bf16 stacks dequantized beforehand (timed only)
+            Np = leaf["scale"].shape[-1]
+            w_bf = moe_ops._expert_stack(leaf, torch.bfloat16, N)
+            x_sorted = xs[pos.sort().values].contiguous()
+            sizes = torch.bincount(topk_i.reshape(-1), minlength=E)
+            offs = torch.cumsum(sizes, 0).to(torch.int32)
+            library_ms, library_note = None, ""
+            if not hasattr(torch, "_grouped_mm"):
+                library_note = "torch._grouped_mm missing in this torch"
+            else:
+                for w_lib in (w_bf, w_bf.transpose(-2, -1).contiguous()
+                              .transpose(-2, -1)):
+                    try:
+                        torch._grouped_mm(x_sorted, w_lib, offs=offs)
+                        torch.cuda.synchronize()
+                        library_ms = time_ms(
+                            lambda: torch._grouped_mm(x_sorted, w_lib,
+                                                      offs=offs),
+                            [()], iters=20)
+                        library_note = ""
+                        break
+                    except Exception as e:       # timed only: no fallback
+                        library_note = f"torch._grouped_mm: {e}"[:160]
+            del w_bf
+            bits = 8 if leaf["w_q"].dtype == torch.int8 else 4
+            w_bytes = used * (K * N * bits // 8 + 2 * 4 * (K // GROUP) * N)
+            nbytes = T * k * K * 2 + w_bytes + T * k * N * 2
+            row = dict(shape=name, T=T, rows=T * k, K=K, N=N, Np=Np,
+                       experts_used=used, tiles=n_tiles,
+                       tiles_with_rows=int((trows > 0).sum()),
+                       max_abs_err=err, ref_max=ref.float().abs().max()
+                       .item(), ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_note=library_note,
+                       **bounds(nbytes, 2.0 * T * k * K * N))
+            rows.append(row)
+            print(f"{what}: err={err:.2e} ms={ms:.4f} bound="
+                  f"{max(row['bytes_ms'], row['ops_ms']):.4f} plain="
+                  f"{plain_ms:.2f} lib="
+                  + (f"{library_ms:.4f}" if library_ms is not None else
+                     f"- ({library_note})")
+                  + f"; {row['tiles_with_rows']} of {n_tiles} tiles hold "
+                  f"rows, {used} experts", flush=True)
+    # the dispatch: one layer's experts at T = 8 through both routes
+    x = torch.randn((DECODE_BATCH, hid), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    route_ms = {}
+    for route, env in (("grouped", None), ("ragged", "0")):
+        old = os.environ.pop("DI_MOE_GROUPED", None)
+        if env is not None:
+            os.environ["DI_MOE_GROUPED"] = env
+        try:
+            route_ms[route] = time_ms(
+                lambda: moe_ops.moe_block(cfg, x, lp), [()], iters=3)
+        finally:
+            os.environ.pop("DI_MOE_GROUPED", None)
+            if old is not None:
+                os.environ["DI_MOE_GROUPED"] = old
+    print(f"one MoE layer's experts at T={DECODE_BATCH}: grouped route "
+          f"{route_ms['grouped']:.3f} ms, ragged route "
+          f"{route_ms['ragged']:.3f} ms", flush=True)
+    details["grouped_quant_matmul"] = dict(rows=rows, route_ms=route_ms)
+    torch.cuda.empty_cache()
+    # one layer of a bucket-32 prefill: gate and up (one shape) and down
+    b32 = [r for r in rows if r["T"] == 32 and r["shape"] in ("gate", "down")]
+    agg = aggregate(
+        [dict(r, library_ms=r["library_ms"] or 0.0) for r in b32],
+        [2 if r["shape"] == "gate" else 1 for r in b32])
+    if any(r["library_ms"] is None for r in b32):
+        agg["library_ms"] = None
+    return dict(max_abs_err=max_err, shape="one layer of a bucket-32 "
+                "prefill (gate + up + down, 128 routed rows)",
+                route_ms=route_ms, **agg)
+
+
+def paged_case(mode, gen, dev, cfg=None):
+    """B=8, H=28, KH=4 (or `cfg`'s heads), D=128, ps=64: ragged lens (incl.
+    0 and non-multiples of the page), page tables shuffled over the pool,
+    garbage past lens."""
     import torch
     from dashinfer_tpu_torch.config import CacheConfig, CacheMode, ModelConfig
     from dashinfer_tpu_torch.runtime.kv_cache import create_kv_cache
     B, maxP = DECODE_BATCH, 32
     lens = torch.tensor([0, 1, 63, 64, 65, 517, 1000, 2047], dtype=torch.int32)
     P = B * maxP + 16
-    cfg = ModelConfig(**QWEN2_7B)
+    cfg = cfg or ModelConfig(**QWEN2_7B)
     cache = create_kv_cache(cfg, CacheConfig(page_size=PAGE, mode=mode), P,
                             torch.bfloat16, dev)
     if mode == CacheMode.DEFAULT:
@@ -357,6 +573,21 @@ def check_paged_attention(gen, dev, details):
         print(f"paged_attention {mode.value:7s} err={err:.2e} ms={ms:.4f} "
               f"bound={row['bytes_ms']:.4f} plain={plain_ms:.3f} "
               f"lib={library_ms:.4f}", flush=True)
+    # one query head a KV head (Qwen1.5-MoE's 16 on 16), INT8 as served
+    cache, pt, lens, q, mcfg = paged_case(CacheMode.INT8, gen, dev,
+                                          moe_config())
+    qb = q.to(torch.bfloat16)
+    got = pa.paged_attention(qb, cache, CacheMode.INT8, pt, lens, scale)
+    ref = pa.paged_attention_plain(qb, cache, CacheMode.INT8, pt, lens, scale)
+    torch.cuda.synchronize()
+    err = held_to_plain(got, ref, "paged_attention int8 G=1")
+    ms = time_ms(pa.paged_attention,
+                 [(qb, cache, CacheMode.INT8, pt, lens, scale)], iters=50)
+    rows.append(dict(mode="int8", H=mcfg.num_heads, KH=mcfg.num_kv_heads,
+                     max_abs_err=err, ms=ms))
+    print(f"paged_attention int8 G=1 (16 heads on 16) err={err:.2e} "
+          f"ms={ms:.4f}", flush=True)
+    del cache
     # the same kernel on a pool larger than the 50 MB L2: one launch per
     # layer over the 28 layers' pages of one long-context state (cold), and
     # layer 0 alone again and again (L2-warm), at the same work per launch
@@ -385,7 +616,7 @@ def check_paged_attention(gen, dev, details):
     details["paged_attention"] = rows
     details["paged_attention_large_pool"] = big
     # the served model's INT8 cache: one launch per layer per decode step
-    int8 = next(r for r in rows if r["mode"] == "int8")
+    int8 = next(r for r in rows if r["mode"] == "int8" and r["KH"] == 4)
     return dict(max_abs_err=max_err,
                 **aggregate([int8], [QWEN2_7B["num_layers"]]))
 
@@ -402,21 +633,138 @@ def random_qwen2_7b_params(seed: int, dev, stream: str = "u4"):
                                             dev, GROUP, stream)
 
 
+def moe_config(layers: int = None):
+    from dashinfer_tpu_torch.config import ModelConfig, MoEConfig
+    kw = dict(QWEN15_MOE)
+    if layers:
+        kw["num_layers"] = layers
+    return ModelConfig(**kw, moe=MoEConfig(**QWEN15_MOE_EXPERTS))
+
+
+def random_moe_params(cfg, seed: int, dev):
+    """Random a16w4 group-128 weights at Qwen1.5-MoE width (the
+    distribution of bench.py's build_qwen15_moe_params: u4 levels uniform,
+    scale in [1e-4, 2.1e-3), zero = -8 scale; an f32 router and shared-expert
+    gate of std 0.05), made on the card, with the 1408-wide expert stacks
+    re-laid out and padded as the install does (`prepare_grouped_experts`)."""
+    import torch
+    from dashinfer_tpu_torch.ops.grouped_quant_matmul import \
+        prepare_grouped_experts
+    L, D, hid, V = (cfg.num_layers, cfg.head_dim, cfg.hidden_size,
+                    cfg.vocab_size)
+    H, KH, moe = cfg.num_heads, cfg.num_kv_heads, cfg.moe
+    E, Im, sIm = (moe.num_experts, moe.moe_intermediate_size,
+                  moe.shared_expert_intermediate_size)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def qlin(kin, kout, lead=(L,), bias=False):
+        scale = torch.rand(lead + (kin // GROUP, kout), generator=gen,
+                           device=dev) * 0.002 + 1e-4
+        d = {"w_q": torch.randint(0, 256, lead + (kin, kout // 2),
+                                  dtype=torch.uint8, generator=gen,
+                                  device=dev),
+             "scale": scale, "zero": -scale * 8.0}
+        if bias:
+            d["b"] = torch.zeros(lead + (kout,), dtype=torch.bfloat16,
+                                 device=dev)
+        return d
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.bfloat16, device=dev)
+
+    def randn(*shape, std):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    params = {
+        "embed_tokens": {"w": randn(V, hid, std=0.02).to(torch.bfloat16)},
+        "norm": ones(hid),
+        "lm_head": qlin(hid, V, lead=()),
+        "layers": {
+            "input_layernorm": ones(L, hid),
+            "post_attention_layernorm": ones(L, hid),
+            "q_proj": qlin(hid, H * D, bias=True),
+            "k_proj": qlin(hid, KH * D, bias=True),
+            "v_proj": qlin(hid, KH * D, bias=True),
+            "o_proj": qlin(H * D, hid),
+            "router": {"w": randn(L, hid, E, std=0.05)},
+            "experts": {"gate_proj": qlin(hid, Im, (L, E)),
+                        "up_proj": qlin(hid, Im, (L, E)),
+                        "down_proj": qlin(Im, hid, (L, E))},
+            "shared_expert": {"gate_proj": qlin(hid, sIm),
+                              "up_proj": qlin(hid, sIm),
+                              "down_proj": qlin(sIm, hid)},
+            "shared_expert_gate": {"w": randn(L, hid, 1, std=0.05)},
+        },
+    }
+    return prepare_grouped_experts(params, cfg)
+
+
+def planted_router_fault(plan, logits_plain, rows, what, budget, seed):
+    """The routing of a faulty router (the plain version's logits, a list
+    of [R, EP], plus PLANTED_ROUTER_ERR of noise) against the plain
+    version's: it must fail the flip caps (count or gap). Returns its
+    flipped-row count."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    gen = torch.Generator(device=logits_plain[0].device)
+    gen.manual_seed(seed)
+    chosen = torch.stack([
+        mk.route(plan, lg + PLANTED_ROUTER_ERR * torch.randn(
+            lg.shape, generator=gen, device=lg.device))[0] > 0
+        for lg in logits_plain])
+    flips = flipped_rows(plan, chosen, logits_plain, rows, what)
+    check(len(flips) > budget or any(g > TIE_LOGIT for *_, g in flips),
+          f"{what}: a planted router fault (logit noise "
+          f"{PLANTED_ROUTER_ERR}) passes the flip caps ({len(flips)} rows, "
+          f"at most {budget}): the caps do not tell it from the kernel")
+    return len(flips)
+
+
+def flipped_rows(plan, chosen_kernel, logits_plain, rows, what,
+                 budget=None):
+    """Rows (of `rows`, a bool mask) whose routed experts differ between
+    the kernel (chosen_kernel [L, R, E] bool) and the plain version (its
+    router products, a list of [R, EP]) in some layer, held to the MoE
+    rules above (not held without a `budget`). Returns [(row, first layer,
+    the plain version's logit gap there)]."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    logits = torch.stack(logits_plain)[..., :plan.E]             # [L, R, E]
+    chosen_plain = torch.stack([mk.route(plan, lg)[0] > 0
+                                for lg in logits_plain])
+    diff = (chosen_kernel != chosen_plain).any(-1) & rows[None, :]   # [L, R]
+    top = logits.topk(plan.k_top + 1, dim=-1).values
+    gap = top[..., plan.k_top - 1] - top[..., plan.k_top]           # [L, R]
+    flips = []
+    for r in torch.nonzero(diff.any(0))[:, 0].tolist():
+        l = int(torch.nonzero(diff[:, r])[0, 0])
+        flips.append((r, l, round(float(gap[l, r]), 6)))
+    check(budget is None or (len(flips) <= budget and
+                             all(g <= TIE_LOGIT for *_, g in flips)),
+          f"{what}: {len(flips)} rows routed differently (at most {budget}, "
+          f"each a near-tie of the plain version within {TIE_LOGIT}): "
+          f"(row, first layer, logit gap) {flips}")
+    return flips
+
+
 PROMPT_LENS = [20, 90, 200, 450, 700, 1000]   # buckets 32 .. 1024
 
 
-def serve(params, dev, details, path: str, new_tokens: int):
+def serve(params, dev, details, path: str, new_tokens: int, cfg=None):
     """Six concurrent requests through `Engine`: path "megakernel" (every
     flag at its default: decode and qualifying prefills through the two
     megakernels), "per-op" (`enable_megakernel` off) or "pack_only"
     (`weight_residency="pack_only"`; `params` is then a callable that makes
-    the tree, so that the engine alone holds it). Returns (launch counts of
-    the timed requests, generated tokens per request)."""
+    the tree, so that the engine alone holds it). `cfg`: Qwen2-7B unless
+    given (the MoE model). Returns (launch counts of the timed requests,
+    generated tokens per request)."""
     import torch
     from dashinfer_tpu_torch import (CacheMode, Engine, GenerateRequestStatus,
                                      GenerationConfig, ModelConfig,
                                      RuntimeConfigBuilder)
     from dashinfer_tpu_torch.engine.model_runtime import _resident_bytes
+    from dashinfer_tpu_torch.ops import grouped_quant_matmul as gqm
     from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import paged_attention as pa
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
@@ -425,9 +773,12 @@ def serve(params, dev, details, path: str, new_tokens: int):
     counters = {"quant_matmul": qm.quant_matmul.counter,
                 "paged_attention": pa.paged_attention.counter,
                 "decode_megakernel": mk.decode_megakernel.counter,
-                "prefill_megakernel": pmk.prefill_megakernel.counter}
-    cfg = ModelConfig(**QWEN2_7B)
-    b = (RuntimeConfigBuilder("qwen2-7b").max_length(2048)
+                "prefill_megakernel": pmk.prefill_megakernel.counter,
+                "grouped_quant_matmul": gqm.grouped_quant_matmul.counter}
+    cfg = cfg or ModelConfig(**QWEN2_7B)
+    name = "qwen1.5-moe" if cfg.moe else "qwen2-7b"
+    label = f"{name} {path}"
+    b = (RuntimeConfigBuilder(name).max_length(2048)
          .max_batch(DECODE_BATCH).kv_cache_page_size(PAGE)
          .kv_cache_mode(CacheMode.INT8).dtype("bfloat16"))
     if not megakernel:
@@ -443,10 +794,10 @@ def serve(params, dev, details, path: str, new_tokens: int):
     if callable(params):
         params = params()
     mem_tree = torch.cuda.memory_allocated(dev) - mem0
-    eng = Engine().install_model("qwen2-7b", rt, params=params,
+    eng = Engine().install_model(name, rt, params=params,
                                  model_config=cfg, device=dev)
     del params
-    run = eng._models["qwen2-7b"]
+    run = eng._models[name]
     memory = dict(
         residency=run.residency, tree_bytes=mem_tree,
         installed_bytes=torch.cuda.memory_allocated(dev) - mem0,
@@ -460,13 +811,13 @@ def serve(params, dev, details, path: str, new_tokens: int):
     check((memory["prefill_scratch_bytes"] > 0) == megakernel,
           f"{path}: prefill scratch after install: "
           f"{memory['prefill_scratch_bytes']} bytes")
-    eng.start_model("qwen2-7b")
+    eng.start_model(name)
     g = torch.Generator().manual_seed(7)
     try:
         if path == "pack_only":
             # refused at start_request, with the reference's message
             try:
-                eng.start_request("qwen2-7b", [1] * 1025, GenerationConfig(
+                eng.start_request(name, [1] * 1025, GenerationConfig(
                     max_length=1030, do_sample=False, top_k=1, eos_token_id=-1))
                 refused = ""
             except ValueError as e:
@@ -477,11 +828,11 @@ def serve(params, dev, details, path: str, new_tokens: int):
         # warm-up request: the process's first use of each PyTorch kernel
         # and the capture of the decode graph are set-up, not serving
         _, h, _ = eng.start_request(
-            "qwen2-7b", torch.randint(1, cfg.vocab_size, (20,),
-                                      generator=g).tolist(),
+            name, torch.randint(1, cfg.vocab_size, (20,),
+                                generator=g).tolist(),
             GenerationConfig(max_length=24, do_sample=False, top_k=1,
                              eos_token_id=-1))
-        eng.sync_request("qwen2-7b", h, timeout_s=600)
+        eng.sync_request(name, h, timeout_s=600)
         # the kernels count their own launches on the card (CUDA graph
         # replays of the decode forward included)
         for c in counters.values():
@@ -494,14 +845,14 @@ def serve(params, dev, details, path: str, new_tokens: int):
                                   do_sample=bool(i % 2), top_k=20,
                                   temperature=0.8, seed=1000 + i,
                                   eos_token_id=-1)
-            _, h, q = eng.start_request("qwen2-7b", ids, gc)
+            _, h, q = eng.start_request(name, ids, gc)
             handles.append((h, q, gc.do_sample))
         for h, _, _ in handles:
-            eng.sync_request("qwen2-7b", h, timeout_s=600)
+            eng.sync_request(name, h, timeout_s=600)
         wall = time.monotonic() - t0
         launches = {k: c.read() for k, c in counters.items()}
     finally:
-        eng.release_model("qwen2-7b")
+        eng.release_model(name)
     check(pmk.scratch_bytes(dev) == 0,
           f"{path}: release_model left {pmk.scratch_bytes(dev)} bytes of "
           "prefill scratch on the card")
@@ -521,32 +872,42 @@ def serve(params, dev, details, path: str, new_tokens: int):
         check(len(toks) == new_tokens and
               all(0 <= t < cfg.vocab_size for t in toks),
               f"{path}: request (prompt {n}): {len(toks)} tokens")
-    # a per-op prefill runs quant_matmul on its lm_head row, and on every
-    # projection when its bucket fits the kernel (M <= 32); a prefill whose
-    # bucket is 128 .. 1024 is one prefill megakernel launch on the
-    # megakernel path, and under pack_only every prefill is (the 20-token
-    # prompt snaps to bucket 128)
+    # a per-op prefill runs quant_matmul on its lm_head row (when the vocab
+    # fills the kernel's 256-column tiles: Qwen1.5's 151936 does not, and
+    # its lm_head takes the large-M formulation, as in the JAX package),
+    # and on every projection when its bucket fits the kernel (M <= 32): q,
+    # k, v, o and the MLP's (the MoE model's shared expert's) three; a MoE
+    # layer runs the grouped kernel three times (gate, up, down) in every
+    # per-op prefill and decode step; a prefill whose bucket is 128 .. 1024
+    # is one prefill megakernel launch on the megakernel path, and under
+    # pack_only every prefill is (the 20-token prompt snaps to bucket 128)
     L = cfg.num_layers
-    per_step = 7 * L + 1
+    lm = int(cfg.vocab_size % 256 == 0)
+    per_step = 7 * L + lm
+    grouped = 3 * L if cfg.moe else 0
     if path == "pack_only":
         mega_prefills, prefill = len(PROMPT_LENS), 0
     elif megakernel:
         mega_prefills = sum(64 < n <= 1024 for n in PROMPT_LENS)
-        prefill = sum(per_step if n <= 32 else 1 for n in PROMPT_LENS
+        prefill = sum(per_step if n <= 32 else lm for n in PROMPT_LENS
                       if not 64 < n <= 1024)
     else:
         mega_prefills = 0
-        prefill = sum(per_step if n <= 32 else 1 for n in PROMPT_LENS)
+        prefill = sum(per_step if n <= 32 else lm for n in PROMPT_LENS)
+    per_op_prefills = len(PROMPT_LENS) - mega_prefills
     if megakernel:
         # one megakernel launch is one decode step; nothing else of a step
         # reaches the per-op kernels
         steps = launches["decode_megakernel"]
         check(steps >= new_tokens - 1 and launches["paged_attention"] == 0
               and launches["quant_matmul"] == prefill
-              and launches["prefill_megakernel"] == mega_prefills,
-              f"{path} path: launch counts {launches} do not match "
+              and launches["prefill_megakernel"] == mega_prefills
+              and launches["grouped_quant_matmul"] ==
+              grouped * per_op_prefills,
+              f"{label} path: launch counts {launches} do not match "
               f"{steps} decode steps, {mega_prefills} prefill megakernel "
               f"launches and the other prefills' {prefill} quant_matmul "
+              f"and {grouped * per_op_prefills} grouped_quant_matmul "
               "launches")
     else:
         # every decode step runs paged_attention once per layer and
@@ -554,22 +915,24 @@ def serve(params, dev, details, path: str, new_tokens: int):
         steps = launches["paged_attention"] // L
         check(launches["paged_attention"] % L == 0 and steps >= new_tokens - 1
               and launches["quant_matmul"] == per_step * steps + prefill
+              and launches["grouped_quant_matmul"] ==
+              grouped * (steps + len(PROMPT_LENS))
               and launches["decode_megakernel"] == 0
               and launches["prefill_megakernel"] == 0,
-              f"per-op path: launch counts {launches} do not match {steps} "
+              f"{label} path: launch counts {launches} do not match {steps} "
               f"decode steps and {len(PROMPT_LENS)} prefills")
-    details[f"serving_{path}"] = dict(requests=reqs, launches=launches,
-                                      wall_s=wall, decode_steps=steps,
-                                      memory=memory)
+    details[f"serving_{name}_{path}"] = dict(
+        requests=reqs, launches=launches, wall_s=wall, decode_steps=steps,
+        memory=memory)
     for r in reqs:
-        print(f"{path} request prompt={r['prompt_len']:4d} "
+        print(f"{label} request prompt={r['prompt_len']:4d} "
               f"{'top-k' if r['sampled'] else 'greedy':6s} {r['status']} "
               f"tokens={r['n_tokens']} ttft_ms={r['ttft_ms']:.1f} "
               f"decode_ms/step={r['decode_ms_per_step']:.2f}", flush=True)
-    print(f"{path}: served {len(reqs)} requests in {wall:.2f} s, {steps} "
+    print(f"{label}: served {len(reqs)} requests in {wall:.2f} s, {steps} "
           f"decode steps; launches {launches}", flush=True)
     gib = 1024 ** 3
-    print(f"{path}: weight residency {memory['residency']}: weights on the "
+    print(f"{label}: weight residency {memory['residency']}: weights on the "
           f"card {memory['weights_resident_bytes'] / gib:.2f} GiB (the "
           f"megakernels' {memory['pack_bytes'] / gib:.2f}), pool "
           f"{memory['pool_bytes'] / gib:.2f} GiB "
@@ -627,6 +990,31 @@ def check_serving(params, dev, details):
           "resident", flush=True)
     torch.cuda.empty_cache()
     return mk_launches, op_launches, po_launches
+
+
+def check_serving_moe(params, cfg, dev, details):
+    """The MoE model served with every flag at its default and on the per-op
+    path, on the same weights; the greedy requests' agreement is printed
+    (the paths route with different sums, so a near-tie may route a token
+    differently: only the launch counts and the finished requests are
+    held)."""
+    import torch
+    mk_launches, mk_tokens, _ = serve(params, dev, details, "megakernel",
+                                      64, cfg)
+    op_launches, op_tokens, _ = serve(params, dev, details, "per-op", 64,
+                                      cfg)
+    agree = []
+    for i, (a, b) in enumerate(zip(mk_tokens, op_tokens)):
+        if i % 2:
+            continue
+        n = min(len(a), len(b))
+        agree.append(next((j for j in range(n) if a[j] != b[j]), n))
+        print(f"MoE greedy request prompt={PROMPT_LENS[i]}: megakernel and "
+              f"per-op paths agree on the first {agree[-1]} of {n} tokens",
+              flush=True)
+    details["moe_greedy_agreement"] = agree
+    torch.cuda.empty_cache()
+    return mk_launches, op_launches
 
 
 # -- the decode megakernel against its plain version -------------------------
@@ -702,15 +1090,21 @@ def kv_levels(t, mode):
     return t.to(torch.int32) if mode == CacheMode.INT8 else t.float()
 
 
-def check_written_pool(what, mode, got, ref_cache, before, written, L, dev):
+def check_written_pool(what, mode, got, ref_cache, before, written, L, dev,
+                       exempt=None, moe=False):
     """A kernel's pool against its plain version's on clones of one pool:
     `written` [pages, ps] marks the token rows that must have changed (the
-    tolerances above); every other byte must be unchanged. Returns (payload
-    levels apart, qparams rel. difference in layer 0, in all layers)."""
+    tolerances above, except at the rows `exempt` marks: a MoE row that
+    was routed differently); every other byte must be unchanged. A MoE
+    model's written rows of the layers past the first are held in
+    dequantized values, as the prefill pool is (MOE_DEEP_RTOL). Returns
+    (payload levels apart, qparams rel. difference in layer 0, in all
+    layers)."""
     import torch
     from dashinfer_tpu_torch.config import CacheMode
     pool_err = qp_err = qp_err0 = 0.0
     quant = mode != CacheMode.DEFAULT
+    held = written if exempt is None else written & ~exempt
     for name in ("k", "v"):
         a, r, b0 = (getattr(c, name) for c in (got, ref_cache,
                                                before))
@@ -718,8 +1112,46 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev):
               f"{what}: {name} pool changed outside the written tokens")
         check(bool((a[written] != b0[written]).any(-1).all()),
               f"{what}: a new token's {name} row was not written")
+        written_all, written = written, held
         d = (kv_levels(a[written], mode) - kv_levels(r[written], mode)).abs()
-        if quant:       # at most one quantization level apart
+        layer = torch.arange(written.shape[0], device=dev)[:, None] \
+            .expand_as(written)[written] % L
+        if quant and moe:
+            # layer 0 at most one level apart; deeper rows in values
+            pool_err = max(pool_err, float(d[layer == 0].max().item()))
+            check(pool_err <= 1, f"{what}: {name} layer 0 payload "
+                  f"{pool_err} levels")
+            KH = getattr(got, name + "_qparams").shape[1] // 2
+            val, _, _, _ = written_rows(got, name, written, mode, KH)
+            rval, _, rsc, _ = written_rows(ref_cache, name, written, mode,
+                                           KH)
+            # [R, KH]: the difference less 1.5 of the row's levels, in
+            # shares of the largest range of that layer's written rows
+            rng = (rval.amax(-1) - rval.amin(-1))
+            layer_rng = torch.zeros((L, KH), device=dev).scatter_reduce_(
+                0, layer[:, None].expand_as(rng), rng, "amax"
+            )[layer].clamp_min(1e-8)
+            over = ((val - rval).abs().amax(-1) - 1.5 * rsc).clamp_min(0)
+            rel_all = over / layer_rng                         # [R, KH]
+            rel = rel_all[layer > 0]
+            if rel.numel() and rel.max().item() > MOE_DEEP_RTOL:
+                # where: the worst (row, head), and that token's rows in
+                # every layer (logical page g: the request's row of pages)
+                worst = int(rel_all.amax(-1).argmax())
+                page, off = torch.nonzero(written)[worst].tolist()
+                head = int(rel_all[worst].argmax())
+                g = page // L
+                same = torch.nonzero(written)
+                rows_g = ((same[:, 0] // L == g) & (same[:, 1] == off))
+                profile = [round(v, 4) for v in
+                           rel_all[rows_g][:, head].tolist()]
+                check(False, f"{what}: {name} rows past layer 0 differ by "
+                      f"{rel.max().item():.3e} of their layer's range beyond "
+                      f"1.5 levels; worst: logical page {g}, offset {off}, "
+                      f"layer {page % L}, head {head}; by "
+                      f"layer: {profile}; (row, head) pairs over: "
+                      f"{int((rel > MOE_DEEP_RTOL).sum())} of {rel.numel()}")
+        elif quant:     # at most one quantization level apart
             pool_err = max(pool_err, float(d.max().item()))
             check(pool_err <= 1, f"{what}: {name} payload {pool_err} levels")
         else:           # one bf16 step on top of the qparams' tolerances
@@ -734,7 +1166,7 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev):
         if quant:
             a, r, b0 = (getattr(c, name + "_qparams") for c in
                         (got, ref_cache, before))
-            wq = written[:, None, :].expand_as(a)
+            wq = written_all[:, None, :].expand_as(a)
             check(bool((a[~wq] == b0[~wq]).all()),
                   f"{what}: {name} qparams changed outside the written "
                   "tokens")
@@ -754,6 +1186,7 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev):
             check(qp_err0 <= QPARAM_RTOL and qp_err <= DEEP_QPARAM_RTOL,
                   f"{what}: {name} qparams differ: layer 0 {qp_err0:.2e}, "
                   f"all layers {qp_err:.2e}; by layer {by_layer}")
+        written = written_all
     return pool_err, qp_err0, qp_err
 
 
@@ -773,16 +1206,33 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
     x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
     before = st["cache"]
     caches = {True: before.clone(), False: before.clone()}
-    out = {}
-    for kernel in (True, False):
-        fn = mk.decode_megakernel if kernel else mk.decode_megakernel_ref
-        out[kernel] = fn(plan, packed, x0, st["cos"], st["sin"], st["pt"],
-                         st["lens"], st["active"], caches[kernel])
+    args = (plan, packed, x0, st["cos"], st["sin"], st["pt"], st["lens"],
+            st["active"])
+    out = {True: mk.decode_megakernel(*args, caches[True])}
     mk.check_status(plan, dev)
+    routing = []
+    out[False] = mk.decode_megakernel_ref(*args, caches[False],
+                                          routing=routing)
     torch.cuda.synchronize()
     what = f"megakernel {stream}/{mode.value}" + (
         f" B={B}" if B != DECODE_BATCH else "")
-    act = st["active"]
+    act = st["active"].clone()
+    flips, exempt, planted, budget = [], None, None, None
+    if plan.E:
+        # each layer's routing of the kernel against the plain version's
+        chosen = torch.zeros((L, B, plan.E), dtype=torch.bool, device=dev)
+        chosen.scatter_(2, mk.kernel_routing(plan, dev).long(), True)
+        budget = max(MAX_FLIPPED_ROWS,
+                     math.ceil(MAX_FLIPPED_ROW_SHARE * int(act.sum())))
+        flips = flipped_rows(plan, chosen, routing, act, what, budget)
+        planted = planted_router_fault(plan, routing, act, what, budget,
+                                       SEED + B)
+        exempt = torch.zeros(before.k.shape[:2], dtype=torch.bool,
+                             device=dev)
+        for b, *_ in flips:
+            g, off = int(st["pt"][b, lens[b] // PAGE]), lens[b] % PAGE
+            exempt[g * L:(g + 1) * L, off] = True
+            act[b] = False
     got, ref = out[True][act], out[False][act]
     check(bool(torch.isfinite(got).all()), f"{what}: logits not finite")
     err = (got - ref).abs().max().item()
@@ -803,15 +1253,21 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
         g, off = int(st["pt"][b, lens[b] // PAGE]), lens[b] % PAGE
         written[g * L:(g + 1) * L, off] = True
     pool_err, qp_err0, qp_err = check_written_pool(
-        what, mode, caches[True], caches[False], before, written, L, dev)
+        what, mode, caches[True], caches[False], before, written, L, dev,
+        exempt, moe=bool(plan.E))
     print(f"{what}: logits max|d|={err:.3e} (ref max {ref_max:.3e}), argmax "
           f"equal {same}/{int(act.sum())}, written payload within "
           f"{pool_err:g} level, qparams rel {qp_err0:.1e} (layer 0) "
           f"{qp_err:.1e} (all layers), rest of the pool "
-          "unchanged", flush=True)
-    return dict(stream=stream, mode=mode.value, max_abs_err=err,
+          "unchanged" + (f"; rows routed differently (row, first layer, "
+                         f"logit gap): {flips}, by the planted router "
+                         f"fault: {planted} (cap {budget})" if plan.E
+                         else ""),
+          flush=True)
+    return dict(stream=stream, mode=mode.value, B=B, max_abs_err=err,
                 ref_max=ref_max, argmax_equal=same, pool_levels=pool_err,
-                qparam_rel_layer0=qp_err0, qparam_rel=qp_err)
+                qparam_rel_layer0=qp_err0, qparam_rel=qp_err,
+                flipped_rows=flips, planted_fault_rows=planted)
 
 
 def time_megakernel(cfg, params, stream, B, lens, gen, dev, per_op=True):
@@ -848,15 +1304,31 @@ def time_megakernel(cfg, params, stream, B, lens, gen, dev, per_op=True):
             lambda: transformer.decode_forward(
                 cfg, params, st["tokens"], st["cache"], st["pt"], st["lens"],
                 st["active"], mode=mode), [()], iters=3)
-    nbytes = (plan.weight_bytes + kv_bytes_read(cfg, mode, lens, [1] * B) +
-              B * plan.V * 4)
+    weight_bytes = plan.weight_bytes
     n_w = sum(sp.K * sp.Ntot * (1 if sp.name == "lm" else plan.L)
-              for sp in plan.streams)
+              for sp in plan.streams if not sp.E)
+    if plan.E:
+        # what this step's data needs: the experts some row routes to in
+        # each layer (the traced launch's routing), k of them a row
+        used = [len(set(r.flatten().tolist()))
+                for r in mk.kernel_routing(plan, dev)]
+        weight_bytes = int(sum(plan.layer_bytes(u) for u in used) +
+                           plan.lm.matrix_bytes)
+        n_w += plan.L * plan.k_top * sum(sp.K * sp.Ntot for sp in
+                                         plan.streams if sp.E)
+        row.update(experts_used=used,
+                   all_experts_bytes_ms=bounds(plan.weight_bytes, 0)[
+                       "bytes_ms"])
+    nbytes = (weight_bytes + kv_bytes_read(cfg, mode, lens, [1] * B) +
+              B * plan.V * 4)
     ops = 2.0 * B * n_w
-    row.update(weight_bytes=plan.weight_bytes, **bounds(nbytes, ops))
+    row.update(weight_bytes=weight_bytes, **bounds(nbytes, ops))
     print(f"megakernel {stream} B={B} (cached tokens {sum(lens)}): "
           f"{row['ms']:.3f} ms/step, without attention "
           f"{row['no_attention_ms']:.3f}, byte bound {row['bytes_ms']:.3f}"
+          + (f" (routed experts a layer {min(row['experts_used'])}.."
+             f"{max(row['experts_used'])}; every expert: "
+             f"{row['all_experts_bytes_ms']:.3f})" if plan.E else "")
           + (f", per-op graph {row['per_op_ms']:.3f}" if per_op else "")
           + f"; grid {row['geometry']['grid']}, K splits "
           f"{row['geometry']['splits']}", flush=True)
@@ -923,6 +1395,48 @@ def check_megakernel(params, dev, details):
                           else "operations"))
 
 
+def check_megakernel_moe(cfg, params, dev, details):
+    """The decode megakernel's MoE branch at Qwen1.5-MoE width (G = 1):
+    one step against the plain version for the three KV modes at B = 8 and
+    at B = 32, then ms per step beside the routed byte bound."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    cases = [check_megakernel_case(cfg, params, "u4 MoE", mode, gen, dev)
+             for mode in (CacheMode.INT8, CacheMode.UINT4,
+                          CacheMode.DEFAULT)]
+    lens32 = [(37 + 61 * i) % 1500 + 1 for i in range(32)]
+    cases.append(check_megakernel_case(cfg, params, "u4 MoE", CacheMode.INT8,
+                                       gen, dev, lens32, 17))
+    plan, packed = mk_plan_pack(cfg, params, DECODE_BATCH, CacheMode.INT8)
+    st = mk_state(cfg, CacheMode.INT8, DECODE_BATCH, MK_LENS, None, gen, dev)
+    x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mk.decode_megakernel_ref(plan, packed, x0, st["cos"], st["sin"],
+                             st["pt"], st["lens"], st["active"], st["cache"])
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    del st, plan, packed
+    times = [time_megakernel(cfg, params, "u4 MoE", 8, MK_LENS, gen, dev),
+             time_megakernel(cfg, params, "u4 MoE", 32, lens32, gen, dev,
+                             per_op=False)]
+    details["megakernel_moe"] = dict(cases=cases, times=times,
+                                     plain_ms=plain_ms)
+    print(f"megakernel MoE plain version: {plain_ms:.1f} ms/step", flush=True)
+    base = times[0]
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=base["ms"], plain_ms=plain_ms, library_ms=None,
+                per_op_ms=base["per_op_ms"],
+                bound_ms=max(base["bytes_ms"], base["ops_ms"]),
+                bound_by=("bytes" if base["bytes_ms"] >= base["ops_ms"]
+                          else "operations"),
+                flipped_rows=sum(len(c["flipped_rows"]) for c in cases))
+
+
 # -- the prefill megakernel against its plain version ------------------------
 
 def pmk_plan_pack(cfg, params, bucket, mode):
@@ -987,7 +1501,7 @@ def written_rows(cache, name, written, mode, KH):
 
 
 def check_prefill_pool(what, mode, got, ref, ref32, before, written, cfg,
-                       dev):
+                       dev, exempt=None):
     """The prefill kernel's pool against its plain version's (`ref`, bf16
     score operands; `ref32`, f32 score operands) on clones of one pool, by
     the tolerances stated above. Returns (levels apart in layer 0, qparams
@@ -1002,6 +1516,10 @@ def check_prefill_pool(what, mode, got, ref, ref32, before, written, cfg,
     n_levels = {CacheMode.INT8: 255.0, CacheMode.UINT4: 15.0}.get(mode)
     layer0 = (torch.arange(written.shape[0], device=dev)[:, None]
               .expand_as(written)[written] % L) == 0
+    # rows of a MoE token that the kernel routed differently (rows of the
+    # written mask's order): not held to the tolerances
+    held = torch.ones_like(layer0) if exempt is None else \
+        ~exempt[written]
     lv_err = qp_err0 = rel_max = plain_max = ill_max = 0.0
     ill = 0
     for name in ("k", "v"):
@@ -1019,13 +1537,13 @@ def check_prefill_pool(what, mode, got, ref, ref32, before, written, cfg,
         rval, rlv, rsc, rze = written_rows(ref, name, written, mode, KH)
         r32 = written_rows(ref32, name, written, mode, KH)[0]
         rng = (rval.amax(-1) - rval.amin(-1)).clamp_min(1e-8)
-        rel = (val - rval).abs().amax(-1) / rng               # [R, KH]
+        rel = (val - rval).abs().amax(-1) / rng * held[:, None]   # [R, KH]
         rel32 = (rval - r32).abs().amax(-1) / rng
         if quant:
-            d0 = (lv - rlv).abs()[layer0]
+            d0 = (lv - rlv).abs()[layer0 & held]
             lv_err = max(lv_err, d0.max().item())
             q0 = torch.maximum((sc - rsc).abs() / rsc,
-                               (ze - rze).abs() / rng)[layer0]
+                               (ze - rze).abs() / rng)[layer0 & held]
             qp_err0 = max(qp_err0, q0.max().item())
             check(lv_err <= 1 and qp_err0 <= QPARAM_RTOL,
                   f"{what}: {name} layer 0: payload {lv_err} levels, "
@@ -1033,7 +1551,8 @@ def check_prefill_pool(what, mode, got, ref, ref32, before, written, cfg,
             tol = 1.5 / n_levels + PREFILL_POOL_RTOL
         else:
             tol = BF16_STEP + PREFILL_POOL_RTOL
-            check(bool((rel[layer0] <= BF16_STEP + QPARAM_RTOL).all()),
+            check(bool((rel[layer0 & held] <= BF16_STEP + QPARAM_RTOL
+                        ).all()),
                   f"{what}: {name} layer 0 differs {rel[layer0].max():.2e}")
         over = rel > tol
         bad = over & (rel > 4 * rel32)
@@ -1061,6 +1580,7 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev):
     rows < n of the owned pages, and every other pool byte. The plain
     version with the TPU kernel's f32 score operands is read beside it."""
     import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
     L = cfg.num_layers
     plan, packed = pmk_plan_pack(cfg, params, bucket, mode)
@@ -1072,39 +1592,76 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev):
     ref32_cache = before.clone()
     got = pmk.prefill_megakernel(*args, got_cache)
     pmk.check_status(dev)
-    ref = pmk.prefill_megakernel_ref(*args, ref_cache, bf16_scores=True)
-    ref32 = pmk.prefill_megakernel_ref(*args, ref32_cache)
+    routes = {True: [], False: []}
+    ref = pmk.prefill_megakernel_ref(*args, ref_cache, bf16_scores=True,
+                                     routing=routes[True])
+    ref32 = pmk.prefill_megakernel_ref(*args, ref32_cache,
+                                       routing=routes[False])
     torch.cuda.synchronize()
     what = f"prefill_megakernel {stream}/{mode.value} S={bucket} n={n}"
     check(tuple(got.shape) == (cfg.vocab_size,) and
           bool(torch.isfinite(got).all()), f"{what}: logits not finite")
-    err = (got - ref).abs().max().item()
-    ref_max = ref.abs().max().item()
-    err32 = (got - ref32).abs().max().item()
-    check(err <= LOGITS_RTOL * ref_max,
-          f"{what}: logits differ {err:.3e} > {LOGITS_RTOL} * {ref_max:.3e}")
-    check(err32 <= F32_SCORES_RTOL * ref_max,
-          f"{what}: logits differ from the f32-score plain version by "
-          f"{err32:.3e} > {F32_SCORES_RTOL} * {ref_max:.3e}")
-    pick = int(got.argmax())
-    check(float(ref.max() - ref[pick]) <= 2 * err, f"{what}: argmax differs")
+    # a MoE prompt's tokens that the kernel routed differently from the
+    # plain version (and the plain versions from each other) in some layer
+    flips, last_flipped, last32_flipped = [], False, False
     written = torch.zeros(before.k.shape[:2], dtype=torch.bool, device=dev)
     for j, g in enumerate(st["pages"].tolist()):
         rows = min(PAGE, n - j * PAGE)
         if rows > 0:
             written[g * L:(g + 1) * L, :rows] = True
     check(int(written.sum()) == n * L, f"{what}: written mask")
+    exempt, planted, budget = None, None, None
+    if plan.E:
+        valid = torch.arange(plan.S, device=dev) < n
+        budget = max(MAX_FLIPPED_ROWS, int(MAX_FLIPPED_SHARE * n))
+        flips = flipped_rows(plan, pmk.kernel_gates(plan, dev) > 0,
+                             routes[True], valid, what, budget)
+        planted = planted_router_fault(plan, routes[True], valid, what,
+                                       budget, SEED + n)
+        # the plain version with the TPU kernel's f32 score operands
+        chosen = torch.stack([mk.route(plan, lg)[0] > 0
+                              for lg in routes[True]])
+        flips32 = flipped_rows(plan, chosen, routes[False], valid, what)
+        rows = [t for t, *_ in flips]
+        last_flipped = n - 1 in rows
+        last32_flipped = n - 1 in [t for t, *_ in flips32]
+        exempt = torch.zeros_like(written)
+        for t in rows:
+            g = int(st["pages"][t // PAGE])
+            exempt[g * L:(g + 1) * L, t % PAGE] = True
+    err = (got - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    err32 = (got - ref32).abs().max().item()
+    if not last_flipped:
+        check(err <= LOGITS_RTOL * ref_max,
+              f"{what}: logits differ {err:.3e} > {LOGITS_RTOL} * "
+              f"{ref_max:.3e}")
+        pick = int(got.argmax())
+        check(float(ref.max() - ref[pick]) <= 2 * err,
+              f"{what}: argmax differs")
+    if not (last_flipped or last32_flipped):
+        check(err32 <= F32_SCORES_RTOL * ref_max,
+              f"{what}: logits differ from the f32-score plain version by "
+              f"{err32:.3e} > {F32_SCORES_RTOL} * {ref_max:.3e}")
+    pick = int(got.argmax())
     lv_err, qp_err0, rel_max, ill, ill_max, plain_max = check_prefill_pool(
         what, mode, got_cache, ref_cache, ref32_cache, before, written, cfg,
-        dev)
+        dev, exempt)
     print(f"{what}: logits max|d|={err:.3e} (ref max {ref_max:.3e}; against "
           f"f32 scores {err32:.3e}), argmax {pick}; layer 0 rows within "
           f"{lv_err:g} level, qparams rel {qp_err0:.1e}; all rows within "
           f"{rel_max:.1e} of their range, but for {ill} ill-conditioned "
           f"(row, head) pairs (up to {ill_max:.1e}; the two plain versions "
           f"differ by up to "
-          f"{plain_max:.1e}); rest of the pool unchanged", flush=True)
+          f"{plain_max:.1e}); rest of the pool unchanged"
+          + (f"; tokens routed differently (token, first layer, logit "
+             f"gap): {flips}"
+             + (" incl. the last: its logits not held" if last_flipped
+                else "")
+             + f", by the planted router fault: {planted} (cap {budget})"
+             if plan.E else ""), flush=True)
     return dict(stream=stream, mode=mode.value, bucket=bucket, n=n,
+                flipped_tokens=flips, planted_fault_tokens=planted,
                 max_abs_err=err, max_abs_err_f32_scores=err32,
                 ref_max=ref_max, pool_levels_layer0=lv_err,
                 qparam_rel_layer0=qp_err0, row_rel_max=rel_max,
@@ -1135,7 +1692,8 @@ def time_prefill(cfg, params, bucket, gen, dev, trace_it):
                             device=dev)
         pmk.prefill_megakernel(*args, trace=trace)
         torch.cuda.synchronize()
-        row["phases"] = pmk.phase_times(plan, trace)
+        row["phases"] = pmk.phase_times(plan, trace,
+                                        row["geometry"]["nbatch"])
 
     def per_op():
         transformer.prefill_forward(cfg, params, st["tokens"], st["cache"],
@@ -1164,14 +1722,21 @@ def time_prefill(cfg, params, bucket, gen, dev, trace_it):
               2 * bucket * plan.D * 2 + 2 * n * kv_row * plan.L + plan.V * 4)
     row.update(weight_bytes=plan.weight_bytes, operations=plan.operations(n),
                **bounds(nbytes, plan.operations(n)))
+    if plan.E:      # the kernel runs every expert on every row
+        row["dense_expert_operations"] = plan.dense_expert_operations(n)
+        row["dense_expert_ops_ms"] = bounds(
+            0, row["dense_expert_operations"])["ops_ms"]
     print(f"prefill_megakernel S={bucket} n={n}: {row['ms']:.3f} ms/launch, "
           f"bound {max(row['bytes_ms'], row['ops_ms']):.3f} (bytes "
           f"{row['bytes_ms']:.3f}, operations {row['ops_ms']:.3f}), per-op "
           f"prefill_forward {row['per_op_ms']:.3f} (eager; host wall "
           f"{row['per_op_wall_ms']:.3f}), plain {row['plain_ms']:.1f}; grid "
           f"{row['geometry']['grid']}, K splits {row['geometry']['splits']}, "
-          f"scratch {row['geometry']['scratch_bytes'] / 1e6:.0f} MB",
-          flush=True)
+          f"scratch {row['geometry']['scratch_bytes'] / 1e6:.0f} MB"
+          + (f"; experts in {row['geometry']['nbatch']} batches of "
+             f"{row['geometry']['experts_per_batch']}, every expert on every "
+             f"row: {row['dense_expert_ops_ms']:.3f} ms of operations"
+             if plan.E else ""), flush=True)
     if trace_it:
         print("  phases, ms work+wait (block 0, one traced launch): "
               + ", ".join(f"{k} {v['work']:.2f}+{v['wait']:.2f}"
@@ -1242,6 +1807,42 @@ def check_prefill_megakernel(params, dev, details):
                 bound_ms=max(big["bytes_ms"], big["ops_ms"]),
                 bound_by=("bytes" if big["bytes_ms"] >= big["ops_ms"]
                           else "operations"))
+
+
+def check_prefill_megakernel_moe(cfg, params, dev, details):
+    """The prefill megakernel's MoE branch at Qwen1.5-MoE width: one
+    prefill of every bucket the MoE serving launches (128 .. 1024, each
+    with its own expert batches and K splits) at a served prompt length
+    against the plain version, INT8 KV (and UINT4 at bucket 128); then ms
+    per launch of a full bucket beside the routed-operations bound and the
+    per-op `prefill_forward`, whose experts run the grouped kernel (the
+    crossover that moe_prefill_mega_max_bucket is set from)."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    cases = [check_prefill_case(cfg, params, "u4 MoE", mode, 128, 90, gen,
+                                dev)
+             for mode in (CacheMode.INT8, CacheMode.UINT4)]
+    for bucket, n in ((256, 200), (512, 450), (1024, 1000)):
+        cases.append(check_prefill_case(cfg, params, "u4 MoE",
+                                        CacheMode.INT8, bucket, n, gen, dev))
+    times = [time_prefill(cfg, params, b, gen, dev, b in (128, 1024))
+             for b in (128, 256, 512, 1024)]
+    details["prefill_megakernel_moe"] = dict(cases=cases, times=times)
+    big = times[-1]
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                shape="bucket 1024, n = 1024", ms=big["ms"],
+                plain_ms=big["plain_ms"], library_ms=None,
+                per_op_ms=big["per_op_ms"],
+                ms_by_bucket={str(t["bucket"]): t["ms"] for t in times},
+                per_op_ms_by_bucket={str(t["bucket"]): t["per_op_ms"]
+                                     for t in times},
+                bound_ms=max(big["bytes_ms"], big["ops_ms"]),
+                bound_by=("bytes" if big["bytes_ms"] >= big["ops_ms"]
+                          else "operations"),
+                flipped_tokens=sum(len(c["flipped_tokens"]) for c in cases))
 
 
 def check_stream_probe(dev, details):
@@ -1425,8 +2026,10 @@ def check_decode_logits(params, dev, details):
         print(f"  {ms:8.3f} ms  {name[:90]}", flush=True)
 
 
-PHASES = ("quant_matmul", "paged_attention", "stream_probe", "probes",
-          "megakernel", "prefill_megakernel", "serve", "decode_logits")
+PHASES = ("quant_matmul", "paged_attention", "grouped_quant_matmul",
+          "stream_probe", "probes", "megakernel", "prefill_megakernel",
+          "serve", "decode_logits")
+MOE_PHASES = ("megakernel", "prefill_megakernel", "serve")
 
 
 def main(argv=None) -> int:
@@ -1456,10 +2059,10 @@ def main(argv=None) -> int:
     details, res = {}, {}
     t_start = time.monotonic()
 
-    def phase(name):
+    def phase(name, part=""):
         if name in only:
-            print(f"-- {name} (t = {time.monotonic() - t_start:.0f} s)",
-                  flush=True)
+            print(f"-- {name}{part} (t = {time.monotonic() - t_start:.0f} "
+                  "s)", flush=True)
         return name in only
 
     try:
@@ -1483,6 +2086,9 @@ def main(argv=None) -> int:
             if phase("paged_attention"):
                 res["paged_attention"] = check_paged_attention(gen, dev,
                                                                details)
+            if phase("grouped_quant_matmul"):
+                res["grouped_quant_matmul"] = check_grouped_quant_matmul(
+                    dev, details)
             if phase("stream_probe"):
                 res["stream_probe"] = check_stream_probe(dev, details)
             if phase("probes"):
@@ -1499,6 +2105,21 @@ def main(argv=None) -> int:
                     params, dev, details)
             if phase("decode_logits"):
                 check_decode_logits(params, dev, details)
+            # the MoE slice, on the card alone: Qwen2-7B's weights go first
+            del params
+            torch.cuda.empty_cache()
+            if any(p in only for p in MOE_PHASES):
+                moe_cfg = moe_config()
+                moe_params = random_moe_params(moe_cfg, SEED + 13, dev)
+            if phase("megakernel", " (Qwen1.5-MoE)"):
+                res["decode_megakernel_moe"] = check_megakernel_moe(
+                    moe_cfg, moe_params, dev, details)
+            if phase("prefill_megakernel", " (Qwen1.5-MoE)"):
+                res["prefill_megakernel_moe"] = check_prefill_megakernel_moe(
+                    moe_cfg, moe_params, dev, details)
+            if phase("serve", " (Qwen1.5-MoE)"):
+                moe_launches, moe_op_launches = check_serving_moe(
+                    moe_params, moe_cfg, dev, details)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -1514,9 +2135,14 @@ def main(argv=None) -> int:
 
     # launches: each kernel's count over the timed requests of the path it
     # serves (the per-op path for the first two, the megakernel path for
-    # the third and the fifth), and over the probe tools' own runs for the
-    # fourth and the last two
+    # the third and the fifth, the MoE model's default serving for the
+    # grouped GEMM and the megakernels' MoE entries), and over the probe
+    # tools' own runs for the fourth and the last two
     csrc = "dashinfer_tpu_torch/csrc/"
+    moe_decode = dict(launches=moe_launches["decode_megakernel"],
+                      **res["decode_megakernel_moe"])
+    moe_prefill = dict(launches=moe_launches["prefill_megakernel"],
+                       **res["prefill_megakernel_moe"])
     kernels = [
         dict(name="quant_matmul", route="cuda",
              source=csrc + "quant_matmul.cu",
@@ -1531,7 +2157,7 @@ def main(argv=None) -> int:
              source=csrc + "megakernel.cu",
              replaces="dashinfer_tpu/ops/pallas/megakernel.py:1297",
              launches=mk_launches["decode_megakernel"],
-             **res["decode_megakernel"]),
+             **res["decode_megakernel"], moe=moe_decode),
         dict(name="stream_probe", route="cuda",
              source=csrc + "stream_probe.cu",
              replaces="tools/bench_stream.py:41", **res["stream_probe"]),
@@ -1540,7 +2166,13 @@ def main(argv=None) -> int:
              replaces="dashinfer_tpu/ops/pallas/prefill_megakernel.py:480",
              launches=mk_launches["prefill_megakernel"],
              launches_pack_only=po_launches["prefill_megakernel"],
-             **res["prefill_megakernel"]),
+             **res["prefill_megakernel"], moe=moe_prefill),
+        dict(name="grouped_quant_matmul", route="cuda",
+             source=csrc + "grouped_quant_matmul.cu",
+             replaces="dashinfer_tpu/ops/pallas/grouped_quant_matmul.py:206",
+             launches=moe_launches["grouped_quant_matmul"],
+             launches_per_op_path=moe_op_launches["grouped_quant_matmul"],
+             **res["grouped_quant_matmul"]),
         dict(name="probe_magic_dequant", route="cuda",
              source=csrc + "probes.cu",
              replaces="tools/probe_magic_dequant.py:83",
@@ -1551,7 +2183,9 @@ def main(argv=None) -> int:
     for k in kernels:
         check_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")
-        if any(key not in k for key in check_keys) or k["launches"] <= 0:
+        parts = [k] + [k[m] for m in ("moe",) if m in k]
+        if any(key not in p or (key == "launches" and p[key] <= 0)
+               for p in parts for key in check_keys):
             print(f"chip_smoke: FAIL: kernel line of {k['name']}: {k}",
                   file=sys.stderr)
             return 1

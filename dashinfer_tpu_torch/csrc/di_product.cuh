@@ -1,7 +1,9 @@
 // The weight product of the decode megakernel (csrc/megakernel.cu), shared
 // with the stream-rate probe (csrc/stream_probe.cu): the argument structs,
 // the x records and `product_phase`, a persistent-grid split-K product of
-// x [B, K] with a u4 / int8 / bf16 weight stream.
+// x [B, K] with a u4 / int8 / bf16 weight stream (of one matrix a layer, or
+// of a list of a MoE layer's experts); and `route_row`, the MoE router of
+// one token, shared with the prefill megakernel.
 
 #pragma once
 
@@ -15,8 +17,16 @@ constexpr int kChunkK = 64;               // K rows per pipeline stage
 constexpr int kD = 128;                   // head_dim
 constexpr int kDPL = 4;                   // head dims per lane
 constexpr int kMaxG = 8;                  // query heads per KV head
+constexpr int kMaxLanes = 512;            // MoE router lanes (experts + 1)
+constexpr int kMaxTopk = 8;               // experts a token
 
-enum StreamId { kQkv = 0, kO = 1, kGu = 2, kDn = 3, kLm = 4, kStreams = 5 };
+// Streams: a dense model's q|k|v, o, gate|up, down and lm_head; a MoE
+// model's gate|up and down are its experts' (kGu, kDn), with its router
+// (bf16) and its shared expert's gate|up and down beside them.
+enum StreamId {
+  kQkv = 0, kO = 1, kGu = 2, kDn = 3, kLm = 4, kRt = 5, kSgu = 6, kSdn = 7,
+  kStreams = 8
+};
 
 struct Stream {
   const uint8_t* w[3];     // packed payload of each leaf (layer 0)
@@ -24,9 +34,15 @@ struct Stream {
   const float* z[3];       // zero  [G, n]
   long long w_ls[3];       // bytes between layers of a leaf
   long long q_ls[3];       // floats between layers of scale / zero
-  int n[3];                // columns of each leaf
+  long long e_ls[3];       // bytes between experts of a leaf
+  long long qe_ls[3];      // floats between experts of scale / zero
+  int n[3];                // columns of each leaf (padded to 256)
   int tile0[4];            // first 256-column tile of each leaf, then total
   int nleaf, K, G, bits, ksplit, cps, ntot;
+  int ldo;                 // row stride of the product's output
+  int nvalid;              // columns of it written back: the prefill
+                           // kernel's logits (a vocab's width); the decode
+                           // product writes every padded column
 };
 
 struct Args {
@@ -55,8 +71,14 @@ struct Args {
   int* status;
   unsigned long long* launches;
   unsigned long long* trace;  // null, or [phases + 1] timestamps (ns)
+  float* epart;              // MoE: experts' partials [E][split][B][N]
+  uint8_t* erec;             // MoE: experts' down x records [E][chunks]
+  int* topk_e;               // MoE: [L][B][kMaxTopk] routed experts, ascending
+  float* topk_w;             // MoE: [L][B][kMaxTopk] their gates
+  float* sgate;              // MoE: [L][B] the shared expert's gate
   int B, L, hid, H, KH, inter, V, ps, maxP, kv_kind, ql, nsplit, split_len,
       mpad, skip_attn;
+  int E, k_top, norm_topk, has_shared, has_sgate, shared_inter;
   int probe;                 // stream probe only (tools/bench_stream.py
                              // VARIANTS): 1 no dot, 2 no payload loads,
                              // 3 dot alone, 4 copy pipeline alone
@@ -137,9 +159,16 @@ __device__ __forceinline__ void u4x2_to_bf16x2(uint32_t w, uint32_t& lo,
 // x[m] . W[:, n], with the group affine applied. x comes from the records.
 // Work item = (pass over 16*MT rows, tile, split); a block's items form one
 // flat sequence of 64-row chunks that the cp.async pipeline runs through.
-template <int BITS, int MT>
-__device__ void product_phase(const Args& a, const Stream& st, int layer,
-                              float* out, uint8_t* smem) {
+// GROUPED: an expert stream, the product of each expert of `experts`
+// (ngroups of them): expert e's weights, its x records at rec + e * rec_gs
+// bytes and its output at out + e * out_gs floats. The dense instantiation
+// folds all of that away (a MoE model's products run in a separate
+// function, so that they add nothing to the dense products' registers).
+template <int BITS, int MT, bool GROUPED>
+__device__ __forceinline__ void product_phase(
+    const Args& a, const Stream& st, int layer, float* out, uint8_t* smem,
+    const uint8_t* rec_base, const int* experts, int ngroups, size_t rec_gs,
+    size_t out_gs) {
   using T = Tile<BITS>;
   constexpr int kStages = T::kStages;
   constexpr int kRows = 16 * MT;
@@ -155,17 +184,20 @@ __device__ void product_phase(const Args& a, const Stream& st, int layer,
   const int cpg = st.K / st.G / kChunkK;   // chunks per quant group
   const int passes = a.mpad / kRows;
   const int tiles = st.tile0[st.nleaf];
-  const int n_items = passes * tiles * st.ksplit;
+  const int per_group = passes * tiles * st.ksplit;
+  const int n_items = GROUPED ? per_group * ngroups : per_group;
   const int rbytes = rec_bytes(a.mpad);
 
   struct Item {
     const uint8_t* w;     // the tile's first chunk
     const float* s;
     const float* z;
-    int n_leaf, col_leaf, col_out, split, c0, nc, m_base;
+    int n_leaf, col_leaf, col_out, split, c0, nc, m_base, e;
   };
   auto decode = [&](int item) {
     Item it;
+    const int e = GROUPED ? experts[item / per_group] : 0;
+    if (GROUPED) item %= per_group;
     const int split = item % st.ksplit;
     const int t = (item / st.ksplit) % tiles;
     const int pass = item / (st.ksplit * tiles);
@@ -174,11 +206,13 @@ __device__ void product_phase(const Args& a, const Stream& st, int layer,
     const int lt = t - st.tile0[leaf];
     it.n_leaf = st.n[leaf];
     it.w = st.w[leaf] + (size_t)layer * st.w_ls[leaf] +
+           (size_t)e * st.e_ls[leaf] +
            (size_t)lt * chunks_total * T::kChunkBytes;
-    it.s = BITS == 16 ? nullptr
-                      : st.s[leaf] + (size_t)layer * st.q_ls[leaf];
-    it.z = BITS == 16 ? nullptr
-                      : st.z[leaf] + (size_t)layer * st.q_ls[leaf];
+    const size_t qoff =
+        (size_t)layer * st.q_ls[leaf] + (size_t)e * st.qe_ls[leaf];
+    it.s = BITS == 16 ? nullptr : st.s[leaf] + qoff;
+    it.z = BITS == 16 ? nullptr : st.z[leaf] + qoff;
+    it.e = e;
     it.col_leaf = lt * 256;
     it.col_out = t * 256;
     it.split = split;
@@ -199,7 +233,8 @@ __device__ void product_phase(const Args& a, const Stream& st, int layer,
         cp_async16(w_s + (tid + i * kThreads) * 16,
                    src + (tid + i * kThreads) * 16);
     }
-    const uint8_t* rec = a.rec + (size_t)(it.c0 + c) * rbytes;
+    const uint8_t* rec = (GROUPED ? rec_base + (size_t)it.e * rec_gs : a.rec) +
+                         (size_t)(it.c0 + c) * rbytes;
     const uint8_t* rx = rec + (size_t)it.m_base * (kChunkK * 2);
     const uint8_t* rs = rec + (size_t)a.mpad * (kChunkK * 2) + it.m_base * 4;
     for (int i = tid; i < kXVecs + kSumVecs; i += kThreads) {
@@ -358,7 +393,8 @@ __device__ void product_phase(const Args& a, const Stream& st, int layer,
               const int m = it.m_base + mt * 16 + gid + 8 * h;
               if (m < a.B)
                 *reinterpret_cast<float2*>(
-                    out + ((size_t)it.split * a.B + m) * st.ntot + col) =
+                    out + (size_t)it.e * out_gs +
+                    ((size_t)it.split * a.B + m) * st.ldo + col) =
                     make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
               acc[mt][j][2 * h] = acc[mt][j][2 * h + 1] = 0.f;
             }
@@ -379,16 +415,135 @@ __device__ void product_phase(const Args& a, const Stream& st, int layer,
   __syncthreads();
 }
 
+// One matrix a layer, x from a.rec.
 template <int MT>
 __device__ void product(const Args& a, int sid, int layer, float* out,
                         uint8_t* smem) {
   const Stream& st = a.st[sid];
   if (st.bits == 4)
-    product_phase<4, MT>(a, st, layer, out, smem);
+    product_phase<4, MT, false>(a, st, layer, out, smem, nullptr, nullptr, 1,
+                                0, 0);
   else if (st.bits == 8)
-    product_phase<8, MT>(a, st, layer, out, smem);
+    product_phase<8, MT, false>(a, st, layer, out, smem, nullptr, nullptr, 1,
+                                0, 0);
   else
-    product_phase<16, MT>(a, st, layer, out, smem);
+    product_phase<16, MT, false>(a, st, layer, out, smem, nullptr, nullptr,
+                                 1, 0, 0);
+}
+
+// The experts of `experts` (a MoE stream), in a function of its own.
+template <int MT>
+__device__ __noinline__ void product_experts(const Args& a, int sid,
+                                             int layer, float* out,
+                                             uint8_t* smem,
+                                             const uint8_t* rec,
+                                             const int* experts, int ngroups,
+                                             size_t rec_gs, size_t out_gs) {
+  const Stream& st = a.st[sid];
+  if (st.bits == 4)
+    product_phase<4, MT, true>(a, st, layer, out, smem, rec, experts,
+                               ngroups, rec_gs, out_gs);
+  else if (st.bits == 8)
+    product_phase<8, MT, true>(a, st, layer, out, smem, rec, experts,
+                               ngroups, rec_gs, out_gs);
+  else
+    product_phase<16, MT, true>(a, st, layer, out, smem, rec, experts,
+                                ngroups, rec_gs, out_gs);
+}
+
+// The MoE router of one token, run by one warp: the router product's E
+// (+ the shared gate's) lanes summed over its K splits (`src`: the token's
+// row of split 0), softmax over the E lanes, k rounds of max choosing the
+// lowest lane on ties, optional renormalisation (the TPU kernel's router
+// phase). Gives the chosen experts in ascending order with their gates, and
+// the shared expert's gate: sigmoid of lane E, or 1 without a gate column,
+// or 0 without a shared expert.
+__device__ __noinline__ void route_row(const float* src, int ksplit,
+                                          size_t split_stride, int E, int k,
+                                          int norm, int has_shared,
+                                          int has_sgate, int (&idx)[kMaxTopk],
+                                          float (&w)[kMaxTopk], float& sg) {
+  constexpr int kPer = kMaxLanes / 32;
+  const int lane = threadIdx.x & 31;
+  const int lanes = E + has_sgate;
+  float lg[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int e = lane + 32 * j;
+    float v = 0.f;
+    if (e < lanes) {
+      // eight splits' loads are issued before the first is added
+      for (int s = 0; s < ksplit; s += 8) {
+        float p[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          p[q] = s + q < ksplit
+                     ? __ldcg(src + (size_t)(s + q) * split_stride + e)
+                     : 0.f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v += p[q];
+      }
+    }
+    lg[j] = v;
+  }
+  float mx = -FLT_MAX;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (lane + 32 * j < E) mx = fmaxf(mx, lg[j]);
+  mx = warp_max(mx);
+  float p[kPer], sum = 0.f, sv = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int e = lane + 32 * j;
+    p[j] = e < E ? expf(lg[j] - mx) : 0.f;
+    sum += p[j];
+    if (e == E) sv = lg[j];
+  }
+  sum = warp_sum(sum);
+  sv = warp_sum(sv);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) p[j] /= sum;
+  unsigned taken = 0;
+  float tot = 0.f;
+  for (int r = 0; r < kMaxTopk; ++r) {
+    idx[r] = 0x7fffffff;
+    w[r] = 0.f;
+    if (r >= k) continue;
+    float best = -1.f;
+    int bi = 0x7fffffff;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (lane + 32 * j < E && !((taken >> j) & 1u) && p[j] > best) {
+        best = p[j];
+        bi = lane + 32 * j;
+      }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (ob > best || (ob == best && oi < bi)) {
+        best = ob;
+        bi = oi;
+      }
+    }
+    idx[r] = bi;
+    w[r] = best;
+    tot += best;
+    if (bi < E && (bi & 31) == lane) taken |= 1u << (bi >> 5);
+  }
+  if (norm)
+    for (int r = 0; r < k; ++r) w[r] /= tot;
+  // ascending expert order: the order of the sums that use them
+  for (int r = 1; r < k; ++r)
+    for (int q = r; q > 0 && idx[q - 1] > idx[q]; --q) {
+      const int ti = idx[q];
+      idx[q] = idx[q - 1];
+      idx[q - 1] = ti;
+      const float tw = w[q];
+      w[q] = w[q - 1];
+      w[q - 1] = tw;
+    }
+  sg = !has_shared ? 0.f : (has_sgate ? 1.0f / (1.0f + expf(-sv)) : 1.0f);
 }
 
 template <typename T>
@@ -397,8 +552,9 @@ T* ptr(long long v) {
 }
 
 // A stream as the wrappers pass it, kStreamArgs integers: w[3], s[3], z[3]
-// (addresses), w_ls[3], q_ls[3], n[3], nleaf, K, G, bits, ksplit, cps.
-constexpr int kStreamArgs = 24;
+// (addresses), w_ls[3], q_ls[3], n[3], e_ls[3], qe_ls[3], nleaf, K, G,
+// bits, ksplit, cps, ldo, nvalid (ops/megakernel.py `stream_args`).
+constexpr int kStreamArgs = 32;
 
 inline void fill_stream(Stream& st, const long long* p) {
   for (int j = 0; j < 3; ++j) {
@@ -408,13 +564,17 @@ inline void fill_stream(Stream& st, const long long* p) {
     st.w_ls[j] = p[9 + j];
     st.q_ls[j] = p[12 + j];
     st.n[j] = (int)p[15 + j];
+    st.e_ls[j] = p[18 + j];
+    st.qe_ls[j] = p[21 + j];
   }
-  st.nleaf = (int)p[18];
-  st.K = (int)p[19];
-  st.G = (int)p[20];
-  st.bits = (int)p[21];
-  st.ksplit = (int)p[22];
-  st.cps = (int)p[23];
+  st.nleaf = (int)p[24];
+  st.K = (int)p[25];
+  st.G = (int)p[26];
+  st.bits = (int)p[27];
+  st.ksplit = (int)p[28];
+  st.cps = (int)p[29];
+  st.ldo = (int)p[30];
+  st.nvalid = (int)p[31];
   int t = 0;
   for (int j = 0; j < 3; ++j) {
     st.tile0[j] = t;

@@ -1,8 +1,9 @@
 // Whole-model decode step as ONE persistent kernel, sm_90a.
 //
 // Replaces: dashinfer_tpu/ops/pallas/megakernel.py `build_decode_megakernel`
-// (dense branch: RoPE, optional q/k/v bias, KV pool DEFAULT / INT8 / UINT4,
-// weight streams u4 group-wise, int8 group-wise or per-channel, bf16).
+// (RoPE, optional q/k/v bias, KV pool DEFAULT / INT8 / UINT4, weight streams
+// u4 group-wise, int8 group-wise or per-channel, bf16; a dense MLP or the
+// MoE branch: router, routed experts, shared expert).
 //
 // What it computes, per layer: RMSNorm; q|k|v products + bias; RoPE with
 // bf16 cos/sin tiles; the new token's K/V quantized and written to its page
@@ -50,7 +51,20 @@
 //
 // Phases of one layer (each followed by the barrier): resid1 -> norm1 ->
 // q|k|v -> attention -> merge -> o -> resid2 -> norm2 -> gate|up -> SwiGLU
-// -> down; then resid -> final norm -> lm_head. Eleven barriers a layer. With a trace buffer, block
+// -> down; then resid -> final norm -> lm_head. Eleven barriers a layer.
+//
+// MoE layers (Qwen1.5/2-MoE): after norm2 the router product (bf16 weights
+// as a 256-column stream) and a gates phase (one warp a row: softmax over
+// the E lanes, top-k, the shared expert's sigmoid gate: `route_row`), then
+// gate|up, SwiGLU and down each as ONE phase over all routed experts and
+// the shared expert: 13 barriers a layer. The TPU kernel streams every
+// expert each step and multiplies the unrouted ones by 0; here each block
+// lists the experts that some active row routes to (from the gates phase's
+// top-k, in ascending order) and the products' items run over those alone,
+// which computes the same function and reads ~25 of 60 experts at B = 8.
+// The next resid phase adds, per row, its experts' down products times their
+// gates in ascending expert order, then the shared expert's times its gate.
+// With a trace buffer, block
 // 0 writes a timestamp where it ends each phase and where it leaves each
 // barrier (ops/megakernel.py `phase_times`).
 
@@ -138,6 +152,75 @@ __device__ void resid_phase(const Args& a, const float* part, int ksplit,
   }
 }
 
+// resid_phase after a MoE layer (`layer`): resid[m] += the row's routed
+// experts' down products times their gates (ascending experts; an inactive
+// row's experts were not run), then the shared expert's (its `ksplit`
+// partials in `part`) times its gate, summed before they are added.
+__device__ __noinline__ void moe_resid_phase(const Args& a, const float* part,
+                                             int ksplit, int layer,
+                                             const float* w, float* smem) {
+  const size_t route = (size_t)layer * a.B;
+  const Stream& edn = a.st[kDn];
+  const size_t edn_gs = (size_t)edn.ksplit * a.B * a.hid;
+  const int hid = a.hid, nslab = hid / kSlab;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int per_block = norm_items_per_block(a);
+  float* vals = smem;
+  float* wts = vals + per_block * kSlab;
+  float* red = wts + per_block * kSlab;
+  const int half = tid / kSlab, t = tid % kSlab;
+  for (int k0 = 0; k0 < per_block; k0 += kThreads / kSlab) {
+    const int k = k0 + half;
+    const int it = blockIdx.x + k * gridDim.x;
+    const bool valid = k < per_block && it < a.B * nslab;
+    if (valid) {
+      const int m = it / nslab, i = (it % nslab) * kSlab + t;
+      const float wv = w[i];
+      float acc = 0.f;
+      if (a.active[m]) {
+        for (int j = 0; j < a.k_top; ++j) {
+          const int e = __ldcg(a.topk_e + (route + m) * kMaxTopk + j);
+          const float g = __ldcg(a.topk_w + (route + m) * kMaxTopk + j);
+          const float* p = a.epart + (size_t)e * edn_gs + (size_t)m * hid + i;
+          float y = 0.f;
+          for (int s = 0; s < edn.ksplit; ++s)
+            y += __ldcg(p + (size_t)s * a.B * hid);
+          acc += g * y;
+        }
+      }
+      if (a.has_shared) {
+        float y = 0.f;
+        // four splits' loads are issued before the first is added
+        for (int s = 0; s < ksplit; s += 4) {
+          float p[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            p[q] = s + q < ksplit
+                       ? __ldcg(part + ((size_t)(s + q) * a.B + m) * hid + i)
+                       : 0.f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) y += p[q];
+        }
+        acc += __ldcg(a.sgate + route + m) * y;
+      }
+      const float v = __ldcg(a.resid + (size_t)m * hid + i) + acc;
+      a.resid[(size_t)m * hid + i] = v;
+      vals[k * kSlab + t] = v;
+      wts[k * kSlab + t] = wv;
+      const float ss = warp_sum(v * v);
+      if (lane == 0) red[warp] = ss;
+    }
+    __syncthreads();
+    if (valid && t == 0) {
+      float tot = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSlab / 32; ++j) tot += red[half * (kSlab / 32) + j];
+      a.ssq[it] = tot;
+    }
+    __syncthreads();
+  }
+}
+
 __device__ void norm_phase(const Args& a, float* smem) {
   const int hid = a.hid, nslab = hid / kSlab;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -161,28 +244,110 @@ __device__ void norm_phase(const Args& a, float* smem) {
   }
 }
 
+// SwiGLU of one (row m, 64-column chunk c) of a gate|up product's partials
+// (`part`: split 0's [B][ntot]; up starts at the gate leaf's padded width)
+// -> chunk c of the down product's x records.
+__device__ __forceinline__ void swiglu_chunk(const Args& a, const Stream& st,
+                                             const float* part, int m, int c,
+                                             uint8_t* rec, int lane) {
+  const int col = c * kChunkK + 2 * lane;
+  float g0 = 0.f, g1 = 0.f, u0 = 0.f, u1 = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < st.ksplit; ++s) {
+    const float* p = part + ((size_t)s * a.B + m) * st.ntot + col;
+    const float2 g = __ldcg(reinterpret_cast<const float2*>(p));
+    const float2 u = __ldcg(reinterpret_cast<const float2*>(p + st.n[0]));
+    g0 += g.x; g1 += g.y; u0 += u.x; u1 += u.y;
+  }
+  write_record(rec, a.mpad, c, m, lane,
+               g0 / (1.0f + expf(-g0)) * u0, g1 / (1.0f + expf(-g1)) * u1);
+}
+
 // SwiGLU of the gate|up partials -> x records of the down product.
 __device__ void act_phase(const Args& a) {
-  const Stream& st = a.st[kGu];
-  const int inter = a.inter;
-  const int chunks = inter / kChunkK;
+  const int chunks = a.inter / kChunkK;
   const int lane = threadIdx.x & 31;
   const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int nw = gridDim.x * kWarps;
-  for (int it = gw; it < chunks * a.B; it += nw) {
-    const int m = it / chunks, c = it % chunks;
-    const int col = c * kChunkK + 2 * lane;
-    float g0 = 0.f, g1 = 0.f, u0 = 0.f, u1 = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < st.ksplit; ++s) {
-      const float* p = a.partial + ((size_t)s * a.B + m) * st.ntot + col;
-      const float2 g = __ldcg(reinterpret_cast<const float2*>(p));
-      const float2 u = __ldcg(reinterpret_cast<const float2*>(p + inter));
-      g0 += g.x; g1 += g.y; u0 += u.x; u1 += u.y;
+  for (int it = gw; it < chunks * a.B; it += nw)
+    swiglu_chunk(a, a.st[kGu], a.partial, it / chunks, it % chunks, a.rec,
+                 lane);
+}
+
+// MoE: the routed experts' SwiGLU (their gate|up partials in epart -> their
+// down x records in erec), then the shared expert's (partial -> rec).
+__device__ __noinline__ void moe_act_phase(const Args& a, const int* experts,
+                                           int nused) {
+  const int ech = a.inter / kChunkK;
+  const int sch = a.has_shared ? a.shared_inter / kChunkK : 0;
+  const int n_e = nused * ech * a.B;
+  const Stream& eg = a.st[kGu];
+  const size_t egs = (size_t)eg.ksplit * a.B * eg.ntot;
+  const size_t rgs = (size_t)ech * rec_bytes(a.mpad);
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int nw = gridDim.x * kWarps;
+  for (int it = gw; it < n_e + sch * a.B; it += nw) {
+    if (it < n_e) {
+      const int e = experts[it / (ech * a.B)], r = it % (ech * a.B);
+      swiglu_chunk(a, eg, a.epart + (size_t)e * egs, r / ech, r % ech,
+                   a.erec + (size_t)e * rgs, lane);
+    } else {
+      const int r = it - n_e;
+      swiglu_chunk(a, a.st[kSgu], a.partial, r / sch, r % sch, a.rec, lane);
     }
-    write_record(a.rec, a.mpad, c, m, lane,
-                 g0 / (1.0f + expf(-g0)) * u0, g1 / (1.0f + expf(-g1)) * u1);
   }
+}
+
+// MoE router: one warp a row, from the router product's partials; each
+// layer's choices stay in the scratch ([L][B][kMaxTopk]) until the step ends.
+__device__ __noinline__ void gates_phase(const Args& a, int layer) {
+  const Stream& st = a.st[kRt];
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int nw = gridDim.x * kWarps;
+  for (int b = gw; b < a.B; b += nw) {
+    int idx[kMaxTopk];
+    float w[kMaxTopk], sg;
+    route_row(a.partial + (size_t)b * st.ldo, st.ksplit,
+              (size_t)a.B * st.ldo, a.E, a.k_top, a.norm_topk, a.has_shared,
+              a.has_sgate, idx, w, sg);
+    if (lane == 0) {
+      const size_t r = (size_t)layer * a.B + b;
+      for (int j = 0; j < a.k_top; ++j) {
+        a.topk_e[r * kMaxTopk + j] = idx[j];
+        a.topk_w[r * kMaxTopk + j] = w[j];
+      }
+      a.sgate[r] = sg;
+    }
+  }
+}
+
+// The experts that some active row routes to, ascending, into `list`
+// (shared memory; every block builds the same list). Returns their count.
+__device__ __noinline__ int routed_experts(const Args& a, int layer,
+                                           int* list, unsigned* flags,
+                                           int* count) {
+  const int* topk = a.topk_e + (size_t)layer * a.B * kMaxTopk;
+  for (int i = threadIdx.x; i < kMaxLanes / 32; i += kThreads) flags[i] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < a.B * a.k_top; i += kThreads) {
+    const int b = i / a.k_top;
+    if (a.active[b]) {
+      const int e = __ldcg(topk + b * kMaxTopk + i % a.k_top);
+      atomicOr(flags + (e >> 5), 1u << (e & 31));
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int w = 0; w < kMaxLanes / 32; ++w)
+      for (unsigned bits = flags[w]; bits != 0; bits &= bits - 1)
+        list[n++] = w * 32 + __ffs(bits) - 1;
+    *count = n;
+  }
+  __syncthreads();
+  return *count;
 }
 
 // Merges the sequence stripes of each (slot, query head) -> attn_out as the
@@ -546,7 +711,9 @@ __device__ void attention(const Args& a, int layer, float* smem) {
   }
 }
 
-template <int MT>
+// MOE: the MoE model's kernel. The dense kernel is compiled without any of
+// the MoE code, so that it adds nothing to the dense products' registers.
+template <int MT, bool MOE>
 __global__ void __launch_bounds__(kThreads, MT == 1 ? 2 : 1)
 mk_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -556,10 +723,18 @@ mk_kernel(const __grid_constant__ Args a) {
     if (a.trace != nullptr) a.trace[0] = global_ns();
   }
   const int hid = a.hid;
+  // the partial sums the next resid phase adds: the down product's, or a
+  // MoE layer's shared expert's (beside its experts')
+  const int mlp_ksplit = MOE ? (a.has_shared ? a.st[kSdn].ksplit : 0)
+                             : a.st[kDn].ksplit;
   int phase = 0;
   for (int l = 0; l < a.L; ++l) {
-    resid_phase(a, a.partial, a.st[kDn].ksplit, l == 0,
-                a.norms + (size_t)(2 * l) * hid, fsmem);
+    if (MOE && l > 0)
+      moe_resid_phase(a, a.partial, mlp_ksplit, l - 1,
+                      a.norms + (size_t)(2 * l) * hid, fsmem);
+    else
+      resid_phase(a, a.partial, mlp_ksplit, l == 0,
+                  a.norms + (size_t)(2 * l) * hid, fsmem);
     grid_barrier(a, phase++);
     norm_phase(a, fsmem);
     grid_barrier(a, phase++);
@@ -576,14 +751,41 @@ mk_kernel(const __grid_constant__ Args a) {
     grid_barrier(a, phase++);
     norm_phase(a, fsmem);
     grid_barrier(a, phase++);
-    product<MT>(a, kGu, l, a.partial, smem);
-    grid_barrier(a, phase++);
-    act_phase(a);
-    grid_barrier(a, phase++);
-    product<MT>(a, kDn, l, a.partial, smem);
-    grid_barrier(a, phase++);
+    if constexpr (!MOE) {
+      product<MT>(a, kGu, l, a.partial, smem);
+      grid_barrier(a, phase++);
+      act_phase(a);
+      grid_barrier(a, phase++);
+      product<MT>(a, kDn, l, a.partial, smem);
+      grid_barrier(a, phase++);
+    } else {
+      // the routed experts' list, built once a layer in every block
+      __shared__ int s_experts[kMaxLanes];
+      __shared__ unsigned s_flags[kMaxLanes / 32];
+      __shared__ int s_nused;
+      product<MT>(a, kRt, l, a.partial, smem);
+      grid_barrier(a, phase++);
+      gates_phase(a, l);
+      grid_barrier(a, phase++);
+      const int nused = routed_experts(a, l, s_experts, s_flags, &s_nused);
+      const Stream& eg = a.st[kGu];
+      product_experts<MT>(a, kGu, l, a.epart, smem, a.rec, s_experts, nused,
+                          0, (size_t)eg.ksplit * a.B * eg.ntot);
+      if (a.has_shared) product<MT>(a, kSgu, l, a.partial, smem);
+      grid_barrier(a, phase++);
+      moe_act_phase(a, s_experts, nused);
+      grid_barrier(a, phase++);
+      product_experts<MT>(a, kDn, l, a.epart, smem, a.erec, s_experts, nused,
+                          (size_t)(a.inter / kChunkK) * rec_bytes(a.mpad),
+                          (size_t)a.st[kDn].ksplit * a.B * a.hid);
+      if (a.has_shared) product<MT>(a, kSdn, l, a.partial, smem);
+      grid_barrier(a, phase++);
+    }
   }
-  resid_phase(a, a.partial, a.st[kDn].ksplit, false, a.final_norm, fsmem);
+  if (MOE)
+    moe_resid_phase(a, a.partial, mlp_ksplit, a.L - 1, a.final_norm, fsmem);
+  else
+    resid_phase(a, a.partial, mlp_ksplit, false, a.final_norm, fsmem);
   grid_barrier(a, phase++);
   norm_phase(a, fsmem);
   grid_barrier(a, phase++);
@@ -607,43 +809,49 @@ enum IArg {
   I_NORMS, I_FINAL_NORM, I_QKV_B, I_X0, I_COS, I_SIN, I_PT, I_LENS, I_ACTIVE,
   I_K_POOL, I_V_POOL, I_K_QP, I_V_QP, I_LOGITS, I_RESID, I_REC, I_PARTIAL,
   I_ATT_ML, I_ATT_ACC, I_SSQ, I_BARRIER, I_STATUS, I_LAUNCHES, I_TRACE,
+  I_EPART, I_EREC, I_TOPK_E, I_TOPK_W, I_SGATE,
   I_B, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXP, I_KV_KIND, I_QL,
-  I_NSPLIT, I_SPLIT_LEN, I_MPAD, I_SKIP_ATTN, I_GRID, I_STREAMS
+  I_NSPLIT, I_SPLIT_LEN, I_MPAD, I_SKIP_ATTN, I_GRID, I_E, I_K_TOP,
+  I_NORM_TOPK, I_HAS_SHARED, I_HAS_SGATE, I_SHARED_INTER, I_STREAMS
 };
 // then kStreamArgs values per stream (fill_stream)
+
+// Blocks of mk_kernel<MT, MOE> resident at once on one SM (0 on error).
+template <int MT, bool MOE>
+int per_sm(int smem) {
+  int n = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      mk_kernel<MT, MOE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, mk_kernel<MT, MOE>,
+                                                      kThreads, smem);
+  return e == cudaSuccess ? n : 0;
+}
+
+template <int MT, bool MOE>
+void launch(const Args& a, int grid, int smem, cudaStream_t s) {
+  cudaFuncSetAttribute(mk_kernel<MT, MOE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  mk_kernel<MT, MOE><<<grid, kThreads, smem, s>>>(a);
+}
 
 }  // namespace
 
 // The largest grid whose blocks are all resident at once on `device` for a
-// batch padded to `mpad` rows: SMs x blocks per SM of the kernel with its
-// dynamic shared memory. Returns 0 on error.
-extern "C" int di_megakernel_grid(int device, int mpad, int hid) {
+// batch padded to `mpad` rows (of a MoE model when `moe`): SMs x blocks per
+// SM of the kernel with its dynamic shared memory. Returns 0 on error.
+extern "C" int di_megakernel_grid(int device, int mpad, int hid, int moe) {
   const int mt = mpad > 16 ? 2 : 1;
   const int smem = smem_bytes(mt, hid);
-  int per_sm = 0, sms = 0;
-  cudaError_t e;
-  if (mt == 1) {
-    e = cudaFuncSetAttribute(mk_kernel<1>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, mk_kernel<1>, kThreads, smem);
-  } else {
-    e = cudaFuncSetAttribute(mk_kernel<2>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, mk_kernel<2>, kThreads, smem);
-  }
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) {
+  const int n = mt == 1 ? (moe ? per_sm<1, true>(smem) : per_sm<1, false>(smem))
+                        : (moe ? per_sm<2, true>(smem) : per_sm<2, false>(smem));
+  int sms = 0;
+  if (n == 0 || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       device) != cudaSuccess) {
     cudaGetLastError();
     return 0;
   }
-  return sms * (per_sm < 2 ? per_sm : 2);
+  return sms * (n < 2 ? n : 2);
 }
 
 // One decode forward. `ia` holds pointers and integers by the IArg index,
@@ -676,6 +884,17 @@ extern "C" int di_megakernel(const long long* ia, const double* fa,
   a.status = ptr<int>(ia[I_STATUS]);
   a.launches = ptr<unsigned long long>(ia[I_LAUNCHES]);
   a.trace = ptr<unsigned long long>(ia[I_TRACE]);
+  a.epart = ptr<float>(ia[I_EPART]);
+  a.erec = ptr<uint8_t>(ia[I_EREC]);
+  a.topk_e = ptr<int>(ia[I_TOPK_E]);
+  a.topk_w = ptr<float>(ia[I_TOPK_W]);
+  a.sgate = ptr<float>(ia[I_SGATE]);
+  a.E = (int)ia[I_E];
+  a.k_top = (int)ia[I_K_TOP];
+  a.norm_topk = (int)ia[I_NORM_TOPK];
+  a.has_shared = (int)ia[I_HAS_SHARED];
+  a.has_sgate = (int)ia[I_HAS_SGATE];
+  a.shared_inter = (int)ia[I_SHARED_INTER];
   a.B = (int)ia[I_B];
   a.L = (int)ia[I_L];
   a.hid = (int)ia[I_HID];
@@ -700,18 +919,19 @@ extern "C" int di_megakernel(const long long* ia, const double* fa,
   // the wrapper's stripe geometry must be the kernel's
   if (a.split_len != kAttUnit || a.nsplit < 1 || a.nsplit > kMaxStripes)
     return (int)cudaErrorInvalidValue;
+  if (a.E > 0 && (a.E + a.has_sgate > kMaxLanes || a.k_top < 1 ||
+                  a.k_top > kMaxTopk || a.inter % kChunkK ||
+                  a.shared_inter % kChunkK))
+    return (int)cudaErrorInvalidValue;
   const int grid = (int)ia[I_GRID];
   const int mt = a.mpad > 16 ? 2 : 1;
   const int smem = smem_bytes(mt, a.hid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mt == 1) {
-    cudaFuncSetAttribute(mk_kernel<1>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    mk_kernel<1><<<grid, kThreads, smem, s>>>(a);
-  } else {
-    cudaFuncSetAttribute(mk_kernel<2>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    mk_kernel<2><<<grid, kThreads, smem, s>>>(a);
-  }
+  if (mt == 1)
+    a.E > 0 ? launch<1, true>(a, grid, smem, s)
+            : launch<1, false>(a, grid, smem, s);
+  else
+    a.E > 0 ? launch<2, true>(a, grid, smem, s)
+            : launch<2, false>(a, grid, smem, s);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
 // Whole-model prefill of one prompt bucket as ONE persistent kernel, sm_90a.
 //
 // Replaces: dashinfer_tpu/ops/pallas/prefill_megakernel.py
-// `build_prefill_megakernel` (dense branch: RoPE, optional q/k/v bias, KV
-// pool DEFAULT / INT8 / UINT4, weight streams u4 group-wise, int8 group-wise
-// or per-channel, bf16). It reads the DECODE pack (ops/megakernel.py
+// `build_prefill_megakernel` (RoPE, optional q/k/v bias, KV pool DEFAULT /
+// INT8 / UINT4, weight streams u4 group-wise, int8 group-wise or
+// per-channel, bf16; a dense MLP or the MoE branch). It reads the DECODE
+// pack (ops/megakernel.py
 // `pack_params`: fragment-ordered 64-row x 256-column chunks), so prefill
 // and decode share one weight set on the card.
 //
@@ -50,6 +51,20 @@
 // over 64-key tiles of bf16 K / V staged in shared memory; V's mma operand
 // comes from ldmatrix.trans.
 //
+// MoE layers, as the TPU kernel computes them: every expert over every row
+// of the bucket, each row's result scaled by its gate for that expert (0
+// where the row is not routed to it) and summed in ascending expert order,
+// then the shared expert times its gate. After norm2: the router product
+// (bf16, a 256-column stream) and a gates phase (one warp a row,
+// `route_row`, dense gates [S][EP]); then the experts in batches of `eb`
+// (items over (expert, tile, split, row tile), so a batch fills the grid):
+// gate|up of the batch -> SwiGLU into `act` [eb][S][Im] -> down into `edn`,
+// whose gated sum into `acc` [S][hid] runs beside the next batch's gate|up;
+// then the shared expert (gate|up beside the last batch's sum, SwiGLU,
+// down). The next norm adds resid + (acc + shared gate x shared down). This
+// runs the E / k-fold of the routed work (at bucket 1024 ~28 against ~4.2
+// TFLOP for Qwen1.5-MoE): a first version, right before fast.
+//
 // Phases of one layer (each followed by the barrier): norm1 -> q|k|v ->
 // rope + KV write -> attention -> o -> norm2 -> gate|up -> SwiGLU -> down;
 // then final norm -> lm_head. With a trace buffer, block 0 writes a
@@ -94,20 +109,29 @@ struct PArgs {
   __nv_bfloat16* x_last;     // [16, hid], rows 1.. stay zero
   unsigned* barrier;
   int* status;
+  float* edn;                // MoE: a batch's down partials [eb][split][S][hid]
+  float* acc;                // MoE: [S, hid] gated sum of the experts
+  float* gates;              // MoE: [L][S][EP] gates, 0 where not routed
+  float* sgate;              // MoE: [L][S] the shared expert's gate
   unsigned long long* launches;
   unsigned long long* trace;
   int S, L, hid, H, KH, inter, V, ps, maxPb, kv_kind, ql;
+  int E, k_top, norm_topk, has_shared, has_sgate, shared_inter, EP, eb;
   float eps, att_scale;
 };
 
 // out[split][row][col] = sum over the split's K chunks of A[row] . W[:, col]
 // for the rows of `mtiles` tiles of 16 * MT rows. A is row-major bf16 with
-// `lda` elements a row; rows >= store_rows are not stored.
-template <int BITS, int MT>
-__device__ void gemm_phase(const Stream& st, int layer,
-                           const __nv_bfloat16* A, int lda, int mtiles,
-                           float* out, size_t split_stride, int ldo,
-                           int store_rows, uint8_t* smem) {
+// `lda` elements a row; rows >= store_rows and columns >= st.nvalid are not
+// stored. GROUPED: an expert stream, experts e0 .. e0 + ngroups - 1: group
+// g's A at A + g * a_gs, its output at out + g * out_gs (the dense
+// instantiation folds that away; the experts' run in a function of their
+// own, so that they add nothing to the dense products' registers).
+template <int BITS, int MT, bool GROUPED>
+__device__ __forceinline__ void gemm_phase(
+    const Stream& st, int layer, const __nv_bfloat16* A, int lda, int mtiles,
+    float* out, size_t split_stride, int ldo, int store_rows, uint8_t* smem,
+    int e0, int ngroups, size_t a_gs, size_t out_gs) {
   using T = Tile<BITS>;
   constexpr int kRows = 16 * MT;
   constexpr int kABytes = kRows * kAPad * 2;
@@ -120,9 +144,13 @@ __device__ void gemm_phase(const Stream& st, int layer,
   const int chunks_total = st.K / kChunkK;
   const int gs = st.K / st.G;              // K rows per quant group
   const int tiles = st.tile0[st.nleaf];
-  const int n_items = tiles * st.ksplit * mtiles;
+  const int per_group = tiles * st.ksplit * mtiles;
+  const int n_items = GROUPED ? per_group * ngroups : per_group;
 
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+  for (int item_g = blockIdx.x; item_g < n_items; item_g += gridDim.x) {
+    const int grp = GROUPED ? item_g / per_group : 0;
+    const int item = GROUPED ? item_g % per_group : item_g;
+    const int e = GROUPED ? e0 + grp : 0;
     const int mt_i = item % mtiles;
     const int split = (item / mtiles) % st.ksplit;
     const int t = item / (mtiles * st.ksplit);
@@ -131,11 +159,13 @@ __device__ void gemm_phase(const Stream& st, int layer,
     const int lt = t - st.tile0[leaf];
     const int n_leaf = st.n[leaf];
     const uint8_t* w_tile = st.w[leaf] + (size_t)layer * st.w_ls[leaf] +
+                            (size_t)e * st.e_ls[leaf] +
                             (size_t)lt * chunks_total * T::kChunkBytes;
-    const float* s_leaf =
-        BITS == 16 ? nullptr : st.s[leaf] + (size_t)layer * st.q_ls[leaf];
-    const float* z_leaf =
-        BITS == 16 ? nullptr : st.z[leaf] + (size_t)layer * st.q_ls[leaf];
+    const size_t qoff =
+        (size_t)layer * st.q_ls[leaf] + (size_t)e * st.qe_ls[leaf];
+    const float* s_leaf = BITS == 16 ? nullptr : st.s[leaf] + qoff;
+    const float* z_leaf = BITS == 16 ? nullptr : st.z[leaf] + qoff;
+    const __nv_bfloat16* A_g = A + (size_t)grp * a_gs;
     const int col_leaf = lt * 256, col_out = t * 256;
     const int c0 = split * st.cps;
     const int nc = min(st.cps, chunks_total - c0);
@@ -144,7 +174,8 @@ __device__ void gemm_phase(const Stream& st, int layer,
     auto load = [&](int c, int buf) {
       uint8_t* a_s = smem + (size_t)buf * kStage;
       uint8_t* w_s = a_s + kABytes;
-      const __nv_bfloat16* asrc = A + (size_t)m0 * lda + (size_t)(c0 + c) * kChunkK;
+      const __nv_bfloat16* asrc =
+          A_g + (size_t)m0 * lda + (size_t)(c0 + c) * kChunkK;
       for (int i = tid; i < kAVecs; i += kThreads) {
         const int row = i >> 3, seg = i & 7;
         cp_async16(a_s + row * (kAPad * 2) + seg * 16,
@@ -281,7 +312,7 @@ __device__ void gemm_phase(const Stream& st, int layer,
     cp_async_wait<0>();
     __syncthreads();   // the ring is free for the next item
 
-    float* o = out + (size_t)split * split_stride;
+    float* o = out + (size_t)grp * out_gs + (size_t)split * split_stride;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = col_out + (j >> 1) * 128 + 16 * warp + 8 * (j & 1) +
@@ -291,7 +322,7 @@ __device__ void gemm_phase(const Stream& st, int layer,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = m0 + mt * 16 + gid + 8 * h;
-          if (row < store_rows)
+          if (row < store_rows && col < st.nvalid)
             *reinterpret_cast<float2*>(o + (size_t)row * ldo + col) =
                 make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
         }
@@ -304,23 +335,71 @@ __device__ void gemm(const Stream& st, int layer, const __nv_bfloat16* A,
                      int lda, int mtiles, float* out, size_t split_stride,
                      int store_rows, uint8_t* smem) {
   if (st.bits == 4)
-    gemm_phase<4, MT>(st, layer, A, lda, mtiles, out, split_stride, st.ntot,
-                      store_rows, smem);
+    gemm_phase<4, MT, false>(st, layer, A, lda, mtiles, out, split_stride,
+                             st.ldo, store_rows, smem, 0, 1, 0, 0);
   else if (st.bits == 8)
-    gemm_phase<8, MT>(st, layer, A, lda, mtiles, out, split_stride, st.ntot,
-                      store_rows, smem);
+    gemm_phase<8, MT, false>(st, layer, A, lda, mtiles, out, split_stride,
+                             st.ldo, store_rows, smem, 0, 1, 0, 0);
   else
-    gemm_phase<16, MT>(st, layer, A, lda, mtiles, out, split_stride, st.ntot,
-                       store_rows, smem);
+    gemm_phase<16, MT, false>(st, layer, A, lda, mtiles, out, split_stride,
+                              st.ldo, store_rows, smem, 0, 1, 0, 0);
+}
+
+// Experts e0 .. e0 + ngroups - 1 of a MoE stream.
+template <int MT>
+__device__ __noinline__ void gemm_experts(const Stream& st, int layer,
+                                          const __nv_bfloat16* A, int lda,
+                                          int mtiles, float* out,
+                                          size_t split_stride, int store_rows,
+                                          uint8_t* smem, int e0, int ngroups,
+                                          size_t a_gs, size_t out_gs) {
+  if (st.bits == 4)
+    gemm_phase<4, MT, true>(st, layer, A, lda, mtiles, out, split_stride,
+                            st.ldo, store_rows, smem, e0, ngroups, a_gs,
+                            out_gs);
+  else if (st.bits == 8)
+    gemm_phase<8, MT, true>(st, layer, A, lda, mtiles, out, split_stride,
+                            st.ldo, store_rows, smem, e0, ngroups, a_gs,
+                            out_gs);
+  else
+    gemm_phase<16, MT, true>(st, layer, A, lda, mtiles, out, split_stride,
+                             st.ldo, store_rows, smem, e0, ngroups, a_gs,
+                             out_gs);
 }
 
 // resid[row] = x0[row] (first layer) or resid[row] + the K splits of the
 // product before, in a fixed order; xn[row] = bf16(RMSNorm(resid[row]) * w).
 // One block a row at a time (a row's splits come from L2: many loads in
 // flight matter more than many rows at once).
-__device__ void norm_phase(const PArgs& a, int rows, int ksplit,
-                           size_t split_stride, bool from_x0, const float* w,
-                           float* red) {
+// The MLP's output to add to resid[row]: the K splits of the down product,
+// or a MoE layer's (moe) acc[row] + its shared gate x the K splits of the
+// shared expert's down product.
+__device__ __forceinline__ float4 mlp_out(const PArgs& a, int row, int i,
+                                          int ksplit, size_t split_stride,
+                                          bool moe, int moe_layer) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < ksplit; ++s) {
+    const float4 p = __ldcg(reinterpret_cast<const float4*>(
+        a.partial + (size_t)s * split_stride + (size_t)row * a.hid + i));
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
+  if (!moe) return v;
+  const float4 c =
+      __ldcg(reinterpret_cast<const float4*>(a.acc + (size_t)row * a.hid + i));
+  const float g =
+      a.has_shared ? __ldcg(a.sgate + (size_t)moe_layer * a.S + row) : 0.f;
+  return make_float4(c.x + g * v.x, c.y + g * v.y, c.z + g * v.z,
+                     c.w + g * v.w);
+}
+
+template <bool MOE>
+__device__ __forceinline__ void norm_rows(const PArgs& a, int rows,
+                                          int ksplit, size_t split_stride,
+                                          bool from_x0, int moe_layer,
+                                          const float* w, float* red) {
   const int hid = a.hid, tid = threadIdx.x;
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     float* r = a.resid + (size_t)row * hid;
@@ -333,6 +412,14 @@ __device__ void norm_phase(const PArgs& a, int rows, int ksplit,
         const float2 lo = __bfloat1622float2(p[0]);
         const float2 hi = __bfloat1622float2(p[1]);
         v = make_float4(lo.x, lo.y, hi.x, hi.y);
+      } else if (MOE) {
+        v = __ldcg(reinterpret_cast<const float4*>(r + i));
+        const float4 p =
+            mlp_out(a, row, i, ksplit, split_stride, true, moe_layer);
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
       } else {
         v = __ldcg(reinterpret_cast<const float4*>(r + i));
         for (int s = 0; s < ksplit; ++s) {
@@ -643,50 +730,141 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
   }
 }
 
-// act = bf16(silu(g) * u) from the gate|up product's K splits.
-__device__ void act_phase(const PArgs& a, int rows) {
-  const Stream& st = a.st[kGu];
-  const int inter = a.inter, quarter = inter / 4;
+// act[g][row] = bf16(silu(g) * u) from a gate|up product's K splits for
+// `ngroups` groups (group g's split 0 at in + g * in_gs; up starts at the
+// gate leaf's padded width; act rows of a group S apart).
+template <bool GROUPED>
+__device__ void act_phase(const PArgs& a, const Stream& st, const float* in,
+                          size_t in_gs, int inter, int ngroups, int rows) {
+  const int quarter = inter / 4, up = st.n[0];
   const size_t split_stride = (size_t)a.S * st.ntot;
-  const int total = rows * quarter;
+  const int per_group = rows * quarter;
+  const int total = GROUPED ? ngroups * per_group : per_group;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < total;
        i += gridDim.x * kThreads) {
-    const int row = i / quarter, c = 4 * (i - row * quarter);
-    float4 g = make_float4(0.f, 0.f, 0.f, 0.f), u = g;
+    const int g = GROUPED ? i / per_group : 0, r = i - g * per_group;
+    const int row = r / quarter, c = 4 * (r - row * quarter);
+    float4 gv = make_float4(0.f, 0.f, 0.f, 0.f), u = gv;
     for (int s = 0; s < st.ksplit; ++s) {
-      const float* p =
-          a.partial + (size_t)s * split_stride + (size_t)row * st.ntot + c;
+      const float* p = in + (size_t)g * in_gs + (size_t)s * split_stride +
+                       (size_t)row * st.ntot + c;
       const float4 gs = __ldcg(reinterpret_cast<const float4*>(p));
-      const float4 us = __ldcg(reinterpret_cast<const float4*>(p + inter));
-      g.x += gs.x; g.y += gs.y; g.z += gs.z; g.w += gs.w;
+      const float4 us = __ldcg(reinterpret_cast<const float4*>(p + up));
+      gv.x += gs.x; gv.y += gs.y; gv.z += gs.z; gv.w += gs.w;
       u.x += us.x; u.y += us.y; u.z += us.z; u.w += us.w;
     }
-    __nv_bfloat162* o =
-        reinterpret_cast<__nv_bfloat162*>(a.act + (size_t)row * inter + c);
-    o[0] = __floats2bfloat162_rn(g.x / (1.0f + expf(-g.x)) * u.x,
-                                 g.y / (1.0f + expf(-g.y)) * u.y);
-    o[1] = __floats2bfloat162_rn(g.z / (1.0f + expf(-g.z)) * u.z,
-                                 g.w / (1.0f + expf(-g.w)) * u.w);
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
+        a.act + ((size_t)g * a.S + row) * inter + c);
+    o[0] = __floats2bfloat162_rn(gv.x / (1.0f + expf(-gv.x)) * u.x,
+                                 gv.y / (1.0f + expf(-gv.y)) * u.y);
+    o[1] = __floats2bfloat162_rn(gv.z / (1.0f + expf(-gv.z)) * u.z,
+                                 gv.w / (1.0f + expf(-gv.w)) * u.w);
+  }
+}
+
+__device__ void norm_phase(const PArgs& a, int rows, int ksplit,
+                           size_t split_stride, bool from_x0, const float* w,
+                           float* red) {
+  norm_rows<false>(a, rows, ksplit, split_stride, from_x0, 0, w, red);
+}
+
+// norm_phase of a MoE layer's residual: + acc + the shared expert's output.
+__device__ __noinline__ void moe_norm_phase(const PArgs& a, int rows,
+                                            int ksplit, size_t split_stride,
+                                            int moe_layer, const float* w,
+                                            float* red) {
+  norm_rows<true>(a, rows, ksplit, split_stride, false, moe_layer, w, red);
+}
+
+// MoE router: one warp a row, from the router product's K splits -> dense
+// gates [layer][row][EP] (0 where not routed), the shared gate; acc[row] = 0.
+// Each layer's gates stay in the scratch until the launch ends.
+__device__ __noinline__ void gates_phase(const PArgs& a, int rows,
+                                         int layer) {
+  float* gates = a.gates + (size_t)layer * a.S * a.EP;
+  const Stream& st = a.st[kRt];
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int nw = gridDim.x * kWarps;
+  for (int row = gw; row < rows; row += nw) {
+    int idx[kMaxTopk];
+    float w[kMaxTopk], sg;
+    route_row(a.partial + (size_t)row * st.ldo, st.ksplit,
+              (size_t)a.S * st.ldo, a.E, a.k_top, a.norm_topk, a.has_shared,
+              a.has_sgate, idx, w, sg);
+    for (int e = lane; e < a.EP; e += 32) {
+      float v = 0.f;
+      for (int j = 0; j < a.k_top; ++j)
+        if (idx[j] == e) v = w[j];
+      gates[(size_t)row * a.EP + e] = v;
+    }
+    if (lane == 0) a.sgate[(size_t)layer * a.S + row] = sg;
+    for (int i = lane * 4; i < a.hid; i += 128)
+      *reinterpret_cast<float4*>(a.acc + (size_t)row * a.hid + i) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// acc[row] += sum over experts e0 .. e0 + nb - 1 (ascending) of
+// gates[row][e] x the K splits of e's down product (group e - e0 of edn).
+__device__ __noinline__ void expert_sum_phase(const PArgs& a, int layer,
+                                              int e0, int nb, int rows) {
+  const float* gates = a.gates + (size_t)layer * a.S * a.EP;
+  const Stream& st = a.st[kDn];
+  const int hid = a.hid, q = hid / 4;
+  const size_t split_stride = (size_t)a.S * hid;
+  const size_t gs = (size_t)st.ksplit * split_stride;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < rows * q;
+       i += gridDim.x * kThreads) {
+    const int row = i / q, c = 4 * (i - row * q);
+    float* ap = a.acc + (size_t)row * hid + c;
+    float4 acc = __ldcg(reinterpret_cast<const float4*>(ap));
+    for (int g = 0; g < nb; ++g) {
+      const float w = __ldcg(gates + (size_t)row * a.EP + e0 + g);
+      if (w == 0.f) continue;       // not routed: it adds 0
+      float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < st.ksplit; ++s) {
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(
+            a.edn + g * gs + s * split_stride + (size_t)row * hid + c));
+        y.x += p.x; y.y += p.y; y.z += p.z; y.w += p.w;
+      }
+      acc.x += w * y.x; acc.y += w * y.y; acc.z += w * y.z; acc.w += w * y.w;
+    }
+    *reinterpret_cast<float4*>(ap) = acc;
   }
 }
 
 // Row n - 1: the last down product's splits into the residual, the final
 // norm, bf16 -> row 0 of x_last. Block 0 alone (one row).
-__device__ void final_norm_phase(const PArgs& a, int n, float* smem) {
+__device__ void final_norm_phase(const PArgs& a, int n, int ksplit,
+                                 bool moe, float* smem) {
   if (blockIdx.x != 0) return;
   const int hid = a.hid, tid = threadIdx.x;
-  const Stream& st = a.st[kDn];
   const size_t split_stride = (size_t)a.S * hid;
   const size_t roff = (size_t)(n - 1) * hid;
   float* vals = smem;            // [hid]
   float* red = smem + hid;       // [kWarps]
   float ss = 0.f;
-  for (int i = tid; i < hid; i += kThreads) {
-    float v = __ldcg(a.resid + roff + i);
-    for (int s = 0; s < st.ksplit; ++s)
-      v += __ldcg(a.partial + (size_t)s * split_stride + roff + i);
-    vals[i] = v;
-    ss += v * v;
+  if (!moe) {
+    for (int i = tid; i < hid; i += kThreads) {
+      float v = __ldcg(a.resid + roff + i);
+      for (int s = 0; s < ksplit; ++s)
+        v += __ldcg(a.partial + (size_t)s * split_stride + roff + i);
+      vals[i] = v;
+      ss += v * v;
+    }
+  } else {
+    for (int i4 = tid * 4; i4 < hid; i4 += kThreads * 4) {
+      const float4 p =
+          mlp_out(a, n - 1, i4, ksplit, split_stride, true, a.L - 1);
+      const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float v = __ldcg(a.resid + roff + i4 + k) + pv[k];
+        vals[i4 + k] = v;
+        ss += v * v;
+      }
+    }
   }
   ss = warp_sum(ss);
   if ((tid & 31) == 0) red[tid >> 5] = ss;
@@ -711,14 +889,24 @@ pmk_kernel(const __grid_constant__ PArgs a) {
   const int rows = mtiles * kMTile;
   const int hid = a.hid, S = a.S;
   const int HD = a.H * kD;
+  const bool moe = a.E > 0;
+  // the down product's splits the next norm adds (a MoE layer: its shared
+  // expert's, beside acc)
+  const int mlp_ks = moe ? (a.has_shared ? a.st[kSdn].ksplit : 0)
+                         : a.st[kDn].ksplit;
   int phase = 0;
   auto barrier = [&]() {
     grid_barrier(a.barrier, a.status, a.trace, phase++);
   };
   for (int l = 0; l < a.L; ++l) {
-    norm_phase(a, rows, a.st[kDn].ksplit, (size_t)S * hid, l == 0,
-               a.norms + (size_t)(2 * l) * hid,
-               reinterpret_cast<float*>(smem));
+    if (moe && l > 0)
+      moe_norm_phase(a, rows, mlp_ks, (size_t)S * hid, l - 1,
+                     a.norms + (size_t)(2 * l) * hid,
+                     reinterpret_cast<float*>(smem));
+    else
+      norm_phase(a, rows, mlp_ks, (size_t)S * hid, l == 0,
+                 a.norms + (size_t)(2 * l) * hid,
+                 reinterpret_cast<float*>(smem));
     barrier();
     gemm<kMTile / 16>(a.st[kQkv], l, a.xn, hid, mtiles, a.partial,
                       (size_t)S * a.st[kQkv].ntot, rows, smem);
@@ -734,16 +922,56 @@ pmk_kernel(const __grid_constant__ PArgs a) {
                a.norms + (size_t)(2 * l + 1) * hid,
                reinterpret_cast<float*>(smem));
     barrier();
-    gemm<kMTile / 16>(a.st[kGu], l, a.xn, hid, mtiles, a.partial,
-                      (size_t)S * a.st[kGu].ntot, rows, smem);
+    const Stream& gu = a.st[kGu];
+    const Stream& dn = a.st[kDn];
+    if (!moe) {
+      gemm<kMTile / 16>(gu, l, a.xn, hid, mtiles, a.partial,
+                        (size_t)S * gu.ntot, rows, smem);
+      barrier();
+      act_phase<false>(a, gu, a.partial, 0, a.inter, 1, rows);
+      barrier();
+      gemm<kMTile / 16>(dn, l, a.act, a.inter, mtiles, a.partial,
+                        (size_t)S * hid, rows, smem);
+      barrier();
+      continue;
+    }
+    gemm<kMTile / 16>(a.st[kRt], l, a.xn, hid, mtiles, a.partial,
+                      (size_t)S * a.st[kRt].ntot, rows, smem);
     barrier();
-    act_phase(a, rows);
+    gates_phase(a, rows, l);
     barrier();
-    gemm<kMTile / 16>(a.st[kDn], l, a.act, a.inter, mtiles, a.partial,
-                      (size_t)S * hid, rows, smem);
+    const size_t gu_gs = (size_t)gu.ksplit * S * gu.ntot;
+    int e0 = 0;
+    for (; e0 < a.E; e0 += a.eb) {
+      const int nb = min(a.eb, a.E - e0);
+      if (e0 > 0) expert_sum_phase(a, l, e0 - a.eb, a.eb, rows);
+      gemm_experts<kMTile / 16>(gu, l, a.xn, hid, mtiles, a.partial,
+                                (size_t)S * gu.ntot, rows, smem, e0, nb, 0,
+                                gu_gs);
+      barrier();
+      act_phase<true>(a, gu, a.partial, gu_gs, a.inter, nb, rows);
+      barrier();
+      gemm_experts<kMTile / 16>(dn, l, a.act, a.inter, mtiles, a.edn,
+                                (size_t)S * hid, rows, smem, e0, nb,
+                                (size_t)S * a.inter,
+                                (size_t)dn.ksplit * S * hid);
+      barrier();
+    }
+    e0 -= a.eb;
+    expert_sum_phase(a, l, e0, a.E - e0, rows);
+    if (a.has_shared) {
+      const Stream& sgu = a.st[kSgu];
+      gemm<kMTile / 16>(sgu, l, a.xn, hid, mtiles, a.partial,
+                        (size_t)S * sgu.ntot, rows, smem);
+      barrier();
+      act_phase<false>(a, sgu, a.partial, 0, a.shared_inter, 1, rows);
+      barrier();
+      gemm<kMTile / 16>(a.st[kSdn], l, a.act, a.shared_inter, mtiles,
+                        a.partial, (size_t)S * hid, rows, smem);
+    }
     barrier();
   }
-  final_norm_phase(a, n, reinterpret_cast<float*>(smem));
+  final_norm_phase(a, n, mlp_ks, moe, reinterpret_cast<float*>(smem));
   barrier();
   gemm<1>(a.st[kLm], 0, a.x_last, hid, 1, a.logits, 0, 1, smem);
   barrier();   // so that a trace shows the lm_head's end
@@ -761,9 +989,11 @@ int pmk_smem_bytes() {
 enum IArg {
   I_NORMS, I_FINAL_NORM, I_QKV_B, I_X0, I_COS, I_SIN, I_PAGE_ROW, I_N_TOKENS,
   I_K_POOL, I_V_POOL, I_K_QP, I_V_QP, I_LOGITS, I_RESID, I_XN, I_PARTIAL,
-  I_QB, I_KB, I_VB, I_ATTN, I_ACT, I_X_LAST, I_BARRIER, I_STATUS, I_LAUNCHES,
-  I_TRACE, I_S, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXPB,
-  I_KV_KIND, I_QL, I_GRID, I_STREAMS
+  I_QB, I_KB, I_VB, I_ATTN, I_ACT, I_X_LAST, I_BARRIER, I_STATUS, I_EDN,
+  I_ACC, I_GATES, I_SGATE, I_LAUNCHES, I_TRACE, I_S, I_L, I_HID, I_H, I_KH,
+  I_INTER, I_V, I_PS, I_MAXPB, I_KV_KIND, I_QL, I_GRID, I_E, I_K_TOP,
+  I_NORM_TOPK, I_HAS_SHARED, I_HAS_SGATE, I_SHARED_INTER, I_EP, I_EB,
+  I_STREAMS
 };
 // then kStreamArgs values per stream (fill_stream)
 
@@ -819,6 +1049,18 @@ extern "C" int di_prefill_megakernel(const long long* ia, const double* fa,
   a.x_last = ptr<__nv_bfloat16>(ia[I_X_LAST]);
   a.barrier = ptr<unsigned>(ia[I_BARRIER]);
   a.status = ptr<int>(ia[I_STATUS]);
+  a.edn = ptr<float>(ia[I_EDN]);
+  a.acc = ptr<float>(ia[I_ACC]);
+  a.gates = ptr<float>(ia[I_GATES]);
+  a.sgate = ptr<float>(ia[I_SGATE]);
+  a.E = (int)ia[I_E];
+  a.k_top = (int)ia[I_K_TOP];
+  a.norm_topk = (int)ia[I_NORM_TOPK];
+  a.has_shared = (int)ia[I_HAS_SHARED];
+  a.has_sgate = (int)ia[I_HAS_SGATE];
+  a.shared_inter = (int)ia[I_SHARED_INTER];
+  a.EP = (int)ia[I_EP];
+  a.eb = (int)ia[I_EB];
   a.launches = ptr<unsigned long long>(ia[I_LAUNCHES]);
   a.trace = ptr<unsigned long long>(ia[I_TRACE]);
   a.S = (int)ia[I_S];
@@ -839,6 +1081,10 @@ extern "C" int di_prefill_megakernel(const long long* ia, const double* fa,
   if (a.S % kMTile != 0 || a.S <= 0 || a.hid % 128 != 0 ||
       a.inter % 4 != 0 ||
       (a.hid + kWarps) * 4 > pmk_smem_bytes())
+    return (int)cudaErrorInvalidValue;
+  if (a.E > 0 && (a.E + a.has_sgate > a.EP || a.EP > kMaxLanes ||
+                  a.k_top < 1 || a.k_top > kMaxTopk || a.eb < 1 ||
+                  a.shared_inter % 4 != 0))
     return (int)cudaErrorInvalidValue;
   const int grid = (int)ia[I_GRID];
   const int smem = pmk_smem_bytes();

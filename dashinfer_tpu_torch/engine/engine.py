@@ -19,6 +19,8 @@ from dashinfer_tpu_torch.config import (GenerationConfig, ModelConfig,
 from dashinfer_tpu_torch.engine.model_runtime import ModelRuntime
 from dashinfer_tpu_torch.loader.convert import params_from_numpy, torch_dtype
 from dashinfer_tpu_torch.loader.quantize import quantize_params
+from dashinfer_tpu_torch.ops.grouped_quant_matmul import \
+    prepare_grouped_experts
 from dashinfer_tpu_torch.runtime.request import (GenerateRequestStatus,
                                                  Request, RequestHandle,
                                                  new_uuid)
@@ -182,6 +184,12 @@ class Engine:
                 raise ValueError("runtime_config.quant needs a numpy param "
                                  "tree (quantize before converting)")
             params = quantize_params(params, runtime_config.quant)
+        if model_config.moe is not None and \
+                torch.device(device).type == "cuda":
+            # expert stacks whose columns do not fill the grouped kernel's
+            # 256-column tiles are re-laid out, zero-padded, in place of the
+            # loader's (a no-op otherwise)
+            params = prepare_grouped_experts(params, model_config)
         params = params_from_numpy(params, device,
                                    torch_dtype(runtime_config.dtype))
         with self._lock:

@@ -259,6 +259,16 @@ class ModelRuntime:
             mk.packed_extra_bytes(packed, self.params) / 1024**3,
             "the i8 re-expansion in fragment order" if expanded
             else "a fragment-ordered copy of the payloads")
+        if plan.E:
+            ex = {k: v for k, v in packed["layers"].items()
+                  if k.startswith("experts.")}
+            logger.info(
+                "megakernel MoE: %d experts, top-%d; the experts' pack "
+                "%.2f GiB (%.2f GiB per step if every expert streamed; the "
+                "kernel reads the routed ones)", plan.E, plan.k_top,
+                mk.packed_extra_bytes(ex, self.params) / 1024**3,
+                plan.L * plan.E * sum(sp.matrix_bytes for sp in
+                                      (plan.gu, plan.dn)) / 1024**3)
         return src
 
     def _install_prefill_megakernel(self, src: Optional[Dict]) -> None:
@@ -272,8 +282,12 @@ class ModelRuntime:
                 not EnvConfig.prefill_megakernel_enabled():
             return
         cfg, rt = self.cfg, self.rt
+        # a MoE model's buckets stop at moe_prefill_mega_max_bucket (0: no
+        # MoE bucket takes the kernel), as in the JAX runtime
+        cap = pmk.MAX_BUCKET if cfg.moe is None else \
+            min(pmk.MAX_BUCKET, rt.moe_prefill_mega_max_bucket)
         qual = [b for b in self.buckets
-                if b <= pmk.MAX_BUCKET and b % 128 == 0 and
+                if b <= cap and b % 128 == 0 and
                 pmk.supports_prefill(cfg, rt, src, b)]
         plans = {b: pmk.make_prefill_plan(cfg, rt, src, b,
                                           decode_plan=self.mega_plan)

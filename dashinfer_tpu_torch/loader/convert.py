@@ -11,10 +11,15 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
-_QPARAM_KEYS = ("scale", "zero")
+_QPARAM_KEYS = ("scale", "zero", "scale_g", "zero_g")
+# float leaves kept in the dtype the tree gives them: the MoE router and the
+# shared expert's gate route in f32 (a bf16 router flips top-k choices on
+# near-ties; the JAX package routes with the f32 product, ops/moe.py)
+_KEEP_DTYPE = ("router", "shared_expert_gate")
 
 
-def _leaf_to_tensor(x, key: str, device, dtype: torch.dtype) -> torch.Tensor:
+def _leaf_to_tensor(x, key: str, device, dtype: torch.dtype,
+                    keep: bool = False) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         t = x
     else:
@@ -26,7 +31,7 @@ def _leaf_to_tensor(x, key: str, device, dtype: torch.dtype) -> torch.Tensor:
                                  ).view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.ascontiguousarray(a))
-    if t.is_floating_point():
+    if t.is_floating_point() and not keep:
         # quantization qparams stay f32 (the kernels read them as f32);
         # every other float leaf is held in the model dtype
         t = t.to(torch.float32 if key in _QPARAM_KEYS else dtype)
@@ -39,10 +44,11 @@ def params_from_numpy(tree: Dict, device: Union[str, torch.device] = "cuda",
     """Convert a (nested dict) param tree of numpy / ml_dtypes arrays (or
     tensors) to contiguous tensors on `device`."""
 
-    def walk(node, key=""):
+    def walk(node, key="", keep=False):
         if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        return _leaf_to_tensor(node, key, device, dtype)
+            return {k: walk(v, k, keep or k in _KEEP_DTYPE)
+                    for k, v in node.items()}
+        return _leaf_to_tensor(node, key, device, dtype, keep)
 
     return walk(tree)
 

@@ -8,6 +8,7 @@ both packages produce bit-equal leaves from the same weights.
 Quantized leaf format (consumed by ops/linear.py + the quant_matmul kernel):
   {"w_q": [*, in, out] int8 | [*, in, out/2] uint8 packed,
    "scale"/"zero": [*, groups, out] f32}     (bits inferred from dtype)
+MoE expert stacks [L, E, in, out] give leaves with the leading [L, E].
 Per-channel = groups 1. Dequant: w = q * scale + zero.
 """
 
@@ -87,6 +88,16 @@ def quantize_params(params: Dict, quant: QuantConfig) -> Dict:
                     return out
                 return tree
             return {k: walk(v, f"{path}{k}/") for k, v in tree.items()}
+        if getattr(tree, "ndim", 0) == 4 and pattern.match(path):
+            # stacked MoE expert weights [L, E, in, out] -> per-(layer,
+            # expert) weight-only leaves [L, E, in, out(/2)] + [L, E, G, out]
+            w = np.asarray(tree, np.float32)
+            L, E = w.shape[:2]
+            out = _quantize_stacked(w.reshape(L * E, *w.shape[2:]), bits,
+                                    quant.group_size)
+            n_q += 1
+            return {k: v.reshape((L, E) + v.shape[1:])
+                    for k, v in out.items()}
         return tree
 
     out = walk(params)

@@ -7,9 +7,10 @@ updated in place. Two entry points:
   decode_forward : [B] one token per slot, paged attention over the pool.
   prefill_forward: [S] one request's prompt; writes pages, attends causally.
 
+A MoE model (Qwen1.5/2-MoE) runs `ops.moe.moe_block` in place of the MLP.
 Architectures whose layer math this port does not have yet (ALiBi, learned
-positions, GLM, scaled RoPE, QK-norm, MoE, non-gated MLPs, tied or
-soft-capped heads) raise NotImplementedError.
+positions, GLM, scaled RoPE, QK-norm, MoE models with dense layers, non-gated
+MLPs, tied or soft-capped heads) raise NotImplementedError.
 """
 
 import math
@@ -23,6 +24,7 @@ from dashinfer_tpu_torch.config import (Activation, CacheMode, ModelConfig,
 from dashinfer_tpu_torch.ops import attention as attn_ops
 from dashinfer_tpu_torch.ops import kv_ops
 from dashinfer_tpu_torch.ops.linear import linear
+from dashinfer_tpu_torch.ops.moe import moe_block
 from dashinfer_tpu_torch.ops.norms import rms_norm
 from dashinfer_tpu_torch.ops.rotary import (apply_rope, compute_inv_freq,
                                             rope_cos_sin)
@@ -41,7 +43,8 @@ def check_supported(cfg: ModelConfig) -> None:
         "GLM structure": (cfg.rope_glm_2d or cfg.prefix_lm or
                           bool(cfg.glm_residual_alpha)),
         "QK-norm": cfg.qk_norm,
-        "MoE": cfg.moe is not None,
+        "MoE with dense layers (mlp_only_layers)": (
+            cfg.moe is not None and bool(cfg.moe.mlp_only_layers)),
         "parallel residual": cfg.parallel_residual,
         "activation": cfg.activation != Activation.SILU,
         "tied embeddings": cfg.tie_word_embeddings,
@@ -72,7 +75,10 @@ def _qkv(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool):
     return q, k, v
 
 
-def _mlp(lp: Dict, x: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
+         use_kernel: bool) -> torch.Tensor:
+    if cfg.moe is not None:
+        return moe_block(cfg, x, lp, use_kernel=use_kernel)
     g = linear(x, lp["gate_proj"], use_kernel=use_kernel)
     u = linear(x, lp["up_proj"], use_kernel=use_kernel)
     return linear(F.silu(g) * u, lp["down_proj"], use_kernel=use_kernel)
@@ -87,7 +93,7 @@ def _block(cfg: ModelConfig, lp: Dict, hidden: torch.Tensor, attend,
     attn_out = linear(attend(q, k, v), lp["o_proj"], use_kernel=use_kernel)
     h = hidden + attn_out
     x2 = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    return h + _mlp(lp, x2, use_kernel)
+    return h + _mlp(cfg, lp, x2, use_kernel)
 
 
 def _lm_logits(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,

@@ -67,7 +67,7 @@ from dashinfer_tpu_torch.ops import kernel_build, kv_ops
 from dashinfer_tpu_torch.ops.u4pack import weight_levels
 from dashinfer_tpu_torch.runtime.kv_cache import KVCache
 
-PACK_VERSION = 1   # bump when what pack_params returns changes
+PACK_VERSION = 2   # bump when what pack_params returns changes
 MAX_BATCH = 64
 CHUNK_K = 64        # K rows per pipeline stage of the kernel
 ATT_UNIT = 64       # tokens per unit of an attention stripe
@@ -267,21 +267,88 @@ def expand_u4_to_i8_tensors(params: Dict, col_block: int = 16384
     return out if found else None
 
 
+def _group_ok(leaf, K: int) -> bool:
+    """A quantized leaf's groups: a multiple of 128 rows, or one group."""
+    if not isinstance(leaf, dict) or "w_q" not in leaf:
+        return True
+    gs = K // leaf["scale"].shape[-2]
+    return not (gs % 128 and gs != K)
+
+
+def _moe_supports(cfg: ModelConfig, lp: Dict) -> bool:
+    """The JAX package's MoE rules (ops/pallas/megakernel.py
+    `_moe_supports`): homogeneous MoE layers, at most 512 router lanes and
+    8 experts a token, weight-only experts with equal gate / up bits and
+    group sizes a multiple of 128 (or one group), a bias-free shared expert
+    with the same rules."""
+    moe = cfg.moe
+    if moe.mlp_only_layers:
+        return False
+    lanes = moe.num_experts + (1 if moe.shared_expert_intermediate_size
+                               else 0)
+    if lanes > 512 or moe.num_experts_per_tok > 8:
+        return False
+    ex = lp.get("experts")
+    if not isinstance(ex, dict) or "router" not in lp:
+        return False
+    for name in _MLP:
+        leaf = ex.get(name)
+        if leaf is None or (isinstance(leaf, dict) and
+                            ("w_q8" in leaf or "w_f8" in leaf)):
+            return False
+    if _weight_bits(ex["gate_proj"]) != _weight_bits(ex["up_proj"]):
+        return False
+    Im, hid = moe.moe_intermediate_size, cfg.hidden_size
+    for name, K in (("gate_proj", hid), ("up_proj", hid), ("down_proj", Im)):
+        if not _group_ok(ex[name], K):
+            return False
+    if moe.shared_expert_intermediate_size:
+        se = lp.get("shared_expert")
+        if not isinstance(se, dict):
+            return False
+        sIm = moe.shared_expert_intermediate_size
+        for name, K in (("gate_proj", hid), ("up_proj", hid),
+                        ("down_proj", sIm)):
+            leaf = se.get(name)
+            if leaf is None or "w_q8" in leaf or "w_f8" in leaf or \
+                    "b" in leaf or not _group_ok(leaf, K):
+                return False
+        if _weight_bits(se["gate_proj"]) != _weight_bits(se["up_proj"]):
+            return False
+    return True
+
+
 def supports(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> bool:
     """Whether the model takes the megakernel path (the per-op path serves
-    it otherwise). The JAX package's rules for what the port has: dense
-    pre-LN RoPE models, head_dim 128, max_batch <= 64, no activation-quant
-    leaves, equal bits within q/k/v and within gate/up, no o or MLP bias,
-    group sizes a multiple of 128 (or one group). MoE, QK-norm, ALiBi and
-    a tied quantized lm_head are not in the port's kernel yet and say no.
-    Two TPU tiling rules are dropped because they mean nothing on this card:
-    page_size % 8 (the RMW window) and the UINT4 `KH * D / 2 >= 128` lane
-    rule. Params may be numpy or tensor leaves (only shapes are read)."""
+    it otherwise). The JAX package's rules for what the port has: pre-LN
+    RoPE models, dense or MoE (`_moe_supports`), head_dim 128, max_batch
+    <= 64, no activation-quant leaves, equal bits within q/k/v and within
+    gate/up, no o or MLP bias, group sizes a multiple of 128 (or one group).
+    QK-norm, ALiBi and a tied quantized lm_head are not in the port's kernel
+    yet and say no. Two TPU tiling rules are dropped because they mean
+    nothing on this card: page_size % 8 (the RMW window) and the UINT4
+    `KH * D / 2 >= 128` lane rule. Params may be numpy or tensor leaves
+    (only shapes are read)."""
     try:
         lp = params["layers"]
-        if cfg.moe is not None or cfg.qk_norm:
+        if cfg.qk_norm:
             return False
-        for name in ("q_proj", "o_proj", "gate_proj", "down_proj"):
+        if cfg.moe is not None:
+            if not _moe_supports(cfg, lp):
+                return False
+        else:
+            for name in ("gate_proj", "down_proj"):
+                if "w_q8" in lp[name] or "w_f8" in lp[name]:
+                    return False
+            for name in _MLP:
+                if "b" in lp[name]:
+                    return False
+            if _weight_bits(lp["gate_proj"]) != _weight_bits(lp["up_proj"]):
+                return False
+            if not (_group_ok(lp["gate_proj"], cfg.hidden_size) and
+                    _group_ok(lp["down_proj"], cfg.intermediate_size)):
+                return False
+        for name in ("q_proj", "o_proj"):
             if "w_q8" in lp[name] or "w_f8" in lp[name]:
                 return False
         if cfg.head_dim != 128:
@@ -301,22 +368,13 @@ def supports(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> bool:
             return False   # not in the port's model code yet
         if rt.max_batch > MAX_BATCH:
             return False
-        for name in ("gate_proj", "up_proj", "down_proj", "o_proj"):
-            if "b" in lp[name]:
-                return False
-        if _weight_bits(lp["gate_proj"]) != _weight_bits(lp["up_proj"]):
+        if "b" in lp["o_proj"]:
             return False
         for name in ("q_proj", "k_proj", "v_proj"):
             if _weight_bits(lp[name]) != _weight_bits(lp["q_proj"]):
                 return False
-        for name in ("q_proj", "o_proj", "gate_proj", "down_proj"):
-            leaf = lp[name]
-            if "w_q" in leaf:
-                K = leaf["w_q"].shape[1]
-                gs = K // leaf["scale"].shape[1]
-                if gs % 128 and gs != K:
-                    return False
-        return True
+        return (_group_ok(lp["q_proj"], cfg.hidden_size) and
+                _group_ok(lp["o_proj"], cfg.num_heads * cfg.head_dim))
     except Exception:
         return False
 
@@ -327,26 +385,43 @@ def supports(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class StreamPlan:
-    """One weight stream: the leaves whose columns it concatenates."""
+    """One weight stream: the leaves whose columns it concatenates. A MoE
+    expert stream (E > 0) has E such matrices a layer, one per expert."""
 
     name: str
     leaves: Tuple[str, ...]
     bits: int                 # 4, 8 or 16 (bf16)
     K: int
-    N: Tuple[int, ...]        # columns of each leaf
+    N: Tuple[int, ...]        # columns of each leaf (the model's widths)
     gs: int                   # quant group size along K (0 for bf16)
+    E: int = 0                # experts (0: one matrix a layer)
 
     @property
     def Ntot(self) -> int:
         return sum(self.N)
 
     @property
+    def Np(self) -> Tuple[int, ...]:
+        """Columns of each leaf in the pack: padded to the kernels'
+        256-column tiles."""
+        return tuple(-(-n // 256) * 256 for n in self.N)
+
+    @property
+    def Nptot(self) -> int:
+        return sum(self.Np)
+
+    @property
     def payload_bytes(self) -> int:
+        """Bytes of one matrix (one expert's, for an expert stream)."""
         return self.K * self.Ntot * self.bits // 8
 
     @property
     def qparam_bytes(self) -> int:
         return 0 if not self.gs else 2 * 4 * (self.K // self.gs) * self.Ntot
+
+    @property
+    def matrix_bytes(self) -> int:
+        return self.payload_bytes + self.qparam_bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,7 +433,7 @@ class MegaPlan:
     KH: int
     D: int
     G: int
-    inter: int
+    inter: int                # MLP width (a MoE model: each expert's)
     QKVN: int
     V: int
     ps: int
@@ -369,43 +444,116 @@ class MegaPlan:
     has_qkv_bias: bool
     qkv: StreamPlan
     o: StreamPlan
-    gu: StreamPlan
-    dn: StreamPlan
+    gu: StreamPlan            # a MoE model: the experts' gate|up
+    dn: StreamPlan            # a MoE model: the experts' down
     lm: StreamPlan
     rms_eps: float
+    # MoE (the TPU kernel's router phase + per-expert streams + shared
+    # expert): E experts, top-k gates from a softmax over the bf16 router
+    # product; the router stream has EP columns (E, then the shared
+    # expert's gate column when there is one, padded to 128)
+    E: int = 0
+    k_top: int = 0
+    norm_topk: bool = False
+    has_shared: bool = False
+    has_shared_gate: bool = False
+    EP: int = 0
+    shared_inter: int = 0
+    rt: Optional[StreamPlan] = None
+    sgu: Optional[StreamPlan] = None
+    sdn: Optional[StreamPlan] = None
+
+    @property
+    def kernel_streams(self) -> Tuple[Optional[StreamPlan], ...]:
+        """The streams in the kernels' order (csrc/di_product.cuh
+        StreamId); None where the model has no such stream."""
+        return (self.qkv, self.o, self.gu, self.dn, self.lm, self.rt,
+                self.sgu, self.sdn)
 
     @property
     def streams(self) -> Tuple[StreamPlan, ...]:
-        return (self.qkv, self.o, self.gu, self.dn, self.lm)
+        return tuple(sp for sp in self.kernel_streams if sp is not None)
+
+    @property
+    def layer_streams(self) -> Tuple[StreamPlan, ...]:
+        return tuple(sp for sp in self.streams if sp.name != "lm")
+
+    def layer_bytes(self, experts: Optional[float] = None) -> float:
+        """Bytes of one layer's weights; `experts`: how many experts' streams
+        count (all E by default)."""
+        n_e = self.E if experts is None else experts
+        return sum(sp.matrix_bytes * (n_e if sp.E else 1)
+                   for sp in self.layer_streams)
 
     @property
     def weight_bytes(self) -> int:
-        """Bytes one step streams: every payload and qparam once."""
-        per_layer = sum(s.payload_bytes + s.qparam_bytes
-                        for s in self.streams[:4])
-        return self.L * per_layer + self.lm.payload_bytes + \
-            self.lm.qparam_bytes
+        """Bytes one step streams when every expert streams: every payload
+        and qparam once."""
+        return int(self.L * self.layer_bytes() + self.lm.matrix_bytes)
 
 
-def _stream_plan(name, leaf_names, leaves, gaxis) -> StreamPlan:
+def _stream_plan(name, leaf_names, leaves, gaxis, E=0,
+                 widths: Optional[Tuple[int, ...]] = None) -> StreamPlan:
+    """`widths`: the leaves' true columns, where a leaf may hold more (an
+    expert leaf padded by `prepare_grouped_experts`)."""
     first = leaves[0]
     bits = _weight_bits(first)
     if bits == 16:
         K = first["w"].shape[-2]
-        N = tuple(int(lf["w"].shape[-1]) for lf in leaves)
-        return StreamPlan(name, leaf_names, 16, int(K), N, 0)
+        N = widths or tuple(int(lf["w"].shape[-1]) for lf in leaves)
+        return StreamPlan(name, leaf_names, 16, int(K), N, 0, E)
     K = first["w_q"].shape[-2]
-    N = tuple(int(lf["scale"].shape[-1]) for lf in leaves)
+    N = widths or tuple(int(lf["scale"].shape[-1]) for lf in leaves)
     g = first["scale"].shape[gaxis]
-    return StreamPlan(name, leaf_names, bits, int(K), N, int(K // g))
+    return StreamPlan(name, leaf_names, bits, int(K), N, int(K // g), E)
+
+
+def _expert_leaf(leaf) -> Dict:
+    """An expert stack as a leaf dict (a raw [L, E, K, N] array -> {"w"})."""
+    return leaf if isinstance(leaf, dict) else {"w": leaf}
+
+
+_MLP = ("gate_proj", "up_proj", "down_proj")
 
 
 def make_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> MegaPlan:
     """Shapes of one decode step. Params may be numpy or tensor leaves."""
     lp = params["layers"]
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hid = cfg.hidden_size
     sp = {name: _stream_plan(name, leaves, [lp[n] for n in leaves], 1)
-          for name, leaves in _LAYER_STREAMS}
+          for name, leaves in _LAYER_STREAMS[:2]}
+    moe_kw, inter = {}, cfg.intermediate_size
+    if cfg.moe is not None:
+        moe = cfg.moe
+        ex = {n: _expert_leaf(lp["experts"][n]) for n in _MLP}
+        E = moe.num_experts
+        inter = moe.moe_intermediate_size
+        sp["gu"] = _stream_plan("gu", ("experts.gate_proj", "experts.up_proj"),
+                                [ex["gate_proj"], ex["up_proj"]], 2, E,
+                                (inter, inter))
+        sp["dn"] = _stream_plan("dn", ("experts.down_proj",),
+                                [ex["down_proj"]], 2, E, (hid,))
+        has_shared = bool(moe.shared_expert_intermediate_size)
+        has_sg = has_shared and "shared_expert_gate" in lp
+        EP = -(-(E + int(has_sg)) // 128) * 128
+        moe_kw = dict(E=E, k_top=moe.num_experts_per_tok,
+                      norm_topk=moe.norm_topk_prob, has_shared=has_shared,
+                      has_shared_gate=has_sg, EP=EP,
+                      rt=StreamPlan("rt", ("router",), 16, hid, (EP,), 0))
+        if has_shared:
+            se = lp["shared_expert"]
+            moe_kw.update(
+                shared_inter=moe.shared_expert_intermediate_size,
+                sgu=_stream_plan("sgu", ("shared.gate_proj",
+                                         "shared.up_proj"),
+                                 [se["gate_proj"], se["up_proj"]], 1),
+                sdn=_stream_plan("sdn", ("shared.down_proj",),
+                                 [se["down_proj"]], 1))
+    else:
+        sp.update({name: _stream_plan(name, leaves, [lp[n] for n in leaves],
+                                      1)
+                   for name, leaves in _LAYER_STREAMS[2:]})
     lm = _stream_plan("lm", ("lm_head",), [params["lm_head"]], 0)
     mode = rt.cache.mode
     if mode == CacheMode.DEFAULT:
@@ -413,22 +561,22 @@ def make_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> MegaPlan:
     else:
         kv_dtype_name = "int8" if mode == CacheMode.INT8 else "uint8"
     return MegaPlan(
-        B=rt.max_batch, L=cfg.num_layers, hid=cfg.hidden_size, H=H, KH=KH,
-        D=D, G=H // KH, inter=cfg.intermediate_size,
+        B=rt.max_batch, L=cfg.num_layers, hid=hid, H=H, KH=KH,
+        D=D, G=H // KH, inter=inter,
         QKVN=(H + 2 * KH) * D, V=cfg.vocab_size, ps=rt.cache.page_size,
         maxP=rt.max_pages_per_seq, kv_mode=mode,
         kv_bits={CacheMode.DEFAULT: 16, CacheMode.INT8: 8,
                  CacheMode.UINT4: 4}[mode],
         kv_dtype_name=kv_dtype_name, has_qkv_bias="b" in lp["q_proj"],
         qkv=sp["qkv"], o=sp["o"], gu=sp["gu"], dn=sp["dn"], lm=lm,
-        rms_eps=cfg.rms_norm_eps)
+        rms_eps=cfg.rms_norm_eps, **moe_kw)
 
 
 def pack_cache_key_fields(plan: MegaPlan) -> tuple:
     """The plan fields the packed arrays depend on: not the batch, the page
     geometry or the KV mode, so those may change under one pack."""
     return (PACK_VERSION, plan.L, plan.hid, plan.H, plan.KH, plan.D, plan.V,
-            plan.has_qkv_bias, plan.qkv, plan.o, plan.gu, plan.dn, plan.lm)
+            plan.has_qkv_bias, plan.E, plan.EP) + plan.kernel_streams
 
 
 # Fragment order (csrc/di_product.cuh `Tile`): a payload row index is
@@ -451,17 +599,35 @@ _FRAG = {
 _PAY_BITS = {torch.uint8: 4, torch.int8: 8, torch.bfloat16: 16}
 
 
-def can_pack_payload(pay: torch.Tensor) -> bool:
-    units = 128 if pay.dtype == torch.uint8 else 256
-    return pay.shape[-2] % CHUNK_K == 0 and pay.shape[-1] % units == 0
+def can_pack_payload(pay: torch.Tensor, n: int) -> bool:
+    """Whether a payload of `n` columns goes into the pack: K in 64-row
+    chunks and columns a multiple of 128 (the pack pads them to 256)."""
+    return pay.shape[-2] % CHUNK_K == 0 and n % 128 == 0
+
+
+def pad_payload(pay: torch.Tensor, n: int) -> torch.Tensor:
+    """A loader payload of n columns zero-padded to the next multiple of
+    256, in the loader's layout for that width (a u4 payload of n % 256 !=
+    0 holds plain halves; the padded one TILE-128 halves)."""
+    np_ = -(-n // 256) * 256
+    if np_ == n:
+        return pay
+    if pay.dtype != torch.uint8:
+        return torch.nn.functional.pad(pay, (0, np_ - n))
+    *lead, K, half = pay.shape
+    q = torch.zeros((math.prod(lead) * K, np_), dtype=torch.uint8,
+                    device=pay.device)
+    q[:, :n] = weight_levels(pay.reshape(-1, half))
+    t = q.reshape(-1, np_ // 256, 2, 128)
+    return (t[:, :, 0] | (t[:, :, 1] << 4)).reshape(*lead, K, np_ // 2)
 
 
 def pack_payload(pay: torch.Tensor) -> torch.Tensor:
-    """Loader payload [.., K, N*] (TILE-128 u4 bytes, int8 or bf16) ->
-    [.., N/256, K/64, chunk] in the kernel's fragment order (a copy): each
-    256-column tile's 64-row chunks one after the other, each chunk laid
-    out so that every lane of the product finds its mma operands in
-    16-byte pieces."""
+    """Loader payload [.., K, N*] (TILE-128 u4 bytes, int8 or bf16; N a
+    multiple of 256) -> [.., N/256, K/64, chunk] in the kernel's fragment
+    order (a copy): each 256-column tile's 64-row chunks one after the
+    other, each chunk laid out so that every lane of the product finds its
+    mma operands in 16-byte pieces."""
     src, dst = _FRAG[_PAY_BITS[pay.dtype]]
     *lead, K, n = pay.shape
     units = 128 if pay.dtype == torch.uint8 else 256
@@ -487,15 +653,27 @@ def unpack_payload(w_f: torch.Tensor) -> torch.Tensor:
 
 def packed_leaf(leaf: Dict) -> Dict:
     """One weight leaf of the loader as the pack holds it: the payload in
-    fragment order under "w_f" (a copy), scale / zero as they are. A leaf
-    narrower than the kernel takes (K % 64 or N % 256: tiny models, which
-    only the plain version runs) keeps the loader's layout."""
+    fragment order under "w_f" (a copy), scale / zero as they are. Columns
+    that are not a multiple of 256 (a vocab or an expert width of 128 mod
+    256) are zero-padded in the pack, payload and scale / zero alike, so the
+    padded columns compute 0; the plan keeps the true width, and the kernels
+    write back only those columns. An expert leaf that the install already
+    padded for the grouped kernel (ops/grouped_quant_matmul.py
+    `prepare_grouped_experts`) is packed as it is, sharing its scale /
+    zero. A leaf the kernel cannot take (K % 64 or a width not a multiple
+    of 128: tiny models, which only the plain version runs) keeps the
+    loader's layout."""
     pay = leaf["w_q"] if "w_q" in leaf else leaf["w"].to(torch.bfloat16)
     out = {k: leaf[k] for k in ("scale", "zero") if k in leaf}
-    if can_pack_payload(pay):
-        out["w_f"] = pack_payload(pay)
-    else:
+    n = leaf["scale"].shape[-1] if "scale" in leaf else pay.shape[-1]
+    if not can_pack_payload(pay, n):
         out["w_q" if "w_q" in leaf else "w"] = pay.contiguous()
+        return out
+    if n % 256:
+        pad = -(-n // 256) * 256 - n
+        out = {k: torch.nn.functional.pad(v, (0, pad))
+               for k, v in out.items()}
+    out["w_f"] = pack_payload(pad_payload(pay, n))
     return out
 
 
@@ -514,16 +692,40 @@ def _bf16_rounded_f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float().contiguous()
 
 
+def _router_leaf(plan: MegaPlan, lp: Dict) -> Dict:
+    """The router (+ the shared expert's gate as column E) rounded to bf16
+    and zero-padded to EP columns, as the JAX pack holds it."""
+    w = lp["router"]["w"]
+    rw = torch.zeros((plan.L, plan.hid, plan.EP), dtype=torch.bfloat16,
+                     device=w.device)
+    rw[..., :plan.E] = w.to(torch.bfloat16)
+    if plan.has_shared_gate:
+        rw[..., plan.E:plan.E + 1] = \
+            lp["shared_expert_gate"]["w"].to(torch.bfloat16)
+    return packed_leaf({"w": rw})
+
+
 def pack_params(cfg: ModelConfig, plan: MegaPlan, params: Dict) -> Dict:
     """The kernel's weight arguments from the tensor param tree
     (`params_from_numpy` output, already on the device): each payload
     re-laid in fragment order (a copy: see the module docstring), the f32
-    scale / zero leaves as they are, and the small f32 norm / bias
-    arrays."""
+    scale / zero leaves as they are, and the small f32 norm / bias arrays.
+    A MoE model's experts are packed per (layer, expert), [L, E, N/256,
+    K/64, chunk], under "experts.<name>", its shared expert under
+    "shared.<name>" and the bf16 router under "router"."""
     lp = params["layers"]
-
-    out = {"layers": {n: packed_leaf(lp[n]) for _, names in _LAYER_STREAMS
-                      for n in names},
+    layers = {n: packed_leaf(lp[n]) for _, names in _LAYER_STREAMS[:2]
+              for n in names}
+    if plan.E:
+        for n in _MLP:
+            layers["experts." + n] = packed_leaf(
+                _expert_leaf(lp["experts"][n]))
+            if plan.has_shared:
+                layers["shared." + n] = packed_leaf(lp["shared_expert"][n])
+        layers["router"] = _router_leaf(plan, lp)
+    else:
+        layers.update({n: packed_leaf(lp[n]) for n in _MLP})
+    out = {"layers": layers,
            "lm_head": packed_leaf(params["lm_head"]),
            "norms": _bf16_rounded_f32(torch.stack(
                [lp["input_layernorm"], lp["post_attention_layernorm"]],
@@ -562,12 +764,17 @@ def packed_extra_bytes(packed: Dict, params: Dict) -> int:
     return extra
 
 
+MAX_EXPERTS = 512     # router lanes the kernels take (csrc kMaxLanes)
+MAX_TOPK = 8
+
+
 def stream_gaps(sp: StreamPlan) -> List[str]:
     """Why csrc/di_product.cuh cannot run this stream (empty = it can): its
-    tiles are 256 columns wide and its K chunks 64 rows deep."""
+    K chunks are 64 rows deep and its 256-column tiles take any width that
+    is a multiple of 128 (the pack pads it)."""
     gaps = []
-    if any(n % 256 for n in sp.N):
-        gaps.append(f"{sp.name}: columns {sp.N} not multiples of 256")
+    if any(n % 128 for n in sp.N):
+        gaps.append(f"{sp.name}: columns {sp.N} not multiples of 128")
     if sp.K % CHUNK_K or (sp.gs and sp.gs % CHUNK_K):
         gaps.append(f"{sp.name}: K {sp.K} / group {sp.gs} not multiples "
                     f"of {CHUNK_K}")
@@ -581,6 +788,9 @@ def cuda_kernel_gaps(plan: MegaPlan) -> List[str]:
         gaps.append(f"{plan.G} query heads per KV head (kernel takes 8)")
     if plan.D != 128:
         gaps.append("head_dim != 128")
+    if plan.EP > MAX_EXPERTS or plan.k_top > MAX_TOPK:
+        gaps.append(f"{plan.EP} router lanes / top-{plan.k_top} (kernel "
+                    f"takes {MAX_EXPERTS} / {MAX_TOPK})")
     return gaps
 
 
@@ -616,13 +826,77 @@ def leaf_dot(x: torch.Tensor, leaf: Dict) -> torch.Tensor:
             xsum[:, :, None] * zero[:, None, :]).sum(0)
 
 
-def _stream_dot(x, packed, sp: StreamPlan, layer: Optional[int]):
+def _stream_dot(x, packed, sp: StreamPlan, layer: Optional[int],
+                expert: Optional[int] = None):
+    """x . the stream's leaves of one layer (one expert's, for an expert
+    stream) -> f32 [B, Ntot]: each leaf's true columns, the pack's padding
+    dropped."""
     outs = []
-    for name in sp.leaves:
-        leaf = packed["lm_head"] if layer is None else \
-            {k: v[layer] for k, v in packed["layers"][name].items()}
-        outs.append(leaf_dot(x, leaf))
+    for name, n in zip(sp.leaves, sp.N):
+        if layer is None:
+            leaf = packed["lm_head"]
+        else:
+            leaf = {k: v[layer] if expert is None else v[layer][expert]
+                    for k, v in packed["layers"][name].items()}
+        outs.append(leaf_dot(x, leaf)[..., :n])
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+def route(plan, logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The TPU kernels' router phase on the f32 router product [M, EP]:
+    softmax over the first E lanes, k rounds of max (the lowest lane on
+    ties), optional renormalisation; the shared expert's gate is
+    sigmoid(lane E), or 1. Returns (gates [M, E] f32, 0 where not routed;
+    shared gate [M] f32, 0 without a shared expert)."""
+    E = plan.E
+    ml = logits[:, :E]
+    p = torch.exp(ml - ml.max(-1, keepdim=True).values)
+    p = p / p.sum(-1, keepdim=True)
+    lane = torch.arange(E, device=logits.device)[None, :]
+    gates = torch.zeros_like(p)
+    pw = p.clone()
+    for _ in range(plan.k_top):
+        mi = pw.max(-1, keepdim=True).values
+        fl = torch.where(pw >= mi, lane, E).min(-1, keepdim=True).values
+        sel = lane == fl
+        gates = torch.where(sel, p, gates)
+        pw = torch.where(sel, torch.full_like(pw, -1.0), pw)
+    if plan.norm_topk:
+        gates = gates / gates.sum(-1, keepdim=True)
+    if not plan.has_shared:
+        sg = torch.zeros_like(logits[:, 0])
+    elif plan.has_shared_gate:
+        sg = torch.sigmoid(logits[:, E])
+    else:
+        sg = torch.ones_like(logits[:, 0])
+    return gates, sg
+
+
+def moe_ref(plan, x: torch.Tensor, layer: int, mm, routing=None
+            ) -> torch.Tensor:
+    """The MoE block of one layer as both kernels compute it, from x_norm
+    [M, hid] bf16, with `mm(x, stream, layer, expert)` the kernel's product
+    -> f32 [M, hid]: sum over experts in ascending order of gate x down(bf16
+    SwiGLU(gate|up)), then the shared expert's gate x its output. Experts no
+    row routes to are skipped (their gate is 0 everywhere). `routing`, a
+    list, receives the layer's f32 router product [M, EP]."""
+    logits = mm(x, plan.rt, layer, None)
+    gates, sg = route(plan, logits)
+    if routing is not None:
+        routing.append(logits)
+    acc = torch.zeros((x.shape[0], plan.hid), dtype=torch.float32,
+                      device=x.device)
+    for e in torch.nonzero(gates.amax(0) > 0)[:, 0].tolist():
+        gu = mm(x, plan.gu, layer, e)
+        g, u = gu[:, :plan.inter], gu[:, plan.inter:]
+        act = (g * torch.sigmoid(g) * u).to(torch.bfloat16)
+        acc = acc + gates[:, e:e + 1] * mm(act, plan.dn, layer, e)
+    if plan.has_shared:
+        gu = mm(x, plan.sgu, layer, None)
+        g, u = gu[:, :plan.shared_inter], gu[:, plan.shared_inter:]
+        act = (g * torch.sigmoid(g) * u).to(torch.bfloat16)
+        acc = acc + sg[:, None] * mm(act, plan.sdn, layer, None)
+    return acc
 
 
 def _rms(x, w, eps):
@@ -687,9 +961,13 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
                           cos: torch.Tensor, sin: torch.Tensor,
                           page_tables: torch.Tensor, lens: torch.Tensor,
                           active: torch.Tensor, cache: KVCache,
-                          skip_attention: bool = False) -> torch.Tensor:
+                          skip_attention: bool = False,
+                          routing: Optional[list] = None) -> torch.Tensor:
     """The whole decode step, phase by phase (see `decode_megakernel`).
-    Updates the pool in place; returns logits [B, V] f32."""
+    Updates the pool in place; returns logits [B, V] f32. A MoE model's
+    rows are routed from their own x_norm, inactive rows too (their logits
+    are unspecified); `routing`, a list, receives each layer's router
+    product (`moe_ref`)."""
     B, L, H, KH, D = x0.shape[0], plan.L, plan.H, plan.KH, plan.D
     bf = torch.bfloat16
     HD, KD = H * D, KH * D
@@ -721,6 +999,11 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
                           (tgt * L + l)[active], offs[active])
         resid = resid + _stream_dot(attn.to(bf), packed, plan.o, l)
         x = _rms(resid, norms[l, 1], plan.rms_eps).to(bf)
+        if plan.E:
+            resid = resid + moe_ref(
+                plan, x, l, lambda x_, sp, l_, e: _stream_dot(
+                    x_, packed, sp, l_, e), routing)
+            continue
         gu = _stream_dot(x, packed, plan.gu, l)
         g, u = gu[:, :plan.inter], gu[:, plan.inter:]
         act = (g * torch.sigmoid(g) * u).to(bf)
@@ -737,10 +1020,14 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
 _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "pt", "lens",
           "active", "k_pool", "v_pool", "k_qp", "v_qp", "logits", "resid",
           "rec", "partial", "att_ml", "att_acc", "ssq", "barrier", "status",
-          "launches", "trace", "B", "L", "hid", "H", "KH", "inter", "V", "ps", "maxP",
-          "kv_kind", "ql", "nsplit", "split_len", "mpad", "skip_attn", "grid")
+          "launches", "trace", "epart", "erec", "topk_e", "topk_w", "sgate",
+          "B", "L", "hid", "H", "KH", "inter", "V", "ps", "maxP",
+          "kv_kind", "ql", "nsplit", "split_len", "mpad", "skip_attn", "grid",
+          "E", "k_top", "norm_topk", "has_shared", "has_sgate",
+          "shared_inter")
 _KV_KIND = {"float32": 0, "bfloat16": 1, "int8": 2, "uint8": 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+STREAM_ARGS = 32          # integers per stream (csrc/di_product.cuh)
 
 
 def padded_rows(B: int) -> int:
@@ -768,26 +1055,39 @@ def choose_split(tiles: int, chunks: int, chunk_bytes: int, B: int,
     return best[1], best[2]
 
 
-def stream_args(sp: StreamPlan, leaves: List[Dict], layered: bool,
-                ksplit: int, cps: int) -> List[int]:
+def stream_args(sp: Optional[StreamPlan], leaves: List[Dict], layered: bool,
+                ksplit: int = 1, cps: int = 0,
+                valid: Optional[int] = None) -> List[int]:
     """One stream of packed leaves as csrc/di_product.cuh `fill_stream`
-    reads it."""
-    w, s, z, w_ls, q_ls, n = ([0] * 3 for _ in range(6))
+    reads it: per leaf its payload, scale and zero addresses, the strides
+    between layers and between experts and its padded width; then the
+    stream's shape, its K split, and the row stride of the product's output
+    with the columns it writes back (`valid`: the true width of a one-leaf
+    stream whose output is the result, as the prefill kernel's logits; else
+    every padded column of its partial sums, as the decode kernel writes
+    its logits too). None gives an empty stream."""
+    if sp is None:
+        return [0] * STREAM_ARGS
+    w, s, z, w_ls, q_ls, n, e_ls, qe_ls = ([0] * 3 for _ in range(8))
     for j, leaf in enumerate(leaves):
         pay = leaf["w_f"]
         w[j] = pay.data_ptr()
         w_ls[j] = pay.stride(0) * pay.element_size() if layered else 0
-        n[j] = sp.N[j]
+        e_ls[j] = pay.stride(1) * pay.element_size() if sp.E else 0
+        n[j] = sp.Np[j]
         if sp.bits != 16:
             s[j], z[j] = leaf["scale"].data_ptr(), leaf["zero"].data_ptr()
             q_ls[j] = leaf["scale"].stride(0) if layered else 0
+            qe_ls[j] = leaf["scale"].stride(1) if sp.E else 0
     G = 1 if not sp.gs else sp.K // sp.gs
-    return w + s + z + w_ls + q_ls + n + [len(leaves), sp.K, G, sp.bits,
-                                          ksplit, cps]
+    ldo = sp.Nptot if valid is None else valid
+    return w + s + z + w_ls + q_ls + n + e_ls + qe_ls + [
+        len(leaves), sp.K, G, sp.bits, ksplit, cps, ldo, ldo]
 
 
 def _check_leaf(sp: StreamPlan, leaf: Dict, n: int, lead: Tuple[int, ...],
                 dev, who: str = "decode_megakernel") -> None:
+    """`n`: the leaf's padded width; `lead`: (L,), (L, E) or ()."""
     if "w_f" not in leaf:
         raise ValueError(f"{who}: {sp.name} is not packed "
                          "(pack_params / packed_leaf)")
@@ -808,6 +1108,28 @@ def _check_leaf(sp: StreamPlan, leaf: Dict, n: int, lead: Tuple[int, ...],
                 f"contiguous 16-byte aligned {dt} {shape} on {dev}")
 
 
+def packed_stream_args(plan, packed: Dict, splits: Dict, dev,
+                       who: str, lm_valid: Optional[int] = None
+                       ) -> List[int]:
+    """Every kernel stream of `plan` (a decode or prefill plan) checked and
+    flattened for the kernel, in the kernels' stream order; `lm_valid`: the
+    lm_head's `valid` columns (`stream_args`)."""
+    ia = []
+    for sp in plan.kernel_streams:
+        if sp is None:
+            ia += stream_args(None, [], False)
+            continue
+        layered = sp.name != "lm"
+        leaves = [packed["layers"][n] if layered else packed["lm_head"]
+                  for n in sp.leaves]
+        lead = (plan.L, plan.E) if sp.E else ((plan.L,) if layered else ())
+        for leaf, n in zip(leaves, sp.Np):
+            _check_leaf(sp, leaf, n, lead, dev, who)
+        ia += stream_args(sp, leaves, layered, *splits[sp.name],
+                          valid=lm_valid if sp.name == "lm" else None)
+    return ia
+
+
 class _Launch:
     """Per (plan, device) launch geometry and scratch of the kernel."""
 
@@ -819,16 +1141,19 @@ class _Launch:
         self.fn = kernel_build.function(
             "megakernel", "di_megakernel", [_P, _P, _P])
         grid_fn = lib.di_megakernel_grid
-        grid_fn.argtypes, grid_fn.restype = [_I, _I, _I], _I
+        grid_fn.argtypes, grid_fn.restype = [_I, _I, _I, _I], _I
         B = plan.B
         self.mpad = padded_rows(B)
         idx = dev.index if dev.index is not None else \
             torch.cuda.current_device()
-        self.grid = grid_fn(idx, self.mpad, plan.hid)
+        self.grid = grid_fn(idx, self.mpad, plan.hid, int(plan.E > 0))
         if self.grid <= 0:
             raise RuntimeError("decode_megakernel: the kernel does not fit "
                                "on the device (occupancy query gave 0)")
         passes = self.mpad // (16 if self.mpad == 16 else 32)
+        # an expert stream's items are spread over the experts a step
+        # routes to: at most E, at most B * k
+        routed = min(plan.E, B * plan.k_top)
         self.splits = {}
         for sp in plan.streams:
             chunk_bytes = CHUNK_K * 256 * sp.bits // 8
@@ -836,8 +1161,8 @@ class _Launch:
                 self.splits[sp.name] = (1, sp.K // CHUNK_K)
             else:
                 self.splits[sp.name] = choose_split(
-                    sp.Ntot // 256, sp.K // CHUNK_K, chunk_bytes, B, passes,
-                    self.grid)
+                    sp.Nptot // 256 * (routed if sp.E else 1),
+                    sp.K // CHUNK_K, chunk_bytes, B, passes, self.grid)
         # attention items are (slot, KV head, stripe): about two items a
         # block, at most 16 stripes (the kernel's kMaxStripes); a stripe's
         # units are ATT_UNIT tokens
@@ -852,8 +1177,20 @@ class _Launch:
         kmax = max(sp.K for sp in plan.streams)
         self.rec = zeros((kmax // CHUNK_K) * self.mpad *
                          (CHUNK_K * 2 + 4), torch.uint8)
-        self.partial = zeros(max(self.splits[sp.name][0] * B * sp.Ntot
-                                 for sp in plan.streams[:4]), torch.float32)
+        self.partial = zeros(max(self.splits[sp.name][0] * B * sp.Nptot
+                                 for sp in plan.layer_streams if not sp.E),
+                             torch.float32)
+        # a MoE model's experts: their products' partial sums [E][split][B]
+        # [N] (gate|up, then down) and the down product's x records
+        self.epart = zeros(plan.E * max(
+            [self.splits[sp.name][0] * B * sp.Nptot
+             for sp in plan.streams if sp.E] + [0]), torch.float32)
+        self.erec = zeros(plan.E * (plan.inter // CHUNK_K) * self.mpad *
+                          (CHUNK_K * 2 + 4), torch.uint8)
+        # each layer's routing [L][B][top-k], kept for the step
+        self.topk_e = zeros(plan.L * B * MAX_TOPK, torch.int32)
+        self.topk_w = zeros(plan.L * B * MAX_TOPK, torch.float32)
+        self.sgate = zeros(plan.L * B, torch.float32)
         self.resid = zeros(B * plan.hid, torch.float32)
         self.att_ml = zeros(B * plan.H * self.nsplit * 2, torch.float32)
         self.att_acc = zeros(B * plan.H * self.nsplit * plan.D,
@@ -897,6 +1234,13 @@ def check_status(plan: MegaPlan, device) -> None:
         st.barrier.zero_()
         raise RuntimeError(f"decode_megakernel: grid barrier after phase "
                            f"{code - 1} timed out")
+
+
+def kernel_routing(plan: MegaPlan, device) -> torch.Tensor:
+    """The experts the last launch of `plan` routed each row to, per layer:
+    int32 [L, B, k_top] in ascending order (a MoE plan's scratch)."""
+    st = _launch_state(plan, _indexed(device))
+    return st.topk_e.reshape(plan.L, plan.B, MAX_TOPK)[..., :plan.k_top]
 
 
 def launch_geometry(plan: MegaPlan, device) -> Dict:
@@ -982,25 +1326,29 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
         status=st.status.data_ptr(),
         launches=decode_megakernel.counter.pointer(dev),
         trace=0 if trace is None else trace.data_ptr(),
+        epart=st.epart.data_ptr(), erec=st.erec.data_ptr(),
+        topk_e=st.topk_e.data_ptr(), topk_w=st.topk_w.data_ptr(),
+        sgate=st.sgate.data_ptr(),
         B=B, L=plan.L, hid=plan.hid, H=plan.H, KH=plan.KH, inter=plan.inter,
         V=plan.V, ps=plan.ps, maxP=plan.maxP,
         kv_kind=_KV_KIND[plan.kv_dtype_name],
         ql=cache.k_qparams.shape[2] if quant else 0, nsplit=st.nsplit,
         split_len=st.split_len, mpad=st.mpad, skip_attn=int(skip_attention),
-        grid=st.grid)
-    logits = torch.empty((B, plan.V), dtype=torch.float32, device=dev)
+        grid=st.grid, E=plan.E, k_top=plan.k_top,
+        norm_topk=int(plan.norm_topk), has_shared=int(plan.has_shared),
+        has_sgate=int(plan.has_shared_gate), shared_inter=plan.shared_inter)
+    # the lm_head's padded columns are written too (they compute 0): a
+    # bound on the columns in the product would cost the 128-register
+    # kernel spills
+    logits = torch.empty((B, plan.lm.Nptot), dtype=torch.float32,
+                         device=dev)
     vals["logits"] = logits.data_ptr()
     ia = [vals[k] for k in _IARGS]
     if packed["qkv_b"] is not None and \
             tuple(packed["qkv_b"].shape) != (plan.L, plan.QKVN):
         raise ValueError("decode_megakernel: qkv_b shape")
-    for sp in plan.streams:
-        layered = sp.name != "lm"
-        leaves = [packed["layers"][n] if layered else packed["lm_head"]
-                  for n in sp.leaves]
-        for leaf, n in zip(leaves, sp.N):
-            _check_leaf(sp, leaf, n, (plan.L,) if layered else (), dev)
-        ia += stream_args(sp, leaves, layered, *st.splits[sp.name])
+    ia += packed_stream_args(plan, packed, st.splits, dev,
+                             "decode_megakernel")
     ia_arr = np.asarray(ia, np.int64)
     fa_arr = np.asarray([plan.rms_eps, 1.0 / math.sqrt(plan.D)], np.float64)
     rc = st.fn(ia_arr.ctypes.data, fa_arr.ctypes.data,
@@ -1008,7 +1356,7 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"decode_megakernel launch failed: CUDA error "
                            f"{rc}")
-    return logits
+    return logits[:, :plan.V]
 
 
 decode_megakernel.counter = kernel_build.LaunchCounter()
@@ -1016,11 +1364,18 @@ decode_megakernel.counter = kernel_build.LaunchCounter()
 # the kernel's phases, in order, each followed by a grid barrier
 LAYER_PHASES = ("resid1", "norm1", "qkv", "attention", "merge", "o",
                 "resid2", "norm2", "gate_up", "swiglu", "down")
+MOE_LAYER_PHASES = LAYER_PHASES[:8] + ("router", "gates", "gate_up",
+                                       "swiglu", "down")
 TAIL_PHASES = ("resid", "final_norm", "lm_head")
 
 
+def _phase_names(plan: MegaPlan) -> Tuple[str, ...]:
+    layer = MOE_LAYER_PHASES if plan.E else LAYER_PHASES
+    return layer * plan.L + TAIL_PHASES
+
+
 def trace_len(plan: MegaPlan) -> int:
-    return 2 * (len(LAYER_PHASES) * plan.L + len(TAIL_PHASES)) + 1
+    return 2 * len(_phase_names(plan)) + 1
 
 
 def phase_times(plan: MegaPlan, trace: torch.Tensor) -> Dict[str, Dict]:
@@ -1028,9 +1383,10 @@ def phase_times(plan: MegaPlan, trace: torch.Tensor) -> Dict[str, Dict]:
     `work` is what block 0 spent in the phase itself, `wait` what it then
     spent in the grid barrier (the phase's slower blocks and the barrier's
     own cost). The kernel writes trace[0] at its start, trace[2p + 1] where
-    block 0 ends phase p and trace[2p + 2] where it leaves p's barrier."""
-    return phase_times_of(LAYER_PHASES * plan.L + TAIL_PHASES,
-                          trace[:trace_len(plan)])
+    block 0 ends phase p and trace[2p + 2] where it leaves p's barrier. A
+    MoE layer's gate_up, swiglu and down phases hold its routed experts and
+    its shared expert."""
+    return phase_times_of(_phase_names(plan), trace[:trace_len(plan)])
 
 
 def phase_times_of(names, trace: torch.Tensor) -> Dict[str, Dict]:

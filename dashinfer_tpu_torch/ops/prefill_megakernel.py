@@ -60,7 +60,7 @@ class PrefillPlan:
     KH: int
     D: int
     G: int
-    inter: int
+    inter: int                # MLP width (a MoE model: each expert's)
     QKVN: int
     V: int
     ps: int
@@ -75,40 +75,71 @@ class PrefillPlan:
     dn: StreamPlan
     lm: StreamPlan
     rms_eps: float
+    # MoE: the decode plan's fields (ops/megakernel.py MegaPlan)
+    E: int = 0
+    k_top: int = 0
+    norm_topk: bool = False
+    has_shared: bool = False
+    has_shared_gate: bool = False
+    EP: int = 0
+    shared_inter: int = 0
+    rt: Optional[StreamPlan] = None
+    sgu: Optional[StreamPlan] = None
+    sdn: Optional[StreamPlan] = None
 
-    @property
-    def streams(self) -> Tuple[StreamPlan, ...]:
-        return (self.qkv, self.o, self.gu, self.dn, self.lm)
-
-    @property
-    def weight_bytes(self) -> int:
-        """Bytes one launch must stream: every payload and qparam once."""
-        per_layer = sum(s.payload_bytes + s.qparam_bytes
-                        for s in self.streams[:4])
-        return self.L * per_layer + self.lm.payload_bytes + \
-            self.lm.qparam_bytes
+    kernel_streams = mk.MegaPlan.kernel_streams
+    streams = mk.MegaPlan.streams
+    layer_streams = mk.MegaPlan.layer_streams
+    layer_bytes = mk.MegaPlan.layer_bytes
+    weight_bytes = mk.MegaPlan.weight_bytes
 
     def operations(self, n: int) -> float:
         """Multiply-adds x 2 that n valid prompt rows need: the layer
-        products for each row, causal attention, and the lm_head for one."""
-        per_row = 2.0 * self.L * sum(s.K * s.Ntot for s in self.streams[:4])
+        products for each row (a MoE model's router, the k experts each row
+        is routed to and the shared expert: the routed work, not every
+        expert), causal attention, and the lm_head for one."""
+        per_row = sum(s.K * s.Ntot * (self.k_top if s.E else 1)
+                      for s in self.layer_streams if s.name != "rt")
+        if self.E:
+            per_row += self.hid * (self.E + int(self.has_shared_gate))
         attn = 2.0 * self.L * self.H * self.D * n * (n + 1)   # QK^T and PV
-        return n * per_row + attn + 2.0 * self.lm.K * self.lm.Ntot
+        return n * 2.0 * self.L * per_row + attn + \
+            2.0 * self.lm.K * self.lm.Ntot
+
+    def dense_expert_operations(self, n: int) -> float:
+        """`operations(n)` with every expert run on every row, as the
+        kernel's MoE branch runs them."""
+        routed = self.operations(n)
+        if not self.E:
+            return routed
+        ex = sum(s.K * s.Ntot for s in self.layer_streams if s.E)
+        return routed + n * 2.0 * self.L * ex * (self.E - self.k_top)
 
 
 def supports_prefill(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
                      bucket: int) -> bool:
     """Whether a fresh prompt of this bucket takes the prefill megakernel:
-    the JAX package's rules for dense models (bucket rule, weight-only
-    view, `supports`, equal bits over gate / up / down, down's groups a
-    multiple of 128 or one group). QK-norm, ALiBi and MoE are branches the
-    port's model code lacks: `ops.megakernel.supports` turns them down."""
+    the JAX package's rules (bucket rule, weight-only view, `supports`; a
+    dense model: equal bits over gate / up / down and down's groups a
+    multiple of 128 or one group; a MoE model: equal bits over the experts'
+    gate / up / down and over the shared expert's). QK-norm and ALiBi are
+    branches the port's model code lacks: `ops.megakernel.supports` turns
+    them down."""
     if bucket > MAX_BUCKET or bucket % 128:
         return False
     view = mk.weight_only_decode_view(params)
     if view is None or not mk.supports(cfg, rt, view):
         return False
     lp = view["layers"]
+    if cfg.moe is not None:
+        ex = lp["experts"]
+        if len({mk._weight_bits(ex[n]) for n in mk._MLP}) != 1:
+            return False
+        if cfg.moe.shared_expert_intermediate_size:
+            se = lp["shared_expert"]
+            if len({mk._weight_bits(se[n]) for n in mk._MLP}) != 1:
+                return False
+        return True
     bits = {mk._weight_bits(lp[n]) for n in ("gate_proj", "up_proj",
                                              "down_proj")}
     if len(bits) != 1:
@@ -144,18 +175,24 @@ def make_prefill_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
                  CacheMode.UINT4: 4}[mode],
         kv_dtype_name=kv_dtype_name, has_qkv_bias=dp.has_qkv_bias,
         qkv=dp.qkv, o=dp.o, gu=dp.gu, dn=dp.dn, lm=dp.lm,
-        rms_eps=dp.rms_eps)
+        rms_eps=dp.rms_eps, E=dp.E, k_top=dp.k_top, norm_topk=dp.norm_topk,
+        has_shared=dp.has_shared, has_shared_gate=dp.has_shared_gate,
+        EP=dp.EP, shared_inter=dp.shared_inter, rt=dp.rt, sgu=dp.sgu,
+        sdn=dp.sdn)
 
 
 def cuda_kernel_gaps(plan: PrefillPlan) -> List[str]:
     """Why csrc/prefill_megakernel.cu cannot run this plan (empty = it
-    can): the pack's 256-column tiles and 64-row chunks, head_dim 128."""
+    can): the pack's 64-row chunks and columns a multiple of 128 (padded to
+    its 256-column tiles), head_dim 128, the router's lanes."""
     gaps = [g for sp in plan.streams for g in mk.stream_gaps(sp)]
     if plan.D != 128:
         gaps.append("head_dim != 128")
     if plan.S % M_TILE or plan.S > MAX_BUCKET:
         gaps.append(f"bucket {plan.S} not a multiple of {M_TILE} up to "
                     f"{MAX_BUCKET}")
+    if plan.EP > mk.MAX_EXPERTS or plan.k_top > mk.MAX_TOPK:
+        gaps.append(f"{plan.EP} router lanes / top-{plan.k_top}")
     return gaps
 
 
@@ -180,15 +217,19 @@ def dequantized_leaf(leaf: Dict) -> torch.Tensor:
 
 
 def _wdeq_dot(x: torch.Tensor, packed: Dict, sp: StreamPlan,
-              layer: Optional[int]) -> torch.Tensor:
-    """x [M, K] bf16 . the stream's leaves, dequantized weight-side -> f32
-    [M, Ntot]."""
+              layer: Optional[int], expert: Optional[int] = None
+              ) -> torch.Tensor:
+    """x [M, K] bf16 . the stream's leaves (one expert's, for an expert
+    stream), dequantized weight-side -> f32 [M, Ntot] (the true columns)."""
     xf = x.float()
     outs = []
-    for name in sp.leaves:
-        leaf = packed["lm_head"] if layer is None else \
-            {k: v[layer] for k, v in packed["layers"][name].items()}
-        outs.append(xf @ dequantized_leaf(leaf))
+    for name, n in zip(sp.leaves, sp.N):
+        if layer is None:
+            leaf = packed["lm_head"]
+        else:
+            leaf = {k: v[layer] if expert is None else v[layer][expert]
+                    for k, v in packed["layers"][name].items()}
+        outs.append(xf @ dequantized_leaf(leaf)[:, :n])
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
@@ -202,11 +243,14 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
                            cos: torch.Tensor, sin: torch.Tensor,
                            page_row: torch.Tensor, n_tokens, cache: KVCache,
-                           bf16_scores: bool = False) -> torch.Tensor:
+                           bf16_scores: bool = False,
+                           routing: Optional[list] = None) -> torch.Tensor:
     """The whole prefill, phase by phase (see `prefill_megakernel`).
     Updates the pool in place; returns logits [V] f32 of token n-1.
     `bf16_scores` rounds q and k to bf16 before the score product, as the
-    CUDA kernel's tensor-core operands are."""
+    CUDA kernel's tensor-core operands are. A MoE layer runs
+    `ops.megakernel.moe_ref` on every row of the bucket with weight-side
+    dequant; `routing`, a list, receives each layer's router product."""
     S, L, H, KH, D, G = plan.S, plan.L, plan.H, plan.KH, plan.D, plan.G
     bf = torch.bfloat16
     HD, KD = H * D, KH * D
@@ -239,6 +283,11 @@ def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
         kv_ops._write(cache, plan.kv_mode, k[:n], v[:n], pages0 + l, offs)
         resid = resid + _wdeq_dot(attn, packed, plan.o, l)
         x = mk._rms(resid, norms[l, 1], plan.rms_eps).to(bf)
+        if plan.E:
+            resid = resid + mk.moe_ref(
+                plan, x, l, lambda x_, sp, l_, e: _wdeq_dot(
+                    x_, packed, sp, l_, e), routing)
+            continue
         gu = _wdeq_dot(x, packed, plan.gu, l)
         g, u = gu[:, :plan.inter], gu[:, plan.inter:]
         act = (g * torch.sigmoid(g) * u).to(bf)
@@ -256,14 +305,29 @@ def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
 _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "page_row",
           "n_tokens", "k_pool", "v_pool", "k_qp", "v_qp", "logits", "resid",
           "xn", "partial", "qb", "kb", "vb", "attn", "act", "x_last",
-          "barrier", "status", "launches", "trace", "S", "L", "hid", "H",
-          "KH", "inter", "V", "ps", "maxPb", "kv_kind", "ql", "grid")
+          "barrier", "status", "edn", "acc", "gates", "sgate", "launches",
+          "trace", "S", "L", "hid", "H", "KH", "inter", "V", "ps", "maxPb",
+          "kv_kind", "ql", "grid", "E", "k_top", "norm_topk", "has_shared",
+          "has_sgate", "shared_inter", "EP", "eb")
 _P, _I = mk._P, mk._I
 
 # the kernel's phases, in order, each followed by a grid barrier
 LAYER_PHASES = ("norm1", "qkv", "rope_kv", "attention", "o", "norm2",
                 "gate_up", "swiglu", "down")
 TAIL_PHASES = ("final_norm", "lm_head")
+# a MoE layer: the router, then the experts in batches (gate|up, SwiGLU,
+# down a batch), then the last batch's sum with the shared expert's gate|up,
+# its SwiGLU and its down
+MOE_HEAD_PHASES = LAYER_PHASES[:6] + ("router", "gates")
+MOE_BATCH_PHASES = ("expert_gate_up", "expert_swiglu", "expert_down")
+
+
+def _phase_names(plan: "PrefillPlan", nbatch: int) -> Tuple[str, ...]:
+    if not plan.E:
+        return LAYER_PHASES * plan.L + TAIL_PHASES
+    layer = MOE_HEAD_PHASES + MOE_BATCH_PHASES * nbatch + ("moe_sum",) + \
+        (("shared_swiglu", "shared_down") if plan.has_shared else ())
+    return layer * plan.L + TAIL_PHASES
 
 
 def choose_split(tiles: int, chunks: int, mtiles: int,
@@ -291,7 +355,8 @@ _SCRATCH_DTYPES = dict(
     partial=torch.float32, resid=torch.float32, xn=torch.bfloat16,
     qb=torch.bfloat16, kb=torch.bfloat16, vb=torch.bfloat16,
     attn=torch.bfloat16, act=torch.bfloat16, x_last=torch.bfloat16,
-    barrier=torch.int32, status=torch.int32)
+    barrier=torch.int32, status=torch.int32, edn=torch.float32,
+    acc=torch.float32, gates=torch.float32, sgate=torch.float32)
 
 
 class _Launch:
@@ -315,21 +380,36 @@ class _Launch:
                                "on the device (occupancy query gave 0)")
         S = plan.S
         mtiles = S // M_TILE
+        # a MoE model's experts run in batches of `eb`, enough items a
+        # batch for about two waves of the grid
+        self.eb = 0 if not plan.E else min(plan.E, -(-2 * self.grid // (
+            plan.gu.Nptot // 256 * mtiles)))
+        self.nbatch = -(-plan.E // self.eb) if plan.E else 0
         self.splits = {}
         for sp in plan.streams:
             if sp.name == "lm":     # one row: its sums ARE the logits
                 self.splits[sp.name] = (1, sp.K // mk.CHUNK_K)
             else:
                 self.splits[sp.name] = choose_split(
-                    sp.Ntot // 256, sp.K // mk.CHUNK_K, mtiles, self.grid)
+                    sp.Nptot // 256 * (self.eb if sp.E else 1),
+                    sp.K // mk.CHUNK_K, mtiles, self.grid)
         HD, KD = plan.H * plan.D, plan.KH * plan.D
+        parts = [self.splits[sp.name][0] * S * sp.Nptot *
+                 (self.eb if sp.E else 1)
+                 for sp in plan.layer_streams if sp.name != "dn" or
+                 not plan.E]
         self.need = dict(
-            partial=max(self.splits[sp.name][0] * S * sp.Ntot
-                        for sp in plan.streams[:4]),
+            partial=max(parts),
             resid=S * plan.hid, xn=S * plan.hid, qb=S * HD, kb=S * KD,
-            vb=S * KD, attn=S * HD, act=S * plan.inter,
+            vb=S * KD, attn=S * HD,
+            act=S * max(plan.inter * max(self.eb, 1), plan.shared_inter),
             x_last=16 * plan.hid,           # row 0 is written
             barrier=1, status=1)
+        if plan.E:
+            self.need.update(
+                edn=self.eb * self.splits["dn"][0] * S * plan.hid,
+                acc=S * plan.hid, gates=plan.L * S * plan.EP,
+                sgate=plan.L * S)
 
     def scratch_bytes(self) -> int:
         return sum(n * _SCRATCH_DTYPES[k].itemsize
@@ -403,6 +483,14 @@ def release_scratch(device) -> None:
     _scratch.pop(mk._indexed(device), None)
 
 
+def kernel_gates(plan: PrefillPlan, device) -> torch.Tensor:
+    """The gates of the device's last MoE launch of `plan` (f32 [L, S, E],
+    0 where a row is not routed to an expert)."""
+    sc = _scratch[mk._indexed(device)]
+    return sc.bufs["gates"][:plan.L * plan.S * plan.EP].reshape(
+        plan.L, plan.S, plan.EP)[..., :plan.E]
+
+
 def check_status(device) -> None:
     """Waits for the device and raises if a prefill launch on it gave up at
     a grid barrier (blocks that never became co-resident)."""
@@ -422,6 +510,7 @@ def launch_geometry(plan: PrefillPlan, device) -> Dict:
     plan needs and those the device holds for all its plans."""
     st, sc = _launch_state(plan, mk._indexed(device))
     return dict(grid=st.grid, splits=dict(st.splits),
+                experts_per_batch=st.eb, nbatch=st.nbatch,
                 scratch_bytes=st.scratch_bytes(),
                 device_scratch_bytes=sc.nbytes())
 
@@ -503,22 +592,19 @@ def prefill_megakernel(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
         k_qp=cache.k_qparams.data_ptr() if quant else 0,
         v_qp=cache.v_qparams.data_ptr() if quant else 0,
         logits=logits.data_ptr(),
-        **{k: buf[k].data_ptr() for k in _SCRATCH_DTYPES},
+        **{k: buf[k].data_ptr() if k in buf else 0 for k in _SCRATCH_DTYPES},
         launches=prefill_megakernel.counter.pointer(dev),
         trace=0 if trace is None else trace.data_ptr(),
         S=S, L=plan.L, hid=plan.hid, H=plan.H, KH=plan.KH, inter=plan.inter,
         V=plan.V, ps=plan.ps, maxPb=plan.maxPb,
         kv_kind=mk._KV_KIND[plan.kv_dtype_name],
-        ql=cache.k_qparams.shape[2] if quant else 0, grid=st.grid)
+        ql=cache.k_qparams.shape[2] if quant else 0, grid=st.grid,
+        E=plan.E, k_top=plan.k_top, norm_topk=int(plan.norm_topk),
+        has_shared=int(plan.has_shared), has_sgate=int(plan.has_shared_gate),
+        shared_inter=plan.shared_inter, EP=plan.EP, eb=st.eb)
     ia = [vals[k] for k in _IARGS]
-    for sp in plan.streams:
-        layered = sp.name != "lm"
-        leaves = [packed["layers"][n] if layered else packed["lm_head"]
-                  for n in sp.leaves]
-        for leaf, n in zip(leaves, sp.N):
-            mk._check_leaf(sp, leaf, n, (plan.L,) if layered else (), dev,
-                           "prefill_megakernel")
-        ia += mk.stream_args(sp, leaves, layered, *st.splits[sp.name])
+    ia += mk.packed_stream_args(plan, packed, st.splits, dev,
+                                "prefill_megakernel", lm_valid=plan.V)
     ia_arr = np.asarray(ia, np.int64)
     fa_arr = np.asarray([plan.rms_eps, 1.0 / math.sqrt(plan.D)], np.float64)
     rc = st.fn(ia_arr.ctypes.data, fa_arr.ctypes.data,
@@ -533,12 +619,16 @@ prefill_megakernel.counter = kernel_build.LaunchCounter()
 
 
 def trace_len(plan: PrefillPlan) -> int:
-    return 2 * (len(LAYER_PHASES) * plan.L + len(TAIL_PHASES)) + 1
+    """Timestamps a trace buffer must hold (for a MoE model, at most one
+    expert a batch)."""
+    return 2 * len(_phase_names(plan, plan.E)) + 1
 
 
-def phase_times(plan: PrefillPlan, trace: torch.Tensor) -> Dict[str, Dict]:
+def phase_times(plan: PrefillPlan, trace: torch.Tensor,
+                nbatch: int = 0) -> Dict[str, Dict]:
     """A traced launch's time by phase kind, summed over the layers, in ms
     (`ops.megakernel.phase_times`' layout: work, then wait at the grid
-    barrier, from block 0's timestamps)."""
-    return mk.phase_times_of(LAYER_PHASES * plan.L + TAIL_PHASES,
-                             trace[:trace_len(plan)])
+    barrier, from block 0's timestamps). `nbatch`: the launch's expert
+    batches (`launch_geometry`), for a MoE model."""
+    names = _phase_names(plan, nbatch)
+    return mk.phase_times_of(names, trace[:2 * len(names) + 1])

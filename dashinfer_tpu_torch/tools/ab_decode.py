@@ -1,0 +1,84 @@
+"""The dense decode megakernel of two checkouts, side by side on one card.
+
+Times one decode forward of csrc/megakernel.cu at Qwen2-7B width (a16w4,
+B = 8, INT8 KV, chip_smoke.py's state and random weights) for each checkout
+root given, in the order given, each in a process of its own that imports
+that checkout's `dashinfer_tpu_torch` and `chip_smoke.py`. The kernels are
+built first, all roots at once. Give the parent and the change as
+`PARENT CHANGE CHANGE PARENT` to see drift between runs. Prints one JSON
+line a run, the card's `nvidia-smi` name and power limit, and the ptxas
+registers and spills of each root's decode kernel instantiations.
+
+    python -m dashinfer_tpu_torch.tools.ab_decode build/parent . . build/parent
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+
+def _one(root: str, build_only: bool) -> None:
+    """Runs in the child: everything is imported from `root`."""
+    root = os.path.abspath(root)
+    os.chdir(root)
+    sys.path[0] = root
+    import torch
+    import chip_smoke as cs
+    from dashinfer_tpu_torch.config import ModelConfig
+    from dashinfer_tpu_torch.ops import kernel_build
+    kernel_build.build(["megakernel"])
+    if build_only:
+        log = kernel_build.build_logs.get("megakernel", "")
+        lines = log.splitlines()
+        regs = [" ".join(lines[i:i + 3]) for i, ln in enumerate(lines)
+                if "Compiling entry function" in ln and "mk_kernel" in ln]
+        print("AB_BUILD", json.dumps({"root": root, "ptxas": regs}),
+              flush=True)
+        return
+    dev = torch.device("cuda", 0)
+    params = cs.random_qwen2_7b_params(cs.SEED, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    row = cs.time_megakernel(ModelConfig(**cs.QWEN2_7B), params, "u4", 8,
+                             cs.MK_LENS, gen, dev, per_op=False)
+    print("AB", json.dumps({"root": root, "ms": row["ms"],
+                            "no_attention_ms": row["no_attention_ms"]}),
+          flush=True)
+
+
+def main(argv) -> int:
+    if argv[:1] in (["--one"], ["--build"]):
+        _one(argv[1], argv[0] == "--build")
+        return 0
+    if not argv:
+        print(__doc__)
+        return 2
+    me = os.path.abspath(__file__)
+    builds = [subprocess.Popen([sys.executable, me, "--build", r],
+                               stdout=subprocess.PIPE, text=True)
+              for r in dict.fromkeys(argv)]
+    rc = 0
+    for p in builds:
+        out, _ = p.communicate()
+        rc |= p.returncode
+        print("\n".join(ln for ln in out.splitlines()
+                        if ln.startswith("AB_BUILD")), flush=True)
+    if rc:
+        return rc
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"nvidia-smi: {smi}", flush=True)
+    for r in argv:
+        out = subprocess.run([sys.executable, me, "--one", r],
+                             capture_output=True, text=True)
+        print("\n".join(ln for ln in out.stdout.splitlines()
+                        if ln.startswith("AB")) or out.stderr[-2000:],
+              flush=True)
+        rc |= out.returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

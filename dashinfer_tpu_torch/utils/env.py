@@ -63,3 +63,15 @@ class EnvConfig:
         # DI_WEIGHT_RESIDENCY overrides RuntimeConfig.weight_residency
         # ("auto" | "both" | "pack_only"); "" = use the config field
         return str(_get("DI_WEIGHT_RESIDENCY", ""))
+
+    @staticmethod
+    def moe_grouped() -> str:
+        # DI_MOE_GROUPED: unset = the card's rule (ops/moe.py), "0" = never
+        # the grouped kernel, "1" = the grouped route also off the card
+        return str(_get("DI_MOE_GROUPED", ""))
+
+    @staticmethod
+    def gqm_tm() -> int:
+        # rows per M tile of the grouped MoE product (the JAX package's
+        # default)
+        return _get("DI_GQM_TM", 64)

@@ -73,6 +73,7 @@ def test_kernel_sources_are_registered():
     from dashinfer_tpu_torch.ops import kernel_build
     assert set(kernel_build.SOURCES) == {"quant_matmul", "paged_attention",
                                          "megakernel", "stream_probe",
-                                         "prefill_megakernel", "probes"}
+                                         "prefill_megakernel", "probes",
+                                         "grouped_quant_matmul"}
     for name in kernel_build.SOURCES:     # hash covers the shared headers
         assert kernel_build.lib_path(name).endswith(".so")

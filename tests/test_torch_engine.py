@@ -402,3 +402,93 @@ def test_auto_residency_decides_as_the_jax_runtime(hbm, typical, max_prompt,
         rt=jrt, cfg=cfg, dtype=jnp.float32, params=None, mega_params=None,
         _pmk_plans={128: None}, _per_device_nbytes=lambda tree: w_both)
     assert JRuntime._auto_pack_only(stand_in, None) == want
+
+
+def _moe_fixture(max_length=64):
+    """tests/test_megakernel.py's tiny Qwen2-MoE (head_dim 128, 4 experts,
+    top-2, a shared expert with its gate, one query head a KV head), a16w4,
+    INT8 KV, as numpy leaves for both packages."""
+    import dataclasses
+    import jax
+    from dashinfer_tpu.config import QuantConfig
+    from dashinfer_tpu.loader.quantize import quantize_params
+    from tests.test_megakernel import _tiny_moe
+    cfg, rt, params = _tiny_moe(B=2, KH=2, H=2)
+    rt = dataclasses.replace(rt, max_length=max_length)
+    params = quantize_params(params, QuantConfig(mode="a16w4",
+                                                 group_size=128))
+    return cfg, rt, jax.tree.map(np.asarray, params)
+
+
+def test_moe_engine_same_tokens_as_jax_engine():
+    """A tiny Qwen2-MoE served by the JAX Engine (its XLA path on the CPU,
+    ragged experts) and by the port's Engine: per-op (`enable_megakernel`
+    off, ragged experts), the 14 greedy tokens are equal; with every flag
+    at its default the port decodes through the decode megakernel's MoE
+    branch (its plain version on the CPU), which rounds at the TPU kernel's
+    points, and the first 8 tokens must agree (the JAX package's own bound
+    between its megakernel and its XLA path)."""
+    import dashinfer_tpu as jp
+    import dashinfer_tpu_torch as tp
+    cfg, rt, np_params = _moe_fixture()
+    name = rt.model_name
+    jeng = jp.Engine().install_model(name, rt, params=np_params,
+                                     model_config=cfg).start_model(name)
+    try:
+        _, h, jq = jeng.start_request(name, PROMPT, _greedy(jp))
+        jeng.sync_request(name, h, timeout_s=600)
+    finally:
+        jeng.release_model(name)
+    want = jq.GetAllGeneratedTokens()
+    for mega in (False, True):
+        teng, trun = _port_megakernel_engine(
+            cfg, rt, np_params, **({} if mega else
+                                   {"enable_megakernel": False}))
+        assert (trun.mega_plan is not None) == mega
+        if mega:
+            assert trun.mega_plan.E == 4 and trun.mega_plan.G == 1
+        teng.start_model("mk")
+        try:
+            _, h, tq = teng.start_request("mk", PROMPT, _greedy(tp))
+            teng.sync_request("mk", h, timeout_s=300)
+        finally:
+            teng.release_model("mk")
+        got = tq.GetAllGeneratedTokens()
+        assert tq.GenerateStatus() == \
+            tp.GenerateRequestStatus.GenerateFinished
+        assert len(got) == len(want) == 14
+        if mega:
+            assert got[:8] == want[:8], (got, want)
+        else:
+            assert got == want, (got, want)
+
+
+def test_moe_prefill_buckets_stop_at_the_cap():
+    """A MoE model's prefill megakernel buckets stop at
+    moe_prefill_mega_max_bucket (0: none), as in the JAX runtime; a fresh
+    prompt of bucket 128 then goes through the kernel's MoE branch (its
+    plain version on the CPU) and the request finishes."""
+    import dashinfer_tpu_torch as tp
+    cfg, rt, np_params = _moe_fixture(max_length=320)
+    _, run = _port_megakernel_engine(cfg, rt, np_params)
+    assert sorted(run._pmk_plans) == [128, 256]
+    _, run = _port_megakernel_engine(
+        cfg, rt, np_params, moe_prefill_mega_max_bucket=128)
+    assert sorted(run._pmk_plans) == [128]
+    _, run = _port_megakernel_engine(
+        cfg, rt, np_params, moe_prefill_mega_max_bucket=0)
+    assert run.mega_plan is not None and run._pmk_plans == {}
+    eng, run = _port_megakernel_engine(
+        cfg, rt, np_params, moe_prefill_mega_max_bucket=128)
+    eng.start_model("mk")
+    prompt = np.random.RandomState(5).randint(1, cfg.vocab_size,
+                                              size=70).tolist()
+    try:
+        _, h, q = eng.start_request("mk", prompt, tp.GenerationConfig(
+            max_length=74, do_sample=False, top_k=1, eos_token_id=-1))
+        eng.sync_request("mk", h, timeout_s=300)
+    finally:
+        eng.release_model("mk")
+    assert (128, True) in run._prefill_steps
+    assert q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+    assert len(q.GetAllGeneratedTokens()) == 4

@@ -60,6 +60,75 @@ def test_port_serves_with_jax_blocked():
     assert "SERVED" in r.stdout
 
 
+_SERVE_MOE_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import numpy as np
+import dashinfer_tpu_torch as tp
+from dashinfer_tpu_torch.config import ModelConfig, MoEConfig
+
+L, hid, Im, V, H, KH, D, E = 2, 64, 96, 256, 2, 2, 32, 4
+rng = np.random.RandomState(0)
+def lin(i, o, bias=False):
+    d = {"w": (rng.randn(L, i, o) * 0.1).astype(np.float32)}
+    if bias:
+        d["b"] = np.zeros((L, o), np.float32)
+    return d
+def stack(i, o):
+    return (rng.randn(L, E, i, o) * 0.1).astype(np.float32)
+params = {"embed_tokens": {"w": rng.randn(V, hid).astype(np.float32)},
+          "norm": np.ones(hid, np.float32),
+          "lm_head": {"w": (rng.randn(hid, V) * 0.1).astype(np.float32)},
+          "layers": {"input_layernorm": np.ones((L, hid), np.float32),
+                     "post_attention_layernorm": np.ones((L, hid), np.float32),
+                     "q_proj": lin(hid, H * D, True),
+                     "k_proj": lin(hid, KH * D, True),
+                     "v_proj": lin(hid, KH * D, True),
+                     "o_proj": lin(H * D, hid),
+                     "router": {"w": rng.randn(L, hid, E).astype(np.float32)},
+                     "experts": {"gate_proj": stack(hid, Im),
+                                 "up_proj": stack(hid, Im),
+                                 "down_proj": stack(Im, hid)},
+                     "shared_expert": {"gate_proj": lin(hid, Im),
+                                       "up_proj": lin(hid, Im),
+                                       "down_proj": lin(Im, hid)},
+                     "shared_expert_gate": {
+                         "w": rng.randn(L, hid, 1).astype(np.float32)}}}
+cfg = ModelConfig(arch="qwen2_moe", vocab_size=V, hidden_size=hid,
+                  intermediate_size=Im, num_layers=L, num_heads=H,
+                  num_kv_heads=KH, head_dim=D, qkv_bias=True,
+                  moe=MoEConfig(num_experts=E, num_experts_per_tok=2,
+                                moe_intermediate_size=Im,
+                                shared_expert_intermediate_size=Im))
+rt = (tp.RuntimeConfigBuilder("m").max_length(64).max_batch(2)
+      .kv_cache_page_size(16).kv_cache_mode(tp.CacheMode.INT8)
+      .weight_quant("a16w4", 32).dtype("float32").build())
+eng = tp.Engine().install_model("m", rt, params=params, model_config=cfg,
+                                device="cpu").start_model("m")
+_, h, q = eng.start_request("m", [1, 2, 3], tp.GenerationConfig(
+    max_length=12, do_sample=False, top_k=1, eos_token_id=-1))
+eng.sync_request("m", h, timeout_s=120)
+eng.release_model("m")
+assert q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+assert len(q.GetAllGeneratedTokens()) == 9
+assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "dashinfer_tpu" or m.startswith("dashinfer_tpu.")
+               for m in sys.modules)
+print("SERVED")
+"""
+
+
+def test_port_serves_moe_with_jax_blocked():
+    """A tiny Qwen2-MoE, its expert stacks quantized a16w4 by the port's
+    loader, served per-op on the CPU with JAX blocked."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", _SERVE_MOE_WITHOUT_JAX],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "SERVED" in r.stdout
+
+
 def _port_sources():
     pkg = os.path.join(ROOT, "dashinfer_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
@@ -90,12 +159,15 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_the_new_modules_are_checked():
-    """The megakernel modules and the probe tools are among the sources the
-    import check walks."""
+    """The megakernel modules, the MoE modules and the probe tools are among
+    the sources the import check walks."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {"dashinfer_tpu_torch/ops/megakernel.py",
+            "dashinfer_tpu_torch/ops/moe.py",
+            "dashinfer_tpu_torch/ops/grouped_quant_matmul.py",
             "dashinfer_tpu_torch/ops/prefill_megakernel.py",
             "dashinfer_tpu_torch/tools/bench_stream.py",
             "dashinfer_tpu_torch/tools/probe_magic_dequant.py",
             "dashinfer_tpu_torch/tools/probe_reshape.py",
+            "dashinfer_tpu_torch/tools/ab_decode.py",
             "dashinfer_tpu_torch/engine/steps.py"} <= rel

@@ -24,7 +24,8 @@ from dashinfer_tpu_torch.engine import steps as tsteps
 from dashinfer_tpu_torch.loader import params_from_numpy
 from dashinfer_tpu_torch.ops import megakernel as tmk
 from dashinfer_tpu_torch.runtime.kv_cache import KVCache as TKVCache
-from tests.test_megakernel import _prep_cache, _quantized_fixture, _tiny
+from tests.test_megakernel import (_prep_cache, _quantized_fixture, _tiny,
+                                   _tiny_moe)
 from tests.test_torch_transformer import port_config
 
 
@@ -144,6 +145,118 @@ def test_supports_turns_down_what_the_port_has_not():
                                 _np_tree(params))
 
 
+@pytest.mark.parametrize("quant", ["none", "a16w4", "a16w8"])
+def test_moe_supports_agrees_with_jax(quant):
+    cfg, rt, params = _tiny_moe(KH=2, H=2)
+    if quant != "none":
+        params = quantize_params(params, QuantConfig(mode=quant,
+                                                     group_size=128))
+    tcfg, trt, p = port_config(cfg), _port_rt(rt, "int8"), _np_tree(params)
+    assert jmk.supports(cfg, rt, params) and tmk.supports(tcfg, trt, p)
+    plan = tmk.make_plan(tcfg, trt, p)
+    assert (plan.E, plan.k_top, plan.EP, plan.has_shared_gate) == \
+        (4, 2, 128, True)
+    assert plan.gu.E == plan.dn.E == 4 and plan.inter == 256
+    # the rules both keep: dense layers among MoE ones, more than 8
+    # experts a token, a biased shared expert
+    for change in (dict(mlp_only_layers=(1,)),
+                   dict(num_experts_per_tok=9)):
+        jc = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                              **change))
+        assert not jmk.supports(jc, rt, params)
+        assert not tmk.supports(port_config(jc), trt, p)
+    lp = p["layers"]
+    biased = dict(p, layers=dict(lp, shared_expert=dict(
+        lp["shared_expert"], down_proj=dict(
+            lp["shared_expert"]["down_proj"],
+            b=np.zeros((cfg.num_layers, cfg.hidden_size), np.float32)))))
+    assert not jmk.supports(cfg, rt, biased)
+    assert not tmk.supports(tcfg, trt, biased)
+
+
+def test_width_of_128_mod_256_takes_the_kernels():
+    """A vocab (or an expert width) that is a multiple of 128 but not of
+    256 is padded in the pack: `supports` and `cuda_kernel_gaps` accept the
+    model, the padded payload and qparams are zero, and the plain version's
+    logits equal those of the unpadded loader leaf exactly (the padded
+    columns compute 0 and are dropped)."""
+    from tests.test_megakernel import _tiny as tiny
+    from dashinfer_tpu_torch.loader.quantize import quantize_weight
+    cfg, rt, params = tiny(vocab=384)
+    params = _np_tree(quantize_params(params, QuantConfig(mode="a16w4",
+                                                          group_size=128)))
+    # a u4 lm_head of 384 columns: the loader's plain-halves layout
+    params["lm_head"] = quantize_weight(params["lm_head"]["w"], 4, 128)
+    tcfg, trt = port_config(cfg), _port_rt(rt, "int8")
+    tparams = params_from_numpy(params, "cpu", torch.float32)
+    assert tmk.supports(tcfg, trt, tparams)
+    plan = tmk.make_plan(tcfg, trt, tparams)
+    assert plan.lm.N == (384,) and plan.lm.Np == (512,)
+    assert tmk.cuda_kernel_gaps(plan) == []
+    assert tmk.cuda_kernel_gaps(dataclasses.replace(
+        plan, lm=dataclasses.replace(plan.lm, N=(320,))))
+    packed = tmk.pack_params(tcfg, plan, tparams)
+    lm = packed["lm_head"]
+    assert lm["w_f"].shape == (2, 4, 64 * 128) and lm["scale"].shape[-1] == 512
+    raw = tmk.loader_view(lm)
+    from dashinfer_tpu_torch.ops.u4pack import weight_levels
+    levels = weight_levels(raw["w_q"])
+    assert not levels[:, 384:].any() and not lm["scale"][:, 384:].any() and \
+        not lm["zero"][:, 384:].any()
+    np.testing.assert_array_equal(
+        levels[:, :384].numpy(),
+        weight_levels(tparams["lm_head"]["w_q"]).numpy())
+    unpadded = dict(packed, lm_head=tparams["lm_head"])
+    from dashinfer_tpu_torch.runtime.kv_cache import create_kv_cache
+    B, L = trt.max_batch, tcfg.num_layers
+    pt = (1 + torch.arange(B * trt.max_pages_per_seq, dtype=torch.int32)
+          ).reshape(B, -1)
+    lens = torch.zeros(B, dtype=torch.int32)
+    x0 = tparams["embed_tokens"]["w"][torch.tensor([7, 11, 13, 5])] \
+        .to(torch.bfloat16)
+    cos, sin = tsteps._rope_tiles(tcfg, lens)
+    out = [tmk.decode_megakernel(
+        plan, pk, x0, cos, sin, pt, lens, torch.ones(B, dtype=torch.bool),
+        create_kv_cache(tcfg, trt.cache, 64 * L, torch.float32, "cpu"))
+        for pk in (packed, unpadded)]
+    assert out[0].shape == (B, 384)
+    assert torch.equal(out[0], out[1])
+
+
+def test_padded_expert_leaves_keep_the_true_width():
+    """An expert width of 128 mod 256 (Qwen1.5-MoE's 1408; 384 here): the
+    install re-lays the stacks out padded to 512 columns in place of the
+    loader's (`prepare_grouped_experts`). The plan still takes the model's
+    widths from them, and the pack made from the padded leaves equals the
+    pack made from the loader's: the payload byte for byte, the qparams in
+    the true columns (the install pads scale with ones as the JAX package
+    does, the pack with zeros; a padded column's levels are 0 either way)."""
+    from dashinfer_tpu_torch.ops import grouped_quant_matmul as tgqm
+    cfg, rt, params = _tiny_moe(KH=2, H=2, Im=384)
+    params = _np_tree(quantize_params(params, QuantConfig(mode="a16w4",
+                                                          group_size=128)))
+    tcfg, trt = port_config(cfg), _port_rt(rt, "int8")
+    raw = params_from_numpy(params, "cpu", torch.float32)
+    padded = tgqm.prepare_grouped_experts(
+        params_from_numpy(params, "cpu", torch.float32), tcfg)
+    ex = padded["layers"]["experts"]
+    assert ex["gate_proj"]["w_q"].shape[-1] == 256 and \
+        ex["gate_proj"]["scale"].shape[-1] == 512
+    plans = [tmk.make_plan(tcfg, trt, p) for p in (raw, padded)]
+    assert plans[0] == plans[1]
+    plan = plans[1]
+    assert plan.gu.N == (384, 384) and plan.gu.Np == (512, 512) and \
+        plan.dn.N == (256,) and plan.inter == 384
+    assert tmk.cuda_kernel_gaps(plan) == []
+    packs = [tmk.pack_params(tcfg, plan, p)["layers"] for p in (raw, padded)]
+    for n in ("experts.gate_proj", "experts.up_proj", "experts.down_proj"):
+        assert torch.equal(packs[0][n]["w_f"], packs[1][n]["w_f"]), n
+        N = 384 if n != "experts.down_proj" else 256
+        for key in ("scale", "zero"):
+            assert torch.equal(packs[0][n][key][..., :N],
+                               packs[1][n][key][..., :N]), (n, key)
+
+
 def test_target_pages_is_build_schedules_tgt_page():
     pt = np.arange(12, dtype=np.int32).reshape(3, 4)
     lens = np.asarray([17, 0, 33], np.int32)
@@ -183,6 +296,32 @@ def test_decode_megakernel_ref_matches_pallas_interpret(quant, mode):
         rt, cache=dataclasses.replace(rt.cache, mode=JMode(mode)))
     if expand:
         params = jmk.expand_u4_to_i8(params)
+    _check_against_pallas(cfg, rt, params, mode, np.asarray([17, 16, 5, 0]),
+                          np.asarray([1, 1, 1, 0]), np.asarray([7, 11, 13, 0]))
+
+
+@pytest.mark.parametrize("quant,shared,shared_gate,kh", [
+    ("a16w4", True, True, 2),       # Qwen1.5-MoE's layout, one q head a KV head
+    ("none", False, False, 1),
+    ("a16w8", True, False, 2)])
+def test_decode_megakernel_ref_moe_matches_pallas_interpret(quant, shared,
+                                                            shared_gate, kh):
+    """The MoE branch (router, routed experts, shared expert) of the plain
+    version against the interpret-mode TPU kernel, at the tolerances below;
+    the two route with the same bf16 router product and agree on every
+    row's experts here."""
+    cfg, rt, params = _tiny_moe(KH=kh, H=2, shared=shared,
+                                shared_gate=shared_gate, norm_topk=not shared)
+    if quant != "none":
+        params = quantize_params(params, QuantConfig(mode=quant,
+                                                     group_size=128))
+    _check_against_pallas(cfg, rt, params, "int8", np.asarray([17, 9, 0]),
+                          np.asarray([1, 1, 0]), np.asarray([7, 11, 0]))
+
+
+def _check_against_pallas(cfg, rt, params, mode, lens, active, tokens):
+    lens, active, tokens = (a.astype(np.int32) for a in (lens, active,
+                                                         tokens))
     assert jmk.supports(cfg, rt, params)
     jplan = jmk.make_plan(cfg, rt, params, target_chunk_bytes=64 * 1024,
                           interleave_mlp=True)
@@ -191,9 +330,6 @@ def test_decode_megakernel_ref_matches_pallas_interpret(quant, mode):
 
     B, L, ps = rt.max_batch, cfg.num_layers, rt.cache.page_size
     maxP = rt.max_pages_per_seq
-    lens = np.asarray([17, 16, 5, 0], np.int32)
-    active = np.asarray([1, 1, 1, 0], np.int32)
-    tokens = np.asarray([7, 11, 13, 0], np.int32)
     pt = (1 + np.arange(B * maxP, dtype=np.int32)).reshape(B, maxP)
     jcache = _prep_cache(cfg, rt, params, JMode(mode), lens, pt)
     pools = [jcache.k, jcache.v]
@@ -222,6 +358,8 @@ def test_decode_megakernel_ref_matches_pallas_interpret(quant, mode):
     plan = tmk.make_plan(tcfg, trt, tparams)
     packed = tmk.pack_params(tcfg, plan, tparams)
     assert plan.qkv.bits == jplan.qkv.bits and plan.lm.bits == jplan.lm.bits
+    assert (plan.E, plan.k_top) == (jplan.E, jplan.k_top)
+    assert not plan.E or plan.EP == jplan.EP
     tp = [torch.from_numpy(b.copy()) for b in before]
     if len(tp) == 4:            # the JAX pool pads qparam lanes to 128
         tp[2], tp[3] = (t[..., :ps].contiguous() for t in tp[2:])
@@ -243,7 +381,7 @@ def test_decode_megakernel_ref_matches_pallas_interpret(quant, mode):
             continue
         ref = ref_logits[b]
         assert np.abs(logits[b] - ref).max() <= \
-            LOGITS_RTOL * np.abs(ref).max(), (b, quant, mode)
+            LOGITS_RTOL * np.abs(ref).max(), (b, mode)
         assert int(np.argmax(logits[b])) == int(np.argmax(ref)), b
 
     after = [t.numpy() for t in tp]
@@ -267,7 +405,7 @@ def test_decode_megakernel_ref_matches_pallas_interpret(quant, mode):
                 got, want = after[i][row, :, off], ref_pools[i][row, :, off]
                 assert np.abs(got - want).max() <= \
                     QPARAM_RTOL * np.abs(want).max(), (b, l, i)
-    # everything else is untouched (inactive slot 3's pages included)
+    # everything else is untouched (inactive slots' pages included)
     for i, (a, b0) in enumerate(zip(after, tbefore)):
         b0 = b0.numpy()
         if i < 2:

@@ -25,7 +25,9 @@ from dashinfer_tpu_torch.models import transformer as ttr
 from dashinfer_tpu_torch.ops import megakernel as tmk
 from dashinfer_tpu_torch.ops import prefill_megakernel as tpmk
 from dashinfer_tpu_torch.runtime.kv_cache import create_kv_cache
-from tests.test_megakernel import _quantized_fixture, _tiny
+from dashinfer_tpu.config import QuantConfig
+from dashinfer_tpu.loader.quantize import quantize_params
+from tests.test_megakernel import _quantized_fixture, _tiny, _tiny_moe
 from tests.test_torch_megakernel import _np_tree, _port_rt, _unpack_kv
 from tests.test_torch_transformer import port_config
 
@@ -75,6 +77,27 @@ def _port_side(cfg, rt, params, mode):
 def test_prefill_megakernel_ref_matches_pallas_interpret(quant, mode,
                                                          n_tokens):
     cfg, rt, params = _fixture(quant, mode)
+    _check_against_pallas(cfg, rt, params, mode, n_tokens)
+
+
+@pytest.mark.parametrize("quant,shared,kh", [("a16w4", True, 2),
+                                             ("none", False, 1)])
+def test_prefill_megakernel_ref_moe_matches_pallas_interpret(quant, shared,
+                                                             kh):
+    """The MoE branch against the interpret-mode TPU kernel. Both route
+    every row with the same bf16 router product, but an order change in its
+    sums could flip a near-tie top-k choice: as in the JAX package's own
+    test, at most 2 token rows of the pool may leave the tolerance."""
+    cfg, rt, params = _tiny_moe(ps=PS, KH=kh, H=2, shared=shared,
+                                shared_gate=shared, norm_topk=not shared)
+    if quant != "none":
+        params = quantize_params(params, QuantConfig(mode=quant,
+                                                     group_size=128))
+    rt = dataclasses.replace(rt, max_length=BUCKET + PS)
+    _check_against_pallas(cfg, rt, params, "int8", 45, flip_budget=2)
+
+
+def _check_against_pallas(cfg, rt, params, mode, n_tokens, flip_budget=0):
     assert jpmk.supports_prefill(cfg, rt, params, BUCKET)
     jplan = jpmk.make_prefill_plan(cfg, rt, params, BUCKET,
                                    target_chunk_bytes=48 * 1024)
@@ -129,14 +152,17 @@ def test_prefill_megakernel_ref_matches_pallas_interpret(quant, mode,
         for l in range(L):
             written[page_row[t // PS] * L + l, t % PS] = True
     levels = 255.0 if mode == "int8" else 15.0
+    token = np.nonzero(written)[1] + PS * (
+        (np.nonzero(written)[0] // L) - 1)      # the row's token index
+    bad = np.zeros(written.sum(), bool)
     for i in (0, 1):
         got = _unpack_kv(got_pools[i], mode)[written]
         want = _unpack_kv(ref_pools[i], mode)[written]
         if mode == "default":
-            assert np.abs(got - want).max() <= \
+            bad |= np.abs(got - want).max(-1) > \
                 QPARAM_RTOL * np.abs(want).max()
             continue
-        assert np.abs(got - want).max() <= 1, i
+        bad |= np.abs(got - want).max(-1) > 1
         # qparams [pages, 2*KH, ps] -> [pages, ps, 2*KH] at the written rows
         gq = got_pools[2 + i].transpose(0, 2, 1)[written]
         wq = ref_pools[2 + i][..., :PS].transpose(0, 2, 1)[written]
@@ -146,8 +172,11 @@ def test_prefill_megakernel_ref_matches_pallas_interpret(quant, mode,
                          np.abs(gq[:, 1::2] - wq[:, 1::2]) /
                          (scale * levels)).max(axis=-1)
         layer0 = np.nonzero(written)[0] % L == 0
-        assert rel[layer0].max() <= QPARAM_RTOL
-        assert rel.max() <= DEEP_QPARAM_RTOL
+        bad |= layer0 & (rel > QPARAM_RTOL)
+        bad |= rel > DEEP_QPARAM_RTOL
+    # rows beyond the tolerance: none, or for MoE the rows of at most
+    # `flip_budget` tokens (a flipped top-k choice)
+    assert len(set(token[bad].tolist())) <= flip_budget, token[bad]
     # nothing else was written: the pool started as zeros
     for i, a in enumerate(got_pools):
         keep = ~written if i < 2 else \
@@ -198,20 +227,55 @@ def test_prefill_plan_and_gaps():
         (BUCKET, BUCKET // PS, 8, "int8")
     # without a decode plan the same streams come from the params
     assert tpmk.make_prefill_plan(tcfg, trt, tparams, BUCKET) == plan
-    # the tiny model's 128-column k and v leaves do not fill the pack's
-    # 256-column tiles (only the plain version runs it); with full tiles the
-    # kernel takes the plan, but not a 1100-token bucket
-    gaps = tpmk.cuda_kernel_gaps(plan)
+    # the tiny model's 128-column k and v leaves are padded to the pack's
+    # 256-column tiles, so the kernel takes the plan; not a width that is
+    # no multiple of 128, nor a 1100-token bucket
+    assert tpmk.cuda_kernel_gaps(plan) == []
+    narrow = dataclasses.replace(plan, qkv=dataclasses.replace(
+        plan.qkv, N=(256, 64, 64)))
+    gaps = tpmk.cuda_kernel_gaps(narrow)
     assert len(gaps) == 1 and gaps[0].startswith("qkv: columns")
-    wide = dataclasses.replace(plan, qkv=dataclasses.replace(
-        plan.qkv, N=(256, 256, 256)))
-    assert tpmk.cuda_kernel_gaps(wide) == []
-    assert len(tpmk.cuda_kernel_gaps(dataclasses.replace(wide, S=1100))) == 1
+    assert len(tpmk.cuda_kernel_gaps(dataclasses.replace(plan, S=1100))) == 1
     assert tpmk.trace_len(plan) == 2 * (9 * plan.L + 2) + 1
     # one chunk (K = 256: 4) cannot split further than its chunks
     ks, cps = tpmk.choose_split(14, 56, 1, 132)
     assert ks * cps >= 56 and (ks - 1) * cps < 56 and ks > 1
     assert tpmk.choose_split(148, 56, 8, 132) == (1, 56)
+
+
+def test_moe_supports_prefill_and_plan():
+    """The JAX MoE rules (uniform bits over the experts and over the shared
+    expert), the decode plan's MoE fields adopted, the routed operations of
+    a launch (n rows x k experts + the shared expert) against the kernel's
+    dense-over-experts work, and the trace's phases per expert batch."""
+    cfg, rt, params = _tiny_moe(ps=PS, KH=2, H=2)
+    params = quantize_params(params, QuantConfig(mode="a16w4",
+                                                 group_size=128))
+    rt = dataclasses.replace(rt, max_length=BUCKET + PS)
+    tcfg, trt, p = port_config(cfg), _port_rt(rt, "int8"), _np_tree(params)
+    for bucket in (64, 128, 256):
+        want = jpmk.supports_prefill(cfg, rt, params, bucket)
+        assert want == (bucket % 128 == 0)
+        assert tpmk.supports_prefill(tcfg, trt, p, bucket) == want
+    lp = p["layers"]
+    mixed = dict(p, layers=dict(lp, experts=dict(
+        lp["experts"], down_proj=np.zeros((2, 4, 256, 256), np.float32))))
+    assert not jpmk.supports_prefill(cfg, rt, mixed, 128)
+    assert not tpmk.supports_prefill(tcfg, trt, mixed, 128)
+    tparams = params_from_numpy(p, "cpu", torch.float32)
+    dplan = tmk.make_plan(tcfg, trt, tparams)
+    plan = tpmk.make_prefill_plan(tcfg, trt, tparams, BUCKET,
+                                  decode_plan=dplan)
+    assert (plan.E, plan.k_top, plan.rt, plan.sgu) == \
+        (4, 2, dplan.rt, dplan.sgu)
+    hid, Im, n = 256, 256, 45
+    routed = plan.operations(n)
+    dense = plan.dense_expert_operations(n)
+    assert dense - routed == n * 2.0 * 2 * (3 * hid * Im) * (4 - 2)
+    assert tpmk.cuda_kernel_gaps(plan) == []
+    names = tpmk._phase_names(plan, 2)
+    assert len(names) == 2 * (8 + 3 * 2 + 3) + 2
+    assert tpmk.trace_len(plan) >= 2 * len(names) + 1
 
 
 def test_scratch_is_one_set_that_grows_to_the_largest_plan():

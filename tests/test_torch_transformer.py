@@ -38,11 +38,15 @@ def tiny_qwen2():
 
 
 def port_config(cfg):
-    """The JAX ModelConfig's fields, as the port's ModelConfig."""
+    """The JAX ModelConfig's fields, as the port's ModelConfig (a MoE
+    config's too)."""
     import dataclasses
+    from dashinfer_tpu_torch.config import MoEConfig as TMoECfg
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
           if f.name not in ("activation", "position_embedding",
                             "rope_scaling", "moe")}
+    if cfg.moe is not None:
+        kw["moe"] = TMoECfg(**dataclasses.asdict(cfg.moe))
     return TModelCfg(**kw)
 
 
