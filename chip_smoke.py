@@ -40,7 +40,22 @@ on one of them, and then prints no final result line):
               requests and read just after;
   decode_logits
               one per-op decode step's logits through the kernels against
-              the same step through their plain versions, and its profile.
+              the same step through their plain versions, and its profile;
+  tp_segments the tensor-parallel segment kernels (csrc/tp_segments.cu) of
+              every rank of a (1, n) mesh whose ranks share the card, at
+              Qwen2-7B width, B = 8: n = 2 with INT8 and UINT4 KV and n = 4
+              with INT8, each segment against its plain version, the whole
+              TP decode forward (CUDA-graph replay) against `tp_decode_ref`
+              and against the single-device decode megakernel on the same
+              weights and state; then (n = 2, INT8) ms per segment launch
+              beside its bound and plain version, and ms per TP step beside
+              the single-device megakernel's;
+  serve_tp    Qwen2-7B served on a (1, 2) mesh with `serve`'s traffic, with
+              every flag at its default (decode through the segments,
+              prefill per-op TP) and per-op; launch counts checked, greedy
+              tokens held to the single-device serving's. The ranks take
+              distinct cards (NCCL) when the machine has two, else share
+              this one (a sum on the card).
 Then Qwen2-7B's weights go, and the MoE slice runs at Qwen1.5-MoE-A2.7B width
 (24 layers, 60 experts top-4 + a shared expert, random a16w4 weights made on
 the card): `megakernel` and `prefill_megakernel` hold the two kernels' MoE
@@ -751,12 +766,15 @@ def flipped_rows(plan, chosen_kernel, logits_plain, rows, what,
 PROMPT_LENS = [20, 90, 200, 450, 700, 1000]   # buckets 32 .. 1024
 
 
-def serve(params, dev, details, path: str, new_tokens: int, cfg=None):
+def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
+          devices=None):
     """Six concurrent requests through `Engine`: path "megakernel" (every
     flag at its default: decode and qualifying prefills through the two
     megakernels), "per-op" (`enable_megakernel` off) or "pack_only"
     (`weight_residency="pack_only"`; `params` is then a callable that makes
-    the tree, so that the engine alone holds it). `cfg`: Qwen2-7B unless
+    the tree, so that the engine alone holds it); on a (1, n) mesh over
+    `devices`, "tp" (every flag at its default: decode through the TP
+    segments, prefill per-op TP) or "tp per-op". `cfg`: Qwen2-7B unless
     given (the MoE model). Returns (launch counts of the timed requests,
     generated tokens per request)."""
     import torch
@@ -769,12 +787,16 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None):
     from dashinfer_tpu_torch.ops import paged_attention as pa
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
     from dashinfer_tpu_torch.ops import quant_matmul as qm
-    megakernel = path != "per-op"
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    megakernel = path not in ("per-op", "tp per-op")
     counters = {"quant_matmul": qm.quant_matmul.counter,
                 "paged_attention": pa.paged_attention.counter,
                 "decode_megakernel": mk.decode_megakernel.counter,
                 "prefill_megakernel": pmk.prefill_megakernel.counter,
-                "grouped_quant_matmul": gqm.grouped_quant_matmul.counter}
+                "grouped_quant_matmul": gqm.grouped_quant_matmul.counter,
+                "tp_attn_segment": tpk.tp_attn_segment.counter,
+                "tp_mlp_segment": tpk.tp_mlp_segment.counter,
+                "tp_lm_segment": tpk.tp_lm_segment.counter}
     cfg = cfg or ModelConfig(**QWEN2_7B)
     name = "qwen1.5-moe" if cfg.moe else "qwen2-7b"
     label = f"{name} {path}"
@@ -785,6 +807,8 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None):
         b = b.update({"enable_megakernel": False})
     if path == "pack_only":
         b = b.update({"weight_residency": "pack_only"})
+    if devices:
+        b = b.mesh(1, len(devices))
     rt = b.build()
     check(rt.enable_megakernel == megakernel, "enable_megakernel default")
     torch.cuda.synchronize()
@@ -795,20 +819,29 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None):
         params = params()
     mem_tree = torch.cuda.memory_allocated(dev) - mem0
     eng = Engine().install_model(name, rt, params=params,
-                                 model_config=cfg, device=dev)
+                                 model_config=cfg, device=devices or dev)
     del params
     run = eng._models[name]
+    caches = run.cache if devices else [run.cache]
     memory = dict(
         residency=run.residency, tree_bytes=mem_tree,
         installed_bytes=torch.cuda.memory_allocated(dev) - mem0,
         weights_resident_bytes=_resident_bytes(run.params, run.mega_params),
+        weights_by_device={str(d): _resident_bytes(
+            run.params, run.mega_params, device=d)
+            for d in dict.fromkeys(devices or [dev])},
         pack_bytes=_resident_bytes(run.mega_params),
-        pool_bytes=_resident_bytes(vars(run.cache)),
+        pool_bytes=_resident_bytes(*(vars(c) for c in caches)),
         prefill_scratch_bytes=pmk.scratch_bytes(dev),
         logical_pages=run.num_logical_pages)
+    if devices:
+        check((run.tp_mega_plan is not None) == megakernel and
+              run.mega_plan is None and not run._pmk_plans,
+              f"{label}: the mesh install took the wrong decode path")
     # one scratch set, sized for the largest bucket, is on the card from the
-    # install on (none on the per-op path)
-    check((memory["prefill_scratch_bytes"] > 0) == megakernel,
+    # install on (none on the per-op path or on a mesh)
+    check((memory["prefill_scratch_bytes"] > 0) == (megakernel and
+                                                    not devices),
           f"{path}: prefill scratch after install: "
           f"{memory['prefill_scratch_bytes']} bytes")
     eng.start_model(name)
@@ -882,7 +915,8 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None):
     # is one prefill megakernel launch on the megakernel path, and under
     # pack_only every prefill is (the 20-token prompt snaps to bucket 128)
     L = cfg.num_layers
-    lm = int(cfg.vocab_size % 256 == 0)
+    n_r = len(devices) if devices else 1
+    lm = int((cfg.vocab_size // n_r) % 256 == 0)
     per_step = 7 * L + lm
     grouped = 3 * L if cfg.moe else 0
     if path == "pack_only":
@@ -895,7 +929,7 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None):
         mega_prefills = 0
         prefill = sum(per_step if n <= 32 else lm for n in PROMPT_LENS)
     per_op_prefills = len(PROMPT_LENS) - mega_prefills
-    if megakernel:
+    if megakernel and not devices:
         # one megakernel launch is one decode step; nothing else of a step
         # reaches the per-op kernels
         steps = launches["decode_megakernel"]
@@ -909,7 +943,7 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None):
               f"launches and the other prefills' {prefill} quant_matmul "
               f"and {grouped * per_op_prefills} grouped_quant_matmul "
               "launches")
-    else:
+    elif not devices:
         # every decode step runs paged_attention once per layer and
         # quant_matmul for the 7 projections of each layer and the lm_head
         steps = launches["paged_attention"] // L
@@ -921,6 +955,28 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None):
               and launches["prefill_megakernel"] == 0,
               f"{label} path: launch counts {launches} do not match {steps} "
               f"decode steps and {len(PROMPT_LENS)} prefills")
+    if devices:
+        # a per-op TP prefill runs every rank's projections as a
+        # single-device prefill does (at the rank's widths); a decode step
+        # runs every rank's two segments a layer and its lm segment, or
+        # per-op every rank's kernels of a single-device step
+        prefill = n_r * sum(per_step if n <= 32 else lm for n in PROMPT_LENS)
+        if megakernel:
+            steps = launches["tp_lm_segment"] // n_r
+            expect = dict(tp_attn_segment=L * n_r * steps,
+                          tp_mlp_segment=L * n_r * steps,
+                          tp_lm_segment=n_r * steps, quant_matmul=prefill)
+        else:
+            steps = launches["paged_attention"] // (L * n_r)
+            expect = dict(paged_attention=L * n_r * steps,
+                          quant_matmul=n_r * per_step * steps + prefill)
+        # and no other kernel runs
+        check(steps >= new_tokens - 1 and
+              {k: v for k, v in launches.items() if v} ==
+              {k: v for k, v in expect.items() if v},
+              f"{label} path: launch counts {launches} do not match {steps} "
+              f"decode steps over {n_r} ranks and {len(PROMPT_LENS)} per-op "
+              f"TP prefills ({expect})")
     details[f"serving_{name}_{path}"] = dict(
         requests=reqs, launches=launches, wall_s=wall, decode_steps=steps,
         memory=memory)
@@ -989,7 +1045,8 @@ def check_serving(params, dev, details):
           f"{(po_mem['installed_bytes'] + demoted) / 1024**3:.2f} with both "
           "resident", flush=True)
     torch.cuda.empty_cache()
-    return mk_launches, op_launches, po_launches
+    return (mk_launches, op_launches, po_launches,
+            {"megakernel": mk_tokens, "per-op": op_tokens})
 
 
 def check_serving_moe(params, cfg, dev, details):
@@ -1179,10 +1236,11 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev,
                 (aw[:, 1::2] - rw[:, 1::2]).abs() / rng_).amax(-1)
             layer = torch.arange(written.shape[0], device=dev)[:, None] \
                 .expand_as(written)[written] % L
-            qp_err0 = max(qp_err0, rel[layer == 0].max().item())
+            if bool((layer == 0).any()):
+                qp_err0 = max(qp_err0, rel[layer == 0].max().item())
             qp_err = max(qp_err, rel.max().item())
             by_layer = [round(rel[layer == l].max().item(), 5)
-                        for l in range(L)]
+                        for l in range(L) if bool((layer == l).any())]
             check(qp_err0 <= QPARAM_RTOL and qp_err <= DEEP_QPARAM_RTOL,
                   f"{what}: {name} qparams differ: layer 0 {qp_err0:.2e}, "
                   f"all layers {qp_err:.2e}; by layer {by_layer}")
@@ -2026,9 +2084,343 @@ def check_decode_logits(params, dev, details):
         print(f"  {ms:8.3f} ms  {name[:90]}", flush=True)
 
 
+# -- tensor parallelism: the segment kernels and TP serving -----------------
+
+# (ranks n, KV mode) of the segment checks: Qwen2-7B at n = 2 (14 query
+# heads on 2 KV heads a rank) and n = 4 (7 on 1; q, k, v, the MLP width and
+# the vocab shard are widths of 128 mod 256, which the pack pads)
+TP_CASES = ((2, "INT8"), (2, "UINT4"), (4, "INT8"))
+TP_RANKS = 2            # the served mesh (1, 2)
+# The segments against their plain versions: the partials and the logits of
+# the active rows within LOGITS_RTOL of their largest (both sides compute
+# the same bf16 products in f32 and differ in the order of the sums), the
+# residual after `x += add` equal, the pool by check_written_pool's rules
+# (one segment at layer 0 sees the plain version's inputs exactly; at the
+# last layer the rows are held to the deeper layers' tolerance). The whole
+# TP forward against tp_decode_ref, and against the single-device decode
+# megakernel on the same weights and state (its pool the ranks' pools side
+# by side), the same way.
+
+
+def tp_setup(cfg, params, n, mode, gen, dev, B=DECODE_BATCH, lens=None,
+             inactive=MK_INACTIVE):
+    """The ranks' split, plan, packs and pools of a (1, n) mesh whose ranks
+    all run on `dev`, and the step's inputs (mk_state's, one pool a rank
+    over its KV heads)."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode, RuntimeConfigBuilder
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    from dashinfer_tpu_torch.parallel import make_mesh, shard_params
+    mode = getattr(CacheMode, mode) if isinstance(mode, str) else mode
+    rt = (RuntimeConfigBuilder("tp").max_length(2048).max_batch(B)
+          .kv_cache_page_size(PAGE).kv_cache_mode(mode).dtype("bfloat16")
+          .mesh(1, n).build())
+    mesh = make_mesh((1, n), [dev] * n)
+    parts = shard_params(params, cfg, mesh)
+    check(tpk.supports_tp(cfg, rt, params, n, local=parts[0]),
+          f"supports_tp said no at n = {n}, {mode.value}")
+    plan, packs = tpk.make_tp_plan(cfg, rt, parts)
+    check(not mk.cuda_kernel_gaps(plan), f"tp plan: "
+          f"{mk.cuda_kernel_gaps(plan)}")
+    cfg_l = tpk.local_config(cfg, n)
+    lens = lens or MK_LENS
+    states = [mk_state(cfg_l, mode, B, lens, inactive, gen, dev)
+              for _ in range(n)]
+    st = states[0]
+    x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
+    return dict(mode=mode, rt=rt, mesh=mesh, parts=parts, plan=plan,
+                packs=packs, st=st, caches=[s["cache"] for s in states],
+                x0=x0, cfg_l=cfg_l, lens=lens, inactive=inactive)
+
+
+def tp_written(s, layers, dev):
+    """[pages, ps] rows a step writes at `layers` (the active slots')."""
+    import torch
+    st, L = s["st"], s["plan"].L
+    written = torch.zeros(s["caches"][0].k.shape[:2], dtype=torch.bool,
+                          device=dev)
+    for b, n in enumerate(s["lens"]):
+        if b == s["inactive"]:
+            continue
+        g, off = int(st["pt"][b, n // PAGE]), n % PAGE
+        for l in layers:
+            written[g * L + l, off] = True
+    return written
+
+
+def held_rows(got, ref, act, what):
+    """Active rows of a kernel's output within LOGITS_RTOL of its plain
+    version's largest; returns max|d|."""
+    got, ref = got[act], ref[act]
+    check(bool(torch_isfinite(got)), f"{what}: not finite")
+    err = (got - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    check(err <= LOGITS_RTOL * ref_max,
+          f"{what}: differs {err:.3e} > {LOGITS_RTOL} * {ref_max:.3e}")
+    return err
+
+
+def torch_isfinite(t):
+    import torch
+    return torch.isfinite(t).all()
+
+
+def check_argmax(got, ref, act, err, what):
+    pick = got[act].argmax(-1)
+    tie = ref[act].max(-1).values - ref[act].gather(1, pick[:, None])[:, 0]
+    check(bool((tie <= 2 * err).all()), f"{what}: argmax differs")
+    return int((pick == ref[act].argmax(-1)).sum().item())
+
+
+def check_tp_segment_case(cfg, params, n, mode, gen, dev, timing):
+    """Each segment kernel of every rank against its plain version, the
+    whole TP forward against tp_decode_ref and against the single-device
+    decode megakernel; with `timing`, ms per launch and per step."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    s = tp_setup(cfg, params, n, mode, gen, dev)
+    plan, packs, st, caches = s["plan"], s["packs"], s["st"], s["caches"]
+    mode, L, B = s["mode"], plan.L, plan.B
+    what0 = f"tp n={n} {mode.value}"
+    act = st["active"]
+    step = (st["cos"], st["sin"], st["pt"], st["lens"], st["active"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 17 + n)
+    errs = dict(attn=0.0, mlp=0.0, lm=0.0)
+    for r in range(n):
+        add = torch.randn((B, plan.hid), generator=g, device=dev) * 0.5
+        for l in (0, L - 1):
+            x = s["x0"].float()
+            xs = {True: x.clone(), False: x.clone()}
+            cs = {True: caches[r].clone(), False: caches[r].clone()}
+            out = {True: tpk.tp_attn_segment(plan, packs[r], l, xs[True],
+                                             *step, cs[True], add=add)}
+            tpk.check_status(plan, dev)
+            out[False] = tpk.attn_segment_ref(plan, packs[r], l, xs[False],
+                                              *step, cs[False], add=add)
+            what = f"{what0} attn rank {r} layer {l}"
+            check(bool((xs[True] == xs[False]).all()),
+                  f"{what}: x + add differs")
+            errs["attn"] = max(errs["attn"], held_rows(out[True], out[False],
+                                                       act, what))
+            check_written_pool(what, mode, cs[True], cs[False], caches[r],
+                               tp_written(s, (l,), dev), L, dev)
+            xs = {True: x.clone(), False: x.clone()}
+            out = {True: tpk.tp_mlp_segment(plan, packs[r], l, xs[True],
+                                            add=add)}
+            tpk.check_status(plan, dev)
+            out[False] = tpk.mlp_segment_ref(plan, packs[r], l, xs[False],
+                                             add=add)
+            errs["mlp"] = max(errs["mlp"], held_rows(
+                out[True], out[False], act, f"{what0} mlp rank {r} layer {l}"))
+        xs = {True: s["x0"].float(), False: s["x0"].float()}
+        out = {True: tpk.tp_lm_segment(plan, packs[r], xs[True], add=add)}
+        tpk.check_status(plan, dev)
+        out[False] = tpk.lm_segment_ref(plan, packs[r], xs[False], add=add)
+        check(tuple(out[True].shape) == (B, cfg.vocab_size // n),
+              f"{what0}: lm shard {tuple(out[True].shape)}")
+        errs["lm"] = max(errs["lm"], held_rows(out[True], out[False], act,
+                                               f"{what0} lm rank {r}"))
+    # the whole forward: CUDA-graph replay of the kernels' forward, against
+    # the plain forward and the single-device megakernel on clones of the
+    # pools
+    torch.cuda.synchronize()
+    devices = s["mesh"].devices
+    ck = [c.clone() for c in caches]
+    cp = [c.clone() for c in caches]
+
+    def fwd():
+        return tpk.tp_decode(plan, packs, s["x0"], *step, ck, devices)
+
+    fwd()                           # warm-up: the same writes
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits_k = fwd()
+    graph.replay()
+    tpk.check_status(plan, dev)
+    logits_p = tpk.tp_decode_ref(plan, packs, s["x0"], *step, cp, devices)
+    torch.cuda.synchronize()
+    what = f"{what0} forward"
+    f_err = held_rows(logits_k, logits_p, act, what)
+    same = check_argmax(logits_k, logits_p, act, f_err, what)
+    written = tp_written(s, range(L), dev)
+    for r in range(n):
+        check_written_pool(f"{what} rank {r}", mode, ck[r], cp[r], caches[r],
+                           written, L, dev)
+    # the single-device megakernel on the same weights and state: its pool
+    # holds every KV head, the ranks' side by side
+    plan1, pack1 = mk_plan_pack(cfg, params, B, mode)
+
+    def full(pools, name):
+        ts = [getattr(c, name) for c in pools]
+        if ts[0] is None:
+            return None
+        return torch.cat(ts, dim=1 if name.endswith("qparams") else 2)
+
+    from dashinfer_tpu_torch.runtime.kv_cache import KVCache
+    names = ("k", "v", "k_qparams", "v_qparams")
+    before1 = KVCache(*(full(caches, nm) for nm in names))
+    c1 = before1.clone()
+    logits_1 = mk.decode_megakernel(plan1, pack1, s["x0"], *step, c1)
+    mk.check_status(plan1, dev)
+    what = f"{what0} forward vs the single-device megakernel"
+    m_err = held_rows(logits_k, logits_1, act, what)
+    m_same = check_argmax(logits_k, logits_1, act, m_err, what)
+    check_written_pool(what, mode, KVCache(*(full(ck, nm) for nm in names)),
+                       c1, before1, written, L, dev)
+    row = dict(n=n, mode=mode.value, errs=errs, forward_err=f_err,
+               forward_argmax_equal=same, vs_megakernel_err=m_err,
+               vs_megakernel_argmax_equal=m_same,
+               geometry=tpk.launch_geometry(plan, dev))
+    print(f"{what0}: segments max|d| attn {errs['attn']:.3e} mlp "
+          f"{errs['mlp']:.3e} lm {errs['lm']:.3e}; forward (graph replay) "
+          f"vs plain {f_err:.3e} (argmax equal {same}/{int(act.sum())}), vs "
+          f"the single-device megakernel {m_err:.3e} ({m_same}); pools "
+          f"held; geometry {row['geometry']}", flush=True)
+    if timing:
+        row.update(tp_timing(cfg, s, plan1, pack1, c1, step, dev))
+    del graph, ck, cp, c1, before1
+    return row
+
+
+def tp_timing(cfg, s, plan1, pack1, c1, step, dev):
+    """ms per launch of each segment (rank 0, layer 0; graph replay, CUDA
+    events) beside its bound and its plain version's time, and ms per step
+    of the TP forward beside the single-device megakernel's, the ranks on
+    one card."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    plan, pk, cache = s["plan"], s["packs"][0], s["caches"][0]
+    B, L, n = plan.B, plan.L, s["mesh"].n
+    x = s["x0"].float()
+    lens, act = s["lens"], [i != s["inactive"] for i in range(B)]
+    kv = kv_bytes_read(s["cfg_l"], s["mode"], lens, act) / L
+    io = 2 * B * plan.hid * 4
+    segs = {
+        "attn": (lambda: tpk.tp_attn_segment(plan, pk, 0, x, *step, cache),
+                 lambda: tpk.attn_segment_ref(plan, pk, 0, x.clone(), *step,
+                                              cache.clone()),
+                 plan.qkv.matrix_bytes + plan.o.matrix_bytes + kv + io,
+                 2 * B * (plan.qkv.K * plan.qkv.Ntot + plan.o.K *
+                          plan.o.Ntot) +
+                 4 * plan.H * plan.D * sum(n_ for n_, a in zip(lens, act)
+                                           if a)),
+        "mlp": (lambda: tpk.tp_mlp_segment(plan, pk, 0, x),
+                lambda: tpk.mlp_segment_ref(plan, pk, 0, x.clone()),
+                plan.gu.matrix_bytes + plan.dn.matrix_bytes + io,
+                2 * B * (plan.gu.K * plan.gu.Ntot + plan.dn.K * plan.dn.Ntot)),
+        "lm": (lambda: tpk.tp_lm_segment(plan, pk, x),
+               lambda: tpk.lm_segment_ref(plan, pk, x.clone()),
+               plan.lm.matrix_bytes + B * plan.hid * 4 + B * plan.V * 4,
+               2 * B * plan.lm.K * plan.lm.Ntot),
+    }
+    out = {}
+    for name, (fn, plain, nbytes, ops) in segs.items():
+        ms = time_ms(fn, [()], iters=20)
+        tpk.check_status(plan, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        b = bounds(nbytes, ops)
+        out[name] = dict(ms=ms, plain_ms=1e3 * (time.perf_counter() - t0),
+                         bound_ms=max(b["bytes_ms"], b["ops_ms"]),
+                         bound_by=("bytes" if b["bytes_ms"] >= b["ops_ms"]
+                                   else "operations"),
+                         weight_bytes=nbytes - io, **b)
+        print(f"  tp_{name}_segment (n={n}, rank 0, ranks on one card): "
+              f"{ms:.4f} ms a launch, bound {out[name]['bound_ms']:.4f} "
+              f"({out[name]['bound_by']}; {nbytes / 1e6:.1f} MB), plain "
+              f"{out[name]['plain_ms']:.1f} ms", flush=True)
+    devices = s["mesh"].devices
+    caches = s["caches"]
+    tp_ms = time_ms(lambda: tpk.tp_decode(plan, s["packs"], s["x0"], *step,
+                                          caches, devices), [()], iters=3)
+    tpk.check_status(plan, dev)
+    mk_ms = time_ms(lambda: mk.decode_megakernel(plan1, pack1, s["x0"], *step,
+                                                 c1), [()], iters=3)
+    mk.check_status(plan1, dev)
+    fwd_bytes = n * (L * plan.layer_bytes() + plan.lm.matrix_bytes) + \
+        kv_bytes_read(cfg, s["mode"], lens, act)
+    print(f"  TP forward (n={n}, the ranks on one card, B={B}): {tp_ms:.3f} "
+          f"ms/step ({L * (1 + 1) * n + n} segment launches); single-device "
+          f"megakernel {mk_ms:.3f} ms/step; one card's byte bound for the "
+          f"whole step {1e3 * fwd_bytes / HBM_BYTES_PER_S:.3f} ms", flush=True)
+    return dict(segments=out, tp_forward_ms=tp_ms, megakernel_ms=mk_ms,
+                forward_bound_ms=1e3 * fwd_bytes / HBM_BYTES_PER_S)
+
+
+def check_tp_segments(params, dev, details):
+    import torch
+    from dashinfer_tpu_torch.config import ModelConfig
+    cfg = ModelConfig(**QWEN2_7B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    rows = []
+    for i, (n, mode) in enumerate(TP_CASES):
+        rows.append(check_tp_segment_case(cfg, params, n, mode, gen, dev,
+                                          timing=i == 0))
+        torch.cuda.empty_cache()
+    details["tp_segments"] = rows
+    t = rows[0]["segments"]
+    return {f"tp_{k}_segment": dict(
+        max_abs_err=max(r["errs"][k] for r in rows), ms=t[k]["ms"],
+        plain_ms=t[k]["plain_ms"], bound_ms=t[k]["bound_ms"],
+        bound_by=t[k]["bound_by"], library_ms=None)
+        for k in ("attn", "mlp", "lm")}
+
+
+def tp_devices(dev):
+    """The served mesh's ranks: distinct cards when the machine has as many,
+    else every rank on `dev`."""
+    import torch
+    if torch.cuda.device_count() >= TP_RANKS:
+        return [torch.device("cuda", i) for i in range(TP_RANKS)]
+    return [dev] * TP_RANKS
+
+
+def check_serving_tp(params, dev, details, single_tokens):
+    """Qwen2-7B on a (1, 2) mesh with serve()'s traffic: every flag at its
+    default (decode through the TP segments, prefill per-op TP) and per-op
+    (24 tokens a request); the greedy requests' first 8 tokens equal to the
+    single-device serving's on the same path."""
+    import torch
+    from dashinfer_tpu_torch.parallel import collective_kind
+    devices = tp_devices(dev)
+    print(json.dumps({"tp": {"ranks": TP_RANKS,
+                             "cards": torch.cuda.device_count(),
+                             "collective": collective_kind(devices)}}),
+          flush=True)
+    out = {}
+    for path, new_tokens in (("tp", 64), ("tp per-op", 24)):
+        launches, tokens, _ = serve(params, dev, details, path, new_tokens,
+                                    devices=devices)
+        ref = single_tokens["megakernel" if path == "tp" else "per-op"]
+        agree = []
+        for i, (a, b) in enumerate(zip(tokens, ref)):
+            if i % 2:
+                continue                # sampled
+            n = min(len(a), len(b))
+            same = next((j for j in range(n) if a[j] != b[j]), n)
+            agree.append(same)
+            print(f"greedy request prompt={PROMPT_LENS[i]}: {path} and "
+                  f"single-device serving agree on the first {same} of {n} "
+                  "tokens compared", flush=True)
+            check(same >= 8, f"greedy request (prompt {PROMPT_LENS[i]}): "
+                  f"{path} and single-device serving agree on only {same} "
+                  "tokens")
+        details[f"greedy_agreement_{path}"] = agree
+        out[path] = launches
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("quant_matmul", "paged_attention", "grouped_quant_matmul",
           "stream_probe", "probes", "megakernel", "prefill_megakernel",
-          "serve", "decode_logits")
+          "serve", "decode_logits", "tp_segments", "serve_tp")
 MOE_PHASES = ("megakernel", "prefill_megakernel", "serve")
 
 
@@ -2100,11 +2492,21 @@ def main(argv=None) -> int:
             if phase("prefill_megakernel"):
                 res["prefill_megakernel"] = check_prefill_megakernel(
                     params, dev, details)
+            single_tokens = None
             if phase("serve"):
-                mk_launches, op_launches, po_launches = check_serving(
-                    params, dev, details)
+                mk_launches, op_launches, po_launches, single_tokens = \
+                    check_serving(params, dev, details)
             if phase("decode_logits"):
                 check_decode_logits(params, dev, details)
+            if phase("tp_segments"):
+                res.update(check_tp_segments(params, dev, details))
+            if phase("serve_tp"):
+                if single_tokens is None:     # --only without serve
+                    single_tokens = {p: serve(params, dev, details, p, n)[1]
+                                     for p, n in (("megakernel", 64),
+                                                  ("per-op", 24))}
+                tp_launches = check_serving_tp(params, dev, details,
+                                               single_tokens)
             # the MoE slice, on the card alone: Qwen2-7B's weights go first
             del params
             torch.cuda.empty_cache()
@@ -2136,8 +2538,9 @@ def main(argv=None) -> int:
     # launches: each kernel's count over the timed requests of the path it
     # serves (the per-op path for the first two, the megakernel path for
     # the third and the fifth, the MoE model's default serving for the
-    # grouped GEMM and the megakernels' MoE entries), and over the probe
-    # tools' own runs for the fourth and the last two
+    # grouped GEMM and the megakernels' MoE entries, the (1, 2) mesh's
+    # default serving for the TP segments), and over the probe tools' own
+    # runs for the fourth and the two probes
     csrc = "dashinfer_tpu_torch/csrc/"
     moe_decode = dict(launches=moe_launches["decode_megakernel"],
                       **res["decode_megakernel_moe"])
@@ -2179,7 +2582,15 @@ def main(argv=None) -> int:
              **res["probe_magic_dequant"]),
         dict(name="probe_reshape", route="cuda", source=csrc + "probes.cu",
              replaces="tools/probe_reshape.py:26", **res["probe_reshape"]),
-    ]
+    ] + [
+        # the TP segments' launches: the (1, 2) mesh serving with the
+        # default flags
+        dict(name=f"tp_{k}_segment", route="cuda",
+             source=csrc + "tp_segments.cu",
+             replaces=f"dashinfer_tpu/ops/pallas/tp_megakernel.py:{line}",
+             launches=tp_launches["tp"][f"tp_{k}_segment"],
+             **res[f"tp_{k}_segment"])
+        for k, line in (("attn", 346), ("mlp", 849), ("lm", 1167))]
     for k in kernels:
         check_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")

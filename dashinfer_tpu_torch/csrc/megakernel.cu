@@ -66,91 +66,14 @@
 // gates in ascending expert order, then the shared expert's times its gate.
 // With a trace buffer, block
 // 0 writes a timestamp where it ends each phase and where it leaves each
-// barrier (ops/megakernel.py `phase_times`).
+// barrier (ops/megakernel.py `phase_times`). The dense layer phases live in
+// di_layer.cuh, which the tensor-parallel segments (tp_segments.cu) share.
 
-#include "di_product.cuh"
+#include "di_layer.cuh"
 
 namespace {
 
 using namespace di;
-
-constexpr int kSlab = 128;        // columns per item of the norm phases
-constexpr int kMaxStripes = 16;   // attention stripes per slot (wrapper)
-constexpr int kAttUnit = 64;      // tokens per unit of a stripe (wrapper)
-constexpr int kAttDepth = 4;      // tokens a warp keeps in flight
-constexpr int kAttSlotMax = 2 * 4 * kD + 16;   // f32 K row + V row + qparams
-
-__device__ __forceinline__ void grid_barrier(const Args& a, int phase) {
-  di::grid_barrier(a.barrier, a.status, a.trace, phase);
-}
-
-// The residual update and RMSNorm before a product, in two phases with a
-// grid barrier between them, so that a row is spread over many blocks (one
-// block pulls a row's split-K partials from L2 at a small part of the
-// card's rate). Item = (row m, slab of kSlab = 128 columns).
-//   resid_phase: resid[m] (+)= sum of the split-K partials of the product
-//     before it (or x0 in the first layer); the slab's values, its norm
-//     weights (read once a step, so from device memory) and its sum of
-//     squares -> shared memory / ssq scratch;
-//   norm_phase: the row's sum of squares from all slabs' (a fixed order),
-//     then RMSNorm with weight w -> the slab's two chunks of the x records.
-// A block meets the same items in both phases and keeps their values in
-// shared memory across the barrier: [item k][kSlab] values, then weights.
-__device__ __forceinline__ int norm_items_per_block(const Args& a) {
-  const int items = a.B * (a.hid / kSlab);
-  return (items + gridDim.x - 1) / gridDim.x;
-}
-
-__device__ void resid_phase(const Args& a, const float* part, int ksplit,
-                            bool from_x0, const float* w, float* smem) {
-  const int hid = a.hid, nslab = hid / kSlab;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int per_block = norm_items_per_block(a);
-  float* vals = smem;                          // [per_block][kSlab]
-  float* wts = vals + per_block * kSlab;       // [per_block][kSlab]
-  float* red = wts + per_block * kSlab;        // [kWarps]
-  // the block's two halves take one item each at a time
-  const int half = tid / kSlab, t = tid % kSlab;
-  for (int k0 = 0; k0 < per_block; k0 += kThreads / kSlab) {
-    const int k = k0 + half;
-    const int it = blockIdx.x + k * gridDim.x;
-    const bool valid = k < per_block && it < a.B * nslab;
-    if (valid) {
-      const int m = it / nslab, i = (it % nslab) * kSlab + t;
-      const float wv = w[i];
-      float v;
-      if (from_x0) {
-        v = __bfloat162float(a.x0[(size_t)m * hid + i]);
-      } else {
-        v = __ldcg(a.resid + (size_t)m * hid + i);
-        // four splits' loads are issued before the first is added
-        for (int s = 0; s < ksplit; s += 4) {
-          float p[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            p[q] = s + q < ksplit
-                       ? __ldcg(part + ((size_t)(s + q) * a.B + m) * hid + i)
-                       : 0.f;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) v += p[q];
-        }
-      }
-      a.resid[(size_t)m * hid + i] = v;
-      vals[k * kSlab + t] = v;
-      wts[k * kSlab + t] = wv;
-      const float ss = warp_sum(v * v);
-      if (lane == 0) red[warp] = ss;
-    }
-    __syncthreads();
-    if (valid && t == 0) {
-      float tot = 0.f;
-#pragma unroll
-      for (int j = 0; j < kSlab / 32; ++j) tot += red[half * (kSlab / 32) + j];
-      a.ssq[it] = tot;
-    }
-    __syncthreads();
-  }
-}
 
 // resid_phase after a MoE layer (`layer`): resid[m] += the row's routed
 // experts' down products times their gates (ascending experts; an inactive
@@ -221,58 +144,6 @@ __device__ __noinline__ void moe_resid_phase(const Args& a, const float* part,
   }
 }
 
-__device__ void norm_phase(const Args& a, float* smem) {
-  const int hid = a.hid, nslab = hid / kSlab;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int per_block = norm_items_per_block(a);
-  const float* vals = smem;
-  const float* wts = vals + per_block * kSlab;
-  // a pair of warps takes an item: one 64-column chunk of the records each
-  constexpr int kPer = kSlab / kChunkK;
-  for (int k = warp / kPer; k < per_block; k += kWarps / kPer) {
-    const int it = blockIdx.x + k * gridDim.x;
-    if (it >= a.B * nslab) break;
-    const int m = it / nslab, slab = it % nslab, c = warp % kPer;
-    float tot = 0.f;
-    for (int j = lane; j < nslab; j += 32)
-      tot += __ldcg(a.ssq + m * nslab + j);
-    tot = warp_sum(tot);
-    const float inv = 1.0f / sqrtf(tot / (float)hid + a.eps);
-    const int e = k * kSlab + c * kChunkK + 2 * lane;
-    write_record(a.rec, a.mpad, slab * kPer + c, m, lane,
-                 vals[e] * inv * wts[e], vals[e + 1] * inv * wts[e + 1]);
-  }
-}
-
-// SwiGLU of one (row m, 64-column chunk c) of a gate|up product's partials
-// (`part`: split 0's [B][ntot]; up starts at the gate leaf's padded width)
-// -> chunk c of the down product's x records.
-__device__ __forceinline__ void swiglu_chunk(const Args& a, const Stream& st,
-                                             const float* part, int m, int c,
-                                             uint8_t* rec, int lane) {
-  const int col = c * kChunkK + 2 * lane;
-  float g0 = 0.f, g1 = 0.f, u0 = 0.f, u1 = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < st.ksplit; ++s) {
-    const float* p = part + ((size_t)s * a.B + m) * st.ntot + col;
-    const float2 g = __ldcg(reinterpret_cast<const float2*>(p));
-    const float2 u = __ldcg(reinterpret_cast<const float2*>(p + st.n[0]));
-    g0 += g.x; g1 += g.y; u0 += u.x; u1 += u.y;
-  }
-  write_record(rec, a.mpad, c, m, lane,
-               g0 / (1.0f + expf(-g0)) * u0, g1 / (1.0f + expf(-g1)) * u1);
-}
-
-// SwiGLU of the gate|up partials -> x records of the down product.
-__device__ void act_phase(const Args& a) {
-  const int chunks = a.inter / kChunkK;
-  const int lane = threadIdx.x & 31;
-  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int nw = gridDim.x * kWarps;
-  for (int it = gw; it < chunks * a.B; it += nw)
-    swiglu_chunk(a, a.st[kGu], a.partial, it / chunks, it % chunks, a.rec,
-                 lane);
-}
 
 // MoE: the routed experts' SwiGLU (their gate|up partials in epart -> their
 // down x records in erec), then the shared expert's (partial -> rec).
@@ -348,367 +219,6 @@ __device__ __noinline__ int routed_experts(const Args& a, int layer,
   }
   __syncthreads();
   return *count;
-}
-
-// Merges the sequence stripes of each (slot, query head) -> attn_out as the
-// x records of the o product. One warp per (slot, head, half of D).
-__device__ void merge_phase(const Args& a) {
-  const int lane = threadIdx.x & 31;
-  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int nw = gridDim.x * kWarps;
-  const int NS = a.nsplit;
-  for (int it = gw; it < a.B * a.H * 2; it += nw) {
-    const int half = it & 1, head = (it >> 1) % a.H, b = (it >> 1) / a.H;
-    // stripe j holds tokens iff j * unit < len; stripe 0 always holds the
-    // new token
-    const int len = a.active[b] ? a.lens[b] : 0;
-    int used = (len + kAttUnit - 1) / kAttUnit;
-    used = max(1, min(used, NS));
-    const size_t slot = ((size_t)b * a.H + head) * NS;
-    const float* ml = a.att_ml + slot * 2;
-    const float* acc = a.att_acc + slot * kD + half * 64 + 2 * lane;
-    // all stripes' loads are issued together (NS <= kMaxStripes)
-    float2 mlv[kMaxStripes], av[kMaxStripes];
-#pragma unroll
-    for (int c = 0; c < kMaxStripes; ++c) {
-      if (c < used) {
-        mlv[c] = __ldcg(reinterpret_cast<const float2*>(ml + 2 * c));
-        av[c] = __ldcg(reinterpret_cast<const float2*>(acc + (size_t)c * kD));
-      }
-    }
-    float mx = -FLT_MAX;
-#pragma unroll
-    for (int c = 0; c < kMaxStripes; ++c)
-      if (c < used) mx = fmaxf(mx, mlv[c].x);
-    float lsum = 0.f, o0 = 0.f, o1 = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxStripes; ++c) {
-      if (c < used) {
-        const float f = expf(mlv[c].x - mx);
-        lsum += mlv[c].y * f;
-        o0 += av[c].x * f;
-        o1 += av[c].y * f;
-      }
-    }
-    if (lsum == 0.f) lsum = 1.f;
-    write_record(a.rec, a.mpad, head * 2 + half, b, lane, o0 / lsum,
-                 o1 / lsum);
-  }
-}
-
-// Attention of one layer. Item = (slot b, KV head h, stripe j): the
-// sequence is cut into units of kAttUnit tokens and stripe j takes the
-// units j, j + NS, j + 2 NS, ... (online softmax is associative, so one
-// state per stripe is enough however long the sequence is, and the stripes
-// of a long slot are equally long). Within a unit the block's warps take
-// one token each. Stripe 0 also quantizes and writes the new token and
-// folds it in.
-// smem: raw [(G+2)][128] f32 (q heads, k, v with bias), rot [(G+1)][128]
-// (q after RoPE rounded to bf16, k after RoPE in f32), the warps' softmax
-// states for the merge, then the warps' token rings.
-template <int KIND>
-__device__ void attention_phase(const Args& a, int layer, float* smem) {
-  constexpr bool kQuant = KIND == kI8 || KIND == kU4;
-  constexpr int Ds = KIND == kU4 ? kD / 2 : kD;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int H = a.H, KH = a.KH, G = H / KH, NS = a.nsplit;
-  const int QKVN = (H + 2 * KH) * kD;
-  const Stream& st = a.st[kQkv];
-  float* raw = smem;
-  float* rot = raw + (kMaxG + 2) * kD;
-  float* m_s = rot + (kMaxG + 1) * kD;       // [kWarps][G]
-  float* l_s = m_s + kWarps * kMaxG;         // [kWarps][G]
-  float* acc_s = l_s + kWarps * kMaxG;       // [kWarps][G][D]
-  const float* bias =
-      a.qkv_b == nullptr ? nullptr : a.qkv_b + (size_t)layer * QKVN;
-  const size_t row_elems = (size_t)KH * Ds;
-  const int n_items = a.B * KH * NS;
-
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int s = item % NS, h = (item / NS) % KH, b = item / (NS * KH);
-    const bool act = a.active[b] != 0;
-    const int len = a.lens[b];
-    constexpr int unit = kAttUnit;
-    const int t_end = act ? len : 0;
-    if (s > 0 && s * unit >= t_end) continue;   // block-uniform
-
-    // q heads of this KV head, k, v: sum of the split-K partials, + bias
-    {
-      constexpr int kPer = ((kMaxG + 2) * kD + kThreads - 1) / kThreads;
-      float v[kPer], bv[kPer];
-      int cols[kPer];
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int i = tid + u * kThreads;
-        const int r = i / kD, d = i % kD;
-        cols[u] = r < G ? (h * G + r) * kD + d
-                        : (r == G ? (H + h) * kD + d
-                                  : (H + KH + h) * kD + d);
-        // the bias comes from device memory (read once a step): its load
-        // is in flight while the partial sums are added
-        bv[u] = (bias != nullptr && i < (G + 2) * kD) ? bias[cols[u]] : 0.f;
-        v[u] = 0.f;
-      }
-#pragma unroll 4
-      for (int sp = 0; sp < st.ksplit; ++sp) {
-        const float* p = a.partial + ((size_t)sp * a.B + b) * QKVN;
-#pragma unroll
-        for (int u = 0; u < kPer; ++u)
-          if (tid + u * kThreads < (G + 2) * kD) v[u] += __ldcg(p + cols[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int i = tid + u * kThreads;
-        if (i < (G + 2) * kD) raw[i] = v[u] + bv[u];
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < (G + 1) * kD; i += kThreads) {
-      const int r = i / kD, d = i % kD;
-      const float x = raw[i];
-      const float xr = d < kD / 2 ? -raw[i + kD / 2] : raw[i - kD / 2];
-      const float v = x * __bfloat162float(a.cos[(size_t)b * kD + d]) +
-                      xr * __bfloat162float(a.sin[(size_t)b * kD + d]);
-      rot[i] = r < G ? __bfloat162float(__float2bfloat16(v)) : v;
-    }
-    __syncthreads();
-    const float* k_new = rot + G * kD;
-    const float* v_new = raw + (G + 1) * kD;
-
-    // the new token goes to its page: warp 0 writes K, warp 1 writes V
-    if (s == 0 && act && warp < 2) {
-      const float* src = warp == 0 ? k_new : v_new;
-      void* pool = warp == 0 ? a.k_pool : a.v_pool;
-      float* qp = warp == 0 ? a.k_qp : a.v_qp;
-      const int col = min(len / a.ps, a.maxP - 1);
-      const size_t page = (size_t)a.pt[(size_t)b * a.maxP + col] * a.L + layer;
-      const int off = len % a.ps;
-      const size_t base = (page * a.ps + off) * row_elems + (size_t)h * Ds;
-      float v[kDPL];
-#pragma unroll
-      for (int i = 0; i < kDPL; ++i) v[i] = src[dim_of<KIND, kDPL>(lane, i)];
-      if (KIND == kF32) {
-        *reinterpret_cast<float4*>(static_cast<float*>(pool) + base +
-                                   lane * kDPL) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      } else if (KIND == kBF16) {
-        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
-            static_cast<__nv_bfloat16*>(pool) + base + lane * kDPL);
-        p[0] = __floats2bfloat162_rn(v[0], v[1]);
-        p[1] = __floats2bfloat162_rn(v[2], v[3]);
-      } else {
-        float mn = fminf(fminf(v[0], v[1]), fminf(v[2], v[3]));
-        float mx = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
-        mn = warp_min(mn);
-        mx = warp_max(mx);
-        const float levels = KIND == kI8 ? 255.f : 15.f;
-        const float sc = fmaxf((mx - mn) / levels, 1e-8f);
-        int q[kDPL];
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i) {
-          const float r = rintf((v[i] - mn) / sc);
-          q[i] = KIND == kI8 ? (int)fminf(fmaxf(r - 128.f, -128.f), 127.f)
-                             : (int)fminf(fmaxf(r, 0.f), 15.f);
-        }
-        if (KIND == kI8) {
-          const uint32_t word = (uint32_t)(q[0] & 0xFF) |
-                                ((uint32_t)(q[1] & 0xFF) << 8) |
-                                ((uint32_t)(q[2] & 0xFF) << 16) |
-                                ((uint32_t)(q[3] & 0xFF) << 24);
-          *reinterpret_cast<uint32_t*>(static_cast<uint8_t*>(pool) + base +
-                                       lane * kDPL) = word;
-        } else {
-          // registers 0, 1 are the low nibbles of bytes 2*lane, 2*lane + 1
-          const uint16_t half = (uint16_t)((q[0] | (q[2] << 4)) |
-                                           ((q[1] | (q[3] << 4)) << 8));
-          *reinterpret_cast<uint16_t*>(static_cast<uint8_t*>(pool) + base +
-                                       lane * (kDPL / 2)) = half;
-        }
-        if (lane == 0) {
-          const size_t qrow = (page * 2 * KH + 2 * h) * a.ql + off;
-          qp[qrow] = sc;
-          qp[qrow + a.ql] = KIND == kI8 ? mn + 128.f * sc : mn;
-        }
-      }
-    }
-
-    float qv[kMaxG][kDPL], m[kMaxG], l[kMaxG], acc[kMaxG][kDPL];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-#pragma unroll
-      for (int i = 0; i < kDPL; ++i) {
-        qv[g][i] = g < G ? rot[g * kD + dim_of<KIND, kDPL>(lane, i)] : 0.f;
-        acc[g][i] = 0.f;
-      }
-      m[g] = -FLT_MAX;
-      l[g] = 0.f;
-    }
-
-    // Each warp keeps its next kAttDepth tokens in flight: cp.async brings
-    // a token's K row, V row and four qparams into the warp's ring in
-    // shared memory (one commit group a token), so the card's memory
-    // latency is paid once per kAttDepth tokens and costs no registers.
-    constexpr int kRowB = KIND == kF32 ? 4 * kD
-                          : (KIND == kBF16 ? 2 * kD : (KIND == kI8 ? kD : kD / 2));
-    constexpr int kSlot = 2 * kRowB + 16;
-    constexpr int kVecs = 2 * kRowB / 16;       // 16-byte copies per token
-    uint8_t* ring = reinterpret_cast<uint8_t*>(acc_s + kWarps * kMaxG * kD) +
-                    (size_t)warp * kAttDepth * kAttSlotMax;
-    auto issue = [&](int t, int slot) {
-      uint8_t* dst = ring + slot * kSlot;
-      const int col = t / a.ps, off = t - col * a.ps;
-      const size_t page =
-          (size_t)a.pt[(size_t)b * a.maxP + col] * a.L + layer;
-      const size_t base =
-          ((page * a.ps + off) * row_elems + (size_t)h * Ds) * (kRowB / Ds);
-      for (int i = lane; i < kVecs; i += 32) {
-        const bool is_v = i >= kVecs / 2;
-        const int j = is_v ? i - kVecs / 2 : i;
-        const uint8_t* src =
-            static_cast<const uint8_t*>(is_v ? a.v_pool : a.k_pool);
-        cp_async16(dst + (is_v ? kRowB : 0) + j * 16, src + base + j * 16);
-      }
-      if (kQuant && lane < 4) {
-        const size_t qrow = (page * 2 * KH + 2 * h) * a.ql + off;
-        const float* src = (lane < 2 ? a.k_qp : a.v_qp) + qrow +
-                           (lane & 1) * a.ql;
-        cp_async4(dst + 2 * kRowB + lane * 4, src);
-      }
-    };
-    // the warp's next token: 8 on within the unit, else the same place in
-    // the stripe's next unit (unit is a multiple of kWarps)
-    auto next_tok = [&](int t) {
-      const int tn = t + kWarps;
-      return tn / unit != t / unit ? tn + (NS - 1) * unit : tn;
-    };
-    int t = s * unit + warp;
-    int t_load = t;
-    for (int d = 0; d < kAttDepth - 1; ++d) {
-      if (t_load < t_end) {
-        issue(t_load, d);
-        t_load = next_tok(t_load);
-      }
-      cp_async_commit();
-    }
-    int slot = 0;
-    while (t < t_end) {
-      if (t_load < t_end) {
-        issue(t_load, (slot + kAttDepth - 1) % kAttDepth);
-        t_load = next_tok(t_load);
-      }
-      cp_async_commit();
-      cp_async_wait<kAttDepth - 1>();
-      __syncwarp();      // every lane's copies of this token have landed
-      const uint8_t* tok = ring + slot * kSlot;
-      float kx[kDPL], vx[kDPL];
-      load_row<KIND, kDPL>(tok, 0, lane, kx);
-      load_row<KIND, kDPL>(tok + kRowB, 0, lane, vx);
-      // dequantize the token's 4 + 4 values once; all head slots share them
-      // (on this card that is cheaper than the affine after each head's dot)
-      if (kQuant) {
-        const float4 qp = *reinterpret_cast<const float4*>(tok + 2 * kRowB);
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i) {
-          kx[i] = fmaf(kx[i], qp.x, qp.y);
-          vx[i] = fmaf(vx[i], qp.z, qp.w);
-        }
-      }
-      // all kMaxG head slots, without a branch on G: the unused ones hold
-      // q = 0 and are never written out, and the used ones' dependent
-      // chains (dot, shuffles, exp) interleave (a branch that skips the
-      // rescale while the maximum stands still was measured: it serializes
-      // the heads and loses).
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        float sc = 0.f;
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i) sc = fmaf(qv[g][i], kx[i], sc);
-        sc = warp_sum(sc) * a.att_scale;
-        const float m_new = fmaxf(m[g], sc);
-        const float alpha = __expf(m[g] - m_new);
-        const float p = __expf(sc - m_new);
-        l[g] = l[g] * alpha + p;
-        m[g] = m_new;
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i)
-          acc[g][i] = fmaf(acc[g][i], alpha, p * vx[i]);
-      }
-      __syncwarp();      // the slot is read before it is loaded again
-      slot = (slot + 1) % kAttDepth;
-      t = next_tok(t);
-    }
-    cp_async_wait<0>();
-
-    // the new token, from its unquantized f32 K/V (warp 0 of split 0)
-    if (s == 0 && warp == 0) {
-      float kv[kDPL], vv[kDPL];
-#pragma unroll
-      for (int i = 0; i < kDPL; ++i) {
-        kv[i] = k_new[dim_of<KIND, kDPL>(lane, i)];
-        vv[i] = v_new[dim_of<KIND, kDPL>(lane, i)];
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          float sc = 0.f;
-#pragma unroll
-          for (int i = 0; i < kDPL; ++i) sc = fmaf(qv[g][i], kv[i], sc);
-          sc = warp_sum(sc) * a.att_scale;
-          const float m_new = fmaxf(m[g], sc);
-          const float alpha = expf(m[g] - m_new);
-          const float p = expf(sc - m_new);
-          l[g] = l[g] * alpha + p;
-          m[g] = m_new;
-#pragma unroll
-          for (int i = 0; i < kDPL; ++i)
-            acc[g][i] = acc[g][i] * alpha + p * vv[i];
-        }
-      }
-    }
-
-    // merge the warps' states, write the split's (max, sum, acc)
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        if (lane == 0) {
-          m_s[warp * kMaxG + g] = m[g];
-          l_s[warp * kMaxG + g] = l[g];
-        }
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i)
-          acc_s[((size_t)warp * kMaxG + g) * kD +
-                dim_of<KIND, kDPL>(lane, i)] = acc[g][i];
-      }
-    }
-    __syncthreads();
-    for (int idx = tid; idx < G * kD; idx += kThreads) {
-      const int g = idx / kD, d = idx % kD;
-      float mx = -FLT_MAX;
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * kMaxG + g]);
-      float lsum = 0.f, o = 0.f;
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(m_s[w * kMaxG + g] - mx);
-        lsum += l_s[w * kMaxG + g] * f;
-        o += acc_s[((size_t)w * kMaxG + g) * kD + d] * f;
-      }
-      const size_t slot = ((size_t)b * H + h * G + g) * NS + s;
-      a.att_acc[slot * kD + d] = o;
-      if (d == 0) {
-        a.att_ml[2 * slot] = mx;
-        a.att_ml[2 * slot + 1] = lsum;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__device__ void attention(const Args& a, int layer, float* smem) {
-  switch (a.kv_kind) {
-    case kF32: attention_phase<kF32>(a, layer, smem); break;
-    case kBF16: attention_phase<kBF16>(a, layer, smem); break;
-    case kI8: attention_phase<kI8>(a, layer, smem); break;
-    default: attention_phase<kU4>(a, layer, smem); break;
-  }
 }
 
 // MOE: the MoE model's kernel. The dense kernel is compiled without any of
@@ -793,29 +303,6 @@ mk_kernel(const __grid_constant__ Args a) {
   grid_barrier(a, phase++);   // so that a trace shows the lm_head's end
 }
 
-int smem_bytes(int mt, int hid) {
-  const int prod = product_smem_bytes(mt);
-  const int att = 4 * ((kMaxG + 2) * kD + (kMaxG + 1) * kD +
-                       2 * kWarps * kMaxG + kWarps * kMaxG * kD) +
-                  kWarps * kAttDepth * kAttSlotMax;
-  // resid/norm phases: up to kMaxBatch * hid / kSlab items over >= one
-  // block per SM, values and weights each; far below the other two
-  return imax(prod, att);
-}
-
-// Index of each value in the `ia` array of di_megakernel (ops/megakernel.py
-// fills it with the same names).
-enum IArg {
-  I_NORMS, I_FINAL_NORM, I_QKV_B, I_X0, I_COS, I_SIN, I_PT, I_LENS, I_ACTIVE,
-  I_K_POOL, I_V_POOL, I_K_QP, I_V_QP, I_LOGITS, I_RESID, I_REC, I_PARTIAL,
-  I_ATT_ML, I_ATT_ACC, I_SSQ, I_BARRIER, I_STATUS, I_LAUNCHES, I_TRACE,
-  I_EPART, I_EREC, I_TOPK_E, I_TOPK_W, I_SGATE,
-  I_B, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXP, I_KV_KIND, I_QL,
-  I_NSPLIT, I_SPLIT_LEN, I_MPAD, I_SKIP_ATTN, I_GRID, I_E, I_K_TOP,
-  I_NORM_TOPK, I_HAS_SHARED, I_HAS_SGATE, I_SHARED_INTER, I_STREAMS
-};
-// then kStreamArgs values per stream (fill_stream)
-
 // Blocks of mk_kernel<MT, MOE> resident at once on one SM (0 on error).
 template <int MT, bool MOE>
 int per_sm(int smem) {
@@ -860,62 +347,7 @@ extern "C" int di_megakernel_grid(int device, int mpad, int hid, int moe) {
 extern "C" int di_megakernel(const long long* ia, const double* fa,
                              void* stream) {
   Args a;
-  a.norms = ptr<const float>(ia[I_NORMS]);
-  a.final_norm = ptr<const float>(ia[I_FINAL_NORM]);
-  a.qkv_b = ptr<const float>(ia[I_QKV_B]);
-  a.x0 = ptr<const __nv_bfloat16>(ia[I_X0]);
-  a.cos = ptr<const __nv_bfloat16>(ia[I_COS]);
-  a.sin = ptr<const __nv_bfloat16>(ia[I_SIN]);
-  a.pt = ptr<const int>(ia[I_PT]);
-  a.lens = ptr<const int>(ia[I_LENS]);
-  a.active = ptr<const uint8_t>(ia[I_ACTIVE]);
-  a.k_pool = ptr<void>(ia[I_K_POOL]);
-  a.v_pool = ptr<void>(ia[I_V_POOL]);
-  a.k_qp = ptr<float>(ia[I_K_QP]);
-  a.v_qp = ptr<float>(ia[I_V_QP]);
-  a.logits = ptr<float>(ia[I_LOGITS]);
-  a.resid = ptr<float>(ia[I_RESID]);
-  a.rec = ptr<uint8_t>(ia[I_REC]);
-  a.partial = ptr<float>(ia[I_PARTIAL]);
-  a.att_ml = ptr<float>(ia[I_ATT_ML]);
-  a.att_acc = ptr<float>(ia[I_ATT_ACC]);
-  a.ssq = ptr<float>(ia[I_SSQ]);
-  a.barrier = ptr<unsigned>(ia[I_BARRIER]);
-  a.status = ptr<int>(ia[I_STATUS]);
-  a.launches = ptr<unsigned long long>(ia[I_LAUNCHES]);
-  a.trace = ptr<unsigned long long>(ia[I_TRACE]);
-  a.epart = ptr<float>(ia[I_EPART]);
-  a.erec = ptr<uint8_t>(ia[I_EREC]);
-  a.topk_e = ptr<int>(ia[I_TOPK_E]);
-  a.topk_w = ptr<float>(ia[I_TOPK_W]);
-  a.sgate = ptr<float>(ia[I_SGATE]);
-  a.E = (int)ia[I_E];
-  a.k_top = (int)ia[I_K_TOP];
-  a.norm_topk = (int)ia[I_NORM_TOPK];
-  a.has_shared = (int)ia[I_HAS_SHARED];
-  a.has_sgate = (int)ia[I_HAS_SGATE];
-  a.shared_inter = (int)ia[I_SHARED_INTER];
-  a.B = (int)ia[I_B];
-  a.L = (int)ia[I_L];
-  a.hid = (int)ia[I_HID];
-  a.H = (int)ia[I_H];
-  a.KH = (int)ia[I_KH];
-  a.inter = (int)ia[I_INTER];
-  a.V = (int)ia[I_V];
-  a.ps = (int)ia[I_PS];
-  a.maxP = (int)ia[I_MAXP];
-  a.kv_kind = (int)ia[I_KV_KIND];
-  a.ql = (int)ia[I_QL];
-  a.nsplit = (int)ia[I_NSPLIT];
-  a.split_len = (int)ia[I_SPLIT_LEN];
-  a.mpad = (int)ia[I_MPAD];
-  a.skip_attn = (int)ia[I_SKIP_ATTN];
-  a.probe = 0;
-  a.eps = (float)fa[0];
-  a.att_scale = (float)fa[1];
-  for (int i = 0; i < kStreams; ++i) {
-    fill_stream(a.st[i], ia + I_STREAMS + kStreamArgs * i);
-  }
+  fill_args(a, ia, fa);
   // the wrapper's stripe geometry must be the kernel's
   if (a.split_len != kAttUnit || a.nsplit < 1 || a.nsplit > kMaxStripes)
     return (int)cudaErrorInvalidValue;

@@ -10,17 +10,19 @@ ticks; device work overlaps the host through CUDA's asynchronous launches.
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from dashinfer_tpu_torch.config import (GenerationConfig, ModelConfig,
                                         RuntimeConfig, SchedulingStrategy)
-from dashinfer_tpu_torch.engine.model_runtime import ModelRuntime
+from dashinfer_tpu_torch.engine.model_runtime import (ModelRuntime,
+                                                   mesh_devices)
 from dashinfer_tpu_torch.loader.convert import params_from_numpy, torch_dtype
 from dashinfer_tpu_torch.loader.quantize import quantize_params
 from dashinfer_tpu_torch.ops.grouped_quant_matmul import \
     prepare_grouped_experts
+from dashinfer_tpu_torch.parallel.mesh import make_mesh
 from dashinfer_tpu_torch.runtime.request import (GenerateRequestStatus,
                                                  Request, RequestHandle,
                                                  new_uuid)
@@ -168,12 +170,15 @@ class Engine:
     # -- model lifecycle ------------------------------------------------------
     def install_model(self, model, runtime_config: RuntimeConfig,
                       params=None, model_config: Optional[ModelConfig] = None,
-                      device: Union[str, torch.device] = "cuda"):
+                      device: Union[str, torch.device, Sequence] = "cuda"):
         """Install a model from (model_config, params). `params` is the
         JAX package's stacked param tree, as numpy / ml_dtypes arrays (the
         loader output, quantized here when runtime_config.quant asks) or as
         tensors. It is moved to `device`, the CUDA card unless the caller
-        asks for the CPU."""
+        asks for the CPU. On a `(1, n)` mesh (runtime_config.mesh_shape)
+        `device` may list the ranks' devices (["cpu", "cpu"] on the CPU;
+        one card named n times runs every rank on it); the default "cuda"
+        takes cuda:0 .. n-1 and raises when fewer cards exist."""
         if params is None or model_config is None:
             raise NotImplementedError(
                 f"loading {model!r} from a checkpoint is not ported to the "
@@ -184,13 +189,19 @@ class Engine:
                 raise ValueError("runtime_config.quant needs a numpy param "
                                  "tree (quantize before converting)")
             params = quantize_params(params, runtime_config.quant)
+        if tuple(runtime_config.mesh_shape) != (1, 1):
+            # the ranks first: too few cards raise before any upload
+            device = list(make_mesh(tuple(runtime_config.mesh_shape),
+                                    mesh_devices(runtime_config,
+                                                  device)).devices)
+        lead = device[0] if isinstance(device, (list, tuple)) else device
         if model_config.moe is not None and \
-                torch.device(device).type == "cuda":
+                torch.device(lead).type == "cuda":
             # expert stacks whose columns do not fill the grouped kernel's
             # 256-column tiles are re-laid out, zero-padded, in place of the
             # loader's (a no-op otherwise)
             params = prepare_grouped_experts(params, model_config)
-        params = params_from_numpy(params, device,
+        params = params_from_numpy(params, lead,
                                    torch_dtype(runtime_config.dtype))
         with self._lock:
             if name in self._models:

@@ -13,6 +13,13 @@ megakernel from the same pack; other buckets go per-op. Under
 `weight_residency` "pack_only" the pack is the only weight copy on the card
 and every prompt is served through the two megakernels.
 
+On a `(1, n)` mesh (the counterpart of the JAX runtime's mesh install) the
+params are split per rank (parallel/sharding.py), each rank holds a KV pool
+of its KV heads, and decode runs through the TP segment kernels
+(ops/tp_megakernel.py) when `supports_tp` admits the model, else through
+the per-op TP forward, which also serves every prefill. The two
+megakernels never run on a mesh, and the weights stay resident as "both".
+
 Page accounting: the allocator hands out LOGICAL pages; logical page `g`
 owns physical pages `g*L + l` for each layer l.
 
@@ -40,6 +47,9 @@ from dashinfer_tpu_torch.loader.convert import (params_from_numpy,
 from dashinfer_tpu_torch.models.transformer import check_supported
 from dashinfer_tpu_torch.ops import megakernel as mk
 from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+from dashinfer_tpu_torch.parallel import collectives, sharding
+from dashinfer_tpu_torch.parallel.mesh import make_mesh
 from dashinfer_tpu_torch.runtime.batch_state import make_decode_state
 from dashinfer_tpu_torch.runtime.kv_cache import (create_kv_cache,
                                                   logical_page_bytes)
@@ -75,7 +85,7 @@ def _unported_runtime_features(rt: RuntimeConfig) -> List[str]:
     return [name for name, on in (
         ("prefix cache", rt.enable_prefix_cache),
         ("LoRA", rt.enable_lora),
-        ("tensor/data-parallel mesh", tuple(rt.mesh_shape) != (1, 1)),
+        ("a data-parallel mesh axis", rt.mesh_shape[0] != 1),
         ("chunked prefill (max_prefill_chunk)", rt.max_prefill_chunk > 0),
         ("multi-step decode (decode_steps_per_launch)",
          rt.decode_steps_per_launch > 1),
@@ -107,15 +117,20 @@ def _tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
     elif isinstance(tree, torch.Tensor):
         yield tree
 
 
-def _resident_bytes(*trees) -> int:
-    """Bytes the trees hold on their device, each tensor counted once (the
-    pack aliases some of the param tree's leaves)."""
-    seen = {t.data_ptr(): t.numel() * t.element_size()
-            for tree in trees if tree is not None for t in _tensors(tree)}
+def _resident_bytes(*trees, device=None) -> int:
+    """Bytes the trees hold on their devices (on `device` alone when given),
+    each tensor counted once (the pack aliases some of the param tree's
+    leaves)."""
+    seen = {(t.device, t.data_ptr()): t.numel() * t.element_size()
+            for tree in trees if tree is not None for t in _tensors(tree)
+            if device is None or t.device == device}
     return sum(seen.values())
 
 
@@ -144,11 +159,29 @@ def _shape_tree(tree):
         np.zeros((), dt), tuple(tree.shape), (0,) * tree.dim())
 
 
+def mesh_devices(rt: RuntimeConfig, device):
+    """The ranks' devices for rt.mesh_shape: a list or tuple names them;
+    "cuda" means every visible card, one rank each; a single other device
+    holds one rank (make_mesh raises when there are fewer than the ranks).
+    None for a single-device runtime."""
+    if tuple(rt.mesh_shape) == (1, 1):
+        return None
+    if isinstance(device, (list, tuple)):
+        return list(device)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return None          # make_mesh: every visible card
+    return [dev]
+
+
 class ModelRuntime:
     def __init__(self, name: str, cfg: ModelConfig, params: Dict,
                  rt: RuntimeConfig, device="cuda"):
-        """params: the stacked param tree as tensors on `device`
-        (loader.params_from_numpy)."""
+        """params: the stacked param tree as tensors on `device` (rank 0's
+        device on a mesh: loader.params_from_numpy). `device`: one device,
+        or on a `(1, n)` mesh (rt.mesh_shape) the list of the ranks'
+        devices; a list that names one device several times puts several
+        ranks on it."""
         check_supported(cfg)
         missing = _unported_runtime_features(rt)
         if missing:
@@ -157,12 +190,24 @@ class ModelRuntime:
         self.name = name
         self.cfg = cfg
         self.rt = rt
+        self.mesh = None
+        if tuple(rt.mesh_shape) != (1, 1):
+            self.mesh = make_mesh(tuple(rt.mesh_shape),
+                                  mesh_devices(rt, device))
+            device = self.mesh.lead
+        elif isinstance(device, (list, tuple)):
+            device = device[0]
         self.device = torch.device(device)
         self.dtype = torch_dtype(rt.dtype)
         self.params = params
         self.mega_plan = None
         self.mega_params = None
-        plan_src = self._install_megakernel()
+        self.tp_mega_plan = None
+        if self.mesh is not None:
+            plan_src = None
+            self._install_mesh()
+        else:
+            plan_src = self._install_megakernel()
         self.buckets = self._make_buckets()
         self._install_prefill_megakernel(plan_src)
         del plan_src            # it may hold the raw params
@@ -177,14 +222,22 @@ class ModelRuntime:
 
         self.num_logical_pages = self._plan_pool()
         # + 1: the sink page for inactive decode slots (ops/kv_ops.py)
-        self.cache = create_kv_cache(
-            cfg, rt.cache, self.num_logical_pages * cfg.num_layers + 1,
-            self.dtype, self.device)
+        pages = self.num_logical_pages * cfg.num_layers + 1
+        if self.mesh is None:
+            self.cache = create_kv_cache(cfg, rt.cache, pages, self.dtype,
+                                         self.device)
+        else:           # one pool a rank, over its KV heads
+            self.cache = sharding.shard_cache(cfg, rt.cache, self.mesh, pages,
+                                              self.dtype)
         self.state = make_decode_state(cfg, rt, self.device)
+        if self.mesh is not None:
+            self.state = sharding.shard_state(self.state, self.mesh)
         self.allocator = PageAllocator(self.num_logical_pages)
 
+        devices = None if self.mesh is None else self.mesh.devices
         self._decode_step = steps_mod.build_decode_step(
-            cfg, rt, megakernel_plan=self.mega_plan)
+            cfg, rt, megakernel_plan=self.mega_plan,
+            tp_megakernel=self.tp_mega_plan, devices=devices)
         self._prefill_steps: Dict = {}     # (bucket, mega) -> step
         self._deactivate = steps_mod.build_deactivate(cfg, rt)
 
@@ -194,6 +247,64 @@ class ModelRuntime:
         self.queues: Dict[str, ResultQueue] = {}
         self.stat = EngineStat(model_name=name)
         self._cached_len: Dict[str, int] = {}
+
+    # -- mesh install ---------------------------------------------------------
+    def _install_mesh(self) -> None:
+        """The JAX runtime's mesh install, in its order: the mesh (made by
+        the caller), the per-rank split (the raw params become the ranks'
+        trees, each on its device), `supports_tp`, then the local plan and
+        one pack a rank; the pools come after the pool plan. A model that
+        `supports_tp` turns down decodes per-op; MoE on a mesh raises."""
+        rt, cfg, mesh = self.rt, self.cfg, self.mesh
+        if cfg.moe is not None:
+            raise NotImplementedError("a MoE model on a mesh is not ported "
+                                      "to the PyTorch package yet")
+        collectives.log_choice(mesh)
+        t0 = time.monotonic()
+        full = self.params
+        self.params = sharding.shard_params(full, cfg, mesh)
+        logger.info("TP mesh %s: params split over %d ranks in %.1fs",
+                    mesh.shape, mesh.n, time.monotonic() - t0)
+        if not (rt.enable_megakernel and EnvConfig.megakernel_enabled()):
+            logger.info("megakernel disabled by configuration; decode runs "
+                        "the per-op TP path")
+            return
+        view = full
+        if _has_leaf_key(full, "w_q8") or _has_leaf_key(full, "w_f8"):
+            view = mk.weight_only_decode_view(_host_tree(full))
+            if view is None:
+                logger.info("TP segments: the model has no weight-only "
+                            "decode view; decode runs the per-op TP path")
+                return
+            view = params_from_numpy(view, self.device, self.dtype)
+            parts = sharding.shard_params(view, cfg, mesh)
+        else:
+            parts = self.params
+        n = mesh.n
+        if not tpk.supports_tp(cfg, rt, view, n, local=parts[0]):
+            logger.info("TP segments: the model or its quantization is not "
+                        "supported (ops.tp_megakernel.supports_tp); decode "
+                        "runs the per-op TP path")
+            return
+        plan, packs = tpk.make_tp_plan(cfg, rt, parts)
+        if self.device.type == "cuda":
+            gaps = mk.cuda_kernel_gaps(plan)
+            if gaps:
+                logger.warning("TP segments: the CUDA kernels do not take "
+                               "this model (%s); decode runs the per-op TP "
+                               "path", "; ".join(gaps))
+                return
+        self.tp_mega_plan = plan
+        self.mega_params = {"packs": packs,
+                            "embed": self.params[0]["embed_tokens"]["w"]}
+        logger.info(
+            "TP segments packed in %.1fs: %d ranks, streams %s, %.2f GiB "
+            "streamed per rank and step; packs %.2f GiB beyond the raw "
+            "params", time.monotonic() - t0, n,
+            "/".join(f"{s.name}:{s.bits}b" for s in plan.streams),
+            plan.weight_bytes / 1024**3,
+            sum(mk.packed_extra_bytes(p, r) for p, r in
+                zip(packs, parts)) / 1024**3)
 
     # -- megakernel install ---------------------------------------------------
     def _install_megakernel(self) -> Optional[Dict]:
@@ -328,14 +439,15 @@ class ModelRuntime:
         if res not in ("auto", "both", "pack_only"):
             logger.warning("unknown weight_residency %r; using auto", res)
             res = "auto"
-        eligible = bool(self._pmk_plans) and not rt.enable_lora
+        eligible = (self.mesh is None and bool(self._pmk_plans) and
+                    not rt.enable_lora)
         if res == "pack_only" and not eligible:
             raise ValueError(
                 "weight_residency=pack_only needs the decode AND prefill "
                 "megakernels active on a single-chip mesh without LoRA "
                 f"(megakernel={self.mega_params is not None}, "
                 f"prefill_buckets={sorted(self._pmk_plans)}, "
-                f"mesh=False, lora={rt.enable_lora})")
+                f"mesh={self.mesh is not None}, lora={rt.enable_lora})")
         before = _resident_bytes(self.params, self.mega_params)
         if eligible and (res == "pack_only" or
                          (res == "auto" and self._auto_pack_only())):
@@ -454,23 +566,41 @@ class ModelRuntime:
         """KV pool size in logical pages: the configured count, else the
         free device memory (the weights that stay are already resident:
         the residency decision has been taken) less an activation headroom,
-        else (on the CPU) what max_batch sequences can use."""
+        else (on the CPU) what max_batch sequences can use. On a mesh the
+        plan is per device, the smallest over the mesh's devices: a device
+        holds every rank that the mesh puts on it, their weights, packs and
+        pool pages (a rank's logical page covers its KV heads)."""
         rt, cfg = self.rt, self.cfg
         if rt.cache.num_pages:
             return self._check_pool_vs_workload(rt.cache.num_pages)
-        lpb = logical_page_bytes(cfg, rt.cache, self.dtype)
         cap = rt.max_batch * rt.max_pages_per_seq
         kv_bytes = rt.kv_pool_bytes or EnvConfig.kv_pool_bytes()
-        if not kv_bytes and self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            w = _resident_bytes(self.params, self.mega_params)
-            act = min(2 * 1024**3, max(512 * 1024**2, w // 4))
-            kv_bytes = int(free * EnvConfig.hbm_mem_ratio()) - act
-        elif not kv_bytes and rt.hbm_bytes:
-            w = _resident_bytes(self.params, self.mega_params)
-            act = min(2 * 1024**3, max(512 * 1024**2, w // 4))
-            kv_bytes = int(rt.hbm_bytes * EnvConfig.hbm_mem_ratio()) - w - act
-        n = cap if not kv_bytes else max(kv_bytes // lpb, 2 * rt.max_batch)
+        if self.mesh is None:
+            ranks = {self.device: 1}
+            lpb = logical_page_bytes(cfg, rt.cache, self.dtype)
+        else:
+            ranks = {d: self.mesh.devices.count(d)
+                     for d in self.mesh.distinct}
+            lpb = logical_page_bytes(
+                dataclasses.replace(cfg, num_kv_heads=sharding.rank_kv_heads(
+                    cfg, self.mesh.n)), rt.cache, self.dtype)
+        if kv_bytes:
+            n = max(kv_bytes // lpb, 2 * rt.max_batch)
+        else:
+            n = cap
+            for dev, k in ranks.items():
+                w = _resident_bytes(self.params, self.mega_params,
+                                    device=dev if self.mesh else None)
+                act = min(2 * 1024**3, max(512 * 1024**2, w // 4))
+                if dev.type == "cuda":
+                    free, _ = torch.cuda.mem_get_info(dev)
+                    dev_bytes = int(free * EnvConfig.hbm_mem_ratio()) - act
+                elif rt.hbm_bytes:
+                    dev_bytes = int(rt.hbm_bytes *
+                                    EnvConfig.hbm_mem_ratio()) - w - act
+                else:
+                    continue
+                n = min(n, max(dev_bytes // (k * lpb), 2 * rt.max_batch))
         n = min(n, cap)
         logger.info("KV pool: %d logical pages (%.2f GiB)", n,
                     n * lpb / 1024**3)
@@ -535,7 +665,8 @@ class ModelRuntime:
         if key not in self._prefill_steps:
             self._prefill_steps[key] = steps_mod.build_prefill_step(
                 self.cfg, self.rt, bucket,
-                mega_plan=self._pmk_plans[bucket] if mega else None)
+                mega_plan=self._pmk_plans[bucket] if mega else None,
+                devices=None if self.mesh is None else self.mesh.devices)
         return self._prefill_steps[key]
 
     # -- request entry -------------------------------------------------------
@@ -761,8 +892,9 @@ class ModelRuntime:
             if r.gen_cfg.do_sample and r.gen_cfg.top_k != 1:
                 noise_rows[r.slot] = (int(r.gen_cfg.seed) & 0xFFFFFFFF,
                                       self._cached_len[r.uuid])
+        kernel = self.mega_plan is not None or self.tp_mega_plan is not None
         tokens, self.cache, self.state = self._decode_step(
-            self.params if self.mega_plan is None else self.mega_params,
+            self.mega_params if kernel else self.params,
             self.cache, self.state,
             steps_mod.to_device(d.new_page_ids, self.device), noise_rows)
         for req in act:
@@ -807,9 +939,12 @@ class ModelRuntime:
         self._drain_prefill_tokens()
         tokens_t, act = batch
         tokens = tokens_t.cpu().numpy()
+        # a grid barrier that gave up leaves its mark here: raise
         if self.mega_plan is not None:
-            # a grid barrier that gave up leaves its mark here: raise
             mk.check_status(self.mega_plan, self.device)
+        if self.tp_mega_plan is not None:
+            for dev in self.mesh.distinct:
+                tpk.check_status(self.tp_mega_plan, dev)
         n = 0
         for req in act:
             if self.requests.get(req.uuid) is not req or req.slot < 0:

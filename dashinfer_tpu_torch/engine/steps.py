@@ -16,6 +16,12 @@ launches. With a megakernel plan the forward is the embedding gather, the
 RoPE tiles and ONE launch of the decode megakernel (ops/megakernel.py); a
 prefill step built with a prefill plan is the same around ONE launch of the
 prefill megakernel (ops/prefill_megakernel.py), run eagerly.
+
+On a model axis (the ranks' devices given as `devices`) the params, the
+pool and the forward are the ranks': the decode forward is the TP segments
+(ops/tp_megakernel.py) when a TP plan is given, else the per-op TP forward
+of models/transformer.py, which also serves every prefill. The decode
+state and the sampler stay on rank 0's device.
 """
 
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -28,6 +34,7 @@ from dashinfer_tpu_torch.models import transformer
 from dashinfer_tpu_torch.ops import megakernel as mk
 from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
 from dashinfer_tpu_torch.ops import sampling as sampling_ops
+from dashinfer_tpu_torch.ops import tp_megakernel as tpk
 from dashinfer_tpu_torch.ops.rotary import compute_inv_freq, rope_cos_sin
 from dashinfer_tpu_torch.runtime.batch_state import (DecodeState,
                                                      SamplingParams)
@@ -101,14 +108,18 @@ def _prefill_mega_forward(cfg: ModelConfig, plan, params, cache: KVCache,
 
 
 def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
-                       mega_plan=None) -> Callable:
+                       mega_plan=None,
+                       devices: Optional[Sequence[torch.device]] = None
+                       ) -> Callable:
     """Returns fn(params, cache, state, tokens [S], page_row [maxPb],
     prefix_len, total_len, init: SlotInit) -> (token (0-d device tensor),
     cache, state). page_row holds LOGICAL page ids.
 
     With `mega_plan` the model forward is ONE launch of the prefill
     megakernel; params must be the mega params dict {"packed", "embed"} and
-    the caller guarantees prefix_len == 0."""
+    the caller guarantees prefix_len == 0. With `devices` (a model axis)
+    params and cache are the ranks' lists and the forward is the per-op TP
+    prefill."""
     mode = rt.cache.mode
     V = cfg.vocab_size
     K = min(rt.sampler_max_top_k, V)
@@ -119,6 +130,10 @@ def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
         if mega_plan is not None:
             logits, cache = _prefill_mega_forward(
                 cfg, mega_plan, params, cache, tokens, page_row, total_len)
+        elif devices is not None:
+            logits, cache = transformer.tp_prefill_forward(
+                cfg, params, tokens, cache, page_row, prefix_len, total_len,
+                mode=mode, devices=devices)
         else:
             logits, cache = transformer.prefill_forward(
                 cfg, params, tokens, cache, page_row, prefix_len, total_len,
@@ -177,21 +192,53 @@ def _megakernel_forward(cfg: ModelConfig, plan, params, state: DecodeState,
                                 state.active, cache)
 
 
+def _tp_megakernel_forward(cfg: ModelConfig, plan, params,
+                           state: DecodeState, caches: Sequence[KVCache],
+                           devices: Sequence[torch.device]) -> torch.Tensor:
+    """One decode forward through the TP segments (the counterpart of the
+    JAX `_tp_megakernel_forward`): the embedding gather and the RoPE tiles
+    on rank 0's device, then per layer every rank's attn segment, an
+    all-reduce, every rank's mlp segment, an all-reduce; then every rank's
+    lm segment and the gather (ops/tp_megakernel.py `tp_decode`). params
+    is {"packs": one pack a rank, "embed": [V, hid]}. Returns logits
+    [B, vocab] f32."""
+    x0 = params["embed"][state.token_ids.long()].to(torch.bfloat16)
+    cos, sin = _rope_tiles(cfg, state.context_lens)
+    return tpk.tp_decode(plan, params["packs"], x0, cos, sin,
+                         state.page_tables, state.context_lens, state.active,
+                         caches, devices)
+
+
 class _DecodeForward:
     """The decode forward over the state's tensors: the megakernel when a
-    plan is given, else transformer.decode_forward. For CUDA tensors the
-    first call captures it in a CUDA graph (after one eager warm-up run)
-    and every call replays it, so every call must pass the same params,
-    pool and state objects (the runtime owns one of each)."""
+    plan is given, the TP segments or the per-op TP forward on a model
+    axis, else transformer.decode_forward. For CUDA tensors the first call
+    captures it in a CUDA graph (after one eager warm-up run) and every
+    call replays it, so every call must pass the same params, pool and
+    state objects (the runtime owns one of each). A model axis over
+    distinct cards runs eagerly: one process's NCCL group call would have
+    to be captured on every rank card's stream at once, which a one-card
+    machine cannot check."""
 
     def __init__(self, cfg: ModelConfig, rt: RuntimeConfig,
-                 megakernel_plan=None):
+                 megakernel_plan=None, tp_plan=None,
+                 devices: Optional[Sequence[torch.device]] = None):
         self.cfg, self.mode = cfg, rt.cache.mode
-        self.plan = megakernel_plan
+        self.plan, self.tp_plan = megakernel_plan, tp_plan
+        self.devices = None if devices is None else tuple(devices)
         self._graph = None
         self._logits = None
 
-    def _run(self, params, cache: KVCache, state: DecodeState):
+    def _run(self, params, cache, state: DecodeState):
+        if self.tp_plan is not None:
+            return _tp_megakernel_forward(self.cfg, self.tp_plan, params,
+                                          state, cache, self.devices)
+        if self.devices is not None:
+            logits, _ = transformer.tp_decode_forward(
+                self.cfg, params, state.token_ids, cache, state.page_tables,
+                state.context_lens, state.active, mode=self.mode,
+                devices=self.devices)
+            return logits
         if self.plan is not None:
             return _megakernel_forward(self.cfg, self.plan, params, state,
                                        cache)
@@ -200,8 +247,9 @@ class _DecodeForward:
             state.context_lens, state.active, mode=self.mode)
         return logits
 
-    def __call__(self, params, cache: KVCache, state: DecodeState):
-        if not state.token_ids.is_cuda:
+    def __call__(self, params, cache, state: DecodeState):
+        if not state.token_ids.is_cuda or (
+                self.devices is not None and len(set(self.devices)) > 1):
             return self._run(params, cache, state)
         if self._graph is None:
             side = torch.cuda.Stream()
@@ -218,11 +266,16 @@ class _DecodeForward:
 
 
 def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig,
-                      megakernel_plan=None) -> Callable:
+                      megakernel_plan=None, tp_megakernel=None,
+                      devices: Optional[Sequence[torch.device]] = None
+                      ) -> Callable:
     """Returns fn(params, cache, state, new_page_ids [B], noise_rows)
     -> (tokens [B], cache, state). With `megakernel_plan` the forward is
     one launch of the decode megakernel and params must be the mega params
-    dict {"packed": ..., "embed": [V, hid]}.
+    dict {"packed": ..., "embed": [V, hid]}. On a model axis (`devices`,
+    the ranks' devices) cache is the ranks' pools and the forward is the TP
+    segments with `tp_megakernel` (the local plan; params {"packs",
+    "embed"}), else the per-op TP forward (params: the ranks' trees).
 
     new_page_ids[b] >= 0 installs a fresh LOGICAL page for slot b at the
     page-table column the incoming token starts. noise_rows[b] is the
@@ -230,9 +283,10 @@ def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig,
     ps = rt.cache.page_size
     V = cfg.vocab_size
     K = min(rt.sampler_max_top_k, V)
-    forward = _DecodeForward(cfg, rt, megakernel_plan)
+    forward = _DecodeForward(cfg, rt, megakernel_plan, tp_megakernel,
+                             devices)
 
-    def step(params, cache: KVCache, state: DecodeState,
+    def step(params, cache, state: DecodeState,
              new_page_ids: torch.Tensor,
              noise_rows: Sequence[Optional[Tuple[int, int]]]):
         B = state.max_batch

@@ -8,13 +8,22 @@ updated in place. Two entry points:
   prefill_forward: [S] one request's prompt; writes pages, attends causally.
 
 A MoE model (Qwen1.5/2-MoE) runs `ops.moe.moe_block` in place of the MLP.
+
+`tp_decode_forward` / `tp_prefill_forward` are the same forwards over a
+model axis: the port's form of the JAX package's XLA-SPMD path, as an
+explicit loop over the ranks. Each layer runs every rank's attention half
+on its own params and pool (parallel/sharding.py), an all-reduce of the o
+partials, every rank's MLP half, an all-reduce of the down partials
+(parallel/collectives.py); then the lm_head on each vocab shard and the
+gather. The partials are summed in f32.
 Architectures whose layer math this port does not have yet (ALiBi, learned
 positions, GLM, scaled RoPE, QK-norm, MoE models with dense layers, non-gated
 MLPs, tied or soft-capped heads) raise NotImplementedError.
 """
 
+import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +37,9 @@ from dashinfer_tpu_torch.ops.moe import moe_block
 from dashinfer_tpu_torch.ops.norms import rms_norm
 from dashinfer_tpu_torch.ops.rotary import (apply_rope, compute_inv_freq,
                                             rope_cos_sin)
+from dashinfer_tpu_torch.parallel.collectives import (all_gather_vocab,
+                                                      all_reduce_)
+from dashinfer_tpu_torch.parallel.sharding import rank_kv_heads
 from dashinfer_tpu_torch.runtime.kv_cache import KVCache
 
 
@@ -75,25 +87,38 @@ def _qkv(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool):
     return q, k, v
 
 
-def _mlp(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
-         use_kernel: bool) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool,
+         out_dtype=None) -> torch.Tensor:
     if cfg.moe is not None:
         return moe_block(cfg, x, lp, use_kernel=use_kernel)
     g = linear(x, lp["gate_proj"], use_kernel=use_kernel)
     u = linear(x, lp["up_proj"], use_kernel=use_kernel)
-    return linear(F.silu(g) * u, lp["down_proj"], use_kernel=use_kernel)
+    return linear(F.silu(g) * u, lp["down_proj"], out_dtype=out_dtype,
+                  use_kernel=use_kernel)
+
+
+def _attention_half(cfg: ModelConfig, lp: Dict, hidden: torch.Tensor,
+                    attend, use_kernel: bool, out_dtype=None) -> torch.Tensor:
+    """RMSNorm, q|k|v, attend(q, k, v) -> [T, H*D] (RoPE, the cache write
+    and attention) and the o product."""
+    x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
+    q, k, v = _qkv(cfg, lp, x, use_kernel)
+    return linear(attend(q, k, v), lp["o_proj"], out_dtype=out_dtype,
+                  use_kernel=use_kernel)
+
+
+def _mlp_half(cfg: ModelConfig, lp: Dict, h: torch.Tensor, use_kernel: bool,
+              out_dtype=None) -> torch.Tensor:
+    """RMSNorm and the MLP (or MoE block)."""
+    x = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
+    return _mlp(cfg, lp, x, use_kernel, out_dtype)
 
 
 def _block(cfg: ModelConfig, lp: Dict, hidden: torch.Tensor, attend,
            use_kernel: bool) -> torch.Tensor:
-    """One pre-LN layer; attend(q, k, v) -> [T, H*D] does RoPE, the cache
-    write and attention."""
-    x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
-    q, k, v = _qkv(cfg, lp, x, use_kernel)
-    attn_out = linear(attend(q, k, v), lp["o_proj"], use_kernel=use_kernel)
-    h = hidden + attn_out
-    x2 = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    return h + _mlp(cfg, lp, x2, use_kernel)
+    """One pre-LN layer."""
+    h = hidden + _attention_half(cfg, lp, hidden, attend, use_kernel)
+    return h + _mlp_half(cfg, lp, h, use_kernel)
 
 
 def _lm_logits(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
@@ -102,6 +127,61 @@ def _lm_logits(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
     hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
     return linear(hidden, params["lm_head"], out_dtype=torch.float32,
                   use_kernel=use_kernel).float()
+
+
+def _decode_inputs(cfg: ModelConfig, page_tables: torch.Tensor,
+                   lens_before: torch.Tensor, active: torch.Tensor,
+                   ps: int) -> Dict[str, torch.Tensor]:
+    """A decode step's inputs of the attention: RoPE, the lengths after the
+    step, each slot's layer-0 page and offset for the new token."""
+    cos, sin = rope_cos_sin(lens_before,
+                            compute_inv_freq(cfg, lens_before.device))
+    page_col = (lens_before // ps).long().clamp(0, page_tables.shape[1] - 1)
+    pt0 = page_tables * cfg.num_layers                     # layer 0 rows
+    return dict(cos=cos, sin=sin, active=active, pt0=pt0,
+                lens_after=torch.where(active, lens_before + 1, 0).to(
+                    torch.int32),
+                offsets=(lens_before % ps).long(),
+                page0=torch.gather(pt0.long(), 1, page_col[:, None])[:, 0])
+
+
+def _decode_attend(inp: Dict[str, torch.Tensor], cache: KVCache,
+                   mode: CacheMode, l: int, scale: float, use_kernel: bool,
+                   heads=None):
+    """attend(q, k, v) of decode layer l. `heads` (first, count, H): the
+    rank's query heads when its pool holds all KV heads (replicated)."""
+    pt_l = (inp["pt0"] + l).to(torch.int32)
+
+    def attend(q, k, v):
+        B = q.shape[0]
+        cos, sin = inp["cos"], inp["sin"]
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        kv_ops.append_decode_kv(cache, mode, k, v, inp["page0"] + l,
+                                inp["offsets"], inp["active"])
+        out = attn_ops.paged_attention(_all_heads(q, heads), cache, mode,
+                                       pt_l, inp["lens_after"], scale,
+                                       use_kernel=use_kernel)
+        return _own_heads(out, heads).reshape(B, -1)
+
+    return attend
+
+
+def _all_heads(q: torch.Tensor, heads) -> torch.Tensor:
+    """The rank's query heads placed among all H (zeros elsewhere), for a
+    pool that holds every KV head."""
+    if heads is None:
+        return q
+    first, count, H = heads
+    full = q.new_zeros(q.shape[:-2] + (H, q.shape[-1]))
+    full[..., first:first + count, :] = q
+    return full
+
+
+def _own_heads(out: torch.Tensor, heads) -> torch.Tensor:
+    if heads is None:
+        return out
+    first, count, _ = heads
+    return out[..., first:first + count, :]
 
 
 def decode_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -115,32 +195,31 @@ def decode_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     active: [B] bool. Reads nothing back to the host, so a CUDA graph can
     capture it. Returns (logits [B, vocab] f32, cache updated in place)."""
     check_supported(cfg)
-    B = tokens.shape[0]
-    ps = cache.page_size
-    L = cfg.num_layers
-    dev = tokens.device
+    inp = _decode_inputs(cfg, page_tables, lens_before, active,
+                         cache.page_size)
     hidden = params["embed_tokens"]["w"][tokens.long()]
-    cos, sin = rope_cos_sin(lens_before, compute_inv_freq(cfg, dev))
-    lens_after = torch.where(active, lens_before + 1, 0).to(torch.int32)
-    page_col = (lens_before // ps).long().clamp(0, page_tables.shape[1] - 1)
-    offsets = (lens_before % ps).long()
-    pt0 = page_tables * L                                   # layer 0 rows
-    page0 = torch.gather(pt0.long(), 1, page_col[:, None])[:, 0]
     scale = 1.0 / math.sqrt(cfg.head_dim)
-
-    for l in range(L):
-        pt_l = (pt0 + l).to(torch.int32)
-
-        def attend(q, k, v):
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            kv_ops.append_decode_kv(cache, mode, k, v, page0 + l, offsets,
-                                    active)
-            out = attn_ops.paged_attention(q, cache, mode, pt_l, lens_after,
-                                           scale, use_kernel=use_kernel)
-            return out.reshape(B, -1)
-
+    for l in range(cfg.num_layers):
+        attend = _decode_attend(inp, cache, mode, l, scale, use_kernel)
         hidden = _block(cfg, _layer(params, l), hidden, attend, use_kernel)
     return _lm_logits(cfg, params, hidden, use_kernel), cache
+
+
+def _prefill_attend(cos, sin, cache: KVCache, mode: CacheMode,
+                    pt_l: torch.Tensor, prefix_len: int, total_len: int,
+                    kv_heads: int, scale: float, heads=None):
+    num_new = total_len - prefix_len
+
+    def attend(q, k, v):
+        S = q.shape[0]
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        kv_ops.append_prefill_kv(cache, mode, k, v, pt_l, prefix_len, num_new)
+        k_full, v_full = kv_ops.gather_kv_pages(cache, mode, pt_l, kv_heads)
+        out = attn_ops.prefill_attention(_all_heads(q, heads), k_full,
+                                         v_full, prefix_len, total_len, scale)
+        return _own_heads(out, heads).reshape(S, -1)
+
+    return attend
 
 
 def prefill_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -154,28 +233,131 @@ def prefill_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     Returns (last-token logits [vocab] f32, cache updated in place)."""
     check_supported(cfg)
     S = tokens.shape[0]
-    num_new = total_len - prefix_len
     L = cfg.num_layers
-    KH = cfg.num_kv_heads
     dev = tokens.device
     hidden = params["embed_tokens"]["w"][tokens.long()]
     pos = prefix_len + torch.arange(S, device=dev)
     cos, sin = rope_cos_sin(pos, compute_inv_freq(cfg, dev))
     scale = 1.0 / math.sqrt(cfg.head_dim)
-
     for l in range(L):
-        pt_l = page_table.long() * L + l
-
-        def attend(q, k, v):
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            kv_ops.append_prefill_kv(cache, mode, k, v, pt_l, prefix_len,
-                                     num_new)
-            k_full, v_full = kv_ops.gather_kv_pages(cache, mode, pt_l, KH)
-            out = attn_ops.prefill_attention(q, k_full, v_full, prefix_len,
-                                             total_len, scale)
-            return out.reshape(S, -1)
-
+        attend = _prefill_attend(cos, sin, cache, mode,
+                                 page_table.long() * L + l, prefix_len,
+                                 total_len, cfg.num_kv_heads, scale)
         hidden = _block(cfg, _layer(params, l), hidden, attend, use_kernel)
-    last = min(max(num_new - 1, 0), S - 1)
+    last = min(max(total_len - prefix_len - 1, 0), S - 1)
     logits = _lm_logits(cfg, params, hidden[last:last + 1], use_kernel)[0]
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# the same forwards over a model axis (the per-op TP path)
+# ---------------------------------------------------------------------------
+
+def rank_config(cfg: ModelConfig, n: int) -> ModelConfig:
+    """What one rank of n computes on the per-op path: its share of the
+    heads, MLP width and vocab, and its KV heads (all of them when they do
+    not divide among the ranks)."""
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // n,
+        num_kv_heads=rank_kv_heads(cfg, n),
+        intermediate_size=cfg.intermediate_size // n,
+        vocab_size=cfg.vocab_size // n)
+
+
+def _rank_heads(cfg: ModelConfig, n: int, r: int):
+    """`heads` of the attend closures: None when the rank's KV heads are its
+    share, else (its first query head, its count, all heads)."""
+    if rank_kv_heads(cfg, n) != cfg.num_kv_heads or n == 1:
+        return None
+    Hr = cfg.num_heads // n
+    return (r * Hr, Hr, cfg.num_heads)
+
+
+def _tp_layers(cfg: ModelConfig, rank_params: Sequence[Dict],
+               hiddens: List[torch.Tensor], attends, l: int,
+               use_kernel: bool) -> List[torch.Tensor]:
+    """One layer on every rank, each half followed by the all-reduce of its
+    f32 partials."""
+    n = len(rank_params)
+    cfg_r = rank_config(cfg, n)
+    lps = [_layer(p, l) for p in rank_params]
+    parts = all_reduce_([
+        _attention_half(cfg_r, lps[r], hiddens[r], attends[r], use_kernel,
+                        out_dtype=torch.float32) for r in range(n)])
+    hiddens = [h + p.to(h.dtype) for h, p in zip(hiddens, parts)]
+    parts = all_reduce_([
+        _mlp_half(cfg_r, lps[r], hiddens[r], use_kernel,
+                  out_dtype=torch.float32) for r in range(n)])
+    return [h + p.to(h.dtype) for h, p in zip(hiddens, parts)]
+
+
+def _tp_logits(cfg: ModelConfig, rank_params: Sequence[Dict],
+               hiddens: List[torch.Tensor], use_kernel: bool) -> torch.Tensor:
+    cfg_r = rank_config(cfg, len(rank_params))
+    return all_gather_vocab([_lm_logits(cfg_r, p, h, use_kernel)
+                             for p, h in zip(rank_params, hiddens)])
+
+
+def tp_decode_forward(cfg: ModelConfig, rank_params: Sequence[Dict],
+                      tokens: torch.Tensor, caches: Sequence[KVCache],
+                      page_tables: torch.Tensor, lens_before: torch.Tensor,
+                      active: torch.Tensor, *, mode: CacheMode,
+                      devices: Sequence[torch.device],
+                      use_kernel: bool = True
+                      ) -> Tuple[torch.Tensor, List[KVCache]]:
+    """`decode_forward` over the ranks on `devices`: rank_params and caches
+    are the ranks' (parallel/sharding.py); the step's inputs live on rank
+    0's device. Returns (logits [B, vocab] f32 on rank 0's device, the
+    pools updated in place)."""
+    check_supported(cfg)
+    n = len(devices)
+    inp = _decode_inputs(cfg, page_tables, lens_before, active,
+                         caches[0].page_size)
+    per_dev = {d: {k: v.to(d) for k, v in inp.items()}
+               for d in dict.fromkeys(devices)}
+    hidden = rank_params[0]["embed_tokens"]["w"][tokens.long()]
+    hiddens = [hidden.to(d) for d in devices]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    for l in range(cfg.num_layers):
+        attends = [_decode_attend(per_dev[d], caches[r], mode, l, scale,
+                                  use_kernel, _rank_heads(cfg, n, r))
+                   for r, d in enumerate(devices)]
+        hiddens = _tp_layers(cfg, rank_params, hiddens, attends, l,
+                             use_kernel)
+    return _tp_logits(cfg, rank_params, hiddens, use_kernel), list(caches)
+
+
+def tp_prefill_forward(cfg: ModelConfig, rank_params: Sequence[Dict],
+                       tokens: torch.Tensor, caches: Sequence[KVCache],
+                       page_table: torch.Tensor, prefix_len: int,
+                       total_len: int, *, mode: CacheMode,
+                       devices: Sequence[torch.device],
+                       use_kernel: bool = True
+                       ) -> Tuple[torch.Tensor, List[KVCache]]:
+    """`prefill_forward` over the ranks on `devices` (see
+    `tp_decode_forward`). Returns (last-token logits [vocab] f32 on rank
+    0's device, the pools updated in place)."""
+    check_supported(cfg)
+    n = len(devices)
+    S, L = tokens.shape[0], cfg.num_layers
+    kv_heads = rank_kv_heads(cfg, n)
+    pos = prefix_len + torch.arange(S, device=tokens.device)
+    cos, sin = rope_cos_sin(pos, compute_inv_freq(cfg, tokens.device))
+    per_dev = {d: (cos.to(d), sin.to(d), page_table.to(d).long())
+               for d in dict.fromkeys(devices)}
+    hidden = rank_params[0]["embed_tokens"]["w"][tokens.long()]
+    hiddens = [hidden.to(d) for d in devices]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    for l in range(L):
+        attends = []
+        for r, d in enumerate(devices):
+            c, s_, pt = per_dev[d]
+            attends.append(_prefill_attend(
+                c, s_, caches[r], mode, pt * L + l, prefix_len, total_len,
+                kv_heads, scale, _rank_heads(cfg, n, r)))
+        hiddens = _tp_layers(cfg, rank_params, hiddens, attends, l,
+                             use_kernel)
+    last = min(max(total_len - prefix_len - 1, 0), S - 1)
+    logits = _tp_logits(cfg, rank_params,
+                        [h[last:last + 1] for h in hiddens], use_kernel)[0]
+    return logits, list(caches)

@@ -22,8 +22,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("quant_matmul", "paged_attention", "megakernel", "stream_probe",
-           "prefill_megakernel", "probes", "grouped_quant_matmul")
-HEADERS = ("di_common.cuh", "di_product.cuh")   # included by the sources
+           "prefill_megakernel", "probes", "grouped_quant_matmul",
+           "tp_segments")
+HEADERS = ("di_common.cuh", "di_product.cuh",   # included by the sources
+           "di_layer.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 

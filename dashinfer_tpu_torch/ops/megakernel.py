@@ -957,6 +957,71 @@ def _attend_ref(plan: MegaPlan, q, k_new, v_new, cache: KVCache, phys,
     return out.reshape(B, KH * G * D)
 
 
+class StepInputs:
+    """The per-step inputs of the layer pieces below, derived once: the
+    bf16 RoPE tiles repeated over the q and k heads, the attended lengths,
+    and each slot's target page and offset for the new token."""
+
+    def __init__(self, plan: MegaPlan, cos, sin, page_tables, lens, active):
+        bf = torch.bfloat16
+        cosf, sinf = cos.to(bf).float(), sin.to(bf).float()
+        self.cq, self.sq = cosf.repeat(1, plan.H), sinf.repeat(1, plan.H)
+        self.ck, self.sk = cosf.repeat(1, plan.KH), sinf.repeat(1, plan.KH)
+        self.active = active.bool()
+        self.len_eff = torch.where(self.active, lens, torch.zeros_like(lens))
+        self.tgt = target_pages(page_tables, lens, plan.ps).long()
+        self.offs = (lens % plan.ps).long()
+        self.page_tables = page_tables
+
+
+def attention_block_ref(plan: MegaPlan, packed: Dict, layer: int,
+                        resid: torch.Tensor, inp: StepInputs,
+                        cache: KVCache, skip_attention: bool = False
+                        ) -> torch.Tensor:
+    """One layer's RMSNorm, q|k|v (+ bias), RoPE, new-token KV write,
+    attention and o product, from the f32 residual [B, hid]; updates the
+    pool in place and returns the o product [B, hid] f32."""
+    B, L, H, KH, D = resid.shape[0], plan.L, plan.H, plan.KH, plan.D
+    bf = torch.bfloat16
+    HD, KD = H * D, KH * D
+    x = _rms(resid, packed["norms"][layer, 0], plan.rms_eps).to(bf)
+    qkv = _stream_dot(x, packed, plan.qkv, layer)
+    if packed["qkv_b"] is not None:
+        qkv = qkv + packed["qkv_b"][layer]
+    qr, kr, vr = qkv[:, :HD], qkv[:, HD:HD + KD], qkv[:, HD + KD:]
+    q_rot = (qr * inp.cq + _rot_half(qr, D) * inp.sq).to(bf).float()
+    k_rot = kr * inp.ck + _rot_half(kr, D) * inp.sk
+    k3, v3 = k_rot.reshape(B, KH, D), vr.reshape(B, KH, D)
+    if skip_attention:
+        attn = torch.zeros((B, HD), dtype=torch.float32, device=x.device)
+    else:
+        attn = _attend_ref(plan, q_rot.reshape(B, H, D), k3, v3, cache,
+                           inp.page_tables * L + layer, inp.len_eff,
+                           1.0 / math.sqrt(D))
+        act = inp.active
+        kv_ops._write(cache, plan.kv_mode, k3[act], v3[act],
+                      (inp.tgt * L + layer)[act], inp.offs[act])
+    return _stream_dot(attn.to(bf), packed, plan.o, layer)
+
+
+def mlp_block_ref(plan: MegaPlan, packed: Dict, layer: int,
+                  resid: torch.Tensor) -> torch.Tensor:
+    """One dense layer's RMSNorm, gate|up, SwiGLU and down product, from the
+    f32 residual [B, hid] -> the down product [B, hid] f32."""
+    x = _rms(resid, packed["norms"][layer, 1], plan.rms_eps).to(torch.bfloat16)
+    gu = _stream_dot(x, packed, plan.gu, layer)
+    g, u = gu[:, :plan.inter], gu[:, plan.inter:]
+    act = (g * torch.sigmoid(g) * u).to(torch.bfloat16)
+    return _stream_dot(act, packed, plan.dn, layer)
+
+
+def lm_head_ref(plan: MegaPlan, packed: Dict,
+                resid: torch.Tensor) -> torch.Tensor:
+    """The final RMSNorm and the lm_head -> logits [B, V] f32."""
+    x = _rms(resid, packed["final_norm"], plan.rms_eps).to(torch.bfloat16)
+    return _stream_dot(x, packed, plan.lm, None)
+
+
 def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
                           cos: torch.Tensor, sin: torch.Tensor,
                           page_tables: torch.Tensor, lens: torch.Tensor,
@@ -968,48 +1033,20 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
     rows are routed from their own x_norm, inactive rows too (their logits
     are unspecified); `routing`, a list, receives each layer's router
     product (`moe_ref`)."""
-    B, L, H, KH, D = x0.shape[0], plan.L, plan.H, plan.KH, plan.D
-    bf = torch.bfloat16
-    HD, KD = H * D, KH * D
-    cosf, sinf = cos.to(bf).float(), sin.to(bf).float()
-    cq, sq = cosf.repeat(1, H), sinf.repeat(1, H)
-    ck, sk = cosf.repeat(1, KH), sinf.repeat(1, KH)
-    active = active.bool()
-    len_eff = torch.where(active, lens, torch.zeros_like(lens))
-    tgt = target_pages(page_tables, lens, plan.ps).long()
-    offs = (lens % plan.ps).long()
-    scale = 1.0 / math.sqrt(D)
-    norms = packed["norms"]
-    resid = x0.to(bf).float()
-    for l in range(L):
-        x = _rms(resid, norms[l, 0], plan.rms_eps).to(bf)
-        qkv = _stream_dot(x, packed, plan.qkv, l)
-        if packed["qkv_b"] is not None:
-            qkv = qkv + packed["qkv_b"][l]
-        qr, kr, vr = qkv[:, :HD], qkv[:, HD:HD + KD], qkv[:, HD + KD:]
-        q_rot = (qr * cq + _rot_half(qr, D) * sq).to(bf).float()
-        k_rot = kr * ck + _rot_half(kr, D) * sk
-        k3, v3 = k_rot.reshape(B, KH, D), vr.reshape(B, KH, D)
-        if skip_attention:
-            attn = torch.zeros((B, HD), dtype=torch.float32, device=x.device)
-        else:
-            attn = _attend_ref(plan, q_rot.reshape(B, H, D), k3, v3, cache,
-                               page_tables * L + l, len_eff, scale)
-            kv_ops._write(cache, plan.kv_mode, k3[active], v3[active],
-                          (tgt * L + l)[active], offs[active])
-        resid = resid + _stream_dot(attn.to(bf), packed, plan.o, l)
-        x = _rms(resid, norms[l, 1], plan.rms_eps).to(bf)
+    inp = StepInputs(plan, cos, sin, page_tables, lens, active)
+    resid = x0.to(torch.bfloat16).float()
+    for l in range(plan.L):
+        resid = resid + attention_block_ref(plan, packed, l, resid, inp,
+                                            cache, skip_attention)
         if plan.E:
+            x = _rms(resid, packed["norms"][l, 1], plan.rms_eps).to(
+                torch.bfloat16)
             resid = resid + moe_ref(
                 plan, x, l, lambda x_, sp, l_, e: _stream_dot(
                     x_, packed, sp, l_, e), routing)
             continue
-        gu = _stream_dot(x, packed, plan.gu, l)
-        g, u = gu[:, :plan.inter], gu[:, plan.inter:]
-        act = (g * torch.sigmoid(g) * u).to(bf)
-        resid = resid + _stream_dot(act, packed, plan.dn, l)
-    x = _rms(resid, packed["final_norm"], plan.rms_eps).to(bf)
-    return _stream_dot(x, packed, plan.lm, None)
+        resid = resid + mlp_block_ref(plan, packed, l, resid)
+    return lm_head_ref(plan, packed, resid)
 
 
 # ---------------------------------------------------------------------------

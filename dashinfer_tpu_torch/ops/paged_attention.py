@@ -156,16 +156,17 @@ def paged_attention(q: torch.Tensor, cache: KVCache, mode: CacheMode,
                            device=q.device)
     fn = kernel_build.function("paged_attention", "di_paged_attention",
                                _ARGTYPES)
-    rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), cache.k.data_ptr(),
-            cache.v.data_ptr(), kind,
-            cache.k_qparams.data_ptr() if quant else None,
-            cache.v_qparams.data_ptr() if quant else None,
-            cache.k_qparams.shape[2] if quant else 0,
-            page_tables.data_ptr(), page_tables.shape[1], lens.data_ptr(),
-            out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-            B, H, KH, D, ps, split, float(scale),
-            paged_attention.counter.pointer(q.device),
-            kernel_build.stream_handle(q.device))
+    with torch.cuda.device(q.device):   # the C side launches on it
+        rc = fn(q.data_ptr(), int(q.dtype == torch.bfloat16),
+                cache.k.data_ptr(), cache.v.data_ptr(), kind,
+                cache.k_qparams.data_ptr() if quant else None,
+                cache.v_qparams.data_ptr() if quant else None,
+                cache.k_qparams.shape[2] if quant else 0,
+                page_tables.data_ptr(), page_tables.shape[1], lens.data_ptr(),
+                out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+                B, H, KH, D, ps, split, float(scale),
+                paged_attention.counter.pointer(q.device),
+                kernel_build.stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error "
                            f"{rc}")

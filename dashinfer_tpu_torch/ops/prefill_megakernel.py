@@ -184,10 +184,14 @@ def make_prefill_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
 def cuda_kernel_gaps(plan: PrefillPlan) -> List[str]:
     """Why csrc/prefill_megakernel.cu cannot run this plan (empty = it
     can): the pack's 64-row chunks and columns a multiple of 128 (padded to
-    its 256-column tiles), head_dim 128, the router's lanes."""
+    its 256-column tiles; q, k and v must fill them), head_dim 128, the
+    router's lanes."""
     gaps = [g for sp in plan.streams for g in mk.stream_gaps(sp)]
     if plan.D != 128:
         gaps.append("head_dim != 128")
+    if plan.qkv.Np != plan.qkv.N:
+        # its attention phases read q|k|v at the unpadded columns
+        gaps.append(f"q / k / v widths {plan.qkv.N} not multiples of 256")
     if plan.S % M_TILE or plan.S > MAX_BUCKET:
         gaps.append(f"bucket {plan.S} not a multiple of {M_TILE} up to "
                     f"{MAX_BUCKET}")

@@ -105,13 +105,14 @@ def quant_matmul(x: torch.Tensor, wd: Dict,
     records = torch.empty((n_chunks, rows * (_CHUNK_K * 2 + 8)),
                           dtype=torch.uint8, device=x.device)
     fn = kernel_build.function("quant_matmul", "di_quant_matmul", _ARGTYPES)
-    rc = fn(x2.data_ptr(), int(x.dtype == torch.bfloat16), w_q.data_ptr(),
-            bits, scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16),
-            partial.data_ptr() if partial is not None else None,
-            records.data_ptr(), M, K, N, G, ksplit,
-            quant_matmul.counter.pointer(x.device),
-            kernel_build.stream_handle(x.device))
+    with torch.cuda.device(x.device):   # the C side launches on it
+        rc = fn(x2.data_ptr(), int(x.dtype == torch.bfloat16),
+                w_q.data_ptr(), bits, scale.data_ptr(), zero.data_ptr(),
+                out.data_ptr(), int(out_dtype == torch.bfloat16),
+                partial.data_ptr() if partial is not None else None,
+                records.data_ptr(), M, K, N, G, ksplit,
+                quant_matmul.counter.pointer(x.device),
+                kernel_build.stream_handle(x.device))
     if rc != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
                            f"{rc}")

@@ -1,0 +1,535 @@
+"""Tensor-parallel decode: the per-rank split of the weights, the local
+plan, and the three decode segment kernels of one rank.
+
+Counterpart of `dashinfer_tpu.ops.pallas.tp_megakernel` (dense models).
+The whole-model decode megakernel adds the residual between layers inside
+one launch, which a model axis cannot do: after the o product and after the
+down product the ranks' partial sums must be summed first. So each layer is
+cut there into two segment launches a rank, with an all-reduce after each:
+
+  for each layer l:
+    attn segment: x += add; rms1 -> q|k|v (column share) -> RoPE -> new-token
+                  KV write into the rank's pool -> attention over the rank's
+                  KV heads -> o (row share)          => o partial [B, hid] f32
+    add = all_reduce(o partials)
+    mlp segment:  x += add; rms2 -> gate|up (column share) -> SwiGLU -> down
+                  (row share)                        => down partial
+    add = all_reduce(down partials)
+  lm segment:     x += add; final rms -> lm_head over the rank's vocab shard
+  logits = gather of the shards
+
+The JAX package adds `psum(partial)` to x between its segments; here each
+segment adds the reduced partial of the one before to its rank's f32
+residual x in its first phase (the same sum, without an add kernel of its
+own after each all-reduce).
+
+The split follows the reference WeightSplitter, as the JAX function does:
+column split of q/k/v/gate/up (and their bias), row split of o/down (a
+row-split bias on rank 0 only), vocab split of lm_head; per-channel qparams
+(one group) replicate on the row split, group-wise ones follow the rows. It
+works on the port's tensors, on their device, and gives leaves bit-equal to
+the JAX `split_params_tp` of the same numpy tree. Each rank's plan and pack
+are the port's `make_plan` / `pack_params` on `local_config`, so the pack's
+fragment order and its padding of widths of 128 mod 256 come with them.
+
+`attn_segment_ref`, `mlp_segment_ref`, `lm_segment_ref` and `tp_decode_ref`
+are the plain PyTorch versions (the decode megakernel's plain pieces); the
+wrappers `tp_attn_segment`, `tp_mlp_segment`, `tp_lm_segment` take them for
+CPU tensors and launch csrc/tp_segments.cu for CUDA tensors, or raise.
+"""
+
+import ctypes
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from dashinfer_tpu_torch.config import ModelConfig, RuntimeConfig
+from dashinfer_tpu_torch.ops import kernel_build
+from dashinfer_tpu_torch.ops import megakernel as mk
+from dashinfer_tpu_torch.ops.u4pack import pack_u4_weight, unpack_u4_weight
+from dashinfer_tpu_torch.parallel.collectives import (all_gather_vocab,
+                                                      all_reduce_)
+from dashinfer_tpu_torch.runtime.kv_cache import KVCache
+
+# ---------------------------------------------------------------------------
+# per-rank split of the raw params (reference WeightSplitter semantics)
+# ---------------------------------------------------------------------------
+
+_COL_SPLIT = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
+_ROW_SPLIT = ("o_proj", "down_proj")
+
+
+def _share(a: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
+    """Rank r's 1/n of `a` along `dim` (rows r*N//n .. (r+1)*N//n, as the
+    JAX function slices), as a contiguous tensor."""
+    N = a.shape[dim]
+    return a.narrow(dim, r * N // n, (r + 1) * N // n - r * N // n
+                    ).contiguous()
+
+
+def _slice_u4_cols(w_q: torch.Tensor, n: int, r: int) -> torch.Tensor:
+    """Rank r's share of the UNPACKED out dim of a u4 weight [..., K, N/2]
+    (ops/u4pack.py layouts). A share of whole 256-column tiles is a slice
+    of the packed bytes; any other is unpacked, sliced and repacked in the
+    layout of its own width."""
+    N = w_q.shape[-1] * 2
+    Nl = N // n
+    if N % 256 == 0 and Nl % 256 == 0:
+        return _share(w_q, -1, n, r)
+    lead, K = tuple(w_q.shape[:-2]), w_q.shape[-2]
+    flat = w_q.reshape(-1, K, N // 2)
+    out = torch.stack([
+        pack_u4_weight(unpack_u4_weight(m)[:, r * Nl:(r + 1) * Nl])
+        for m in flat])
+    return out.reshape(lead + (K, Nl // 2))
+
+
+def _split_leaf(name: str, leaf, n: int, r: int):
+    """One `layers` leaf (stacked [L, ...]) -> rank r's share."""
+    col = any(k in name for k in _COL_SPLIT)
+    row = any(k in name for k in _ROW_SPLIT)
+    if not (col or row):
+        return leaf                          # norms: replicated
+    if not isinstance(leaf, dict):
+        return _share(leaf, -1 if col else -2, n, r)
+    out = {}
+    for k, a in leaf.items():
+        if k == "b":
+            # a row-split bias is added once, on rank 0 (the reference
+            # zeroes it on the other ranks, weight_splitter.cpp:425)
+            out[k] = _share(a, -1, n, r) if col else (
+                a if r == 0 else torch.zeros_like(a))
+        elif k in ("w", "w_q8", "w_q"):
+            if not col:
+                out[k] = _share(a, -2, n, r)
+            elif k == "w_q" and a.dtype == torch.uint8:
+                out[k] = _slice_u4_cols(a, n, r)
+            else:
+                out[k] = _share(a, -1, n, r)
+        elif k in ("scale", "zero"):         # [L, G, N]
+            if col:
+                out[k] = _share(a, -1, n, r)
+            elif a.shape[-2] == 1:
+                out[k] = a                   # per-channel: every rank's rows
+            else:
+                out[k] = _share(a, -2, n, r)
+        else:
+            out[k] = a
+    return out
+
+
+def _split_rank(params: Dict, cfg: ModelConfig, n: int, r: int) -> Dict:
+    """Rank r's share of the raw params (dense models)."""
+    if cfg.moe is not None or "experts" in params["layers"]:
+        raise NotImplementedError("splitting a MoE model over a model axis "
+                                  "is not ported to the PyTorch package yet")
+    lp = {k: _split_leaf(k, v, n, r) for k, v in params["layers"].items()}
+    lm = params.get("lm_head")
+    if lm is None or cfg.tie_word_embeddings:
+        lm = {"w": params["embed_tokens"]["w"].t()}
+    lm_r = {}
+    for k, a in lm.items():
+        if k == "w_q" and a.dtype == torch.uint8:
+            lm_r[k] = _slice_u4_cols(a, n, r)
+        else:        # w / w_q int8 [hid, V]; scale / zero [G, V]
+            lm_r[k] = _share(a, -1, n, r)
+    out = {"embed_tokens": params["embed_tokens"], "norm": params["norm"],
+           "lm_head": lm_r, "layers": lp}
+    if "embed_norm" in params:
+        out["embed_norm"] = params["embed_norm"]
+    return out
+
+
+def split_params_tp(params: Dict, cfg: ModelConfig, n: int) -> List[Dict]:
+    """Raw params -> n per-rank trees, on the params' device."""
+    return [_split_rank(params, cfg, n, r) for r in range(n)]
+
+
+def local_config(cfg: ModelConfig, n: int) -> ModelConfig:
+    """The config one rank computes: 1/n of the heads, KV heads, MLP width
+    and vocab."""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE on a model axis is not ported to the "
+                                  "PyTorch package yet")
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // n,
+        num_kv_heads=cfg.num_kv_heads // n,
+        intermediate_size=cfg.intermediate_size // n,
+        vocab_size=cfg.vocab_size // n, tie_word_embeddings=False)
+
+
+def supports_tp(cfg: ModelConfig, rt: RuntimeConfig, params: Dict, n: int,
+                local: Optional[Dict] = None) -> bool:
+    """Whether a model decodes through the segments on a model axis of n:
+    the JAX rules (heads, KV heads, MLP width and vocab divisible by n; the
+    rank's MLP width a multiple of 128; group sizes of the row-split leaves
+    dividing among the ranks, or one group) and the port's `supports` on
+    the local config. MoE says no here (not ported on a mesh yet). The JAX
+    `supports` also refuses a UINT4 pool whose rank holds fewer than 128
+    K/V lanes (KH/n * D/2), a Mosaic tiling rule of its RMW merge; the
+    port's kernel writes a token's bytes where they go, and its pool keeps
+    QL = page_size, so like the port's `supports` this keeps no such rule.
+    `local`: rank 0's split tree when the caller has it (only shapes are
+    read)."""
+    if n < 2 or cfg.moe is not None:
+        return False
+    if cfg.position_embedding.value != "rope":
+        return False
+    if (cfg.num_heads % n or cfg.num_kv_heads % n or
+            cfg.intermediate_size % n or cfg.vocab_size % n):
+        return False
+    if (cfg.intermediate_size // n) % 128:
+        return False
+    view = mk.weight_only_decode_view(params)
+    if view is None:
+        return False
+    for name in ("o_proj", "down_proj"):
+        leaf = view["layers"].get(name)
+        if isinstance(leaf, dict) and "scale" in leaf:
+            G = leaf["scale"].shape[1]
+            if G != 1 and G % n:
+                return False
+    if local is None:
+        local = _split_rank(_as_tensors(view), cfg, n, 0)
+    return mk.supports(local_config(cfg, n), rt, local)
+
+
+def _as_tensors(tree):
+    """numpy leaves (ml_dtypes bf16 too) as CPU tensors, without a copy;
+    tensor leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _as_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree
+    a = np.ascontiguousarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def make_tp_plan(cfg: ModelConfig, rt: RuntimeConfig, parts: Sequence[Dict]):
+    """(the local MegaPlan, one pack a rank) from the ranks' split trees,
+    each packed on its own device."""
+    cfg_l = local_config(cfg, len(parts))
+    plan = mk.make_plan(cfg_l, rt, parts[0])
+    return plan, [mk.pack_params(cfg_l, plan, p) for p in parts]
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def attn_segment_ref(plan: mk.MegaPlan, packed: Dict, layer: int,
+                     x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                     page_tables: torch.Tensor, lens: torch.Tensor,
+                     active: torch.Tensor, cache: KVCache,
+                     add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer's attention segment of one rank (see `tp_attn_segment`)."""
+    if add is not None:
+        x.add_(add)
+    inp = mk.StepInputs(plan, cos, sin, page_tables, lens, active)
+    return mk.attention_block_ref(plan, packed, layer, x, inp, cache)
+
+
+def mlp_segment_ref(plan: mk.MegaPlan, packed: Dict, layer: int,
+                    x: torch.Tensor,
+                    add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer's MLP segment of one rank (see `tp_mlp_segment`)."""
+    if add is not None:
+        x.add_(add)
+    return mk.mlp_block_ref(plan, packed, layer, x)
+
+
+def lm_segment_ref(plan: mk.MegaPlan, packed: Dict, x: torch.Tensor,
+                   add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The lm segment of one rank (see `tp_lm_segment`)."""
+    if add is not None:
+        x.add_(add)
+    return mk.lm_head_ref(plan, packed, x)
+
+
+def tp_decode(plan: mk.MegaPlan, packs: Sequence[Dict], x0: torch.Tensor,
+              cos: torch.Tensor, sin: torch.Tensor,
+              page_tables: torch.Tensor, lens: torch.Tensor,
+              active: torch.Tensor, caches: Sequence[KVCache],
+              devices: Sequence[torch.device],
+              plain: bool = False) -> torch.Tensor:
+    """The whole TP decode forward over the ranks on `devices`: per layer
+    every rank's attn segment, an all-reduce, every rank's mlp segment, an
+    all-reduce; then every rank's lm segment and the gather. x0 [B, hid]
+    bf16 (the embedded tokens) and the step inputs (as `decode_megakernel`
+    takes them) live on rank 0's device; `caches`: each rank's pool,
+    updated in place. `plain` runs the plain versions. Returns logits
+    [B, V] f32 on rank 0's device."""
+    segs = ((attn_segment_ref, mlp_segment_ref, lm_segment_ref) if plain
+            else (tp_attn_segment, tp_mlp_segment, tp_lm_segment))
+    attn, mlp, lm = segs
+    lead = x0.device
+    step = (cos, sin, page_tables, lens, active)
+    inputs = {d: step if d == lead else
+              tuple(t.to(d, non_blocking=True) for t in step)
+              for d in dict.fromkeys(devices)}
+    n = len(devices)
+    xs = [x0.to(d).float() for d in devices]     # each rank's residual
+    add: List[Optional[torch.Tensor]] = [None] * n
+    for l in range(plan.L):
+        add = all_reduce_([attn(plan, packs[r], l, xs[r],
+                                *inputs[devices[r]], caches[r], add=add[r])
+                           for r in range(n)])
+        add = all_reduce_([mlp(plan, packs[r], l, xs[r], add=add[r])
+                           for r in range(n)])
+    return all_gather_vocab([lm(plan, packs[r], xs[r], add=add[r])
+                             for r in range(n)])
+
+
+def tp_decode_ref(plan, packs, x0, cos, sin, page_tables, lens, active,
+                  caches, devices) -> torch.Tensor:
+    """`tp_decode` through the plain versions."""
+    return tp_decode(plan, packs, x0, cos, sin, page_tables, lens, active,
+                     caches, devices, plain=True)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_KINDS = {"attn": 0, "mlp": 1, "lm": 2}
+_STREAM_KIND = {"qkv": "attn", "o": "attn", "gu": "mlp", "dn": "mlp"}
+
+
+class _Launch:
+    """Per (plan, device) launch geometry and scratch of the segments (the
+    ranks of one card share it: their launches run one after the other on
+    one stream)."""
+
+    def __init__(self, plan: mk.MegaPlan, dev: torch.device):
+        gaps = mk.cuda_kernel_gaps(plan)
+        if plan.E:
+            gaps.append("MoE")
+        if gaps:
+            raise ValueError("tp segments: " + "; ".join(gaps))
+        lib = kernel_build.load("tp_segments")
+        self.fn = kernel_build.function("tp_segments", "di_tp_segment",
+                                        [_I, _I, _P, _P, _P])
+        grid_fn = lib.di_tp_segment_grid
+        grid_fn.argtypes, grid_fn.restype = [_I, _I, _I, _I], _I
+        B = plan.B
+        self.mpad = mk.padded_rows(B)
+        idx = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        with torch.cuda.device(idx):
+            self.grid = {k: grid_fn(idx, self.mpad, plan.hid, v)
+                         for k, v in _KINDS.items()}
+        if min(self.grid.values()) <= 0:
+            raise RuntimeError("tp segments: a kernel does not fit on the "
+                               "device (occupancy query gave 0)")
+        passes = self.mpad // (16 if self.mpad == 16 else 32)
+        self.splits = {"lm": (1, plan.lm.K // mk.CHUNK_K)}
+        for sp in plan.layer_streams:
+            self.splits[sp.name] = mk.choose_split(
+                sp.Nptot // 256, sp.K // mk.CHUNK_K,
+                mk.CHUNK_K * 256 * sp.bits // 8, B, passes,
+                self.grid[_STREAM_KIND[sp.name]])
+        # attention items are (slot, KV head, stripe): about two a block
+        units = -(-plan.maxP * plan.ps // mk.ATT_UNIT)
+        self.nsplit = max(1, min(16, units,
+                                 -(-2 * self.grid["attn"] // (B * plan.KH))))
+
+        def zeros(n, dt):
+            return torch.zeros(n, dtype=dt, device=dev)
+
+        kmax = max(sp.K for sp in plan.streams)
+        self.rec = zeros((kmax // mk.CHUNK_K) * self.mpad *
+                         (mk.CHUNK_K * 2 + 4), torch.uint8)
+        self.partial = zeros(max(self.splits[sp.name][0] * B * sp.Nptot
+                                 for sp in plan.layer_streams),
+                             torch.float32)
+        self.att_ml = zeros(B * plan.H * self.nsplit * 2, torch.float32)
+        self.att_acc = zeros(B * plan.H * self.nsplit * plan.D,
+                             torch.float32)
+        self.ssq = zeros(B * (plan.hid // 128), torch.float32)
+        self.barrier = zeros(1, torch.int32)
+        self.status = zeros(1, torch.int32)
+
+
+_launches: Dict = {}
+
+
+def _launch_state(plan: mk.MegaPlan, dev: torch.device) -> _Launch:
+    key = (plan, dev)
+    st = _launches.get(key)
+    if st is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("tp segments: the first launch of a plan "
+                               "must not be under CUDA graph capture")
+        st = _launches[key] = _Launch(plan, dev)
+    return st
+
+
+def check_status(plan: mk.MegaPlan, device) -> None:
+    """Waits for the device and raises if a segment launch of this plan
+    gave up at a grid barrier."""
+    st = _launches.get((plan, mk._indexed(device)))
+    if st is None:
+        return
+    code = int(st.status.item())
+    if code:
+        st.status.zero_()
+        st.barrier.zero_()
+        raise RuntimeError(f"tp segments: grid barrier after phase "
+                           f"{code - 1} timed out")
+
+
+def launch_geometry(plan: mk.MegaPlan, device) -> Dict:
+    """Grids, K splits and attention stripes of this plan's launches."""
+    st = _launch_state(plan, mk._indexed(device))
+    return dict(grid=dict(st.grid), mpad=st.mpad, splits=dict(st.splits),
+                nsplit=st.nsplit)
+
+
+def _expect(who: str, name: str, t: torch.Tensor, dt, shape, dev) -> None:
+    if t.dtype != dt or tuple(t.shape) != tuple(shape) or t.device != dev \
+            or not t.is_contiguous():
+        raise ValueError(f"{who}: {name} is {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}; expected contiguous {dt} "
+                         f"{tuple(shape)} on {dev}")
+
+
+def _launch(kind: str, plan: mk.MegaPlan, packed: Dict, layer: int,
+            x: torch.Tensor, add: Optional[torch.Tensor], out: torch.Tensor,
+            counter: kernel_build.LaunchCounter, **step) -> None:
+    who = f"tp_{kind}_segment"
+    dev = x.device
+    B = plan.B
+    _expect(who, "x", x, torch.float32, (B, plan.hid), dev)
+    if add is not None:
+        _expect(who, "add", add, torch.float32, (B, plan.hid), dev)
+    _expect(who, "norms", packed["norms"], torch.float32,
+            (plan.L, 2, plan.hid), dev)
+    _expect(who, "final_norm", packed["final_norm"], torch.float32,
+            (plan.hid,), dev)
+    if packed["qkv_b"] is not None:
+        _expect(who, "qkv_b", packed["qkv_b"], torch.float32,
+                (plan.L, plan.QKVN), dev)
+    st = _launch_state(plan, dev)
+    vals = dict.fromkeys(mk._IARGS, 0)
+    vals.update(
+        norms=packed["norms"].data_ptr(),
+        final_norm=packed["final_norm"].data_ptr(),
+        qkv_b=0 if packed["qkv_b"] is None else packed["qkv_b"].data_ptr(),
+        logits=out.data_ptr(), resid=x.data_ptr(), rec=st.rec.data_ptr(),
+        partial=st.partial.data_ptr(), att_ml=st.att_ml.data_ptr(),
+        att_acc=st.att_acc.data_ptr(), ssq=st.ssq.data_ptr(),
+        barrier=st.barrier.data_ptr(), status=st.status.data_ptr(),
+        launches=counter.pointer(dev),
+        B=B, L=plan.L, hid=plan.hid, H=plan.H, KH=plan.KH, inter=plan.inter,
+        V=plan.V, ps=plan.ps, maxP=plan.maxP,
+        kv_kind=mk._KV_KIND[plan.kv_dtype_name], nsplit=st.nsplit,
+        split_len=mk.ATT_UNIT, mpad=st.mpad, grid=st.grid[kind])
+    if kind == "attn":
+        cache = step["cache"]
+        for name, dt, shape in (
+                ("cos", torch.bfloat16, (B, plan.D)),
+                ("sin", torch.bfloat16, (B, plan.D)),
+                ("page_tables", torch.int32, (B, plan.maxP)),
+                ("lens", torch.int32, (B,)), ("active", torch.bool, (B,))):
+            _expect(who, name, step[name], dt, shape, dev)
+        kv_dt = getattr(torch, plan.kv_dtype_name)
+        Ds = plan.D // 2 if plan.kv_bits == 4 else plan.D
+        quant = plan.kv_bits != 16
+        for t in (cache.k, cache.v):
+            if t.dtype != kv_dt or t.shape[1:] != (plan.ps, plan.KH * Ds) or \
+                    t.device != dev or not t.is_contiguous():
+                raise ValueError(f"{who}: pool {t.dtype} {tuple(t.shape)} "
+                                 f"for {plan.kv_mode} with {plan.KH} KV heads")
+        if quant and (cache.k_qparams is None or
+                      tuple(cache.k_qparams.shape[1:]) != (2 * plan.KH,
+                                                           plan.ps) or
+                      cache.k_qparams.dtype != torch.float32):
+            raise ValueError(f"{who}: pool qparams missing or misshaped")
+        vals.update(
+            cos=step["cos"].data_ptr(), sin=step["sin"].data_ptr(),
+            pt=step["page_tables"].data_ptr(), lens=step["lens"].data_ptr(),
+            active=step["active"].data_ptr(), k_pool=cache.k.data_ptr(),
+            v_pool=cache.v.data_ptr(),
+            k_qp=cache.k_qparams.data_ptr() if quant else 0,
+            v_qp=cache.v_qparams.data_ptr() if quant else 0,
+            ql=plan.ps if quant else 0)
+    ia = [vals[k] for k in mk._IARGS]
+    ia += mk.packed_stream_args(plan, packed, st.splits, dev, who)
+    ia.append(0 if add is None else add.data_ptr())
+    ia_arr = np.asarray(ia, np.int64)
+    fa_arr = np.asarray([plan.rms_eps, 1.0 / math.sqrt(plan.D)], np.float64)
+    with torch.cuda.device(dev):        # the C side launches on it
+        rc = st.fn(_KINDS[kind], layer, ia_arr.ctypes.data,
+                   fa_arr.ctypes.data, kernel_build.stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"{who} launch failed: CUDA error {rc}")
+
+
+def _check_device(who: str, x: torch.Tensor) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{who}: unsupported device {x.device}")
+
+
+def tp_attn_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
+                    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                    page_tables: torch.Tensor, lens: torch.Tensor,
+                    active: torch.Tensor, cache: KVCache,
+                    add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer's attention segment of one rank. x [B, hid] f32: the
+    rank's residual, first increased by `add` in place (the all-reduced
+    partial of the segment before, None in layer 0); packed: the rank's
+    pack of `plan` (the local plan); cos/sin [B, D] bf16, page_tables
+    [B, maxP] int32 LOGICAL pages, lens [B] int32, active [B] bool as
+    `decode_megakernel` takes them; cache: the rank's pool (its KV heads),
+    updated in place at each active slot's new token. Returns the o partial
+    [B, hid] f32. CPU tensors take `attn_segment_ref`; CUDA tensors launch
+    the kernel or raise."""
+    if x.device.type == "cpu":
+        return attn_segment_ref(plan, packed, layer, x, cos, sin,
+                                page_tables, lens, active, cache, add)
+    _check_device("tp_attn_segment", x)
+    out = torch.empty((plan.B, plan.hid), dtype=torch.float32,
+                      device=x.device)
+    _launch("attn", plan, packed, layer, x, add, out,
+            tp_attn_segment.counter, cos=cos, sin=sin,
+            page_tables=page_tables, lens=lens, active=active, cache=cache)
+    return out
+
+
+def tp_mlp_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
+                   x: torch.Tensor,
+                   add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer's MLP segment of one rank: x += add, then the down partial
+    [B, hid] f32 (see `tp_attn_segment`)."""
+    if x.device.type == "cpu":
+        return mlp_segment_ref(plan, packed, layer, x, add)
+    _check_device("tp_mlp_segment", x)
+    out = torch.empty((plan.B, plan.hid), dtype=torch.float32,
+                      device=x.device)
+    _launch("mlp", plan, packed, layer, x, add, out, tp_mlp_segment.counter)
+    return out
+
+
+def tp_lm_segment(plan: mk.MegaPlan, packed: Dict, x: torch.Tensor,
+                  add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The final norm and lm_head over the rank's vocab shard: x += add,
+    then logits [B, V/n] f32 (the kernel writes the pack's padded columns
+    too; this is the view of the true shard width)."""
+    if x.device.type == "cpu":
+        return lm_segment_ref(plan, packed, x, add)
+    _check_device("tp_lm_segment", x)
+    out = torch.empty((plan.B, plan.lm.Nptot), dtype=torch.float32,
+                      device=x.device)
+    _launch("lm", plan, packed, 0, x, add, out, tp_lm_segment.counter)
+    return out[:, :plan.V]
+
+
+tp_attn_segment.counter = kernel_build.LaunchCounter()
+tp_mlp_segment.counter = kernel_build.LaunchCounter()
+tp_lm_segment.counter = kernel_build.LaunchCounter()

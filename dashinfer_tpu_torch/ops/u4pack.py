@@ -30,15 +30,17 @@ def weight_uses_tile128(n_out: int) -> bool:
     return n_out % 256 == 0
 
 
-def pack_u4_weight(q: np.ndarray) -> np.ndarray:
-    """q: [K, N] uint4 values (uint8 storage) -> [K, N/2] uint8."""
+def pack_u4_weight(q):
+    """q: [K, N] uint4 values (uint8 storage, numpy or torch) -> [K, N/2]
+    uint8 of the same kind."""
     K, N = q.shape
     if weight_uses_tile128(N):
         t = q.reshape(K, N // 256, 2, 128)  # [K, T, lo/hi, 128]
         return (t[:, :, 0] | (t[:, :, 1] << 4)).reshape(K, N // 2)
     lo = q[:, :N // 2]
     hi = q[:, N // 2:]
-    return (lo | (hi << 4)).astype(np.uint8)
+    out = lo | (hi << 4)
+    return out if isinstance(out, torch.Tensor) else out.astype(np.uint8)
 
 
 def weight_levels(w_q: torch.Tensor) -> torch.Tensor:

@@ -74,6 +74,7 @@ def test_kernel_sources_are_registered():
     assert set(kernel_build.SOURCES) == {"quant_matmul", "paged_attention",
                                          "megakernel", "stream_probe",
                                          "prefill_megakernel", "probes",
-                                         "grouped_quant_matmul"}
+                                         "grouped_quant_matmul",
+                                         "tp_segments"}
     for name in kernel_build.SOURCES:     # hash covers the shared headers
         assert kernel_build.lib_path(name).endswith(".so")

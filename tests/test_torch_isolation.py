@@ -60,6 +60,19 @@ def test_port_serves_with_jax_blocked():
     assert "SERVED" in r.stdout
 
 
+def test_port_serves_on_a_mesh_with_jax_blocked():
+    """The same model on a (1, 2) mesh of CPU ranks (the per-op TP path)."""
+    script = _SERVE_WITHOUT_JAX.replace(
+        '.dtype("float32").build())', '.dtype("float32").mesh(1, 2).build())'
+    ).replace('device="cpu"', 'device=["cpu", "cpu"]')
+    assert script.count("mesh(1, 2)") == 1 and '["cpu", "cpu"]' in script
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "SERVED" in r.stdout
+
+
 _SERVE_MOE_WITHOUT_JAX = r"""
 import sys
 sys.modules["jax"] = None            # any `import jax` now raises
@@ -159,10 +172,16 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_the_new_modules_are_checked():
-    """The megakernel modules, the MoE modules and the probe tools are among
-    the sources the import check walks."""
+    """The megakernel modules, the MoE modules, the probe tools and the
+    tensor-parallel modules are among the sources the import check
+    walks."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {"dashinfer_tpu_torch/ops/megakernel.py",
+            "dashinfer_tpu_torch/ops/tp_megakernel.py",
+            "dashinfer_tpu_torch/parallel/__init__.py",
+            "dashinfer_tpu_torch/parallel/mesh.py",
+            "dashinfer_tpu_torch/parallel/collectives.py",
+            "dashinfer_tpu_torch/parallel/sharding.py",
             "dashinfer_tpu_torch/ops/moe.py",
             "dashinfer_tpu_torch/ops/grouped_quant_matmul.py",
             "dashinfer_tpu_torch/ops/prefill_megakernel.py",

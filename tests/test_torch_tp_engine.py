@@ -1,0 +1,138 @@
+"""The port's Engine on a (1, 2) mesh on the CPU (ranks ["cpu", "cpu"]):
+with the default flags (decode through the TP segments' plain versions,
+prefill per-op TP) and with DI_MEGAKERNEL=0 (per-op TP throughout), the
+greedy tokens of the JAX Engine on a (1, 2) mesh on the same path (as
+tests/test_tp_megakernel.py holds its TP megakernel: the first 10 of 14
+equal) and of the port's single-device serving; and the mesh install's
+refusals."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from tests.test_torch_tp_split import tp_fixture
+from tests.test_torch_transformer import port_config
+
+PROMPT = [5, 9, 2, 41, 77, 3]
+
+
+def _jax_tokens(mesh_shape, use_kernel):
+    """The JAX runtime of tests/test_tp_megakernel.py's engine test, on
+    `mesh_shape`, with its prefill per-op (DI_PREFILL_MEGAKERNEL=0, set by
+    the caller), as the port's on a mesh."""
+    from dashinfer_tpu import Engine, GenerationConfig
+    from dashinfer_tpu.config import CacheMode
+    from dashinfer_tpu.engine.model_runtime import ModelRuntime
+    cfg, rt, params = tp_fixture("a16w8")
+    rt = dataclasses.replace(
+        rt, max_length=160, max_batch=2, min_prefill_bucket=128,
+        mesh_shape=mesh_shape,
+        cache=dataclasses.replace(rt.cache, mode=CacheMode.INT8,
+                                  num_pages=48))
+    runtime = ModelRuntime("tpk", cfg, params, rt, use_kernel=use_kernel)
+    tp = mesh_shape[1] > 1
+    assert (runtime.tp_mega_plan is not None) == (use_kernel and tp)
+    assert (runtime.mega_plan is not None) == (use_kernel and not tp)
+    assert not runtime._tp_pmk_plans and not runtime._pmk_plans
+    eng = Engine()
+    eng._models["tpk"] = runtime
+    eng.start_model("tpk")
+    try:
+        _, h, q = eng.start_request("tpk", PROMPT, GenerationConfig(
+            max_length=20, do_sample=False, top_k=1, eos_token_id=-1))
+        eng.sync_request("tpk", h, timeout_s=900)
+        return q.GetAllGeneratedTokens()
+    finally:
+        eng.release_model("tpk")
+
+
+def _port(devices, mesh=2, **update):
+    """(runtime, 14 greedy tokens) of the port's Engine on the same
+    model."""
+    import dashinfer_tpu_torch as tp
+    cfg, _, params = tp_fixture("a16w8")
+    b = (tp.RuntimeConfigBuilder("tpk").max_length(160).max_batch(2)
+         .kv_cache_page_size(16).kv_cache_num_pages(48)
+         .kv_cache_mode(tp.CacheMode.INT8).dtype("float32")
+         .update({"min_prefill_bucket": 128, **update}))
+    if mesh > 1:
+        b = b.mesh(1, mesh)
+    eng = tp.Engine().install_model("tpk", b.build(), params=params,
+                                    model_config=port_config(cfg),
+                                    device=devices)
+    run = eng._models["tpk"]
+    eng.start_model("tpk")
+    try:
+        _, h, q = eng.start_request("tpk", PROMPT, tp.GenerationConfig(
+            max_length=20, do_sample=False, top_k=1, eos_token_id=-1))
+        eng.sync_request("tpk", h, timeout_s=300)
+        assert q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+        return run, q.GetAllGeneratedTokens()
+    finally:
+        eng.release_model("tpk")
+
+
+CPU2 = ["cpu", "cpu"]
+
+
+@pytest.mark.parametrize("per_op", [False, True])
+def test_engine_on_a_mesh_same_tokens_as_jax(per_op, monkeypatch):
+    """DI_MEGAKERNEL=0: per-op TP, the JAX engine's XLA-SPMD tokens on a
+    (1, 2) mesh. Default flags: the TP segments decode (the runtime holds a
+    TP plan and no megakernel or prefill plan), the tokens of the JAX
+    decode megakernel on the same per-op prefill; against the JAX TP
+    megakernel on its (1, 2) mesh the first 5: at the 6th step this
+    model's two best logits lie 0.0064 apart (of a largest of 2.75, 0.2%,
+    inside the 1e-2 the kernels are held to), and there the JAX TP
+    megakernel itself parts from the JAX decode megakernel. Both paths
+    also give the port's single-device tokens."""
+    monkeypatch.setenv("DI_PREFILL_MEGAKERNEL", "0")
+    if per_op:
+        monkeypatch.setenv("DI_MEGAKERNEL", "0")
+    run, tp_toks = _port(CPU2)
+    assert (run.tp_mega_plan is not None) != per_op
+    assert run.mega_plan is None and not run._pmk_plans
+    assert run.residency == "both" and len(run.cache) == 2
+    assert run.cache[0].k.shape[-1] == 128          # one KV head a rank
+    _, single = _port("cpu", mesh=1)
+    jax_mesh = _jax_tokens((1, 2), use_kernel=not per_op)
+    assert len(tp_toks) == len(single) == len(jax_mesh) == 14
+    assert tp_toks[:10] == single[:10], (tp_toks, single)
+    if per_op:
+        assert tp_toks[:10] == jax_mesh[:10], (tp_toks, jax_mesh)
+        return
+    assert tp_toks[:5] == jax_mesh[:5], (tp_toks, jax_mesh)
+    jax_single = _jax_tokens((1, 1), use_kernel=True)
+    assert tp_toks[:10] == jax_single[:10], (tp_toks, jax_single)
+
+
+def test_mesh_install_refusals():
+    import dashinfer_tpu_torch as tp
+    from tests.test_megakernel import _tiny_moe
+    # an explicit pack_only needs a single-chip mesh (the reference's error)
+    with pytest.raises(ValueError, match="mesh=True"):
+        _port(CPU2, weight_residency="pack_only")
+    # too few devices, unless the list repeats one explicitly
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        _port("cpu")
+    with pytest.raises(ValueError, match="needs 2 devices, have 0"):
+        _port("cuda")
+    # a data axis
+    cfg, _, params = tp_fixture("none")
+    rt = (tp.RuntimeConfigBuilder("m").max_length(64).max_batch(2)
+          .kv_cache_page_size(16).kv_cache_num_pages(24).dtype("float32")
+          .mesh(2, 1).build())
+    with pytest.raises(NotImplementedError, match="data"):
+        tp.Engine().install_model("m", rt, params=params,
+                                  model_config=port_config(cfg),
+                                  device=CPU2)
+    # MoE on a mesh
+    mcfg, _, mparams = _tiny_moe(KH=2, H=2)
+    import jax
+    rt = dataclasses.replace(rt, mesh_shape=(1, 2))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tp.Engine().install_model("m", rt,
+                                  params=jax.tree.map(np.asarray, mparams),
+                                  model_config=port_config(mcfg),
+                                  device=CPU2)

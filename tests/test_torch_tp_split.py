@@ -1,0 +1,189 @@
+"""The port's per-rank split (ops/tp_megakernel.py, parallel/sharding.py)
+against the JAX package's `split_params_tp`, `local_config` and
+`supports_tp`, on the tiny TP shape of tests/test_tp_megakernel.py (L = 2,
+H = 4, hid 256, inter 256, vocab 512), on the CPU: the same numpy tree
+through both, the leaves bit-equal, the decisions equal."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from dashinfer_tpu.config import CacheMode as JMode
+from dashinfer_tpu.config import QuantConfig
+from dashinfer_tpu.loader.quantize import quantize_params
+from dashinfer_tpu.ops.pallas import tp_megakernel as jtpk
+from dashinfer_tpu_torch.loader import params_from_numpy
+from dashinfer_tpu_torch.ops import tp_megakernel as ttpk
+from dashinfer_tpu_torch.parallel import make_mesh, shard_params
+from tests.test_megakernel import _tiny
+from tests.test_torch_megakernel import _port_rt
+from tests.test_torch_transformer import port_config
+
+_cache = {}
+
+
+def tp_fixture(quant: str, KH: int = 2, dtype: str = "float32"):
+    """(cfg, rt, numpy params) of the tiny TP shape, quantized: "a16w4"
+    (group 128), "a16w8" (per-channel), "a16w8g" (group 128) or "none"."""
+    key = (quant, KH, dtype)
+    if key not in _cache:
+        cfg, rt, params = _tiny(B=4, L=2, KH=KH, H=4, hid=256, inter=256,
+                                vocab=512, dtype=dtype)
+        if quant != "none":
+            q = QuantConfig(mode=quant[:5], group_size=(
+                -1 if quant == "a16w8" else 128))
+            params = quantize_params(params, q)
+        _cache[key] = (cfg, rt, jax.tree.map(np.asarray, params))
+    return _cache[key]
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    a = np.asarray(t)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def assert_bit_equal(want, got, path=""):
+    if isinstance(want, dict):
+        assert sorted(want) == sorted(got), path
+        for k in want:
+            assert_bit_equal(want[k], got[k], f"{path}/{k}")
+        return
+    w, g = _np(want), _np(got)
+    assert w.dtype == g.dtype and w.shape == g.shape, (path, w.dtype,
+                                                       g.dtype, w.shape,
+                                                       g.shape)
+    np.testing.assert_array_equal(w, g, err_msg=path)
+
+
+@pytest.mark.parametrize("quant,dtype", [
+    ("a16w4", "float32"),   # q: tile-aligned shares; k, v, lm_head (n = 4)
+                            # are unpacked and repacked
+    ("a16w8", "float32"),   # per-channel: one group replicates on rows
+    ("a16w8g", "float32"),  # group-wise: the groups follow the rows
+    ("none", "bfloat16")])
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_params_tp_bit_equal_to_jax(quant, dtype, n):
+    cfg, _, params = tp_fixture(quant, dtype=dtype)
+    want = jtpk.split_params_tp(params, cfg, n)
+    tparams = params_from_numpy(params, "cpu", getattr(torch, dtype))
+    got = ttpk.split_params_tp(tparams, port_config(cfg), n)
+    for r in range(n):
+        assert_bit_equal(want[r], got[r], f"rank {r}")
+    if quant == "a16w4":
+        # both paths of the u4 column slice ran: q's share is whole tiles
+        # at n = 2, k's is not
+        assert (cfg.num_heads * 128 // n) % 256 == 0 or n == 4
+        assert (cfg.num_kv_heads * 128 // n) % 256 != 0
+    # the runtime's per-rank trees on a mesh of repeated CPU ranks are the
+    # same leaves; KV heads that do not divide among the ranks replicate
+    # the K/V weights
+    mesh = make_mesh((1, n), ["cpu"] * n)
+    ranks = shard_params(tparams, port_config(cfg), mesh)
+    for r in range(n):
+        lp, wl = ranks[r]["layers"], want[r]["layers"]
+        for name in ("q_proj", "o_proj", "gate_proj", "down_proj"):
+            assert_bit_equal(wl[name], lp[name], f"rank {r} {name}")
+        for name in ("k_proj", "v_proj"):
+            full = cfg.num_kv_heads % n != 0
+            assert_bit_equal(params["layers"][name] if full else wl[name],
+                             lp[name], f"rank {r} {name}")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_local_config_equals_jax(n):
+    cfg, _, _ = tp_fixture("none", KH=4)
+    assert ttpk.local_config(port_config(cfg), n) == \
+        port_config(jtpk.local_config(cfg, n))
+
+
+@pytest.mark.parametrize("quant,mode,KH", [
+    ("none", "default", 2), ("none", "int8", 2), ("a16w4", "int8", 2),
+    ("a16w8", "int8", 4), ("a16w8g", "int8", 2), ("a16w4", "uint4", 4),
+    ("a16w4", "uint4", 2)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_supports_tp_decides_as_jax(quant, mode, KH, n):
+    """Equal decisions, but for the JAX UINT4 rule of 128 K/V lanes a rank
+    (KH/n * D/2), a Mosaic tiling rule the port does not keep."""
+    cfg, rt, params = tp_fixture(quant, KH=KH)
+    rt = dataclasses.replace(
+        rt, cache=dataclasses.replace(rt.cache, mode=JMode(mode)))
+    want = jtpk.supports_tp(cfg, rt, params, n)
+    got = ttpk.supports_tp(port_config(cfg), _port_rt(rt, mode), params, n)
+    lane_rule = mode == "uint4" and KH // n * 64 < 128 and \
+        KH % n == 0 and (cfg.intermediate_size // n) % 128 == 0
+    if lane_rule:
+        assert got and not want
+    else:
+        assert got == want
+    # what the two say no to alike: a width that does not divide, MoE
+    assert not ttpk.supports_tp(
+        dataclasses.replace(port_config(cfg), num_heads=6),
+        _port_rt(rt, mode), params, 4)
+
+
+def test_mesh_rules():
+    """make_mesh raises as the JAX function when the devices are too few;
+    a data axis > 1 is not served; repeated devices only when listed."""
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        make_mesh((1, 2), ["cpu"])
+    with pytest.raises(NotImplementedError, match="data axis"):
+        make_mesh((2, 1), ["cpu", "cpu"])
+    m = make_mesh((1, 2), ["cpu", "cpu", "cpu"])
+    assert m.n == 2 and m.devices == (torch.device("cpu"),) * 2
+    assert m.distinct == (torch.device("cpu"),)
+    from dashinfer_tpu_torch.parallel import collective_kind
+    assert collective_kind(m.devices) == "same-device sum"
+    assert collective_kind([torch.device("cuda", 0),
+                            torch.device("cuda", 1)]) == "nccl"
+    with pytest.raises(NotImplementedError):
+        collective_kind([torch.device("cuda", 0)] * 2 +
+                        [torch.device("cuda", 1)])
+
+
+def test_all_reduce_and_gather():
+    from dashinfer_tpu_torch.parallel import all_gather_vocab, all_reduce_
+    g = torch.Generator().manual_seed(0)
+    parts = [torch.randn(3, 5, generator=g) for _ in range(3)]
+    want = parts[0] + parts[1] + parts[2]
+    out = all_reduce_([p.clone() for p in parts])
+    for p in out:
+        torch.testing.assert_close(p, want, rtol=0, atol=0)
+    half = [p.to(torch.bfloat16) for p in parts[:2]]
+    out = all_reduce_([h.clone() for h in half])
+    assert out[1].dtype == torch.bfloat16
+    torch.testing.assert_close(out[1], (half[0].float() + half[1].float())
+                               .to(torch.bfloat16), rtol=0, atol=0)
+    cat = all_gather_vocab([torch.ones(2, 3), torch.zeros(2, 4)])
+    assert cat.shape == (2, 7) and cat[:, :3].eq(1).all()
+
+
+def test_padded_qkv_widths_and_the_kernels():
+    """A rank's q / k / v of 128 mod 256 columns (Qwen2-7B's at n = 4;
+    here the tiny model's k and v at n = 2): the decode
+    pack pads each leaf to its 256-column tiles, which the decode and
+    segment kernels' attention phase reads at the leaves' padded offsets
+    (csrc/di_layer.cuh); the prefill kernel reads q|k|v unpadded, so its
+    gaps name them and the runtime prefills such a model per-op."""
+    from dashinfer_tpu_torch.ops import megakernel as tmk
+    from dashinfer_tpu_torch.ops import prefill_megakernel as tpmk
+    cfg, rt, params = tp_fixture("a16w4")
+    tcfg = port_config(cfg)
+    trt = _port_rt(rt, "int8")
+    tparams = params_from_numpy(params, "cpu", torch.float32)
+    plan, packs = ttpk.make_tp_plan(tcfg, trt, ttpk.split_params_tp(
+        tparams, tcfg, 2))
+    assert plan.qkv.N == (256, 128, 128) and plan.qkv.Np == (256, 256, 256)
+    assert packs[0]["layers"]["k_proj"]["w_f"].shape[-3] == 1   # one tile
+    assert not tmk.cuda_kernel_gaps(plan)
+    local = ttpk.local_config(tcfg, 2)
+    pplan = tpmk.make_prefill_plan(local, trt, ttpk.split_params_tp(
+        tparams, tcfg, 2)[0], 128, decode_plan=plan)
+    assert any("q / k / v" in g for g in tpmk.cuda_kernel_gaps(pplan))
