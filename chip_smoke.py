@@ -50,12 +50,29 @@ on one of them, and then prints no final result line):
               weights and state; then (n = 2, INT8) ms per segment launch
               beside its bound and plain version, and ms per TP step beside
               the single-device megakernel's;
+  tp_prefill  the tensor-parallel prefill segment kernels
+              (csrc/tp_prefill_segments.cu) of every rank of a (1, n) mesh
+              whose ranks share the card, at Qwen2-7B width and depth:
+              n = 2 with INT8 KV at buckets 128 / 256 / 512 / 1024 (a
+              served prompt length and full), with UINT4 at 128 and 1024,
+              n = 4 with INT8 at 128 and 1024; each segment (layers 0 and
+              27) against its plain version, the whole TP prefill against
+              `tp_prefill_ref` and against the single-device prefill
+              megakernel on the same weights and prompt; that the runtime's
+              TP prefill install takes buckets 128 .. 1024 at n = 2 and 4;
+              then (n = 2, INT8, full buckets) ms per segment launch beside
+              its bound and plain version, and the whole TP prefill by graph
+              replay and eagerly beside the single-device prefill
+              megakernel and the per-op TP prefill;
   serve_tp    Qwen2-7B served on a (1, 2) mesh with `serve`'s traffic, with
-              every flag at its default (decode through the segments,
-              prefill per-op TP) and per-op; launch counts checked, greedy
-              tokens held to the single-device serving's. The ranks take
-              distinct cards (NCCL) when the machine has two, else share
-              this one (a sum on the card).
+              every flag at its default (decode through the segments, the
+              prefills of buckets 128 .. 1024 through the prefill segments,
+              the bucket-32 prompt per-op TP), with DI_PREFILL_MEGAKERNEL=0
+              (every prefill per-op TP) and per-op; launch counts checked,
+              greedy tokens held to the single-device serving's, TTFT and
+              ms/step printed for the first two. The ranks take distinct
+              cards (NCCL) when the machine has two, else share this one
+              (a sum on the card).
 Then Qwen2-7B's weights go, and the MoE slice runs at Qwen1.5-MoE-A2.7B width
 (24 layers, 60 experts top-4 + a shared expert, random a16w4 weights made on
 the card): `megakernel` and `prefill_megakernel` hold the two kernels' MoE
@@ -63,6 +80,9 @@ branches against their plain versions (KV modes, B = 8 / 32, every bucket
 128 .. 1024 the serving launches; a router near-tie that routes a row
 differently is counted and capped) and time them beside the routed bounds;
 `serve` serves the MoE model with every flag at its default and per-op.
+The MoE decode check also runs the plain version routed as the kernel
+routed (`kernel_routing`) and holds every active row to it, rows the two
+route differently included.
 It prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. It needs the repository around it (the
 `dashinfer_tpu_torch` package) and a CUDA card; without either it exits
@@ -209,6 +229,12 @@ PLANTED_ROUTER_ERR = 2e-2
 # B = 32 state (contexts to 1,500 tokens) read 2.9e-2 of its own range and
 # 2.1e-2 of its layer's while the logits held 5e-4 of their largest.
 MOE_DEEP_RTOL = DEEP_QPARAM_RTOL
+# The MoE decode branch against its plain version routed as the kernel
+# routed (forced_routing_check): a (row, layer) whose K or V differs by more
+# than CONDITIONED_RTOL of the row's range is held to the bounds unless its
+# residual entering the layer is below ILL_NORM_SHARE of the batch's median.
+CONDITIONED_RTOL = 2.5e-2
+ILL_NORM_SHARE = 1.0 / 16
 
 
 class SmokeFailure(Exception):
@@ -774,9 +800,12 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     (`weight_residency="pack_only"`; `params` is then a callable that makes
     the tree, so that the engine alone holds it); on a (1, n) mesh over
     `devices`, "tp" (every flag at its default: decode through the TP
-    segments, prefill per-op TP) or "tp per-op". `cfg`: Qwen2-7B unless
-    given (the MoE model). Returns (launch counts of the timed requests,
-    generated tokens per request)."""
+    segments, the prefills of buckets 128 .. 1024 through the TP prefill
+    segments, the others per-op TP), "tp prefill per-op"
+    (DI_PREFILL_MEGAKERNEL=0: every prefill per-op TP, as before the TP
+    prefill segments) or "tp per-op". `cfg`: Qwen2-7B unless given (the
+    MoE model). Returns (launch counts of the timed requests, generated
+    tokens per request)."""
     import torch
     from dashinfer_tpu_torch import (CacheMode, Engine, GenerateRequestStatus,
                                      GenerationConfig, ModelConfig,
@@ -796,7 +825,11 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
                 "grouped_quant_matmul": gqm.grouped_quant_matmul.counter,
                 "tp_attn_segment": tpk.tp_attn_segment.counter,
                 "tp_mlp_segment": tpk.tp_mlp_segment.counter,
-                "tp_lm_segment": tpk.tp_lm_segment.counter}
+                "tp_lm_segment": tpk.tp_lm_segment.counter,
+                "tp_prefill_attn_segment":
+                    tpk.tp_prefill_attn_segment.counter,
+                "tp_prefill_mlp_segment": tpk.tp_prefill_mlp_segment.counter,
+                "tp_prefill_lm_segment": tpk.tp_prefill_lm_segment.counter}
     cfg = cfg or ModelConfig(**QWEN2_7B)
     name = "qwen1.5-moe" if cfg.moe else "qwen2-7b"
     label = f"{name} {path}"
@@ -818,8 +851,14 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     if callable(params):
         params = params()
     mem_tree = torch.cuda.memory_allocated(dev) - mem0
-    eng = Engine().install_model(name, rt, params=params,
-                                 model_config=cfg, device=devices or dev)
+    tp_pmk = path != "tp prefill per-op"
+    if not tp_pmk:
+        os.environ["DI_PREFILL_MEGAKERNEL"] = "0"
+    try:
+        eng = Engine().install_model(name, rt, params=params,
+                                     model_config=cfg, device=devices or dev)
+    finally:
+        os.environ.pop("DI_PREFILL_MEGAKERNEL", None)
     del params
     run = eng._models[name]
     caches = run.cache if devices else [run.cache]
@@ -834,14 +873,16 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
         pool_bytes=_resident_bytes(*(vars(c) for c in caches)),
         prefill_scratch_bytes=pmk.scratch_bytes(dev),
         logical_pages=run.num_logical_pages)
+    tp_buckets = [b for b in (128, 256, 512, 1024) if megakernel and tp_pmk]
     if devices:
         check((run.tp_mega_plan is not None) == megakernel and
-              run.mega_plan is None and not run._pmk_plans,
-              f"{label}: the mesh install took the wrong decode path")
+              run.mega_plan is None and not run._pmk_plans and
+              sorted(run._tp_pmk_plans) == tp_buckets,
+              f"{label}: the mesh install took the wrong decode or prefill "
+              f"path (TP prefill buckets {sorted(run._tp_pmk_plans)})")
     # one scratch set, sized for the largest bucket, is on the card from the
-    # install on (none on the per-op path or on a mesh)
-    check((memory["prefill_scratch_bytes"] > 0) == (megakernel and
-                                                    not devices),
+    # install on (none on the per-op paths)
+    check((memory["prefill_scratch_bytes"] > 0) == (megakernel and tp_pmk),
           f"{path}: prefill scratch after install: "
           f"{memory['prefill_scratch_bytes']} bytes")
     eng.start_model(name)
@@ -957,15 +998,23 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
               f"decode steps and {len(PROMPT_LENS)} prefills")
     if devices:
         # a per-op TP prefill runs every rank's projections as a
-        # single-device prefill does (at the rank's widths); a decode step
-        # runs every rank's two segments a layer and its lm segment, or
-        # per-op every rank's kernels of a single-device step
-        prefill = n_r * sum(per_step if n <= 32 else lm for n in PROMPT_LENS)
+        # single-device prefill does (at the rank's widths); a prefill of a
+        # bucket 128 .. 1024 through the TP prefill segments runs every
+        # rank's attn and mlp segments a layer and its lm segment; a decode
+        # step runs every rank's two segments a layer and its lm segment,
+        # or per-op every rank's kernels of a single-device step
+        seg_prefills = sum(64 < n <= 1024 for n in PROMPT_LENS) \
+            if tp_buckets else 0
+        prefill = n_r * sum(per_step if n <= 32 else lm for n in PROMPT_LENS
+                            if not (tp_buckets and 64 < n <= 1024))
         if megakernel:
             steps = launches["tp_lm_segment"] // n_r
             expect = dict(tp_attn_segment=L * n_r * steps,
                           tp_mlp_segment=L * n_r * steps,
-                          tp_lm_segment=n_r * steps, quant_matmul=prefill)
+                          tp_lm_segment=n_r * steps, quant_matmul=prefill,
+                          tp_prefill_attn_segment=L * n_r * seg_prefills,
+                          tp_prefill_mlp_segment=L * n_r * seg_prefills,
+                          tp_prefill_lm_segment=n_r * seg_prefills)
         else:
             steps = launches["paged_attention"] // (L * n_r)
             expect = dict(paged_attention=L * n_r * steps,
@@ -975,8 +1024,10 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
               {k: v for k, v in launches.items() if v} ==
               {k: v for k, v in expect.items() if v},
               f"{label} path: launch counts {launches} do not match {steps} "
-              f"decode steps over {n_r} ranks and {len(PROMPT_LENS)} per-op "
-              f"TP prefills ({expect})")
+              f"decode steps over {n_r} ranks, {seg_prefills} prefills "
+              f"through the TP prefill segments and "
+              f"{len(PROMPT_LENS) - seg_prefills} per-op TP prefills "
+              f"({expect})")
     details[f"serving_{name}_{path}"] = dict(
         requests=reqs, launches=launches, wall_s=wall, decode_steps=steps,
         memory=memory)
@@ -1313,6 +1364,9 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
     pool_err, qp_err0, qp_err = check_written_pool(
         what, mode, caches[True], caches[False], before, written, L, dev,
         exempt, moe=bool(plan.E))
+    forced = forced_routing_check(plan, args, caches[True], out[True], before,
+                                  written, st, lens, flips, what, dev) \
+        if plan.E else None
     print(f"{what}: logits max|d|={err:.3e} (ref max {ref_max:.3e}), argmax "
           f"equal {same}/{int(act.sum())}, written payload within "
           f"{pool_err:g} level, qparams rel {qp_err0:.1e} (layer 0) "
@@ -1325,7 +1379,95 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
     return dict(stream=stream, mode=mode.value, B=B, max_abs_err=err,
                 ref_max=ref_max, argmax_equal=same, pool_levels=pool_err,
                 qparam_rel_layer0=qp_err0, qparam_rel=qp_err,
-                flipped_rows=flips, planted_fault_rows=planted)
+                flipped_rows=flips, planted_fault_rows=planted,
+                forced_routing=forced)
+
+
+def forced_routing_check(plan, args, got_cache, got, before, written, st,
+                         lens, flips, what, dev):
+    """The MoE decode branch against its plain version routed as the kernel
+    routed each row in each layer (`kernel_routing`): every active row, the
+    rows the two route differently (`flips`) included, is held to the
+    bounds every other row meets above (logits within LOGITS_RTOL of their
+    largest, the written pool rows of every layer by check_written_pool's
+    MoE rules), so that a fault in the branch's products or gates cannot
+    pass as a router near-tie. One kind of (row, layer) cannot meet them
+    with a sound kernel: one whose residual, entering the layer, is still
+    near the scale of the row's embedding while the other rows' have grown
+    (the RMS of 0.03 against a median of 20 here), so that the layer's
+    RMSNorm passes the row's rounding differences (the f32 sums' order, a
+    bf16 rounding on the other side of a tie) on with that much more gain.
+    A (row, layer) past layer 0 whose K or V differs from the plain
+    version's, beyond one and a half of its levels, by more than
+    CONDITIONED_RTOL of the row's own range is held to the bounds unless
+    the plain version's residual RMS entering that layer is below
+    ILL_NORM_SHARE of the median over the active rows; such (row, layer)s
+    are printed with the row's profile and not held, for at most
+    MAX_FLIPPED_ROWS rows or MAX_FLIPPED_ROW_SHARE of the active rows.
+    Returns the readings."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    L, KH, mode = plan.L, plan.KH, plan.kv_mode
+    cf = before.clone()
+    norms = []
+    ref = mk.decode_megakernel_ref(*args, cf,
+                                   forced_routing=mk.kernel_routing(plan, dev),
+                                   resid_norms=norms)
+    torch.cuda.synchronize()
+    act = st["active"]
+    what = f"{what} (the plain version routed as the kernel)"
+    err = (got[act] - ref[act]).abs().max().item()
+    ref_max = ref[act].abs().max().item()
+    check(bool(torch.isfinite(got[act]).all()) and
+          err <= LOGITS_RTOL * ref_max,
+          f"{what}: logits differ {err:.3e} > {LOGITS_RTOL} * {ref_max:.3e}")
+    # [B, L]: the largest K or V difference of a head, dequantized, beyond
+    # one and a half of the row's levels, in shares of the row's range
+    rows = [b for b in range(len(lens)) if bool(act[b])]
+    diff = torch.zeros((len(lens), L), device=dev)
+    for b in rows:
+        g, off = int(st["pt"][b, lens[b] // PAGE]), lens[b] % PAGE
+        m = torch.zeros_like(written)
+        m[g * L:(g + 1) * L, off] = True
+        for name in ("k", "v"):
+            val, _, _, _ = written_rows(got_cache, name, m, mode, KH)
+            rval, _, rsc, _ = written_rows(cf, name, m, mode, KH)
+            lv = 0 if rsc is None else 1.5 * rsc
+            d = ((val - rval).abs().amax(-1) - lv).clamp_min(0) / \
+                (rval.amax(-1) - rval.amin(-1)).clamp_min(1e-8)
+            diff[b] = torch.maximum(diff[b], d.amax(-1))
+    norms = torch.stack(norms, 1)                          # [B, L]
+    share = norms / norms[rows].median(0).values[None, :]
+    ill = (diff > CONDITIONED_RTOL) & (share < ILL_NORM_SHARE)
+    ill[:, 0] = False
+    ill_rows = torch.nonzero(ill.any(1))[:, 0].tolist()
+    cap = max(MAX_FLIPPED_ROWS, math.ceil(MAX_FLIPPED_ROW_SHARE * len(rows)))
+    check(len(ill_rows) <= cap,
+          f"{what}: {len(ill_rows)} rows ill-conditioned, at most {cap}: "
+          f"{ill_rows}")
+    exempt = torch.zeros_like(written)
+    for b, l in torch.nonzero(ill).tolist():
+        g, off = int(st["pt"][b, lens[b] // PAGE]), lens[b] % PAGE
+        exempt[g * L + l, off] = True
+    pool = check_written_pool(what, mode, got_cache, cf, before, written, L,
+                              dev, exempt, moe=True)
+    profile = {b: dict(diff=[round(v, 4) for v in diff[b].tolist()],
+                       norm_share=[round(v, 4) for v in share[b].tolist()],
+                       not_held=torch.nonzero(ill[b])[:, 0].tolist())
+               for b in ill_rows}
+    print(f"{what}: every active row held ({len(flips)} routed differently "
+          f"by the two, {[b for b, *_ in flips]}): logits max|d|={err:.3e} "
+          f"(ref max {ref_max:.3e}); pool within {pool[0]:g} level in layer "
+          f"0, qparams rel {pool[1]:.1e} (layer 0) {pool[2]:.1e} (all "
+          f"layers); largest K / V difference of a held (row, layer) "
+          f"{float(diff[rows][~ill[rows]].max()):.3e} of the row's range "
+          f"beyond 1.5 levels; ill-conditioned rows by layer (difference, "
+          f"residual RMS over the median, layers not held): {profile}",
+          flush=True)
+    return dict(max_abs_err=err, ref_max=ref_max, pool_levels=pool[0],
+                qparam_rel_layer0=pool[1], qparam_rel=pool[2],
+                held_max=float(diff[rows][~ill[rows]].max()),
+                ill_conditioned=profile)
 
 
 def time_megakernel(cfg, params, stream, B, lens, gen, dev, per_op=True):
@@ -1598,11 +1740,13 @@ def check_prefill_pool(what, mode, got, ref, ref32, before, written, cfg,
         rel = (val - rval).abs().amax(-1) / rng * held[:, None]   # [R, KH]
         rel32 = (rval - r32).abs().amax(-1) / rng
         if quant:
-            d0 = (lv - rlv).abs()[layer0 & held]
-            lv_err = max(lv_err, d0.max().item())
-            q0 = torch.maximum((sc - rsc).abs() / rsc,
-                               (ze - rze).abs() / rng)[layer0 & held]
-            qp_err0 = max(qp_err0, q0.max().item())
+            # a check of writes at deeper layers only has no layer-0 rows
+            if bool((layer0 & held).any()):
+                d0 = (lv - rlv).abs()[layer0 & held]
+                lv_err = max(lv_err, d0.max().item())
+                q0 = torch.maximum((sc - rsc).abs() / rsc,
+                                   (ze - rze).abs() / rng)[layer0 & held]
+                qp_err0 = max(qp_err0, q0.max().item())
             check(lv_err <= 1 and qp_err0 <= QPARAM_RTOL,
                   f"{what}: {name} layer 0: payload {lv_err} levels, "
                   f"qparams {qp_err0:.2e}")
@@ -1662,11 +1806,7 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev):
     # a MoE prompt's tokens that the kernel routed differently from the
     # plain version (and the plain versions from each other) in some layer
     flips, last_flipped, last32_flipped = [], False, False
-    written = torch.zeros(before.k.shape[:2], dtype=torch.bool, device=dev)
-    for j, g in enumerate(st["pages"].tolist()):
-        rows = min(PAGE, n - j * PAGE)
-        if rows > 0:
-            written[g * L:(g + 1) * L, :rows] = True
+    written = prompt_written(before, st["pages"], n, L, range(L), dev)
     check(int(written.sum()) == n * L, f"{what}: written mask")
     exempt, planted, budget = None, None, None
     if plan.E:
@@ -2150,8 +2290,8 @@ def tp_written(s, layers, dev):
 
 
 def held_rows(got, ref, act, what):
-    """Active rows of a kernel's output within LOGITS_RTOL of its plain
-    version's largest; returns max|d|."""
+    """Rows `act` (a mask or a slice) of a kernel's output within
+    LOGITS_RTOL of its plain version's largest there; returns max|d|."""
     got, ref = got[act], ref[act]
     check(bool(torch_isfinite(got)), f"{what}: not finite")
     err = (got - ref).abs().max().item()
@@ -2252,24 +2392,15 @@ def check_tp_segment_case(cfg, params, n, mode, gen, dev, timing):
     # the single-device megakernel on the same weights and state: its pool
     # holds every KV head, the ranks' side by side
     plan1, pack1 = mk_plan_pack(cfg, params, B, mode)
-
-    def full(pools, name):
-        ts = [getattr(c, name) for c in pools]
-        if ts[0] is None:
-            return None
-        return torch.cat(ts, dim=1 if name.endswith("qparams") else 2)
-
-    from dashinfer_tpu_torch.runtime.kv_cache import KVCache
-    names = ("k", "v", "k_qparams", "v_qparams")
-    before1 = KVCache(*(full(caches, nm) for nm in names))
+    before1 = full_pool(caches)
     c1 = before1.clone()
     logits_1 = mk.decode_megakernel(plan1, pack1, s["x0"], *step, c1)
     mk.check_status(plan1, dev)
     what = f"{what0} forward vs the single-device megakernel"
     m_err = held_rows(logits_k, logits_1, act, what)
     m_same = check_argmax(logits_k, logits_1, act, m_err, what)
-    check_written_pool(what, mode, KVCache(*(full(ck, nm) for nm in names)),
-                       c1, before1, written, L, dev)
+    check_written_pool(what, mode, full_pool(ck), c1, before1, written, L,
+                       dev)
     row = dict(n=n, mode=mode.value, errs=errs, forward_err=f_err,
                forward_argmax_equal=same, vs_megakernel_err=m_err,
                vs_megakernel_argmax_equal=m_same,
@@ -2384,9 +2515,12 @@ def tp_devices(dev):
 
 def check_serving_tp(params, dev, details, single_tokens):
     """Qwen2-7B on a (1, 2) mesh with serve()'s traffic: every flag at its
-    default (decode through the TP segments, prefill per-op TP) and per-op
-    (24 tokens a request); the greedy requests' first 8 tokens equal to the
-    single-device serving's on the same path."""
+    default (decode through the TP segments, the prefills of buckets 128 ..
+    1024 through the TP prefill segments), with DI_PREFILL_MEGAKERNEL=0
+    (every prefill per-op TP: the serving before the TP prefill segments,
+    side by side in one run) and per-op (24 tokens a request); the greedy
+    requests' first 8 tokens equal to the single-device serving's on the
+    same path (the megakernels' for the first two)."""
     import torch
     from dashinfer_tpu_torch.parallel import collective_kind
     devices = tp_devices(dev)
@@ -2395,10 +2529,12 @@ def check_serving_tp(params, dev, details, single_tokens):
                              "collective": collective_kind(devices)}}),
           flush=True)
     out = {}
-    for path, new_tokens in (("tp", 64), ("tp per-op", 24)):
+    for path, new_tokens in (("tp", 64), ("tp prefill per-op", 64),
+                             ("tp per-op", 24)):
         launches, tokens, _ = serve(params, dev, details, path, new_tokens,
                                     devices=devices)
-        ref = single_tokens["megakernel" if path == "tp" else "per-op"]
+        ref = single_tokens["per-op" if path == "tp per-op"
+                            else "megakernel"]
         agree = []
         for i, (a, b) in enumerate(zip(tokens, ref)):
             if i % 2:
@@ -2414,13 +2550,400 @@ def check_serving_tp(params, dev, details, single_tokens):
                   "tokens")
         details[f"greedy_agreement_{path}"] = agree
         out[path] = launches
+    summary = {}
+    for path in ("tp", "tp prefill per-op"):
+        reqs = details[f"serving_qwen2-7b_{path}"]["requests"]
+        steps = [r["decode_ms_per_step"] for r in reqs]
+        summary[path] = dict(ttft_ms=max(r["ttft_ms"] for r in reqs),
+                             ms_per_step=(min(steps), max(steps)))
+        print(f"qwen2-7b {path}: TTFT (the six prompts together) "
+              f"{summary[path]['ttft_ms']:.1f} ms, decode "
+              f"{min(steps):.2f} .. {max(steps):.2f} ms/step", flush=True)
+    details["tp_serving_summary"] = summary
     torch.cuda.empty_cache()
     return out
 
 
+# -- the TP prefill segments --------------------------------------------------
+
+# (ranks, KV mode, (bucket, prompt length) cases): every bucket the serving
+# launches at a served length and full for n = 2 with INT8 KV, the smallest
+# and the largest bucket with UINT4 and for n = 4 (q 896, k / v 128, MLP
+# 4736, vocab 38016: widths of 128 mod 256, padded in the pack)
+TP_PREFILL_CASES = (
+    (2, "INT8", ((128, 100), (128, 128), (256, 200), (256, 256),
+                 (512, 450), (512, 512), (1024, 1000), (1024, 1024))),
+    (2, "UINT4", ((128, 100), (1024, 1024))),
+    (4, "INT8", ((128, 100), (1024, 1000))))
+TP_PREFILL_BUCKETS = (128, 256, 512, 1024)
+# The prefill segments against their plain versions run with the kernel's
+# bf16 score operands: the o / down partials of the prompt rows and the
+# local logits within LOGITS_RTOL of their largest; x + add equal in the
+# prompt rows; the kernel's partial zero in the rows after the last row
+# tile that holds a prompt row; the pool by check_prefill_pool's rules (the
+# plain version with f32 scores beside it for the ill-conditioned rows): a
+# segment at layer 0 to the layer-0 bounds, one at the last layer to the
+# deeper layers'. The whole TP prefill against tp_prefill_ref, and against
+# the single-device prefill megakernel on the same weights and prompt (its
+# pool the ranks' pools side by side), by check_prefill_case's rules.
+
+
+def tp_prefill_rt(n, mode):
+    from dashinfer_tpu_torch.config import RuntimeConfigBuilder
+    b = (RuntimeConfigBuilder("tpp").max_length(2048).max_batch(DECODE_BATCH)
+         .kv_cache_page_size(PAGE).kv_cache_mode(mode).dtype("bfloat16"))
+    return (b.mesh(1, n) if n > 1 else b).build()
+
+
+def tp_prefill_setup(cfg, params, n, dev):
+    """The ranks' split trees, the TP decode plan and one pack a rank of a
+    (1, n) mesh whose ranks all run on `dev`; the buckets the runtime's TP
+    prefill install admits for this model must be 128 .. 1024."""
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    from dashinfer_tpu_torch.parallel import make_mesh, shard_params
+    mesh = make_mesh((1, n), [dev] * n)
+    parts = shard_params(params, cfg, mesh)
+    rt = tp_prefill_rt(n, CacheMode.INT8)
+    tp_plan, packs = tpk.make_tp_plan(cfg, rt, parts)
+    qual = [b for b in TP_PREFILL_BUCKETS if tpk.supports_prefill_tp(
+        cfg, rt, params, b, n, local=parts[0])]
+    plans = tpk.make_tp_prefill_plans(cfg, rt, parts, qual, tp_plan)
+    gaps = {b: pmk.cuda_kernel_gaps(p) for b, p in plans.items()}
+    check(qual == list(TP_PREFILL_BUCKETS) and not any(gaps.values()),
+          f"tp prefill n={n}: the install would prefill buckets {qual} "
+          f"through the segments (gaps {gaps}), not 128 .. 1024")
+    return dict(n=n, mesh=mesh, parts=parts, tp_plan=tp_plan, packs=packs,
+                cfg_l=tpk.local_config(cfg, n))
+
+
+def tp_prefill_inputs(cfg, params, s, plan, mode, n_tok, gen, dev):
+    """pmk_inputs' prompt, pages and RoPE tiles, and one random pool a rank
+    over its KV heads."""
+    ranks = [pmk_inputs(s["cfg_l"], params, plan, mode, n_tok, gen, dev)
+             for _ in range(s["n"])]
+    st = ranks[0]
+    st["caches"] = [r["cache"] for r in ranks]
+    return st
+
+
+def prompt_written(cache, pages, n, L, layers, dev):
+    """[pages, ps] rows a prefill of n tokens writes at `layers`."""
+    import torch
+    written = torch.zeros(cache.k.shape[:2], dtype=torch.bool, device=dev)
+    for j, g in enumerate(pages.tolist()):
+        rows = min(PAGE, n - j * PAGE)
+        if rows > 0:
+            for l in layers:
+                written[g * L + l, :rows] = True
+    return written
+
+
+def full_pool(caches):
+    """The ranks' pools side by side: the single-device pool's layout."""
+    import torch
+    from dashinfer_tpu_torch.runtime.kv_cache import KVCache
+
+    def cat(name):
+        ts = [getattr(c, name) for c in caches]
+        if ts[0] is None:
+            return None
+        return torch.cat(ts, dim=1 if name.endswith("qparams") else 2)
+    return KVCache(*(cat(nm) for nm in ("k", "v", "k_qparams", "v_qparams")))
+
+
+def check_tp_prefill_case(cfg, params, s, single, mode_name, bucket, n_tok,
+                          gen, dev):
+    """Each prefill segment kernel of every rank against its plain version
+    (layers 0 and L - 1), the whole TP prefill against tp_prefill_ref and
+    against the single-device prefill megakernel (`single`: its decode
+    plan and pack on the same weights)."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    mode = getattr(CacheMode, mode_name)
+    n, cfg_l = s["n"], s["cfg_l"]
+    rt = tp_prefill_rt(n, mode)
+    plan = tpk.make_tp_prefill_plans(cfg, rt, s["parts"], [bucket],
+                                     s["tp_plan"])[bucket]
+    st = tp_prefill_inputs(cfg, params, s, plan, mode, n_tok, gen, dev)
+    S, L, hid = plan.S, plan.L, plan.hid
+    rows = -(-n_tok // 128) * 128
+    step = (st["cos"], st["sin"], st["page_row"], st["n"])
+    what0 = f"tp prefill n={n} {mode.value} S={bucket} n_tok={n_tok}"
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 31 + bucket + n)
+    errs = dict(attn=0.0, mlp=0.0, lm=0.0)
+    pool0 = {}
+    for r in range(n):
+        pk = s["packs"][r]
+        add = torch.randn((S, hid), generator=g, device=dev) * 0.5
+        for l in (0, L - 1):
+            what = f"{what0} attn rank {r} layer {l}"
+            x = st["x0"].float()
+            xs = {k: x.clone() for k in ("k", "p", "p32")}
+            cs = {k: st["caches"][r].clone() for k in xs}
+            out = {"k": tpk.tp_prefill_attn_segment(
+                plan, pk, l, xs["k"], *step, cs["k"], add=add)}
+            tpk.check_prefill_status(dev)
+            for k, bf in (("p", True), ("p32", False)):
+                out[k] = tpk.prefill_attn_segment_ref(
+                    plan, pk, l, xs[k], *step, cs[k], add=add,
+                    bf16_scores=bf)
+            check(bool((xs["k"][:rows] == xs["p"][:rows]).all()),
+                  f"{what}: x + add differs")
+            check(not bool(out["k"][rows:].any()),
+                  f"{what}: rows past the prompt's last row tile not zero")
+            errs["attn"] = max(errs["attn"], held_rows(
+                out["k"], out["p"], slice(0, n_tok), what))
+            res = check_prefill_pool(
+                what, mode, cs["k"], cs["p"], cs["p32"], st["caches"][r],
+                prompt_written(cs["k"], st["pages"], n_tok, L, (l,), dev),
+                cfg_l, dev)
+            if l == 0:
+                pool0[r] = res[:2]
+            xs = {k: x.clone() for k in ("k", "p")}
+            out = {"k": tpk.tp_prefill_mlp_segment(plan, pk, l, xs["k"],
+                                                   st["n"], add=add)}
+            tpk.check_prefill_status(dev)
+            out["p"] = tpk.prefill_mlp_segment_ref(plan, pk, l, xs["p"],
+                                                   st["n"], add=add)
+            what = f"{what0} mlp rank {r} layer {l}"
+            check(bool((xs["k"][:rows] == xs["p"][:rows]).all()),
+                  f"{what}: x + add differs")
+            check(not bool(out["k"][rows:].any()),
+                  f"{what}: rows past the prompt's last row tile not zero")
+            errs["mlp"] = max(errs["mlp"], held_rows(
+                out["k"], out["p"], slice(0, n_tok), what))
+        xs = {k: st["x0"].float() for k in ("k", "p")}
+        lg = {"k": tpk.tp_prefill_lm_segment(plan, pk, xs["k"], st["n"],
+                                             add=add)}
+        tpk.check_prefill_status(dev)
+        lg["p"] = tpk.prefill_lm_segment_ref(plan, pk, xs["p"], st["n"],
+                                             add=add)
+        what = f"{what0} lm rank {r}"
+        check(tuple(lg["k"].shape) == (cfg.vocab_size // n,),
+              f"{what}: shard {tuple(lg['k'].shape)}")
+        check(bool((xs["k"][n_tok - 1] == xs["p"][n_tok - 1]).all()),
+              f"{what}: x + add differs in row n - 1")
+        errs["lm"] = max(errs["lm"], held_rows(
+            lg["k"][None], lg["p"][None], slice(0, 1), what))
+    # the whole prefill, on clones of the ranks' pools
+    devices = s["mesh"].devices
+    cs = {k: [c.clone() for c in st["caches"]] for k in ("k", "p", "p32")}
+    args = (plan, s["packs"], st["x0"], *step)
+    logits = {"k": tpk.tp_prefill(*args, cs["k"], devices)}
+    tpk.check_prefill_status(dev)
+    logits["p"] = tpk.tp_prefill_ref(*args, cs["p"], devices,
+                                     bf16_scores=True)
+    logits["p32"] = tpk.tp_prefill_ref(*args, cs["p32"], devices)
+    torch.cuda.synchronize()
+    what = f"{what0} whole prefill"
+    f_err = held_rows(logits["k"][None], logits["p"][None], slice(0, 1),
+                      what)
+    pick = int(logits["k"].argmax())
+    check(float(logits["p"].max() - logits["p"][pick]) <= 2 * f_err,
+          f"{what}: argmax differs")
+    written = prompt_written(cs["k"][0], st["pages"], n_tok, L, range(L),
+                             dev)
+    ill = 0
+    for r in range(n):
+        ill += check_prefill_pool(f"{what} rank {r}", mode, cs["k"][r],
+                                  cs["p"][r], cs["p32"][r], st["caches"][r],
+                                  written, cfg_l, dev)[3]
+    # the single-device prefill megakernel on the same weights and prompt
+    plan1 = pmk.make_prefill_plan(cfg, tp_prefill_rt(1, mode), params,
+                                  bucket, decode_plan=single["dplan"])
+    before1 = full_pool(st["caches"])
+    c1 = before1.clone()
+    logits1 = pmk.prefill_megakernel(plan1, single["pack"], st["x0"], *step,
+                                     c1)
+    pmk.check_status(dev)
+    what = f"{what0} whole prefill vs the single-device prefill megakernel"
+    m_err = held_rows(logits["k"][None], logits1[None], slice(0, 1), what)
+    check(float(logits1.max() - logits1[pick]) <= 2 * m_err,
+          f"{what}: argmax differs")
+    m_pool = check_prefill_pool(what, mode, full_pool(cs["k"]), c1,
+                                full_pool(cs["p32"]), before1, written, cfg,
+                                dev)
+    row = dict(n=n, mode=mode.value, bucket=bucket, n_tokens=n_tok,
+               errs=errs, layer0_pool=pool0, whole_err=f_err,
+               whole_ref_max=logits["p"].abs().max().item(),
+               whole_ill_conditioned=ill, vs_megakernel_err=m_err,
+               vs_megakernel_pool=m_pool[:4],
+               geometry=tpk.prefill_launch_geometry(plan, dev))
+    print(f"{what0}: segments max|d| attn {errs['attn']:.3e} mlp "
+          f"{errs['mlp']:.3e} lm {errs['lm']:.3e}; whole prefill vs plain "
+          f"{f_err:.3e} (ref max {row['whole_ref_max']:.3e}), vs the "
+          f"single-device prefill megakernel {m_err:.3e}; pools held "
+          f"({ill} ill-conditioned (row, head) pairs); geometry "
+          f"{row['geometry']}", flush=True)
+    return row, (plan, plan1, st)
+
+
+def tp_prefill_timing(cfg, params, s, single, case, dev):
+    """ms per launch of each prefill segment (rank 0, layer 0, a full
+    bucket; graph replay, CUDA events) beside its bound and its plain
+    version's time; the whole TP prefill by graph replay (device) and
+    eagerly (host wall: what serving pays) beside the single-device
+    prefill megakernel and the per-op TP prefill on the same prompt."""
+    import torch
+    from dashinfer_tpu_torch.models import transformer
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    plan, plan1, st = case
+    n, S, L = s["n"], plan.S, plan.L
+    n_tok = int(st["n"].item())
+    pk, cache = s["packs"][0], st["caches"][0]
+    step = (st["cos"], st["sin"], st["page_row"], st["n"])
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 41)
+    x = st["x0"].float()
+    add = torch.randn((S, plan.hid), generator=g, device=dev) * 0.5
+    io = 3 * S * plan.hid * 4      # x read and written, add read
+    kv = 2 * n_tok * plan.KH * ({8: plan.D + 8, 4: plan.D // 2 + 8}.get(
+        plan.kv_bits, 2 * plan.D))
+    attn_ops = 2 * n_tok * (plan.qkv.K * plan.qkv.Ntot + plan.o.K *
+                            plan.o.Ntot) + \
+        2.0 * plan.H * plan.D * n_tok * (n_tok + 1)
+    segs = {
+        "attn": (lambda: tpk.tp_prefill_attn_segment(plan, pk, 0, x, *step,
+                                                     cache, add=add),
+                 lambda: tpk.prefill_attn_segment_ref(
+                     plan, pk, 0, x.clone(), *step, cache.clone(), add=add,
+                     bf16_scores=True),
+                 plan.qkv.matrix_bytes + plan.o.matrix_bytes + io + kv +
+                 S * plan.hid * 4 + 2 * S * plan.D * 2, attn_ops),
+        "mlp": (lambda: tpk.tp_prefill_mlp_segment(plan, pk, 0, x, st["n"],
+                                                   add=add),
+                lambda: tpk.prefill_mlp_segment_ref(plan, pk, 0, x.clone(),
+                                                    st["n"], add=add),
+                plan.gu.matrix_bytes + plan.dn.matrix_bytes + io +
+                S * plan.hid * 4,
+                2 * n_tok * (plan.gu.K * plan.gu.Ntot + plan.dn.K *
+                             plan.dn.Ntot)),
+        "lm": (lambda: tpk.tp_prefill_lm_segment(plan, pk, x, st["n"],
+                                                 add=add),
+               lambda: tpk.prefill_lm_segment_ref(plan, pk, x.clone(),
+                                                  st["n"], add=add),
+               plan.lm.matrix_bytes + 3 * plan.hid * 4 + plan.V * 4,
+               2 * plan.lm.K * plan.lm.Ntot),
+    }
+    out = {}
+    for name, (fn, plain, nbytes, ops) in segs.items():
+        ms = time_ms(fn, [()], iters=10)
+        tpk.check_prefill_status(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        b = bounds(nbytes, ops)
+        out[name] = dict(ms=ms, plain_ms=1e3 * (time.perf_counter() - t0),
+                         bound_ms=max(b["bytes_ms"], b["ops_ms"]),
+                         bound_by=("bytes" if b["bytes_ms"] >= b["ops_ms"]
+                                   else "operations"),
+                         nbytes=nbytes, operations=ops, **b)
+        print(f"  tp_prefill_{name}_segment (n={n}, S={S}, n_tok={n_tok}, "
+              f"rank 0, ranks on one card): {ms:.4f} ms a launch, bound "
+              f"{out[name]['bound_ms']:.4f} ({out[name]['bound_by']}; "
+              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP), plain "
+              f"{out[name]['plain_ms']:.1f} ms", flush=True)
+    devices = s["mesh"].devices
+    caches = st["caches"]
+
+    def whole():
+        return tpk.tp_prefill(plan, s["packs"], st["x0"], *step, caches,
+                              devices)
+
+    tp_ms = time_ms(whole, [()], iters=3)
+    tpk.check_prefill_status(dev)
+    whole()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole()
+    whole()
+    torch.cuda.synchronize()
+    tp_wall = 1e3 * (time.perf_counter() - t0) / 2
+    c1 = full_pool(caches)
+    mk_ms = time_ms(lambda: pmk.prefill_megakernel(
+        plan1, single["pack"], st["x0"], *step, c1), [()], iters=3)
+    pmk.check_status(dev)
+    from dashinfer_tpu_torch.config import CacheMode
+
+    def per_op():
+        transformer.tp_prefill_forward(
+            cfg, s["parts"], st["tokens"], caches, st["pages"], 0, n_tok,
+            mode=CacheMode.INT8, devices=devices)
+
+    per_op()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    per_op()
+    per_op()
+    end.record()
+    torch.cuda.synchronize()
+    op_wall = 1e3 * (time.perf_counter() - t0) / 2
+    op_ms = start.elapsed_time(end) / 2
+    b1 = bounds(plan1.weight_bytes, plan1.operations(n_tok))
+    row = dict(bucket=S, n_tokens=n_tok, segments=out, tp_prefill_ms=tp_ms,
+               tp_prefill_wall_ms=tp_wall, megakernel_ms=mk_ms,
+               per_op_tp_ms=op_ms, per_op_tp_wall_ms=op_wall,
+               bound_ms=max(b1["bytes_ms"], b1["ops_ms"]),
+               launches=2 * L * n + n)
+    print(f"  TP prefill (n={n}, the ranks on one card, S={S}): "
+          f"{tp_ms:.3f} ms by graph replay, {tp_wall:.3f} ms eager (host "
+          f"wall), {row['launches']} segment launches; single-device "
+          f"prefill megakernel {mk_ms:.3f} ms; per-op TP prefill "
+          f"{op_ms:.3f} ms (eager; host wall {op_wall:.3f}); bound of the "
+          f"whole prefill on one card {row['bound_ms']:.3f} ms", flush=True)
+    return row
+
+
+def check_tp_prefill(params, dev, details):
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode, ModelConfig
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    cfg = ModelConfig(**QWEN2_7B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 29)
+    dplan = mk.make_plan(cfg, tp_prefill_rt(1, CacheMode.INT8), params)
+    single = dict(dplan=dplan, pack=mk.pack_params(cfg, dplan, params))
+    rows, times = [], []
+    for n, mode, cases in TP_PREFILL_CASES:
+        s = tp_prefill_setup(cfg, params, n, dev)
+        for bucket, n_tok in cases:
+            row, case = check_tp_prefill_case(cfg, params, s, single, mode,
+                                              bucket, n_tok, gen, dev)
+            rows.append(row)
+            if n == 2 and mode == "INT8" and n_tok == bucket:
+                times.append(tp_prefill_timing(cfg, params, s, single, case,
+                                               dev))
+            del case
+        del s
+        torch.cuda.empty_cache()
+    del single
+    torch.cuda.empty_cache()
+    details["tp_prefill"] = dict(cases=rows, times=times)
+    big = times[-1]["segments"]
+    return {f"tp_prefill_{k}_segment": dict(
+        max_abs_err=max(r["errs"][k] for r in rows),
+        shape="n = 2, rank 0, layer 0, bucket 1024, n = 1024",
+        ms=big[k]["ms"], plain_ms=big[k]["plain_ms"],
+        bound_ms=big[k]["bound_ms"], bound_by=big[k]["bound_by"],
+        library_ms=None,
+        ms_by_bucket={str(t["bucket"]): t["segments"][k]["ms"]
+                      for t in times})
+        for k in ("attn", "mlp", "lm")}
+
+
 PHASES = ("quant_matmul", "paged_attention", "grouped_quant_matmul",
           "stream_probe", "probes", "megakernel", "prefill_megakernel",
-          "serve", "decode_logits", "tp_segments", "serve_tp")
+          "serve", "decode_logits", "tp_segments", "tp_prefill", "serve_tp")
 MOE_PHASES = ("megakernel", "prefill_megakernel", "serve")
 
 
@@ -2500,6 +3023,8 @@ def main(argv=None) -> int:
                 check_decode_logits(params, dev, details)
             if phase("tp_segments"):
                 res.update(check_tp_segments(params, dev, details))
+            if phase("tp_prefill"):
+                res.update(check_tp_prefill(params, dev, details))
             if phase("serve_tp"):
                 if single_tokens is None:     # --only without serve
                     single_tokens = {p: serve(params, dev, details, p, n)[1]
@@ -2539,7 +3064,8 @@ def main(argv=None) -> int:
     # serves (the per-op path for the first two, the megakernel path for
     # the third and the fifth, the MoE model's default serving for the
     # grouped GEMM and the megakernels' MoE entries, the (1, 2) mesh's
-    # default serving for the TP segments), and over the probe tools' own
+    # default serving for the TP segments and the TP prefill segments), and
+    # over the probe tools' own
     # runs for the fourth and the two probes
     csrc = "dashinfer_tpu_torch/csrc/"
     moe_decode = dict(launches=moe_launches["decode_megakernel"],
@@ -2590,7 +3116,13 @@ def main(argv=None) -> int:
              replaces=f"dashinfer_tpu/ops/pallas/tp_megakernel.py:{line}",
              launches=tp_launches["tp"][f"tp_{k}_segment"],
              **res[f"tp_{k}_segment"])
-        for k, line in (("attn", 346), ("mlp", 849), ("lm", 1167))]
+        for k, line in (("attn", 346), ("mlp", 849), ("lm", 1167))] + [
+        dict(name=f"tp_prefill_{k}_segment", route="cuda",
+             source=csrc + "tp_prefill_segments.cu",
+             replaces=f"dashinfer_tpu/ops/pallas/tp_megakernel.py:{line}",
+             launches=tp_launches["tp"][f"tp_prefill_{k}_segment"],
+             **res[f"tp_prefill_{k}_segment"])
+        for k, line in (("attn", 1374), ("mlp", 1659), ("lm", 1749))]
     for k in kernels:
         check_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")

@@ -1,0 +1,278 @@
+// Tensor-parallel prefill segments, sm_90a: one layer's prefill attention,
+// one layer's prefill MLP, and the final norm + lm_head of the last prompt
+// row, of ONE rank of a model axis, each one persistent kernel launch.
+//
+// Replaces: dashinfer_tpu/ops/pallas/tp_megakernel.py
+// `build_prefill_attn_segment`, `build_prefill_mlp_segment` and
+// `build_prefill_lm_segment` (dense models; RoPE, optional q/k/v bias, KV
+// pool DEFAULT / INT8 / UINT4, weight streams u4 group-wise, int8 group-wise
+// or per-channel, bf16).
+//
+// What they compute. The prefill megakernel's layer body
+// (csrc/prefill_megakernel.cu) for the S-row bucket of which n rows are the
+// prompt, cut at the two points where the ranks' partial sums must be
+// all-reduced:
+//   attn  x += add (the reduced down partials of the layer before, none in
+//         layer 0); RMSNorm of the rows; q|k|v of the rank's heads (a column
+//         share, weight-side dequant, with bias); RoPE; K/V of rows < n
+//         quantized and written into the rank's pool pages (`page_row + l`);
+//         causal attention over the rank's heads; o over the rank's rows of
+//         the o weight => the o partial [S, hid] f32;
+//   mlp   x += add (the reduced o partials); RMSNorm; gate|up (a column
+//         share); SwiGLU; down over the rank's rows => the down partial;
+//   lm    x[n - 1] += add[n - 1]; the final RMSNorm of row n - 1; lm_head
+//         over the rank's vocab shard => logits [1, V / n] f32 (the true
+//         columns only).
+// x, the rank's f32 residual [S, hid], stays on the card and is updated in
+// place; the all-reduces run between the launches (parallel/collectives.py).
+// Rows past the last 128-row tile that holds a prompt row are not computed:
+// their partials are written as zeros, so the all-reduced `add` leaves
+// those rows of x as they are. The phases are di_prefill_layer.cuh's, so the
+// rounding points are the prefill megakernel's.
+//
+// What bounds them on the H100: operations for attn and mlp at S >= 256
+// (Qwen2-7B a16w4 at n = 2, bucket 1024: ~34 GFLOP attn and ~209 GFLOP mlp
+// a rank and layer against ~8 and ~57 MB of weights), bytes for lm (one
+// row against ~150 MB of the vocab shard's u4 payload and qparams).
+//
+// What the design does about it: the products run the prefill megakernel's
+// mma.sync product over 128-row tiles with the weight dequantized once per
+// chunk and reused over the tile, K split so the grid is filled; the phases
+// of a persistent grid (one block an SM) are separated by the grid barrier
+// of di_common.cuh; the last phase of attn and mlp sums the o / down
+// product's K splits, in a fixed order, into the partial the wrapper
+// allocated for this rank, so the ranks that share a card share the
+// scratch but not their partials, and a prefill repeats bit for bit. The
+// attention items are (query head, 128-row query tile) and fall with the
+// rank's heads: at bucket 128, 14 (n = 2) or 7 (n = 4) items on 132 SMs.
+// The lm segment has one row: its items are the vocab shard's 256-column
+// tiles (297 at n = 2), each streaming its whole K, so it is bound by the
+// shard's bytes.
+
+#include "di_prefill_layer.cuh"
+
+namespace {
+
+using namespace di;
+
+enum SegKind { kAttnSeg = 0, kMlpSeg = 1, kLmSeg = 2 };
+
+struct PSeg {
+  const float* add;   // [S, hid] added to x first, or null
+  float* out;         // attn / mlp: the partial [S, hid]; lm: logits [V]
+  int layer;
+};
+
+// x[row] += add[row] (when given); xn[row] = bf16(RMSNorm(x[row]) * w), for
+// rows < `rows`. One block a row at a time, as norm_rows.
+__device__ void seg_norm_phase(const PArgs& a, const float* add, int rows,
+                               const float* w, float* red) {
+  const int hid = a.hid, tid = threadIdx.x;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    float* r = a.resid + (size_t)row * hid;
+    float ss = 0.f;
+    for (int i = tid * 4; i < hid; i += kThreads * 4) {
+      float4 v = __ldcg(reinterpret_cast<const float4*>(r + i));
+      if (add != nullptr) {
+        const float4 p = __ldcg(
+            reinterpret_cast<const float4*>(add + (size_t)row * hid + i));
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
+        *reinterpret_cast<float4*>(r + i) = v;
+      }
+      ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+    }
+    ss = warp_sum(ss);
+    __syncthreads();            // `red` of the row before has been read
+    if ((tid & 31) == 0) red[tid >> 5] = ss;
+    __syncthreads();
+    float tot = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) tot += red[k];
+    const float inv = 1.0f / sqrtf(tot / (float)hid + a.eps);
+    __nv_bfloat16* xo = a.xn + (size_t)row * hid;
+    for (int i = tid * 4; i < hid; i += kThreads * 4) {
+      const float4 v = *reinterpret_cast<const float4*>(r + i);
+      const float4 wv = *reinterpret_cast<const float4*>(w + i);
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(xo + i);
+      o[0] = __floats2bfloat162_rn(v.x * inv * wv.x, v.y * inv * wv.y);
+      o[1] = __floats2bfloat162_rn(v.z * inv * wv.z, v.w * inv * wv.w);
+    }
+  }
+}
+
+// out[row][i] = the product's K splits summed in order (rows < `rows`), 0
+// for the rows after them up to S.
+__device__ void sum_splits(const PArgs& a, const Stream& st, int rows,
+                           float* out) {
+  const int hid = a.hid, q = hid / 4;
+  const size_t split_stride = (size_t)a.S * st.ntot;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < a.S * q;
+       i += gridDim.x * kThreads) {
+    const int row = i / q, c = 4 * (i - row * q);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < rows) {
+      for (int s = 0; s < st.ksplit; ++s) {
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(
+            a.partial + s * split_stride + (size_t)row * st.ldo + c));
+        v.x += p.x;
+        v.y += p.y;
+        v.z += p.z;
+        v.w += p.w;
+      }
+    }
+    *reinterpret_cast<float4*>(out + (size_t)row * hid + c) = v;
+  }
+}
+
+// Row n - 1: x[n - 1] += add[n - 1] (when given), the final norm, bf16 ->
+// row 0 of x_last. Block 0 alone (one row), as final_norm_phase.
+__device__ void lm_norm_phase(const PArgs& a, const float* add, int n,
+                              float* smem) {
+  if (blockIdx.x != 0) return;
+  const int hid = a.hid, tid = threadIdx.x;
+  const size_t roff = (size_t)(n - 1) * hid;
+  float* vals = smem;            // [hid]
+  float* red = smem + hid;       // [kWarps]
+  float ss = 0.f;
+  for (int i = tid; i < hid; i += kThreads) {
+    float v = __ldcg(a.resid + roff + i);
+    if (add != nullptr) {
+      v += __ldcg(add + roff + i);
+      a.resid[roff + i] = v;
+    }
+    vals[i] = v;
+    ss += v * v;
+  }
+  ss = warp_sum(ss);
+  if ((tid & 31) == 0) red[tid >> 5] = ss;
+  __syncthreads();
+  float tot = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) tot += red[w];
+  const float inv = 1.0f / sqrtf(tot / (float)hid + a.eps);
+  for (int i = tid; i < hid; i += kThreads)
+    a.x_last[i] = __float2bfloat16(vals[i] * inv * a.final_norm[i]);
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kThreads, 1)
+pseg_kernel(const __grid_constant__ PArgs a, const __grid_constant__ PSeg g) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* fsmem = reinterpret_cast<float*>(smem);
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.launches, 1ull);
+  const int n = min(max(*a.n_tokens, 1), a.S);
+  const int mtiles = (n + kMTile - 1) / kMTile;
+  const int rows = mtiles * kMTile;
+  const int l = g.layer, hid = a.hid, S = a.S;
+  int phase = 0;
+  auto barrier = [&]() {
+    grid_barrier(a.barrier, a.status, a.trace, phase++);
+  };
+  if constexpr (KIND == kLmSeg) {
+    lm_norm_phase(a, g.add, n, fsmem);
+    barrier();
+    gemm<1>(a.st[kLm], 0, a.x_last, hid, 1, g.out, 0, 1, smem);
+  } else {
+    seg_norm_phase(a, g.add, rows,
+                   a.norms + (size_t)(2 * l + (KIND == kMlpSeg)) * hid,
+                   fsmem);
+    barrier();
+    if constexpr (KIND == kAttnSeg) {
+      gemm<kMTile / 16>(a.st[kQkv], l, a.xn, hid, mtiles, a.partial,
+                        (size_t)S * a.st[kQkv].ntot, rows, smem);
+      barrier();
+      rope_kv(a, l, rows, n);
+      barrier();
+      attention_phase(a, mtiles, smem);
+      barrier();
+      gemm<kMTile / 16>(a.st[kO], l, a.attn, a.H * kD, mtiles, a.partial,
+                        (size_t)S * a.st[kO].ntot, rows, smem);
+      barrier();
+      sum_splits(a, a.st[kO], rows, g.out);
+    } else {
+      const Stream& gu = a.st[kGu];
+      const Stream& dn = a.st[kDn];
+      gemm<kMTile / 16>(gu, l, a.xn, hid, mtiles, a.partial,
+                        (size_t)S * gu.ntot, rows, smem);
+      barrier();
+      act_phase<false>(a, gu, a.partial, 0, a.inter, 1, rows);
+      barrier();
+      gemm<kMTile / 16>(dn, l, a.act, a.inter, mtiles, a.partial,
+                        (size_t)S * dn.ntot, rows, smem);
+      barrier();
+      sum_splits(a, dn, rows, g.out);
+    }
+  }
+}
+
+template <int KIND>
+int per_sm(int smem) {
+  int n = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      pseg_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pseg_kernel<KIND>,
+                                                      kThreads, smem);
+  return e == cudaSuccess ? n : 0;
+}
+
+template <int KIND>
+void launch(const PArgs& a, const PSeg& g, int grid, int smem,
+            cudaStream_t s) {
+  cudaFuncSetAttribute(pseg_kernel<KIND>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  pseg_kernel<KIND><<<grid, kThreads, smem, s>>>(a, g);
+}
+
+}  // namespace
+
+// The largest grid of segment `kind` (0 attn, 1 mlp, 2 lm) whose blocks are
+// all resident at once on `device`: SMs x (at most one) block per SM.
+// Returns 0 on error.
+extern "C" int di_tp_prefill_segment_grid(int device, int kind) {
+  const int smem = pmk_smem_bytes();
+  const int n = kind == kAttnSeg
+                    ? per_sm<kAttnSeg>(smem)
+                    : (kind == kMlpSeg ? per_sm<kMlpSeg>(smem)
+                                       : per_sm<kLmSeg>(smem));
+  int sms = 0;
+  if (n == 0 || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       device) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return sms * (n < 1 ? n : 1);
+}
+
+// One segment launch of layer `layer`. `ia` is di_prefill_megakernel's (the
+// IArg order, then the streams) with x at I_RESID, then the address of
+// `add` (0: none) and of the output; `fa` = {rms eps, attention scale}.
+// Shapes and types are validated by the caller (ops/tp_megakernel.py).
+// Returns cudaGetLastError().
+extern "C" int di_tp_prefill_segment(int kind, int layer, const long long* ia,
+                                     const double* fa, void* stream) {
+  PArgs a;
+  fill_pargs(a, ia, fa);
+  PSeg g;
+  g.add = ptr<const float>(ia[I_STREAMS + kStreams * kStreamArgs]);
+  g.out = ptr<float>(ia[I_STREAMS + kStreams * kStreamArgs + 1]);
+  g.layer = layer;
+  if (kind < kAttnSeg || kind > kLmSeg || a.E != 0 || a.S % kMTile != 0 ||
+      a.S <= 0 || a.hid % 128 != 0 || a.inter % 4 != 0 || layer < 0 ||
+      layer >= a.L || g.out == nullptr ||
+      (a.hid + kWarps) * 4 > pmk_smem_bytes())
+    return (int)cudaErrorInvalidValue;
+  const int grid = (int)ia[I_GRID];
+  const int smem = pmk_smem_bytes();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == kAttnSeg)
+    launch<kAttnSeg>(a, g, grid, smem, s);
+  else if (kind == kMlpSeg)
+    launch<kMlpSeg>(a, g, grid, smem, s);
+  else
+    launch<kLmSeg>(a, g, grid, smem, s);
+  return (int)cudaGetLastError();
+}

@@ -17,8 +17,12 @@ On a `(1, n)` mesh (the counterpart of the JAX runtime's mesh install) the
 params are split per rank (parallel/sharding.py), each rank holds a KV pool
 of its KV heads, and decode runs through the TP segment kernels
 (ops/tp_megakernel.py) when `supports_tp` admits the model, else through
-the per-op TP forward, which also serves every prefill. The two
-megakernels never run on a mesh, and the weights stay resident as "both".
+the per-op TP forward. With the TP segments installed, a fresh prompt whose
+bucket is a multiple of 128 up to 1024 (and that `supports_prefill_tp`
+admits) is prefilled through the TP prefill segments, which read each
+rank's TP decode pack; other buckets, and DI_PREFILL_MEGAKERNEL=0, prefill
+per-op TP. The two single-device megakernels never run on a mesh, and the
+weights stay resident as "both".
 
 Page accounting: the allocator hands out LOGICAL pages; logical page `g`
 owns physical pages `g*L + l` for each layer l.
@@ -203,14 +207,15 @@ class ModelRuntime:
         self.mega_plan = None
         self.mega_params = None
         self.tp_mega_plan = None
+        self.buckets = self._make_buckets()
+        self._pmk_plans: Dict[int, pmk.PrefillPlan] = {}
+        self._tp_pmk_plans: Dict[int, pmk.PrefillPlan] = {}
         if self.mesh is not None:
-            plan_src = None
             self._install_mesh()
         else:
             plan_src = self._install_megakernel()
-        self.buckets = self._make_buckets()
-        self._install_prefill_megakernel(plan_src)
-        del plan_src            # it may hold the raw params
+            self._install_prefill_megakernel(plan_src)
+            del plan_src            # it may hold the raw params
         self.residency = "both"
         self._raw_params_host = None
         self._decide_residency()
@@ -253,8 +258,9 @@ class ModelRuntime:
         """The JAX runtime's mesh install, in its order: the mesh (made by
         the caller), the per-rank split (the raw params become the ranks'
         trees, each on its device), `supports_tp`, then the local plan and
-        one pack a rank; the pools come after the pool plan. A model that
-        `supports_tp` turns down decodes per-op; MoE on a mesh raises."""
+        one pack a rank, and the TP prefill plans; the pools come after the
+        pool plan. A model that `supports_tp` turns down decodes and
+        prefills per-op TP; MoE on a mesh raises."""
         rt, cfg, mesh = self.rt, self.cfg, self.mesh
         if cfg.moe is not None:
             raise NotImplementedError("a MoE model on a mesh is not ported "
@@ -305,6 +311,8 @@ class ModelRuntime:
             plan.weight_bytes / 1024**3,
             sum(mk.packed_extra_bytes(p, r) for p, r in
                 zip(packs, parts)) / 1024**3)
+        if EnvConfig.prefill_megakernel_enabled():
+            self._install_tp_prefill(view, parts[0])
 
     # -- megakernel install ---------------------------------------------------
     def _install_megakernel(self) -> Optional[Dict]:
@@ -388,7 +396,6 @@ class ModelRuntime:
         the tree the decode plan was made from. Under the u4 -> i8 stream
         prefill serves from the re-expanded pack too.
         DI_PREFILL_MEGAKERNEL=0 disables."""
-        self._pmk_plans: Dict[int, pmk.PrefillPlan] = {}
         if self.mega_plan is None or \
                 not EnvConfig.prefill_megakernel_enabled():
             return
@@ -421,11 +428,48 @@ class ModelRuntime:
                         pmk.reserve_scratch(plans.values(), self.device)
                         / 1024**3)
 
+    def _install_tp_prefill(self, view: Dict, local: Dict) -> None:
+        """The JAX runtime's TP prefill install: a local prefill plan for
+        every bucket <= 1024 that is a multiple of 128 and that
+        `supports_prefill_tp` admits, each adopting the TP decode plan's
+        streams (so the segments read each rank's TP decode pack), and the
+        prefill scratch of every device of the mesh reserved before the
+        pools are planned from free memory. `view`: the weight-only tree
+        the ranks were split from; `local`: rank 0's split tree."""
+        cfg, rt, n = self.cfg, self.rt, self.mesh.n
+        qual = [b for b in self.buckets
+                if b <= pmk.MAX_BUCKET and b % 128 == 0 and
+                tpk.supports_prefill_tp(cfg, rt, view, b, n, local=local)]
+        if not qual:
+            return
+        plans = tpk.make_tp_prefill_plans(cfg, rt, [local], qual,
+                                          self.tp_mega_plan)
+        if self.device.type == "cuda":
+            gaps = pmk.cuda_kernel_gaps(plans[qual[0]])
+            if gaps:
+                logger.warning("TP prefill segments: the CUDA kernels do not "
+                               "take this model (%s); prefilling per-op TP",
+                               "; ".join(gaps))
+                return
+        self._tp_pmk_plans = plans
+        logger.info("TP prefill segments share the TP decode packs "
+                    "(buckets %s)", qual)
+        if self.device.type == "cuda":
+            for dev in self.mesh.distinct:
+                logger.info("TP prefill scratch on %s: %.2f GiB", dev,
+                            tpk.reserve_prefill_scratch(plans.values(), dev)
+                            / 1024**3)
+
     def release(self) -> None:
-        """Frees what the runtime holds on the device beyond its own
-        tensors: the prefill megakernel's scratch."""
-        if self._pmk_plans and self.device.type == "cuda":
+        """Frees what the runtime holds on its devices beyond its own
+        tensors: the prefill scratch (one set a device)."""
+        if self.device.type != "cuda":
+            return
+        if self._pmk_plans:
             pmk.release_scratch(self.device)
+        if self._tp_pmk_plans:
+            for dev in self.mesh.distinct:
+                pmk.release_scratch(dev)
 
     # -- weight residency ----------------------------------------------------
     def _decide_residency(self) -> None:
@@ -660,13 +704,17 @@ class ModelRuntime:
                 return b
         raise ValueError(f"length {n} exceeds max_length {self.rt.max_length}")
 
-    def _prefill_fn(self, bucket: int, mega: bool = False) -> Callable:
+    def _prefill_fn(self, bucket: int, mega=False) -> Callable:
+        """The prefill step of a bucket, keyed (bucket, mega): mega True
+        for the prefill megakernel, "tp" for the TP prefill segments, False
+        for the per-op (or per-op TP) forward."""
         key = (bucket, mega)
         if key not in self._prefill_steps:
             self._prefill_steps[key] = steps_mod.build_prefill_step(
                 self.cfg, self.rt, bucket,
-                mega_plan=self._pmk_plans[bucket] if mega else None,
-                devices=None if self.mesh is None else self.mesh.devices)
+                mega_plan=self._pmk_plans[bucket] if mega is True else None,
+                devices=None if self.mesh is None else self.mesh.devices,
+                tp_mega=self._tp_pmk_plans[bucket] if mega == "tp" else None)
         return self._prefill_steps[key]
 
     # -- request entry -------------------------------------------------------
@@ -762,9 +810,12 @@ class ModelRuntime:
         tok_buf = np.zeros((bucket,), np.int32)
         tok_buf[:total_len] = req.input_ids
 
-        # prefill megakernel: whole-bucket fresh prefill (prefix_len == 0,
-        # the only kind the port has)
+        # prefill megakernel (or on a mesh the TP prefill segments):
+        # whole-bucket fresh prefill (prefix_len == 0, the only kind the
+        # port has)
         use_mega = bucket in self._pmk_plans
+        mega = True if use_mega else ("tp" if bucket in self._tp_pmk_plans
+                                      else False)
         if self.residency == "pack_only" and not use_mega:
             # defense in depth: validate_request should make this
             # unreachable; never run a per-op prefill against params=None
@@ -772,11 +823,11 @@ class ModelRuntime:
                          "(bucket=%d) -- failing request", bucket)
             self._fail_admitted(req)
             return
-        fn = self._prefill_fn(bucket, mega=use_mega)
+        fn = self._prefill_fn(bucket, mega=mega)
         t0 = time.monotonic()
         try:
             tok, self.cache, self.state = fn(
-                self.mega_params if use_mega else self.params,
+                self.mega_params if mega else self.params,
                 self.cache, self.state,
                 steps_mod.to_device(tok_buf, self.device),
                 steps_mod.to_device(page_row, self.device),
@@ -791,8 +842,7 @@ class ModelRuntime:
         req.prefilled_len = total_len
         req.status = GenerateRequestStatus.Generating
         req.stat.time_in_queue = t0 - req.enqueue_time
-        self._inflight_prefills.append(
-            (tok, req, t0, self._pmk_plans[bucket] if use_mega else None))
+        self._inflight_prefills.append((tok, req, t0, mega))
         self.stat.total_prefill_tokens += total_len
 
     def _fail_admitted(self, req: Request) -> None:
@@ -915,7 +965,7 @@ class ModelRuntime:
         """Emit first tokens of launched prefills (oldest first), before any
         decode-batch drain so each request's token order is preserved."""
         lst, self._inflight_prefills = self._inflight_prefills, []
-        for tok_t, req, t_launch, mega_plan in lst:
+        for tok_t, req, t_launch, mega in lst:
             if self.requests.get(req.uuid) is not req or req.slot < 0:
                 continue   # stopped/evicted while the prefill was in flight
             try:
@@ -924,9 +974,12 @@ class ModelRuntime:
                 logger.exception("prefill drain failed for %s", req.uuid[:8])
                 self._finish(req, GenerateRequestStatus.InternalError)
                 continue
-            if mega_plan is not None:
-                # a grid barrier that gave up leaves its mark here: raise
+            # a grid barrier that gave up leaves its mark here: raise
+            if mega is True:
                 pmk.check_status(self.device)
+            elif mega == "tp":
+                for dev in self.mesh.distinct:
+                    tpk.check_prefill_status(dev)
             t1 = time.monotonic()
             req.stat.first_token_time = t1
             req.stat.time_to_first_token = t1 - req.enqueue_time

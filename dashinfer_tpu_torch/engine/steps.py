@@ -20,8 +20,11 @@ prefill megakernel (ops/prefill_megakernel.py), run eagerly.
 On a model axis (the ranks' devices given as `devices`) the params, the
 pool and the forward are the ranks': the decode forward is the TP segments
 (ops/tp_megakernel.py) when a TP plan is given, else the per-op TP forward
-of models/transformer.py, which also serves every prefill. The decode
-state and the sampler stay on rank 0's device.
+of models/transformer.py; a prefill step built with a local prefill plan
+(`tp_mega`) runs the TP prefill segments, one attn and one mlp launch a
+rank and layer and one lm launch a rank, eagerly, and any other prefill
+the per-op TP forward. The decode state and the sampler stay on rank 0's
+device.
 """
 
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -107,10 +110,30 @@ def _prefill_mega_forward(cfg: ModelConfig, plan, params, cache: KVCache,
     return logits[:cfg.vocab_size], cache
 
 
+def _tp_prefill_mega_forward(cfg: ModelConfig, plan, params,
+                             caches: Sequence[KVCache], tokens, page_row,
+                             n_tokens: int,
+                             devices: Sequence[torch.device]):
+    """Whole-prefill forward through the TP prefill segments (the
+    counterpart of the JAX `_tp_prefill_mega_forward`): the embedding
+    gather and the RoPE tiles on rank 0's device, then
+    ops/tp_megakernel.py `tp_prefill` over the ranks. params is {"packs":
+    one pack a rank, "embed": [V, hid]}; requires prefix_len == 0. The
+    pools are updated in place. Returns (logits [vocab] f32 on rank 0's
+    device, caches)."""
+    dev = tokens.device
+    x0 = params["embed"][tokens.long()].to(torch.bfloat16)
+    cos, sin = _rope_tiles(cfg, torch.arange(plan.S, device=dev))
+    logits = tpk.tp_prefill(
+        plan, params["packs"], x0, cos, sin, page_row * cfg.num_layers,
+        to_device(np.asarray([n_tokens], np.int32), dev), caches, devices)
+    return logits[:cfg.vocab_size], caches
+
+
 def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
                        mega_plan=None,
-                       devices: Optional[Sequence[torch.device]] = None
-                       ) -> Callable:
+                       devices: Optional[Sequence[torch.device]] = None,
+                       tp_mega=None) -> Callable:
     """Returns fn(params, cache, state, tokens [S], page_row [maxPb],
     prefix_len, total_len, init: SlotInit) -> (token (0-d device tensor),
     cache, state). page_row holds LOGICAL page ids.
@@ -118,8 +141,10 @@ def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
     With `mega_plan` the model forward is ONE launch of the prefill
     megakernel; params must be the mega params dict {"packed", "embed"} and
     the caller guarantees prefix_len == 0. With `devices` (a model axis)
-    params and cache are the ranks' lists and the forward is the per-op TP
-    prefill."""
+    params and cache are the ranks' lists and the forward is the TP prefill
+    segments with `tp_mega` (the local prefill plan; params {"packs",
+    "embed"}; prefix_len == 0), else the per-op TP prefill. The first token
+    is sampled from the logits on rank 0's device."""
     mode = rt.cache.mode
     V = cfg.vocab_size
     K = min(rt.sampler_max_top_k, V)
@@ -130,6 +155,10 @@ def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
         if mega_plan is not None:
             logits, cache = _prefill_mega_forward(
                 cfg, mega_plan, params, cache, tokens, page_row, total_len)
+        elif tp_mega is not None:
+            logits, cache = _tp_prefill_mega_forward(
+                cfg, tp_mega, params, cache, tokens, page_row, total_len,
+                devices)
         elif devices is not None:
             logits, cache = transformer.tp_prefill_forward(
                 cfg, params, tokens, cache, page_row, prefix_len, total_len,

@@ -842,12 +842,15 @@ def _stream_dot(x, packed, sp: StreamPlan, layer: Optional[int],
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
-def route(plan, logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def route(plan, logits: torch.Tensor, forced: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The TPU kernels' router phase on the f32 router product [M, EP]:
     softmax over the first E lanes, k rounds of max (the lowest lane on
     ties), optional renormalisation; the shared expert's gate is
-    sigmoid(lane E), or 1. Returns (gates [M, E] f32, 0 where not routed;
-    shared gate [M] f32, 0 without a shared expert)."""
+    sigmoid(lane E), or 1. `forced` [M, k_top] (expert ids): route each row
+    to these experts instead of its k largest, with their gates from the
+    same softmax. Returns (gates [M, E] f32, 0 where not routed; shared
+    gate [M] f32, 0 without a shared expert)."""
     E = plan.E
     ml = logits[:, :E]
     p = torch.exp(ml - ml.max(-1, keepdim=True).values)
@@ -855,7 +858,11 @@ def route(plan, logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     lane = torch.arange(E, device=logits.device)[None, :]
     gates = torch.zeros_like(p)
     pw = p.clone()
-    for _ in range(plan.k_top):
+    for j in range(plan.k_top):
+        if forced is not None:
+            sel = lane == forced[:, j:j + 1].to(lane.dtype)
+            gates = torch.where(sel, p, gates)
+            continue
         mi = pw.max(-1, keepdim=True).values
         fl = torch.where(pw >= mi, lane, E).min(-1, keepdim=True).values
         sel = lane == fl
@@ -872,16 +879,17 @@ def route(plan, logits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return gates, sg
 
 
-def moe_ref(plan, x: torch.Tensor, layer: int, mm, routing=None
-            ) -> torch.Tensor:
+def moe_ref(plan, x: torch.Tensor, layer: int, mm, routing=None,
+            forced: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The MoE block of one layer as both kernels compute it, from x_norm
     [M, hid] bf16, with `mm(x, stream, layer, expert)` the kernel's product
     -> f32 [M, hid]: sum over experts in ascending order of gate x down(bf16
     SwiGLU(gate|up)), then the shared expert's gate x its output. Experts no
     row routes to are skipped (their gate is 0 everywhere). `routing`, a
-    list, receives the layer's f32 router product [M, EP]."""
+    list, receives the layer's f32 router product [M, EP]; `forced` [M,
+    k_top]: the experts each row is routed to (`route`)."""
     logits = mm(x, plan.rt, layer, None)
-    gates, sg = route(plan, logits)
+    gates, sg = route(plan, logits, forced)
     if routing is not None:
         routing.append(logits)
     acc = torch.zeros((x.shape[0], plan.hid), dtype=torch.float32,
@@ -1027,15 +1035,26 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
                           page_tables: torch.Tensor, lens: torch.Tensor,
                           active: torch.Tensor, cache: KVCache,
                           skip_attention: bool = False,
-                          routing: Optional[list] = None) -> torch.Tensor:
+                          routing: Optional[list] = None,
+                          forced_routing: Optional[torch.Tensor] = None,
+                          resid_norms: Optional[list] = None
+                          ) -> torch.Tensor:
     """The whole decode step, phase by phase (see `decode_megakernel`).
     Updates the pool in place; returns logits [B, V] f32. A MoE model's
     rows are routed from their own x_norm, inactive rows too (their logits
     are unspecified); `routing`, a list, receives each layer's router
-    product (`moe_ref`)."""
+    product (`moe_ref`); `forced_routing` [L, B, k_top] routes each layer's
+    rows to those experts instead (a kernel's, `kernel_routing`), so that a
+    row's activations can be held to the kernel's in every layer whatever
+    a near-tie of the router chose; `resid_norms`, a list, receives the
+    RMS of each row's residual entering each layer ([B] f32 a layer: the
+    inverse of the gain with which that layer's RMSNorm passes the row's
+    rounding differences on)."""
     inp = StepInputs(plan, cos, sin, page_tables, lens, active)
     resid = x0.to(torch.bfloat16).float()
     for l in range(plan.L):
+        if resid_norms is not None:
+            resid_norms.append(resid.pow(2).mean(-1).sqrt())
         resid = resid + attention_block_ref(plan, packed, l, resid, inp,
                                             cache, skip_attention)
         if plan.E:
@@ -1043,7 +1062,8 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
                 torch.bfloat16)
             resid = resid + moe_ref(
                 plan, x, l, lambda x_, sp, l_, e: _stream_dot(
-                    x_, packed, sp, l_, e), routing)
+                    x_, packed, sp, l_, e), routing,
+                None if forced_routing is None else forced_routing[l])
             continue
         resid = resid + mlp_block_ref(plan, packed, l, resid)
     return lm_head_ref(plan, packed, resid)

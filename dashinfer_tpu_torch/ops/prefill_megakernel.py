@@ -12,10 +12,16 @@ here:
 * `supports_prefill`, `PrefillPlan`, `make_prefill_plan`: which buckets
   take the path and the shapes of one launch (the decode plan's
   `StreamPlan`s adopted verbatim);
-* `prefill_megakernel_ref`, the plain PyTorch version, and
+* `prefill_megakernel_ref`, the plain PyTorch version, built from its
+  per-layer pieces (`PrefillInputs`, `prefill_attention_block_ref`,
+  `prefill_mlp_block_ref`, `prefill_lm_ref`), which the TP prefill
+  segments' plain versions reuse (ops/tp_megakernel.py), and
   `prefill_megakernel`, the wrapper that launches the kernel on CUDA
   tensors (and takes the plain version only for CPU tensors), with its
-  launch count `prefill_megakernel.counter`.
+  launch count `prefill_megakernel.counter`;
+* the device's one scratch set (`reserve_scratch`, `device_scratch`,
+  `release_scratch`, `check_status`), which the TP prefill segments of
+  every rank on the device share.
 
 Numerics (the TPU kernel's rounding points): residual in f32; x_norm bf16;
 WEIGHT-SIDE dequant, `w = bf16(f32(q) * s + z)` with s and z rounded to
@@ -182,16 +188,14 @@ def make_prefill_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
 
 
 def cuda_kernel_gaps(plan: PrefillPlan) -> List[str]:
-    """Why csrc/prefill_megakernel.cu cannot run this plan (empty = it
-    can): the pack's 64-row chunks and columns a multiple of 128 (padded to
-    its 256-column tiles; q, k and v must fill them), head_dim 128, the
-    router's lanes."""
+    """Why csrc/prefill_megakernel.cu (and the TP prefill segments, which
+    share its phases) cannot run this plan (empty = it can): the pack's
+    64-row chunks and columns a multiple of 128 (padded to its 256-column
+    tiles, each leaf read at its padded offset), head_dim 128, the router's
+    lanes."""
     gaps = [g for sp in plan.streams for g in mk.stream_gaps(sp)]
     if plan.D != 128:
         gaps.append("head_dim != 128")
-    if plan.qkv.Np != plan.qkv.N:
-        # its attention phases read q|k|v at the unpadded columns
-        gaps.append(f"q / k / v widths {plan.qkv.N} not multiples of 256")
     if plan.S % M_TILE or plan.S > MAX_BUCKET:
         gaps.append(f"bucket {plan.S} not a multiple of {M_TILE} up to "
                     f"{MAX_BUCKET}")
@@ -244,60 +248,104 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return x * cos[:, None, :] + rot * sin[:, None, :]
 
 
+class PrefillInputs:
+    """The per-prefill inputs of the layer pieces below, derived once: the
+    bf16 RoPE tiles as f32, the prompt length n, each prompt row's page
+    (layer 0's physical page of the logical page it falls in) and offset,
+    and the causal mask of the bucket."""
+
+    def __init__(self, plan: PrefillPlan, cos: torch.Tensor,
+                 sin: torch.Tensor, page_row: torch.Tensor, n_tokens):
+        bf = torch.bfloat16
+        dev = cos.device
+        self.n = n = int(n_tokens)
+        self.cosf, self.sinf = cos.to(bf).float(), sin.to(bf).float()
+        pos = torch.arange(n, device=dev)
+        self.pages0 = page_row.to(dev).long()[
+            (pos // plan.ps).clamp(0, plan.maxPb - 1)]
+        self.offs = pos % plan.ps
+        t = torch.arange(plan.S, device=dev)
+        self.causal = t[None, :] <= t[:, None]               # [q, k]
+
+
+def prefill_attention_block_ref(plan: PrefillPlan, packed: Dict, layer: int,
+                                resid: torch.Tensor, inp: PrefillInputs,
+                                cache: KVCache, bf16_scores: bool = False
+                                ) -> torch.Tensor:
+    """One layer's RMSNorm, q|k|v (+ bias), RoPE, the K/V write of rows < n,
+    causal attention and o product, from the f32 residual [S, hid]; updates
+    the pool in place and returns the o product [S, hid] f32.
+    `bf16_scores` rounds q and k to bf16 before the score product, as the
+    CUDA kernel's tensor-core operands are."""
+    S, H, KH, D, G = plan.S, plan.H, plan.KH, plan.D, plan.G
+    bf = torch.bfloat16
+    HD, KD = H * D, KH * D
+    n = inp.n
+    x = mk._rms(resid, packed["norms"][layer, 0], plan.rms_eps).to(bf)
+    qkv = _wdeq_dot(x, packed, plan.qkv, layer)
+    if packed["qkv_b"] is not None:
+        qkv = qkv + packed["qkv_b"][layer]
+    q = _rope(qkv[:, :HD].reshape(S, H, D), inp.cosf, inp.sinf)
+    k = _rope(qkv[:, HD:HD + KD].reshape(S, KH, D), inp.cosf, inp.sinf)
+    v = qkv[:, HD + KD:].reshape(S, KH, D)
+    qs, ks = (q.to(bf).float(), k.to(bf).float()) if bf16_scores else (q, k)
+    s = torch.einsum("qhgd,khd->hgqk", qs.reshape(S, KH, G, D), ks) * \
+        (1.0 / math.sqrt(D))
+    s = torch.where(inp.causal, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    attn = torch.einsum("hgqk,khd->qhgd", p.to(bf).float(),
+                        v.to(bf).float()).reshape(S, HD).to(bf)
+    kv_ops._write(cache, plan.kv_mode, k[:n], v[:n], inp.pages0 + layer,
+                  inp.offs)
+    return _wdeq_dot(attn, packed, plan.o, layer)
+
+
+def prefill_mlp_block_ref(plan: PrefillPlan, packed: Dict, layer: int,
+                          resid: torch.Tensor) -> torch.Tensor:
+    """One dense layer's RMSNorm, gate|up, SwiGLU and down product, from the
+    f32 residual [S, hid] -> the down product [S, hid] f32."""
+    x = mk._rms(resid, packed["norms"][layer, 1], plan.rms_eps).to(
+        torch.bfloat16)
+    gu = _wdeq_dot(x, packed, plan.gu, layer)
+    g, u = gu[:, :plan.inter], gu[:, plan.inter:]
+    act = (g * torch.sigmoid(g) * u).to(torch.bfloat16)
+    return _wdeq_dot(act, packed, plan.dn, layer)
+
+
+def prefill_lm_ref(plan: PrefillPlan, packed: Dict, resid: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """The final RMSNorm of row n - 1, bf16, and the lm_head -> logits [V]
+    f32."""
+    x = mk._rms(resid[n - 1:n], packed["final_norm"], plan.rms_eps).to(
+        torch.bfloat16)
+    return _wdeq_dot(x, packed, plan.lm, None)[0]
+
+
 def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
                            cos: torch.Tensor, sin: torch.Tensor,
                            page_row: torch.Tensor, n_tokens, cache: KVCache,
                            bf16_scores: bool = False,
                            routing: Optional[list] = None) -> torch.Tensor:
-    """The whole prefill, phase by phase (see `prefill_megakernel`).
-    Updates the pool in place; returns logits [V] f32 of token n-1.
-    `bf16_scores` rounds q and k to bf16 before the score product, as the
-    CUDA kernel's tensor-core operands are. A MoE layer runs
-    `ops.megakernel.moe_ref` on every row of the bucket with weight-side
-    dequant; `routing`, a list, receives each layer's router product."""
-    S, L, H, KH, D, G = plan.S, plan.L, plan.H, plan.KH, plan.D, plan.G
-    bf = torch.bfloat16
-    HD, KD = H * D, KH * D
-    n = int(n_tokens)
-    dev = x0.device
-    cosf, sinf = cos.to(bf).float(), sin.to(bf).float()
-    scale = 1.0 / math.sqrt(D)
-    pos = torch.arange(n, device=dev)
-    pages0 = page_row.long()[(pos // plan.ps).clamp(0, plan.maxPb - 1)]
-    offs = pos % plan.ps
-    t = torch.arange(S, device=dev)
-    causal = t[None, :] <= t[:, None]                       # [q, k]
-    norms = packed["norms"]
-    resid = x0.to(bf).float()
-    for l in range(L):
-        x = mk._rms(resid, norms[l, 0], plan.rms_eps).to(bf)
-        qkv = _wdeq_dot(x, packed, plan.qkv, l)
-        if packed["qkv_b"] is not None:
-            qkv = qkv + packed["qkv_b"][l]
-        q = _rope(qkv[:, :HD].reshape(S, H, D), cosf, sinf)
-        k = _rope(qkv[:, HD:HD + KD].reshape(S, KH, D), cosf, sinf)
-        v = qkv[:, HD + KD:].reshape(S, KH, D)
-        qs, ks = (q.to(bf).float(), k.to(bf).float()) if bf16_scores \
-            else (q, k)
-        s = torch.einsum("qhgd,khd->hgqk", qs.reshape(S, KH, G, D), ks) * scale
-        s = torch.where(causal, s, _NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        attn = torch.einsum("hgqk,khd->qhgd", p.to(bf).float(),
-                            v.to(bf).float()).reshape(S, HD).to(bf)
-        kv_ops._write(cache, plan.kv_mode, k[:n], v[:n], pages0 + l, offs)
-        resid = resid + _wdeq_dot(attn, packed, plan.o, l)
-        x = mk._rms(resid, norms[l, 1], plan.rms_eps).to(bf)
+    """The whole prefill, phase by phase (see `prefill_megakernel`), from
+    the layer pieces above. Updates the pool in place; returns logits [V]
+    f32 of token n-1. `bf16_scores`: see `prefill_attention_block_ref`. A
+    MoE layer runs `ops.megakernel.moe_ref` on every row of the bucket with
+    weight-side dequant; `routing`, a list, receives each layer's router
+    product."""
+    inp = PrefillInputs(plan, cos, sin, page_row, n_tokens)
+    resid = x0.to(torch.bfloat16).float()
+    for l in range(plan.L):
+        resid = resid + prefill_attention_block_ref(
+            plan, packed, l, resid, inp, cache, bf16_scores)
         if plan.E:
+            x = mk._rms(resid, packed["norms"][l, 1], plan.rms_eps).to(
+                torch.bfloat16)
             resid = resid + mk.moe_ref(
                 plan, x, l, lambda x_, sp, l_, e: _wdeq_dot(
                     x_, packed, sp, l_, e), routing)
             continue
-        gu = _wdeq_dot(x, packed, plan.gu, l)
-        g, u = gu[:, :plan.inter], gu[:, plan.inter:]
-        act = (g * torch.sigmoid(g) * u).to(bf)
-        resid = resid + _wdeq_dot(act, packed, plan.dn, l)
-    x = mk._rms(resid[n - 1:n], packed["final_norm"], plan.rms_eps).to(bf)
-    return _wdeq_dot(x, packed, plan.lm, None)[0]
+        resid = resid + prefill_mlp_block_ref(plan, packed, l, resid)
+    return prefill_lm_ref(plan, packed, resid, inp.n)
 
 
 # ---------------------------------------------------------------------------
@@ -397,35 +445,47 @@ class _Launch:
                 self.splits[sp.name] = choose_split(
                     sp.Nptot // 256 * (self.eb if sp.E else 1),
                     sp.K // mk.CHUNK_K, mtiles, self.grid)
-        HD, KD = plan.H * plan.D, plan.KH * plan.D
-        parts = [self.splits[sp.name][0] * S * sp.Nptot *
-                 (self.eb if sp.E else 1)
-                 for sp in plan.layer_streams if sp.name != "dn" or
-                 not plan.E]
-        self.need = dict(
-            partial=max(parts),
-            resid=S * plan.hid, xn=S * plan.hid, qb=S * HD, kb=S * KD,
-            vb=S * KD, attn=S * HD,
-            act=S * max(plan.inter * max(self.eb, 1), plan.shared_inter),
-            x_last=16 * plan.hid,           # row 0 is written
-            barrier=1, status=1)
-        if plan.E:
-            self.need.update(
-                edn=self.eb * self.splits["dn"][0] * S * plan.hid,
-                acc=S * plan.hid, gates=plan.L * S * plan.EP,
-                sgate=plan.L * S)
+        self.need = scratch_need(plan, self.splits, self.eb)
 
     def scratch_bytes(self) -> int:
         return sum(n * _SCRATCH_DTYPES[k].itemsize
                    for k, n in self.need.items())
 
 
+def scratch_need(plan: PrefillPlan, splits: Dict, eb: int = 0,
+                 resid: bool = True) -> Dict[str, int]:
+    """Elements of each scratch buffer a launch of `plan` with these K
+    splits (and, for a MoE plan, `eb` experts a batch) needs; `resid`: the
+    f32 residual in the scratch (the whole-model kernel's; a TP segment
+    updates its rank's own)."""
+    S = plan.S
+    HD, KD = plan.H * plan.D, plan.KH * plan.D
+    parts = [splits[sp.name][0] * S * sp.Nptot * (eb if sp.E else 1)
+             for sp in plan.layer_streams if sp.name != "dn" or not plan.E]
+    need = dict(
+        partial=max(parts), xn=S * plan.hid, qb=S * HD, kb=S * KD,
+        vb=S * KD, attn=S * HD,
+        act=S * max(plan.inter * max(eb, 1), plan.shared_inter),
+        x_last=16 * plan.hid,           # row 0 is written
+        barrier=1, status=1)
+    if resid:
+        need["resid"] = S * plan.hid
+    if plan.E:
+        need.update(edn=eb * splits["dn"][0] * S * plan.hid,
+                    acc=S * plan.hid, gates=plan.L * S * plan.EP,
+                    sgate=plan.L * S)
+    return need
+
+
 class _Scratch:
     """One device's scratch. Prefills run one after the other on one stream,
     so every bucket's launches share ONE set of flat buffers, each as large
     as the largest plan seen so far needs: the kernel strides them by the
-    launch's own S. A buffer is zeroed when it is allocated (rows 1.. of
-    x_last must be zero; the rest is written before it is read)."""
+    launch's own S. The TP prefill segments (ops/tp_megakernel.py) of every
+    rank on the device use the same set: their launches run one after the
+    other too, and what one segment leaves for the all-reduce is a tensor of
+    its rank's, not scratch. A buffer is zeroed when it is allocated (rows
+    1.. of x_last must be zero; the rest is written before it is read)."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
@@ -453,17 +513,22 @@ _launches: Dict = {}      # (plan, device) -> _Launch
 _scratch: Dict = {}       # device -> _Scratch
 
 
+def device_scratch(dev: torch.device, need: Dict[str, int]) -> _Scratch:
+    """The device's one scratch set, grown to `need`."""
+    sc = _scratch.get(dev)
+    if sc is None:
+        sc = _scratch[dev] = _Scratch(dev)
+    sc.fit(need)
+    return sc
+
+
 def _launch_state(plan: PrefillPlan, dev: torch.device):
     """(geometry, scratch) of a launch of `plan`, the scratch grown to it."""
     key = (plan, dev)
     st = _launches.get(key)
     if st is None:
         st = _launches[key] = _Launch(plan, dev)
-    sc = _scratch.get(dev)
-    if sc is None:
-        sc = _scratch[dev] = _Scratch(dev)
-    sc.fit(st.need)
-    return st, sc
+    return st, device_scratch(dev, st.need)
 
 
 def reserve_scratch(plans, device) -> int:
@@ -495,9 +560,10 @@ def kernel_gates(plan: PrefillPlan, device) -> torch.Tensor:
         plan.L, plan.S, plan.EP)[..., :plan.E]
 
 
-def check_status(device) -> None:
-    """Waits for the device and raises if a prefill launch on it gave up at
-    a grid barrier (blocks that never became co-resident)."""
+def check_status(device, who: str = "prefill_megakernel") -> None:
+    """Waits for the device and raises if a launch on it that uses the
+    device's prefill scratch (`who`: the kernel named in the error) gave up
+    at a grid barrier (blocks that never became co-resident)."""
     sc = _scratch.get(mk._indexed(device))
     if sc is None or "status" not in sc.bufs:
         return
@@ -505,8 +571,8 @@ def check_status(device) -> None:
     if code:
         sc.bufs["status"].zero_()
         sc.bufs["barrier"].zero_()
-        raise RuntimeError(f"prefill_megakernel: grid barrier after phase "
-                           f"{code - 1} timed out")
+        raise RuntimeError(f"{who}: grid barrier after phase {code - 1} "
+                           "timed out")
 
 
 def launch_geometry(plan: PrefillPlan, device) -> Dict:

@@ -1,5 +1,6 @@
-"""Tensor-parallel decode: the per-rank split of the weights, the local
-plan, and the three decode segment kernels of one rank.
+"""Tensor parallelism: the per-rank split of the weights, the local plan,
+the three decode segment kernels and the three prefill segment kernels of
+one rank.
 
 Counterpart of `dashinfer_tpu.ops.pallas.tp_megakernel` (dense models).
 The whole-model decode megakernel adds the residual between layers inside
@@ -36,10 +37,29 @@ fragment order and its padding of widths of 128 mod 256 come with them.
 are the plain PyTorch versions (the decode megakernel's plain pieces); the
 wrappers `tp_attn_segment`, `tp_mlp_segment`, `tp_lm_segment` take them for
 CPU tensors and launch csrc/tp_segments.cu for CUDA tensors, or raise.
+
+A fresh prompt of a bucket 128 .. 1024 is prefilled the same way
+(`tp_prefill`, the counterpart of the JAX `build_tp_prefill_fn`): per layer
+every rank's prefill attn segment (the prefill megakernel's RMSNorm, q|k|v,
+RoPE + K/V write of the prompt rows, causal attention and o product over
+the rank's heads => o partial [S, hid] f32), an all-reduce, every rank's
+prefill mlp segment (=> down partial), an all-reduce; then every rank's
+prefill lm segment (row n - 1: final norm, lm_head over the vocab shard)
+and the gather. `supports_prefill_tp` and `make_tp_prefill_plans` (local
+`PrefillPlan`s that adopt the TP decode plan's streams, so the segments
+read each rank's TP decode pack: no third copy of the payloads, where the
+JAX package packs its TP prefill apart); the plain versions
+`prefill_attn_segment_ref`, `prefill_mlp_segment_ref`,
+`prefill_lm_segment_ref` and `tp_prefill_ref` (the prefill megakernel's
+plain pieces); the wrappers `tp_prefill_attn_segment`,
+`tp_prefill_mlp_segment`, `tp_prefill_lm_segment` over
+csrc/tp_prefill_segments.cu, whose scratch is the device's one prefill
+scratch set (ops/prefill_megakernel.py).
 """
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Sequence
 
@@ -49,6 +69,7 @@ import torch
 from dashinfer_tpu_torch.config import ModelConfig, RuntimeConfig
 from dashinfer_tpu_torch.ops import kernel_build
 from dashinfer_tpu_torch.ops import megakernel as mk
+from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
 from dashinfer_tpu_torch.ops.u4pack import pack_u4_weight, unpack_u4_weight
 from dashinfer_tpu_torch.parallel.collectives import (all_gather_vocab,
                                                       all_reduce_)
@@ -533,3 +554,342 @@ def tp_lm_segment(plan: mk.MegaPlan, packed: Dict, x: torch.Tensor,
 tp_attn_segment.counter = kernel_build.LaunchCounter()
 tp_mlp_segment.counter = kernel_build.LaunchCounter()
 tp_lm_segment.counter = kernel_build.LaunchCounter()
+
+
+# ---------------------------------------------------------------------------
+# TP prefill: the prefill megakernel's layer cut into segments + all-reduce
+# ---------------------------------------------------------------------------
+
+def supports_prefill_tp(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
+                        bucket: int, n: int,
+                        local: Optional[Dict] = None) -> bool:
+    """Whether a fresh prompt of this bucket is prefilled through the TP
+    prefill segments on a model axis of n: the JAX rules (RoPE; `supports_tp`;
+    the prefill megakernel's `supports_prefill` on the local config and rank
+    0's split tree). The JAX package also admits ALiBi, a branch the port's
+    model code lacks. `local`: rank 0's split tree when the caller has it
+    (only shapes are read)."""
+    if cfg.position_embedding.value != "rope":
+        return False
+    if local is None:
+        view = mk.weight_only_decode_view(params)
+        if view is None or cfg.moe is not None:
+            return False
+        local = _split_rank(_as_tensors(view), cfg, n, 0)
+    if not supports_tp(cfg, rt, params, n, local=local):
+        return False
+    return pmk.supports_prefill(local_config(cfg, n), rt, local, bucket)
+
+
+def make_tp_prefill_plans(cfg: ModelConfig, rt: RuntimeConfig,
+                          parts: Sequence[Dict], buckets: Sequence[int],
+                          tp_plan: mk.MegaPlan) -> Dict:
+    """{bucket: the local PrefillPlan} over the ranks' split trees. Each
+    plan adopts the TP decode plan's streams, so the prefill segments read
+    each rank's TP decode pack (`make_tp_plan`): no third copy of the
+    payloads, where the JAX package packs its TP prefill apart."""
+    cfg_l = local_config(cfg, len(parts))
+    return {b: pmk.make_prefill_plan(cfg_l, rt, parts[0], b,
+                                     decode_plan=tp_plan) for b in buckets}
+
+
+def prefill_attn_segment_ref(plan, packed: Dict, layer: int,
+                             x: torch.Tensor, cos: torch.Tensor,
+                             sin: torch.Tensor, page_row: torch.Tensor,
+                             n_tokens, cache: KVCache,
+                             add: Optional[torch.Tensor] = None,
+                             bf16_scores: bool = False) -> torch.Tensor:
+    """One layer's prefill attention segment of one rank (see
+    `tp_prefill_attn_segment`); `bf16_scores` as
+    `ops.prefill_megakernel.prefill_attention_block_ref`."""
+    if add is not None:
+        x.add_(add)
+    inp = pmk.PrefillInputs(plan, cos, sin, page_row, n_tokens)
+    return pmk.prefill_attention_block_ref(plan, packed, layer, x, inp,
+                                           cache, bf16_scores)
+
+
+def prefill_mlp_segment_ref(plan, packed: Dict, layer: int, x: torch.Tensor,
+                            n_tokens,
+                            add: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """One layer's prefill MLP segment of one rank (see
+    `tp_prefill_mlp_segment`); every row of the bucket is computed."""
+    if add is not None:
+        x.add_(add)
+    return pmk.prefill_mlp_block_ref(plan, packed, layer, x)
+
+
+def prefill_lm_segment_ref(plan, packed: Dict, x: torch.Tensor, n_tokens,
+                           add: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The prefill lm segment of one rank (see `tp_prefill_lm_segment`)."""
+    n = int(n_tokens)
+    if add is not None:
+        x[n - 1].add_(add[n - 1])
+    return pmk.prefill_lm_ref(plan, packed, x, n)
+
+
+def tp_prefill(plan, packs: Sequence[Dict], x0: torch.Tensor,
+               cos: torch.Tensor, sin: torch.Tensor, page_row: torch.Tensor,
+               n_tokens: torch.Tensor, caches: Sequence[KVCache],
+               devices: Sequence[torch.device], plain: bool = False,
+               bf16_scores: bool = False) -> torch.Tensor:
+    """The whole TP prefill of one fresh prompt over the ranks on `devices`
+    (the counterpart of the JAX `build_tp_prefill_fn`): per layer every
+    rank's prefill attn segment, an all-reduce, every rank's prefill mlp
+    segment, an all-reduce; then every rank's lm segment and the gather of
+    the vocab shards. The ranks of a layer are launched one after the other
+    on their devices' current streams, with no host sync between them.
+    `plan`: the local PrefillPlan; x0 [S, hid] bf16 (the embedded prompt,
+    padded to the bucket), cos/sin [S, D] bf16, page_row [maxPb] int32
+    PHYSICAL base rows, n_tokens int32 [1], all on rank 0's device;
+    `caches`: each rank's pool, updated in place at rows < n of the owned
+    pages. `plain` runs the plain versions (`bf16_scores` as theirs).
+    Returns the last prompt row's logits [V] f32 on rank 0's device."""
+    if plain:
+        attn = functools.partial(prefill_attn_segment_ref,
+                                 bf16_scores=bf16_scores)
+        mlp, lm = prefill_mlp_segment_ref, prefill_lm_segment_ref
+    else:
+        attn, mlp, lm = (tp_prefill_attn_segment, tp_prefill_mlp_segment,
+                         tp_prefill_lm_segment)
+    lead = x0.device
+    step = (cos, sin, page_row, n_tokens)
+    inputs = {d: step if d == lead else
+              tuple(t.to(d, non_blocking=True) for t in step)
+              for d in dict.fromkeys(devices)}
+    n = len(devices)
+    xs = [x0.to(d).float() for d in devices]     # each rank's residual
+    add: List[Optional[torch.Tensor]] = [None] * n
+    for l in range(plan.L):
+        add = all_reduce_([attn(plan, packs[r], l, xs[r],
+                                *inputs[devices[r]], caches[r], add=add[r])
+                           for r in range(n)])
+        add = all_reduce_([mlp(plan, packs[r], l, xs[r],
+                               inputs[devices[r]][3], add=add[r])
+                           for r in range(n)])
+    return all_gather_vocab([lm(plan, packs[r], xs[r],
+                                inputs[devices[r]][3], add=add[r])
+                             for r in range(n)])
+
+
+def tp_prefill_ref(plan, packs, x0, cos, sin, page_row, n_tokens, caches,
+                   devices, bf16_scores: bool = False) -> torch.Tensor:
+    """`tp_prefill` through the plain versions."""
+    return tp_prefill(plan, packs, x0, cos, sin, page_row, n_tokens, caches,
+                      devices, plain=True, bf16_scores=bf16_scores)
+
+
+class _PrefillLaunch:
+    """Per (local prefill plan, device) launch geometry of the prefill
+    segments: each kind's grid, the streams' K splits and what the plan
+    needs of the device's prefill scratch (`ops.prefill_megakernel`'s one
+    set a device, shared with the whole-model kernel and every rank on the
+    device)."""
+
+    def __init__(self, plan, dev: torch.device):
+        gaps = pmk.cuda_kernel_gaps(plan)
+        if plan.E:
+            gaps.append("MoE")
+        if gaps:
+            raise ValueError("tp prefill segments: " + "; ".join(gaps))
+        lib = kernel_build.load("tp_prefill_segments")
+        self.fn = kernel_build.function(
+            "tp_prefill_segments", "di_tp_prefill_segment",
+            [_I, _I, _P, _P, _P])
+        grid_fn = lib.di_tp_prefill_segment_grid
+        grid_fn.argtypes, grid_fn.restype = [_I, _I], _I
+        idx = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        with torch.cuda.device(idx):
+            self.grid = {k: grid_fn(idx, v) for k, v in _KINDS.items()}
+        if min(self.grid.values()) <= 0:
+            raise RuntimeError("tp prefill segments: a kernel does not fit "
+                               "on the device (occupancy query gave 0)")
+        mtiles = plan.S // pmk.M_TILE
+        self.splits = {"lm": (1, plan.lm.K // mk.CHUNK_K)}
+        for sp in plan.layer_streams:
+            self.splits[sp.name] = pmk.choose_split(
+                sp.Nptot // 256, sp.K // mk.CHUNK_K, mtiles,
+                self.grid[_STREAM_KIND[sp.name]])
+        self.need = pmk.scratch_need(plan, self.splits, resid=False)
+
+
+_prefill_launches: Dict = {}
+
+
+def _prefill_launch_state(plan, dev: torch.device):
+    """(geometry, the device's prefill scratch grown to the plan)."""
+    key = (plan, dev)
+    st = _prefill_launches.get(key)
+    if st is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("tp prefill segments: the first launch of a "
+                               "plan must not be under CUDA graph capture")
+        st = _prefill_launches[key] = _PrefillLaunch(plan, dev)
+    return st, pmk.device_scratch(dev, st.need)
+
+
+def reserve_prefill_scratch(plans, device) -> int:
+    """Builds the segments and grows the device's prefill scratch to the
+    largest of `plans` now (an installer calls this for every device of the
+    mesh before it sizes the KV pools from free memory). Returns the
+    scratch bytes on the device; `ops.prefill_megakernel.release_scratch`
+    frees it."""
+    dev = mk._indexed(device)
+    for plan in plans:
+        _prefill_launch_state(plan, dev)
+    return pmk.scratch_bytes(dev)
+
+
+def check_prefill_status(device) -> None:
+    """Waits for the device and raises if a prefill segment launch on it
+    gave up at a grid barrier."""
+    pmk.check_status(device, who="tp prefill segments")
+
+
+def prefill_launch_geometry(plan, device) -> Dict:
+    """Grids and K splits of this plan's segment launches, the scratch
+    bytes the plan needs and those the device holds."""
+    st, sc = _prefill_launch_state(plan, mk._indexed(device))
+    return dict(grid=dict(st.grid), splits=dict(st.splits),
+                scratch_bytes=sum(n * pmk._SCRATCH_DTYPES[k].itemsize
+                                  for k, n in st.need.items()),
+                device_scratch_bytes=sc.nbytes())
+
+
+def _prefill_launch(kind: str, plan, packed: Dict, layer: int,
+                    x: torch.Tensor, n_tokens: torch.Tensor,
+                    add: Optional[torch.Tensor], out: torch.Tensor,
+                    counter: kernel_build.LaunchCounter, **step) -> None:
+    who = f"tp_prefill_{kind}_segment"
+    dev = x.device
+    S = plan.S
+    _expect(who, "x", x, torch.float32, (S, plan.hid), dev)
+    if add is not None:
+        _expect(who, "add", add, torch.float32, (S, plan.hid), dev)
+    _expect(who, "n_tokens", n_tokens, torch.int32, (1,), dev)
+    _expect(who, "norms", packed["norms"], torch.float32,
+            (plan.L, 2, plan.hid), dev)
+    _expect(who, "final_norm", packed["final_norm"], torch.float32,
+            (plan.hid,), dev)
+    if packed["qkv_b"] is not None:
+        _expect(who, "qkv_b", packed["qkv_b"], torch.float32,
+                (plan.L, plan.QKVN), dev)
+    st, sc = _prefill_launch_state(plan, dev)
+    buf = sc.bufs
+    vals = dict.fromkeys(pmk._IARGS, 0)
+    vals.update(
+        {k: buf[k].data_ptr() for k in pmk._SCRATCH_DTYPES if k in buf},
+        norms=packed["norms"].data_ptr(),
+        final_norm=packed["final_norm"].data_ptr(),
+        qkv_b=0 if packed["qkv_b"] is None else packed["qkv_b"].data_ptr(),
+        n_tokens=n_tokens.data_ptr(), resid=x.data_ptr(),
+        launches=counter.pointer(dev), S=S, L=plan.L, hid=plan.hid,
+        H=plan.H, KH=plan.KH, inter=plan.inter, V=plan.V, ps=plan.ps,
+        maxPb=plan.maxPb, kv_kind=mk._KV_KIND[plan.kv_dtype_name],
+        grid=st.grid[kind])
+    if kind == "attn":
+        cache = step["cache"]
+        for name, dt, shape in (
+                ("cos", torch.bfloat16, (S, plan.D)),
+                ("sin", torch.bfloat16, (S, plan.D)),
+                ("page_row", torch.int32, (plan.maxPb,))):
+            _expect(who, name, step[name], dt, shape, dev)
+        kv_dt = getattr(torch, plan.kv_dtype_name)
+        Ds = plan.D // 2 if plan.kv_bits == 4 else plan.D
+        quant = plan.kv_bits != 16
+        for t in (cache.k, cache.v):
+            if t.dtype != kv_dt or t.shape[1:] != (plan.ps, plan.KH * Ds) or \
+                    t.device != dev or not t.is_contiguous():
+                raise ValueError(f"{who}: pool {t.dtype} {tuple(t.shape)} "
+                                 f"for {plan.kv_mode} with {plan.KH} KV heads")
+        if quant and (cache.k_qparams is None or
+                      cache.k_qparams.shape[1] != 2 * plan.KH or
+                      cache.k_qparams.dtype != torch.float32):
+            raise ValueError(f"{who}: pool qparams missing or misshaped")
+        vals.update(
+            cos=step["cos"].data_ptr(), sin=step["sin"].data_ptr(),
+            page_row=step["page_row"].data_ptr(), k_pool=cache.k.data_ptr(),
+            v_pool=cache.v.data_ptr(),
+            k_qp=cache.k_qparams.data_ptr() if quant else 0,
+            v_qp=cache.v_qparams.data_ptr() if quant else 0,
+            ql=cache.k_qparams.shape[2] if quant else 0)
+    ia = [vals[k] for k in pmk._IARGS]
+    ia += mk.packed_stream_args(plan, packed, st.splits, dev, who,
+                                lm_valid=plan.V)
+    ia += [0 if add is None else add.data_ptr(), out.data_ptr()]
+    ia_arr = np.asarray(ia, np.int64)
+    fa_arr = np.asarray([plan.rms_eps, 1.0 / math.sqrt(plan.D)], np.float64)
+    with torch.cuda.device(dev):        # the C side launches on it
+        rc = st.fn(_KINDS[kind], layer, ia_arr.ctypes.data,
+                   fa_arr.ctypes.data, kernel_build.stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"{who} launch failed: CUDA error {rc}")
+
+
+def tp_prefill_attn_segment(plan, packed: Dict, layer: int, x: torch.Tensor,
+                            cos: torch.Tensor, sin: torch.Tensor,
+                            page_row: torch.Tensor, n_tokens: torch.Tensor,
+                            cache: KVCache,
+                            add: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """One layer's prefill attention segment of one rank. `plan`: the local
+    PrefillPlan; packed: the rank's pack (its TP decode pack); x [S, hid]
+    f32: the rank's residual, first increased by `add` in place (the
+    all-reduced partial of the segment before, None in layer 0); cos/sin
+    [S, D] bf16, page_row [maxPb] int32 PHYSICAL base rows and n_tokens
+    int32 [1] as `prefill_megakernel` takes them; cache: the rank's pool
+    (its KV heads), updated in place at rows < n of the owned pages.
+    Returns the o partial [S, hid] f32. The kernel computes the row tiles
+    that hold prompt rows (their x rows take `add`) and returns zeros in the
+    rows after them. CPU tensors take `prefill_attn_segment_ref`; CUDA
+    tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return prefill_attn_segment_ref(plan, packed, layer, x, cos, sin,
+                                        page_row, n_tokens, cache, add)
+    _check_device("tp_prefill_attn_segment", x)
+    out = torch.empty((plan.S, plan.hid), dtype=torch.float32,
+                      device=x.device)
+    _prefill_launch("attn", plan, packed, layer, x, n_tokens, add, out,
+                    tp_prefill_attn_segment.counter, cos=cos, sin=sin,
+                    page_row=page_row, cache=cache)
+    return out
+
+
+def tp_prefill_mlp_segment(plan, packed: Dict, layer: int, x: torch.Tensor,
+                           n_tokens: torch.Tensor,
+                           add: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """One layer's prefill MLP segment of one rank: x += add, then the down
+    partial [S, hid] f32 (see `tp_prefill_attn_segment`)."""
+    if x.device.type == "cpu":
+        return prefill_mlp_segment_ref(plan, packed, layer, x, n_tokens, add)
+    _check_device("tp_prefill_mlp_segment", x)
+    out = torch.empty((plan.S, plan.hid), dtype=torch.float32,
+                      device=x.device)
+    _prefill_launch("mlp", plan, packed, layer, x, n_tokens, add, out,
+                    tp_prefill_mlp_segment.counter)
+    return out
+
+
+def tp_prefill_lm_segment(plan, packed: Dict, x: torch.Tensor,
+                          n_tokens: torch.Tensor,
+                          add: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The final norm of the last prompt row n - 1 and the lm_head over the
+    rank's vocab shard: x[n - 1] += add[n - 1], then logits [V/n] f32 (the
+    kernel writes the true columns only)."""
+    if x.device.type == "cpu":
+        return prefill_lm_segment_ref(plan, packed, x, n_tokens, add)
+    _check_device("tp_prefill_lm_segment", x)
+    out = torch.empty((plan.V,), dtype=torch.float32, device=x.device)
+    _prefill_launch("lm", plan, packed, 0, x, n_tokens, add, out,
+                    tp_prefill_lm_segment.counter)
+    return out
+
+
+tp_prefill_attn_segment.counter = kernel_build.LaunchCounter()
+tp_prefill_mlp_segment.counter = kernel_build.LaunchCounter()
+tp_prefill_lm_segment.counter = kernel_build.LaunchCounter()

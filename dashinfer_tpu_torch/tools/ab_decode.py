@@ -1,15 +1,19 @@
-"""The dense decode megakernel of two checkouts, side by side on one card.
+"""The dense decode or prefill megakernel of two checkouts, side by side on
+one card.
 
 Times one decode forward of csrc/megakernel.cu at Qwen2-7B width (a16w4,
-B = 8, INT8 KV, chip_smoke.py's state and random weights) for each checkout
-root given, in the order given, each in a process of its own that imports
-that checkout's `dashinfer_tpu_torch` and `chip_smoke.py`. The kernels are
-built first, all roots at once. Give the parent and the change as
-`PARENT CHANGE CHANGE PARENT` to see drift between runs. Prints one JSON
-line a run, the card's `nvidia-smi` name and power limit, and the ptxas
-registers and spills of each root's decode kernel instantiations.
+B = 8, INT8 KV, chip_smoke.py's state and random weights), or with
+`--prefill` one launch of csrc/prefill_megakernel.cu for a full bucket of
+128 and of 1024 (the same weights, INT8 KV, chip_smoke.py's inputs), for
+each checkout root given, in the order given, each in a process of its own
+that imports that checkout's `dashinfer_tpu_torch` and `chip_smoke.py`.
+The kernels are built first, all roots at once. Give the parent and the
+change as `PARENT CHANGE CHANGE PARENT` to see drift between runs. Prints
+one JSON line a run, the card's `nvidia-smi` name and power limit, and the
+ptxas registers and spills of each root's kernel instantiations.
 
     python -m dashinfer_tpu_torch.tools.ab_decode build/parent . . build/parent
+    python -m dashinfer_tpu_torch.tools.ab_decode --prefill build/parent . . build/parent
 """
 
 import json
@@ -17,47 +21,73 @@ import os
 import subprocess
 import sys
 
+# (kernel source, its entry function's name in the ptxas log)
+_KERNELS = {False: ("megakernel", "mk_kernel"),
+            True: ("prefill_megakernel", "pmk_kernel")}
+PREFILL_BUCKETS = (128, 1024)
 
-def _one(root: str, build_only: bool) -> None:
+
+def _one(root: str, build_only: bool, prefill: bool) -> None:
     """Runs in the child: everything is imported from `root`."""
     root = os.path.abspath(root)
     os.chdir(root)
     sys.path[0] = root
     import torch
     import chip_smoke as cs
-    from dashinfer_tpu_torch.config import ModelConfig
+    from dashinfer_tpu_torch.config import CacheMode, ModelConfig
     from dashinfer_tpu_torch.ops import kernel_build
-    kernel_build.build(["megakernel"])
+    source, entry = _KERNELS[prefill]
+    kernel_build.build([source])
     if build_only:
-        log = kernel_build.build_logs.get("megakernel", "")
+        log = kernel_build.build_logs.get(source, "")
         lines = log.splitlines()
         regs = [" ".join(lines[i:i + 3]) for i, ln in enumerate(lines)
-                if "Compiling entry function" in ln and "mk_kernel" in ln]
+                if "Compiling entry function" in ln and entry in ln]
         print("AB_BUILD", json.dumps({"root": root, "ptxas": regs}),
               flush=True)
         return
     dev = torch.device("cuda", 0)
+    cfg = ModelConfig(**cs.QWEN2_7B)
     params = cs.random_qwen2_7b_params(cs.SEED, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    row = cs.time_megakernel(ModelConfig(**cs.QWEN2_7B), params, "u4", 8,
-                             cs.MK_LENS, gen, dev, per_op=False)
-    print("AB", json.dumps({"root": root, "ms": row["ms"],
-                            "no_attention_ms": row["no_attention_ms"]}),
-          flush=True)
+    if not prefill:
+        row = cs.time_megakernel(cfg, params, "u4", 8, cs.MK_LENS, gen, dev,
+                                 per_op=False)
+        print("AB", json.dumps({"root": root, "ms": row["ms"],
+                                "no_attention_ms": row["no_attention_ms"]}),
+              flush=True)
+        return
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    out = {"root": root}
+    for bucket in PREFILL_BUCKETS:
+        plan, packed = cs.pmk_plan_pack(cfg, params, bucket, CacheMode.INT8)
+        st = cs.pmk_inputs(cfg, params, plan, CacheMode.INT8, bucket, gen,
+                           dev)
+        args = (plan, packed, st["x0"], st["cos"], st["sin"],
+                st["page_row"], st["n"], st["cache"])
+        out[f"ms_{bucket}"] = cs.time_ms(pmk.prefill_megakernel, [args],
+                                         iters=5)
+        pmk.check_status(dev)
+        del st, packed
+        torch.cuda.empty_cache()
+    print("AB", json.dumps(out), flush=True)
 
 
 def main(argv) -> int:
     if argv[:1] in (["--one"], ["--build"]):
-        _one(argv[1], argv[0] == "--build")
+        _one(argv[-1], argv[0] == "--build", "--prefill" in argv)
         return 0
-    if not argv:
+    prefill = "--prefill" in argv
+    roots = [a for a in argv if a != "--prefill"]
+    if not roots:
         print(__doc__)
         return 2
     me = os.path.abspath(__file__)
-    builds = [subprocess.Popen([sys.executable, me, "--build", r],
+    flag = ["--prefill"] if prefill else []
+    builds = [subprocess.Popen([sys.executable, me, "--build", *flag, r],
                                stdout=subprocess.PIPE, text=True)
-              for r in dict.fromkeys(argv)]
+              for r in dict.fromkeys(roots)]
     rc = 0
     for p in builds:
         out, _ = p.communicate()
@@ -70,8 +100,8 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    for r in argv:
-        out = subprocess.run([sys.executable, me, "--one", r],
+    for r in roots:
+        out = subprocess.run([sys.executable, me, "--one", *flag, r],
                              capture_output=True, text=True)
         print("\n".join(ln for ln in out.stdout.splitlines()
                         if ln.startswith("AB")) or out.stderr[-2000:],

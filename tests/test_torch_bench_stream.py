@@ -75,6 +75,7 @@ def test_kernel_sources_are_registered():
                                          "megakernel", "stream_probe",
                                          "prefill_megakernel", "probes",
                                          "grouped_quant_matmul",
-                                         "tp_segments"}
+                                         "tp_segments",
+                                         "tp_prefill_segments"}
     for name in kernel_build.SOURCES:     # hash covers the shared headers
         assert kernel_build.lib_path(name).endswith(".so")

@@ -73,6 +73,69 @@ def test_port_serves_on_a_mesh_with_jax_blocked():
     assert "SERVED" in r.stdout
 
 
+_PREFILL_ON_A_MESH_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import numpy as np
+import dashinfer_tpu_torch as tp
+from dashinfer_tpu_torch.config import ModelConfig
+
+L, hid, inter, V, H, KH, D = 2, 256, 256, 512, 4, 2, 128
+rng = np.random.RandomState(0)
+def lin(i, o, bias=False):
+    d = {"w": (rng.randn(L, i, o) * 0.05).astype(np.float32)}
+    if bias:
+        d["b"] = (rng.randn(L, o) * 0.01).astype(np.float32)
+    return d
+params = {"embed_tokens": {"w": rng.randn(V, hid).astype(np.float32)},
+          "norm": np.ones(hid, np.float32),
+          "lm_head": {"w": (rng.randn(hid, V) * 0.05).astype(np.float32)},
+          "layers": {"input_layernorm": np.ones((L, hid), np.float32),
+                     "post_attention_layernorm": np.ones((L, hid), np.float32),
+                     "q_proj": lin(hid, H * D, True),
+                     "k_proj": lin(hid, KH * D, True),
+                     "v_proj": lin(hid, KH * D, True),
+                     "o_proj": lin(H * D, hid),
+                     "gate_proj": lin(hid, inter), "up_proj": lin(hid, inter),
+                     "down_proj": lin(inter, hid)}}
+cfg = ModelConfig(arch="qwen2", vocab_size=V, hidden_size=hid,
+                  intermediate_size=inter, num_layers=L, num_heads=H,
+                  num_kv_heads=KH, head_dim=D, qkv_bias=True)
+rt = (tp.RuntimeConfigBuilder("m").max_length(160).max_batch(2)
+      .kv_cache_page_size(16).kv_cache_num_pages(48)
+      .kv_cache_mode(tp.CacheMode.INT8).weight_quant("a16w4", 128)
+      .dtype("float32").mesh(1, 2).update({"min_prefill_bucket": 128})
+      .build())
+eng = tp.Engine().install_model("m", rt, params=params, model_config=cfg,
+                                device=["cpu", "cpu"]).start_model("m")
+run = eng._models["m"]
+assert run.tp_mega_plan is not None and sorted(run._tp_pmk_plans) == [128]
+_, h, q = eng.start_request("m", [1, 2, 3, 4, 5, 6], tp.GenerationConfig(
+    max_length=14, do_sample=False, top_k=1, eos_token_id=-1))
+eng.sync_request("m", h, timeout_s=120)
+eng.release_model("m")
+assert set(run._prefill_steps) == {(128, "tp")}
+assert q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+assert len(q.GetAllGeneratedTokens()) == 8
+assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "dashinfer_tpu" or m.startswith("dashinfer_tpu.")
+               for m in sys.modules)
+print("SERVED")
+"""
+
+
+def test_port_prefills_on_a_mesh_through_the_segments_with_jax_blocked():
+    """A head_dim-128 model on a (1, 2) mesh of CPU ranks: the TP prefill
+    segments' and the TP decode segments' modules (their plain versions on
+    the CPU) serve with JAX blocked."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", _PREFILL_ON_A_MESH_WITHOUT_JAX],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "SERVED" in r.stdout
+
+
 _SERVE_MOE_WITHOUT_JAX = r"""
 import sys
 sys.modules["jax"] = None            # any `import jax` now raises
@@ -189,4 +252,5 @@ def test_the_new_modules_are_checked():
             "dashinfer_tpu_torch/tools/probe_magic_dequant.py",
             "dashinfer_tpu_torch/tools/probe_reshape.py",
             "dashinfer_tpu_torch/tools/ab_decode.py",
+            "dashinfer_tpu_torch/tools/moe_drift.py",
             "dashinfer_tpu_torch/engine/steps.py"} <= rel

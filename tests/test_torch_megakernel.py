@@ -24,6 +24,7 @@ from dashinfer_tpu_torch.engine import steps as tsteps
 from dashinfer_tpu_torch.loader import params_from_numpy
 from dashinfer_tpu_torch.ops import megakernel as tmk
 from dashinfer_tpu_torch.runtime.kv_cache import KVCache as TKVCache
+from dashinfer_tpu_torch.runtime.kv_cache import create_kv_cache
 from tests.test_megakernel import (_prep_cache, _quantized_fixture, _tiny,
                                    _tiny_moe)
 from tests.test_torch_transformer import port_config
@@ -522,3 +523,56 @@ def test_phase_times_reads_a_trace():
     assert times["qkv"]["work"] == pytest.approx(plan.L * 3e-6)
     assert times["lm_head"]["wait"] == pytest.approx(1e-6)
     assert times["total"]["work"] == pytest.approx(4 * (n - 1) // 2 * 1e-6)
+
+
+@pytest.mark.parametrize("norm_topk", [False, True])
+def test_moe_forced_routing_of_its_own_choice_changes_nothing(norm_topk):
+    """`decode_megakernel_ref(..., forced_routing=)` (the routing a card
+    check hands it from `kernel_routing`: each layer's experts per row, in
+    ascending order) given the plain version's own routing gives its
+    unforced logits and pool exactly; a routing that differs changes
+    them. `resid_norms` receives each layer's residual RMS."""
+    cfg, rt, params = _tiny_moe(KH=2, H=2, shared=True, shared_gate=True,
+                                norm_topk=norm_topk)
+    params = quantize_params(params, QuantConfig(mode="a16w4",
+                                                 group_size=128))
+    tcfg, trt = port_config(cfg), _port_rt(rt, "int8")
+    tparams = params_from_numpy(_np_tree(params), "cpu", torch.float32)
+    plan = tmk.make_plan(tcfg, trt, tparams)
+    packed = tmk.pack_params(tcfg, plan, tparams)
+    B, L, maxP = rt.max_batch, cfg.num_layers, rt.max_pages_per_seq
+    lens = torch.tensor([17, 9, 3, 0][:B], dtype=torch.int32)
+    active = lens > 0
+    pt = (1 + torch.arange(B * maxP, dtype=torch.int32)).reshape(B, maxP)
+    cache = create_kv_cache(tcfg, trt.cache, rt.cache.num_pages * L,
+                            torch.float32, "cpu")
+    g = torch.Generator().manual_seed(3)
+    cache.k.view(torch.uint8).random_(0, 256, generator=g)
+    cache.v.view(torch.uint8).random_(0, 256, generator=g)
+    cache.k_qparams.uniform_(0.004, 0.008, generator=g)
+    cache.v_qparams.uniform_(0.004, 0.008, generator=g)
+    x0 = tparams["embed_tokens"]["w"][torch.arange(1, B + 1)].to(
+        torch.bfloat16)
+    cos, sin = tsteps._rope_tiles(tcfg, lens)
+    args = (plan, packed, x0, cos, sin, pt, lens, active)
+    routing, c0 = [], cache.clone()
+    want = tmk.decode_megakernel_ref(*args, c0, routing=routing)
+    own = torch.stack([torch.nonzero(tmk.route(plan, lg)[0] > 0)[:, 1]
+                       .reshape(B, plan.k_top) for lg in routing])
+    assert own.shape == (L, B, plan.k_top)
+    c1, norms = cache.clone(), []
+    got = tmk.decode_megakernel_ref(*args, c1, forced_routing=own,
+                                    resid_norms=norms)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # each layer's residual RMS entering it, the first the embedding's
+    assert len(norms) == L and norms[0].shape == (B,)
+    torch.testing.assert_close(norms[0], x0.float().pow(2).mean(-1).sqrt())
+    for a, b in ((c1.k, c0.k), (c1.v, c0.v), (c1.k_qparams, c0.k_qparams)):
+        assert torch.equal(a, b)
+    other = own.clone()
+    other[0, 0] = torch.tensor([e for e in range(plan.E)
+                                if e not in own[0, 0].tolist()][:plan.k_top])
+    moved = tmk.decode_megakernel_ref(*args, cache.clone(),
+                                      forced_routing=other)
+    assert not torch.equal(moved[0], want[0])
+    torch.testing.assert_close(moved[1:], want[1:], rtol=0, atol=0)

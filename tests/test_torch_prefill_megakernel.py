@@ -228,19 +228,19 @@ def test_prefill_plan_and_gaps():
     # without a decode plan the same streams come from the params
     assert tpmk.make_prefill_plan(tcfg, trt, tparams, BUCKET) == plan
     # the tiny model's 128-column k and v leaves are padded to the pack's
-    # 256-column tiles, but the kernel's q|k|v phase reads q, k and v at
-    # their unpadded columns, so its gaps name them; q, k and v of whole
-    # tiles take the kernel; not a width that is no multiple of 128, nor a
+    # 256-column tiles, and the kernel's q|k|v phase reads each of q, k and
+    # v at its padded offset, so they take the kernel, as q, k and v of
+    # whole tiles do; not a width that is no multiple of 128, nor a
     # 1100-token bucket
-    assert tpmk.cuda_kernel_gaps(plan) == [
-        "q / k / v widths (256, 128, 128) not multiples of 256"]
+    assert plan.qkv.N == (256, 128, 128) and plan.qkv.Np == (256, 256, 256)
+    assert tpmk.cuda_kernel_gaps(plan) == []
     whole = dataclasses.replace(plan, qkv=dataclasses.replace(
         plan.qkv, N=(256, 256, 256)))
     assert tpmk.cuda_kernel_gaps(whole) == []
     narrow = dataclasses.replace(plan, qkv=dataclasses.replace(
         plan.qkv, N=(256, 64, 64)))
     gaps = tpmk.cuda_kernel_gaps(narrow)
-    assert len(gaps) == 2 and gaps[0].startswith("qkv: columns")
+    assert len(gaps) == 1 and gaps[0].startswith("qkv: columns")
     assert len(tpmk.cuda_kernel_gaps(dataclasses.replace(whole, S=1100))) == 1
     assert tpmk.trace_len(plan) == 2 * (9 * plan.L + 2) + 1
     # one chunk (K = 256: 4) cannot split further than its chunks

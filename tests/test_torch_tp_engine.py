@@ -136,3 +136,44 @@ def test_mesh_install_refusals():
                                   params=jax.tree.map(np.asarray, mparams),
                                   model_config=port_config(mcfg),
                                   device=CPU2)
+
+
+def test_engine_on_a_mesh_prefills_through_the_tp_segments(monkeypatch):
+    """Default flags, max_length >= 128: the mesh install holds a TP
+    prefill plan for bucket 128 that adopts the TP decode plan's streams,
+    and the bucket-128 prompt goes through `tp_prefill` (its step key
+    (128, "tp")); DI_PREFILL_MEGAKERNEL=0 prefills per-op TP and decodes
+    through the same segments. Each gives the single-device serving's
+    greedy tokens under the same flags (the first 10 of 14 as above): the
+    TP prefill segments those of the prefill megakernel, the per-op TP
+    prefill those of the per-op prefill. The two prefills agree on the
+    first token; from the second on this random model's near-ties follow
+    the pool's roundings (the segments quantize K/V from the bf16-rounded
+    products, the per-op prefill from f32 ones), on one device as on the
+    mesh."""
+    from dashinfer_tpu_torch.ops import tp_megakernel as ttpk
+    calls = []
+    real = ttpk.tp_prefill
+
+    def spy(*a, **k):
+        calls.append(a[0].S)
+        return real(*a, **k)
+
+    monkeypatch.setattr(ttpk, "tp_prefill", spy)
+    run, toks = _port(CPU2)
+    assert sorted(run._tp_pmk_plans) == [128] and not run._pmk_plans
+    assert run._tp_pmk_plans[128].qkv is run.tp_mega_plan.qkv
+    assert set(run._prefill_steps) == {(128, "tp")} and calls == [128]
+    monkeypatch.setenv("DI_PREFILL_MEGAKERNEL", "0")
+    run_off, toks_off = _port(CPU2)
+    assert run_off.tp_mega_plan is not None and not run_off._tp_pmk_plans
+    assert set(run_off._prefill_steps) == {(128, False)} and calls == [128]
+    run_1, single_off = _port("cpu", mesh=1)
+    assert set(run_1._prefill_steps) == {(128, False)}
+    monkeypatch.delenv("DI_PREFILL_MEGAKERNEL")
+    run_1, single = _port("cpu", mesh=1)
+    assert set(run_1._prefill_steps) == {(128, True)}
+    assert len(toks) == len(toks_off) == len(single) == 14
+    assert toks[:10] == single[:10], (toks, single)
+    assert toks_off[:10] == single_off[:10], (toks_off, single_off)
+    assert toks[0] == toks_off[0]

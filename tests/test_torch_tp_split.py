@@ -170,8 +170,8 @@ def test_padded_qkv_widths_and_the_kernels():
     here the tiny model's k and v at n = 2): the decode
     pack pads each leaf to its 256-column tiles, which the decode and
     segment kernels' attention phase reads at the leaves' padded offsets
-    (csrc/di_layer.cuh); the prefill kernel reads q|k|v unpadded, so its
-    gaps name them and the runtime prefills such a model per-op."""
+    (csrc/di_layer.cuh), and so does the prefill kernels' q|k|v phase
+    (csrc/di_prefill_layer.cuh): their gaps name none of them."""
     from dashinfer_tpu_torch.ops import megakernel as tmk
     from dashinfer_tpu_torch.ops import prefill_megakernel as tpmk
     cfg, rt, params = tp_fixture("a16w4")
@@ -186,4 +186,4 @@ def test_padded_qkv_widths_and_the_kernels():
     local = ttpk.local_config(tcfg, 2)
     pplan = tpmk.make_prefill_plan(local, trt, ttpk.split_params_tp(
         tparams, tcfg, 2)[0], 128, decode_plan=plan)
-    assert any("q / k / v" in g for g in tpmk.cuda_kernel_gaps(pplan))
+    assert pplan.qkv is plan.qkv and tpmk.cuda_kernel_gaps(pplan) == []
