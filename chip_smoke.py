@@ -79,10 +79,30 @@ the card): `megakernel` and `prefill_megakernel` hold the two kernels' MoE
 branches against their plain versions (KV modes, B = 8 / 32, every bucket
 128 .. 1024 the serving launches; a router near-tie that routes a row
 differently is counted and capped) and time them beside the routed bounds;
-`serve` serves the MoE model with every flag at its default and per-op.
+`serve` serves the MoE model with every flag at its default and per-op
+(and, for `serve_tp_moe`, with DI_PREFILL_MEGAKERNEL=0).
 The MoE decode check also runs the plain version routed as the kernel
 routed (`kernel_routing`) and holds every active row to it, rows the two
-route differently included.
+route differently included. Then, on a (1, n) mesh whose ranks share the
+card:
+  tp_moe      the TP MoE segment (csrc/tp_segments.cu `kMoeSeg`) of every
+              rank at Qwen1.5-MoE width: n = 2 with INT8 and UINT4 KV at
+              B = 8 and INT8 at B = 32, n = 4 with INT8 at B = 8; each rank's
+              segment at layers 0 and 23 against its plain version routed
+              as the kernel routed (and unforced, with the router flip caps
+              and the planted fault), the whole TP forward (CUDA-graph
+              replay) against `tp_decode_ref` routed as the kernel and
+              unforced and against the single-device MoE megakernel; then
+              (n = 2, INT8, B = 8) ms per segment launch beside its routed
+              byte bound and plain version, and ms per TP step beside the
+              single-device MoE megakernel's;
+  serve_tp_moe
+              the MoE model served on a (1, 2) mesh with `serve`'s traffic,
+              with every flag at its default (decode through the attn and
+              moe segments, every prefill per-op TP) and per-op; launch
+              counts checked (no TP prefill segment), the greedy requests'
+              first 8 tokens held to the single-device serving's on the
+              same path, TTFT and ms/step printed.
 It prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. It needs the repository around it (the
 `dashinfer_tpu_torch` package) and a CUDA card; without either it exits
@@ -741,11 +761,12 @@ def random_moe_params(cfg, seed: int, dev):
     return prepare_grouped_experts(params, cfg)
 
 
-def planted_router_fault(plan, logits_plain, rows, what, budget, seed):
+def planted_router_fault(plan, logits_plain, rows, what, budget, seed,
+                         ill=None):
     """The routing of a faulty router (the plain version's logits, a list
     of [R, EP], plus PLANTED_ROUTER_ERR of noise) against the plain
-    version's: it must fail the flip caps (count or gap). Returns its
-    flipped-row count."""
+    version's: it must fail the flip caps (count or gap; `ill` as
+    flipped_rows'). Returns its flipped-row count."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     gen = torch.Generator(device=logits_plain[0].device)
@@ -755,7 +776,9 @@ def planted_router_fault(plan, logits_plain, rows, what, budget, seed):
             lg.shape, generator=gen, device=lg.device))[0] > 0
         for lg in logits_plain])
     flips = flipped_rows(plan, chosen, logits_plain, rows, what)
-    check(len(flips) > budget or any(g > TIE_LOGIT for *_, g in flips),
+    check(len(flips) > budget or any(
+        g > TIE_LOGIT and not (ill is not None and bool(ill[l, r]))
+        for r, l, g in flips),
           f"{what}: a planted router fault (logit noise "
           f"{PLANTED_ROUTER_ERR}) passes the flip caps ({len(flips)} rows, "
           f"at most {budget}): the caps do not tell it from the kernel")
@@ -763,17 +786,21 @@ def planted_router_fault(plan, logits_plain, rows, what, budget, seed):
 
 
 def flipped_rows(plan, chosen_kernel, logits_plain, rows, what,
-                 budget=None):
+                 budget=None, chosen_ref=None, ill=None):
     """Rows (of `rows`, a bool mask) whose routed experts differ between
     the kernel (chosen_kernel [L, R, E] bool) and the plain version (its
-    router products, a list of [R, EP]) in some layer, held to the MoE
-    rules above (not held without a `budget`). Returns [(row, first layer,
-    the plain version's logit gap there)]."""
+    router products, a list of [R, EP]; or `chosen_ref`, another kernel's
+    choices) in some layer, held to the MoE rules above (not held without
+    a `budget`): at most `budget` rows, each a near-tie of the plain
+    version where it first flips, or ill-conditioned there (`ill` [L, R]
+    bool: its residual RMS entering the layer below ILL_NORM_SHARE of the
+    batch's median, forced_routing_check's rule). Returns [(row, first
+    layer, the plain version's logit gap there)]."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     logits = torch.stack(logits_plain)[..., :plan.E]             # [L, R, E]
-    chosen_plain = torch.stack([mk.route(plan, lg)[0] > 0
-                                for lg in logits_plain])
+    chosen_plain = chosen_ref if chosen_ref is not None else torch.stack(
+        [mk.route(plan, lg)[0] > 0 for lg in logits_plain])
     diff = (chosen_kernel != chosen_plain).any(-1) & rows[None, :]   # [L, R]
     top = logits.topk(plan.k_top + 1, dim=-1).values
     gap = top[..., plan.k_top - 1] - top[..., plan.k_top]           # [L, R]
@@ -781,11 +808,15 @@ def flipped_rows(plan, chosen_kernel, logits_plain, rows, what,
     for r in torch.nonzero(diff.any(0))[:, 0].tolist():
         l = int(torch.nonzero(diff[:, r])[0, 0])
         flips.append((r, l, round(float(gap[l, r]), 6)))
-    check(budget is None or (len(flips) <= budget and
-                             all(g <= TIE_LOGIT for *_, g in flips)),
+    check(budget is None or (len(flips) <= budget and all(
+        g <= TIE_LOGIT or (ill is not None and bool(ill[l, r]))
+        for r, l, g in flips)),
           f"{what}: {len(flips)} rows routed differently (at most {budget}, "
-          f"each a near-tie of the plain version within {TIE_LOGIT}): "
-          f"(row, first layer, logit gap) {flips}")
+          f"each a near-tie of the plain version within {TIE_LOGIT} or "
+          f"ill-conditioned there): (row, first layer, logit gap) {flips}"
+          + ("" if ill is None else
+             f"; ill-conditioned at that layer "
+             f"{[bool(ill[l, r]) for r, l, _ in flips]}"))
     return flips
 
 
@@ -798,14 +829,15 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     flag at its default: decode and qualifying prefills through the two
     megakernels), "per-op" (`enable_megakernel` off) or "pack_only"
     (`weight_residency="pack_only"`; `params` is then a callable that makes
-    the tree, so that the engine alone holds it); on a (1, n) mesh over
-    `devices`, "tp" (every flag at its default: decode through the TP
-    segments, the prefills of buckets 128 .. 1024 through the TP prefill
-    segments, the others per-op TP), "tp prefill per-op"
-    (DI_PREFILL_MEGAKERNEL=0: every prefill per-op TP, as before the TP
-    prefill segments) or "tp per-op". `cfg`: Qwen2-7B unless given (the
-    MoE model). Returns (launch counts of the timed requests, generated
-    tokens per request)."""
+    the tree, so that the engine alone holds it) or "megakernel prefill
+    per-op" (DI_PREFILL_MEGAKERNEL=0: the decode megakernel, every prefill
+    per-op); on a (1, n) mesh over `devices`, "tp" (every flag at its
+    default: decode through the TP segments, the prefills of buckets 128 ..
+    1024 through the TP prefill segments (a MoE model's per-op TP), the
+    others per-op TP), "tp prefill per-op" (DI_PREFILL_MEGAKERNEL=0: every
+    prefill per-op TP, as before the TP prefill segments) or "tp per-op".
+    `cfg`: Qwen2-7B unless given (the MoE model). Returns (launch counts of
+    the timed requests, generated tokens per request)."""
     import torch
     from dashinfer_tpu_torch import (CacheMode, Engine, GenerateRequestStatus,
                                      GenerationConfig, ModelConfig,
@@ -825,6 +857,7 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
                 "grouped_quant_matmul": gqm.grouped_quant_matmul.counter,
                 "tp_attn_segment": tpk.tp_attn_segment.counter,
                 "tp_mlp_segment": tpk.tp_mlp_segment.counter,
+                "tp_moe_segment": tpk.tp_moe_segment.counter,
                 "tp_lm_segment": tpk.tp_lm_segment.counter,
                 "tp_prefill_attn_segment":
                     tpk.tp_prefill_attn_segment.counter,
@@ -851,8 +884,8 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     if callable(params):
         params = params()
     mem_tree = torch.cuda.memory_allocated(dev) - mem0
-    tp_pmk = path != "tp prefill per-op"
-    if not tp_pmk:
+    prefill_off = path in ("tp prefill per-op", "megakernel prefill per-op")
+    if prefill_off:
         os.environ["DI_PREFILL_MEGAKERNEL"] = "0"
     try:
         eng = Engine().install_model(name, rt, params=params,
@@ -873,7 +906,9 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
         pool_bytes=_resident_bytes(*(vars(c) for c in caches)),
         prefill_scratch_bytes=pmk.scratch_bytes(dev),
         logical_pages=run.num_logical_pages)
-    tp_buckets = [b for b in (128, 256, 512, 1024) if megakernel and tp_pmk]
+    # the TP prefill segments take no MoE model (their MLP is dense)
+    tp_buckets = [b for b in (128, 256, 512, 1024)
+                  if megakernel and not prefill_off and not cfg.moe]
     if devices:
         check((run.tp_mega_plan is not None) == megakernel and
               run.mega_plan is None and not run._pmk_plans and
@@ -882,7 +917,9 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
               f"path (TP prefill buckets {sorted(run._tp_pmk_plans)})")
     # one scratch set, sized for the largest bucket, is on the card from the
     # install on (none on the per-op paths)
-    check((memory["prefill_scratch_bytes"] > 0) == (megakernel and tp_pmk),
+    prefill_kernels = bool(tp_buckets) if devices else \
+        (megakernel and not prefill_off)
+    check((memory["prefill_scratch_bytes"] > 0) == prefill_kernels,
           f"{path}: prefill scratch after install: "
           f"{memory['prefill_scratch_bytes']} bytes")
     eng.start_model(name)
@@ -962,7 +999,7 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     grouped = 3 * L if cfg.moe else 0
     if path == "pack_only":
         mega_prefills, prefill = len(PROMPT_LENS), 0
-    elif megakernel:
+    elif megakernel and not prefill_off:
         mega_prefills = sum(64 < n <= 1024 for n in PROMPT_LENS)
         prefill = sum(per_step if n <= 32 else lm for n in PROMPT_LENS
                       if not 64 < n <= 1024)
@@ -1007,18 +1044,25 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
             if tp_buckets else 0
         prefill = n_r * sum(per_step if n <= 32 else lm for n in PROMPT_LENS
                             if not (tp_buckets and 64 < n <= 1024))
+        # (a MoE model: its moe segment in place of the mlp one, and every
+        # rank's grouped GEMMs in each per-op TP prefill and step)
+        mlp_seg = "tp_moe_segment" if cfg.moe else "tp_mlp_segment"
+        op_prefills = len(PROMPT_LENS) - seg_prefills
         if megakernel:
             steps = launches["tp_lm_segment"] // n_r
-            expect = dict(tp_attn_segment=L * n_r * steps,
-                          tp_mlp_segment=L * n_r * steps,
-                          tp_lm_segment=n_r * steps, quant_matmul=prefill,
-                          tp_prefill_attn_segment=L * n_r * seg_prefills,
-                          tp_prefill_mlp_segment=L * n_r * seg_prefills,
-                          tp_prefill_lm_segment=n_r * seg_prefills)
+            expect = {"tp_attn_segment": L * n_r * steps,
+                      mlp_seg: L * n_r * steps,
+                      "tp_lm_segment": n_r * steps, "quant_matmul": prefill,
+                      "tp_prefill_attn_segment": L * n_r * seg_prefills,
+                      "tp_prefill_mlp_segment": L * n_r * seg_prefills,
+                      "tp_prefill_lm_segment": n_r * seg_prefills,
+                      "grouped_quant_matmul": grouped * n_r * op_prefills}
         else:
             steps = launches["paged_attention"] // (L * n_r)
             expect = dict(paged_attention=L * n_r * steps,
-                          quant_matmul=n_r * per_step * steps + prefill)
+                          quant_matmul=n_r * per_step * steps + prefill,
+                          grouped_quant_matmul=grouped * n_r * (
+                              steps + len(PROMPT_LENS)))
         # and no other kernel runs
         check(steps >= new_tokens - 1 and
               {k: v for k, v in launches.items() if v} ==
@@ -1100,17 +1144,23 @@ def check_serving(params, dev, details):
             {"megakernel": mk_tokens, "per-op": op_tokens})
 
 
-def check_serving_moe(params, cfg, dev, details):
+def check_serving_moe(params, cfg, dev, details, prefill_per_op=False):
     """The MoE model served with every flag at its default and on the per-op
     path, on the same weights; the greedy requests' agreement is printed
     (the paths route with different sums, so a near-tie may route a token
     differently: only the launch counts and the finished requests are
-    held)."""
+    held). With `prefill_per_op`, also with DI_PREFILL_MEGAKERNEL=0 (the
+    single-device serving that the MoE mesh serving is held to). Returns
+    the launches of the first two and the tokens of each path."""
     import torch
     mk_launches, mk_tokens, _ = serve(params, dev, details, "megakernel",
                                       64, cfg)
     op_launches, op_tokens, _ = serve(params, dev, details, "per-op", 64,
                                       cfg)
+    tokens = {"megakernel": mk_tokens, "per-op": op_tokens}
+    if prefill_per_op:
+        tokens["megakernel prefill per-op"] = serve(
+            params, dev, details, "megakernel prefill per-op", 64, cfg)[1]
     agree = []
     for i, (a, b) in enumerate(zip(mk_tokens, op_tokens)):
         if i % 2:
@@ -1122,7 +1172,7 @@ def check_serving_moe(params, cfg, dev, details):
               flush=True)
     details["moe_greedy_agreement"] = agree
     torch.cuda.empty_cache()
-    return mk_launches, op_launches
+    return mk_launches, op_launches, tokens
 
 
 # -- the decode megakernel against its plain version -------------------------
@@ -1407,15 +1457,34 @@ def forced_routing_check(plan, args, got_cache, got, before, written, st,
     Returns the readings."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
-    L, KH, mode = plan.L, plan.KH, plan.kv_mode
     cf = before.clone()
     norms = []
     ref = mk.decode_megakernel_ref(*args, cf,
                                    forced_routing=mk.kernel_routing(plan, dev),
                                    resid_norms=norms)
     torch.cuda.synchronize()
-    act = st["active"]
-    what = f"{what} (the plain version routed as the kernel)"
+    return hold_routed_rows(plan.L, plan.KH, plan.kv_mode, got_cache, got,
+                            cf, ref, norms, before, written, st, lens, flips,
+                            f"{what} (the plain version routed as the "
+                            "kernel)", dev)
+
+
+def hold_routed_rows(L, KH, mode, got_cache, got, cf, ref, norms, before,
+                     written, st, lens, flips, what, dev, skip=(),
+                     after_ill=False):
+    """forced_routing_check's rules for a MoE decode step (`got`,
+    `got_cache`: the kernels'; `ref`, `cf`: the step they are held to,
+    routed alike; `norms`: its residual RMS entering each layer; KH: the
+    pool's KV heads): every active row but those of `skip` (routed
+    differently) is held, but ill-conditioned (row, layer)s. `after_ill`
+    (the TP MoE forward's check alone) also leaves unheld the layer right
+    after an ill-conditioned one, past the rule above: the residual a row
+    enters it with is mostly that layer's output, computed from the
+    amplified x_norm (the note above TP_MOE_CASES says what backs it)."""
+    import torch
+    act = st["active"].clone()
+    for b in skip:
+        act[b] = False
     err = (got[act] - ref[act]).abs().max().item()
     ref_max = ref[act].abs().max().item()
     check(bool(torch.isfinite(got[act]).all()) and
@@ -1438,7 +1507,10 @@ def forced_routing_check(plan, args, got_cache, got, before, written, st,
             diff[b] = torch.maximum(diff[b], d.amax(-1))
     norms = torch.stack(norms, 1)                          # [B, L]
     share = norms / norms[rows].median(0).values[None, :]
-    ill = (diff > CONDITIONED_RTOL) & (share < ILL_NORM_SHARE)
+    low = share < ILL_NORM_SHARE
+    if after_ill:
+        low[:, 1:] |= low[:, :-1].clone()
+    ill = (diff > CONDITIONED_RTOL) & low
     ill[:, 0] = False
     ill_rows = torch.nonzero(ill.any(1))[:, 0].tolist()
     cap = max(MAX_FLIPPED_ROWS, math.ceil(MAX_FLIPPED_ROW_SHARE * len(rows)))
@@ -1449,14 +1521,27 @@ def forced_routing_check(plan, args, got_cache, got, before, written, st,
     for b, l in torch.nonzero(ill).tolist():
         g, off = int(st["pt"][b, lens[b] // PAGE]), lens[b] % PAGE
         exempt[g * L + l, off] = True
+    for b in skip:
+        g, off = int(st["pt"][b, lens[b] // PAGE]), lens[b] % PAGE
+        exempt[g * L:(g + 1) * L, off] = True
+    parted = [b for b in rows if bool((diff[b] > CONDITIONED_RTOL).any())]
+    if parted:
+        by_row = {b: [(round(d_, 4), round(s_, 4)) for d_, s_ in
+                      zip(diff[b].tolist(), share[b].tolist())]
+                  for b in parted}
+        print(f"{what}: rows whose K / V part by over {CONDITIONED_RTOL} of "
+              f"their range somewhere (row: by layer, the difference and the "
+              f"residual RMS over the median): {by_row}", flush=True)
     pool = check_written_pool(what, mode, got_cache, cf, before, written, L,
                               dev, exempt, moe=True)
     profile = {b: dict(diff=[round(v, 4) for v in diff[b].tolist()],
                        norm_share=[round(v, 4) for v in share[b].tolist()],
                        not_held=torch.nonzero(ill[b])[:, 0].tolist())
                for b in ill_rows}
-    print(f"{what}: every active row held ({len(flips)} routed differently "
-          f"by the two, {[b for b, *_ in flips]}): logits max|d|={err:.3e} "
+    print(f"{what}: every active row held"
+          + (f" but {list(skip)} (routed differently)" if skip else "")
+          + f" ({len(flips)} routed differently by the kernel and the plain "
+          f"version, {[b for b, *_ in flips]}): logits max|d|={err:.3e} "
           f"(ref max {ref_max:.3e}); pool within {pool[0]:g} level in layer "
           f"0, qparams rel {pool[1]:.1e} (layer 0) {pool[2]:.1e} (all "
           f"layers); largest K / V difference of a held (row, layer) "
@@ -2249,7 +2334,6 @@ def tp_setup(cfg, params, n, mode, gen, dev, B=DECODE_BATCH, lens=None,
     over its KV heads)."""
     import torch
     from dashinfer_tpu_torch.config import CacheMode, RuntimeConfigBuilder
-    from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import tp_megakernel as tpk
     from dashinfer_tpu_torch.parallel import make_mesh, shard_params
     mode = getattr(CacheMode, mode) if isinstance(mode, str) else mode
@@ -2261,8 +2345,8 @@ def tp_setup(cfg, params, n, mode, gen, dev, B=DECODE_BATCH, lens=None,
     check(tpk.supports_tp(cfg, rt, params, n, local=parts[0]),
           f"supports_tp said no at n = {n}, {mode.value}")
     plan, packs = tpk.make_tp_plan(cfg, rt, parts)
-    check(not mk.cuda_kernel_gaps(plan), f"tp plan: "
-          f"{mk.cuda_kernel_gaps(plan)}")
+    check(not tpk.cuda_kernel_gaps(plan), f"tp plan: "
+          f"{tpk.cuda_kernel_gaps(plan)}")
     cfg_l = tpk.local_config(cfg, n)
     lens = lens or MK_LENS
     states = [mk_state(cfg_l, mode, B, lens, inactive, gen, dev)
@@ -2416,11 +2500,30 @@ def check_tp_segment_case(cfg, params, n, mode, gen, dev, timing):
     return row
 
 
+def tp_moe_bound(plan, act, dev):
+    """(bytes, operations) of rank 0's last moe segment launch of layer 0:
+    the global router, the rank's experts that its active rows routed to
+    (its routing record), its shared slice, x, the partial."""
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    routed = tpk.kernel_routing(plan, dev, 0)[0]
+    rows_of = [int(((routed == e) & act[:, None]).any(-1).sum())
+               for e in range(plan.E)]          # rank 0's group: 0 .. E - 1
+    shared = [sp for sp in (plan.sgu, plan.sdn) if sp is not None]
+    ex = (plan.gu, plan.dn)
+    nbytes = plan.rt.matrix_bytes + sum(sp.matrix_bytes for sp in shared) + \
+        sum(c > 0 for c in rows_of) * sum(sp.matrix_bytes for sp in ex)
+    ops = 2 * plan.B * sum(sp.K * sp.Ntot for sp in [plan.rt] + shared) + \
+        2 * sum(rows_of) * sum(sp.K * sp.Ntot for sp in ex)
+    return nbytes, ops, sum(c > 0 for c in rows_of)
+
+
 def tp_timing(cfg, s, plan1, pack1, c1, step, dev):
     """ms per launch of each segment (rank 0, layer 0; graph replay, CUDA
     events) beside its bound and its plain version's time, and ms per step
     of the TP forward beside the single-device megakernel's, the ranks on
-    one card."""
+    one card. A MoE plan's moe segment is bound by the bytes its timed
+    launches' rows route to (`tp_moe_bound`), its forward by the routed
+    experts of each layer."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import tp_megakernel as tpk
@@ -2438,19 +2541,29 @@ def tp_timing(cfg, s, plan1, pack1, c1, step, dev):
                  2 * B * (plan.qkv.K * plan.qkv.Ntot + plan.o.K *
                           plan.o.Ntot) +
                  4 * plan.H * plan.D * sum(n_ for n_, a in zip(lens, act)
-                                           if a)),
-        "mlp": (lambda: tpk.tp_mlp_segment(plan, pk, 0, x),
-                lambda: tpk.mlp_segment_ref(plan, pk, 0, x.clone()),
-                plan.gu.matrix_bytes + plan.dn.matrix_bytes + io,
-                2 * B * (plan.gu.K * plan.gu.Ntot + plan.dn.K * plan.dn.Ntot)),
-        "lm": (lambda: tpk.tp_lm_segment(plan, pk, x),
-               lambda: tpk.lm_segment_ref(plan, pk, x.clone()),
-               plan.lm.matrix_bytes + B * plan.hid * 4 + B * plan.V * 4,
-               2 * B * plan.lm.K * plan.lm.Ntot),
-    }
+                                           if a))}
+    if plan.E:
+        active = s["st"]["active"]
+        segs["moe"] = (
+            lambda: tpk.tp_moe_segment(plan, pk, 0, x, 0, active),
+            lambda: tpk.moe_segment_ref(plan, pk, 0, x.clone(), 0), None,
+            None)
+    else:
+        segs["mlp"] = (
+            lambda: tpk.tp_mlp_segment(plan, pk, 0, x),
+            lambda: tpk.mlp_segment_ref(plan, pk, 0, x.clone()),
+            plan.gu.matrix_bytes + plan.dn.matrix_bytes + io,
+            2 * B * (plan.gu.K * plan.gu.Ntot + plan.dn.K * plan.dn.Ntot))
+    segs["lm"] = (lambda: tpk.tp_lm_segment(plan, pk, x),
+                  lambda: tpk.lm_segment_ref(plan, pk, x.clone()),
+                  plan.lm.matrix_bytes + B * plan.hid * 4 + B * plan.V * 4,
+                  2 * B * plan.lm.K * plan.lm.Ntot)
     out = {}
     for name, (fn, plain, nbytes, ops) in segs.items():
         ms = time_ms(fn, [()], iters=20)
+        if name == "moe":
+            nbytes, ops, routed = tp_moe_bound(plan, s["st"]["active"], dev)
+            nbytes += io
         tpk.check_status(plan, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2462,10 +2575,15 @@ def tp_timing(cfg, s, plan1, pack1, c1, step, dev):
                          bound_by=("bytes" if b["bytes_ms"] >= b["ops_ms"]
                                    else "operations"),
                          weight_bytes=nbytes - io, **b)
-        print(f"  tp_{name}_segment (n={n}, rank 0, ranks on one card): "
-              f"{ms:.4f} ms a launch, bound {out[name]['bound_ms']:.4f} "
-              f"({out[name]['bound_by']}; {nbytes / 1e6:.1f} MB), plain "
-              f"{out[name]['plain_ms']:.1f} ms", flush=True)
+        if name == "moe":
+            out[name]["experts_routed"] = routed
+        print(f"  tp_{name}_segment (n={n}, rank 0, ranks on one card, "
+              f"B={B}): {ms:.4f} ms a launch, bound "
+              f"{out[name]['bound_ms']:.4f} ({out[name]['bound_by']}; "
+              f"{nbytes / 1e6:.1f} MB" + (
+                  f": the router, {routed} of the rank's {plan.E} experts, "
+                  "the shared slice" if name == "moe" else "") +
+              f"), plain {out[name]['plain_ms']:.1f} ms", flush=True)
     devices = s["mesh"].devices
     caches = s["caches"]
     tp_ms = time_ms(lambda: tpk.tp_decode(plan, s["packs"], s["x0"], *step,
@@ -2474,12 +2592,20 @@ def tp_timing(cfg, s, plan1, pack1, c1, step, dev):
     mk_ms = time_ms(lambda: mk.decode_megakernel(plan1, pack1, s["x0"], *step,
                                                  c1), [()], iters=3)
     mk.check_status(plan1, dev)
-    fwd_bytes = n * (L * plan.layer_bytes() + plan.lm.matrix_bytes) + \
-        kv_bytes_read(cfg, s["mode"], lens, act)
+    if plan.E:      # the experts some active row routes to in each layer
+        am = s["st"]["active"]
+        used = [len(set(r_[am].flatten().tolist()))
+                for r_ in tpk.kernel_routing(plan, dev, 0)]
+        fwd_bytes = int(sum(plan1.layer_bytes(u) for u in used) +
+                        plan1.lm.matrix_bytes)
+    else:
+        fwd_bytes = n * (L * plan.layer_bytes() + plan.lm.matrix_bytes)
+    fwd_bytes += kv_bytes_read(cfg, s["mode"], lens, act)
     print(f"  TP forward (n={n}, the ranks on one card, B={B}): {tp_ms:.3f} "
           f"ms/step ({L * (1 + 1) * n + n} segment launches); single-device "
-          f"megakernel {mk_ms:.3f} ms/step; one card's byte bound for the "
-          f"whole step {1e3 * fwd_bytes / HBM_BYTES_PER_S:.3f} ms", flush=True)
+          f"megakernel {mk_ms:.3f} ms/step; one card's "
+          f"{'routed ' if plan.E else ''}byte bound for the whole step "
+          f"{1e3 * fwd_bytes / HBM_BYTES_PER_S:.3f} ms", flush=True)
     return dict(segments=out, tp_forward_ms=tp_ms, megakernel_ms=mk_ms,
                 forward_bound_ms=1e3 * fwd_bytes / HBM_BYTES_PER_S)
 
@@ -2941,10 +3067,311 @@ def check_tp_prefill(params, dev, details):
         for k in ("attn", "mlp", "lm")}
 
 
+# -- the TP MoE segment (Qwen1.5-MoE on a model axis) -------------------------
+
+# (ranks, KV mode, B): n = 2 with INT8 and UINT4 KV at B = 8 (the MoE
+# megakernel check's lens, one slot inactive), INT8 at B = 32 (the kernel's
+# two-m-tile instantiation), n = 4 with INT8 at B = 8 (15 experts, a shared
+# slice of 1408 and a vocab shard of 37984 a rank: widths the pack pads,
+# four KV heads a rank)
+TP_MOE_CASES = ((2, "INT8", 8), (2, "UINT4", 8), (2, "INT8", 32),
+                (4, "INT8", 8))
+# The moe segment against its plain version: per rank at layers 0 and 23 on
+# x0 + a random `add`, the partial of the active rows within LOGITS_RTOL of
+# its largest with the plain version routed as the kernel routed (its
+# routing record) and x + add equal; the rows the kernel routes otherwise
+# than the unforced plain version are counted and capped as the MoE
+# megakernel's (near-ties of the plain router), the others held unforced
+# too. The whole TP forward (CUDA graph replay) against `tp_decode_ref`
+# routed as the kernel (every active row held but ill-conditioned (row,
+# layer)s: forced_routing_check's rules, and here also the layer right
+# after an ill-conditioned one, `after_ill`) and unforced (flips capped,
+# each a near-tie of the plain router or ill-conditioned where it first
+# flips; a planted router fault must fail the caps; the rest held), and
+# against the single-device MoE decode megakernel on the same weights and
+# state (rows the two kernels route differently capped as flips and exempt,
+# the rest held by forced_routing_check's rules); every rank records the
+# same routing.
+# What backs the two TP-only widenings: row 29 of the B = 32 state enters
+# layers 2-6 with a residual RMS of 0.004-0.011 of the median; the kernel
+# routes it otherwise at layer 6 (plain gap 0.463) and its K / V part from
+# the plain version's by 0.089 / 0.660 / 0.133 of its range at layers 5 /
+# 6 / 7. `python -m dashinfer_tpu_torch.tools.moe_drift --tp` on this state
+# read: the plain version itself, with one element of each row of x0 one
+# bf16 step up, moves row 29 by 0.189 / 1.298 / 1.357 there and routes it
+# otherwise from layer 5 on (gap 0.753); the single-device plain version
+# (the same function summed in another order) parts from the TP plain
+# version on it at layers 5-6 (0.006 / 0.039) and nowhere else; each
+# segment launched on the plain version's own inputs, layer by layer,
+# gives row 29's partials within 2e-4 of their largest, as every other
+# row's (up to 9e-4), and routes every row as the plain router.
+
+
+def tp_moe_flips(gplan, routed, routing, act, what, seed=None, ill=None):
+    """Rows a kernel's routing ([L, B, k] global ids) sends otherwise than
+    the plain version's router products (`routing`), capped as the MoE
+    megakernel's; with a `seed`, a planted router fault must fail the caps
+    (over a whole forward's layers: one layer's few rows may not flip)."""
+    import torch
+    L, B = routed.shape[:2]
+    chosen = torch.zeros((L, B, gplan.E), dtype=torch.bool,
+                         device=routed.device)
+    chosen.scatter_(2, routed.long(), True)
+    budget = max(MAX_FLIPPED_ROWS,
+                 math.ceil(MAX_FLIPPED_ROW_SHARE * int(act.sum())))
+    flips = flipped_rows(gplan, chosen, routing, act, what, budget, ill=ill)
+    planted = None if seed is None else planted_router_fault(
+        gplan, routing, act, what, budget, seed, ill)
+    return chosen, flips, planted, budget
+
+
+def tp_moe_setup(cfg, params, n, mode, B, gen, dev):
+    """tp_setup for a TP_MOE_CASES case: B = 8 with the MoE megakernel
+    check's lens, B = 32 with longer ones and slot 17 inactive."""
+    if B == DECODE_BATCH:
+        lens, inactive = MK_LENS, MK_INACTIVE
+    else:
+        lens, inactive = [(37 + 61 * i) % 1500 + 1 for i in range(B)], 17
+    return tp_setup(cfg, params, n, mode, gen, dev, B=B, lens=lens,
+                    inactive=inactive)
+
+
+def check_tp_moe_case(cfg, params, n, mode, B, gen, dev, timing):
+    """The moe segment of every rank against its plain version, the whole
+    TP forward against tp_decode_ref and the single-device MoE megakernel;
+    with `timing`, ms per launch of the moe segment and per TP step."""
+    import dataclasses
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    s = tp_moe_setup(cfg, params, n, mode, B, gen, dev)
+    lens = s["lens"]
+    plan, packs, st, caches = s["plan"], s["packs"], s["st"], s["caches"]
+    mode, L = s["mode"], plan.L
+    E_g = cfg.moe.num_experts
+    check(plan.E == E_g // n and plan.E_global == E_g and
+          not tpk.cuda_kernel_gaps(plan),
+          f"tp MoE plan: E {plan.E}/{plan.E_global}, gaps "
+          f"{tpk.cuda_kernel_gaps(plan)}")
+    gplan = dataclasses.replace(plan, E=E_g)        # routes over all experts
+    what0 = f"tp MoE n={n} {mode.value} B={B}"
+    act = st["active"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 31 + n + B)
+    err, attn_err, seg_flips = 0.0, 0.0, 0
+    step = (st["cos"], st["sin"], st["pt"], st["lens"], st["active"])
+    for r in range(n):
+        add = torch.randn((B, plan.hid), generator=g, device=dev) * 0.5
+        for l in (0, L - 1):
+            # the attn segment at this model's shapes (16 KV heads over the
+            # ranks), as check_tp_segment_case holds it
+            what = f"{what0} attn rank {r} layer {l}"
+            x = s["x0"].float()
+            xs = {True: x.clone(), False: x.clone()}
+            cs_ = {True: caches[r].clone(), False: caches[r].clone()}
+            out = {True: tpk.tp_attn_segment(plan, packs[r], l, xs[True],
+                                             *step, cs_[True], add=add)}
+            tpk.check_status(plan, dev)
+            out[False] = tpk.attn_segment_ref(plan, packs[r], l, xs[False],
+                                              *step, cs_[False], add=add)
+            check(bool((xs[True] == xs[False]).all()),
+                  f"{what}: x + add differs")
+            attn_err = max(attn_err, held_rows(out[True], out[False], act,
+                                               what))
+            check_written_pool(what, mode, cs_[True], cs_[False], caches[r],
+                               tp_written(s, (l,), dev), L, dev)
+            del cs_
+            what = f"{what0} moe rank {r} layer {l}"
+            xs = {k: x.clone() for k in ("k", "p", "f")}
+            out_k = tpk.tp_moe_segment(plan, packs[r], l, xs["k"], r, act,
+                                       add=add)
+            tpk.check_status(plan, dev)
+            routed = tpk.kernel_routing(plan, dev, r)[l].clone()
+            routing = []
+            out_p = tpk.moe_segment_ref(plan, packs[r], l, xs["p"], r,
+                                        add=add, routing=routing)
+            out_f = tpk.moe_segment_ref(plan, packs[r], l, xs["f"], r,
+                                        add=add, forced_routing=routed)
+            torch.cuda.synchronize()
+            check(bool((xs["k"] == xs["p"]).all()), f"{what}: x + add "
+                  "differs")
+            err = max(err, held_rows(out_k, out_f, act,
+                                     f"{what} (the plain version routed as "
+                                     "the kernel)"))
+            _, flips, _, _ = tp_moe_flips(gplan, routed[None], routing, act,
+                                          what)
+            held = act.clone()
+            for b, *_ in flips:
+                held[b] = False
+            held_rows(out_k, out_p, held, what)
+            seg_flips += len(flips)
+    # the whole forward: CUDA-graph replay of the kernels' forward (the
+    # pools are cloned one check at a time: B = 32's are 6.4 GB a copy)
+    devices = s["mesh"].devices
+    ck = [c.clone() for c in caches]
+
+    def fwd():
+        return tpk.tp_decode(plan, packs, s["x0"], *step, ck, devices)
+
+    fwd()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits_k = fwd()
+    graph.replay()
+    tpk.check_status(plan, dev)
+    logits_k = logits_k.clone()
+    del graph
+    routed = [tpk.kernel_routing(plan, dev, r).clone() for r in range(n)]
+    check(all(bool((rt_ == routed[0]).all()) for rt_ in routed),
+          f"{what0}: the ranks routed differently")
+    what = f"{what0} forward"
+    written = tp_written(s, range(L), dev)
+    before = full_pool(caches)
+    kfull = full_pool(ck)
+    del ck
+    # routed as the kernel: every active row held (forced_routing_check's
+    # rules)
+    cf = [c.clone() for c in caches]
+    norms = []
+    ref = tpk.tp_decode_ref(plan, packs, s["x0"], *step, cf, devices,
+                            forced_routing=routed[0], resid_norms=norms)
+    torch.cuda.synchronize()
+    ffull = full_pool(cf)
+    del cf
+    failed = []
+    try:
+        forced = hold_routed_rows(L, cfg.num_kv_heads, mode, kfull,
+                                  logits_k, ffull, ref, norms, before,
+                                  written, st, lens, [],
+                                  f"{what} (the plain version routed as the "
+                                  "kernel)", dev, after_ill=True)
+    except SmokeFailure as e:         # reported after the checks below
+        failed.append(e)
+        forced = None
+    del ffull
+    # [L, B]: a layer past layer 0 that a row enters with its residual RMS
+    # below ILL_NORM_SHARE of the median
+    rows = [b for b in range(B) if bool(act[b])]
+    share = torch.stack(norms)
+    ill = share / share[:, rows].median(1).values[:, None] < ILL_NORM_SHARE
+    ill[0] = False
+    # unforced: the rows the kernel routes otherwise capped, the rest held
+    cp = [c.clone() for c in caches]
+    routing = []
+    logits_p = tpk.tp_decode_ref(plan, packs, s["x0"], *step, cp, devices,
+                                 routing=routing)
+    del cp
+    chosen, flips, planted, budget = tp_moe_flips(
+        gplan, routed[0], routing, act, what, SEED + 43, ill)
+    held = act.clone()
+    for b, *_ in flips:
+        held[b] = False
+    f_err = held_rows(logits_k, logits_p, held, what)
+    # the single-device MoE megakernel on the same weights and state
+    plan1, pack1 = mk_plan_pack(cfg, params, B, mode)
+    c1 = before.clone()
+    logits_1 = mk.decode_megakernel(plan1, pack1, s["x0"], *step, c1)
+    mk.check_status(plan1, dev)
+    chosen1 = torch.zeros_like(chosen)
+    chosen1.scatter_(2, mk.kernel_routing(plan1, dev).long(), True)
+    what1 = f"{what0} forward vs the single-device megakernel"
+    flips1 = flipped_rows(gplan, chosen, routing, act, what1, budget,
+                          chosen_ref=chosen1, ill=ill)
+    vs1 = hold_routed_rows(L, cfg.num_kv_heads, mode, kfull, logits_k, c1,
+                           logits_1, norms, before, written, st, lens,
+                           flips1, what1, dev, skip=[b for b, *_ in flips1])
+    if failed:
+        raise failed[0]
+    kept = act.clone()
+    for b, *_ in flips1:
+        kept[b] = False
+    m_same = check_argmax(logits_k, logits_1, kept, vs1["max_abs_err"],
+                          what1)
+    row = dict(n=n, mode=mode.value, B=B, segment_err=err,
+               attn_segment_err=attn_err, segment_flips=seg_flips,
+               forward_err=f_err, forward_flips=flips,
+               forward_planted=planted, forced=forced,
+               vs_megakernel=vs1, vs_megakernel_flips=flips1,
+               vs_megakernel_argmax_equal=m_same,
+               geometry=tpk.launch_geometry(plan, dev))
+    print(f"{what0}: attn segment max|d| {attn_err:.3e}, moe segment "
+          f"max|d| {err:.3e} (routed as the kernel; {seg_flips} rows routed "
+          f"otherwise by the unforced plain version over the ranks and "
+          f"layers); forward (graph replay) vs plain {f_err:.3e} (flips "
+          f"{flips}, planted {planted}), routed as the kernel "
+          f"{forced['max_abs_err']:.3e}, vs the single-device megakernel "
+          f"{vs1['max_abs_err']:.3e} (rows routed otherwise {flips1}, "
+          f"argmax equal {m_same}); geometry {row['geometry']}", flush=True)
+    del kfull, before
+    if timing:
+        row.update(tp_timing(cfg, s, plan1, pack1, c1, step, dev))
+    del c1, pack1
+    return row
+
+
+def check_tp_moe(cfg, params, dev, details):
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 37)
+    rows = []
+    for i, (n, mode, B) in enumerate(TP_MOE_CASES):
+        rows.append(check_tp_moe_case(cfg, params, n, mode, B, gen, dev,
+                                      timing=i == 0))
+        torch.cuda.empty_cache()
+    details["tp_moe"] = rows
+    t = rows[0]["segments"]["moe"]
+    return dict(max_abs_err=max(r["segment_err"] for r in rows),
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None,
+                shape="n = 2, rank 0, layer 0, B = 8, INT8",
+                tp_forward_ms=rows[0]["tp_forward_ms"],
+                megakernel_ms=rows[0]["megakernel_ms"])
+
+
+def check_serving_tp_moe(params, cfg, dev, details, single_tokens):
+    """Qwen1.5-MoE on a (1, 2) mesh with serve()'s traffic: every flag at
+    its default (decode through the attn and moe segments, every prefill
+    per-op TP with the ranks' experts through the grouped kernel) and
+    per-op (24 tokens a request); the greedy requests' first 8 tokens equal
+    to the single-device MoE serving's on the same path in the same run
+    (for the default flags the single-device serving whose prefills are
+    per-op too: DI_PREFILL_MEGAKERNEL=0)."""
+    import torch
+    devices = tp_devices(dev)
+    out = {}
+    for path, new_tokens, ref in (("tp", 64, "megakernel prefill per-op"),
+                                  ("tp per-op", 24, "per-op")):
+        launches, tokens, _ = serve(params, dev, details, path, new_tokens,
+                                    cfg, devices=devices)
+        for i, (a, b) in enumerate(zip(tokens, single_tokens[ref])):
+            if i % 2:
+                continue                # sampled
+            n = min(len(a), len(b))
+            same = next((j for j in range(n) if a[j] != b[j]), n)
+            print(f"MoE greedy request prompt={PROMPT_LENS[i]}: {path} and "
+                  f"single-device serving ({ref}) agree on the first {same} "
+                  f"of {n} tokens compared", flush=True)
+            check(same >= 8, f"MoE greedy request (prompt "
+                  f"{PROMPT_LENS[i]}): {path} and single-device serving "
+                  f"agree on only {same} tokens")
+        out[path] = launches
+    reqs = details["serving_qwen1.5-moe_tp"]["requests"]
+    steps = [r["decode_ms_per_step"] for r in reqs]
+    details["tp_moe_serving_summary"] = dict(
+        ttft_ms=max(r["ttft_ms"] for r in reqs),
+        ms_per_step=(min(steps), max(steps)))
+    print(f"qwen1.5-moe tp: TTFT (the six prompts together) "
+          f"{max(r['ttft_ms'] for r in reqs):.1f} ms, decode "
+          f"{min(steps):.2f} .. {max(steps):.2f} ms/step", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
 PHASES = ("quant_matmul", "paged_attention", "grouped_quant_matmul",
           "stream_probe", "probes", "megakernel", "prefill_megakernel",
-          "serve", "decode_logits", "tp_segments", "tp_prefill", "serve_tp")
-MOE_PHASES = ("megakernel", "prefill_megakernel", "serve")
+          "serve", "decode_logits", "tp_segments", "tp_prefill", "serve_tp",
+          "tp_moe", "serve_tp_moe")
+MOE_PHASES = ("megakernel", "prefill_megakernel", "serve", "tp_moe",
+              "serve_tp_moe")
 
 
 def main(argv=None) -> int:
@@ -3044,9 +3471,22 @@ def main(argv=None) -> int:
             if phase("prefill_megakernel", " (Qwen1.5-MoE)"):
                 res["prefill_megakernel_moe"] = check_prefill_megakernel_moe(
                     moe_cfg, moe_params, dev, details)
+            moe_single = None
             if phase("serve", " (Qwen1.5-MoE)"):
-                moe_launches, moe_op_launches = check_serving_moe(
-                    moe_params, moe_cfg, dev, details)
+                moe_launches, moe_op_launches, moe_single = \
+                    check_serving_moe(moe_params, moe_cfg, dev, details,
+                                      prefill_per_op="serve_tp_moe" in only)
+            if phase("tp_moe"):
+                res["tp_moe_segment"] = check_tp_moe(moe_cfg, moe_params,
+                                                     dev, details)
+            if phase("serve_tp_moe"):
+                if moe_single is None:        # --only without serve
+                    moe_single = {p: serve(moe_params, dev, details, p, n,
+                                           moe_cfg)[1]
+                                  for p, n in (("megakernel prefill per-op",
+                                                64), ("per-op", 24))}
+                tp_moe_launches = check_serving_tp_moe(
+                    moe_params, moe_cfg, dev, details, moe_single)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3064,8 +3504,9 @@ def main(argv=None) -> int:
     # serves (the per-op path for the first two, the megakernel path for
     # the third and the fifth, the MoE model's default serving for the
     # grouped GEMM and the megakernels' MoE entries, the (1, 2) mesh's
-    # default serving for the TP segments and the TP prefill segments), and
-    # over the probe tools' own
+    # default serving for the TP segments and the TP prefill segments, the
+    # MoE model's on the (1, 2) mesh for the moe segment), and over the
+    # probe tools' own
     # runs for the fourth and the two probes
     csrc = "dashinfer_tpu_torch/csrc/"
     moe_decode = dict(launches=moe_launches["decode_megakernel"],
@@ -3122,7 +3563,13 @@ def main(argv=None) -> int:
              replaces=f"dashinfer_tpu/ops/pallas/tp_megakernel.py:{line}",
              launches=tp_launches["tp"][f"tp_prefill_{k}_segment"],
              **res[f"tp_prefill_{k}_segment"])
-        for k, line in (("attn", 1374), ("mlp", 1659), ("lm", 1749))]
+        for k, line in (("attn", 1374), ("mlp", 1659), ("lm", 1749))] + [
+        # the (1, 2) mesh's MoE serving with the default flags
+        dict(name="tp_moe_segment", route="cuda",
+             source=csrc + "tp_segments.cu",
+             replaces="dashinfer_tpu/ops/pallas/tp_megakernel.py:951",
+             launches=tp_moe_launches["tp"]["tp_moe_segment"],
+             **res["tp_moe_segment"])]
     for k in kernels:
         check_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")

@@ -1,11 +1,12 @@
 // Tensor-parallel decode segments, sm_90a: one layer's attention, one
-// layer's MLP, and the final norm + lm_head of ONE rank of a model axis,
-// each one persistent kernel launch.
+// layer's MLP (or MoE MLP), and the final norm + lm_head of ONE rank of a
+// model axis, each one persistent kernel launch.
 //
 // Replaces: dashinfer_tpu/ops/pallas/tp_megakernel.py `build_attn_segment`,
-// `build_mlp_segment` and `build_lm_segment` (dense models; RoPE, optional
-// q/k/v bias, KV pool DEFAULT / INT8 / UINT4, weight streams u4 group-wise,
-// int8 group-wise or per-channel, bf16).
+// `build_mlp_segment`, `build_moe_mlp_segment` and `build_lm_segment`
+// (RoPE, optional q/k/v bias, KV pool DEFAULT / INT8 / UINT4, weight streams
+// u4 group-wise, int8 group-wise or per-channel, bf16; dense or
+// Qwen1.5/2-MoE layers).
 //
 // What they compute. The decode megakernel's layer body (csrc/megakernel.cu)
 // cut at the two points where the ranks' partial sums must be all-reduced:
@@ -17,24 +18,43 @@
 //         rank's rows of the o weight => the o partial [B, hid] f32;
 //   mlp   x += add (the reduced o partials); RMSNorm; gate|up (a column
 //         share); SwiGLU; down over the rank's rows => the down partial;
+//   moe   x += add (the reduced o partials); RMSNorm; the router product
+//         over the GLOBAL router (every rank computes all E lanes and the
+//         shared expert's gate lane, so every rank routes alike); the gates
+//         (softmax over all E experts, top-k, renormalisation, the shared
+//         gate's sigmoid), recorded; the experts of the rank's group
+//         [e0, e0 + E/n) that some active row routes to, renumbered to the
+//         rank's stack; their gate|up and the rank's slice of the shared
+//         expert; SwiGLU; down => the moe partial [B, hid] f32: per row its
+//         experts of the group times their gates (ascending), then the
+//         shared slice times its gate. The TPU kernel streams every expert
+//         of the group and multiplies the unrouted ones by 0: the same
+//         function;
 //   lm    x += add; the final RMSNorm; lm_head over the rank's vocab shard
 //         => its logits [B, Vp / n] f32 (padded columns included).
 // The all-reduces run between the launches (parallel/collectives.py); x,
 // the rank's f32 residual, stays on the card and is updated in place. The
-// phases are di_layer.cuh's, the products di_product.cuh's, so the rounding
-// points are the megakernel's.
+// phases are di_layer.cuh's and di_moe_layer.cuh's, the products
+// di_product.cuh's, so the rounding points are the megakernel's.
 //
 // What bounds them on the H100: bytes. A rank's launch reads its share of
 // one layer's weights once (Qwen2-7B a16w4 at n = 2: ~7.8 MB attn, ~54 MB
-// mlp, ~145 MB lm) and its K/V of the active slots; at B <= 64 the dots do
-// at most 256 operations a weight byte.
+// mlp, ~145 MB lm; Qwen1.5-MoE at n = 2: the global router 0.5 MB, the
+// routed experts of the rank's 30, ~4.9 MB each (4.3 MB of u4 payload and
+// its qparams), and 9.7 MB of shared slice) and its K/V of the active
+// slots; at B <= 64 the dots do at most
+// 256 operations a weight byte.
 //
 // What the design does about it: the products stream the fragment-ordered
 // pack with the megakernel's cp.async pipeline, split-K over every block of
 // a grid of all co-resident blocks; the phases are separated by the grid
 // barrier (attn: resid, norm, q|k|v, attention, merge, o; mlp: resid,
-// norm, gate|up, SwiGLU, down; lm: resid, norm), and a last phase sums the
-// o / down product's K splits into the partial. The attn segment's bytes
+// norm, gate|up, SwiGLU, down; moe: resid, norm, router, gates, gate|up,
+// SwiGLU, down; lm: resid, norm), and a last phase sums the o / down
+// product's K splits into the partial (moe: with the gates). The moe
+// segment reads only the routed experts of its group, as the megakernel's
+// MoE branch does, and builds their list on the card (no host sync: the
+// forward stays one CUDA graph). The attn segment's bytes
 // are few (~2.6 us at the card's rate), so its time is set by the launch
 // and its five barriers, not by memory. Its attention phase has B x KH/n x
 // stripes items: the stripe count rises to fill the grid (at most 16 a
@@ -42,18 +62,20 @@
 // the grid at B = 8, and at n = 4 (1 KV head) half of it; a stripe per
 // (slot, KV head) pair is the limit at long contexts, as in the megakernel.
 
-#include "di_layer.cuh"
+#include "di_moe_layer.cuh"
 
 namespace {
 
 using namespace di;
 
-enum SegKind { kAttnSeg = 0, kMlpSeg = 1, kLmSeg = 2 };
+enum SegKind { kAttnSeg = 0, kMlpSeg = 1, kLmSeg = 2, kMoeSeg = 3 };
 
 struct Seg {
   const float* add;   // [B, hid] added to x first, or null
-  float* out;         // attn / mlp: the partial [B, hid]; lm: logits [B, ldo]
+  float* out;         // attn / mlp / moe: the partial [B, hid]; lm: logits
+                      // [B, ldo]
   int layer;
+  int e0, ne;         // moe: the rank's experts are global e0 .. e0 + ne - 1
 };
 
 // out[m][i] = the sum of a product's K-split partials (a partial row is
@@ -70,6 +92,70 @@ __device__ void sum_splits(const Args& a, const Stream& st, float* out) {
   }
 }
 
+// The rank's experts that some active row routes to (its group of the
+// layer's routing record, renumbered from e0), ascending, into `list`
+// (shared memory; every block builds the same list). Returns their count.
+__device__ __noinline__ int group_routed_experts(const Args& a, int layer,
+                                                 int e0, int ne, int* list,
+                                                 unsigned* flags,
+                                                 int* count) {
+  const int* topk = a.topk_e + (size_t)layer * a.B * kMaxTopk;
+  for (int i = threadIdx.x; i < kMaxLanes / 32; i += kThreads) flags[i] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < a.B * a.k_top; i += kThreads) {
+    const int b = i / a.k_top;
+    const int e = __ldcg(topk + b * kMaxTopk + i % a.k_top) - e0;
+    if (a.active[b] && e >= 0 && e < ne)
+      atomicOr(flags + (e >> 5), 1u << (e & 31));
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int w = 0; w < kMaxLanes / 32; ++w)
+      for (unsigned bits = flags[w]; bits != 0; bits &= bits - 1)
+        list[n++] = w * 32 + __ffs(bits) - 1;
+    *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// The moe partial: out[m][i] = the sum over row m's routed experts of the
+// group (ascending global ids, an inactive row's none) of gate x the down
+// product's K splits, then the shared slice's K splits (in `a.partial`,
+// rows hid wide) times the shared gate, as moe_resid_phase adds them.
+__device__ void moe_out_phase(const Args& a, const Seg& g) {
+  const size_t route = (size_t)g.layer * a.B;
+  const Stream& edn = a.st[kDn];
+  const size_t edn_gs = (size_t)edn.ksplit * a.B * a.hid;
+  const int ssplit = a.has_shared ? a.st[kSdn].ksplit : 0;
+  const int n = a.B * a.hid;
+  for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < n;
+       idx += gridDim.x * kThreads) {
+    const int m = idx / a.hid, i = idx - m * a.hid;
+    float acc = 0.f;
+    if (a.active[m]) {
+      for (int j = 0; j < a.k_top; ++j) {
+        const int e = __ldcg(a.topk_e + (route + m) * kMaxTopk + j) - g.e0;
+        if (e < 0 || e >= g.ne) continue;
+        const float gw = __ldcg(a.topk_w + (route + m) * kMaxTopk + j);
+        const float* p = a.epart + (size_t)e * edn_gs + (size_t)m * a.hid + i;
+        float y = 0.f;
+        for (int s = 0; s < edn.ksplit; ++s)
+          y += __ldcg(p + (size_t)s * a.B * a.hid);
+        acc += gw * y;
+      }
+    }
+    if (a.has_shared) {
+      float y = 0.f;
+      for (int s = 0; s < ssplit; ++s)
+        y += __ldcg(a.partial + ((size_t)s * a.B + m) * a.hid + i);
+      acc += __ldcg(a.sgate + route + m) * y;
+    }
+    g.out[idx] = acc;
+  }
+}
+
 template <int MT, int KIND>
 __global__ void __launch_bounds__(kThreads, MT == 1 ? 2 : 1)
 seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
@@ -79,7 +165,8 @@ seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
   const int l = g.layer;
   const float* w = KIND == kLmSeg
                        ? a.final_norm
-                       : a.norms + (size_t)(2 * l + (KIND == kMlpSeg)) * a.hid;
+                       : a.norms + (size_t)(2 * l + (KIND != kAttnSeg)) *
+                                       a.hid;
   int phase = 0;
   resid_phase(a, g.add, g.add != nullptr ? 1 : 0, false, w, fsmem);
   grid_barrier(a, phase++);
@@ -103,6 +190,30 @@ seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
     product<MT>(a, kDn, l, a.partial, smem);
     grid_barrier(a, phase++);
     sum_splits(a, a.st[kDn], g.out);
+  } else if constexpr (KIND == kMoeSeg) {
+    // the rank's routed experts' list, built once in every block
+    __shared__ int s_experts[kMaxLanes];
+    __shared__ unsigned s_flags[kMaxLanes / 32];
+    __shared__ int s_nused;
+    product<MT>(a, kRt, l, a.partial, smem);
+    grid_barrier(a, phase++);
+    gates_phase(a, l);
+    grid_barrier(a, phase++);
+    const int nused =
+        group_routed_experts(a, l, g.e0, g.ne, s_experts, s_flags, &s_nused);
+    const Stream& eg = a.st[kGu];
+    product_experts<MT>(a, kGu, l, a.epart, smem, a.rec, s_experts, nused, 0,
+                        (size_t)eg.ksplit * a.B * eg.ntot);
+    if (a.has_shared) product<MT>(a, kSgu, l, a.partial, smem);
+    grid_barrier(a, phase++);
+    moe_act_phase(a, s_experts, nused);
+    grid_barrier(a, phase++);
+    product_experts<MT>(a, kDn, l, a.epart, smem, a.erec, s_experts, nused,
+                        (size_t)(a.inter / kChunkK) * rec_bytes(a.mpad),
+                        (size_t)a.st[kDn].ksplit * a.B * a.hid);
+    if (a.has_shared) product<MT>(a, kSdn, l, a.partial, smem);
+    grid_barrier(a, phase++);
+    moe_out_phase(a, g);
   } else {
     product<MT>(a, kLm, 0, g.out, smem);
   }
@@ -122,9 +233,12 @@ int per_sm(int smem) {
 
 template <int MT>
 int per_sm_of(int kind, int smem) {
-  return kind == kAttnSeg ? per_sm<MT, kAttnSeg>(smem)
-                          : (kind == kMlpSeg ? per_sm<MT, kMlpSeg>(smem)
-                                             : per_sm<MT, kLmSeg>(smem));
+  switch (kind) {
+    case kAttnSeg: return per_sm<MT, kAttnSeg>(smem);
+    case kMlpSeg: return per_sm<MT, kMlpSeg>(smem);
+    case kMoeSeg: return per_sm<MT, kMoeSeg>(smem);
+    default: return per_sm<MT, kLmSeg>(smem);
+  }
 }
 
 template <int MT, int KIND>
@@ -137,17 +251,18 @@ void launch(const Args& a, const Seg& g, int grid, int smem, cudaStream_t s) {
 template <int MT>
 void launch_of(int kind, const Args& a, const Seg& g, int grid, int smem,
                cudaStream_t s) {
-  if (kind == kAttnSeg)
-    launch<MT, kAttnSeg>(a, g, grid, smem, s);
-  else if (kind == kMlpSeg)
-    launch<MT, kMlpSeg>(a, g, grid, smem, s);
-  else
-    launch<MT, kLmSeg>(a, g, grid, smem, s);
+  switch (kind) {
+    case kAttnSeg: launch<MT, kAttnSeg>(a, g, grid, smem, s); break;
+    case kMlpSeg: launch<MT, kMlpSeg>(a, g, grid, smem, s); break;
+    case kMoeSeg: launch<MT, kMoeSeg>(a, g, grid, smem, s); break;
+    default: launch<MT, kLmSeg>(a, g, grid, smem, s); break;
+  }
 }
 
 }  // namespace
 
-// The largest grid of segment `kind` (0 attn, 1 mlp, 2 lm) whose blocks are
+// The largest grid of segment `kind` (0 attn, 1 mlp, 2 lm, 3 moe) whose
+// blocks are
 // all resident at once on `device` for a batch padded to `mpad` rows.
 // Returns 0 on error.
 extern "C" int di_tp_segment_grid(int device, int mpad, int hid, int kind) {
@@ -165,20 +280,30 @@ extern "C" int di_tp_segment_grid(int device, int mpad, int hid, int kind) {
 
 // One segment launch of layer `layer`. `ia` is di_megakernel's (IArg order,
 // then the streams) with x at I_RESID, the output at I_LOGITS, and after
-// the streams the address of `add` (0: none); `fa` = {rms eps, attention
-// scale}. Shapes and types are validated by the caller
-// (ops/tp_megakernel.py). Returns cudaGetLastError().
+// the streams the address of `add` (0: none), then a moe segment's first
+// expert and expert count (its E argument is every rank's E, its topk /
+// sgate records the rank's); `fa` = {rms eps, attention scale}. Shapes and
+// types are validated by the caller (ops/tp_megakernel.py). Returns
+// cudaGetLastError().
 extern "C" int di_tp_segment(int kind, int layer, const long long* ia,
                              const double* fa, void* stream) {
   Args a;
   fill_args(a, ia, fa);
   Seg g;
-  g.add = ptr<const float>(ia[I_STREAMS + kStreams * kStreamArgs]);
+  const long long* tail = ia + I_STREAMS + kStreams * kStreamArgs;
+  g.add = ptr<const float>(tail[0]);
   g.out = a.logits;
   g.layer = layer;
-  if (kind < kAttnSeg || kind > kLmSeg || a.E != 0 || a.skip_attn ||
-      a.split_len != kAttUnit || a.nsplit < 1 || a.nsplit > kMaxStripes ||
-      layer < 0 || layer >= a.L)
+  g.e0 = (int)tail[1];
+  g.ne = (int)tail[2];
+  if (kind < kAttnSeg || kind > kMoeSeg || (a.E != 0) != (kind == kMoeSeg) ||
+      a.skip_attn || a.split_len != kAttUnit || a.nsplit < 1 ||
+      a.nsplit > kMaxStripes || layer < 0 || layer >= a.L)
+    return (int)cudaErrorInvalidValue;
+  if (kind == kMoeSeg &&
+      (a.E + a.has_sgate > kMaxLanes || a.k_top < 1 || a.k_top > kMaxTopk ||
+       a.inter % kChunkK || a.shared_inter % kChunkK || g.e0 < 0 ||
+       g.ne < 1 || g.e0 + g.ne > a.E || a.hid % 256))
     return (int)cudaErrorInvalidValue;
   const int grid = (int)ia[I_GRID];
   const int mt = a.mpad > 16 ? 2 : 1;

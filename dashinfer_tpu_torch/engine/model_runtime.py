@@ -17,12 +17,14 @@ On a `(1, n)` mesh (the counterpart of the JAX runtime's mesh install) the
 params are split per rank (parallel/sharding.py), each rank holds a KV pool
 of its KV heads, and decode runs through the TP segment kernels
 (ops/tp_megakernel.py) when `supports_tp` admits the model, else through
-the per-op TP forward. With the TP segments installed, a fresh prompt whose
+the per-op TP forward (a MoE model: the attn and moe segments, its experts
+split over the ranks). With the TP segments installed, a fresh prompt whose
 bucket is a multiple of 128 up to 1024 (and that `supports_prefill_tp`
-admits) is prefilled through the TP prefill segments, which read each
-rank's TP decode pack; other buckets, and DI_PREFILL_MEGAKERNEL=0, prefill
-per-op TP. The two single-device megakernels never run on a mesh, and the
-weights stay resident as "both".
+admits: not a MoE model) is prefilled through the TP prefill segments,
+which read each rank's TP decode pack; other buckets, a MoE model, and
+DI_PREFILL_MEGAKERNEL=0, prefill per-op TP. The two single-device
+megakernels never run on a mesh, and the weights stay resident as
+"both".
 
 Page accounting: the allocator hands out LOGICAL pages; logical page `g`
 owns physical pages `g*L + l` for each layer l.
@@ -260,12 +262,16 @@ class ModelRuntime:
         trees, each on its device), `supports_tp`, then the local plan and
         one pack a rank, and the TP prefill plans; the pools come after the
         pool plan. A model that `supports_tp` turns down decodes and
-        prefills per-op TP; MoE on a mesh raises."""
+        prefills per-op TP. A MoE model's experts split over the ranks
+        (parallel/sharding.py; NotImplementedError when they do not
+        divide), and it prefills per-op TP at every bucket."""
         rt, cfg, mesh = self.rt, self.cfg, self.mesh
-        if cfg.moe is not None:
-            raise NotImplementedError("a MoE model on a mesh is not ported "
-                                      "to the PyTorch package yet")
         collectives.log_choice(mesh)
+        if cfg.moe is not None and not rt.use_ep:
+            logger.info("MoE on a mesh: the experts split over the %d ranks "
+                        "(%d a rank) although use_ep is off: the port splits "
+                        "them so on both TP paths (parallel/sharding.py)",
+                        mesh.n, cfg.moe.num_experts // mesh.n)
         t0 = time.monotonic()
         full = self.params
         self.params = sharding.shard_params(full, cfg, mesh)
@@ -294,7 +300,7 @@ class ModelRuntime:
             return
         plan, packs = tpk.make_tp_plan(cfg, rt, parts)
         if self.device.type == "cuda":
-            gaps = mk.cuda_kernel_gaps(plan)
+            gaps = tpk.cuda_kernel_gaps(plan)
             if gaps:
                 logger.warning("TP segments: the CUDA kernels do not take "
                                "this model (%s); decode runs the per-op TP "
@@ -311,7 +317,10 @@ class ModelRuntime:
             plan.weight_bytes / 1024**3,
             sum(mk.packed_extra_bytes(p, r) for p, r in
                 zip(packs, parts)) / 1024**3)
-        if EnvConfig.prefill_megakernel_enabled():
+        if cfg.moe is not None:
+            logger.info("MoE on a mesh: every prefill runs per-op TP (the "
+                        "TP prefill segments compute a dense MLP)")
+        elif EnvConfig.prefill_megakernel_enabled():
             self._install_tp_prefill(view, parts[0])
 
     # -- megakernel install ---------------------------------------------------

@@ -19,11 +19,13 @@ prefill megakernel (ops/prefill_megakernel.py), run eagerly.
 
 On a model axis (the ranks' devices given as `devices`) the params, the
 pool and the forward are the ranks': the decode forward is the TP segments
-(ops/tp_megakernel.py) when a TP plan is given, else the per-op TP forward
-of models/transformer.py; a prefill step built with a local prefill plan
+(ops/tp_megakernel.py; a MoE model's moe segment in place of the mlp one,
+its expert list built on the card, so the forward stays one CUDA graph)
+when a TP plan is given, else the per-op TP forward of
+models/transformer.py; a prefill step built with a local prefill plan
 (`tp_mega`) runs the TP prefill segments, one attn and one mlp launch a
 rank and layer and one lm launch a rank, eagerly, and any other prefill
-the per-op TP forward. The decode state and the sampler stay on rank 0's
+(a MoE model's, at every bucket) the per-op TP forward. The decode state and the sampler stay on rank 0's
 device.
 """
 
@@ -227,8 +229,8 @@ def _tp_megakernel_forward(cfg: ModelConfig, plan, params,
     """One decode forward through the TP segments (the counterpart of the
     JAX `_tp_megakernel_forward`): the embedding gather and the RoPE tiles
     on rank 0's device, then per layer every rank's attn segment, an
-    all-reduce, every rank's mlp segment, an all-reduce; then every rank's
-    lm segment and the gather (ops/tp_megakernel.py `tp_decode`). params
+    all-reduce, every rank's mlp (or moe) segment, an all-reduce; then
+    every rank's lm segment and the gather (ops/tp_megakernel.py `tp_decode`). params
     is {"packs": one pack a rank, "embed": [V, hid]}. Returns logits
     [B, vocab] f32."""
     x0 = params["embed"][state.token_ids.long()].to(torch.bfloat16)

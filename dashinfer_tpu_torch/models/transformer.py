@@ -15,7 +15,9 @@ explicit loop over the ranks. Each layer runs every rank's attention half
 on its own params and pool (parallel/sharding.py), an all-reduce of the o
 partials, every rank's MLP half, an all-reduce of the down partials
 (parallel/collectives.py); then the lm_head on each vocab shard and the
-gather. The partials are summed in f32.
+gather. The partials are summed in f32. A MoE layer's MLP half is each
+rank's share of `moe_block` (its experts, routed over all of them, and its
+slice of the shared expert).
 Architectures whose layer math this port does not have yet (ALiBi, learned
 positions, GLM, scaled RoPE, QK-norm, MoE models with dense layers, non-gated
 MLPs, tied or soft-capped heads) raise NotImplementedError.
@@ -33,7 +35,7 @@ from dashinfer_tpu_torch.config import (Activation, CacheMode, ModelConfig,
 from dashinfer_tpu_torch.ops import attention as attn_ops
 from dashinfer_tpu_torch.ops import kv_ops
 from dashinfer_tpu_torch.ops.linear import linear
-from dashinfer_tpu_torch.ops.moe import moe_block
+from dashinfer_tpu_torch.ops.moe import moe_block, rank_moe
 from dashinfer_tpu_torch.ops.norms import rms_norm
 from dashinfer_tpu_torch.ops.rotary import (apply_rope, compute_inv_freq,
                                             rope_cos_sin)
@@ -88,9 +90,9 @@ def _qkv(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool):
 
 
 def _mlp(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool,
-         out_dtype=None) -> torch.Tensor:
+         out_dtype=None, rank: int = 0, n: int = 1) -> torch.Tensor:
     if cfg.moe is not None:
-        return moe_block(cfg, x, lp, use_kernel=use_kernel)
+        return moe_block(cfg, x, lp, use_kernel=use_kernel, rank=rank, n=n)
     g = linear(x, lp["gate_proj"], use_kernel=use_kernel)
     u = linear(x, lp["up_proj"], use_kernel=use_kernel)
     return linear(F.silu(g) * u, lp["down_proj"], out_dtype=out_dtype,
@@ -108,10 +110,11 @@ def _attention_half(cfg: ModelConfig, lp: Dict, hidden: torch.Tensor,
 
 
 def _mlp_half(cfg: ModelConfig, lp: Dict, h: torch.Tensor, use_kernel: bool,
-              out_dtype=None) -> torch.Tensor:
-    """RMSNorm and the MLP (or MoE block)."""
+              out_dtype=None, rank: int = 0, n: int = 1) -> torch.Tensor:
+    """RMSNorm and the MLP (or MoE block; on a model axis of n, rank
+    `rank`'s share of it)."""
     x = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    return _mlp(cfg, lp, x, use_kernel, out_dtype)
+    return _mlp(cfg, lp, x, use_kernel, out_dtype, rank, n)
 
 
 def _block(cfg: ModelConfig, lp: Dict, hidden: torch.Tensor, attend,
@@ -255,13 +258,15 @@ def prefill_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 def rank_config(cfg: ModelConfig, n: int) -> ModelConfig:
     """What one rank of n computes on the per-op path: its share of the
-    heads, MLP width and vocab, and its KV heads (all of them when they do
-    not divide among the ranks)."""
+    heads, MLP width and vocab, its KV heads (all of them when they do not
+    divide among the ranks), and a MoE model's experts and shared expert
+    width (`ops.moe.rank_moe`)."""
     return dataclasses.replace(
         cfg, num_heads=cfg.num_heads // n,
         num_kv_heads=rank_kv_heads(cfg, n),
         intermediate_size=cfg.intermediate_size // n,
-        vocab_size=cfg.vocab_size // n)
+        vocab_size=cfg.vocab_size // n,
+        moe=None if cfg.moe is None else rank_moe(cfg.moe, n))
 
 
 def _rank_heads(cfg: ModelConfig, n: int, r: int):
@@ -287,7 +292,7 @@ def _tp_layers(cfg: ModelConfig, rank_params: Sequence[Dict],
     hiddens = [h + p.to(h.dtype) for h, p in zip(hiddens, parts)]
     parts = all_reduce_([
         _mlp_half(cfg_r, lps[r], hiddens[r], use_kernel,
-                  out_dtype=torch.float32) for r in range(n)])
+                  out_dtype=torch.float32, rank=r, n=n) for r in range(n)])
     return [h + p.to(h.dtype) for h, p in zip(hiddens, parts)]
 
 

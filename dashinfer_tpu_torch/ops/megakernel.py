@@ -462,6 +462,10 @@ class MegaPlan:
     rt: Optional[StreamPlan] = None
     sgu: Optional[StreamPlan] = None
     sdn: Optional[StreamPlan] = None
+    # a TP plan of a MoE model (ops/tp_megakernel.py): E is the rank's
+    # experts, E_global all of them; the router stream (EP columns) is the
+    # global one, which every rank computes
+    E_global: int = 0
 
     @property
     def kernel_streams(self) -> Tuple[Optional[StreamPlan], ...]:
@@ -576,7 +580,8 @@ def pack_cache_key_fields(plan: MegaPlan) -> tuple:
     """The plan fields the packed arrays depend on: not the batch, the page
     geometry or the KV mode, so those may change under one pack."""
     return (PACK_VERSION, plan.L, plan.hid, plan.H, plan.KH, plan.D, plan.V,
-            plan.has_qkv_bias, plan.E, plan.EP) + plan.kernel_streams
+            plan.has_qkv_bias, plan.E, plan.EP, plan.E_global) + \
+        plan.kernel_streams
 
 
 # Fragment order (csrc/di_product.cuh `Tile`): a payload row index is
@@ -599,16 +604,17 @@ _FRAG = {
 _PAY_BITS = {torch.uint8: 4, torch.int8: 8, torch.bfloat16: 16}
 
 
-def can_pack_payload(pay: torch.Tensor, n: int) -> bool:
-    """Whether a payload of `n` columns goes into the pack: K in 64-row
-    chunks and columns a multiple of 128 (the pack pads them to 256)."""
-    return pay.shape[-2] % CHUNK_K == 0 and n % 128 == 0
+def can_pack_payload(pay: torch.Tensor) -> bool:
+    """Whether a payload goes into the pack: K in 64-row chunks (the pack
+    pads any width to its 256-column tiles)."""
+    return pay.shape[-2] % CHUNK_K == 0
 
 
 def pad_payload(pay: torch.Tensor, n: int) -> torch.Tensor:
     """A loader payload of n columns zero-padded to the next multiple of
     256, in the loader's layout for that width (a u4 payload of n % 256 !=
-    0 holds plain halves; the padded one TILE-128 halves)."""
+    0 holds plain halves, whatever n mod 256 is; the padded one TILE-128
+    halves)."""
     np_ = -(-n // 256) * 256
     if np_ == n:
         return pay
@@ -655,18 +661,18 @@ def packed_leaf(leaf: Dict) -> Dict:
     """One weight leaf of the loader as the pack holds it: the payload in
     fragment order under "w_f" (a copy), scale / zero as they are. Columns
     that are not a multiple of 256 (a vocab or an expert width of 128 mod
-    256) are zero-padded in the pack, payload and scale / zero alike, so the
-    padded columns compute 0; the plan keeps the true width, and the kernels
-    write back only those columns. An expert leaf that the install already
-    padded for the grouped kernel (ops/grouped_quant_matmul.py
+    256, a vocab shard of 64 or 32 mod 128 on a model axis) are
+    zero-padded in the pack, payload and scale / zero alike, so the padded
+    columns compute 0; the plan keeps the true width, and the kernels'
+    callers read only those columns. An expert leaf that the install
+    already padded for the grouped kernel (ops/grouped_quant_matmul.py
     `prepare_grouped_experts`) is packed as it is, sharing its scale /
-    zero. A leaf the kernel cannot take (K % 64 or a width not a multiple
-    of 128: tiny models, which only the plain version runs) keeps the
-    loader's layout."""
+    zero. A leaf the kernel cannot take (K % 64: tiny models, which only
+    the plain version runs) keeps the loader's layout."""
     pay = leaf["w_q"] if "w_q" in leaf else leaf["w"].to(torch.bfloat16)
     out = {k: leaf[k] for k in ("scale", "zero") if k in leaf}
     n = leaf["scale"].shape[-1] if "scale" in leaf else pay.shape[-1]
-    if not can_pack_payload(pay, n):
+    if not can_pack_payload(pay):
         out["w_q" if "w_q" in leaf else "w"] = pay.contiguous()
         return out
     if n % 256:
@@ -694,14 +700,15 @@ def _bf16_rounded_f32(t: torch.Tensor) -> torch.Tensor:
 
 def _router_leaf(plan: MegaPlan, lp: Dict) -> Dict:
     """The router (+ the shared expert's gate as column E) rounded to bf16
-    and zero-padded to EP columns, as the JAX pack holds it."""
+    and zero-padded to EP columns, as the JAX pack holds it. A TP plan's
+    router is the global one (E_global lanes) on every rank."""
     w = lp["router"]["w"]
+    E = plan.E_global or plan.E
     rw = torch.zeros((plan.L, plan.hid, plan.EP), dtype=torch.bfloat16,
                      device=w.device)
-    rw[..., :plan.E] = w.to(torch.bfloat16)
+    rw[..., :E] = w.to(torch.bfloat16)
     if plan.has_shared_gate:
-        rw[..., plan.E:plan.E + 1] = \
-            lp["shared_expert_gate"]["w"].to(torch.bfloat16)
+        rw[..., E:E + 1] = lp["shared_expert_gate"]["w"].to(torch.bfloat16)
     return packed_leaf({"w": rw})
 
 
@@ -768,12 +775,20 @@ MAX_EXPERTS = 512     # router lanes the kernels take (csrc kMaxLanes)
 MAX_TOPK = 8
 
 
-def stream_gaps(sp: StreamPlan) -> List[str]:
+def stream_gaps(sp: StreamPlan, any_lm_width: bool = False) -> List[str]:
     """Why csrc/di_product.cuh cannot run this stream (empty = it can): its
     K chunks are 64 rows deep and its 256-column tiles take any width that
-    is a multiple of 128 (the pack pads it)."""
+    is a multiple of 128 (the pack pads it; the phases after a layer
+    product read whole heads and 64-column chunks). With `any_lm_width`
+    (the TP lm segment, `ops.tp_megakernel.cuda_kernel_gaps`) the lm_head
+    takes any even width: its columns are the logits alone, and a vocab
+    shard of 64 or 32 mod 128 on a model axis has run on the card there;
+    the megakernels and the TP prefill lm segment keep the 128 rule."""
     gaps = []
-    if any(n % 128 for n in sp.N):
+    if any_lm_width and sp.name == "lm":
+        if sp.bits == 4 and any(n % 2 for n in sp.N):
+            gaps.append(f"{sp.name}: u4 columns {sp.N} not even")
+    elif any(n % 128 for n in sp.N):
         gaps.append(f"{sp.name}: columns {sp.N} not multiples of 128")
     if sp.K % CHUNK_K or (sp.gs and sp.gs % CHUNK_K):
         gaps.append(f"{sp.name}: K {sp.K} / group {sp.gs} not multiples "
@@ -781,9 +796,11 @@ def stream_gaps(sp: StreamPlan) -> List[str]:
     return gaps
 
 
-def cuda_kernel_gaps(plan: MegaPlan) -> List[str]:
-    """Why csrc/megakernel.cu cannot run this plan (empty = it can)."""
-    gaps = [g for sp in plan.streams for g in stream_gaps(sp)]
+def cuda_kernel_gaps(plan: MegaPlan, any_lm_width: bool = False
+                     ) -> List[str]:
+    """Why csrc/megakernel.cu cannot run this plan (empty = it can);
+    `any_lm_width` as `stream_gaps`'."""
+    gaps = [g for sp in plan.streams for g in stream_gaps(sp, any_lm_width)]
     if plan.G > 8:
         gaps.append(f"{plan.G} query heads per KV head (kernel takes 8)")
     if plan.D != 128:
@@ -850,8 +867,10 @@ def route(plan, logits: torch.Tensor, forced: Optional[torch.Tensor] = None
     sigmoid(lane E), or 1. `forced` [M, k_top] (expert ids): route each row
     to these experts instead of its k largest, with their gates from the
     same softmax. Returns (gates [M, E] f32, 0 where not routed; shared
-    gate [M] f32, 0 without a shared expert)."""
-    E = plan.E
+    gate [M] f32, 0 without a shared expert). A TP plan routes over all
+    ranks' experts (`E_global`; a PrefillPlan has none: MoE prefills per-op
+    on a mesh)."""
+    E = getattr(plan, "E_global", 0) or plan.E
     ml = logits[:, :E]
     p = torch.exp(ml - ml.max(-1, keepdim=True).values)
     p = p / p.sum(-1, keepdim=True)
@@ -880,25 +899,32 @@ def route(plan, logits: torch.Tensor, forced: Optional[torch.Tensor] = None
 
 
 def moe_ref(plan, x: torch.Tensor, layer: int, mm, routing=None,
-            forced: Optional[torch.Tensor] = None) -> torch.Tensor:
+            forced: Optional[torch.Tensor] = None,
+            first_expert: Optional[int] = None) -> torch.Tensor:
     """The MoE block of one layer as both kernels compute it, from x_norm
     [M, hid] bf16, with `mm(x, stream, layer, expert)` the kernel's product
     -> f32 [M, hid]: sum over experts in ascending order of gate x down(bf16
     SwiGLU(gate|up)), then the shared expert's gate x its output. Experts no
     row routes to are skipped (their gate is 0 everywhere). `routing`, a
     list, receives the layer's f32 router product [M, EP]; `forced` [M,
-    k_top]: the experts each row is routed to (`route`)."""
+    k_top]: the experts each row is routed to (`route`). A TP plan routes
+    over all `E_global` experts and runs only the rank's `E`, those from
+    `first_expert` on (`mm` takes their local index); its shared expert is
+    the rank's slice."""
     logits = mm(x, plan.rt, layer, None)
     gates, sg = route(plan, logits, forced)
     if routing is not None:
         routing.append(logits)
     acc = torch.zeros((x.shape[0], plan.hid), dtype=torch.float32,
                       device=x.device)
+    e0 = first_expert or 0
     for e in torch.nonzero(gates.amax(0) > 0)[:, 0].tolist():
-        gu = mm(x, plan.gu, layer, e)
+        if not e0 <= e < e0 + plan.E:
+            continue
+        gu = mm(x, plan.gu, layer, e - e0)
         g, u = gu[:, :plan.inter], gu[:, plan.inter:]
         act = (g * torch.sigmoid(g) * u).to(torch.bfloat16)
-        acc = acc + gates[:, e:e + 1] * mm(act, plan.dn, layer, e)
+        acc = acc + gates[:, e:e + 1] * mm(act, plan.dn, layer, e - e0)
     if plan.has_shared:
         gu = mm(x, plan.sgu, layer, None)
         g, u = gu[:, :plan.shared_inter], gu[:, plan.shared_inter:]

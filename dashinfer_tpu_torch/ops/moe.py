@@ -22,14 +22,23 @@ that is not in the kernel's layout raises there rather than falling back.
 `DI_MOE_GROUPED=0` turns the kernel off; off the card the port runs what
 the JAX package runs off-TPU: ragged, or the grouped route's plain version
 when `DI_MOE_GROUPED=1`.
+
+On a model axis of n (the per-op TP path, models/transformer.py) each rank
+runs `moe_block(..., rank=r, n=n)` on its tree: the replicated router and
+top-k over all experts, the (token, expert) pairs whose expert is in the
+rank's group kept and renumbered to its stack (the others' weights set to
+0 and their rows computed by no expert), its slice of the shared expert;
+the result is the rank's f32 partial, summed over the ranks by the
+all-reduce. The JAX package computes the same sum through XLA SPMD.
 """
 
+import dataclasses
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-from dashinfer_tpu_torch.config import ModelConfig
+from dashinfer_tpu_torch.config import MoEConfig, ModelConfig
 from dashinfer_tpu_torch.ops import grouped_quant_matmul as gqm
 from dashinfer_tpu_torch.ops.linear import linear
 from dashinfer_tpu_torch.ops.u4pack import weight_levels
@@ -84,16 +93,22 @@ def _use_grouped(lp: Dict, x: torch.Tensor) -> bool:
 
 def _moe_grouped(cfg: ModelConfig, x: torch.Tensor, lp: Dict,
                  topk_p: torch.Tensor, topk_i: torch.Tensor,
-                 use_kernel: bool) -> torch.Tensor:
+                 use_kernel: bool, others: bool = False) -> torch.Tensor:
+    """`others`: pairs of expert id E (another rank's expert) are in
+    topk_i; they sort last, their tiles compute nothing (0 rows) and their
+    rows are dropped."""
     moe = cfg.moe
     T, H = x.shape
     E, Im = moe.num_experts, moe.moe_intermediate_size
     ex = lp["experts"]
     TM = gqm.default_tm()
     order, sorted_token, pos, tile_expert = gqm.build_group_layout(
-        topk_i, E, TM)
+        topk_i, E + others, TM)
     Mcap = tile_expert.shape[0] * TM
     rows = gqm.tile_row_counts(pos, tile_expert.shape[0], TM)
+    if others:
+        rows = torch.where(tile_expert == E, 0, rows)
+        tile_expert = tile_expert.clamp(max=E - 1)
     sorted_w = topk_p.reshape(-1)[order]
     mm = gqm.grouped_quant_matmul if use_kernel else \
         gqm.grouped_quant_matmul_plain
@@ -104,6 +119,8 @@ def _moe_grouped(cfg: ModelConfig, x: torch.Tensor, lp: Dict,
     h = (F.silu(g[:, :Im].float()) * u[:, :Im].float()).to(x.dtype)
     dn = mm(h, tile_expert, ex["down_proj"], tile_rows=rows)
     out = dn[pos, :H] * sorted_w[:, None].to(dn.dtype)
+    if others:
+        out = torch.where((topk_i.reshape(-1)[order] < E)[:, None], out, 0)
     return torch.zeros((T, H), dtype=out.dtype, device=x.device).index_add_(
         0, sorted_token, out)
 
@@ -120,25 +137,64 @@ def _ragged_dot(xs: torch.Tensor, stack: torch.Tensor,
     return out
 
 
+def rank_moe(moe: MoEConfig, n: int) -> MoEConfig:
+    """The port's expert split over a model axis of n, on both TP paths
+    (parallel/sharding.py): each rank holds a contiguous group of E/n
+    experts, each of its full width (`first_expert`), and 1/n of the shared
+    expert's width; the router and the shared expert's gate stay whole.
+    Returns a rank's MoE config; raises NotImplementedError when the
+    experts or the shared width do not divide among the ranks."""
+    if moe.num_experts % n or moe.shared_expert_intermediate_size % n:
+        raise NotImplementedError(
+            f"model axis {n}: the MoE experts ({moe.num_experts}) and the "
+            f"shared expert's width ({moe.shared_expert_intermediate_size}) "
+            "must divide among the ranks (the port splits the experts over "
+            "the ranks)")
+    return dataclasses.replace(
+        moe, num_experts=moe.num_experts // n,
+        shared_expert_intermediate_size=(
+            moe.shared_expert_intermediate_size // n))
+
+
+def first_expert(rank: int, local_experts: int) -> int:
+    """The global id of rank `rank`'s first expert (`rank_moe`'s split;
+    `local_experts`: a rank's count)."""
+    return rank * local_experts
+
+
 def moe_block(cfg: ModelConfig, x: torch.Tensor, lp: Dict,
-              use_kernel: bool = True) -> torch.Tensor:
+              use_kernel: bool = True, rank: int = 0,
+              n: int = 1) -> torch.Tensor:
     """x: [T, hidden]; lp["router"]: {"w": [hidden, E]}; lp["experts"]:
     {"gate_proj"/"up_proj": [E, hidden, Im], "down_proj": [E, Im, hidden]}
     (raw or weight-only-quantized leaves); optional lp["shared_expert"]
     and lp["shared_expert_gate"]. `use_kernel=False` runs the grouped
-    kernel's plain version where the kernel would run."""
+    kernel's plain version where the kernel would run. On a model axis
+    (n > 1): `cfg` is the rank's (its E experts), lp the rank's layer tree
+    (its experts and shared slice, the router of all n E experts); returns
+    rank `rank`'s f32 partial."""
     moe = cfg.moe
     T, H = x.shape
     E, k = moe.num_experts, moe.num_experts_per_tok
     router_logits = x.float() @ lp["router"]["w"].float()
-    probs = torch.softmax(router_logits, dim=-1)               # [T, E]
+    probs = torch.softmax(router_logits, dim=-1)               # [T, n E]
     topk_p, topk_i = torch.topk(probs, k, dim=-1)
     if moe.norm_topk_prob:
         topk_p = topk_p / topk_p.sum(-1, keepdim=True)
+    out_dtype = x.dtype
+    if n > 1:
+        # the rank's pairs, renumbered; the others go to "expert E"
+        e0 = first_expert(rank, E)
+        mine = (topk_i >= e0) & (topk_i < e0 + E)
+        topk_i = torch.where(mine, topk_i - e0, E)
+        topk_p = torch.where(mine, topk_p, 0)
+        out_dtype = torch.float32
 
     if _use_grouped(lp, x):
-        combined = _moe_grouped(cfg, x, lp, topk_p, topk_i, use_kernel)
-        return _with_shared(x, lp, combined, use_kernel).to(x.dtype)
+        combined = _moe_grouped(cfg, x, lp, topk_p, topk_i, use_kernel,
+                                others=n > 1)
+        return _with_shared(x, lp, combined, use_kernel,
+                            out_dtype).to(out_dtype)
 
     flat_expert = topk_i.reshape(-1)
     flat_token = torch.arange(T, device=x.device).repeat_interleave(k)
@@ -160,17 +216,25 @@ def moe_block(cfg: ModelConfig, x: torch.Tensor, lp: Dict,
     out = out * sorted_w[:, None].to(out.dtype)
     combined = torch.zeros((T, H), dtype=out.dtype,
                            device=x.device).index_add_(0, sorted_token, out)
-    return _with_shared(x, lp, combined, use_kernel).to(x.dtype)
+    return _with_shared(x, lp, combined, use_kernel,
+                        out_dtype).to(out_dtype)
 
 
 def _with_shared(x: torch.Tensor, lp: Dict, combined: torch.Tensor,
-                 use_kernel: bool) -> torch.Tensor:
+                 use_kernel: bool, out_dtype=None) -> torch.Tensor:
+    """combined + the shared expert's output times its gate; `out_dtype`
+    (f32: a rank's partial): the down product's and the sum's type."""
+    if out_dtype == x.dtype:
+        out_dtype = None
+    if out_dtype is not None:
+        combined = combined.to(out_dtype)
     if "shared_expert" not in lp:
         return combined
     se = lp["shared_expert"]
     sg = F.silu(linear(x, se["gate_proj"], use_kernel=use_kernel)) * \
         linear(x, se["up_proj"], use_kernel=use_kernel)
-    shared = linear(sg, se["down_proj"], use_kernel=use_kernel)
+    shared = linear(sg, se["down_proj"], out_dtype=out_dtype,
+                    use_kernel=use_kernel)
     if "shared_expert_gate" in lp:
         gate = torch.sigmoid(x.float() @
                              lp["shared_expert_gate"]["w"].float())

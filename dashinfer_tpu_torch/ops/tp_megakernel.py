@@ -1,8 +1,8 @@
 """Tensor parallelism: the per-rank split of the weights, the local plan,
-the three decode segment kernels and the three prefill segment kernels of
+the four decode segment kernels and the three prefill segment kernels of
 one rank.
 
-Counterpart of `dashinfer_tpu.ops.pallas.tp_megakernel` (dense models).
+Counterpart of `dashinfer_tpu.ops.pallas.tp_megakernel`.
 The whole-model decode megakernel adds the residual between layers inside
 one launch, which a model axis cannot do: after the o product and after the
 down product the ranks' partial sums must be summed first. So each layer is
@@ -19,6 +19,13 @@ cut there into two segment launches a rank, with an all-reduce after each:
   lm segment:     x += add; final rms -> lm_head over the rank's vocab shard
   logits = gather of the shards
 
+A MoE layer (Qwen1.5/2-MoE) runs the moe segment in place of the mlp one:
+x += add; rms2 -> the router product over the GLOBAL router (every rank
+holds it whole) -> softmax, top-k and the shared gate over all experts,
+recorded (`kernel_routing`) -> the rank's experts that some active row
+routes to (its contiguous group of E/n, the reference EPSPLIT) and its
+slice of the shared expert (split as the dense MLP) => moe partial.
+
 The JAX package adds `psum(partial)` to x between its segments; here each
 segment adds the reduced partial of the one before to its rank's f32
 residual x in its first phase (the same sum, without an add kernel of its
@@ -33,10 +40,11 @@ the JAX `split_params_tp` of the same numpy tree. Each rank's plan and pack
 are the port's `make_plan` / `pack_params` on `local_config`, so the pack's
 fragment order and its padding of widths of 128 mod 256 come with them.
 
-`attn_segment_ref`, `mlp_segment_ref`, `lm_segment_ref` and `tp_decode_ref`
-are the plain PyTorch versions (the decode megakernel's plain pieces); the
-wrappers `tp_attn_segment`, `tp_mlp_segment`, `tp_lm_segment` take them for
-CPU tensors and launch csrc/tp_segments.cu for CUDA tensors, or raise.
+`attn_segment_ref`, `mlp_segment_ref`, `moe_segment_ref`, `lm_segment_ref`
+and `tp_decode_ref` are the plain PyTorch versions (the decode megakernel's
+plain pieces); the wrappers `tp_attn_segment`, `tp_mlp_segment`,
+`tp_moe_segment`, `tp_lm_segment` take them for CPU tensors and launch
+csrc/tp_segments.cu for CUDA tensors, or raise.
 
 A fresh prompt of a bucket 128 .. 1024 is prefilled the same way
 (`tp_prefill`, the counterpart of the JAX `build_tp_prefill_fn`): per layer
@@ -54,7 +62,8 @@ JAX package packs its TP prefill apart); the plain versions
 plain pieces); the wrappers `tp_prefill_attn_segment`,
 `tp_prefill_mlp_segment`, `tp_prefill_lm_segment` over
 csrc/tp_prefill_segments.cu, whose scratch is the device's one prefill
-scratch set (ops/prefill_megakernel.py).
+scratch set (ops/prefill_megakernel.py). A MoE model takes no TP prefill
+segment (`supports_prefill_tp`): it prefills per-op TP.
 """
 
 import ctypes
@@ -70,6 +79,7 @@ from dashinfer_tpu_torch.config import ModelConfig, RuntimeConfig
 from dashinfer_tpu_torch.ops import kernel_build
 from dashinfer_tpu_torch.ops import megakernel as mk
 from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+from dashinfer_tpu_torch.ops.moe import first_expert, rank_moe
 from dashinfer_tpu_torch.ops.u4pack import pack_u4_weight, unpack_u4_weight
 from dashinfer_tpu_torch.parallel.collectives import (all_gather_vocab,
                                                       all_reduce_)
@@ -142,12 +152,33 @@ def _split_leaf(name: str, leaf, n: int, r: int):
     return out
 
 
+def _slice_experts(leaf, n: int, r: int):
+    """An expert stack [L, E, ...] (or its quantized dict) -> rank r's
+    contiguous group of E/n experts (the reference EPSPLIT; the JAX
+    `_slice_experts`)."""
+    if isinstance(leaf, dict):
+        return {k: _share(a, 1, n, r) for k, a in leaf.items()}
+    return _share(leaf, 1, n, r)
+
+
 def _split_rank(params: Dict, cfg: ModelConfig, n: int, r: int) -> Dict:
-    """Rank r's share of the raw params (dense models)."""
-    if cfg.moe is not None or "experts" in params["layers"]:
-        raise NotImplementedError("splitting a MoE model over a model axis "
-                                  "is not ported to the PyTorch package yet")
-    lp = {k: _split_leaf(k, v, n, r) for k, v in params["layers"].items()}
+    """Rank r's share of the raw params. A MoE layer's experts go to the
+    ranks in contiguous groups, its shared expert splits as the dense MLP
+    (column gate|up, row down), and the router and the shared expert's gate
+    stay whole on every rank: every rank routes over all experts. (The JAX
+    `_split_rank` slices the router too and its `make_tp_plan` puts the
+    global one back in the pack; the per-op path here reads it from the
+    tree.)"""
+    lp = {}
+    for k, v in params["layers"].items():
+        if k == "experts":
+            lp[k] = {nm: _slice_experts(lf, n, r) for nm, lf in v.items()}
+        elif k == "shared_expert":
+            lp[k] = {nm: _split_leaf(nm, lf, n, r) for nm, lf in v.items()}
+        elif k in ("router", "shared_expert_gate"):
+            lp[k] = v
+        else:
+            lp[k] = _split_leaf(k, v, n, r)
     lm = params.get("lm_head")
     if lm is None or cfg.tie_word_embeddings:
         lm = {"w": params["embed_tokens"]["w"].t()}
@@ -171,44 +202,52 @@ def split_params_tp(params: Dict, cfg: ModelConfig, n: int) -> List[Dict]:
 
 def local_config(cfg: ModelConfig, n: int) -> ModelConfig:
     """The config one rank computes: 1/n of the heads, KV heads, MLP width
-    and vocab."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE on a model axis is not ported to the "
-                                  "PyTorch package yet")
+    and vocab; of a MoE model's experts and shared expert width
+    (`ops.moe.rank_moe`)."""
     return dataclasses.replace(
         cfg, num_heads=cfg.num_heads // n,
         num_kv_heads=cfg.num_kv_heads // n,
         intermediate_size=cfg.intermediate_size // n,
-        vocab_size=cfg.vocab_size // n, tie_word_embeddings=False)
+        vocab_size=cfg.vocab_size // n, tie_word_embeddings=False,
+        moe=None if cfg.moe is None else rank_moe(cfg.moe, n))
 
 
 def supports_tp(cfg: ModelConfig, rt: RuntimeConfig, params: Dict, n: int,
                 local: Optional[Dict] = None) -> bool:
     """Whether a model decodes through the segments on a model axis of n:
-    the JAX rules (heads, KV heads, MLP width and vocab divisible by n; the
-    rank's MLP width a multiple of 128; group sizes of the row-split leaves
-    dividing among the ranks, or one group) and the port's `supports` on
-    the local config. MoE says no here (not ported on a mesh yet). The JAX
-    `supports` also refuses a UINT4 pool whose rank holds fewer than 128
-    K/V lanes (KH/n * D/2), a Mosaic tiling rule of its RMW merge; the
-    port's kernel writes a token's bytes where they go, and its pool keeps
-    QL = page_size, so like the port's `supports` this keeps no such rule.
-    `local`: rank 0's split tree when the caller has it (only shapes are
-    read)."""
-    if n < 2 or cfg.moe is not None:
+    the JAX rules (heads, KV heads, MLP width and vocab divisible by n; a
+    dense model's rank MLP width a multiple of 128; a MoE model's experts
+    divisible by n and its shared expert's rank width a multiple of 128;
+    group sizes of the row-split leaves, the shared expert's down among
+    them, dividing among the ranks, or one group) and the port's `supports`
+    on the local config. The JAX `supports` also refuses a UINT4 pool whose
+    rank holds fewer than 128 K/V lanes (KH/n * D/2), a Mosaic tiling rule
+    of its RMW merge; the port's kernel writes a token's bytes where they
+    go, and its pool keeps QL = page_size, so like the port's `supports`
+    this keeps no such rule. `local`: rank 0's split tree when the caller
+    has it (only shapes are read)."""
+    if n < 2:
         return False
     if cfg.position_embedding.value != "rope":
         return False
     if (cfg.num_heads % n or cfg.num_kv_heads % n or
             cfg.intermediate_size % n or cfg.vocab_size % n):
         return False
-    if (cfg.intermediate_size // n) % 128:
+    moe = cfg.moe
+    if moe is None and (cfg.intermediate_size // n) % 128:
         return False
+    if moe is not None:
+        sh = moe.shared_expert_intermediate_size
+        if moe.num_experts % n or (sh and (sh % n or (sh // n) % 128)):
+            return False
     view = mk.weight_only_decode_view(params)
     if view is None:
         return False
-    for name in ("o_proj", "down_proj"):
-        leaf = view["layers"].get(name)
+    lp = view["layers"]
+    row = [lp.get("o_proj")] + ([lp.get("down_proj")] if moe is None else
+                                [lp.get("shared_expert", {}).get(
+                                    "down_proj")])
+    for leaf in row:
         if isinstance(leaf, dict) and "scale" in leaf:
             G = leaf["scale"].shape[1]
             if G != 1 and G % n:
@@ -233,9 +272,20 @@ def _as_tensors(tree):
 
 def make_tp_plan(cfg: ModelConfig, rt: RuntimeConfig, parts: Sequence[Dict]):
     """(the local MegaPlan, one pack a rank) from the ranks' split trees,
-    each packed on its own device."""
-    cfg_l = local_config(cfg, len(parts))
+    each packed on its own device. A MoE plan's experts are the rank's
+    (`E`), its router the global one over `E_global` experts, packed on
+    every rank as [L, hid, EP] bf16 with EP = the experts and the shared
+    expert's gate lane rounded up to 128 (the gate at lane E_global), as
+    the JAX `make_tp_plan` packs `router_w`."""
+    n = len(parts)
+    cfg_l = local_config(cfg, n)
     plan = mk.make_plan(cfg_l, rt, parts[0])
+    if plan.E:
+        E_g = cfg.moe.num_experts
+        EP = -(-(E_g + int(plan.has_shared)) // 128) * 128
+        plan = dataclasses.replace(
+            plan, E_global=E_g, EP=EP,
+            rt=mk.StreamPlan("rt", ("router",), 16, plan.hid, (EP,), 0))
     return plan, [mk.pack_params(cfg_l, plan, p) for p in parts]
 
 
@@ -264,6 +314,27 @@ def mlp_segment_ref(plan: mk.MegaPlan, packed: Dict, layer: int,
     return mk.mlp_block_ref(plan, packed, layer, x)
 
 
+def moe_segment_ref(plan: mk.MegaPlan, packed: Dict, layer: int,
+                    x: torch.Tensor, rank: int,
+                    add: Optional[torch.Tensor] = None,
+                    routing: Optional[list] = None,
+                    forced_routing: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """One MoE layer's MLP segment of rank `rank` (see `tp_moe_segment`):
+    the decode megakernel's plain MoE block (`ops.megakernel.moe_ref`)
+    routed over all experts and run over the rank's. `routing`, a list,
+    receives the layer's router product [B, EP] f32; `forced_routing` [B,
+    k_top] routes each row to those (global) experts instead."""
+    if add is not None:
+        x.add_(add)
+    xn = mk._rms(x, packed["norms"][layer, 1], plan.rms_eps).to(
+        torch.bfloat16)
+    return mk.moe_ref(
+        plan, xn, layer,
+        lambda x_, sp, l_, e: mk._stream_dot(x_, packed, sp, l_, e),
+        routing, forced_routing, first_expert=first_expert(rank, plan.E))
+
+
 def lm_segment_ref(plan: mk.MegaPlan, packed: Dict, x: torch.Tensor,
                    add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The lm segment of one rank (see `tp_lm_segment`)."""
@@ -277,17 +348,32 @@ def tp_decode(plan: mk.MegaPlan, packs: Sequence[Dict], x0: torch.Tensor,
               page_tables: torch.Tensor, lens: torch.Tensor,
               active: torch.Tensor, caches: Sequence[KVCache],
               devices: Sequence[torch.device],
-              plain: bool = False) -> torch.Tensor:
+              plain: bool = False, routing: Optional[list] = None,
+              forced_routing: Optional[torch.Tensor] = None,
+              resid_norms: Optional[list] = None) -> torch.Tensor:
     """The whole TP decode forward over the ranks on `devices`: per layer
-    every rank's attn segment, an all-reduce, every rank's mlp segment, an
-    all-reduce; then every rank's lm segment and the gather. x0 [B, hid]
-    bf16 (the embedded tokens) and the step inputs (as `decode_megakernel`
-    takes them) live on rank 0's device; `caches`: each rank's pool,
-    updated in place. `plain` runs the plain versions. Returns logits
-    [B, V] f32 on rank 0's device."""
-    segs = ((attn_segment_ref, mlp_segment_ref, lm_segment_ref) if plain
-            else (tp_attn_segment, tp_mlp_segment, tp_lm_segment))
-    attn, mlp, lm = segs
+    every rank's attn segment, an all-reduce, every rank's mlp segment (a
+    MoE model's moe segment), an all-reduce; then every rank's lm segment
+    and the gather. x0 [B, hid] bf16 (the embedded tokens) and the step
+    inputs (as `decode_megakernel` takes them) live on rank 0's device;
+    `caches`: each rank's pool, updated in place. `plain` runs the plain
+    versions; with them a MoE model's `routing` (a list) receives rank 0's
+    router product of each layer, and `forced_routing` [L, B, k_top] routes
+    every rank's rows as given (a kernel's, `kernel_routing`); `resid_norms`
+    (a list) receives the RMS of each row's residual entering each layer
+    (`ops.megakernel.decode_megakernel_ref`'s). Returns logits [B, V] f32
+    on rank 0's device."""
+    attn, lm = ((attn_segment_ref, lm_segment_ref) if plain
+                else (tp_attn_segment, tp_lm_segment))
+    if not plan.E:
+        mlp = mlp_segment_ref if plain else tp_mlp_segment
+    elif plain:
+        def mlp(plan, packed, l, x, r, active, add=None):
+            return moe_segment_ref(
+                plan, packed, l, x, r, add, routing if r == 0 else None,
+                None if forced_routing is None else forced_routing[l])
+    else:
+        mlp = tp_moe_segment
     lead = x0.device
     step = (cos, sin, page_tables, lens, active)
     inputs = {d: step if d == lead else
@@ -297,20 +383,28 @@ def tp_decode(plan: mk.MegaPlan, packs: Sequence[Dict], x0: torch.Tensor,
     xs = [x0.to(d).float() for d in devices]     # each rank's residual
     add: List[Optional[torch.Tensor]] = [None] * n
     for l in range(plan.L):
+        if resid_norms is not None:
+            x = xs[0] if add[0] is None else xs[0] + add[0]
+            resid_norms.append(x.pow(2).mean(-1).sqrt())
         add = all_reduce_([attn(plan, packs[r], l, xs[r],
                                 *inputs[devices[r]], caches[r], add=add[r])
                            for r in range(n)])
-        add = all_reduce_([mlp(plan, packs[r], l, xs[r], add=add[r])
+        add = all_reduce_([mlp(plan, packs[r], l, xs[r],
+                               *((r, inputs[devices[r]][4]) if plan.E
+                                 else ()), add=add[r])
                            for r in range(n)])
     return all_gather_vocab([lm(plan, packs[r], xs[r], add=add[r])
                              for r in range(n)])
 
 
 def tp_decode_ref(plan, packs, x0, cos, sin, page_tables, lens, active,
-                  caches, devices) -> torch.Tensor:
+                  caches, devices, routing: Optional[list] = None,
+                  forced_routing: Optional[torch.Tensor] = None,
+                  resid_norms: Optional[list] = None) -> torch.Tensor:
     """`tp_decode` through the plain versions."""
     return tp_decode(plan, packs, x0, cos, sin, page_tables, lens, active,
-                     caches, devices, plain=True)
+                     caches, devices, plain=True, routing=routing,
+                     forced_routing=forced_routing, resid_norms=resid_norms)
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +412,23 @@ def tp_decode_ref(plan, packs, x0, cos, sin, page_tables, lens, active,
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_KINDS = {"attn": 0, "mlp": 1, "lm": 2}
-_STREAM_KIND = {"qkv": "attn", "o": "attn", "gu": "mlp", "dn": "mlp"}
+_KINDS = {"attn": 0, "mlp": 1, "lm": 2, "moe": 3}
+_STREAM_KIND = {"qkv": "attn", "o": "attn", "gu": "mlp", "dn": "mlp",
+                "rt": "moe", "sgu": "moe", "sdn": "moe"}
+
+
+def _stream_kind(plan, name: str) -> str:
+    """The segment that streams `name` (a MoE plan's experts: the moe
+    segment)."""
+    return "moe" if plan.E and name in ("gu", "dn") else _STREAM_KIND[name]
+
+
+def cuda_kernel_gaps(plan: mk.MegaPlan) -> List[str]:
+    """Why csrc/tp_segments.cu cannot run this TP plan (empty = it can):
+    the decode megakernel's gaps, but the lm segment takes a vocab shard of
+    any even width (64 or 32 mod 128: Qwen1.5's 151936 over 2 or 4
+    ranks)."""
+    return mk.cuda_kernel_gaps(plan, any_lm_width=True)
 
 
 class _Launch:
@@ -328,9 +437,7 @@ class _Launch:
     one stream)."""
 
     def __init__(self, plan: mk.MegaPlan, dev: torch.device):
-        gaps = mk.cuda_kernel_gaps(plan)
-        if plan.E:
-            gaps.append("MoE")
+        gaps = cuda_kernel_gaps(plan)
         if gaps:
             raise ValueError("tp segments: " + "; ".join(gaps))
         lib = kernel_build.load("tp_segments")
@@ -342,19 +449,23 @@ class _Launch:
         self.mpad = mk.padded_rows(B)
         idx = dev.index if dev.index is not None else \
             torch.cuda.current_device()
+        kinds = ("attn", "moe" if plan.E else "mlp", "lm")
         with torch.cuda.device(idx):
-            self.grid = {k: grid_fn(idx, self.mpad, plan.hid, v)
-                         for k, v in _KINDS.items()}
+            self.grid = {k: grid_fn(idx, self.mpad, plan.hid, _KINDS[k])
+                         for k in kinds}
         if min(self.grid.values()) <= 0:
             raise RuntimeError("tp segments: a kernel does not fit on the "
                                "device (occupancy query gave 0)")
         passes = self.mpad // (16 if self.mpad == 16 else 32)
+        # an expert stream's items are spread over the rank's experts that
+        # a step routes to: at most E, at most B * k
+        routed = min(plan.E, B * plan.k_top)
         self.splits = {"lm": (1, plan.lm.K // mk.CHUNK_K)}
         for sp in plan.layer_streams:
             self.splits[sp.name] = mk.choose_split(
-                sp.Nptot // 256, sp.K // mk.CHUNK_K,
+                sp.Nptot // 256 * (routed if sp.E else 1), sp.K // mk.CHUNK_K,
                 mk.CHUNK_K * 256 * sp.bits // 8, B, passes,
-                self.grid[_STREAM_KIND[sp.name]])
+                self.grid[_stream_kind(plan, sp.name)])
         # attention items are (slot, KV head, stripe): about two a block
         units = -(-plan.maxP * plan.ps // mk.ATT_UNIT)
         self.nsplit = max(1, min(16, units,
@@ -367,8 +478,21 @@ class _Launch:
         self.rec = zeros((kmax // mk.CHUNK_K) * self.mpad *
                          (mk.CHUNK_K * 2 + 4), torch.uint8)
         self.partial = zeros(max(self.splits[sp.name][0] * B * sp.Nptot
-                                 for sp in plan.layer_streams),
+                                 for sp in plan.layer_streams if not sp.E),
                              torch.float32)
+        # a MoE plan: the rank's experts' partial sums [E][split][B][N] and
+        # down x records (as the decode megakernel's), and each rank's
+        # routing record [rank][L][B][top-k] (global expert ids, ascending;
+        # the ranks of a card share the rest of this scratch)
+        ranks = plan.E_global // plan.E if plan.E else 0
+        self.epart = zeros(plan.E * max(
+            [self.splits[sp.name][0] * B * sp.Nptot
+             for sp in plan.streams if sp.E] + [0]), torch.float32)
+        self.erec = zeros(plan.E * (plan.inter // mk.CHUNK_K) * self.mpad *
+                          (mk.CHUNK_K * 2 + 4), torch.uint8)
+        self.topk_e = zeros(ranks * plan.L * B * mk.MAX_TOPK, torch.int32)
+        self.topk_w = zeros(ranks * plan.L * B * mk.MAX_TOPK, torch.float32)
+        self.sgate = zeros(ranks * plan.L * B, torch.float32)
         self.att_ml = zeros(B * plan.H * self.nsplit * 2, torch.float32)
         self.att_acc = zeros(B * plan.H * self.nsplit * plan.D,
                              torch.float32)
@@ -405,6 +529,15 @@ def check_status(plan: mk.MegaPlan, device) -> None:
                            f"{code - 1} timed out")
 
 
+def kernel_routing(plan: mk.MegaPlan, device, rank: int) -> torch.Tensor:
+    """The experts (global ids) that rank `rank`'s last moe segment launch
+    of each layer routed each row to: int32 [L, B, k_top], ascending."""
+    st = _launch_state(plan, mk._indexed(device))
+    ranks = plan.E_global // plan.E
+    return st.topk_e.reshape(ranks, plan.L, plan.B,
+                             mk.MAX_TOPK)[rank, ..., :plan.k_top]
+
+
 def launch_geometry(plan: mk.MegaPlan, device) -> Dict:
     """Grids, K splits and attention stripes of this plan's launches."""
     st = _launch_state(plan, mk._indexed(device))
@@ -422,7 +555,8 @@ def _expect(who: str, name: str, t: torch.Tensor, dt, shape, dev) -> None:
 
 def _launch(kind: str, plan: mk.MegaPlan, packed: Dict, layer: int,
             x: torch.Tensor, add: Optional[torch.Tensor], out: torch.Tensor,
-            counter: kernel_build.LaunchCounter, **step) -> None:
+            counter: kernel_build.LaunchCounter, rank: int = 0,
+            **step) -> None:
     who = f"tp_{kind}_segment"
     dev = x.device
     B = plan.B
@@ -480,9 +614,26 @@ def _launch(kind: str, plan: mk.MegaPlan, packed: Dict, layer: int,
             k_qp=cache.k_qparams.data_ptr() if quant else 0,
             v_qp=cache.v_qparams.data_ptr() if quant else 0,
             ql=plan.ps if quant else 0)
+    if kind == "moe":
+        ranks = plan.E_global // plan.E
+        if not 0 <= rank < ranks:
+            raise ValueError(f"{who}: rank {rank} of {ranks}")
+        rec = plan.L * B * mk.MAX_TOPK
+        vals.update(
+            epart=st.epart.data_ptr(), erec=st.erec.data_ptr(),
+            topk_e=st.topk_e[rank * rec:].data_ptr(),
+            topk_w=st.topk_w[rank * rec:].data_ptr(),
+            sgate=st.sgate[rank * plan.L * B:].data_ptr(),
+            E=plan.E_global, k_top=plan.k_top,
+            norm_topk=int(plan.norm_topk), has_shared=int(plan.has_shared),
+            has_sgate=int(plan.has_shared_gate),
+            shared_inter=plan.shared_inter, active=step["active"].data_ptr())
+        _expect(who, "active", step["active"], torch.bool, (B,), dev)
     ia = [vals[k] for k in mk._IARGS]
     ia += mk.packed_stream_args(plan, packed, st.splits, dev, who)
-    ia.append(0 if add is None else add.data_ptr())
+    # add, then a moe segment's first expert and expert count
+    ia += [0 if add is None else add.data_ptr(),
+           first_expert(rank, plan.E), plan.E]
     ia_arr = np.asarray(ia, np.int64)
     fa_arr = np.asarray([plan.rms_eps, 1.0 / math.sqrt(plan.D)], np.float64)
     with torch.cuda.device(dev):        # the C side launches on it
@@ -551,8 +702,32 @@ def tp_lm_segment(plan: mk.MegaPlan, packed: Dict, x: torch.Tensor,
     return out[:, :plan.V]
 
 
+def tp_moe_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
+                   x: torch.Tensor, rank: int, active: torch.Tensor,
+                   add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One MoE layer's MLP segment of rank `rank` (the TPU kernel's
+    `build_moe_mlp_segment`): x += add, RMSNorm, the global router over
+    all E_global experts (softmax, top-k, renormalisation, the shared
+    gate), the rank's experts that some active row routes to and its slice
+    of the shared expert => the moe partial [B, hid] f32 (active rows:
+    their experts of the rank's group times their gates, ascending, then
+    the shared slice times its gate; inactive rows: the shared slice
+    alone). active [B] bool: the slots that step. The launch records its
+    routing (`kernel_routing`). CPU tensors take `moe_segment_ref`; CUDA
+    tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return moe_segment_ref(plan, packed, layer, x, rank, add)
+    _check_device("tp_moe_segment", x)
+    out = torch.empty((plan.B, plan.hid), dtype=torch.float32,
+                      device=x.device)
+    _launch("moe", plan, packed, layer, x, add, out, tp_moe_segment.counter,
+            rank=rank, active=active)
+    return out
+
+
 tp_attn_segment.counter = kernel_build.LaunchCounter()
 tp_mlp_segment.counter = kernel_build.LaunchCounter()
+tp_moe_segment.counter = kernel_build.LaunchCounter()
 tp_lm_segment.counter = kernel_build.LaunchCounter()
 
 
@@ -567,13 +742,18 @@ def supports_prefill_tp(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
     prefill segments on a model axis of n: the JAX rules (RoPE; `supports_tp`;
     the prefill megakernel's `supports_prefill` on the local config and rank
     0's split tree). The JAX package also admits ALiBi, a branch the port's
-    model code lacks. `local`: rank 0's split tree when the caller has it
-    (only shapes are read)."""
-    if cfg.position_embedding.value != "rope":
+    model code lacks. A MoE model says no at every bucket: the JAX package
+    admits it, but its prefill segments stream the expert pack as one dense
+    MLP (no router, no expert loop, no shared expert), so they compute
+    another function (ROADMAP C.3: on a tiny MoE model at n = 2 its
+    last-row logits differ from the per-op prefill's by 1.09 x their
+    largest); the port prefills a MoE model per-op TP. `local`: rank 0's
+    split tree when the caller has it (only shapes are read)."""
+    if cfg.moe is not None or cfg.position_embedding.value != "rope":
         return False
     if local is None:
         view = mk.weight_only_decode_view(params)
-        if view is None or cfg.moe is not None:
+        if view is None:
             return False
         local = _split_rank(_as_tensors(view), cfg, n, 0)
     if not supports_tp(cfg, rt, params, n, local=local):

@@ -9,7 +9,20 @@ partitioner insert the collectives. Here each rank holds its own tree:
                 reference zeroes the bias on the other ranks);
   vocab split   lm_head;
   replicated    the norms and the embedding (the TP megakernel replicates
-                the embedding too).
+                the embedding too);
+  experts       a MoE layer's experts in contiguous groups of E/n a rank
+                (the reference EPSPLIT), its shared expert as the dense MLP,
+                its router and shared expert gate replicated.
+A MoE model's experts split over the ranks on both TP paths, whatever
+`use_ep` says. The JAX package splits them so only under `use_ep`, and
+otherwise splits each expert by its inner width, where XLA SPMD replicates
+a leaf whose dim does not divide; an explicit per-rank tree cannot do
+that, and at Qwen1.5-MoE's width the inner split would cut a down group in
+half (1408 / 2 = 704 rows, 5.5 groups of 128). The sum over the ranks is
+the same function, and one tree serves the per-op TP path and the
+segments (which split over the experts in the JAX package too). A MoE
+model whose experts do not divide among the ranks is not served (the JAX
+package serves it per-op through SPMD).
 The split itself is `ops.tp_megakernel.split_params_tp`, so both TP paths
 hold the same leaves. When the KV heads do not divide among the ranks, the
 K/V weights and the KV pool are replicated on every rank (the reference
@@ -51,12 +64,15 @@ def shard_params(params: Dict, cfg: ModelConfig, mesh: Mesh) -> List[Dict]:
     tensor tree, on rank 0's device). Heads, MLP width and vocab must
     divide among the ranks."""
     from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    from dashinfer_tpu_torch.ops.moe import rank_moe
     n = mesh.n
     if cfg.num_heads % n or cfg.intermediate_size % n or cfg.vocab_size % n:
         raise NotImplementedError(
             f"model axis {n}: heads ({cfg.num_heads}), intermediate "
             f"({cfg.intermediate_size}) and vocab ({cfg.vocab_size}) must "
             "divide among the ranks")
+    if cfg.moe is not None:
+        rank_moe(cfg.moe, n)          # raises when the experts do not divide
     parts = tpk.split_params_tp(params, cfg, n)
     if kv_replicated(cfg, n):
         for p in parts:

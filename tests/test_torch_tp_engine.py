@@ -3,7 +3,10 @@ with the default flags (decode through the TP segments' plain versions,
 prefill per-op TP) and with DI_MEGAKERNEL=0 (per-op TP throughout), the
 greedy tokens of the JAX Engine on a (1, 2) mesh on the same path (as
 tests/test_tp_megakernel.py holds its TP megakernel: the first 10 of 14
-equal) and of the port's single-device serving; and the mesh install's
+equal) and of the port's single-device serving; a MoE model on the mesh
+(its experts split over the ranks, decode through the attn and moe
+segments or per-op TP, every prefill per-op TP) against the port's and
+the JAX package's single-device engines; and the mesh install's
 refusals."""
 
 import dataclasses
@@ -127,11 +130,12 @@ def test_mesh_install_refusals():
         tp.Engine().install_model("m", rt, params=params,
                                   model_config=port_config(cfg),
                                   device=CPU2)
-    # MoE on a mesh
-    mcfg, _, mparams = _tiny_moe(KH=2, H=2)
+    # a MoE model whose experts do not divide among the ranks (the port
+    # splits the experts over them)
+    mcfg, _, mparams = _tiny_moe(KH=2, H=2, E=3)
     import jax
     rt = dataclasses.replace(rt, mesh_shape=(1, 2))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(NotImplementedError, match=r"MoE experts \(3\)"):
         tp.Engine().install_model("m", rt,
                                   params=jax.tree.map(np.asarray, mparams),
                                   model_config=port_config(mcfg),
@@ -177,3 +181,73 @@ def test_engine_on_a_mesh_prefills_through_the_tp_segments(monkeypatch):
     assert toks[:10] == single[:10], (toks, single)
     assert toks_off[:10] == single_off[:10], (toks_off, single_off)
     assert toks[0] == toks_off[0]
+
+
+@pytest.mark.parametrize("per_op", [False, True])
+def test_moe_engine_on_a_mesh_same_tokens(per_op, monkeypatch):
+    """The tiny Qwen2-MoE of tests/test_torch_engine.py (a16w4, 4 experts
+    top-2, a gated shared expert; one query and one KV head a rank) on a
+    (1, 2) CPU mesh: each rank holds 2 experts and routes over all 4. With
+    the default flags the install holds a TP plan over the global router
+    and no TP prefill plan (the JAX prefill segments compute a dense MLP),
+    decode runs the attn and moe segments (their plain versions) and the
+    prompt prefills per-op TP; its greedy tokens agree with the port's and
+    the JAX package's single-device engines for the first 8 of 14 (the
+    decode megakernel's MoE bound against the XLA path,
+    tests/test_torch_engine.py). DI_MEGAKERNEL=0: per-op TP throughout, the
+    first 10 against the single-device per-op engines (the dense mesh's
+    bound above: the ranks' partials are summed in another order)."""
+    import dashinfer_tpu as jp
+    import dashinfer_tpu_torch as tp
+    from tests.test_torch_engine import _greedy, _moe_fixture
+    cfg, rt, np_params = _moe_fixture(max_length=160)
+    if per_op:
+        monkeypatch.setenv("DI_MEGAKERNEL", "0")
+
+    def port(mesh):
+        b = (tp.RuntimeConfigBuilder("moe").max_length(rt.max_length)
+             .max_batch(rt.max_batch).kv_cache_page_size(rt.cache.page_size)
+             .kv_cache_num_pages(rt.cache.num_pages)
+             .kv_cache_mode(tp.CacheMode.INT8).dtype(rt.dtype)
+             .update({"min_prefill_bucket": rt.min_prefill_bucket}))
+        if mesh:
+            b = b.mesh(1, 2)
+        eng = tp.Engine().install_model(
+            "moe", b.build(), params=np_params, model_config=port_config(cfg),
+            device=CPU2 if mesh else "cpu")
+        run = eng._models["moe"]
+        eng.start_model("moe")
+        try:
+            _, h, q = eng.start_request("moe", PROMPT, _greedy(tp))
+            eng.sync_request("moe", h, timeout_s=300)
+        finally:
+            eng.release_model("moe")
+        assert q.GenerateStatus() == \
+            tp.GenerateRequestStatus.GenerateFinished
+        return run, q.GetAllGeneratedTokens()
+
+    run, mesh_toks = port(True)
+    assert len(run.cache) == 2 and not run._tp_pmk_plans
+    assert run.mega_plan is None and not run._pmk_plans
+    assert 128 in run.buckets
+    assert set(run._prefill_steps) == {(16, False)}
+    if per_op:
+        assert run.tp_mega_plan is None
+    else:
+        plan = run.tp_mega_plan
+        assert (plan.E, plan.E_global, plan.EP) == (2, 4, 128)
+    assert run.params[1]["layers"]["router"]["w"].shape[-1] == 4
+    _, single = port(False)
+    name = rt.model_name
+    jeng = jp.Engine().install_model(name, rt, params=np_params,
+                                     model_config=cfg).start_model(name)
+    try:
+        _, h, jq = jeng.start_request(name, PROMPT, _greedy(jp))
+        jeng.sync_request(name, h, timeout_s=600)
+    finally:
+        jeng.release_model(name)
+    jax_single = jq.GetAllGeneratedTokens()
+    k = 10 if per_op else 8
+    assert len(mesh_toks) == len(single) == len(jax_single) == 14
+    assert mesh_toks[:k] == single[:k], (mesh_toks, single)
+    assert mesh_toks[:k] == jax_single[:k], (mesh_toks, jax_single)

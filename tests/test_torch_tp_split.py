@@ -187,3 +187,132 @@ def test_padded_qkv_widths_and_the_kernels():
     pplan = tpmk.make_prefill_plan(local, trt, ttpk.split_params_tp(
         tparams, tcfg, 2)[0], 128, decode_plan=plan)
     assert pplan.qkv is plan.qkv and tpmk.cuda_kernel_gaps(pplan) == []
+
+
+def _moe_fixture(quant: str, E: int = 4, Im: int = 256, KH: int = 2):
+    """tests/test_megakernel.py's tiny Qwen2-MoE (hid 256, 4 query heads on
+    KH, top-2, a gated shared expert of width Im), quantized with group 128
+    or f32."""
+    from tests.test_megakernel import _tiny_moe
+    cfg, rt, params = _tiny_moe(B=4, KH=KH, H=4, E=E, Im=Im)
+    if quant != "none":
+        params = quantize_params(params, QuantConfig(mode=quant,
+                                                     group_size=128))
+    return cfg, rt, jax.tree.map(np.asarray, params)
+
+
+@pytest.mark.parametrize("quant", ["none", "a16w8", "a16w4"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_moe_split_bit_equal_to_jax(quant, n):
+    """Each rank's experts (its contiguous group), shared expert (column
+    gate|up, row down) and shared gate (whole) are the JAX `_split_rank`'s,
+    bit for bit; the router stays whole on every rank (the JAX function
+    slices it and its `make_tp_plan` packs the whole one)."""
+    cfg, _, params = _moe_fixture(quant)
+    want = jtpk.split_params_tp(params, cfg, n)
+    tparams = params_from_numpy(params, "cpu", torch.float32)
+    got = ttpk.split_params_tp(tparams, port_config(cfg), n)
+    for r in range(n):
+        wl, gl = dict(want[r]["layers"]), dict(got[r]["layers"])
+        assert_bit_equal(params["layers"]["router"], gl.pop("router"),
+                         f"rank {r} router")
+        wl.pop("router")
+        assert_bit_equal(wl, gl, f"rank {r}")
+        assert gl["experts"]["down_proj"]["w_q" if quant != "none" else
+                                          "scale"].shape[1] == 4 // n \
+            if quant != "none" else gl["experts"]["down_proj"].shape[1] == \
+            4 // n
+        for k in ("embed_tokens", "norm", "lm_head"):
+            assert_bit_equal(want[r][k], got[r][k], f"rank {r} {k}")
+
+
+@pytest.mark.parametrize("quant", ["none", "a16w8"])
+def test_moe_tp_plan_router_equals_jax(quant):
+    """The TP plan routes over all experts: the port's packed router of
+    every rank, unpacked, is the JAX `make_tp_plan`'s `router_w` (the
+    global router and the shared gate at lane E, bf16, EP lanes)."""
+    from dashinfer_tpu_torch.ops import megakernel as tmk
+    from tests.test_torch_megakernel import _port_rt
+    cfg, rt, params = _moe_fixture(quant)
+    jplan, jpacked = jtpk.make_tp_plan(cfg, rt, params, 2)
+    tcfg = port_config(cfg)
+    tparams = params_from_numpy(params, "cpu", torch.float32)
+    plan, packs = ttpk.make_tp_plan(tcfg, _port_rt(rt, "int8"),
+                                    ttpk.split_params_tp(tparams, tcfg, 2))
+    assert (plan.E, plan.E_global, plan.EP, plan.rt.N) == (2, 4, 128, (128,))
+    assert plan.E == jplan.E and plan.shared_inter == jplan.shared_inter
+    for r in range(2):
+        rw = tmk.loader_view(packs[r]["layers"]["router"])["w"]
+        assert_bit_equal(np.asarray(jpacked["router_w"][r]),
+                         rw[..., :plan.EP].contiguous(), f"rank {r}")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_moe_local_config_equals_jax(n):
+    cfg, _, _ = _moe_fixture("none")
+    assert ttpk.local_config(port_config(cfg), n) == \
+        port_config(jtpk.local_config(cfg, n))
+
+
+@pytest.mark.parametrize("quant,E,Im", [
+    ("none", 4, 256),      # n = 2 yes; n = 4: shared 64 a rank, no
+    ("a16w4", 4, 256),
+    ("a16w8", 6, 256),     # n = 4: 6 experts do not divide
+    ("a16w4", 4, 512)])    # n = 4: shared 128 a rank, yes
+@pytest.mark.parametrize("n", [2, 4])
+def test_moe_supports_tp_decides_as_jax(quant, E, Im, n):
+    """Equal decisions; yes where the experts divide among the ranks and
+    the rank's shared width is a multiple of 128 (four KV heads)."""
+    cfg, rt, params = _moe_fixture(quant, E, Im, KH=4)
+    from tests.test_torch_megakernel import _port_rt
+    want = jtpk.supports_tp(cfg, rt, params, n)
+    got = ttpk.supports_tp(port_config(cfg), _port_rt(rt, "int8"), params, n)
+    assert got == want
+    assert want == (E % n == 0 and (Im // n) % 128 == 0)
+
+
+@pytest.mark.parametrize("n,V", [(2, 384), (4, 640)])
+def test_vocab_shard_of_64_or_32_mod_128_packs(n, V):
+    """A vocab shard whose width is 64 (n = 2: 192) or 32 (n = 4: 160) mod
+    128, as Qwen1.5-MoE's 151936 splits into 75968 and 37984: the pack pads
+    it to its 256-column tiles (the u4 payload re-laid from plain halves
+    into TILE-128 halves), the TP lm segment has no CUDA gap for it (the
+    megakernels keep theirs), and unpacked it is the split leaf in its true
+    columns, zeros after them; the plain lm product is the loader leaf's."""
+    from dashinfer_tpu.loader.quantize import _quantize_stacked
+    from dashinfer_tpu_torch.ops import megakernel as tmk
+    from dashinfer_tpu_torch.ops.u4pack import weight_levels
+    from tests.test_torch_megakernel import _port_rt
+    cfg, rt, params = _tiny(B=4, L=2, KH=4, H=4, hid=256, inter=512,
+                            vocab=V, dtype="float32")
+    params = jax.tree.map(np.asarray, quantize_params(
+        params, QuantConfig(mode="a16w4", group_size=128)))
+    lm = _quantize_stacked(np.asarray(params["lm_head"]["w"])[None], 4, 128)
+    params["lm_head"] = {k: v[0] for k, v in lm.items()}
+    tcfg = port_config(cfg)
+    tparams = params_from_numpy(params, "cpu", torch.float32)
+    parts = ttpk.split_params_tp(tparams, tcfg, n)
+    plan, packs = ttpk.make_tp_plan(tcfg, _port_rt(rt, "int8"), parts)
+    Vn = V // n
+    assert Vn % 128 == 128 // n and plan.lm.N == (Vn,)
+    assert plan.lm.Np == (-(-Vn // 256) * 256,)
+    # the TP lm segment takes the shard; the megakernels and the TP prefill
+    # lm segment (not run on the card at such a width) keep the 128 rule
+    assert tmk.stream_gaps(plan.lm, any_lm_width=True) == []
+    assert not [g for g in ttpk.cuda_kernel_gaps(plan) if g.startswith("lm")]
+    assert tmk.stream_gaps(plan.lm)
+    for r in range(n):
+        lm, leaf = packs[r]["lm_head"], parts[r]["lm_head"]
+        un = tmk.loader_view(lm)
+        lv = weight_levels(un["w_q"])
+        assert lv.shape == (256, plan.lm.Np[0])
+        assert torch.equal(lv[:, :Vn], weight_levels(leaf["w_q"]))
+        assert not lv[:, Vn:].any()
+        for k in ("scale", "zero"):
+            assert torch.equal(un[k][:, :Vn], leaf[k])
+            assert not un[k][:, Vn:].any()
+        x = torch.randn(4, 256, generator=torch.Generator().manual_seed(r)
+                        ).to(torch.bfloat16)
+        torch.testing.assert_close(tmk.leaf_dot(x, lm)[:, :Vn],
+                                   tmk.leaf_dot(x, leaf), rtol=1e-5,
+                                   atol=1e-5)
