@@ -12,10 +12,13 @@ on one of them, and then prints no final result line):
               each kernel's wrapper on the card at the shapes the serving
               path gives it, held against its plain PyTorch version on the
               same inputs, and timed beside the plain version and, where one
-              PyTorch call computes the same function, that call. The
-              grouped GEMM: Qwen1.5-MoE's expert shapes at the bucket-32 and
-              bucket-128 prefills (and the ragged route against it at a
-              decode batch). The
+              PyTorch call computes the same function, that call. Paged
+              attention also at every G 1..8, D 64 / 256, every pool kind,
+              NaN garbage past lens and a one-chunk batch, and on a
+              long-context state at B = 8 and 32 beside SDPA. The grouped
+              GEMM: Qwen1.5-MoE's expert shapes at the bucket-32 .. 1024
+              prefills, int8, without `tile_rows` and on a rank's share
+              (and the ragged route against it at a decode batch). The
               megakernel: one decode step at Qwen2-7B width for INT8, UINT4
               and DEFAULT KV and for the u4 and the per-channel i8 weight
               stream, logits and pool writes against the plain version;
@@ -402,16 +405,121 @@ def check_quant_matmul(gen, dev, details):
                 **aggregate(step, [r["launches_per_step"] for r in step]))
 
 
+# prompt rows: the per-op MoE decode batch, then the buckets the per-op MoE
+# prefills reach (x 4 routed rows each)
+GQM_TS = (DECODE_BATCH, 32, 128, 256, 1024)
+
+
+def gqm_case(what, leaf, K, N, topk_i, E, gen, dev, rows_hint=True,
+             rank_experts=None):
+    """One call of the grouped GEMM at a routing `topk_i` [T, k] of E
+    experts, held against its plain version and timed beside its bound, the
+    plain version and one `torch._grouped_mm` on bf16 stacks dequantized
+    beforehand. `rank_experts`: the leaf holds experts [0, n) of the E (a
+    rank's share on a mesh, as ops/moe.py lays it out: the other experts'
+    rows sort last into tiles of 0 rows). Returns the case's row."""
+    import torch
+    from dashinfer_tpu_torch.ops import grouped_quant_matmul as gqm
+    from dashinfer_tpu_torch.ops import moe as moe_ops
+    T, k = topk_i.shape
+    TM = gqm.default_tm()
+    if rank_experts is None:
+        order, stok, pos, te = gqm.build_group_layout(topk_i, E, TM)
+        trows = gqm.tile_row_counts(pos, te.shape[0], TM)
+        mine = torch.ones(T * k, dtype=torch.bool, device=dev)
+        ids = topk_i.reshape(-1)
+        n_e = E
+    else:
+        n_e = rank_experts
+        ids = torch.where(topk_i < n_e, topk_i, n_e)
+        order, stok, pos, te = gqm.build_group_layout(ids, n_e + 1, TM)
+        trows = gqm.tile_row_counts(pos, te.shape[0], TM)
+        trows = torch.where(te == n_e, 0, trows)
+        te = te.clamp(max=n_e - 1)
+        ids = ids.reshape(-1)
+        mine = ids[order] < n_e
+    n_tiles = te.shape[0]
+    xs = torch.zeros((n_tiles * TM, K), dtype=torch.bfloat16, device=dev)
+    rows_x = torch.randn((T * k, K), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    xs[pos[mine]] = rows_x[mine]
+    hint = trows if rows_hint else None
+    got = gqm.grouped_quant_matmul(xs, te, leaf, tile_rows=hint)
+    ref = gqm.grouped_quant_matmul_plain(xs, te, leaf)
+    torch.cuda.synchronize()
+    err = held_to_plain(got, ref, what)
+    shape = gqm.block_shape(xs.shape[0], TM, leaf["scale"].shape[0])
+    ms = time_ms(lambda: gqm.grouped_quant_matmul(xs, te, leaf,
+                                                  tile_rows=hint),
+                 [()], iters=20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gqm.grouped_quant_matmul_plain(xs, te, leaf)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    # yardstick: one grouped product of the library on the sorted rows of
+    # the leaf's experts and bf16 stacks dequantized beforehand (timed only)
+    Np = leaf["scale"].shape[-1]
+    w_bf = moe_ops._expert_stack(leaf, torch.bfloat16, N)
+    x_sorted = xs[pos[mine].sort().values].contiguous()
+    sizes = torch.bincount(ids[ids < n_e], minlength=n_e)
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    library_ms, library_note = None, ""
+    if not hasattr(torch, "_grouped_mm"):
+        library_note = "torch._grouped_mm missing in this torch"
+    else:
+        for w_lib in (w_bf, w_bf.transpose(-2, -1).contiguous()
+                      .transpose(-2, -1)):
+            try:
+                torch._grouped_mm(x_sorted, w_lib, offs=offs)
+                torch.cuda.synchronize()
+                library_ms = time_ms(
+                    lambda: torch._grouped_mm(x_sorted, w_lib, offs=offs),
+                    [()], iters=20)
+                library_note = ""
+                break
+            except Exception as e:       # timed only: no fallback
+                library_note = f"torch._grouped_mm: {e}"[:160]
+    del w_bf
+    used = int((sizes > 0).sum())
+    n_rows = int(sizes.sum())
+    bits = 8 if leaf["w_q"].dtype == torch.int8 else 4
+    w_bytes = used * (K * N * bits // 8 + 2 * 4 * (K // GROUP) * N)
+    nbytes = n_rows * K * 2 + w_bytes + n_rows * N * 2
+    row = dict(shape=what, T=T, rows=n_rows, K=K, N=N, Np=Np, bits=bits,
+               block_shape=shape,
+               experts_used=used, tiles=n_tiles,
+               tiles_with_rows=int((trows > 0).sum()),
+               rows_hint=rows_hint, rank_experts=rank_experts,
+               max_abs_err=err, ref_max=ref.float().abs().max().item(),
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               library_note=library_note,
+               **bounds(nbytes, 2.0 * n_rows * K * N))
+    print(f"{what}: err={err:.2e} ms={ms:.4f} bound="
+          f"{max(row['bytes_ms'], row['ops_ms']):.4f} plain="
+          f"{plain_ms:.2f} lib="
+          + (f"{library_ms:.4f}" if library_ms is not None else
+             f"- ({library_note})")
+          + f"; {row['tiles_with_rows']} of {n_tiles} tiles hold rows, "
+          f"{used} experts, block shape {shape}", flush=True)
+    return row
+
+
 def check_grouped_quant_matmul(dev, details):
     """csrc/grouped_quant_matmul.cu at Qwen1.5-MoE width (60 experts, top-4;
     gate / up 2048 -> 1408, padded to 1536 columns by the install, down
-    1408 -> 2048) at the shapes bucket-32 and bucket-128 prefills give it
-    (128 and 512 routed rows), u4 and once int8, against its plain version;
-    timed beside its bound, the plain version and `torch._grouped_mm` on
+    1408 -> 2048) at the shapes the per-op MoE decode (B = 8: 32 routed
+    rows) and the per-op MoE prefills of buckets 32, 128, 256 and 1024 give
+    it (128 .. 4,096 routed rows), u4; the int8 leaf at T = 8, 32 and 256,
+    so that each of the kernel's 6 instantiations (bits x block shape) is
+    held; once each a call without the `tile_rows` hint and a rank's share
+    of a (1, 2) mesh (30 experts); each against its plain version, timed
+    beside its bound, the plain version and `torch._grouped_mm` on
     pre-dequantized bf16 stacks where the installed torch has it. Then one
-    MoE layer's experts at a decode batch (T = 8) through the grouped route
-    and through the ragged route (`DI_MOE_GROUPED=0`): the measured reason
-    for taking the grouped kernel at every T on this card."""
+    MoE layer's
+    experts at a decode batch (T = 8) through the grouped route and through
+    the ragged route (`DI_MOE_GROUPED=0`): the measured reason for taking
+    the grouped kernel at every T on this card."""
     import torch
     from dashinfer_tpu_torch.ops import grouped_quant_matmul as gqm
     from dashinfer_tpu_torch.ops import moe as moe_ops
@@ -448,81 +556,35 @@ def check_grouped_quant_matmul(dev, details):
                 for k_, v in tree.items()}
 
     lp = layer0(lp)
-    leaves = {"gate": (lp["experts"]["gate_proj"], hid, Im),
-              "down": (lp["experts"]["down_proj"], Im, hid),
-              "gate (int8)": (layer0(i8)["layers"]["experts"]["gate_proj"],
-                              hid, Im)}
-    TM = gqm.default_tm()
+    gate, down = lp["experts"]["gate_proj"], lp["experts"]["down_proj"]
+    gate8 = layer0(i8)["layers"]["experts"]["gate_proj"]
+    rank = E // 2
+    share = {key: t[:rank].contiguous() for key, t in gate.items()}
     rows, max_err = [], 0.0
-    for T in (32, 128):
+    for T in GQM_TS:
         topk_i = torch.rand((T, E), generator=gen, device=dev).topk(k).indices
-        order, stok, pos, te = gqm.build_group_layout(topk_i, E, TM)
-        n_tiles = te.shape[0]
-        trows = gqm.tile_row_counts(pos, n_tiles, TM)
-        used = torch.unique(topk_i).numel()
-        for name, (leaf, K, N) in leaves.items():
-            if name == "gate (int8)" and T != 32:
-                continue
-            xs = torch.zeros((n_tiles * TM, K), dtype=torch.bfloat16,
-                             device=dev)
-            xs[pos] = torch.randn((T * k, K), generator=gen,
-                                  device=dev).to(torch.bfloat16)
-            got = gqm.grouped_quant_matmul(xs, te, leaf, tile_rows=trows)
-            ref = gqm.grouped_quant_matmul_plain(xs, te, leaf)
-            torch.cuda.synchronize()
-            what = f"grouped_quant_matmul {name} T={T} ({T * k} rows)"
-            err = held_to_plain(got, ref, what)
-            max_err = max(max_err, err)
-            ms = time_ms(lambda: gqm.grouped_quant_matmul(
-                xs, te, leaf, tile_rows=trows), [()], iters=20)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            gqm.grouped_quant_matmul_plain(xs, te, leaf)
-            torch.cuda.synchronize()
-            plain_ms = 1e3 * (time.perf_counter() - t0)
-            # yardstick: one grouped product of the library on the sorted
-            # rows and bf16 stacks dequantized beforehand (timed only)
-            Np = leaf["scale"].shape[-1]
-            w_bf = moe_ops._expert_stack(leaf, torch.bfloat16, N)
-            x_sorted = xs[pos.sort().values].contiguous()
-            sizes = torch.bincount(topk_i.reshape(-1), minlength=E)
-            offs = torch.cumsum(sizes, 0).to(torch.int32)
-            library_ms, library_note = None, ""
-            if not hasattr(torch, "_grouped_mm"):
-                library_note = "torch._grouped_mm missing in this torch"
-            else:
-                for w_lib in (w_bf, w_bf.transpose(-2, -1).contiguous()
-                              .transpose(-2, -1)):
-                    try:
-                        torch._grouped_mm(x_sorted, w_lib, offs=offs)
-                        torch.cuda.synchronize()
-                        library_ms = time_ms(
-                            lambda: torch._grouped_mm(x_sorted, w_lib,
-                                                      offs=offs),
-                            [()], iters=20)
-                        library_note = ""
-                        break
-                    except Exception as e:       # timed only: no fallback
-                        library_note = f"torch._grouped_mm: {e}"[:160]
-            del w_bf
-            bits = 8 if leaf["w_q"].dtype == torch.int8 else 4
-            w_bytes = used * (K * N * bits // 8 + 2 * 4 * (K // GROUP) * N)
-            nbytes = T * k * K * 2 + w_bytes + T * k * N * 2
-            row = dict(shape=name, T=T, rows=T * k, K=K, N=N, Np=Np,
-                       experts_used=used, tiles=n_tiles,
-                       tiles_with_rows=int((trows > 0).sum()),
-                       max_abs_err=err, ref_max=ref.float().abs().max()
-                       .item(), ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, library_note=library_note,
-                       **bounds(nbytes, 2.0 * T * k * K * N))
+        cases = [("gate", gate, hid, Im, {}), ("down", down, Im, hid, {})]
+        if T in (DECODE_BATCH, 32, 256):
+            cases.append(("gate (int8)", gate8, hid, Im, {}))
+        if T == 32:
+            cases += [("gate (no tile_rows)", gate, hid, Im,
+                       dict(rows_hint=False)),
+                      (f"gate (a rank's {rank} experts)", share, hid, Im,
+                       dict(rank_experts=rank))]
+        for name, leaf, K, N, kw in cases:
+            row = gqm_case(f"grouped_quant_matmul {name} T={T} ({T * k} "
+                           "rows)", leaf, K, N, topk_i, E, gen, dev, **kw)
+            row["shape"] = name
             rows.append(row)
-            print(f"{what}: err={err:.2e} ms={ms:.4f} bound="
-                  f"{max(row['bytes_ms'], row['ops_ms']):.4f} plain="
-                  f"{plain_ms:.2f} lib="
-                  + (f"{library_ms:.4f}" if library_ms is not None else
-                     f"- ({library_note})")
-                  + f"; {row['tiles_with_rows']} of {n_tiles} tiles hold "
-                  f"rows, {used} experts", flush=True)
+            max_err = max(max_err, row["max_abs_err"])
+            torch.cuda.empty_cache()
+            if T == DECODE_BATCH:    # the decode batch's narrow-item shape
+                check(row["block_shape"] == 0, f"grouped_quant_matmul {name} "
+                      f"T={T}: block shape {row['block_shape']}, not 0")
+    held = {(r["bits"], r["block_shape"]) for r in rows}
+    check(held == {(b, sh) for b in (4, 8) for sh in range(len(gqm.SHAPES))},
+          f"grouped_quant_matmul: (bits, block shape) held {sorted(held)}, "
+          "not every instantiation of the kernel")
     # the dispatch: one layer's experts at T = 8 through both routes
     x = torch.randn((DECODE_BATCH, hid), generator=gen,
                     device=dev).to(torch.bfloat16)
@@ -555,19 +617,24 @@ def check_grouped_quant_matmul(dev, details):
                 route_ms=route_ms, **agg)
 
 
-def paged_case(mode, gen, dev, cfg=None):
+def paged_case(mode, gen, dev, cfg=None, B=DECODE_BATCH, maxP=32,
+               lens=None, pool_dtype=None, nan_garbage=False):
     """B=8, H=28, KH=4 (or `cfg`'s heads), D=128, ps=64: ragged lens (incl.
     0 and non-multiples of the page), page tables shuffled over the pool,
-    garbage past lens."""
+    garbage past lens. With `nan_garbage`, every pool element (payload of a
+    float pool, qparams) that no token < lens owns is NaN and the page-table
+    entries past a slot's last page are out of range: the kernel must read
+    none of it."""
     import torch
     from dashinfer_tpu_torch.config import CacheConfig, CacheMode, ModelConfig
     from dashinfer_tpu_torch.runtime.kv_cache import create_kv_cache
-    B, maxP = DECODE_BATCH, 32
-    lens = torch.tensor([0, 1, 63, 64, 65, 517, 1000, 2047], dtype=torch.int32)
+    if lens is None:
+        lens = [0, 1, 63, 64, 65, 517, 1000, 2047]
+    lens = torch.tensor(lens, dtype=torch.int32)
     P = B * maxP + 16
     cfg = cfg or ModelConfig(**QWEN2_7B)
     cache = create_kv_cache(cfg, CacheConfig(page_size=PAGE, mode=mode), P,
-                            torch.bfloat16, dev)
+                            pool_dtype or torch.bfloat16, dev)
     if mode == CacheMode.DEFAULT:
         cache.k.copy_(torch.randn(cache.k.shape, generator=gen, device=dev))
         cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device=dev))
@@ -581,9 +648,71 @@ def paged_case(mode, gen, dev, cfg=None):
             t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02)
     perm = torch.randperm(P, generator=gen, device=dev)[:B * maxP]
     pt = perm.reshape(B, maxP).to(torch.int32)
+    if nan_garbage:
+        owned = torch.zeros((P, PAGE), dtype=torch.bool, device=dev)
+        for b, n in enumerate(lens.tolist()):
+            for j in range(-(-n // PAGE)):
+                owned[pt[b, j], :min(PAGE, n - j * PAGE)] = True
+        if mode == CacheMode.DEFAULT:
+            for t in (cache.k, cache.v):
+                t.masked_fill_(~owned[:, :, None], float("nan"))
+        else:
+            for t in (cache.k_qparams, cache.v_qparams):
+                t[:, :, :PAGE].masked_fill_(~owned[:, None, :], float("nan"))
+                t[:, :, PAGE:] = float("nan")     # the lanes' padding
+        used = (torch.arange(maxP)[None, :] * PAGE <
+                lens[:, None]).to(dev)
+        pt = torch.where(used, pt, torch.tensor(0x3FFFFFFF, device=dev,
+                                                dtype=torch.int32))
     q = torch.randn((B, cfg.num_heads, cfg.head_dim), generator=gen,
                     device=dev)
     return cache, pt, lens.to(dev), q, cfg
+
+
+# paged_attention's coverage: (G, head_dim, pool kind) at KH = 4, every KV
+# mode with the served bf16 q, the f32 pool with f32 q; D = 64 / 256 once
+# each kind at G = 4; the other (q, pool) pairs the wrapper admits, which
+# take the CUDA-core path (f32 q on a bf16 / int8 / uint4 pool, bf16 q on an
+# f32 pool), at G = 7 and D = 128 and at G = 4 and D = 64 / 256; plus a
+# batch whose (slot, head) pairs fill the card so that the sequence is one
+# chunk (the kernel writes the output itself)
+PA_COVER_G = (1, 2, 4, 7, 8)
+PA_COVER_D = (64, 256)
+PA_COVER_LENS = [0, 1, 63, 64, 65, 32 * PAGE, 777, 1500]   # 32 pages: full
+PA_KINDS = ("f32", "bf16", "int8", "uint4")
+PA_MIXED = (("bf16", "f32"), ("int8", "f32"), ("uint4", "f32"),
+            ("f32", "bf16"))                    # (pool kind, q dtype)
+
+
+def pa_cover_case(kind, G, D, gen, dev, B=DECODE_BATCH, KH=4, lens=None,
+                  q_dtype=None):
+    """One coverage case of paged_attention against its plain version, NaN
+    garbage past lens and out-of-range page-table entries; q in `q_dtype`
+    ("f32" or "bf16"; by default f32 on an f32 pool, else bf16). Returns
+    max|d|."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode, ModelConfig
+    from dashinfer_tpu_torch.ops import paged_attention as pa
+    mode = {"f32": CacheMode.DEFAULT, "bf16": CacheMode.DEFAULT,
+            "int8": CacheMode.INT8, "uint4": CacheMode.UINT4}[kind]
+    f32 = kind == "f32"
+    cfg = ModelConfig(**dict(QWEN2_7B, num_heads=KH * G, num_kv_heads=KH,
+                             head_dim=D, hidden_size=KH * G * D))
+    cache, pt, lens_t, q, _ = paged_case(
+        mode, gen, dev, cfg, B=B, lens=lens or PA_COVER_LENS,
+        pool_dtype=torch.float32 if f32 else torch.bfloat16,
+        nan_garbage=True)
+    q_dtype = q_dtype or ("f32" if f32 else "bf16")
+    q = q if q_dtype == "f32" else q.to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(D)
+    got = pa.paged_attention(q, cache, mode, pt, lens_t, scale)
+    ref = pa.paged_attention_plain(q, cache, mode, pt, lens_t, scale)
+    torch.cuda.synchronize()
+    what = f"paged_attention {kind} ({q_dtype} q) G={G} D={D} B={B} KH={KH}"
+    err = held_to_plain(got, ref, what)
+    zero = lens_t == 0
+    check(bool((got[zero] == 0).all()), f"{what}: lens 0 not 0")
+    return err
 
 
 def check_paged_attention(gen, dev, details):
@@ -592,6 +721,25 @@ def check_paged_attention(gen, dev, details):
     from dashinfer_tpu_torch.config import CacheMode
     from dashinfer_tpu_torch.ops import kv_ops
     from dashinfer_tpu_torch.ops import paged_attention as pa
+
+    def sdpa(qs, k, v, m):
+        return F.scaled_dot_product_attention(qs, k, v, attn_mask=m,
+                                              enable_gqa=True)
+
+    def sdpa_args(qb, cache, mode, pt, lens, kv_heads, copies=1):
+        """SDPA's operands on contiguous bf16 K/V gathered beforehand (`copies`
+        distinct copies, timed in turn: together larger than the L2)."""
+        k, v = kv_ops.gather_kv_pages(cache, mode, pt, kv_heads,
+                                      torch.bfloat16)      # [B, S, KH, D]
+        k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        S = k.shape[2]
+        mask = (torch.arange(S, device=dev)[None, :] <
+                lens[:, None])[:, None, None, :]
+        out = [(qb[:, :, None, :], k, v, mask)]
+        out += [(qb[:, :, None, :], k.clone(), v.clone(), mask)
+                for _ in range(copies - 1)]
+        return out
+
     rows, max_err = [], 0.0
     for mode in (CacheMode.DEFAULT, CacheMode.INT8, CacheMode.UINT4):
         cache, pt, lens, q, cfg = paged_case(mode, gen, dev)
@@ -609,17 +757,8 @@ def check_paged_attention(gen, dev, details):
         plain_ms = time_ms(pa.paged_attention_plain,
                            [(qb, cache, mode, pt, lens, scale)], iters=3)
         # yardstick: SDPA over contiguous bf16 K/V of the same lengths
-        k, v = kv_ops.gather_kv_pages(cache, mode, pt, cfg.num_kv_heads,
-                                      torch.bfloat16)      # [B, S, KH, D]
-        k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        S = k.shape[2]
-        mask = (torch.arange(S, device=dev)[None, :] <
-                lens[:, None])[:, None, None, :]
-        qs = qb[:, :, None, :]
-        library_ms = time_ms(
-            lambda a, b_, c, m: F.scaled_dot_product_attention(
-                a, b_, c, attn_mask=m, enable_gqa=True),
-            [(qs, k, v, mask)], iters=50)
+        library_ms = time_ms(sdpa, sdpa_args(qb, cache, mode, pt, lens,
+                                             cfg.num_kv_heads), iters=50)
         ntok = int(lens.sum().item())
         KH, D, H = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
         per_tok = {CacheMode.DEFAULT: 2 * D, CacheMode.INT8: D + 8,
@@ -642,38 +781,92 @@ def check_paged_attention(gen, dev, details):
     ref = pa.paged_attention_plain(qb, cache, CacheMode.INT8, pt, lens, scale)
     torch.cuda.synchronize()
     err = held_to_plain(got, ref, "paged_attention int8 G=1")
+    max_err = max(max_err, err)
     ms = time_ms(pa.paged_attention,
                  [(qb, cache, CacheMode.INT8, pt, lens, scale)], iters=50)
+    library_ms = time_ms(sdpa, sdpa_args(qb, cache, CacheMode.INT8, pt, lens,
+                                         mcfg.num_kv_heads), iters=50)
     rows.append(dict(mode="int8", H=mcfg.num_heads, KH=mcfg.num_kv_heads,
-                     max_abs_err=err, ms=ms))
+                     max_abs_err=err, ms=ms, library_ms=library_ms))
     print(f"paged_attention int8 G=1 (16 heads on 16) err={err:.2e} "
-          f"ms={ms:.4f}", flush=True)
+          f"ms={ms:.4f} lib={library_ms:.4f}", flush=True)
     del cache
-    # the same kernel on a pool larger than the 50 MB L2: one launch per
-    # layer over the 28 layers' pages of one long-context state (cold), and
-    # layer 0 alone again and again (L2-warm), at the same work per launch
-    long_lens = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
+    # coverage: every G the wrapper admits at D = 128, D = 64 / 256, every
+    # pool kind, lens 0 / 1 / a page boundary +-1 / a full table, NaN
+    # garbage past lens, out-of-range page-table entries
+    cover = []
+    for kind in PA_KINDS:
+        for G in PA_COVER_G:
+            cover.append((kind, G, 128, DECODE_BATCH, 4, None))
+        for D in PA_COVER_D:
+            cover.append((kind, 4, D, DECODE_BATCH, 4, None))
+    for kind, q_dtype in PA_MIXED:
+        cover.append((kind, 7, 128, DECODE_BATCH, 4, q_dtype))
+        for D in PA_COVER_D:
+            cover.append((kind, 4, D, DECODE_BATCH, 4, q_dtype))
+    cover.append(("int8", 1, 128, 40, 16, None))    # one chunk: 640 blocks
+    for kind, G, D, B, KH, q_dtype in cover:
+        err = pa_cover_case(kind, G, D, gen, dev, B=B, KH=KH,
+                            lens=None if B == DECODE_BATCH else
+                            [(0, 1, 63, 64, 65, 2048, 300, 900)[i % 8]
+                             for i in range(B)], q_dtype=q_dtype)
+        max_err = max(max_err, err)
+    print(f"paged_attention coverage: {len(cover)} cases held (G "
+          f"{PA_COVER_G} at D=128, D {PA_COVER_D}, kinds {PA_KINDS}, the "
+          f"(pool, q) pairs {PA_MIXED}, one single-chunk batch), max|d| "
+          f"{max_err:.2e}", flush=True)
+    torch.cuda.empty_cache()
+    # the long-context state (28 layers' pages of one INT8 pool, larger than
+    # the 50 MB L2): one launch a layer in turn (cold) and layer 0 again and
+    # again (L2-warm), at B = 8 and B = 32, beside SDPA on contiguous bf16
+    # K/V gathered beforehand, cold (distinct copies, together over 50 MB)
+    # and warm (one copy)
+    big = []
     mode = CacheMode.INT8
-    st = mk_state(cfg, mode, DECODE_BATCH, long_lens, None, gen, dev)
     L = cfg.num_layers
-    qb = torch.randn((DECODE_BATCH, cfg.num_heads, cfg.head_dim),
-                     generator=gen, device=dev).to(torch.bfloat16)
-    per_layer = [(qb, st["cache"], mode, (st["pt"] * L + l).to(torch.int32),
-                  st["lens"], scale) for l in range(L)]
-    cold_ms = time_ms(pa.paged_attention, per_layer, iters=L)
-    warm_ms = time_ms(pa.paged_attention, per_layer[:1], iters=L)
-    nbytes = kv_bytes_read(cfg, mode, long_lens, [1] * DECODE_BATCH) // L \
-        + 2 * qb.numel() * 2
-    pool_mb = sum(t.numel() * t.element_size() for t in
-                  (st["cache"].k, st["cache"].v, st["cache"].k_qparams,
-                   st["cache"].v_qparams)) / 1e6
-    big = dict(mode="int8", lens=long_lens, pool_mb=pool_mb, cold_ms=cold_ms,
-               warm_ms=warm_ms, **bounds(nbytes, 4.0 * sum(long_lens) *
-                                         cfg.num_heads * cfg.head_dim))
-    print(f"paged_attention int8 on a {pool_mb:.0f} MB pool, "
-          f"{sum(long_lens)} cached tokens: cold {cold_ms:.4f} ms/launch, "
-          f"L2-warm {warm_ms:.4f}, bound {big['bytes_ms']:.4f}", flush=True)
-    del st, per_layer
+    for B in (DECODE_BATCH, 32):
+        long_lens = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016] * (B // 8)
+        st = mk_state(cfg, mode, B, long_lens, None, gen, dev)
+        qb = torch.randn((B, cfg.num_heads, cfg.head_dim), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        per_layer = [(qb, st["cache"], mode,
+                      (st["pt"] * L + l).to(torch.int32), st["lens"], scale)
+                     for l in range(L)]
+        got = pa.paged_attention(*per_layer[3])
+        ref = pa.paged_attention_plain(*per_layer[3])
+        torch.cuda.synchronize()
+        err = held_to_plain(got, ref, f"paged_attention long context B={B}")
+        max_err = max(max_err, err)
+        cold_ms = time_ms(pa.paged_attention, per_layer, iters=L)
+        warm_ms = time_ms(pa.paged_attention, per_layer[:1], iters=L)
+        lib = sdpa_args(qb, st["cache"], mode, per_layer[0][3], st["lens"],
+                        cfg.num_kv_heads)
+        kv_mb = sum(t.numel() * t.element_size() for t in lib[0][1:3]) / 1e6
+        lib_copies = lib + [(a, k.clone(), v.clone(), m) for a, k, v, m in
+                            lib * (max(2, math.ceil(160 / kv_mb)) - 1)]
+        lib_cold = time_ms(sdpa, lib_copies, iters=len(lib_copies))
+        lib_warm = time_ms(sdpa, lib, iters=L)
+        del lib, lib_copies
+        nbytes = kv_bytes_read(cfg, mode, long_lens, [1] * B) // L \
+            + 2 * qb.numel() * 2
+        pool_mb = sum(t.numel() * t.element_size() for t in
+                      (st["cache"].k, st["cache"].v, st["cache"].k_qparams,
+                       st["cache"].v_qparams)) / 1e6
+        row = dict(mode="int8", B=B, lens=long_lens, pool_mb=pool_mb,
+                   max_abs_err=err, cold_ms=cold_ms, warm_ms=warm_ms,
+                   library_cold_ms=lib_cold, library_warm_ms=lib_warm,
+                   library_kv_mb=kv_mb,
+                   **bounds(nbytes, 4.0 * sum(long_lens) * cfg.num_heads *
+                            cfg.head_dim))
+        big.append(row)
+        print(f"paged_attention int8 B={B} on a {pool_mb:.0f} MB pool, "
+              f"{sum(long_lens)} cached tokens: cold {cold_ms:.4f} "
+              f"ms/launch, L2-warm {warm_ms:.4f}, bound "
+              f"{row['bytes_ms']:.4f}; SDPA cold {lib_cold:.4f}, warm "
+              f"{lib_warm:.4f} ({kv_mb:.0f} MB of bf16 K/V a copy); "
+              f"err={err:.2e}", flush=True)
+        del st, per_layer
+        torch.cuda.empty_cache()
     details["paged_attention"] = rows
     details["paged_attention_large_pool"] = big
     # the served model's INT8 cache: one launch per layer per decode step
@@ -2156,10 +2349,25 @@ def check_stream_probe(dev, details):
     details["stream_probe"] = rows
     u4 = next(r for r in rows if r["format"] == "u4_g128"
               and r["B"] == DECODE_BATCH)
+    # yardstick: one torch.matmul of the same x and a bf16 matrix of the
+    # leaf's shape (a dequantized leaf; only the product is timed, as for
+    # quant_matmul; 271 MB, so every call reads it from HBM)
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    x = torch.randn((DECODE_BATCH, u4["K"]), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    w = torch.randn((u4["K"], u4["N"]), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    library_ms = time_ms(torch.matmul, [(x, w)], iters=10)
+    del w
+    print(f"stream_probe u4_g128 B={DECODE_BATCH}: library torch.matmul on "
+          f"the bf16 [{u4['K']}, {u4['N']}] leaf {library_ms:.4f} ms",
+          flush=True)
     return dict(launches=launches,
                 max_abs_err=max(r["max_abs_err"] for r in rows
                                 if r["format"] != "copy"),
-                ms=u4["ms"], plain_ms=u4["plain_ms"], library_ms=None,
+                ms=u4["ms"], plain_ms=u4["plain_ms"], library_ms=library_ms,
                 bound_ms=max(u4["bytes_ms"], u4["ops_ms"]),
                 bound_by="bytes" if u4["bytes_ms"] >= u4["ops_ms"]
                 else "operations")
@@ -2195,6 +2403,8 @@ def check_probes(dev, details):
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
         shape=f"magic16 chain, {m16['chunks']} chunks", ms=m16["ms"],
         plain_ms=m16["plain_ms"], library_ms=None,
+        library_note="no single PyTorch call: unpacking u4 nibbles takes a "
+        "shift, a mask and a conversion before the dot",
         us_per_chunk={r["chain"]: r["us_per_chunk"] for r in rows},
         bound_ms=max(b.values()),
         bound_by="bytes" if b["bytes_ms"] >= b["ops_ms"] else "operations")
@@ -2211,10 +2421,25 @@ def check_probes(dev, details):
     check(launches > 0, "probe_reshape launched no kernel")
     details["probe_reshape"] = rows
     first = rows[0]
+    # yardstick: the one PyTorch call that makes the same layout, F.pad of
+    # q.view(B, KH, G, D) with 8 - G zero rows (28 calls in a graph, as the
+    # tool times the kernel)
+    import torch
+    import torch.nn.functional as F
+    q = torch.randn((prs.B, prs.H * prs.D), device=dev)
+    G = prs.H // prs.KH
+    want = prs.relayout_plain(q, prs.KH)
+    check(torch.equal(F.pad(q.view(prs.B, prs.KH, G, prs.D),
+                            (0, 0, 0, prs.G8 - G)), want),
+          "probe_reshape: the F.pad yardstick differs from the plain version")
+    library_ms = time_ms(lambda: F.pad(q.view(prs.B, prs.KH, G, prs.D),
+                                       (0, 0, 0, prs.G8 - G)), [()], iters=28)
+    print(f"probe_reshape library F.pad {1e3 * library_ms:.2f} us a "
+          "re-layout", flush=True)
     out["probe_reshape"] = dict(
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
         shape=f"variant {first['variant']}", ms=first["ms"],
-        plain_ms=first["plain_ms"], library_ms=None,
+        plain_ms=first["plain_ms"], library_ms=library_ms,
         us_by_variant={r["variant"]: 1e3 * r["ms"] for r in rows},
         bound_ms=bounds(first["bytes"], 0)["bytes_ms"], bound_by="bytes")
     return out

@@ -1,5 +1,6 @@
 // Device code shared by the kernels of this directory (sm_90a): type
-// helpers, warp reductions, cp.async, ldmatrix, the mma.sync m16n8k16 dot, quant_matmul's
+// helpers, warp reductions, cp.async, ldmatrix, the mma.sync m16n8k16 dot,
+// int8 / u4 levels made bf16 in registers, quant_matmul's
 // B fragments made from row-major u4 / int8 payload, the KV-pool row loads
 // of the attention kernels, and the grid-wide barrier of the persistent
 // (megakernel) grids.
@@ -103,6 +104,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t bf16_bits(float v) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(v)));
+}
+
+// Byte i of a word whose bytes were xor'ed with 0x80, as the exact int8
+// value in f32 (2^23 + (x + 128), less 2^23 + 128).
+__device__ __forceinline__ float i8_level(uint32_t w_flipped, int i) {
+  return __int_as_float(__byte_perm(w_flipped, 0x4B000000u, i | 0x7650)) -
+         8388736.f;
+}
+
+// u4 levels of bytes 0 and 2 of `pair`, each in its bf16 half as
+// bf16(128 + n) = 0x4300 | n: the low nibbles (u4_lo) or the high (u4_hi).
+__device__ __forceinline__ uint32_t u4_lo(uint32_t pair) {
+  return (pair & 0x000F000Fu) | 0x43004300u;
+}
+__device__ __forceinline__ uint32_t u4_hi(uint32_t pair) {
+  return ((pair >> 4) & 0x000F000Fu) | 0x43004300u;
 }
 
 // B fragments of one k16 step for the low- and high-column mma tiles of a

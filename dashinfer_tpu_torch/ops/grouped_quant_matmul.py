@@ -23,7 +23,11 @@ weights per tile. What lives here:
   CPU tensors), with its launch count `grouped_quant_matmul.counter`, and
   `grouped_quant_matmul_plain`, the Pallas `_gkernel`'s formulation:
   bf16 operands, the affine after the dot per K tile
-  (`acc += part * scale + xsum * zero`, xsum over the f32 x), f32 sums.
+  (`acc += part * scale + xsum * zero`, xsum over the f32 x), f32 sums;
+* the wrapper's host-side rules as pure functions: `check_operands` (what
+  the kernel refuses) and `block_shape` (which of the kernel's block
+  shapes a call takes, from static shapes; the kernel's launch derives its
+  grid and shared memory from that shape).
 """
 
 import ctypes
@@ -38,9 +42,15 @@ from dashinfer_tpu_torch.utils import EnvConfig
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # xs, tile_expert, tile_rows, w, bits, scale, zero, out, Mcap, K, N, G, E,
-# TM, launches, stream
-_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
+# TM, shape, launches, stream
+_ARGTYPES = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+             _P]
 KERNEL_TMS = (16, 32, 64)     # M tiles the CUDA kernel is built for
+# csrc/grouped_quant_matmul.cu's block shapes (kShapes): payload bytes a
+# lane reads of a K row (a block's item: 32x that), tile rows a block
+# covers, ring stages
+SHAPES = ((2, 32, 4), (4, 16, 4), (4, 32, 3))
+ONE_ROW, FEW_ROWS = 1.5, 12   # rows an expert gets on average: shape rule
 
 
 def _round_up(x: int, m: int) -> int:
@@ -264,24 +274,29 @@ def grouped_quant_matmul_plain(xs: torch.Tensor, tile_expert: torch.Tensor,
     return out
 
 
-def grouped_quant_matmul(xs: torch.Tensor, tile_expert: torch.Tensor,
-                         leaf: Dict, out_dtype=torch.bfloat16,
-                         tile_rows: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
-    """xs: [Mcap, K] bf16 boundary-padded sorted tokens (Mcap % TM == 0,
-    every TM tile single-expert); tile_expert: [Mcap/TM] int32; leaf: the
-    per-layer quantized expert stack {"w_q" [E, K, N(/2)], "scale"/"zero"
-    [E, G, N]}; tile_rows: optional int32 [Mcap/TM] real rows per tile
-    (`tile_row_counts`), which lets the kernel skip empty 16-row slices.
-    Returns [Mcap, N] bf16. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if xs.device.type == "cpu":
-        return grouped_quant_matmul_plain(xs, tile_expert, leaf, out_dtype,
-                                          tile_rows)
-    if not xs.is_cuda:
-        raise ValueError(f"grouped_quant_matmul: unsupported device "
-                         f"{xs.device}")
-    dev = xs.device
+def block_shape(Mcap: int, TM: int, E: int) -> int:
+    """The kernel's block shape (a row of SHAPES) from static shapes alone
+    (routing is the card's; the call stays CUDA-graph capturable), by the
+    routed rows an expert gets on average, r = (Mcap - E * TM) / E (rows
+    rounded up to TM): below ONE_ROW (a decode batch: ~25 of 60 experts
+    hold a row or two) narrow items of 64 payload bytes a K row, twice the
+    blocks; up to FEW_ROWS (prefills up to bucket 128) 128-byte items and
+    16 rows a block; beyond, 32 rows a block (the products' operations
+    start to count). Measured on the card at Qwen1.5-MoE width
+    (PERF.md)."""
+    rows = max(Mcap - E * TM, 0)
+    if rows < ONE_ROW * E:
+        return 0
+    return 1 if rows <= FEW_ROWS * E else 2
+
+
+def check_operands(xs: torch.Tensor, tile_expert: torch.Tensor, leaf: Dict,
+                   out_dtype=torch.bfloat16,
+                   tile_rows: Optional[torch.Tensor] = None
+                   ) -> Tuple[int, int, int, int, int]:
+    """The kernel's refusal rules (raise on what it does not take); returns
+    (bits, TM, N, G, E). Shapes, dtypes, devices, contiguity and alignment
+    only: nothing is launched or synchronised."""
     w_q, scale, zero = leaf["w_q"], leaf["scale"], leaf["zero"]
     Mcap, K = xs.shape
     n_tiles = tile_expert.shape[0]
@@ -310,19 +325,44 @@ def grouped_quant_matmul(xs: torch.Tensor, tile_expert: torch.Tensor,
                              f"[{n_tiles}]")
     for t in (xs, tile_expert, w_q, scale, zero) + \
             ((tile_rows,) if tile_rows is not None else ()):
-        if t.device != dev or not t.is_contiguous():
+        if t.device != xs.device or not t.is_contiguous():
             raise ValueError("grouped_quant_matmul: operands must be "
                              "contiguous and on one device")
     if w_q.data_ptr() % 16 or xs.data_ptr() % 16:
         raise ValueError("grouped_quant_matmul: xs and the payload must be "
                          "16-byte aligned")
+    return bits, TM, N, G, E
+
+
+def grouped_quant_matmul(xs: torch.Tensor, tile_expert: torch.Tensor,
+                         leaf: Dict, out_dtype=torch.bfloat16,
+                         tile_rows: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """xs: [Mcap, K] bf16 boundary-padded sorted tokens (Mcap % TM == 0,
+    every TM tile single-expert); tile_expert: [Mcap/TM] int32; leaf: the
+    per-layer quantized expert stack {"w_q" [E, K, N(/2)], "scale"/"zero"
+    [E, G, N]}; tile_rows: optional int32 [Mcap/TM] real rows per tile
+    (`tile_row_counts`): the kernel reads only those rows (none: every row)
+    and writes 0 past them. Returns [Mcap, N] bf16. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if xs.device.type == "cpu":
+        return grouped_quant_matmul_plain(xs, tile_expert, leaf, out_dtype,
+                                          tile_rows)
+    if not xs.is_cuda:
+        raise ValueError(f"grouped_quant_matmul: unsupported device "
+                         f"{xs.device}")
+    dev = xs.device
+    bits, TM, N, G, E = check_operands(xs, tile_expert, leaf, out_dtype,
+                                       tile_rows)
+    Mcap, K = xs.shape
     out = torch.empty((Mcap, N), dtype=torch.bfloat16, device=dev)
     fn = kernel_build.function("grouped_quant_matmul",
                                "di_grouped_quant_matmul", _ARGTYPES)
     rc = fn(xs.data_ptr(), tile_expert.data_ptr(),
             tile_rows.data_ptr() if tile_rows is not None else None,
-            w_q.data_ptr(), bits, scale.data_ptr(), zero.data_ptr(),
-            out.data_ptr(), Mcap, K, N, G, E, TM,
+            leaf["w_q"].data_ptr(), bits, leaf["scale"].data_ptr(),
+            leaf["zero"].data_ptr(), out.data_ptr(), Mcap, K, N, G, E, TM,
+            block_shape(Mcap, TM, E),
             grouped_quant_matmul.counter.pointer(dev),
             kernel_build.stream_handle(dev))
     if rc != 0:

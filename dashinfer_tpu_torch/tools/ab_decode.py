@@ -1,14 +1,21 @@
-"""The decode or prefill megakernel of two checkouts, side by side on one
-card.
+"""The decode or prefill megakernel, or the per-op paged attention and
+grouped GEMM, of two checkouts, side by side on one card.
 
 Times one decode forward of csrc/megakernel.cu at Qwen2-7B width (a16w4,
 B = 8, INT8 KV, chip_smoke.py's state and random weights), with `--moe`
 one decode forward of its MoE branch at Qwen1.5-MoE-A2.7B width at B = 8
 and B = 32 (chip_smoke.py's MoE weights and states), or with `--prefill`
 one launch of csrc/prefill_megakernel.cu for a full bucket of 128 and of
-1024 (the Qwen2-7B weights, INT8 KV, chip_smoke.py's inputs), for each
-checkout root given, in the order given, each in a process of its own
-that imports that checkout's `dashinfer_tpu_torch` and `chip_smoke.py`.
+1024 (the Qwen2-7B weights, INT8 KV, chip_smoke.py's inputs), or with
+`--kernels` the per-op paged_attention (chip_smoke.py's INT8 check pool,
+Qwen2-7B's 28 heads on 4 and Qwen1.5-MoE's 16 on 16, and its long-context
+state at B = 8 and 32, one launch a layer in turn: cold) and
+grouped_quant_matmul (Qwen1.5-MoE width, u4, the bucket-32, 128 and 1024
+prefills' routed rows, gate and down) and, for what the two move end to
+end, the per-op decode forward of Qwen2-7B and of Qwen1.5-MoE at B = 8 on
+chip_smoke.py's INT8 state, for each checkout root given, in the order
+given, each in a process of its own that imports that checkout's
+`dashinfer_tpu_torch` and `chip_smoke.py`.
 The kernels are built first, all roots at once. Give the parent and the
 change as `PARENT CHANGE CHANGE PARENT` to see drift between runs. Prints
 one JSON line a run, the card's `nvidia-smi` name and power limit, and the
@@ -17,20 +24,123 @@ ptxas registers and spills of each root's kernel instantiations.
     python -m dashinfer_tpu_torch.tools.ab_decode build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --moe build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --prefill build/parent . . build/parent
+    python -m dashinfer_tpu_torch.tools.ab_decode --kernels build/parent . . build/parent
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
 
-# (kernel source, its entry function's name in the ptxas log) by mode
-_KERNELS = {"decode": ("megakernel", "mk_kernel"),
-            "moe": ("megakernel", "mk_kernel"),
-            "prefill": ("prefill_megakernel", "pmk_kernel")}
-_FLAGS = {"--prefill": "prefill", "--moe": "moe"}
+# ((kernel source, its entry function's name in the ptxas log), ...) by mode
+_KERNELS = {"decode": (("megakernel", "mk_kernel"),),
+            "moe": (("megakernel", "mk_kernel"),),
+            "prefill": (("prefill_megakernel", "pmk_kernel"),),
+            "kernels": (("paged_attention", "pa_kernel"),
+                        ("grouped_quant_matmul", "gqm_kernel"))}
+_FLAGS = {"--prefill": "prefill", "--moe": "moe", "--kernels": "kernels"}
 PREFILL_BUCKETS = (128, 1024)
 MOE_BATCHES = (8, 32)
+GQM_TS = (32, 128, 1024)
+LONG_LENS = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
+
+
+def _gqm_leaves(cs, cfg, dev):
+    """gate and down stacks of one layer (chip_smoke.py's distribution),
+    in the kernel's layout."""
+    import torch
+    from dashinfer_tpu_torch.ops import grouped_quant_matmul as gqm
+    E, hid = cfg.moe.num_experts, cfg.hidden_size
+    Im = cfg.moe.moe_intermediate_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED + 11)
+
+    def qlin(kin, kout):
+        scale = torch.rand((1, E, kin // cs.GROUP, kout), generator=gen,
+                           device=dev) * 0.002 + 1e-4
+        w_q = torch.randint(0, 256, (1, E, kin, kout // 2),
+                            dtype=torch.uint8, generator=gen, device=dev)
+        return {"w_q": w_q, "scale": scale, "zero": -scale * 8.0}
+
+    ex = {"gate_proj": qlin(hid, Im), "down_proj": qlin(Im, hid)}
+    gqm.prepare_grouped_experts({"layers": {"experts": ex}}, cfg)
+    return {name: {k: v[0] for k, v in ex[key].items()}
+            for name, key in (("gate", "gate_proj"), ("down", "down_proj"))}
+
+
+def _kernels(cs, root: str) -> dict:
+    """`--kernels`: the per-op attention and grouped GEMM of `root`."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode, ModelConfig
+    from dashinfer_tpu_torch.models import transformer
+    from dashinfer_tpu_torch.ops import grouped_quant_matmul as gqm
+    from dashinfer_tpu_torch.ops import paged_attention as pa
+    dev = torch.device("cuda", 0)
+    out = {"root": root}
+    with torch.no_grad():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        cfg = ModelConfig(**cs.QWEN2_7B)
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+        mode = CacheMode.INT8
+        for name, mcfg in (("G7", None), ("G1", cs.moe_config())):
+            cache, pt, lens, q, _ = cs.paged_case(mode, gen, dev, mcfg)
+            args = (q.to(torch.bfloat16), cache, mode, pt, lens, scale)
+            out[f"pa_check_{name}_ms"] = cs.time_ms(pa.paged_attention,
+                                                    [args], iters=50)
+            del cache
+        L = cfg.num_layers
+        for B in (8, 32):
+            st = cs.mk_state(cfg, mode, B, LONG_LENS * (B // 8), None, gen,
+                             dev)
+            qb = torch.randn((B, cfg.num_heads, cfg.head_dim), generator=gen,
+                             device=dev).to(torch.bfloat16)
+            per_layer = [(qb, st["cache"], mode,
+                          (st["pt"] * L + l).to(torch.int32), st["lens"],
+                          scale) for l in range(L)]
+            out[f"pa_long_B{B}_cold_ms"] = cs.time_ms(pa.paged_attention,
+                                                      per_layer, iters=L)
+            del st, per_layer
+            torch.cuda.empty_cache()
+        mcfg = cs.moe_config(layers=1)
+        leaves = _gqm_leaves(cs, mcfg, dev)
+        E, k = mcfg.moe.num_experts, mcfg.moe.num_experts_per_tok
+        TM = gqm.default_tm()
+        gen.manual_seed(cs.SEED + 12)
+        for T in GQM_TS:
+            topk_i = torch.rand((T, E), generator=gen,
+                                device=dev).topk(k).indices
+            order, stok, pos, te = gqm.build_group_layout(topk_i, E, TM)
+            trows = gqm.tile_row_counts(pos, te.shape[0], TM)
+            for name, leaf in leaves.items():
+                K = leaf["w_q"].shape[1]
+                xs = torch.zeros((te.shape[0] * TM, K), dtype=torch.bfloat16,
+                                 device=dev)
+                xs[pos] = torch.randn((T * k, K), generator=gen,
+                                      device=dev).to(torch.bfloat16)
+                out[f"gqm_{name}_T{T}_ms"] = cs.time_ms(
+                    lambda: gqm.grouped_quant_matmul(xs, te, leaf,
+                                                     tile_rows=trows),
+                    [()], iters=20)
+        out["gqm_layer_T32_ms"] = (2 * out["gqm_gate_T32_ms"] +
+                                   out["gqm_down_T32_ms"])
+        del leaves, xs
+        torch.cuda.empty_cache()
+        for name, fcfg, make in (
+                ("qwen2_7b", cfg, lambda: cs.random_qwen2_7b_params(
+                    cs.SEED, dev)),
+                ("qwen15_moe", cs.moe_config(), lambda: cs.random_moe_params(
+                    cs.moe_config(), cs.SEED + 13, dev))):
+            params = make()
+            st = cs.mk_state(fcfg, mode, 8, cs.MK_LENS, None, gen, dev)
+            out[f"per_op_decode_{name}_ms"] = cs.time_ms(
+                lambda: transformer.decode_forward(
+                    fcfg, params, st["tokens"], st["cache"], st["pt"],
+                    st["lens"], st["active"], mode=mode), [()], iters=3)
+            del params, st
+            torch.cuda.empty_cache()
+    return out
 
 
 def _one(root: str, build_only: bool, mode: str) -> None:
@@ -42,15 +152,18 @@ def _one(root: str, build_only: bool, mode: str) -> None:
     import chip_smoke as cs
     from dashinfer_tpu_torch.config import CacheMode, ModelConfig
     from dashinfer_tpu_torch.ops import kernel_build
-    source, entry = _KERNELS[mode]
-    kernel_build.build([source])
+    kernel_build.build([source for source, _ in _KERNELS[mode]])
     if build_only:
-        log = kernel_build.build_logs.get(source, "")
-        lines = log.splitlines()
-        regs = [" ".join(lines[i:i + 3]) for i, ln in enumerate(lines)
-                if "Compiling entry function" in ln and entry in ln]
+        regs = []
+        for source, entry in _KERNELS[mode]:
+            lines = kernel_build.build_logs.get(source, "").splitlines()
+            regs += [" ".join(lines[i:i + 3]) for i, ln in enumerate(lines)
+                     if "Compiling entry function" in ln and entry in ln]
         print("AB_BUILD", json.dumps({"root": root, "ptxas": regs}),
               flush=True)
+        return
+    if mode == "kernels":
+        print("AB", json.dumps(_kernels(cs, root)), flush=True)
         return
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
