@@ -1374,9 +1374,14 @@ MK_LENS = [37, 64, 150, 300, 1, 127, 256, 500]   # 64, 256: page boundaries
 MK_INACTIVE = 5
 
 
-def mk_state(cfg, mode, B, lens, inactive, gen, dev, max_len=2048):
+def mk_state(cfg, mode, B, lens, inactive, gen, dev, max_len=2048,
+             nan_fill=False, dtype="bfloat16"):
     """A random pool (payload and qparams) with distinct logical pages per
-    slot, and the step's inputs."""
+    slot, and the step's inputs. `nan_fill`: every pool element of a float
+    pool and every qparam element that no token < lens owns (rows past a
+    slot's length, pages no slot holds, the qparams' lanes past the page)
+    holds NaN, which the kernels must never read. `dtype`: the runtime's
+    (an unquantized pool's element type)."""
     import torch
     from dashinfer_tpu_torch.config import CacheConfig, CacheMode
     from dashinfer_tpu_torch.engine.steps import _rope_tiles
@@ -1385,7 +1390,8 @@ def mk_state(cfg, mode, B, lens, inactive, gen, dev, max_len=2048):
     # logical pages 1 .. B*maxP; the last physical page is the per-op
     # path's sink for inactive slots
     cache = create_kv_cache(cfg, CacheConfig(page_size=PAGE, mode=mode),
-                            (B * maxP + 1) * L + 1, torch.bfloat16, dev)
+                            (B * maxP + 1) * L + 1, getattr(torch, dtype),
+                            dev)
     for t in (cache.k, cache.v):
         if mode == CacheMode.DEFAULT:
             t.normal_(generator=gen)
@@ -1401,6 +1407,21 @@ def mk_state(cfg, mode, B, lens, inactive, gen, dev, max_len=2048):
                 t[:, 1::2] -= 0.75 * lo
     pt = (1 + torch.arange(B * maxP, dtype=torch.int32, device=dev)
           ).reshape(B, maxP)
+    if nan_fill:
+        owned = torch.zeros(cache.k.shape[:2], dtype=torch.bool, device=dev)
+        tok = torch.arange(maxP * PAGE, device=dev)
+        for b, n in enumerate(lens):
+            keep = tok < n
+            pages = pt[b].long()[tok // PAGE][keep]
+            for l in range(L):
+                owned[pages * L + l, (tok % PAGE)[keep]] = True
+        if mode == CacheMode.DEFAULT:
+            for t in (cache.k, cache.v):
+                t[~owned] = float("nan")
+        else:
+            for t in (cache.k_qparams, cache.v_qparams):
+                t[:, :, PAGE:] = float("nan")
+                t[:, :, :PAGE].masked_fill_(~owned[:, None, :], float("nan"))
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     if inactive is not None:
@@ -1411,12 +1432,12 @@ def mk_state(cfg, mode, B, lens, inactive, gen, dev, max_len=2048):
                 cos=cos, sin=sin)
 
 
-def mk_plan_pack(cfg, params, B, mode):
+def mk_plan_pack(cfg, params, B, mode, dtype="bfloat16"):
     """(plan, packed) of the megakernel for a max_batch-B runtime."""
     from dashinfer_tpu_torch.config import RuntimeConfigBuilder
     from dashinfer_tpu_torch.ops import megakernel as mk
     rt = (RuntimeConfigBuilder("mk").max_length(2048).max_batch(B)
-          .kv_cache_page_size(PAGE).kv_cache_mode(mode).dtype("bfloat16")
+          .kv_cache_page_size(PAGE).kv_cache_mode(mode).dtype(dtype)
           .build())
     check(mk.supports(cfg, rt, params), "megakernel.supports said no")
     plan = mk.make_plan(cfg, rt, params)
@@ -1456,10 +1477,15 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev,
     pool_err = qp_err = qp_err0 = 0.0
     quant = mode != CacheMode.DEFAULT
     held = written if exempt is None else written & ~exempt
+
+    def same(x, y):          # NaN garbage past lens stays NaN
+        return bool(((x == y) | (x.isnan() & y.isnan())).all()) \
+            if x.is_floating_point() else bool((x == y).all())
+
     for name in ("k", "v"):
         a, r, b0 = (getattr(c, name) for c in (got, ref_cache,
                                                before))
-        check(bool((a[~written] == b0[~written]).all()),
+        check(same(a[~written], b0[~written]),
               f"{what}: {name} pool changed outside the written tokens")
         check(bool((a[written] != b0[written]).any(-1).all()),
               f"{what}: a new token's {name} row was not written")
@@ -1517,8 +1543,9 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev,
         if quant:
             a, r, b0 = (getattr(c, name + "_qparams") for c in
                         (got, ref_cache, before))
-            wq = written_all[:, None, :].expand_as(a)
-            check(bool((a[~wq] == b0[~wq]).all()),
+            wq = torch.zeros_like(a, dtype=torch.bool)
+            wq[..., :written_all.shape[1]] = written_all[:, None, :]
+            check(same(a[~wq], b0[~wq]),
                   f"{what}: {name} qparams changed outside the written "
                   "tokens")
             # [pages, ps, 2*KH] at the written tokens: scale rows even,
@@ -1543,18 +1570,22 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev,
 
 
 def check_megakernel_case(cfg, params, stream, mode, gen, dev,
-                          lens=None, inactive=None):
+                          lens=None, inactive=None, nan_fill=False,
+                          dtype="bfloat16"):
     """One step (B = 8 unless `lens` says otherwise) through the kernel and
     through the plain version, on clones of one pool: logits of the active
-    rows, the written token, and every other pool byte."""
+    rows, the written token, and every other pool byte (`nan_fill`: with
+    NaN in every element no token < lens owns, `mk_state`; `dtype`
+    "float32": an f32 DEFAULT pool, the attention's CUDA-core path)."""
     import torch
     from dashinfer_tpu_torch.config import CacheMode
     from dashinfer_tpu_torch.ops import megakernel as mk
     if lens is None:
         lens, inactive = MK_LENS, MK_INACTIVE
     B, L = len(lens), cfg.num_layers
-    plan, packed = mk_plan_pack(cfg, params, B, mode)
-    st = mk_state(cfg, mode, B, lens, inactive, gen, dev)
+    plan, packed = mk_plan_pack(cfg, params, B, mode, dtype)
+    st = mk_state(cfg, mode, B, lens, inactive, gen, dev, nan_fill=nan_fill,
+                  dtype=dtype)
     x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
     before = st["cache"]
     caches = {True: before.clone(), False: before.clone()}
@@ -1567,7 +1598,10 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
                                           routing=routing)
     torch.cuda.synchronize()
     what = f"megakernel {stream}/{mode.value}" + (
-        f" B={B}" if B != DECODE_BATCH else "")
+        f" B={B}" if B != DECODE_BATCH else "") + (
+        f" (cached tokens {sum(lens)})" if sum(lens) > 10000 else "") + (
+        " NaN past lens" if nan_fill else "") + (
+        " f32 pool" if dtype == "float32" else "")
     act = st["active"].clone()
     flips, exempt, planted, budget = [], None, None, None
     if plan.E:
@@ -1771,6 +1805,13 @@ def time_megakernel(cfg, params, stream, B, lens, gen, dev, per_op=True):
                ms=time_ms(run, [(False,)], iters=5),
                no_attention_ms=time_ms(run, [(True,)], iters=5))
     mk.check_status(plan, dev)
+    # at mpad 16 the block's shared memory (the product ring, the attention
+    # tiles, the norm slabs) and registers leave two blocks an SM
+    geo = row["geometry"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(geo["mpad"] != 16 or geo["grid"] == 2 * sms,
+          f"megakernel {stream} B={B}: grid {geo['grid']} at mpad 16, not "
+          f"two blocks on each of {sms} SMs")
     # where one launch's time goes: block 0's timestamps, by phase kind
     trace = torch.zeros(mk.trace_len(plan), dtype=torch.int64, device=dev)
     mk.decode_megakernel(plan, packed, x0, st["cos"], st["sin"], st["pt"],
@@ -1838,6 +1879,22 @@ def check_megakernel(params, dev, details):
                                        dev, lens32, 17))
     cases.append(check_megakernel_case(cfg, i8_params, "i8", CacheMode.INT8,
                                        gen, dev, lens32, 17))
+    long_lens = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
+    # B = 1: one live row of the weights-as-A product's first n8 tile; the
+    # long-context state (16 chunks of a slot's attention); NaN in every
+    # element no token < lens owns, for each KV mode
+    cases.append(check_megakernel_case(cfg, params, "u4", CacheMode.INT8, gen,
+                                       dev, [700], None))
+    cases.append(check_megakernel_case(cfg, params, "u4", CacheMode.INT8, gen,
+                                       dev, long_lens, None))
+    for mode in (CacheMode.INT8, CacheMode.UINT4, CacheMode.DEFAULT):
+        cases.append(check_megakernel_case(cfg, params, "u4", mode, gen, dev,
+                                           nan_fill=True))
+    # an f32 DEFAULT pool (a float32 runtime): the attention's CUDA-core
+    # path, 8-token warp tiles
+    cases.append(check_megakernel_case(cfg, params, "u4", CacheMode.DEFAULT,
+                                       gen, dev, nan_fill=True,
+                                       dtype="float32"))
     # the plain version's time (one run, host clock around a synchronize)
     plan, packed = mk_plan_pack(cfg, params, DECODE_BATCH, CacheMode.INT8)
     st = mk_state(cfg, CacheMode.INT8, DECODE_BATCH, MK_LENS, None, gen, dev)
@@ -1849,7 +1906,6 @@ def check_megakernel(params, dev, details):
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     del st, plan, packed
-    long_lens = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
     times.append(time_megakernel(cfg, params, "u4", 8, MK_LENS, gen, dev))
     times.append(time_megakernel(cfg, params, "u4", 8, long_lens, gen, dev))
     times.append(time_megakernel(cfg, params, "u4", 32, lens32, gen, dev))
@@ -1883,8 +1939,19 @@ def check_megakernel_moe(cfg, params, dev, details):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
     cases = [check_megakernel_case(cfg, params, "u4 MoE", mode, gen, dev)
-             for mode in (CacheMode.INT8, CacheMode.UINT4,
-                          CacheMode.DEFAULT)]
+             for mode in (CacheMode.INT8, CacheMode.UINT4)]
+    drawn = gen.get_state()
+    cases.append(check_megakernel_case(cfg, params, "u4 MoE",
+                                       CacheMode.DEFAULT, gen, dev))
+    # the same DEFAULT state (the same draw) with NaN in every float pool
+    # element no token < lens owns (G = 1): what the kernel reads is the
+    # state above, so its routing and rows must hold as they did there
+    after = gen.get_state()
+    gen.set_state(drawn)
+    cases.append(check_megakernel_case(cfg, params, "u4 MoE",
+                                       CacheMode.DEFAULT, gen, dev,
+                                       nan_fill=True))
+    gen.set_state(after)
     lens32 = [(37 + 61 * i) % 1500 + 1 for i in range(32)]
     cases.append(check_megakernel_case(cfg, params, "u4 MoE", CacheMode.INT8,
                                        gen, dev, lens32, 17))

@@ -1,9 +1,9 @@
 // Device code shared by the kernels of this directory (sm_90a): type
-// helpers, warp reductions, cp.async, ldmatrix, the mma.sync m16n8k16 dot,
-// int8 / u4 levels made bf16 in registers, quant_matmul's
-// B fragments made from row-major u4 / int8 payload, the KV-pool row loads
-// of the attention kernels, and the grid-wide barrier of the persistent
-// (megakernel) grids.
+// helpers, warp reductions, cp.async, 1-D bulk copies (TMA) completing on
+// mbarriers, ldmatrix, the mma.sync m16n8k16 dot, int8 / u4 levels made
+// bf16 in registers, quant_matmul's B fragments made from row-major u4 /
+// int8 payload, the KV-pool row loads of the attention kernels, and the
+// grid-wide barrier of the persistent (megakernel) grids.
 
 #pragma once
 
@@ -14,6 +14,8 @@
 
 namespace di {
 
+constexpr int kMaxG = 8;                  // query heads per KV head
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -23,8 +25,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float2 bf16_round2(float2 v) {
-  return __bfloat1622float2(__float22bfloat162_rn(v));
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -61,6 +63,99 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+constexpr unsigned long long kBarrierTimeoutNs = 4000000000ull;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// mbarriers in shared memory and the 1-D bulk copy (cp.async.bulk, the
+// TMA's linear mode) that completes on one: a stage's "full" barrier is
+// armed with the bytes its copies bring (arrive.expect_tx) and completes
+// when they have landed; its "empty" barrier completes when every consumer
+// warp has arrived. A barrier's phase parity flips each time it completes.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// the barriers' initialisation, visible to the copy engine
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// this thread's earlier shared-memory accesses, ordered before later bulk
+// copies into the same memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// status value of a ring wait that gave up (a grid barrier's is phase + 1)
+constexpr int kRingTimeout = -1;
+// Waits for phase `parity` of `bar` to complete. Bounded like the grid
+// barrier: after kBarrierTimeoutNs it marks `status` (kRingTimeout) and
+// returns, and once `status` holds a fault every wait returns at once, so
+// a fault ends the launch instead of hanging it.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity,
+                                          int* status) {
+  if (mbar_try_wait(bar, parity)) return;
+  unsigned spins = 0;
+  unsigned long long t0 = 0;
+  while (!mbar_try_wait(bar, parity)) {
+    if ((++spins & 0xFFu) == 0) {
+      if (*reinterpret_cast<volatile int*>(status) != 0) return;
+      const unsigned long long now = global_ns();
+      if (t0 == 0) {
+        t0 = now;
+      } else if (now - t0 > kBarrierTimeoutNs) {
+        atomicCAS(status, 0, kRingTimeout);
+        return;
+      }
+    }
+  }
+}
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // d += A (16x16 bf16, row) * B (16x8 bf16, col), f32 accumulate
@@ -197,14 +292,6 @@ __device__ __forceinline__ int dim_of(int lane, int i) {
     return i < DPL / 2 ? lane * (DPL / 2) + i
                        : 16 * DPL + lane * (DPL / 2) + (i - DPL / 2);
   return lane * DPL + i;
-}
-
-constexpr unsigned long long kBarrierTimeoutNs = 4000000000ull;
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
 }
 
 // Grid-wide barrier of a persistent grid whose blocks are all co-resident:

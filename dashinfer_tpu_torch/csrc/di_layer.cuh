@@ -2,11 +2,12 @@
 // with the tensor-parallel segment kernels (csrc/tp_segments.cu): the
 // residual update and RMSNorm, SwiGLU, the attention over the paged pool
 // with the new token's quantize + write, the merge of the attention
-// stripes, the grid barrier of a persistent grid, the dynamic shared
+// chunks, the grid barrier of a persistent grid, the dynamic shared
 // memory of a block, and the integer arguments the wrappers pass.
 
 #pragma once
 
+#include "di_attn_tile.cuh"
 #include "di_product.cuh"
 
 namespace {
@@ -14,10 +15,8 @@ namespace {
 using namespace di;
 
 constexpr int kSlab = 128;        // columns per item of the norm phases
-constexpr int kMaxStripes = 16;   // attention stripes per slot (wrapper)
-constexpr int kAttUnit = 64;      // tokens per unit of a stripe (wrapper)
-constexpr int kAttDepth = 4;      // tokens a warp keeps in flight
-constexpr int kAttSlotMax = 2 * 4 * kD + 16;   // f32 K row + V row + qparams
+constexpr int kMaxChunks = 16;    // attention chunks per slot (wrapper)
+constexpr int kAttTile = 128;     // chunk tokens are a multiple of this
 
 __device__ __forceinline__ void grid_barrier(const Args& a, int phase) {
   di::grid_barrier(a.barrier, a.status, a.trace, phase);
@@ -107,7 +106,8 @@ __device__ void norm_phase(const Args& a, float* smem) {
     for (int j = lane; j < nslab; j += 32)
       tot += __ldcg(a.ssq + m * nslab + j);
     tot = warp_sum(tot);
-    const float inv = 1.0f / sqrtf(tot / (float)hid + a.eps);
+    // rsqrtf, as torch.rsqrt computes the plain version's
+    const float inv = rsqrtf(tot / (float)hid + a.eps);
     const int e = k * kSlab + c * kChunkK + 2 * lane;
     write_record(a.rec, a.mpad, slab * kPer + c, m, lane,
                  vals[e] * inv * wts[e], vals[e + 1] * inv * wts[e + 1]);
@@ -129,8 +129,11 @@ __device__ __forceinline__ void swiglu_chunk(const Args& a, const Stream& st,
     const float2 u = __ldcg(reinterpret_cast<const float2*>(p + st.n[0]));
     g0 += g.x; g1 += g.y; u0 += u.x; u1 += u.y;
   }
+  // the plain version's order: g * sigmoid(g), sigmoid(g) = 1 / (1 +
+  // exp(-g)), then * u
   write_record(rec, a.mpad, c, m, lane,
-               g0 / (1.0f + expf(-g0)) * u0, g1 / (1.0f + expf(-g1)) * u1);
+               g0 * (1.0f / (1.0f + expf(-g0))) * u0,
+               g1 * (1.0f / (1.0f + expf(-g1))) * u1);
 }
 
 // SwiGLU of the gate|up partials -> x records of the down product.
@@ -144,41 +147,46 @@ __device__ void act_phase(const Args& a) {
                  lane);
 }
 
-// Merges the sequence stripes of each (slot, query head) -> attn_out as the
-// x records of the o product. One warp per (slot, head, half of D).
+// Merges the attention chunks of each (slot, query head) -> attn_out as
+// the x records of the o product. One warp per (slot, head, half of D).
+// Chunk j holds tokens iff j * chunk_tokens < len; chunk 0 always holds the
+// new token; an inactive slot has none and gets 0. The chunks' maxima are
+// natural-log scores (attend_tiles' EXACT).
 __device__ void merge_phase(const Args& a) {
   const int lane = threadIdx.x & 31;
   const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int nw = gridDim.x * kWarps;
-  const int NS = a.nsplit;
+  const int NC = a.nsplit;
   for (int it = gw; it < a.B * a.H * 2; it += nw) {
     const int half = it & 1, head = (it >> 1) % a.H, b = (it >> 1) / a.H;
-    // stripe j holds tokens iff j * unit < len; stripe 0 always holds the
-    // new token
-    const int len = a.active[b] ? a.lens[b] : 0;
-    int used = (len + kAttUnit - 1) / kAttUnit;
-    used = max(1, min(used, NS));
-    const size_t slot = ((size_t)b * a.H + head) * NS;
+    if (!a.active[b]) {
+      write_record(a.rec, a.mpad, head * 2 + half, b, lane, 0.f, 0.f);
+      continue;
+    }
+    int used = (a.lens[b] + a.split_len - 1) / a.split_len;
+    used = max(1, min(used, NC));
+    const size_t slot = ((size_t)b * a.H + head) * NC;
     const float* ml = a.att_ml + slot * 2;
     const float* acc = a.att_acc + slot * kD + half * 64 + 2 * lane;
-    // all stripes' loads are issued together (NS <= kMaxStripes)
-    float2 mlv[kMaxStripes], av[kMaxStripes];
+    // all chunks' loads are issued together (NC <= kMaxChunks)
+    float2 mlv[kMaxChunks], av[kMaxChunks];
 #pragma unroll
-    for (int c = 0; c < kMaxStripes; ++c) {
+    for (int c = 0; c < kMaxChunks; ++c) {
       if (c < used) {
         mlv[c] = __ldcg(reinterpret_cast<const float2*>(ml + 2 * c));
         av[c] = __ldcg(reinterpret_cast<const float2*>(acc + (size_t)c * kD));
       }
     }
-    float mx = -FLT_MAX;
+    float mx = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < kMaxStripes; ++c)
+    for (int c = 0; c < kMaxChunks; ++c)
       if (c < used) mx = fmaxf(mx, mlv[c].x);
+    const float mu = mx == -INFINITY ? 0.f : mx;
     float lsum = 0.f, o0 = 0.f, o1 = 0.f;
 #pragma unroll
-    for (int c = 0; c < kMaxStripes; ++c) {
+    for (int c = 0; c < kMaxChunks; ++c) {
       if (c < used) {
-        const float f = expf(mlv[c].x - mx);
+        const float f = expf(mlv[c].x - mu);
         lsum += mlv[c].y * f;
         o0 += av[c].x * f;
         o1 += av[c].y * f;
@@ -190,41 +198,71 @@ __device__ void merge_phase(const Args& a) {
   }
 }
 
-// Attention of one layer. Item = (slot b, KV head h, stripe j): the
-// sequence is cut into units of kAttUnit tokens and stripe j takes the
-// units j, j + NS, j + 2 NS, ... (online softmax is associative, so one
-// state per stripe is enough however long the sequence is, and the stripes
-// of a long slot are equally long). Within a unit the block's warps take
-// one token each. Stripe 0 also quantizes and writes the new token and
-// folds it in.
-// smem: raw [(G+2)][128] f32 (q heads, k, v with bias), rot [(G+1)][128]
-// (q after RoPE rounded to bf16, k after RoPE in f32), the warps' softmax
-// states for the merge, then the warps' token rings.
+// What the attention phase keeps beside the tiles' shared memory: the raw
+// q heads, k and v of its KV head [(kMaxG + 2)][kD] f32 (sums of the q|k|v
+// partials + bias), rot [(kMaxG + 1)][kD] (q after RoPE rounded to bf16, k
+// after RoPE in f32), and the new token's scores [kMaxG] (scaled).
+constexpr int kAttExtra = 4 * ((2 * kMaxG + 3) * kD + kMaxG);
+constexpr int kAttTiles =
+    imax(imax(Geo<kF32, kD, true>::kSmem, Geo<kBF16, kD, true>::kSmem),
+         imax(Geo<kI8, kD, true>::kSmem, Geo<kU4, kD, true>::kSmem));
+
+// Attention of one layer, page-tiled on the tensor cores (di_attn_tile.cuh,
+// the per-op paged_attention kernel's tiles; an f32 pool on the CUDA
+// cores; EXACT: an f32 softmax's precision). Item = (chunk j, slot b, KV
+// head h): chunk j is the tokens
+// [j * chunk_tokens, (j + 1) * chunk_tokens) of the slot (a.split_len
+// tokens, a multiple of kAttTile; a.nsplit chunks cover the page table),
+// whole tiles of 16 tokens a warp copied through a ring; chunks past lens
+// and inactive slots have no item. The item's block first puts its tiles
+// in flight, then sums the q heads, k and v from the q|k|v product's
+// split-K partials (+ bias) and applies RoPE; chunk 0 also quantizes and
+// writes the new token (warp 0 K, warp 1 V) and folds it in from its
+// unquantized f32 K/V when it merges the warps' states. The chunk's
+// (max, sum, acc) go to att_ml / att_acc for the merge phase.
 template <int KIND>
-__device__ void attention_phase(const Args& a, int layer, float* smem) {
-  constexpr bool kQuant = KIND == kI8 || KIND == kU4;
+__device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
+  constexpr bool kMma = KIND != kF32;       // tensor cores but for f32
+  using Gm = Geo<KIND, kD, true>;
   constexpr int Ds = KIND == kU4 ? kD / 2 : kD;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int H = a.H, KH = a.KH, G = H / KH, NS = a.nsplit;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int H = a.H, KH = a.KH, G = H / KH, NC = a.nsplit;
+  const int CT = a.split_len;
   const int QKVN = (H + 2 * KH) * kD;
   const Stream& st = a.st[kQkv];
-  float* raw = smem;
+  float* raw = reinterpret_cast<float*>(smem + kAttTiles);
   float* rot = raw + (kMaxG + 2) * kD;
-  float* m_s = rot + (kMaxG + 1) * kD;       // [kWarps][G]
-  float* l_s = m_s + kWarps * kMaxG;         // [kWarps][G]
-  float* acc_s = l_s + kWarps * kMaxG;       // [kWarps][G][D]
+  float* s_new = rot + (kMaxG + 1) * kD;
+  float* q_s = reinterpret_cast<float*>(smem + Gm::kQOff);
+  float* qsum_s = reinterpret_cast<float*>(smem + Gm::kQsumOff);
   const float* bias =
       a.qkv_b == nullptr ? nullptr : a.qkv_b + (size_t)layer * QKVN;
   const size_t row_elems = (size_t)KH * Ds;
-  const int n_items = a.B * KH * NS;
+  const int n_items = a.B * KH * NC;
 
+  // chunk-major: the chunks that hold tokens (the first ones of every
+  // slot) spread over the blocks instead of falling on every NC-th
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int s = item % NS, h = (item / NS) % KH, b = item / (NS * KH);
-    const bool act = a.active[b] != 0;
+    const int j = item / (a.B * KH), h = item % KH, b = (item / KH) % a.B;
+    if (!a.active[b]) continue;                 // block-uniform
     const int len = a.lens[b];
-    constexpr int unit = kAttUnit;
-    const int t_end = act ? len : 0;
-    if (s > 0 && s * unit >= t_end) continue;   // block-uniform
+    const int t_begin = j * CT;
+    if (j > 0 && t_begin >= len) continue;
+    const int t_end = min(len, t_begin + CT);
+    const int n_tiles =
+        t_end > t_begin ? (t_end - t_begin + Gm::kTileT - 1) / Gm::kTileT : 0;
+    const KvSrc kv{static_cast<const uint8_t*>(a.k_pool),
+                   static_cast<const uint8_t*>(a.v_pool), a.k_qp, a.v_qp,
+                   a.pt + (size_t)b * a.maxP, a.ql, a.L, layer, a.ps, h, KH};
+    att_prologue<KIND, kD, true, kThreads>(smem, kv, t_begin, t_end,
+                                           n_tiles);
+    // this thread's RoPE dim is tid % kD in every row it rotates below, and
+    // chunk 0's new token lands in one page: their loads fly with the sums
+    const float cs = __bfloat162float(a.cos[(size_t)b * kD + (tid & (kD - 1))]);
+    const float sn = __bfloat162float(a.sin[(size_t)b * kD + (tid & (kD - 1))]);
+    const int new_col = min(len / a.ps, a.maxP - 1);
+    const int new_page = j == 0 ? a.pt[(size_t)b * a.maxP + new_col] : 0;
 
     // q heads of this KV head, k, v: sum of the split-K partials, + bias.
     // The bias is [q | k | v] of the true widths; in the partials each of
@@ -249,7 +287,7 @@ __device__ void attention_phase(const Args& a, int layer, float* smem) {
         bv[u] = (bias != nullptr && i < (G + 2) * kD) ? bias[bc] : 0.f;
         v[u] = 0.f;
       }
-#pragma unroll 4
+#pragma unroll 8
       for (int sp = 0; sp < st.ksplit; ++sp) {
         const float* p = a.partial + ((size_t)sp * a.B + b) * st.ldo;
 #pragma unroll
@@ -263,25 +301,24 @@ __device__ void attention_phase(const Args& a, int layer, float* smem) {
       }
     }
     __syncthreads();
+    static_assert(kThreads % kD == 0, "a thread's RoPE dim is fixed");
     for (int i = tid; i < (G + 1) * kD; i += kThreads) {
       const int r = i / kD, d = i % kD;
       const float x = raw[i];
       const float xr = d < kD / 2 ? -raw[i + kD / 2] : raw[i - kD / 2];
-      const float v = x * __bfloat162float(a.cos[(size_t)b * kD + d]) +
-                      xr * __bfloat162float(a.sin[(size_t)b * kD + d]);
+      const float v = x * cs + xr * sn;
       rot[i] = r < G ? __bfloat162float(__float2bfloat16(v)) : v;
     }
     __syncthreads();
     const float* k_new = rot + G * kD;
     const float* v_new = raw + (G + 1) * kD;
 
-    // the new token goes to its page: warp 0 writes K, warp 1 writes V
-    if (s == 0 && act && warp < 2) {
+    if (j == 0 && warp < 2) {
+      // the new token goes to its page: warp 0 writes K, warp 1 writes V
       const float* src = warp == 0 ? k_new : v_new;
       void* pool = warp == 0 ? a.k_pool : a.v_pool;
       float* qp = warp == 0 ? a.k_qp : a.v_qp;
-      const int col = min(len / a.ps, a.maxP - 1);
-      const size_t page = (size_t)a.pt[(size_t)b * a.maxP + col] * a.L + layer;
+      const size_t page = (size_t)new_page * a.L + layer;
       const int off = len % a.ps;
       const size_t base = (page * a.ps + off) * row_elems + (size_t)h * Ds;
       float v[kDPL];
@@ -331,167 +368,75 @@ __device__ void attention_phase(const Args& a, int layer, float* smem) {
         }
       }
     }
-
-    float qv[kMaxG][kDPL], m[kMaxG], l[kMaxG], acc[kMaxG][kDPL];
-#pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-#pragma unroll
-      for (int i = 0; i < kDPL; ++i) {
-        qv[g][i] = g < G ? rot[g * kD + dim_of<KIND, kDPL>(lane, i)] : 0.f;
-        acc[g][i] = 0.f;
-      }
-      m[g] = -FLT_MAX;
-      l[g] = 0.f;
-    }
-
-    // Each warp keeps its next kAttDepth tokens in flight: cp.async brings
-    // a token's K row, V row and four qparams into the warp's ring in
-    // shared memory (one commit group a token), so the card's memory
-    // latency is paid once per kAttDepth tokens and costs no registers.
-    constexpr int kRowB = KIND == kF32 ? 4 * kD
-                          : (KIND == kBF16 ? 2 * kD : (KIND == kI8 ? kD : kD / 2));
-    constexpr int kSlot = 2 * kRowB + 16;
-    constexpr int kVecs = 2 * kRowB / 16;       // 16-byte copies per token
-    uint8_t* ring = reinterpret_cast<uint8_t*>(acc_s + kWarps * kMaxG * kD) +
-                    (size_t)warp * kAttDepth * kAttSlotMax;
-    auto issue = [&](int t, int slot) {
-      uint8_t* dst = ring + slot * kSlot;
-      const int col = t / a.ps, off = t - col * a.ps;
-      const size_t page =
-          (size_t)a.pt[(size_t)b * a.maxP + col] * a.L + layer;
-      const size_t base =
-          ((page * a.ps + off) * row_elems + (size_t)h * Ds) * (kRowB / Ds);
-      for (int i = lane; i < kVecs; i += 32) {
-        const bool is_v = i >= kVecs / 2;
-        const int j = is_v ? i - kVecs / 2 : i;
-        const uint8_t* src =
-            static_cast<const uint8_t*>(is_v ? a.v_pool : a.k_pool);
-        cp_async16(dst + (is_v ? kRowB : 0) + j * 16, src + base + j * 16);
-      }
-      if (kQuant && lane < 4) {
-        const size_t qrow = (page * 2 * KH + 2 * h) * a.ql + off;
-        const float* src = (lane < 2 ? a.k_qp : a.v_qp) + qrow +
-                           (lane & 1) * a.ql;
-        cp_async4(dst + 2 * kRowB + lane * 4, src);
-      }
-    };
-    // the warp's next token: 8 on within the unit, else the same place in
-    // the stripe's next unit (unit is a multiple of kWarps)
-    auto next_tok = [&](int t) {
-      const int tn = t + kWarps;
-      return tn / unit != t / unit ? tn + (NS - 1) * unit : tn;
-    };
-    int t = s * unit + warp;
-    int t_load = t;
-    for (int d = 0; d < kAttDepth - 1; ++d) {
-      if (t_load < t_end) {
-        issue(t_load, d);
-        t_load = next_tok(t_load);
-      }
-      cp_async_commit();
-    }
-    int slot = 0;
-    while (t < t_end) {
-      if (t_load < t_end) {
-        issue(t_load, (slot + kAttDepth - 1) % kAttDepth);
-        t_load = next_tok(t_load);
-      }
-      cp_async_commit();
-      cp_async_wait<kAttDepth - 1>();
-      __syncwarp();      // every lane's copies of this token have landed
-      const uint8_t* tok = ring + slot * kSlot;
-      float kx[kDPL], vx[kDPL];
-      load_row<KIND, kDPL>(tok, 0, lane, kx);
-      load_row<KIND, kDPL>(tok + kRowB, 0, lane, vx);
-      // dequantize the token's 4 + 4 values once; all head slots share them
-      // (on this card that is cheaper than the affine after each head's dot)
-      if (kQuant) {
-        const float4 qp = *reinterpret_cast<const float4*>(tok + 2 * kRowB);
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i) {
-          kx[i] = fmaf(kx[i], qp.x, qp.y);
-          vx[i] = fmaf(vx[i], qp.z, qp.w);
-        }
-      }
-      // all kMaxG head slots, without a branch on G: the unused ones hold
-      // q = 0 and are never written out, and the used ones' dependent
-      // chains (dot, shuffles, exp) interleave (a branch that skips the
-      // rescale while the maximum stands still was measured: it serializes
-      // the heads and loses).
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
+    if (j == 0) {
+      // the new token's scores, from its unquantized f32 K (one warp a head)
+      for (int g = warp; g < G; g += kWarps) {
         float sc = 0.f;
 #pragma unroll
-        for (int i = 0; i < kDPL; ++i) sc = fmaf(qv[g][i], kx[i], sc);
-        sc = warp_sum(sc) * a.att_scale;
-        const float m_new = fmaxf(m[g], sc);
-        const float alpha = __expf(m[g] - m_new);
-        const float p = __expf(sc - m_new);
-        l[g] = l[g] * alpha + p;
-        m[g] = m_new;
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i)
-          acc[g][i] = fmaf(acc[g][i], alpha, p * vx[i]);
-      }
-      __syncwarp();      // the slot is read before it is loaded again
-      slot = (slot + 1) % kAttDepth;
-      t = next_tok(t);
-    }
-    cp_async_wait<0>();
-
-    // the new token, from its unquantized f32 K/V (warp 0 of split 0)
-    if (s == 0 && warp == 0) {
-      float kv[kDPL], vv[kDPL];
-#pragma unroll
-      for (int i = 0; i < kDPL; ++i) {
-        kv[i] = k_new[dim_of<KIND, kDPL>(lane, i)];
-        vv[i] = v_new[dim_of<KIND, kDPL>(lane, i)];
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g < G) {
-          float sc = 0.f;
-#pragma unroll
-          for (int i = 0; i < kDPL; ++i) sc = fmaf(qv[g][i], kv[i], sc);
-          sc = warp_sum(sc) * a.att_scale;
-          const float m_new = fmaxf(m[g], sc);
-          const float alpha = expf(m[g] - m_new);
-          const float p = expf(sc - m_new);
-          l[g] = l[g] * alpha + p;
-          m[g] = m_new;
-#pragma unroll
-          for (int i = 0; i < kDPL; ++i)
-            acc[g][i] = acc[g][i] * alpha + p * vv[i];
-        }
+        for (int i = 0; i < kD / 32; ++i)
+          sc = fmaf(rot[g * kD + lane + 32 * i], k_new[lane + 32 * i], sc);
+        sc = warp_sum(sc);
+        if (lane == 0) s_new[g] = sc * a.att_scale;
       }
     }
 
-    // merge the warps' states, write the split's (max, sum, acc)
+    // q as the tiles take it: bf16 fragments (its values are bf16 already)
+    // or f32 rows in the Geo layout
+    MmaQ<KIND, kD> qm;
+    qm.qsum_g = 0.f;
+    if constexpr (kMma) {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        if (lane == 0) {
-          m_s[warp * kMaxG + g] = m[g];
-          l_s[warp * kMaxG + g] = l[g];
+      for (int s = 0; s < kD / 16; ++s)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int d0 = kdim<KIND, kD>(s, tig, 2 * hf);
+          const float q0 = gid < G ? rot[gid * kD + d0] : 0.f;
+          const float q1 = gid < G ? rot[gid * kD + d0 + 1] : 0.f;
+          qm.qa[s][hf] = pack_bf16(q0, q1);
+          qm.qsum_g += q0 + q1;
         }
-#pragma unroll
-        for (int i = 0; i < kDPL; ++i)
-          acc_s[((size_t)warp * kMaxG + g) * kD +
-                dim_of<KIND, kDPL>(lane, i)] = acc[g][i];
+      qm.qsum_g += __shfl_xor_sync(0xffffffffu, qm.qsum_g, 1);
+      qm.qsum_g += __shfl_xor_sync(0xffffffffu, qm.qsum_g, 2);
+    } else {
+      for (int i = tid; i < G * kD; i += kThreads) {
+        const int g = i / kD, d = i - g * kD;
+        q_s[g * Gm::kQStride + d + (d >> 5)] = rot[i];
+      }
+      for (int g = warp; g < G; g += kWarps) {
+        float s = 0.f;
+        for (int d = lane; d < kD; d += 32) s += rot[g * kD + d];
+        s = warp_sum(s);
+        if (lane == 0) qsum_s[g] = s;
       }
     }
-    __syncthreads();
+    attend_tiles<KIND, kD, kMma, true, kThreads, true>(
+        smem, kv, t_begin, t_end, n_tiles, G, a.att_scale, qm);
+
+    // merge the warps' states (chunk 0: and the new token), write the
+    // chunk's (max, sum, acc)
+    const float* m_s = reinterpret_cast<const float*>(smem);
+    const float* l_s = m_s + Gm::kWarps * kMaxG;
+    const float* acc_s = l_s + Gm::kWarps * kMaxG;
     for (int idx = tid; idx < G * kD; idx += kThreads) {
       const int g = idx / kD, d = idx % kD;
-      float mx = -FLT_MAX;
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * kMaxG + g]);
+      float mx = j == 0 ? s_new[g] : -INFINITY;
+#pragma unroll
+      for (int w = 0; w < Gm::kWarps; ++w)
+        mx = fmaxf(mx, m_s[w * kMaxG + g]);
+      const float mu = mx == -INFINITY ? 0.f : mx;
       float lsum = 0.f, o = 0.f;
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(m_s[w * kMaxG + g] - mx);
+#pragma unroll
+      for (int w = 0; w < Gm::kWarps; ++w) {
+        const float f = expf(m_s[w * kMaxG + g] - mu);
         lsum += l_s[w * kMaxG + g] * f;
-        o += acc_s[((size_t)w * kMaxG + g) * kD + d] * f;
+        o += acc_s[(w * kMaxG + g) * kD + d] * f;
       }
-      const size_t slot = ((size_t)b * H + h * G + g) * NS + s;
+      if (j == 0) {
+        const float f = expf(s_new[g] - mu);
+        lsum += f;
+        o += f * v_new[d];
+      }
+      const size_t slot = ((size_t)b * H + h * G + g) * NC + j;
       a.att_acc[slot * kD + d] = o;
       if (d == 0) {
         a.att_ml[2 * slot] = mx;
@@ -502,7 +447,7 @@ __device__ void attention_phase(const Args& a, int layer, float* smem) {
   }
 }
 
-__device__ void attention(const Args& a, int layer, float* smem) {
+__device__ void attention(const Args& a, int layer, uint8_t* smem) {
   switch (a.kv_kind) {
     case kF32: attention_phase<kF32>(a, layer, smem); break;
     case kBF16: attention_phase<kBF16>(a, layer, smem); break;
@@ -512,13 +457,9 @@ __device__ void attention(const Args& a, int layer, float* smem) {
 }
 
 int smem_bytes(int mt, int hid) {
-  const int prod = product_smem_bytes(mt);
-  const int att = 4 * ((kMaxG + 2) * kD + (kMaxG + 1) * kD +
-                       2 * kWarps * kMaxG + kWarps * kMaxG * kD) +
-                  kWarps * kAttDepth * kAttSlotMax;
   // resid/norm phases: up to kMaxBatch * hid / kSlab items over >= one
   // block per SM, values and weights each; far below the other two
-  return imax(prod, att);
+  return imax(product_smem_bytes(mt), kAttTiles + kAttExtra);
 }
 
 // Index of each value in the `ia` array of di_megakernel (ops/megakernel.py

@@ -108,27 +108,55 @@ __device__ __noinline__ void moe_act_phase(const Args& a, const int* experts,
   }
 }
 
-// MoE router: one warp a row, from the router product's partials; each
-// layer's choices stay in the scratch ([L][B][kMaxTopk]) until the step ends.
-__device__ __noinline__ void gates_phase(const Args& a, int layer) {
+// MoE router: one block a row. Its threads take the row's E (+ 1) router
+// lanes, one lane a thread, each summing the lane's K-split partials in
+// split order, eight loads in flight (route_row's order), into shared
+// memory; then warp 0 takes the top-k (`route_top`). Each layer's choices
+// stay in the scratch ([L][B][kMaxTopk]) until the step ends.
+__device__ __noinline__ void gates_phase(const Args& a, int layer,
+                                         float* smem) {
   const Stream& st = a.st[kRt];
-  const int lane = threadIdx.x & 31;
-  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int nw = gridDim.x * kWarps;
-  for (int b = gw; b < a.B; b += nw) {
-    int idx[kMaxTopk];
-    float w[kMaxTopk], sg;
-    route_row(a.partial + (size_t)b * st.ldo, st.ksplit,
-              (size_t)a.B * st.ldo, a.E, a.k_top, a.norm_topk, a.has_shared,
-              a.has_sgate, idx, w, sg);
-    if (lane == 0) {
-      const size_t r = (size_t)layer * a.B + b;
-      for (int j = 0; j < a.k_top; ++j) {
-        a.topk_e[r * kMaxTopk + j] = idx[j];
-        a.topk_w[r * kMaxTopk + j] = w[j];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int lanes = a.E + a.has_sgate;
+  float* lg_s = smem;                         // [kMaxLanes]
+  const size_t stride = (size_t)a.B * st.ldo;
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    const float* src = a.partial + (size_t)b * st.ldo;
+    for (int e = tid; e < lanes; e += kThreads) {
+      float v = 0.f;
+      for (int s = 0; s < st.ksplit; s += 8) {
+        float p[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          p[q] = s + q < st.ksplit ? __ldcg(src + (size_t)(s + q) * stride + e)
+                                   : 0.f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v += p[q];
       }
-      a.sgate[r] = sg;
+      lg_s[e] = v;
     }
+    __syncthreads();
+    if (tid < 32) {
+      float lg[kRoutePer];
+#pragma unroll
+      for (int j = 0; j < kRoutePer; ++j) {
+        const int e = lane + 32 * j;
+        lg[j] = e < lanes ? lg_s[e] : 0.f;
+      }
+      int idx[kMaxTopk];
+      float w[kMaxTopk], sg;
+      route_top(lg, a.E, a.k_top, a.norm_topk, a.has_shared, a.has_sgate,
+                idx, w, sg);
+      if (lane == 0) {
+        const size_t r = (size_t)layer * a.B + b;
+        for (int j = 0; j < a.k_top; ++j) {
+          a.topk_e[r * kMaxTopk + j] = idx[j];
+          a.topk_w[r * kMaxTopk + j] = w[j];
+        }
+        a.sgate[r] = sg;
+      }
+    }
+    __syncthreads();
   }
 }
 

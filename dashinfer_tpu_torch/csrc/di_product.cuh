@@ -16,7 +16,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunkK = 64;               // K rows per pipeline stage
 constexpr int kD = 128;                   // head_dim
 constexpr int kDPL = 4;                   // head dims per lane
-constexpr int kMaxG = 8;                  // query heads per KV head
 constexpr int kMaxLanes = 512;            // MoE router lanes (experts + 1)
 constexpr int kMaxTopk = 8;               // experts a token
 
@@ -80,8 +79,11 @@ struct Args {
       mpad, skip_attn;
   int E, k_top, norm_topk, has_shared, has_sgate, shared_inter;
   int probe;                 // stream probe only (tools/bench_stream.py
-                             // VARIANTS): 1 no dot, 2 no payload loads,
-                             // 3 dot alone, 4 copy pipeline alone
+                             // VARIANTS): 1 no dot (the ring and the
+                             // affine run), 2 no payload loads (the ring
+                             // brings records, sums and qparams), 3 dot
+                             // alone (no copy, no wait), 4 copy pipeline
+                             // alone (no dequant, dot or affine)
   float eps, att_scale;
 };
 
@@ -89,12 +91,15 @@ __device__ __forceinline__ int rec_bytes(int mpad) {
   return mpad * (kChunkK * 2 + 4);
 }
 
-// The x records of one 64-row K chunk hold the mma A fragments ready made:
-// [16-row m tile][k16 step s][lane][a0 a1 a2 a3] (bf16 pairs, 16 bytes a
-// lane, so a product stage reads them with one 16-byte shared-memory load
-// per step), then the [mpad] f32 row sums. write_record stores elements
-// 2*lane and 2*lane + 1 of row m's chunk; the row sum is over the bf16
-// values, which are the dot's operand.
+// The x records of one 64-row K chunk hold the x operand's mma fragments
+// ready made: [16-row m tile][k16 step s][lane][a0 a1 a2 a3] (bf16 pairs,
+// 16 bytes a lane, so a product stage reads them with one 16-byte
+// shared-memory load per step), then the [mpad] f32 row sums. The 16 bytes
+// of lane (gid, tig) are the A fragment of rows gid, gid + 8 of the m tile,
+// and so also the B fragments of two n8 tiles of batch rows: (a0, a2) for
+// rows gid of the tile's first eight, (a1, a3) for its second eight.
+// write_record stores elements 2*lane and 2*lane + 1 of row m's chunk; the
+// row sum is over the bf16 values, which are the dot's operand.
 __device__ __forceinline__ void write_record(uint8_t* rec, int mpad, int chunk,
                                              int m, int lane, float v0,
                                              float v1) {
@@ -114,23 +119,42 @@ __device__ __forceinline__ void write_record(uint8_t* rec, int mpad, int chunk,
 // The payload of one (256-column tile, 64-row chunk) as the pack lays it
 // out (ops/megakernel.py `pack_payload`): warp w's part is kQuarters runs
 // of 512 bytes, run q holding 16 bytes for each lane, which are that lane's
-// mma B operands of
+// mma fragments of
 //   u4   (q = s / 2):    [s % 2][nt][i][p]         one byte = columns c, c+128
 //   int8 (q = s):        [nt][i][half][p]          one byte a column
 //   bf16 (q = 2 s + nt): [i][half][p]              two bytes a column
 // for k16 step s, n8 tile nt (column 16 w + 8 nt + gid, + 128 for half 1),
-// row 16 s + 8 i + 2 tig + p. A stage reads them with 16-byte loads.
+// row 16 s + 8 i + 2 tig + p. A stage reads them with 16-byte loads. Read
+// as B operands (weights as the n8 side, x as the m16 side) they pair two
+// K rows of one column; read as A operands they are, for each half, the
+// m16 x k16 fragment whose 16 rows are the warp's 16 columns of that half:
+// a0 = [nt 0][i 0], a1 = [nt 1][i 0], a2 = [nt 0][i 1], a3 = [nt 1][i 1].
 template <int BITS>
 struct Tile {
   static constexpr int kChunkBytes = kChunkK * (BITS == 4 ? 128 : (BITS == 8 ? 256 : 512));
   static constexpr int kQuarters = kChunkBytes / (kWarps * 512);
-  static constexpr int kStages = BITS == 4 ? 6 : (BITS == 8 ? 4 : 3);
+  static constexpr int kStages = BITS == 4 ? 6 : (BITS == 8 ? 5 : 3);
+  // a chunk is issued into the stage of the chunk kLag before the one
+  // being computed: with two, that stage is normally long free, so the
+  // issuing warp does not wait for the slowest warp's previous chunk
+  static constexpr int kLag = kStages >= 5 ? 2 : 1;
 };
 
+// One stage of the product's ring: the chunk's payload, its x record rows
+// (MT m16 tiles), their row sums, and, for a quantized stream, the scale
+// and zero rows of the chunk's quant group over the tile's 256 columns
+// (1 KB each, where the chunk ends a group or an item).
 template <int BITS, int MT>
-__host__ __device__ constexpr int stage_bytes() {
-  return Tile<BITS>::kChunkBytes + MT * 2048 + MT * 64;
-}
+struct Ring {
+  static constexpr int kXOff = Tile<BITS>::kChunkBytes;
+  static constexpr int kSumOff = kXOff + MT * 2048;
+  static constexpr int kQpOff = kSumOff + MT * 64;
+  static constexpr int kStage = kQpOff + (BITS == 16 ? 0 : 2048);
+  // the stages, a full and an empty mbarrier a stage, the load cursor
+  static constexpr int kBarOff = Tile<BITS>::kStages * kStage;
+  static constexpr int kCursorOff = kBarOff + 16 * Tile<BITS>::kStages;
+  static constexpr int kBytes = kCursorOff + 80;
+};
 
 // two int8 in the low 16 bits -> two bf16 (exact)
 __device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w) {
@@ -158,7 +182,34 @@ __device__ __forceinline__ void u4x2_to_bf16x2(uint32_t w, uint32_t& lo,
 // One weight product: out[s][m][n] = partial sums over K split s of
 // x[m] . W[:, n], with the group affine applied. x comes from the records.
 // Work item = (pass over 16*MT rows, tile, split); a block's items form one
-// flat sequence of 64-row chunks that the cp.async pipeline runs through.
+// flat sequence of 64-row chunks that the ring runs through.
+//
+// The weights are the mma's A operand (m16: the warp's 16 columns of a
+// half of the tile, straight from the payload registers) and x its B
+// operand (n8: eight batch rows, straight from the records), so the
+// product spends one mma a (half, k16 step) on each n8 tile of rows that
+// holds a row < B: 2 at B <= 8 (x on the m16 side would take 4, half of
+// each tile padding). The output fragment is (column gid / gid + 8,
+// batch rows 2 tig, 2 tig + 1): the scale and zero are per column, the row
+// sums per batch row.
+//
+// The ring: one thread issues each chunk's bulk copies (payload, x record
+// rows with their row sums, and the qparam rows where the chunk ends a
+// group or its item) on the stage's full mbarrier, armed with their bytes;
+// each warp waits on it, computes, and arrives on the stage's empty
+// mbarrier, which the issuing thread waits on before it refills the stage.
+// The issuing is dealt round the warps (lane 0 of warp n % 8 issues at
+// chunk n) from a cursor in shared memory that holds the current item
+// decoded, so no warp carries it every chunk; a chunk goes into the stage
+// of the chunk kLag before the one being computed (two in the deeper
+// rings: that stage is normally long free, so the issuing warp does not
+// wait for the slowest warp), and a turn counter keeps one issuer at a
+// time. No
+// block-wide barrier a chunk and no global load in the chunk loop. The
+// barriers are initialised at the phase's start and invalidated at its
+// end, behind the async-proxy fence, so every phase of a persistent launch
+// (and every graph replay) starts them at parity 0.
+//
 // GROUPED: an expert stream, the product of each expert of `experts`
 // (ngroups of them): expert e's weights, its x records at rec + e * rec_gs
 // bytes and its output at out + e * out_gs floats. The dense instantiation
@@ -170,13 +221,12 @@ __device__ __forceinline__ void product_phase(
     const uint8_t* rec_base, const int* experts, int ngroups, size_t rec_gs,
     size_t out_gs) {
   using T = Tile<BITS>;
+  using R = Ring<BITS, MT>;
   constexpr int kStages = T::kStages;
   constexpr int kRows = 16 * MT;
-  constexpr int kWVecs = T::kChunkBytes / 16;
-  constexpr int kXVecs = MT * 2048 / 16;
-  constexpr int kSumVecs = kRows * 4 / 16;
+  constexpr int kNT = 2 * MT;             // n8 tiles of batch rows
   constexpr float kOffset = BITS == 4 ? 128.f : 0.f;
-  constexpr int kStage = stage_bytes<BITS, MT>();
+  constexpr int kStage = R::kStage;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -187,12 +237,30 @@ __device__ __forceinline__ void product_phase(
   const int per_group = passes * tiles * st.ksplit;
   const int n_items = GROUPED ? per_group * ngroups : per_group;
   const int rbytes = rec_bytes(a.mpad);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::kBarOff);
+  uint64_t* empty = full + kStages;
+  // the load cursor (shared memory: no registers across the loop, and any
+  // warp can issue): the item it is in, decoded, and where in it
+  struct Cursor {
+    const uint8_t* w;     // the item's payload, chunk c0
+    const float* s;       // scale / zero of the item's tile, group row 0
+    const float* z;
+    const uint8_t* rec;   // the item's x records, chunk c0
+    int item, c, nc, m_base, n, g, gl, n_leaf;
+    int turn;             // issue turns taken (volatile: any warp's)
+  };
+  Cursor* cur = reinterpret_cast<Cursor*>(smem + R::kCursorOff);
+  const bool ring = a.probe != 3;
+  const bool pay = a.probe != 2;
+  const bool dot = a.probe != 1 && a.probe != 4;
+  const bool affine = a.probe != 4;
 
   struct Item {
     const uint8_t* w;     // the tile's first chunk
-    const float* s;
+    const float* s;       // the tile's first column of the leaf's scale
     const float* z;
-    int n_leaf, col_leaf, col_out, split, c0, nc, m_base, e;
+    const uint8_t* rec;   // the item's expert's x records (chunk 0)
+    int col_out, split, c0, nc, m_base, e, n_leaf;
   };
   auto decode = [&](int item) {
     Item it;
@@ -204,214 +272,291 @@ __device__ __forceinline__ void product_phase(
     const int leaf = (st.nleaf > 1 && t >= st.tile0[1]) +
                      (st.nleaf > 2 && t >= st.tile0[2]);
     const int lt = t - st.tile0[leaf];
-    it.n_leaf = st.n[leaf];
     it.w = st.w[leaf] + (size_t)layer * st.w_ls[leaf] +
            (size_t)e * st.e_ls[leaf] +
            (size_t)lt * chunks_total * T::kChunkBytes;
-    const size_t qoff =
-        (size_t)layer * st.q_ls[leaf] + (size_t)e * st.qe_ls[leaf];
+    const size_t qoff = (size_t)layer * st.q_ls[leaf] +
+                        (size_t)e * st.qe_ls[leaf] + (size_t)lt * 256;
     it.s = BITS == 16 ? nullptr : st.s[leaf] + qoff;
     it.z = BITS == 16 ? nullptr : st.z[leaf] + qoff;
     it.e = e;
-    it.col_leaf = lt * 256;
     it.col_out = t * 256;
     it.split = split;
     it.c0 = split * st.cps;
     it.nc = min(st.cps, chunks_total - it.c0);
     it.m_base = pass * kRows;
+    it.rec = GROUPED ? rec_base + (size_t)e * rec_gs : a.rec;
+    it.n_leaf = st.n[leaf];
     return it;
   };
 
-  auto stage = [&](const Item& it, int c, int buf) {
-    uint8_t* w_s = smem + (size_t)buf * kStage;
-    uint8_t* x_s = w_s + T::kChunkBytes;
-    uint8_t* sum_s = x_s + MT * 2048;
-    if (a.probe != 2 && a.probe != 4) {
-      const uint8_t* src = it.w + (size_t)(it.c0 + c) * T::kChunkBytes;
+  if (tid == 0) {
 #pragma unroll
-      for (int i = 0; i < kWVecs / kThreads; ++i)
-        cp_async16(w_s + (tid + i * kThreads) * 16,
-                   src + (tid + i * kThreads) * 16);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWarps);
     }
-    const uint8_t* rec = (GROUPED ? rec_base + (size_t)it.e * rec_gs : a.rec) +
-                         (size_t)(it.c0 + c) * rbytes;
-    const uint8_t* rx = rec + (size_t)it.m_base * (kChunkK * 2);
-    const uint8_t* rs = rec + (size_t)a.mpad * (kChunkK * 2) + it.m_base * 4;
-    for (int i = tid; i < kXVecs + kSumVecs; i += kThreads) {
-      if (i < kXVecs)
-        cp_async16(x_s + i * 16, rx + i * 16);
-      else
-        cp_async16(sum_s + (i - kXVecs) * 16, rs + (i - kXVecs) * 16);
-    }
-    cp_async_commit();
-  };
+    fence_mbar_init();
+    cur->item = blockIdx.x - gridDim.x;
+    cur->n = 0;
+    cur->c = cur->nc = 0;    // the first issue moves to item blockIdx.x
+    cur->turn = 0;
+  }
+  // every thread's earlier accesses to this memory (another phase's) come
+  // before the copies that refill it
+  fence_proxy_async();
+  __syncthreads();
 
-  float acc[MT][4][4], part[MT][4][4], xs[MT][2];
+  // takes the issue turn of compute chunk n (turn n + kStages - kLag: the
+  // prologue takes the first kStages - kLag): once the turn before it has
+  // ended (one issuer at a time; the cursor it wrote is visible) and chunk
+  // n - kLag's stage is free (its empty barrier), the next chunk of the
+  // block's sequence goes into that stage
+  auto issue = [&](int n, int turn) {
+    volatile int* vturn = &cur->turn;
+    if (*vturn != turn) {
+      unsigned spins = 0;
+      unsigned long long t0 = 0;
+      while (*vturn != turn) {
+        if ((++spins & 0xFFu) == 0) {
+          if (*reinterpret_cast<volatile int*>(a.status) != 0) break;
+          const unsigned long long now = global_ns();
+          if (t0 == 0) {
+            t0 = now;
+          } else if (now - t0 > kBarrierTimeoutNs) {
+            atomicCAS(a.status, 0, kRingTimeout);
+            break;
+          }
+        }
+      }
+    }
+    __threadfence_block();
+    if (n >= T::kLag)
+      mbar_wait(empty + (n - T::kLag) % kStages,
+                ((n - T::kLag) / kStages) & 1, a.status);
+    Cursor& cu = *cur;
+    if (cu.c == cu.nc) {                  // the next item
+      cu.item += gridDim.x;
+      if (cu.item >= n_items) {
+        cu.c = cu.nc = 0;
+        __threadfence_block();
+        *vturn = turn + 1;
+        return;
+      }
+      const Item it = decode(cu.item);
+      cu.w = it.w + (size_t)it.c0 * T::kChunkBytes;
+      cu.s = it.s;
+      cu.z = it.z;
+      cu.rec = it.rec + (size_t)it.c0 * rbytes;
+      cu.c = 0;
+      cu.nc = it.nc;
+      cu.m_base = it.m_base;
+      cu.g = it.c0 / cpg;
+      cu.gl = cpg - it.c0 % cpg;
+      cu.n_leaf = it.n_leaf;
+    }
+    const int ld_n = cu.n;                // chunks issued before
+    const int buf = ld_n % kStages;
+    uint8_t* dst = smem + (size_t)buf * kStage;
+    const bool qp = BITS != 16 && (cu.c == cu.nc - 1 || cu.gl == 1);
+    const uint8_t* rec = cu.rec + (size_t)cu.c * rbytes;
+    const int m_base = cu.m_base;
+    const unsigned bytes = (pay ? T::kChunkBytes : 0) + MT * 2048 + MT * 64 +
+                           (qp ? 2048 : 0);
+    mbar_arrive_tx(full + buf, bytes);
+    if (pay)
+      bulk_g2s(dst, cu.w + (size_t)cu.c * T::kChunkBytes, T::kChunkBytes,
+               full + buf);
+    if (a.mpad == kRows) {                // one pass: rows and sums abut
+      bulk_g2s(dst + R::kXOff, rec, MT * 2048 + MT * 64, full + buf);
+    } else {
+      bulk_g2s(dst + R::kXOff, rec + (size_t)m_base * (kChunkK * 2),
+               MT * 2048, full + buf);
+      bulk_g2s(dst + R::kSumOff,
+               rec + (size_t)a.mpad * (kChunkK * 2) + m_base * 4, MT * 64,
+               full + buf);
+    }
+    if (qp) {
+      const size_t g = (size_t)cu.g * cu.n_leaf;
+      bulk_g2s(dst + R::kQpOff, cu.s + g, 1024, full + buf);
+      bulk_g2s(dst + R::kQpOff + 1024, cu.z + g, 1024, full + buf);
+    }
+    cu.n = ld_n + 1;
+    if (cu.gl == 1) {
+      ++cu.g;
+      cu.gl = cpg;
+    } else {
+      --cu.gl;
+    }
+    ++cu.c;
+    __threadfence_block();
+    *vturn = turn + 1;
+  };
+  if (tid == 0 && ring)
+    for (int s = 0; s < kStages - T::kLag; ++s) issue(0, s);
+
+  float acc[2][kNT][4], part[2][kNT][4], xs[kNT][2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    xs[mt][0] = xs[mt][1] = 0.f;
+  for (int r = 0; r < kNT; ++r) {
+    xs[r][0] = xs[r][1] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][j][i] = part[mt][j][i] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[h][r][i] = part[h][r][i] = 0.f;
   }
 
-  // load cursor (ld_*) runs kStages - 1 chunks ahead of the compute cursor
-  int ld_item = blockIdx.x, ld_c = 0;
-  Item ld_it = decode(ld_item < n_items ? ld_item : 0);
-  auto load_next = [&](int buf) {
-    if (ld_item < n_items) {
-      stage(ld_it, ld_c, buf);
-      if (++ld_c == ld_it.nc) {
-        ld_c = 0;
-        ld_item += gridDim.x;
-        if (ld_item < n_items) ld_it = decode(ld_item);
-      }
-    } else {
-      cp_async_commit();
-    }
-  };
-  for (int s = 0; s < kStages - 1; ++s) load_next(s);
-
-  int buf = 0;
+  int n = 0;                              // chunks consumed
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const Item it = decode(item);
-    int g = it.c0 / cpg;                  // quant group of the chunk
-    int g_left = cpg - it.c0 % cpg;       // chunks left in it, this one too
-    for (int c = 0; c < it.nc; ++c) {
-      if (a.probe < 3) {
-        load_next((buf + kStages - 1) % kStages);
-        cp_async_wait<kStages - 1>();
-        __syncthreads();   // this chunk's payload and x record have landed
+    // n8 tiles of this pass that hold a row < B (warp-uniform)
+    const int live = min(kNT, (a.B - it.m_base + 7) >> 3);
+    int g_left = cpg - it.c0 % cpg;       // chunks left in the group
+    for (int c = 0; c < it.nc; ++c, ++n) {
+      const int buf = n % kStages;
+      if (ring) {
+        // the chunk kStages - kLag ahead, by this chunk's warp
+        if (lane == 0 && warp == n % kWarps)
+          issue(n, n + kStages - T::kLag);
+        __syncwarp();
+        mbar_wait(full + buf, (n / kStages) & 1, a.status);
       }
-
       const uint8_t* base = smem + (size_t)buf * kStage;
       const uint8_t* wq = base + warp * (T::kQuarters * 512) + lane * 16;
-      const uint8_t* xq = base + T::kChunkBytes + lane * 16;
-      const float* sums = reinterpret_cast<const float*>(
-          base + T::kChunkBytes + MT * 2048);
+      const uint8_t* xq = base + R::kXOff + lane * 16;
+      const float* sums = reinterpret_cast<const float*>(base + R::kSumOff);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        xs[mt][0] += sums[mt * 16 + gid];
-        xs[mt][1] += sums[mt * 16 + gid + 8];
+      for (int r = 0; r < kNT; ++r) {
+        xs[r][0] += sums[8 * r + 2 * tig];
+        xs[r][1] += sums[8 * r + 2 * tig + 1];
       }
-      if (a.probe != 1 && a.probe != 4) {
+      // the weights as A: [nt][i] of the low and high column halves of
+      // k16 step s
+      auto payload = [&](int s, uint32_t (&lo)[2][2], uint32_t (&hi)[2][2]) {
+        if (BITS == 4) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              wq + (s >> 1) * 512);
+          const uint32_t w0 = (s & 1) ? v.z : v.x, w1 = (s & 1) ? v.w : v.y;
+          u4x2_to_bf16x2(w0, lo[0][0], hi[0][0]);
+          u4x2_to_bf16x2(w0 >> 16, lo[0][1], hi[0][1]);
+          u4x2_to_bf16x2(w1, lo[1][0], hi[1][0]);
+          u4x2_to_bf16x2(w1 >> 16, lo[1][1], hi[1][1]);
+        } else if (BITS == 8) {
+          const uint4 v = *reinterpret_cast<const uint4*>(wq + s * 512);
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              lo[nt][i] = i8x2_to_bf16x2(w[nt * 2 + i]);
+              hi[nt][i] = i8x2_to_bf16x2(w[nt * 2 + i] >> 16);
+            }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const uint4 v = *reinterpret_cast<const uint4*>(
+                wq + (2 * s + nt) * 512);
+            lo[nt][0] = v.x;
+            hi[nt][0] = v.y;
+            lo[nt][1] = v.z;
+            hi[nt][1] = v.w;
+          }
+        }
+      };
+      if (dot) {
 #pragma unroll
         for (int s = 0; s < kChunkK / 16; ++s) {
-          uint32_t af[MT][4];
+          // x as B: [n8 tile][b0 b1]
+          uint32_t bx[kNT][2];
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
             const uint4 v = *reinterpret_cast<const uint4*>(
                 xq + (mt * 4 + s) * 512);
-            af[mt][0] = v.x;
-            af[mt][1] = v.y;
-            af[mt][2] = v.z;
-            af[mt][3] = v.w;
+            bx[2 * mt][0] = v.x;
+            bx[2 * mt][1] = v.z;
+            bx[2 * mt + 1][0] = v.y;
+            bx[2 * mt + 1][1] = v.w;
           }
-          // this step's B operands: [nt][i] for the low and high columns
           uint32_t lo[2][2], hi[2][2];
-          if (BITS == 4) {
-            const uint4 v = *reinterpret_cast<const uint4*>(
-                wq + (s >> 1) * 512);
-            const uint32_t w0 = (s & 1) ? v.z : v.x, w1 = (s & 1) ? v.w : v.y;
-            u4x2_to_bf16x2(w0, lo[0][0], hi[0][0]);
-            u4x2_to_bf16x2(w0 >> 16, lo[0][1], hi[0][1]);
-            u4x2_to_bf16x2(w1, lo[1][0], hi[1][0]);
-            u4x2_to_bf16x2(w1 >> 16, lo[1][1], hi[1][1]);
-          } else if (BITS == 8) {
-            const uint4 v = *reinterpret_cast<const uint4*>(wq + s * 512);
-            const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+          payload(s, lo, hi);
+          const uint32_t alo[4] = {lo[0][0], lo[1][0], lo[0][1], lo[1][1]};
+          const uint32_t ahi[4] = {hi[0][0], hi[1][0], hi[0][1], hi[1][1]};
 #pragma unroll
-            for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-              for (int i = 0; i < 2; ++i) {
-                lo[nt][i] = i8x2_to_bf16x2(w[nt * 2 + i]);
-                hi[nt][i] = i8x2_to_bf16x2(w[nt * 2 + i] >> 16);
-              }
-          } else {
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              const uint4 v = *reinterpret_cast<const uint4*>(
-                  wq + (2 * s + nt) * 512);
-              lo[nt][0] = v.x;
-              hi[nt][0] = v.y;
-              lo[nt][1] = v.z;
-              hi[nt][1] = v.w;
-            }
-          }
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              mma_bf16_16816(part[mt][nt], af[mt], lo[nt][0], lo[nt][1]);
-              mma_bf16_16816(part[mt][2 + nt], af[mt], hi[nt][0], hi[nt][1]);
+          for (int r = 0; r < kNT; ++r)
+            if (r < live) {
+              mma_bf16_16816(part[0][r], alo, bx[r][0], bx[r][1]);
+              mma_bf16_16816(part[1][r], ahi, bx[r][0], bx[r][1]);
             }
         }
       }
 
       // the affine is linear in the partial sums, so it is applied at the
-      // end of a quant group or of the item, whichever comes first
+      // end of a quant group or of the item, whichever comes first, with
+      // the group's scale and zero of the stage (rounded to bf16: the TPU
+      // pack stores the qparams in bf16)
       const bool last = c == it.nc - 1;
       const bool group_end = g_left == 1;
-      if (last || group_end) {
+      if (affine && (last || group_end)) {
+        const float* qs = reinterpret_cast<const float*>(base + R::kQpOff);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = it.col_leaf + (j >> 1) * 128 + 16 * warp +
-                          8 * (j & 1) + 2 * tig;
-          float2 sc = make_float2(1.f, 1.f), ze = make_float2(0.f, 0.f);
+        for (int h = 0; h < 2; ++h) {
+          float sc[2] = {1.f, 1.f}, ze[2] = {0.f, 0.f};
           if (BITS != 16) {
-            // rounded to bf16: the TPU pack stores the qparams in bf16
-            sc = bf16_round2(*reinterpret_cast<const float2*>(
-                it.s + (size_t)g * it.n_leaf + col));
-            ze = bf16_round2(*reinterpret_cast<const float2*>(
-                it.z + (size_t)g * it.n_leaf + col));
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int col = 128 * h + 16 * warp + 8 * j + gid;
+              sc[j] = bf16_round(qs[col]);
+              ze[j] = bf16_round(qs[256 + col]);
+            }
           }
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
+          for (int r = 0; r < kNT; ++r)
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const int h = i >> 1;
-              const float s_ = (i & 1) ? sc.y : sc.x;
-              const float z_ = (i & 1) ? ze.y : ze.x;
-              acc[mt][j][i] += (part[mt][j][i] - kOffset * xs[mt][h]) * s_ +
-                               xs[mt][h] * z_;
-              part[mt][j][i] = 0.f;
+              const float x_ = xs[r][i & 1];
+              acc[h][r][i] += (part[h][r][i] - kOffset * x_) * sc[i >> 1] +
+                              x_ * ze[i >> 1];
+              part[h][r][i] = 0.f;
             }
         }
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) xs[mt][0] = xs[mt][1] = 0.f;
+        for (int r = 0; r < kNT; ++r) xs[r][0] = xs[r][1] = 0.f;
       }
-      if (last) {
+      if (ring) {
+        __syncwarp();                     // the warp is done with the stage
+        if (lane == 0) mbar_arrive(empty + buf);
+      }
+      if (last && affine) {
+        float* o = out + (size_t)it.e * out_gs +
+                   (size_t)it.split * a.B * st.ldo + it.col_out + 16 * warp +
+                   gid;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = it.col_out + (j >> 1) * 128 + 16 * warp +
-                          8 * (j & 1) + 2 * tig;
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
+          for (int r = 0; r < kNT; ++r)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int m = it.m_base + mt * 16 + gid + 8 * h;
+            for (int i = 0; i < 4; ++i) {
+              const int m = it.m_base + 8 * r + 2 * tig + (i & 1);
               if (m < a.B)
-                *reinterpret_cast<float2*>(
-                    out + (size_t)it.e * out_gs +
-                    ((size_t)it.split * a.B + m) * st.ldo + col) =
-                    make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
-              acc[mt][j][2 * h] = acc[mt][j][2 * h + 1] = 0.f;
+                o[(size_t)m * st.ldo + 128 * h + 8 * (i >> 1)] =
+                    acc[h][r][i];
+              acc[h][r][i] = 0.f;
             }
-        }
       }
-      if (group_end) {
-        ++g;
+      if (group_end)
         g_left = cpg;
-      } else {
+      else
         --g_left;
-      }
-      if (a.probe < 3)
-        __syncthreads();   // buffer `buf` is free for the chunk kStages ahead
-      buf = (buf + 1) % kStages;
     }
   }
-  cp_async_wait<0>();
+  // every chunk issued was waited for: no copy is in flight
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_inval(full + s);
+      mbar_inval(empty + s);
+    }
+  }
   __syncthreads();
 }
 
@@ -451,41 +596,21 @@ __device__ __noinline__ void product_experts(const Args& a, int sid,
                                 ngroups, rec_gs, out_gs);
 }
 
-// The MoE router of one token, run by one warp: the router product's E
-// (+ the shared gate's) lanes summed over its K splits (`src`: the token's
-// row of split 0), softmax over the E lanes, k rounds of max choosing the
-// lowest lane on ties, optional renormalisation (the TPU kernel's router
-// phase). Gives the chosen experts in ascending order with their gates, and
-// the shared expert's gate: sigmoid of lane E, or 1 without a gate column,
-// or 0 without a shared expert.
-__device__ __noinline__ void route_row(const float* src, int ksplit,
-                                          size_t split_stride, int E, int k,
-                                          int norm, int has_shared,
-                                          int has_sgate, int (&idx)[kMaxTopk],
+// The MoE router of one token, run by one warp, from its router product's
+// E (+ the shared gate's) lanes, lane + 32 j of this lane in lg[j]:
+// softmax over the E lanes, k rounds of max choosing the lowest lane on
+// ties, optional renormalisation (the TPU kernel's router phase). Gives the
+// chosen experts in ascending order with their gates, and the shared
+// expert's gate: sigmoid of lane E, or 1 without a gate column, or 0
+// without a shared expert.
+constexpr int kRoutePer = kMaxLanes / 32;
+__device__ __forceinline__ void route_top(const float (&lg)[kRoutePer], int E,
+                                          int k, int norm, int has_shared,
+                                          int has_sgate,
+                                          int (&idx)[kMaxTopk],
                                           float (&w)[kMaxTopk], float& sg) {
-  constexpr int kPer = kMaxLanes / 32;
+  constexpr int kPer = kRoutePer;
   const int lane = threadIdx.x & 31;
-  const int lanes = E + has_sgate;
-  float lg[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int e = lane + 32 * j;
-    float v = 0.f;
-    if (e < lanes) {
-      // eight splits' loads are issued before the first is added
-      for (int s = 0; s < ksplit; s += 8) {
-        float p[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          p[q] = s + q < ksplit
-                     ? __ldcg(src + (size_t)(s + q) * split_stride + e)
-                     : 0.f;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v += p[q];
-      }
-    }
-    lg[j] = v;
-  }
   float mx = -FLT_MAX;
 #pragma unroll
   for (int j = 0; j < kPer; ++j)
@@ -546,6 +671,38 @@ __device__ __noinline__ void route_row(const float* src, int ksplit,
   sg = !has_shared ? 0.f : (has_sgate ? 1.0f / (1.0f + expf(-sv)) : 1.0f);
 }
 
+// route_top of one token whose router product is `ksplit` K-split partials
+// (`src`: the token's row of split 0), summed a lane by this warp.
+__device__ __noinline__ void route_row(const float* src, int ksplit,
+                                          size_t split_stride, int E, int k,
+                                          int norm, int has_shared,
+                                          int has_sgate, int (&idx)[kMaxTopk],
+                                          float (&w)[kMaxTopk], float& sg) {
+  const int lane = threadIdx.x & 31;
+  const int lanes = E + has_sgate;
+  float lg[kRoutePer];
+#pragma unroll
+  for (int j = 0; j < kRoutePer; ++j) {
+    const int e = lane + 32 * j;
+    float v = 0.f;
+    if (e < lanes) {
+      // eight splits' loads are issued before the first is added
+      for (int s = 0; s < ksplit; s += 8) {
+        float p[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          p[q] = s + q < ksplit
+                     ? __ldcg(src + (size_t)(s + q) * split_stride + e)
+                     : 0.f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v += p[q];
+      }
+    }
+    lg[j] = v;
+  }
+  route_top(lg, E, k, norm, has_shared, has_sgate, idx, w, sg);
+}
+
 template <typename T>
 T* ptr(long long v) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(v));
@@ -588,12 +745,10 @@ constexpr int imax(int x, int y) { return x > y ? x : y; }
 
 // Dynamic shared memory of a block that runs product_phase<*, mt>.
 inline int product_smem_bytes(int mt) {
-  int b = mt == 1 ? Tile<4>::kStages * stage_bytes<4, 1>()
-                  : Tile<4>::kStages * stage_bytes<4, 2>();
-  b = imax(b, mt == 1 ? Tile<8>::kStages * stage_bytes<8, 1>()
-                      : Tile<8>::kStages * stage_bytes<8, 2>());
-  return imax(b, mt == 1 ? Tile<16>::kStages * stage_bytes<16, 1>()
-                         : Tile<16>::kStages * stage_bytes<16, 2>());
+  return mt == 1 ? imax(imax(Ring<4, 1>::kBytes, Ring<8, 1>::kBytes),
+                        Ring<16, 1>::kBytes)
+                 : imax(imax(Ring<4, 2>::kBytes, Ring<8, 2>::kBytes),
+                        Ring<16, 2>::kBytes);
 }
 
 }  // namespace di

@@ -23,39 +23,54 @@
 // What this design does about it. The per-op path spends most of its step
 // in ~225 kernel boundaries, x prologues, split-K reduce kernels, casts and
 // small elementwise kernels. Here every block is alive for the whole step
-// (grid = SMs x co-resident blocks, from the occupancy query) and phases
-// are separated by a grid-wide barrier in global memory (arrive counter
-// with a flip bit, release/acquire fences). Activations between phases live
-// in small global scratch buffers that stay in L2:
+// (grid = SMs x co-resident blocks, from the occupancy query: two blocks
+// of 8 warps an SM at mpad 16, one at mpad 32) and phases are separated by
+// a grid-wide barrier in global memory (arrive counter with a flip bit,
+// release/acquire fences). Activations between phases live in small global
+// scratch buffers that stay in L2:
 //   records  the next product's x operand, per 64-row K chunk, as ready-made
-//            mma A fragments plus f32 row sums (csrc/di_product.cuh), so a
-//            product stage brings its x tile and its group sums in with the
-//            same cp.async pipeline as the payload (the producing phase
-//            writes them: no prologue launch);
+//            mma fragments plus f32 row sums (csrc/di_product.cuh), written
+//            by the producing phase (no prologue launch);
 //   partial  each product's split-K partial sums [ksplit][B][N] f32, summed
 //            in a fixed order by the consuming phase (no float atomics:
 //            a step repeats bit for bit).
 // A product phase walks work items (256-column tile, K split) round-robin
-// over the blocks; a block's items form ONE flat chunk sequence, so the
-// cp.async pipeline (6 chunks deep for u4) stays full across item borders.
-// The dot is quant_matmul.cu's m16n8k16 mma (a u4 level n enters as
-// bf16(128 + n), the 128 * sum(x) comes back off in the group affine), on a
-// payload that `pack_params` has re-laid in fragment order: the product is
-// bound by instruction issue, not by memory, and the pack lets a lane fetch
-// its operands with 16-byte shared-memory loads. Attention items are (slot,
-// KV head, stripe of the sequence); stripe 0 also quantizes and writes the
-// new token. The loop over pages that the TPU kernel runs as a DMA ring is
-// a loop over tokens inside the block, each warp keeping its next tokens in
-// flight through a small cp.async ring; pages at or past lens are never
-// read.
+// over the blocks; a block's items form ONE flat chunk sequence through a
+// ring of shared-memory stages (6 deep for u4) filled by 1-D bulk copies
+// (TMA): one lane issues a chunk's payload, its x record rows and row sums,
+// and where a quant group ends the tile's scale and zero rows, onto the
+// stage's mbarrier; the warps wait on it and free the stage on a second
+// one, the issuing dealt round the warps. No thread spends instructions on
+// copies, no block-wide barrier a chunk, no global load in the chunk loop.
+// The dot is the m16n8k16 mma with the WEIGHTS as the A operand (the pack's
+// payload registers of a warp's 16 columns are exactly A fragments; a u4
+// level n enters as bf16(128 + n), the 128 * sum(x) comes back off in the
+// group affine) and x as B (n8 tiles of batch rows from the records): at B
+// <= 8 one n8 tile, half the mmas x on the m16 side would take (half of each
+// m16 tile padding). Attention is the per-op kernel's page-tiled design
+// (csrc/di_attn_tile.cuh): items are (slot, KV head, chunk of 128-token
+// tiles), as many chunks as give about two items a block; a tile's K, V and
+// qparams come through a cp.async ring, the scores of the G query heads and
+// P.V (transposed, P in three bf16 parts, a natural-exponential softmax,
+// short accumulation chains: as close to an f32 softmax as the plain
+// version's) run on mma.sync; chunk 0 also quantizes and writes the new
+// token and folds it in from its unquantized f32 K/V; pages at or past lens
+// are never read. The MoE gates take one block a row.
+// What still bounds it: the products' dequant-and-mma chain and its
+// overlap with the ring (u4 at B = 8 about half the card's copy rate in
+// tools/bench_stream.py's probe), the attention items' fixed chain (q|k|v
+// split sums, RoPE, the new token), and the ~11 grid barriers a layer with
+// the short, latency-bound phases between them (residual, norm, merge,
+// SwiGLU: a few us each).
 //
 // Phases of one layer (each followed by the barrier): resid1 -> norm1 ->
 // q|k|v -> attention -> merge -> o -> resid2 -> norm2 -> gate|up -> SwiGLU
 // -> down; then resid -> final norm -> lm_head. Eleven barriers a layer.
 //
 // MoE layers (Qwen1.5/2-MoE): after norm2 the router product (bf16 weights
-// as a 256-column stream) and a gates phase (one warp a row: softmax over
-// the E lanes, top-k, the shared expert's sigmoid gate: `route_row`), then
+// as a 256-column stream) and a gates phase (one block a row sums the
+// router's K splits; one warp then takes the softmax over the E lanes, the
+// top-k and the shared expert's sigmoid gate: `route_top`), then
 // gate|up, SwiGLU and down each as ONE phase over all routed experts and
 // the shared expert: 13 barriers a layer. The TPU kernel streams every
 // expert each step and multiplies the unrouted ones by 0; here each block
@@ -105,7 +120,7 @@ mk_kernel(const __grid_constant__ Args a) {
     grid_barrier(a, phase++);
     product<MT>(a, kQkv, l, a.partial, smem);
     grid_barrier(a, phase++);
-    if (!a.skip_attn) attention(a, l, fsmem);
+    if (!a.skip_attn) attention(a, l, smem);
     grid_barrier(a, phase++);
     merge_phase(a);
     grid_barrier(a, phase++);
@@ -130,7 +145,7 @@ mk_kernel(const __grid_constant__ Args a) {
       __shared__ int s_nused;
       product<MT>(a, kRt, l, a.partial, smem);
       grid_barrier(a, phase++);
-      gates_phase(a, l);
+      gates_phase(a, l, fsmem);
       grid_barrier(a, phase++);
       const int nused = routed_experts(a, l, s_experts, s_flags, &s_nused);
       const Stream& eg = a.st[kGu];
@@ -203,8 +218,9 @@ extern "C" int di_megakernel(const long long* ia, const double* fa,
                              void* stream) {
   Args a;
   fill_args(a, ia, fa);
-  // the wrapper's stripe geometry must be the kernel's
-  if (a.split_len != kAttUnit || a.nsplit < 1 || a.nsplit > kMaxStripes)
+  // the wrapper's attention chunks must be whole tiles, at most kMaxChunks
+  if (a.split_len < kAttTile || a.split_len % kAttTile || a.nsplit < 1 ||
+      a.nsplit > kMaxChunks)
     return (int)cudaErrorInvalidValue;
   if (a.E > 0 && (a.E + a.has_sgate > kMaxLanes || a.k_top < 1 ||
                   a.k_top > kMaxTopk || a.inter % kChunkK ||

@@ -11,10 +11,12 @@
 //   sp_copy     reads the buffer with 16-byte loads and returns per-block
 //               wrap-around sums of its 32-bit words: the rate at which the
 //               card streams bytes it does nothing with;
-//   sp_product  the megakernel's product phase (csrc/di_product.cuh) on one
-//               weight leaf: x [B, K] against bf16 / int8 per-channel / int8
-//               group-wise / u4 group-wise payload, split-K partial sums
-//               out: the ceiling of a megakernel weight phase of that format.
+//   sp_product  the megakernel's product phase (csrc/di_product.cuh:
+//               weights as the mma's A operand, fed by a bulk-copy ring)
+//               on one weight leaf: x [B, K] against bf16 / int8
+//               per-channel / int8 group-wise / u4 group-wise payload,
+//               split-K partial sums out: the ceiling of a megakernel
+//               weight phase of that format.
 // What bounds them: bytes; the probe exists to measure how close to the
 // card's memory rate each format's dequantize-and-dot keeps the stream.
 // sp_records lays x out as the product's x records once, outside the timing.
@@ -24,6 +26,10 @@
 namespace {
 
 using namespace di;
+
+// the product ring's fault word (a wait that gave up: kRingTimeout); it
+// stays set for the life of the process
+__device__ int sp_status;
 
 __global__ void __launch_bounds__(kThreads)
 sp_copy(const uint4* __restrict__ buf, long long n_vec,
@@ -139,6 +145,9 @@ extern "C" int di_stream_probe_product(const long long* sa, const void* rec,
   a.partial = out;
   a.launches = launches;
   a.trace = nullptr;
+  if (cudaGetSymbolAddress(reinterpret_cast<void**>(&a.status), sp_status) !=
+      cudaSuccess)
+    return (int)cudaGetLastError();
   a.B = B;
   a.mpad = mpad;
   a.probe = variant;

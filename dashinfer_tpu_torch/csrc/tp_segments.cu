@@ -46,21 +46,20 @@
 // 256 operations a weight byte.
 //
 // What the design does about it: the products stream the fragment-ordered
-// pack with the megakernel's cp.async pipeline, split-K over every block of
-// a grid of all co-resident blocks; the phases are separated by the grid
-// barrier (attn: resid, norm, q|k|v, attention, merge, o; mlp: resid,
-// norm, gate|up, SwiGLU, down; moe: resid, norm, router, gates, gate|up,
-// SwiGLU, down; lm: resid, norm), and a last phase sums the o / down
-// product's K splits into the partial (moe: with the gates). The moe
-// segment reads only the routed experts of its group, as the megakernel's
-// MoE branch does, and builds their list on the card (no host sync: the
-// forward stays one CUDA graph). The attn segment's bytes
-// are few (~2.6 us at the card's rate), so its time is set by the launch
-// and its five barriers, not by memory. Its attention phase has B x KH/n x
-// stripes items: the stripe count rises to fill the grid (at most 16 a
-// (slot, KV head)), so at n = 2 (2 KV heads a rank) the items still cover
-// the grid at B = 8, and at n = 4 (1 KV head) half of it; a stripe per
-// (slot, KV head) pair is the limit at long contexts, as in the megakernel.
+// pack through the megakernel's bulk-copy ring (weights as the mma's A
+// operand, di_product.cuh), split-K over every block of a grid of all
+// co-resident blocks; the phases are separated by the grid barrier (attn:
+// resid, norm, q|k|v, attention, merge, o; mlp: resid, norm, gate|up,
+// SwiGLU, down; moe: resid, norm, router, gates, gate|up, SwiGLU, down; lm:
+// resid, norm), and a last phase sums the o / down product's K splits into
+// the partial (moe: with the gates). The moe segment reads only the routed
+// experts of its group, as the megakernel's MoE branch does, and builds
+// their list on the card (no host sync: the forward stays one CUDA graph).
+// The attn segment's bytes are few (~2.6 us at the card's rate), so its
+// time is set by the launch and its five barriers, not by memory. Its
+// attention phase is the megakernel's page-tiled one (di_attn_tile.cuh):
+// B x KH/n x chunks items, the chunk count from static shapes (at most 16
+// a (slot, KV head), each a whole number of 128-token tiles).
 
 #include "di_moe_layer.cuh"
 
@@ -161,7 +160,10 @@ __global__ void __launch_bounds__(kThreads, MT == 1 ? 2 : 1)
 seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
   extern __shared__ __align__(16) uint8_t smem[];
   float* fsmem = reinterpret_cast<float*>(smem);
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.launches, 1ull);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(a.launches, 1ull);
+    if (a.trace != nullptr) a.trace[0] = global_ns();
+  }
   const int l = g.layer;
   const float* w = KIND == kLmSeg
                        ? a.final_norm
@@ -175,7 +177,7 @@ seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
   if constexpr (KIND == kAttnSeg) {
     product<MT>(a, kQkv, l, a.partial, smem);
     grid_barrier(a, phase++);
-    attention(a, l, fsmem);
+    attention(a, l, smem);
     grid_barrier(a, phase++);
     merge_phase(a);
     grid_barrier(a, phase++);
@@ -197,7 +199,7 @@ seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
     __shared__ int s_nused;
     product<MT>(a, kRt, l, a.partial, smem);
     grid_barrier(a, phase++);
-    gates_phase(a, l);
+    gates_phase(a, l, fsmem);
     grid_barrier(a, phase++);
     const int nused =
         group_routed_experts(a, l, g.e0, g.ne, s_experts, s_flags, &s_nused);
@@ -297,8 +299,8 @@ extern "C" int di_tp_segment(int kind, int layer, const long long* ia,
   g.e0 = (int)tail[1];
   g.ne = (int)tail[2];
   if (kind < kAttnSeg || kind > kMoeSeg || (a.E != 0) != (kind == kMoeSeg) ||
-      a.skip_attn || a.split_len != kAttUnit || a.nsplit < 1 ||
-      a.nsplit > kMaxStripes || layer < 0 || layer >= a.L)
+      a.skip_attn || a.split_len < kAttTile || a.split_len % kAttTile ||
+      a.nsplit < 1 || a.nsplit > kMaxChunks || layer < 0 || layer >= a.L)
     return (int)cudaErrorInvalidValue;
   if (kind == kMoeSeg &&
       (a.E + a.has_sgate > kMaxLanes || a.k_top < 1 || a.k_top > kMaxTopk ||

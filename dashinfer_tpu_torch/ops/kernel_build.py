@@ -25,7 +25,8 @@ SOURCES = ("quant_matmul", "paged_attention", "megakernel", "stream_probe",
            "prefill_megakernel", "probes", "grouped_quant_matmul",
            "tp_segments", "tp_prefill_segments")
 HEADERS = ("di_common.cuh", "di_product.cuh",   # included by the sources
-           "di_layer.cuh", "di_moe_layer.cuh", "di_prefill_layer.cuh")
+           "di_attn_tile.cuh", "di_layer.cuh", "di_moe_layer.cuh",
+           "di_prefill_layer.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
 

@@ -70,7 +70,8 @@ from dashinfer_tpu_torch.runtime.kv_cache import KVCache
 PACK_VERSION = 2   # bump when what pack_params returns changes
 MAX_BATCH = 64
 CHUNK_K = 64        # K rows per pipeline stage of the kernel
-ATT_UNIT = 64       # tokens per unit of an attention stripe
+ATT_TILE = 128      # attention chunks are whole tiles of this many tokens
+MAX_ATT_CHUNKS = 16  # attention chunks a slot (csrc kMaxChunks)
 _NEG_INF = torch.finfo(torch.float32).min
 _LAYER_STREAMS = (("qkv", ("q_proj", "k_proj", "v_proj")),
                   ("o", ("o_proj",)),
@@ -981,10 +982,15 @@ def _attend_ref(plan: MegaPlan, q, k_new, v_new, cache: KVCache, phys,
     s_new = torch.einsum("bhgd,bhd->bhg", qf, k_new)[..., None] * scale
     p = torch.softmax(torch.cat([s, s_new], dim=-1), dim=-1)
     p_old = p[..., :S] * mask
+    # what lies past lens is garbage (a float pool or the qparams may hold
+    # NaN there): the V side reads it as 0, by select
+    vmask = mask[:, :, 0, :, None]
+    v_raw = torch.where(vmask, v_raw, 0.0)
     if mode == CacheMode.DEFAULT:
         out = torch.einsum("bhgs,bhsd->bhgd", p_old, v_raw)
     else:
-        v_scale, v_zero = qparams(cache.v_qparams)
+        v_scale, v_zero = (torch.where(mask, t, 0.0)
+                           for t in qparams(cache.v_qparams))
         out = torch.einsum("bhgs,bhsd->bhgd", p_old * v_scale, v_raw) + \
             (p_old * v_zero).sum(-1, keepdim=True)
     out = out + p[..., S:] * v_new[:, :, None, :]
@@ -1119,6 +1125,20 @@ def padded_rows(B: int) -> int:
     return 16 if B <= 16 else (32 if B <= 32 else 64)
 
 
+def attention_chunks(B: int, KH: int, max_tokens: int, grid: int
+                     ) -> Tuple[int, int]:
+    """(chunks a slot, tokens a chunk) of the kernels' attention phase
+    (csrc/di_layer.cuh), from static shapes alone: its items are (slot, KV
+    head, chunk), chunk j the tokens [j * chunk_tokens, (j + 1) *
+    chunk_tokens), a whole number of ATT_TILE-token tiles; as many chunks
+    as give about two items a block of the grid (items past a slot's
+    length are empty), at most MAX_ATT_CHUNKS, each at least one tile."""
+    tiles = max(1, -(-max_tokens // ATT_TILE))
+    want = max(1, min(MAX_ATT_CHUNKS, tiles, -(-2 * grid // (B * KH))))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * ATT_TILE
+
+
 def choose_split(tiles: int, chunks: int, chunk_bytes: int, B: int,
                  passes: int, grid: int) -> Tuple[int, int]:
     """K split of one product: (ksplit, chunks per split). Each block walks
@@ -1246,13 +1266,8 @@ class _Launch:
                 self.splits[sp.name] = choose_split(
                     sp.Nptot // 256 * (routed if sp.E else 1),
                     sp.K // CHUNK_K, chunk_bytes, B, passes, self.grid)
-        # attention items are (slot, KV head, stripe): about two items a
-        # block, at most 16 stripes (the kernel's kMaxStripes); a stripe's
-        # units are ATT_UNIT tokens
-        self.split_len = ATT_UNIT
-        units = -(-plan.maxP * plan.ps // ATT_UNIT)
-        self.nsplit = max(1, min(16, units,
-                                 -(-2 * self.grid // (B * plan.KH))))
+        self.nsplit, self.split_len = attention_chunks(
+            B, plan.KH, plan.maxP * plan.ps, self.grid)
 
         def zeros(n, dt):
             return torch.zeros(n, dtype=dt, device=dev)
@@ -1305,9 +1320,20 @@ def _launch_state(plan: MegaPlan, dev: torch.device) -> _Launch:
     return st
 
 
+RING_TIMEOUT = -1     # status of a product ring wait that gave up (csrc)
+
+
+def status_fault(code: int) -> str:
+    """What a nonzero status word of the decode kernels says."""
+    if code == RING_TIMEOUT:
+        return "a product phase's bulk-copy ring wait timed out"
+    return f"grid barrier after phase {code - 1} timed out"
+
+
 def check_status(plan: MegaPlan, device) -> None:
     """Waits for the device and raises if a launch of this plan gave up at
-    a grid barrier (blocks that never became co-resident)."""
+    a grid barrier (blocks that never became co-resident) or at a wait of
+    a product's copy ring."""
     st = _launches.get((plan, _indexed(device)))
     if st is None:
         return
@@ -1315,8 +1341,7 @@ def check_status(plan: MegaPlan, device) -> None:
     if code:
         st.status.zero_()
         st.barrier.zero_()
-        raise RuntimeError(f"decode_megakernel: grid barrier after phase "
-                           f"{code - 1} timed out")
+        raise RuntimeError(f"decode_megakernel: {status_fault(code)}")
 
 
 def kernel_routing(plan: MegaPlan, device) -> torch.Tensor:
@@ -1327,7 +1352,7 @@ def kernel_routing(plan: MegaPlan, device) -> torch.Tensor:
 
 
 def launch_geometry(plan: MegaPlan, device) -> Dict:
-    """Grid, K splits and attention splits of this plan's launches."""
+    """Grid, K splits and attention chunks of this plan's launches."""
     st = _launch_state(plan, _indexed(device))
     return dict(grid=st.grid, mpad=st.mpad, splits=dict(st.splits),
                 nsplit=st.nsplit, split_len=st.split_len)

@@ -466,10 +466,8 @@ class _Launch:
                 sp.Nptot // 256 * (routed if sp.E else 1), sp.K // mk.CHUNK_K,
                 mk.CHUNK_K * 256 * sp.bits // 8, B, passes,
                 self.grid[_stream_kind(plan, sp.name)])
-        # attention items are (slot, KV head, stripe): about two a block
-        units = -(-plan.maxP * plan.ps // mk.ATT_UNIT)
-        self.nsplit = max(1, min(16, units,
-                                 -(-2 * self.grid["attn"] // (B * plan.KH))))
+        self.nsplit, self.split_len = mk.attention_chunks(
+            B, plan.KH, plan.maxP * plan.ps, self.grid["attn"])
 
         def zeros(n, dt):
             return torch.zeros(n, dtype=dt, device=dev)
@@ -517,7 +515,7 @@ def _launch_state(plan: mk.MegaPlan, dev: torch.device) -> _Launch:
 
 def check_status(plan: mk.MegaPlan, device) -> None:
     """Waits for the device and raises if a segment launch of this plan
-    gave up at a grid barrier."""
+    gave up at a grid barrier or a product ring wait."""
     st = _launches.get((plan, mk._indexed(device)))
     if st is None:
         return
@@ -525,8 +523,7 @@ def check_status(plan: mk.MegaPlan, device) -> None:
     if code:
         st.status.zero_()
         st.barrier.zero_()
-        raise RuntimeError(f"tp segments: grid barrier after phase "
-                           f"{code - 1} timed out")
+        raise RuntimeError(f"tp segments: {mk.status_fault(code)}")
 
 
 def kernel_routing(plan: mk.MegaPlan, device, rank: int) -> torch.Tensor:
@@ -539,10 +536,10 @@ def kernel_routing(plan: mk.MegaPlan, device, rank: int) -> torch.Tensor:
 
 
 def launch_geometry(plan: mk.MegaPlan, device) -> Dict:
-    """Grids, K splits and attention stripes of this plan's launches."""
+    """Grids, K splits and attention chunks of this plan's launches."""
     st = _launch_state(plan, mk._indexed(device))
     return dict(grid=dict(st.grid), mpad=st.mpad, splits=dict(st.splits),
-                nsplit=st.nsplit)
+                nsplit=st.nsplit, split_len=st.split_len)
 
 
 def _expect(who: str, name: str, t: torch.Tensor, dt, shape, dev) -> None:
@@ -556,7 +553,7 @@ def _expect(who: str, name: str, t: torch.Tensor, dt, shape, dev) -> None:
 def _launch(kind: str, plan: mk.MegaPlan, packed: Dict, layer: int,
             x: torch.Tensor, add: Optional[torch.Tensor], out: torch.Tensor,
             counter: kernel_build.LaunchCounter, rank: int = 0,
-            **step) -> None:
+            trace: Optional[torch.Tensor] = None, **step) -> None:
     who = f"tp_{kind}_segment"
     dev = x.device
     B = plan.B
@@ -581,10 +578,11 @@ def _launch(kind: str, plan: mk.MegaPlan, packed: Dict, layer: int,
         att_acc=st.att_acc.data_ptr(), ssq=st.ssq.data_ptr(),
         barrier=st.barrier.data_ptr(), status=st.status.data_ptr(),
         launches=counter.pointer(dev),
+        trace=0 if trace is None else trace.data_ptr(),
         B=B, L=plan.L, hid=plan.hid, H=plan.H, KH=plan.KH, inter=plan.inter,
         V=plan.V, ps=plan.ps, maxP=plan.maxP,
         kv_kind=mk._KV_KIND[plan.kv_dtype_name], nsplit=st.nsplit,
-        split_len=mk.ATT_UNIT, mpad=st.mpad, grid=st.grid[kind])
+        split_len=st.split_len, mpad=st.mpad, grid=st.grid[kind])
     if kind == "attn":
         cache = step["cache"]
         for name, dt, shape in (
@@ -648,11 +646,17 @@ def _check_device(who: str, x: torch.Tensor) -> None:
         raise ValueError(f"{who}: unsupported device {x.device}")
 
 
+# the attn segment's phases, each followed by a grid barrier (its last
+# phase, the sum of the o product's splits, is not)
+ATTN_SEG_PHASES = ("resid", "norm", "qkv", "attention", "merge", "o")
+
+
 def tp_attn_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
                     x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                     page_tables: torch.Tensor, lens: torch.Tensor,
                     active: torch.Tensor, cache: KVCache,
-                    add: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    add: Optional[torch.Tensor] = None,
+                    trace: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer's attention segment of one rank. x [B, hid] f32: the
     rank's residual, first increased by `add` in place (the all-reduced
     partial of the segment before, None in layer 0); packed: the rank's
@@ -660,16 +664,24 @@ def tp_attn_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
     [B, maxP] int32 LOGICAL pages, lens [B] int32, active [B] bool as
     `decode_megakernel` takes them; cache: the rank's pool (its KV heads),
     updated in place at each active slot's new token. Returns the o partial
-    [B, hid] f32. CPU tensors take `attn_segment_ref`; CUDA tensors launch
-    the kernel or raise."""
+    [B, hid] f32. `trace` (int64 [2 * len(ATTN_SEG_PHASES) + 1] on the
+    card) gets block 0's timestamps as `decode_megakernel`'s does: read it
+    with `megakernel.phase_times_of(ATTN_SEG_PHASES, trace)`. CPU tensors
+    take `attn_segment_ref`; CUDA tensors launch the kernel or raise."""
     if x.device.type == "cpu":
         return attn_segment_ref(plan, packed, layer, x, cos, sin,
                                 page_tables, lens, active, cache, add)
     _check_device("tp_attn_segment", x)
     out = torch.empty((plan.B, plan.hid), dtype=torch.float32,
                       device=x.device)
+    if trace is not None and (
+            trace.dtype != torch.int64 or trace.device != x.device or
+            trace.numel() < 2 * len(ATTN_SEG_PHASES) + 1 or
+            not trace.is_contiguous()):
+        raise ValueError("tp_attn_segment: trace must be contiguous int64 "
+                         f"[{2 * len(ATTN_SEG_PHASES) + 1}] on {x.device}")
     _launch("attn", plan, packed, layer, x, add, out,
-            tp_attn_segment.counter, cos=cos, sin=sin,
+            tp_attn_segment.counter, trace=trace, cos=cos, sin=sin,
             page_tables=page_tables, lens=lens, active=active, cache=cache)
     return out
 
@@ -925,7 +937,7 @@ def reserve_prefill_scratch(plans, device) -> int:
 
 def check_prefill_status(device) -> None:
     """Waits for the device and raises if a prefill segment launch on it
-    gave up at a grid barrier."""
+    gave up at a grid barrier or a product ring wait."""
     pmk.check_status(device, who="tp prefill segments")
 
 

@@ -1,8 +1,11 @@
 """The decode or prefill megakernel, or the per-op paged attention and
 grouped GEMM, of two checkouts, side by side on one card.
 
-Times one decode forward of csrc/megakernel.cu at Qwen2-7B width (a16w4,
-B = 8, INT8 KV, chip_smoke.py's state and random weights), with `--moe`
+Times one decode forward of csrc/megakernel.cu at Qwen2-7B width (INT8 KV,
+chip_smoke.py's states and random weights: the u4 stream at B = 8 with
+1,435 and with 15,513 cached tokens and at B = 32, the per-channel i8
+stream at B = 8 and 32), each with its attention left out and with block
+0's per-phase times, with `--moe`
 one decode forward of its MoE branch at Qwen1.5-MoE-A2.7B width at B = 8
 and B = 32 (chip_smoke.py's MoE weights and states), or with `--prefill`
 one launch of csrc/prefill_megakernel.cu for a full bucket of 128 and of
@@ -11,9 +14,14 @@ one launch of csrc/prefill_megakernel.cu for a full bucket of 128 and of
 Qwen2-7B's 28 heads on 4 and Qwen1.5-MoE's 16 on 16, and its long-context
 state at B = 8 and 32, one launch a layer in turn: cold) and
 grouped_quant_matmul (Qwen1.5-MoE width, u4, the bucket-32, 128 and 1024
-prefills' routed rows, gate and down) and, for what the two move end to
-end, the per-op decode forward of Qwen2-7B and of Qwen1.5-MoE at B = 8 on
-chip_smoke.py's INT8 state, for each checkout root given, in the order
+prefills' routed rows, gate and down), the stream probe's u4 g128 product
+(csrc/stream_probe.cu, the decode product phase on Qwen2-7B's gate|up leaf
+at B = 8), the TP segments (csrc/tp_segments.cu: attn, mlp or moe, and lm
+of rank 0 at layer 0) and the TP decode step of each model on a (1, 2)
+mesh whose ranks share the card (INT8 KV, B = 8) and, for what the
+kernels move end to end, the per-op decode forward of Qwen2-7B and of
+Qwen1.5-MoE at B = 8 on chip_smoke.py's INT8 state, for each checkout root
+given, in the order
 given, each in a process of its own that imports that checkout's
 `dashinfer_tpu_torch` and `chip_smoke.py`.
 The kernels are built first, all roots at once. Give the parent and the
@@ -38,7 +46,9 @@ _KERNELS = {"decode": (("megakernel", "mk_kernel"),),
             "moe": (("megakernel", "mk_kernel"),),
             "prefill": (("prefill_megakernel", "pmk_kernel"),),
             "kernels": (("paged_attention", "pa_kernel"),
-                        ("grouped_quant_matmul", "gqm_kernel"))}
+                        ("grouped_quant_matmul", "gqm_kernel"),
+                        ("stream_probe", "sp_product"),
+                        ("tp_segments", "seg_kernel"))}
 _FLAGS = {"--prefill": "prefill", "--moe": "moe", "--kernels": "kernels"}
 PREFILL_BUCKETS = (128, 1024)
 MOE_BATCHES = (8, 32)
@@ -67,6 +77,35 @@ def _gqm_leaves(cs, cfg, dev):
     gqm.prepare_grouped_experts({"layers": {"experts": ex}}, cfg)
     return {name: {k: v[0] for k, v in ex[key].items()}
             for name, key in (("gate", "gate_proj"), ("down", "down_proj"))}
+
+
+def _tp(cs, name, cfg, params, gen, dev) -> dict:
+    """The TP segments of rank 0 at layer 0 (ms a launch) and the TP decode
+    step, on a (1, 2) mesh whose ranks share the card, INT8 KV, B = 8:
+    chip_smoke.py's `tp_timing` of its first TP (or TP MoE) case; and,
+    where the checkout's attn segment takes a trace, block 0's time in
+    each of its phases in one launch."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    s = (cs.tp_moe_setup(cfg, params, 2, "INT8", cs.DECODE_BATCH, gen, dev)
+         if cfg.moe else cs.tp_setup(cfg, params, 2, "INT8", gen, dev))
+    st = s["st"]
+    step = (st["cos"], st["sin"], st["pt"], st["lens"], st["active"])
+    plan1, pack1 = cs.mk_plan_pack(cfg, params, s["plan"].B, s["mode"])
+    c1 = cs.full_pool(s["caches"]).clone()
+    t = cs.tp_timing(cfg, s, plan1, pack1, c1, step, dev)
+    out = {f"tp_{name}_{seg}_ms": r["ms"]
+           for seg, r in t["segments"].items()}
+    out[f"tp_{name}_step_ms"] = t["tp_forward_ms"]
+    names = getattr(tpk, "ATTN_SEG_PHASES", None)
+    if names:           # a checkout whose attn segment takes a trace
+        trace = torch.zeros(2 * len(names) + 1, dtype=torch.int64,
+                            device=dev)
+        tpk.tp_attn_segment(s["plan"], s["packs"][0], 0, s["x0"].float(),
+                            *step, s["caches"][0], trace=trace)
+        out[f"tp_{name}_attn_phases"] = mk.phase_times_of(names, trace)
+    return out
 
 
 def _kernels(cs, root: str) -> dict:
@@ -127,6 +166,11 @@ def _kernels(cs, root: str) -> dict:
                                    out["gqm_down_T32_ms"])
         del leaves, xs
         torch.cuda.empty_cache()
+        from dashinfer_tpu_torch.tools import bench_stream
+        u4 = bench_stream.measure_rates(cs.DECODE_BATCH, dev,
+                                        formats=("u4_g128",))[0]
+        out["stream_u4_B8_ms"] = u4["ms"]
+        out["stream_u4_B8_gbps"] = u4["gbps"]
         for name, fcfg, make in (
                 ("qwen2_7b", cfg, lambda: cs.random_qwen2_7b_params(
                     cs.SEED, dev)),
@@ -138,7 +182,10 @@ def _kernels(cs, root: str) -> dict:
                 lambda: transformer.decode_forward(
                     fcfg, params, st["tokens"], st["cache"], st["pt"],
                     st["lens"], st["active"], mode=mode), [()], iters=3)
-            del params, st
+            del st
+            torch.cuda.empty_cache()
+            out.update(_tp(cs, name, fcfg, params, gen, dev))
+            del params
             torch.cuda.empty_cache()
     return out
 
@@ -178,16 +225,33 @@ def _one(root: str, build_only: bool, mode: str) -> None:
             row = cs.time_megakernel(cfg, params, "u4 MoE", B, lens, gen,
                                      dev, per_op=False)
             out[f"ms_B{B}"] = row["ms"]
+            out[f"B{B}"] = {k: row[k] for k in ("no_attention_ms", "phases",
+                                                "bytes_ms")}
         print("AB", json.dumps(out), flush=True)
         return
     cfg = ModelConfig(**cs.QWEN2_7B)
     params = cs.random_qwen2_7b_params(cs.SEED, dev)
     if mode == "decode":
-        row = cs.time_megakernel(cfg, params, "u4", 8, cs.MK_LENS, gen, dev,
-                                 per_op=False)
-        print("AB", json.dumps({"root": root, "ms": row["ms"],
-                                "no_attention_ms": row["no_attention_ms"]}),
-              flush=True)
+        out = {"root": root}
+        lens32 = [(37 + 61 * i) % 1500 + 1 for i in range(32)]
+        i8 = None
+        for name, stream, B, lens in (
+                ("u4_B8", "u4", 8, cs.MK_LENS),
+                ("u4_B8_long", "u4", 8, LONG_LENS),
+                ("u4_B32", "u4", 32, lens32),
+                ("i8_B8", "i8", 8, cs.MK_LENS),
+                ("i8_B32", "i8", 32, lens32)):
+            if stream == "i8" and i8 is None:
+                embed = params["embed_tokens"]
+                del params
+                torch.cuda.empty_cache()
+                i8 = cs.random_qwen2_7b_params(cs.SEED + 1, dev, stream="i8")
+                i8["embed_tokens"] = embed
+            row = cs.time_megakernel(cfg, params if stream == "u4" else i8,
+                                     stream, B, lens, gen, dev, per_op=False)
+            out[name] = {k: row[k] for k in ("ms", "no_attention_ms",
+                                             "phases", "bytes_ms")}
+        print("AB", json.dumps(out), flush=True)
         return
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
     out = {"root": root}

@@ -362,9 +362,13 @@ def test_tile_tokens_match_the_kernel():
             (1, 128): 64, (1, 256): 64, (2, 64): 128, (2, 128): 128,
             (2, 256): 64, (3, 64): 128, (3, 128): 128, (3, 256): 128}
     assert {kd: tpa.tile_tokens(*kd) for kd in want} == want
+    # the tile geometry lives in the header that paged_attention.cu and the
+    # decode megakernel's attention phase share
     src = open(os.path.join(CSRC, "paged_attention.cu")).read()
+    assert '#include "di_attn_tile.cuh"' in src and "Geo<KIND, D>" in src
+    src = open(os.path.join(CSRC, "di_attn_tile.cuh")).read()
     for line in ("kWarps = kRowBytes <= 128 ? 8 : 4;",
-                 "kWarpT = (KIND == kF32 && D == 256) ? 4 : 16;",
+                 "KIND == kF32 ? (D == 256 ? 4 : (SMALL ? 8 : 16)) : 16;",
                  "kTileT = kWarpT * kWarps;"):
         assert line in src
 
