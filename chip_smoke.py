@@ -2121,11 +2121,17 @@ def check_prefill_pool(what, mode, got, ref, ref32, before, written, cfg,
     return lv_err, qp_err0, rel_max, ill, ill_max, plain_max
 
 
-def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev):
+def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
+                       forced=False):
     """One prefill through the kernel and through the plain version (with
     the kernel's bf16 score operands), on clones of one pool: the logits,
     rows < n of the owned pages, and every other pool byte. The plain
-    version with the TPU kernel's f32 score operands is read beside it."""
+    version with the TPU kernel's f32 score operands is read beside it.
+    `forced` (a MoE case): the plain version is routed as the kernel routed
+    each prompt row in each layer (`kernel_routing`), and every token, the
+    ones the two route differently included, is held to those bounds (the
+    rule of the MoE decode check, `forced_routing_check`); the tokens
+    routed differently are counted and read, not capped."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
@@ -2140,8 +2146,9 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev):
     got = pmk.prefill_megakernel(*args, got_cache)
     pmk.check_status(dev)
     routes = {True: [], False: []}
-    ref = pmk.prefill_megakernel_ref(*args, ref_cache, bf16_scores=True,
-                                     routing=routes[True])
+    ref = pmk.prefill_megakernel_ref(
+        *args, ref_cache, bf16_scores=True, routing=routes[True],
+        forced_routing=pmk.kernel_routing(plan, n, dev) if forced else None)
     ref32 = pmk.prefill_megakernel_ref(*args, ref32_cache,
                                        routing=routes[False])
     torch.cuda.synchronize()
@@ -2158,7 +2165,8 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev):
         valid = torch.arange(plan.S, device=dev) < n
         budget = max(MAX_FLIPPED_ROWS, int(MAX_FLIPPED_SHARE * n))
         flips = flipped_rows(plan, pmk.kernel_gates(plan, dev) > 0,
-                             routes[True], valid, what, budget)
+                             routes[True], valid, what,
+                             None if forced else budget)
         planted = planted_router_fault(plan, routes[True], valid, what,
                                        budget, SEED + n)
         # the plain version with the TPU kernel's f32 score operands
@@ -2166,12 +2174,14 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev):
                               for lg in routes[True]])
         flips32 = flipped_rows(plan, chosen, routes[False], valid, what)
         rows = [t for t, *_ in flips]
-        last_flipped = n - 1 in rows
+        last_flipped = n - 1 in rows and not forced
         last32_flipped = n - 1 in [t for t, *_ in flips32]
         exempt = torch.zeros_like(written)
-        for t in rows:
+        for t in ([] if forced else rows):
             g = int(st["pages"][t // PAGE])
             exempt[g * L:(g + 1) * L, t % PAGE] = True
+        counts = routed_counts_check(plan, dev, routes[True], n, len(rows),
+                                     what)
     err = (got - ref).abs().max().item()
     ref_max = ref.abs().max().item()
     err32 = (got - ref32).abs().max().item()
@@ -2182,7 +2192,7 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev):
         pick = int(got.argmax())
         check(float(ref.max() - ref[pick]) <= 2 * err,
               f"{what}: argmax differs")
-    if not (last_flipped or last32_flipped):
+    if not (last_flipped or last32_flipped or forced):
         check(err32 <= F32_SCORES_RTOL * ref_max,
               f"{what}: logits differ from the f32-score plain version by "
               f"{err32:.3e} > {F32_SCORES_RTOL} * {ref_max:.3e}")
@@ -2201,15 +2211,92 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev):
              f"gap): {flips}"
              + (" incl. the last: its logits not held" if last_flipped
                 else "")
+             + (" (the plain version routed as the kernel: every token "
+                "held)" if forced else "")
              + f", by the planted router fault: {planted} (cap {budget})"
              if plan.E else ""), flush=True)
     return dict(stream=stream, mode=mode.value, bucket=bucket, n=n,
                 flipped_tokens=flips, planted_fault_tokens=planted,
+                routed_as_kernel=forced,
+                expert_rows=counts.tolist() if plan.E else None,
                 max_abs_err=err, max_abs_err_f32_scores=err32,
                 ref_max=ref_max, pool_levels_layer0=lv_err,
                 qparam_rel_layer0=qp_err0, row_rel_max=rel_max,
                 ill_conditioned_rows=ill, ill_row_rel_max=ill_max,
                 plain_versions_row_rel_max=plain_max)
+
+
+def routed_counts_check(plan, dev, logits_plain, n, n_flipped, what):
+    """The per-expert row counts the MoE kernel wrote (its expert products
+    ran over exactly these rows): each layer's sum is n x k, they are the
+    kernel's own routing's (its gates), and they differ from the plain
+    router's only by the tokens routed differently (those capped as flips
+    above: each moves at most k rows out of and k into other experts).
+    Returns the counts [L, E]."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    counts = pmk.kernel_counts(plan, dev).long()
+    chosen = (pmk.kernel_gates(plan, dev) > 0)[:, :n]            # [L, n, E]
+    check(bool((counts.sum(1) == n * plan.k_top).all()),
+          f"{what}: the experts' rows sum to {counts.sum(1).tolist()}, not "
+          f"n x k = {n * plan.k_top} in every layer")
+    check(bool((counts == chosen.sum(1)).all()),
+          f"{what}: the experts' row counts are not the kernel's routing")
+    plain = torch.stack([mk.route(plan, lg[:n])[0] > 0
+                         for lg in logits_plain])
+    moved = (counts - plain.sum(1)).abs().sum(1)                  # [L]
+    differ = (chosen != plain).any(-1).sum(1)                     # [L]
+    check(bool((moved <= 2 * plan.k_top * differ).all()) and
+          int(differ.max()) <= n_flipped,
+          f"{what}: the experts' row counts differ from the plain router's "
+          f"by {moved.tolist()} rows a layer, beyond the {n_flipped} "
+          "tokens routed differently")
+    print(f"{what}: the experts' rows a layer sum to n x k = "
+          f"{n * plan.k_top}, the plain router's counts in "
+          f"{int((moved == 0).sum())} of {plan.L} layers (the rest moved by "
+          f"the flipped tokens); experts without rows: "
+          f"{int((counts == 0).sum())} (expert, layer) pairs; most rows an "
+          f"expert: {int(counts.max())}", flush=True)
+    return counts
+
+
+def skewed_moe_params(params, expert: int, dev):
+    """The MoE weights with every prompt row's hidden state sharing one
+    direction u (the embedding table + u) and `expert`'s router column
+    along u in every layer, so that this expert takes most rows (a router
+    skew); the other weights are shared with `params`."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    emb = params["embed_tokens"]["w"]
+    u = torch.randn(emb.shape[1], generator=gen, device=dev) * 0.05
+    router = params["layers"]["router"]["w"].clone()
+    router[:, :, expert] = (0.25 * u / u.norm())[None, :]
+    return dict(params,
+                embed_tokens={"w": (emb.float() + u).to(emb.dtype)},
+                layers=dict(params["layers"], router={"w": router}))
+
+
+def gate_up_yardstick(cfg, dev, buckets=(128, 1024)):
+    """torch.matmul of x [S, hid] bf16 by a bf16 gate|up weight [hid, 2
+    inter] (the rate the card's library reaches on the product the
+    prefill's gate|up phase computes, with the weight dequantized
+    beforehand; a yardstick, never called by the port): ms a call and
+    TFLOP/s."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    w = (torch.randn((cfg.hidden_size, 2 * cfg.intermediate_size),
+                     generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    out = {}
+    for S in buckets:
+        x = torch.randn((S, cfg.hidden_size), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        ms = time_ms(torch.matmul, [(x, w)], iters=20)
+        out[str(S)] = dict(ms=ms, tflops=2.0 * S * w.numel() / ms / 1e9)
+    del w
+    return out
 
 
 def time_prefill(cfg, params, bucket, gen, dev, trace_it):
@@ -2235,8 +2322,7 @@ def time_prefill(cfg, params, bucket, gen, dev, trace_it):
                             device=dev)
         pmk.prefill_megakernel(*args, trace=trace)
         torch.cuda.synchronize()
-        row["phases"] = pmk.phase_times(plan, trace,
-                                        row["geometry"]["nbatch"])
+        row["phases"] = pmk.phase_times(plan, trace)
 
     def per_op():
         transformer.prefill_forward(cfg, params, st["tokens"], st["cache"],
@@ -2265,10 +2351,10 @@ def time_prefill(cfg, params, bucket, gen, dev, trace_it):
               2 * bucket * plan.D * 2 + 2 * n * kv_row * plan.L + plan.V * 4)
     row.update(weight_bytes=plan.weight_bytes, operations=plan.operations(n),
                **bounds(nbytes, plan.operations(n)))
-    if plan.E:      # the kernel runs every expert on every row
-        row["dense_expert_operations"] = plan.dense_expert_operations(n)
-        row["dense_expert_ops_ms"] = bounds(
-            0, row["dense_expert_operations"])["ops_ms"]
+    if plan.E:      # the experts' rows: the n x k routed (row, expert)
+        counts = pmk.kernel_counts(plan, dev)
+        row["routed_rows_per_layer"] = counts.sum(1).tolist()
+        row["experts_without_rows"] = int((counts == 0).sum())
     print(f"prefill_megakernel S={bucket} n={n}: {row['ms']:.3f} ms/launch, "
           f"bound {max(row['bytes_ms'], row['ops_ms']):.3f} (bytes "
           f"{row['bytes_ms']:.3f}, operations {row['ops_ms']:.3f}), per-op "
@@ -2276,9 +2362,9 @@ def time_prefill(cfg, params, bucket, gen, dev, trace_it):
           f"{row['per_op_wall_ms']:.3f}), plain {row['plain_ms']:.1f}; grid "
           f"{row['geometry']['grid']}, K splits {row['geometry']['splits']}, "
           f"scratch {row['geometry']['scratch_bytes'] / 1e6:.0f} MB"
-          + (f"; experts in {row['geometry']['nbatch']} batches of "
-             f"{row['geometry']['experts_per_batch']}, every expert on every "
-             f"row: {row['dense_expert_ops_ms']:.3f} ms of operations"
+          + (f"; the experts over their routed rows only: "
+             f"{row['routed_rows_per_layer'][0]} a layer (n x k), the "
+             f"routed operations bound {row['ops_ms']:.3f} ms"
              if plan.E else ""), flush=True)
     if trace_it:
         print("  phases, ms work+wait (block 0, one traced launch): "
@@ -2340,13 +2426,24 @@ def check_prefill_megakernel(params, dev, details):
                                         bucket, n, gen, dev))
     times = [time_prefill(cfg, params, b, gen, dev, b in (128, 1024))
              for b in (128, 256, 512, 1024)]
-    details["prefill_megakernel"] = dict(cases=cases, times=times)
+    yard = gate_up_yardstick(cfg, dev)
+    for t in times:
+        if "phases" in t and str(t["bucket"]) in yard:
+            y = yard[str(t["bucket"])]
+            gu = t["phases"]["gate_up"]["work"] / cfg.num_layers
+            print(f"  gate|up at S={t['bucket']}: {gu:.4f} ms a layer in the "
+                  f"kernel ({2.0 * t['bucket'] * cfg.hidden_size * 2 * cfg.intermediate_size / gu / 1e9:.0f} "
+                  f"TFLOP/s); torch.matmul on the bf16 weight {y['ms']:.4f} ms "
+                  f"({y['tflops']:.0f} TFLOP/s, a yardstick)", flush=True)
+    details["prefill_megakernel"] = dict(cases=cases, times=times,
+                                         gate_up_matmul=yard)
     big = times[-1]
     return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
                 shape="bucket 1024, n = 1024", ms=big["ms"],
                 plain_ms=big["plain_ms"], library_ms=None,
                 per_op_ms=big["per_op_ms"],
                 ms_by_bucket={str(t["bucket"]): t["ms"] for t in times},
+                gate_up_matmul_ms={k: v["ms"] for k, v in yard.items()},
                 bound_ms=max(big["bytes_ms"], big["ops_ms"]),
                 bound_by=("bytes" if big["bytes_ms"] >= big["ops_ms"]
                           else "operations"))
@@ -2356,10 +2453,13 @@ def check_prefill_megakernel_moe(cfg, params, dev, details):
     """The prefill megakernel's MoE branch at Qwen1.5-MoE width: one
     prefill of every bucket the MoE serving launches (128 .. 1024, each
     with its own expert batches and K splits) at a served prompt length
-    against the plain version, INT8 KV (and UINT4 at bucket 128); then ms
-    per launch of a full bucket beside the routed-operations bound and the
-    per-op `prefill_forward`, whose experts run the grouped kernel (the
-    crossover that moe_prefill_mega_max_bucket is set from)."""
+    against the plain version, INT8 KV (and UINT4 at bucket 128), a full
+    bucket 1024, a prompt of 5 tokens (most experts without a row) and a
+    skewed router (one expert in most rows), each with the experts' row
+    counts the kernel wrote held to the plain router's; then ms per launch
+    of a full bucket beside the routed-operations bound and the per-op
+    `prefill_forward`, whose experts run the grouped kernel (the crossover
+    that moe_prefill_mega_max_bucket is set from)."""
     import torch
     from dashinfer_tpu_torch.config import CacheMode
     gen = torch.Generator(device=dev)
@@ -2370,6 +2470,31 @@ def check_prefill_megakernel_moe(cfg, params, dev, details):
     for bucket, n in ((256, 200), (512, 450), (1024, 1000)):
         cases.append(check_prefill_case(cfg, params, "u4 MoE",
                                         CacheMode.INT8, bucket, n, gen, dev))
+    # a full bucket 1024 held to the plain version routed as the kernel
+    # routed: at this length this random router's near-ties flip more than
+    # 5% of the tokens between any tensor-core kernel and the f32 plain
+    # version (the every-expert branch too: PERF.md §6), so its tokens
+    # routed otherwise are read, not capped; then a 5-token prompt
+    cases.append(check_prefill_case(cfg, params, "u4 MoE", CacheMode.INT8,
+                                    1024, 1024, gen, dev, forced=True))
+    cases.append(check_prefill_case(cfg, params, "u4 MoE", CacheMode.INT8,
+                                    128, 5, gen, dev))
+    check(min(sum(r == 0 for r in layer) for layer in cases[-1]
+              ["expert_rows"]) >= cfg.moe.num_experts - 5 * cfg.moe
+          .num_experts_per_tok, "a 5-token prompt left fewer experts "
+          "without rows than it must")
+    skew_expert = 7
+    skew = skewed_moe_params(params, skew_expert, dev)
+    case = check_prefill_case(cfg, skew, "u4 MoE skewed router",
+                              CacheMode.INT8, 512, 500, gen, dev)
+    share = [layer[skew_expert] / 500 for layer in case["expert_rows"]]
+    check(share[0] >= 0.5, f"the skewed router's expert {skew_expert} took "
+          f"{share[0]:.2f} of the rows in layer 0, not most")
+    print(f"  skewed router: expert {skew_expert} in "
+          f"{', '.join(f'{s:.2f}' for s in share)} of the rows by layer",
+          flush=True)
+    cases.append(case)
+    del skew
     times = [time_prefill(cfg, params, b, gen, dev, b in (128, 1024))
              for b in (128, 256, 512, 1024)]
     details["prefill_megakernel_moe"] = dict(cases=cases, times=times)

@@ -1,13 +1,19 @@
 // The layer phases of the prefill megakernel (csrc/prefill_megakernel.cu),
 // shared with the tensor-parallel prefill segment kernels
-// (csrc/tp_prefill_segments.cu): the argument struct, the weight product of
-// a 128-row tile of the prompt (`gemm_phase`, weight-side dequant with
-// mma.sync), the residual update and RMSNorm of the rows, q|k|v + bias +
-// RoPE with the quantize + write of the prompt's K/V rows, causal attention
-// over the bf16 q / k / v scratch, SwiGLU, the final norm of row n - 1, the
-// block's dynamic shared memory and the integer arguments the wrappers pass
-// (ops/prefill_megakernel.py, ops/tp_megakernel.py). The MoE phases stay in
-// csrc/prefill_megakernel.cu.
+// (csrc/tp_prefill_segments.cu): the argument struct, the x operand layout
+// (`xoff`), the weight product of the prompt's rows (`gemm_phase`: wgmma
+// with the weight-side dequantized weights as the register A operand and
+// x as the 128-byte swizzled shared-memory B operand, fed by bulk copies
+// on mbarriers; `product`, its one call site a kernel; the lm_head's
+// one-row product on mma.sync), the residual update and RMSNorm of the
+// rows, q|k|v + bias + RoPE with the quantize + write of the prompt's K/V
+// rows, causal attention over the bf16 q / k / v scratch, SwiGLU, the
+// final norm of row n - 1, the block's dynamic shared memory and the
+// integer arguments the wrappers pass (ops/prefill_megakernel.py,
+// ops/tp_megakernel.py). What bounds the products is the tensor cores'
+// rate at S >= 256 and the L2 traffic of their stages (the x tile is
+// re-read for every column tile): see the prefill kernel's header. The
+// MoE phases stay in csrc/prefill_megakernel.cu.
 
 #pragma once
 
@@ -17,11 +23,18 @@ namespace {
 
 using namespace di;
 
-constexpr int kMTile = 128;     // prompt rows per product / attention item
-constexpr int kAPad = 72;       // bf16 per staged x row (64 + 8: no conflicts)
-constexpr int kPStages = 3;     // cp.async ring depth of the products
+constexpr int kMTile = 128;     // prompt rows per dense product item and per
+                                // attention item
+constexpr int kETile = 64;      // routed rows per expert product item
+constexpr int kAPad = 72;       // bf16 per staged x row of the one-row
+                                // product (64 + 8: no conflicts)
+constexpr int kPStages = 3;     // cp.async ring depth of the one-row product
 constexpr int kKeyTile = 64;    // keys per attention tile
 constexpr int kKVPad = 136;     // bf16 per staged K / V row (128 + 8)
+constexpr int kRingBytes = 200 * 1024;   // the products' stages
+constexpr int kRingLag = 2;     // a chunk is issued into the stage of the
+                                // chunk two before the one being computed
+constexpr int kMaxE = kMaxLanes;          // experts a MoE layer
 
 struct PArgs {
   Stream st[kStreams];
@@ -39,41 +52,632 @@ struct PArgs {
   float* v_qp;
   float* logits;             // [V]
   float* resid;              // [S, hid]
-  __nv_bfloat16* xn;         // [S, hid]
-  float* partial;            // [ksplit][S][N] of the product in flight
+  __nv_bfloat16* xn;         // [S, hid], x layout (xoff)
+  float* partial;            // [ksplit][rows][N] of the product in flight
   __nv_bfloat16* qb;         // [S, H * D]
   __nv_bfloat16* kb;         // [S, KH * D]
   __nv_bfloat16* vb;         // [S, KH * D]
-  __nv_bfloat16* attn;       // [S, H * D]
-  __nv_bfloat16* act;        // [S, inter]
+  __nv_bfloat16* attn;       // [S, H * D], x layout
+  __nv_bfloat16* act;        // [S or scap, inter], x layout
   __nv_bfloat16* x_last;     // [16, hid], rows 1.. stay zero
   unsigned* barrier;
   int* status;
-  float* edn;                // MoE: a batch's down partials [eb][split][S][hid]
+  float* edn;                // MoE: the experts' down partials
+                             // [split][scap][hid], by routed slot
   float* acc;                // MoE: [S, hid] gated sum of the experts
   float* gates;              // MoE: [L][S][EP] gates, 0 where not routed
   float* sgate;              // MoE: [L][S] the shared expert's gate
+  __nv_bfloat16* xe;         // MoE: [scap, hid] x_norm of each routed
+                             // slot, x layout
+  int* eidx;                 // MoE: [S][kMaxTopk] a row's experts, ascending
+  int* eslot;                // MoE: [S][kMaxTopk] their routed slots
+  int* ecount;               // MoE: [L][E] rows routed to each expert
   unsigned long long* launches;
   unsigned long long* trace;
   int S, L, hid, H, KH, inter, V, ps, maxPb, kv_kind, ql;
-  int E, k_top, norm_topk, has_shared, has_sgate, shared_inter, EP, eb;
+  int E, k_top, norm_topk, has_shared, has_sgate, shared_inter, EP, scap;
   float eps, att_scale;
 };
 
-// out[split][row][col] = sum over the split's K chunks of A[row] . W[:, col]
-// for the rows of `mtiles` tiles of 16 * MT rows. A is row-major bf16 with
-// `lda` elements a row; rows >= store_rows and columns >= st.nvalid are not
-// stored. GROUPED: an expert stream, experts e0 .. e0 + ngroups - 1: group
-// g's A at A + g * a_gs, its output at out + g * out_gs (the dense
-// instantiation folds that away; the experts' run in a function of their
-// own, so that they add nothing to the dense products' registers).
-template <int BITS, int MT, bool GROUPED>
-__device__ __forceinline__ void gemm_phase(
-    const Stream& st, int layer, const __nv_bfloat16* A, int lda, int mtiles,
-    float* out, size_t split_stride, int ldo, int store_rows, uint8_t* smem,
-    int e0, int ngroups, size_t a_gs, size_t out_gs) {
+// The x operand of a product (x_norm, attn_out, the SwiGLU activation, the
+// routed slots' x_norm) is laid out for the product's bulk copies and the
+// tensor cores' 128-byte swizzle: element k of row r of an R-row operand
+// is at xoff(R, r, k), chunk k / 64 holding all R rows of 128 bytes each,
+// the 16-byte unit u = (k % 64) / 8 of row r stored as unit u ^ (r % 8).
+// So the x tile of a (chunk, row tile) is one contiguous run of rows x 128
+// bytes (one bulk copy), and in a 1024-byte aligned stage it is the
+// K-major, 128-byte swizzled B operand of wgmma. R is a multiple of 8.
+__device__ __forceinline__ size_t xoff(int R, int r, int k) {
+  return ((size_t)(k >> 6) * R + r) * 64 +
+         ((((k >> 3) & 7) ^ (r & 7)) << 3) + (k & 7);
+}
+
+// wgmma: the fences, commit and wait around the asynchronous products, and
+// the shared-memory descriptor of a K-major, 128-byte swizzled B operand:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the start moved
+// by 32 bytes a k16 step (the swizzle is applied to the address bits, so a
+// 1024-byte aligned tile reads its k16 steps that way).
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving the computation of `r` past this point:
+// the A registers of a commit group are all written before its wgmma.fence
+// and the accumulators are read only after the wait (ptxas serializes the
+// products when an instruction that is not a wgmma defines a wgmma's input
+// inside the group).
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d[N/2] += A (64 x 16, this warp's 16 rows in a[4]) . B (16 x 64,
+// K-major, 128-byte swizzled, `desc`); d = A . B where scale_d is 0
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// d[N/2] += A (64 x 16, this warp's 16 rows in a[4]) . B (16 x 128,
+// K-major, 128-byte swizzled, `desc`); d = A . B where scale_d is 0
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+template <int NR>
+__device__ __forceinline__ void wgmma_step(float (&d)[NR / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  if constexpr (NR == 128)
+    wgmma_m64n128(d, a, desc, scale_d);
+  else
+    wgmma_m64n64(d, a, desc, scale_d);
+}
+
+// One stage of a product's ring: the x tile (NR rows x 64 K rows, 1024-byte
+// aligned: the B operand), the weight chunk as the pack lays it out, and,
+// for a quantized stream, the scale and zero rows of the chunk's quant
+// group over the tile's 256 columns (where the chunk starts a group or its
+// item). Then the full and empty mbarriers of the stages and the issuing
+// cursor.
+template <int BITS, int NR>
+struct PRing {
+  static constexpr int kWOff = NR * 128;
+  static constexpr int kQOff = kWOff + Tile<BITS>::kChunkBytes;
+  static constexpr int kStage = kQOff + (BITS == 16 ? 0 : 2048);
+  static constexpr int kStages =
+      kRingBytes / kStage < 8 ? kRingBytes / kStage : 8;
+  static constexpr int kBarOff = kStages * kStage;
+  static constexpr int kCurOff = kBarOff + 16 * kStages;
+  static_assert(kStage % 1024 == 0, "stages keep the x tile 1024-aligned");
+  static constexpr int kCtxOff = kCurOff + 96;
+  static_assert(kCtxOff + 96 <= kRingBytes + 1024, "ring overflows");
+};
+// the routed tables of an expert product (counts, slot bases, tile prefix)
+// sit after the largest ring
+constexpr int kTabOff = kRingBytes + 1024;
+
+// A product item decoded: its first chunk's payload, its tile's qparam
+// rows, its x rows in chunk 0, the chunks of its K split, its rows (a
+// dense row tile, or an expert's routed slots) and where its output goes.
+struct PItem {
+  const uint8_t* w;
+  const float* s;
+  const float* z;
+  const __nv_bfloat16* x;
+  int c0, nc, row0, nrows, split, col_out, n_leaf;
+};
+
+// The shared-memory cursor of the issuing thread: the item it is in, its
+// next chunk, and the chunks issued before.
+struct PCursor {
+  PItem it;
+  int item, c, n;
+};
+
+// What a product phase's item decode and chunk issue read: the stream and
+// its operand, the item space, and (GROUPED) the routed tables in shared
+// memory. It lives in shared memory too (no registers across the chunk
+// loop, whose products hold most of them).
+struct PCtx {
+  const Stream* st;
+  const __nv_bfloat16* X;
+  const int* cnt;      // [E] rows an expert
+  const int* base;     // [E] its first slot
+  const int* pre;      // [E + 1] prefix of its row tiles
+  int layer, R, mtiles, store_rows, per_rows, chunks_total, cpg, n_items;
+};
+
+template <int BITS, int NR, bool GROUPED>
+__device__ __forceinline__ PItem decode_item(const PCtx& p, int item) {
   using T = Tile<BITS>;
-  constexpr int kRows = 16 * MT;
+  const Stream& st = *p.st;
+  PItem it;
+  int rt, t, e = 0;
+  if (GROUPED) {
+    const int g = item / p.per_rows;      // a routed row tile of some expert
+    while (p.pre[e + 1] <= g) ++e;
+    const int rte = p.pre[e + 1] - p.pre[e];
+    const int local = item - p.per_rows * p.pre[e];
+    rt = local % rte;
+    it.split = (local / rte) % st.ksplit;
+    t = local / (rte * st.ksplit);
+    it.row0 = p.base[e] + rt * NR;
+    it.nrows = min(NR, p.cnt[e] - rt * NR);
+  } else {
+    rt = item % p.mtiles;
+    it.split = (item / p.mtiles) % st.ksplit;
+    t = item / (p.mtiles * st.ksplit);
+    it.row0 = rt * NR;
+    it.nrows = min(NR, p.store_rows - it.row0);
+  }
+  const int leaf = (st.nleaf > 1 && t >= st.tile0[1]) +
+                   (st.nleaf > 2 && t >= st.tile0[2]);
+  const int lt = t - st.tile0[leaf];
+  it.c0 = it.split * st.cps;
+  it.nc = min(st.cps, p.chunks_total - it.c0);
+  it.w = st.w[leaf] + (size_t)p.layer * st.w_ls[leaf] +
+         (size_t)e * st.e_ls[leaf] +
+         ((size_t)lt * p.chunks_total + it.c0) * T::kChunkBytes;
+  const size_t qoff = (size_t)p.layer * st.q_ls[leaf] +
+                      (size_t)e * st.qe_ls[leaf] + (size_t)lt * 256;
+  it.s = BITS == 16 ? nullptr : st.s[leaf] + qoff;
+  it.z = BITS == 16 ? nullptr : st.z[leaf] + qoff;
+  it.x = p.X + (size_t)it.row0 * 64;
+  it.col_out = t * 256;
+  it.n_leaf = st.n[leaf];
+  return it;
+}
+
+// By the issuing thread: the next chunk of the block's item sequence into
+// its stage, once the chunk kStages before it has left that stage.
+template <int BITS, int NR, bool GROUPED>
+__device__ __forceinline__ void issue_chunk(const PCtx& p, PCursor& cu,
+                                            uint8_t* smem, uint64_t* full,
+                                            uint64_t* empty, int* status) {
+  using T = Tile<BITS>;
+  using RG = PRing<BITS, NR>;
+  constexpr int kStages = RG::kStages;
+  if (cu.c == cu.it.nc) {
+    cu.item += gridDim.x;
+    if (cu.item >= p.n_items) return;
+    cu.it = decode_item<BITS, NR, GROUPED>(p, cu.item);
+    cu.c = 0;
+  }
+  const int m = cu.n++;
+  const int buf = m % kStages;
+  if (m >= kStages) mbar_wait(empty + buf, ((m / kStages) - 1) & 1, status);
+  uint8_t* dst = smem + (size_t)buf * RG::kStage;
+  const int cg = cu.it.c0 + cu.c;
+  const bool qp = BITS != 16 && (cu.c == 0 || cg % p.cpg == 0);
+  mbar_arrive_tx(full + buf, NR * 128 + T::kChunkBytes + (qp ? 2048 : 0));
+  bulk_g2s(dst, cu.it.x + (size_t)cg * p.R * 64, NR * 128, full + buf);
+  bulk_g2s(dst + RG::kWOff, cu.it.w + (size_t)cu.c * T::kChunkBytes,
+           T::kChunkBytes, full + buf);
+  if (qp) {
+    const size_t g = (size_t)(cg / p.cpg) * cu.it.n_leaf;
+    bulk_g2s(dst + RG::kQOff, cu.it.s + g, 1024, full + buf);
+    bulk_g2s(dst + RG::kQOff + 1024, cu.it.z + g, 1024, full + buf);
+  }
+  ++cu.c;
+}
+
+// The A fragments of k16 step s of this warp's 16 columns of each tile
+// half, dequantized from the chunk's payload registers (the pack's mma
+// fragment order, csrc/di_product.cuh `Tile`): WEIGHT-SIDE, w = bf16(q * s
+// + z) with the group's s and z rounded to bf16 (u4: one fused bf16
+// multiply-add of the exact operands q + 128 - 128, s and z); a0 = column
+// gid, rows 2 tig.., a1 = column gid + 8, a2 / a3 the same eight rows on.
+// (The callers unroll their step loops: s is a constant there.)
+template <int BITS>
+__device__ __forceinline__ void a_frags(const uint8_t* wq, int s,
+                                        const __nv_bfloat162 (&s2)[4],
+                                        const __nv_bfloat162 (&z2)[4],
+                                        const float (&sc)[4],
+                                        const float (&ze)[4],
+                                        uint32_t (&alo)[4],
+                                        uint32_t (&ahi)[4]) {
+  uint32_t bl[2][2], bh[2][2];   // [nt][i] of the low / high half
+  if (BITS == 4) {
+    // (n | 0x4300) is bf16(128 + n); minus 128 and the affine as one fused
+    // bf16 multiply-add of exact operands: bf16(n * s + z) without a convert
+    const uint4 v = *reinterpret_cast<const uint4*>(wq + (s >> 1) * 512);
+    const uint32_t w2[2] = {(s & 1) ? v.z : v.x, (s & 1) ? v.w : v.y};
+    const __nv_bfloat162 k128 = __floats2bfloat162_rn(128.f, 128.f);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // byte of row p = 0 | byte of row p = 1 << 16
+        const uint32_t pair = __byte_perm(w2[nt], 0u, i == 0 ? 0x4140 : 0x4342);
+        const uint32_t lo = and_or(pair, 0x000F000Fu, 0x43004300u);
+        const uint32_t hi = and_or(pair >> 4, 0x000F000Fu, 0x43004300u);
+        const __nv_bfloat162 wl = __hfma2(
+            __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo), k128),
+            s2[nt], z2[nt]);
+        const __nv_bfloat162 wh = __hfma2(
+            __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&hi), k128),
+            s2[2 + nt], z2[2 + nt]);
+        bl[nt][i] = *reinterpret_cast<const uint32_t*>(&wl);
+        bh[nt][i] = *reinterpret_cast<const uint32_t*>(&wh);
+      }
+  } else if (BITS == 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(wq + s * 512);
+    const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t w = w4[nt * 2 + i];
+        bl[nt][i] = pack_bf16(
+            fmaf((float)(int8_t)(w & 0xFFu), sc[nt], ze[nt]),
+            fmaf((float)(int8_t)((w >> 8) & 0xFFu), sc[nt], ze[nt]));
+        bh[nt][i] = pack_bf16(
+            fmaf((float)(int8_t)((w >> 16) & 0xFFu), sc[2 + nt], ze[2 + nt]),
+            fmaf((float)(int8_t)(w >> 24), sc[2 + nt], ze[2 + nt]));
+      }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const uint4 v = *reinterpret_cast<const uint4*>(wq + (2 * s + nt) * 512);
+      bl[nt][0] = v.x;
+      bh[nt][0] = v.y;
+      bl[nt][1] = v.z;
+      bh[nt][1] = v.w;
+    }
+  }
+  alo[0] = bl[0][0]; alo[1] = bl[1][0]; alo[2] = bl[0][1]; alo[3] = bl[1][1];
+  ahi[0] = bh[0][0]; ahi[1] = bh[1][0]; ahi[2] = bh[0][1]; ahi[3] = bh[1][1];
+}
+
+// out[split][row][col] = sum over the split's K chunks of X[row] . W[:, col]
+// with weight-side dequant, on wgmma. X is an R-row operand in the x layout
+// (xoff). Dense (GROUPED false): the rows of `mtiles` tiles of NR rows;
+// rows >= store_rows and columns >= st.nvalid are not stored. GROUPED: an
+// expert stream over its routed slots, layer `layer`'s per-expert row
+// counts at `ecount` (E experts): expert e's rows are the slots base[e] ..
+// base[e] + count - 1 (base: the counts rounded up to 8, summed in expert
+// order, as the route phase lays them out), in tiles of NR; an expert with
+// no rows has no items and its weights are not read.
+//
+// Item = (256-column weight tile, K split, row tile), row tiles innermost
+// (an expert's items: expert, tile, split, routed-row tile), so the blocks
+// running side by side read the same weight chunks and a payload byte
+// comes from device memory once. The weights are wgmma's A operand, from
+// registers: each warp dequantizes its 16 columns of each tile half once a
+// chunk (the payload's fragment order is the A fragment's), and its
+// warpgroup's m64nNk16 products reuse them over the tile's NR rows; x is
+// the B operand, read by the tensor cores straight from the stage. Each
+// k16 step's two products (one a tile half) form a commit group, and a
+// warp dequantizes the next step once its group has completed: ptxas
+// serializes a wgmma whose register A operand is written while another
+// group is in flight, and in a kernel of this size it serializes them
+// anyway for want of registers (C7512), so the dequant of one warpgroup
+// overlaps the other's products, not its own.
+//
+// The ring: thread 0 issues the bulk copies of each chunk of the block's
+// item sequence (x tile, payload, qparams) on the stage's full mbarrier,
+// armed with their bytes, kRingLag chunks behind the one being computed
+// (that stage is normally long free); each warp waits on the full barrier
+// and arrives on the stage's empty barrier once its products on the stage
+// have completed, which thread 0 waits for before it refills the stage. No
+// block-wide barrier a chunk. The barriers are initialised at the phase's
+// start and invalidated at its end, behind the async-proxy fence, so every
+// phase of a launch (and every graph replay) starts them at parity 0. The
+// f32 sums of a K split are stored straight from the accumulators: a
+// warp's store instruction covers 4 rows x 32 bytes, whole sectors.
+template <int BITS, int NR, bool GROUPED>
+__device__ __forceinline__ void gemm_phase(
+    const Stream& st, int layer, const __nv_bfloat16* X, int R, int mtiles,
+    float* out, size_t split_stride, int store_rows, uint8_t* smem_raw,
+    int* status, const int* ecount, int E) {
+  using T = Tile<BITS>;
+  using RG = PRing<BITS, NR>;
+  constexpr int kStages = RG::kStages;
+  constexpr int kNA = NR / 2;             // accumulators a half
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int chunks_total = st.K / kChunkK;
+  const int cpg = st.K / st.G / kChunkK;  // chunks per quant group
+  const int tiles = st.tile0[st.nleaf];
+  const int per_rows = tiles * st.ksplit; // items of one row tile
+  // the stages start 1024-byte aligned
+  uint8_t* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RG::kBarOff);
+  uint64_t* empty = full + kStages;
+  PCursor* cur = reinterpret_cast<PCursor*>(smem + RG::kCurOff);
+  int* cnt = reinterpret_cast<int*>(smem + kTabOff);   // [E]
+  int* base = cnt + kMaxE;                             // [E]
+  int* pre = base + kMaxE;                             // [E + 1] row tiles
+
+  if (GROUPED && warp == 0) {
+    // counts -> slot bases and the prefix of row tiles, 32 experts a step
+    int b0 = 0, p0 = 0;
+    if (lane == 0) pre[0] = 0;
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + lane;
+      const int c = e < E ? __ldcg(ecount + e) : 0;
+      int b = (c + 7) & ~7, p = (c + NR - 1) / NR;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int bo = __shfl_up_sync(0xffffffffu, b, o);
+        const int po = __shfl_up_sync(0xffffffffu, p, o);
+        if (lane >= o) {
+          b += bo;
+          p += po;
+        }
+      }
+      if (e < E) {
+        cnt[e] = c;
+        base[e] = b0 + b - ((c + 7) & ~7);
+        pre[e + 1] = p0 + p;
+      }
+      b0 += __shfl_sync(0xffffffffu, b, 31);
+      p0 += __shfl_sync(0xffffffffu, p, 31);
+    }
+  }
+  PCtx& p = *reinterpret_cast<PCtx*>(smem + RG::kCtxOff);
+  __syncwarp();                 // warp 0's tables are written
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kWarps);
+    }
+    fence_mbar_init();
+    cur->item = blockIdx.x - gridDim.x;
+    cur->c = cur->it.nc = 0;   // the first issue moves to item blockIdx.x
+    cur->n = 0;
+    p.st = &st;
+    p.X = X;
+    p.cnt = cnt;
+    p.base = base;
+    p.pre = pre;
+    p.layer = layer;
+    p.R = R;
+    p.mtiles = mtiles;
+    p.store_rows = store_rows;
+    p.per_rows = per_rows;
+    p.chunks_total = chunks_total;
+    p.cpg = cpg;
+    p.n_items = per_rows * (GROUPED ? pre[E] : mtiles);
+  }
+  // every thread's earlier accesses to this memory (another phase's) come
+  // before the copies that refill it
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < kStages - kRingLag; ++s)
+      issue_chunk<BITS, NR, GROUPED>(p, *cur, smem, full, empty, status);
+
+  float acc[2][kNA];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < kNA; ++i) acc[h][i] = 0.f;
+  // this lane's four columns [half * 2 + nt]: the group's scale and zero
+  // (rounded to bf16: the TPU pack stores the qparams in bf16), in bf16x2
+  // for the u4 chain and in f32 for the int8 one
+  __nv_bfloat162 s2[4], z2[4];
+  float sc[4], ze[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s2[j] = z2[j] = __floats2bfloat162_rn(0.f, 0.f);
+    sc[j] = ze[j] = 0.f;
+  }
+  uint32_t af[2][4];                      // [tile half]
+
+  int n = 0;                              // chunks consumed
+  for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+    const PItem it = decode_item<BITS, NR, GROUPED>(p, item);
+    for (int c = 0; c < it.nc; ++c, ++n) {
+      const int buf = n % kStages;
+      if (tid == 0)                       // chunk n + kStages - kRingLag
+        issue_chunk<BITS, NR, GROUPED>(p, *cur, smem, full, empty, status);
+      __syncwarp();
+      mbar_wait(full + buf, (n / kStages) & 1, status);
+      const uint8_t* base_s = smem + (size_t)buf * RG::kStage;
+      const int cg = it.c0 + c;
+      if (BITS != 16 && (c == 0 || cg % cpg == 0)) {
+        const float* qs = reinterpret_cast<const float*>(base_s + RG::kQOff);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = (j >> 1) * 128 + 16 * warp + 8 * (j & 1) + gid;
+          s2[j] = __float2bfloat162_rn(qs[col]);
+          z2[j] = __float2bfloat162_rn(qs[256 + col]);
+          sc[j] = __low2float(s2[j]);
+          ze[j] = __low2float(z2[j]);
+        }
+      }
+      const uint8_t* wq = base_s + RG::kWOff +
+                          warp * (T::kQuarters * 512) + lane * 16;
+      const uint64_t desc = sw128_desc(base_s);
+#pragma unroll
+      for (int s = 0; s < kChunkK / 16; ++s) {
+        // the step before has completed, so af is free (the fence keeps it
+        // alive up to here: the compiler must not give its registers to
+        // another value while a product reads them), and at step 0 so is
+        // the chunk before's stage
+        wgmma_wait_all();
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_operand(af[h][i]);
+        if (s == 0 && c > 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + (n - 1) % kStages);
+        }
+        a_frags<BITS>(wq, s, s2, z2, sc, ze, af[0], af[1]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_operand(af[h][i]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < kNA; ++i) fence_operand(acc[h][i]);
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wgmma_step<NR>(acc[h], af[h], desc + 2 * s,
+                         (c > 0 || s > 0) ? 1 : 0);
+        wgmma_commit();
+      }
+      if (c == it.nc - 1) {
+        wgmma_wait_all();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int i = 0; i < kNA; ++i) fence_operand(acc[h][i]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_operand(af[h][i]);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + buf);
+        // column 128 h + 16 warp + gid (+ 8), rows 8 j + 2 tig (+ 1)
+        float* o = out + (size_t)it.split * split_stride + it.col_out +
+                   16 * warp + gid;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int r = 8 * j + 2 * tig + (q & 1);
+              const int col = 128 * h + 8 * (q >> 1);
+              if (r < it.nrows && it.col_out + 16 * warp + gid + col <
+                                      st.nvalid)
+                o[(size_t)(it.row0 + r) * st.ldo + col] = acc[h][4 * j + q];
+            }
+      }
+    }
+  }
+  // every chunk issued was waited for: no copy is in flight, and no
+  // product (on every path out of the loop, for ptxas)
+  wgmma_wait_all();
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_inval(full + s);
+      mbar_inval(empty + s);
+    }
+  }
+  __syncthreads();
+}
+
+// One product phase of a layer: stream `sid`, its operand X (S rows, or
+// scap routed slots for an expert stream over its routed rows when
+// GROUPED), K splits `split_stride` floats apart in `out`. A kernel calls
+// this at ONE place, so that each payload kind's product is inlined once:
+// ptxas serializes the wgmma of a pipeline that crosses a function call.
+template <bool MOE>
+__device__ __forceinline__ void product(const PArgs& a, int sid, bool grouped,
+                                        int layer, const __nv_bfloat16* X,
+                                        float* out, size_t split_stride,
+                                        int mtiles, int rows, uint8_t* smem) {
+  const Stream& st = a.st[sid];
+  if (MOE && grouped) {
+    const int* cnt = a.ecount + (size_t)layer * a.E;
+    if (st.bits == 4)
+      gemm_phase<4, kETile, true>(st, layer, X, a.scap, 0, out,
+                                  split_stride, 0, smem, a.status, cnt, a.E);
+    else if (st.bits == 8)
+      gemm_phase<8, kETile, true>(st, layer, X, a.scap, 0, out,
+                                  split_stride, 0, smem, a.status, cnt, a.E);
+    else
+      gemm_phase<16, kETile, true>(st, layer, X, a.scap, 0, out,
+                                   split_stride, 0, smem, a.status, cnt,
+                                   a.E);
+  } else if (st.bits == 4) {
+    gemm_phase<4, kMTile, false>(st, layer, X, a.S, mtiles, out,
+                                 split_stride, rows, smem, a.status, nullptr,
+                                 0);
+  } else if (st.bits == 8) {
+    gemm_phase<8, kMTile, false>(st, layer, X, a.S, mtiles, out,
+                                 split_stride, rows, smem, a.status, nullptr,
+                                 0);
+  } else {
+    gemm_phase<16, kMTile, false>(st, layer, X, a.S, mtiles, out,
+                                  split_stride, rows, smem, a.status,
+                                  nullptr, 0);
+  }
+}
+
+// The lm_head's product of one row (x_last, row-major [16][hid]): each warp
+// owns 32 of a 256-column tile's columns, dequantizes them once a chunk
+// and runs mma.sync m16n8k16 with the row as the A operand, the chunks and
+// x through a cp.async ring (wgmma with N = 1 gains nothing).
+template <int BITS>
+__device__ __forceinline__ void gemm_row_phase(const Stream& st,
+                                               const __nv_bfloat16* A,
+                                               int lda, float* out,
+                                               uint8_t* smem) {
+  using T = Tile<BITS>;
+  constexpr int kRows = 16;
   constexpr int kABytes = kRows * kAPad * 2;
   constexpr int kStage = kABytes + T::kChunkBytes;
   constexpr int kAVecs = kRows * 8;
@@ -83,70 +687,52 @@ __device__ __forceinline__ void gemm_phase(
   const int gid = lane >> 2, tig = lane & 3;
   const int chunks_total = st.K / kChunkK;
   const int gs = st.K / st.G;              // K rows per quant group
-  const int tiles = st.tile0[st.nleaf];
-  const int per_group = tiles * st.ksplit * mtiles;
-  const int n_items = GROUPED ? per_group * ngroups : per_group;
+  const int n_items = st.tile0[st.nleaf];   // one K split
 
-  for (int item_g = blockIdx.x; item_g < n_items; item_g += gridDim.x) {
-    const int grp = GROUPED ? item_g / per_group : 0;
-    const int item = GROUPED ? item_g % per_group : item_g;
-    const int e = GROUPED ? e0 + grp : 0;
-    const int mt_i = item % mtiles;
-    const int split = (item / mtiles) % st.ksplit;
-    const int t = item / (mtiles * st.ksplit);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int t = item;
     const int leaf = (st.nleaf > 1 && t >= st.tile0[1]) +
                      (st.nleaf > 2 && t >= st.tile0[2]);
     const int lt = t - st.tile0[leaf];
     const int n_leaf = st.n[leaf];
-    const uint8_t* w_tile = st.w[leaf] + (size_t)layer * st.w_ls[leaf] +
-                            (size_t)e * st.e_ls[leaf] +
-                            (size_t)lt * chunks_total * T::kChunkBytes;
-    const size_t qoff =
-        (size_t)layer * st.q_ls[leaf] + (size_t)e * st.qe_ls[leaf];
-    const float* s_leaf = BITS == 16 ? nullptr : st.s[leaf] + qoff;
-    const float* z_leaf = BITS == 16 ? nullptr : st.z[leaf] + qoff;
-    const __nv_bfloat16* A_g = A + (size_t)grp * a_gs;
+    const uint8_t* w_tile =
+        st.w[leaf] + (size_t)lt * chunks_total * T::kChunkBytes;
+    const float* s_leaf = BITS == 16 ? nullptr : st.s[leaf];
+    const float* z_leaf = BITS == 16 ? nullptr : st.z[leaf];
     const int col_leaf = lt * 256, col_out = t * 256;
-    const int c0 = split * st.cps;
-    const int nc = min(st.cps, chunks_total - c0);
-    const int m0 = mt_i * kRows;
+    const int nc = chunks_total;
 
     auto load = [&](int c, int buf) {
       uint8_t* a_s = smem + (size_t)buf * kStage;
       uint8_t* w_s = a_s + kABytes;
-      const __nv_bfloat16* asrc =
-          A_g + (size_t)m0 * lda + (size_t)(c0 + c) * kChunkK;
+      const __nv_bfloat16* asrc = A + (size_t)c * kChunkK;
       for (int i = tid; i < kAVecs; i += kThreads) {
         const int row = i >> 3, seg = i & 7;
         cp_async16(a_s + row * (kAPad * 2) + seg * 16,
                    asrc + (size_t)row * lda + seg * 8);
       }
-      const uint8_t* wsrc = w_tile + (size_t)(c0 + c) * T::kChunkBytes;
+      const uint8_t* wsrc = w_tile + (size_t)c * T::kChunkBytes;
       for (int i = tid; i < kWVecs; i += kThreads)
         cp_async16(w_s + i * 16, wsrc + i * 16);
     };
 
-    float acc[MT][4][4];
+    float acc[4][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
     for (int s = 0; s < kPStages - 1; ++s) {
       if (s < nc) load(s, s);
       cp_async_commit();
     }
-
-    // this lane's four B columns: [half * 2 + nt]; for the u4 chain each
-    // qparam twice in a bf16x2 (a B register holds two rows of one column).
-    // A chunk's qparams are fetched while the chunk before is computed.
+    // this lane's four B columns [half * 2 + nt]; a chunk's qparams are
+    // fetched while the chunk before is computed
+    __nv_bfloat162 s2[4], z2[4];
     float sc[4] = {1.f, 1.f, 1.f, 1.f}, ze[4] = {0.f, 0.f, 0.f, 0.f};
     float s_raw[4], z_raw[4];
-    __nv_bfloat162 s2[4], z2[4];
     auto fetch_qparams = [&](int c) {
-      const int g = ((c0 + c) * kChunkK) / gs;
+      const int g = (c * kChunkK) / gs;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col =
@@ -160,7 +746,6 @@ __device__ __forceinline__ void gemm_phase(
       if (BITS != 16) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          // rounded to bf16: the TPU pack stores the qparams in bf16
           s2[j] = __float2bfloat162_rn(s_raw[j]);
           z2[j] = __float2bfloat162_rn(z_raw[j]);
           sc[j] = __low2float(s2[j]);
@@ -180,109 +765,45 @@ __device__ __forceinline__ void gemm_phase(
           base + kABytes + warp * (T::kQuarters * 512) + lane * 16;
 #pragma unroll
       for (int s = 0; s < kChunkK / 16; ++s) {
-        // B operands [nt][i] of the low (bl) and high (bh) 128 columns
-        uint32_t bl[2][2], bh[2][2];
-        if (BITS == 4) {
-          // (n | 0x4300) is bf16(128 + n); minus 128 and the affine as one
-          // fused bf16 multiply-add of exact operands: bf16(n * s + z)
-          // without a convert (see the header)
-          const uint4 v =
-              *reinterpret_cast<const uint4*>(wq + (s >> 1) * 512);
-          const uint32_t w2[2] = {(s & 1) ? v.z : v.x, (s & 1) ? v.w : v.y};
-          const __nv_bfloat162 k128 = __floats2bfloat162_rn(128.f, 128.f);
+        uint32_t alo[4], ahi[4];
+        a_frags<BITS>(wq, s, s2, z2, sc, ze, alo, ahi);
+        // the weights' A fragments read as B fragments: b0 = [nt][i 0],
+        // b1 = [nt][i 1] of the column gid of n8 tile nt
+        uint32_t xf[4];
+        ldmatrix_x4(xf, a_s + (lane & 15) * kAPad + 16 * s + 8 * (lane >> 4));
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              // byte of row p = 0 | byte of row p = 1 << 16
-              const uint32_t pair =
-                  __byte_perm(w2[nt], 0u, i == 0 ? 0x4140 : 0x4342);
-              const uint32_t lo = and_or(pair, 0x000F000Fu, 0x43004300u);
-              const uint32_t hi = and_or(pair >> 4, 0x000F000Fu, 0x43004300u);
-              const __nv_bfloat162 wl = __hfma2(
-                  __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo), k128),
-                  s2[nt], z2[nt]);
-              const __nv_bfloat162 wh = __hfma2(
-                  __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&hi), k128),
-                  s2[2 + nt], z2[2 + nt]);
-              bl[nt][i] = *reinterpret_cast<const uint32_t*>(&wl);
-              bh[nt][i] = *reinterpret_cast<const uint32_t*>(&wh);
-            }
-        } else if (BITS == 8) {
-          const uint4 v = *reinterpret_cast<const uint4*>(wq + s * 512);
-          const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              const uint32_t w = w4[nt * 2 + i];
-              bl[nt][i] = pack_bf16(
-                  fmaf((float)(int8_t)(w & 0xFFu), sc[nt], ze[nt]),
-                  fmaf((float)(int8_t)((w >> 8) & 0xFFu), sc[nt], ze[nt]));
-              bh[nt][i] = pack_bf16(
-                  fmaf((float)(int8_t)((w >> 16) & 0xFFu), sc[2 + nt],
-                       ze[2 + nt]),
-                  fmaf((float)(int8_t)(w >> 24), sc[2 + nt], ze[2 + nt]));
-            }
-        } else {
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            const uint4 v =
-                *reinterpret_cast<const uint4*>(wq + (2 * s + nt) * 512);
-            bl[nt][0] = v.x;
-            bh[nt][0] = v.y;
-            bl[nt][1] = v.z;
-            bh[nt][1] = v.w;
-          }
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          // a0..a3 = rows 0-7 / 8-15 x k 0-7 / 8-15 of the 16 x 16 tile
-          uint32_t af[4];
-          ldmatrix_x4(af, a_s + (mt * 16 + (lane & 15)) * kAPad + 16 * s +
-                              8 * (lane >> 4));
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            mma_bf16_16816(acc[mt][nt], af, bl[nt][0], bl[nt][1]);
-            mma_bf16_16816(acc[mt][2 + nt], af, bh[nt][0], bh[nt][1]);
-          }
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_bf16_16816(acc[nt], xf, alo[nt], alo[2 + nt]);
+          mma_bf16_16816(acc[2 + nt], xf, ahi[nt], ahi[2 + nt]);
         }
       }
     }
     cp_async_wait<0>();
     __syncthreads();   // the ring is free for the next item
 
-    float* o = out + (size_t)grp * out_gs + (size_t)split * split_stride;
+    if (gid == 0) {    // row 0 of the m16 tile is x_last's row 0
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col_out + (j >> 1) * 128 + 16 * warp + 8 * (j & 1) +
-                      2 * tig;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + mt * 16 + gid + 8 * h;
-          if (row < store_rows && col < st.nvalid)
-            *reinterpret_cast<float2*>(o + (size_t)row * ldo + col) =
-                make_float2(acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int col = col_out + (j >> 1) * 128 + 16 * warp + 8 * (j & 1) +
+                        2 * tig;
+        if (col < st.nvalid)
+          *reinterpret_cast<float2*>(out + col) =
+              make_float2(acc[j][0], acc[j][1]);
+      }
     }
   }
 }
 
-template <int MT>
-__device__ void gemm(const Stream& st, int layer, const __nv_bfloat16* A,
-                     int lda, int mtiles, float* out, size_t split_stride,
-                     int store_rows, uint8_t* smem) {
+// The lm_head: one row, one K split (its sums ARE the logits).
+__device__ __noinline__ void gemm_row(const Stream& st,
+                                      const __nv_bfloat16* A, int lda,
+                                      float* out, uint8_t* smem) {
   if (st.bits == 4)
-    gemm_phase<4, MT, false>(st, layer, A, lda, mtiles, out, split_stride,
-                             st.ldo, store_rows, smem, 0, 1, 0, 0);
+    gemm_row_phase<4>(st, A, lda, out, smem);
   else if (st.bits == 8)
-    gemm_phase<8, MT, false>(st, layer, A, lda, mtiles, out, split_stride,
-                             st.ldo, store_rows, smem, 0, 1, 0, 0);
+    gemm_row_phase<8>(st, A, lda, out, smem);
   else
-    gemm_phase<16, MT, false>(st, layer, A, lda, mtiles, out, split_stride,
-                              st.ldo, store_rows, smem, 0, 1, 0, 0);
+    gemm_row_phase<16>(st, A, lda, out, smem);
 }
 
 // resid[row] = x0[row] (first layer) or resid[row] + the K splits of the
@@ -309,8 +830,11 @@ __device__ __forceinline__ float4 mlp_out(const PArgs& a, int row, int i,
       __ldcg(reinterpret_cast<const float4*>(a.acc + (size_t)row * a.hid + i));
   const float g =
       a.has_shared ? __ldcg(a.sgate + (size_t)moe_layer * a.S + row) : 0.f;
-  return make_float4(c.x + g * v.x, c.y + g * v.y, c.z + g * v.z,
-                     c.w + g * v.w);
+  // the plain version's operations: acc + (gate x down), rounded apiece
+  return make_float4(__fadd_rn(c.x, __fmul_rn(g, v.x)),
+                     __fadd_rn(c.y, __fmul_rn(g, v.y)),
+                     __fadd_rn(c.z, __fmul_rn(g, v.z)),
+                     __fadd_rn(c.w, __fmul_rn(g, v.w)));
 }
 
 template <bool MOE>
@@ -359,14 +883,14 @@ __device__ __forceinline__ void norm_rows(const PArgs& a, int rows,
     float tot = 0.f;
 #pragma unroll
     for (int k = 0; k < kWarps; ++k) tot += red[k];
-    const float inv = 1.0f / sqrtf(tot / (float)hid + a.eps);
-    __nv_bfloat16* xo = a.xn + (size_t)row * hid;
+    // rsqrtf, as torch.rsqrt computes the plain version's
+    const float inv = rsqrtf(tot / (float)hid + a.eps);
     for (int i = tid * 4; i < hid; i += kThreads * 4) {
       const float4 v = *reinterpret_cast<const float4*>(r + i);
       const float4 wv = *reinterpret_cast<const float4*>(w + i);
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(xo + i);
-      o[0] = __floats2bfloat162_rn(v.x * inv * wv.x, v.y * inv * wv.y);
-      o[1] = __floats2bfloat162_rn(v.z * inv * wv.z, v.w * inv * wv.w);
+      *reinterpret_cast<uint2*>(a.xn + xoff(a.S, row, i)) = make_uint2(
+          pack_bf16(v.x * inv * wv.x, v.y * inv * wv.y),
+          pack_bf16(v.z * inv * wv.z, v.w * inv * wv.w));
     }
   }
 }
@@ -479,7 +1003,8 @@ __device__ void rope_kv_phase(const PArgs& a, int layer, int rows, int n) {
         // rotate_half: dims < 64 take -x[d + 64], the others x[d - 64]
         const float partner = __shfl_xor_sync(0xffffffffu, v[i], 16);
         const float rot = lane < 16 ? -partner : partner;
-        v[i] = v[i] * cs[i] + rot * sn[i];
+        // the plain version's x * cos + rot * sin, rounded apiece
+        v[i] = __fadd_rn(__fmul_rn(v[i], cs[i]), __fmul_rn(rot, sn[i]));
       }
     }
     __nv_bfloat16* dst;
@@ -645,46 +1170,53 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
         }
       }
     }
-    __nv_bfloat16* out0 = a.attn + (size_t)r0 * HD + hh * kD + 2 * tig;
+    // attn_out in the x layout of the o product
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(out0 + 8 * j) =
-          __floats2bfloat162_rn(o[j][0], o[j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(out0 + (size_t)8 * HD + 8 * j) =
-          __floats2bfloat162_rn(o[j][2], o[j][3]);
+      const int k = hh * kD + 8 * j + 2 * tig;
+      *reinterpret_cast<uint32_t*>(a.attn + xoff(a.S, r0, k)) =
+          pack_bf16(o[j][0], o[j][1]);
+      *reinterpret_cast<uint32_t*>(a.attn + xoff(a.S, r1, k)) =
+          pack_bf16(o[j][2], o[j][3]);
     }
   }
 }
 
-// act[g][row] = bf16(silu(g) * u) from a gate|up product's K splits for
-// `ngroups` groups (group g's split 0 at in + g * in_gs; up starts at the
-// gate leaf's padded width; act rows of a group S apart).
-template <bool GROUPED>
-__device__ void act_phase(const PArgs& a, const Stream& st, const float* in,
-                          size_t in_gs, int inter, int ngroups, int rows) {
-  const int quarter = inter / 4, up = st.n[0];
+// act[row] = bf16(silu(g) * u) in the x layout of the down product, from
+// a gate|up product's K splits (up starts at the gate leaf's padded width):
+// the rows < `rows` of a dense product.
+__device__ __forceinline__ float4 swiglu4(const Stream& st, const float* in,
+                                          size_t split_stride, int row,
+                                          int c) {
+  float4 gv = make_float4(0.f, 0.f, 0.f, 0.f), u = gv;
+  for (int s = 0; s < st.ksplit; ++s) {
+    const float* p = in + (size_t)s * split_stride + (size_t)row * st.ntot + c;
+    const float4 gs = __ldcg(reinterpret_cast<const float4*>(p));
+    const float4 us = __ldcg(reinterpret_cast<const float4*>(p + st.n[0]));
+    gv.x += gs.x; gv.y += gs.y; gv.z += gs.z; gv.w += gs.w;
+    u.x += us.x; u.y += us.y; u.z += us.z; u.w += us.w;
+  }
+  // the plain version's order: g * sigmoid(g), sigmoid(g) = 1 / (1 +
+  // exp(-g)), then * u
+  return make_float4(gv.x * (1.0f / (1.0f + expf(-gv.x))) * u.x,
+                     gv.y * (1.0f / (1.0f + expf(-gv.y))) * u.y,
+                     gv.z * (1.0f / (1.0f + expf(-gv.z))) * u.z,
+                     gv.w * (1.0f / (1.0f + expf(-gv.w))) * u.w);
+}
+__device__ __forceinline__ void store_act(__nv_bfloat16* act, int R, int row,
+                                          int c, float4 v) {
+  *reinterpret_cast<uint2*>(act + xoff(R, row, c)) =
+      make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+__device__ void act_phase(const PArgs& a, const Stream& st, int inter,
+                          int rows) {
+  const int quarter = inter / 4;
   const size_t split_stride = (size_t)a.S * st.ntot;
-  const int per_group = rows * quarter;
-  const int total = GROUPED ? ngroups * per_group : per_group;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < total;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < rows * quarter;
        i += gridDim.x * kThreads) {
-    const int g = GROUPED ? i / per_group : 0, r = i - g * per_group;
-    const int row = r / quarter, c = 4 * (r - row * quarter);
-    float4 gv = make_float4(0.f, 0.f, 0.f, 0.f), u = gv;
-    for (int s = 0; s < st.ksplit; ++s) {
-      const float* p = in + (size_t)g * in_gs + (size_t)s * split_stride +
-                       (size_t)row * st.ntot + c;
-      const float4 gs = __ldcg(reinterpret_cast<const float4*>(p));
-      const float4 us = __ldcg(reinterpret_cast<const float4*>(p + up));
-      gv.x += gs.x; gv.y += gs.y; gv.z += gs.z; gv.w += gs.w;
-      u.x += us.x; u.y += us.y; u.z += us.z; u.w += us.w;
-    }
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
-        a.act + ((size_t)g * a.S + row) * inter + c);
-    o[0] = __floats2bfloat162_rn(gv.x / (1.0f + expf(-gv.x)) * u.x,
-                                 gv.y / (1.0f + expf(-gv.y)) * u.y);
-    o[1] = __floats2bfloat162_rn(gv.z / (1.0f + expf(-gv.z)) * u.z,
-                                 gv.w / (1.0f + expf(-gv.w)) * u.w);
+    const int row = i / quarter, c = 4 * (i - row * quarter);
+    store_act(a.act, a.S, row, c,
+              swiglu4(st, a.partial, split_stride, row, c));
   }
 }
 
@@ -732,16 +1264,16 @@ __device__ void final_norm_phase(const PArgs& a, int n, int ksplit,
   float tot = 0.f;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) tot += red[w];
-  const float inv = 1.0f / sqrtf(tot / (float)hid + a.eps);
+  const float inv = rsqrtf(tot / (float)hid + a.eps);
   for (int i = tid; i < hid; i += kThreads)
     a.x_last[i] = __float2bfloat16(vals[i] * inv * a.final_norm[i]);
 }
 
 int pmk_smem_bytes() {
-  const int prod =
-      kPStages * (kMTile * kAPad * 2 + Tile<16>::kChunkBytes);
-  const int att = 2 * kKeyTile * kKVPad * 2;
-  return imax(prod, att);   // the final norm's [hid] floats are far below
+  // the products' ring (aligned to 1024 bytes) and the routed tables; the
+  // one-row product's cp.async ring, the attention tiles and the final
+  // norm's [hid] floats are far below
+  return 1024 + kTabOff + (3 * kMaxE + 1) * 4;
 }
 
 // Index of each value in the `ia` array of di_prefill_megakernel
@@ -750,10 +1282,10 @@ enum IArg {
   I_NORMS, I_FINAL_NORM, I_QKV_B, I_X0, I_COS, I_SIN, I_PAGE_ROW, I_N_TOKENS,
   I_K_POOL, I_V_POOL, I_K_QP, I_V_QP, I_LOGITS, I_RESID, I_XN, I_PARTIAL,
   I_QB, I_KB, I_VB, I_ATTN, I_ACT, I_X_LAST, I_BARRIER, I_STATUS, I_EDN,
-  I_ACC, I_GATES, I_SGATE, I_LAUNCHES, I_TRACE, I_S, I_L, I_HID, I_H, I_KH,
-  I_INTER, I_V, I_PS, I_MAXPB, I_KV_KIND, I_QL, I_GRID, I_E, I_K_TOP,
-  I_NORM_TOPK, I_HAS_SHARED, I_HAS_SGATE, I_SHARED_INTER, I_EP, I_EB,
-  I_STREAMS
+  I_ACC, I_GATES, I_SGATE, I_XE, I_EIDX, I_ESLOT, I_ECOUNT, I_LAUNCHES,
+  I_TRACE, I_S, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXPB,
+  I_KV_KIND, I_QL, I_GRID, I_E, I_K_TOP, I_NORM_TOPK, I_HAS_SHARED,
+  I_HAS_SGATE, I_SHARED_INTER, I_EP, I_SCAP, I_STREAMS
 };
 // then kStreamArgs values per stream (fill_stream)
 
@@ -788,6 +1320,10 @@ inline void fill_pargs(PArgs& a, const long long* ia, const double* fa) {
   a.acc = ptr<float>(ia[I_ACC]);
   a.gates = ptr<float>(ia[I_GATES]);
   a.sgate = ptr<float>(ia[I_SGATE]);
+  a.xe = ptr<__nv_bfloat16>(ia[I_XE]);
+  a.eidx = ptr<int>(ia[I_EIDX]);
+  a.eslot = ptr<int>(ia[I_ESLOT]);
+  a.ecount = ptr<int>(ia[I_ECOUNT]);
   a.E = (int)ia[I_E];
   a.k_top = (int)ia[I_K_TOP];
   a.norm_topk = (int)ia[I_NORM_TOPK];
@@ -795,7 +1331,7 @@ inline void fill_pargs(PArgs& a, const long long* ia, const double* fa) {
   a.has_sgate = (int)ia[I_HAS_SGATE];
   a.shared_inter = (int)ia[I_SHARED_INTER];
   a.EP = (int)ia[I_EP];
-  a.eb = (int)ia[I_EB];
+  a.scap = (int)ia[I_SCAP];
   a.launches = ptr<unsigned long long>(ia[I_LAUNCHES]);
   a.trace = ptr<unsigned long long>(ia[I_TRACE]);
   a.S = (int)ia[I_S];

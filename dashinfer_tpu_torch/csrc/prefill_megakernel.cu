@@ -26,49 +26,75 @@
 //
 // What bounds it on the H100: operations at S >= 256 (about 13 GFLOP a
 // prompt row for Qwen2-7B against 3.98 GB of weights: 295 operations a byte
-// is passed at ~90 rows), bytes below that.
+// is passed at ~90 rows), bytes below that. A MoE model's operations are
+// its routed work, n rows x k experts (+ the router and the shared expert):
+// at bucket 1024 ~4.4 TFLOP for Qwen1.5-MoE, where every expert over every
+// row would be ~28.
 //
 // What this design does about it. Nothing of the TPU kernel's VMEM state
 // fits on an SM, so the activations between phases (f32 residual, bf16
 // x_norm, the products' f32 results, bf16 q / k / v, attn_out, the bf16
 // SwiGLU activation) are global scratch that mostly stays in the 50 MB L2,
 // and the phases of the persistent grid (one block an SM, from the occupancy
-// query) are separated by the grid barrier of di_common.cuh. A product item
-// is (256-column weight tile, K split, 128-row tile of the prompt), row
-// tiles innermost, so the blocks that run side by side read the same weight
-// chunks and a payload byte comes from device memory once. A block streams
-// the item's chunks and its x rows through a 3-stage cp.async ring; each warp
-// owns 32 of the tile's columns, dequantizes its share of a chunk in
-// registers ONCE and reuses it over the tile's 128 rows with mma.sync
-// m16n8k16 (128 mma a warp a chunk; the u4 dequant is ~2 instructions an
-// element, none of them a convert: tools/probe_magic_dequant.py). K
-// splits (chosen by the wrapper from the grid) keep all SMs busy where a
-// product has few tiles (o and down at S = 128); their partial sums are
-// added in a fixed order by the phase that reads them, so a launch repeats
-// bit for bit. Row tiles wholly beyond n are skipped in every phase; rows
-// >= n inside the last tile are computed and never read by a valid row.
-// An attention item is (query head, 128-row query tile), a warp 16 rows,
-// over 64-key tiles of bf16 K / V staged in shared memory; V's mma operand
-// comes from ldmatrix.trans.
+// query) are separated by the grid barrier of di_common.cuh.
 //
-// MoE layers, as the TPU kernel computes them: every expert over every row
-// of the bucket, each row's result scaled by its gate for that expert (0
-// where the row is not routed to it) and summed in ascending expert order,
-// then the shared expert times its gate. After norm2: the router product
-// (bf16, a 256-column stream) and a gates phase (one warp a row,
-// `route_row`, dense gates [S][EP]); then the experts in batches of `eb`
-// (items over (expert, tile, split, row tile), so a batch fills the grid):
-// gate|up of the batch -> SwiGLU into `act` [eb][S][Im] -> down into `edn`,
-// whose gated sum into `acc` [S][hid] runs beside the next batch's gate|up;
-// then the shared expert (gate|up beside the last batch's sum, SwiGLU,
-// down). The next norm adds resid + (acc + shared gate x shared down). This
-// runs the E / k-fold of the routed work (at bucket 1024 ~28 against ~4.2
-// TFLOP for Qwen1.5-MoE): a first version, right before fast.
+// The products (di_prefill_layer.cuh `gemm_phase`) run on wgmma, the
+// tensor cores' asynchronous warpgroup product: an item is (256-column
+// weight tile, K split, 128-row tile of the prompt), row tiles innermost, so
+// the blocks that run side by side read the same weight chunks and a
+// payload byte comes from device memory once. The weights are the A
+// operand, from registers: each warp dequantizes its 16 columns of each
+// tile half once a 64-row chunk, in the pack's fragment order, which is
+// wgmma's register-A layout, and its warpgroup's m64n128k16 products reuse
+// them over the tile's 128 rows; x is the B operand, which the tensor cores
+// read from shared memory, so no warp re-reads the x tile. The phases that
+// write x (norms, attention, SwiGLU, the MoE gather) lay it out chunk-major
+// in the 128-byte swizzle the tensor cores read (`xoff`), so a stage's x
+// tile is one contiguous run and one bulk copy. Thread 0 keeps a ring of
+// stages (x tile, weight chunk, qparams) filled with bulk copies on
+// mbarriers, two chunks behind the one being computed; the warps wait on a
+// stage's full barrier and release it on its empty barrier once their
+// products on it are done, with no block-wide barrier a chunk. Each k16
+// step's products form a commit group that the warpgroup waits for before
+// it dequantizes the next step; with every phase in one persistent
+// function (255 registers) ptxas serializes the products (C7512), so one
+// warpgroup's dequant overlaps the other's products (~300 TFLOP/s at
+// bucket 1024 on an H100 SXM, PERF.md).
+// K splits (chosen by the wrapper from the grid) keep all SMs busy where a
+// product has few tiles (o and down at S = 128); their partial sums are
+// added in a fixed order by the
+// phase that reads them, so a launch repeats bit for bit. Row tiles wholly
+// beyond n are skipped in every phase; rows >= n inside the last tile are
+// computed and never read by a valid row. Each payload kind's product is
+// inlined at ONE place in the kernel (`product`): ptxas serializes a wgmma
+// pipeline that crosses a function call. An attention item is (query
+// head, 128-row query tile), a warp 16 rows, over 64-key tiles of bf16 K /
+// V staged in shared memory; V's mma operand comes from ldmatrix.trans. The
+// lm_head's one row stays on mma.sync (wgmma with N = 1 gains nothing).
+//
+// MoE layers: the experts run over their routed rows only. After norm2:
+// the router product (bf16, a 256-column stream) and a gates phase (one
+// warp a row, `route_row`, dense gates [S][EP], each prompt row's experts
+// in ascending order); a route phase lays the n x k (row, expert) pairs
+// out as slots, expert by expert, each expert's rows in ascending row
+// order (counts and ranks from ballots over the rows in order: no order
+// comes from atomics), and copies each routed row's x_norm to its slot;
+// the experts' gate|up, SwiGLU and down then run over items (expert,
+// column tile, K split, 64-slot tile), enumerated by every block from the
+// counts after the barrier: an expert with no rows has no items and its
+// weights are not read; the sum phase adds, per row, gate x down at its
+// slots in ascending expert order (a gate of 0 skipped), as the TPU
+// kernel's every-expert sum does, then the shared expert runs over every
+// row (its gate|up beside the sum). The next norm adds resid + (acc +
+// shared gate x shared down). The kernel writes each layer's per-expert
+// row counts (ecount) for the caller to read.
 //
 // Phases of one layer (each followed by the barrier): norm1 -> q|k|v ->
-// rope + KV write -> attention -> o -> norm2 -> gate|up -> SwiGLU -> down;
-// then final norm -> lm_head. With a trace buffer, block 0 writes a
-// timestamp where it ends each phase and where it leaves each barrier
+// rope + KV write -> attention -> o -> norm2 -> gate|up -> SwiGLU -> down
+// (MoE: -> router -> gates -> route -> experts' gate|up -> SwiGLU -> down
+// -> sum + shared gate|up -> shared SwiGLU -> shared down); then final
+// norm -> lm_head. With a trace buffer, block 0 writes a timestamp where it
+// ends each phase and where it leaves each barrier
 // (ops/prefill_megakernel.py `phase_times`).
 
 #include "di_prefill_layer.cuh"
@@ -76,28 +102,6 @@
 namespace {
 
 using namespace di;
-
-// Experts e0 .. e0 + ngroups - 1 of a MoE stream.
-template <int MT>
-__device__ __noinline__ void gemm_experts(const Stream& st, int layer,
-                                          const __nv_bfloat16* A, int lda,
-                                          int mtiles, float* out,
-                                          size_t split_stride, int store_rows,
-                                          uint8_t* smem, int e0, int ngroups,
-                                          size_t a_gs, size_t out_gs) {
-  if (st.bits == 4)
-    gemm_phase<4, MT, true>(st, layer, A, lda, mtiles, out, split_stride,
-                            st.ldo, store_rows, smem, e0, ngroups, a_gs,
-                            out_gs);
-  else if (st.bits == 8)
-    gemm_phase<8, MT, true>(st, layer, A, lda, mtiles, out, split_stride,
-                            st.ldo, store_rows, smem, e0, ngroups, a_gs,
-                            out_gs);
-  else
-    gemm_phase<16, MT, true>(st, layer, A, lda, mtiles, out, split_stride,
-                             st.ldo, store_rows, smem, e0, ngroups, a_gs,
-                             out_gs);
-}
 
 // norm_phase of a MoE layer's residual: + acc + the shared expert's output.
 __device__ __noinline__ void moe_norm_phase(const PArgs& a, int rows,
@@ -108,9 +112,10 @@ __device__ __noinline__ void moe_norm_phase(const PArgs& a, int rows,
 }
 
 // MoE router: one warp a row, from the router product's K splits -> dense
-// gates [layer][row][EP] (0 where not routed), the shared gate; acc[row] = 0.
-// Each layer's gates stay in the scratch until the launch ends.
-__device__ __noinline__ void gates_phase(const PArgs& a, int rows,
+// gates [layer][row][EP] (0 where not routed) and the shared gate; a prompt
+// row's experts, ascending, into eidx[row]. Each layer's gates stay in the
+// scratch until the launch ends.
+__device__ __noinline__ void gates_phase(const PArgs& a, int rows, int n,
                                          int layer) {
   float* gates = a.gates + (size_t)layer * a.S * a.EP;
   const Stream& st = a.st[kRt];
@@ -130,38 +135,135 @@ __device__ __noinline__ void gates_phase(const PArgs& a, int rows,
       gates[(size_t)row * a.EP + e] = v;
     }
     if (lane == 0) a.sgate[(size_t)layer * a.S + row] = sg;
-    for (int i = lane * 4; i < a.hid; i += 128)
-      *reinterpret_cast<float4*>(a.acc + (size_t)row * a.hid + i) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
+    if (lane < a.k_top && row < n) {
+      int e = idx[0];
+#pragma unroll
+      for (int j = 1; j < kMaxTopk; ++j)
+        if (j == lane) e = idx[j];
+      a.eidx[(size_t)row * kMaxTopk + lane] = e;
+    }
   }
 }
 
-// acc[row] += sum over experts e0 .. e0 + nb - 1 (ascending) of
-// gates[row][e] x the K splits of e's down product (group e - e0 of edn).
+// The routed slots of the prompt rows' (row, j) pairs: expert e's rows, in
+// ascending row order, are the slots base[e] .. base[e] + count[e] - 1,
+// base[e] the counts of the experts before e rounded up to 8 and summed
+// (the expert products read whole 8-row groups of the x layout). Every
+// block reads the n x k experts of the prompt rows into shared memory,
+// counts them (a shared-memory histogram: the counts, not their order,
+// come from atomics) and ranks each expert's rows with ballots over the
+// rows in order, a warp an expert; then it takes its share of the (row, j)
+// pairs, a warp a pair: the slot into eslot and the row's x_norm into the
+// slot. Block 0 writes the layer's counts (ecount[layer]). Nothing depends
+// on the order of atomics, so a launch repeats bit for bit.
+__device__ __noinline__ void route_phase(const PArgs& a, int n, int layer,
+                                         uint8_t* smem) {
+  const int E = a.E, k = a.k_top, nk = n * a.k_top, units = a.hid / 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int* cnt = reinterpret_cast<int*>(smem);  // [E]
+  int* base = cnt + E;                      // [E]
+  int* ex = base + E;                       // [n * k] the rows' experts
+  int* sl = ex + nk;                        // [n * k] their slots
+  for (int e = tid; e < E; e += kThreads) cnt[e] = 0;
+  for (int i = tid; i < nk; i += kThreads)
+    ex[i] = __ldcg(a.eidx + (size_t)(i / k) * kMaxTopk + i % k);
+  __syncthreads();
+  for (int i = tid; i < nk; i += kThreads) atomicAdd(cnt + ex[i], 1);
+  __syncthreads();
+  if (tid == 0) {
+    int b = 0;
+    for (int e = 0; e < E; ++e) {
+      base[e] = b;
+      b += (cnt[e] + 7) & ~7;
+    }
+  }
+  __syncthreads();
+  if (blockIdx.x == 0)
+    for (int e = tid; e < E; e += kThreads)
+      a.ecount[(size_t)layer * E + e] = cnt[e];
+  for (int e = warp; e < E; e += kWarps) {
+    int pos = base[e];
+    for (int r0 = 0; r0 < n; r0 += 32) {
+      const int r = r0 + lane;
+      int j = -1;
+      if (r < n)
+        for (int q = 0; q < k; ++q)
+          if (ex[r * k + q] == e) j = q;
+      const unsigned m = __ballot_sync(0xffffffffu, j >= 0);
+      if (j >= 0) sl[r * k + j] = pos + __popc(m & ((1u << lane) - 1u));
+      pos += __popc(m);
+    }
+  }
+  __syncthreads();
+  for (int i = blockIdx.x * kWarps + warp; i < nk; i += gridDim.x * kWarps) {
+    const int row = i / k, slot = sl[i];
+    if (lane == 0) a.eslot[(size_t)row * kMaxTopk + i % k] = slot;
+    for (int u0 = 0; u0 < units; u0 += 8 * 32) {
+      uint4 v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int u = u0 + 32 * q + lane;
+        if (u < units)
+          v[q] = __ldcg(reinterpret_cast<const uint4*>(
+              a.xn + xoff(a.S, row, 8 * u)));
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int u = u0 + 32 * q + lane;
+        if (u < units)
+          *reinterpret_cast<uint4*>(a.xe + xoff(a.scap, slot, 8 * u)) = v[q];
+      }
+    }
+  }
+}
+
+// SwiGLU of the experts' gate|up over the routed slots -> act (scap rows,
+// the x layout of the down product).
+__device__ __noinline__ void expert_act_phase(const PArgs& a, int n) {
+  const Stream& st = a.st[kGu];
+  const int quarter = a.inter / 4, k = a.k_top;
+  const size_t split_stride = (size_t)a.scap * st.ntot;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n * k * quarter;
+       i += gridDim.x * kThreads) {
+    const int rj = i / quarter, c = 4 * (i - rj * quarter);
+    const int slot = __ldcg(a.eslot + (size_t)(rj / k) * kMaxTopk + rj % k);
+    store_act(a.act, a.scap, slot, c,
+              swiglu4(st, a.partial, split_stride, slot, c));
+  }
+}
+
+// acc[row] = sum over the row's experts, ascending, of its gate x the K
+// splits of the expert's down product at the row's slot (a gate of 0 adds
+// nothing and is skipped); rows >= n: 0.
 __device__ __noinline__ void expert_sum_phase(const PArgs& a, int layer,
-                                              int e0, int nb, int rows) {
+                                              int n, int rows) {
   const float* gates = a.gates + (size_t)layer * a.S * a.EP;
   const Stream& st = a.st[kDn];
   const int hid = a.hid, q = hid / 4;
-  const size_t split_stride = (size_t)a.S * hid;
-  const size_t gs = (size_t)st.ksplit * split_stride;
+  const size_t split_stride = (size_t)a.scap * hid;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < rows * q;
        i += gridDim.x * kThreads) {
     const int row = i / q, c = 4 * (i - row * q);
-    float* ap = a.acc + (size_t)row * hid + c;
-    float4 acc = __ldcg(reinterpret_cast<const float4*>(ap));
-    for (int g = 0; g < nb; ++g) {
-      const float w = __ldcg(gates + (size_t)row * a.EP + e0 + g);
-      if (w == 0.f) continue;       // not routed: it adds 0
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < (row < n ? a.k_top : 0); ++j) {
+      const size_t rj = (size_t)row * kMaxTopk + j;
+      const int e = __ldcg(a.eidx + rj);
+      const float w = __ldcg(gates + (size_t)row * a.EP + e);
+      if (w == 0.f) continue;       // it adds 0
+      const int slot = __ldcg(a.eslot + rj);
       float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int s = 0; s < st.ksplit; ++s) {
         const float4 p = __ldcg(reinterpret_cast<const float4*>(
-            a.edn + g * gs + s * split_stride + (size_t)row * hid + c));
+            a.edn + s * split_stride + (size_t)slot * hid + c));
         y.x += p.x; y.y += p.y; y.z += p.z; y.w += p.w;
       }
-      acc.x += w * y.x; acc.y += w * y.y; acc.z += w * y.z; acc.w += w * y.w;
+      // the plain version's acc + gate x down, rounded apiece
+      acc.x = __fadd_rn(acc.x, __fmul_rn(w, y.x));
+      acc.y = __fadd_rn(acc.y, __fmul_rn(w, y.y));
+      acc.z = __fadd_rn(acc.z, __fmul_rn(w, y.z));
+      acc.w = __fadd_rn(acc.w, __fmul_rn(w, y.w));
     }
-    *reinterpret_cast<float4*>(ap) = acc;
+    *reinterpret_cast<float4*>(a.acc + (size_t)row * hid + c) = acc;
   }
 }
 
@@ -176,7 +278,6 @@ pmk_kernel(const __grid_constant__ PArgs a) {
   const int mtiles = (n + kMTile - 1) / kMTile;
   const int rows = mtiles * kMTile;
   const int hid = a.hid, S = a.S;
-  const int HD = a.H * kD;
   const bool moe = a.E > 0;
   // the down product's splits the next norm adds (a MoE layer: its shared
   // expert's, beside acc)
@@ -186,82 +287,84 @@ pmk_kernel(const __grid_constant__ PArgs a) {
   auto barrier = [&]() {
     grid_barrier(a.barrier, a.status, a.trace, phase++);
   };
+  // a layer's phases, each followed by the grid barrier; a product phase
+  // sets its stream and operands and runs at the one product call below
+  const int nph = !moe ? 9 : (a.has_shared ? 15 : 13);
   for (int l = 0; l < a.L; ++l) {
-    if (moe && l > 0)
-      moe_norm_phase(a, rows, mlp_ks, (size_t)S * hid, l - 1,
-                     a.norms + (size_t)(2 * l) * hid,
-                     reinterpret_cast<float*>(smem));
-    else
-      norm_phase(a, rows, mlp_ks, (size_t)S * hid, l == 0,
-                 a.norms + (size_t)(2 * l) * hid,
-                 reinterpret_cast<float*>(smem));
-    barrier();
-    gemm<kMTile / 16>(a.st[kQkv], l, a.xn, hid, mtiles, a.partial,
-                      (size_t)S * a.st[kQkv].ntot, rows, smem);
-    barrier();
-    rope_kv(a, l, rows, n);
-    barrier();
-    attention_phase(a, mtiles, smem);
-    barrier();
-    gemm<kMTile / 16>(a.st[kO], l, a.attn, HD, mtiles, a.partial,
-                      (size_t)S * hid, rows, smem);
-    barrier();
-    norm_phase(a, rows, a.st[kO].ksplit, (size_t)S * hid, false,
-               a.norms + (size_t)(2 * l + 1) * hid,
-               reinterpret_cast<float*>(smem));
-    barrier();
-    const Stream& gu = a.st[kGu];
-    const Stream& dn = a.st[kDn];
-    if (!moe) {
-      gemm<kMTile / 16>(gu, l, a.xn, hid, mtiles, a.partial,
-                        (size_t)S * gu.ntot, rows, smem);
+    for (int ph = 0; ph < nph; ++ph) {
+      int sid = -1;
+      bool grouped = false;
+      const __nv_bfloat16* X = a.xn;
+      float* out = a.partial;
+      size_t sst = (size_t)S * hid;
+      float* red = reinterpret_cast<float*>(smem);
+      switch (ph) {
+        case 0:
+          if (moe && l > 0)
+            moe_norm_phase(a, rows, mlp_ks, (size_t)S * hid, l - 1,
+                           a.norms + (size_t)(2 * l) * hid, red);
+          else
+            norm_phase(a, rows, mlp_ks, (size_t)S * hid, l == 0,
+                       a.norms + (size_t)(2 * l) * hid, red);
+          break;
+        case 1: sid = kQkv; sst = (size_t)S * a.st[kQkv].ntot; break;
+        case 2: rope_kv(a, l, rows, n); break;
+        case 3: attention_phase(a, mtiles, smem); break;
+        case 4: sid = kO; X = a.attn; break;
+        case 5:
+          norm_phase(a, rows, a.st[kO].ksplit, (size_t)S * hid, false,
+                     a.norms + (size_t)(2 * l + 1) * hid, red);
+          break;
+        case 6:                       // gate|up, or the MoE router
+          sid = moe ? kRt : kGu;
+          sst = (size_t)S * a.st[sid].ntot;
+          break;
+        case 7:
+          if (moe)
+            gates_phase(a, rows, n, l);
+          else
+            act_phase(a, a.st[kGu], a.inter, rows);
+          break;
+        case 8:
+          if (moe)
+            route_phase(a, n, l, smem);
+          else {
+            sid = kDn;
+            X = a.act;
+          }
+          break;
+        case 9:                       // the experts over their routed rows
+          sid = kGu;
+          grouped = true;
+          X = a.xe;
+          sst = (size_t)a.scap * a.st[kGu].ntot;
+          break;
+        case 10: expert_act_phase(a, n); break;
+        case 11:
+          sid = kDn;
+          grouped = true;
+          X = a.act;
+          out = a.edn;
+          sst = (size_t)a.scap * hid;
+          break;
+        case 12:                      // the sum, beside the shared gate|up
+          expert_sum_phase(a, l, n, rows);
+          if (a.has_shared) {
+            sid = kSgu;
+            sst = (size_t)S * a.st[kSgu].ntot;
+          }
+          break;
+        case 13: act_phase(a, a.st[kSgu], a.shared_inter, rows); break;
+        default: sid = kSdn; X = a.act; break;
+      }
+      if (sid >= 0)
+        product<true>(a, sid, grouped, l, X, out, sst, mtiles, rows, smem);
       barrier();
-      act_phase<false>(a, gu, a.partial, 0, a.inter, 1, rows);
-      barrier();
-      gemm<kMTile / 16>(dn, l, a.act, a.inter, mtiles, a.partial,
-                        (size_t)S * hid, rows, smem);
-      barrier();
-      continue;
     }
-    gemm<kMTile / 16>(a.st[kRt], l, a.xn, hid, mtiles, a.partial,
-                      (size_t)S * a.st[kRt].ntot, rows, smem);
-    barrier();
-    gates_phase(a, rows, l);
-    barrier();
-    const size_t gu_gs = (size_t)gu.ksplit * S * gu.ntot;
-    int e0 = 0;
-    for (; e0 < a.E; e0 += a.eb) {
-      const int nb = min(a.eb, a.E - e0);
-      if (e0 > 0) expert_sum_phase(a, l, e0 - a.eb, a.eb, rows);
-      gemm_experts<kMTile / 16>(gu, l, a.xn, hid, mtiles, a.partial,
-                                (size_t)S * gu.ntot, rows, smem, e0, nb, 0,
-                                gu_gs);
-      barrier();
-      act_phase<true>(a, gu, a.partial, gu_gs, a.inter, nb, rows);
-      barrier();
-      gemm_experts<kMTile / 16>(dn, l, a.act, a.inter, mtiles, a.edn,
-                                (size_t)S * hid, rows, smem, e0, nb,
-                                (size_t)S * a.inter,
-                                (size_t)dn.ksplit * S * hid);
-      barrier();
-    }
-    e0 -= a.eb;
-    expert_sum_phase(a, l, e0, a.E - e0, rows);
-    if (a.has_shared) {
-      const Stream& sgu = a.st[kSgu];
-      gemm<kMTile / 16>(sgu, l, a.xn, hid, mtiles, a.partial,
-                        (size_t)S * sgu.ntot, rows, smem);
-      barrier();
-      act_phase<false>(a, sgu, a.partial, 0, a.shared_inter, 1, rows);
-      barrier();
-      gemm<kMTile / 16>(a.st[kSdn], l, a.act, a.shared_inter, mtiles,
-                        a.partial, (size_t)S * hid, rows, smem);
-    }
-    barrier();
   }
   final_norm_phase(a, n, mlp_ks, moe, reinterpret_cast<float*>(smem));
   barrier();
-  gemm<1>(a.st[kLm], 0, a.x_last, hid, 1, a.logits, 0, 1, smem);
+  gemm_row(a.st[kLm], a.x_last, hid, a.logits, smem);
   barrier();   // so that a trace shows the lm_head's end
 }
 
@@ -296,11 +399,13 @@ extern "C" int di_prefill_megakernel(const long long* ia, const double* fa,
   fill_pargs(a, ia, fa);
   if (a.S % kMTile != 0 || a.S <= 0 || a.hid % 128 != 0 ||
       a.inter % 4 != 0 ||
-      (a.hid + kWarps) * 4 > pmk_smem_bytes())
+      (a.hid + kWarps) * 4 > pmk_smem_bytes() ||
+      (2 * a.EP + 2 * a.S * a.k_top) * 4 > pmk_smem_bytes())
     return (int)cudaErrorInvalidValue;
   if (a.E > 0 && (a.E + a.has_sgate > a.EP || a.EP > kMaxLanes ||
-                  a.k_top < 1 || a.k_top > kMaxTopk || a.eb < 1 ||
-                  a.shared_inter % 4 != 0))
+                  a.k_top < 1 || a.k_top > kMaxTopk ||
+                  a.scap < a.S * a.k_top + 8 * a.E + kETile ||
+                  a.scap % 64 != 0 || a.shared_inter % 4 != 0))
     return (int)cudaErrorInvalidValue;
   const int grid = (int)ia[I_GRID];
   const int smem = pmk_smem_bytes();

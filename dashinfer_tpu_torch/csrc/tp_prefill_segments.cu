@@ -36,8 +36,10 @@
 // row against ~150 MB of the vocab shard's u4 payload and qparams).
 //
 // What the design does about it: the products run the prefill megakernel's
-// mma.sync product over 128-row tiles with the weight dequantized once per
-// chunk and reused over the tile, K split so the grid is filled; the phases
+// wgmma product over 128-row tiles (the weight dequantized once per chunk
+// into the register A operand and reused over the tile, x read by the
+// tensor cores from the swizzled shared-memory stage), K split so the grid
+// is filled, each payload kind inlined at one call site a kernel; the phases
 // of a persistent grid (one block an SM) are separated by the grid barrier
 // of di_common.cuh; the last phase of attn and mlp sums the o / down
 // product's K splits, in a fixed order, into the partial the wrapper
@@ -63,8 +65,8 @@ struct PSeg {
   int layer;
 };
 
-// x[row] += add[row] (when given); xn[row] = bf16(RMSNorm(x[row]) * w), for
-// rows < `rows`. One block a row at a time, as norm_rows.
+// x[row] += add[row] (when given); xn[row] = bf16(RMSNorm(x[row]) * w) in
+// the x layout, for rows < `rows`. One block a row at a time, as norm_rows.
 __device__ void seg_norm_phase(const PArgs& a, const float* add, int rows,
                                const float* w, float* red) {
   const int hid = a.hid, tid = threadIdx.x;
@@ -91,14 +93,13 @@ __device__ void seg_norm_phase(const PArgs& a, const float* add, int rows,
     float tot = 0.f;
 #pragma unroll
     for (int k = 0; k < kWarps; ++k) tot += red[k];
-    const float inv = 1.0f / sqrtf(tot / (float)hid + a.eps);
-    __nv_bfloat16* xo = a.xn + (size_t)row * hid;
+    const float inv = rsqrtf(tot / (float)hid + a.eps);   // as torch.rsqrt
     for (int i = tid * 4; i < hid; i += kThreads * 4) {
       const float4 v = *reinterpret_cast<const float4*>(r + i);
       const float4 wv = *reinterpret_cast<const float4*>(w + i);
-      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(xo + i);
-      o[0] = __floats2bfloat162_rn(v.x * inv * wv.x, v.y * inv * wv.y);
-      o[1] = __floats2bfloat162_rn(v.z * inv * wv.z, v.w * inv * wv.w);
+      *reinterpret_cast<uint2*>(a.xn + xoff(a.S, row, i)) = make_uint2(
+          pack_bf16(v.x * inv * wv.x, v.y * inv * wv.y),
+          pack_bf16(v.z * inv * wv.z, v.w * inv * wv.w));
     }
   }
 }
@@ -152,7 +153,7 @@ __device__ void lm_norm_phase(const PArgs& a, const float* add, int n,
   float tot = 0.f;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) tot += red[w];
-  const float inv = 1.0f / sqrtf(tot / (float)hid + a.eps);
+  const float inv = rsqrtf(tot / (float)hid + a.eps);
   for (int i = tid; i < hid; i += kThreads)
     a.x_last[i] = __float2bfloat16(vals[i] * inv * a.final_norm[i]);
 }
@@ -174,36 +175,36 @@ pseg_kernel(const __grid_constant__ PArgs a, const __grid_constant__ PSeg g) {
   if constexpr (KIND == kLmSeg) {
     lm_norm_phase(a, g.add, n, fsmem);
     barrier();
-    gemm<1>(a.st[kLm], 0, a.x_last, hid, 1, g.out, 0, 1, smem);
+    gemm_row(a.st[kLm], a.x_last, hid, g.out, smem);
   } else {
-    seg_norm_phase(a, g.add, rows,
-                   a.norms + (size_t)(2 * l + (KIND == kMlpSeg)) * hid,
-                   fsmem);
-    barrier();
-    if constexpr (KIND == kAttnSeg) {
-      gemm<kMTile / 16>(a.st[kQkv], l, a.xn, hid, mtiles, a.partial,
-                        (size_t)S * a.st[kQkv].ntot, rows, smem);
+    // norm, product, rope + KV, attention, product, the splits' sum (attn)
+    // or norm, product, SwiGLU, product, the splits' sum (mlp); the
+    // products run at the one call below
+    for (int ph = 0; ph < 5; ++ph) {
+      const int sid = KIND == kAttnSeg ? (ph == 1 ? kQkv : kO)
+                                       : (ph == 1 ? kGu : kDn);
+      if (ph == 0) {
+        seg_norm_phase(a, g.add, rows,
+                       a.norms + (size_t)(2 * l + (KIND == kMlpSeg)) * hid,
+                       fsmem);
+      } else if (ph == 1 || ph == 3) {
+        const __nv_bfloat16* X =
+            ph == 1 ? a.xn : (KIND == kAttnSeg ? a.attn : a.act);
+        product<false>(a, sid, false, l, X, a.partial,
+                       (size_t)S * a.st[sid].ntot, mtiles, rows, smem);
+      } else if (ph == 2) {
+        if constexpr (KIND == kAttnSeg) {
+          rope_kv(a, l, rows, n);
+          barrier();
+          attention_phase(a, mtiles, smem);
+        } else {
+          act_phase(a, a.st[kGu], a.inter, rows);
+        }
+      } else {
+        sum_splits(a, a.st[sid], rows, g.out);
+        break;
+      }
       barrier();
-      rope_kv(a, l, rows, n);
-      barrier();
-      attention_phase(a, mtiles, smem);
-      barrier();
-      gemm<kMTile / 16>(a.st[kO], l, a.attn, a.H * kD, mtiles, a.partial,
-                        (size_t)S * a.st[kO].ntot, rows, smem);
-      barrier();
-      sum_splits(a, a.st[kO], rows, g.out);
-    } else {
-      const Stream& gu = a.st[kGu];
-      const Stream& dn = a.st[kDn];
-      gemm<kMTile / 16>(gu, l, a.xn, hid, mtiles, a.partial,
-                        (size_t)S * gu.ntot, rows, smem);
-      barrier();
-      act_phase<false>(a, gu, a.partial, 0, a.inter, 1, rows);
-      barrier();
-      gemm<kMTile / 16>(dn, l, a.act, a.inter, mtiles, a.partial,
-                        (size_t)S * dn.ntot, rows, smem);
-      barrier();
-      sum_splits(a, dn, rows, g.out);
     }
   }
 }

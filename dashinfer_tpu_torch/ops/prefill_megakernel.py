@@ -19,9 +19,15 @@ here:
   `prefill_megakernel`, the wrapper that launches the kernel on CUDA
   tensors (and takes the plain version only for CPU tensors), with its
   launch count `prefill_megakernel.counter`;
+* the kernel's MoE decomposition, plain: `chosen_experts`, `route_rows`
+  (the routing phase's counts, ascending row lists, slots and routed-row
+  tiles) and `moe_routed` (the experts over their routed rows only, which
+  the kernel runs; `prefill_megakernel_ref(routed=True)`), and the routed
+  scratch's size (`slot_capacity`, `routed_tiles`);
 * the device's one scratch set (`reserve_scratch`, `device_scratch`,
   `release_scratch`, `check_status`), which the TP prefill segments of
-  every rank on the device share.
+  every rank on the device share, and what a MoE launch leaves in it
+  (`kernel_gates`, `kernel_counts`).
 
 Numerics (the TPU kernel's rounding points): residual in f32; x_norm bf16;
 WEIGHT-SIDE dequant, `w = bf16(f32(q) * s + z)` with s and z rounded to
@@ -54,6 +60,8 @@ from dashinfer_tpu_torch.runtime.kv_cache import KVCache
 
 MAX_BUCKET = 1024
 M_TILE = 128        # prompt rows per product item and per attention item
+E_TILE = 64         # routed rows per expert product item (csrc kETile)
+SLOT_ALIGN = 8      # an expert's first routed slot is a multiple of this
 _NEG_INF = torch.finfo(torch.float32).min
 
 
@@ -111,15 +119,6 @@ class PrefillPlan:
         attn = 2.0 * self.L * self.H * self.D * n * (n + 1)   # QK^T and PV
         return n * 2.0 * self.L * per_row + attn + \
             2.0 * self.lm.K * self.lm.Ntot
-
-    def dense_expert_operations(self, n: int) -> float:
-        """`operations(n)` with every expert run on every row, as the
-        kernel's MoE branch runs them."""
-        routed = self.operations(n)
-        if not self.E:
-            return routed
-        ex = sum(s.K * s.Ntot for s in self.layer_streams if s.E)
-        return routed + n * 2.0 * self.L * ex * (self.E - self.k_top)
 
 
 def supports_prefill(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
@@ -321,28 +320,127 @@ def prefill_lm_ref(plan: PrefillPlan, packed: Dict, resid: torch.Tensor,
     return _wdeq_dot(x, packed, plan.lm, None)[0]
 
 
+def chosen_experts(plan, logits: torch.Tensor) -> torch.Tensor:
+    """The k experts each row of the router product [M, EP] routes to, in
+    ascending order ([M, k] int64): `ops.megakernel.route`'s choice (k
+    rounds of the largest softmax probability, the lowest lane on ties),
+    which the kernel's gates phase writes to its `eidx` rows."""
+    E = plan.E
+    ml = logits[:, :E]
+    p = torch.exp(ml - ml.max(-1, keepdim=True).values)
+    p = p / p.sum(-1, keepdim=True)
+    lane = torch.arange(E, device=logits.device)[None, :]
+    idx = []
+    for _ in range(plan.k_top):
+        mi = p.max(-1, keepdim=True).values
+        fl = torch.where(p >= mi, lane, E).min(-1, keepdim=True).values
+        idx.append(fl)
+        p = torch.where(lane == fl, torch.full_like(p, -1.0), p)
+    return torch.cat(idx, 1).sort(1).values
+
+
+def route_rows(eidx: torch.Tensor, E: int) -> Dict:
+    """The kernel's routing phase, plain: from each prompt row's experts
+    (eidx [n, k], ascending) the per-expert row counts [E], each expert's
+    rows in ascending order, the slots: expert e's rows are the slots
+    base[e] .. base[e] + counts[e] - 1, base[e] the counts of the experts
+    before e each rounded up to SLOT_ALIGN and summed, slots [n, k] the slot
+    of each (row, j); and the routed-row tiles of the expert products, in
+    their item order (expert, then tile): (e, first slot, rows) with at
+    most E_TILE rows each, an expert of no rows having none."""
+    n, k = eidx.shape
+    flat = eidx.reshape(-1).long().cpu()
+    counts = torch.bincount(flat, minlength=E)[:E]
+    padded = (counts + SLOT_ALIGN - 1) // SLOT_ALIGN * SLOT_ALIGN
+    base = torch.cumsum(padded, 0) - padded
+    rows = [torch.nonzero((eidx == e).any(1))[:, 0].cpu() for e in range(E)]
+    slots = torch.empty((n, k), dtype=torch.int64)
+    tiles = []
+    for e in range(E):
+        r = rows[e]
+        j = (eidx[r] == e).long().argmax(1).cpu()
+        slots[r, j] = base[e] + torch.arange(r.numel())
+        tiles += [(e, int(base[e]) + t, min(E_TILE, r.numel() - t))
+                  for t in range(0, r.numel(), E_TILE)]
+    return dict(counts=counts, base=base, rows=rows, slots=slots,
+                tiles=tiles)
+
+
+def moe_routed(plan, x: torch.Tensor, layer: int, mm, n: int,
+               routing: Optional[list] = None) -> torch.Tensor:
+    """`ops.megakernel.moe_ref` as the kernel decomposes it, from x_norm
+    [M, hid] bf16 and the kernel's product `mm(x, stream, layer, expert)`:
+    the router product of every row; the experts of the n prompt rows
+    (`chosen_experts`) laid out by `route_rows`; each routed-row tile's
+    gate|up of its expert over its rows' x_norm, SwiGLU rounded to bf16 by
+    slot, and down; then each prompt row's sum over its experts in
+    ascending order of gate x down at its slot (a gate of 0 skipped), and
+    the shared expert over every row. Rows >= n take no expert (the kernel
+    leaves them out: no prompt row reads them). `routing`, a list, receives
+    the layer's router product."""
+    logits = mm(x, plan.rt, layer, None)
+    gates, sg = mk.route(plan, logits)
+    if routing is not None:
+        routing.append(logits)
+    eidx = chosen_experts(plan, logits[:n])
+    r = route_rows(eidx, plan.E)
+    dev = x.device
+    slots = r["slots"].to(dev)
+    cap = int(r["base"][-1] + r["counts"][-1])
+    xe = x.new_zeros((cap, x.shape[1]))
+    xe[slots.reshape(-1)] = x[:n].repeat_interleave(plan.k_top, 0)
+    edn = torch.zeros((cap, plan.hid), dtype=torch.float32, device=dev)
+    for e, s0, m in r["tiles"]:
+        gu = mm(xe[s0:s0 + m], plan.gu, layer, e)
+        g, u = gu[:, :plan.inter], gu[:, plan.inter:]
+        act = (g * torch.sigmoid(g) * u).to(torch.bfloat16)
+        edn[s0:s0 + m] = mm(act, plan.dn, layer, e)
+    acc = torch.zeros((x.shape[0], plan.hid), dtype=torch.float32,
+                      device=dev)
+    for j in range(plan.k_top):
+        w = gates[:n].gather(1, eidx[:, j:j + 1].to(dev))
+        acc[:n] = torch.where(w == 0, acc[:n], acc[:n] + w * edn[slots[:, j]])
+    if plan.has_shared:
+        gu = mm(x, plan.sgu, layer, None)
+        g, u = gu[:, :plan.shared_inter], gu[:, plan.shared_inter:]
+        act = (g * torch.sigmoid(g) * u).to(torch.bfloat16)
+        acc = acc + sg[:, None] * mm(act, plan.sdn, layer, None)
+    return acc
+
+
 def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
                            cos: torch.Tensor, sin: torch.Tensor,
                            page_row: torch.Tensor, n_tokens, cache: KVCache,
                            bf16_scores: bool = False,
-                           routing: Optional[list] = None) -> torch.Tensor:
+                           routing: Optional[list] = None,
+                           routed: bool = False,
+                           forced_routing: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """The whole prefill, phase by phase (see `prefill_megakernel`), from
     the layer pieces above. Updates the pool in place; returns logits [V]
     f32 of token n-1. `bf16_scores`: see `prefill_attention_block_ref`. A
     MoE layer runs `ops.megakernel.moe_ref` on every row of the bucket with
-    weight-side dequant; `routing`, a list, receives each layer's router
-    product."""
+    weight-side dequant (`routed`: `moe_routed`, the kernel's decomposition
+    over the prompt rows' routed slots); `routing`, a list, receives each
+    layer's router product; `forced_routing` [L, S, k_top] (expert ids, -1
+    for none) routes each layer's rows to these experts instead
+    (`ops.megakernel.moe_ref`'s `forced`)."""
     inp = PrefillInputs(plan, cos, sin, page_row, n_tokens)
     resid = x0.to(torch.bfloat16).float()
+
+    def mm(x_, sp, l_, e):
+        return _wdeq_dot(x_, packed, sp, l_, e)
+
     for l in range(plan.L):
         resid = resid + prefill_attention_block_ref(
             plan, packed, l, resid, inp, cache, bf16_scores)
         if plan.E:
             x = mk._rms(resid, packed["norms"][l, 1], plan.rms_eps).to(
                 torch.bfloat16)
-            resid = resid + mk.moe_ref(
-                plan, x, l, lambda x_, sp, l_, e: _wdeq_dot(
-                    x_, packed, sp, l_, e), routing)
+            forced = None if forced_routing is None else forced_routing[l]
+            resid = resid + (
+                moe_routed(plan, x, l, mm, inp.n, routing) if routed else
+                mk.moe_ref(plan, x, l, mm, routing, forced))
             continue
         resid = resid + prefill_mlp_block_ref(plan, packed, l, resid)
     return prefill_lm_ref(plan, packed, resid, inp.n)
@@ -357,27 +455,30 @@ def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
 _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "page_row",
           "n_tokens", "k_pool", "v_pool", "k_qp", "v_qp", "logits", "resid",
           "xn", "partial", "qb", "kb", "vb", "attn", "act", "x_last",
-          "barrier", "status", "edn", "acc", "gates", "sgate", "launches",
-          "trace", "S", "L", "hid", "H", "KH", "inter", "V", "ps", "maxPb",
-          "kv_kind", "ql", "grid", "E", "k_top", "norm_topk", "has_shared",
-          "has_sgate", "shared_inter", "EP", "eb")
+          "barrier", "status", "edn", "acc", "gates", "sgate", "xe", "eidx",
+          "eslot", "ecount", "launches", "trace", "S", "L", "hid", "H", "KH",
+          "inter", "V", "ps", "maxPb", "kv_kind", "ql", "grid", "E", "k_top",
+          "norm_topk", "has_shared", "has_sgate", "shared_inter", "EP",
+          "scap")
 _P, _I = mk._P, mk._I
 
 # the kernel's phases, in order, each followed by a grid barrier
 LAYER_PHASES = ("norm1", "qkv", "rope_kv", "attention", "o", "norm2",
                 "gate_up", "swiglu", "down")
 TAIL_PHASES = ("final_norm", "lm_head")
-# a MoE layer: the router, then the experts in batches (gate|up, SwiGLU,
-# down a batch), then the last batch's sum with the shared expert's gate|up,
-# its SwiGLU and its down
-MOE_HEAD_PHASES = LAYER_PHASES[:6] + ("router", "gates")
-MOE_BATCH_PHASES = ("expert_gate_up", "expert_swiglu", "expert_down")
+# a MoE layer: the router, the gates, the routing of the prompt rows to
+# their experts' slots, the experts' gate|up, SwiGLU and down over those
+# slots, then their gated sum with the shared expert's gate|up, its SwiGLU
+# and its down
+MOE_HEAD_PHASES = LAYER_PHASES[:6] + ("router", "gates", "route")
+MOE_EXPERT_PHASES = ("expert_gate_up", "expert_swiglu", "expert_down",
+                     "moe_sum")
 
 
-def _phase_names(plan: "PrefillPlan", nbatch: int) -> Tuple[str, ...]:
+def _phase_names(plan: "PrefillPlan") -> Tuple[str, ...]:
     if not plan.E:
         return LAYER_PHASES * plan.L + TAIL_PHASES
-    layer = MOE_HEAD_PHASES + MOE_BATCH_PHASES * nbatch + ("moe_sum",) + \
+    layer = MOE_HEAD_PHASES + MOE_EXPERT_PHASES + \
         (("shared_swiglu", "shared_down") if plan.has_shared else ())
     return layer * plan.L + TAIL_PHASES
 
@@ -408,7 +509,9 @@ _SCRATCH_DTYPES = dict(
     qb=torch.bfloat16, kb=torch.bfloat16, vb=torch.bfloat16,
     attn=torch.bfloat16, act=torch.bfloat16, x_last=torch.bfloat16,
     barrier=torch.int32, status=torch.int32, edn=torch.float32,
-    acc=torch.float32, gates=torch.float32, sgate=torch.float32)
+    acc=torch.float32, gates=torch.float32, sgate=torch.float32,
+    xe=torch.bfloat16, eidx=torch.int32, eslot=torch.int32,
+    ecount=torch.int32)
 
 
 class _Launch:
@@ -430,50 +533,71 @@ class _Launch:
         if self.grid <= 0:
             raise RuntimeError("prefill_megakernel: the kernel does not fit "
                                "on the device (occupancy query gave 0)")
-        S = plan.S
-        mtiles = S // M_TILE
-        # a MoE model's experts run in batches of `eb`, enough items a
-        # batch for about two waves of the grid
-        self.eb = 0 if not plan.E else min(plan.E, -(-2 * self.grid // (
-            plan.gu.Nptot // 256 * mtiles)))
-        self.nbatch = -(-plan.E // self.eb) if plan.E else 0
+        mtiles = plan.S // M_TILE
         self.splits = {}
         for sp in plan.streams:
             if sp.name == "lm":     # one row: its sums ARE the logits
                 self.splits[sp.name] = (1, sp.K // mk.CHUNK_K)
             else:
+                # an expert stream's row tiles: those of a full bucket's
+                # routed slots
                 self.splits[sp.name] = choose_split(
-                    sp.Nptot // 256 * (self.eb if sp.E else 1),
-                    sp.K // mk.CHUNK_K, mtiles, self.grid)
-        self.need = scratch_need(plan, self.splits, self.eb)
+                    sp.Nptot // 256, sp.K // mk.CHUNK_K,
+                    routed_tiles(plan) if sp.E else mtiles, self.grid)
+        self.need = scratch_need(plan, self.splits)
 
     def scratch_bytes(self) -> int:
         return sum(n * _SCRATCH_DTYPES[k].itemsize
                    for k, n in self.need.items())
 
 
-def scratch_need(plan: PrefillPlan, splits: Dict, eb: int = 0,
+def slot_capacity(plan: PrefillPlan) -> int:
+    """Routed slots a MoE launch's scratch holds: the S x k (row, expert)
+    pairs of a full bucket, each expert's first slot rounded up to
+    SLOT_ALIGN, and an expert tile's reach past the last slot, in whole
+    64-row groups (0 for a dense plan)."""
+    if not plan.E:
+        return 0
+    need = plan.S * plan.k_top + SLOT_ALIGN * plan.E + E_TILE
+    return -(-need // 64) * 64
+
+
+def routed_tiles(plan: PrefillPlan) -> int:
+    """Routed-row tiles of a full bucket's expert products when its rows
+    spread over the experts: the S x k slots in E_TILE tiles, and a ragged
+    last tile an expert (the K splits of the expert streams are chosen
+    for it)."""
+    return -(-plan.S * plan.k_top // E_TILE) + plan.E
+
+
+def scratch_need(plan: PrefillPlan, splits: Dict,
                  resid: bool = True) -> Dict[str, int]:
     """Elements of each scratch buffer a launch of `plan` with these K
-    splits (and, for a MoE plan, `eb` experts a batch) needs; `resid`: the
-    f32 residual in the scratch (the whole-model kernel's; a TP segment
-    updates its rank's own)."""
+    splits needs; `resid`: the f32 residual in the scratch (the whole-model
+    kernel's; a TP segment updates its rank's own). A MoE plan's experts
+    work over the routed slots (`slot_capacity`): their x_norm, gate|up
+    partials, SwiGLU activation and down partials are by slot, so they
+    grow with n x k and not with the experts."""
     S = plan.S
     HD, KD = plan.H * plan.D, plan.KH * plan.D
-    parts = [splits[sp.name][0] * S * sp.Nptot * (eb if sp.E else 1)
+    scap = slot_capacity(plan)
+    parts = [splits[sp.name][0] * (scap if sp.E else S) * sp.Nptot
              for sp in plan.layer_streams if sp.name != "dn" or not plan.E]
     need = dict(
         partial=max(parts), xn=S * plan.hid, qb=S * HD, kb=S * KD,
         vb=S * KD, attn=S * HD,
-        act=S * max(plan.inter * max(eb, 1), plan.shared_inter),
+        act=max(S * plan.shared_inter,
+                (scap if plan.E else S) * plan.inter),
         x_last=16 * plan.hid,           # row 0 is written
         barrier=1, status=1)
     if resid:
         need["resid"] = S * plan.hid
     if plan.E:
-        need.update(edn=eb * splits["dn"][0] * S * plan.hid,
+        need.update(edn=splits["dn"][0] * scap * plan.hid,
                     acc=S * plan.hid, gates=plan.L * S * plan.EP,
-                    sgate=plan.L * S)
+                    sgate=plan.L * S, xe=scap * plan.hid,
+                    eidx=S * mk.MAX_TOPK, eslot=S * mk.MAX_TOPK,
+                    ecount=plan.L * plan.E)
     return need
 
 
@@ -560,6 +684,26 @@ def kernel_gates(plan: PrefillPlan, device) -> torch.Tensor:
         plan.L, plan.S, plan.EP)[..., :plan.E]
 
 
+def kernel_routing(plan: PrefillPlan, n: int, device) -> torch.Tensor:
+    """The experts the device's last MoE launch of `plan` routed each of
+    its n prompt rows to, in each layer ([L, S, k_top] int64, ascending;
+    -1 for the rows from n on): `prefill_megakernel_ref`'s
+    `forced_routing`."""
+    g = kernel_gates(plan, device)
+    out = torch.full((plan.L, plan.S, plan.k_top), -1, dtype=torch.int64,
+                     device=g.device)
+    out[:, :n] = g[:, :n].topk(plan.k_top, dim=-1).indices.sort(-1).values
+    return out
+
+
+def kernel_counts(plan: PrefillPlan, device) -> torch.Tensor:
+    """The prompt rows the device's last MoE launch of `plan` routed to
+    each expert in each layer (int32 [L, E]: the rows its expert products
+    ran over)."""
+    sc = _scratch[mk._indexed(device)]
+    return sc.bufs["ecount"][:plan.L * plan.E].reshape(plan.L, plan.E)
+
+
 def check_status(device, who: str = "prefill_megakernel") -> None:
     """Waits for the device and raises if a launch on it that uses the
     device's prefill scratch (`who`: the kernel named in the error) gave up
@@ -580,7 +724,7 @@ def launch_geometry(plan: PrefillPlan, device) -> Dict:
     plan needs and those the device holds for all its plans."""
     st, sc = _launch_state(plan, mk._indexed(device))
     return dict(grid=st.grid, splits=dict(st.splits),
-                experts_per_batch=st.eb, nbatch=st.nbatch,
+                routed_slots=slot_capacity(plan),
                 scratch_bytes=st.scratch_bytes(),
                 device_scratch_bytes=sc.nbytes())
 
@@ -671,7 +815,8 @@ def prefill_megakernel(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
         ql=cache.k_qparams.shape[2] if quant else 0, grid=st.grid,
         E=plan.E, k_top=plan.k_top, norm_topk=int(plan.norm_topk),
         has_shared=int(plan.has_shared), has_sgate=int(plan.has_shared_gate),
-        shared_inter=plan.shared_inter, EP=plan.EP, eb=st.eb)
+        shared_inter=plan.shared_inter, EP=plan.EP,
+        scap=slot_capacity(plan))
     ia = [vals[k] for k in _IARGS]
     ia += mk.packed_stream_args(plan, packed, st.splits, dev,
                                 "prefill_megakernel", lm_valid=plan.V)
@@ -689,16 +834,13 @@ prefill_megakernel.counter = kernel_build.LaunchCounter()
 
 
 def trace_len(plan: PrefillPlan) -> int:
-    """Timestamps a trace buffer must hold (for a MoE model, at most one
-    expert a batch)."""
-    return 2 * len(_phase_names(plan, plan.E)) + 1
+    """Timestamps a trace buffer must hold."""
+    return 2 * len(_phase_names(plan)) + 1
 
 
-def phase_times(plan: PrefillPlan, trace: torch.Tensor,
-                nbatch: int = 0) -> Dict[str, Dict]:
+def phase_times(plan: PrefillPlan, trace: torch.Tensor) -> Dict[str, Dict]:
     """A traced launch's time by phase kind, summed over the layers, in ms
     (`ops.megakernel.phase_times`' layout: work, then wait at the grid
-    barrier, from block 0's timestamps). `nbatch`: the launch's expert
-    batches (`launch_geometry`), for a MoE model."""
-    names = _phase_names(plan, nbatch)
+    barrier, from block 0's timestamps)."""
+    names = _phase_names(plan)
     return mk.phase_times_of(names, trace[:2 * len(names) + 1])

@@ -8,8 +8,12 @@ stream at B = 8 and 32), each with its attention left out and with block
 0's per-phase times, with `--moe`
 one decode forward of its MoE branch at Qwen1.5-MoE-A2.7B width at B = 8
 and B = 32 (chip_smoke.py's MoE weights and states), or with `--prefill`
-one launch of csrc/prefill_megakernel.cu for a full bucket of 128 and of
-1024 (the Qwen2-7B weights, INT8 KV, chip_smoke.py's inputs), or with
+one launch of csrc/prefill_megakernel.cu for a full bucket of 128, 256, 512
+and 1024 (INT8 KV, chip_smoke.py's inputs) of Qwen2-7B's u4 and i8 streams
+and of Qwen1.5-MoE's u4 (with block 0's per-phase times at 128 and 1024),
+and the TP prefill segments of csrc/tp_prefill_segments.cu (attn, mlp and
+lm of rank 0 at layer 0, a (1, 2) mesh whose ranks share the card, INT8,
+u4) at the same buckets, or with
 `--kernels` the per-op paged_attention (chip_smoke.py's INT8 check pool,
 Qwen2-7B's 28 heads on 4 and Qwen1.5-MoE's 16 on 16, and its long-context
 state at B = 8 and 32, one launch a layer in turn: cold) and
@@ -44,13 +48,15 @@ import sys
 # ((kernel source, its entry function's name in the ptxas log), ...) by mode
 _KERNELS = {"decode": (("megakernel", "mk_kernel"),),
             "moe": (("megakernel", "mk_kernel"),),
-            "prefill": (("prefill_megakernel", "pmk_kernel"),),
+            "prefill": (("prefill_megakernel", "pmk_kernel"),
+                        ("tp_prefill_segments", "pseg_kernel")),
             "kernels": (("paged_attention", "pa_kernel"),
                         ("grouped_quant_matmul", "gqm_kernel"),
                         ("stream_probe", "sp_product"),
                         ("tp_segments", "seg_kernel"))}
 _FLAGS = {"--prefill": "prefill", "--moe": "moe", "--kernels": "kernels"}
-PREFILL_BUCKETS = (128, 1024)
+PREFILL_BUCKETS = (128, 256, 512, 1024)
+PREFILL_TRACED = (128, 1024)
 MOE_BATCHES = (8, 32)
 GQM_TS = (32, 128, 1024)
 LONG_LENS = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
@@ -105,6 +111,74 @@ def _tp(cs, name, cfg, params, gen, dev) -> dict:
         tpk.tp_attn_segment(s["plan"], s["packs"][0], 0, s["x0"].float(),
                             *step, s["caches"][0], trace=trace)
         out[f"tp_{name}_attn_phases"] = mk.phase_times_of(names, trace)
+    return out
+
+
+def _prefill(cs, name, cfg, params, gen, dev) -> dict:
+    """ms a launch of the prefill megakernel for each full bucket, its
+    operations bound, and block 0's per-phase times at PREFILL_TRACED."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    out = {}
+    for bucket in PREFILL_BUCKETS:
+        plan, packed = cs.pmk_plan_pack(cfg, params, bucket, CacheMode.INT8)
+        st = cs.pmk_inputs(cfg, params, plan, CacheMode.INT8, bucket, gen,
+                           dev)
+        args = (plan, packed, st["x0"], st["cos"], st["sin"],
+                st["page_row"], st["n"], st["cache"])
+        out[f"{name}_ms_{bucket}"] = cs.time_ms(pmk.prefill_megakernel,
+                                                [args], iters=5)
+        pmk.check_status(dev)
+        out[f"{name}_ops_bound_ms_{bucket}"] = cs.bounds(
+            0, plan.operations(bucket))["ops_ms"]
+        if bucket in PREFILL_TRACED:
+            trace = torch.zeros(pmk.trace_len(plan), dtype=torch.int64,
+                                device=dev)
+            pmk.prefill_megakernel(*args, trace=trace)
+            torch.cuda.synchronize()
+            # a checkout whose MoE branch ran its experts in batches names
+            # their phases by batch
+            geo = pmk.launch_geometry(plan, dev)
+            extra = (geo["nbatch"],) if "nbatch" in geo else ()
+            out[f"{name}_phases_{bucket}"] = pmk.phase_times(plan, trace,
+                                                             *extra)
+        del st, packed
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_prefill(cs, cfg, params, gen, dev) -> dict:
+    """ms a launch of each TP prefill segment (rank 0, layer 0, a (1, 2)
+    mesh whose ranks share the card, INT8 KV) for each full bucket."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    s = cs.tp_prefill_setup(cfg, params, 2, dev)
+    rt = cs.tp_prefill_rt(2, CacheMode.INT8)
+    plans = tpk.make_tp_prefill_plans(cfg, rt, s["parts"],
+                                      list(PREFILL_BUCKETS), s["tp_plan"])
+    out = {}
+    for bucket, plan in plans.items():
+        st = cs.tp_prefill_inputs(cfg, params, s, plan, CacheMode.INT8,
+                                  bucket, gen, dev)
+        pk, cache = s["packs"][0], st["caches"][0]
+        step = (st["cos"], st["sin"], st["page_row"], st["n"])
+        x = st["x0"].float()
+        add = torch.randn((bucket, plan.hid), generator=gen,
+                          device=dev) * 0.5
+        for seg, fn in (
+                ("attn", lambda: tpk.tp_prefill_attn_segment(
+                    plan, pk, 0, x, *step, cache, add=add)),
+                ("mlp", lambda: tpk.tp_prefill_mlp_segment(
+                    plan, pk, 0, x, st["n"], add=add)),
+                ("lm", lambda: tpk.tp_prefill_lm_segment(
+                    plan, pk, x, st["n"], add=add))):
+            out[f"tp_prefill_{seg}_ms_{bucket}"] = cs.time_ms(fn, [()],
+                                                              iters=10)
+            tpk.check_prefill_status(dev)
+        del st
+        torch.cuda.empty_cache()
     return out
 
 
@@ -253,19 +327,20 @@ def _one(root: str, build_only: bool, mode: str) -> None:
                                              "phases", "bytes_ms")}
         print("AB", json.dumps(out), flush=True)
         return
-    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
     out = {"root": root}
-    for bucket in PREFILL_BUCKETS:
-        plan, packed = cs.pmk_plan_pack(cfg, params, bucket, CacheMode.INT8)
-        st = cs.pmk_inputs(cfg, params, plan, CacheMode.INT8, bucket, gen,
-                           dev)
-        args = (plan, packed, st["x0"], st["cos"], st["sin"],
-                st["page_row"], st["n"], st["cache"])
-        out[f"ms_{bucket}"] = cs.time_ms(pmk.prefill_megakernel, [args],
-                                         iters=5)
-        pmk.check_status(dev)
-        del st, packed
-        torch.cuda.empty_cache()
+    out.update(_prefill(cs, "u4", cfg, params, gen, dev))
+    out.update(_tp_prefill(cs, cfg, params, gen, dev))
+    embed = params["embed_tokens"]
+    del params
+    torch.cuda.empty_cache()
+    i8 = cs.random_qwen2_7b_params(cs.SEED + 1, dev, stream="i8")
+    i8["embed_tokens"] = embed
+    out.update(_prefill(cs, "i8", cfg, i8, gen, dev))
+    del i8, embed
+    torch.cuda.empty_cache()
+    mcfg = cs.moe_config()
+    out.update(_prefill(cs, "moe_u4", mcfg, cs.random_moe_params(
+        mcfg, cs.SEED + 13, dev), gen, dev))
     print("AB", json.dumps(out), flush=True)
 
 

@@ -252,8 +252,9 @@ def test_prefill_plan_and_gaps():
 def test_moe_supports_prefill_and_plan():
     """The JAX MoE rules (uniform bits over the experts and over the shared
     expert), the decode plan's MoE fields adopted, the routed operations of
-    a launch (n rows x k experts + the shared expert) against the kernel's
-    dense-over-experts work, and the trace's phases per expert batch."""
+    a launch (n rows x k experts + the router + the shared expert), and the
+    trace's phases of a MoE layer (router, gates, route, the experts over
+    their routed slots, the sum, the shared expert)."""
     cfg, rt, params = _tiny_moe(ps=PS, KH=2, H=2)
     params = quantize_params(params, QuantConfig(mode="a16w4",
                                                  group_size=128))
@@ -276,12 +277,18 @@ def test_moe_supports_prefill_and_plan():
         (4, 2, dplan.rt, dplan.sgu)
     hid, Im, n = 256, 256, 45
     routed = plan.operations(n)
-    dense = plan.dense_expert_operations(n)
-    assert dense - routed == n * 2.0 * 2 * (3 * hid * Im) * (4 - 2)
+    shared = sum(sp.K * sp.Ntot for sp in (plan.sgu, plan.sdn))
+    attn = sum(sp.K * sp.Ntot for sp in (plan.qkv, plan.o))
+    assert routed - plan.operations(0) == n * 2.0 * 2 * (
+        attn + 2 * (3 * hid * Im) + shared + hid * (4 + 1)) + \
+        2.0 * 2 * plan.H * plan.D * (n * (n + 1))
     assert tpmk.cuda_kernel_gaps(plan) == []
-    names = tpmk._phase_names(plan, 2)
-    assert len(names) == 2 * (8 + 3 * 2 + 3) + 2
-    assert tpmk.trace_len(plan) >= 2 * len(names) + 1
+    names = tpmk._phase_names(plan)
+    assert len(names) == 2 * (9 + 4 + 2) + 2
+    assert names[6:15] == ("router", "gates", "route", "expert_gate_up",
+                           "expert_swiglu", "expert_down", "moe_sum",
+                           "shared_swiglu", "shared_down")
+    assert tpmk.trace_len(plan) == 2 * len(names) + 1
 
 
 def test_scratch_is_one_set_that_grows_to_the_largest_plan():
