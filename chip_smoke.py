@@ -2131,7 +2131,9 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
     each prompt row in each layer (`kernel_routing`), and every token, the
     ones the two route differently included, is held to those bounds (the
     rule of the MoE decode check, `forced_routing_check`); the tokens
-    routed differently are counted and read, not capped."""
+    routed differently are counted and read, not capped, and each must be
+    a near-tie of the plain version's router logits (gap <= TIE_LOGIT) or
+    ill-conditioned at the layer where it first flips."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
@@ -2146,9 +2148,11 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
     got = pmk.prefill_megakernel(*args, got_cache)
     pmk.check_status(dev)
     routes = {True: [], False: []}
+    norms = []
     ref = pmk.prefill_megakernel_ref(
         *args, ref_cache, bf16_scores=True, routing=routes[True],
-        forced_routing=pmk.kernel_routing(plan, n, dev) if forced else None)
+        forced_routing=pmk.kernel_routing(plan, n, dev) if forced else None,
+        resid_norms=norms)
     ref32 = pmk.prefill_megakernel_ref(*args, ref32_cache,
                                        routing=routes[False])
     torch.cuda.synchronize()
@@ -2160,13 +2164,22 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
     flips, last_flipped, last32_flipped = [], False, False
     written = prompt_written(before, st["pages"], n, L, range(L), dev)
     check(int(written.sum()) == n * L, f"{what}: written mask")
-    exempt, planted, budget = None, None, None
+    exempt, planted, budget, ill_tok = None, None, None, None
     if plan.E:
         valid = torch.arange(plan.S, device=dev) < n
         budget = max(MAX_FLIPPED_ROWS, int(MAX_FLIPPED_SHARE * n))
+        # forced: every flipped token is held where it first flips, a
+        # near-tie of the plain version's router or ill-conditioned there
+        # (its residual RMS entering the layer below ILL_NORM_SHARE of the
+        # prompt's median, past layer 0: forced_routing_check's rule)
+        share = torch.stack(norms)                               # [L, S]
+        ill_tok = share / share[:, :n].median(1).values[:, None] < \
+            ILL_NORM_SHARE
+        ill_tok[0] = False
         flips = flipped_rows(plan, pmk.kernel_gates(plan, dev) > 0,
                              routes[True], valid, what,
-                             None if forced else budget)
+                             n if forced else budget,
+                             ill=ill_tok if forced else None)
         planted = planted_router_fault(plan, routes[True], valid, what,
                                        budget, SEED + n)
         # the plain version with the TPU kernel's f32 score operands
@@ -2212,7 +2225,10 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
              + (" incl. the last: its logits not held" if last_flipped
                 else "")
              + (" (the plain version routed as the kernel: every token "
-                "held)" if forced else "")
+                "held; each flip a near-tie or ill-conditioned where it "
+                f"first flips, ill-conditioned: "
+                f"{sum(bool(ill_tok[l, t]) for t, l, _ in flips)})"
+                if forced else "")
              + f", by the planted router fault: {planted} (cap {budget})"
              if plan.E else ""), flush=True)
     return dict(stream=stream, mode=mode.value, bucket=bucket, n=n,
@@ -2474,7 +2490,9 @@ def check_prefill_megakernel_moe(cfg, params, dev, details):
     # routed: at this length this random router's near-ties flip more than
     # 5% of the tokens between any tensor-core kernel and the f32 plain
     # version (the every-expert branch too: PERF.md §6), so its tokens
-    # routed otherwise are read, not capped; then a 5-token prompt
+    # routed otherwise are counted, not capped, and each held to be a
+    # near-tie or ill-conditioned where it first flips; then a 5-token
+    # prompt
     cases.append(check_prefill_case(cfg, params, "u4 MoE", CacheMode.INT8,
                                     1024, 1024, gen, dev, forced=True))
     cases.append(check_prefill_case(cfg, params, "u4 MoE", CacheMode.INT8,
@@ -2975,6 +2993,11 @@ def tp_timing(cfg, s, plan1, pack1, c1, step, dev):
                   lambda: tpk.lm_segment_ref(plan, pk, x.clone()),
                   plan.lm.matrix_bytes + B * plan.hid * 4 + B * plan.V * 4,
                   2 * B * plan.lm.K * plan.lm.Ntot)
+    traced = {"attn": (tpk.ATTN_SEG_PHASES, lambda t: tpk.tp_attn_segment(
+        plan, pk, 0, x, *step, cache, trace=t))}
+    if plan.E:
+        traced["moe"] = (tpk.MOE_SEG_PHASES, lambda t: tpk.tp_moe_segment(
+            plan, pk, 0, x, 0, s["st"]["active"], trace=t))
     out = {}
     for name, (fn, plain, nbytes, ops) in segs.items():
         ms = time_ms(fn, [()], iters=20)
@@ -3001,6 +3024,17 @@ def tp_timing(cfg, s, plan1, pack1, c1, step, dev):
                   f": the router, {routed} of the rank's {plan.E} experts, "
                   "the shared slice" if name == "moe" else "") +
               f"), plain {out[name]['plain_ms']:.1f} ms", flush=True)
+        if name in traced:      # block 0's phases in one launch
+            names, run = traced[name]
+            trace = torch.zeros(2 * len(names) + 1, dtype=torch.int64,
+                                device=dev)
+            run(trace)
+            tpk.check_status(plan, dev)
+            out[name]["phases"] = mk.phase_times_of(names, trace)
+            print(f"    phases, ms work+wait (block 0, one traced launch): "
+                  + ", ".join(f"{k} {v['work']:.4f}+{v['wait']:.4f}"
+                              for k, v in out[name]["phases"].items()),
+                  flush=True)
     devices = s["mesh"].devices
     caches = s["caches"]
     tp_ms = time_ms(lambda: tpk.tp_decode(plan, s["packs"], s["x0"], *step,

@@ -115,15 +115,16 @@ __device__ void norm_phase(const Args& a, float* smem) {
 }
 
 // SwiGLU of one (row m, 64-column chunk c) of a gate|up product's partials
-// (`part`: split 0's [B][ntot]; up starts at the gate leaf's padded width)
-// -> chunk c of the down product's x records.
+// (`part`: split 0's [B][ntot], `ksplit` splits; up starts at the gate
+// leaf's padded width) -> chunk c of the down product's x records.
 __device__ __forceinline__ void swiglu_chunk(const Args& a, const Stream& st,
-                                             const float* part, int m, int c,
-                                             uint8_t* rec, int lane) {
+                                             int ksplit, const float* part,
+                                             int m, int c, uint8_t* rec,
+                                             int lane) {
   const int col = c * kChunkK + 2 * lane;
   float g0 = 0.f, g1 = 0.f, u0 = 0.f, u1 = 0.f;
 #pragma unroll 4
-  for (int s = 0; s < st.ksplit; ++s) {
+  for (int s = 0; s < ksplit; ++s) {
     const float* p = part + ((size_t)s * a.B + m) * st.ntot + col;
     const float2 g = __ldcg(reinterpret_cast<const float2*>(p));
     const float2 u = __ldcg(reinterpret_cast<const float2*>(p + st.n[0]));
@@ -143,8 +144,8 @@ __device__ void act_phase(const Args& a) {
   const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int nw = gridDim.x * kWarps;
   for (int it = gw; it < chunks * a.B; it += nw)
-    swiglu_chunk(a, a.st[kGu], a.partial, it / chunks, it % chunks, a.rec,
-                 lane);
+    swiglu_chunk(a, a.st[kGu], a.st[kGu].ksplit, a.partial, it / chunks,
+                 it % chunks, a.rec, lane);
 }
 
 // Merges the attention chunks of each (slot, query head) -> attn_out as
@@ -468,7 +469,7 @@ enum IArg {
   I_NORMS, I_FINAL_NORM, I_QKV_B, I_X0, I_COS, I_SIN, I_PT, I_LENS, I_ACTIVE,
   I_K_POOL, I_V_POOL, I_K_QP, I_V_QP, I_LOGITS, I_RESID, I_REC, I_PARTIAL,
   I_ATT_ML, I_ATT_ACC, I_SSQ, I_BARRIER, I_STATUS, I_LAUNCHES, I_TRACE,
-  I_EPART, I_EREC, I_TOPK_E, I_TOPK_W, I_SGATE,
+  I_EPART, I_EREC, I_TOPK_E, I_TOPK_W, I_SGATE, I_MSPLIT,
   I_B, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXP, I_KV_KIND, I_QL,
   I_NSPLIT, I_SPLIT_LEN, I_MPAD, I_SKIP_ATTN, I_GRID, I_E, I_K_TOP,
   I_NORM_TOPK, I_HAS_SHARED, I_HAS_SGATE, I_SHARED_INTER, I_STREAMS
@@ -507,6 +508,7 @@ inline void fill_args(Args& a, const long long* ia, const double* fa) {
   a.topk_e = ptr<int>(ia[I_TOPK_E]);
   a.topk_w = ptr<float>(ia[I_TOPK_W]);
   a.sgate = ptr<float>(ia[I_SGATE]);
+  a.msplit = ptr<const int>(ia[I_MSPLIT]);
   a.E = (int)ia[I_E];
   a.k_top = (int)ia[I_K_TOP];
   a.norm_topk = (int)ia[I_NORM_TOPK];

@@ -2,8 +2,9 @@
 // with the stream-rate probe (csrc/stream_probe.cu): the argument structs,
 // the x records and `product_phase`, a persistent-grid split-K product of
 // x [B, K] with a u4 / int8 / bf16 weight stream (of one matrix a layer, or
-// of a list of a MoE layer's experts); and `route_row`, the MoE router of
-// one token, shared with the prefill megakernel.
+// of a list of a MoE layer's experts); and `route_top` / `route_row`, the
+// MoE router of one token, shared with the MoE phases (di_moe_layer.cuh)
+// and the prefill megakernel.
 
 #pragma once
 
@@ -18,6 +19,11 @@ constexpr int kD = 128;                   // head_dim
 constexpr int kDPL = 4;                   // head dims per lane
 constexpr int kMaxLanes = 512;            // MoE router lanes (experts + 1)
 constexpr int kMaxTopk = 8;               // experts a token
+// An entry of a MoE split table (Args::msplit), one per routed count: the
+// K split (splits, chunks a split) of the experts' gate|up, of the
+// experts' down and of the shared expert's down
+enum MoeSplit { kGuKs, kGuCps, kDnKs, kDnCps, kSdnKs, kSdnCps,
+                kMoeSplitArgs = 8 };
 
 // Streams: a dense model's q|k|v, o, gate|up, down and lm_head; a MoE
 // model's gate|up and down are its experts' (kGu, kDn), with its router
@@ -42,6 +48,16 @@ struct Stream {
   int nvalid;              // columns of it written back: the prefill
                            // kernel's logits (a vocab's width); the decode
                            // product writes every padded column
+};
+
+// One stream's share of a grouped product phase (product_phase).
+struct Part {
+  const Stream* st;
+  const uint8_t* rec;      // x records of expert 0
+  float* out;              // output of expert 0, split 0
+  const int* experts;      // the groups' experts, or null: one, expert 0
+  size_t rec_gs, out_gs;   // bytes / floats between experts'
+  int ngroups, ksplit, cps;
 };
 
 struct Args {
@@ -75,6 +91,9 @@ struct Args {
   int* topk_e;               // MoE: [L][B][kMaxTopk] routed experts, ascending
   float* topk_w;             // MoE: [L][B][kMaxTopk] their gates
   float* sgate;              // MoE: [L][B] the shared expert's gate
+  const int* msplit;         // MoE: [routed count 0..E][kMoeSplitArgs], the
+                             // K splits of that many routed experts' phases
+                             // (ops/tp_megakernel.py `moe_split_table`)
   int B, L, hid, H, KH, inter, V, ps, maxP, kv_kind, ql, nsplit, split_len,
       mpad, skip_attn;
   int E, k_top, norm_topk, has_shared, has_sgate, shared_inter;
@@ -210,16 +229,24 @@ __device__ __forceinline__ void u4x2_to_bf16x2(uint32_t w, uint32_t& lo,
 // end, behind the async-proxy fence, so every phase of a persistent launch
 // (and every graph replay) starts them at parity 0.
 //
-// GROUPED: an expert stream, the product of each expert of `experts`
-// (ngroups of them): expert e's weights, its x records at rec + e * rec_gs
-// bytes and its output at out + e * out_gs floats. The dense instantiation
-// folds all of that away (a MoE model's products run in a separate
-// function, so that they add nothing to the dense products' registers).
+// GROUPED: the products of a MoE layer's `parts` (one or two streams of
+// one payload format: its routed experts' and its shared expert's), dealt
+// as ONE item space over blocks first .. gridDim.x - 1: part 0's items,
+// then part 1's, item i going to block first + i % (gridDim.x - first)
+// (blocks below `first` have other work). A part's items are (group, pass,
+// tile, split), its groups the experts of `experts` (expert e's weights,
+// its x records at rec + e * rec_gs bytes, its output at out + e * out_gs
+// floats; no list: one group, expert 0), its K split `ksplit` x `cps`
+// chunks (a split count the caller chose for this step's routing, up to
+// the stream's own, which sets the strides of its output). So each block
+// starts and drains its ring once a phase, whatever the parts. The dense
+// instantiation folds all of that away (a MoE model's products run in a
+// separate function, so that they add nothing to the dense products'
+// registers).
 template <int BITS, int MT, bool GROUPED>
 __device__ __forceinline__ void product_phase(
     const Args& a, const Stream& st, int layer, float* out, uint8_t* smem,
-    const uint8_t* rec_base, const int* experts, int ngroups, size_t rec_gs,
-    size_t out_gs) {
+    const Part* parts, int nparts, int first) {
   using T = Tile<BITS>;
   using R = Ring<BITS, MT>;
   constexpr int kStages = T::kStages;
@@ -235,7 +262,17 @@ __device__ __forceinline__ void product_phase(
   const int passes = a.mpad / kRows;
   const int tiles = st.tile0[st.nleaf];
   const int per_group = passes * tiles * st.ksplit;
-  const int n_items = GROUPED ? per_group * ngroups : per_group;
+  auto part_items = [&](const Part& p) {
+    return passes * p.st->tile0[p.st->nleaf] * p.ksplit * p.ngroups;
+  };
+  const int n_items0 = GROUPED ? part_items(parts[0]) : per_group;
+  const int n_items =
+      GROUPED && nparts > 1 ? n_items0 + part_items(parts[1]) : n_items0;
+  // the block's first item (none: n_items) and the blocks items go round
+  const int nb = GROUPED ? (int)gridDim.x - first : (int)gridDim.x;
+  const int b0 = GROUPED && (int)blockIdx.x < first
+                     ? n_items
+                     : (int)blockIdx.x - (GROUPED ? first : 0);
   const int rbytes = rec_bytes(a.mpad);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::kBarOff);
   uint64_t* empty = full + kStages;
@@ -246,7 +283,7 @@ __device__ __forceinline__ void product_phase(
     const float* s;       // scale / zero of the item's tile, group row 0
     const float* z;
     const uint8_t* rec;   // the item's x records, chunk c0
-    int item, c, nc, m_base, n, g, gl, n_leaf;
+    int item, c, nc, m_base, n, g, gl, n_leaf, cpg;
     int turn;             // issue turns taken (volatile: any warp's)
   };
   Cursor* cur = reinterpret_cast<Cursor*>(smem + R::kCursorOff);
@@ -260,33 +297,49 @@ __device__ __forceinline__ void product_phase(
     const float* s;       // the tile's first column of the leaf's scale
     const float* z;
     const uint8_t* rec;   // the item's expert's x records (chunk 0)
-    int col_out, split, c0, nc, m_base, e, n_leaf;
+    float* out;           // GROUPED: the item's expert's output (split 0)
+    int col_out, split, c0, nc, m_base, n_leaf, cpg, ldo;
   };
   auto decode = [&](int item) {
     Item it;
-    const int e = GROUPED ? experts[item / per_group] : 0;
-    if (GROUPED) item %= per_group;
-    const int split = item % st.ksplit;
-    const int t = (item / st.ksplit) % tiles;
-    const int pass = item / (st.ksplit * tiles);
-    const int leaf = (st.nleaf > 1 && t >= st.tile0[1]) +
-                     (st.nleaf > 2 && t >= st.tile0[2]);
-    const int lt = t - st.tile0[leaf];
-    it.w = st.w[leaf] + (size_t)layer * st.w_ls[leaf] +
-           (size_t)e * st.e_ls[leaf] +
-           (size_t)lt * chunks_total * T::kChunkBytes;
-    const size_t qoff = (size_t)layer * st.q_ls[leaf] +
-                        (size_t)e * st.qe_ls[leaf] + (size_t)lt * 256;
-    it.s = BITS == 16 ? nullptr : st.s[leaf] + qoff;
-    it.z = BITS == 16 ? nullptr : st.z[leaf] + qoff;
-    it.e = e;
+    const Part* P = parts;
+    if (GROUPED && nparts > 1 && item >= n_items0) {
+      P = parts + 1;
+      item -= n_items0;
+    }
+    const Stream& ps = GROUPED ? *P->st : st;
+    const int ks = GROUPED ? P->ksplit : st.ksplit;
+    const int cps = GROUPED ? P->cps : st.cps;
+    const int ct = GROUPED ? ps.K / kChunkK : chunks_total;
+    const int tl = GROUPED ? ps.tile0[ps.nleaf] : tiles;
+    int e = 0;
+    if (GROUPED) {
+      const int pg = passes * tl * ks;
+      if (P->experts != nullptr) e = P->experts[item / pg];
+      item %= pg;
+    }
+    const int split = item % ks;
+    const int t = (item / ks) % tl;
+    const int pass = item / (ks * tl);
+    const int leaf = (ps.nleaf > 1 && t >= ps.tile0[1]) +
+                     (ps.nleaf > 2 && t >= ps.tile0[2]);
+    const int lt = t - ps.tile0[leaf];
+    it.w = ps.w[leaf] + (size_t)layer * ps.w_ls[leaf] +
+           (size_t)e * ps.e_ls[leaf] + (size_t)lt * ct * T::kChunkBytes;
+    const size_t qoff = (size_t)layer * ps.q_ls[leaf] +
+                        (size_t)e * ps.qe_ls[leaf] + (size_t)lt * 256;
+    it.s = BITS == 16 ? nullptr : ps.s[leaf] + qoff;
+    it.z = BITS == 16 ? nullptr : ps.z[leaf] + qoff;
     it.col_out = t * 256;
     it.split = split;
-    it.c0 = split * st.cps;
-    it.nc = min(st.cps, chunks_total - it.c0);
+    it.c0 = split * cps;
+    it.nc = min(cps, ct - it.c0);
     it.m_base = pass * kRows;
-    it.rec = GROUPED ? rec_base + (size_t)e * rec_gs : a.rec;
-    it.n_leaf = st.n[leaf];
+    it.rec = GROUPED ? P->rec + (size_t)e * P->rec_gs : a.rec;
+    it.out = GROUPED ? P->out + (size_t)e * P->out_gs : out;
+    it.n_leaf = ps.n[leaf];
+    it.cpg = GROUPED ? ps.K / ps.G / kChunkK : cpg;
+    it.ldo = ps.ldo;
     return it;
   };
 
@@ -297,7 +350,7 @@ __device__ __forceinline__ void product_phase(
       mbar_init(empty + s, kWarps);
     }
     fence_mbar_init();
-    cur->item = blockIdx.x - gridDim.x;
+    cur->item = b0 - nb;
     cur->n = 0;
     cur->c = cur->nc = 0;    // the first issue moves to item blockIdx.x
     cur->turn = 0;
@@ -336,7 +389,7 @@ __device__ __forceinline__ void product_phase(
                 ((n - T::kLag) / kStages) & 1, a.status);
     Cursor& cu = *cur;
     if (cu.c == cu.nc) {                  // the next item
-      cu.item += gridDim.x;
+      cu.item += nb;
       if (cu.item >= n_items) {
         cu.c = cu.nc = 0;
         __threadfence_block();
@@ -351,8 +404,9 @@ __device__ __forceinline__ void product_phase(
       cu.c = 0;
       cu.nc = it.nc;
       cu.m_base = it.m_base;
-      cu.g = it.c0 / cpg;
-      cu.gl = cpg - it.c0 % cpg;
+      cu.g = it.c0 / it.cpg;
+      cu.gl = it.cpg - it.c0 % it.cpg;
+      cu.cpg = it.cpg;
       cu.n_leaf = it.n_leaf;
     }
     const int ld_n = cu.n;                // chunks issued before
@@ -384,7 +438,7 @@ __device__ __forceinline__ void product_phase(
     cu.n = ld_n + 1;
     if (cu.gl == 1) {
       ++cu.g;
-      cu.gl = cpg;
+      cu.gl = GROUPED ? cu.cpg : cpg;
     } else {
       --cu.gl;
     }
@@ -406,11 +460,11 @@ __device__ __forceinline__ void product_phase(
   }
 
   int n = 0;                              // chunks consumed
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+  for (int item = b0; item < n_items; item += nb) {
     const Item it = decode(item);
     // n8 tiles of this pass that hold a row < B (warp-uniform)
     const int live = min(kNT, (a.B - it.m_base + 7) >> 3);
-    int g_left = cpg - it.c0 % cpg;       // chunks left in the group
+    int g_left = it.cpg - it.c0 % it.cpg; // chunks left in the group
     for (int c = 0; c < it.nc; ++c, ++n) {
       const int buf = n % kStages;
       if (ring) {
@@ -526,9 +580,8 @@ __device__ __forceinline__ void product_phase(
         if (lane == 0) mbar_arrive(empty + buf);
       }
       if (last && affine) {
-        float* o = out + (size_t)it.e * out_gs +
-                   (size_t)it.split * a.B * st.ldo + it.col_out + 16 * warp +
-                   gid;
+        float* o = it.out + (size_t)it.split * a.B * it.ldo + it.col_out +
+                   16 * warp + gid;
 #pragma unroll
         for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -537,13 +590,13 @@ __device__ __forceinline__ void product_phase(
             for (int i = 0; i < 4; ++i) {
               const int m = it.m_base + 8 * r + 2 * tig + (i & 1);
               if (m < a.B)
-                o[(size_t)m * st.ldo + 128 * h + 8 * (i >> 1)] =
+                o[(size_t)m * it.ldo + 128 * h + 8 * (i >> 1)] =
                     acc[h][r][i];
               acc[h][r][i] = 0.f;
             }
       }
       if (group_end)
-        g_left = cpg;
+        g_left = it.cpg;
       else
         --g_left;
     }
@@ -566,81 +619,84 @@ __device__ void product(const Args& a, int sid, int layer, float* out,
                         uint8_t* smem) {
   const Stream& st = a.st[sid];
   if (st.bits == 4)
-    product_phase<4, MT, false>(a, st, layer, out, smem, nullptr, nullptr, 1,
-                                0, 0);
+    product_phase<4, MT, false>(a, st, layer, out, smem, nullptr, 1, 0);
   else if (st.bits == 8)
-    product_phase<8, MT, false>(a, st, layer, out, smem, nullptr, nullptr, 1,
-                                0, 0);
+    product_phase<8, MT, false>(a, st, layer, out, smem, nullptr, 1, 0);
   else
-    product_phase<16, MT, false>(a, st, layer, out, smem, nullptr, nullptr,
-                                 1, 0, 0);
+    product_phase<16, MT, false>(a, st, layer, out, smem, nullptr, 1, 0);
 }
 
-// The experts of `experts` (a MoE stream), in a function of its own.
+// A MoE layer's `parts` (one payload format) as one item space over blocks
+// `first` on, in a function of its own.
 template <int MT>
-__device__ __noinline__ void product_experts(const Args& a, int sid,
-                                             int layer, float* out,
-                                             uint8_t* smem,
-                                             const uint8_t* rec,
-                                             const int* experts, int ngroups,
-                                             size_t rec_gs, size_t out_gs) {
-  const Stream& st = a.st[sid];
+__device__ __noinline__ void product_parts(const Args& a, int layer,
+                                           const Part* parts, int nparts,
+                                           int first, uint8_t* smem) {
+  const Stream& st = *parts[0].st;
   if (st.bits == 4)
-    product_phase<4, MT, true>(a, st, layer, out, smem, rec, experts,
-                               ngroups, rec_gs, out_gs);
+    product_phase<4, MT, true>(a, st, layer, nullptr, smem, parts, nparts,
+                               first);
   else if (st.bits == 8)
-    product_phase<8, MT, true>(a, st, layer, out, smem, rec, experts,
-                               ngroups, rec_gs, out_gs);
+    product_phase<8, MT, true>(a, st, layer, nullptr, smem, parts, nparts,
+                               first);
   else
-    product_phase<16, MT, true>(a, st, layer, out, smem, rec, experts,
-                                ngroups, rec_gs, out_gs);
+    product_phase<16, MT, true>(a, st, layer, nullptr, smem, parts, nparts,
+                                first);
+}
+
+// Lane e of a router product's `ksplit` K-split partials (`src`: the row's
+// split 0), summed in split order with eight loads in flight.
+__device__ __forceinline__ float split_sum(const float* src, int ksplit,
+                                           size_t split_stride, int e) {
+  float v = 0.f;
+  for (int s = 0; s < ksplit; s += 8) {
+    float p[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      p[q] = s + q < ksplit ? __ldcg(src + (size_t)(s + q) * split_stride + e)
+                            : 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v += p[q];
+  }
+  return v;
 }
 
 // The MoE router of one token, run by one warp, from its router product's
-// E (+ the shared gate's) lanes, lane + 32 j of this lane in lg[j]:
-// softmax over the E lanes, k rounds of max choosing the lowest lane on
-// ties, optional renormalisation (the TPU kernel's router phase). Gives the
-// chosen experts in ascending order with their gates, and the shared
-// expert's gate: sigmoid of lane E, or 1 without a gate column, or 0
+// E (+ the shared gate's) lanes in shared memory (`lg`, which it overwrites
+// with the softmax; every lane of the warp must see them): softmax over the
+// E lanes, k rounds of max choosing the lowest lane on ties, optional
+// renormalisation (the TPU kernel's router phase), in loops over the lanes
+// (a few hundred instructions on a path each layer runs once). Gives every
+// lane the chosen experts in ascending order with their gates, and the
+// shared expert's gate: sigmoid of lane E, or 1 without a gate column, or 0
 // without a shared expert.
-constexpr int kRoutePer = kMaxLanes / 32;
-__device__ __forceinline__ void route_top(const float (&lg)[kRoutePer], int E,
-                                          int k, int norm, int has_shared,
-                                          int has_sgate,
+__device__ __forceinline__ void route_top(float* lg, int E, int k, int norm,
+                                          int has_shared, int has_sgate,
                                           int (&idx)[kMaxTopk],
                                           float (&w)[kMaxTopk], float& sg) {
-  constexpr int kPer = kRoutePer;
   const int lane = threadIdx.x & 31;
   float mx = -FLT_MAX;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-    if (lane + 32 * j < E) mx = fmaxf(mx, lg[j]);
+  for (int e = lane; e < E; e += 32) mx = fmaxf(mx, lg[e]);
   mx = warp_max(mx);
-  float p[kPer], sum = 0.f, sv = 0.f;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int e = lane + 32 * j;
-    p[j] = e < E ? expf(lg[j] - mx) : 0.f;
-    sum += p[j];
-    if (e == E) sv = lg[j];
-  }
+  float sum = 0.f;
+  for (int e = lane; e < E; e += 32) sum += expf(lg[e] - mx);
   sum = warp_sum(sum);
-  sv = warp_sum(sv);
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) p[j] /= sum;
+  const float sv = warp_sum(lane == (E & 31) && has_sgate ? lg[E] : 0.f);
+  for (int e = lane; e < E; e += 32) lg[e] = expf(lg[e] - mx) / sum;
   unsigned taken = 0;
   float tot = 0.f;
-  for (int r = 0; r < kMaxTopk; ++r) {
-    idx[r] = 0x7fffffff;
-    w[r] = 0.f;
-    if (r >= k) continue;
+#pragma unroll
+  for (int q = 0; q < kMaxTopk; ++q) {
+    idx[q] = 0x7fffffff;
+    w[q] = 0.f;
+  }
+  for (int q = 0; q < k; ++q) {
     float best = -1.f;
     int bi = 0x7fffffff;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      if (lane + 32 * j < E && !((taken >> j) & 1u) && p[j] > best) {
-        best = p[j];
-        bi = lane + 32 * j;
+    for (int e = lane, j = 0; e < E; e += 32, ++j)
+      if (!((taken >> j) & 1u) && lg[e] > best) {
+        best = lg[e];
+        bi = e;
       }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -651,56 +707,40 @@ __device__ __forceinline__ void route_top(const float (&lg)[kRoutePer], int E,
         bi = oi;
       }
     }
-    idx[r] = bi;
-    w[r] = best;
+    idx[q] = bi;
+    w[q] = best;
     tot += best;
     if (bi < E && (bi & 31) == lane) taken |= 1u << (bi >> 5);
   }
   if (norm)
-    for (int r = 0; r < k; ++r) w[r] /= tot;
+    for (int q = 0; q < k; ++q) w[q] /= tot;
   // ascending expert order: the order of the sums that use them
-  for (int r = 1; r < k; ++r)
-    for (int q = r; q > 0 && idx[q - 1] > idx[q]; --q) {
-      const int ti = idx[q];
-      idx[q] = idx[q - 1];
-      idx[q - 1] = ti;
-      const float tw = w[q];
-      w[q] = w[q - 1];
-      w[q - 1] = tw;
+  for (int q = 1; q < k; ++q)
+    for (int j = q; j > 0 && idx[j - 1] > idx[j]; --j) {
+      const int ti = idx[j];
+      idx[j] = idx[j - 1];
+      idx[j - 1] = ti;
+      const float tw = w[j];
+      w[j] = w[j - 1];
+      w[j - 1] = tw;
     }
   sg = !has_shared ? 0.f : (has_sgate ? 1.0f / (1.0f + expf(-sv)) : 1.0f);
 }
 
 // route_top of one token whose router product is `ksplit` K-split partials
-// (`src`: the token's row of split 0), summed a lane by this warp.
+// (`src`: the token's row of split 0), summed a lane by this warp into its
+// own kMaxLanes floats of shared memory (`lg`).
 __device__ __noinline__ void route_row(const float* src, int ksplit,
-                                          size_t split_stride, int E, int k,
-                                          int norm, int has_shared,
-                                          int has_sgate, int (&idx)[kMaxTopk],
-                                          float (&w)[kMaxTopk], float& sg) {
-  const int lane = threadIdx.x & 31;
+                                       size_t split_stride, float* lg, int E,
+                                       int k, int norm, int has_shared,
+                                       int has_sgate, int (&idx)[kMaxTopk],
+                                       float (&w)[kMaxTopk], float& sg) {
   const int lanes = E + has_sgate;
-  float lg[kRoutePer];
-#pragma unroll
-  for (int j = 0; j < kRoutePer; ++j) {
-    const int e = lane + 32 * j;
-    float v = 0.f;
-    if (e < lanes) {
-      // eight splits' loads are issued before the first is added
-      for (int s = 0; s < ksplit; s += 8) {
-        float p[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          p[q] = s + q < ksplit
-                     ? __ldcg(src + (size_t)(s + q) * split_stride + e)
-                     : 0.f;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) v += p[q];
-      }
-    }
-    lg[j] = v;
-  }
+  for (int e = threadIdx.x & 31; e < lanes; e += 32)
+    lg[e] = split_sum(src, ksplit, split_stride, e);
+  __syncwarp();
   route_top(lg, E, k, norm, has_shared, has_sgate, idx, w, sg);
+  __syncwarp();
 }
 
 template <typename T>

@@ -72,11 +72,14 @@
 // router's K splits; one warp then takes the softmax over the E lanes, the
 // top-k and the shared expert's sigmoid gate: `route_top`), then
 // gate|up, SwiGLU and down each as ONE phase over all routed experts and
-// the shared expert: 13 barriers a layer. The TPU kernel streams every
-// expert each step and multiplies the unrouted ones by 0; here each block
-// lists the experts that some active row routes to (from the gates phase's
-// top-k, in ascending order) and the products' items run over those alone,
-// which computes the same function and reads ~25 of 60 experts at B = 8.
+// the shared expert (the experts' K splits static, the shared expert's
+// products after the experts' in each block: the TP moe segment's schedule
+// measured slower here at B = 8), 13 barriers a layer. The TPU kernel
+// streams every expert each step and multiplies the unrouted ones by 0;
+// here each block lists the experts that some active row routes to (from
+// the gates phase's top-k, in ascending order) and the products' items run
+// over those alone, which computes the same function and reads ~25 of 60
+// experts at B = 8.
 // The next resid phase adds, per row, its experts' down products times their
 // gates in ascending expert order, then the shared expert's times its gate.
 // With a trace buffer, block
@@ -110,7 +113,7 @@ mk_kernel(const __grid_constant__ Args a) {
   int phase = 0;
   for (int l = 0; l < a.L; ++l) {
     if (MOE && l > 0)
-      moe_resid_phase(a, a.partial, mlp_ksplit, l - 1,
+      moe_resid_phase(a, a.partial, mlp_ksplit, a.st[kDn].ksplit, l - 1,
                       a.norms + (size_t)(2 * l) * hid, fsmem);
     else
       resid_phase(a, a.partial, mlp_ksplit, l == 0,
@@ -149,21 +152,22 @@ mk_kernel(const __grid_constant__ Args a) {
       grid_barrier(a, phase++);
       const int nused = routed_experts(a, l, s_experts, s_flags, &s_nused);
       const Stream& eg = a.st[kGu];
-      product_experts<MT>(a, kGu, l, a.epart, smem, a.rec, s_experts, nused,
-                          0, (size_t)eg.ksplit * a.B * eg.ntot);
+      const Stream& ed = a.st[kDn];
+      moe_experts_product<MT>(a, kGu, l, s_experts, nused, eg.ksplit, eg.cps,
+                              smem);
       if (a.has_shared) product<MT>(a, kSgu, l, a.partial, smem);
       grid_barrier(a, phase++);
-      moe_act_phase(a, s_experts, nused);
+      moe_act_phase(a, s_experts, nused, eg.ksplit, a.partial);
       grid_barrier(a, phase++);
-      product_experts<MT>(a, kDn, l, a.epart, smem, a.erec, s_experts, nused,
-                          (size_t)(a.inter / kChunkK) * rec_bytes(a.mpad),
-                          (size_t)a.st[kDn].ksplit * a.B * a.hid);
+      moe_experts_product<MT>(a, kDn, l, s_experts, nused, ed.ksplit, ed.cps,
+                              smem);
       if (a.has_shared) product<MT>(a, kSdn, l, a.partial, smem);
       grid_barrier(a, phase++);
     }
   }
   if (MOE)
-    moe_resid_phase(a, a.partial, mlp_ksplit, a.L - 1, a.final_norm, fsmem);
+    moe_resid_phase(a, a.partial, mlp_ksplit, a.st[kDn].ksplit, a.L - 1,
+                    a.final_norm, fsmem);
   else
     resid_phase(a, a.partial, mlp_ksplit, false, a.final_norm, fsmem);
   grid_barrier(a, phase++);

@@ -111,23 +111,25 @@ __device__ __noinline__ void moe_norm_phase(const PArgs& a, int rows,
   norm_rows<true>(a, rows, ksplit, split_stride, false, moe_layer, w, red);
 }
 
-// MoE router: one warp a row, from the router product's K splits -> dense
-// gates [layer][row][EP] (0 where not routed) and the shared gate; a prompt
-// row's experts, ascending, into eidx[row]. Each layer's gates stay in the
-// scratch until the launch ends.
+// MoE router: one warp a row (`route_row`, its router lanes in the warp's
+// kMaxLanes floats of shared memory), from the router product's K splits
+// -> dense gates [layer][row][EP] (0 where not routed) and the shared gate;
+// a prompt row's experts, ascending, into eidx[row]. Each layer's gates
+// stay in the scratch until the launch ends.
 __device__ __noinline__ void gates_phase(const PArgs& a, int rows, int n,
-                                         int layer) {
+                                         int layer, float* smem) {
   float* gates = a.gates + (size_t)layer * a.S * a.EP;
   const Stream& st = a.st[kRt];
   const int lane = threadIdx.x & 31;
   const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int nw = gridDim.x * kWarps;
+  float* lg = smem + (threadIdx.x >> 5) * kMaxLanes;
   for (int row = gw; row < rows; row += nw) {
     int idx[kMaxTopk];
     float w[kMaxTopk], sg;
     route_row(a.partial + (size_t)row * st.ldo, st.ksplit,
-              (size_t)a.S * st.ldo, a.E, a.k_top, a.norm_topk, a.has_shared,
-              a.has_sgate, idx, w, sg);
+              (size_t)a.S * st.ldo, lg, a.E, a.k_top, a.norm_topk,
+              a.has_shared, a.has_sgate, idx, w, sg);
     for (int e = lane; e < a.EP; e += 32) {
       float v = 0.f;
       for (int j = 0; j < a.k_top; ++j)
@@ -321,7 +323,7 @@ pmk_kernel(const __grid_constant__ PArgs a) {
           break;
         case 7:
           if (moe)
-            gates_phase(a, rows, n, l);
+            gates_phase(a, rows, n, l, reinterpret_cast<float*>(smem));
           else
             act_phase(a, a.st[kGu], a.inter, rows);
           break;

@@ -55,6 +55,12 @@
 // the partial (moe: with the gates). The moe segment reads only the routed
 // experts of its group, as the megakernel's MoE branch does, and builds
 // their list on the card (no host sync: the forward stays one CUDA graph).
+// Its phases: resid, norm, the router product, the gates with the shared
+// slice's gate|up beside them (it needs only the norm; the gates take B
+// blocks), the routed experts' gate|up with the K split read from the
+// plan's split table at the routed count the gates left (so 12 routed
+// experts of 30 fill the grid as 30 would), SwiGLU, and the routed
+// experts' downs with the shared slice's as one item space, then the sum.
 // The attn segment's bytes are few (~2.6 us at the card's rate), so its
 // time is set by the launch and its five barriers, not by memory. Its
 // attention phase is the megakernel's page-tiled one (di_attn_tile.cuh):
@@ -122,12 +128,14 @@ __device__ __noinline__ int group_routed_experts(const Args& a, int layer,
 // The moe partial: out[m][i] = the sum over row m's routed experts of the
 // group (ascending global ids, an inactive row's none) of gate x the down
 // product's K splits, then the shared slice's K splits (in `a.partial`,
-// rows hid wide) times the shared gate, as moe_resid_phase adds them.
-__device__ void moe_out_phase(const Args& a, const Seg& g) {
+// rows hid wide) times the shared gate, as moe_resid_phase adds them; `sp`:
+// the step's split table entry.
+__device__ void moe_out_phase(const Args& a, const Seg& g, const int* sp) {
   const size_t route = (size_t)g.layer * a.B;
   const Stream& edn = a.st[kDn];
   const size_t edn_gs = (size_t)edn.ksplit * a.B * a.hid;
-  const int ssplit = a.has_shared ? a.st[kSdn].ksplit : 0;
+  const int eks = sp[kDnKs];
+  const int ssplit = a.has_shared ? sp[kSdnKs] : 0;
   const int n = a.B * a.hid;
   for (int idx = blockIdx.x * kThreads + threadIdx.x; idx < n;
        idx += gridDim.x * kThreads) {
@@ -140,7 +148,7 @@ __device__ void moe_out_phase(const Args& a, const Seg& g) {
         const float gw = __ldcg(a.topk_w + (route + m) * kMaxTopk + j);
         const float* p = a.epart + (size_t)e * edn_gs + (size_t)m * a.hid + i;
         float y = 0.f;
-        for (int s = 0; s < edn.ksplit; ++s)
+        for (int s = 0; s < eks; ++s)
           y += __ldcg(p + (size_t)s * a.B * a.hid);
         acc += gw * y;
       }
@@ -199,23 +207,19 @@ seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
     __shared__ int s_nused;
     product<MT>(a, kRt, l, a.partial, smem);
     grid_barrier(a, phase++);
-    gates_phase(a, l, fsmem);
+    moe_gates_phase<MT>(a, l, smem);
     grid_barrier(a, phase++);
     const int nused =
         group_routed_experts(a, l, g.e0, g.ne, s_experts, s_flags, &s_nused);
-    const Stream& eg = a.st[kGu];
-    product_experts<MT>(a, kGu, l, a.epart, smem, a.rec, s_experts, nused, 0,
-                        (size_t)eg.ksplit * a.B * eg.ntot);
-    if (a.has_shared) product<MT>(a, kSgu, l, a.partial, smem);
+    const int* sp = moe_splits(a, nused);
+    moe_experts_product<MT>(a, kGu, l, s_experts, nused, sp[kGuKs],
+                            sp[kGuCps], smem);
     grid_barrier(a, phase++);
-    moe_act_phase(a, s_experts, nused);
+    moe_act_phase(a, s_experts, nused, sp[kGuKs], shared_gu_partial(a));
     grid_barrier(a, phase++);
-    product_experts<MT>(a, kDn, l, a.epart, smem, a.erec, s_experts, nused,
-                        (size_t)(a.inter / kChunkK) * rec_bytes(a.mpad),
-                        (size_t)a.st[kDn].ksplit * a.B * a.hid);
-    if (a.has_shared) product<MT>(a, kSdn, l, a.partial, smem);
+    moe_down_phase<MT>(a, l, s_experts, nused, sp, smem);
     grid_barrier(a, phase++);
-    moe_out_phase(a, g);
+    moe_out_phase(a, g, sp);
   } else {
     product<MT>(a, kLm, 0, g.out, smem);
   }
@@ -305,7 +309,7 @@ extern "C" int di_tp_segment(int kind, int layer, const long long* ia,
   if (kind == kMoeSeg &&
       (a.E + a.has_sgate > kMaxLanes || a.k_top < 1 || a.k_top > kMaxTopk ||
        a.inter % kChunkK || a.shared_inter % kChunkK || g.e0 < 0 ||
-       g.ne < 1 || g.e0 + g.ne > a.E || a.hid % 256))
+       g.ne < 1 || g.e0 + g.ne > a.E || a.hid % 256 || a.msplit == nullptr))
     return (int)cudaErrorInvalidValue;
   const int grid = (int)ia[I_GRID];
   const int mt = a.mpad > 16 ? 2 : 1;

@@ -179,8 +179,8 @@ def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
                                      device=dev))
         noise = None
         if init.top_k != 1:
-            noise = sampling_ops.gumbel_noise([(init.seed, total_len)], K,
-                                              dev)
+            noise = sampling_ops.gumbel_noise(
+                [(init.seed, total_len)], K, "cpu").to(dev, non_blocking=True)
         out = sampling_ops.sample(
             logits[None], _slot_sampling_params(init, dev), counts[None],
             torch.zeros((1,), dtype=torch.int32, device=dev), noise,
@@ -332,7 +332,9 @@ def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig,
         logits = forward(params, cache, state)
         noise = None
         if any(r is not None for r in noise_rows):
-            noise = sampling_ops.gumbel_noise(noise_rows, K, dev)
+            # drawn on the host while the card runs the forward
+            noise = sampling_ops.gumbel_noise(noise_rows, K, "cpu").to(
+                dev, non_blocking=True)
         out = sampling_ops.sample(
             logits, state.sampling, state.token_counts, state.gen_lens,
             noise, max_top_k=rt.sampler_max_top_k)

@@ -1110,7 +1110,7 @@ _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "pt", "lens",
           "active", "k_pool", "v_pool", "k_qp", "v_qp", "logits", "resid",
           "rec", "partial", "att_ml", "att_acc", "ssq", "barrier", "status",
           "launches", "trace", "epart", "erec", "topk_e", "topk_w", "sgate",
-          "B", "L", "hid", "H", "KH", "inter", "V", "ps", "maxP",
+          "msplit", "B", "L", "hid", "H", "KH", "inter", "V", "ps", "maxP",
           "kv_kind", "ql", "nsplit", "split_len", "mpad", "skip_attn", "grid",
           "E", "k_top", "norm_topk", "has_shared", "has_sgate",
           "shared_inter")
@@ -1140,11 +1140,13 @@ def attention_chunks(B: int, KH: int, max_tokens: int, grid: int
 
 
 def choose_split(tiles: int, chunks: int, chunk_bytes: int, B: int,
-                 passes: int, grid: int) -> Tuple[int, int]:
+                 passes: int, grid: int, extra_items: int = 0
+                 ) -> Tuple[int, int]:
     """K split of one product: (ksplit, chunks per split). Each block walks
     its work items (tile x split x pass) one after the other, so the cost
     of a split is waves x (payload + partial sums written and read back +
-    a fixed per-item share) in bytes on the slowest block."""
+    a fixed per-item share) in bytes on the slowest block; `extra_items`:
+    another product's items dealt in the same phase."""
     best = None
     for ks in range(1, chunks + 1):
         cps = -(-chunks // ks)
@@ -1152,7 +1154,7 @@ def choose_split(tiles: int, chunks: int, chunk_bytes: int, B: int,
             continue
         items = tiles * ks * passes
         per_item = cps * chunk_bytes + 2 * min(B, 32) * 256 * 4 + 24576
-        cost = -(-items // grid) * per_item
+        cost = -(-(items + extra_items) // grid) * per_item
         if best is None or cost < best[0]:
             best = (cost, ks, cps)
     return best[1], best[2]
@@ -1437,6 +1439,7 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
         epart=st.epart.data_ptr(), erec=st.erec.data_ptr(),
         topk_e=st.topk_e.data_ptr(), topk_w=st.topk_w.data_ptr(),
         sgate=st.sgate.data_ptr(),
+        msplit=0,
         B=B, L=plan.L, hid=plan.hid, H=plan.H, KH=plan.KH, inter=plan.inter,
         V=plan.V, ps=plan.ps, maxP=plan.maxP,
         kv_kind=_KV_KIND[plan.kv_dtype_name],

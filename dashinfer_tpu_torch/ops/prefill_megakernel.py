@@ -414,7 +414,8 @@ def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
                            bf16_scores: bool = False,
                            routing: Optional[list] = None,
                            routed: bool = False,
-                           forced_routing: Optional[torch.Tensor] = None
+                           forced_routing: Optional[torch.Tensor] = None,
+                           resid_norms: Optional[list] = None
                            ) -> torch.Tensor:
     """The whole prefill, phase by phase (see `prefill_megakernel`), from
     the layer pieces above. Updates the pool in place; returns logits [V]
@@ -424,7 +425,9 @@ def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
     over the prompt rows' routed slots); `routing`, a list, receives each
     layer's router product; `forced_routing` [L, S, k_top] (expert ids, -1
     for none) routes each layer's rows to these experts instead
-    (`ops.megakernel.moe_ref`'s `forced`)."""
+    (`ops.megakernel.moe_ref`'s `forced`); `resid_norms`, a list, receives
+    the RMS of each row's residual entering each layer ([S] f32 a layer, as
+    `ops.megakernel.decode_megakernel_ref`'s)."""
     inp = PrefillInputs(plan, cos, sin, page_row, n_tokens)
     resid = x0.to(torch.bfloat16).float()
 
@@ -432,6 +435,8 @@ def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
         return _wdeq_dot(x_, packed, sp, l_, e)
 
     for l in range(plan.L):
+        if resid_norms is not None:
+            resid_norms.append(resid.pow(2).mean(-1).sqrt())
         resid = resid + prefill_attention_block_ref(
             plan, packed, l, resid, inp, cache, bf16_scores)
         if plan.E:

@@ -70,7 +70,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -427,8 +427,67 @@ def cuda_kernel_gaps(plan: mk.MegaPlan) -> List[str]:
     """Why csrc/tp_segments.cu cannot run this TP plan (empty = it can):
     the decode megakernel's gaps, but the lm segment takes a vocab shard of
     any even width (64 or 32 mod 128: Qwen1.5's 151936 over 2 or 4
-    ranks)."""
-    return mk.cuda_kernel_gaps(plan, any_lm_width=True)
+    ranks); a MoE plan's expert and shared streams in one payload format
+    (the moe segment deals their downs as one item space)."""
+    gaps = mk.cuda_kernel_gaps(plan, any_lm_width=True)
+    if plan.E and plan.sgu is not None and len(
+            {sp.bits for sp in (plan.gu, plan.dn, plan.sgu, plan.sdn)}) > 1:
+        gaps.append("the experts' and the shared expert's streams in "
+                    "different payload formats")
+    return gaps
+
+
+MOE_SPLIT_ARGS = 8        # integers a routed count (csrc/di_product.cuh
+                          # MoeSplit)
+
+
+def moe_split_table(plan: mk.MegaPlan, B: int, passes: int, grid: int,
+                    shared_down: Optional[Tuple[int, int]]) -> np.ndarray:
+    """The MoE phases' K splits by routed count r = 0 .. plan.E (int32
+    [E + 1, MOE_SPLIT_ARGS], csrc/di_product.cuh `MoeSplit`): the r
+    experts' gate|up, and their downs dealt beside the shared expert's down
+    (`shared_down`: its split, the same at every r, so that a row's shared
+    expert sums alike whatever the batch routes), each `choose_split` over
+    the grid. The kernel reads the entry of the routed count it finds on
+    the card after the gates."""
+    table = np.zeros((plan.E + 1, MOE_SPLIT_ARGS), np.int32)
+    chunk_bytes = mk.CHUNK_K * 256 * plan.gu.bits // 8
+    gu = (plan.gu.Nptot // 256, plan.gu.K // mk.CHUNK_K)
+    dn = (plan.dn.Nptot // 256, plan.dn.K // mk.CHUNK_K)
+    s_items = 0 if shared_down is None else \
+        passes * (plan.sdn.Nptot // 256) * shared_down[0]
+    for r in range(plan.E + 1):
+        table[r, :2] = mk.choose_split(r * gu[0], gu[1], chunk_bytes, B,
+                                       passes, grid)
+        table[r, 2:4] = mk.choose_split(r * dn[0], dn[1], chunk_bytes, B,
+                                        passes, grid, s_items)
+        if shared_down is not None:
+            table[r, 4:6] = shared_down
+    return table
+
+
+def moe_launch_splits(plan: mk.MegaPlan, B: int, passes: int, grid: int,
+                      splits: Dict) -> np.ndarray:
+    """A MoE plan's K splits by routed count (`moe_split_table`, which it
+    returns); `splits` holds every stream's static split already (the
+    router's, the shared expert's), and the expert streams take their
+    largest of the table (the strides of their partial sums)."""
+    table = moe_split_table(plan, B, passes, grid, splits.get("sdn"))
+    for name, col in (("gu", 0), ("dn", 2)):
+        ks = int(table[:, col].max())
+        splits[name] = (ks, -(-(getattr(plan, name).K // mk.CHUNK_K) // ks))
+    return table
+
+
+def moe_partial_floats(plan: mk.MegaPlan, B: int, splits: Dict) -> int:
+    """Floats of the split-K partial scratch a MoE plan's phases need
+    beyond the dense streams': the router's partials and the shared
+    expert's gate|up partials after them (the gates read the one while the
+    other is written)."""
+    if plan.sgu is None:
+        return 0
+    return B * (splits["rt"][0] * plan.rt.Nptot +
+                splits["sgu"][0] * plan.sgu.Nptot)
 
 
 class _Launch:
@@ -457,15 +516,17 @@ class _Launch:
             raise RuntimeError("tp segments: a kernel does not fit on the "
                                "device (occupancy query gave 0)")
         passes = self.mpad // (16 if self.mpad == 16 else 32)
-        # an expert stream's items are spread over the rank's experts that
-        # a step routes to: at most E, at most B * k
-        routed = min(plan.E, B * plan.k_top)
         self.splits = {"lm": (1, plan.lm.K // mk.CHUNK_K)}
         for sp in plan.layer_streams:
             self.splits[sp.name] = mk.choose_split(
-                sp.Nptot // 256 * (routed if sp.E else 1), sp.K // mk.CHUNK_K,
+                sp.Nptot // 256, sp.K // mk.CHUNK_K,
                 mk.CHUNK_K * 256 * sp.bits // 8, B, passes,
                 self.grid[_stream_kind(plan, sp.name)])
+        # a MoE plan: the rank's experts' splits by the routed count of the
+        # step
+        self.moe_table = moe_launch_splits(
+            plan, B, passes, self.grid["moe"], self.splits) if plan.E \
+            else None
         self.nsplit, self.split_len = mk.attention_chunks(
             B, plan.KH, plan.maxP * plan.ps, self.grid["attn"])
 
@@ -475,9 +536,12 @@ class _Launch:
         kmax = max(sp.K for sp in plan.streams)
         self.rec = zeros((kmax // mk.CHUNK_K) * self.mpad *
                          (mk.CHUNK_K * 2 + 4), torch.uint8)
-        self.partial = zeros(max(self.splits[sp.name][0] * B * sp.Nptot
-                                 for sp in plan.layer_streams if not sp.E),
-                             torch.float32)
+        self.partial = zeros(max(
+            [self.splits[sp.name][0] * B * sp.Nptot
+             for sp in plan.layer_streams if not sp.E] +
+            [moe_partial_floats(plan, B, self.splits)]), torch.float32)
+        self.msplit = None if plan.E == 0 else torch.from_numpy(
+            self.moe_table.reshape(-1)).to(dev)
         # a MoE plan: the rank's experts' partial sums [E][split][B][N] and
         # down x records (as the decode megakernel's), and each rank's
         # routing record [rank][L][B][top-k] (global expert ids, ascending;
@@ -539,7 +603,9 @@ def launch_geometry(plan: mk.MegaPlan, device) -> Dict:
     """Grids, K splits and attention chunks of this plan's launches."""
     st = _launch_state(plan, mk._indexed(device))
     return dict(grid=dict(st.grid), mpad=st.mpad, splits=dict(st.splits),
-                nsplit=st.nsplit, split_len=st.split_len)
+                nsplit=st.nsplit, split_len=st.split_len,
+                moe_splits=None if st.moe_table is None
+                else st.moe_table.tolist())
 
 
 def _expect(who: str, name: str, t: torch.Tensor, dt, shape, dev) -> None:
@@ -622,6 +688,7 @@ def _launch(kind: str, plan: mk.MegaPlan, packed: Dict, layer: int,
             topk_e=st.topk_e[rank * rec:].data_ptr(),
             topk_w=st.topk_w[rank * rec:].data_ptr(),
             sgate=st.sgate[rank * plan.L * B:].data_ptr(),
+            msplit=st.msplit.data_ptr(),
             E=plan.E_global, k_top=plan.k_top,
             norm_topk=int(plan.norm_topk), has_shared=int(plan.has_shared),
             has_sgate=int(plan.has_shared_gate),
@@ -649,6 +716,20 @@ def _check_device(who: str, x: torch.Tensor) -> None:
 # the attn segment's phases, each followed by a grid barrier (its last
 # phase, the sum of the o product's splits, is not)
 ATTN_SEG_PHASES = ("resid", "norm", "qkv", "attention", "merge", "o")
+# the moe segment's, likewise (its last phase, the gated sum into the
+# partial, is not traced)
+MOE_SEG_PHASES = ("resid", "norm", "router", "gates", "gate_up", "swiglu",
+                  "down")
+
+
+def _check_trace(who: str, names, trace: Optional[torch.Tensor],
+                 dev: torch.device) -> None:
+    if trace is not None and (
+            trace.dtype != torch.int64 or trace.device != dev or
+            trace.numel() < 2 * len(names) + 1 or
+            not trace.is_contiguous()):
+        raise ValueError(f"{who}: trace must be contiguous int64 "
+                         f"[{2 * len(names) + 1}] on {dev}")
 
 
 def tp_attn_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
@@ -674,12 +755,7 @@ def tp_attn_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
     _check_device("tp_attn_segment", x)
     out = torch.empty((plan.B, plan.hid), dtype=torch.float32,
                       device=x.device)
-    if trace is not None and (
-            trace.dtype != torch.int64 or trace.device != x.device or
-            trace.numel() < 2 * len(ATTN_SEG_PHASES) + 1 or
-            not trace.is_contiguous()):
-        raise ValueError("tp_attn_segment: trace must be contiguous int64 "
-                         f"[{2 * len(ATTN_SEG_PHASES) + 1}] on {x.device}")
+    _check_trace("tp_attn_segment", ATTN_SEG_PHASES, trace, x.device)
     _launch("attn", plan, packed, layer, x, add, out,
             tp_attn_segment.counter, trace=trace, cos=cos, sin=sin,
             page_tables=page_tables, lens=lens, active=active, cache=cache)
@@ -716,7 +792,8 @@ def tp_lm_segment(plan: mk.MegaPlan, packed: Dict, x: torch.Tensor,
 
 def tp_moe_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
                    x: torch.Tensor, rank: int, active: torch.Tensor,
-                   add: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   add: Optional[torch.Tensor] = None,
+                   trace: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One MoE layer's MLP segment of rank `rank` (the TPU kernel's
     `build_moe_mlp_segment`): x += add, RMSNorm, the global router over
     all E_global experts (softmax, top-k, renormalisation, the shared
@@ -725,15 +802,18 @@ def tp_moe_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
     their experts of the rank's group times their gates, ascending, then
     the shared slice times its gate; inactive rows: the shared slice
     alone). active [B] bool: the slots that step. The launch records its
-    routing (`kernel_routing`). CPU tensors take `moe_segment_ref`; CUDA
-    tensors launch the kernel or raise."""
+    routing (`kernel_routing`). `trace` (int64 [2 * len(MOE_SEG_PHASES) +
+    1] on the card): block 0's timestamps, read with
+    `megakernel.phase_times_of(MOE_SEG_PHASES, trace)`. CPU tensors take
+    `moe_segment_ref`; CUDA tensors launch the kernel or raise."""
     if x.device.type == "cpu":
         return moe_segment_ref(plan, packed, layer, x, rank, add)
     _check_device("tp_moe_segment", x)
     out = torch.empty((plan.B, plan.hid), dtype=torch.float32,
                       device=x.device)
+    _check_trace("tp_moe_segment", MOE_SEG_PHASES, trace, x.device)
     _launch("moe", plan, packed, layer, x, add, out, tp_moe_segment.counter,
-            rank=rank, active=active)
+            rank=rank, trace=trace, active=active)
     return out
 
 

@@ -24,7 +24,12 @@ at B = 8), the TP segments (csrc/tp_segments.cu: attn, mlp or moe, and lm
 of rank 0 at layer 0) and the TP decode step of each model on a (1, 2)
 mesh whose ranks share the card (INT8 KV, B = 8) and, for what the
 kernels move end to end, the per-op decode forward of Qwen2-7B and of
-Qwen1.5-MoE at B = 8 on chip_smoke.py's INT8 state, for each checkout root
+Qwen1.5-MoE at B = 8 on chip_smoke.py's INT8 state, or with `--noise` the
+sampler's Gumbel noise of one decode step (`ops/sampling.py`
+`gumbel_noise`, every row seeded, K = 128, B = 8 and 32) drawn on the card
+and drawn on the host and copied: host ms a call, device ms a call with
+the host ahead, ms to the noise's arrival, and ms it adds to a step behind
+a 4.5 ms forward, for each checkout root
 given, in the order
 given, each in a process of its own that imports that checkout's
 `dashinfer_tpu_torch` and `chip_smoke.py`.
@@ -37,6 +42,7 @@ ptxas registers and spills of each root's kernel instantiations.
     python -m dashinfer_tpu_torch.tools.ab_decode --moe build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --prefill build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --kernels build/parent . . build/parent
+    python -m dashinfer_tpu_torch.tools.ab_decode --noise build/parent . . build/parent
 """
 
 import json
@@ -53,13 +59,19 @@ _KERNELS = {"decode": (("megakernel", "mk_kernel"),),
             "kernels": (("paged_attention", "pa_kernel"),
                         ("grouped_quant_matmul", "gqm_kernel"),
                         ("stream_probe", "sp_product"),
-                        ("tp_segments", "seg_kernel"))}
-_FLAGS = {"--prefill": "prefill", "--moe": "moe", "--kernels": "kernels"}
+                        ("tp_segments", "seg_kernel")),
+            "noise": ()}
+_FLAGS = {"--prefill": "prefill", "--moe": "moe", "--kernels": "kernels",
+          "--noise": "noise"}
 PREFILL_BUCKETS = (128, 256, 512, 1024)
 PREFILL_TRACED = (128, 1024)
 MOE_BATCHES = (8, 32)
 GQM_TS = (32, 128, 1024)
 LONG_LENS = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
+NOISE_BATCHES = (8, 32)
+NOISE_K = 128                 # RuntimeConfig.sampler_max_top_k's default
+NOISE_CALLS = 50
+NOISE_FORWARD_MS = 4.5        # the Qwen2-7B decode forward at B = 8
 
 
 def _gqm_leaves(cs, cfg, dev):
@@ -89,8 +101,9 @@ def _tp(cs, name, cfg, params, gen, dev) -> dict:
     """The TP segments of rank 0 at layer 0 (ms a launch) and the TP decode
     step, on a (1, 2) mesh whose ranks share the card, INT8 KV, B = 8:
     chip_smoke.py's `tp_timing` of its first TP (or TP MoE) case; and,
-    where the checkout's attn segment takes a trace, block 0's time in
-    each of its phases in one launch."""
+    where the checkout's attn (and moe) segment takes a trace, block 0's
+    time in each of its phases in one launch; for the MoE model also the
+    moe segment and the step at UINT4 KV and at B = 32."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import tp_megakernel as tpk
@@ -111,6 +124,31 @@ def _tp(cs, name, cfg, params, gen, dev) -> dict:
         tpk.tp_attn_segment(s["plan"], s["packs"][0], 0, s["x0"].float(),
                             *step, s["caches"][0], trace=trace)
         out[f"tp_{name}_attn_phases"] = mk.phase_times_of(names, trace)
+    names = getattr(tpk, "MOE_SEG_PHASES", None)
+    if cfg.moe and names:   # a checkout whose moe segment takes a trace
+        trace = torch.zeros(2 * len(names) + 1, dtype=torch.int64,
+                            device=dev)
+        tpk.tp_moe_segment(s["plan"], s["packs"][0], 0, s["x0"].float(), 0,
+                           st["active"], trace=trace)
+        tpk.check_status(s["plan"], dev)
+        out[f"tp_{name}_moe_phases"] = mk.phase_times_of(names, trace)
+    if cfg.moe:             # the moe segment and the step at UINT4 and B = 32
+        for mode, B in (("UINT4", cs.DECODE_BATCH), ("INT8", 32)):
+            s2 = cs.tp_moe_setup(cfg, params, 2, mode, B, gen, dev)
+            st2 = s2["st"]
+            x2, act2 = s2["x0"].float(), st2["active"]
+            key = f"tp_{name}_{mode.lower()}_B{B}"
+            out[f"{key}_moe_ms"] = cs.time_ms(
+                lambda: tpk.tp_moe_segment(s2["plan"], s2["packs"][0], 0, x2,
+                                           0, act2), [()], iters=20)
+            out[f"{key}_step_ms"] = cs.time_ms(
+                lambda: tpk.tp_decode(
+                    s2["plan"], s2["packs"], s2["x0"],
+                    *(st2[k] for k in ("cos", "sin", "pt", "lens", "active")),
+                    s2["caches"], s2["mesh"].devices), [()], iters=3)
+            tpk.check_status(s2["plan"], dev)
+            del s2, st2
+            torch.cuda.empty_cache()
     return out
 
 
@@ -264,6 +302,76 @@ def _kernels(cs, root: str) -> dict:
     return out
 
 
+def _noise(root: str) -> dict:
+    """`--noise`: `gumbel_noise` of `root` for a decode step of B seeded
+    rows, computed on the card ("card") and computed on the host, then
+    copied ("host"). host_ms: the caller's time a call, NOISE_CALLS in a
+    row; device_ms: the card's time a call, the calls queued behind a
+    `torch.cuda._sleep` longer than their host time, so that the card runs
+    them back to back; synced_ms: a call and a sync; step_ms: what a call
+    adds to a step whose forward keeps the card busy NOISE_FORWARD_MS (a
+    sleep of that length, the call, a sync; less the same without the
+    call)."""
+    import time
+    import torch
+    from dashinfer_tpu_torch.ops import sampling
+    dev = torch.device("cuda", 0)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    e0.record()
+    torch.cuda._sleep(10_000_000)
+    e1.record()
+    e1.synchronize()
+    per_ms = 10_000_000 / e0.elapsed_time(e1)         # sleep cycles a ms
+
+    def step(call, n):
+        t0 = time.perf_counter()
+        for i in range(n):
+            torch.cuda._sleep(int(NOISE_FORWARD_MS * per_ms))
+            if call is not None:
+                call(i)
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    out = {"root": root, "sleep_cycles_per_ms": per_ms}
+    for B in NOISE_BATCHES:
+        for where in ("card", "host"):
+            def call(i):
+                rows = [(1000 + 7 * b, 37 + i) for b in range(B)]
+                if where == "card":
+                    return sampling.gumbel_noise(rows, NOISE_K, dev)
+                return sampling.gumbel_noise(rows, NOISE_K, "cpu").to(
+                    dev, non_blocking=True)
+
+            for i in range(5):
+                call(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(NOISE_CALLS):
+                call(i)
+            host = (time.perf_counter() - t0) / NOISE_CALLS
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int((2e3 * host * NOISE_CALLS + 50) * per_ms))
+            e0.record()
+            for i in range(NOISE_CALLS):
+                call(i)
+            e1.record()
+            e1.synchronize()
+            t0 = time.perf_counter()
+            for i in range(NOISE_CALLS):
+                call(i)
+                torch.cuda.synchronize()
+            synced = (time.perf_counter() - t0) / NOISE_CALLS
+            bare = step(None, NOISE_CALLS)
+            out[f"{where}_B{B}"] = {
+                "host_ms": 1e3 * host,
+                "device_ms": e0.elapsed_time(e1) / NOISE_CALLS,
+                "synced_ms": 1e3 * synced,
+                "step_ms": step(call, NOISE_CALLS) - bare}
+    return out
+
+
 def _one(root: str, build_only: bool, mode: str) -> None:
     """Runs in the child: everything is imported from `root`."""
     root = os.path.abspath(root)
@@ -285,6 +393,9 @@ def _one(root: str, build_only: bool, mode: str) -> None:
         return
     if mode == "kernels":
         print("AB", json.dumps(_kernels(cs, root)), flush=True)
+        return
+    if mode == "noise":
+        print("AB", json.dumps(_noise(root)), flush=True)
         return
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)

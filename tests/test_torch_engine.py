@@ -140,6 +140,39 @@ def test_seeded_sampling_is_reproducible():
         eng.release_model("m")
 
 
+def test_seeded_sampling_same_tokens_as_jax_engine():
+    """Seeded top-k / top-p requests: the port's Engine draws the JAX
+    Engine's noise, so both give the same tokens (tiny Qwen2, CPU)."""
+    import dashinfer_tpu as jp
+    import dashinfer_tpu_torch as tp
+
+    def gens(mod):
+        return [mod.GenerationConfig(max_length=20, do_sample=True, top_k=k,
+                                     top_p=p, temperature=1.3, seed=seed,
+                                     eos_token_id=-1)
+                for seed, k, p in ((11, 50, 1.0), (2 ** 32 - 1, 0, 0.9),
+                                   (7, 20, 0.95))]
+
+    cfg, params = tiny_qwen2()
+    jeng = jp.Engine().install_model("m", _rt(jp), params=params,
+                                     model_config=cfg).start_model("m")
+    try:
+        want = [_run(jeng, jp, PROMPT, g)[1].GetAllGeneratedTokens()
+                for g in gens(jp)]
+    finally:
+        jeng.release_model("m")
+    teng = _port_engine()
+    try:
+        got = [_run(teng, tp, PROMPT, g)[1].GetAllGeneratedTokens()
+               for g in gens(tp)]
+    finally:
+        teng.release_model("m")
+    assert [len(t) for t in got] == [14, 14, 14]
+    assert got == want
+    hf = hf_util.make_torch_model(hf_util.tiny_qwen2_config())
+    assert got[0] != hf_util.hf_greedy_tokens(hf, PROMPT, 14)
+
+
 def _megakernel_fixture(max_length=48):
     """tests/test_megakernel.py's tiny a16w4 model (head_dim 128, L 2, hid
     256), INT8 KV, as numpy leaves for both packages."""
