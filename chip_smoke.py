@@ -12,7 +12,13 @@ on one of them, and then prints no final result line):
               each kernel's wrapper on the card at the shapes the serving
               path gives it, held against its plain PyTorch version on the
               same inputs, and timed beside the plain version and, where one
-              PyTorch call computes the same function, that call. Paged
+              PyTorch call computes the same function, that call.
+              quant_matmul also with per-channel u4 and int8 leaves at every
+              projection shape, M = 2, 9, 16, 17, f32 x and output (q|o at
+              8 and 32, gate|up u4 and int8 at 32), a (1, 2)
+              mesh's q / k shards per-channel and at group 128, int8 group
+              128 at M = 1 and 32; one kernel launch a product under
+              `torch.profiler`; two replays of one graph bit-equal. Paged
               attention also at every G 1..8, D 64 / 256, every pool kind,
               NaN garbage past lens and a one-chunk batch, and on a
               long-context state at B = 8 and 32 beside SDPA. The grouped
@@ -348,9 +354,11 @@ def held_to_plain(got, ref, what: str) -> float:
 
 # -- phase 2: kernels against their plain versions --------------------------
 
-def random_qleaf(K, N, gen, dev, bits=4):
+def random_qleaf(K, N, gen, dev, bits=4, group=GROUP):
+    """A random quantized leaf; `group` K rows a quant group (K: one group,
+    per-channel)."""
     import torch
-    G = K // GROUP
+    G = K // group
     if bits == 4:
         w_q = torch.randint(0, 256, (K, N // 2), dtype=torch.uint8,
                             generator=gen, device=dev)
@@ -362,46 +370,138 @@ def random_qleaf(K, N, gen, dev, bits=4):
     return {"w_q": w_q, "scale": scale, "zero": zero}
 
 
-def check_quant_matmul(gen, dev, details):
+# quant_matmul cases beyond the projections at M = 1, 8, 32 (u4, group 128):
+# (name, K, N, M, bits, group, x and out f32). Per-channel u4 and int8 leaves
+# at every projection shape; the n8-tile boundaries on k_proj and gate_proj;
+# f32 x with f32 output (q|o on 16-row blocks, gate|up on one block of 32
+# rows, u4 and int8); a rank's q|o and k|v shard of a (1, 2) mesh
+# (N = 1792, 256) at group 128 and per-channel; int8 group 128.
+QMM_CASES = (
+    [(f"{name} (per-channel)", K, N, M, bits, K, False)
+     for bits in (4, 8) for name, K, N, _ in PROJECTIONS for M in (1, 8, 32)]
+    + [(name, 3584, N, M, 4, GROUP, False)
+       for name, N in (("k_proj+v_proj", 512), ("gate_proj+up_proj", 18944))
+       for M in (2, 9, 16, 17)]
+    + [("q_proj+o_proj (f32 x, f32 out)", 3584, 3584, M, 4, GROUP, True)
+       for M in (8, 32)]
+    + [("gate_proj+up_proj (f32 x, f32 out)", 3584, 18944, 32, bits, GROUP,
+        True) for bits in (4, 8)]
+    + [(f"{name} (1, 2) shard{tag}", 3584, N, M, 4, group, False)
+       for name, N in (("q_proj", 1792), ("k_proj", 256))
+       for tag, group in (("", GROUP), (" (per-channel)", 3584))
+       for M in (8, 32)]
+    + [("q_proj (int8)", 3584, 3584, M, 8, GROUP, False) for M in (1, 32)])
+
+
+def quant_matmul_case(name, K, N, M, bits, group, f32, n_step, gen, dev):
+    """One quant_matmul shape: the kernel held to its plain version, then
+    timed beside it and beside `torch.matmul` on the dequantized bf16
+    weight (cold: copies of the weights larger than L2)."""
     import torch
     from dashinfer_tpu_torch.ops import quant_matmul as qm
     from dashinfer_tpu_torch.ops.linear import dequantize_weight
-    per_shape, max_err = [], 0.0
-    cases = [(name, K, N, n, M, 4) for name, K, N, n in PROJECTIONS
-             for M in (1, 8, 32)] + [("q_proj (int8)", 3584, 3584, 0, 8, 8)]
-    for name, K, N, n_step, M, bits in cases:
-        wd = random_qleaf(K, N, gen, dev, bits)
-        x = (torch.randn((M, K), generator=gen, device=dev)).to(torch.bfloat16)
-        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
-        got = qm.quant_matmul(x, wd, out_dtype)
-        ref = qm.quant_matmul_plain(x, wd, out_dtype)
+    wd = random_qleaf(K, N, gen, dev, bits, group)
+    x = torch.randn((M, K), generator=gen, device=dev)
+    if not f32:
+        x = x.to(torch.bfloat16)
+    out_dtype = (torch.float32 if f32 or name.startswith("lm_head")
+                 else torch.bfloat16)
+    got = qm.quant_matmul(x, wd, out_dtype)
+    ref = qm.quant_matmul_plain(x, wd, out_dtype)
+    torch.cuda.synchronize()
+    err = held_to_plain(got, ref, f"quant_matmul {name} M={M} bits={bits}")
+    scale_ref = ref.float().abs().max().item()
+    w_bytes = sum(t.numel() * t.element_size() for t in wd.values())
+    copies = [(x, random_qleaf(K, N, gen, dev, bits, group) if i else wd,
+               out_dtype) for i in range(copies_for(w_bytes))]
+    ms = time_ms(qm.quant_matmul, copies)
+    plain_ms = time_ms(qm.quant_matmul_plain, copies[:1], iters=3)
+    del copies
+    w_lib = dequantize_weight(wd, torch.bfloat16)
+    xl = x.to(torch.bfloat16)
+    lib_copies = [(xl, w_lib if i == 0 else w_lib.clone())
+                  for i in range(copies_for(w_lib.numel() * 2))]
+    library_ms = time_ms(torch.matmul, lib_copies)
+    del w_lib, lib_copies
+    nbytes = (x.numel() * x.element_size() + w_bytes + M * N *
+              (4 if out_dtype == torch.float32 else 2))
+    row = dict(shape=name, K=K, N=N, M=M, bits=bits, G=K // group,
+               max_abs_err=err, ref_max=scale_ref, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, launches_per_step=n_step,
+               **bounds(nbytes, 2.0 * M * K * N))
+    print(f"quant_matmul {name:38s} M={M:2d} bits={bits} G={K // group:3d} "
+          f"err={err:.2e} ms={ms:.4f} bound={row['bytes_ms']:.4f} "
+          f"plain={plain_ms:.3f} lib={library_ms:.4f}", flush=True)
+    return row
+
+
+def check_quant_matmul(gen, dev, details):
+    import torch
+    from dashinfer_tpu_torch.ops import quant_matmul as qm
+    per_shape = []
+    cases = ([(name, K, N, M, 4, GROUP, False, n)
+              for name, K, N, n in PROJECTIONS for M in (1, 8, 32)]
+             + [("q_proj (int8)", 3584, 3584, 8, 8, GROUP, False, 0)]
+             + [c + (0,) for c in QMM_CASES])
+    for name, K, N, M, bits, group, f32, n_step in cases:
+        per_shape.append(quant_matmul_case(name, K, N, M, bits, group, f32,
+                                           n_step, gen, dev))
+    qm.check_status(dev)
+    # one kernel launch a product, split over K (k_proj at group 128 and
+    # per-channel) or not (gate_proj), at one n8 tile and at four
+    prods = [(random_qleaf(K, N, gen, dev, 4, group),
+              torch.randn((M, K), generator=gen, device=dev).to(
+                  torch.bfloat16))
+             for K, N, group, M in ((3584, 512, GROUP, 8),
+                                    (3584, 512, 3584, 8),
+                                    (3584, 18944, GROUP, 8),
+                                    (3584, 512, 3584, 32))]
+    for wd, x in prods:
+        qm.quant_matmul(x, wd)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for wd, x in prods:
+            qm.quant_matmul(x, wd)
         torch.cuda.synchronize()
-        err = held_to_plain(got, ref, f"quant_matmul {name} M={M} bits={bits}")
-        scale_ref = ref.float().abs().max().item()
-        max_err = max(max_err, err)
-        w_bytes = sum(t.numel() * t.element_size() for t in wd.values())
-        copies = [(x, random_qleaf(K, N, gen, dev, bits) if i else wd,
-                   out_dtype) for i in range(copies_for(w_bytes))]
-        ms = time_ms(qm.quant_matmul, copies)
-        plain_ms = time_ms(qm.quant_matmul_plain, copies[:1], iters=3)
-        w_lib = dequantize_weight(wd, torch.bfloat16)
-        lib_copies = [(x, w_lib if i == 0 else w_lib.clone())
-                      for i in range(copies_for(w_lib.numel() * 2))]
-        library_ms = time_ms(torch.matmul, lib_copies)
-        del w_lib, lib_copies, copies
-        nbytes = (x.numel() * 2 + w_bytes + M * N *
-                  (4 if out_dtype == torch.float32 else 2))
-        row = dict(shape=name, K=K, N=N, M=M, bits=bits, max_abs_err=err,
-                   ref_max=scale_ref, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, launches_per_step=n_step,
-                   **bounds(nbytes, 2.0 * M * K * N))
-        per_shape.append(row)
-        print(f"quant_matmul {name:18s} M={M:2d} bits={bits} "
-              f"err={err:.2e} ms={ms:.4f} bound={row['bytes_ms']:.4f} "
-              f"plain={plain_ms:.3f} lib={library_ms:.4f}", flush=True)
+    kernels = {ev.key: ev.count for ev in prof.key_averages()
+               if "CUDA" in str(getattr(ev, "device_type", None))}
+    n_kernels = sum(kernels.values())
+    print(f"quant_matmul under the profiler: {len(prods)} products, "
+          f"{n_kernels} CUDA kernels ({kernels})", flush=True)
+    check(n_kernels == len(prods) and all("qmm_kernel" in k for k in kernels),
+          f"quant_matmul: {len(prods)} products ran {n_kernels} CUDA "
+          f"kernels: {kernels}")
+    # the split products' tickets start at zero on every replay: two
+    # replays of one graph write the same bits (the output cleared between)
+    wd, x = prods[1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qm.quant_matmul(x, wd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.quant_matmul(x, wd)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(first, out), "quant_matmul: two replays of one graph "
+          "differ")
+    check(torch.equal(first, qm.quant_matmul(x, wd)),
+          "quant_matmul: a graph replay and an eager launch differ")
+    qm.check_status(dev)
+    del graph, prods
+    print("quant_matmul: two graph replays and an eager launch bit-equal",
+          flush=True)
     details["quant_matmul"] = per_shape
-    step = [r for r in per_shape if r["M"] == DECODE_BATCH and r["bits"] == 4]
-    return dict(max_abs_err=max_err,
+    step = [r for r in per_shape if r["M"] == DECODE_BATCH and
+            r["bits"] == 4 and r["launches_per_step"]]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in per_shape),
                 **aggregate(step, [r["launches_per_step"] for r in step]))
 
 

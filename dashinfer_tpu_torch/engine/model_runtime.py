@@ -53,6 +53,7 @@ from dashinfer_tpu_torch.loader.convert import (params_from_numpy,
 from dashinfer_tpu_torch.models.transformer import check_supported
 from dashinfer_tpu_torch.ops import megakernel as mk
 from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+from dashinfer_tpu_torch.ops import quant_matmul as qm
 from dashinfer_tpu_torch.ops import tp_megakernel as tpk
 from dashinfer_tpu_torch.parallel import collectives, sharding
 from dashinfer_tpu_torch.parallel.mesh import make_mesh
@@ -983,12 +984,15 @@ class ModelRuntime:
                 logger.exception("prefill drain failed for %s", req.uuid[:8])
                 self._finish(req, GenerateRequestStatus.InternalError)
                 continue
-            # a grid barrier that gave up leaves its mark here: raise
+            # a grid barrier or a ring wait that gave up leaves its mark
+            # here: raise
             if mega is True:
                 pmk.check_status(self.device)
             elif mega == "tp":
                 for dev in self.mesh.distinct:
                     tpk.check_prefill_status(dev)
+            else:   # the per-op prefill's products
+                self._check_per_op()
             t1 = time.monotonic()
             req.stat.first_token_time = t1
             req.stat.time_to_first_token = t1 - req.enqueue_time
@@ -1001,12 +1005,15 @@ class ModelRuntime:
         self._drain_prefill_tokens()
         tokens_t, act = batch
         tokens = tokens_t.cpu().numpy()
-        # a grid barrier that gave up leaves its mark here: raise
+        # a grid barrier or a ring wait that gave up leaves its mark here:
+        # raise
         if self.mega_plan is not None:
             mk.check_status(self.mega_plan, self.device)
-        if self.tp_mega_plan is not None:
+        elif self.tp_mega_plan is not None:
             for dev in self.mesh.distinct:
                 tpk.check_status(self.tp_mega_plan, dev)
+        else:   # the per-op decode forward's products
+            self._check_per_op()
         n = 0
         for req in act:
             if self.requests.get(req.uuid) is not req or req.slot < 0:
@@ -1016,6 +1023,13 @@ class ModelRuntime:
             self._maybe_finish(req, tok)
             n += 1
         self.stat.total_gen_tokens += n
+
+    def _check_per_op(self):
+        """Raises if a quant_matmul launch of a per-op forward gave up at a
+        wait of its copy ring, on any of the model's devices."""
+        for dev in ((self.device,) if self.mesh is None
+                    else self.mesh.distinct):
+            qm.check_status(dev)
 
     # -- token emission & finish ---------------------------------------------
     def _emit(self, req: Request, toks: List[int]):

@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-build_logs: Dict[str, str] = {}   # nvcc/ptxas output of this process' builds
+build_logs: Dict[str, str] = {}   # nvcc/ptxas output of each source's build
 
 
 def nvcc_path() -> str:
@@ -57,13 +57,18 @@ def lib_path(name: str) -> str:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile the named sources that are not built yet, one nvcc process
     each, all started together. Returns {name: seconds}; raises with the
-    compiler output when any build fails."""
+    compiler output when any build fails. `build_logs` gets each source's
+    compiler output, kept beside its library for a build that was done
+    before."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     t0 = time.monotonic()
     for name in names:
         out = lib_path(name)
         if os.path.exists(out):
+            if os.path.exists(f"{out}.log"):
+                with open(f"{out}.log") as f:
+                    build_logs[name] = f.read()
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
@@ -79,6 +84,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
         else:
+            with open(f"{out}.log", "w") as f:
+                f.write(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))

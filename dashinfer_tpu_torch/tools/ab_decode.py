@@ -24,7 +24,15 @@ at B = 8), the TP segments (csrc/tp_segments.cu: attn, mlp or moe, and lm
 of rank 0 at layer 0) and the TP decode step of each model on a (1, 2)
 mesh whose ranks share the card (INT8 KV, B = 8) and, for what the
 kernels move end to end, the per-op decode forward of Qwen2-7B and of
-Qwen1.5-MoE at B = 8 on chip_smoke.py's INT8 state, or with `--noise` the
+Qwen1.5-MoE at B = 8 on chip_smoke.py's INT8 state and the per-op
+bucket-32 prefill forward of Qwen2-7B (graph replays), and the per-op
+quant_matmul (csrc/quant_matmul.cu) at each of chip_smoke.py's projection
+shapes of Qwen2-7B, M = 1, 8 and 32, for u4 and int8 group-128 and u4
+per-channel leaves (cold: copies of the weights larger than L2), its
+decode step at M = 8 (the shapes' launches a step) and the device time of
+each CUDA kernel a product runs (torch.profiler, k_proj and gate_proj at
+M = 8), or with `--qmm` only the quant_matmul rows and the two Qwen2-7B
+per-op forwards, or with `--noise` the
 sampler's Gumbel noise of one decode step (`ops/sampling.py`
 `gumbel_noise`, every row seeded, K = 128, B = 8 and 32) drawn on the card
 and drawn on the host and copied: host ms a call, device ms a call with
@@ -42,6 +50,7 @@ ptxas registers and spills of each root's kernel instantiations.
     python -m dashinfer_tpu_torch.tools.ab_decode --moe build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --prefill build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --kernels build/parent . . build/parent
+    python -m dashinfer_tpu_torch.tools.ab_decode --qmm build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --noise build/parent . . build/parent
 """
 
@@ -59,10 +68,12 @@ _KERNELS = {"decode": (("megakernel", "mk_kernel"),),
             "kernels": (("paged_attention", "pa_kernel"),
                         ("grouped_quant_matmul", "gqm_kernel"),
                         ("stream_probe", "sp_product"),
-                        ("tp_segments", "seg_kernel")),
+                        ("tp_segments", "seg_kernel"),
+                        ("quant_matmul", "qmm_")),
+            "qmm": (("quant_matmul", "qmm_"),),
             "noise": ()}
 _FLAGS = {"--prefill": "prefill", "--moe": "moe", "--kernels": "kernels",
-          "--noise": "noise"}
+          "--qmm": "qmm", "--noise": "noise"}
 PREFILL_BUCKETS = (128, 256, 512, 1024)
 PREFILL_TRACED = (128, 1024)
 MOE_BATCHES = (8, 32)
@@ -72,6 +83,134 @@ NOISE_BATCHES = (8, 32)
 NOISE_K = 128                 # RuntimeConfig.sampler_max_top_k's default
 NOISE_CALLS = 50
 NOISE_FORWARD_MS = 4.5        # the Qwen2-7B decode forward at B = 8
+QMM_MS = (1, 8, 32)
+# (name, bits, K rows a quant group; 0: per-channel)
+QMM_KINDS = (("u4_g128", 4, 128), ("i8_g128", 8, 128), ("u4_pc", 4, 0))
+QMM_SPLIT = ("k_proj+v_proj", "gate_proj+up_proj")   # profiled at M = 8
+PREFILL_SMALL = 32            # the per-op prefill bucket below 128
+
+
+def _qleaf(K, N, bits, group, gen, dev):
+    """chip_smoke.py's random leaf (made here: a parent's chip_smoke.py
+    knows no per-channel leaf)."""
+    import torch
+    G = K // group
+    if bits == 4:
+        w_q = torch.randint(0, 256, (K, N // 2), dtype=torch.uint8,
+                            generator=gen, device=dev)
+    else:
+        w_q = torch.randint(-128, 128, (K, N), dtype=torch.int8,
+                            generator=gen, device=dev)
+    scale = torch.rand((G, N), generator=gen, device=dev) * 0.002 + 1e-4
+    zero = -scale * 8.0 if bits == 4 else torch.zeros_like(scale)
+    return {"w_q": w_q, "scale": scale, "zero": zero}
+
+
+def _kernel_split(calls, n) -> dict:
+    """Device us a call of each CUDA kernel that `calls` (n products)
+    launches, by kernel name (template arguments dropped)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        calls()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", None)):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        name = ev.key.split("<")[0].split("::")[-1].split("(")[0]
+        k = out.setdefault(name, {"launches": 0, "us": 0.0})
+        k["launches"] += ev.count / n
+        k["us"] += us / n
+    return out
+
+
+def _qmm(cs, dev, gen) -> dict:
+    """The quant_matmul rows (ms a launch, max|kernel - plain| over
+    max|plain|), the step at M = 8 by kind, the kernels a product runs."""
+    import torch
+    from dashinfer_tpu_torch.ops import quant_matmul as qm
+    out = {}
+    for kind, bits, group in QMM_KINDS:
+        step = 0.0
+        for name, K, N, n_step in cs.PROJECTIONS:
+            leaves = [_qleaf(K, N, bits, group or K, gen, dev)]
+            w_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves[0].values())
+            leaves += [_qleaf(K, N, bits, group or K, gen, dev)
+                       for _ in range(cs.copies_for(w_bytes) - 1)]
+            od = torch.float32 if name == "lm_head" else torch.bfloat16
+            short = name.split("+")[0]
+            for M in QMM_MS:
+                x = torch.randn((M, K), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                ref = qm.quant_matmul_plain(x, leaves[0], od).float()
+                got = qm.quant_matmul(x, leaves[0], od).float()
+                key = f"qmm_{kind}_{short}_M{M}"
+                out[f"{key}_err"] = ((got - ref).abs().max() /
+                                     ref.abs().max()).item()
+                out[f"{key}_ms"] = cs.time_ms(
+                    qm.quant_matmul, [(x, w, od) for w in leaves])
+                if M == cs.DECODE_BATCH:
+                    step += out[f"{key}_ms"] * n_step
+                if M == cs.DECODE_BATCH and name in QMM_SPLIT and \
+                        kind != "i8_g128":
+                    calls = 10
+                    out[f"{key}_kernels"] = _kernel_split(
+                        lambda: [qm.quant_matmul(x, leaves[i % len(leaves)],
+                                                 od) for i in range(calls)],
+                        calls)
+            del leaves
+            torch.cuda.empty_cache()
+        out[f"qmm_{kind}_step_M8_ms"] = step
+    return out
+
+
+def _per_op(cs, name, cfg, params, mode, gen, dev) -> dict:
+    """Device ms of one per-op decode forward at B = 8 on chip_smoke.py's
+    state and, for a dense model, of one per-op prefill forward of a
+    PREFILL_SMALL-token bucket (a 20-token prompt) into its slot 0 (graph
+    replays)."""
+    import torch
+    from dashinfer_tpu_torch.models import transformer
+    st = cs.mk_state(cfg, mode, 8, cs.MK_LENS, None, gen, dev)
+    out = {f"per_op_decode_{name}_ms": cs.time_ms(
+        lambda: transformer.decode_forward(
+            cfg, params, st["tokens"], st["cache"], st["pt"], st["lens"],
+            st["active"], mode=mode), [()], iters=3)}
+    if not cfg.moe:
+        tokens = torch.randint(1, cfg.vocab_size, (PREFILL_SMALL,),
+                               generator=gen, device=dev)
+        out[f"per_op_prefill32_{name}_ms"] = cs.time_ms(
+            lambda: transformer.prefill_forward(
+                cfg, params, tokens, st["cache"], st["pt"][0], 0, 20,
+                mode=mode), [()], iters=3)
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _qmm_forwards(cs, root: str) -> dict:
+    """`--qmm`: the quant_matmul rows and the per-op Qwen2-7B forwards."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode, ModelConfig
+    dev = torch.device("cuda", 0)
+    out = {"root": root}
+    with torch.no_grad():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        cfg = ModelConfig(**cs.QWEN2_7B)
+        params = cs.random_qwen2_7b_params(cs.SEED, dev)
+        out.update(_per_op(cs, "qwen2_7b", cfg, params, CacheMode.INT8, gen,
+                           dev))
+        del params
+        torch.cuda.empty_cache()
+        out.update(_qmm(cs, dev, gen))
+    return out
 
 
 def _gqm_leaves(cs, cfg, dev):
@@ -224,7 +363,6 @@ def _kernels(cs, root: str) -> dict:
     """`--kernels`: the per-op attention and grouped GEMM of `root`."""
     import torch
     from dashinfer_tpu_torch.config import CacheMode, ModelConfig
-    from dashinfer_tpu_torch.models import transformer
     from dashinfer_tpu_torch.ops import grouped_quant_matmul as gqm
     from dashinfer_tpu_torch.ops import paged_attention as pa
     dev = torch.device("cuda", 0)
@@ -289,16 +427,11 @@ def _kernels(cs, root: str) -> dict:
                 ("qwen15_moe", cs.moe_config(), lambda: cs.random_moe_params(
                     cs.moe_config(), cs.SEED + 13, dev))):
             params = make()
-            st = cs.mk_state(fcfg, mode, 8, cs.MK_LENS, None, gen, dev)
-            out[f"per_op_decode_{name}_ms"] = cs.time_ms(
-                lambda: transformer.decode_forward(
-                    fcfg, params, st["tokens"], st["cache"], st["pt"],
-                    st["lens"], st["active"], mode=mode), [()], iters=3)
-            del st
-            torch.cuda.empty_cache()
+            out.update(_per_op(cs, name, fcfg, params, mode, gen, dev))
             out.update(_tp(cs, name, fcfg, params, gen, dev))
             del params
             torch.cuda.empty_cache()
+        out.update(_qmm(cs, dev, gen))
     return out
 
 
@@ -386,13 +519,16 @@ def _one(root: str, build_only: bool, mode: str) -> None:
         regs = []
         for source, entry in _KERNELS[mode]:
             lines = kernel_build.build_logs.get(source, "").splitlines()
-            regs += [" ".join(lines[i:i + 3]) for i, ln in enumerate(lines)
+            regs += [" ".join(lines[i:i + 4]) for i, ln in enumerate(lines)
                      if "Compiling entry function" in ln and entry in ln]
         print("AB_BUILD", json.dumps({"root": root, "ptxas": regs}),
               flush=True)
         return
     if mode == "kernels":
         print("AB", json.dumps(_kernels(cs, root)), flush=True)
+        return
+    if mode == "qmm":
+        print("AB", json.dumps(_qmm_forwards(cs, root)), flush=True)
         return
     if mode == "noise":
         print("AB", json.dumps(_noise(root)), flush=True)

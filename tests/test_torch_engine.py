@@ -525,3 +525,47 @@ def test_moe_prefill_buckets_stop_at_the_cap():
     assert (128, True) in run._prefill_steps
     assert q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
     assert len(q.GetAllGeneratedTokens()) == 4
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_drain_raises_on_a_quant_matmul_ring_fault(monkeypatch, phase):
+    """A quant_matmul launch whose copy-ring wait gave up leaves a nonzero
+    status word in its device's scratch. The drain after a per-op forward
+    raises before it emits that forward's token, and clears the word and
+    the tickets, so that later launches run. The scratch is planted on the
+    CPU device here: there is no card to time a wait out on."""
+    import types
+
+    import torch
+
+    import dashinfer_tpu_torch as tp
+    from dashinfer_tpu_torch.ops import quant_matmul as qm
+    from dashinfer_tpu_torch.runtime.request import Request
+    from dashinfer_tpu_torch.runtime.result_queue import ResultQueue
+    monkeypatch.setenv("DI_MEGAKERNEL", "0")
+    monkeypatch.setenv("DI_PREFILL_MEGAKERNEL", "0")
+    cfg, params = tiny_qwen2()
+    eng = tp.Engine().install_model("m", _rt(tp), params=params,
+                                    model_config=port_config(cfg),
+                                    device="cpu")
+    run = eng._models["m"]
+    assert run.mega_plan is None and not run._pmk_plans
+    req = Request(uuid="r", input_ids=list(PROMPT), gen_cfg=_greedy(tp))
+    run.register(req, ResultQueue("r"))
+    run.enqueue(req)
+    fault = types.SimpleNamespace(
+        status=torch.full((1,), -1, dtype=torch.int32),
+        tickets=torch.ones(4, dtype=torch.int32))
+    if phase == "decode":
+        assert run.try_prefill_one()
+        run._drain_prefill_tokens()
+        assert len(req.generated_ids) == 1
+        assert run.decode_tick() == 1      # in flight, not drained
+    monkeypatch.setitem(qm._scratch, torch.device("cpu"), fault)
+    if phase == "prefill":
+        assert run.try_prefill_one()
+    with pytest.raises(RuntimeError, match="quant_matmul: a ring wait"):
+        run._drain_inflight()
+    assert len(req.generated_ids) == (1 if phase == "decode" else 0)
+    assert int(fault.status) == 0 and not fault.tickets.any()
+    run._drain_inflight()                  # cleared: nothing left to raise
