@@ -28,6 +28,8 @@ on one of them, and then prints no final result line):
               megakernel: one decode step at Qwen2-7B width for INT8, UINT4
               and DEFAULT KV and for the u4 and the per-channel i8 weight
               stream, logits and pool writes against the plain version;
+              two replays of one graph and an eager launch bit-equal (the
+              attention merge's tickets go back to 0);
               then ms per step at B = 8 and 32 beside the byte bound and the
               per-op forward's graph replay on the same state. The prefill
               megakernel: one prefill of bucket 128 (n = 100) for the same
@@ -56,7 +58,9 @@ on one of them, and then prints no final result line):
               with INT8, each segment against its plain version, the whole
               TP decode forward (CUDA-graph replay) against `tp_decode_ref`
               and against the single-device decode megakernel on the same
-              weights and state; then (n = 2, INT8) ms per segment launch
+              weights and state; the attn segment's two graph replays and
+              an eager launch bit-equal; then (n = 2, INT8) ms per segment
+              launch
               beside its bound and plain version, and ms per TP step beside
               the single-device megakernel's;
   tp_prefill  the tensor-parallel prefill segment kernels
@@ -64,14 +68,21 @@ on one of them, and then prints no final result line):
               whose ranks share the card, at Qwen2-7B width and depth:
               n = 2 with INT8 KV at buckets 128 / 256 / 512 / 1024 (a
               served prompt length and full), with UINT4 at 128 and 1024,
-              n = 4 with INT8 at 128 and 1024; each segment (layers 0 and
+              n = 4 with INT8 at 128 and 1024, and the per-channel int8
+              and the bf16 (two layers deep) weight streams at n = 2,
+              INT8, 128 and 1024 (the segments' 8- and 16-bit products);
+              each segment (layers 0 and
               27) against its plain version, the whole TP prefill against
               `tp_prefill_ref` and against the single-device prefill
               megakernel on the same weights and prompt; that the runtime's
               TP prefill install takes buckets 128 .. 1024 at n = 2 and 4;
+              the mlp segment's two graph replays and an eager launch
+              bit-equal at bucket 1024;
               then (n = 2, INT8, full buckets) ms per segment launch beside
-              its bound and plain version, and the whole TP prefill by graph
-              replay and eagerly beside the single-device prefill
+              its bound and plain version (attn and mlp beside their
+              product's yardstick, `torch.matmul` of the rank's q|k|v /
+              gate|up on the bf16 weight), and the whole TP prefill by
+              graph replay and eagerly beside the single-device prefill
               megakernel and the per-op TP prefill;
   serve_tp    Qwen2-7B served on a (1, 2) mesh with `serve`'s traffic, with
               every flag at its default (decode through the segments, the
@@ -87,7 +98,8 @@ Then Qwen2-7B's weights go, and the MoE slice runs at Qwen1.5-MoE-A2.7B width
 the card): `megakernel` and `prefill_megakernel` hold the two kernels' MoE
 branches against their plain versions (KV modes, B = 8 / 32, every bucket
 128 .. 1024 the serving launches; a router near-tie that routes a row
-differently is counted and capped) and time them beside the routed bounds;
+differently is counted and capped; the decode branch's two graph replays
+and an eager launch bit-equal) and time them beside the routed bounds;
 `serve` serves the MoE model with every flag at its default and per-op
 (and, for `serve_tp_moe`, with DI_PREFILL_MEGAKERNEL=0).
 The MoE decode check also runs the plain version routed as the kernel
@@ -330,6 +342,35 @@ def time_ms(fn, args_list, iters: int = 10) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / n
+
+
+def replays_bit_equal(what: str, call) -> None:
+    """Two replays of one CUDA graph of `call` (its output cleared between)
+    and an eager call write the same bits: what a kernel keeps between
+    launches (tickets, barriers) starts each launch as the first found it.
+    `call` must give the same output each time from the same inputs (a
+    segment without `add`, whose x it then leaves as it is)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    first = out.clone()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(first, out), f"{what}: two replays of one graph differ")
+    check(torch.equal(first, call()),
+          f"{what}: a graph replay and an eager launch differ")
+    del graph
+    print(f"{what}: two graph replays and an eager launch bit-equal",
+          flush=True)
 
 
 def copies_for(nbytes: int) -> int:
@@ -2005,6 +2046,10 @@ def check_megakernel(params, dev, details):
                              st["pt"], st["lens"], st["active"], st["cache"])
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
+    replays_bit_equal("megakernel u4/int8", lambda: mk.decode_megakernel(
+        plan, packed, x0, st["cos"], st["sin"], st["pt"], st["lens"],
+        st["active"], st["cache"]))
+    mk.check_status(plan, dev)
     del st, plan, packed
     times.append(time_megakernel(cfg, params, "u4", 8, MK_LENS, gen, dev))
     times.append(time_megakernel(cfg, params, "u4", 8, long_lens, gen, dev))
@@ -2064,6 +2109,10 @@ def check_megakernel_moe(cfg, params, dev, details):
                              st["pt"], st["lens"], st["active"], st["cache"])
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
+    replays_bit_equal("megakernel u4 MoE/int8", lambda: mk.decode_megakernel(
+        plan, packed, x0, st["cos"], st["sin"], st["pt"], st["lens"],
+        st["active"], st["cache"]))
+    mk.check_status(plan, dev)
     del st, plan, packed
     times = [time_megakernel(cfg, params, "u4 MoE", 8, MK_LENS, gen, dev),
              time_megakernel(cfg, params, "u4 MoE", 32, lens32, gen, dev,
@@ -3164,6 +3213,7 @@ def tp_timing(cfg, s, plan1, pack1, c1, step, dev):
 def check_tp_segments(params, dev, details):
     import torch
     from dashinfer_tpu_torch.config import ModelConfig
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
     cfg = ModelConfig(**QWEN2_7B)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 23)
@@ -3172,6 +3222,15 @@ def check_tp_segments(params, dev, details):
         rows.append(check_tp_segment_case(cfg, params, n, mode, gen, dev,
                                           timing=i == 0))
         torch.cuda.empty_cache()
+    # the attn segment's epilogue and merge tickets go back to 0
+    s = tp_setup(cfg, params, 2, "INT8", gen, dev)
+    st, x = s["st"], s["x0"].float()
+    replays_bit_equal("tp_attn_segment n=2/int8", lambda: tpk.tp_attn_segment(
+        s["plan"], s["packs"][0], 0, x, st["cos"], st["sin"], st["pt"],
+        st["lens"], st["active"], s["caches"][0]))
+    tpk.check_status(s["plan"], dev)
+    del s, st, x
+    torch.cuda.empty_cache()
     details["tp_segments"] = rows
     t = rows[0]["segments"]
     return {f"tp_{k}_segment": dict(
@@ -3252,6 +3311,10 @@ TP_PREFILL_CASES = (
                  (512, 450), (512, 512), (1024, 1000), (1024, 1024))),
     (2, "UINT4", ((128, 100), (1024, 1024))),
     (4, "INT8", ((128, 100), (1024, 1000))))
+# the per-channel int8 stream (the u4 -> i8 rule's leaves) and the bf16 one
+# (two layers deep) on a (1, 2) mesh with INT8 KV: the segments' 8- and
+# 16-bit products at the smallest and the largest bucket
+TP_PREFILL_STREAM_CASES = ((128, 100), (1024, 1024))
 TP_PREFILL_BUCKETS = (128, 256, 512, 1024)
 # The prefill segments against their plain versions run with the kernel's
 # bf16 score operands: the o / down partials of the prompt rows and the
@@ -3272,10 +3335,11 @@ def tp_prefill_rt(n, mode):
     return (b.mesh(1, n) if n > 1 else b).build()
 
 
-def tp_prefill_setup(cfg, params, n, dev):
+def tp_prefill_setup(cfg, params, n, dev, stream="u4"):
     """The ranks' split trees, the TP decode plan and one pack a rank of a
     (1, n) mesh whose ranks all run on `dev`; the buckets the runtime's TP
-    prefill install admits for this model must be 128 .. 1024."""
+    prefill install admits for this model must be 128 .. 1024. `stream`
+    names the weights' payload in the checks' messages."""
     from dashinfer_tpu_torch.config import CacheMode
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
     from dashinfer_tpu_torch.ops import tp_megakernel as tpk
@@ -3292,7 +3356,7 @@ def tp_prefill_setup(cfg, params, n, dev):
           f"tp prefill n={n}: the install would prefill buckets {qual} "
           f"through the segments (gaps {gaps}), not 128 .. 1024")
     return dict(n=n, mesh=mesh, parts=parts, tp_plan=tp_plan, packs=packs,
-                cfg_l=tpk.local_config(cfg, n))
+                cfg_l=tpk.local_config(cfg, n), stream=stream)
 
 
 def tp_prefill_inputs(cfg, params, s, plan, mode, n_tok, gen, dev):
@@ -3349,7 +3413,8 @@ def check_tp_prefill_case(cfg, params, s, single, mode_name, bucket, n_tok,
     S, L, hid = plan.S, plan.L, plan.hid
     rows = -(-n_tok // 128) * 128
     step = (st["cos"], st["sin"], st["page_row"], st["n"])
-    what0 = f"tp prefill n={n} {mode.value} S={bucket} n_tok={n_tok}"
+    what0 = (f"tp prefill n={n} {s['stream']} {mode.value} S={bucket} "
+             f"n_tok={n_tok}")
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 31 + bucket + n)
     errs = dict(attn=0.0, mlp=0.0, lm=0.0)
@@ -3445,7 +3510,8 @@ def check_tp_prefill_case(cfg, params, s, single, mode_name, bucket, n_tok,
     m_pool = check_prefill_pool(what, mode, full_pool(cs["k"]), c1,
                                 full_pool(cs["p32"]), before1, written, cfg,
                                 dev)
-    row = dict(n=n, mode=mode.value, bucket=bucket, n_tokens=n_tok,
+    row = dict(n=n, stream=s["stream"], mode=mode.value, bucket=bucket,
+               n_tokens=n_tok,
                errs=errs, layer0_pool=pool0, whole_err=f_err,
                whole_ref_max=logits["p"].abs().max().item(),
                whole_ill_conditioned=ill, vs_megakernel_err=m_err,
@@ -3527,6 +3593,23 @@ def tp_prefill_timing(cfg, params, s, single, case, dev):
               f"{out[name]['bound_ms']:.4f} ({out[name]['bound_by']}; "
               f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP), plain "
               f"{out[name]['plain_ms']:.1f} ms", flush=True)
+    # the segments' product yardstick: torch.matmul of x [S, hid] bf16 by
+    # the rank's q|k|v (attn) or gate|up (mlp) weight in bf16, dequantized
+    # beforehand (the rate the card's library reaches on that product;
+    # never called by the port)
+    for name, n_cols in (("attn", plan.qkv.Ntot), ("mlp", plan.gu.Ntot)):
+        w = (torch.randn((plan.hid, n_cols), generator=g, device=dev) *
+             0.02).to(torch.bfloat16)
+        xb = torch.randn((S, plan.hid), generator=g,
+                         device=dev).to(torch.bfloat16)
+        y_ms = time_ms(torch.matmul, [(xb, w)], iters=20)
+        out[name]["product_yardstick"] = dict(
+            ms=y_ms, tflops=2.0 * S * w.numel() / y_ms / 1e9)
+        print(f"  tp_prefill_{name}_segment's product yardstick (torch.matmul"
+              f" of [{S}, {plan.hid}] by a bf16 [{plan.hid}, {n_cols}]): "
+              f"{y_ms:.4f} ms, {2.0 * S * w.numel() / y_ms / 1e9:.0f} "
+              "TFLOP/s", flush=True)
+        del w, xb
     devices = s["mesh"].devices
     caches = st["caches"]
 
@@ -3582,9 +3665,11 @@ def tp_prefill_timing(cfg, params, s, single, case, dev):
 
 
 def check_tp_prefill(params, dev, details):
+    import dataclasses
     import torch
     from dashinfer_tpu_torch.config import CacheMode, ModelConfig
     from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
     cfg = ModelConfig(**QWEN2_7B)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 29)
@@ -3600,11 +3685,37 @@ def check_tp_prefill(params, dev, details):
             if n == 2 and mode == "INT8" and n_tok == bucket:
                 times.append(tp_prefill_timing(cfg, params, s, single, case,
                                                dev))
+            if n == 2 and mode == "INT8" and n_tok == bucket == 1024:
+                plan, _, st = case
+                x = st["x0"].float()
+                replays_bit_equal(
+                    "tp_prefill_mlp_segment n=2/int8 1024",
+                    lambda: tpk.tp_prefill_mlp_segment(
+                        plan, s["packs"][0], 0, x, st["n"]))
+                tpk.check_prefill_status(dev)
+                del plan, st, x
             del case
         del s
         torch.cuda.empty_cache()
     del single
     torch.cuda.empty_cache()
+    for stream, scfg, make in (
+            ("i8", cfg, lambda: dict(
+                random_qwen2_7b_params(SEED + 1, dev, stream="i8"),
+                embed_tokens=params["embed_tokens"])),
+            ("bf16 (2 layers)", dataclasses.replace(cfg, num_layers=2),
+             lambda: bf16_params(params, 2))):
+        p = make()
+        dplan = mk.make_plan(scfg, tp_prefill_rt(1, CacheMode.INT8), p)
+        single = dict(dplan=dplan, pack=mk.pack_params(scfg, dplan, p))
+        s = tp_prefill_setup(scfg, p, 2, dev, stream=stream)
+        for bucket, n_tok in TP_PREFILL_STREAM_CASES:
+            row, case = check_tp_prefill_case(scfg, p, s, single, "INT8",
+                                              bucket, n_tok, gen, dev)
+            rows.append(row)
+            del case
+        del s, single, p
+        torch.cuda.empty_cache()
     details["tp_prefill"] = dict(cases=rows, times=times)
     big = times[-1]["segments"]
     return {f"tp_prefill_{k}_segment": dict(
@@ -3614,7 +3725,8 @@ def check_tp_prefill(params, dev, details):
         bound_ms=big[k]["bound_ms"], bound_by=big[k]["bound_by"],
         library_ms=None,
         ms_by_bucket={str(t["bucket"]): t["segments"][k]["ms"]
-                      for t in times})
+                      for t in times},
+        product_yardstick=big[k].get("product_yardstick"))
         for k in ("attn", "mlp", "lm")}
 
 

@@ -1,9 +1,9 @@
 // The layer phases of the decode megakernel (csrc/megakernel.cu), shared
 // with the tensor-parallel segment kernels (csrc/tp_segments.cu): the
 // residual update and RMSNorm, SwiGLU, the attention over the paged pool
-// with the new token's quantize + write, the merge of the attention
-// chunks, the grid barrier of a persistent grid, the dynamic shared
-// memory of a block, and the integer arguments the wrappers pass.
+// with the new token's quantize + write and the merge of its chunks, the
+// grid barrier of a persistent grid, the dynamic shared memory of a block,
+// and the integer arguments the wrappers pass.
 
 #pragma once
 
@@ -148,50 +148,36 @@ __device__ void act_phase(const Args& a) {
                  it % chunks, a.rec, lane);
 }
 
-// Merges the attention chunks of each (slot, query head) -> attn_out as
-// the x records of the o product. One warp per (slot, head, half of D).
-// Chunk j holds tokens iff j * chunk_tokens < len; chunk 0 always holds the
-// new token; an inactive slot has none and gets 0. The chunks' maxima are
-// natural-log scores (attend_tiles' EXACT).
-__device__ void merge_phase(const Args& a) {
-  const int lane = threadIdx.x & 31;
-  const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int nw = gridDim.x * kWarps;
-  const int NC = a.nsplit;
-  for (int it = gw; it < a.B * a.H * 2; it += nw) {
-    const int half = it & 1, head = (it >> 1) % a.H, b = (it >> 1) / a.H;
-    if (!a.active[b]) {
-      write_record(a.rec, a.mpad, head * 2 + half, b, lane, 0.f, 0.f);
-      continue;
-    }
-    int used = (a.lens[b] + a.split_len - 1) / a.split_len;
-    used = max(1, min(used, NC));
+// Merges the `used` attention chunks of slot b's query heads of KV head h
+// (G of them) -> attn_out as the x records of the o product: one warp a
+// (head, half of D), the chunks in ascending order. Chunk j holds tokens
+// iff j * chunk_tokens < len; chunk 0 always holds the new token. The
+// chunks' maxima are natural-log scores (attend_tiles' EXACT). A function
+// of its own: it runs once a (slot, KV head) and keeps its registers out
+// of the attention's.
+__device__ __noinline__ void merge_group(const Args& a, int b, int h,
+                                         int used) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = a.H / a.KH, NC = a.nsplit;
+  for (int t = warp; t < 2 * G; t += kWarps) {
+    const int half = t & 1, head = h * G + (t >> 1);
     const size_t slot = ((size_t)b * a.H + head) * NC;
     const float* ml = a.att_ml + slot * 2;
     const float* acc = a.att_acc + slot * kD + half * 64 + 2 * lane;
-    // all chunks' loads are issued together (NC <= kMaxChunks)
-    float2 mlv[kMaxChunks], av[kMaxChunks];
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      if (c < used) {
-        mlv[c] = __ldcg(reinterpret_cast<const float2*>(ml + 2 * c));
-        av[c] = __ldcg(reinterpret_cast<const float2*>(acc + (size_t)c * kD));
-      }
-    }
     float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c)
-      if (c < used) mx = fmaxf(mx, mlv[c].x);
+#pragma unroll 4
+    for (int c = 0; c < used; ++c) mx = fmaxf(mx, __ldcg(ml + 2 * c));
     const float mu = mx == -INFINITY ? 0.f : mx;
     float lsum = 0.f, o0 = 0.f, o1 = 0.f;
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      if (c < used) {
-        const float f = expf(mlv[c].x - mu);
-        lsum += mlv[c].y * f;
-        o0 += av[c].x * f;
-        o1 += av[c].y * f;
-      }
+#pragma unroll 4
+    for (int c = 0; c < used; ++c) {
+      const float2 m = __ldcg(reinterpret_cast<const float2*>(ml + 2 * c));
+      const float2 v =
+          __ldcg(reinterpret_cast<const float2*>(acc + (size_t)c * kD));
+      const float f = expf(m.x - mu);
+      lsum += m.y * f;
+      o0 += v.x * f;
+      o1 += v.y * f;
     }
     if (lsum == 0.f) lsum = 1.f;
     write_record(a.rec, a.mpad, head * 2 + half, b, lane, o0 / lsum,
@@ -200,8 +186,8 @@ __device__ void merge_phase(const Args& a) {
 }
 
 // What the attention phase keeps beside the tiles' shared memory: the raw
-// q heads, k and v of its KV head [(kMaxG + 2)][kD] f32 (sums of the q|k|v
-// partials + bias), rot [(kMaxG + 1)][kD] (q after RoPE rounded to bf16, k
+// q heads, k and v of its KV head [(kMaxG + 2)][kD] f32 (q|k|v + bias),
+// rot [(kMaxG + 1)][kD] (q after RoPE rounded to bf16, k
 // after RoPE in f32), and the new token's scores [kMaxG] (scaled).
 constexpr int kAttExtra = 4 * ((2 * kMaxG + 3) * kD + kMaxG);
 constexpr int kAttTiles =
@@ -215,13 +201,18 @@ constexpr int kAttTiles =
 // [j * chunk_tokens, (j + 1) * chunk_tokens) of the slot (a.split_len
 // tokens, a multiple of kAttTile; a.nsplit chunks cover the page table),
 // whole tiles of 16 tokens a warp copied through a ring; chunks past lens
-// and inactive slots have no item. The item's block first puts its tiles
-// in flight, then sums the q heads, k and v from the q|k|v product's
-// split-K partials (+ bias) and applies RoPE; chunk 0 also quantizes and
+// and inactive slots have no item but chunk 0, which writes the slot's
+// zero attn_out records. The item's block first puts its tiles in flight,
+// then reads the q heads, k and v (SUMMED: summed with their bias by the
+// q|k|v product's epilogue into a.qkv, the TP attn segment's way; else,
+// the decode megakernel's, it sums the split-K partials itself, which the
+// tiles in flight hide) and applies RoPE; chunk 0 also quantizes and
 // writes the new token (warp 0 K, warp 1 V) and folds it in from its
-// unquantized f32 K/V when it merges the warps' states. The chunk's
-// (max, sum, acc) go to att_ml / att_acc for the merge phase.
-template <int KIND>
+// unquantized f32 K/V when it merges the warps' states. The chunk's (max,
+// sum, acc) go to att_ml / att_acc; the last chunk of a (slot, KV head) to
+// finish (a ticket a pair, a.att_tickets, set back to 0 by its taker)
+// merges the pair's chunks into the o product's x records.
+template <int KIND, bool SUMMED>
 __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
   constexpr bool kMma = KIND != kF32;       // tensor cores but for f32
   using Gm = Geo<KIND, kD, true>;
@@ -231,14 +222,12 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
   const int H = a.H, KH = a.KH, G = H / KH, NC = a.nsplit;
   const int CT = a.split_len;
   const int QKVN = (H + 2 * KH) * kD;
-  const Stream& st = a.st[kQkv];
   float* raw = reinterpret_cast<float*>(smem + kAttTiles);
   float* rot = raw + (kMaxG + 2) * kD;
   float* s_new = rot + (kMaxG + 1) * kD;
   float* q_s = reinterpret_cast<float*>(smem + Gm::kQOff);
   float* qsum_s = reinterpret_cast<float*>(smem + Gm::kQsumOff);
-  const float* bias =
-      a.qkv_b == nullptr ? nullptr : a.qkv_b + (size_t)layer * QKVN;
+  __shared__ int s_last;
   const size_t row_elems = (size_t)KH * Ds;
   const int n_items = a.B * KH * NC;
 
@@ -246,7 +235,13 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
   // slot) spread over the blocks instead of falling on every NC-th
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int j = item / (a.B * KH), h = item % KH, b = (item / KH) % a.B;
-    if (!a.active[b]) continue;                 // block-uniform
+    if (!a.active[b]) {                         // block-uniform
+      if (j == 0)
+        for (int t = warp; t < 2 * G; t += kWarps)
+          write_record(a.rec, a.mpad, (h * G + (t >> 1)) * 2 + (t & 1), b,
+                       lane, 0.f, 0.f);
+      continue;
+    }
     const int len = a.lens[b];
     const int t_begin = j * CT;
     if (j > 0 && t_begin >= len) continue;
@@ -259,17 +254,32 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
     att_prologue<KIND, kD, true, kThreads>(smem, kv, t_begin, t_end,
                                            n_tiles);
     // this thread's RoPE dim is tid % kD in every row it rotates below, and
-    // chunk 0's new token lands in one page: their loads fly with the sums
+    // chunk 0's new token lands in one page: their loads fly with q|k|v's
     const float cs = __bfloat162float(a.cos[(size_t)b * kD + (tid & (kD - 1))]);
     const float sn = __bfloat162float(a.sin[(size_t)b * kD + (tid & (kD - 1))]);
     const int new_col = min(len / a.ps, a.maxP - 1);
     const int new_page = j == 0 ? a.pt[(size_t)b * a.maxP + new_col] : 0;
 
-    // q heads of this KV head, k, v: sum of the split-K partials, + bias.
-    // The bias is [q | k | v] of the true widths; in the partials each of
-    // q, k and v starts at its leaf's first column, its width padded to the
-    // pack's 256-column tiles (st.n), and a row is st.ldo wide.
-    {
+    // q heads of this KV head, k, v: q|k|v + bias at the true widths
+    // (SUMMED: by the q|k|v product's epilogue, into a.qkv; else the item
+    // sums the partials here)
+    if constexpr (SUMMED) {
+      for (int i = tid; i < (G + 2) * kD; i += kThreads) {
+        const int r = i / kD, d = i % kD;
+        const int col = r < G ? (h * G + r) * kD + d
+                              : (r == G ? (H + h) * kD + d
+                                        : (H + KH + h) * kD + d);
+        raw[i] = __ldcg(a.qkv + (size_t)b * QKVN + col);
+      }
+    } else {
+      // the sum of the split-K partials, + bias. The bias is [q | k | v]
+      // of the true widths; in the partials each of q, k and v starts at
+      // its leaf's first column, its width padded to the pack's
+      // 256-column tiles (st.n), and a row is st.ldo wide. The sums run
+      // while the item's first tiles are in flight.
+      const Stream& st = a.st[kQkv];
+      const float* bias =
+          a.qkv_b == nullptr ? nullptr : a.qkv_b + (size_t)layer * QKVN;
       constexpr int kPer = ((kMaxG + 2) * kD + kThreads - 1) / kThreads;
       float v[kPer], bv[kPer];
       int cols[kPer];
@@ -444,16 +454,32 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
         a.att_ml[2 * slot + 1] = lsum;
       }
     }
+    // the slot's chunks: chunk 0 and each later one that holds a token
+    const int used = max(1, min((len + CT - 1) / CT, NC));
+    __syncthreads();                    // this chunk's state, then its ticket
+    if (tid == 0) {
+      __threadfence();
+      unsigned* tk = a.att_tickets + (size_t)b * KH + h;
+      const bool last = atomicAdd(tk, 1u) == (unsigned)used - 1;
+      if (last) *tk = 0u;               // for the next layer, launch or replay
+      s_last = last;
+    }
+    __syncthreads();
+    if (s_last) {
+      __threadfence();                  // the other chunks' states
+      merge_group(a, b, h, used);
+    }
     __syncthreads();
   }
 }
 
+template <bool SUMMED>
 __device__ void attention(const Args& a, int layer, uint8_t* smem) {
   switch (a.kv_kind) {
-    case kF32: attention_phase<kF32>(a, layer, smem); break;
-    case kBF16: attention_phase<kBF16>(a, layer, smem); break;
-    case kI8: attention_phase<kI8>(a, layer, smem); break;
-    default: attention_phase<kU4>(a, layer, smem); break;
+    case kF32: attention_phase<kF32, SUMMED>(a, layer, smem); break;
+    case kBF16: attention_phase<kBF16, SUMMED>(a, layer, smem); break;
+    case kI8: attention_phase<kI8, SUMMED>(a, layer, smem); break;
+    default: attention_phase<kU4, SUMMED>(a, layer, smem); break;
   }
 }
 
@@ -468,7 +494,7 @@ int smem_bytes(int mt, int hid) {
 enum IArg {
   I_NORMS, I_FINAL_NORM, I_QKV_B, I_X0, I_COS, I_SIN, I_PT, I_LENS, I_ACTIVE,
   I_K_POOL, I_V_POOL, I_K_QP, I_V_QP, I_LOGITS, I_RESID, I_REC, I_PARTIAL,
-  I_ATT_ML, I_ATT_ACC, I_SSQ, I_BARRIER, I_STATUS, I_LAUNCHES, I_TRACE,
+  I_QKV, I_TICKETS, I_ATT_TICKETS, I_ATT_ML, I_ATT_ACC, I_SSQ, I_BARRIER, I_STATUS, I_LAUNCHES, I_TRACE,
   I_EPART, I_EREC, I_TOPK_E, I_TOPK_W, I_SGATE, I_MSPLIT,
   I_B, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXP, I_KV_KIND, I_QL,
   I_NSPLIT, I_SPLIT_LEN, I_MPAD, I_SKIP_ATTN, I_GRID, I_E, I_K_TOP,
@@ -496,6 +522,9 @@ inline void fill_args(Args& a, const long long* ia, const double* fa) {
   a.resid = ptr<float>(ia[I_RESID]);
   a.rec = ptr<uint8_t>(ia[I_REC]);
   a.partial = ptr<float>(ia[I_PARTIAL]);
+  a.qkv = ptr<float>(ia[I_QKV]);
+  a.tickets = ptr<unsigned>(ia[I_TICKETS]);
+  a.att_tickets = ptr<unsigned>(ia[I_ATT_TICKETS]);
   a.att_ml = ptr<float>(ia[I_ATT_ML]);
   a.att_acc = ptr<float>(ia[I_ATT_ACC]);
   a.ssq = ptr<float>(ia[I_SSQ]);

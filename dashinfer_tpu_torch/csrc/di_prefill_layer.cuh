@@ -392,6 +392,34 @@ __device__ __forceinline__ void a_frags(const uint8_t* wq, int s,
   ahi[0] = bh[0][0]; ahi[1] = bh[1][0]; ahi[2] = bh[0][1]; ahi[3] = bh[1][1];
 }
 
+// An item's f32 sums from the accumulators: column 128 h + 16 warp + gid
+// (+ 8), rows 8 j + 2 tig (+ 1); rows >= nrows and columns >= st.nvalid are
+// not stored. A warp's store instruction covers 4 rows x 32 bytes, whole
+// sectors. The item's row, column and split pass through an empty asm
+// first, so that the compiler computes the NR stores' addresses here and
+// does not hoist them out of the chunk loop, where they would hold
+// registers beside the accumulators.
+template <int NR>
+__device__ __forceinline__ void store_tile(const float (&acc)[2][NR / 2],
+                                           float* out, size_t split_stride,
+                                           const PItem& it, const Stream& st,
+                                           int warp, int gid, int tig) {
+  int row0 = it.row0, nrows = it.nrows, col0 = it.col_out, split = it.split;
+  asm volatile("" : "+r"(row0), "+r"(nrows), "+r"(col0), "+r"(split));
+  float* o = out + (size_t)split * split_stride + col0 + 16 * warp + gid;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = 8 * j + 2 * tig + (q & 1);
+        const int col = 128 * h + 8 * (q >> 1);
+        if (r < nrows && col0 + 16 * warp + gid + col < st.nvalid)
+          o[(size_t)(row0 + r) * st.ldo + col] = acc[h][4 * j + q];
+      }
+}
+
 // out[split][row][col] = sum over the split's K chunks of X[row] . W[:, col]
 // with weight-side dequant, on wgmma. X is an R-row operand in the x layout
 // (xoff). Dense (GROUPED false): the rows of `mtiles` tiles of NR rows;
@@ -597,21 +625,7 @@ __device__ __forceinline__ void gemm_phase(
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + buf);
-        // column 128 h + 16 warp + gid (+ 8), rows 8 j + 2 tig (+ 1)
-        float* o = out + (size_t)it.split * split_stride + it.col_out +
-                   16 * warp + gid;
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int j = 0; j < NR / 8; ++j)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int r = 8 * j + 2 * tig + (q & 1);
-              const int col = 128 * h + 8 * (q >> 1);
-              if (r < it.nrows && it.col_out + 16 * warp + gid + col <
-                                      st.nvalid)
-                o[(size_t)(it.row0 + r) * st.ldo + col] = acc[h][4 * j + q];
-            }
+        store_tile<NR>(acc, out, split_stride, it, st, warp, gid, tig);
       }
     }
   }

@@ -79,6 +79,9 @@ struct Args {
   float* resid;              // [B, hid]
   uint8_t* rec;              // x records
   float* partial;            // split-K partials
+  float* qkv;                // [B, (H + 2 KH) D] q|k|v + bias, true widths
+  unsigned* tickets;         // [passes][tiles] of the q|k|v epilogue
+  unsigned* att_tickets;     // [B][KH] of the attention chunks' merge
   float* att_ml;             // [B, H, NS, 2]
   float* att_acc;            // [B, H, NS, D]
   float* ssq;                // [B, hid / 128] sums of squares
@@ -196,6 +199,98 @@ __device__ __forceinline__ void u4x2_to_bf16x2(uint32_t w, uint32_t& lo,
   const uint32_t pair = __byte_perm(w, 0u, 0x4140);   // b0 | b1 << 16
   lo = and_or(pair, 0x000F000Fu, 0x43004300u);
   hi = and_or(pair >> 4, 0x000F000Fu, 0x43004300u);
+}
+
+// The q|k|v product with its K splits summed in its own epilogue, before
+// the phase's grid barrier (the TP attn segment's): for each of its items
+// (pass, 256-column tile, K split), once its product loop is done, a block
+// takes the (pass, tile)'s ticket (Args::tickets), and the block that
+// takes a tile's last sums that tile's split partials for the pass's
+// active rows < B, in ascending split order from 0 (as the attention items
+// would), adds the layer's bias (`bias`, [(H + 2 KH) D], or null) and
+// writes q|k|v at their true widths into `out` ([B][(H + 2 KH) D], without
+// the leaves' 256-column padding), and sets the ticket back to 0 for the
+// next layer, launch or graph replay.
+//
+// The sum of one tile: a thread takes four columns (one float4) and two
+// rows at a time, eight splits' loads in flight for each, then adds them in
+// split order.
+template <int MT>
+__device__ __forceinline__ void sum_tile(const Args& a, const Stream& st,
+                                         float* out, const float* bias,
+                                         const float* part, int t,
+                                         int m_base) {
+  static_assert(kThreads == 256, "64 float4 columns x 4 row groups");
+  const int c = 4 * (threadIdx.x & 63), g = threadIdx.x >> 6;
+  // the leaves' widths are whole heads: four columns are all of a leaf's
+  // true width or all of its padding
+  const int leaf = (t >= st.tile0[1]) + (t >= st.tile0[2]);
+  const int lc = (t - st.tile0[leaf]) * 256 + c;     // column of the leaf
+  if (lc >= (leaf == 0 ? a.H : a.KH) * kD) return;   // the leaf's padding
+  const int col = (leaf == 0 ? 0 : (leaf == 1 ? a.H : a.H + a.KH) * kD) + lc;
+  const int ld = (a.H + 2 * a.KH) * kD;
+  float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (bias != nullptr) bv = *reinterpret_cast<const float4*>(bias + col);
+  const float* src = part + (size_t)t * 256 + c;
+  const size_t split_stride = (size_t)a.B * st.ldo;
+  const int m_end = min(m_base + 16 * MT, a.B);
+  const int ks = st.ksplit;
+  for (int m0 = m_base + g; m0 < m_end; m0 += 8) {   // rows m0, m0 + 4
+    const bool two = m0 + 4 < m_end;
+    const float* r0 = src + (size_t)m0 * st.ldo;
+    const float* r1 = src + (size_t)(two ? m0 + 4 : m0) * st.ldo;
+    float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f), v1 = v0;
+    for (int s0 = 0; s0 < ks; s0 += 8) {
+      float4 p0[8], p1[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const size_t o = (size_t)(s0 + q < ks ? s0 + q : 0) * split_stride;
+        p0[q] = __ldcg(reinterpret_cast<const float4*>(r0 + o));
+        p1[q] = __ldcg(reinterpret_cast<const float4*>(r1 + o));
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (s0 + q < ks) {                // ascending, and no + 0.f beyond
+          v0.x += p0[q].x; v0.y += p0[q].y; v0.z += p0[q].z; v0.w += p0[q].w;
+          v1.x += p1[q].x; v1.y += p1[q].y; v1.z += p1[q].z; v1.w += p1[q].w;
+        }
+    }
+    v0 = make_float4(v0.x + bv.x, v0.y + bv.y, v0.z + bv.z, v0.w + bv.w);
+    v1 = make_float4(v1.x + bv.x, v1.y + bv.y, v1.z + bv.z, v1.w + bv.w);
+    if (a.active[m0])
+      *reinterpret_cast<float4*>(out + (size_t)m0 * ld + col) = v0;
+    if (two && a.active[m0 + 4])
+      *reinterpret_cast<float4*>(out + (size_t)(m0 + 4) * ld + col) = v1;
+  }
+}
+
+// The epilogue of the q|k|v product phase (product_phase's items of this
+// block, in its order): the tickets, and the sums of the tiles whose last
+// ticket this block takes. A function of its own: its loads in flight do
+// not shape the registers of the kernel's product loops.
+template <int MT>
+__device__ __noinline__ void qkv_epilogue(const Args& a, const Stream& st,
+                                          float* out, const float* bias,
+                                          const float* part) {
+  __shared__ int s_last;
+  constexpr int kRows = 16 * MT;
+  const int tiles = st.tile0[st.nleaf], ks = st.ksplit;
+  const int n_items = a.mpad / kRows * tiles * ks;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int t = (item / ks) % tiles, pass = item / (ks * tiles);
+    __syncthreads();                      // the block's partials, then
+    if (threadIdx.x == 0) {               // its ticket
+      __threadfence();
+      unsigned* tk = a.tickets + pass * tiles + t;
+      const bool last = atomicAdd(tk, 1u) == (unsigned)ks - 1;
+      if (last) *tk = 0u;
+      s_last = last;
+    }
+    __syncthreads();
+    if (!s_last) continue;
+    __threadfence();                      // the other blocks' partials
+    sum_tile<MT>(a, st, out, bias, part, t, pass * kRows);
+  }
 }
 
 // One weight product: out[s][m][n] = partial sums over K split s of
@@ -624,6 +719,16 @@ __device__ void product(const Args& a, int sid, int layer, float* out,
     product_phase<8, MT, false>(a, st, layer, out, smem, nullptr, 1, 0);
   else
     product_phase<16, MT, false>(a, st, layer, out, smem, nullptr, 1, 0);
+}
+
+// `product` in a function of its own, for a kernel with an attention
+// phase: its registers are then allocated apart from the attention's,
+// which at the 128 registers of a two-block-an-SM kernel otherwise costs
+// the products' loops (PERF.md §6).
+template <int MT>
+__device__ __noinline__ void product_call(const Args& a, int sid, int layer,
+                                          float* out, uint8_t* smem) {
+  product<MT>(a, sid, layer, out, smem);
 }
 
 // A MoE layer's `parts` (one payload format) as one item space over blocks

@@ -33,7 +33,10 @@
 //            by the producing phase (no prologue launch);
 //   partial  each product's split-K partial sums [ksplit][B][N] f32, summed
 //            in a fixed order by the consuming phase (no float atomics:
-//            a step repeats bit for bit).
+//            a step repeats bit for bit; the attention items sum the
+//            q|k|v product's, with its bias, while their first K/V tiles
+//            are in flight: in this kernel that costs less than the TP
+//            attn segment's epilogue sum, PERF.md).
 // A product phase walks work items (256-column tile, K split) round-robin
 // over the blocks; a block's items form ONE flat chunk sequence through a
 // ring of shared-memory stages (6 deep for u4) filled by 1-D bulk copies
@@ -55,17 +58,24 @@
 // short accumulation chains: as close to an f32 softmax as the plain
 // version's) run on mma.sync; chunk 0 also quantizes and writes the new
 // token and folds it in from its unquantized f32 K/V; pages at or past lens
-// are never read. The MoE gates take one block a row.
+// are never read; the last chunk item of a (slot, KV head) to finish (a
+// ticket a pair) merges the pair's chunks into the o product's x records.
+// The MoE gates take one block a row. Each product runs in a function of
+// its own (`product_call`): at the 128 registers of the two-block-an-SM
+// kernel, its loop otherwise shared the attention's register allocation
+// and spills (a step ~10% slower at B = 8, PERF.md §6).
 // What still bounds it: the products' dequant-and-mma chain and its
 // overlap with the ring (u4 at B = 8 about half the card's copy rate in
-// tools/bench_stream.py's probe), the attention items' fixed chain (q|k|v
-// split sums, RoPE, the new token), and the ~11 grid barriers a layer with
-// the short, latency-bound phases between them (residual, norm, merge,
-// SwiGLU: a few us each).
+// tools/bench_stream.py's probe), the attention items' fixed chain (the
+// q|k|v split sums, RoPE, the new token), and the 10 grid barriers a
+// layer with the short,
+// latency-bound phases between them (residual, norm, SwiGLU: a few us
+// each).
 //
 // Phases of one layer (each followed by the barrier): resid1 -> norm1 ->
-// q|k|v -> attention -> merge -> o -> resid2 -> norm2 -> gate|up -> SwiGLU
-// -> down; then resid -> final norm -> lm_head. Eleven barriers a layer.
+// q|k|v -> attention (+ the merge) -> o -> resid2 ->
+// norm2 -> gate|up -> SwiGLU -> down; then resid -> final norm -> lm_head.
+// Ten barriers a layer.
 //
 // MoE layers (Qwen1.5/2-MoE): after norm2 the router product (bf16 weights
 // as a 256-column stream) and a gates phase (one block a row sums the
@@ -74,7 +84,7 @@
 // gate|up, SwiGLU and down each as ONE phase over all routed experts and
 // the shared expert (the experts' K splits static, the shared expert's
 // products after the experts' in each block: the TP moe segment's schedule
-// measured slower here at B = 8), 13 barriers a layer. The TPU kernel
+// measured slower here at B = 8), 12 barriers a layer. The TPU kernel
 // streams every expert each step and multiplies the unrouted ones by 0;
 // here each block lists the experts that some active row routes to (from
 // the gates phase's top-k, in ascending order) and the products' items run
@@ -121,13 +131,11 @@ mk_kernel(const __grid_constant__ Args a) {
     grid_barrier(a, phase++);
     norm_phase(a, fsmem);
     grid_barrier(a, phase++);
-    product<MT>(a, kQkv, l, a.partial, smem);
+    product_call<MT>(a, kQkv, l, a.partial, smem);
     grid_barrier(a, phase++);
-    if (!a.skip_attn) attention(a, l, smem);
+    if (!a.skip_attn) attention<false>(a, l, smem);
     grid_barrier(a, phase++);
-    merge_phase(a);
-    grid_barrier(a, phase++);
-    product<MT>(a, kO, l, a.partial, smem);
+    product_call<MT>(a, kO, l, a.partial, smem);
     grid_barrier(a, phase++);
     resid_phase(a, a.partial, a.st[kO].ksplit, false,
                 a.norms + (size_t)(2 * l + 1) * hid, fsmem);
@@ -135,18 +143,18 @@ mk_kernel(const __grid_constant__ Args a) {
     norm_phase(a, fsmem);
     grid_barrier(a, phase++);
     if constexpr (!MOE) {
-      product<MT>(a, kGu, l, a.partial, smem);
+      product_call<MT>(a, kGu, l, a.partial, smem);
       grid_barrier(a, phase++);
       act_phase(a);
       grid_barrier(a, phase++);
-      product<MT>(a, kDn, l, a.partial, smem);
+      product_call<MT>(a, kDn, l, a.partial, smem);
       grid_barrier(a, phase++);
     } else {
       // the routed experts' list, built once a layer in every block
       __shared__ int s_experts[kMaxLanes];
       __shared__ unsigned s_flags[kMaxLanes / 32];
       __shared__ int s_nused;
-      product<MT>(a, kRt, l, a.partial, smem);
+      product_call<MT>(a, kRt, l, a.partial, smem);
       grid_barrier(a, phase++);
       gates_phase(a, l, fsmem);
       grid_barrier(a, phase++);
@@ -155,13 +163,13 @@ mk_kernel(const __grid_constant__ Args a) {
       const Stream& ed = a.st[kDn];
       moe_experts_product<MT>(a, kGu, l, s_experts, nused, eg.ksplit, eg.cps,
                               smem);
-      if (a.has_shared) product<MT>(a, kSgu, l, a.partial, smem);
+      if (a.has_shared) product_call<MT>(a, kSgu, l, a.partial, smem);
       grid_barrier(a, phase++);
       moe_act_phase(a, s_experts, nused, eg.ksplit, a.partial);
       grid_barrier(a, phase++);
       moe_experts_product<MT>(a, kDn, l, s_experts, nused, ed.ksplit, ed.cps,
                               smem);
-      if (a.has_shared) product<MT>(a, kSdn, l, a.partial, smem);
+      if (a.has_shared) product_call<MT>(a, kSdn, l, a.partial, smem);
       grid_barrier(a, phase++);
     }
   }
@@ -173,7 +181,7 @@ mk_kernel(const __grid_constant__ Args a) {
   grid_barrier(a, phase++);
   norm_phase(a, fsmem);
   grid_barrier(a, phase++);
-  product<MT>(a, kLm, 0, a.logits, smem);
+  product_call<MT>(a, kLm, 0, a.logits, smem);
   grid_barrier(a, phase++);   // so that a trace shows the lm_head's end
 }
 

@@ -163,7 +163,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 pseg_kernel(const __grid_constant__ PArgs a, const __grid_constant__ PSeg g) {
   extern __shared__ __align__(16) uint8_t smem[];
   float* fsmem = reinterpret_cast<float*>(smem);
-  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(a.launches, 1ull);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(a.launches, 1ull);
+    if (a.trace != nullptr) a.trace[0] = global_ns();
+  }
   const int n = min(max(*a.n_tokens, 1), a.S);
   const int mtiles = (n + kMTile - 1) / kMTile;
   const int rows = mtiles * kMTile;
@@ -202,6 +205,8 @@ pseg_kernel(const __grid_constant__ PArgs a, const __grid_constant__ PSeg g) {
         }
       } else {
         sum_splits(a, a.st[sid], rows, g.out);
+        // a traced launch stamps the sum's end (PREFILL_MLP_SEG_PHASES)
+        if (a.trace != nullptr) barrier();
         break;
       }
       barrier();

@@ -49,10 +49,16 @@
 // pack through the megakernel's bulk-copy ring (weights as the mma's A
 // operand, di_product.cuh), split-K over every block of a grid of all
 // co-resident blocks; the phases are separated by the grid barrier (attn:
-// resid, norm, q|k|v, attention, merge, o; mlp: resid, norm, gate|up,
-// SwiGLU, down; moe: resid, norm, router, gates, gate|up, SwiGLU, down; lm:
-// resid, norm), and a last phase sums the o / down product's K splits into
-// the partial (moe: with the gates). The moe segment reads only the routed
+// resid, norm, q|k|v, attention, o; mlp: resid, norm, gate|up, SwiGLU,
+// down; moe: resid, norm, router, gates, gate|up, SwiGLU, down; lm: resid,
+// norm), and a last phase sums the down product's K splits into the
+// partial (moe: with the gates). The attn segment sums its q|k|v
+// product's K splits in its epilogue (the block that finishes a tile's
+// last split, by a ticket a tile: q|k|v + bias into the attention's input)
+// and merges the attention chunks of a (slot, KV head) in the attention
+// phase (the last chunk item to finish, by a ticket a pair): five grid
+// barriers. (o's splits summed in its epilogue too, one block a tile, took
+// longer than the sum phase over every block with its barrier, PERF.md.) The moe segment reads only the routed
 // experts of its group, as the megakernel's MoE branch does, and builds
 // their list on the card (no host sync: the forward stays one CUDA graph).
 // Its phases: resid, norm, the router product, the gates with the shared
@@ -183,13 +189,16 @@ seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
   norm_phase(a, fsmem);
   grid_barrier(a, phase++);
   if constexpr (KIND == kAttnSeg) {
-    product<MT>(a, kQkv, l, a.partial, smem);
+    product_call<MT>(a, kQkv, l, a.partial, smem);
+    qkv_epilogue<MT>(a, a.st[kQkv], a.qkv,
+                     a.qkv_b == nullptr
+                         ? nullptr
+                         : a.qkv_b + (size_t)l * (a.H + 2 * a.KH) * kD,
+                     a.partial);
     grid_barrier(a, phase++);
-    attention(a, l, smem);
+    attention<true>(a, l, smem);
     grid_barrier(a, phase++);
-    merge_phase(a);
-    grid_barrier(a, phase++);
-    product<MT>(a, kO, l, a.partial, smem);
+    product_call<MT>(a, kO, l, a.partial, smem);
     grid_barrier(a, phase++);
     sum_splits(a, a.st[kO], g.out);
   } else if constexpr (KIND == kMlpSeg) {

@@ -1108,7 +1108,8 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
 # order of the integer arguments of di_megakernel (csrc/megakernel.cu IArg)
 _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "pt", "lens",
           "active", "k_pool", "v_pool", "k_qp", "v_qp", "logits", "resid",
-          "rec", "partial", "att_ml", "att_acc", "ssq", "barrier", "status",
+          "rec", "partial", "qkv", "tickets", "att_tickets", "att_ml",
+          "att_acc", "ssq", "barrier", "status",
           "launches", "trace", "epart", "erec", "topk_e", "topk_w", "sgate",
           "msplit", "B", "L", "hid", "H", "KH", "inter", "V", "ps", "maxP",
           "kv_kind", "ql", "nsplit", "split_len", "mpad", "skip_attn", "grid",
@@ -1123,6 +1124,18 @@ def padded_rows(B: int) -> int:
     """Rows of the kernel's x records: 16 (one m16 tile), 32, or 64 (two
     passes of two tiles)."""
     return 16 if B <= 16 else (32 if B <= 32 else 64)
+
+
+def product_passes(mpad: int) -> int:
+    """Passes of a decode product over the padded rows (16 rows a pass at
+    mpad 16, else 32)."""
+    return mpad // (16 if mpad == 16 else 32)
+
+
+def epilogue_tickets(plan: MegaPlan, mpad: int) -> int:
+    """Tickets of the q|k|v product epilogue's sums (the TP attn
+    segment's): one a pass and 256-column tile."""
+    return product_passes(mpad) * (plan.qkv.Nptot // 256)
 
 
 def attention_chunks(B: int, KH: int, max_tokens: int, grid: int
@@ -1255,7 +1268,7 @@ class _Launch:
         if self.grid <= 0:
             raise RuntimeError("decode_megakernel: the kernel does not fit "
                                "on the device (occupancy query gave 0)")
-        passes = self.mpad // (16 if self.mpad == 16 else 32)
+        passes = product_passes(self.mpad)
         # an expert stream's items are spread over the experts a step
         # routes to: at most E, at most B * k
         routed = min(plan.E, B * plan.k_top)
@@ -1292,12 +1305,29 @@ class _Launch:
         self.topk_w = zeros(plan.L * B * MAX_TOPK, torch.float32)
         self.sgate = zeros(plan.L * B, torch.float32)
         self.resid = zeros(B * plan.hid, torch.float32)
+        # the attention merge's tickets, one a slot and KV head (0 between
+        # launches: each is set back by the block that takes its last
+        # number); no q|k|v scratch and no q|k|v epilogue's tickets: this
+        # kernel's attention items sum q|k|v themselves
+        self.qkv = self.tickets = None
+        self.att_tickets = zeros(B * plan.KH, torch.int32)
         self.att_ml = zeros(B * plan.H * self.nsplit * 2, torch.float32)
         self.att_acc = zeros(B * plan.H * self.nsplit * plan.D,
                              torch.float32)
         self.ssq = zeros(B * (plan.hid // 128), torch.float32)
         self.barrier = zeros(1, torch.int32)
         self.status = zeros(1, torch.int32)
+
+
+def scratch_args(plan: MegaPlan, st) -> Dict[str, int]:
+    """The attention's scratch of a launch state (this module's or the TP
+    segments'): q|k|v and the q|k|v epilogue's tickets (0: none), the
+    merge's tickets, the chunks' states, the norms' sums."""
+    return dict(qkv=0 if st.qkv is None else st.qkv.data_ptr(),
+                tickets=0 if st.tickets is None else st.tickets.data_ptr(),
+                att_tickets=st.att_tickets.data_ptr(),
+                att_ml=st.att_ml.data_ptr(), att_acc=st.att_acc.data_ptr(),
+                ssq=st.ssq.data_ptr())
 
 
 _launches: Dict = {}
@@ -1343,6 +1373,7 @@ def check_status(plan: MegaPlan, device) -> None:
     if code:
         st.status.zero_()
         st.barrier.zero_()
+        st.att_tickets.zero_()
         raise RuntimeError(f"decode_megakernel: {status_fault(code)}")
 
 
@@ -1430,8 +1461,7 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
         k_qp=cache.k_qparams.data_ptr() if quant else 0,
         v_qp=cache.v_qparams.data_ptr() if quant else 0,
         resid=st.resid.data_ptr(), rec=st.rec.data_ptr(),
-        partial=st.partial.data_ptr(), att_ml=st.att_ml.data_ptr(),
-        att_acc=st.att_acc.data_ptr(), ssq=st.ssq.data_ptr(),
+        partial=st.partial.data_ptr(), **scratch_args(plan, st),
         barrier=st.barrier.data_ptr(),
         status=st.status.data_ptr(),
         launches=decode_megakernel.counter.pointer(dev),
@@ -1472,10 +1502,12 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
 
 decode_megakernel.counter = kernel_build.LaunchCounter()
 
-# the kernel's phases, in order, each followed by a grid barrier
-LAYER_PHASES = ("resid1", "norm1", "qkv", "attention", "merge", "o",
-                "resid2", "norm2", "gate_up", "swiglu", "down")
-MOE_LAYER_PHASES = LAYER_PHASES[:8] + ("router", "gates", "gate_up",
+# the kernel's phases, in order, each followed by a grid barrier (q|k|v's
+# K splits are summed in its epilogue, the attention chunks merged in the
+# attention phase)
+LAYER_PHASES = ("resid1", "norm1", "qkv", "attention", "o", "resid2",
+                "norm2", "gate_up", "swiglu", "down")
+MOE_LAYER_PHASES = LAYER_PHASES[:7] + ("router", "gates", "gate_up",
                                        "swiglu", "down")
 TAIL_PHASES = ("resid", "final_norm", "lm_head")
 

@@ -515,7 +515,7 @@ class _Launch:
         if min(self.grid.values()) <= 0:
             raise RuntimeError("tp segments: a kernel does not fit on the "
                                "device (occupancy query gave 0)")
-        passes = self.mpad // (16 if self.mpad == 16 else 32)
+        passes = mk.product_passes(self.mpad)
         self.splits = {"lm": (1, plan.lm.K // mk.CHUNK_K)}
         for sp in plan.layer_streams:
             self.splits[sp.name] = mk.choose_split(
@@ -555,6 +555,13 @@ class _Launch:
         self.topk_e = zeros(ranks * plan.L * B * mk.MAX_TOPK, torch.int32)
         self.topk_w = zeros(ranks * plan.L * B * mk.MAX_TOPK, torch.float32)
         self.sgate = zeros(ranks * plan.L * B, torch.float32)
+        # the attn segment's q|k|v + bias, the tickets of its q|k|v
+        # epilogue (one a pass and 256-column tile) and of its merge (one a
+        # slot and KV head)
+        self.qkv = zeros(B * plan.QKVN, torch.float32)
+        self.tickets = zeros(mk.epilogue_tickets(plan, self.mpad),
+                             torch.int32)
+        self.att_tickets = zeros(B * plan.KH, torch.int32)
         self.att_ml = zeros(B * plan.H * self.nsplit * 2, torch.float32)
         self.att_acc = zeros(B * plan.H * self.nsplit * plan.D,
                              torch.float32)
@@ -587,6 +594,8 @@ def check_status(plan: mk.MegaPlan, device) -> None:
     if code:
         st.status.zero_()
         st.barrier.zero_()
+        st.tickets.zero_()
+        st.att_tickets.zero_()
         raise RuntimeError(f"tp segments: {mk.status_fault(code)}")
 
 
@@ -640,8 +649,7 @@ def _launch(kind: str, plan: mk.MegaPlan, packed: Dict, layer: int,
         final_norm=packed["final_norm"].data_ptr(),
         qkv_b=0 if packed["qkv_b"] is None else packed["qkv_b"].data_ptr(),
         logits=out.data_ptr(), resid=x.data_ptr(), rec=st.rec.data_ptr(),
-        partial=st.partial.data_ptr(), att_ml=st.att_ml.data_ptr(),
-        att_acc=st.att_acc.data_ptr(), ssq=st.ssq.data_ptr(),
+        partial=st.partial.data_ptr(), **mk.scratch_args(plan, st),
         barrier=st.barrier.data_ptr(), status=st.status.data_ptr(),
         launches=counter.pointer(dev),
         trace=0 if trace is None else trace.data_ptr(),
@@ -713,9 +721,10 @@ def _check_device(who: str, x: torch.Tensor) -> None:
         raise ValueError(f"{who}: unsupported device {x.device}")
 
 
-# the attn segment's phases, each followed by a grid barrier (its last
-# phase, the sum of the o product's splits, is not)
-ATTN_SEG_PHASES = ("resid", "norm", "qkv", "attention", "merge", "o")
+# the attn segment's phases, each followed by a grid barrier (q|k|v's K
+# splits are summed in its epilogue, the attention chunks merged in the
+# attention phase; the last phase, the sum of o's splits, is not traced)
+ATTN_SEG_PHASES = ("resid", "norm", "qkv", "attention", "o")
 # the moe segment's, likewise (its last phase, the gated sum into the
 # partial, is not traced)
 MOE_SEG_PHASES = ("resid", "norm", "router", "gates", "gate_up", "swiglu",
@@ -1034,7 +1043,8 @@ def prefill_launch_geometry(plan, device) -> Dict:
 def _prefill_launch(kind: str, plan, packed: Dict, layer: int,
                     x: torch.Tensor, n_tokens: torch.Tensor,
                     add: Optional[torch.Tensor], out: torch.Tensor,
-                    counter: kernel_build.LaunchCounter, **step) -> None:
+                    counter: kernel_build.LaunchCounter,
+                    trace: Optional[torch.Tensor] = None, **step) -> None:
     who = f"tp_prefill_{kind}_segment"
     dev = x.device
     S = plan.S
@@ -1058,7 +1068,9 @@ def _prefill_launch(kind: str, plan, packed: Dict, layer: int,
         final_norm=packed["final_norm"].data_ptr(),
         qkv_b=0 if packed["qkv_b"] is None else packed["qkv_b"].data_ptr(),
         n_tokens=n_tokens.data_ptr(), resid=x.data_ptr(),
-        launches=counter.pointer(dev), S=S, L=plan.L, hid=plan.hid,
+        launches=counter.pointer(dev),
+        trace=0 if trace is None else trace.data_ptr(),
+        S=S, L=plan.L, hid=plan.hid,
         H=plan.H, KH=plan.KH, inter=plan.inter, V=plan.V, ps=plan.ps,
         maxPb=plan.maxPb, kv_kind=mk._KV_KIND[plan.kv_dtype_name],
         grid=st.grid[kind])
@@ -1130,19 +1142,30 @@ def tp_prefill_attn_segment(plan, packed: Dict, layer: int, x: torch.Tensor,
     return out
 
 
+# the prefill mlp segment's phases, each followed by a grid barrier (the
+# barrier after the splits' sum is a traced launch's alone)
+PREFILL_MLP_SEG_PHASES = ("norm", "gate_up", "swiglu", "down", "sum")
+
+
 def tp_prefill_mlp_segment(plan, packed: Dict, layer: int, x: torch.Tensor,
                            n_tokens: torch.Tensor,
-                           add: Optional[torch.Tensor] = None
+                           add: Optional[torch.Tensor] = None,
+                           trace: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """One layer's prefill MLP segment of one rank: x += add, then the down
-    partial [S, hid] f32 (see `tp_prefill_attn_segment`)."""
+    partial [S, hid] f32 (see `tp_prefill_attn_segment`). `trace` (int64
+    [2 * len(PREFILL_MLP_SEG_PHASES) + 1] on the card) gets block 0's
+    timestamps: read it with `megakernel.phase_times_of(
+    PREFILL_MLP_SEG_PHASES, trace)`."""
     if x.device.type == "cpu":
         return prefill_mlp_segment_ref(plan, packed, layer, x, n_tokens, add)
     _check_device("tp_prefill_mlp_segment", x)
     out = torch.empty((plan.S, plan.hid), dtype=torch.float32,
                       device=x.device)
+    _check_trace("tp_prefill_mlp_segment", PREFILL_MLP_SEG_PHASES, trace,
+                 x.device)
     _prefill_launch("mlp", plan, packed, layer, x, n_tokens, add, out,
-                    tp_prefill_mlp_segment.counter)
+                    tp_prefill_mlp_segment.counter, trace=trace)
     return out
 
 

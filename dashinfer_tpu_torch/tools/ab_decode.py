@@ -13,7 +13,14 @@ and 1024 (INT8 KV, chip_smoke.py's inputs) of Qwen2-7B's u4 and i8 streams
 and of Qwen1.5-MoE's u4 (with block 0's per-phase times at 128 and 1024),
 and the TP prefill segments of csrc/tp_prefill_segments.cu (attn, mlp and
 lm of rank 0 at layer 0, a (1, 2) mesh whose ranks share the card, INT8,
-u4) at the same buckets, or with
+the u4 and the i8 stream) at the same buckets (the mlp segment's
+per-phase times at 128 and 1024, where the checkout's wrapper takes a
+trace), or with `--tp-prefill` those TP prefill segments alone, or with
+`--tp` the TP segments (csrc/tp_segments.cu: attn, mlp or moe, and lm of
+rank 0 at layer 0, with the attn and moe segments' per-phase times) and
+the TP decode step of Qwen2-7B and of Qwen1.5-MoE on a (1, 2) mesh whose
+ranks share the card (INT8 KV, B = 8; the MoE model also at UINT4, with
+its attn and moe segments' phases, and at B = 32), or with
 `--kernels` the per-op paged_attention (chip_smoke.py's INT8 check pool,
 Qwen2-7B's 28 heads on 4 and Qwen1.5-MoE's 16 on 16, and its long-context
 state at B = 8 and 32, one launch a layer in turn: cold) and
@@ -43,12 +50,21 @@ given, each in a process of its own that imports that checkout's
 `dashinfer_tpu_torch` and `chip_smoke.py`.
 The kernels are built first, all roots at once. Give the parent and the
 change as `PARENT CHANGE CHANGE PARENT` to see drift between runs. Prints
-one JSON line a run, the card's `nvidia-smi` name and power limit, and the
-ptxas registers and spills of each root's kernel instantiations.
+one JSON line a run, the card's `nvidia-smi` name and power limit, the
+ptxas registers and spills of each root's kernel instantiations (and any
+C75xx "wgmma serialized" warning), and `AB_DIFF`: for each output every
+run kept on one fixed state, the largest |difference| from the first
+run's (the decode mode: the decode megakernel's logits and pool at u4
+B = 8 and the TP attn segment's o partial and pool; `--moe`: the MoE
+megakernel's logits at B = 8; `--tp`: every segment's output; `--prefill`:
+each prefill launch's logits and each TP prefill segment's output). A
+change that keeps the arithmetic shows 0 against the parent.
 
     python -m dashinfer_tpu_torch.tools.ab_decode build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --moe build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --prefill build/parent . . build/parent
+    python -m dashinfer_tpu_torch.tools.ab_decode --tp-prefill build/parent . . build/parent
+    python -m dashinfer_tpu_torch.tools.ab_decode --tp build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --kernels build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --qmm build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --noise build/parent . . build/parent
@@ -65,17 +81,22 @@ _KERNELS = {"decode": (("megakernel", "mk_kernel"),),
             "moe": (("megakernel", "mk_kernel"),),
             "prefill": (("prefill_megakernel", "pmk_kernel"),
                         ("tp_prefill_segments", "pseg_kernel")),
+            "tp_prefill": (("prefill_megakernel", "pmk_kernel"),
+                           ("tp_prefill_segments", "pseg_kernel")),
             "kernels": (("paged_attention", "pa_kernel"),
                         ("grouped_quant_matmul", "gqm_kernel"),
                         ("stream_probe", "sp_product"),
                         ("tp_segments", "seg_kernel"),
                         ("quant_matmul", "qmm_")),
             "qmm": (("quant_matmul", "qmm_"),),
+            "tp": (("tp_segments", "seg_kernel"), ("megakernel", "mk_kernel")),
             "noise": ()}
 _FLAGS = {"--prefill": "prefill", "--moe": "moe", "--kernels": "kernels",
-          "--qmm": "qmm", "--noise": "noise"}
+          "--qmm": "qmm", "--noise": "noise", "--tp": "tp",
+          "--tp-prefill": "tp_prefill"}
 PREFILL_BUCKETS = (128, 256, 512, 1024)
 PREFILL_TRACED = (128, 1024)
+PHASE_TRACES = 5              # launches a phase trace is the mean of
 MOE_BATCHES = (8, 32)
 GQM_TS = (32, 128, 1024)
 LONG_LENS = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
@@ -88,6 +109,14 @@ QMM_MS = (1, 8, 32)
 QMM_KINDS = (("u4_g128", 4, 128), ("i8_g128", 8, 128), ("u4_pc", 4, 0))
 QMM_SPLIT = ("k_proj+v_proj", "gate_proj+up_proj")   # profiled at M = 8
 PREFILL_SMALL = 32            # the per-op prefill bucket below 128
+# outputs a run keeps for AB_DIFF (name -> tensor on the host), saved where
+# the AB_DUMP environment variable says
+_DUMPS = {}
+
+
+def _keep(name: str, t) -> None:
+    _DUMPS[name] = t.detach().float().cpu() if t.is_floating_point() \
+        else t.detach().cpu()
 
 
 def _qleaf(K, N, bits, group, gen, dev):
@@ -256,27 +285,32 @@ def _tp(cs, name, cfg, params, gen, dev) -> dict:
     out = {f"tp_{name}_{seg}_ms": r["ms"]
            for seg, r in t["segments"].items()}
     out[f"tp_{name}_step_ms"] = t["tp_forward_ms"]
-    names = getattr(tpk, "ATTN_SEG_PHASES", None)
-    if names:           # a checkout whose attn segment takes a trace
-        trace = torch.zeros(2 * len(names) + 1, dtype=torch.int64,
-                            device=dev)
-        tpk.tp_attn_segment(s["plan"], s["packs"][0], 0, s["x0"].float(),
-                            *step, s["caches"][0], trace=trace)
-        out[f"tp_{name}_attn_phases"] = mk.phase_times_of(names, trace)
-    names = getattr(tpk, "MOE_SEG_PHASES", None)
-    if cfg.moe and names:   # a checkout whose moe segment takes a trace
-        trace = torch.zeros(2 * len(names) + 1, dtype=torch.int64,
-                            device=dev)
-        tpk.tp_moe_segment(s["plan"], s["packs"][0], 0, s["x0"].float(), 0,
-                           st["active"], trace=trace)
-        tpk.check_status(s["plan"], dev)
-        out[f"tp_{name}_moe_phases"] = mk.phase_times_of(names, trace)
+    x = s["x0"].float()
+    pk = s["packs"][0]
+    _keep(f"tp_{name}_attn", tpk.tp_attn_segment(s["plan"], pk, 0, x, *step,
+                                                 s["caches"][0]))
+    _keep(f"tp_{name}_lm", tpk.tp_lm_segment(s["plan"], pk, x))
+    if cfg.moe:
+        _keep(f"tp_{name}_moe", tpk.tp_moe_segment(s["plan"], pk, 0, x, 0,
+                                                   st["active"]))
+    else:
+        _keep(f"tp_{name}_mlp", tpk.tp_mlp_segment(s["plan"], pk, 0, x))
+    out.update(_seg_phases(mk, tpk, f"tp_{name}", s, step, cfg.moe, dev))
     if cfg.moe:             # the moe segment and the step at UINT4 and B = 32
         for mode, B in (("UINT4", cs.DECODE_BATCH), ("INT8", 32)):
             s2 = cs.tp_moe_setup(cfg, params, 2, mode, B, gen, dev)
             st2 = s2["st"]
             x2, act2 = s2["x0"].float(), st2["active"]
             key = f"tp_{name}_{mode.lower()}_B{B}"
+            if mode == "UINT4":
+                out[f"{key}_attn_ms"] = cs.time_ms(
+                    lambda: tpk.tp_attn_segment(
+                        s2["plan"], s2["packs"][0], 0, x2, *(st2[k] for k in (
+                            "cos", "sin", "pt", "lens", "active")),
+                        s2["caches"][0]), [()], iters=20)
+                out.update(_seg_phases(
+                    mk, tpk, key, s2, tuple(st2[k] for k in (
+                        "cos", "sin", "pt", "lens", "active")), True, dev))
             out[f"{key}_moe_ms"] = cs.time_ms(
                 lambda: tpk.tp_moe_segment(s2["plan"], s2["packs"][0], 0, x2,
                                            0, act2), [()], iters=20)
@@ -288,6 +322,40 @@ def _tp(cs, name, cfg, params, gen, dev) -> dict:
             tpk.check_status(s2["plan"], dev)
             del s2, st2
             torch.cuda.empty_cache()
+    return out
+
+
+def _mean_phases(mk, names, launch, dev) -> dict:
+    """Block 0's time in each phase (`names`) of a kernel that takes a
+    trace: the mean of PHASE_TRACES launches (`launch(trace)`)."""
+    import torch
+    runs = []
+    for _ in range(PHASE_TRACES):
+        trace = torch.zeros(2 * len(names) + 1, dtype=torch.int64,
+                            device=dev)
+        launch(trace)
+        runs.append(mk.phase_times_of(names, trace))
+    return {k: {f: sum(r[k][f] for r in runs) / len(runs)
+                for f in ("work", "wait")} for k in runs[0]}
+
+
+def _seg_phases(mk, tpk, key, s, step, moe, dev) -> dict:
+    """The attn (and, `moe`, the moe) segment's phases of rank 0 at layer
+    0 on a `tp_setup` / `tp_moe_setup` state, where the checkout's wrapper
+    takes a trace."""
+    out = {}
+    x = s["x0"].float()
+    names = getattr(tpk, "ATTN_SEG_PHASES", None)
+    if names:
+        out[f"{key}_attn_phases"] = _mean_phases(mk, names, lambda t: (
+            tpk.tp_attn_segment(s["plan"], s["packs"][0], 0, x, *step,
+                                s["caches"][0], trace=t)), dev)
+    names = getattr(tpk, "MOE_SEG_PHASES", None)
+    if moe and names:
+        out[f"{key}_moe_phases"] = _mean_phases(mk, names, lambda t: (
+            tpk.tp_moe_segment(s["plan"], s["packs"][0], 0, x, 0, step[-1],
+                               trace=t)), dev)
+    tpk.check_status(s["plan"], dev)
     return out
 
 
@@ -307,6 +375,7 @@ def _prefill(cs, name, cfg, params, gen, dev) -> dict:
         out[f"{name}_ms_{bucket}"] = cs.time_ms(pmk.prefill_megakernel,
                                                 [args], iters=5)
         pmk.check_status(dev)
+        _keep(f"{name}_logits_{bucket}", pmk.prefill_megakernel(*args))
         out[f"{name}_ops_bound_ms_{bucket}"] = cs.bounds(
             0, plan.operations(bucket))["ops_ms"]
         if bucket in PREFILL_TRACED:
@@ -325,16 +394,19 @@ def _prefill(cs, name, cfg, params, gen, dev) -> dict:
     return out
 
 
-def _tp_prefill(cs, cfg, params, gen, dev) -> dict:
+def _tp_prefill(cs, cfg, params, gen, dev, stream="u4") -> dict:
     """ms a launch of each TP prefill segment (rank 0, layer 0, a (1, 2)
-    mesh whose ranks share the card, INT8 KV) for each full bucket."""
+    mesh whose ranks share the card, INT8 KV) for each full bucket, the
+    `stream`'s weights (its name in the keys of all but u4)."""
     import torch
     from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import tp_megakernel as tpk
     s = cs.tp_prefill_setup(cfg, params, 2, dev)
     rt = cs.tp_prefill_rt(2, CacheMode.INT8)
     plans = tpk.make_tp_prefill_plans(cfg, rt, s["parts"],
                                       list(PREFILL_BUCKETS), s["tp_plan"])
+    pre = "tp_prefill" if stream == "u4" else f"tp_prefill_{stream}"
     out = {}
     for bucket, plan in plans.items():
         st = cs.tp_prefill_inputs(cfg, params, s, plan, CacheMode.INT8,
@@ -351,12 +423,82 @@ def _tp_prefill(cs, cfg, params, gen, dev) -> dict:
                     plan, pk, 0, x, st["n"], add=add)),
                 ("lm", lambda: tpk.tp_prefill_lm_segment(
                     plan, pk, x, st["n"], add=add))):
-            out[f"tp_prefill_{seg}_ms_{bucket}"] = cs.time_ms(fn, [()],
-                                                              iters=10)
+            out[f"{pre}_{seg}_ms_{bucket}"] = cs.time_ms(fn, [()],
+                                                         iters=10)
+            tpk.check_prefill_status(dev)
+        # the outputs on a fixed x (no add: x stays as it is)
+        x = st["x0"].float()
+        _keep(f"{pre}_attn_{bucket}", tpk.tp_prefill_attn_segment(
+            plan, pk, 0, x, *step, cache.clone()))
+        _keep(f"{pre}_mlp_{bucket}", tpk.tp_prefill_mlp_segment(
+            plan, pk, 0, x, st["n"]))
+        _keep(f"{pre}_lm_{bucket}", tpk.tp_prefill_lm_segment(
+            plan, pk, x, st["n"]))
+        names = getattr(tpk, "PREFILL_MLP_SEG_PHASES", None)
+        if names and bucket in PREFILL_TRACED:
+            out[f"{pre}_mlp_phases_{bucket}"] = _mean_phases(
+                mk, names, lambda t: tpk.tp_prefill_mlp_segment(
+                    plan, pk, 0, x, st["n"], trace=t), dev)
             tpk.check_prefill_status(dev)
         del st
         torch.cuda.empty_cache()
     return out
+
+
+def _tp_models(cs, root: str) -> dict:
+    """`--tp`: the TP segments and steps of both models (`_tp`)."""
+    import torch
+    from dashinfer_tpu_torch.config import ModelConfig
+    dev = torch.device("cuda", 0)
+    out = {"root": root}
+    with torch.no_grad():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        for name, fcfg, make in (
+                ("qwen2_7b", ModelConfig(**cs.QWEN2_7B),
+                 lambda: cs.random_qwen2_7b_params(cs.SEED, dev)),
+                ("qwen15_moe", cs.moe_config(), lambda: cs.random_moe_params(
+                    cs.moe_config(), cs.SEED + 13, dev))):
+            params = make()
+            out.update(_tp(cs, name, fcfg, params, gen, dev))
+            del params
+            torch.cuda.empty_cache()
+    return out
+
+
+def _keep_decode(cs, name, cfg, params, dev, tp: bool) -> None:
+    """The decode megakernel's logits and written pool on a fixed state
+    (u4 B = 8, INT8 KV, chip_smoke.py's lens) and, `tp`, the TP attn
+    segment's o partial and pool (rank 0, layer 0, a (1, 2) mesh)."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    mode = CacheMode.INT8
+    plan, packed = cs.mk_plan_pack(cfg, params, cs.DECODE_BATCH, mode)
+    st = cs.mk_state(cfg, mode, cs.DECODE_BATCH, cs.MK_LENS, cs.MK_INACTIVE,
+                     gen, dev)
+    x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
+    _keep(f"{name}_logits", mk.decode_megakernel(
+        plan, packed, x0, st["cos"], st["sin"], st["pt"], st["lens"],
+        st["active"], st["cache"]))
+    _keep(f"{name}_pool_k", st["cache"].k)
+    _keep(f"{name}_pool_k_qp", st["cache"].k_qparams)
+    mk.check_status(plan, dev)
+    del st, plan, packed
+    if tp:
+        s = cs.tp_setup(cfg, params, 2, "INT8", gen, dev)
+        st = s["st"]
+        _keep(f"{name}_tp_attn_o", tpk.tp_attn_segment(
+            s["plan"], s["packs"][0], 0, s["x0"].float(), st["cos"],
+            st["sin"], st["pt"], st["lens"], st["active"], s["caches"][0]))
+        _keep(f"{name}_tp_attn_pool_k", s["caches"][0].k)
+        _keep(f"{name}_tp_attn_pool_v", s["caches"][0].v)
+        tpk.check_status(s["plan"], dev)
+        del s, st
+    torch.cuda.empty_cache()
 
 
 def _kernels(cs, root: str) -> dict:
@@ -512,17 +654,30 @@ def _one(root: str, build_only: bool, mode: str) -> None:
     sys.path[0] = root
     import torch
     import chip_smoke as cs
-    from dashinfer_tpu_torch.config import CacheMode, ModelConfig
     from dashinfer_tpu_torch.ops import kernel_build
     kernel_build.build([source for source, _ in _KERNELS[mode]])
     if build_only:
-        regs = []
+        regs, warns = [], []
         for source, entry in _KERNELS[mode]:
             lines = kernel_build.build_logs.get(source, "").splitlines()
             regs += [" ".join(lines[i:i + 4]) for i, ln in enumerate(lines)
                      if "Compiling entry function" in ln and entry in ln]
-        print("AB_BUILD", json.dumps({"root": root, "ptxas": regs}),
-              flush=True)
+            warns += [ln for ln in lines if "C75" in ln]
+        print("AB_BUILD", json.dumps({"root": root, "ptxas": regs,
+                                      "wgmma_warnings": warns}), flush=True)
+        return
+    try:
+        _run(cs, root, mode)
+    finally:
+        if os.environ.get("AB_DUMP") and _DUMPS:
+            torch.save(_DUMPS, os.environ["AB_DUMP"])
+
+
+def _run(cs, root: str, mode: str) -> None:
+    import torch
+    from dashinfer_tpu_torch.config import ModelConfig
+    if mode == "tp":
+        print("AB", json.dumps(_tp_models(cs, root)), flush=True)
         return
     if mode == "kernels":
         print("AB", json.dumps(_kernels(cs, root)), flush=True)
@@ -548,6 +703,7 @@ def _one(root: str, build_only: bool, mode: str) -> None:
             out[f"ms_B{B}"] = row["ms"]
             out[f"B{B}"] = {k: row[k] for k in ("no_attention_ms", "phases",
                                                 "bytes_ms")}
+        _keep_decode(cs, "moe", cfg, params, dev, tp=False)
         print("AB", json.dumps(out), flush=True)
         return
     cfg = ModelConfig(**cs.QWEN2_7B)
@@ -572,19 +728,28 @@ def _one(root: str, build_only: bool, mode: str) -> None:
                                      stream, B, lens, gen, dev, per_op=False)
             out[name] = {k: row[k] for k in ("ms", "no_attention_ms",
                                              "phases", "bytes_ms")}
+            if name == "u4_B8":
+                _keep_decode(cs, "u4", cfg, params, dev, tp=True)
         print("AB", json.dumps(out), flush=True)
         return
     out = {"root": root}
-    out.update(_prefill(cs, "u4", cfg, params, gen, dev))
+    tp_only = mode == "tp_prefill"
+    if not tp_only:
+        out.update(_prefill(cs, "u4", cfg, params, gen, dev))
     out.update(_tp_prefill(cs, cfg, params, gen, dev))
     embed = params["embed_tokens"]
     del params
     torch.cuda.empty_cache()
     i8 = cs.random_qwen2_7b_params(cs.SEED + 1, dev, stream="i8")
     i8["embed_tokens"] = embed
-    out.update(_prefill(cs, "i8", cfg, i8, gen, dev))
+    if not tp_only:
+        out.update(_prefill(cs, "i8", cfg, i8, gen, dev))
+    out.update(_tp_prefill(cs, cfg, i8, gen, dev, "i8"))
     del i8, embed
     torch.cuda.empty_cache()
+    if tp_only:
+        print("AB", json.dumps(out), flush=True)
+        return
     mcfg = cs.moe_config()
     out.update(_prefill(cs, "moe_u4", mcfg, cs.random_moe_params(
         mcfg, cs.SEED + 13, dev), gen, dev))
@@ -617,14 +782,50 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    for r in roots:
+    dump_dir = os.path.abspath(os.path.join("build", "ab_dump", mode))
+    os.makedirs(dump_dir, exist_ok=True)
+    dumps = []
+    for i, r in enumerate(roots):
+        dumps.append(os.path.join(dump_dir, f"{i}.pt"))
+        if os.path.exists(dumps[-1]):
+            os.remove(dumps[-1])
         out = subprocess.run([sys.executable, me, "--one", *flag, r],
-                             capture_output=True, text=True)
+                             capture_output=True, text=True,
+                             env=dict(os.environ, AB_DUMP=dumps[-1]))
         print("\n".join(ln for ln in out.stdout.splitlines()
                         if ln.startswith("AB")) or out.stderr[-2000:],
               flush=True)
         rc |= out.returncode
+    print("AB_DIFF", json.dumps(_diffs(roots, dumps)), flush=True)
     return rc
+
+
+def _diffs(roots, dumps) -> dict:
+    """For each kept output, the largest |difference| of each run's from
+    the first run's (None where a run did not keep it; a different shape
+    or dtype: the string "shape")."""
+    import torch
+    kept = [torch.load(p) if os.path.exists(p) else {} for p in dumps]
+    out = {}
+    for name, ref in kept[0].items():
+        row = {}
+        for i, k in enumerate(kept[1:], 1):
+            t = k.get(name)
+            key = f"run{i} {roots[i]}"
+            if t is None:
+                row[key] = None
+            elif t.shape != ref.shape or t.dtype != ref.dtype:
+                row[key] = "shape"
+            elif t.is_floating_point():
+                d = (t - ref).abs()
+                both_nan = torch.isnan(t) & torch.isnan(ref)
+                row[key] = float(torch.where(both_nan, 0.0, d).max()) \
+                    if d.numel() else 0.0
+            else:
+                row[key] = int((t.long() - ref.long()).abs().max()) \
+                    if t.numel() else 0
+        out[name] = row
+    return out
 
 
 if __name__ == "__main__":

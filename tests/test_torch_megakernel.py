@@ -514,7 +514,7 @@ def test_phase_times_reads_a_trace():
     tparams = params_from_numpy(_np_tree(params), "cpu", torch.float32)
     plan = tmk.make_plan(port_config(cfg), _port_rt(rt, "default"), tparams)
     n = tmk.trace_len(plan)
-    assert n == 2 * (11 * plan.L + 3) + 1
+    assert n == 2 * (10 * plan.L + 3) + 1     # ten barriers a layer
     # phase p works 3 ns and waits 1 ns
     t = torch.tensor([0] + [v for p in range((n - 1) // 2)
                             for v in (4 * p + 3, 4 * p + 4)])

@@ -203,6 +203,53 @@ def test_weights_as_register_a_and_swizzled_x_give_the_plain_product(
                                atol=2e-5 * np.abs(want).max())
 
 
+RING_BYTES = 200 * 1024   # the products' shared memory (csrc kRingBytes)
+SMEM_LIMIT = 232448       # dynamic shared memory a block of the H100 takes
+MAX_E = 512               # csrc kMaxE: the routed tables' experts
+
+
+def product_ring_layout(bits: int, NR: int) -> dict:
+    """csrc/di_prefill_layer.cuh `PRing` (the wgmma products' ring), in
+    bytes from the 1024-byte aligned base: the stages (x tile of NR rows,
+    the payload chunk, the qparam rows of a quantized stream), the
+    mbarriers, the cursor and the context (`end`)."""
+    chunk = 64 * {4: 128, 8: 256, 16: 512}[bits]
+    stage = NR * 128 + chunk + (0 if bits == 16 else 2048)
+    stages = min(8, RING_BYTES // stage)
+    bar = stages * stage
+    return dict(stage=stage, stages=stages, bar=bar,
+                end=bar + 16 * stages + 96 + 96)
+
+
+def kernel_smem_bytes() -> int:
+    """csrc `pmk_smem_bytes`: the alignment slack, the products' ring and
+    the routed tables."""
+    return 1024 + RING_BYTES + 1024 + (3 * MAX_E + 1) * 4
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("stream", ["u4", "i8", "bf16"])
+def test_dense_product_stage_budget(n, stream):
+    """The dense and the expert products' rings at Qwen2-7B's shapes on
+    one card and a rank's of (1, 2) / (1, 4) meshes: every product's K a
+    whole number of chunks, every x tile 1024-byte aligned, at least three
+    stages (the next chunk is issued two back), the ring within its bytes
+    and the whole block within the card's 227 KB."""
+    bits = {"u4": 4, "i8": 8, "bf16": 16}[stream]
+    hid, inter, H, D = 3584, 18944, 28, 128
+    K_of = {"qkv": hid, "o": H * D // n, "gu": hid, "dn": inter // n}
+    for name, K in K_of.items():
+        assert K % tmk.CHUNK_K == 0, name
+    for NR in (tpmk.M_TILE, 64):
+        lay = product_ring_layout(bits, NR)
+        assert lay["stage"] % 1024 == 0
+        assert lay["stages"] >= 3
+        assert lay["end"] <= RING_BYTES + 1024
+    assert kernel_smem_bytes() <= SMEM_LIMIT
+    if bits == 4:
+        assert product_ring_layout(4, tpmk.M_TILE)["stages"] == 7
+
+
 @pytest.mark.parametrize("R", [128, 4672])
 def test_x_layout_is_a_permutation_with_whole_tiles(R):
     """Every element of an R-row operand has its own place, and the rows of
