@@ -38,7 +38,9 @@ on one of them, and then prints no final result line):
               length and the full bucket each),
               logits and the pool against the plain version; then ms per
               launch for buckets 128 .. 1024 beside the bound and the per-op
-              `prefill_forward`. The probes: the two design probes of
+              `prefill_forward`; two replays of one graph and an eager
+              launch bit-equal at 1024 and at 128 with n = 100. The
+              probes: the two design probes of
               csrc/probes.cu through their tools;
   serve       the slices end to end: Qwen2-7B width (28 layers, random a16w4
               group-128 weights made on the card from a seed), INT8 KV,
@@ -58,11 +60,13 @@ on one of them, and then prints no final result line):
               with INT8, each segment against its plain version, the whole
               TP decode forward (CUDA-graph replay) against `tp_decode_ref`
               and against the single-device decode megakernel on the same
-              weights and state; the attn segment's two graph replays and
+              weights and state; the mlp segment also at B = 32 and on the
+              per-channel int8 and bf16 (two layers) weight streams (n =
+              2, INT8); the attn and mlp segments' two graph replays and
               an eager launch bit-equal; then (n = 2, INT8) ms per segment
-              launch
-              beside its bound and plain version, and ms per TP step beside
-              the single-device megakernel's;
+              launch beside its bound and plain version (the attn and mlp
+              segments' per-phase times), and ms per TP step beside the
+              single-device megakernel's;
   tp_prefill  the tensor-parallel prefill segment kernels
               (csrc/tp_prefill_segments.cu) of every rank of a (1, n) mesh
               whose ranks share the card, at Qwen2-7B width and depth:
@@ -77,9 +81,11 @@ on one of them, and then prints no final result line):
               megakernel on the same weights and prompt; that the runtime's
               TP prefill install takes buckets 128 .. 1024 at n = 2 and 4;
               the mlp segment's two graph replays and an eager launch
-              bit-equal at bucket 1024;
+              bit-equal at bucket 1024, the attn segment's at 1024 and at
+              128 with n = 100;
               then (n = 2, INT8, full buckets) ms per segment launch beside
-              its bound and plain version (attn and mlp beside their
+              its bound and plain version (their per-phase times; attn and
+              mlp beside their
               product's yardstick, `torch.matmul` of the rank's q|k|v /
               gate|up on the bf16 weight), and the whole TP prefill by
               graph replay and eagerly beside the single-device prefill
@@ -2591,6 +2597,22 @@ def check_prefill_megakernel(params, dev, details):
                                         bucket, n, gen, dev))
     times = [time_prefill(cfg, params, b, gen, dev, b in (128, 1024))
              for b in (128, 256, 512, 1024)]
+    # a launch repeats bit for bit, at a full bucket and a served length
+    # (inputs of their own generator)
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(SEED + 47)
+    for bucket, n in ((1024, 1024), (128, 100)):
+        plan, packed = pmk_plan_pack(cfg, params, bucket, CacheMode.INT8)
+        st = pmk_inputs(cfg, params, plan, CacheMode.INT8, n, g2, dev)
+        replays_bit_equal(
+            f"prefill_megakernel u4/int8 {bucket} n={n}",
+            lambda: pmk.prefill_megakernel(
+                plan, packed, st["x0"], st["cos"], st["sin"], st["page_row"],
+                st["n"], st["cache"]))
+        pmk.check_status(dev)
+        del plan, packed, st
+    torch.cuda.empty_cache()
     yard = gate_up_yardstick(cfg, dev)
     for t in times:
         if "phases" in t and str(t["bucket"]) in yard:
@@ -3084,6 +3106,63 @@ def check_tp_segment_case(cfg, params, n, mode, gen, dev, timing):
     return row
 
 
+# the mlp segment beyond TP_CASES: B = 32 (its two-m-tile instantiation;
+# a (1, 2) mesh, INT8 KV), and the per-channel int8 and the bf16 (two
+# layers) weight streams at B = 8: its 8- and 16-bit products
+TP_MLP_B32_LENS = [(37 + 61 * i) % 1500 + 1 for i in range(32)]
+
+
+def check_tp_mlp_cases(cfg, params, gen, dev):
+    """The mlp segment of every rank at its first and last layer against its
+    plain version (the partial <= LOGITS_RTOL of its largest in the active
+    rows, x + add equal), at B = 32 and on the int8 and bf16 streams; at
+    B = 32 also two graph replays and an eager launch bit-equal."""
+    import dataclasses
+    import torch
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    rows = []
+    for stream, B, scfg, make in (
+            ("u4", 32, cfg, lambda: params),
+            ("i8", 8, cfg, lambda: dict(
+                random_qwen2_7b_params(SEED + 1, dev, stream="i8"),
+                embed_tokens=params["embed_tokens"])),
+            ("bf16 (2 layers)", 8, dataclasses.replace(cfg, num_layers=2),
+             lambda: bf16_params(params, 2))):
+        p = make()
+        s = tp_setup(scfg, p, 2, "INT8", gen, dev, B=B,
+                     lens=TP_MLP_B32_LENS if B == 32 else None)
+        plan, act = s["plan"], s["st"]["active"]
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 43 + B)
+        err = 0.0
+        for r in range(2):
+            add = torch.randn((B, plan.hid), generator=g, device=dev) * 0.5
+            for l in (0, plan.L - 1):
+                x = s["x0"].float()
+                xs = {True: x.clone(), False: x.clone()}
+                got = tpk.tp_mlp_segment(plan, s["packs"][r], l, xs[True],
+                                         add=add)
+                tpk.check_status(plan, dev)
+                ref = tpk.mlp_segment_ref(plan, s["packs"][r], l, xs[False],
+                                          add=add)
+                what = f"tp_mlp_segment n=2 {stream} B={B} rank {r} layer {l}"
+                check(bool((xs[True] == xs[False]).all()),
+                      f"{what}: x + add differs")
+                err = max(err, held_rows(got, ref, act, what))
+        if B == 32:
+            x = s["x0"].float()
+            replays_bit_equal(f"tp_mlp_segment n=2/int8 {stream} B={B}",
+                              lambda: tpk.tp_mlp_segment(
+                                  plan, s["packs"][0], 0, x))
+            tpk.check_status(plan, dev)
+        print(f"tp_mlp_segment n=2 {stream} B={B}: max|d| {err:.3e} (every "
+              "rank, first and last layer)", flush=True)
+        rows.append(dict(stream=stream, B=B, err=err))
+        del s, p, plan, act
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tp_moe_bound(plan, act, dev):
     """(bytes, operations) of rank 0's last moe segment launch of layer 0:
     the global router, the rank's experts that its active rows routed to
@@ -3147,6 +3226,9 @@ def tp_timing(cfg, s, plan1, pack1, c1, step, dev):
     if plan.E:
         traced["moe"] = (tpk.MOE_SEG_PHASES, lambda t: tpk.tp_moe_segment(
             plan, pk, 0, x, 0, s["st"]["active"], trace=t))
+    else:
+        traced["mlp"] = (tpk.MLP_SEG_PHASES, lambda t: tpk.tp_mlp_segment(
+            plan, pk, 0, x, trace=t))
     out = {}
     for name, (fn, plain, nbytes, ops) in segs.items():
         ms = time_ms(fn, [()], iters=20)
@@ -3222,19 +3304,26 @@ def check_tp_segments(params, dev, details):
         rows.append(check_tp_segment_case(cfg, params, n, mode, gen, dev,
                                           timing=i == 0))
         torch.cuda.empty_cache()
-    # the attn segment's epilogue and merge tickets go back to 0
+    # the attn segment's epilogue and merge tickets go back to 0; the mlp
+    # segment repeats bit for bit
     s = tp_setup(cfg, params, 2, "INT8", gen, dev)
     st, x = s["st"], s["x0"].float()
     replays_bit_equal("tp_attn_segment n=2/int8", lambda: tpk.tp_attn_segment(
         s["plan"], s["packs"][0], 0, x, st["cos"], st["sin"], st["pt"],
         st["lens"], st["active"], s["caches"][0]))
+    replays_bit_equal("tp_mlp_segment n=2/int8", lambda: tpk.tp_mlp_segment(
+        s["plan"], s["packs"][0], 0, x))
     tpk.check_status(s["plan"], dev)
     del s, st, x
     torch.cuda.empty_cache()
+    mlp_rows = check_tp_mlp_cases(cfg, params, gen, dev)
     details["tp_segments"] = rows
+    details["tp_mlp_segment_cases"] = mlp_rows
     t = rows[0]["segments"]
+    err = {k: max(r["errs"][k] for r in rows) for k in ("attn", "mlp", "lm")}
+    err["mlp"] = max([err["mlp"]] + [r["err"] for r in mlp_rows])
     return {f"tp_{k}_segment": dict(
-        max_abs_err=max(r["errs"][k] for r in rows), ms=t[k]["ms"],
+        max_abs_err=err[k], ms=t[k]["ms"],
         plain_ms=t[k]["plain_ms"], bound_ms=t[k]["bound_ms"],
         bound_by=t[k]["bound_by"], library_ms=None)
         for k in ("attn", "mlp", "lm")}
@@ -3534,6 +3623,7 @@ def tp_prefill_timing(cfg, params, s, single, case, dev):
     prefill megakernel and the per-op TP prefill on the same prompt."""
     import torch
     from dashinfer_tpu_torch.models import transformer
+    from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
     from dashinfer_tpu_torch.ops import tp_megakernel as tpk
     plan, plan1, st = case
@@ -3593,6 +3683,24 @@ def tp_prefill_timing(cfg, params, s, single, case, dev):
               f"{out[name]['bound_ms']:.4f} ({out[name]['bound_by']}; "
               f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP), plain "
               f"{out[name]['plain_ms']:.1f} ms", flush=True)
+        traced = {"attn": (tpk.PREFILL_ATTN_SEG_PHASES,
+                           lambda t: tpk.tp_prefill_attn_segment(
+                               plan, pk, 0, x, *step, cache, add=add,
+                               trace=t)),
+                  "mlp": (tpk.PREFILL_MLP_SEG_PHASES,
+                          lambda t: tpk.tp_prefill_mlp_segment(
+                              plan, pk, 0, x, st["n"], add=add, trace=t))}
+        if name in traced:      # block 0's phases in one launch
+            names, run = traced[name]
+            trace = torch.zeros(2 * len(names) + 1, dtype=torch.int64,
+                                device=dev)
+            run(trace)
+            tpk.check_prefill_status(dev)
+            out[name]["phases"] = mk.phase_times_of(names, trace)
+            print("    phases, ms work+wait (block 0, one traced launch): "
+                  + ", ".join(f"{k} {v['work']:.4f}+{v['wait']:.4f}"
+                              for k, v in out[name]["phases"].items()),
+                  flush=True)
     # the segments' product yardstick: torch.matmul of x [S, hid] bf16 by
     # the rank's q|k|v (attn) or gate|up (mlp) weight in bf16, dequantized
     # beforehand (the rate the card's library reaches on that product;
@@ -3692,6 +3800,23 @@ def check_tp_prefill(params, dev, details):
                     "tp_prefill_mlp_segment n=2/int8 1024",
                     lambda: tpk.tp_prefill_mlp_segment(
                         plan, s["packs"][0], 0, x, st["n"]))
+                # the attn segment repeats bit for bit too (a served length
+                # at 128 on inputs of its own generator)
+                g2 = torch.Generator(device=dev)
+                g2.manual_seed(SEED + 47)
+                for b, n_ in ((1024, 1024), (128, 100)):
+                    p_ = plan if b == 1024 else tpk.make_tp_prefill_plans(
+                        cfg, tp_prefill_rt(2, CacheMode.INT8), s["parts"],
+                        [b], s["tp_plan"])[b]
+                    st_ = st if b == 1024 else tp_prefill_inputs(
+                        cfg, params, s, p_, CacheMode.INT8, n_, g2, dev)
+                    x_ = st_["x0"].float()
+                    replays_bit_equal(
+                        f"tp_prefill_attn_segment n=2/int8 {b} n={n_}",
+                        lambda: tpk.tp_prefill_attn_segment(
+                            p_, s["packs"][0], 0, x_, st_["cos"], st_["sin"],
+                            st_["page_row"], st_["n"], st_["caches"][0]))
+                    del p_, st_, x_
                 tpk.check_prefill_status(dev)
                 del plan, st, x
             del case

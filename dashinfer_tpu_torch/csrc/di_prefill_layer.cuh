@@ -1048,25 +1048,49 @@ __device__ void rope_kv(const PArgs& a, int layer, int rows, int n) {
 }
 
 // Causal attention of one layer over the bf16 q / k / v scratch. Item =
-// (query head, 128-row query tile); a warp takes 16 rows. Pass 1 finds each
-// row's maximum and sum over its key tiles, pass 2 forms p = exp(s - m) / l,
-// rounds it to bf16 and accumulates p @ v.
+// (query head, 64-row half of a 128-row query tile); warps 0-3 and 4-7
+// each take the half's 16-row groups (warp w rows 16 (w % 4) ..), the
+// first over its even key tiles, the second over its odd ones, so a long
+// range is two blocks' halves and two warp groups' shares at once. Pass 1
+// finds each row's maximum and sum over the group's tiles; the two
+// groups' are combined through shared memory in a fixed order (m = the
+// larger, l = l_a e^(m_a - m) + l_b e^(m_b - m)); pass 2 forms p =
+// exp(s - m) / l, rounds it to bf16 (the plain version's rounding point)
+// and accumulates p @ v over the group's tiles; the odd group's o is added
+// to the even group's through shared memory. The items go longest first
+// (most key tiles), dealt to the blocks in rounds that turn back at each
+// end (round r's item r x grid + b goes to block b, or to block grid - 1 -
+// b in odd rounds), so the block with a round's longest item takes the
+// next round's shortest. The key tiles come through two cp.async stages
+// of two tiles (one a group): the next step's copies are in flight while
+// the products of this one run.
 __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
+  const int grp = warp >> 2, wq = warp & 3;   // key-tile group, row group
   const int H = a.H, KH = a.KH, G = H / KH;
   const int HD = H * kD, KD = KH * kD;
+  constexpr int kTile = kKeyTile * kKVPad;   // bf16 of a staged K or V tile
+  // K tiles [stage][group], then V tiles [stage][group], then the groups'
+  // exchange: (m, l) of every thread, then the odd group's o
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kKeyTile * kKVPad;
-  const int n_items = H * mtiles;
+  __nv_bfloat16* Vs = Ks + 4 * kTile;
+  float4* xml = reinterpret_cast<float4*>(Vs + 4 * kTile);   // [8][32]
+  float4* xo = xml + kThreads;                   // [kD / 8][4][32]
+  const int n_items = 2 * H * mtiles;
 
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    // the longest tiles (most key tiles) first
-    const int hh = item % H, qt = mtiles - 1 - item / H;
+  for (int round = 0;; ++round) {
+    const int item = round * gridDim.x +
+                     (round & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+    if (item >= n_items) break;   // and in every later round
+    // the longest halves (most key tiles) first
+    const int hh = item % H, r = item / H;
+    const int qt = mtiles - 1 - r / 2, hf = 1 - r % 2;
     const int h = hh / G;
-    const int q0 = qt * kMTile + warp * 16;
+    const int q0 = qt * kMTile + hf * 64 + wq * 16;
     const int r0 = q0 + gid, r1 = r0 + 8;
-    const int nkt = (qt * kMTile + kMTile) / kKeyTile;
+    const int nkt = 2 * qt + hf + 1;     // key tiles up to the half's end
+    const int nst = (nkt + 1) / 2;       // steps: tiles 2 s and 2 s + 1
 
     uint32_t qf[kD / 16][4];
 #pragma unroll
@@ -1087,13 +1111,21 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
                    src + (size_t)(k0 + row) * KD + h * kD + seg * 8);
       }
     };
+    // step st's tiles 2 st + g into stage b (`kv`: V too)
+    auto load_step = [&](int st, int b, bool kv) {
+      for (int g = 0; g < 2 && 2 * st + g < nkt; ++g) {
+        load_tile(a.kb, Ks + (2 * b + g) * kTile, (2 * st + g) * kKeyTile);
+        if (kv)
+          load_tile(a.vb, Vs + (2 * b + g) * kTile, (2 * st + g) * kKeyTile);
+      }
+    };
     // s[j][.] = scaled, masked scores of this warp's 16 rows against keys
     // k0 + 8 j + 2 tig (+1)
-    auto scores = [&](int k0, float (&s)[8][4]) {
+    auto scores = [&](const __nv_bfloat16* Kt, int k0, float (&s)[8][4]) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        const __nv_bfloat16* kp = Ks + (8 * j + gid) * kKVPad + 2 * tig;
+        const __nv_bfloat16* kp = Kt + (8 * j + gid) * kKVPad + 2 * tig;
 #pragma unroll
         for (int ks = 0; ks < kD / 16; ++ks)
           mma_bf16_16816(s[j], qf[ks],
@@ -1106,18 +1138,28 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
         s[j][3] = key + 1 <= r1 ? s[j][3] * a.att_scale : -FLT_MAX;
       }
     };
-
-    float m0 = -FLT_MAX, m1 = -FLT_MAX, l0 = 0.f, l1 = 0.f;
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int k0 = kt * kKeyTile;
-      __syncthreads();            // the tile before has been read
-      load_tile(a.kb, Ks, k0);
+    // step st's stage: its copies waited for (the next step's, issued
+    // first into the other stage, stay in flight)
+    auto next_stage = [&](int st, bool kv) {
+      __syncthreads();            // the stage of step st - 1 has been read
+      if (st + 1 < nst) load_step(st + 1, (st + 1) & 1, kv);
       cp_async_commit();
-      cp_async_wait<0>();
+      cp_async_wait<1>();
       __syncthreads();
-      if (k0 > q0 + 15) continue;   // warp-uniform: all keys masked
+    };
+
+    // pass 1: the group's running (max, sum) over its tiles; a tile wholly
+    // past the warp's rows is skipped (warp-uniform)
+    float m0 = -FLT_MAX, m1 = -FLT_MAX, l0 = 0.f, l1 = 0.f;
+    __syncthreads();              // the item before is done with the memory
+    load_step(0, 0, false);
+    cp_async_commit();
+    for (int st = 0; st < nst; ++st) {
+      next_stage(st, false);
+      const int kt = 2 * st + grp, k0 = kt * kKeyTile;
+      if (kt >= nkt || k0 > q0 + 15) continue;
       float s[8][4];
-      scores(k0, s);
+      scores(Ks + (2 * (st & 1) + grp) * kTile, k0, s);
       float t0 = -FLT_MAX, t1 = -FLT_MAX;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -1144,21 +1186,32 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
       m0 = n0;
       m1 = n1;
     }
+    // the rows' (m, l) from both groups', the even group's first (a group
+    // with no key of a row has m = -FLT_MAX, l = 0 there)
+    xml[warp * 32 + lane] = make_float4(m0, l0, m1, l1);
+    __syncthreads();
+    {
+      const float4 ea = xml[wq * 32 + lane], eb = xml[(wq + 4) * 32 + lane];
+      m0 = fmaxf(ea.x, eb.x);
+      m1 = fmaxf(ea.z, eb.z);
+      l0 = ea.y * expf(ea.x - m0) + eb.y * expf(eb.x - m0);
+      l1 = ea.w * expf(ea.z - m1) + eb.w * expf(eb.z - m1);
+    }
 
+    // pass 2: p = exp(s - m) / l, rounded to bf16, times V
     float o[kD / 8][4];
 #pragma unroll
     for (int j = 0; j < kD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int k0 = kt * kKeyTile;
-      __syncthreads();
-      load_tile(a.kb, Ks, k0);
-      load_tile(a.vb, Vs, k0);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (k0 > q0 + 15) continue;
+    __syncthreads();              // pass 1's stages are read
+    load_step(0, 0, true);
+    cp_async_commit();
+    for (int st = 0; st < nst; ++st) {
+      next_stage(st, true);
+      const int kt = 2 * st + grp, k0 = kt * kKeyTile;
+      if (kt >= nkt || k0 > q0 + 15) continue;
+      const __nv_bfloat16* Vt = Vs + (2 * (st & 1) + grp) * kTile;
       float s[8][4];
-      scores(k0, s);
+      scores(Ks + (2 * (st & 1) + grp) * kTile, k0, s);
 #pragma unroll
       for (int kk = 0; kk < kKeyTile / 16; ++kk) {
         // p of keys k0 + 16 kk .. + 15 as the A operand (the score tiles'
@@ -1173,7 +1226,7 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
         pf[3] = pack_bf16(expf(s[2 * kk + 1][2] - m1) / l1,
                           expf(s[2 * kk + 1][3] - m1) / l1);
         const __nv_bfloat16* vrow =
-            Vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kKVPad +
+            Vt + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kKVPad +
             8 * (lane >> 4);
 #pragma unroll
         for (int dp = 0; dp < kD / 16; ++dp) {
@@ -1184,14 +1237,25 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
         }
       }
     }
-    // attn_out in the x layout of the o product
+    // the odd group's o into the even group's, then attn_out in the x
+    // layout of the o product
+    if (grp == 1) {
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      const int k = hh * kD + 8 * j + 2 * tig;
-      *reinterpret_cast<uint32_t*>(a.attn + xoff(a.S, r0, k)) =
-          pack_bf16(o[j][0], o[j][1]);
-      *reinterpret_cast<uint32_t*>(a.attn + xoff(a.S, r1, k)) =
-          pack_bf16(o[j][2], o[j][3]);
+      for (int j = 0; j < kD / 8; ++j)
+        xo[(j * 4 + wq) * 32 + lane] =
+            make_float4(o[j][0], o[j][1], o[j][2], o[j][3]);
+    }
+    __syncthreads();
+    if (grp == 0) {
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        const float4 v = xo[(j * 4 + wq) * 32 + lane];
+        const int k = hh * kD + 8 * j + 2 * tig;
+        *reinterpret_cast<uint32_t*>(a.attn + xoff(a.S, r0, k)) =
+            pack_bf16(o[j][0] + v.x, o[j][1] + v.y);
+        *reinterpret_cast<uint32_t*>(a.attn + xoff(a.S, r1, k)) =
+            pack_bf16(o[j][2] + v.z, o[j][3] + v.w);
+      }
     }
   }
 }

@@ -18,7 +18,8 @@
 // < n quantized per token and KV head from the f32 values and written to the
 // request's pages; causal softmax attention (two passes over the key tiles:
 // row maximum and sum first, then p = exp(s - m) / l rounded to bf16 for the
-// PV product, as the TPU kernel rounds it) -> attn_out bf16; o product into
+// PV product, as the TPU kernel rounds it; two warp groups' partial sums
+// added in a fixed order) -> attn_out bf16; o product into
 // the f32 residual; RMSNorm; gate|up products; SwiGLU rounded to bf16; down
 // product into the residual. Then the final norm of row n - 1 and the
 // lm_head for that row. The score product's operands are bf16 q and k (the
@@ -68,9 +69,11 @@
 // computed and never read by a valid row. Each payload kind's product is
 // inlined at ONE place in the kernel (`product`): ptxas serializes a wgmma
 // pipeline that crosses a function call. An attention item is (query
-// head, 128-row query tile), a warp 16 rows, over 64-key tiles of bf16 K /
-// V staged in shared memory; V's mma operand comes from ldmatrix.trans. The
-// lm_head's one row stays on mma.sync (wgmma with N = 1 gains nothing).
+// head, 64-row half of a 128-row query tile), two warp groups of four
+// sharing its key tiles, dealt longest first in rounds that turn back,
+// over 64-key tiles of bf16 K / V in two cp.async stages; V's mma operand
+// comes from ldmatrix.trans.
+// The lm_head's one row stays on mma.sync (wgmma with N = 1 gains nothing).
 //
 // MoE layers: the experts run over their routed rows only. After norm2:
 // the router product (bf16, a 256-column stream) and a gates phase (one

@@ -45,8 +45,10 @@
 // product's K splits, in a fixed order, into the partial the wrapper
 // allocated for this rank, so the ranks that share a card share the
 // scratch but not their partials, and a prefill repeats bit for bit. The
-// attention items are (query head, 128-row query tile) and fall with the
-// rank's heads: at bucket 128, 14 (n = 2) or 7 (n = 4) items on 132 SMs.
+// attention items fall with the rank's heads, so they are (query head,
+// 64-row half of a query tile), two warp groups of a block sharing a
+// half's key tiles (di_prefill_layer.cuh): at bucket 1024 and n = 2, 224
+// halves on 132 SMs, where (query head, query tile) items were 112.
 // The lm segment has one row: its items are the vocab shard's 256-column
 // tiles (297 at n = 2), each streaming its whole K, so it is bound by the
 // shard's bytes.

@@ -725,6 +725,9 @@ def _check_device(who: str, x: torch.Tensor) -> None:
 # splits are summed in its epilogue, the attention chunks merged in the
 # attention phase; the last phase, the sum of o's splits, is not traced)
 ATTN_SEG_PHASES = ("resid", "norm", "qkv", "attention", "o")
+# the mlp segment's, likewise (the last phase, the sum of down's splits,
+# is not traced)
+MLP_SEG_PHASES = ("resid", "norm", "gate_up", "swiglu", "down")
 # the moe segment's, likewise (its last phase, the gated sum into the
 # partial, is not traced)
 MOE_SEG_PHASES = ("resid", "norm", "router", "gates", "gate_up", "swiglu",
@@ -772,16 +775,20 @@ def tp_attn_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
 
 
 def tp_mlp_segment(plan: mk.MegaPlan, packed: Dict, layer: int,
-                   x: torch.Tensor,
-                   add: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   x: torch.Tensor, add: Optional[torch.Tensor] = None,
+                   trace: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer's MLP segment of one rank: x += add, then the down partial
-    [B, hid] f32 (see `tp_attn_segment`)."""
+    [B, hid] f32 (see `tp_attn_segment`). `trace` (int64
+    [2 * len(MLP_SEG_PHASES) + 1] on the card): block 0's timestamps, read
+    with `megakernel.phase_times_of(MLP_SEG_PHASES, trace)`."""
     if x.device.type == "cpu":
         return mlp_segment_ref(plan, packed, layer, x, add)
     _check_device("tp_mlp_segment", x)
     out = torch.empty((plan.B, plan.hid), dtype=torch.float32,
                       device=x.device)
-    _launch("mlp", plan, packed, layer, x, add, out, tp_mlp_segment.counter)
+    _check_trace("tp_mlp_segment", MLP_SEG_PHASES, trace, x.device)
+    _launch("mlp", plan, packed, layer, x, add, out, tp_mlp_segment.counter,
+            trace=trace)
     return out
 
 
@@ -1117,7 +1124,8 @@ def tp_prefill_attn_segment(plan, packed: Dict, layer: int, x: torch.Tensor,
                             cos: torch.Tensor, sin: torch.Tensor,
                             page_row: torch.Tensor, n_tokens: torch.Tensor,
                             cache: KVCache,
-                            add: Optional[torch.Tensor] = None
+                            add: Optional[torch.Tensor] = None,
+                            trace: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """One layer's prefill attention segment of one rank. `plan`: the local
     PrefillPlan; packed: the rank's pack (its TP decode pack); x [S, hid]
@@ -1128,22 +1136,29 @@ def tp_prefill_attn_segment(plan, packed: Dict, layer: int, x: torch.Tensor,
     (its KV heads), updated in place at rows < n of the owned pages.
     Returns the o partial [S, hid] f32. The kernel computes the row tiles
     that hold prompt rows (their x rows take `add`) and returns zeros in the
-    rows after them. CPU tensors take `prefill_attn_segment_ref`; CUDA
-    tensors launch the kernel or raise."""
+    rows after them. `trace` (int64 [2 * len(PREFILL_ATTN_SEG_PHASES) +
+    1] on the card) gets block 0's timestamps: read it with
+    `megakernel.phase_times_of(PREFILL_ATTN_SEG_PHASES, trace)`. CPU
+    tensors take `prefill_attn_segment_ref`; CUDA tensors launch the kernel
+    or raise."""
     if x.device.type == "cpu":
         return prefill_attn_segment_ref(plan, packed, layer, x, cos, sin,
                                         page_row, n_tokens, cache, add)
     _check_device("tp_prefill_attn_segment", x)
     out = torch.empty((plan.S, plan.hid), dtype=torch.float32,
                       device=x.device)
+    _check_trace("tp_prefill_attn_segment", PREFILL_ATTN_SEG_PHASES, trace,
+                 x.device)
     _prefill_launch("attn", plan, packed, layer, x, n_tokens, add, out,
-                    tp_prefill_attn_segment.counter, cos=cos, sin=sin,
-                    page_row=page_row, cache=cache)
+                    tp_prefill_attn_segment.counter, trace=trace, cos=cos,
+                    sin=sin, page_row=page_row, cache=cache)
     return out
 
 
-# the prefill mlp segment's phases, each followed by a grid barrier (the
+# the prefill segments' phases, each followed by a grid barrier (the
 # barrier after the splits' sum is a traced launch's alone)
+PREFILL_ATTN_SEG_PHASES = ("norm", "qkv", "rope_kv", "attention", "o",
+                           "sum")
 PREFILL_MLP_SEG_PHASES = ("norm", "gate_up", "swiglu", "down", "sum")
 
 

@@ -350,6 +350,11 @@ def _seg_phases(mk, tpk, key, s, step, moe, dev) -> dict:
         out[f"{key}_attn_phases"] = _mean_phases(mk, names, lambda t: (
             tpk.tp_attn_segment(s["plan"], s["packs"][0], 0, x, *step,
                                 s["caches"][0], trace=t)), dev)
+    names = getattr(tpk, "MLP_SEG_PHASES", None)
+    if not moe and names:
+        out[f"{key}_mlp_phases"] = _mean_phases(mk, names, lambda t: (
+            tpk.tp_mlp_segment(s["plan"], s["packs"][0], 0, x, trace=t)),
+            dev)
     names = getattr(tpk, "MOE_SEG_PHASES", None)
     if moe and names:
         out[f"{key}_moe_phases"] = _mean_phases(mk, names, lambda t: (
@@ -439,6 +444,12 @@ def _tp_prefill(cs, cfg, params, gen, dev, stream="u4") -> dict:
             out[f"{pre}_mlp_phases_{bucket}"] = _mean_phases(
                 mk, names, lambda t: tpk.tp_prefill_mlp_segment(
                     plan, pk, 0, x, st["n"], trace=t), dev)
+            tpk.check_prefill_status(dev)
+        names = getattr(tpk, "PREFILL_ATTN_SEG_PHASES", None)
+        if names and bucket in PREFILL_TRACED:
+            out[f"{pre}_attn_phases_{bucket}"] = _mean_phases(
+                mk, names, lambda t: tpk.tp_prefill_attn_segment(
+                    plan, pk, 0, x, *step, cache, trace=t), dev)
             tpk.check_prefill_status(dev)
         del st
         torch.cuda.empty_cache()
