@@ -99,7 +99,22 @@ on one of them, and then prints no final result line):
               ms/step printed for the first two. The ranks take distinct
               cards (NCCL) when the machine has two, else share this one
               (a sum on the card).
-Then Qwen2-7B's weights go, and the MoE slice runs at Qwen1.5-MoE-A2.7B width
+Then Qwen2-7B's weights go, and Qwen3-8B (per-head QK RMSNorm; 36 layers,
+32 heads on 8 KV heads, vocab 151936, random a16w4 weights made on the
+card with q_norm / k_norm not all ones) runs:
+  qwen3       the QK-norm branch of the four kernels that compute attention
+              against their plain versions: the decode megakernel (B = 8,
+              INT8 / UINT4 / DEFAULT KV; B = 32), the prefill megakernel
+              (every bucket 128 .. 1024, a served length and full), the TP
+              attn, mlp and lm segments and the TP prefill segments of every
+              rank of a (1, 2) mesh (INT8, UINT4; the lm segments over the
+              75968-column vocab shard, 64 mod 128); two graph replays and
+              an eager launch bit-equal for each of the four; their times
+              beside their bounds;
+  serve_qwen3 Qwen3-8B served with `serve`'s traffic with every flag at its
+              default, per-op and on a (1, 2) mesh, launch counts checked,
+              the greedy requests' first 8 tokens equal across the three.
+Then the MoE slice runs at Qwen1.5-MoE-A2.7B width
 (24 layers, 60 experts top-4 + a shared expert, random a16w4 weights made on
 the card): `megakernel` and `prefill_megakernel` hold the two kernels' MoE
 branches against their plain versions (KV modes, B = 8 / 32, every bucket
@@ -130,7 +145,17 @@ card:
               counts checked (no TP prefill segment), the greedy requests'
               first 8 tokens held to the single-device serving's on the
               same path, TTFT and ms/step printed.
-It prints a `{"kernels": [...]}` line, the nvidia-smi line, and last
+Last, at Qwen3-30B-A3B's width, cut to 4 layers (128 experts top-8 of width
+768, no shared expert, norm_topk_prob, QK-norm, 32 heads on 4 KV heads):
+  qwen3_moe   both megakernels' MoE branches with the QK-norm branch
+              against their plain versions under the MoE rules (decode: the
+              flip caps and the planted router fault; prefill: routed as
+              the kernel routed, every token held), the TP moe segment of
+              every rank of a (1, 2) mesh at B = 32, their times, and the
+              model served with every flag at its default (launch counts
+              checked).
+It prints a `{"kernels": [...]}` line (each kernel's Qwen3 and Qwen3-MoE
+numbers under `qwen3` / `qwen3_moe`), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. It needs the repository around it (the
 `dashinfer_tpu_torch` package) and a CUDA card; without either it exits
 non-zero before printing any result. It imports no JAX.
@@ -169,6 +194,28 @@ QWEN15_MOE_EXPERTS = dict(num_experts=60, num_experts_per_tok=4,
                           moe_intermediate_size=1408,
                           shared_expert_intermediate_size=5632,
                           norm_topk_prob=False)
+# Qwen3-8B (the published Qwen/Qwen3-8B config.json, written out): vocab
+# 151936 (128 mod 256), hidden 4096, inter 12288, 36 layers, 32 heads on 8
+# KV heads (G = 4), head_dim 128, no qkv bias, per-head QK RMSNorm, rope
+# 1e6, rms eps 1e-6, untied
+QWEN3_8B = dict(arch="qwen3", vocab_size=151936, hidden_size=4096,
+                intermediate_size=12288, num_layers=36, num_heads=32,
+                num_kv_heads=8, head_dim=128, qkv_bias=False, qk_norm=True,
+                rope_theta=1000000.0, rms_norm_eps=1e-6)
+# Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B config.json): vocab 151936, hidden
+# 2048, 48 layers (cut to QWEN3_MOE_LAYERS here), 32 heads on 4 KV heads
+# (G = 8, H * D = 4096 against hidden 2048), head_dim 128, QK-norm, no qkv
+# bias; 128 experts, top-8, expert width 768, no shared expert,
+# norm_topk_prob True
+QWEN3_MOE = dict(arch="qwen3_moe", vocab_size=151936, hidden_size=2048,
+                 intermediate_size=6144, num_layers=48, num_heads=32,
+                 num_kv_heads=4, head_dim=128, qkv_bias=False, qk_norm=True,
+                 rope_theta=1000000.0, rms_norm_eps=1e-6)
+QWEN3_MOE_EXPERTS = dict(num_experts=128, num_experts_per_tok=8,
+                         moe_intermediate_size=768,
+                         shared_expert_intermediate_size=0,
+                         norm_topk_prob=True)
+QWEN3_MOE_LAYERS = 4
 GROUP = 128
 DECODE_BATCH = 8          # max_batch of the served model and of the timings
 PAGE = 64
@@ -1043,14 +1090,18 @@ def moe_config(layers: int = None):
 
 
 def random_moe_params(cfg, seed: int, dev):
-    """Random a16w4 group-128 weights at Qwen1.5-MoE width (the
+    """Random a16w4 group-128 weights at a MoE model's width (the
     distribution of bench.py's build_qwen15_moe_params: u4 levels uniform,
     scale in [1e-4, 2.1e-3), zero = -8 scale; an f32 router and shared-expert
-    gate of std 0.05), made on the card, with the 1408-wide expert stacks
-    re-laid out and padded as the install does (`prepare_grouped_experts`)."""
+    gate of std 0.05), made on the card, with the expert stacks re-laid out
+    (Qwen1.5-MoE's 1408 columns padded) as the install does
+    (`prepare_grouped_experts`). A shared expert and its gate, and zero
+    q|k|v biases, where the config has them; a QK-norm model's q_norm /
+    k_norm (`bench_stream.qk_norm_weights`) drawn after the rest."""
     import torch
     from dashinfer_tpu_torch.ops.grouped_quant_matmul import \
         prepare_grouped_experts
+    from dashinfer_tpu_torch.tools.bench_stream import qk_norm_weights
     L, D, hid, V = (cfg.num_layers, cfg.head_dim, cfg.hidden_size,
                     cfg.vocab_size)
     H, KH, moe = cfg.num_heads, cfg.num_kv_heads, cfg.moe
@@ -1077,6 +1128,7 @@ def random_moe_params(cfg, seed: int, dev):
     def randn(*shape, std):
         return torch.randn(shape, generator=gen, device=dev) * std
 
+    bias = cfg.qkv_bias
     params = {
         "embed_tokens": {"w": randn(V, hid, std=0.02).to(torch.bfloat16)},
         "norm": ones(hid),
@@ -1084,20 +1136,24 @@ def random_moe_params(cfg, seed: int, dev):
         "layers": {
             "input_layernorm": ones(L, hid),
             "post_attention_layernorm": ones(L, hid),
-            "q_proj": qlin(hid, H * D, bias=True),
-            "k_proj": qlin(hid, KH * D, bias=True),
-            "v_proj": qlin(hid, KH * D, bias=True),
+            "q_proj": qlin(hid, H * D, bias=bias),
+            "k_proj": qlin(hid, KH * D, bias=bias),
+            "v_proj": qlin(hid, KH * D, bias=bias),
             "o_proj": qlin(H * D, hid),
             "router": {"w": randn(L, hid, E, std=0.05)},
             "experts": {"gate_proj": qlin(hid, Im, (L, E)),
                         "up_proj": qlin(hid, Im, (L, E)),
                         "down_proj": qlin(Im, hid, (L, E))},
-            "shared_expert": {"gate_proj": qlin(hid, sIm),
-                              "up_proj": qlin(hid, sIm),
-                              "down_proj": qlin(sIm, hid)},
-            "shared_expert_gate": {"w": randn(L, hid, 1, std=0.05)},
         },
     }
+    if sIm:
+        params["layers"].update(
+            shared_expert={"gate_proj": qlin(hid, sIm),
+                           "up_proj": qlin(hid, sIm),
+                           "down_proj": qlin(sIm, hid)},
+            shared_expert_gate={"w": randn(L, hid, 1, std=0.05)})
+    if cfg.qk_norm:
+        params["layers"].update(qk_norm_weights(L, D, gen, dev))
     return prepare_grouped_experts(params, cfg)
 
 
@@ -1163,6 +1219,12 @@ def flipped_rows(plan, chosen_kernel, logits_plain, rows, what,
 PROMPT_LENS = [20, 90, 200, 450, 700, 1000]   # buckets 32 .. 1024
 
 
+def model_name(cfg) -> str:
+    """The served model's name in the serving lines and details."""
+    return {"qwen2": "qwen2-7b", "qwen2_moe": "qwen1.5-moe",
+            "qwen3": "qwen3-8b", "qwen3_moe": "qwen3-30b-a3b"}[cfg.arch]
+
+
 def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
           devices=None):
     """Six concurrent requests through `Engine`: path "megakernel" (every
@@ -1204,7 +1266,7 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
                 "tp_prefill_mlp_segment": tpk.tp_prefill_mlp_segment.counter,
                 "tp_prefill_lm_segment": tpk.tp_prefill_lm_segment.counter}
     cfg = cfg or ModelConfig(**QWEN2_7B)
-    name = "qwen1.5-moe" if cfg.moe else "qwen2-7b"
+    name = model_name(cfg)
     label = f"{name} {path}"
     b = (RuntimeConfigBuilder(name).max_length(2048)
          .max_batch(DECODE_BATCH).kv_cache_page_size(PAGE)
@@ -1327,7 +1389,8 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     # fills the kernel's 256-column tiles: Qwen1.5's 151936 does not, and
     # its lm_head takes the large-M formulation, as in the JAX package),
     # and on every projection when its bucket fits the kernel (M <= 32): q,
-    # k, v, o and the MLP's (the MoE model's shared expert's) three; a MoE
+    # k, v, o and the MLP's (a MoE model's shared expert's, where it has
+    # one: Qwen3-MoE has none) three; a MoE
     # layer runs the grouped kernel three times (gate, up, down) in every
     # per-op prefill and decode step; a prefill whose bucket is 128 .. 1024
     # is one prefill megakernel launch on the megakernel path, and under
@@ -1335,7 +1398,9 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     L = cfg.num_layers
     n_r = len(devices) if devices else 1
     lm = int((cfg.vocab_size // n_r) % 256 == 0)
-    per_step = 7 * L + lm
+    mlp_products = 0 if cfg.moe and not \
+        cfg.moe.shared_expert_intermediate_size else 3
+    per_step = (4 + mlp_products) * L + lm
     grouped = 3 * L if cfg.moe else 0
     if path == "pack_only":
         mega_prefills, prefill = len(PROMPT_LENS), 0
@@ -1432,6 +1497,23 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     return launches, tokens, memory
 
 
+def agree_first(a_tokens, b_tokens, what, need=8):
+    """The greedy requests' (even ones') first tokens: equal on at least
+    `need`; returns how many agree, by request."""
+    agree = []
+    for i, (a, b) in enumerate(zip(a_tokens, b_tokens)):
+        if i % 2:
+            continue                # sampled
+        n = min(len(a), len(b))
+        same = next((j for j in range(n) if a[j] != b[j]), n)
+        agree.append(same)
+        print(f"greedy request prompt={PROMPT_LENS[i]}: {what} agree on the "
+              f"first {same} of {n} tokens compared", flush=True)
+        check(same >= need, f"greedy request (prompt {PROMPT_LENS[i]}): "
+              f"{what} agree on only {same} tokens")
+    return agree
+
+
 def check_serving(params, dev, details):
     """The three serving paths on the same weights; the greedy requests'
     first 8 tokens must agree with the per-op path's (the paths round
@@ -1446,21 +1528,10 @@ def check_serving(params, dev, details):
     po_launches, po_tokens, po_mem = serve(
         lambda: random_qwen2_7b_params(SEED, dev), dev, details, "pack_only",
         24)
-    agree = {}
-    for path, toks in (("megakernel", mk_tokens), ("pack_only", po_tokens)):
-        agree[path] = []
-        for i, (a, b) in enumerate(zip(toks, op_tokens)):
-            if i % 2:
-                continue            # sampled
-            n = min(len(a), len(b))
-            same = next((j for j in range(n) if a[j] != b[j]), n)
-            agree[path].append(same)
-            print(f"greedy request prompt={PROMPT_LENS[i]}: {path} and "
-                  f"per-op paths agree on the first {same} of {n} tokens "
-                  f"compared", flush=True)
-            check(same >= 8, f"greedy request (prompt {PROMPT_LENS[i]}): "
-                  f"the {path} and per-op paths agree on only {same} tokens")
-    details["greedy_agreement"] = agree
+    details["greedy_agreement"] = {
+        path: agree_first(toks, op_tokens, f"{path} and per-op paths")
+        for path, toks in (("megakernel", mk_tokens),
+                           ("pack_only", po_tokens))}
     # pack_only: what the install left allocated on the card is the weights
     # it kept and the pool, lower than under `both` (same weights, same
     # pool) by the demoted payloads
@@ -3360,20 +3431,8 @@ def check_serving_tp(params, dev, details, single_tokens):
                                     devices=devices)
         ref = single_tokens["per-op" if path == "tp per-op"
                             else "megakernel"]
-        agree = []
-        for i, (a, b) in enumerate(zip(tokens, ref)):
-            if i % 2:
-                continue                # sampled
-            n = min(len(a), len(b))
-            same = next((j for j in range(n) if a[j] != b[j]), n)
-            agree.append(same)
-            print(f"greedy request prompt={PROMPT_LENS[i]}: {path} and "
-                  f"single-device serving agree on the first {same} of {n} "
-                  "tokens compared", flush=True)
-            check(same >= 8, f"greedy request (prompt {PROMPT_LENS[i]}): "
-                  f"{path} and single-device serving agree on only {same} "
-                  "tokens")
-        details[f"greedy_agreement_{path}"] = agree
+        details[f"greedy_agreement_{path}"] = agree_first(
+            tokens, ref, f"{path} and single-device serving")
         out[path] = launches
     summary = {}
     for path in ("tp", "tp prefill per-op"):
@@ -3430,7 +3489,6 @@ def tp_prefill_setup(cfg, params, n, dev, stream="u4"):
     prefill install admits for this model must be 128 .. 1024. `stream`
     names the weights' payload in the checks' messages."""
     from dashinfer_tpu_torch.config import CacheMode
-    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
     from dashinfer_tpu_torch.ops import tp_megakernel as tpk
     from dashinfer_tpu_torch.parallel import make_mesh, shard_params
     mesh = make_mesh((1, n), [dev] * n)
@@ -3440,7 +3498,7 @@ def tp_prefill_setup(cfg, params, n, dev, stream="u4"):
     qual = [b for b in TP_PREFILL_BUCKETS if tpk.supports_prefill_tp(
         cfg, rt, params, b, n, local=parts[0])]
     plans = tpk.make_tp_prefill_plans(cfg, rt, parts, qual, tp_plan)
-    gaps = {b: pmk.cuda_kernel_gaps(p) for b, p in plans.items()}
+    gaps = {b: tpk.prefill_cuda_kernel_gaps(p) for b, p in plans.items()}
     check(qual == list(TP_PREFILL_BUCKETS) and not any(gaps.values()),
           f"tp prefill n={n}: the install would prefill buckets {qual} "
           f"through the segments (gaps {gaps}), not 128 .. 1024")
@@ -4131,17 +4189,8 @@ def check_serving_tp_moe(params, cfg, dev, details, single_tokens):
                                   ("tp per-op", 24, "per-op")):
         launches, tokens, _ = serve(params, dev, details, path, new_tokens,
                                     cfg, devices=devices)
-        for i, (a, b) in enumerate(zip(tokens, single_tokens[ref])):
-            if i % 2:
-                continue                # sampled
-            n = min(len(a), len(b))
-            same = next((j for j in range(n) if a[j] != b[j]), n)
-            print(f"MoE greedy request prompt={PROMPT_LENS[i]}: {path} and "
-                  f"single-device serving ({ref}) agree on the first {same} "
-                  f"of {n} tokens compared", flush=True)
-            check(same >= 8, f"MoE greedy request (prompt "
-                  f"{PROMPT_LENS[i]}): {path} and single-device serving "
-                  f"agree on only {same} tokens")
+        agree_first(tokens, single_tokens[ref],
+                    f"MoE {path} and single-device serving ({ref})")
         out[path] = launches
     reqs = details["serving_qwen1.5-moe_tp"]["requests"]
     steps = [r["decode_ms_per_step"] for r in reqs]
@@ -4154,10 +4203,346 @@ def check_serving_tp_moe(params, cfg, dev, details, single_tokens):
     torch.cuda.empty_cache()
     return out
 
+# -- Qwen3: the QK-norm branch of the four attention-bearing kernels ----------
+
+def qwen3_config():
+    from dashinfer_tpu_torch.config import ModelConfig
+    return ModelConfig(**QWEN3_8B)
+
+
+def random_qwen3_params(seed: int, dev):
+    """Random a16w4 group-128 weights at Qwen3-8B width (bench_stream's
+    distribution, no q|k|v bias, q_norm / k_norm of 1 + 0.25 N(0, 1))."""
+    from dashinfer_tpu_torch.tools import bench_stream
+    return bench_stream.random_a16w4_params(qwen3_config(), seed, dev, GROUP)
+
+
+def qwen3_moe_config():
+    from dashinfer_tpu_torch.config import ModelConfig, MoEConfig
+    return ModelConfig(**dict(QWEN3_MOE, num_layers=QWEN3_MOE_LAYERS),
+                       moe=MoEConfig(**QWEN3_MOE_EXPERTS))
+
+
+def kernel_entry(cases, base, **extra):
+    """A kernel line's numbers from its cases and its timed row."""
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=base["ms"], plain_ms=base["plain_ms"], library_ms=None,
+                bound_ms=max(base["bytes_ms"], base["ops_ms"]),
+                bound_by=("bytes" if base["bytes_ms"] >= base["ops_ms"]
+                          else "operations"), **extra)
+
+
+def plain_decode_ms(cfg, params, mode, gen, dev, what):
+    """The decode megakernel's plain version's time at B = 8 (one run, host
+    clock around a synchronize), and two replays of one graph and an eager
+    launch of the kernel bit-equal on that state."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    plan, packed = mk_plan_pack(cfg, params, DECODE_BATCH, mode)
+    check(plan.qk_norm == cfg.qk_norm and
+          (packed["qk_norms"] is not None) == cfg.qk_norm,
+          f"{what}: the plan or pack lacks the QK-norm weights")
+    st = mk_state(cfg, mode, DECODE_BATCH, MK_LENS, None, gen, dev)
+    x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
+    args = (plan, packed, x0, st["cos"], st["sin"], st["pt"], st["lens"],
+            st["active"], st["cache"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mk.decode_megakernel_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    replays_bit_equal(what, lambda: mk.decode_megakernel(*args))
+    mk.check_status(plan, dev)
+    print(f"{what} plain version: {plain_ms:.1f} ms/step", flush=True)
+    return plain_ms
+
+
+def prefill_replays(cfg, params, what, dev, cases=((1024, 1024), (128, 100))):
+    """Two replays of one graph and an eager launch of the prefill
+    megakernel bit-equal, at a full bucket and a served length."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(SEED + 47)
+    for bucket, n in cases:
+        plan, packed = pmk_plan_pack(cfg, params, bucket, CacheMode.INT8)
+        st = pmk_inputs(cfg, params, plan, CacheMode.INT8, n, g2, dev)
+        replays_bit_equal(
+            f"{what} {bucket} n={n}",
+            lambda: pmk.prefill_megakernel(
+                plan, packed, st["x0"], st["cos"], st["sin"], st["page_row"],
+                st["n"], st["cache"]))
+        pmk.check_status(dev)
+        del plan, packed, st
+    torch.cuda.empty_cache()
+
+
+# the TP prefill segments of Qwen3-8B on a (1, 2) mesh: every bucket the
+# serving launches, full (timed) and at a served length, INT8; UINT4 at the
+# smallest and the largest
+QWEN3_TP_PREFILL_CASES = (
+    ("INT8", ((128, 100), (128, 128), (256, 256), (512, 512), (1024, 1000),
+              (1024, 1024))),
+    ("UINT4", ((128, 100), (1024, 1024))))
+
+
+def check_qwen3(params, dev, details):
+    """The QK-norm branch at Qwen3-8B width (36 layers, G = 4 query heads on
+    each of 8 KV heads, vocab 151936) in the four kernels that compute
+    attention, each against its plain version at the tolerances above: the
+    decode megakernel at B = 8 for INT8 / UINT4 / DEFAULT KV and at B = 32
+    (its two-m-tile instantiation); the prefill megakernel at every bucket
+    128 .. 1024, a served length and full (INT8), and UINT4 / DEFAULT at
+    128; the TP attn, mlp and lm segments (the lm over the 75968-column
+    vocab shard, 64 mod 128) of every rank of a (1, 2) mesh for INT8 and
+    UINT4 with the whole TP forward against its plain version and the
+    single-device megakernel; the TP prefill segments likewise
+    (QWEN3_TP_PREFILL_CASES). Two replays of one graph and an eager launch
+    bit-equal for each of the four. Then their times beside their bounds."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    cfg = qwen3_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 53)
+    out = {}
+    # the decode megakernel
+    cases = [check_megakernel_case(cfg, params, "qwen3 u4", mode, gen, dev)
+             for mode in (CacheMode.INT8, CacheMode.UINT4,
+                          CacheMode.DEFAULT)]
+    lens32 = [(37 + 61 * i) % 1500 + 1 for i in range(32)]
+    cases.append(check_megakernel_case(cfg, params, "qwen3 u4",
+                                       CacheMode.INT8, gen, dev, lens32, 17))
+    plain_ms = plain_decode_ms(cfg, params, CacheMode.INT8, gen, dev,
+                               "megakernel qwen3 u4/int8")
+    times = [time_megakernel(cfg, params, "qwen3 u4", 8, MK_LENS, gen, dev),
+             time_megakernel(cfg, params, "qwen3 u4", 32, lens32, gen, dev,
+                             per_op=False)]
+    out["decode_megakernel"] = kernel_entry(
+        cases, dict(times[0], plain_ms=plain_ms),
+        per_op_ms=times[0]["per_op_ms"], ms_b32=times[1]["ms"],
+        bound_ms_b32=max(times[1]["bytes_ms"], times[1]["ops_ms"]))
+    details["qwen3_megakernel"] = dict(cases=cases, times=times,
+                                       plain_ms=plain_ms)
+    torch.cuda.empty_cache()
+    # the prefill megakernel
+    pcases = [check_prefill_case(cfg, params, "qwen3 u4", mode, 128, 100,
+                                 gen, dev)
+              for mode in (CacheMode.UINT4, CacheMode.DEFAULT)]
+    for bucket, n in ((128, 100), (128, 128), (256, 200), (256, 256),
+                      (512, 450), (512, 512), (1024, 1000), (1024, 1024)):
+        pcases.append(check_prefill_case(cfg, params, "qwen3 u4",
+                                         CacheMode.INT8, bucket, n, gen, dev))
+    ptimes = [time_prefill(cfg, params, b, gen, dev, b in (128, 1024))
+              for b in (128, 256, 512, 1024)]
+    prefill_replays(cfg, params, "prefill_megakernel qwen3 u4/int8", dev)
+    out["prefill_megakernel"] = kernel_entry(
+        pcases, ptimes[-1], shape="bucket 1024, n = 1024",
+        per_op_ms=ptimes[-1]["per_op_ms"],
+        ms_by_bucket={str(t["bucket"]): t["ms"] for t in ptimes},
+        bound_ms_by_bucket={str(t["bucket"]): max(t["bytes_ms"], t["ops_ms"])
+                            for t in ptimes})
+    details["qwen3_prefill_megakernel"] = dict(cases=pcases, times=ptimes)
+    torch.cuda.empty_cache()
+    # the TP decode segments on a (1, 2) mesh
+    rows = [check_tp_segment_case(cfg, params, 2, mode, gen, dev,
+                                  timing=mode == "INT8")
+            for mode in ("INT8", "UINT4")]
+    torch.cuda.empty_cache()
+    s = tp_setup(cfg, params, 2, "INT8", gen, dev)
+    check(s["plan"].qk_norm and s["plan"].V == cfg.vocab_size // 2,
+          f"qwen3 TP plan: qk_norm {s['plan'].qk_norm}, vocab shard "
+          f"{s['plan'].V}")
+    st, x = s["st"], s["x0"].float()
+    replays_bit_equal("tp_attn_segment qwen3 n=2/int8",
+                      lambda: tpk.tp_attn_segment(
+                          s["plan"], s["packs"][0], 0, x, st["cos"],
+                          st["sin"], st["pt"], st["lens"], st["active"],
+                          s["caches"][0]))
+    tpk.check_status(s["plan"], dev)
+    del s, st, x
+    torch.cuda.empty_cache()
+    seg = rows[0]["segments"]
+    for k in ("attn", "lm"):
+        out[f"tp_{k}_segment"] = dict(
+            max_abs_err=max(r["errs"][k] for r in rows), ms=seg[k]["ms"],
+            plain_ms=seg[k]["plain_ms"], bound_ms=seg[k]["bound_ms"],
+            bound_by=seg[k]["bound_by"], library_ms=None,
+            shape="n = 2, rank 0, layer 0, B = 8, INT8" + (
+                ", vocab shard 75968" if k == "lm" else ""))
+    out["tp_attn_segment"].update(tp_forward_ms=rows[0]["tp_forward_ms"],
+                                  megakernel_ms=rows[0]["megakernel_ms"])
+    details["qwen3_tp_segments"] = rows
+    # the TP prefill segments on a (1, 2) mesh
+    dplan = mk.make_plan(cfg, tp_prefill_rt(1, CacheMode.INT8), params)
+    single = dict(dplan=dplan, pack=mk.pack_params(cfg, dplan, params))
+    s = tp_prefill_setup(cfg, params, 2, dev, stream="qwen3 u4")
+    prows, ptp = [], []
+    for mode, pairs in QWEN3_TP_PREFILL_CASES:
+        for bucket, n_tok in pairs:
+            row, case = check_tp_prefill_case(cfg, params, s, single, mode,
+                                              bucket, n_tok, gen, dev)
+            prows.append(row)
+            if mode == "INT8" and n_tok == bucket:
+                ptp.append(tp_prefill_timing(cfg, params, s, single, case,
+                                             dev))
+            if mode == "INT8" and n_tok == bucket == 1024:
+                plan, _, st = case
+                x = st["x0"].float()
+                replays_bit_equal(
+                    "tp_prefill_attn_segment qwen3 n=2/int8 1024",
+                    lambda: tpk.tp_prefill_attn_segment(
+                        plan, s["packs"][0], 0, x, st["cos"], st["sin"],
+                        st["page_row"], st["n"], st["caches"][0]))
+                tpk.check_prefill_status(dev)
+                del plan, st, x
+            del case
+    del s, single
+    torch.cuda.empty_cache()
+    big = ptp[-1]["segments"]
+    for k in ("attn", "lm"):
+        out[f"tp_prefill_{k}_segment"] = dict(
+            max_abs_err=max(r["errs"][k] for r in prows), ms=big[k]["ms"],
+            plain_ms=big[k]["plain_ms"], bound_ms=big[k]["bound_ms"],
+            bound_by=big[k]["bound_by"], library_ms=None,
+            shape="n = 2, rank 0, layer 0, bucket 1024, n = 1024" + (
+                ", vocab shard 75968" if k == "lm" else ""),
+            ms_by_bucket={str(t["bucket"]): t["segments"][k]["ms"]
+                          for t in ptp},
+            bound_ms_by_bucket={str(t["bucket"]):
+                                t["segments"][k]["bound_ms"] for t in ptp})
+    details["qwen3_tp_prefill"] = dict(cases=prows, times=ptp)
+    print("qwen3: " + json.dumps({k: {m: v[m] for m in (
+        "max_abs_err", "ms", "bound_ms", "plain_ms")} for k, v in
+        out.items()}), flush=True)
+    return out
+
+
+def check_serving_qwen3(params, dev, details):
+    """Qwen3-8B served through `Engine` with serve()'s traffic: with every
+    flag at its default (the decode megakernel, the prefill megakernel for
+    buckets 128 .. 1024), on the per-op path (its lm_head, 151936 columns,
+    not a multiple of 256, takes the large-M formulation, as in the JAX
+    package) and on a (1, 2) mesh (the TP segments and TP prefill segments);
+    launch counts checked by serve(), the greedy requests' first 8 tokens
+    equal across the three paths. Returns the launches of each path."""
+    import torch
+    cfg = qwen3_config()
+    launches, tokens = {}, {}
+    for path, new_tokens, devices in (("megakernel", 64, None),
+                                      ("per-op", 24, None),
+                                      ("tp", 64, tp_devices(dev))):
+        launches[path], tokens[path], _ = serve(params, dev, details, path,
+                                                new_tokens, cfg,
+                                                devices=devices)
+    details["qwen3_greedy_agreement"] = dict(
+        per_op=agree_first(tokens["megakernel"], tokens["per-op"],
+                           "qwen3-8b megakernel and per-op paths"),
+        tp=agree_first(tokens["tp"], tokens["megakernel"],
+                       "qwen3-8b (1, 2) mesh and megakernel paths"))
+    summary = {}
+    for path in ("megakernel", "tp"):
+        reqs = details[f"serving_qwen3-8b_{path}"]["requests"]
+        steps = [r["decode_ms_per_step"] for r in reqs]
+        summary[path] = dict(ttft_ms=max(r["ttft_ms"] for r in reqs),
+                             ms_per_step=(min(steps), max(steps)))
+        print(f"qwen3-8b {path}: TTFT (the six prompts together) "
+              f"{summary[path]['ttft_ms']:.1f} ms, decode "
+              f"{min(steps):.2f} .. {max(steps):.2f} ms/step", flush=True)
+    details["qwen3_serving_summary"] = summary
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_qwen3_moe(cfg, params, dev, details):
+    """The QK-norm branch inside both megakernels' MoE variants and the TP
+    moe segment at Qwen3-30B-A3B width, QWEN3_MOE_LAYERS layers deep (128
+    experts top-8 of width 768, no shared expert, norm_topk_prob; G = 8,
+    H * D = 4096 against hidden 2048), under the MoE rules above: the
+    decode megakernel at B = 8 (INT8, UINT4) and B = 32 (INT8) with the
+    flip caps and the planted router fault; the prefill megakernel at every
+    bucket (a served length, INT8; UINT4 at 128) and a full bucket 1024,
+    each held to the plain version routed as the kernel routed (the rule of
+    Qwen1.5-MoE's full bucket 1024, `check_prefill_case(forced=True)`):
+    every token held to the bounds, each flipped token a near-tie of the
+    plain router or ill-conditioned where it first flips, the planted
+    router fault still failing the caps. Unforced, this random router's
+    near-ties flip more than MAX_FLIPPED_SHARE of a prompt's tokens (8 of
+    90 at bucket 128, gaps 1e-4 .. 5.5e-3, first layers 0-3): 128 experts
+    top-8 leave half Qwen1.5-MoE's gap between the k-th and k+1-th logit,
+    and a token routed otherwise changes its K / V for every later token
+    of the prompt. Then the TP moe segment of every rank of a (1, 2) mesh
+    with the whole TP forward at B = 32 (the flip caps and the planted
+    router fault: at B = 8 and 4 layers the planted fault flipped 1 of 7
+    rows, under the cap of 2, too few rows and layers to tell a faulty
+    router from the kernel; at B = 32 the cap is 4 of 31 rows); their
+    times; then the model served with every flag at its default (launch
+    counts checked by serve())."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 59)
+    out = {}
+    lens32 = [(37 + 61 * i) % 1500 + 1 for i in range(32)]
+    cases = [check_megakernel_case(cfg, params, "qwen3 u4 MoE", mode, gen,
+                                   dev)
+             for mode in (CacheMode.INT8, CacheMode.UINT4)]
+    cases.append(check_megakernel_case(cfg, params, "qwen3 u4 MoE",
+                                       CacheMode.INT8, gen, dev, lens32, 17))
+    plain_ms = plain_decode_ms(cfg, params, CacheMode.INT8, gen, dev,
+                               "megakernel qwen3 u4 MoE/int8")
+    times = [time_megakernel(cfg, params, "qwen3 u4 MoE", 8, MK_LENS, gen,
+                             dev, per_op=False),
+             time_megakernel(cfg, params, "qwen3 u4 MoE", 32, lens32, gen,
+                             dev, per_op=False)]
+    out["decode_megakernel"] = kernel_entry(
+        cases, dict(times[0], plain_ms=plain_ms), ms_b32=times[1]["ms"],
+        layers=cfg.num_layers,
+        flipped_rows=sum(len(c["flipped_rows"]) for c in cases))
+    torch.cuda.empty_cache()
+    pcases = [check_prefill_case(cfg, params, "qwen3 u4 MoE", mode, 128, 90,
+                                 gen, dev, forced=True)
+              for mode in (CacheMode.INT8, CacheMode.UINT4)]
+    for bucket, n in ((256, 200), (512, 450), (1024, 1000), (1024, 1024)):
+        pcases.append(check_prefill_case(cfg, params, "qwen3 u4 MoE",
+                                         CacheMode.INT8, bucket, n, gen, dev,
+                                         forced=True))
+    ptimes = [time_prefill(cfg, params, b, gen, dev, b == 1024)
+              for b in (128, 256, 512, 1024)]
+    prefill_replays(cfg, params, "prefill_megakernel qwen3 u4 MoE/int8", dev,
+                    cases=((1024, 1024),))
+    out["prefill_megakernel"] = kernel_entry(
+        pcases, ptimes[-1], shape="bucket 1024, n = 1024",
+        layers=cfg.num_layers,
+        ms_by_bucket={str(t["bucket"]): t["ms"] for t in ptimes},
+        flipped_tokens=sum(len(c["flipped_tokens"]) for c in pcases))
+    torch.cuda.empty_cache()
+    row = check_tp_moe_case(cfg, params, 2, "INT8", 32, gen, dev,
+                            timing=True)
+    t = row["segments"]["moe"]
+    out["tp_moe_segment"] = dict(
+        max_abs_err=row["segment_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+        shape="n = 2, rank 0, layer 0, B = 32, INT8")
+    details["qwen3_moe"] = dict(decode=dict(cases=cases, times=times),
+                                prefill=dict(cases=pcases, times=ptimes),
+                                tp_moe=row)
+    torch.cuda.empty_cache()
+    launches, _, _ = serve(params, dev, details, "megakernel", 24, cfg)
+    for k in ("decode_megakernel", "prefill_megakernel"):
+        out[k]["launches"] = launches[k]
+    print("qwen3-30b-a3b (" + str(cfg.num_layers) + " layers): " + json.dumps(
+        {k: {m: v[m] for m in ("max_abs_err", "ms", "bound_ms", "plain_ms")}
+         for k, v in out.items()}), flush=True)
+    return out
+
+
 PHASES = ("quant_matmul", "paged_attention", "grouped_quant_matmul",
           "stream_probe", "probes", "megakernel", "prefill_megakernel",
           "serve", "decode_logits", "tp_segments", "tp_prefill", "serve_tp",
-          "tp_moe", "serve_tp_moe")
+          "qwen3", "serve_qwen3", "tp_moe", "serve_tp_moe", "qwen3_moe")
 MOE_PHASES = ("megakernel", "prefill_megakernel", "serve", "tp_moe",
               "serve_tp_moe")
 
@@ -4247,9 +4632,21 @@ def main(argv=None) -> int:
                                                   ("per-op", 24))}
                 tp_launches = check_serving_tp(params, dev, details,
                                                single_tokens)
-            # the MoE slice, on the card alone: Qwen2-7B's weights go first
+            # Qwen3-8B (QK-norm), on the card alone: Qwen2-7B's weights go
+            # first
             del params
             torch.cuda.empty_cache()
+            q3_launches = None
+            if "qwen3" in only or "serve_qwen3" in only:
+                q3_params = random_qwen3_params(SEED + 61, dev)
+                if phase("qwen3"):
+                    res["qwen3"] = check_qwen3(q3_params, dev, details)
+                if phase("serve_qwen3"):
+                    q3_launches = check_serving_qwen3(q3_params, dev,
+                                                      details)
+                del q3_params
+                torch.cuda.empty_cache()
+            # the MoE slice
             if any(p in only for p in MOE_PHASES):
                 moe_cfg = moe_config()
                 moe_params = random_moe_params(moe_cfg, SEED + 13, dev)
@@ -4275,6 +4672,17 @@ def main(argv=None) -> int:
                                                 64), ("per-op", 24))}
                 tp_moe_launches = check_serving_tp_moe(
                     moe_params, moe_cfg, dev, details, moe_single)
+            if any(p in only for p in MOE_PHASES):
+                del moe_params
+                torch.cuda.empty_cache()
+            # Qwen3-30B-A3B's width at QWEN3_MOE_LAYERS layers
+            if phase("qwen3_moe"):
+                q3m_cfg = qwen3_moe_config()
+                q3m_params = random_moe_params(q3m_cfg, SEED + 67, dev)
+                res["qwen3_moe"] = check_qwen3_moe(q3m_cfg, q3m_params, dev,
+                                                   details)
+                del q3m_params
+                torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -4301,6 +4709,14 @@ def main(argv=None) -> int:
                       **res["decode_megakernel_moe"])
     moe_prefill = dict(launches=moe_launches["prefill_megakernel"],
                        **res["prefill_megakernel_moe"])
+    # Qwen3 (the QK-norm branch): its kernels' numbers with the launches of
+    # its default serving (the megakernels) and of its (1, 2) mesh serving
+    # (the TP segments); the MoE entries with the launches of the
+    # Qwen3-MoE model's default serving
+    q3, q3m = res["qwen3"], res["qwen3_moe"]
+
+    def q3_entry(kernel, path):
+        return dict(launches=q3_launches[path][kernel], **q3[kernel])
     kernels = [
         dict(name="quant_matmul", route="cuda",
              source=csrc + "quant_matmul.cu",
@@ -4315,7 +4731,9 @@ def main(argv=None) -> int:
              source=csrc + "megakernel.cu",
              replaces="dashinfer_tpu/ops/pallas/megakernel.py:1297",
              launches=mk_launches["decode_megakernel"],
-             **res["decode_megakernel"], moe=moe_decode),
+             **res["decode_megakernel"], moe=moe_decode,
+             qwen3=q3_entry("decode_megakernel", "megakernel"),
+             qwen3_moe=q3m["decode_megakernel"]),
         dict(name="stream_probe", route="cuda",
              source=csrc + "stream_probe.cu",
              replaces="tools/bench_stream.py:41", **res["stream_probe"]),
@@ -4324,7 +4742,9 @@ def main(argv=None) -> int:
              replaces="dashinfer_tpu/ops/pallas/prefill_megakernel.py:480",
              launches=mk_launches["prefill_megakernel"],
              launches_pack_only=po_launches["prefill_megakernel"],
-             **res["prefill_megakernel"], moe=moe_prefill),
+             **res["prefill_megakernel"], moe=moe_prefill,
+             qwen3=q3_entry("prefill_megakernel", "megakernel"),
+             qwen3_moe=q3m["prefill_megakernel"]),
         dict(name="grouped_quant_matmul", route="cuda",
              source=csrc + "grouped_quant_matmul.cu",
              replaces="dashinfer_tpu/ops/pallas/grouped_quant_matmul.py:206",
@@ -4344,13 +4764,17 @@ def main(argv=None) -> int:
              source=csrc + "tp_segments.cu",
              replaces=f"dashinfer_tpu/ops/pallas/tp_megakernel.py:{line}",
              launches=tp_launches["tp"][f"tp_{k}_segment"],
-             **res[f"tp_{k}_segment"])
+             **res[f"tp_{k}_segment"],
+             **({"qwen3": q3_entry(f"tp_{k}_segment", "tp")}
+                if k != "mlp" else {}))
         for k, line in (("attn", 346), ("mlp", 849), ("lm", 1167))] + [
         dict(name=f"tp_prefill_{k}_segment", route="cuda",
              source=csrc + "tp_prefill_segments.cu",
              replaces=f"dashinfer_tpu/ops/pallas/tp_megakernel.py:{line}",
              launches=tp_launches["tp"][f"tp_prefill_{k}_segment"],
-             **res[f"tp_prefill_{k}_segment"])
+             **res[f"tp_prefill_{k}_segment"],
+             **({"qwen3": q3_entry(f"tp_prefill_{k}_segment", "tp")}
+                if k != "mlp" else {}))
         for k, line in (("attn", 1374), ("mlp", 1659), ("lm", 1749))] + [
         # the (1, 2) mesh's MoE serving with the default flags
         dict(name="tp_moe_segment", route="cuda",
@@ -4361,13 +4785,15 @@ def main(argv=None) -> int:
     for k in kernels:
         check_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")
-        parts = [k] + [k[m] for m in ("moe",) if m in k]
+        parts = [k] + [k[m] for m in ("moe", "qwen3", "qwen3_moe") if m in k]
         if any(key not in p or (key == "launches" and p[key] <= 0)
                for p in parts for key in check_keys):
             print(f"chip_smoke: FAIL: kernel line of {k['name']}: {k}",
                   file=sys.stderr)
             return 1
     print(json.dumps({"kernels": kernels}))
+    # the Qwen3-MoE TP moe segment (checked and timed; not served on a mesh)
+    print(json.dumps({"qwen3_moe_tp_moe_segment": q3m["tp_moe_segment"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

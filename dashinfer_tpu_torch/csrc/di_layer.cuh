@@ -206,7 +206,8 @@ constexpr int kAttTiles =
 // then reads the q heads, k and v (SUMMED: summed with their bias by the
 // q|k|v product's epilogue into a.qkv, the TP attn segment's way; else,
 // the decode megakernel's, it sums the split-K partials itself, which the
-// tiles in flight hide) and applies RoPE; chunk 0 also quantizes and
+// tiles in flight hide), normalizes each q head and k (a QK-norm model:
+// a.qk_norm) and applies RoPE; chunk 0 also quantizes and
 // writes the new token (warp 0 K, warp 1 V) and folds it in from its
 // unquantized f32 K/V when it merges the warps' states. The chunk's (max,
 // sum, acc) go to att_ml / att_acc; the last chunk of a (slot, KV head) to
@@ -312,6 +313,30 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
       }
     }
     __syncthreads();
+    if (a.qk_norm != nullptr) {
+      // QK-norm (Qwen3): each q head and k RMS-normalized in f32 with the
+      // layer's [D] weights, x * rsqrt(mean(x^2) + eps) * w, one warp a
+      // row. Every chunk item of a (slot, KV head) sums a row in the same
+      // order, so the chunks the merge combines saw the same q and k.
+      const float* wn = a.qk_norm + (size_t)layer * 2 * kD;
+      for (int r = warp; r < G + 1; r += kWarps) {
+        float* row = raw + r * kD;
+        const float* w = wn + (r < G ? 0 : kD);
+        float v[kD / 32];
+        float ss = 0.f;
+#pragma unroll
+        for (int i = 0; i < kD / 32; ++i) {
+          v[i] = row[lane + 32 * i];
+          ss = fmaf(v[i], v[i], ss);
+        }
+        const float inv = rsqrtf(warp_sum(ss) * (1.f / kD) + a.eps);
+#pragma unroll
+        for (int i = 0; i < kD / 32; ++i)
+          row[lane + 32 * i] =
+              __fmul_rn(__fmul_rn(v[i], inv), w[lane + 32 * i]);
+      }
+      __syncthreads();
+    }
     static_assert(kThreads % kD == 0, "a thread's RoPE dim is fixed");
     for (int i = tid; i < (G + 1) * kD; i += kThreads) {
       const int r = i / kD, d = i % kD;
@@ -498,7 +523,8 @@ enum IArg {
   I_EPART, I_EREC, I_TOPK_E, I_TOPK_W, I_SGATE, I_MSPLIT,
   I_B, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXP, I_KV_KIND, I_QL,
   I_NSPLIT, I_SPLIT_LEN, I_MPAD, I_SKIP_ATTN, I_GRID, I_E, I_K_TOP,
-  I_NORM_TOPK, I_HAS_SHARED, I_HAS_SGATE, I_SHARED_INTER, I_STREAMS
+  I_NORM_TOPK, I_HAS_SHARED, I_HAS_SGATE, I_SHARED_INTER, I_QK_NORM,
+  I_STREAMS
 };
 // then kStreamArgs values per stream (fill_stream)
 
@@ -508,6 +534,7 @@ inline void fill_args(Args& a, const long long* ia, const double* fa) {
   a.norms = ptr<const float>(ia[I_NORMS]);
   a.final_norm = ptr<const float>(ia[I_FINAL_NORM]);
   a.qkv_b = ptr<const float>(ia[I_QKV_B]);
+  a.qk_norm = ptr<const float>(ia[I_QK_NORM]);
   a.x0 = ptr<const __nv_bfloat16>(ia[I_X0]);
   a.cos = ptr<const __nv_bfloat16>(ia[I_COS]);
   a.sin = ptr<const __nv_bfloat16>(ia[I_SIN]);

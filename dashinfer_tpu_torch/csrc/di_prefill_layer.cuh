@@ -41,6 +41,7 @@ struct PArgs {
   const float* norms;        // [L, 2, hid]
   const float* final_norm;   // [hid]
   const float* qkv_b;        // [L, QKVN] or null
+  const float* qk_norm;      // [L, 2, D] q_norm, k_norm (Qwen3) or null
   const __nv_bfloat16* x0;   // [S, hid]
   const __nv_bfloat16* cos;  // [S, D]
   const __nv_bfloat16* sin;  // [S, D]
@@ -961,9 +962,10 @@ __device__ __forceinline__ void write_kv(const PArgs& a, bool is_k, int layer,
   }
 }
 
-// q|k|v of every row: K splits summed, + bias, RoPE on q and k; q, k, v
-// rounded to bf16 for the attention phase; K / V of rows < n into the pool
-// from the f32 values. One warp a (row, head).
+// q|k|v of every row: K splits summed, + bias, a QK-norm model's RMSNorm
+// of each q and k head (a.qk_norm), RoPE on q and k; q, k, v rounded to
+// bf16 for the attention phase; K / V of rows < n into the pool from the
+// f32 values. One warp a (row, head), four dims a lane.
 template <int KIND>
 __device__ void rope_kv_phase(const PArgs& a, int layer, int rows, int n) {
   const Stream& st = a.st[kQkv];
@@ -1003,6 +1005,21 @@ __device__ void rope_kv_phase(const PArgs& a, int layer, int rows, int n) {
       x.w += b.w;
     }
     float v[4] = {x.x, x.y, x.z, x.w};
+    if (a.qk_norm != nullptr && hs < H + KH) {       // warp-uniform
+      // QK-norm (Qwen3): x * rsqrt(mean(x^2) + eps) * w in f32, with the
+      // layer's q_norm or k_norm [D]
+      float ss = v[0] * v[0];
+#pragma unroll
+      for (int i = 1; i < 4; ++i) ss = fmaf(v[i], v[i], ss);
+      const float inv = rsqrtf(warp_sum(ss) * (1.f / kD) + a.eps);
+      const float4 w = *reinterpret_cast<const float4*>(
+          a.qk_norm + ((size_t)layer * 2 + (hs < H ? 0 : 1)) * kD +
+          lane * 4);
+      const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = __fmul_rn(__fmul_rn(v[i], inv), wv[i]);
+    }
     if (hs < H + KH) {
       const __nv_bfloat162* cp = reinterpret_cast<const __nv_bfloat162*>(
           a.cos + (size_t)t * kD + lane * 4);
@@ -1363,7 +1380,7 @@ enum IArg {
   I_ACC, I_GATES, I_SGATE, I_XE, I_EIDX, I_ESLOT, I_ECOUNT, I_LAUNCHES,
   I_TRACE, I_S, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXPB,
   I_KV_KIND, I_QL, I_GRID, I_E, I_K_TOP, I_NORM_TOPK, I_HAS_SHARED,
-  I_HAS_SGATE, I_SHARED_INTER, I_EP, I_SCAP, I_STREAMS
+  I_HAS_SGATE, I_SHARED_INTER, I_EP, I_SCAP, I_QK_NORM, I_STREAMS
 };
 // then kStreamArgs values per stream (fill_stream)
 
@@ -1373,6 +1390,7 @@ inline void fill_pargs(PArgs& a, const long long* ia, const double* fa) {
   a.norms = ptr<const float>(ia[I_NORMS]);
   a.final_norm = ptr<const float>(ia[I_FINAL_NORM]);
   a.qkv_b = ptr<const float>(ia[I_QKV_B]);
+  a.qk_norm = ptr<const float>(ia[I_QK_NORM]);
   a.x0 = ptr<const __nv_bfloat16>(ia[I_X0]);
   a.cos = ptr<const __nv_bfloat16>(ia[I_COS]);
   a.sin = ptr<const __nv_bfloat16>(ia[I_SIN]);

@@ -1,11 +1,14 @@
 // Whole-model decode step as ONE persistent kernel, sm_90a.
 //
 // Replaces: dashinfer_tpu/ops/pallas/megakernel.py `build_decode_megakernel`
-// (RoPE, optional q/k/v bias, KV pool DEFAULT / INT8 / UINT4, weight streams
-// u4 group-wise, int8 group-wise or per-channel, bf16; a dense MLP or the
-// MoE branch: router, routed experts, shared expert).
+// (RoPE, optional q/k/v bias, optional per-head QK RMSNorm (Qwen3), KV pool
+// DEFAULT / INT8 / UINT4, weight streams u4 group-wise, int8 group-wise or
+// per-channel, bf16; a dense MLP or the MoE branch: router, routed experts,
+// shared expert).
 //
-// What it computes, per layer: RMSNorm; q|k|v products + bias; RoPE with
+// What it computes, per layer: RMSNorm; q|k|v products + bias; a QK-norm
+// model's RMSNorm of each q head and k in f32 (a.qk_norm, a null pointer
+// without: a runtime branch, not an instantiation); RoPE with
 // bf16 cos/sin tiles; the new token's K/V quantized and written to its page
 // (active slots only); attention over the slot's cached tokens (online
 // softmax; a quantized pool's tokens are dequantized in f32 as they are

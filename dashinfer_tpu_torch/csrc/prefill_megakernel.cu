@@ -1,27 +1,27 @@
 // Whole-model prefill of one prompt bucket as ONE persistent kernel, sm_90a.
 //
 // Replaces: dashinfer_tpu/ops/pallas/prefill_megakernel.py
-// `build_prefill_megakernel` (RoPE, optional q/k/v bias, KV pool DEFAULT /
-// INT8 / UINT4, weight streams u4 group-wise, int8 group-wise or
-// per-channel, bf16; a dense MLP or the MoE branch). It reads the DECODE
-// pack (ops/megakernel.py
-// `pack_params`: fragment-ordered 64-row x 256-column chunks), so prefill
-// and decode share one weight set on the card.
+// `build_prefill_megakernel` (RoPE, optional q/k/v bias, optional per-head QK
+// RMSNorm (Qwen3), KV pool DEFAULT / INT8 / UINT4, weight streams u4
+// group-wise, int8 group-wise or per-channel, bf16; a dense MLP or the MoE
+// branch). It reads the DECODE pack (ops/megakernel.py `pack_params`:
+// fragment-ordered 64-row x 256-column chunks), so prefill and decode share
+// one weight set on the card.
 //
 // What it computes, for the S-row bucket of which n rows are a prompt, per
 // layer: RMSNorm -> x_norm bf16; q|k|v = x_norm @ W with WEIGHT-SIDE dequant
 // (w = bf16(f32(level) * s + z), s and z rounded to bf16; for u4 as ONE fused
-// bf16 multiply-add of the exact bf16 operands level, s, z, which rounds
-// once where the f32 form rounds twice: the same value unless the f32 sum
-// is inexact AND lands on a bf16 tie) and f32 sums; bias
-// in f32; RoPE from bf16 cos/sin tiles in f32 (not on V); K and V of rows
-// < n quantized per token and KV head from the f32 values and written to the
-// request's pages; causal softmax attention (two passes over the key tiles:
-// row maximum and sum first, then p = exp(s - m) / l rounded to bf16 for the
-// PV product, as the TPU kernel rounds it; two warp groups' partial sums
-// added in a fixed order) -> attn_out bf16; o product into
-// the f32 residual; RMSNorm; gate|up products; SwiGLU rounded to bf16; down
-// product into the residual. Then the final norm of row n - 1 and the
+// bf16 multiply-add of the exact bf16 operands level, s, z, which rounds once
+// where the f32 form rounds twice: the same value unless the f32 sum is
+// inexact AND lands on a bf16 tie) and f32 sums; bias in f32; a QK-norm
+// model's RMSNorm of each q and k head in f32; RoPE from bf16 cos/sin tiles in
+// f32 (not on V); K and V of rows < n quantized per token and KV head from the
+// f32 values and written to the request's pages; causal softmax attention (two
+// passes over the key tiles: row maximum and sum first, then p = exp(s - m) /
+// l rounded to bf16 for the PV product, as the TPU kernel rounds it; two warp
+// groups' partial sums added in a fixed order) -> attn_out bf16; o product
+// into the f32 residual; RMSNorm; gate|up products; SwiGLU rounded to bf16;
+// down product into the residual. Then the final norm of row n - 1 and the
 // lm_head for that row. The score product's operands are bf16 q and k (the
 // tensor cores'), where the TPU kernel's are f32.
 //

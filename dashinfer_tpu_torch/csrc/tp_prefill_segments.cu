@@ -4,9 +4,9 @@
 //
 // Replaces: dashinfer_tpu/ops/pallas/tp_megakernel.py
 // `build_prefill_attn_segment`, `build_prefill_mlp_segment` and
-// `build_prefill_lm_segment` (dense models; RoPE, optional q/k/v bias, KV
-// pool DEFAULT / INT8 / UINT4, weight streams u4 group-wise, int8 group-wise
-// or per-channel, bf16).
+// `build_prefill_lm_segment` (dense models; RoPE, optional q/k/v bias,
+// optional per-head QK RMSNorm, KV pool DEFAULT / INT8 / UINT4, weight streams
+// u4 group-wise, int8 group-wise or per-channel, bf16).
 //
 // What they compute. The prefill megakernel's layer body
 // (csrc/prefill_megakernel.cu) for the S-row bucket of which n rows are the
@@ -14,7 +14,8 @@
 // all-reduced:
 //   attn  x += add (the reduced down partials of the layer before, none in
 //         layer 0); RMSNorm of the rows; q|k|v of the rank's heads (a column
-//         share, weight-side dequant, with bias); RoPE; K/V of rows < n
+//         share, weight-side dequant, with bias); a QK-norm model's RMSNorm
+//         of each q and k head; RoPE; K/V of rows < n
 //         quantized and written into the rank's pool pages (`page_row + l`);
 //         causal attention over the rank's heads; o over the rank's rows of
 //         the o weight => the o partial [S, hid] f32;

@@ -4,18 +4,19 @@
 //
 // Replaces: dashinfer_tpu/ops/pallas/tp_megakernel.py `build_attn_segment`,
 // `build_mlp_segment`, `build_moe_mlp_segment` and `build_lm_segment`
-// (RoPE, optional q/k/v bias, KV pool DEFAULT / INT8 / UINT4, weight streams
-// u4 group-wise, int8 group-wise or per-channel, bf16; dense or
-// Qwen1.5/2-MoE layers).
+// (RoPE, optional q/k/v bias, optional per-head QK RMSNorm, KV pool DEFAULT
+// / INT8 / UINT4, weight streams u4 group-wise, int8 group-wise or
+// per-channel, bf16; dense or Qwen1.5/2- and Qwen3-MoE layers).
 //
 // What they compute. The decode megakernel's layer body (csrc/megakernel.cu)
 // cut at the two points where the ranks' partial sums must be all-reduced:
 //   attn  x += add (the reduced down partials of the layer before, none in
 //         layer 0); RMSNorm; q|k|v of the rank's heads (a column share, with
-//         bias); RoPE; the new token's K/V quantized and written into the
-//         rank's pool (its KV heads); attention over the rank's KV heads with
-//         the new token folded in from its unquantized f32 K/V; o over the
-//         rank's rows of the o weight => the o partial [B, hid] f32;
+//         bias); a QK-norm model's RMSNorm of each q and k head; RoPE; the new
+//         token's K/V quantized and written into the rank's pool (its KV
+//         heads); attention over the rank's KV heads with the new token folded
+//         in from its unquantized f32 K/V; o over the rank's rows of the o
+//         weight => the o partial [B, hid] f32;
 //   mlp   x += add (the reduced o partials); RMSNorm; gate|up (a column
 //         share); SwiGLU; down over the rank's rows => the down partial;
 //   moe   x += add (the reduced o partials); RMSNorm; the router product

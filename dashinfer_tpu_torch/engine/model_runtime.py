@@ -455,7 +455,7 @@ class ModelRuntime:
         plans = tpk.make_tp_prefill_plans(cfg, rt, [local], qual,
                                           self.tp_mega_plan)
         if self.device.type == "cuda":
-            gaps = pmk.cuda_kernel_gaps(plans[qual[0]])
+            gaps = tpk.prefill_cuda_kernel_gaps(plans[qual[0]])
             if gaps:
                 logger.warning("TP prefill segments: the CUDA kernels do not "
                                "take this model (%s); prefilling per-op TP",

@@ -7,7 +7,10 @@ updated in place. Two entry points:
   decode_forward : [B] one token per slot, paged attention over the pool.
   prefill_forward: [S] one request's prompt; writes pages, attends causally.
 
-A MoE model (Qwen1.5/2-MoE) runs `ops.moe.moe_block` in place of the MLP.
+A MoE model (Qwen1.5/2-MoE, Qwen3-MoE) runs `ops.moe.moe_block` in place of
+the MLP. A QK-norm model (Qwen3) RMS-normalizes each q and k head after the
+projections and before RoPE, returning the model dtype, as the JAX package's
+per-op path does.
 
 `tp_decode_forward` / `tp_prefill_forward` are the same forwards over a
 model axis: the port's form of the JAX package's XLA-SPMD path, as an
@@ -19,8 +22,8 @@ gather. The partials are summed in f32. A MoE layer's MLP half is each
 rank's share of `moe_block` (its experts, routed over all of them, and its
 slice of the shared expert).
 Architectures whose layer math this port does not have yet (ALiBi, learned
-positions, GLM, scaled RoPE, QK-norm, MoE models with dense layers, non-gated
-MLPs, tied or soft-capped heads) raise NotImplementedError.
+positions, GLM, scaled RoPE, MoE models with dense layers, non-gated MLPs,
+tied or soft-capped heads) raise NotImplementedError.
 """
 
 import dataclasses
@@ -56,7 +59,6 @@ def check_supported(cfg: ModelConfig) -> None:
             cfg.rotary_dim not in (0, cfg.head_dim) or cfg.rope_interleaved),
         "GLM structure": (cfg.rope_glm_2d or cfg.prefix_lm or
                           bool(cfg.glm_residual_alpha)),
-        "QK-norm": cfg.qk_norm,
         "MoE with dense layers (mlp_only_layers)": (
             cfg.moe is not None and bool(cfg.moe.mlp_only_layers)),
         "parallel residual": cfg.parallel_residual,
@@ -86,6 +88,9 @@ def _qkv(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool):
     q = linear(x, lp["q_proj"], use_kernel=use_kernel).reshape(T, H, D)
     k = linear(x, lp["k_proj"], use_kernel=use_kernel).reshape(T, KH, D)
     v = linear(x, lp["v_proj"], use_kernel=use_kernel).reshape(T, KH, D)
+    if cfg.qk_norm:         # Qwen3: per-head RMSNorm, [D] weights
+        q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
     return q, k, v
 
 

@@ -36,8 +36,9 @@ a16w4 3.3 GiB beside 4.7 GiB of raw params, which the runtime logs at
 install; under `weight_residency` "pack_only" the runtime moves the raw
 payloads to host memory and the pack is the only copy on the card. Under
 the u4 -> i8 stream rule the pack is the int8 re-expansion
-itself (6.6 GiB). It also holds three small f32 arrays: the norm weights
-and the fused q|k|v bias, rounded to bf16 as the TPU pack rounds them. A
+itself (6.6 GiB). It also holds small f32 arrays: the norm weights, the
+fused q|k|v bias and a QK-norm model's per-head q / k norm weights
+(`qk_norms` [L, 2, D]), rounded to bf16 as the TPU pack rounds them. A
 plain tile-major copy without the fragment order was measured too and
 streams no faster than the loader's leaves (PERF.md).
 
@@ -45,7 +46,9 @@ Numerics (the TPU kernel's rounding points): residual in f32; x_norm, the
 rotated q, attn_out and the SwiGLU activation rounded to bf16; dots on bf16
 operands with f32 accumulation and the per-group affine after the dot,
 `out = sum_g (x_g @ q_g) * s_g + xsum_g * z_g` with xsum over the bf16 x;
-bias, then RoPE with bf16 cos/sin tiles. The new token is attended from its
+bias, a QK-norm model's per-head RMSNorm of q and k in f32 (`blk *
+rsqrt(mean(blk^2) + eps) * w`), then RoPE with bf16 cos/sin tiles. The new
+token is attended from its
 unquantized f32 K/V and only what is written to the pool is quantized, so
 this path differs from `transformer.decode_forward` (which appends the
 quantized token and then attends) by design. Inactive slots write nothing
@@ -324,16 +327,20 @@ def supports(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> bool:
     it otherwise). The JAX package's rules for what the port has: pre-LN
     RoPE models, dense or MoE (`_moe_supports`), head_dim 128, max_batch
     <= 64, no activation-quant leaves, equal bits within q/k/v and within
-    gate/up, no o or MLP bias, group sizes a multiple of 128 (or one group).
-    QK-norm, ALiBi and a tied quantized lm_head are not in the port's kernel
-    yet and say no. Two TPU tiling rules are dropped because they mean
+    gate/up, no o or MLP bias, group sizes a multiple of 128 (or one group);
+    QK-norm (Qwen3) with plain [D] `q_norm` / `k_norm` leaves. ALiBi and a
+    tied quantized lm_head are not in the port's kernel yet and say no. Two
+    TPU tiling rules are dropped because they mean
     nothing on this card: page_size % 8 (the RMW window) and the UINT4
     `KH * D / 2 >= 128` lane rule. Params may be numpy or tensor leaves
     (only shapes are read)."""
     try:
         lp = params["layers"]
         if cfg.qk_norm:
-            return False
+            # the kernels' per-head RMS needs plain [D] norm weights
+            qn = lp.get("q_norm")
+            if qn is None or isinstance(qn, dict) or "k_norm" not in lp:
+                return False
         if cfg.moe is not None:
             if not _moe_supports(cfg, lp):
                 return False
@@ -449,6 +456,7 @@ class MegaPlan:
     dn: StreamPlan            # a MoE model: the experts' down
     lm: StreamPlan
     rms_eps: float
+    qk_norm: bool = False     # per-head RMSNorm of q and k (Qwen3)
     # MoE (the TPU kernel's router phase + per-expert streams + shared
     # expert): E experts, top-k gates from a softmax over the bf16 router
     # product; the router stream has EP columns (E, then the shared
@@ -574,14 +582,15 @@ def make_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> MegaPlan:
                  CacheMode.UINT4: 4}[mode],
         kv_dtype_name=kv_dtype_name, has_qkv_bias="b" in lp["q_proj"],
         qkv=sp["qkv"], o=sp["o"], gu=sp["gu"], dn=sp["dn"], lm=lm,
-        rms_eps=cfg.rms_norm_eps, **moe_kw)
+        rms_eps=cfg.rms_norm_eps, qk_norm=cfg.qk_norm, **moe_kw)
 
 
 def pack_cache_key_fields(plan: MegaPlan) -> tuple:
     """The plan fields the packed arrays depend on: not the batch, the page
     geometry or the KV mode, so those may change under one pack."""
     return (PACK_VERSION, plan.L, plan.hid, plan.H, plan.KH, plan.D, plan.V,
-            plan.has_qkv_bias, plan.E, plan.EP, plan.E_global) + \
+            plan.has_qkv_bias, plan.qk_norm, plan.E, plan.EP,
+            plan.E_global) + \
         plan.kernel_streams
 
 
@@ -717,7 +726,9 @@ def pack_params(cfg: ModelConfig, plan: MegaPlan, params: Dict) -> Dict:
     """The kernel's weight arguments from the tensor param tree
     (`params_from_numpy` output, already on the device): each payload
     re-laid in fragment order (a copy: see the module docstring), the f32
-    scale / zero leaves as they are, and the small f32 norm / bias arrays.
+    scale / zero leaves as they are, and the small f32 norm / bias arrays
+    (a QK-norm model's `qk_norms` [L, 2, D]: q_norm, k_norm; the TPU pack
+    tiles them over the heads to its lane width, which means nothing here).
     A MoE model's experts are packed per (layer, expert), [L, E, N/256,
     K/64, chunk], under "experts.<name>", its shared expert under
     "shared.<name>" and the bf16 router under "router"."""
@@ -739,10 +750,13 @@ def pack_params(cfg: ModelConfig, plan: MegaPlan, params: Dict) -> Dict:
                [lp["input_layernorm"], lp["post_attention_layernorm"]],
                dim=1)),                                       # [L, 2, hid]
            "final_norm": _bf16_rounded_f32(params["norm"]),
-           "qkv_b": None}
+           "qkv_b": None, "qk_norms": None}
     if plan.has_qkv_bias:
         out["qkv_b"] = _bf16_rounded_f32(torch.cat(
             [lp[n]["b"] for n in ("q_proj", "k_proj", "v_proj")], dim=1))
+    if plan.qk_norm:
+        out["qk_norms"] = _bf16_rounded_f32(torch.stack(
+            [lp["q_norm"], lp["k_norm"]], dim=1))             # [L, 2, D]
     return out
 
 
@@ -781,10 +795,11 @@ def stream_gaps(sp: StreamPlan, any_lm_width: bool = False) -> List[str]:
     K chunks are 64 rows deep and its 256-column tiles take any width that
     is a multiple of 128 (the pack pads it; the phases after a layer
     product read whole heads and 64-column chunks). With `any_lm_width`
-    (the TP lm segment, `ops.tp_megakernel.cuda_kernel_gaps`) the lm_head
-    takes any even width: its columns are the logits alone, and a vocab
-    shard of 64 or 32 mod 128 on a model axis has run on the card there;
-    the megakernels and the TP prefill lm segment keep the 128 rule."""
+    (the TP lm segments, `ops.tp_megakernel.cuda_kernel_gaps` and
+    `prefill_cuda_kernel_gaps`) the lm_head takes any even width: its
+    columns are the logits alone, and a vocab shard of 64 or 32 mod 128 on
+    a model axis (Qwen1.5's and Qwen3's 151936 over 2 or 4 ranks) runs
+    there; the megakernels keep the 128 rule."""
     gaps = []
     if any_lm_width and sp.name == "lm":
         if sp.bits == 4 and any(n % 2 for n in sp.N):
@@ -867,10 +882,10 @@ def route(plan, logits: torch.Tensor, forced: Optional[torch.Tensor] = None
     ties), optional renormalisation; the shared expert's gate is
     sigmoid(lane E), or 1. `forced` [M, k_top] (expert ids): route each row
     to these experts instead of its k largest, with their gates from the
-    same softmax. Returns (gates [M, E] f32, 0 where not routed; shared
-    gate [M] f32, 0 without a shared expert). A TP plan routes over all
-    ranks' experts (`E_global`; a PrefillPlan has none: MoE prefills per-op
-    on a mesh)."""
+    same softmax (-1: no expert). Returns (gates [M, E] f32, 0 where not
+    routed; shared gate [M] f32, 0 without a shared expert). A TP plan
+    routes over all ranks' experts (`E_global`; a PrefillPlan has none:
+    MoE prefills per-op on a mesh)."""
     E = getattr(plan, "E_global", 0) or plan.E
     ml = logits[:, :E]
     p = torch.exp(ml - ml.max(-1, keepdim=True).values)
@@ -889,7 +904,10 @@ def route(plan, logits: torch.Tensor, forced: Optional[torch.Tensor] = None
         gates = torch.where(sel, p, gates)
         pw = torch.where(sel, torch.full_like(pw, -1.0), pw)
     if plan.norm_topk:
-        gates = gates / gates.sum(-1, keepdim=True)
+        # a row routed to no expert (`forced` -1: a prefill row past the
+        # prompt) keeps its zeros instead of 0 / 0
+        total = gates.sum(-1, keepdim=True)
+        gates = torch.where(total > 0, gates / total, gates)
     if not plan.has_shared:
         sg = torch.zeros_like(logits[:, 0])
     elif plan.has_shared_gate:
@@ -937,6 +955,22 @@ def moe_ref(plan, x: torch.Tensor, layer: int, mm, routing=None,
 def _rms(x, w, eps):
     var = (x * x).mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)) * w
+
+
+def qk_norm_heads(plan, packed: Dict, layer: int, q: torch.Tensor,
+                  k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A QK-norm plan's per-head RMSNorm of q [.., H*D] and k [.., KH*D]
+    (f32, after the bias, before RoPE) with the layer's q_norm / k_norm;
+    q and k as they are without QK-norm."""
+    if not plan.qk_norm:
+        return q, k
+    w = packed["qk_norms"][layer]
+    D = plan.D
+
+    def heads(x, wv):
+        return _rms(x.reshape(*x.shape[:-1], -1, D), wv,
+                    plan.rms_eps).reshape(x.shape)
+    return heads(q, w[0]), heads(k, w[1])
 
 
 def _rot_half(x, D):
@@ -1029,6 +1063,7 @@ def attention_block_ref(plan: MegaPlan, packed: Dict, layer: int,
     if packed["qkv_b"] is not None:
         qkv = qkv + packed["qkv_b"][layer]
     qr, kr, vr = qkv[:, :HD], qkv[:, HD:HD + KD], qkv[:, HD + KD:]
+    qr, kr = qk_norm_heads(plan, packed, layer, qr, kr)
     q_rot = (qr * inp.cq + _rot_half(qr, D) * inp.sq).to(bf).float()
     k_rot = kr * inp.ck + _rot_half(kr, D) * inp.sk
     k3, v3 = k_rot.reshape(B, KH, D), vr.reshape(B, KH, D)
@@ -1114,7 +1149,7 @@ _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "pt", "lens",
           "msplit", "B", "L", "hid", "H", "KH", "inter", "V", "ps", "maxP",
           "kv_kind", "ql", "nsplit", "split_len", "mpad", "skip_attn", "grid",
           "E", "k_top", "norm_topk", "has_shared", "has_sgate",
-          "shared_inter")
+          "shared_inter", "qk_norm")
 _KV_KIND = {"float32": 0, "bfloat16": 1, "int8": 2, "uint8": 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 STREAM_ARGS = 32          # integers per stream (csrc/di_product.cuh)
@@ -1201,6 +1236,20 @@ def stream_args(sp: Optional[StreamPlan], leaves: List[Dict], layered: bool,
     ldo = sp.Nptot if valid is None else valid
     return w + s + z + w_ls + q_ls + n + e_ls + qe_ls + [
         len(leaves), sp.K, G, sp.bits, ksplit, cps, ldo, ldo]
+
+
+def qk_norm_arg(plan, packed: Dict, dev, who: str) -> int:
+    """The kernels' `qk_norm` argument: the address of the pack's
+    `qk_norms` [L, 2, D] f32 for a QK-norm plan (checked), else 0."""
+    if not plan.qk_norm:
+        return 0
+    t = packed.get("qk_norms")
+    if t is None or t.dtype != torch.float32 or \
+            tuple(t.shape) != (plan.L, 2, plan.D) or t.device != dev or \
+            not t.is_contiguous():
+        raise ValueError(f"{who}: qk_norms must be contiguous float32 "
+                         f"({plan.L}, 2, {plan.D}) on {dev}")
+    return t.data_ptr()
 
 
 def _check_leaf(sp: StreamPlan, leaf: Dict, n: int, lead: Tuple[int, ...],
@@ -1477,7 +1526,8 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
         split_len=st.split_len, mpad=st.mpad, skip_attn=int(skip_attention),
         grid=st.grid, E=plan.E, k_top=plan.k_top,
         norm_topk=int(plan.norm_topk), has_shared=int(plan.has_shared),
-        has_sgate=int(plan.has_shared_gate), shared_inter=plan.shared_inter)
+        has_sgate=int(plan.has_shared_gate), shared_inter=plan.shared_inter,
+        qk_norm=qk_norm_arg(plan, packed, dev, "decode_megakernel"))
     # the lm_head's padded columns are written too (they compute 0): a
     # bound on the columns in the product would cost the 128-register
     # kernel spills

@@ -30,18 +30,18 @@ here:
   (`kernel_gates`, `kernel_counts`).
 
 Numerics (the TPU kernel's rounding points): residual in f32; x_norm bf16;
-WEIGHT-SIDE dequant, `w = bf16(f32(q) * s + z)` with s and z rounded to
-bf16 where they are applied, then a plain bf16 x bf16 product with f32
-sums (not the decode kernel's affine after the dot); the q|k|v result in
-f32, bias added in f32, RoPE from bf16 cos/sin tiles in f32 (V gets bias
-and no RoPE); causal softmax over scores scaled by 1/sqrt(D), `p` and `v`
-rounded to bf16 for the PV product, attn_out bf16; K/V quantized per token
-and KV head from the unquantized f32 values; the SwiGLU activation rounded
-to bf16; the last valid row n-1 through the final norm, bf16, then the
-lm_head in f32. The TPU kernel feeds the score product f32 q and k; the
-CUDA kernel's tensor-core operands are bf16, which `bf16_scores=True`
-reproduces in the plain version. The pool rows `< n` of the owned pages
-are written and nothing else (the TPU kernel copies whole pages).
+WEIGHT-SIDE dequant, `w = bf16(f32(q) * s + z)` with s and z rounded to bf16
+where they are applied, then a plain bf16 x bf16 product with f32 sums (not the
+decode kernel's affine after the dot); the q|k|v result in f32, bias added in
+f32, a QK-norm model's per-head RMSNorm of q and k in f32, RoPE from bf16
+cos/sin tiles in f32 (V gets bias and no RoPE); causal softmax over scores
+scaled by 1/sqrt(D), `p` and `v` rounded to bf16 for the PV product, attn_out
+bf16; K/V quantized per token and KV head from the unquantized f32 values; the
+SwiGLU activation rounded to bf16; the last valid row n-1 through the final
+norm, bf16, then the lm_head in f32. The TPU kernel feeds the score product f32
+q and k; the CUDA kernel's tensor-core operands are bf16, which
+`bf16_scores=True` reproduces in the plain version. The pool rows `< n` of the
+owned pages are written and nothing else (the TPU kernel copies whole pages).
 """
 
 import dataclasses
@@ -89,6 +89,7 @@ class PrefillPlan:
     dn: StreamPlan
     lm: StreamPlan
     rms_eps: float
+    qk_norm: bool = False     # per-head RMSNorm of q and k (Qwen3)
     # MoE: the decode plan's fields (ops/megakernel.py MegaPlan)
     E: int = 0
     k_top: int = 0
@@ -127,9 +128,9 @@ def supports_prefill(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
     the JAX package's rules (bucket rule, weight-only view, `supports`; a
     dense model: equal bits over gate / up / down and down's groups a
     multiple of 128 or one group; a MoE model: equal bits over the experts'
-    gate / up / down and over the shared expert's). QK-norm and ALiBi are
-    branches the port's model code lacks: `ops.megakernel.supports` turns
-    them down."""
+    gate / up / down and over the shared expert's; QK-norm under
+    `ops.megakernel.supports`' rule). ALiBi is a branch the port's model
+    code lacks: `ops.megakernel.supports` turns it down."""
     if bucket > MAX_BUCKET or bucket % 128:
         return False
     view = mk.weight_only_decode_view(params)
@@ -180,19 +181,24 @@ def make_prefill_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
                  CacheMode.UINT4: 4}[mode],
         kv_dtype_name=kv_dtype_name, has_qkv_bias=dp.has_qkv_bias,
         qkv=dp.qkv, o=dp.o, gu=dp.gu, dn=dp.dn, lm=dp.lm,
-        rms_eps=dp.rms_eps, E=dp.E, k_top=dp.k_top, norm_topk=dp.norm_topk,
+        rms_eps=dp.rms_eps, qk_norm=dp.qk_norm, E=dp.E, k_top=dp.k_top,
+        norm_topk=dp.norm_topk,
         has_shared=dp.has_shared, has_shared_gate=dp.has_shared_gate,
         EP=dp.EP, shared_inter=dp.shared_inter, rt=dp.rt, sgu=dp.sgu,
         sdn=dp.sdn)
 
 
-def cuda_kernel_gaps(plan: PrefillPlan) -> List[str]:
+def cuda_kernel_gaps(plan: PrefillPlan, any_lm_width: bool = False
+                     ) -> List[str]:
     """Why csrc/prefill_megakernel.cu (and the TP prefill segments, which
     share its phases) cannot run this plan (empty = it can): the pack's
     64-row chunks and columns a multiple of 128 (padded to its 256-column
     tiles, each leaf read at its padded offset), head_dim 128, the router's
-    lanes."""
-    gaps = [g for sp in plan.streams for g in mk.stream_gaps(sp)]
+    lanes; `any_lm_width` as `ops.megakernel.stream_gaps`' (the TP prefill
+    lm segment's one-row product writes the true columns of any even
+    width)."""
+    gaps = [g for sp in plan.streams
+            for g in mk.stream_gaps(sp, any_lm_width)]
     if plan.D != 128:
         gaps.append("head_dim != 128")
     if plan.S % M_TILE or plan.S > MAX_BUCKET:
@@ -284,8 +290,10 @@ def prefill_attention_block_ref(plan: PrefillPlan, packed: Dict, layer: int,
     qkv = _wdeq_dot(x, packed, plan.qkv, layer)
     if packed["qkv_b"] is not None:
         qkv = qkv + packed["qkv_b"][layer]
-    q = _rope(qkv[:, :HD].reshape(S, H, D), inp.cosf, inp.sinf)
-    k = _rope(qkv[:, HD:HD + KD].reshape(S, KH, D), inp.cosf, inp.sinf)
+    qn, kn = mk.qk_norm_heads(plan, packed, layer, qkv[:, :HD],
+                              qkv[:, HD:HD + KD])
+    q = _rope(qn.reshape(S, H, D), inp.cosf, inp.sinf)
+    k = _rope(kn.reshape(S, KH, D), inp.cosf, inp.sinf)
     v = qkv[:, HD + KD:].reshape(S, KH, D)
     qs, ks = (q.to(bf).float(), k.to(bf).float()) if bf16_scores else (q, k)
     s = torch.einsum("qhgd,khd->hgqk", qs.reshape(S, KH, G, D), ks) * \
@@ -464,7 +472,7 @@ _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "page_row",
           "eslot", "ecount", "launches", "trace", "S", "L", "hid", "H", "KH",
           "inter", "V", "ps", "maxPb", "kv_kind", "ql", "grid", "E", "k_top",
           "norm_topk", "has_shared", "has_sgate", "shared_inter", "EP",
-          "scap")
+          "scap", "qk_norm")
 _P, _I = mk._P, mk._I
 
 # the kernel's phases, in order, each followed by a grid barrier
@@ -821,7 +829,8 @@ def prefill_megakernel(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
         E=plan.E, k_top=plan.k_top, norm_topk=int(plan.norm_topk),
         has_shared=int(plan.has_shared), has_sgate=int(plan.has_shared_gate),
         shared_inter=plan.shared_inter, EP=plan.EP,
-        scap=slot_capacity(plan))
+        scap=slot_capacity(plan),
+        qk_norm=mk.qk_norm_arg(plan, packed, dev, "prefill_megakernel"))
     ia = [vals[k] for k in _IARGS]
     ia += mk.packed_stream_args(plan, packed, st.splits, dev,
                                 "prefill_megakernel", lm_valid=plan.V)

@@ -91,6 +91,9 @@ from dashinfer_tpu_torch.runtime.kv_cache import KVCache
 
 _COL_SPLIT = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
 _ROW_SPLIT = ("o_proj", "down_proj")
+# per-head [L, D] weights (Qwen3's QK-norm): the same for every head, so
+# whole on every rank
+_REPLICATED = ("q_norm", "k_norm")
 
 
 def _share(a: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
@@ -120,6 +123,8 @@ def _slice_u4_cols(w_q: torch.Tensor, n: int, r: int) -> torch.Tensor:
 
 def _split_leaf(name: str, leaf, n: int, r: int):
     """One `layers` leaf (stacked [L, ...]) -> rank r's share."""
+    if name in _REPLICATED:
+        return leaf
     col = any(k in name for k in _COL_SPLIT)
     row = any(k in name for k in _ROW_SPLIT)
     if not (col or row):
@@ -656,7 +661,8 @@ def _launch(kind: str, plan: mk.MegaPlan, packed: Dict, layer: int,
         B=B, L=plan.L, hid=plan.hid, H=plan.H, KH=plan.KH, inter=plan.inter,
         V=plan.V, ps=plan.ps, maxP=plan.maxP,
         kv_kind=mk._KV_KIND[plan.kv_dtype_name], nsplit=st.nsplit,
-        split_len=st.split_len, mpad=st.mpad, grid=st.grid[kind])
+        split_len=st.split_len, mpad=st.mpad, grid=st.grid[kind],
+        qk_norm=mk.qk_norm_arg(plan, packed, dev, who))
     if kind == "attn":
         cache = step["cache"]
         for name, dt, shape in (
@@ -869,6 +875,18 @@ def supports_prefill_tp(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
     return pmk.supports_prefill(local_config(cfg, n), rt, local, bucket)
 
 
+def prefill_cuda_kernel_gaps(plan) -> List[str]:
+    """Why csrc/tp_prefill_segments.cu cannot run this local prefill plan
+    (empty = it can): the prefill megakernel's gaps, but the lm segment
+    takes a vocab shard of any even width (Qwen3's 151936 over 2 ranks is
+    75968, 64 mod 128: its one-row product writes the true columns); no
+    MoE plan (`supports_prefill_tp`)."""
+    gaps = pmk.cuda_kernel_gaps(plan, any_lm_width=True)
+    if plan.E:
+        gaps.append("MoE")
+    return gaps
+
+
 def make_tp_prefill_plans(cfg: ModelConfig, rt: RuntimeConfig,
                           parts: Sequence[Dict], buckets: Sequence[int],
                           tp_plan: mk.MegaPlan) -> Dict:
@@ -977,9 +995,7 @@ class _PrefillLaunch:
     device)."""
 
     def __init__(self, plan, dev: torch.device):
-        gaps = pmk.cuda_kernel_gaps(plan)
-        if plan.E:
-            gaps.append("MoE")
+        gaps = prefill_cuda_kernel_gaps(plan)
         if gaps:
             raise ValueError("tp prefill segments: " + "; ".join(gaps))
         lib = kernel_build.load("tp_prefill_segments")
@@ -1080,7 +1096,7 @@ def _prefill_launch(kind: str, plan, packed: Dict, layer: int,
         S=S, L=plan.L, hid=plan.hid,
         H=plan.H, KH=plan.KH, inter=plan.inter, V=plan.V, ps=plan.ps,
         maxPb=plan.maxPb, kv_kind=mk._KV_KIND[plan.kv_dtype_name],
-        grid=st.grid[kind])
+        grid=st.grid[kind], qk_norm=mk.qk_norm_arg(plan, packed, dev, who))
     if kind == "attn":
         cache = step["cache"]
         for name, dt, shape in (

@@ -286,10 +286,12 @@ def measure_rates(batch: int = 16, device="cuda", K: int = HID,
 
 def random_a16w4_params(cfg, seed: int, dev, group: int = 128,
                         stream: str = "u4") -> Dict:
-    """Random weights at a dense qkv-bias model's widths, made on the
-    card: a16w4 group-wise u4 leaves (`stream="u4"`), or the same leaves
-    re-expanded to per-channel int8 by the u4 -> i8 stream rule
-    (`stream="i8"`). Norm weights are ones, biases zero."""
+    """Random weights at a dense model's widths, made on the card: a16w4
+    group-wise u4 leaves (`stream="u4"`), or the same leaves re-expanded to
+    per-channel int8 by the u4 -> i8 stream rule (`stream="i8"`). Norm
+    weights are ones, q|k|v biases (`cfg.qkv_bias`) zero; a QK-norm model's
+    `q_norm` / `k_norm` [L, D] are 1 + 0.25 N(0, 1), drawn after the rest,
+    so that the other leaves are those of the same seed without them."""
     L, D = cfg.num_layers, cfg.head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
     hid, inter, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -313,7 +315,8 @@ def random_a16w4_params(cfg, seed: int, dev, group: int = 128,
     def ones(*shape):
         return torch.ones(shape, dtype=torch.bfloat16, device=dev)
 
-    return {
+    bias = cfg.qkv_bias
+    params = {
         "embed_tokens": {"w": (torch.randn((V, hid), generator=gen,
                                            device=dev) * 0.02
                                ).to(torch.bfloat16)},
@@ -322,15 +325,26 @@ def random_a16w4_params(cfg, seed: int, dev, group: int = 128,
         "layers": {
             "input_layernorm": ones(L, hid),
             "post_attention_layernorm": ones(L, hid),
-            "q_proj": qlin(hid, H * D, bias=True),
-            "k_proj": qlin(hid, KH * D, bias=True),
-            "v_proj": qlin(hid, KH * D, bias=True),
+            "q_proj": qlin(hid, H * D, bias=bias),
+            "k_proj": qlin(hid, KH * D, bias=bias),
+            "v_proj": qlin(hid, KH * D, bias=bias),
             "o_proj": qlin(H * D, hid),
             "gate_proj": qlin(hid, inter),
             "up_proj": qlin(hid, inter),
             "down_proj": qlin(inter, hid),
         },
     }
+    if cfg.qk_norm:
+        params["layers"].update(qk_norm_weights(L, D, gen, dev))
+    return params
+
+
+def qk_norm_weights(L: int, D: int, gen, dev) -> Dict:
+    """Random QK-norm weights [L, D] bf16, 1 + 0.25 N(0, 1): not all ones,
+    so that a kernel that skips or misplaces them shows."""
+    return {name: (1.0 + 0.25 * torch.randn((L, D), generator=gen,
+                                            device=dev)).to(torch.bfloat16)
+            for name in ("q_norm", "k_norm")}
 
 
 def measure_replica(batch: int = 8, device="cuda", seed: int = 0,

@@ -131,8 +131,9 @@ def test_supports_agrees_with_jax_on_tiny_configs(quant, mode):
 
 
 def test_supports_turns_down_what_the_port_has_not():
-    """QK-norm and ALiBi take the JAX megakernel; the port's model code and
-    kernel do not have them yet, so the port says no."""
+    """ALiBi takes the JAX megakernel; the port's model code and kernel do
+    not have it yet, so the port says no. QK-norm (Qwen3) is ported: on it
+    the port's `supports` agrees with the JAX package's."""
     for kw in (dict(qk_norm=True), dict(alibi=True)):
         cfg, rt, params = _tiny(**kw)
         assert jmk.supports(cfg, rt, params)
@@ -142,8 +143,11 @@ def test_supports_turns_down_what_the_port_has_not():
         from dashinfer_tpu_torch.config import ModelConfig, PositionEmbedding
         tcfg = ModelConfig(**kws, position_embedding=PositionEmbedding(
             cfg.position_embedding.value))
-        assert not tmk.supports(tcfg, _port_rt(rt, "default"),
-                                _np_tree(params))
+        got = tmk.supports(tcfg, _port_rt(rt, "default"), _np_tree(params))
+        if "qk_norm" in kw:
+            assert got == jmk.supports(cfg, rt, params)
+        else:
+            assert not got
 
 
 @pytest.mark.parametrize("quant", ["none", "a16w4", "a16w8"])

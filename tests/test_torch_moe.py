@@ -171,8 +171,8 @@ def test_check_supported_lets_moe_through():
     with pytest.raises(NotImplementedError):
         ttr.check_supported(dataclasses.replace(tcfg, moe=dataclasses.replace(
             tcfg.moe, mlp_only_layers=(0,))))
-    with pytest.raises(NotImplementedError):
-        ttr.check_supported(dataclasses.replace(tcfg, qk_norm=True))
+    # Qwen3-MoE's QK-norm is ported (the JAX per-op path runs it): admitted
+    ttr.check_supported(dataclasses.replace(tcfg, qk_norm=True))
 
 
 @pytest.mark.parametrize("quant,shared,KH", [("a16w4", True, 2),

@@ -204,8 +204,9 @@ def test_supports_prefill_agrees_with_jax(quant, mode):
 
 
 def test_supports_prefill_turns_down_what_the_port_has_not():
-    """QK-norm and ALiBi are branches of the TPU kernel; the port's model
-    code does not have them yet, so the port says no."""
+    """ALiBi is a branch of the TPU kernel the port's model code does not
+    have yet, so the port says no. QK-norm (Qwen3) is ported: on it the
+    port's `supports_prefill` agrees with the JAX package's."""
     from dashinfer_tpu_torch.config import ModelConfig, PositionEmbedding
     for kw in (dict(qk_norm=True), dict(alibi=True)):
         cfg, rt, params = _tiny(ps=PS, **kw)
@@ -216,8 +217,12 @@ def test_supports_prefill_turns_down_what_the_port_has_not():
                                  "position_embedding")}
         tcfg = ModelConfig(**kws, position_embedding=PositionEmbedding(
             cfg.position_embedding.value))
-        assert not tpmk.supports_prefill(tcfg, _port_rt(rt, "default"),
-                                         _np_tree(params), BUCKET)
+        got = tpmk.supports_prefill(tcfg, _port_rt(rt, "default"),
+                                    _np_tree(params), BUCKET)
+        if "qk_norm" in kw:
+            assert got == jpmk.supports_prefill(cfg, rt, params, BUCKET)
+        else:
+            assert not got
 
 
 def test_prefill_plan_and_gaps():

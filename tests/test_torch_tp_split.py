@@ -273,12 +273,13 @@ def test_moe_supports_tp_decides_as_jax(quant, E, Im, n):
 
 @pytest.mark.parametrize("n,V", [(2, 384), (4, 640)])
 def test_vocab_shard_of_64_or_32_mod_128_packs(n, V):
-    """A vocab shard whose width is 64 (n = 2: 192) or 32 (n = 4: 160) mod
-    128, as Qwen1.5-MoE's 151936 splits into 75968 and 37984: the pack pads
-    it to its 256-column tiles (the u4 payload re-laid from plain halves
-    into TILE-128 halves), the TP lm segment has no CUDA gap for it (the
-    megakernels keep theirs), and unpacked it is the split leaf in its true
-    columns, zeros after them; the plain lm product is the loader leaf's."""
+    """A vocab shard whose width is 64 (n = 2: 192) or 32 (n = 4: 160) mod 128,
+    as Qwen1.5-MoE's 151936 splits into 75968 and 37984: the pack pads it to
+    its 256-column tiles (the u4 payload re-laid from plain halves into
+    TILE-128 halves), the TP lm segments (decode and prefill) have no CUDA gap
+    for it (the megakernels keep theirs), and unpacked it is the split leaf in
+    its true columns, zeros after them; the plain lm product is the loader
+    leaf's."""
     from dashinfer_tpu.loader.quantize import _quantize_stacked
     from dashinfer_tpu_torch.ops import megakernel as tmk
     from dashinfer_tpu_torch.ops.u4pack import weight_levels
@@ -296,10 +297,14 @@ def test_vocab_shard_of_64_or_32_mod_128_packs(n, V):
     Vn = V // n
     assert Vn % 128 == 128 // n and plan.lm.N == (Vn,)
     assert plan.lm.Np == (-(-Vn // 256) * 256,)
-    # the TP lm segment takes the shard; the megakernels and the TP prefill
-    # lm segment (not run on the card at such a width) keep the 128 rule
+    # the TP lm segments (decode and prefill) take the shard; the
+    # megakernels keep the 128 rule
     assert tmk.stream_gaps(plan.lm, any_lm_width=True) == []
     assert not [g for g in ttpk.cuda_kernel_gaps(plan) if g.startswith("lm")]
+    pplan = ttpk.make_tp_prefill_plans(tcfg, _port_rt(rt, "int8"), parts,
+                                       [128], plan)[128]
+    assert not [g for g in ttpk.prefill_cuda_kernel_gaps(pplan)
+                if g.startswith("lm")]
     assert tmk.stream_gaps(plan.lm)
     for r in range(n):
         lm, leaf = packs[r]["lm_head"], parts[r]["lm_head"]
