@@ -99,6 +99,25 @@ on one of them, and then prints no final result line):
               ms/step printed for the first two. The ranks take distinct
               cards (NCCL) when the machine has two, else share this one
               (a sum on the card).
+  lora        the decode megakernel's LoRA branch at Qwen2-7B width: a pool
+              of 4 slots of rank 16 holding 3 adapters on all seven
+              targets (made on the card from a seed), rows on every loaded
+              slot and rows without one, against its plain version at
+              B = 8 (INT8 / UINT4 KV, u4 and per-channel i8 streams) and
+              B = 32 (u4, i8), the adapters' rows' pool writes by the
+              LORA_POOL_RTOL rule and the others' by the dense rules; an
+              all-none batch bit-equal to the launch without the pool on
+              the same grid; two graph replays and an eager launch
+              bit-equal; the ptxas figures of every `mk_kernel` and
+              `seg_kernel`; ms a step beside the launch without the pool
+              and the bound;
+  serve_lora  Qwen2-7B with `enable_lora` served through `Engine` (three
+              adapters, one from a PEFT `adapter_model.bin`; eight greedy
+              requests on three adapters and none) with the default flags
+              and per-op: the LoRA branch's launches counted, the first 8
+              tokens equal across the paths, an adapter unloaded and
+              another loaded into its slot mid-run, ms/step with and
+              without adapters and TTFT.
 Then Qwen2-7B's weights go, and Qwen3-8B (per-head QK RMSNorm; 36 layers,
 32 heads on 8 KV heads, vocab 151936, random a16w4 weights made on the
 card with q_norm / k_norm not all ones) runs:
@@ -323,6 +342,17 @@ PLANTED_ROUTER_ERR = 2e-2
 # B = 32 state (contexts to 1,500 tokens) read 2.9e-2 of its own range and
 # 2.1e-2 of its layer's while the logits held 5e-4 of their largest.
 MOE_DEEP_RTOL = DEEP_QPARAM_RTOL
+# The decode megakernel's LoRA branch: the kernel and the plain version round
+# each rank value h of a row on an adapter slot to bf16 after sums taken in
+# another order, so an h at a rounding boundary goes one bf16 step (2^-8 of
+# it) apart on the two sides and moves the row's delta, which a strong
+# adapter makes most of the row, by up to that much. A written K / V row of
+# such a row is held in dequantized values within 1.5 of its levels plus
+# LORA_POOL_RTOL (one bf16 step, 2^-7) of its own range, in every layer
+# (INT8: at most ~3.5 levels); its qparams are not held apart. The rows
+# without an adapter keep the dense rules above, and every pool byte
+# outside the written rows stays unchanged.
+LORA_POOL_RTOL = BF16_STEP
 # The MoE decode branch against its plain version routed as the kernel
 # routed (forced_routing_check): a (row, layer) whose K or V differs by more
 # than CONDITIONED_RTOL of the row's range is held to the bounds unless its
@@ -1787,14 +1817,38 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev,
     return pool_err, qp_err0, qp_err
 
 
+def check_lora_rows(what, mode, got, ref, rows, KH) -> float:
+    """The written K / V rows of the rows on an adapter slot (`rows`
+    [pages, ps]) by the LORA_POOL_RTOL rule; returns the largest excess
+    over 1.5 levels, in shares of the row's range."""
+    err, levels = 0.0, 0.0
+    for name in ("k", "v"):
+        val, lv, _, _ = written_rows(got, name, rows, mode, KH)
+        rval, rlv, rsc, _ = written_rows(ref, name, rows, mode, KH)
+        step = 0.0 if rsc is None else 1.5 * rsc[..., None]
+        rng = (rval.amax(-1) - rval.amin(-1)).clamp_min(1e-8)
+        over = ((val - rval).abs() - step).clamp_min(0).amax(-1) / rng
+        err = max(err, over.max().item())
+        if rsc is not None:
+            levels = max(levels, (lv - rlv).abs().max().item())
+    print(f"{what}: the adapters' rows' written K / V within {levels:g} "
+          f"levels, {err:.2e} of their range beyond 1.5 levels", flush=True)
+    check(err <= LORA_POOL_RTOL, f"{what}: an adapter row's written K / V "
+          f"differs by {err:.3e} of its range beyond 1.5 levels")
+    return err
+
+
 def check_megakernel_case(cfg, params, stream, mode, gen, dev,
                           lens=None, inactive=None, nan_fill=False,
-                          dtype="bfloat16"):
+                          dtype="bfloat16", lora=None):
     """One step (B = 8 unless `lens` says otherwise) through the kernel and
     through the plain version, on clones of one pool: logits of the active
     rows, the written token, and every other pool byte (`nan_fill`: with
     NaN in every element no token < lens owns, `mk_state`; `dtype`
-    "float32": an f32 DEFAULT pool, the attention's CUDA-core path)."""
+    "float32": an f32 DEFAULT pool, the attention's CUDA-core path;
+    `lora`: (adapter pool, each row's slot) for the LoRA branch, whose
+    plain version then also runs without the pool, to show by how much the
+    adapters move the logits)."""
     import torch
     from dashinfer_tpu_torch.config import CacheMode
     from dashinfer_tpu_torch.ops import megakernel as mk
@@ -1809,17 +1863,22 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
     caches = {True: before.clone(), False: before.clone()}
     args = (plan, packed, x0, st["cos"], st["sin"], st["pt"], st["lens"],
             st["active"])
-    out = {True: mk.decode_megakernel(*args, caches[True])}
+    lkw = {}
+    if lora is not None:
+        lkw = dict(lora=lora[0], lora_idx=torch.tensor(
+            lora[1], dtype=torch.int32, device=dev))
+    out = {True: mk.decode_megakernel(*args, caches[True], **lkw)}
     mk.check_status(plan, dev)
     routing = []
     out[False] = mk.decode_megakernel_ref(*args, caches[False],
-                                          routing=routing)
+                                          routing=routing, **lkw)
     torch.cuda.synchronize()
     what = f"megakernel {stream}/{mode.value}" + (
         f" B={B}" if B != DECODE_BATCH else "") + (
         f" (cached tokens {sum(lens)})" if sum(lens) > 10000 else "") + (
         " NaN past lens" if nan_fill else "") + (
-        " f32 pool" if dtype == "float32" else "")
+        " f32 pool" if dtype == "float32" else "") + (
+        " LoRA" if lora is not None else "")
     act = st["active"].clone()
     flips, exempt, planted, budget = [], None, None, None
     if plan.E:
@@ -1849,13 +1908,39 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
     tie = ref.max(-1).values - ref.gather(1, pick[:, None])[:, 0]
     same = int((pick == ref.argmax(-1)).sum().item())
     check(bool((tie <= 2 * err).all()), f"{what}: argmax differs")
+    lora_moved = lora_pool_err = None
+    if lora is not None:
+        # what the adapters move: the plain version without them, on the
+        # LoRA rows, against the tolerance the kernel is held to
+        base = mk.decode_megakernel_ref(*args, before.clone())
+        rows = act & (lkw["lora_idx"] >= 0)
+        lora_moved = (out[False][rows] - base[rows]).abs().max().item()
+        flipped = int((out[False][rows].argmax(-1) !=
+                       base[rows].argmax(-1)).sum().item())
+        print(f"{what}: the adapters move the LoRA rows' logits by up to "
+              f"{lora_moved:.3e} (tolerance {LOGITS_RTOL * ref_max:.3e}), "
+              f"argmax of {flipped} of {int(rows.sum())} rows", flush=True)
+        check(lora_moved > 2 * LOGITS_RTOL * ref_max,
+              f"{what}: the adapters move the logits by only "
+              f"{lora_moved:.3e}")
+        del base
     # the pool: only the new token's rows may change
     written = torch.zeros(before.k.shape[:2], dtype=torch.bool, device=dev)
+    lrows = torch.zeros_like(written)
     for b in range(B):
         if b == inactive:
             continue
         g, off = int(st["pt"][b, lens[b] // PAGE]), lens[b] % PAGE
         written[g * L:(g + 1) * L, off] = True
+        if lora is not None and lora[1][b] >= 0:
+            lrows[g * L:(g + 1) * L, off] = True
+    if lora is not None:
+        # the rows on an adapter slot by the LoRA rule, the others by the
+        # dense rules
+        lora_pool_err = check_lora_rows(what, mode, caches[True],
+                                        caches[False], lrows,
+                                        plan.KH)
+        exempt = lrows
     pool_err, qp_err0, qp_err = check_written_pool(
         what, mode, caches[True], caches[False], before, written, L, dev,
         exempt, moe=bool(plan.E))
@@ -1875,7 +1960,8 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
                 ref_max=ref_max, argmax_equal=same, pool_levels=pool_err,
                 qparam_rel_layer0=qp_err0, qparam_rel=qp_err,
                 flipped_rows=flips, planted_fault_rows=planted,
-                forced_routing=forced)
+                forced_routing=forced, lora_moved=lora_moved,
+                lora_pool_err=lora_pool_err)
 
 
 def forced_routing_check(plan, args, got_cache, got, before, written, st,
@@ -4539,10 +4625,515 @@ def check_qwen3_moe(cfg, params, dev, details):
     return out
 
 
+# LoRA: the served pool's geometry (`lora_max_num`, `lora_max_rank`), three
+# adapters on all seven targets of every layer made on the card from a seed
+# (PEFT layout: A [r, in] of std 1 / sqrt(in), so that h has the x_norm's
+# scale; B [out, r] of std LORA_B_STD; alpha / r = 2). The kernel's checks
+# take adapters that move the plain version's logits by more than twice
+# the kernel's tolerance (B's std 0.2 moves them by ~2x their largest and
+# most rows' argmax; 0.12 by 1.5x the tolerance, 0.07 by 0.6x: the
+# random model turns quickly from barely moved to dominated). The served
+# adapters take LORA_SERVE_B_STD on every layer, but the last one's down
+# product steers: all its B columns are LORA_SERVE_STEER times one random
+# vector v of the adapter, so that its delta, (sum of h) x v, outweighs the
+# residual and sends the logits to v's direction (or -v's) without passing
+# through any later layer or K / V. At 0.2 everywhere the served greedy
+# tokens are chaotic (the per-op path, which rounds each sum to bf16, and
+# the megakernel parted after 3 tokens); at 0.1, with random B of std 5 on
+# the last down product, no token moved (an adapter swapped for another
+# gave the same 32 tokens). The served check is that the two paths agree
+# while the adapters' tokens differ.
+LORA_SLOTS, LORA_RANK, LORA_ALPHA, LORA_B_STD = 4, 16, 32.0, 0.2
+LORA_SERVE_B_STD, LORA_SERVE_STEER = 0.1, 1000.0
+LORA_ADAPTERS = 3
+# each row's slot at B = 8 (MK_LENS; row 5 is inactive) and 32: rows on
+# every loaded slot and rows without an adapter
+LORA_IDX8 = [0, 1, 2, -1, 0, 1, -1, 2]
+LORA_IDX32 = [i % (LORA_ADAPTERS + 1) - 1 for i in range(32)]
+
+
+def lora_adapter(cfg, seed: int, dev, rank=LORA_RANK, b_std=LORA_B_STD,
+                 steer=None):
+    """One adapter's PEFT-layout tensors {(layer, target, "A" | "B"):
+    float32 numpy array}, drawn on the card; `steer`: the last layer's down
+    product's B columns are `steer` times one random vector."""
+    import torch
+    from dashinfer_tpu_torch.lora.manager import TARGETS, _dims
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = {}
+    for l in range(cfg.num_layers):
+        for t in TARGETS:
+            i, o = _dims(cfg, t)
+            out[(l, t, "A")] = (torch.randn((rank, i), generator=gen,
+                                            device=dev) / math.sqrt(i)
+                                ).cpu().numpy()
+            b = torch.randn((o, rank), generator=gen, device=dev) * b_std
+            if steer and t == "down_proj" and l == cfg.num_layers - 1:
+                v = torch.randn((o, 1), generator=gen, device=dev)
+                b = (steer * v).expand(o, rank).contiguous()
+            out[(l, t, "B")] = b.cpu().numpy()
+    return out
+
+
+def lora_manager(cfg, dev, seeds, **adapter_kw):
+    """A LoraManager of the served geometry on the card with one adapter a
+    seed loaded (slots 0, 1, ...; `adapter_kw`: `lora_adapter`'s)."""
+    import torch
+    from dashinfer_tpu_torch.config import RuntimeConfigBuilder
+    from dashinfer_tpu_torch.lora import LoraManager
+    rt = (RuntimeConfigBuilder("lora").lora(True, max_num=LORA_SLOTS,
+                                            max_rank=LORA_RANK).build())
+    mgr = LoraManager(cfg, rt, torch.bfloat16, dev)
+    for i, seed in enumerate(seeds):
+        mgr.load(f"adapter{i}", lora_adapter(cfg, seed, dev, **adapter_kw),
+                 alpha=LORA_ALPHA, rank=LORA_RANK)
+    return mgr
+
+
+def ptxas_figures(sources=("megakernel", "tp_segments"),
+                  entries=("mk_kernel", "seg_kernel")) -> dict:
+    """Registers and spill bytes of each kernel instantiation in the build
+    logs: {source: {instantiation: (registers, spill stores, spill
+    loads)}}, an instantiation named by its mangled name from the entry
+    on (mk_kernel<1, false, true>: `mk_kernelILi1ELb0ELb1EE...`)."""
+    import re
+    from dashinfer_tpu_torch.ops import kernel_build
+    out = {}
+    for source in sources:
+        lines = kernel_build.build_logs.get(source, "").splitlines()
+        figs = {}
+        for i, ln in enumerate(lines):
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if not m or not any(e in m.group(1) for e in entries):
+                continue
+            block = " ".join(lines[i:i + 5])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", block)
+            name = m.group(1)
+            key = name[name.index(next(e for e in entries if e in name)):]
+            stores, loads = (int(x) for x in spill.groups()) if spill \
+                else (None, None)
+            figs[key] = (int(regs.group(1)) if regs else None, stores, loads)
+        out[source] = figs
+    return out
+
+
+def check_lora(params, dev, details):
+    """The decode megakernel's LoRA branch at Qwen2-7B width, a pool of
+    LORA_SLOTS slots of rank LORA_RANK holding LORA_ADAPTERS adapters on
+    all seven targets (made on the card from a seed), rows on every loaded
+    slot and rows without one: against its plain version (logits and pool
+    writes, the tolerances above) at B = 8 for INT8 / UINT4 KV and the u4
+    stream and INT8 with the per-channel i8 stream, and at B = 32 (its
+    two-m-tile instantiation) for both streams; an all-none batch bit-equal
+    (logits and pool) to the launch without the pool, on the same launch
+    geometry; two replays of one graph and an eager launch bit-equal; the
+    ptxas registers and spills of every `mk_kernel` instantiation and of
+    the TP segments' `seg_kernel`s (the attention phase is shared); then ms
+    a step of the LoRA launch beside the launch without the pool on the
+    same state, and its bound: the dense step's bytes plus the adapters'
+    that the rows use."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode, ModelConfig
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    cfg = ModelConfig(**QWEN2_7B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 71)
+    mgr = lora_manager(cfg, dev, [SEED + 73 + i
+                                  for i in range(LORA_ADAPTERS)])
+    pool = mgr.pool
+    i8_params = random_qwen2_7b_params(SEED + 1, dev, stream="i8")
+    i8_params["embed_tokens"] = params["embed_tokens"]
+    lens32 = [(37 + 61 * i) % 1500 + 1 for i in range(32)]
+    cases = []
+    for stream, p, mode, lens, inactive, idx in (
+            ("u4", params, CacheMode.INT8, None, None, LORA_IDX8),
+            ("u4", params, CacheMode.UINT4, None, None, LORA_IDX8),
+            ("i8", i8_params, CacheMode.INT8, None, None, LORA_IDX8),
+            ("u4", params, CacheMode.INT8, lens32, 17, LORA_IDX32),
+            ("i8", i8_params, CacheMode.INT8, lens32, 17, LORA_IDX32)):
+        cases.append(check_megakernel_case(cfg, p, stream, mode, gen, dev,
+                                           lens, inactive,
+                                           lora=(pool, idx)))
+    # an all-none batch: the LoRA instantiation computes the dense one's
+    # bits; two graph replays and an eager launch of the LoRA launch
+    timings = []
+    for stream, p, B, lens, idx in (("u4", params, 8, MK_LENS, LORA_IDX8),
+                                    ("u4", params, 32, lens32, LORA_IDX32),
+                                    ("i8", i8_params, 8, MK_LENS, LORA_IDX8),
+                                    ("i8", i8_params, 32, lens32,
+                                     LORA_IDX32)):
+        what = f"megakernel LoRA {stream}/int8 B={B}"
+        plan, packed = mk_plan_pack(cfg, p, B, CacheMode.INT8)
+        st = mk_state(cfg, CacheMode.INT8, B, lens, None, gen, dev)
+        x0 = p["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
+        args = (plan, packed, x0, st["cos"], st["sin"], st["pt"], st["lens"],
+                st["active"])
+        lidx = torch.tensor(idx, dtype=torch.int32, device=dev)
+        none = torch.full_like(lidx, -1)
+        if stream == "u4":
+            c0, c1 = st["cache"].clone(), st["cache"].clone()
+            dense = mk.decode_megakernel(*args, c0)
+            lnone = mk.decode_megakernel(*args, c1, lora=pool, lora_idx=none)
+            mk.check_status(plan, dev)
+            geo = (mk.launch_geometry(plan, dev),
+                   mk.launch_geometry(plan, dev, lora=True))
+            check(geo[0] == geo[1], f"{what}: the LoRA launch's geometry "
+                  f"{geo[1]} is not the dense launch's {geo[0]}")
+            check(torch.equal(dense, lnone) and all(
+                torch.equal(getattr(c0, k), getattr(c1, k))
+                for k in ("k", "v", "k_qparams", "v_qparams")),
+                f"{what}: an all-none batch differs from the launch without "
+                "the pool")
+            print(f"{what}: an all-none batch bit-equal to the launch "
+                  f"without the pool (logits and pool); geometry {geo[0]}",
+                  flush=True)
+            replays_bit_equal(what, lambda: mk.decode_megakernel(
+                *args, st["cache"], lora=pool, lora_idx=lidx))
+            mk.check_status(plan, dev)
+            del c0, c1, dense, lnone
+
+        def run(with_lora):
+            return mk.decode_megakernel(
+                *args, st["cache"], **(dict(lora=pool, lora_idx=lidx)
+                                       if with_lora else {}))
+
+        ms_lora = time_ms(run, [(True,)], iters=5)
+        ms_dense = time_ms(run, [(False,)], iters=5)
+        ms_lora2 = time_ms(run, [(True,)], iters=5)
+        mk.check_status(plan, dev)
+        # where a launch's time goes: block 0's timestamps, by phase kind,
+        # with the adapters and without the pool
+        phases = {}
+        for with_lora in (True, False):
+            trace = torch.zeros(mk.trace_len(plan), dtype=torch.int64,
+                                device=dev)
+            mk.decode_megakernel(*args, st["cache"], trace=trace,
+                                 **(dict(lora=pool, lora_idx=lidx)
+                                    if with_lora else {}))
+            torch.cuda.synchronize()
+            phases["lora" if with_lora else "dense"] = mk.phase_times(
+                plan, trace)
+        mk.check_status(plan, dev)
+        used = len({i for i, a in zip(idx, st["active"].tolist())
+                    if i >= 0 and a})
+        n_w = sum(sp.K * sp.Ntot * (1 if sp.name == "lm" else plan.L)
+                  for sp in plan.streams)
+        lb = mk.lora_bytes(plan, pool, used)
+        nbytes = (plan.weight_bytes + lb + B * plan.V * 4 +
+                  kv_bytes_read(cfg, CacheMode.INT8, lens, [1] * B))
+        # the adapters' operations: 2 (in + out) R a row on a slot, a
+        # target and a layer
+        rows = sum(1 for i, a in zip(idx, st["active"].tolist())
+                   if i >= 0 and a)
+        ops = 2.0 * B * n_w + 2.0 * rows * plan.L * LORA_RANK * sum(
+            pool["A"][t].shape[2] + pool["B"][t].shape[3]
+            for t in mk.LORA_TARGETS)
+        row = dict(stream=stream, B=B, ms=(ms_lora + ms_lora2) / 2,
+                   ms_runs=(ms_lora, ms_lora2), dense_ms=ms_dense,
+                   slots_used=used, lora_bytes=lb, phases=phases,
+                   **bounds(nbytes, ops))
+        timings.append(row)
+        print(f"{what}: {row['ms']:.3f} ms/step with the adapters "
+              f"({ms_lora:.3f} / {ms_lora2:.3f}), {ms_dense:.3f} without the "
+              f"pool; bound {max(row['bytes_ms'], row['ops_ms']):.3f} "
+              f"({used} slots used, {lb / 1e6:.1f} MB of adapters)",
+              flush=True)
+        for k, ph in phases.items():
+            print(f"  {k} phases, ms work+wait (block 0, one traced "
+                  "launch): " + ", ".join(
+                      f"{n} {v['work']:.2f}+{v['wait']:.2f}"
+                      for n, v in ph.items()), flush=True)
+        del st, args, packed
+        torch.cuda.empty_cache()
+    # the plain version's time (one run, host clock around a synchronize)
+    plan, packed = mk_plan_pack(cfg, params, DECODE_BATCH, CacheMode.INT8)
+    st = mk_state(cfg, CacheMode.INT8, DECODE_BATCH, MK_LENS, None, gen, dev)
+    x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
+    lidx = torch.tensor(LORA_IDX8, dtype=torch.int32, device=dev)
+    args = (plan, packed, x0, st["cos"], st["sin"], st["pt"], st["lens"],
+            st["active"])
+    cache = st["cache"].clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mk.decode_megakernel_ref(*args, cache, lora=pool, lora_idx=lidx)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    # the served adapters (serve_lora's) on the same step: what they move
+    served = lora_manager(cfg, dev, [SEED + 81 + i
+                                     for i in range(LORA_ADAPTERS)],
+                          b_std=LORA_SERVE_B_STD, steer=LORA_SERVE_STEER)
+    dense = mk.decode_megakernel_ref(*args, st["cache"].clone())
+    moved = mk.decode_megakernel_ref(*args, st["cache"].clone(),
+                                     lora=served.pool, lora_idx=lidx)
+    rows = st["active"] & (lidx >= 0)
+    served_moved = (moved[rows] - dense[rows]).abs().max().item()
+    served_flips = int((moved[rows].argmax(-1) !=
+                        dense[rows].argmax(-1)).sum().item())
+    print(f"the served adapters move the LoRA rows' logits by up to "
+          f"{served_moved:.3e} (largest {dense[rows].abs().max().item():.3e}"
+          f"), argmax of {served_flips} of {int(rows.sum())} rows",
+          flush=True)
+    del served, dense, moved, cache
+    del st, packed, i8_params
+    torch.cuda.empty_cache()
+    figs = ptxas_figures()
+    for source, f in figs.items():
+        print(f"ptxas {source}: " + ", ".join(
+            f"{k} {v[0]} registers, {v[1]} / {v[2]} bytes spilled"
+            for k, v in sorted(f.items())), flush=True)
+    check(any("Lb0ELb1E" in k for k in figs["megakernel"]),
+          f"no LoRA instantiation of mk_kernel in the build log: {figs}")
+    base = timings[0]
+    details["lora"] = dict(cases=cases, times=timings, plain_ms=plain_ms,
+                           ptxas=figs)
+    print(f"megakernel LoRA plain version: {plain_ms:.1f} ms/step",
+          flush=True)
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=base["ms"], dense_ms=base["dense_ms"], plain_ms=plain_ms,
+                library_ms=None,
+                bound_ms=max(base["bytes_ms"], base["ops_ms"]),
+                bound_by=("bytes" if base["bytes_ms"] >= base["ops_ms"]
+                          else "operations"),
+                shape="u4, INT8, B = 8, 3 adapters on 6 of 7 active rows",
+                ms_b32=timings[1]["ms"], dense_ms_b32=timings[1]["dense_ms"],
+                bound_ms_b32=max(timings[1]["bytes_ms"],
+                                 timings[1]["ops_ms"]),
+                ms_i8=(timings[2]["ms"], timings[3]["ms"]),
+                dense_ms_i8=(timings[2]["dense_ms"], timings[3]["dense_ms"]))
+
+
+# the served LoRA batch: (prompt length, adapter) a request, greedy; the
+# prompts of 90 .. 120 tokens are bucket 128, which the prefill megakernel
+# takes without an adapter and the per-op path with one
+LORA_SERVE = [(20, "a0"), (100, "a1"), (30, "a2"), (100, None), (24, "a0"),
+              (90, "a1"), (28, None), (120, "a2")]
+
+
+def write_peft_bin(cfg, tensors, path):
+    """An adapter as PEFT saves it: adapter_config.json and
+    adapter_model.bin (bf16 tensors under PEFT's key names)."""
+    import torch
+    from dashinfer_tpu_torch.lora.manager import TARGETS
+    os.makedirs(path, exist_ok=True)
+    state = {}
+    for (l, t, ab), arr in tensors.items():
+        mod = "self_attn" if t in TARGETS[:4] else "mlp"
+        state[f"base_model.model.model.layers.{l}.{mod}.{t}.lora_{ab}"
+              ".weight"] = torch.from_numpy(arr).to(torch.bfloat16)
+    torch.save(state, os.path.join(path, "adapter_model.bin"))
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": LORA_RANK,
+                   "lora_alpha": LORA_ALPHA,
+                   "target_modules": list(TARGETS)}, f)
+
+
+def serve_lora_run(params, dev, details, path, new_tokens, adapters, swap):
+    """Qwen2-7B served with `enable_lora` through `Engine`: path
+    "megakernel" (every other flag at its default) or "per-op"
+    (`enable_megakernel` off). Adapters a0, a2 load from tensors, a1 from
+    the PEFT directory `adapters["a1_dir"]`. After a warm-up request with
+    and one without an adapter, the LORA_SERVE batch (launch counts zeroed
+    just before, read just after); then, with a long request without an
+    adapter decoding, a1 is unloaded and `swap` loaded (into a1's slot)
+    and a1's prompt served with it; with path "megakernel", the same
+    prompts again without adapters (the dense step's time). Returns
+    (launches, tokens of the batch, tokens of the swap request, the
+    requests' stats)."""
+    import torch
+    from dashinfer_tpu_torch import (CacheMode, Engine, GenerateRequestStatus,
+                                     GenerationConfig, ModelConfig,
+                                     RuntimeConfigBuilder)
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import paged_attention as pa
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    from dashinfer_tpu_torch.ops import quant_matmul as qm
+    cfg = ModelConfig(**QWEN2_7B)
+    name = "qwen2-7b-lora"
+    b = (RuntimeConfigBuilder(name).max_length(2048).max_batch(DECODE_BATCH)
+         .kv_cache_page_size(PAGE).kv_cache_mode(CacheMode.INT8)
+         .dtype("bfloat16").lora(True, max_num=LORA_SLOTS,
+                                 max_rank=LORA_RANK))
+    if path == "per-op":
+        b = b.update({"enable_megakernel": False})
+    counters = {"decode_megakernel": mk.decode_megakernel.counter,
+                "decode_megakernel_lora": mk.decode_megakernel.lora_counter,
+                "prefill_megakernel": pmk.prefill_megakernel.counter,
+                "quant_matmul": qm.quant_matmul.counter,
+                "paged_attention": pa.paged_attention.counter}
+    torch.cuda.synchronize()
+    pmk.release_scratch(dev)
+    torch.cuda.empty_cache()
+    eng = Engine().install_model(name, b.build(), params=params,
+                                 model_config=cfg, device=dev)
+    run = eng._models[name]
+    check((run.mega_plan is not None) == (path == "megakernel") and
+          run._mega_lora_ok == (path == "megakernel"),
+          f"serve_lora {path}: the install took the wrong decode path")
+    eng.load_lora(name, "a0", adapters["a0"], alpha=LORA_ALPHA,
+                  rank=LORA_RANK)
+    eng.start_model(name)
+    g = torch.Generator().manual_seed(11)
+
+    def prompt(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+
+    def greedy(n, new, lora):
+        return GenerationConfig(max_length=n + new, do_sample=False,
+                                top_k=1, eos_token_id=-1, lora_name=lora)
+
+    def serve_all(reqs, new):
+        hs = [eng.start_request(name, ids, greedy(len(ids), new, lora))[1:]
+              for ids, lora in reqs]
+        for h, _ in hs:
+            eng.sync_request(name, h, timeout_s=600)
+        out = []
+        for (h, q), (ids, lora) in zip(hs, reqs):
+            toks, st = q.GetAllGeneratedTokens(), q.RequestStatInfo()
+            check(q.GenerateStatus() == GenerateRequestStatus.GenerateFinished
+                  and len(toks) == new, f"serve_lora {path}: a request "
+                  f"(prompt {len(ids)}, {lora}) ended {q.GenerateStatus()} "
+                  f"with {len(toks)} tokens")
+            out.append(dict(prompt_len=len(ids), lora=lora, tokens=toks,
+                            ttft_ms=1e3 * st["time_to_first_token"],
+                            decode_ms_per_step=1e3 / st["generate_tps"]))
+            eng.release_request(name, h)
+        return out
+
+    stats = {}
+    try:
+        eng.load_lora(name, "a1", adapters["a1_dir"])
+        eng.load_lora(name, "a2", adapters["a2"], alpha=LORA_ALPHA,
+                      rank=LORA_RANK)
+        check([run.lora_manager.index_of(a) for a in ("a0", "a1", "a2")] ==
+              [0, 1, 2], f"serve_lora {path}: slots "
+              f"{run.lora_manager.names}")
+        # warm-up: the process's first use of each PyTorch kernel and the
+        # two decode graphs' captures are set-up, not serving
+        serve_all([(prompt(20), "a0")], 4)
+        serve_all([(prompt(20), None)], 4)
+        batch = [(prompt(n), lora) for n, lora in LORA_SERVE]
+        for c in counters.values():
+            c.reset()
+        stats["lora_batch"] = serve_all(batch, new_tokens)
+        launches = {k: c.read() for k, c in counters.items()}
+        # unload a1 and load `swap` into its slot while a request without
+        # an adapter decodes
+        _, h_long, _ = eng.start_request(name, prompt(50),
+                                         greedy(50, 200, None))
+        eng.unload_lora(name, "a1")
+        eng.load_lora(name, "a3", swap, alpha=LORA_ALPHA, rank=LORA_RANK)
+        check(run.lora_manager.index_of("a3") == 1,
+              f"serve_lora {path}: a3 in slot "
+              f"{run.lora_manager.index_of('a3')}, not a1's")
+        stats["swap"] = serve_all([(batch[1][0], "a3")], new_tokens)
+        eng.sync_request(name, h_long, timeout_s=600)
+        eng.release_request(name, h_long)
+        if path == "megakernel":
+            stats["dense_batch"] = serve_all([(ids, None) for ids, _ in batch],
+                                             new_tokens)
+        captures = run._lora_decode_step.forward.captures
+    finally:
+        eng.release_model(name)
+    check(captures == 1, f"serve_lora {path}: the LoRA decode graph was "
+          f"captured {captures} times")
+    details[f"serving_lora_{path}"] = dict(launches=launches, **stats)
+    for r in stats["lora_batch"] + stats["swap"]:
+        print(f"lora {path} request prompt={r['prompt_len']:4d} "
+              f"adapter={r['lora']} ttft_ms={r['ttft_ms']:.1f} "
+              f"decode_ms/step={r['decode_ms_per_step']:.2f}", flush=True)
+    print(f"lora {path}: launches {launches}", flush=True)
+    return (launches, [r["tokens"] for r in stats["lora_batch"]],
+            stats["swap"][0]["tokens"], stats)
+
+
+def check_serving_lora(params, dev, details):
+    """Qwen2-7B with `enable_lora` served through `Engine` with the default
+    flags and on the per-op path (serve_lora_run): the LoRA batch's decode
+    steps go through the decode megakernel's LoRA branch (its launch count
+    at least one a step, no per-op decode kernel, the adapters' prompts
+    per-op and the prefill megakernel for the one bucket-128 prompt
+    without an adapter); every request's first 8 greedy tokens equal
+    the per-op path's; the adapter loaded into a1's slot mid-run is the one
+    a1's prompt then follows (the per-op path's tokens, and not a1's),
+    without a second capture of the LoRA graph. Returns the LoRA branch's
+    launches."""
+    import torch
+    from dashinfer_tpu_torch.config import ModelConfig
+    cfg = ModelConfig(**QWEN2_7B)
+    import tempfile
+    served = dict(b_std=LORA_SERVE_B_STD, steer=LORA_SERVE_STEER)
+    adapters = {f"a{i}": lora_adapter(cfg, SEED + 81 + i, dev, **served)
+                for i in range(3)}
+    swap = lora_adapter(cfg, SEED + 91, dev, **served)
+    with tempfile.TemporaryDirectory() as tmp:
+        adapters["a1_dir"] = os.path.join(tmp, "a1")
+        write_peft_bin(cfg, adapters.pop("a1"), adapters["a1_dir"])
+        mk_l, mk_toks, mk_swap, mk_stats = serve_lora_run(
+            params, dev, details, "megakernel", 32, adapters, swap)
+        op_l, op_toks, op_swap, _ = serve_lora_run(
+            params, dev, details, "per-op", 12, adapters, swap)
+    L, new = cfg.num_layers, 32
+    per_step = 7 * L + 1
+    quant = sum(per_step if n <= 32 else 1 for n, lora in LORA_SERVE
+                if lora is not None or n <= 64)
+    mega_prefills = sum(1 for n, lora in LORA_SERVE
+                        if lora is None and 64 < n <= 1024)
+    check(mk_l["decode_megakernel_lora"] >= new - 1 and
+          mk_l["paged_attention"] == 0 and mk_l["quant_matmul"] == quant and
+          mk_l["prefill_megakernel"] == mega_prefills,
+          f"serve_lora megakernel: launch counts {mk_l}; want the LoRA "
+          f"branch at least {new - 1}, no paged_attention, {quant} "
+          f"quant_matmul (the per-op prefills) and {mega_prefills} prefill "
+          "megakernel launches")
+    check(op_l["decode_megakernel_lora"] == 0 and
+          op_l["decode_megakernel"] == 0 and op_l["paged_attention"] > 0,
+          f"serve_lora per-op: launch counts {op_l}")
+    agree = []
+    for (n, lora), a, b in zip(LORA_SERVE, mk_toks, op_toks):
+        same = next((j for j in range(len(b)) if a[j] != b[j]), len(b))
+        agree.append(same)
+        print(f"lora request prompt={n} adapter={lora}: the megakernel and "
+              f"per-op paths agree on the first {same} of {len(b)} tokens",
+              flush=True)
+        check(same >= 8, f"lora request (prompt {n}, {lora}): the paths "
+              f"agree on only {same} tokens")
+    same = next((j for j in range(len(op_swap)) if mk_swap[j] != op_swap[j]),
+                len(op_swap))
+    print(f"a1's prompt: under a1 {mk_toks[1]}, under a3 {mk_swap} (per-op "
+          f"{op_swap})", flush=True)
+    check(same >= 8, f"the adapter loaded into a1's slot: the paths agree "
+          f"on only {same} tokens")
+    check(mk_swap != mk_toks[1], "a1's prompt gives the same tokens with "
+          "the adapter loaded into a1's slot as with a1")
+    print(f"lora slot reuse: a1's prompt under a3 agrees with the per-op "
+          f"path on {same} of {len(op_swap)} tokens and differs from its "
+          f"tokens under a1", flush=True)
+    lstep = [r["decode_ms_per_step"] for r in mk_stats["lora_batch"]]
+    dstep = [r["decode_ms_per_step"] for r in mk_stats["dense_batch"]]
+    summary = dict(
+        lora_ms_per_step=(min(lstep), max(lstep)),
+        dense_ms_per_step=(min(dstep), max(dstep)),
+        lora_ttft_ms=max(r["ttft_ms"] for r in mk_stats["lora_batch"]),
+        dense_ttft_ms=max(r["ttft_ms"] for r in mk_stats["dense_batch"]),
+        agree=agree, swap_agree=same, launches=mk_l)
+    details["lora_serving_summary"] = summary
+    print(f"qwen2-7b LoRA serving: decode {min(lstep):.2f} .. "
+          f"{max(lstep):.2f} ms/step with the adapters' rows, "
+          f"{min(dstep):.2f} .. {max(dstep):.2f} without adapters; TTFT "
+          f"(the eight prompts together) {summary['lora_ttft_ms']:.1f} ms "
+          f"against {summary['dense_ttft_ms']:.1f}", flush=True)
+    torch.cuda.empty_cache()
+    return mk_l["decode_megakernel_lora"]
+
+
 PHASES = ("quant_matmul", "paged_attention", "grouped_quant_matmul",
           "stream_probe", "probes", "megakernel", "prefill_megakernel",
           "serve", "decode_logits", "tp_segments", "tp_prefill", "serve_tp",
-          "qwen3", "serve_qwen3", "tp_moe", "serve_tp_moe", "qwen3_moe")
+          "lora", "serve_lora", "qwen3", "serve_qwen3", "tp_moe",
+          "serve_tp_moe", "qwen3_moe")
 MOE_PHASES = ("megakernel", "prefill_megakernel", "serve", "tp_moe",
               "serve_tp_moe")
 
@@ -4632,6 +5223,10 @@ def main(argv=None) -> int:
                                                   ("per-op", 24))}
                 tp_launches = check_serving_tp(params, dev, details,
                                                single_tokens)
+            if phase("lora"):
+                res["lora"] = check_lora(params, dev, details)
+            if phase("serve_lora"):
+                lora_launches = check_serving_lora(params, dev, details)
             # Qwen3-8B (QK-norm), on the card alone: Qwen2-7B's weights go
             # first
             del params
@@ -4733,7 +5328,8 @@ def main(argv=None) -> int:
              launches=mk_launches["decode_megakernel"],
              **res["decode_megakernel"], moe=moe_decode,
              qwen3=q3_entry("decode_megakernel", "megakernel"),
-             qwen3_moe=q3m["decode_megakernel"]),
+             qwen3_moe=q3m["decode_megakernel"],
+             lora=dict(launches=lora_launches, **res["lora"])),
         dict(name="stream_probe", route="cuda",
              source=csrc + "stream_probe.cu",
              replaces="tools/bench_stream.py:41", **res["stream_probe"]),
@@ -4785,7 +5381,8 @@ def main(argv=None) -> int:
     for k in kernels:
         check_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")
-        parts = [k] + [k[m] for m in ("moe", "qwen3", "qwen3_moe") if m in k]
+        parts = [k] + [k[m] for m in ("moe", "qwen3", "qwen3_moe", "lora")
+                       if m in k]
         if any(key not in p or (key == "launches" and p[key] <= 0)
                for p in parts for key in check_keys):
             print(f"chip_smoke: FAIL: kernel line of {k['name']}: {k}",

@@ -22,6 +22,210 @@ __device__ __forceinline__ void grid_barrier(const Args& a, int phase) {
   di::grid_barrier(a.barrier, a.status, a.trace, phase);
 }
 
+// ---------------------------------------------------------------------------
+// LoRA: the decode megakernel's LoRA branch (mk_kernel<MT, false, true>).
+// What it computes (the TPU kernel's epilogue, ops/pallas/megakernel.py
+// `lora_proj` / `lora_delta`): for a row b on adapter slot n and each
+// target t, h = (x_bf16 @ A_t[n]) in f32 over rank space, then the
+// target's product gains bf16(h) @ bf16(B_t[n] * scale[n]) (f32 pool: no
+// bf16 rounding of A, B or the scale fold); a row without an adapter gains
+// nothing (its arithmetic is the dense kernel's). No grid barrier is added:
+//   the rank projection runs in the phase of the product that reads the
+//     same x records, after its product (`lora_project`): items (target,
+//     slot a row uses, kLoraKC-row chunk of K) write f32 partials of h
+//     [target][chunk][row][rank] to lora_h; only the slots some active row
+//     uses are read (the TPU kernel streams every slot and masks);
+//   the delta is added by the phase that already sums that product's
+//     K splits, each summing h's chunks in order first: the attention
+//     items for q|k|v (their slot's q heads, k and v, before the bias),
+//     act_phase for gate and up (so SwiGLU sees them), the next
+//     resid_phase for o and down.
+// ---------------------------------------------------------------------------
+constexpr int kLoraKC = 512;        // K rows of a rank-projection item
+constexpr int kMaxLoraRank = 64;    // lora_r (a multiple of 8)
+constexpr int kMaxLoraSlots = 64;   // lora_n
+enum LoraTarget { kLq, kLk, kLv, kLo, kLg, kLu, kLd };
+
+__device__ __forceinline__ int lora_k(const Args& a, int t) {
+  return t == kLo ? a.H * kD : (t == kLd ? a.inter : a.hid);
+}
+
+__device__ __forceinline__ int lora_n_out(const Args& a, int t) {
+  return t == kLq ? a.H * kD
+                  : (t == kLk || t == kLv) ? a.KH * kD
+                  : (t == kLo || t == kLd) ? a.hid : a.inter;
+}
+
+// Row b's adapter slot, or -1 (no adapter, or an inactive row).
+__device__ __forceinline__ int lora_slot(const Args& a, int b) {
+  const int n = a.lora_idx[b];
+  return a.active[b] && n >= 0 && n < a.lora_n ? n : -1;
+}
+
+// Element (row m, column k) of a product's x records (write_record's
+// layout), as the bf16 value the product multiplies. Written by another
+// block in the phase before: read past L1.
+__device__ __forceinline__ float record_x(const uint8_t* rec, int mpad, int m,
+                                          int k) {
+  const int k0 = k % kChunkK, s = k0 >> 4, kk = k0 & 15;
+  const int tig = (kk & 7) >> 1, khalf = kk >> 3;
+  const int mt = m >> 4, gid = m & 7, rhalf = (m >> 3) & 1;
+  const uint8_t* p = rec + (size_t)(k / kChunkK) * rec_bytes(mpad) +
+                     ((mt * 4 + s) * 32 + gid * 4 + tig) * 16 +
+                     (rhalf + 2 * khalf) * 4 + (kk & 1) * 2;
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// Eight consecutive values of a pool tensor (bf16, or f32 when f32).
+__device__ __forceinline__ void load8(const void* base, bool f32, size_t i,
+                                      float (&v)[8]) {
+  if (f32) {
+    const float4* p = reinterpret_cast<const float4*>(
+        static_cast<const float*>(base) + i);
+    const float4 x = p[0], y = p[1];
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+  } else {
+    const uint4 w = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(base) + i);
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&ws[j]);
+      v[2 * j] = __low2float(h);
+      v[2 * j + 1] = __high2float(h);
+    }
+  }
+}
+
+// The rank projection of targets [t0, t0 + nt) of `layer`, x from a.rec.
+// Items (target, used slot, chunk) go from the last block backwards (the
+// product's items go round from block 0, so its last blocks have the
+// fewest); in an item a warp takes a row on the slot, its lanes every 32nd
+// K row of the chunk, sixteen ranks at a time, and the warp's butterfly
+// sums give the chunk's partial h of the row.
+__device__ __noinline__ void lora_project(const Args& a, int layer, int t0,
+                                          int nt) {
+  __shared__ int s_slots[kMaxLoraSlots];
+  __shared__ int s_nused;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int R = a.lora_r;
+  if (threadIdx.x == 0) {
+    unsigned long long used = 0;
+    for (int b = 0; b < a.B; ++b) {
+      const int n = lora_slot(a, b);
+      if (n >= 0) used |= 1ull << n;
+    }
+    int k = 0;
+    for (int n = 0; n < a.lora_n; ++n)
+      if ((used >> n) & 1ull) s_slots[k++] = n;
+    s_nused = k;
+  }
+  __syncthreads();
+  const int nused = s_nused;
+  int total = 0;
+  for (int t = t0; t < t0 + nt; ++t)
+    total += nused * ((lora_k(a, t) + kLoraKC - 1) / kLoraKC);
+  for (int it = (int)gridDim.x - 1 - (int)blockIdx.x; it < total;
+       it += gridDim.x) {
+    int t = t0, rem = it;
+    for (;;) {
+      const int n_t = nused * ((lora_k(a, t) + kLoraKC - 1) / kLoraKC);
+      if (rem < n_t) break;
+      rem -= n_t;
+      ++t;
+    }
+    const int K = lora_k(a, t), nkc = (K + kLoraKC - 1) / kLoraKC;
+    const int n = s_slots[rem / nkc], kc = rem % nkc;
+    const int k0 = kc * kLoraKC, k1 = min(K, k0 + kLoraKC);
+    const size_t a0 = ((size_t)layer * a.lora_n + n) * K * R;
+    float* out = a.lora_h + ((size_t)t * a.lora_kc + kc) * a.B * R;
+    int j = 0;
+    for (int b = 0; b < a.B; ++b) {
+      if (lora_slot(a, b) != n) continue;
+      if (j++ % kWarps != warp) continue;
+      for (int r0 = 0; r0 < R; r0 += 16) {
+        const bool two = r0 + 8 < R;
+        float acc[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) acc[q] = 0.f;
+        for (int k = k0 + lane; k < k1; k += 32) {
+          const float x = record_x(a.rec, a.mpad, b, k);
+          float w[8];
+          load8(a.lora_a[t], a.lora_f32, a0 + (size_t)k * R + r0, w);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[q] = fmaf(x, w[q], acc[q]);
+          if (two) {
+            load8(a.lora_a[t], a.lora_f32, a0 + (size_t)k * R + r0 + 8, w);
+#pragma unroll
+            for (int q = 0; q < 8; ++q) acc[8 + q] = fmaf(x, w[q], acc[8 + q]);
+          }
+        }
+        float mine = 0.f;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const float s = warp_sum(acc[q]);
+          if (lane == q) mine = s;
+        }
+        if (lane < 16 && r0 + lane < R) out[(size_t)b * R + r0 + lane] = mine;
+      }
+    }
+  }
+}
+
+// bf16(h) of row b, target t, rank r: its chunks' partials summed in order.
+__device__ __forceinline__ float lora_hval(const Args& a, int t, int b,
+                                          int r) {
+  const int nkc = (lora_k(a, t) + kLoraKC - 1) / kLoraKC;
+  const size_t stride = (size_t)a.B * a.lora_r;
+  const float* p = a.lora_h + (size_t)t * a.lora_kc * stride +
+                   (size_t)b * a.lora_r + r;
+  float h = 0.f;
+  for (int kc = 0; kc < nkc; ++kc) h += __ldcg(p + kc * stride);
+  return bf16_round(h);
+}
+
+// Column `col` of target t's delta for a row on slot n: bf16(h) (`h`, the
+// row's lora_r values) . the column of B * scale, rounded to bf16 as the
+// TPU kernel's folded view is (an f32 pool: not rounded).
+__device__ __noinline__ float lora_delta(const Args& a, int t, int layer,
+                                         int n, const float* h, int col) {
+  const int R = a.lora_r, N = lora_n_out(a, t);
+  const float s = a.lora_scale[n];
+  const size_t b0 = ((size_t)layer * a.lora_n + n) * R * N + col;
+  float d = 0.f;
+  if (a.lora_f32) {
+    const float* B = static_cast<const float*>(a.lora_b[t]) + b0;
+    for (int r = 0; r < R; ++r) d = fmaf(h[r], B[(size_t)r * N] * s, d);
+  } else {
+    const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(a.lora_b[t]) +
+                             b0;
+    for (int r = 0; r < R; ++r)
+      d = fmaf(h[r], bf16_round(__bfloat162float(B[(size_t)r * N]) * s), d);
+  }
+  return d;
+}
+
+// The q|k|v deltas of an attention item of `layer` (row b on slot n, KV
+// head kvh) -> raw[i] for its first `rows` rows of kD (the q heads, then k
+// and v): each thread the i that it sums in attention_phase. The block puts
+// the row's bf16(h) of q, k and v in `lh` ([3][lora_r]) first.
+__device__ __noinline__ void lora_qkv_delta(const Args& a, int layer, int b,
+                                            int n, int kvh, int rows,
+                                            float* raw, float* lh) {
+  const int R = a.lora_r, G = a.H / a.KH;
+  for (int i = threadIdx.x; i < 3 * R; i += kThreads)
+    lh[i] = lora_hval(a, kLq + i / R, b, i % R);
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * kD; i += kThreads) {
+    const int r = i / kD, d = i % kD;
+    const int t = r < G ? kLq : (r == G ? kLk : kLv);
+    raw[i] = lora_delta(a, t, layer, n, lh + (t - kLq) * R,
+                        r < G ? (kvh * G + r) * kD + d : kvh * kD + d);
+  }
+}
+
 // The residual update and RMSNorm before a product, in two phases with a
 // grid barrier between them, so that a row is spread over many blocks (one
 // block pulls a row's split-K partials from L2 at a small part of the
@@ -39,20 +243,33 @@ __device__ __forceinline__ int norm_items_per_block(const Args& a) {
   return (items + gridDim.x - 1) / gridDim.x;
 }
 
+// LORA (the decode megakernel's LoRA branch): a row on an adapter slot also
+// gains target `lora_t`'s delta of layer `lora_layer` (-1: none), after the
+// partials; the half-block's row's bf16(h) goes to shared memory first.
+template <bool LORA = false>
 __device__ void resid_phase(const Args& a, const float* part, int ksplit,
-                            bool from_x0, const float* w, float* smem) {
+                            bool from_x0, const float* w, float* smem,
+                            int lora_t = -1, int lora_layer = 0) {
   const int hid = a.hid, nslab = hid / kSlab;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int per_block = norm_items_per_block(a);
   float* vals = smem;                          // [per_block][kSlab]
   float* wts = vals + per_block * kSlab;       // [per_block][kSlab]
   float* red = wts + per_block * kSlab;        // [kWarps]
+  float* lh = red + kWarps;                    // LORA: [2][kMaxLoraRank]
   // the block's two halves take one item each at a time
   const int half = tid / kSlab, t = tid % kSlab;
   for (int k0 = 0; k0 < per_block; k0 += kThreads / kSlab) {
     const int k = k0 + half;
     const int it = blockIdx.x + k * gridDim.x;
     const bool valid = k < per_block && it < a.B * nslab;
+    int slot = -1;
+    if constexpr (LORA) {
+      if (valid && lora_t >= 0) slot = lora_slot(a, it / nslab);
+      if (slot >= 0 && t < a.lora_r)
+        lh[half * kMaxLoraRank + t] = lora_hval(a, lora_t, it / nslab, t);
+      __syncthreads();
+    }
     if (valid) {
       const int m = it / nslab, i = (it % nslab) * kSlab + t;
       const float wv = w[i];
@@ -73,6 +290,9 @@ __device__ void resid_phase(const Args& a, const float* part, int ksplit,
           for (int q = 0; q < 4; ++q) v += p[q];
         }
       }
+      if (LORA && slot >= 0)
+        v += lora_delta(a, lora_t, lora_layer, slot, lh + half * kMaxLoraRank,
+                        i);
       a.resid[(size_t)m * hid + i] = v;
       vals[k * kSlab + t] = v;
       wts[k * kSlab + t] = wv;
@@ -116,11 +336,14 @@ __device__ void norm_phase(const Args& a, float* smem) {
 
 // SwiGLU of one (row m, 64-column chunk c) of a gate|up product's partials
 // (`part`: split 0's [B][ntot], `ksplit` splits; up starts at the gate
-// leaf's padded width) -> chunk c of the down product's x records.
+// leaf's padded width) -> chunk c of the down product's x records. `dl`:
+// the LoRA deltas of gate and up at the lane's two columns, added after the
+// partials (null: none).
 __device__ __forceinline__ void swiglu_chunk(const Args& a, const Stream& st,
                                              int ksplit, const float* part,
                                              int m, int c, uint8_t* rec,
-                                             int lane) {
+                                             int lane,
+                                             const float4* dl = nullptr) {
   const int col = c * kChunkK + 2 * lane;
   float g0 = 0.f, g1 = 0.f, u0 = 0.f, u1 = 0.f;
 #pragma unroll 4
@@ -130,6 +353,9 @@ __device__ __forceinline__ void swiglu_chunk(const Args& a, const Stream& st,
     const float2 u = __ldcg(reinterpret_cast<const float2*>(p + st.n[0]));
     g0 += g.x; g1 += g.y; u0 += u.x; u1 += u.y;
   }
+  if (dl != nullptr) {
+    g0 += dl->x; g1 += dl->y; u0 += dl->z; u1 += dl->w;
+  }
   // the plain version's order: g * sigmoid(g), sigmoid(g) = 1 / (1 +
   // exp(-g)), then * u
   write_record(rec, a.mpad, c, m, lane,
@@ -137,15 +363,52 @@ __device__ __forceinline__ void swiglu_chunk(const Args& a, const Stream& st,
                g1 * (1.0f / (1.0f + expf(-g1))) * u1);
 }
 
-// SwiGLU of the gate|up partials -> x records of the down product.
-__device__ void act_phase(const Args& a) {
+// The LoRA deltas of gate and up of layer `layer` at columns col, col + 1
+// for row m on slot n; the warp puts the row's bf16(h) of both in `lh`
+// ([2][kMaxLoraRank], its own shared memory) first.
+__device__ __noinline__ float4 lora_gate_up(const Args& a, int layer, int m,
+                                            int n, int col, float* lh) {
+  const int lane = threadIdx.x & 31;
+  for (int r = lane; r < a.lora_r; r += 32) {
+    lh[r] = lora_hval(a, kLg, m, r);
+    lh[kMaxLoraRank + r] = lora_hval(a, kLu, m, r);
+  }
+  __syncwarp();
+  const float4 d = make_float4(
+      lora_delta(a, kLg, layer, n, lh, col),
+      lora_delta(a, kLg, layer, n, lh, col + 1),
+      lora_delta(a, kLu, layer, n, lh + kMaxLoraRank, col),
+      lora_delta(a, kLu, layer, n, lh + kMaxLoraRank, col + 1));
+  __syncwarp();
+  return d;
+}
+
+// SwiGLU of the gate|up partials -> x records of the down product. LORA:
+// a row on an adapter slot adds gate's and up's deltas of layer `layer`
+// first (each warp's [2][kMaxLoraRank] of `smem` holds its row's h).
+template <bool LORA = false>
+__device__ void act_phase(const Args& a, int layer = 0,
+                          float* smem = nullptr) {
   const int chunks = a.inter / kChunkK;
   const int lane = threadIdx.x & 31;
   const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int nw = gridDim.x * kWarps;
-  for (int it = gw; it < chunks * a.B; it += nw)
-    swiglu_chunk(a, a.st[kGu], a.st[kGu].ksplit, a.partial, it / chunks,
-                 it % chunks, a.rec, lane);
+  for (int it = gw; it < chunks * a.B; it += nw) {
+    const int m = it / chunks, c = it % chunks;
+    if constexpr (LORA) {
+      const int n = lora_slot(a, m);
+      if (n >= 0) {
+        const float4 dl = lora_gate_up(
+            a, layer, m, n, c * kChunkK + 2 * lane,
+            smem + (threadIdx.x >> 5) * 2 * kMaxLoraRank);
+        swiglu_chunk(a, a.st[kGu], a.st[kGu].ksplit, a.partial, m, c, a.rec,
+                     lane, &dl);
+        continue;
+      }
+    }
+    swiglu_chunk(a, a.st[kGu], a.st[kGu].ksplit, a.partial, m, c, a.rec,
+                 lane);
+  }
 }
 
 // Merges the `used` attention chunks of slot b's query heads of KV head h
@@ -213,7 +476,7 @@ constexpr int kAttTiles =
 // sum, acc) go to att_ml / att_acc; the last chunk of a (slot, KV head) to
 // finish (a ticket a pair, a.att_tickets, set back to 0 by its taker)
 // merges the pair's chunks into the o product's x records.
-template <int KIND, bool SUMMED>
+template <int KIND, bool SUMMED, bool LORA = false>
 __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
   constexpr bool kMma = KIND != kF32;       // tensor cores but for f32
   using Gm = Geo<KIND, kD, true>;
@@ -226,6 +489,7 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
   float* raw = reinterpret_cast<float*>(smem + kAttTiles);
   float* rot = raw + (kMaxG + 2) * kD;
   float* s_new = rot + (kMaxG + 1) * kD;
+  float* lora_lh = s_new + kMaxG;             // LORA: [3][kMaxLoraRank]
   float* q_s = reinterpret_cast<float*>(smem + Gm::kQOff);
   float* qsum_s = reinterpret_cast<float*>(smem + Gm::kQsumOff);
   __shared__ int s_last;
@@ -281,6 +545,17 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
       const Stream& st = a.st[kQkv];
       const float* bias =
           a.qkv_b == nullptr ? nullptr : a.qkv_b + (size_t)layer * QKVN;
+      // LORA, a row on an adapter slot: the deltas of its q heads (and in
+      // chunk 0, which writes and attends the new token, of k and v) are
+      // first put in raw, then added to the partials' sums before the bias
+      int lora_rows = 0;
+      if constexpr (LORA) {
+        const int n = lora_slot(a, b);
+        if (n >= 0) {
+          lora_rows = j == 0 ? G + 2 : G;
+          lora_qkv_delta(a, layer, b, n, h, lora_rows, raw, lora_lh);
+        }
+      }
       constexpr int kPer = ((kMaxG + 2) * kD + kThreads - 1) / kThreads;
       float v[kPer], bv[kPer];
       int cols[kPer];
@@ -309,7 +584,10 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
 #pragma unroll
       for (int u = 0; u < kPer; ++u) {
         const int i = tid + u * kThreads;
-        if (i < (G + 2) * kD) raw[i] = v[u] + bv[u];
+        if (LORA && i < lora_rows * kD)
+          raw[i] = (v[u] + raw[i]) + bv[u];
+        else if (i < (G + 2) * kD)
+          raw[i] = v[u] + bv[u];
       }
     }
     __syncthreads();
@@ -498,20 +776,23 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
   }
 }
 
-template <bool SUMMED>
+template <bool SUMMED, bool LORA = false>
 __device__ void attention(const Args& a, int layer, uint8_t* smem) {
   switch (a.kv_kind) {
-    case kF32: attention_phase<kF32, SUMMED>(a, layer, smem); break;
-    case kBF16: attention_phase<kBF16, SUMMED>(a, layer, smem); break;
-    case kI8: attention_phase<kI8, SUMMED>(a, layer, smem); break;
-    default: attention_phase<kU4, SUMMED>(a, layer, smem); break;
+    case kF32: attention_phase<kF32, SUMMED, LORA>(a, layer, smem); break;
+    case kBF16: attention_phase<kBF16, SUMMED, LORA>(a, layer, smem); break;
+    case kI8: attention_phase<kI8, SUMMED, LORA>(a, layer, smem); break;
+    default: attention_phase<kU4, SUMMED, LORA>(a, layer, smem); break;
   }
 }
 
-int smem_bytes(int mt, int hid) {
+int smem_bytes(int mt, int hid, bool lora = false) {
   // resid/norm phases: up to kMaxBatch * hid / kSlab items over >= one
-  // block per SM, values and weights each; far below the other two
-  return imax(product_smem_bytes(mt), kAttTiles + kAttExtra);
+  // block per SM, values and weights each; far below the other two. The
+  // LoRA branch's h rows beside the attention's extra (below the product
+  // ring's bytes too, so the branch keeps the dense kernel's occupancy)
+  return imax(product_smem_bytes(mt),
+              kAttTiles + kAttExtra + (lora ? 4 * 3 * kMaxLoraRank : 0));
 }
 
 // Index of each value in the `ia` array of di_megakernel (ops/megakernel.py
@@ -587,11 +868,32 @@ inline void fill_args(Args& a, const long long* ia, const double* fa) {
   a.mpad = (int)ia[I_MPAD];
   a.skip_attn = (int)ia[I_SKIP_ATTN];
   a.probe = 0;
+  a.lora_n = 0;
   a.eps = (float)fa[0];
   a.att_scale = (float)fa[1];
   for (int i = 0; i < kStreams; ++i) {
     fill_stream(a.st[i], ia + I_STREAMS + kStreamArgs * i);
   }
+}
+
+// The decode megakernel's LoRA values after its streams, kLoraArgs
+// integers (ops/megakernel.py `lora_args`): the addresses of A of the 7
+// targets, of B of the 7, of the scales, of the rows' slots and of the h
+// scratch; then lora_n, lora_r, lora_f32, lora_kc.
+constexpr int kLoraArgs = 21;
+
+inline void fill_lora(Args& a, const long long* p) {
+  for (int t = 0; t < 7; ++t) {
+    a.lora_a[t] = ptr<const void>(p[t]);
+    a.lora_b[t] = ptr<const void>(p[7 + t]);
+  }
+  a.lora_scale = ptr<const float>(p[14]);
+  a.lora_idx = ptr<const int>(p[15]);
+  a.lora_h = ptr<float>(p[16]);
+  a.lora_n = (int)p[17];
+  a.lora_r = (int)p[18];
+  a.lora_f32 = (int)p[19];
+  a.lora_kc = (int)p[20];
 }
 
 }  // namespace

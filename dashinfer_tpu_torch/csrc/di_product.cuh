@@ -108,6 +108,17 @@ struct Args {
                              // alone (no copy, no wait), 4 copy pipeline
                              // alone (no dequant, dot or affine)
   float eps, att_scale;
+  // The decode megakernel's LoRA branch (di_layer.cuh; lora_n 0 without):
+  // per target (q, k, v, o, gate, up, down) the adapter pool's A
+  // [L][lora_n][K][lora_r] and B [L][lora_n][lora_r][N], bf16 (f32 when
+  // lora_f32), as lora/manager.py holds it; last in the struct, so that
+  // the other kernels' fields keep their offsets.
+  const void* lora_a[7];
+  const void* lora_b[7];
+  const float* lora_scale;   // [lora_n] alpha / rank of each slot
+  const int* lora_idx;       // [B] each row's slot, -1 = none
+  float* lora_h;             // [7][lora_kc][B][lora_r] rank-space partials
+  int lora_n, lora_r, lora_f32, lora_kc;
 };
 
 __device__ __forceinline__ int rec_bytes(int mpad) {

@@ -95,6 +95,16 @@
 // experts at B = 8.
 // The next resid phase adds, per row, its experts' down products times their
 // gates in ascending expert order, then the shared expert's times its gate.
+// LoRA (`mk_kernel<MT, false, true>`, a launch whose rows carry adapters;
+// replaces the TPU kernel's LoRA epilogue, `lora_nr > 0`): the adapters'
+// rank projections run in the phase of the product that reads the same x
+// records, after it (the slots some active row uses, their K chunks dealt
+// from the last block backwards), and the deltas are added where the
+// product's K splits are summed: q|k|v by the attention items (before the
+// bias), gate and up by the SwiGLU phase, o and down by the next residual
+// phase; the same ten barriers a layer (di_layer.cuh). What bounds it: the
+// dense step's bytes plus the used slots' A and B, read once each by the
+// projections but B again by every item that adds a delta.
 // With a trace buffer, block
 // 0 writes a timestamp where it ends each phase and where it leaves each
 // barrier (ops/megakernel.py `phase_times`). The dense layer phases live in
@@ -109,9 +119,12 @@ using namespace di;
 
 // MOE: the MoE model's kernel. The dense kernel is compiled without any of
 // the MoE code, so that it adds nothing to the dense products' registers.
-template <int MT, bool MOE>
+// LORA: the dense kernel with the LoRA branch (di_layer.cuh): a launch
+// without adapters runs the dense instantiation, the parent's machine code.
+template <int MT, bool MOE, bool LORA>
 __global__ void __launch_bounds__(kThreads, MT == 1 ? 2 : 1)
 mk_kernel(const __grid_constant__ Args a) {
+  static_assert(!(MOE && LORA), "a MoE model decodes LoRA batches per-op");
   extern __shared__ __align__(16) uint8_t smem[];
   float* fsmem = reinterpret_cast<float*>(smem);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -128,29 +141,34 @@ mk_kernel(const __grid_constant__ Args a) {
     if (MOE && l > 0)
       moe_resid_phase(a, a.partial, mlp_ksplit, a.st[kDn].ksplit, l - 1,
                       a.norms + (size_t)(2 * l) * hid, fsmem);
-    else
-      resid_phase(a, a.partial, mlp_ksplit, l == 0,
-                  a.norms + (size_t)(2 * l) * hid, fsmem);
+    else    // LORA: with the down delta of the layer before
+      resid_phase<LORA>(a, a.partial, mlp_ksplit, l == 0,
+                        a.norms + (size_t)(2 * l) * hid, fsmem,
+                        l > 0 ? kLd : -1, l - 1);
     grid_barrier(a, phase++);
     norm_phase(a, fsmem);
     grid_barrier(a, phase++);
     product_call<MT>(a, kQkv, l, a.partial, smem);
+    if constexpr (LORA) lora_project(a, l, kLq, 3);
     grid_barrier(a, phase++);
-    if (!a.skip_attn) attention<false>(a, l, smem);
+    if (!a.skip_attn) attention<false, LORA>(a, l, smem);
     grid_barrier(a, phase++);
     product_call<MT>(a, kO, l, a.partial, smem);
+    if constexpr (LORA) lora_project(a, l, kLo, 1);
     grid_barrier(a, phase++);
-    resid_phase(a, a.partial, a.st[kO].ksplit, false,
-                a.norms + (size_t)(2 * l + 1) * hid, fsmem);
+    resid_phase<LORA>(a, a.partial, a.st[kO].ksplit, false,
+                      a.norms + (size_t)(2 * l + 1) * hid, fsmem, kLo, l);
     grid_barrier(a, phase++);
     norm_phase(a, fsmem);
     grid_barrier(a, phase++);
     if constexpr (!MOE) {
       product_call<MT>(a, kGu, l, a.partial, smem);
+      if constexpr (LORA) lora_project(a, l, kLg, 2);
       grid_barrier(a, phase++);
-      act_phase(a);
+      act_phase<LORA>(a, l, fsmem);
       grid_barrier(a, phase++);
       product_call<MT>(a, kDn, l, a.partial, smem);
+      if constexpr (LORA) lora_project(a, l, kLd, 1);
       grid_barrier(a, phase++);
     } else {
       // the routed experts' list, built once a layer in every block
@@ -180,7 +198,8 @@ mk_kernel(const __grid_constant__ Args a) {
     moe_resid_phase(a, a.partial, mlp_ksplit, a.st[kDn].ksplit, a.L - 1,
                     a.final_norm, fsmem);
   else
-    resid_phase(a, a.partial, mlp_ksplit, false, a.final_norm, fsmem);
+    resid_phase<LORA>(a, a.partial, mlp_ksplit, false, a.final_norm, fsmem,
+                      kLd, a.L - 1);
   grid_barrier(a, phase++);
   norm_phase(a, fsmem);
   grid_barrier(a, phase++);
@@ -188,35 +207,54 @@ mk_kernel(const __grid_constant__ Args a) {
   grid_barrier(a, phase++);   // so that a trace shows the lm_head's end
 }
 
-// Blocks of mk_kernel<MT, MOE> resident at once on one SM (0 on error).
-template <int MT, bool MOE>
+// Blocks of mk_kernel<MT, MOE, LORA> resident at once on one SM (0 on
+// error).
+template <int MT, bool MOE, bool LORA>
 int per_sm(int smem) {
   int n = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      mk_kernel<MT, MOE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      mk_kernel<MT, MOE, LORA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, mk_kernel<MT, MOE>,
-                                                      kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, mk_kernel<MT, MOE, LORA>, kThreads, smem);
   return e == cudaSuccess ? n : 0;
 }
 
-template <int MT, bool MOE>
+template <int MT, bool MOE, bool LORA>
 void launch(const Args& a, int grid, int smem, cudaStream_t s) {
-  cudaFuncSetAttribute(mk_kernel<MT, MOE>,
+  cudaFuncSetAttribute(mk_kernel<MT, MOE, LORA>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  mk_kernel<MT, MOE><<<grid, kThreads, smem, s>>>(a);
+  mk_kernel<MT, MOE, LORA><<<grid, kThreads, smem, s>>>(a);
+}
+
+template <int MT>
+int per_sm_of(int kind, int smem) {      // kind 0 dense, 1 MoE, 2 LoRA
+  return kind == 1 ? per_sm<MT, true, false>(smem)
+                   : (kind == 2 ? per_sm<MT, false, true>(smem)
+                                : per_sm<MT, false, false>(smem));
+}
+
+template <int MT>
+void launch_of(const Args& a, int grid, int smem, cudaStream_t s) {
+  if (a.E > 0)
+    launch<MT, true, false>(a, grid, smem, s);
+  else if (a.lora_n > 0)
+    launch<MT, false, true>(a, grid, smem, s);
+  else
+    launch<MT, false, false>(a, grid, smem, s);
 }
 
 }  // namespace
 
 // The largest grid whose blocks are all resident at once on `device` for a
-// batch padded to `mpad` rows (of a MoE model when `moe`): SMs x blocks per
-// SM of the kernel with its dynamic shared memory. Returns 0 on error.
-extern "C" int di_megakernel_grid(int device, int mpad, int hid, int moe) {
+// batch padded to `mpad` rows (kind 0: a dense model, 1: a MoE model, 2: a
+// dense model with the LoRA branch): SMs x blocks per SM of the kernel with
+// its dynamic shared memory. Returns 0 on error.
+extern "C" int di_megakernel_grid(int device, int mpad, int hid, int kind) {
   const int mt = mpad > 16 ? 2 : 1;
-  const int smem = smem_bytes(mt, hid);
-  const int n = mt == 1 ? (moe ? per_sm<1, true>(smem) : per_sm<1, false>(smem))
-                        : (moe ? per_sm<2, true>(smem) : per_sm<2, false>(smem));
+  const int smem = smem_bytes(mt, hid, kind == 2);
+  const int n = mt == 1 ? per_sm_of<1>(kind, smem) : per_sm_of<2>(kind, smem);
   int sms = 0;
   if (n == 0 || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                        device) != cudaSuccess) {
@@ -227,12 +265,21 @@ extern "C" int di_megakernel_grid(int device, int mpad, int hid, int moe) {
 }
 
 // One decode forward. `ia` holds pointers and integers by the IArg index,
-// `fa` = {rms eps, attention scale}. Shapes and types are validated by the
-// caller (ops/megakernel.py). Returns cudaGetLastError().
+// then the streams, then the LoRA branch's kLoraArgs values (lora_n 0: no
+// adapter; ops/megakernel.py `lora_args`); `fa` = {rms eps, attention
+// scale}. Shapes and types are validated by the caller (ops/megakernel.py).
+// Returns cudaGetLastError().
 extern "C" int di_megakernel(const long long* ia, const double* fa,
                              void* stream) {
   Args a;
   fill_args(a, ia, fa);
+  fill_lora(a, ia + I_STREAMS + kStreams * kStreamArgs);
+  if (a.lora_n > 0 && (a.E > 0 || a.lora_n > kMaxLoraSlots ||
+                       a.lora_r < 8 || a.lora_r > kMaxLoraRank ||
+                       a.lora_r % 8 || a.lora_kc * kLoraKC < a.inter ||
+                       a.lora_kc * kLoraKC < a.hid ||
+                       a.lora_kc * kLoraKC < a.H * kD))
+    return (int)cudaErrorInvalidValue;
   // the wrapper's attention chunks must be whole tiles, at most kMaxChunks
   if (a.split_len < kAttTile || a.split_len % kAttTile || a.nsplit < 1 ||
       a.nsplit > kMaxChunks)
@@ -243,13 +290,11 @@ extern "C" int di_megakernel(const long long* ia, const double* fa,
     return (int)cudaErrorInvalidValue;
   const int grid = (int)ia[I_GRID];
   const int mt = a.mpad > 16 ? 2 : 1;
-  const int smem = smem_bytes(mt, a.hid);
+  const int smem = smem_bytes(mt, a.hid, a.lora_n > 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mt == 1)
-    a.E > 0 ? launch<1, true>(a, grid, smem, s)
-            : launch<1, false>(a, grid, smem, s);
+    launch_of<1>(a, grid, smem, s);
   else
-    a.E > 0 ? launch<2, true>(a, grid, smem, s)
-            : launch<2, false>(a, grid, smem, s);
+    launch_of<2>(a, grid, smem, s);
   return (int)cudaGetLastError();
 }

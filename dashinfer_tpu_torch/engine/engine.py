@@ -248,6 +248,10 @@ class Engine:
             raise RuntimeError(f"model {name} not started")
         gen_cfg.validate(runtime.cfg.vocab_size, runtime.rt.max_length)
         runtime.validate_request(input_ids, gen_cfg)
+        if gen_cfg.lora_name is not None:
+            if runtime.lora_manager is None:
+                raise ValueError("lora_name given but LoRA is not enabled")
+            runtime.lora_manager.index_of(gen_cfg.lora_name)  # KeyError
         if len(input_ids) >= gen_cfg.max_length:
             raise ValueError(
                 f"prompt length {len(input_ids)} >= max_length "
@@ -262,13 +266,29 @@ class Engine:
         return GenerateRequestStatus.Init, RequestHandle(uuid, name), rq
 
     def _call_in_loop(self, name: str, fn, timeout_s: float = 30.0):
+        """fn() on model `name`'s loop thread, between its steps (here if
+        the model is not started); returns its value and raises its
+        exception here, or TimeoutError if the loop did not run it in
+        time."""
         loop = self._loops.get(name)
         if loop is None:
-            fn()
-            return
-        done = threading.Event()
-        loop.submit(lambda: (fn(), done.set()))
-        done.wait(timeout=timeout_s)
+            return fn()
+        done, out = threading.Event(), {}
+
+        def run():
+            try:
+                out["value"] = fn()
+            except Exception as e:
+                out["error"] = e
+            done.set()
+
+        loop.submit(run)
+        if not done.wait(timeout=timeout_s):
+            raise TimeoutError(f"model {name}: the loop did not run the call "
+                               f"within {timeout_s} s")
+        if "error" in out:
+            raise out["error"]
+        return out.get("value")
 
     def stop_request(self, name: str, handle: RequestHandle):
         runtime = self._models[name]
@@ -291,6 +311,30 @@ class Engine:
             if deadline and time.monotonic() > deadline:
                 raise TimeoutError(f"sync_request {handle.uuid[:8]}")
             time.sleep(0.002)
+        return self
+
+    # -- LoRA -----------------------------------------------------------------
+    def load_lora(self, name: str, lora_name: str, adapter_path_or_tensors,
+                  alpha: float = None, rank: int = None):
+        """Loads an adapter (a PEFT directory, or tensors {(layer, target,
+        "A" | "B"): array} with alpha and rank) into model `name`'s pool. A
+        started model loads it on its loop's thread, between steps, so the
+        copy is ordered with the steps on the loop's stream; errors (name
+        already loaded, pool full, rank above lora_max_rank) are raised
+        here."""
+        runtime = self._models[name]
+        if runtime.lora_manager is None:
+            raise RuntimeError("LoRA not enabled in RuntimeConfig")
+        self._call_in_loop(name, lambda: runtime.lora_manager.load(
+            lora_name, adapter_path_or_tensors, alpha, rank), 120.0)
+        return self
+
+    def unload_lora(self, name: str, lora_name: str):
+        runtime = self._models[name]
+        if runtime.lora_manager is None:
+            return self
+        self._call_in_loop(name, lambda: runtime.lora_manager.unload(
+            lora_name), 120.0)
         return self
 
     # -- stats ----------------------------------------------------------------

@@ -26,6 +26,17 @@ DI_PREFILL_MEGAKERNEL=0, prefill per-op TP. The two single-device
 megakernels never run on a mesh, and the weights stay resident as
 "both".
 
+LoRA (`enable_lora`, single device): the adapter pool (lora/manager.py)
+lives on the card at fixed addresses. A prompt with an adapter prefills
+per-op with it; a decode batch without an adapter runs the step it runs
+without LoRA; a batch that carries one runs the decode megakernel's LoRA
+branch (a dense plan: `ops.megakernel.supports_lora_epilogue`), or the
+per-op forward with the adapters (a MoE plan, or no plan), each in a CUDA
+graph of its own. LoRA on a mesh raises NotImplementedError (the JAX
+package serves it through its XLA per-op TP path), and
+`weight_residency="pack_only"` with LoRA is refused, as in the JAX
+runtime.
+
 Page accounting: the allocator hands out LOGICAL pages; logical page `g`
 owns physical pages `g*L + l` for each layer l.
 
@@ -48,6 +59,7 @@ from dashinfer_tpu_torch.config import (EvictionStrategy, GenerationConfig,
                                         ModelConfig, RuntimeConfig)
 from dashinfer_tpu_torch.engine import steps as steps_mod
 from dashinfer_tpu_torch.engine.stats import EngineStat
+from dashinfer_tpu_torch.lora.manager import LoraManager
 from dashinfer_tpu_torch.loader.convert import (params_from_numpy,
                                                 torch_dtype)
 from dashinfer_tpu_torch.models.transformer import check_supported
@@ -91,7 +103,6 @@ class DecodeDecision:
 def _unported_runtime_features(rt: RuntimeConfig) -> List[str]:
     return [name for name, on in (
         ("prefix cache", rt.enable_prefix_cache),
-        ("LoRA", rt.enable_lora),
         ("a data-parallel mesh axis", rt.mesh_shape[0] != 1),
         ("chunked prefill (max_prefill_chunk)", rt.max_prefill_chunk > 0),
         ("multi-step decode (decode_steps_per_launch)",
@@ -106,7 +117,6 @@ def _unported_request_features(g: GenerationConfig) -> List[str]:
         ("response_format", bool(g.response_format)),
         ("bad_words_ids", bool(g.bad_words_ids)),
         ("no_repeat_ngram_size", g.no_repeat_ngram_size > 0),
-        ("lora_name", g.lora_name is not None),
         ("multimodal inputs", g.mm_info is not None or
          g.mrope_positions is not None or g.mrope_position_delta != 0),
     ) if on]
@@ -194,6 +204,11 @@ class ModelRuntime:
         if missing:
             raise NotImplementedError(
                 f"{', '.join(missing)}: not ported to the PyTorch package yet")
+        if rt.enable_lora and tuple(rt.mesh_shape) != (1, 1):
+            raise NotImplementedError(
+                "LoRA on a mesh: not ported to the PyTorch package yet (the "
+                "per-op TP forwards would need the adapter pool split by "
+                "rank)")
         self.name = name
         self.cfg = cfg
         self.rt = rt
@@ -228,6 +243,21 @@ class ModelRuntime:
         self._inflight = None
         self._inflight_prefills: List = []
 
+        # the adapter pool, on the card before the KV pool is planned from
+        # what is free
+        self.lora_manager = None
+        self._mega_lora_ok = False
+        if rt.enable_lora:
+            self.lora_manager = LoraManager(cfg, rt, self.dtype, self.device)
+            self._mega_lora_ok = self.mega_plan is not None and \
+                mk.supports_lora_epilogue(self.mega_plan, rt.lora_max_num,
+                                          rt.lora_max_rank)
+            logger.info(
+                "LoRA: %d slots of rank %d (%.2f GiB); batches with an "
+                "adapter decode through %s", rt.lora_max_num,
+                rt.lora_max_rank, _resident_bytes(self.lora_manager.pool)
+                / 1024**3, "the decode megakernel's LoRA branch"
+                if self._mega_lora_ok else "the per-op path")
         self.num_logical_pages = self._plan_pool()
         # + 1: the sink page for inactive decode slots (ops/kv_ops.py)
         pages = self.num_logical_pages * cfg.num_layers + 1
@@ -246,6 +276,12 @@ class ModelRuntime:
         self._decode_step = steps_mod.build_decode_step(
             cfg, rt, megakernel_plan=self.mega_plan,
             tp_megakernel=self.tp_mega_plan, devices=devices)
+        self._lora_decode_step = None
+        if self.lora_manager is not None:
+            self._lora_decode_step = steps_mod.build_decode_step(
+                cfg, rt, megakernel_plan=self.mega_plan
+                if self._mega_lora_ok else None,
+                lora_pool=self.lora_manager.pool)
         self._prefill_steps: Dict = {}     # (bucket, mega) -> step
         self._deactivate = steps_mod.build_deactivate(cfg, rt)
 
@@ -717,14 +753,16 @@ class ModelRuntime:
     def _prefill_fn(self, bucket: int, mega=False) -> Callable:
         """The prefill step of a bucket, keyed (bucket, mega): mega True
         for the prefill megakernel, "tp" for the TP prefill segments, False
-        for the per-op (or per-op TP) forward."""
+        for the per-op (or per-op TP) forward, "lora" for the per-op forward
+        with the prompt's adapter."""
         key = (bucket, mega)
         if key not in self._prefill_steps:
             self._prefill_steps[key] = steps_mod.build_prefill_step(
                 self.cfg, self.rt, bucket,
                 mega_plan=self._pmk_plans[bucket] if mega is True else None,
                 devices=None if self.mesh is None else self.mesh.devices,
-                tp_mega=self._tp_pmk_plans[bucket] if mega == "tp" else None)
+                tp_mega=self._tp_pmk_plans[bucket] if mega == "tp" else None,
+                lora_pool=self.lora_manager.pool if mega == "lora" else None)
         return self._prefill_steps[key]
 
     # -- request entry -------------------------------------------------------
@@ -822,10 +860,12 @@ class ModelRuntime:
 
         # prefill megakernel (or on a mesh the TP prefill segments):
         # whole-bucket fresh prefill (prefix_len == 0, the only kind the
-        # port has)
-        use_mega = bucket in self._pmk_plans
+        # port has); a prompt with an adapter prefills per-op with it
+        with_lora = self.lora_manager is not None and \
+            req.gen_cfg.lora_name is not None
+        use_mega = bucket in self._pmk_plans and not with_lora
         mega = True if use_mega else ("tp" if bucket in self._tp_pmk_plans
-                                      else False)
+                                      else ("lora" if with_lora else False))
         if self.residency == "pack_only" and not use_mega:
             # defense in depth: validate_request should make this
             # unreachable; never run a per-op prefill against params=None
@@ -837,7 +877,7 @@ class ModelRuntime:
         t0 = time.monotonic()
         try:
             tok, self.cache, self.state = fn(
-                self.mega_params if mega else self.params,
+                self.mega_params if mega in (True, "tp") else self.params,
                 self.cache, self.state,
                 steps_mod.to_device(tok_buf, self.device),
                 steps_mod.to_device(page_row, self.device),
@@ -878,6 +918,9 @@ class ModelRuntime:
             if len(w) == 1:
                 stop_ids.append(int(w[0]))
         stop_ids = (stop_ids + [-1] * max_stop)[:max_stop]
+        lora_idx = -1
+        if self.lora_manager is not None:
+            lora_idx = self.lora_manager.index_of(g.lora_name)
         return steps_mod.SlotInit(
             slot=slot, temperature=float(g.temperature),
             top_k=int(g.top_k if g.do_sample else 1), top_p=float(g.top_p),
@@ -885,7 +928,7 @@ class ModelRuntime:
             presence_penalty=float(g.presence_penalty),
             frequency_penalty=float(g.frequency_penalty),
             seed=int(g.seed) & 0xFFFFFFFF, min_gen_len=int(g.min_length),
-            stop_token_ids=tuple(stop_ids))
+            stop_token_ids=tuple(stop_ids), lora_idx=lora_idx)
 
     # -- decode --------------------------------------------------------------
     def active_requests(self) -> List[Request]:
@@ -953,13 +996,18 @@ class ModelRuntime:
                 noise_rows[r.slot] = (int(r.gen_cfg.seed) & 0xFFFFFFFF,
                                       self._cached_len[r.uuid])
         kernel = self.mega_plan is not None or self.tp_mega_plan is not None
-        tokens, self.cache, self.state = self._decode_step(
+        step = self._decode_step
+        if self.lora_manager is not None and any(
+                r.gen_cfg.lora_name is not None for r in act):
+            # a batch that carries an adapter: its own step and graph
+            step, kernel = self._lora_decode_step, self._mega_lora_ok
+        tokens, self.cache, self.state = step(
             self.mega_params if kernel else self.params,
             self.cache, self.state,
             steps_mod.to_device(d.new_page_ids, self.device), noise_rows)
         for req in act:
             self._cached_len[req.uuid] += 1
-        prev, self._inflight = self._inflight, (tokens, act)
+        prev, self._inflight = self._inflight, (tokens, act, kernel)
         if prev is not None:
             self._drain_batch(prev)
         return len(act)
@@ -1003,13 +1051,13 @@ class ModelRuntime:
 
     def _drain_batch(self, batch):
         self._drain_prefill_tokens()
-        tokens_t, act = batch
+        tokens_t, act, kernel = batch
         tokens = tokens_t.cpu().numpy()
         # a grid barrier or a ring wait that gave up leaves its mark here:
         # raise
-        if self.mega_plan is not None:
+        if kernel and self.mega_plan is not None:
             mk.check_status(self.mega_plan, self.device)
-        elif self.tp_mega_plan is not None:
+        elif kernel:
             for dev in self.mesh.distinct:
                 tpk.check_status(self.tp_mega_plan, dev)
         else:   # the per-op decode forward's products

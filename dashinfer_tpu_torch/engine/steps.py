@@ -27,9 +27,17 @@ models/transformer.py; a prefill step built with a local prefill plan
 rank and layer and one lm launch a rank, eagerly, and any other prefill
 (a MoE model's, at every bucket) the per-op TP forward. The decode state and the sampler stay on rank 0's
 device.
+
+LoRA (lora/manager.py): a prefill step built with the adapter pool runs the
+per-op forward with the prompt's adapter (never the prefill megakernel, as
+in the JAX package); every prefill writes its slot's `lora_idx`. A decode
+step built with the pool passes it, with the rows' `lora_idx`, to the
+decode megakernel's LoRA branch, or to the per-op forward as a one-hot
+computed on the card; it is a graph of its own beside the step without.
 """
 
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -59,6 +67,7 @@ class SlotInit(NamedTuple):
     seed: int
     min_gen_len: int
     stop_token_ids: Tuple[int, ...]   # padded to MAX_STOP with -1
+    lora_idx: int = -1                # adapter pool slot, -1 = none
 
 
 def to_device(a, device, dtype=None) -> torch.Tensor:
@@ -135,10 +144,14 @@ def _tp_prefill_mega_forward(cfg: ModelConfig, plan, params,
 def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
                        mega_plan=None,
                        devices: Optional[Sequence[torch.device]] = None,
-                       tp_mega=None) -> Callable:
+                       tp_mega=None, lora_pool: Optional[Dict] = None
+                       ) -> Callable:
     """Returns fn(params, cache, state, tokens [S], page_row [maxPb],
     prefix_len, total_len, init: SlotInit) -> (token (0-d device tensor),
     cache, state). page_row holds LOGICAL page ids.
+
+    With `lora_pool` (the adapter pool) the forward is the single-device
+    per-op one with the prompt's adapter (`init.lora_idx`).
 
     With `mega_plan` the model forward is ONE launch of the prefill
     megakernel; params must be the mega params dict {"packed", "embed"} and
@@ -168,7 +181,7 @@ def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
         else:
             logits, cache = transformer.prefill_forward(
                 cfg, params, tokens, cache, page_row, prefix_len, total_len,
-                mode=mode)
+                mode=mode, lora=lora_pool, lora_idx=init.lora_idx)
 
         # prompt token occurrence counts (penalties run over
         # prompt + generated tokens)
@@ -197,6 +210,7 @@ def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
         state.page_tables[s, :page_row.shape[0]] = page_row
         state.active[s] = True
         state.token_counts[s] = counts
+        state.lora_idx[s] = init.lora_idx
         _write_slot_sampling(state.sampling, init)
         return tok, cache, state
 
@@ -212,15 +226,25 @@ def _rope_tiles(cfg: ModelConfig, pos: torch.Tensor):
 
 
 def _megakernel_forward(cfg: ModelConfig, plan, params, state: DecodeState,
-                        cache: KVCache) -> torch.Tensor:
-    """One whole-model decode forward through the megakernel. params is
-    the mega params dict {"packed", "embed"}; the pool is updated in
-    place. Returns logits [B, vocab] f32."""
+                        cache: KVCache, lora: Optional[Dict] = None
+                        ) -> torch.Tensor:
+    """One whole-model decode forward through the megakernel (its LoRA
+    branch with `lora`, the adapter pool, and the state's `lora_idx`).
+    params is the mega params dict {"packed", "embed"}; the pool is updated
+    in place. Returns logits [B, vocab] f32."""
     x0 = params["embed"][state.token_ids.long()].to(torch.bfloat16)
     cos, sin = _rope_tiles(cfg, state.context_lens)
-    return mk.decode_megakernel(plan, params["packed"], x0, cos, sin,
-                                state.page_tables, state.context_lens,
-                                state.active, cache)
+    return mk.decode_megakernel(
+        plan, params["packed"], x0, cos, sin, state.page_tables,
+        state.context_lens, state.active, cache, lora=lora,
+        lora_idx=None if lora is None else state.lora_idx)
+
+
+def lora_onehot(lora_idx: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, n] f32 one-hot of each row's slot (-1: a zero row), computed on
+    the card (capturable)."""
+    slots = torch.arange(n, device=lora_idx.device, dtype=lora_idx.dtype)
+    return (lora_idx[:, None] == slots[None, :]).float()
 
 
 def _tp_megakernel_forward(cfg: ModelConfig, plan, params,
@@ -249,16 +273,21 @@ class _DecodeForward:
     state objects (the runtime owns one of each). A model axis over
     distinct cards runs eagerly: one process's NCCL group call would have
     to be captured on every rank card's stream at once, which a one-card
-    machine cannot check."""
+    machine cannot check. `lora`: the adapter pool (single device), whose
+    tensors keep their addresses, so a load or unload between replays needs
+    no new capture; `captures` counts the graph's captures."""
 
     def __init__(self, cfg: ModelConfig, rt: RuntimeConfig,
                  megakernel_plan=None, tp_plan=None,
-                 devices: Optional[Sequence[torch.device]] = None):
+                 devices: Optional[Sequence[torch.device]] = None,
+                 lora: Optional[Dict] = None):
         self.cfg, self.mode = cfg, rt.cache.mode
         self.plan, self.tp_plan = megakernel_plan, tp_plan
         self.devices = None if devices is None else tuple(devices)
+        self.lora = lora
         self._graph = None
         self._logits = None
+        self.captures = 0
 
     def _run(self, params, cache, state: DecodeState):
         if self.tp_plan is not None:
@@ -272,10 +301,13 @@ class _DecodeForward:
             return logits
         if self.plan is not None:
             return _megakernel_forward(self.cfg, self.plan, params, state,
-                                       cache)
+                                       cache, self.lora)
+        onehot = None if self.lora is None else lora_onehot(
+            state.lora_idx, self.lora["scale"].shape[0])
         logits, _ = transformer.decode_forward(
             self.cfg, params, state.token_ids, cache, state.page_tables,
-            state.context_lens, state.active, mode=self.mode)
+            state.context_lens, state.active, mode=self.mode,
+            lora=self.lora, lora_onehot=onehot)
         return logits
 
     def __call__(self, params, cache, state: DecodeState):
@@ -292,14 +324,15 @@ class _DecodeForward:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 self._logits = self._run(params, cache, state)
             self._graph = graph
+            self.captures += 1
         self._graph.replay()
         return self._logits
 
 
 def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig,
                       megakernel_plan=None, tp_megakernel=None,
-                      devices: Optional[Sequence[torch.device]] = None
-                      ) -> Callable:
+                      devices: Optional[Sequence[torch.device]] = None,
+                      lora_pool: Optional[Dict] = None) -> Callable:
     """Returns fn(params, cache, state, new_page_ids [B], noise_rows)
     -> (tokens [B], cache, state). With `megakernel_plan` the forward is
     one launch of the decode megakernel and params must be the mega params
@@ -310,12 +343,14 @@ def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig,
 
     new_page_ids[b] >= 0 installs a fresh LOGICAL page for slot b at the
     page-table column the incoming token starts. noise_rows[b] is the
-    (seed, step) of a sampling slot or None (greedy / inactive)."""
+    (seed, step) of a sampling slot or None (greedy / inactive).
+    `lora_pool` (single device): the adapter pool, each row's slot from
+    the state's `lora_idx`. The step's `forward` is its _DecodeForward."""
     ps = rt.cache.page_size
     V = cfg.vocab_size
     K = min(rt.sampler_max_top_k, V)
     forward = _DecodeForward(cfg, rt, megakernel_plan, tp_megakernel,
-                             devices)
+                             devices, lora_pool)
 
     def step(params, cache, state: DecodeState,
              new_page_ids: torch.Tensor,
@@ -349,6 +384,7 @@ def build_decode_step(cfg: ModelConfig, rt: RuntimeConfig,
         state.gen_lens.add_(inc)
         return tok, cache, state
 
+    step.forward = forward
     return step
 
 

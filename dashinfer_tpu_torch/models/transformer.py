@@ -8,7 +8,11 @@ updated in place. Two entry points:
   prefill_forward: [S] one request's prompt; writes pages, attends causally.
 
 A MoE model (Qwen1.5/2-MoE, Qwen3-MoE) runs `ops.moe.moe_block` in place of
-the MLP. A QK-norm model (Qwen3) RMS-normalizes each q and k head after the
+the MLP. LoRA (lora/manager.py): `decode_forward` takes the adapter pool and
+each row's one-hot slot, `prefill_forward` the pool and the prompt's slot;
+the deltas (`apply_lora_batch` / `apply_lora_single`) are added to the
+q, k, v and o products and, in a dense model, to gate, up (before SwiGLU)
+and down, as in the JAX package (a MoE block takes none). A QK-norm model (Qwen3) RMS-normalizes each q and k head after the
 projections and before RoPE, returning the model dtype, as the JAX package's
 per-op path does.
 
@@ -35,6 +39,8 @@ import torch.nn.functional as F
 
 from dashinfer_tpu_torch.config import (Activation, CacheMode, ModelConfig,
                                         PositionEmbedding)
+from dashinfer_tpu_torch.lora.manager import (apply_lora_batch,
+                                              apply_lora_single)
 from dashinfer_tpu_torch.ops import attention as attn_ops
 from dashinfer_tpu_torch.ops import kv_ops
 from dashinfer_tpu_torch.ops.linear import linear
@@ -82,12 +88,19 @@ def _layer(params: Dict, l: int) -> Dict:
     return take(params["layers"])
 
 
-def _qkv(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool):
+def _qkv(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool,
+         delta=None):
+    """`delta`: the LoRA hook, delta(target, x) -> [T, out]."""
     T = x.shape[0]
     H, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = linear(x, lp["q_proj"], use_kernel=use_kernel).reshape(T, H, D)
-    k = linear(x, lp["k_proj"], use_kernel=use_kernel).reshape(T, KH, D)
-    v = linear(x, lp["v_proj"], use_kernel=use_kernel).reshape(T, KH, D)
+
+    def lin(name):
+        y = linear(x, lp[name], use_kernel=use_kernel)
+        return y if delta is None else y + delta(name, x)
+
+    q = lin("q_proj").reshape(T, H, D)
+    k = lin("k_proj").reshape(T, KH, D)
+    v = lin("v_proj").reshape(T, KH, D)
     if cfg.qk_norm:         # Qwen3: per-head RMSNorm, [D] weights
         q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
@@ -95,38 +108,56 @@ def _qkv(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool):
 
 
 def _mlp(cfg: ModelConfig, lp: Dict, x: torch.Tensor, use_kernel: bool,
-         out_dtype=None, rank: int = 0, n: int = 1) -> torch.Tensor:
-    if cfg.moe is not None:
+         out_dtype=None, rank: int = 0, n: int = 1,
+         delta=None) -> torch.Tensor:
+    if cfg.moe is not None:     # a MoE block takes no LoRA delta
         return moe_block(cfg, x, lp, use_kernel=use_kernel, rank=rank, n=n)
     g = linear(x, lp["gate_proj"], use_kernel=use_kernel)
     u = linear(x, lp["up_proj"], use_kernel=use_kernel)
-    return linear(F.silu(g) * u, lp["down_proj"], out_dtype=out_dtype,
-                  use_kernel=use_kernel)
+    if delta is not None:
+        g = g + delta("gate_proj", x)
+        u = u + delta("up_proj", x)
+    h = F.silu(g) * u
+    y = linear(h, lp["down_proj"], out_dtype=out_dtype,
+               use_kernel=use_kernel)
+    return y if delta is None else y + delta("down_proj", h)
 
 
 def _attention_half(cfg: ModelConfig, lp: Dict, hidden: torch.Tensor,
-                    attend, use_kernel: bool, out_dtype=None) -> torch.Tensor:
+                    attend, use_kernel: bool, out_dtype=None,
+                    delta=None) -> torch.Tensor:
     """RMSNorm, q|k|v, attend(q, k, v) -> [T, H*D] (RoPE, the cache write
-    and attention) and the o product."""
+    and attention) and the o product (`delta`: the LoRA hook)."""
     x = rms_norm(hidden, lp["input_layernorm"], cfg.rms_norm_eps)
-    q, k, v = _qkv(cfg, lp, x, use_kernel)
-    return linear(attend(q, k, v), lp["o_proj"], out_dtype=out_dtype,
-                  use_kernel=use_kernel)
+    q, k, v = _qkv(cfg, lp, x, use_kernel, delta)
+    a = attend(q, k, v)
+    o = linear(a, lp["o_proj"], out_dtype=out_dtype, use_kernel=use_kernel)
+    return o if delta is None else o + delta("o_proj", a)
 
 
 def _mlp_half(cfg: ModelConfig, lp: Dict, h: torch.Tensor, use_kernel: bool,
-              out_dtype=None, rank: int = 0, n: int = 1) -> torch.Tensor:
+              out_dtype=None, rank: int = 0, n: int = 1,
+              delta=None) -> torch.Tensor:
     """RMSNorm and the MLP (or MoE block; on a model axis of n, rank
     `rank`'s share of it)."""
     x = rms_norm(h, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    return _mlp(cfg, lp, x, use_kernel, out_dtype, rank, n)
+    return _mlp(cfg, lp, x, use_kernel, out_dtype, rank, n, delta)
 
 
 def _block(cfg: ModelConfig, lp: Dict, hidden: torch.Tensor, attend,
-           use_kernel: bool) -> torch.Tensor:
-    """One pre-LN layer."""
-    h = hidden + _attention_half(cfg, lp, hidden, attend, use_kernel)
-    return h + _mlp_half(cfg, lp, h, use_kernel)
+           use_kernel: bool, delta=None) -> torch.Tensor:
+    """One pre-LN layer (`delta`: the LoRA hook)."""
+    h = hidden + _attention_half(cfg, lp, hidden, attend, use_kernel,
+                                 delta=delta)
+    return h + _mlp_half(cfg, lp, h, use_kernel, delta=delta)
+
+
+def _lora_layer(lora, l: int, apply):
+    """The LoRA hook of layer l: delta(target, x) = apply(x, A, B) with
+    the pool's layer-l slices."""
+    if lora is None:
+        return None
+    return lambda t, x_: apply(x_, lora["A"][t][l], lora["B"][t][l])
 
 
 def _lm_logits(cfg: ModelConfig, params: Dict, hidden: torch.Tensor,
@@ -195,13 +226,16 @@ def _own_heads(out: torch.Tensor, heads) -> torch.Tensor:
 def decode_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                    cache: KVCache, page_tables: torch.Tensor,
                    lens_before: torch.Tensor, active: torch.Tensor,
-                   *, mode: CacheMode, use_kernel: bool = True
+                   *, mode: CacheMode, use_kernel: bool = True,
+                   lora: Dict = None, lora_onehot: torch.Tensor = None
                    ) -> Tuple[torch.Tensor, KVCache]:
     """tokens: [B] int; page_tables: [B, maxP] int32 LOGICAL page ids
     (logical page g owns physical pool rows g*L + l per layer l);
     lens_before: [B] int32 tokens already cached (the new token's position);
-    active: [B] bool. Reads nothing back to the host, so a CUDA graph can
-    capture it. Returns (logits [B, vocab] f32, cache updated in place)."""
+    active: [B] bool; `lora` (the adapter pool) with `lora_onehot` [B, N]
+    f32 (each row's slot, an all-zero row none). Reads nothing back to the
+    host, so a CUDA graph can capture it. Returns (logits [B, vocab] f32,
+    cache updated in place)."""
     check_supported(cfg)
     inp = _decode_inputs(cfg, page_tables, lens_before, active,
                          cache.page_size)
@@ -209,7 +243,10 @@ def decode_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     scale = 1.0 / math.sqrt(cfg.head_dim)
     for l in range(cfg.num_layers):
         attend = _decode_attend(inp, cache, mode, l, scale, use_kernel)
-        hidden = _block(cfg, _layer(params, l), hidden, attend, use_kernel)
+        delta = _lora_layer(lora, l, lambda x_, A, B: apply_lora_batch(
+            x_, A, B, lora["scale"], lora_onehot))
+        hidden = _block(cfg, _layer(params, l), hidden, attend, use_kernel,
+                        delta)
     return _lm_logits(cfg, params, hidden, use_kernel), cache
 
 
@@ -233,12 +270,15 @@ def _prefill_attend(cos, sin, cache: KVCache, mode: CacheMode,
 def prefill_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                     cache: KVCache, page_table: torch.Tensor,
                     prefix_len: int, total_len: int,
-                    *, mode: CacheMode, use_kernel: bool = True
+                    *, mode: CacheMode, use_kernel: bool = True,
+                    lora: Dict = None, lora_idx: int = -1
                     ) -> Tuple[torch.Tensor, KVCache]:
     """tokens: [S] the uncached suffix (padded to the bucket size S);
     page_table: [maxPb] LOGICAL pages covering positions [0, S_kv);
-    prefix_len: cached-prefix length; total_len: prefix_len + new tokens.
-    Returns (last-token logits [vocab] f32, cache updated in place)."""
+    prefix_len: cached-prefix length; total_len: prefix_len + new tokens;
+    `lora` (the adapter pool) with `lora_idx` (the prompt's slot, -1
+    none). Returns (last-token logits [vocab] f32, cache updated in
+    place)."""
     check_supported(cfg)
     S = tokens.shape[0]
     L = cfg.num_layers
@@ -251,7 +291,10 @@ def prefill_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         attend = _prefill_attend(cos, sin, cache, mode,
                                  page_table.long() * L + l, prefix_len,
                                  total_len, cfg.num_kv_heads, scale)
-        hidden = _block(cfg, _layer(params, l), hidden, attend, use_kernel)
+        delta = _lora_layer(lora, l, lambda x_, A, B: apply_lora_single(
+            x_, A, B, lora["scale"], lora_idx))
+        hidden = _block(cfg, _layer(params, l), hidden, attend, use_kernel,
+                        delta)
     last = min(max(total_len - prefix_len - 1, 0), S - 1)
     logits = _lm_logits(cfg, params, hidden[last:last + 1], use_kernel)[0]
     return logits, cache

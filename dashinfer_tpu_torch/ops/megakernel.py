@@ -11,7 +11,9 @@ Counterpart of `dashinfer_tpu.ops.pallas.megakernel`. What lives here:
 * `decode_megakernel_ref`, the plain PyTorch version of the whole step, and
   `decode_megakernel`, the wrapper that launches csrc/megakernel.cu on a
   CUDA tensor (and takes the plain version only for CPU tensors), with its
-  launch count `decode_megakernel.counter`.
+  launch count `decode_megakernel.counter` (`.lora_counter` for launches
+  with an adapter pool: the kernel's LoRA branch, `LoraStep` its
+  arithmetic, `supports_lora_epilogue` which plans take it).
 
 Pack geometry (the port's own). The TPU kernel streams a re-laid copy of
 the weights: fused q|k|v rows, chunked payloads, 128-lane padded bf16
@@ -66,6 +68,8 @@ import numpy as np
 import torch
 
 from dashinfer_tpu_torch.config import CacheMode, ModelConfig, RuntimeConfig
+# the targets in the kernel's order (csrc LoraTarget)
+from dashinfer_tpu_torch.lora.manager import TARGETS as LORA_TARGETS
 from dashinfer_tpu_torch.ops import kernel_build, kv_ops
 from dashinfer_tpu_torch.ops.u4pack import weight_levels
 from dashinfer_tpu_torch.runtime.kv_cache import KVCache
@@ -385,6 +389,30 @@ def supports(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> bool:
                 _group_ok(lp["o_proj"], cfg.num_heads * cfg.head_dim))
     except Exception:
         return False
+
+
+LORA_KC = 512          # K rows of a rank-projection item (csrc kLoraKC)
+LORA_MAX_RANK = 64     # csrc kMaxLoraRank (and a multiple of 8)
+LORA_MAX_SLOTS = 64    # csrc kMaxLoraSlots
+LORA_ARGS = 21         # integers of the LoRA tail (csrc kLoraArgs)
+
+
+def supports_lora_epilogue(plan, max_num: int, max_rank: int) -> bool:
+    """Whether the kernel's LoRA branch takes batches with adapters: a
+    dense plan (a MoE model decodes LoRA batches per-op, as in the JAX
+    package) and a pool the branch can read (at most LORA_MAX_SLOTS slots,
+    a rank that is a multiple of 8 up to LORA_MAX_RANK). The JAX rule's
+    `interleave` is a TPU pack geometry its runtime always builds."""
+    return (plan.E == 0 and 0 < max_num <= LORA_MAX_SLOTS and
+            0 < max_rank <= LORA_MAX_RANK and max_rank % 8 == 0)
+
+
+def lora_bytes(plan, pool: Dict, slots_used: int) -> int:
+    """Bytes of the adapter pool one step must read: A and B of the seven
+    targets of every layer for each slot that some active row uses."""
+    return slots_used * sum(
+        (pool["A"][t][:, 0].numel() + pool["B"][t][:, 0].numel()) *
+        pool["A"][t].element_size() for t in LORA_TARGETS)
 
 
 # ---------------------------------------------------------------------------
@@ -1031,6 +1059,45 @@ def _attend_ref(plan: MegaPlan, q, k_new, v_new, cache: KVCache, phys,
     return out.reshape(B, KH * G * D)
 
 
+class LoraStep:
+    """A decode step's adapters as the LoRA branch takes them: the pool
+    (lora/manager.py) and each row's slot (-1: none; an inactive row has
+    none). `add` is the branch's arithmetic: h = x_bf16 . A[n] in f32,
+    then bf16(h) . (B[n] * scale[n] rounded to the pool's dtype), added to
+    the product of a row on slot n; a row without an adapter keeps its
+    product as it is."""
+
+    def __init__(self, pool: Dict, lora_idx: torch.Tensor,
+                 active: torch.Tensor):
+        self.pool = pool
+        self.slots = torch.where(active.bool() & (lora_idx >= 0),
+                                 lora_idx.long(), -1)
+        self.has = self.slots >= 0
+        self.used = sorted(set(self.slots[self.has].tolist()))
+
+    def delta(self, target: str, layer: int, x: torch.Tensor
+              ) -> torch.Tensor:
+        """Target's delta [B, out] f32 for x [B, in] (bf16 values)."""
+        A, Bm = self.pool["A"][target][layer], self.pool["B"][target][layer]
+        out = torch.zeros((x.shape[0], Bm.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+        for n in self.used:
+            rows = self.slots == n
+            h = x[rows].float() @ A[n].float()
+            bs = (Bm[n].float() * self.pool["scale"][n]).to(Bm.dtype).float()
+            out[rows] = h.to(torch.bfloat16).float() @ bs
+        return out
+
+    def add(self, y: torch.Tensor, targets, layer: int, x: torch.Tensor
+            ) -> torch.Tensor:
+        """y [B, out] plus the deltas of `targets` (one name, or names
+        whose outputs y concatenates)."""
+        if isinstance(targets, str):
+            targets = (targets,)
+        d = torch.cat([self.delta(t, layer, x) for t in targets], dim=-1)
+        return torch.where(self.has[:, None], y + d, y)
+
+
 class StepInputs:
     """The per-step inputs of the layer pieces below, derived once: the
     bf16 RoPE tiles repeated over the q and k heads, the attended lengths,
@@ -1050,16 +1117,19 @@ class StepInputs:
 
 def attention_block_ref(plan: MegaPlan, packed: Dict, layer: int,
                         resid: torch.Tensor, inp: StepInputs,
-                        cache: KVCache, skip_attention: bool = False
-                        ) -> torch.Tensor:
+                        cache: KVCache, skip_attention: bool = False,
+                        lora: Optional[LoraStep] = None) -> torch.Tensor:
     """One layer's RMSNorm, q|k|v (+ bias), RoPE, new-token KV write,
     attention and o product, from the f32 residual [B, hid]; updates the
-    pool in place and returns the o product [B, hid] f32."""
+    pool in place and returns the o product [B, hid] f32. `lora`: the
+    q|k|v deltas (before the bias) and o's."""
     B, L, H, KH, D = resid.shape[0], plan.L, plan.H, plan.KH, plan.D
     bf = torch.bfloat16
     HD, KD = H * D, KH * D
     x = _rms(resid, packed["norms"][layer, 0], plan.rms_eps).to(bf)
     qkv = _stream_dot(x, packed, plan.qkv, layer)
+    if lora is not None:
+        qkv = lora.add(qkv, LORA_TARGETS[:3], layer, x)
     if packed["qkv_b"] is not None:
         qkv = qkv + packed["qkv_b"][layer]
     qr, kr, vr = qkv[:, :HD], qkv[:, HD:HD + KD], qkv[:, HD + KD:]
@@ -1076,18 +1146,29 @@ def attention_block_ref(plan: MegaPlan, packed: Dict, layer: int,
         act = inp.active
         kv_ops._write(cache, plan.kv_mode, k3[act], v3[act],
                       (inp.tgt * L + layer)[act], inp.offs[act])
-    return _stream_dot(attn.to(bf), packed, plan.o, layer)
+    o = _stream_dot(attn.to(bf), packed, plan.o, layer)
+    if lora is not None:
+        o = lora.add(o, "o_proj", layer, attn.to(bf))
+    return o
 
 
 def mlp_block_ref(plan: MegaPlan, packed: Dict, layer: int,
-                  resid: torch.Tensor) -> torch.Tensor:
+                  resid: torch.Tensor, lora: Optional[LoraStep] = None
+                  ) -> torch.Tensor:
     """One dense layer's RMSNorm, gate|up, SwiGLU and down product, from the
-    f32 residual [B, hid] -> the down product [B, hid] f32."""
+    f32 residual [B, hid] -> the down product [B, hid] f32. `lora`: gate's
+    and up's deltas before SwiGLU, down's after its product."""
     x = _rms(resid, packed["norms"][layer, 1], plan.rms_eps).to(torch.bfloat16)
     gu = _stream_dot(x, packed, plan.gu, layer)
     g, u = gu[:, :plan.inter], gu[:, plan.inter:]
+    if lora is not None:
+        g = lora.add(g, "gate_proj", layer, x)
+        u = lora.add(u, "up_proj", layer, x)
     act = (g * torch.sigmoid(g) * u).to(torch.bfloat16)
-    return _stream_dot(act, packed, plan.dn, layer)
+    dn = _stream_dot(act, packed, plan.dn, layer)
+    if lora is not None:
+        dn = lora.add(dn, "down_proj", layer, act)
+    return dn
 
 
 def lm_head_ref(plan: MegaPlan, packed: Dict,
@@ -1104,7 +1185,9 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
                           skip_attention: bool = False,
                           routing: Optional[list] = None,
                           forced_routing: Optional[torch.Tensor] = None,
-                          resid_norms: Optional[list] = None
+                          resid_norms: Optional[list] = None,
+                          lora: Optional[Dict] = None,
+                          lora_idx: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """The whole decode step, phase by phase (see `decode_megakernel`).
     Updates the pool in place; returns logits [B, V] f32. A MoE model's
@@ -1116,14 +1199,17 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
     a near-tie of the router chose; `resid_norms`, a list, receives the
     RMS of each row's residual entering each layer ([B] f32 a layer: the
     inverse of the gain with which that layer's RMSNorm passes the row's
-    rounding differences on)."""
+    rounding differences on). `lora` (the adapter pool, lora/manager.py)
+    and `lora_idx` [B] int32 (each row's slot, -1 none): the LoRA branch
+    (`LoraStep`; a dense plan only)."""
     inp = StepInputs(plan, cos, sin, page_tables, lens, active)
+    ls = None if lora is None else LoraStep(lora, lora_idx, active)
     resid = x0.to(torch.bfloat16).float()
     for l in range(plan.L):
         if resid_norms is not None:
             resid_norms.append(resid.pow(2).mean(-1).sqrt())
         resid = resid + attention_block_ref(plan, packed, l, resid, inp,
-                                            cache, skip_attention)
+                                            cache, skip_attention, ls)
         if plan.E:
             x = _rms(resid, packed["norms"][l, 1], plan.rms_eps).to(
                 torch.bfloat16)
@@ -1132,7 +1218,7 @@ def decode_megakernel_ref(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
                     x_, packed, sp, l_, e), routing,
                 None if forced_routing is None else forced_routing[l])
             continue
-        resid = resid + mlp_block_ref(plan, packed, l, resid)
+        resid = resid + mlp_block_ref(plan, packed, l, resid, ls)
     return lm_head_ref(plan, packed, resid)
 
 
@@ -1298,9 +1384,11 @@ def packed_stream_args(plan, packed: Dict, splits: Dict, dev,
 
 
 class _Launch:
-    """Per (plan, device) launch geometry and scratch of the kernel."""
+    """Per (plan, device, LoRA branch) launch geometry and scratch of the
+    kernel. The LoRA branch's launches have their own (its instantiation's
+    occupancy sets its grid) and the rank projection's partials."""
 
-    def __init__(self, plan: MegaPlan, dev: torch.device):
+    def __init__(self, plan: MegaPlan, dev: torch.device, lora: bool = False):
         gaps = cuda_kernel_gaps(plan)
         if gaps:
             raise ValueError("decode_megakernel: " + "; ".join(gaps))
@@ -1313,7 +1401,9 @@ class _Launch:
         self.mpad = padded_rows(B)
         idx = dev.index if dev.index is not None else \
             torch.cuda.current_device()
-        self.grid = grid_fn(idx, self.mpad, plan.hid, int(plan.E > 0))
+        # kind: 0 dense, 1 MoE, 2 dense with the LoRA branch
+        self.grid = grid_fn(idx, self.mpad, plan.hid,
+                            2 if lora else int(plan.E > 0))
         if self.grid <= 0:
             raise RuntimeError("decode_megakernel: the kernel does not fit "
                                "on the device (occupancy query gave 0)")
@@ -1366,6 +1456,11 @@ class _Launch:
         self.ssq = zeros(B * (plan.hid // 128), torch.float32)
         self.barrier = zeros(1, torch.int32)
         self.status = zeros(1, torch.int32)
+        # the LoRA branch's rank-space partials [7][kc][B][rank]
+        self.lora_kc = -(-max(plan.hid, plan.H * plan.D, plan.inter) //
+                         LORA_KC)
+        self.lora_h = zeros(7 * self.lora_kc * B * LORA_MAX_RANK,
+                            torch.float32) if lora else None
 
 
 def scratch_args(plan: MegaPlan, st) -> Dict[str, int]:
@@ -1390,14 +1485,15 @@ def _indexed(device) -> torch.device:
     return dev
 
 
-def _launch_state(plan: MegaPlan, dev: torch.device) -> _Launch:
-    key = (plan, dev)
+def _launch_state(plan: MegaPlan, dev: torch.device,
+                  lora: bool = False) -> _Launch:
+    key = (plan, dev, lora)
     st = _launches.get(key)
     if st is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("decode_megakernel: the first launch of a "
                                "plan must not be under CUDA graph capture")
-        st = _launches[key] = _Launch(plan, dev)
+        st = _launches[key] = _Launch(plan, dev, lora)
     return st
 
 
@@ -1414,16 +1510,18 @@ def status_fault(code: int) -> str:
 def check_status(plan: MegaPlan, device) -> None:
     """Waits for the device and raises if a launch of this plan gave up at
     a grid barrier (blocks that never became co-resident) or at a wait of
-    a product's copy ring."""
-    st = _launches.get((plan, _indexed(device)))
-    if st is None:
-        return
-    code = int(st.status.item())
-    if code:
-        st.status.zero_()
-        st.barrier.zero_()
-        st.att_tickets.zero_()
-        raise RuntimeError(f"decode_megakernel: {status_fault(code)}")
+    a product's copy ring (its dense and its LoRA launches)."""
+    for lora in (False, True):
+        st = _launches.get((plan, _indexed(device), lora))
+        if st is None:
+            continue
+        code = int(st.status.item())
+        if code:
+            st.status.zero_()
+            st.barrier.zero_()
+            st.att_tickets.zero_()
+            raise RuntimeError(f"decode_megakernel: {status_fault(code)}"
+                               + (" (LoRA branch)" if lora else ""))
 
 
 def kernel_routing(plan: MegaPlan, device) -> torch.Tensor:
@@ -1433,11 +1531,55 @@ def kernel_routing(plan: MegaPlan, device) -> torch.Tensor:
     return st.topk_e.reshape(plan.L, plan.B, MAX_TOPK)[..., :plan.k_top]
 
 
-def launch_geometry(plan: MegaPlan, device) -> Dict:
-    """Grid, K splits and attention chunks of this plan's launches."""
-    st = _launch_state(plan, _indexed(device))
+def launch_geometry(plan: MegaPlan, device, lora: bool = False) -> Dict:
+    """Grid, K splits and attention chunks of this plan's launches (of its
+    LoRA branch's with `lora`)."""
+    st = _launch_state(plan, _indexed(device), lora)
     return dict(grid=st.grid, mpad=st.mpad, splits=dict(st.splits),
                 nsplit=st.nsplit, split_len=st.split_len)
+
+
+def lora_args(plan: MegaPlan, pool: Optional[Dict],
+              lora_idx: Optional[torch.Tensor], st: Optional[_Launch],
+              dev) -> List[int]:
+    """The LoRA tail of the kernel's integers (csrc `fill_lora`), checked:
+    the pool's A and B of each target, its scales, the rows' slots, the
+    partials' scratch, then slots, rank, whether the pool is f32, and the
+    K chunks a target has at most. No pool: zeros (the dense kernel)."""
+    if pool is None:
+        return [0] * LORA_ARGS
+    if plan.E:
+        raise ValueError("decode_megakernel: a MoE plan has no LoRA branch "
+                         "(its LoRA batches decode per-op)")
+    N, R = pool["scale"].shape[0], pool["A"]["q_proj"].shape[-1]
+    dt = pool["A"]["q_proj"].dtype
+    if not supports_lora_epilogue(plan, N, R) or \
+            dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"decode_megakernel: a pool of {N} slots of rank "
+                         f"{R} ({dt}) is not one the LoRA branch takes")
+    dims = dict(q_proj=(plan.hid, plan.H * plan.D),
+                k_proj=(plan.hid, plan.KH * plan.D),
+                v_proj=(plan.hid, plan.KH * plan.D),
+                o_proj=(plan.H * plan.D, plan.hid),
+                gate_proj=(plan.hid, plan.inter),
+                up_proj=(plan.hid, plan.inter),
+                down_proj=(plan.inter, plan.hid))
+    checks = [(f"lora_idx", lora_idx, torch.int32, (plan.B,)),
+              ("lora scale", pool["scale"], torch.float32, (N,))]
+    for t in LORA_TARGETS:
+        i, o = dims[t]
+        checks += [(f"lora A[{t}]", pool["A"][t], dt, (plan.L, N, i, R)),
+                   (f"lora B[{t}]", pool["B"][t], dt, (plan.L, N, R, o))]
+    for name, t, want_dt, shape in checks:
+        if t is None or t.dtype != want_dt or tuple(t.shape) != shape or \
+                t.device != dev or not t.is_contiguous():
+            raise ValueError(f"decode_megakernel: {name} must be contiguous "
+                             f"{want_dt} {shape} on {dev}")
+    return ([pool["A"][t].data_ptr() for t in LORA_TARGETS] +
+            [pool["B"][t].data_ptr() for t in LORA_TARGETS] +
+            [pool["scale"].data_ptr(), lora_idx.data_ptr(),
+             st.lora_h.data_ptr(), N, R, int(dt == torch.float32),
+             st.lora_kc])
 
 
 def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
@@ -1445,7 +1587,10 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
                       page_tables: torch.Tensor, lens: torch.Tensor,
                       active: torch.Tensor, cache: KVCache,
                       skip_attention: bool = False,
-                      trace: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      trace: Optional[torch.Tensor] = None,
+                      lora: Optional[Dict] = None,
+                      lora_idx: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """One whole decode forward.
 
     x0 [B, hid] bf16: the embedded input tokens; cos/sin [B, D] bf16: the
@@ -1457,10 +1602,18 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
     `decode_megakernel_ref`; CUDA tensors launch the kernel or raise.
     `skip_attention` (the stream probe's replica mode) leaves out attention
     and the pool writes. `trace` (int64 [trace_len(plan)] on the
-    card) receives block 0's timestamps: see `phase_times`."""
+    card) receives block 0's timestamps: see `phase_times`. `lora` (the
+    adapter pool of lora/manager.py, its tensors at fixed addresses) with
+    `lora_idx` [B] int32 (each row's slot, -1 none): the kernel's LoRA
+    branch, a separate instantiation (`LoraStep` is its arithmetic); a
+    launch without `lora` runs the dense kernel."""
     if x0.device.type == "cpu":
+        if lora is not None and plan.E:
+            raise ValueError("decode_megakernel: a MoE plan has no LoRA "
+                             "branch (its LoRA batches decode per-op)")
         return decode_megakernel_ref(plan, packed, x0, cos, sin, page_tables,
-                                     lens, active, cache, skip_attention)
+                                     lens, active, cache, skip_attention,
+                                     lora=lora, lora_idx=lora_idx)
     if not x0.is_cuda:
         raise ValueError(f"decode_megakernel: unsupported device {x0.device}")
     dev = x0.device
@@ -1498,7 +1651,8 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
             trace.numel() < trace_len(plan) or not trace.is_contiguous()):
         raise ValueError("decode_megakernel: trace must be contiguous int64 "
                          f"[{trace_len(plan)}] on {dev}")
-    st = _launch_state(plan, dev)
+    st = _launch_state(plan, dev, lora is not None)
+    lora_tail = lora_args(plan, lora, lora_idx, st, dev)
     vals = dict(
         norms=packed["norms"].data_ptr(),
         final_norm=packed["final_norm"].data_ptr(),
@@ -1513,7 +1667,8 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
         partial=st.partial.data_ptr(), **scratch_args(plan, st),
         barrier=st.barrier.data_ptr(),
         status=st.status.data_ptr(),
-        launches=decode_megakernel.counter.pointer(dev),
+        launches=(decode_megakernel.counter if lora is None else
+                  decode_megakernel.lora_counter).pointer(dev),
         trace=0 if trace is None else trace.data_ptr(),
         epart=st.epart.data_ptr(), erec=st.erec.data_ptr(),
         topk_e=st.topk_e.data_ptr(), topk_w=st.topk_w.data_ptr(),
@@ -1540,6 +1695,7 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
         raise ValueError("decode_megakernel: qkv_b shape")
     ia += packed_stream_args(plan, packed, st.splits, dev,
                              "decode_megakernel")
+    ia += lora_tail
     ia_arr = np.asarray(ia, np.int64)
     fa_arr = np.asarray([plan.rms_eps, 1.0 / math.sqrt(plan.D)], np.float64)
     rc = st.fn(ia_arr.ctypes.data, fa_arr.ctypes.data,
@@ -1551,6 +1707,8 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
 
 
 decode_megakernel.counter = kernel_build.LaunchCounter()
+# the launches of the LoRA branch (a launch with an adapter pool) apart
+decode_megakernel.lora_counter = kernel_build.LaunchCounter()
 
 # the kernel's phases, in order, each followed by a grid barrier (q|k|v's
 # K splits are summed in its epilogue, the attention chunks merged in the

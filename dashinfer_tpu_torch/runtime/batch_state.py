@@ -4,9 +4,9 @@
 Fixed `max_batch` decode slots: every per-request quantity lives in a
 `[max_batch]` tensor and inactive slots are masked. The steps of
 engine/steps.py update these tensors in place. The JAX package's token
-history, bad-words, n-gram, LoRA and mRoPE fields belong to features this
-port does not serve yet and are left out, as are its per-slot seeds and
-prompt lengths: the sampler's seeds come from the host (engine/steps.py).
+history, bad-words, n-gram and mRoPE fields belong to features this port
+does not serve yet and are left out, as are its per-slot seeds and prompt
+lengths: the sampler's seeds come from the host (engine/steps.py).
 """
 
 import dataclasses
@@ -41,6 +41,7 @@ class DecodeState:
     active: torch.Tensor          # bool [B]
     token_counts: torch.Tensor    # i32 [B, vocab] occurrences (penalties)
     sampling: SamplingParams
+    lora_idx: torch.Tensor        # i32 [B] adapter pool slot, -1 = none
 
     @property
     def max_batch(self) -> int:
@@ -81,4 +82,5 @@ def make_decode_state(model_cfg: ModelConfig, rt_cfg: RuntimeConfig,
         active=zeros((B,), torch.bool),
         token_counts=zeros((B, model_cfg.vocab_size)),
         sampling=make_sampling_params(B, rt_cfg.max_stop_token_ids, device),
+        lora_idx=torch.full((B,), -1, dtype=torch.int32, device=device),
     )

@@ -110,11 +110,15 @@ def test_stop_request_interrupts_and_frees_pages():
     ("mm_info", [(5, np.zeros((1, 64), np.float32))]),
 ])
 def test_unported_request_feature_raises(field, value):
+    """An unported request feature raises NotImplementedError. LoRA is
+    ported: a `lora_name` on a runtime without LoRA raises the JAX Engine's
+    ValueError (tests/test_torch_lora_engine.py holds the rest)."""
     import dashinfer_tpu_torch as tp
     eng = _port_engine()
     try:
         gen = _greedy(tp).update({field: value})
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError if field == "lora_name"
+                           else NotImplementedError):
             eng.start_request("m", PROMPT, gen)
     finally:
         eng.release_model("m")

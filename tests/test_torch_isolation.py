@@ -205,6 +205,98 @@ def test_port_serves_moe_with_jax_blocked():
     assert "SERVED" in r.stdout
 
 
+_SERVE_LORA_WITHOUT_JAX = r"""
+import json, os, struct, sys, tempfile
+sys.modules["jax"] = None            # any `import jax` now raises
+sys.modules["safetensors"] = None    # the port reads .safetensors itself
+import numpy as np
+import dashinfer_tpu_torch as tp
+from dashinfer_tpu_torch.config import ModelConfig
+
+L, hid, inter, V, H, KH, D, R = 2, 64, 128, 256, 4, 2, 16, 4
+rng = np.random.RandomState(0)
+def lin(i, o):
+    return {"w": (rng.randn(L, i, o) * 0.1).astype(np.float32)}
+params = {"embed_tokens": {"w": rng.randn(V, hid).astype(np.float32)},
+          "norm": np.ones(hid, np.float32),
+          "lm_head": {"w": (rng.randn(hid, V) * 0.1).astype(np.float32)},
+          "layers": {"input_layernorm": np.ones((L, hid), np.float32),
+                     "post_attention_layernorm": np.ones((L, hid), np.float32),
+                     "q_proj": lin(hid, H * D), "k_proj": lin(hid, KH * D),
+                     "v_proj": lin(hid, KH * D), "o_proj": lin(H * D, hid),
+                     "gate_proj": lin(hid, inter), "up_proj": lin(hid, inter),
+                     "down_proj": lin(inter, hid)}}
+cfg = ModelConfig(arch="qwen2", vocab_size=V, hidden_size=hid,
+                  intermediate_size=inter, num_layers=L, num_heads=H,
+                  num_kv_heads=KH, head_dim=D)
+dims = {"q_proj": (hid, H * D), "k_proj": (hid, KH * D),
+        "v_proj": (hid, KH * D), "o_proj": (H * D, hid),
+        "gate_proj": (hid, inter), "up_proj": (hid, inter),
+        "down_proj": (inter, hid)}
+# a PEFT adapter directory, its weights in bf16 .safetensors written here
+header, blobs, off = {}, [], 0
+for l in range(L):
+    for t, (i, o) in dims.items():
+        mod = "self_attn" if t in ("q_proj", "k_proj", "v_proj", "o_proj") \
+            else "mlp"
+        for ab, shape in (("A", (R, i)), ("B", (o, R))):
+            a = (rng.randn(*shape) * 0.5).astype(np.float32)
+            raw = (a.view(np.uint32) >> 16).astype("<u2").tobytes()
+            key = f"base_model.model.model.layers.{l}.{mod}.{t}.lora_{ab}.weight"
+            header[key] = {"dtype": "BF16", "shape": list(shape),
+                           "data_offsets": [off, off + len(raw)]}
+            blobs.append(raw)
+            off += len(raw)
+tmp = tempfile.mkdtemp()
+head = json.dumps(header).encode()
+with open(os.path.join(tmp, "adapter_model.safetensors"), "wb") as f:
+    f.write(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+with open(os.path.join(tmp, "adapter_config.json"), "w") as f:
+    json.dump({"r": R, "lora_alpha": 8.0}, f)
+rt = (tp.RuntimeConfigBuilder("m").max_length(64).max_batch(2)
+      .kv_cache_page_size(16).kv_cache_mode(tp.CacheMode.INT8)
+      .lora(True, max_num=2, max_rank=8)
+      .weight_quant("a16w4", 32).dtype("float32").build())
+eng = tp.Engine().install_model("m", rt, params=params, model_config=cfg,
+                                device="cpu").start_model("m")
+eng.load_lora("m", "peft", tmp)
+qs = []
+for lora in ("peft", None):
+    _, h, q = eng.start_request("m", [1, 2, 3], tp.GenerationConfig(
+        max_length=12, do_sample=False, top_k=1, eos_token_id=-1,
+        lora_name=lora))
+    qs.append((h, q))
+for h, q in qs:
+    eng.sync_request("m", h, timeout_s=120)
+eng.release_model("m")
+toks = [q.GetAllGeneratedTokens() for _, q in qs]
+assert all(q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+           for _, q in qs)
+assert [len(t) for t in toks] == [9, 9] and toks[0] != toks[1], toks
+assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "dashinfer_tpu" or m.startswith("dashinfer_tpu.")
+               for m in sys.modules)
+print("SERVED")
+"""
+
+
+def test_port_serves_lora_with_jax_blocked():
+    """LoRA served on the CPU with JAX (and the safetensors package)
+    blocked: an adapter loaded through `Engine.load_lora` from a PEFT
+    directory whose bf16 .safetensors file the script writes itself, then a
+    request on it and one without, concurrently; the adapter moves the
+    tokens. The LoRA module is among the sources the import check walks."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", _SERVE_LORA_WITHOUT_JAX],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "SERVED" in r.stdout
+    rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {"dashinfer_tpu_torch/lora/__init__.py",
+            "dashinfer_tpu_torch/lora/manager.py"} <= rel
+
+
 def _port_sources():
     pkg = os.path.join(ROOT, "dashinfer_tpu_torch")
     for dirpath, _, files in os.walk(pkg):

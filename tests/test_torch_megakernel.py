@@ -324,14 +324,32 @@ def test_decode_megakernel_ref_moe_matches_pallas_interpret(quant, shared,
                           np.asarray([1, 1, 0]), np.asarray([7, 11, 0]))
 
 
-def _check_against_pallas(cfg, rt, params, mode, lens, active, tokens):
+def _check_against_pallas(cfg, rt, params, mode, lens, active, tokens,
+                          lora=None):
+    """`lora`: (the JAX LoraManager, each row's slot, the port's pool
+    dtype) for the kernels' LoRA branches; returns then how far the
+    adapters move the port's logits (max over the rows on a slot, in
+    shares of max|ref|)."""
     lens, active, tokens = (a.astype(np.int32) for a in (lens, active,
                                                          tokens))
     assert jmk.supports(cfg, rt, params)
     jplan = jmk.make_plan(cfg, rt, params, target_chunk_bytes=64 * 1024,
                           interleave_mlp=True)
     jpacked = jmk.pack_params(cfg, jplan, params)
-    fn = jmk.build_decode_megakernel(jplan, interpret=True)
+    nr = rt.lora_max_num * rt.lora_max_rank if lora is not None else 0
+    fn = jmk.build_decode_megakernel(jplan, interpret=True, lora_nr=nr)
+    lora_args = None
+    if lora is not None:
+        # the JAX runtime's masks (engine/steps.py build_decode_step)
+        jm, lidx = lora[0], lora[1]
+        assert jmk.supports_lora_epilogue(jplan)
+        onehot = (lidx[:, None] == np.arange(rt.lora_max_num)[None]
+                  ).astype(np.float32)
+        nrp = -(-nr // 128) * 128
+        mask1 = np.zeros((rt.max_batch, nrp), np.float32)
+        mask1[:, :nr] = np.repeat(onehot, rt.lora_max_rank, axis=1)
+        lora_args = dict(jm.build_mega_view(jplan), lmask1=jnp.asarray(mask1),
+                         lmask3=jnp.asarray(np.tile(mask1, (1, 3))))
 
     B, L, ps = rt.max_batch, cfg.num_layers, rt.cache.page_size
     maxP = rt.max_pages_per_seq
@@ -352,7 +370,7 @@ def _check_against_pallas(cfg, rt, params, mode, lens, active, tokens):
     outs = fn(jpacked, x0, jnp.tile(cos, (1, H)), jnp.tile(sin, (1, H)),
               jnp.tile(cos, (1, KH)), jnp.tile(sin, (1, KH)),
               jnp.asarray(pt), jnp.asarray(lens), jnp.asarray(active), tgt,
-              sb, sp_, ns, *[jnp.asarray(b) for b in before])
+              sb, sp_, ns, *[jnp.asarray(b) for b in before], lora=lora_args)
     ref_logits = np.asarray(outs[0])[:, :cfg.vocab_size]
     ref_pools = [np.asarray(o) for o in outs[1:]]
 
@@ -377,9 +395,17 @@ def _check_against_pallas(cfg, rt, params, mode, lens, active, tokens):
     tcos, tsin = tsteps._rope_tiles(tcfg, lens_t)
     np.testing.assert_array_equal(
         np.asarray(cos.astype(jnp.float32)), tcos.float().numpy())
+    lkw = {}
+    if lora is not None:
+        from dashinfer_tpu_torch.lora.manager import from_jax_pool
+        lkw = dict(lora=from_jax_pool(lora[0].pool, getattr(torch, lora[2])),
+                   lora_idx=torch.from_numpy(lora[1]))
+        dense = tmk.decode_megakernel(
+            plan, packed, x0_t, tcos, tsin, torch.from_numpy(pt), lens_t,
+            torch.from_numpy(active > 0), cache.clone()).numpy()
     logits = tmk.decode_megakernel(
         plan, packed, x0_t, tcos, tsin, torch.from_numpy(pt), lens_t,
-        torch.from_numpy(active > 0), cache).numpy()
+        torch.from_numpy(active > 0), cache, **lkw).numpy()
 
     for b in range(B):
         if not active[b]:
@@ -421,6 +447,10 @@ def _check_against_pallas(cfg, rt, params, mode, lens, active, tokens):
             np.testing.assert_array_equal(a[keep], b0[keep])
             np.testing.assert_array_equal(a[keep],
                                           ref_pools[i][..., :ps][keep])
+    if lora is not None:
+        rows = (active > 0) & (lora[1] >= 0)
+        return float(np.abs(logits[rows] - dense[rows]).max() /
+                     np.abs(ref_logits[rows]).max())
 
 
 def test_new_token_is_attended_unquantized():
