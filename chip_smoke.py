@@ -133,6 +133,31 @@ card with q_norm / k_norm not all ones) runs:
   serve_qwen3 Qwen3-8B served with `serve`'s traffic with every flag at its
               default, per-op and on a (1, 2) mesh, launch counts checked,
               the greedy requests' first 8 tokens equal across the three.
+Then Qwen3-8B's weights go, and Baichuan2-13B (ALiBi; 40 layers, 40 heads
+on 40 KV heads, inter 13696, vocab 125696, random a16w4 weights made on the
+card, zero-mean for the kernel checks and bench_stream's for the serving,
+the lm_head's columns unit-normed as NormHead leaves them) runs:
+  baichuan    the ALiBi branch of the four kernels that compute attention
+              against their plain versions: the decode megakernel (B = 8,
+              INT8 / UINT4 / DEFAULT KV; B = 32; a long-context state whose
+              slots span two attention chunks, where two planted faults,
+              the slopes zero and the bias origin moved by one token past
+              the first chunk, must fail the logits check), the prefill
+              megakernel (every bucket 128 .. 1024, a served length and
+              full; zero slopes planted at 1024); at the TP check geometry
+              (inter 13824, 4 layers: `supports_tp` turns the 13B away) the
+              TP attn, mlp and lm segments and the TP prefill segments of
+              every rank of a (1, 2) mesh (INT8, UINT4) with the whole TP
+              forwards, and rank 1 with `alibi_slopes(20)` planted; two
+              graph replays and an eager launch bit-equal for each of the
+              four; their times beside their bounds; the default and the
+              per-op path teacher-forced over 25 greedy tokens (a token
+              where they choose apart must be a near-tie);
+  serve_baichuan
+              Baichuan2-13B served with `serve`'s traffic with every flag at
+              its default and per-op (no paged_attention launch: an ALiBi
+              model's per-op decode attention is the plain version), launch
+              counts checked, the greedy requests' first 8 tokens equal.
 Then the MoE slice runs at Qwen1.5-MoE-A2.7B width
 (24 layers, 60 experts top-4 + a shared expert, random a16w4 weights made on
 the card): `megakernel` and `prefill_megakernel` hold the two kernels' MoE
@@ -173,8 +198,10 @@ Last, at Qwen3-30B-A3B's width, cut to 4 layers (128 experts top-8 of width
               every rank of a (1, 2) mesh at B = 32, their times, and the
               model served with every flag at its default (launch counts
               checked).
-It prints a `{"kernels": [...]}` line (each kernel's Qwen3 and Qwen3-MoE
-numbers under `qwen3` / `qwen3_moe`), the nvidia-smi line, and last
+It prints a `{"kernels": [...]}` line (each kernel's Qwen3, Qwen3-MoE and
+Baichuan2-13B numbers under `qwen3` / `qwen3_moe` / `baichuan`, the TP
+segments' Baichuan numbers at the check geometry under
+`baichuan_tp_check`), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. It needs the repository around it (the
 `dashinfer_tpu_torch` package) and a CUDA card; without either it exits
 non-zero before printing any result. It imports no JAX.
@@ -235,6 +262,21 @@ QWEN3_MOE_EXPERTS = dict(num_experts=128, num_experts_per_tok=8,
                          shared_expert_intermediate_size=0,
                          norm_topk_prob=True)
 QWEN3_MOE_LAYERS = 4
+# Baichuan2-13B-Chat (its published config.json, written out): ALiBi by the
+# 40-layer / model_max_length rule of `models/baichuan._model_config`, 40
+# heads on 40 KV heads (G = 1), head_dim 128, no qkv bias, intermediate
+# 13696 (128 mod 256), vocab 125696, untied with NormHead
+BAICHUAN2_13B_HF = dict(
+    architectures=["BaichuanForCausalLM"], vocab_size=125696,
+    hidden_size=5120, intermediate_size=13696, num_hidden_layers=40,
+    num_attention_heads=40, rms_norm_eps=1e-6, model_max_length=4096,
+    hidden_act="silu", tie_word_embeddings=False)
+# The TP check geometry: `supports_tp` turns Baichuan2-13B away on any mesh
+# (13696 / 2 = 6848 is not a multiple of 128), so the ALiBi branch of the
+# TP segments is held at its attention widths with one stated change, an
+# intermediate the rule admits (13824 / 2 = 6912 = 54 x 128; down's 108
+# groups split in two), cut to 4 layers
+BAICHUAN_TP_GEOMETRY = dict(intermediate_size=13824, num_layers=4)
 GROUP = 128
 DECODE_BATCH = 8          # max_batch of the served model and of the timings
 PAGE = 64
@@ -342,6 +384,17 @@ PLANTED_ROUTER_ERR = 2e-2
 # B = 32 state (contexts to 1,500 tokens) read 2.9e-2 of its own range and
 # 2.1e-2 of its layer's while the logits held 5e-4 of their largest.
 MOE_DEEP_RTOL = DEEP_QPARAM_RTOL
+# The dense rule above (every written row within one level) held on
+# bench_stream's weights, whose levels 0 .. 15 with zero = -8 x scale give
+# every weight a mean of -0.5 x scale: at hidden 5120 that makes a
+# common-mode direction of the residual which the logits, and each
+# layer's K and V, follow, so the rounding differences of the two sides
+# stay small in every layer (and attention barely moves the logits).
+# Baichuan2-13B's weights are zero-mean (`random_baichuan_params`), and
+# there the rounding differences grow with depth as a MoE row's do: its
+# decode pool's rows past layer 0 are held by the MoE rule (in dequantized
+# values, within one and a half levels plus MOE_DEEP_RTOL of their layer's
+# range; layer 0 within one level), its logits by the dense rule.
 # The decode megakernel's LoRA branch: the kernel and the plain version round
 # each rank value h of a row on an adapter slot to bf16 after sums taken in
 # another order, so an h at a rounding boundary goes one bf16 step (2^-8 of
@@ -1252,7 +1305,8 @@ PROMPT_LENS = [20, 90, 200, 450, 700, 1000]   # buckets 32 .. 1024
 def model_name(cfg) -> str:
     """The served model's name in the serving lines and details."""
     return {"qwen2": "qwen2-7b", "qwen2_moe": "qwen1.5-moe",
-            "qwen3": "qwen3-8b", "qwen3_moe": "qwen3-30b-a3b"}[cfg.arch]
+            "qwen3": "qwen3-8b", "qwen3_moe": "qwen3-30b-a3b",
+            "baichuan": "baichuan2-13b"}[cfg.arch]
 
 
 def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
@@ -1425,12 +1479,23 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     # per-op prefill and decode step; a prefill whose bucket is 128 .. 1024
     # is one prefill megakernel launch on the megakernel path, and under
     # pack_only every prefill is (the 20-token prompt snaps to bucket 128)
+    # (a product takes quant_matmul where its output width, the rank's, is
+    # a multiple of 256, `ops.linear.use_fused_gemv`: Baichuan2-13B's
+    # gate and up, 13696 columns, take the large-M formulation)
     L = cfg.num_layers
     n_r = len(devices) if devices else 1
-    lm = int((cfg.vocab_size // n_r) % 256 == 0)
-    mlp_products = 0 if cfg.moe and not \
-        cfg.moe.shared_expert_intermediate_size else 3
-    per_step = (4 + mlp_products) * L + lm
+
+    def fits(n):
+        return int((n // n_r) % 256 == 0)
+    lm = fits(cfg.vocab_size)
+    attn_products = fits(cfg.num_heads * cfg.head_dim) + \
+        2 * fits(cfg.num_kv_heads * cfg.head_dim) + \
+        int(cfg.hidden_size % 256 == 0)
+    inter = cfg.moe.shared_expert_intermediate_size if cfg.moe else \
+        cfg.intermediate_size
+    mlp_products = 2 * fits(inter) + int(cfg.hidden_size % 256 == 0) \
+        if inter else 0
+    per_step = (attn_products + mlp_products) * L + lm
     grouped = 3 * L if cfg.moe else 0
     if path == "pack_only":
         mega_prefills, prefill = len(PROMPT_LENS), 0
@@ -1457,10 +1522,15 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
               f"and {grouped * per_op_prefills} grouped_quant_matmul "
               "launches")
     elif not devices:
-        # every decode step runs paged_attention once per layer and
-        # quant_matmul for the 7 projections of each layer and the lm_head
-        steps = launches["paged_attention"] // L
-        check(launches["paged_attention"] % L == 0 and steps >= new_tokens - 1
+        # every decode step runs quant_matmul for the 7 projections of each
+        # layer and the lm_head, and paged_attention once per layer (an
+        # ALiBi model's never: its decode attention is the plain version,
+        # as in the JAX package)
+        alibi = cfg.position_embedding.value == "alibi"
+        steps = (launches["quant_matmul"] - prefill) // per_step if alibi \
+            else launches["paged_attention"] // L
+        check(launches["paged_attention"] == (0 if alibi else L) * steps
+              and steps >= new_tokens - 1
               and launches["quant_matmul"] == per_step * steps + prefill
               and launches["grouped_quant_matmul"] ==
               grouped * (steps + len(PROMPT_LENS))
@@ -1623,13 +1693,16 @@ MK_INACTIVE = 5
 
 
 def mk_state(cfg, mode, B, lens, inactive, gen, dev, max_len=2048,
-             nan_fill=False, dtype="bfloat16"):
+             nan_fill=False, dtype="bfloat16", table_len=None):
     """A random pool (payload and qparams) with distinct logical pages per
-    slot, and the step's inputs. `nan_fill`: every pool element of a float
-    pool and every qparam element that no token < lens owns (rows past a
-    slot's length, pages no slot holds, the qparams' lanes past the page)
-    holds NaN, which the kernels must never read. `dtype`: the runtime's
-    (an unquantized pool's element type)."""
+    slot, `max_len` tokens' worth a slot, and the step's inputs. The page
+    table covers `table_len` tokens a slot (the plan's max_length; by
+    default max_len), its columns past max_len logical page 0, which no
+    slot holds and no token < lens reads. `nan_fill`: every pool element of
+    a float pool and every qparam element that no token < lens owns (rows
+    past a slot's length, pages no slot holds, the qparams' lanes past the
+    page) holds NaN, which the kernels must never read. `dtype`: the
+    runtime's (an unquantized pool's element type)."""
     import torch
     from dashinfer_tpu_torch.config import CacheConfig, CacheMode
     from dashinfer_tpu_torch.engine.steps import _rope_tiles
@@ -1653,8 +1726,10 @@ def mk_state(cfg, mode, B, lens, inactive, gen, dev, max_len=2048,
                 t[:, 1::2] *= -7.5          # zero = min
             else:
                 t[:, 1::2] -= 0.75 * lo
-    pt = (1 + torch.arange(B * maxP, dtype=torch.int32, device=dev)
-          ).reshape(B, maxP)
+    pt = torch.zeros((B, (table_len or max_len) // PAGE), dtype=torch.int32,
+                     device=dev)
+    pt[:, :maxP] = (1 + torch.arange(B * maxP, dtype=torch.int32,
+                                     device=dev)).reshape(B, maxP)
     if nan_fill:
         owned = torch.zeros(cache.k.shape[:2], dtype=torch.bool, device=dev)
         tok = torch.arange(maxP * PAGE, device=dev)
@@ -1744,6 +1819,10 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev,
         if quant and moe:
             # layer 0 at most one level apart; deeper rows in values
             pool_err = max(pool_err, float(d[layer == 0].max().item()))
+            by_layer = torch.zeros(L, device=dev).scatter_reduce_(
+                0, layer, d.amax(-1).float(), "amax")
+            print(f"{what}: {name} payload levels apart by layer: "
+                  f"{[int(v) for v in by_layer.tolist()]}", flush=True)
             check(pool_err <= 1, f"{what}: {name} layer 0 payload "
                   f"{pool_err} levels")
             KH = getattr(got, name + "_qparams").shape[1] // 2
@@ -1778,7 +1857,10 @@ def check_written_pool(what, mode, got, ref_cache, before, written, L, dev,
                       f"{int((rel > MOE_DEEP_RTOL).sum())} of {rel.numel()}")
         elif quant:     # at most one quantization level apart
             pool_err = max(pool_err, float(d.max().item()))
-            check(pool_err <= 1, f"{what}: {name} payload {pool_err} levels")
+            by_layer = torch.zeros(L, device=dev).scatter_reduce_(
+                0, layer, d.amax(-1).float(), "amax")
+            check(pool_err <= 1, f"{what}: {name} payload {pool_err} levels "
+                  f"(by layer: {by_layer.tolist()})")
         else:           # one bf16 step on top of the qparams' tolerances
             rv = kv_levels(r[written], mode).abs()
             layer0 = (torch.arange(written.shape[0], device=dev)[:, None]
@@ -1840,7 +1922,8 @@ def check_lora_rows(what, mode, got, ref, rows, KH) -> float:
 
 def check_megakernel_case(cfg, params, stream, mode, gen, dev,
                           lens=None, inactive=None, nan_fill=False,
-                          dtype="bfloat16", lora=None):
+                          dtype="bfloat16", lora=None, max_len=2048,
+                          faults=False, deep_values=False):
     """One step (B = 8 unless `lens` says otherwise) through the kernel and
     through the plain version, on clones of one pool: logits of the active
     rows, the written token, and every other pool byte (`nan_fill`: with
@@ -1848,7 +1931,11 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
     "float32": an f32 DEFAULT pool, the attention's CUDA-core path;
     `lora`: (adapter pool, each row's slot) for the LoRA branch, whose
     plain version then also runs without the pool, to show by how much the
-    adapters move the logits)."""
+    adapters move the logits; `max_len`: the pool's pages a slot; `faults`:
+    an ALiBi model's planted faults must fail the logits check,
+    `planted_alibi_faults`; `deep_values`: the written rows past layer 0
+    held by the MoE rule, in dequantized values, as zero-mean weights need:
+    the note on the tolerances after MOE_DEEP_RTOL)."""
     import torch
     from dashinfer_tpu_torch.config import CacheMode
     from dashinfer_tpu_torch.ops import megakernel as mk
@@ -1856,8 +1943,8 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
         lens, inactive = MK_LENS, MK_INACTIVE
     B, L = len(lens), cfg.num_layers
     plan, packed = mk_plan_pack(cfg, params, B, mode, dtype)
-    st = mk_state(cfg, mode, B, lens, inactive, gen, dev, nan_fill=nan_fill,
-                  dtype=dtype)
+    st = mk_state(cfg, mode, B, lens, inactive, gen, dev, max_len=max_len,
+                  nan_fill=nan_fill, dtype=dtype, table_len=2048)
     x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
     before = st["cache"]
     caches = {True: before.clone(), False: before.clone()}
@@ -1908,6 +1995,9 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
     tie = ref.max(-1).values - ref.gather(1, pick[:, None])[:, 0]
     same = int((pick == ref.argmax(-1)).sum().item())
     check(bool((tie <= 2 * err).all()), f"{what}: argmax differs")
+    fault_errs = planted_alibi_faults(plan, packed, args, before, out[True],
+                                      act, ref_max, what, dev) \
+        if faults else None
     lora_moved = lora_pool_err = None
     if lora is not None:
         # what the adapters move: the plain version without them, on the
@@ -1943,7 +2033,7 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
         exempt = lrows
     pool_err, qp_err0, qp_err = check_written_pool(
         what, mode, caches[True], caches[False], before, written, L, dev,
-        exempt, moe=bool(plan.E))
+        exempt, moe=bool(plan.E) or deep_values)
     forced = forced_routing_check(plan, args, caches[True], out[True], before,
                                   written, st, lens, flips, what, dev) \
         if plan.E else None
@@ -1961,7 +2051,7 @@ def check_megakernel_case(cfg, params, stream, mode, gen, dev,
                 qparam_rel_layer0=qp_err0, qparam_rel=qp_err,
                 flipped_rows=flips, planted_fault_rows=planted,
                 forced_routing=forced, lora_moved=lora_moved,
-                lora_pool_err=lora_pool_err)
+                lora_pool_err=lora_pool_err, planted_faults=fault_errs)
 
 
 def forced_routing_check(plan, args, got_cache, got, before, written, st,
@@ -2086,17 +2176,20 @@ def hold_routed_rows(L, KH, mode, got_cache, got, cf, ref, norms, before,
                 ill_conditioned=profile)
 
 
-def time_megakernel(cfg, params, stream, B, lens, gen, dev, per_op=True):
+def time_megakernel(cfg, params, stream, B, lens, gen, dev, per_op=True,
+                    max_len=2048):
     """ms per decode forward (graph replay, CUDA events) through the
     megakernel, through it without its attention phases, and through the
-    per-op forward, on the same INT8 state."""
+    per-op forward, on the same INT8 state (`max_len`: its pages a
+    slot)."""
     import torch
     from dashinfer_tpu_torch.config import CacheMode
     from dashinfer_tpu_torch.models import transformer
     from dashinfer_tpu_torch.ops import megakernel as mk
     mode = CacheMode.INT8
     plan, packed = mk_plan_pack(cfg, params, B, mode)
-    st = mk_state(cfg, mode, B, lens, None, gen, dev)
+    st = mk_state(cfg, mode, B, lens, None, gen, dev, max_len=max_len,
+                  table_len=2048)
     x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
 
     def run(skip):
@@ -2434,7 +2527,7 @@ def check_prefill_pool(what, mode, got, ref, ref32, before, written, cfg,
 
 
 def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
-                       forced=False):
+                       forced=False, alibi_fault=False):
     """One prefill through the kernel and through the plain version (with
     the kernel's bf16 score operands), on clones of one pool: the logits,
     rows < n of the owned pages, and every other pool byte. The plain
@@ -2445,7 +2538,9 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
     rule of the MoE decode check, `forced_routing_check`); the tokens
     routed differently are counted and read, not capped, and each must be
     a near-tie of the plain version's router logits (gap <= TIE_LOGIT) or
-    ill-conditioned at the layer where it first flips."""
+    ill-conditioned at the layer where it first flips. `alibi_fault` (an
+    ALiBi model): the plain version with every slope zero (no bias) must
+    fail the logits check the kernel passed."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
@@ -2517,6 +2612,17 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
         pick = int(got.argmax())
         check(float(ref.max() - ref[pick]) <= 2 * err,
               f"{what}: argmax differs")
+    fault_err = None
+    if alibi_fault:
+        zero = dict(packed, slopes=torch.zeros_like(packed["slopes"]))
+        bad = pmk.prefill_megakernel_ref(*((plan, zero) + args[2:]),
+                                         before.clone(), bf16_scores=True)
+        fault_err = (bad - got).abs().max().item()
+        check(fault_err > LOGITS_RTOL * ref_max,
+              f"{what}: the planted fault (slopes zero) passes the logits "
+              f"check ({fault_err:.3e} <= {LOGITS_RTOL} * {ref_max:.3e})")
+        print(f"{what}: the planted fault (slopes zero) fails the logits "
+              f"check: {fault_err:.3e}", flush=True)
     if not (last_flipped or last32_flipped or forced):
         check(err32 <= F32_SCORES_RTOL * ref_max,
               f"{what}: logits differ from the f32-score plain version by "
@@ -2551,7 +2657,8 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
                 ref_max=ref_max, pool_levels_layer0=lv_err,
                 qparam_rel_layer0=qp_err0, row_rel_max=rel_max,
                 ill_conditioned_rows=ill, ill_row_rel_max=ill_max,
-                plain_versions_row_rel_max=plain_max)
+                plain_versions_row_rel_max=plain_max,
+                planted_fault=fault_err)
 
 
 def routed_counts_check(plan, dev, logits_plain, n, n_flipped, what):
@@ -3160,10 +3267,13 @@ def check_argmax(got, ref, act, err, what):
     return int((pick == ref[act].argmax(-1)).sum().item())
 
 
-def check_tp_segment_case(cfg, params, n, mode, gen, dev, timing):
+def check_tp_segment_case(cfg, params, n, mode, gen, dev, timing,
+                          deep_values=False):
     """Each segment kernel of every rank against its plain version, the
     whole TP forward against tp_decode_ref and against the single-device
-    decode megakernel; with `timing`, ms per launch and per step."""
+    decode megakernel; with `timing`, ms per launch and per step;
+    `deep_values`: the whole forwards' pool rows past layer 0 held by the
+    MoE rule (zero-mean weights: the note after MOE_DEEP_RTOL)."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import tp_megakernel as tpk
@@ -3235,7 +3345,7 @@ def check_tp_segment_case(cfg, params, n, mode, gen, dev, timing):
     written = tp_written(s, range(L), dev)
     for r in range(n):
         check_written_pool(f"{what} rank {r}", mode, ck[r], cp[r], caches[r],
-                           written, L, dev)
+                           written, L, dev, moe=deep_values)
     # the single-device megakernel on the same weights and state: its pool
     # holds every KV head, the ranks' side by side
     plan1, pack1 = mk_plan_pack(cfg, params, B, mode)
@@ -3247,7 +3357,7 @@ def check_tp_segment_case(cfg, params, n, mode, gen, dev, timing):
     m_err = held_rows(logits_k, logits_1, act, what)
     m_same = check_argmax(logits_k, logits_1, act, m_err, what)
     check_written_pool(what, mode, full_pool(ck), c1, before1, written, L,
-                       dev)
+                       dev, moe=deep_values)
     row = dict(n=n, mode=mode.value, errs=errs, forward_err=f_err,
                forward_argmax_equal=same, vs_megakernel_err=m_err,
                vs_megakernel_argmax_equal=m_same,
@@ -4325,9 +4435,11 @@ def plain_decode_ms(cfg, params, mode, gen, dev, what):
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     plan, packed = mk_plan_pack(cfg, params, DECODE_BATCH, mode)
+    alibi = cfg.position_embedding.value == "alibi"
     check(plan.qk_norm == cfg.qk_norm and
-          (packed["qk_norms"] is not None) == cfg.qk_norm,
-          f"{what}: the plan or pack lacks the QK-norm weights")
+          (packed["qk_norms"] is not None) == cfg.qk_norm and
+          plan.alibi == alibi and (packed["slopes"] is not None) == alibi,
+          f"{what}: the plan or pack lacks the QK-norm weights or slopes")
     st = mk_state(cfg, mode, DECODE_BATCH, MK_LENS, None, gen, dev)
     x0 = params["embed_tokens"]["w"][st["tokens"]].to(torch.bfloat16)
     args = (plan, packed, x0, st["cos"], st["sin"], st["pt"], st["lens"],
@@ -4538,6 +4650,425 @@ def check_serving_qwen3(params, dev, details):
               f"{summary[path]['ttft_ms']:.1f} ms, decode "
               f"{min(steps):.2f} .. {max(steps):.2f} ms/step", flush=True)
     details["qwen3_serving_summary"] = summary
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- Baichuan2-13B: the ALiBi branch of the four attention-bearing kernels ---
+
+def baichuan_config(**kw):
+    """The port's `models/baichuan._model_config` of Baichuan2-13B's
+    published config.json (`kw`: fields replaced, the TP check geometry)."""
+    import dataclasses
+    from dashinfer_tpu_torch.models.baichuan import _model_config
+    return dataclasses.replace(_model_config(BAICHUAN2_13B_HF), **kw)
+
+
+def unit_norm_columns(leaf, block=16384):
+    """NormHead on a u4 group-wise [K, N] leaf: each output column's scale
+    and zero divided by the L2 norm of its dequantized values (f32), so
+    that the column, a vocab row of the HF checkpoint, has norm 1; column
+    blocks of `block` (a multiple of 256, the packing's tile)."""
+    import torch
+    from dashinfer_tpu_torch.ops.u4pack import weight_levels
+    w_q, scale, zero = leaf["w_q"], leaf["scale"], leaf["zero"]
+    gs = w_q.shape[0] // scale.shape[0]
+    N = scale.shape[-1]
+    for c0 in range(0, N, block):
+        c1 = min(N, c0 + block)
+        lv = weight_levels(w_q[:, c0 // 2:c1 // 2]).float()
+        w = lv * scale[:, c0:c1].repeat_interleave(gs, 0) + \
+            zero[:, c0:c1].repeat_interleave(gs, 0)
+        norm = torch.linalg.vector_norm(w, dim=0)
+        scale[:, c0:c1] /= norm
+        zero[:, c0:c1] /= norm
+        del lv, w
+
+
+def random_baichuan_params(cfg, seed: int, dev, zero_mean: bool = True):
+    """Random a16w4 group-128 weights at `cfg`'s widths (bench_stream's
+    payload and scales, no q|k|v bias); `zero_mean`: zero-mean columns,
+    each zero -7.5 x its scale (the mean of the levels 0 .. 15), where
+    bench_stream's -8 x scale gives every weight a mean of -0.5 x scale.
+    At hidden 5120 that mean makes a common-mode direction of the residual
+    that the logits follow and attention barely moves: on bench_stream's
+    weights (NVIDIA H100 80GB HBM3, 700 W) the zero slopes moved the
+    logits by 1.5e-2 of a 11.2 largest, under the 1e-2 check, so no
+    attention fault would show; the kernel checks take the zero-mean
+    weights, the serving bench_stream's own. The lm_head's columns are then unit-normed, as the NormHead
+    converter leaves them."""
+    from dashinfer_tpu_torch.tools import bench_stream
+    params = bench_stream.random_a16w4_params(cfg, seed, dev, GROUP)
+
+    def centre(tree):
+        for leaf in tree.values():
+            if isinstance(leaf, dict) and "w_q" in leaf:
+                leaf["zero"] = -7.5 * leaf["scale"]
+            elif isinstance(leaf, dict):
+                centre(leaf)
+    if zero_mean:
+        centre(params)
+    unit_norm_columns(params["lm_head"])
+    return params
+
+
+def planted_alibi_faults(plan, packed, args, before, got, act, ref_max,
+                         what, dev):
+    """The decode megakernel's ALiBi check has teeth: two faulty plain
+    versions, each on a clone of the pool, must fail the logits check the
+    kernel passed (max|d| over the active rows > LOGITS_RTOL * max|ref|):
+    all slopes zero (no bias), and the bias origin moved by one token for
+    every attention chunk but the first (tokens at or past the kernel's
+    chunk length `split_len`). Returns the two differences."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    ct = mk.launch_geometry(plan, dev)["split_len"]
+    check(int(args[6][act].max()) > ct,
+          f"{what}: no active slot spans two attention chunks of {ct} "
+          "tokens")
+    zero = dict(packed, slopes=torch.zeros_like(packed["slopes"]))
+    bias = mk.alibi_bias
+
+    def shifted(plan_, slopes, pos, origin):
+        return bias(plan_, slopes, pos, origin) - \
+            slopes.reshape(1, plan_.KH, plan_.G, 1) * (pos >= ct)
+
+    errs = {}
+    for name, pk in (("slopes zero", zero), ("origin + 1 past chunk 0",
+                                              packed)):
+        if pk is packed:
+            mk.alibi_bias = shifted
+        try:
+            bad = mk.decode_megakernel_ref(*((plan, pk) + args[2:]),
+                                           before.clone())
+        finally:
+            mk.alibi_bias = bias
+        errs[name] = (bad[act] - got[act]).abs().max().item()
+        check(errs[name] > LOGITS_RTOL * ref_max,
+              f"{what}: the planted fault ({name}) passes the logits check "
+              f"({errs[name]:.3e} <= {LOGITS_RTOL} * {ref_max:.3e})")
+    print(f"{what}: planted faults fail the logits check: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) +
+        f" > {LOGITS_RTOL * ref_max:.3e} (chunk length {ct})", flush=True)
+    return errs
+
+
+def planted_rank_slopes_fault(cfg, params, gen, dev):
+    """The TP forward at the check geometry with rank 1's pack holding
+    `alibi_slopes(H / 2)` in place of its slice of the global table: its
+    plain version must fail the check the kernels' forward passes against
+    the correct plain forward (logits within LOGITS_RTOL of their
+    largest)."""
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    from dashinfer_tpu_torch.ops.attention import alibi_slopes
+    s = tp_setup(cfg, params, 2, "INT8", gen, dev)
+    plan, packs, st = s["plan"], s["packs"], s["st"]
+    step = (st["cos"], st["sin"], st["pt"], st["lens"], st["active"])
+    devices, act = s["mesh"].devices, st["active"]
+    glob = alibi_slopes(cfg.num_heads)
+    for r in range(2):
+        check(bool((packs[r]["slopes"].cpu() ==
+                    glob[r * plan.H:(r + 1) * plan.H]).all()),
+              f"TP rank {r}: its slopes are not its slice of the global "
+              "table")
+    got = tpk.tp_decode(plan, packs, s["x0"], *step,
+                        [c.clone() for c in s["caches"]], devices)
+    tpk.check_status(plan, dev)
+    ref = tpk.tp_decode_ref(plan, packs, s["x0"], *step,
+                            [c.clone() for c in s["caches"]], devices)
+    err = held_rows(got, ref, act, "tp n=2 baichuan forward (planted fault "
+                    "reference)")
+    bad_packs = [packs[0], dict(packs[1], slopes=alibi_slopes(plan.H).to(
+        dev))]
+    bad = tpk.tp_decode_ref(plan, bad_packs, s["x0"], *step,
+                            [c.clone() for c in s["caches"]], devices)
+    ref_max = ref[act].abs().max().item()
+    bad_err = (bad[act] - got[act]).abs().max().item()
+    check(bad_err > LOGITS_RTOL * ref_max,
+          f"tp n=2 baichuan: rank 1 with alibi_slopes({plan.H}) passes the "
+          f"forward check ({bad_err:.3e} <= {LOGITS_RTOL} * {ref_max:.3e})")
+    print(f"tp n=2 baichuan forward: kernels vs plain {err:.3e}; the planted "
+          f"fault (rank 1 with alibi_slopes({plan.H})) {bad_err:.3e} > "
+          f"{LOGITS_RTOL * ref_max:.3e}", flush=True)
+    del s
+    return dict(err=err, planted_fault_err=bad_err, ref_max=ref_max)
+
+
+# the long-context state of the planted faults: every slot spans the two
+# attention chunks of 1024 tokens that B = 8 over 40 KV heads gets
+BAICHUAN_LONG_LENS = [2040, 1990, 2000, 1800, 2047, 1920, 1700, 2016]
+# B = 32 at contexts to 500 tokens (its pool fits the card beside the
+# 13B's weights and their pack: 410 KB of INT8 K/V a token)
+BAICHUAN_B32_LENS = [(37 + 61 * i) % 500 + 1 for i in range(32)]
+# the TP prefill cases at the check geometry: the smallest and the largest
+# bucket, a served length and full
+BAICHUAN_TP_PREFILL_CASES = (
+    ("INT8", ((128, 100), (1024, 1024))),
+    ("UINT4", ((128, 100), (1024, 1024))))
+
+
+def check_baichuan(params, dev, details):
+    """The ALiBi branch at Baichuan2-13B's width and depth (40 layers, 40
+    heads on 40 KV heads, inter 13696, vocab 125696, NormHead) in the four
+    kernels that compute attention, each against its plain version at the
+    tolerances above: the decode megakernel at B = 8 for INT8 / UINT4 /
+    DEFAULT KV, at B = 32 and on the long-context state whose slots span
+    two attention chunks, where the two planted faults (slopes zero; the
+    bias origin moved past the first chunk) must fail the logits check;
+    the prefill megakernel at every bucket 128 .. 1024, a served length and
+    full (INT8, with zero slopes planted at 1024), UINT4 / DEFAULT at 128;
+    then at the TP check geometry (BAICHUAN_TP_GEOMETRY: inter 13824, 4
+    layers) the TP attn, mlp and lm segments and the TP prefill segments of
+    every rank of a (1, 2) mesh (INT8, UINT4) with the whole TP forwards
+    against their plain versions and the single-device megakernels, and
+    rank 1 with `alibi_slopes(20)` planted. Two replays of one graph and an
+    eager launch bit-equal for each of the four; their times beside their
+    bounds; last the default and per-op paths teacher-forced
+    (`paths_teacher_forced`). `params`: the zero-mean weights of
+    `random_baichuan_params`."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    cfg = baichuan_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 71)
+    out = {}
+    # the decode megakernel
+    cases = [check_megakernel_case(cfg, params, "baichuan u4", mode, gen,
+                                   dev, max_len=512, deep_values=True)
+             for mode in (CacheMode.INT8, CacheMode.UINT4,
+                          CacheMode.DEFAULT)]
+    cases.append(check_megakernel_case(cfg, params, "baichuan u4",
+                                       CacheMode.INT8, gen, dev,
+                                       BAICHUAN_B32_LENS, 17, max_len=512,
+                                       deep_values=True))
+    cases.append(check_megakernel_case(cfg, params, "baichuan u4",
+                                       CacheMode.INT8, gen, dev,
+                                       BAICHUAN_LONG_LENS, None,
+                                       faults=True, deep_values=True))
+    torch.cuda.empty_cache()
+    plain_ms = plain_decode_ms(cfg, params, CacheMode.INT8, gen, dev,
+                               "megakernel baichuan u4/int8")
+    times = [time_megakernel(cfg, params, "baichuan u4", 8, MK_LENS, gen,
+                             dev, max_len=512),
+             time_megakernel(cfg, params, "baichuan u4", 32,
+                             BAICHUAN_B32_LENS, gen, dev, per_op=False,
+                             max_len=512)]
+    out["decode_megakernel"] = kernel_entry(
+        cases, dict(times[0], plain_ms=plain_ms),
+        per_op_ms=times[0]["per_op_ms"], ms_b32=times[1]["ms"],
+        bound_ms_b32=max(times[1]["bytes_ms"], times[1]["ops_ms"]),
+        planted_faults=cases[-1]["planted_faults"])
+    details["baichuan_megakernel"] = dict(cases=cases, times=times,
+                                          plain_ms=plain_ms)
+    torch.cuda.empty_cache()
+    # the prefill megakernel
+    pcases = [check_prefill_case(cfg, params, "baichuan u4", mode, 128, 100,
+                                 gen, dev)
+              for mode in (CacheMode.UINT4, CacheMode.DEFAULT)]
+    for bucket, n in ((128, 100), (128, 128), (256, 200), (256, 256),
+                      (512, 450), (512, 512), (1024, 1000), (1024, 1024)):
+        pcases.append(check_prefill_case(cfg, params, "baichuan u4",
+                                         CacheMode.INT8, bucket, n, gen,
+                                         dev, alibi_fault=bucket == 1024 and
+                                         n == bucket))
+    ptimes = [time_prefill(cfg, params, b, gen, dev, b in (128, 1024))
+              for b in (128, 256, 512, 1024)]
+    prefill_replays(cfg, params, "prefill_megakernel baichuan u4/int8", dev)
+    out["prefill_megakernel"] = kernel_entry(
+        pcases, ptimes[-1], shape="bucket 1024, n = 1024",
+        per_op_ms=ptimes[-1]["per_op_ms"],
+        ms_by_bucket={str(t["bucket"]): t["ms"] for t in ptimes},
+        bound_ms_by_bucket={str(t["bucket"]): max(t["bytes_ms"], t["ops_ms"])
+                            for t in ptimes},
+        planted_fault=pcases[-1]["planted_fault"])
+    details["baichuan_prefill_megakernel"] = dict(cases=pcases, times=ptimes)
+    torch.cuda.empty_cache()
+    # the TP segments at the check geometry, on weights of their own
+    tcfg = baichuan_config(**BAICHUAN_TP_GEOMETRY)
+    tparams = random_baichuan_params(tcfg, SEED + 73, dev)
+    check(not tpk.supports_tp(cfg, tp_prefill_rt(2, CacheMode.INT8),
+                              params, 2),
+          "supports_tp admits Baichuan2-13B (13696 / 2 = 6848)")
+    rows = [check_tp_segment_case(tcfg, tparams, 2, mode, gen, dev,
+                                  timing=mode == "INT8", deep_values=True)
+            for mode in ("INT8", "UINT4")]
+    fault = planted_rank_slopes_fault(tcfg, tparams, gen, dev)
+    torch.cuda.empty_cache()
+    s = tp_setup(tcfg, tparams, 2, "INT8", gen, dev)
+    check(s["plan"].alibi and s["plan"].H == 20,
+          f"baichuan TP plan: alibi {s['plan'].alibi}, H {s['plan'].H}")
+    st, x = s["st"], s["x0"].float()
+    replays_bit_equal("tp_attn_segment baichuan n=2/int8",
+                      lambda: tpk.tp_attn_segment(
+                          s["plan"], s["packs"][1], 0, x, st["cos"],
+                          st["sin"], st["pt"], st["lens"], st["active"],
+                          s["caches"][1]))
+    tpk.check_status(s["plan"], dev)
+    del s, st, x
+    torch.cuda.empty_cache()
+    seg = rows[0]["segments"]
+    for k in ("attn", "mlp", "lm"):
+        out[f"tp_{k}_segment"] = dict(
+            max_abs_err=max(r["errs"][k] for r in rows), ms=seg[k]["ms"],
+            plain_ms=seg[k]["plain_ms"], bound_ms=seg[k]["bound_ms"],
+            bound_by=seg[k]["bound_by"], library_ms=None,
+            shape="the TP check geometry (inter 13824, 4 layers), n = 2, "
+                  "rank 0, layer 0, B = 8, INT8")
+    out["tp_attn_segment"].update(tp_forward_ms=rows[0]["tp_forward_ms"],
+                                  megakernel_ms=rows[0]["megakernel_ms"],
+                                  planted_fault=fault)
+    details["baichuan_tp_segments"] = dict(cases=rows, planted_fault=fault)
+    # the TP prefill segments at the check geometry
+    dplan = mk.make_plan(tcfg, tp_prefill_rt(1, CacheMode.INT8), tparams)
+    single = dict(dplan=dplan, pack=mk.pack_params(tcfg, dplan, tparams))
+    s = tp_prefill_setup(tcfg, tparams, 2, dev, stream="baichuan u4")
+    prows, ptp = [], []
+    for mode, pairs in BAICHUAN_TP_PREFILL_CASES:
+        for bucket, n_tok in pairs:
+            row, case = check_tp_prefill_case(tcfg, tparams, s, single, mode,
+                                              bucket, n_tok, gen, dev)
+            prows.append(row)
+            if mode == "INT8" and n_tok == bucket:
+                ptp.append(tp_prefill_timing(tcfg, tparams, s, single, case,
+                                             dev))
+                plan, _, st = case
+                x = st["x0"].float()
+                replays_bit_equal(
+                    "tp_prefill_attn_segment baichuan n=2/int8 1024",
+                    lambda: tpk.tp_prefill_attn_segment(
+                        plan, s["packs"][1], 0, x, st["cos"], st["sin"],
+                        st["page_row"], st["n"], st["caches"][1]))
+                tpk.check_prefill_status(dev)
+                del plan, st, x
+            del case
+    del s, single, tparams
+    torch.cuda.empty_cache()
+    big = ptp[-1]["segments"]
+    for k in ("attn", "mlp", "lm"):
+        out[f"tp_prefill_{k}_segment"] = dict(
+            max_abs_err=max(r["errs"][k] for r in prows), ms=big[k]["ms"],
+            plain_ms=big[k]["plain_ms"], bound_ms=big[k]["bound_ms"],
+            bound_by=big[k]["bound_by"], library_ms=None,
+            shape="the TP check geometry (inter 13824, 4 layers), n = 2, "
+                  "rank 0, layer 0, bucket 1024, n = 1024")
+    details["baichuan_tp_prefill"] = dict(cases=prows, times=ptp)
+    # the default and the per-op path at full width, teacher-forced
+    details["baichuan_teacher_forced"] = paths_teacher_forced(cfg, params,
+                                                              dev)
+    print("baichuan: " + json.dumps({k: {m: v[m] for m in (
+        "max_abs_err", "ms", "bound_ms", "plain_ms")} for k, v in
+        out.items()}), flush=True)
+    return out
+
+
+def paths_teacher_forced(cfg, params, dev, n=20, steps=24):
+    """The default path's and the per-op path's next-token logits for one
+    greedy request of n random prompt tokens, both paths fed the default
+    path's tokens (teacher-forced, so that one parted token does not part
+    the rest): the prompt through the prefill megakernel (bucket 128) and
+    through the per-op `prefill_forward` (bucket 32), then `steps` decode
+    steps through the decode megakernel (B = 1) and the per-op
+    `decode_forward` (eager), each path on its own INT8 pool. The paths
+    round differently by design (check_serving), so a token where they
+    choose apart passes only as a near-tie: the default path's top-2 gap
+    at most twice the two paths' max|d| there. Returns, per token, (max|d|
+    of the two paths' logits, the default path's top-2 gap, max|logit|,
+    argmax equal)."""
+    import torch
+    from dashinfer_tpu_torch.config import (CacheConfig, CacheMode,
+                                            RuntimeConfigBuilder)
+    from dashinfer_tpu_torch.engine.steps import _rope_tiles
+    from dashinfer_tpu_torch.models import transformer
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    from dashinfer_tpu_torch.runtime.kv_cache import create_kv_cache
+    mode, bf = CacheMode.INT8, torch.bfloat16
+    rt = (RuntimeConfigBuilder("tf").max_length(2048).max_batch(1)
+          .kv_cache_page_size(PAGE).kv_cache_mode(mode).dtype("bfloat16")
+          .build())
+    plan = mk.make_plan(cfg, rt, params)
+    packed = mk.pack_params(cfg, plan, params)
+    pplan = pmk.make_prefill_plan(cfg, rt, params, 128, decode_plan=plan)
+    L, maxP = cfg.num_layers, plan.maxP
+    caches = [create_kv_cache(cfg, CacheConfig(page_size=PAGE, mode=mode),
+                              (maxP + 1) * L + 1, bf, dev) for _ in range(2)]
+    pt = torch.arange(1, maxP + 1, dtype=torch.int32, device=dev)[None]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 83)
+    toks = torch.zeros(128, dtype=torch.int64, device=dev)
+    toks[:n] = torch.randint(1, cfg.vocab_size, (n,), generator=g,
+                             device=dev)
+    emb = params["embed_tokens"]["w"]
+    cos, sin = _rope_tiles(cfg, torch.arange(128, device=dev))
+    a = pmk.prefill_megakernel(
+        pplan, packed, emb[toks].to(bf), cos, sin,
+        (pt[0, :pplan.maxPb] * L).contiguous(),
+        torch.tensor([n], dtype=torch.int32, device=dev), caches[0])
+    b, _ = transformer.prefill_forward(cfg, params, toks[:32], caches[1],
+                                       pt[0, :1], 0, n, mode=mode)
+    rows = []
+    act = torch.ones(1, dtype=torch.bool, device=dev)
+    for i in range(steps + 1):
+        top = a.float().topk(2).values
+        rows.append(((a - b).abs().max().item(), (top[0] - top[1]).item(),
+                     a.abs().max().item(), int(a.argmax()) == int(b.argmax())))
+        if i == steps:
+            break
+        t = a.argmax().reshape(1)
+        lens = torch.tensor([n + i], dtype=torch.int32, device=dev)
+        c, s = _rope_tiles(cfg, lens)
+        a = mk.decode_megakernel(plan, packed, emb[t].to(bf), c, s, pt, lens,
+                                 act, caches[0])[0]
+        b = transformer.decode_forward(cfg, params, t.to(torch.int32),
+                                       caches[1], pt, lens, act,
+                                       mode=mode)[0][0]
+    mk.check_status(plan, dev)
+    print("default vs per-op path, teacher-forced (token: max|d|, the "
+          "default path's top-2 gap, max|logit|, argmax equal): " +
+          "; ".join(f"{i}: {d:.3f} {gp:.3f} {m:.2f} {int(e)}"
+                    for i, (d, gp, m, e) in enumerate(rows)), flush=True)
+    apart = [i for i, (d, gp, _, e) in enumerate(rows) if not e]
+    check(all(rows[i][1] <= 2 * rows[i][0] for i in apart),
+          f"teacher-forced paths choose apart at tokens {apart} where the "
+          "default path's top-2 gap is over twice their difference")
+    print(f"teacher-forced: the paths choose apart at tokens {apart}, each "
+          "a near-tie", flush=True)
+    del packed, caches
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_serving_baichuan(params, dev, details):
+    """Baichuan2-13B served through `Engine` with serve()'s traffic: with
+    every flag at its default (the decode megakernel, the prefill
+    megakernel for buckets 128 .. 1024) and per-op (decode attention by
+    the plain version, as in the JAX package: no paged_attention launch);
+    launch counts checked by serve(), the greedy requests' first 8 tokens
+    equal across the two paths. Returns the launches of each path."""
+    import torch
+    cfg = baichuan_config()
+    launches, tokens = {}, {}
+    for path, new_tokens in (("megakernel", 64), ("per-op", 24)):
+        launches[path], tokens[path], _ = serve(params, dev, details, path,
+                                                new_tokens, cfg)
+        check(launches[path]["paged_attention"] == 0,
+              f"baichuan2-13b {path}: paged_attention launched "
+              f"{launches[path]['paged_attention']} times")
+    details["baichuan_greedy_agreement"] = agree_first(
+        tokens["megakernel"], tokens["per-op"],
+        "baichuan2-13b megakernel and per-op paths")
+    summary = {}
+    for path in ("megakernel", "per-op"):
+        reqs = details[f"serving_baichuan2-13b_{path}"]["requests"]
+        steps = [r["decode_ms_per_step"] for r in reqs]
+        summary[path] = dict(ttft_ms=max(r["ttft_ms"] for r in reqs),
+                             ms_per_step=(min(steps), max(steps)))
+        print(f"baichuan2-13b {path}: TTFT (the six prompts together) "
+              f"{summary[path]['ttft_ms']:.1f} ms, decode "
+              f"{min(steps):.2f} .. {max(steps):.2f} ms/step", flush=True)
+    details["baichuan_serving_summary"] = summary
     torch.cuda.empty_cache()
     return launches
 
@@ -5132,8 +5663,8 @@ def check_serving_lora(params, dev, details):
 PHASES = ("quant_matmul", "paged_attention", "grouped_quant_matmul",
           "stream_probe", "probes", "megakernel", "prefill_megakernel",
           "serve", "decode_logits", "tp_segments", "tp_prefill", "serve_tp",
-          "lora", "serve_lora", "qwen3", "serve_qwen3", "tp_moe",
-          "serve_tp_moe", "qwen3_moe")
+          "lora", "serve_lora", "qwen3", "serve_qwen3", "baichuan",
+          "serve_baichuan", "tp_moe", "serve_tp_moe", "qwen3_moe")
 MOE_PHASES = ("megakernel", "prefill_megakernel", "serve", "tp_moe",
               "serve_tp_moe")
 
@@ -5241,6 +5772,21 @@ def main(argv=None) -> int:
                                                       details)
                 del q3_params
                 torch.cuda.empty_cache()
+            # Baichuan2-13B (ALiBi), on the card alone
+            bc_launches = None
+            if phase("baichuan"):
+                bc_params = random_baichuan_params(baichuan_config(),
+                                                   SEED + 79, dev)
+                res["baichuan"] = check_baichuan(bc_params, dev, details)
+                del bc_params
+                torch.cuda.empty_cache()
+            if phase("serve_baichuan"):
+                bc_params = random_baichuan_params(baichuan_config(),
+                                                   SEED + 79, dev,
+                                                   zero_mean=False)
+                bc_launches = check_serving_baichuan(bc_params, dev, details)
+                del bc_params
+                torch.cuda.empty_cache()
             # the MoE slice
             if any(p in only for p in MOE_PHASES):
                 moe_cfg = moe_config()
@@ -5312,6 +5858,17 @@ def main(argv=None) -> int:
 
     def q3_entry(kernel, path):
         return dict(launches=q3_launches[path][kernel], **q3[kernel])
+    # Baichuan2-13B (the ALiBi branch): the megakernels' numbers with the
+    # launches of its default serving; the TP segments' at the TP check
+    # geometry, which no serving runs (supports_tp turns Baichuan2-13B
+    # away), under `baichuan_tp_check`
+    bc = res["baichuan"]
+
+    def bc_entry(kernel):
+        if kernel.startswith("tp_"):
+            return {"baichuan_tp_check": bc[kernel]}
+        return {"baichuan": dict(
+            launches=bc_launches["megakernel"][kernel], **bc[kernel])}
     kernels = [
         dict(name="quant_matmul", route="cuda",
              source=csrc + "quant_matmul.cu",
@@ -5329,7 +5886,8 @@ def main(argv=None) -> int:
              **res["decode_megakernel"], moe=moe_decode,
              qwen3=q3_entry("decode_megakernel", "megakernel"),
              qwen3_moe=q3m["decode_megakernel"],
-             lora=dict(launches=lora_launches, **res["lora"])),
+             lora=dict(launches=lora_launches, **res["lora"]),
+             **bc_entry("decode_megakernel")),
         dict(name="stream_probe", route="cuda",
              source=csrc + "stream_probe.cu",
              replaces="tools/bench_stream.py:41", **res["stream_probe"]),
@@ -5340,7 +5898,8 @@ def main(argv=None) -> int:
              launches_pack_only=po_launches["prefill_megakernel"],
              **res["prefill_megakernel"], moe=moe_prefill,
              qwen3=q3_entry("prefill_megakernel", "megakernel"),
-             qwen3_moe=q3m["prefill_megakernel"]),
+             qwen3_moe=q3m["prefill_megakernel"],
+             **bc_entry("prefill_megakernel")),
         dict(name="grouped_quant_matmul", route="cuda",
              source=csrc + "grouped_quant_matmul.cu",
              replaces="dashinfer_tpu/ops/pallas/grouped_quant_matmul.py:206",
@@ -5362,7 +5921,7 @@ def main(argv=None) -> int:
              launches=tp_launches["tp"][f"tp_{k}_segment"],
              **res[f"tp_{k}_segment"],
              **({"qwen3": q3_entry(f"tp_{k}_segment", "tp")}
-                if k != "mlp" else {}))
+                if k != "mlp" else {}), **bc_entry(f"tp_{k}_segment"))
         for k, line in (("attn", 346), ("mlp", 849), ("lm", 1167))] + [
         dict(name=f"tp_prefill_{k}_segment", route="cuda",
              source=csrc + "tp_prefill_segments.cu",
@@ -5370,7 +5929,8 @@ def main(argv=None) -> int:
              launches=tp_launches["tp"][f"tp_prefill_{k}_segment"],
              **res[f"tp_prefill_{k}_segment"],
              **({"qwen3": q3_entry(f"tp_prefill_{k}_segment", "tp")}
-                if k != "mlp" else {}))
+                if k != "mlp" else {}),
+             **bc_entry(f"tp_prefill_{k}_segment"))
         for k, line in (("attn", 1374), ("mlp", 1659), ("lm", 1749))] + [
         # the (1, 2) mesh's MoE serving with the default flags
         dict(name="tp_moe_segment", route="cuda",
@@ -5381,10 +5941,13 @@ def main(argv=None) -> int:
     for k in kernels:
         check_keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                       "bound_by", "library_ms")
-        parts = [k] + [k[m] for m in ("moe", "qwen3", "qwen3_moe", "lora")
-                       if m in k]
+        parts = [k] + [k[m] for m in ("moe", "qwen3", "qwen3_moe", "lora",
+                                      "baichuan") if m in k]
         if any(key not in p or (key == "launches" and p[key] <= 0)
-               for p in parts for key in check_keys):
+               for p in parts for key in check_keys) or \
+                ("baichuan_tp_check" in k and any(
+                    key not in k["baichuan_tp_check"]
+                    for key in check_keys if key != "launches")):
             print(f"chip_smoke: FAIL: kernel line of {k['name']}: {k}",
                   file=sys.stderr)
             return 1

@@ -261,7 +261,12 @@ struct MmaQ {
 // The tiles of tokens [t_begin, t_end) of one (slot, KV head): n_tiles of
 // them, the first att_prologue's. MMA: q in `q` (MmaQ); else q_s / qsum_s
 // of the Geo layout hold q in f32 (written before the first tile's
-// __syncthreads). The scores are scaled by `scale`. EXACT (the decode
+// __syncthreads). The scores are scaled by `scale`; ALIBI: token t's score
+// of head g then gains slopes[g] * (t - q_pos) (`slopes`: the G query
+// heads' slopes, natural-log domain), each step rounded (the plain
+// version's s * scale + bias), in base 2 times log2(e); MMA pad rows (gid
+// >= G) get none. Without ALIBI (the per-op kernel, a RoPE model) the
+// slopes are not read and the code is the RoPE model's alone. EXACT (the decode
 // megakernel, whose attention outputs are rounded to bf16 and, in a MoE
 // model, feed router near-ties) keeps the result as close to an f32
 // softmax as the tensor cores allow: the natural exponential, P in three
@@ -278,12 +283,15 @@ struct MmaQ {
 // l_s [kWarps][kMaxG], acc_s [kWarps][kMaxG][D] with the zero term added,
 // and ends with a __syncthreads. Warps past Geo::kWarps (a block of NTHR
 // threads wider than the geometry) only copy.
-template <int KIND, int D, bool MMA, bool SMALL, int NTHR, bool EXACT>
+template <int KIND, int D, bool MMA, bool SMALL, int NTHR, bool EXACT,
+          bool ALIBI = false>
 __device__ __forceinline__ void attend_tiles(uint8_t* smem, const KvSrc& kv,
                                              int t_begin, int t_end,
                                              int n_tiles, int G,
                                              float scale,
-                                             const MmaQ<KIND, D>& q) {
+                                             const MmaQ<KIND, D>& q,
+                                             const float* slopes = nullptr,
+                                             int q_pos = 0) {
   using Gm = Geo<KIND, D, SMALL>;
   constexpr bool kQuant = KIND == kI8 || KIND == kU4;
   constexpr int kS = Gm::kStages;
@@ -302,6 +310,13 @@ __device__ __forceinline__ void attend_tiles(uint8_t* smem, const KvSrc& kv,
   // the softmax's exponential: natural (EXACT: the plain version's own
   // arithmetic) or base 2 with log2(e) folded into `scale`
   auto ex = [](float x) { return EXACT ? expf(x) : exp2f(x); };
+  // ALiBi: the bias of a score of head g at token t, in the exponential's
+  // domain
+  auto bias = [&](float sl, int t) {
+    return __fmul_rn(EXACT ? sl : sl * kLog2e, (float)(t - q_pos));
+  };
+  // MMA: this lane's head (row gid), 0 for a pad row
+  const float sl_row = (MMA && ALIBI && gid < G) ? slopes[gid] : 0.f;
 
   // online-softmax state
   float m_run[MMA ? 1 : kMaxG], l_run[MMA ? 1 : kMaxG], z_run[MMA ? 1 : kMaxG];
@@ -369,6 +384,7 @@ __device__ __forceinline__ void attend_tiles(uint8_t* smem, const KvSrc& kv,
         if (KIND == kU4) v -= 128.f * qsum_g;
         if (kQuant) v = v * qp_s[tok] + qsum_g * qp_s[Gm::kTileT + tok];
         v *= scale;
+        if (ALIBI) v = __fadd_rn(v, bias(sl_row, t0 + tok));
         sv[i] = t0 + tok < t_end ? v : -INFINITY;
         mt = fmaxf(mt, sv[i]);
       }
@@ -496,6 +512,8 @@ __device__ __forceinline__ void attend_tiles(uint8_t* smem, const KvSrc& kv,
             v += __shfl_xor_sync(0xffffffffu, v, o);
           if (kQuant) v = v * ks + qsum_s[g] * kz;
           v = valid ? v * scale : -INFINITY;
+          if (ALIBI && valid)
+            v = __fadd_rn(v, bias(__ldg(slopes + g), t0 + tok));
           float mt = v;
 #pragma unroll
           for (int o = 1; o < kWT; o <<= 1)

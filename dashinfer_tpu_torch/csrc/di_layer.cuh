@@ -470,13 +470,16 @@ constexpr int kAttTiles =
 // q|k|v product's epilogue into a.qkv, the TP attn segment's way; else,
 // the decode megakernel's, it sums the split-K partials itself, which the
 // tiles in flight hide), normalizes each q head and k (a QK-norm model:
-// a.qk_norm) and applies RoPE; chunk 0 also quantizes and
+// a.qk_norm) and applies RoPE (ALIBI, an ALiBi model's instantiation:
+// no rotation, no cos/sin read; attend_tiles adds slope * (t - lens[b]) to
+// each cached token's score, the same origin in every chunk of the slot,
+// and the new token at lens[b] gets 0); chunk 0 also quantizes and
 // writes the new token (warp 0 K, warp 1 V) and folds it in from its
 // unquantized f32 K/V when it merges the warps' states. The chunk's (max,
 // sum, acc) go to att_ml / att_acc; the last chunk of a (slot, KV head) to
 // finish (a ticket a pair, a.att_tickets, set back to 0 by its taker)
 // merges the pair's chunks into the o product's x records.
-template <int KIND, bool SUMMED, bool LORA = false>
+template <int KIND, bool SUMMED, bool LORA = false, bool ALIBI = false>
 __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
   constexpr bool kMma = KIND != kF32;       // tensor cores but for f32
   using Gm = Geo<KIND, kD, true>;
@@ -520,8 +523,10 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
                                            n_tiles);
     // this thread's RoPE dim is tid % kD in every row it rotates below, and
     // chunk 0's new token lands in one page: their loads fly with q|k|v's
-    const float cs = __bfloat162float(a.cos[(size_t)b * kD + (tid & (kD - 1))]);
-    const float sn = __bfloat162float(a.sin[(size_t)b * kD + (tid & (kD - 1))]);
+    const float cs = ALIBI ? 1.f : __bfloat162float(
+                                       a.cos[(size_t)b * kD + (tid & (kD - 1))]);
+    const float sn = ALIBI ? 0.f : __bfloat162float(
+                                       a.sin[(size_t)b * kD + (tid & (kD - 1))]);
     const int new_col = min(len / a.ps, a.maxP - 1);
     const int new_page = j == 0 ? a.pt[(size_t)b * a.maxP + new_col] : 0;
 
@@ -619,8 +624,11 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
     for (int i = tid; i < (G + 1) * kD; i += kThreads) {
       const int r = i / kD, d = i % kD;
       const float x = raw[i];
-      const float xr = d < kD / 2 ? -raw[i + kD / 2] : raw[i - kD / 2];
-      const float v = x * cs + xr * sn;
+      float v = x;
+      if (!ALIBI) {
+        const float xr = d < kD / 2 ? -raw[i + kD / 2] : raw[i - kD / 2];
+        v = x * cs + xr * sn;
+      }
       rot[i] = r < G ? __bfloat162float(__float2bfloat16(v)) : v;
     }
     __syncthreads();
@@ -683,7 +691,8 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
       }
     }
     if (j == 0) {
-      // the new token's scores, from its unquantized f32 K (one warp a head)
+      // the new token's scores, from its unquantized f32 K (one warp a
+      // head; an ALiBi model's bias is 0 there, the diagonal)
       for (int g = warp; g < G; g += kWarps) {
         float sc = 0.f;
 #pragma unroll
@@ -723,8 +732,9 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
         if (lane == 0) qsum_s[g] = s;
       }
     }
-    attend_tiles<KIND, kD, kMma, true, kThreads, true>(
-        smem, kv, t_begin, t_end, n_tiles, G, a.att_scale, qm);
+    attend_tiles<KIND, kD, kMma, true, kThreads, true, ALIBI>(
+        smem, kv, t_begin, t_end, n_tiles, G, a.att_scale, qm,
+        ALIBI ? a.slopes + h * G : nullptr, len);
 
     // merge the warps' states (chunk 0: and the new token), write the
     // chunk's (max, sum, acc)
@@ -776,13 +786,20 @@ __device__ void attention_phase(const Args& a, int layer, uint8_t* smem) {
   }
 }
 
-template <bool SUMMED, bool LORA = false>
+// ALIBI: an ALiBi model's kernels (a.slopes), instantiations of their own
+// (megakernel.cu, tp_segments.cu), so that a RoPE model's code is what it
+// was without the branch.
+template <bool SUMMED, bool LORA = false, bool ALIBI = false>
 __device__ void attention(const Args& a, int layer, uint8_t* smem) {
   switch (a.kv_kind) {
-    case kF32: attention_phase<kF32, SUMMED, LORA>(a, layer, smem); break;
-    case kBF16: attention_phase<kBF16, SUMMED, LORA>(a, layer, smem); break;
-    case kI8: attention_phase<kI8, SUMMED, LORA>(a, layer, smem); break;
-    default: attention_phase<kU4, SUMMED, LORA>(a, layer, smem); break;
+    case kF32:
+      attention_phase<kF32, SUMMED, LORA, ALIBI>(a, layer, smem);
+      break;
+    case kBF16:
+      attention_phase<kBF16, SUMMED, LORA, ALIBI>(a, layer, smem);
+      break;
+    case kI8: attention_phase<kI8, SUMMED, LORA, ALIBI>(a, layer, smem); break;
+    default: attention_phase<kU4, SUMMED, LORA, ALIBI>(a, layer, smem); break;
   }
 }
 
@@ -805,7 +822,7 @@ enum IArg {
   I_B, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXP, I_KV_KIND, I_QL,
   I_NSPLIT, I_SPLIT_LEN, I_MPAD, I_SKIP_ATTN, I_GRID, I_E, I_K_TOP,
   I_NORM_TOPK, I_HAS_SHARED, I_HAS_SGATE, I_SHARED_INTER, I_QK_NORM,
-  I_STREAMS
+  I_SLOPES, I_STREAMS
 };
 // then kStreamArgs values per stream (fill_stream)
 
@@ -816,6 +833,7 @@ inline void fill_args(Args& a, const long long* ia, const double* fa) {
   a.final_norm = ptr<const float>(ia[I_FINAL_NORM]);
   a.qkv_b = ptr<const float>(ia[I_QKV_B]);
   a.qk_norm = ptr<const float>(ia[I_QK_NORM]);
+  a.slopes = ptr<const float>(ia[I_SLOPES]);
   a.x0 = ptr<const __nv_bfloat16>(ia[I_X0]);
   a.cos = ptr<const __nv_bfloat16>(ia[I_COS]);
   a.sin = ptr<const __nv_bfloat16>(ia[I_SIN]);

@@ -42,6 +42,7 @@ struct PArgs {
   const float* final_norm;   // [hid]
   const float* qkv_b;        // [L, QKVN] or null
   const float* qk_norm;      // [L, 2, D] q_norm, k_norm (Qwen3) or null
+  const float* slopes;       // [H] ALiBi slopes of the plan's heads or null
   const __nv_bfloat16* x0;   // [S, hid]
   const __nv_bfloat16* cos;  // [S, D]
   const __nv_bfloat16* sin;  // [S, D]
@@ -963,10 +964,11 @@ __device__ __forceinline__ void write_kv(const PArgs& a, bool is_k, int layer,
 }
 
 // q|k|v of every row: K splits summed, + bias, a QK-norm model's RMSNorm
-// of each q and k head (a.qk_norm), RoPE on q and k; q, k, v rounded to
+// of each q and k head (a.qk_norm), RoPE on q and k (not for an ALiBi
+// model, ALIBI, whose cos / sin are not read); q, k, v rounded to
 // bf16 for the attention phase; K / V of rows < n into the pool from the
 // f32 values. One warp a (row, head), four dims a lane.
-template <int KIND>
+template <int KIND, bool ALIBI>
 __device__ void rope_kv_phase(const PArgs& a, int layer, int rows, int n) {
   const Stream& st = a.st[kQkv];
   const int H = a.H, KH = a.KH, heads = H + 2 * KH;
@@ -1020,7 +1022,7 @@ __device__ void rope_kv_phase(const PArgs& a, int layer, int rows, int n) {
       for (int i = 0; i < 4; ++i)
         v[i] = __fmul_rn(__fmul_rn(v[i], inv), wv[i]);
     }
-    if (hs < H + KH) {
+    if (!ALIBI && hs < H + KH) {
       const __nv_bfloat162* cp = reinterpret_cast<const __nv_bfloat162*>(
           a.cos + (size_t)t * kD + lane * 4);
       const __nv_bfloat162* sp = reinterpret_cast<const __nv_bfloat162*>(
@@ -1055,12 +1057,13 @@ __device__ void rope_kv_phase(const PArgs& a, int layer, int rows, int n) {
   }
 }
 
+template <bool ALIBI>
 __device__ void rope_kv(const PArgs& a, int layer, int rows, int n) {
   switch (a.kv_kind) {
-    case kF32: rope_kv_phase<kF32>(a, layer, rows, n); break;
-    case kBF16: rope_kv_phase<kBF16>(a, layer, rows, n); break;
-    case kI8: rope_kv_phase<kI8>(a, layer, rows, n); break;
-    default: rope_kv_phase<kU4>(a, layer, rows, n); break;
+    case kF32: rope_kv_phase<kF32, ALIBI>(a, layer, rows, n); break;
+    case kBF16: rope_kv_phase<kBF16, ALIBI>(a, layer, rows, n); break;
+    case kI8: rope_kv_phase<kI8, ALIBI>(a, layer, rows, n); break;
+    default: rope_kv_phase<kU4, ALIBI>(a, layer, rows, n); break;
   }
 }
 
@@ -1078,9 +1081,13 @@ __device__ void rope_kv(const PArgs& a, int layer, int rows, int n) {
 // (most key tiles), dealt to the blocks in rounds that turn back at each
 // end (round r's item r x grid + b goes to block b, or to block grid - 1 -
 // b in odd rounds), so the block with a round's longest item takes the
-// next round's shortest. The key tiles come through two cp.async stages
-// of two tiles (one a group): the next step's copies are in flight while
-// the products of this one run.
+// next round's shortest. ALIBI (an ALiBi model's kernels, instantiations of
+// their own, so that the RoPE model's code is unchanged): the scores gain
+// slope * (key - row) after the scale, before the mask, in both passes
+// (`scaled`). The key tiles come through two cp.async stages of two tiles
+// (one a group): the next step's copies are in flight while the products of
+// this one run.
+template <bool ALIBI>
 __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -1108,6 +1115,7 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
     const int r0 = q0 + gid, r1 = r0 + 8;
     const int nkt = 2 * qt + hf + 1;     // key tiles up to the half's end
     const int nst = (nkt + 1) / 2;       // steps: tiles 2 s and 2 s + 1
+    const float sl = ALIBI ? a.slopes[hh] : 0.f;   // the head's ALiBi slope
 
     uint32_t qf[kD / 16][4];
 #pragma unroll
@@ -1136,6 +1144,12 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
           load_tile(a.vb, Vs + (2 * b + g) * kTile, (2 * st + g) * kKeyTile);
       }
     };
+    // a scaled score of key `key` in row `row`, an ALiBi model's plus
+    // slope * (key - row), each step rounded (the plain version's order)
+    auto scaled = [&](float v, int key, int row) {
+      v *= a.att_scale;
+      return ALIBI ? __fadd_rn(v, __fmul_rn(sl, (float)(key - row))) : v;
+    };
     // s[j][.] = scaled, masked scores of this warp's 16 rows against keys
     // k0 + 8 j + 2 tig (+1)
     auto scores = [&](const __nv_bfloat16* Kt, int k0, float (&s)[8][4]) {
@@ -1149,10 +1163,10 @@ __device__ void attention_phase(const PArgs& a, int mtiles, uint8_t* smem) {
                          *reinterpret_cast<const uint32_t*>(kp + 16 * ks),
                          *reinterpret_cast<const uint32_t*>(kp + 16 * ks + 8));
         const int key = k0 + 8 * j + 2 * tig;
-        s[j][0] = key <= r0 ? s[j][0] * a.att_scale : -FLT_MAX;
-        s[j][1] = key + 1 <= r0 ? s[j][1] * a.att_scale : -FLT_MAX;
-        s[j][2] = key <= r1 ? s[j][2] * a.att_scale : -FLT_MAX;
-        s[j][3] = key + 1 <= r1 ? s[j][3] * a.att_scale : -FLT_MAX;
+        s[j][0] = key <= r0 ? scaled(s[j][0], key, r0) : -FLT_MAX;
+        s[j][1] = key + 1 <= r0 ? scaled(s[j][1], key + 1, r0) : -FLT_MAX;
+        s[j][2] = key <= r1 ? scaled(s[j][2], key, r1) : -FLT_MAX;
+        s[j][3] = key + 1 <= r1 ? scaled(s[j][3], key + 1, r1) : -FLT_MAX;
       }
     };
     // step st's stage: its copies waited for (the next step's, issued
@@ -1380,7 +1394,8 @@ enum IArg {
   I_ACC, I_GATES, I_SGATE, I_XE, I_EIDX, I_ESLOT, I_ECOUNT, I_LAUNCHES,
   I_TRACE, I_S, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXPB,
   I_KV_KIND, I_QL, I_GRID, I_E, I_K_TOP, I_NORM_TOPK, I_HAS_SHARED,
-  I_HAS_SGATE, I_SHARED_INTER, I_EP, I_SCAP, I_QK_NORM, I_STREAMS
+  I_HAS_SGATE, I_SHARED_INTER, I_EP, I_SCAP, I_QK_NORM, I_SLOPES,
+  I_STREAMS
 };
 // then kStreamArgs values per stream (fill_stream)
 
@@ -1391,6 +1406,7 @@ inline void fill_pargs(PArgs& a, const long long* ia, const double* fa) {
   a.final_norm = ptr<const float>(ia[I_FINAL_NORM]);
   a.qkv_b = ptr<const float>(ia[I_QKV_B]);
   a.qk_norm = ptr<const float>(ia[I_QK_NORM]);
+  a.slopes = ptr<const float>(ia[I_SLOPES]);
   a.x0 = ptr<const __nv_bfloat16>(ia[I_X0]);
   a.cos = ptr<const __nv_bfloat16>(ia[I_COS]);
   a.sin = ptr<const __nv_bfloat16>(ia[I_SIN]);

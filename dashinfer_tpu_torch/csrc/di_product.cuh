@@ -66,6 +66,7 @@ struct Args {
   const float* final_norm;   // [hid]
   const float* qkv_b;        // [L, QKVN] or null
   const float* qk_norm;      // [L, 2, D] q_norm, k_norm (Qwen3) or null
+  const float* slopes;       // [H] ALiBi slopes of the plan's heads or null
   const __nv_bfloat16* x0;   // [B, hid]
   const __nv_bfloat16* cos;  // [B, D]
   const __nv_bfloat16* sin;  // [B, D]

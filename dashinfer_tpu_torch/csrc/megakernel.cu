@@ -1,15 +1,18 @@
 // Whole-model decode step as ONE persistent kernel, sm_90a.
 //
 // Replaces: dashinfer_tpu/ops/pallas/megakernel.py `build_decode_megakernel`
-// (RoPE, optional q/k/v bias, optional per-head QK RMSNorm (Qwen3), KV pool
-// DEFAULT / INT8 / UINT4, weight streams u4 group-wise, int8 group-wise or
-// per-channel, bf16; a dense MLP or the MoE branch: router, routed experts,
-// shared expert).
+// (RoPE or ALiBi, optional q/k/v bias, optional per-head QK RMSNorm (Qwen3),
+// KV pool DEFAULT / INT8 / UINT4, weight streams u4 group-wise, int8
+// group-wise or per-channel, bf16; a dense MLP or the MoE branch: router,
+// routed experts, shared expert).
 //
 // What it computes, per layer: RMSNorm; q|k|v products + bias; a QK-norm
 // model's RMSNorm of each q head and k in f32 (a.qk_norm, a null pointer
 // without: a runtime branch, not an instantiation); RoPE with
-// bf16 cos/sin tiles; the new token's K/V quantized and written to its page
+// bf16 cos/sin tiles (an ALiBi model, a.slopes: none; each cached token's
+// score gains slope * (t - lens[b]): `mk_kernel<MT, false, false, true>`,
+// launched for a non-null slopes pointer, so that a RoPE model's code is
+// unchanged); the new token's K/V quantized and written to its page
 // (active slots only); attention over the slot's cached tokens (online
 // softmax; a quantized pool's tokens are dequantized in f32 as they are
 // read) with the new token folded in from its unquantized f32 K/V; o product into the f32 residual; RMSNorm;
@@ -121,10 +124,13 @@ using namespace di;
 // the MoE code, so that it adds nothing to the dense products' registers.
 // LORA: the dense kernel with the LoRA branch (di_layer.cuh): a launch
 // without adapters runs the dense instantiation, the parent's machine code.
-template <int MT, bool MOE, bool LORA>
+// ALIBI: the dense kernel of an ALiBi model (a.slopes; no LoRA branch: its
+// LoRA batches decode per-op), so that the RoPE model's code is unchanged.
+template <int MT, bool MOE, bool LORA, bool ALIBI = false>
 __global__ void __launch_bounds__(kThreads, MT == 1 ? 2 : 1)
 mk_kernel(const __grid_constant__ Args a) {
   static_assert(!(MOE && LORA), "a MoE model decodes LoRA batches per-op");
+  static_assert(!(ALIBI && (MOE || LORA)), "ALiBi: the dense kernel only");
   extern __shared__ __align__(16) uint8_t smem[];
   float* fsmem = reinterpret_cast<float*>(smem);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -151,7 +157,7 @@ mk_kernel(const __grid_constant__ Args a) {
     product_call<MT>(a, kQkv, l, a.partial, smem);
     if constexpr (LORA) lora_project(a, l, kLq, 3);
     grid_barrier(a, phase++);
-    if (!a.skip_attn) attention<false, LORA>(a, l, smem);
+    if (!a.skip_attn) attention<false, LORA, ALIBI>(a, l, smem);
     grid_barrier(a, phase++);
     product_call<MT>(a, kO, l, a.partial, smem);
     if constexpr (LORA) lora_project(a, l, kLo, 1);
@@ -207,32 +213,36 @@ mk_kernel(const __grid_constant__ Args a) {
   grid_barrier(a, phase++);   // so that a trace shows the lm_head's end
 }
 
-// Blocks of mk_kernel<MT, MOE, LORA> resident at once on one SM (0 on
-// error).
-template <int MT, bool MOE, bool LORA>
+// Blocks of mk_kernel<MT, MOE, LORA, ALIBI> resident at once on one SM (0
+// on error).
+template <int MT, bool MOE, bool LORA, bool ALIBI = false>
 int per_sm(int smem) {
   int n = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      mk_kernel<MT, MOE, LORA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      mk_kernel<MT, MOE, LORA, ALIBI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, mk_kernel<MT, MOE, LORA>, kThreads, smem);
+        &n, mk_kernel<MT, MOE, LORA, ALIBI>, kThreads, smem);
   return e == cudaSuccess ? n : 0;
 }
 
-template <int MT, bool MOE, bool LORA>
+template <int MT, bool MOE, bool LORA, bool ALIBI = false>
 void launch(const Args& a, int grid, int smem, cudaStream_t s) {
-  cudaFuncSetAttribute(mk_kernel<MT, MOE, LORA>,
+  cudaFuncSetAttribute(mk_kernel<MT, MOE, LORA, ALIBI>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  mk_kernel<MT, MOE, LORA><<<grid, kThreads, smem, s>>>(a);
+  mk_kernel<MT, MOE, LORA, ALIBI><<<grid, kThreads, smem, s>>>(a);
 }
 
+// kind 0 dense (a RoPE or an ALiBi model: the grid both instantiations
+// take), 1 MoE, 2 LoRA
 template <int MT>
-int per_sm_of(int kind, int smem) {      // kind 0 dense, 1 MoE, 2 LoRA
-  return kind == 1 ? per_sm<MT, true, false>(smem)
-                   : (kind == 2 ? per_sm<MT, false, true>(smem)
-                                : per_sm<MT, false, false>(smem));
+int per_sm_of(int kind, int smem) {
+  if (kind == 1) return per_sm<MT, true, false>(smem);
+  if (kind == 2) return per_sm<MT, false, true>(smem);
+  const int rope = per_sm<MT, false, false>(smem);
+  const int alibi = per_sm<MT, false, false, true>(smem);
+  return rope < alibi ? rope : alibi;
 }
 
 template <int MT>
@@ -241,6 +251,8 @@ void launch_of(const Args& a, int grid, int smem, cudaStream_t s) {
     launch<MT, true, false>(a, grid, smem, s);
   else if (a.lora_n > 0)
     launch<MT, false, true>(a, grid, smem, s);
+  else if (a.slopes != nullptr)
+    launch<MT, false, false, true>(a, grid, smem, s);
   else
     launch<MT, false, false>(a, grid, smem, s);
 }
@@ -274,6 +286,8 @@ extern "C" int di_megakernel(const long long* ia, const double* fa,
   Args a;
   fill_args(a, ia, fa);
   fill_lora(a, ia + I_STREAMS + kStreams * kStreamArgs);
+  if (a.slopes != nullptr && (a.E > 0 || a.lora_n > 0))
+    return (int)cudaErrorInvalidValue;
   if (a.lora_n > 0 && (a.E > 0 || a.lora_n > kMaxLoraSlots ||
                        a.lora_r < 8 || a.lora_r > kMaxLoraRank ||
                        a.lora_r % 8 || a.lora_kc * kLoraKC < a.inter ||

@@ -1,7 +1,9 @@
 // Whole-model prefill of one prompt bucket as ONE persistent kernel, sm_90a.
 //
 // Replaces: dashinfer_tpu/ops/pallas/prefill_megakernel.py
-// `build_prefill_megakernel` (RoPE, optional q/k/v bias, optional per-head QK
+// `build_prefill_megakernel` (RoPE or ALiBi (the scores + slope * (key -
+// row): `pmk_kernel<true>`, launched for a non-null slopes pointer),
+// optional q/k/v bias, optional per-head QK
 // RMSNorm (Qwen3), KV pool DEFAULT / INT8 / UINT4, weight streams u4
 // group-wise, int8 group-wise or per-channel, bf16; a dense MLP or the MoE
 // branch). It reads the DECODE pack (ops/megakernel.py `pack_params`:
@@ -272,6 +274,9 @@ __device__ __noinline__ void expert_sum_phase(const PArgs& a, int layer,
   }
 }
 
+// ALIBI: an ALiBi model's kernel (a.slopes), an instantiation of its own,
+// so that the RoPE model's code is unchanged.
+template <bool ALIBI>
 __global__ void __launch_bounds__(kThreads, 1)
 pmk_kernel(const __grid_constant__ PArgs a) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -313,8 +318,8 @@ pmk_kernel(const __grid_constant__ PArgs a) {
                        a.norms + (size_t)(2 * l) * hid, red);
           break;
         case 1: sid = kQkv; sst = (size_t)S * a.st[kQkv].ntot; break;
-        case 2: rope_kv(a, l, rows, n); break;
-        case 3: attention_phase(a, mtiles, smem); break;
+        case 2: rope_kv<ALIBI>(a, l, rows, n); break;
+        case 3: attention_phase<ALIBI>(a, mtiles, smem); break;
         case 4: sid = kO; X = a.attn; break;
         case 5:
           norm_phase(a, rows, a.st[kO].ksplit, (size_t)S * hid, false,
@@ -373,26 +378,34 @@ pmk_kernel(const __grid_constant__ PArgs a) {
   barrier();   // so that a trace shows the lm_head's end
 }
 
+// Blocks of pmk_kernel<ALIBI> resident at once on one SM (0 on error).
+template <bool ALIBI>
+int per_sm(int smem) {
+  int n = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      pmk_kernel<ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pmk_kernel<ALIBI>,
+                                                      kThreads, smem);
+  return e == cudaSuccess ? n : 0;
+}
+
 }  // namespace
 
 // The largest grid whose blocks are all resident at once on `device`: SMs x
-// (at most one) block per SM of the kernel with its dynamic shared memory.
-// Returns 0 on error.
+// (at most one) block per SM of the kernel (both its instantiations, RoPE
+// and ALiBi) with its dynamic shared memory. Returns 0 on error.
 extern "C" int di_prefill_megakernel_grid(int device) {
   const int smem = pmk_smem_bytes();
-  int per_sm = 0, sms = 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      pmk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pmk_kernel,
-                                                      kThreads, smem);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) {
+  const int rope = per_sm<false>(smem), alibi = per_sm<true>(smem);
+  const int n = rope < alibi ? rope : alibi;
+  int sms = 0;
+  if (n == 0 || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       device) != cudaSuccess) {
     cudaGetLastError();
     return 0;
   }
-  return sms * (per_sm < 1 ? per_sm : 1);
+  return sms * (n < 1 ? n : 1);
 }
 
 // One prefill. `ia` holds pointers and integers by the IArg index, `fa` =
@@ -414,8 +427,15 @@ extern "C" int di_prefill_megakernel(const long long* ia, const double* fa,
     return (int)cudaErrorInvalidValue;
   const int grid = (int)ia[I_GRID];
   const int smem = pmk_smem_bytes();
-  cudaFuncSetAttribute(pmk_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  pmk_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.slopes != nullptr) {
+    cudaFuncSetAttribute(pmk_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    pmk_kernel<true><<<grid, kThreads, smem, s>>>(a);
+  } else {
+    cudaFuncSetAttribute(pmk_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    pmk_kernel<false><<<grid, kThreads, smem, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@
 //
 // Replaces: dashinfer_tpu/ops/pallas/tp_megakernel.py
 // `build_prefill_attn_segment`, `build_prefill_mlp_segment` and
-// `build_prefill_lm_segment` (dense models; RoPE, optional q/k/v bias,
+// `build_prefill_lm_segment` (dense models; RoPE or ALiBi (the rank's slice
+// of the global slopes), optional q/k/v bias,
 // optional per-head QK RMSNorm, KV pool DEFAULT / INT8 / UINT4, weight streams
 // u4 group-wise, int8 group-wise or per-channel, bf16).
 //
@@ -161,9 +162,12 @@ __device__ void lm_norm_phase(const PArgs& a, const float* add, int n,
     a.x_last[i] = __float2bfloat16(vals[i] * inv * a.final_norm[i]);
 }
 
-template <int KIND>
+// ALIBI: the attn segment of an ALiBi model (a.slopes), an instantiation of
+// its own, so that the RoPE model's code is unchanged.
+template <int KIND, bool ALIBI = false>
 __global__ void __launch_bounds__(kThreads, 1)
 pseg_kernel(const __grid_constant__ PArgs a, const __grid_constant__ PSeg g) {
+  static_assert(!ALIBI || KIND == kAttnSeg, "ALiBi: the attn segment only");
   extern __shared__ __align__(16) uint8_t smem[];
   float* fsmem = reinterpret_cast<float*>(smem);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -200,9 +204,9 @@ pseg_kernel(const __grid_constant__ PArgs a, const __grid_constant__ PSeg g) {
                        (size_t)S * a.st[sid].ntot, mtiles, rows, smem);
       } else if (ph == 2) {
         if constexpr (KIND == kAttnSeg) {
-          rope_kv(a, l, rows, n);
+          rope_kv<ALIBI>(a, l, rows, n);
           barrier();
-          attention_phase(a, mtiles, smem);
+          attention_phase<ALIBI>(a, mtiles, smem);
         } else {
           act_phase(a, a.st[kGu], a.inter, rows);
         }
@@ -217,34 +221,38 @@ pseg_kernel(const __grid_constant__ PArgs a, const __grid_constant__ PSeg g) {
   }
 }
 
-template <int KIND>
+template <int KIND, bool ALIBI = false>
 int per_sm(int smem) {
   int n = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      pseg_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      pseg_kernel<KIND, ALIBI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, pseg_kernel<KIND>,
-                                                      kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, pseg_kernel<KIND, ALIBI>, kThreads, smem);
   return e == cudaSuccess ? n : 0;
 }
 
-template <int KIND>
+template <int KIND, bool ALIBI = false>
 void launch(const PArgs& a, const PSeg& g, int grid, int smem,
             cudaStream_t s) {
-  cudaFuncSetAttribute(pseg_kernel<KIND>,
+  cudaFuncSetAttribute(pseg_kernel<KIND, ALIBI>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  pseg_kernel<KIND><<<grid, kThreads, smem, s>>>(a, g);
+  pseg_kernel<KIND, ALIBI><<<grid, kThreads, smem, s>>>(a, g);
 }
 
 }  // namespace
 
 // The largest grid of segment `kind` (0 attn, 1 mlp, 2 lm) whose blocks are
-// all resident at once on `device`: SMs x (at most one) block per SM.
-// Returns 0 on error.
+// all resident at once on `device`: SMs x (at most one) block per SM (the
+// attn segment: of both its instantiations, RoPE and ALiBi). Returns 0 on
+// error.
 extern "C" int di_tp_prefill_segment_grid(int device, int kind) {
   const int smem = pmk_smem_bytes();
+  const int attn = per_sm<kAttnSeg>(smem),
+            attn_alibi = per_sm<kAttnSeg, true>(smem);
   const int n = kind == kAttnSeg
-                    ? per_sm<kAttnSeg>(smem)
+                    ? (attn < attn_alibi ? attn : attn_alibi)
                     : (kind == kMlpSeg ? per_sm<kMlpSeg>(smem)
                                        : per_sm<kLmSeg>(smem));
   int sms = 0;
@@ -277,7 +285,9 @@ extern "C" int di_tp_prefill_segment(int kind, int layer, const long long* ia,
   const int grid = (int)ia[I_GRID];
   const int smem = pmk_smem_bytes();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind == kAttnSeg)
+  if (kind == kAttnSeg && a.slopes != nullptr)
+    launch<kAttnSeg, true>(a, g, grid, smem, s);
+  else if (kind == kAttnSeg)
     launch<kAttnSeg>(a, g, grid, smem, s);
   else if (kind == kMlpSeg)
     launch<kMlpSeg>(a, g, grid, smem, s);

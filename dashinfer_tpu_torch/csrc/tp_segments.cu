@@ -4,7 +4,8 @@
 //
 // Replaces: dashinfer_tpu/ops/pallas/tp_megakernel.py `build_attn_segment`,
 // `build_mlp_segment`, `build_moe_mlp_segment` and `build_lm_segment`
-// (RoPE, optional q/k/v bias, optional per-head QK RMSNorm, KV pool DEFAULT
+// (RoPE or ALiBi (the rank's slice of the global slopes), optional q/k/v
+// bias, optional per-head QK RMSNorm, KV pool DEFAULT
 // / INT8 / UINT4, weight streams u4 group-wise, int8 group-wise or
 // per-channel, bf16; dense or Qwen1.5/2- and Qwen3-MoE layers).
 //
@@ -170,9 +171,12 @@ __device__ void moe_out_phase(const Args& a, const Seg& g, const int* sp) {
   }
 }
 
-template <int MT, int KIND>
+// ALIBI: the attn segment of an ALiBi model (a.slopes), an instantiation of
+// its own, so that the RoPE model's code is unchanged.
+template <int MT, int KIND, bool ALIBI = false>
 __global__ void __launch_bounds__(kThreads, MT == 1 ? 2 : 1)
 seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
+  static_assert(!ALIBI || KIND == kAttnSeg, "ALiBi: the attn segment only");
   extern __shared__ __align__(16) uint8_t smem[];
   float* fsmem = reinterpret_cast<float*>(smem);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -197,7 +201,7 @@ seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
                          : a.qkv_b + (size_t)l * (a.H + 2 * a.KH) * kD,
                      a.partial);
     grid_barrier(a, phase++);
-    attention<true>(a, l, smem);
+    attention<true, false, ALIBI>(a, l, smem);
     grid_barrier(a, phase++);
     product_call<MT>(a, kO, l, a.partial, smem);
     grid_barrier(a, phase++);
@@ -235,40 +239,53 @@ seg_kernel(const __grid_constant__ Args a, const __grid_constant__ Seg g) {
   }
 }
 
-// Blocks of seg_kernel<MT, KIND> resident at once on one SM (0 on error).
-template <int MT, int KIND>
+// Blocks of seg_kernel<MT, KIND, ALIBI> resident at once on one SM (0 on
+// error).
+template <int MT, int KIND, bool ALIBI = false>
 int per_sm(int smem) {
   int n = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      seg_kernel<MT, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      seg_kernel<MT, KIND, ALIBI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, seg_kernel<MT, KIND>, kThreads, smem);
+        &n, seg_kernel<MT, KIND, ALIBI>, kThreads, smem);
   return e == cudaSuccess ? n : 0;
 }
 
+// the attn segment's grid: the one both its instantiations (RoPE, ALiBi)
+// take
 template <int MT>
 int per_sm_of(int kind, int smem) {
   switch (kind) {
-    case kAttnSeg: return per_sm<MT, kAttnSeg>(smem);
+    case kAttnSeg: {
+      const int rope = per_sm<MT, kAttnSeg>(smem);
+      const int alibi = per_sm<MT, kAttnSeg, true>(smem);
+      return rope < alibi ? rope : alibi;
+    }
     case kMlpSeg: return per_sm<MT, kMlpSeg>(smem);
     case kMoeSeg: return per_sm<MT, kMoeSeg>(smem);
     default: return per_sm<MT, kLmSeg>(smem);
   }
 }
 
-template <int MT, int KIND>
+template <int MT, int KIND, bool ALIBI = false>
 void launch(const Args& a, const Seg& g, int grid, int smem, cudaStream_t s) {
-  cudaFuncSetAttribute(seg_kernel<MT, KIND>,
+  cudaFuncSetAttribute(seg_kernel<MT, KIND, ALIBI>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  seg_kernel<MT, KIND><<<grid, kThreads, smem, s>>>(a, g);
+  seg_kernel<MT, KIND, ALIBI><<<grid, kThreads, smem, s>>>(a, g);
 }
 
 template <int MT>
 void launch_of(int kind, const Args& a, const Seg& g, int grid, int smem,
                cudaStream_t s) {
   switch (kind) {
-    case kAttnSeg: launch<MT, kAttnSeg>(a, g, grid, smem, s); break;
+    case kAttnSeg:
+      if (a.slopes != nullptr)
+        launch<MT, kAttnSeg, true>(a, g, grid, smem, s);
+      else
+        launch<MT, kAttnSeg>(a, g, grid, smem, s);
+      break;
     case kMlpSeg: launch<MT, kMlpSeg>(a, g, grid, smem, s); break;
     case kMoeSeg: launch<MT, kMoeSeg>(a, g, grid, smem, s); break;
     default: launch<MT, kLmSeg>(a, g, grid, smem, s); break;
@@ -313,6 +330,7 @@ extern "C" int di_tp_segment(int kind, int layer, const long long* ia,
   g.e0 = (int)tail[1];
   g.ne = (int)tail[2];
   if (kind < kAttnSeg || kind > kMoeSeg || (a.E != 0) != (kind == kMoeSeg) ||
+      (a.slopes != nullptr && a.E != 0) ||
       a.skip_attn || a.split_len < kAttTile || a.split_len % kAttTile ||
       a.nsplit < 1 || a.nsplit > kMaxChunks || layer < 0 || layer >= a.L)
     return (int)cudaErrorInvalidValue;

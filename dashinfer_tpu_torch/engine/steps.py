@@ -219,7 +219,10 @@ def build_prefill_step(cfg: ModelConfig, rt: RuntimeConfig, bucket: int,
 
 def _rope_tiles(cfg: ModelConfig, pos: torch.Tensor):
     """Full-D cos/sin tiles [len(pos), D] bf16 for the megakernel
-    (half-split rope convention, ops/rotary.py)."""
+    (half-split rope convention, ops/rotary.py). An ALiBi plan's kernels
+    and plain versions do not read them (its pack's `slopes` take their
+    place), so this keeps its signature where the JAX package's
+    `_rope_tiles(cfg, alibi, pos)` builds identity tiles."""
     cos, sin = rope_cos_sin(pos, compute_inv_freq(cfg, pos.device))
     return (torch.cat([cos, cos], dim=-1).to(torch.bfloat16),
             torch.cat([sin, sin], dim=-1).to(torch.bfloat16))

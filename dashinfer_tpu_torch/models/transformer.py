@@ -14,7 +14,9 @@ the deltas (`apply_lora_batch` / `apply_lora_single`) are added to the
 q, k, v and o products and, in a dense model, to gate, up (before SwiGLU)
 and down, as in the JAX package (a MoE block takes none). A QK-norm model (Qwen3) RMS-normalizes each q and k head after the
 projections and before RoPE, returning the model dtype, as the JAX package's
-per-op path does.
+per-op path does. An ALiBi model (Baichuan-13B) skips RoPE and adds
+slope_h * (k_pos - q_pos) to the attention scores (`ops.attention`), with
+the canonical slopes of its H heads (`alibi_slopes`).
 
 `tp_decode_forward` / `tp_prefill_forward` are the same forwards over a
 model axis: the port's form of the JAX package's XLA-SPMD path, as an
@@ -24,8 +26,9 @@ partials, every rank's MLP half, an all-reduce of the down partials
 (parallel/collectives.py); then the lm_head on each vocab shard and the
 gather. The partials are summed in f32. A MoE layer's MLP half is each
 rank's share of `moe_block` (its experts, routed over all of them, and its
-slice of the shared expert).
-Architectures whose layer math this port does not have yet (ALiBi, learned
+slice of the shared expert). An ALiBi rank attends with its heads' slice of
+the global slope table (all of it when its pool holds every KV head).
+Architectures whose layer math this port does not have yet (learned
 positions, GLM, scaled RoPE, MoE models with dense layers, non-gated MLPs,
 tied or soft-capped heads) raise NotImplementedError.
 """
@@ -42,6 +45,10 @@ from dashinfer_tpu_torch.config import (Activation, CacheMode, ModelConfig,
 from dashinfer_tpu_torch.lora.manager import (apply_lora_batch,
                                               apply_lora_single)
 from dashinfer_tpu_torch.ops import attention as attn_ops
+# `alibi_slopes` lives beside the attention that reads it; the JAX package
+# names it here
+from dashinfer_tpu_torch.ops.attention import alibi_slopes  # noqa: F401
+from dashinfer_tpu_torch.ops.attention import slopes_on
 from dashinfer_tpu_torch.ops import kv_ops
 from dashinfer_tpu_torch.ops.linear import linear
 from dashinfer_tpu_torch.ops.moe import moe_block, rank_moe
@@ -58,7 +65,7 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for layer math the port does not have."""
     unported = {
         "position embedding": cfg.position_embedding not in (
-            PositionEmbedding.ROPE,),
+            PositionEmbedding.ROPE, PositionEmbedding.ALIBI),
         "rope scaling / logn": (cfg.rope_scaling.kind != "none" or
                                 cfg.rope_scaling.use_logn_attn),
         "partial or interleaved rotary": (
@@ -186,20 +193,22 @@ def _decode_inputs(cfg: ModelConfig, page_tables: torch.Tensor,
 
 def _decode_attend(inp: Dict[str, torch.Tensor], cache: KVCache,
                    mode: CacheMode, l: int, scale: float, use_kernel: bool,
-                   heads=None):
+                   heads=None, slopes=None):
     """attend(q, k, v) of decode layer l. `heads` (first, count, H): the
-    rank's query heads when its pool holds all KV heads (replicated)."""
+    rank's query heads when its pool holds all KV heads (replicated);
+    `slopes`: an ALiBi model's slopes of the heads attended (no RoPE)."""
     pt_l = (inp["pt0"] + l).to(torch.int32)
 
     def attend(q, k, v):
         B = q.shape[0]
-        cos, sin = inp["cos"], inp["sin"]
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if slopes is None:
+            cos, sin = inp["cos"], inp["sin"]
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         kv_ops.append_decode_kv(cache, mode, k, v, inp["page0"] + l,
                                 inp["offsets"], inp["active"])
         out = attn_ops.paged_attention(_all_heads(q, heads), cache, mode,
                                        pt_l, inp["lens_after"], scale,
-                                       use_kernel=use_kernel)
+                                       use_kernel=use_kernel, alibi=slopes)
         return _own_heads(out, heads).reshape(B, -1)
 
     return attend
@@ -223,6 +232,19 @@ def _own_heads(out: torch.Tensor, heads) -> torch.Tensor:
     return out[..., first:first + count, :]
 
 
+def _slopes(cfg: ModelConfig, device, n: int = 1, r: int = 0, heads=None):
+    """An ALiBi model's slopes of the heads a rank attends: rank r of n's
+    slice of the GLOBAL table (the JAX package's SPMD split of the heads),
+    or all of it when the rank's pool holds every KV head (`heads`); None
+    for a RoPE model."""
+    if cfg.position_embedding != PositionEmbedding.ALIBI:
+        return None
+    if n == 1 or heads is not None:
+        return slopes_on(cfg.num_heads, device)
+    Hr = cfg.num_heads // n
+    return slopes_on(cfg.num_heads, device, r * Hr, Hr)
+
+
 def decode_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                    cache: KVCache, page_tables: torch.Tensor,
                    lens_before: torch.Tensor, active: torch.Tensor,
@@ -241,8 +263,10 @@ def decode_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                          cache.page_size)
     hidden = params["embed_tokens"]["w"][tokens.long()]
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    slopes = _slopes(cfg, tokens.device)
     for l in range(cfg.num_layers):
-        attend = _decode_attend(inp, cache, mode, l, scale, use_kernel)
+        attend = _decode_attend(inp, cache, mode, l, scale, use_kernel,
+                                slopes=slopes)
         delta = _lora_layer(lora, l, lambda x_, A, B: apply_lora_batch(
             x_, A, B, lora["scale"], lora_onehot))
         hidden = _block(cfg, _layer(params, l), hidden, attend, use_kernel,
@@ -252,16 +276,18 @@ def decode_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
 def _prefill_attend(cos, sin, cache: KVCache, mode: CacheMode,
                     pt_l: torch.Tensor, prefix_len: int, total_len: int,
-                    kv_heads: int, scale: float, heads=None):
+                    kv_heads: int, scale: float, heads=None, slopes=None):
     num_new = total_len - prefix_len
 
     def attend(q, k, v):
         S = q.shape[0]
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        if slopes is None:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         kv_ops.append_prefill_kv(cache, mode, k, v, pt_l, prefix_len, num_new)
         k_full, v_full = kv_ops.gather_kv_pages(cache, mode, pt_l, kv_heads)
         out = attn_ops.prefill_attention(_all_heads(q, heads), k_full,
-                                         v_full, prefix_len, total_len, scale)
+                                         v_full, prefix_len, total_len, scale,
+                                         alibi=slopes)
         return _own_heads(out, heads).reshape(S, -1)
 
     return attend
@@ -287,10 +313,12 @@ def prefill_forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     pos = prefix_len + torch.arange(S, device=dev)
     cos, sin = rope_cos_sin(pos, compute_inv_freq(cfg, dev))
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    slopes = _slopes(cfg, dev)
     for l in range(L):
         attend = _prefill_attend(cos, sin, cache, mode,
                                  page_table.long() * L + l, prefix_len,
-                                 total_len, cfg.num_kv_heads, scale)
+                                 total_len, cfg.num_kv_heads, scale,
+                                 slopes=slopes)
         delta = _lora_layer(lora, l, lambda x_, A, B: apply_lora_single(
             x_, A, B, lora["scale"], lora_idx))
         hidden = _block(cfg, _layer(params, l), hidden, attend, use_kernel,
@@ -373,7 +401,9 @@ def tp_decode_forward(cfg: ModelConfig, rank_params: Sequence[Dict],
     scale = 1.0 / math.sqrt(cfg.head_dim)
     for l in range(cfg.num_layers):
         attends = [_decode_attend(per_dev[d], caches[r], mode, l, scale,
-                                  use_kernel, _rank_heads(cfg, n, r))
+                                  use_kernel, _rank_heads(cfg, n, r),
+                                  _slopes(cfg, d, n, r,
+                                          _rank_heads(cfg, n, r)))
                    for r, d in enumerate(devices)]
         hiddens = _tp_layers(cfg, rank_params, hiddens, attends, l,
                              use_kernel)
@@ -405,9 +435,10 @@ def tp_prefill_forward(cfg: ModelConfig, rank_params: Sequence[Dict],
         attends = []
         for r, d in enumerate(devices):
             c, s_, pt = per_dev[d]
+            heads = _rank_heads(cfg, n, r)
             attends.append(_prefill_attend(
                 c, s_, caches[r], mode, pt * L + l, prefix_len, total_len,
-                kv_heads, scale, _rank_heads(cfg, n, r)))
+                kv_heads, scale, heads, _slopes(cfg, d, n, r, heads)))
         hiddens = _tp_layers(cfg, rank_params, hiddens, attends, l,
                              use_kernel)
     last = min(max(total_len - prefix_len - 1, 0), S - 1)

@@ -40,7 +40,9 @@ payloads to host memory and the pack is the only copy on the card. Under
 the u4 -> i8 stream rule the pack is the int8 re-expansion
 itself (6.6 GiB). It also holds small f32 arrays: the norm weights, the
 fused q|k|v bias and a QK-norm model's per-head q / k norm weights
-(`qk_norms` [L, 2, D]), rounded to bf16 as the TPU pack rounds them. A
+(`qk_norms` [L, 2, D]), rounded to bf16 as the TPU pack rounds them, and an
+ALiBi model's slopes (`slopes` [H] f32; on a model axis the rank's slice of
+the global table, ops/tp_megakernel.py `make_tp_plan`). A
 plain tile-major copy without the fragment order was measured too and
 streams no faster than the loader's leaves (PERF.md).
 
@@ -49,7 +51,9 @@ rotated q, attn_out and the SwiGLU activation rounded to bf16; dots on bf16
 operands with f32 accumulation and the per-group affine after the dot,
 `out = sum_g (x_g @ q_g) * s_g + xsum_g * z_g` with xsum over the bf16 x;
 bias, a QK-norm model's per-head RMSNorm of q and k in f32 (`blk *
-rsqrt(mean(blk^2) + eps) * w`), then RoPE with bf16 cos/sin tiles. The new
+rsqrt(mean(blk^2) + eps) * w`), then RoPE with bf16 cos/sin tiles (an ALiBi
+model: no rotation, the tiles are not read; each score gains
+`slope_h * (t - lens[b])` after the scale, 0 for the new token). The new
 token is attended from its
 unquantized f32 K/V and only what is written to the pool is quantized, so
 this path differs from `transformer.decode_forward` (which appends the
@@ -71,10 +75,11 @@ from dashinfer_tpu_torch.config import CacheMode, ModelConfig, RuntimeConfig
 # the targets in the kernel's order (csrc LoraTarget)
 from dashinfer_tpu_torch.lora.manager import TARGETS as LORA_TARGETS
 from dashinfer_tpu_torch.ops import kernel_build, kv_ops
+from dashinfer_tpu_torch.ops.attention import alibi_slopes
 from dashinfer_tpu_torch.ops.u4pack import weight_levels
 from dashinfer_tpu_torch.runtime.kv_cache import KVCache
 
-PACK_VERSION = 2   # bump when what pack_params returns changes
+PACK_VERSION = 3   # bump when what pack_params returns changes
 MAX_BATCH = 64
 CHUNK_K = 64        # K rows per pipeline stage of the kernel
 ATT_TILE = 128      # attention chunks are whole tiles of this many tokens
@@ -332,8 +337,9 @@ def supports(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> bool:
     RoPE models, dense or MoE (`_moe_supports`), head_dim 128, max_batch
     <= 64, no activation-quant leaves, equal bits within q/k/v and within
     gate/up, no o or MLP bias, group sizes a multiple of 128 (or one group);
-    QK-norm (Qwen3) with plain [D] `q_norm` / `k_norm` leaves. ALiBi and a
-    tied quantized lm_head are not in the port's kernel yet and say no. Two
+    QK-norm (Qwen3) with plain [D] `q_norm` / `k_norm` leaves; ALiBi
+    (Baichuan-13B) with RMSNorm leaves (a LayerNorm model, Bloom, says no).
+    A tied quantized lm_head is not in the port's kernel yet and says no. Two
     TPU tiling rules are dropped because they mean
     nothing on this card: page_size % 8 (the RMW window) and the UINT4
     `KH * D / 2 >= 128` lane rule. Params may be numpy or tensor leaves
@@ -367,7 +373,12 @@ def supports(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> bool:
             return False
         if cfg.hidden_size % 128 or (cfg.num_heads * cfg.head_dim) % 128:
             return False
-        if cfg.position_embedding.value != "rope" or cfg.rope_interleaved:
+        pe = cfg.position_embedding.value
+        if pe == "alibi":
+            # the kernels' RMSNorm: a plain [hid] leaf, not LayerNorm's w / b
+            if isinstance(lp["input_layernorm"], dict):
+                return False
+        elif pe != "rope" or cfg.rope_interleaved:
             return False
         if cfg.rope_glm_2d or cfg.glm_residual_alpha or cfg.prefix_lm:
             return False
@@ -399,11 +410,13 @@ LORA_ARGS = 21         # integers of the LoRA tail (csrc kLoraArgs)
 
 def supports_lora_epilogue(plan, max_num: int, max_rank: int) -> bool:
     """Whether the kernel's LoRA branch takes batches with adapters: a
-    dense plan (a MoE model decodes LoRA batches per-op, as in the JAX
-    package) and a pool the branch can read (at most LORA_MAX_SLOTS slots,
+    dense RoPE plan (a MoE model decodes LoRA batches per-op, as in the JAX
+    package; an ALiBi one too, its kernel an instantiation without the
+    branch) and a pool the branch can read (at most LORA_MAX_SLOTS slots,
     a rank that is a multiple of 8 up to LORA_MAX_RANK). The JAX rule's
     `interleave` is a TPU pack geometry its runtime always builds."""
-    return (plan.E == 0 and 0 < max_num <= LORA_MAX_SLOTS and
+    return (plan.E == 0 and not plan.alibi and
+            0 < max_num <= LORA_MAX_SLOTS and
             0 < max_rank <= LORA_MAX_RANK and max_rank % 8 == 0)
 
 
@@ -485,6 +498,7 @@ class MegaPlan:
     lm: StreamPlan
     rms_eps: float
     qk_norm: bool = False     # per-head RMSNorm of q and k (Qwen3)
+    alibi: bool = False       # ALiBi score bias in place of RoPE
     # MoE (the TPU kernel's router phase + per-expert streams + shared
     # expert): E experts, top-k gates from a softmax over the bf16 router
     # product; the router stream has EP columns (E, then the shared
@@ -610,14 +624,15 @@ def make_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict) -> MegaPlan:
                  CacheMode.UINT4: 4}[mode],
         kv_dtype_name=kv_dtype_name, has_qkv_bias="b" in lp["q_proj"],
         qkv=sp["qkv"], o=sp["o"], gu=sp["gu"], dn=sp["dn"], lm=lm,
-        rms_eps=cfg.rms_norm_eps, qk_norm=cfg.qk_norm, **moe_kw)
+        rms_eps=cfg.rms_norm_eps, qk_norm=cfg.qk_norm,
+        alibi=cfg.position_embedding.value == "alibi", **moe_kw)
 
 
 def pack_cache_key_fields(plan: MegaPlan) -> tuple:
     """The plan fields the packed arrays depend on: not the batch, the page
     geometry or the KV mode, so those may change under one pack."""
     return (PACK_VERSION, plan.L, plan.hid, plan.H, plan.KH, plan.D, plan.V,
-            plan.has_qkv_bias, plan.qk_norm, plan.E, plan.EP,
+            plan.has_qkv_bias, plan.qk_norm, plan.alibi, plan.E, plan.EP,
             plan.E_global) + \
         plan.kernel_streams
 
@@ -756,7 +771,9 @@ def pack_params(cfg: ModelConfig, plan: MegaPlan, params: Dict) -> Dict:
     re-laid in fragment order (a copy: see the module docstring), the f32
     scale / zero leaves as they are, and the small f32 norm / bias arrays
     (a QK-norm model's `qk_norms` [L, 2, D]: q_norm, k_norm; the TPU pack
-    tiles them over the heads to its lane width, which means nothing here).
+    tiles them over the heads to its lane width, which means nothing here;
+    an ALiBi model's `slopes` [H] f32, `alibi_slopes(plan.H)`: a rank's
+    pack takes its slice of the global table instead, `make_tp_plan`).
     A MoE model's experts are packed per (layer, expert), [L, E, N/256,
     K/64, chunk], under "experts.<name>", its shared expert under
     "shared.<name>" and the bf16 router under "router"."""
@@ -778,13 +795,15 @@ def pack_params(cfg: ModelConfig, plan: MegaPlan, params: Dict) -> Dict:
                [lp["input_layernorm"], lp["post_attention_layernorm"]],
                dim=1)),                                       # [L, 2, hid]
            "final_norm": _bf16_rounded_f32(params["norm"]),
-           "qkv_b": None, "qk_norms": None}
+           "qkv_b": None, "qk_norms": None, "slopes": None}
     if plan.has_qkv_bias:
         out["qkv_b"] = _bf16_rounded_f32(torch.cat(
             [lp[n]["b"] for n in ("q_proj", "k_proj", "v_proj")], dim=1))
     if plan.qk_norm:
         out["qk_norms"] = _bf16_rounded_f32(torch.stack(
             [lp["q_norm"], lp["k_norm"]], dim=1))             # [L, 2, D]
+    if plan.alibi:
+        out["slopes"] = alibi_slopes(plan.H).to(out["norms"].device)
     return out
 
 
@@ -1008,11 +1027,22 @@ def _rot_half(x, D):
     return torch.cat([-x3[..., h:], x3[..., :h]], dim=-1).reshape(x.shape)
 
 
+def alibi_bias(plan, slopes: torch.Tensor, pos: torch.Tensor,
+               origin: torch.Tensor) -> torch.Tensor:
+    """The ALiBi score bias [B, KH, G, S]: slope_h * (t - origin[b]) for the
+    pool tokens t = `pos` [S] of queries at `origin` [B] (each slot's new
+    token: the same origin for every chunk of the slot's attention)."""
+    return slopes.reshape(1, plan.KH, plan.G, 1) * (
+        pos - origin[:, None, None, None])
+
+
 def _attend_ref(plan: MegaPlan, q, k_new, v_new, cache: KVCache, phys,
-                len_eff, scale):
+                len_eff, scale, slopes=None):
     """q [B, H, D] (bf16-rounded f32), k_new/v_new [B, KH, D] f32; phys
     [B, maxP] physical pages of this layer; attends tokens t < len_eff[b]
-    of the pool plus the new token."""
+    of the pool plus the new token. `slopes` [H] (ALiBi): each pool token's
+    score gains slope_h * (t - len_eff[b]) after the scale, the new token's
+    (at position len_eff[b]) nothing."""
     B, KH, G, D = q.shape[0], plan.KH, plan.G, plan.D
     S = plan.maxP * plan.ps
     idx = phys.long().clamp(0, cache.num_pages - 1)
@@ -1038,8 +1068,10 @@ def _attend_ref(plan: MegaPlan, q, k_new, v_new, cache: KVCache, phys,
         k_scale, k_zero = qparams(cache.k_qparams)
         s = s * k_scale + qf.sum(-1, keepdim=True) * k_zero
     s = s * scale
-    mask = (torch.arange(S, device=q.device)[None, :] <
-            len_eff[:, None])[:, None, None, :]
+    pos = torch.arange(S, device=q.device)
+    if slopes is not None:
+        s = s + alibi_bias(plan, slopes, pos, len_eff)
+    mask = (pos[None, :] < len_eff[:, None])[:, None, None, :]
     s = torch.where(mask, s, _NEG_INF)
     s_new = torch.einsum("bhgd,bhd->bhg", qf, k_new)[..., None] * scale
     p = torch.softmax(torch.cat([s, s_new], dim=-1), dim=-1)
@@ -1119,8 +1151,9 @@ def attention_block_ref(plan: MegaPlan, packed: Dict, layer: int,
                         resid: torch.Tensor, inp: StepInputs,
                         cache: KVCache, skip_attention: bool = False,
                         lora: Optional[LoraStep] = None) -> torch.Tensor:
-    """One layer's RMSNorm, q|k|v (+ bias), RoPE, new-token KV write,
-    attention and o product, from the f32 residual [B, hid]; updates the
+    """One layer's RMSNorm, q|k|v (+ bias), RoPE (or an ALiBi plan's score
+    bias), new-token KV write, attention and o product, from the f32
+    residual [B, hid]; updates the
     pool in place and returns the o product [B, hid] f32. `lora`: the
     q|k|v deltas (before the bias) and o's."""
     B, L, H, KH, D = resid.shape[0], plan.L, plan.H, plan.KH, plan.D
@@ -1134,15 +1167,18 @@ def attention_block_ref(plan: MegaPlan, packed: Dict, layer: int,
         qkv = qkv + packed["qkv_b"][layer]
     qr, kr, vr = qkv[:, :HD], qkv[:, HD:HD + KD], qkv[:, HD + KD:]
     qr, kr = qk_norm_heads(plan, packed, layer, qr, kr)
-    q_rot = (qr * inp.cq + _rot_half(qr, D) * inp.sq).to(bf).float()
-    k_rot = kr * inp.ck + _rot_half(kr, D) * inp.sk
+    if plan.alibi:              # no rotation: the scores carry the position
+        q_rot, k_rot = qr.to(bf).float(), kr
+    else:
+        q_rot = (qr * inp.cq + _rot_half(qr, D) * inp.sq).to(bf).float()
+        k_rot = kr * inp.ck + _rot_half(kr, D) * inp.sk
     k3, v3 = k_rot.reshape(B, KH, D), vr.reshape(B, KH, D)
     if skip_attention:
         attn = torch.zeros((B, HD), dtype=torch.float32, device=x.device)
     else:
         attn = _attend_ref(plan, q_rot.reshape(B, H, D), k3, v3, cache,
                            inp.page_tables * L + layer, inp.len_eff,
-                           1.0 / math.sqrt(D))
+                           1.0 / math.sqrt(D), packed.get("slopes"))
         act = inp.active
         kv_ops._write(cache, plan.kv_mode, k3[act], v3[act],
                       (inp.tgt * L + layer)[act], inp.offs[act])
@@ -1235,7 +1271,7 @@ _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "pt", "lens",
           "msplit", "B", "L", "hid", "H", "KH", "inter", "V", "ps", "maxP",
           "kv_kind", "ql", "nsplit", "split_len", "mpad", "skip_attn", "grid",
           "E", "k_top", "norm_topk", "has_shared", "has_sgate",
-          "shared_inter", "qk_norm")
+          "shared_inter", "qk_norm", "slopes")
 _KV_KIND = {"float32": 0, "bfloat16": 1, "int8": 2, "uint8": 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 STREAM_ARGS = 32          # integers per stream (csrc/di_product.cuh)
@@ -1335,6 +1371,21 @@ def qk_norm_arg(plan, packed: Dict, dev, who: str) -> int:
             not t.is_contiguous():
         raise ValueError(f"{who}: qk_norms must be contiguous float32 "
                          f"({plan.L}, 2, {plan.D}) on {dev}")
+    return t.data_ptr()
+
+
+def slopes_arg(plan, packed: Dict, dev, who: str) -> int:
+    """The kernels' `slopes` argument: the address of the pack's `slopes`
+    [H] f32 for an ALiBi plan (checked; the plan's H, a rank's own), else
+    0 (a RoPE plan: the kernels rotate q and k)."""
+    if not plan.alibi:
+        return 0
+    t = packed.get("slopes")
+    if t is None or t.dtype != torch.float32 or \
+            tuple(t.shape) != (plan.H,) or t.device != dev or \
+            not t.is_contiguous():
+        raise ValueError(f"{who}: slopes must be contiguous float32 "
+                         f"({plan.H},) on {dev}")
     return t.data_ptr()
 
 
@@ -1594,7 +1645,8 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
     """One whole decode forward.
 
     x0 [B, hid] bf16: the embedded input tokens; cos/sin [B, D] bf16: the
-    full-D RoPE tiles at each slot's position; page_tables [B, maxP] int32
+    full-D RoPE tiles at each slot's position (an ALiBi plan reads neither:
+    its pack's `slopes` take their place); page_tables [B, maxP] int32
     LOGICAL pages (logical page g owns pool pages g*L + l); lens [B] int32
     tokens already cached; active [B] bool; cache: the pool, updated in
     place at each active slot's new token. Returns logits [B, V] f32
@@ -1607,10 +1659,10 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
     `lora_idx` [B] int32 (each row's slot, -1 none): the kernel's LoRA
     branch, a separate instantiation (`LoraStep` is its arithmetic); a
     launch without `lora` runs the dense kernel."""
+    if lora is not None and (plan.E or plan.alibi):
+        raise ValueError("decode_megakernel: a MoE or ALiBi plan has no "
+                         "LoRA branch (its LoRA batches decode per-op)")
     if x0.device.type == "cpu":
-        if lora is not None and plan.E:
-            raise ValueError("decode_megakernel: a MoE plan has no LoRA "
-                             "branch (its LoRA batches decode per-op)")
         return decode_megakernel_ref(plan, packed, x0, cos, sin, page_tables,
                                      lens, active, cache, skip_attention,
                                      lora=lora, lora_idx=lora_idx)
@@ -1682,7 +1734,8 @@ def decode_megakernel(plan: MegaPlan, packed: Dict, x0: torch.Tensor,
         grid=st.grid, E=plan.E, k_top=plan.k_top,
         norm_topk=int(plan.norm_topk), has_shared=int(plan.has_shared),
         has_sgate=int(plan.has_shared_gate), shared_inter=plan.shared_inter,
-        qk_norm=qk_norm_arg(plan, packed, dev, "decode_megakernel"))
+        qk_norm=qk_norm_arg(plan, packed, dev, "decode_megakernel"),
+        slopes=slopes_arg(plan, packed, dev, "decode_megakernel"))
     # the lm_head's padded columns are written too (they compute 0): a
     # bound on the columns in the product would cost the 128-register
     # kernel spills

@@ -34,8 +34,9 @@ WEIGHT-SIDE dequant, `w = bf16(f32(q) * s + z)` with s and z rounded to bf16
 where they are applied, then a plain bf16 x bf16 product with f32 sums (not the
 decode kernel's affine after the dot); the q|k|v result in f32, bias added in
 f32, a QK-norm model's per-head RMSNorm of q and k in f32, RoPE from bf16
-cos/sin tiles in f32 (V gets bias and no RoPE); causal softmax over scores
-scaled by 1/sqrt(D), `p` and `v` rounded to bf16 for the PV product, attn_out
+cos/sin tiles in f32 (V gets bias and no RoPE; an ALiBi model rotates
+nothing and reads no tiles); causal softmax over scores scaled by 1/sqrt(D)
+(an ALiBi model's plus slope_h * (key - row), before the mask), `p` and `v` rounded to bf16 for the PV product, attn_out
 bf16; K/V quantized per token and KV head from the unquantized f32 values; the
 SwiGLU activation rounded to bf16; the last valid row n-1 through the final
 norm, bf16, then the lm_head in f32. The TPU kernel feeds the score product f32
@@ -90,6 +91,7 @@ class PrefillPlan:
     lm: StreamPlan
     rms_eps: float
     qk_norm: bool = False     # per-head RMSNorm of q and k (Qwen3)
+    alibi: bool = False       # ALiBi score bias in place of RoPE
     # MoE: the decode plan's fields (ops/megakernel.py MegaPlan)
     E: int = 0
     k_top: int = 0
@@ -128,9 +130,8 @@ def supports_prefill(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
     the JAX package's rules (bucket rule, weight-only view, `supports`; a
     dense model: equal bits over gate / up / down and down's groups a
     multiple of 128 or one group; a MoE model: equal bits over the experts'
-    gate / up / down and over the shared expert's; QK-norm under
-    `ops.megakernel.supports`' rule). ALiBi is a branch the port's model
-    code lacks: `ops.megakernel.supports` turns it down."""
+    gate / up / down and over the shared expert's; QK-norm and ALiBi under
+    `ops.megakernel.supports`' rules)."""
     if bucket > MAX_BUCKET or bucket % 128:
         return False
     view = mk.weight_only_decode_view(params)
@@ -181,7 +182,8 @@ def make_prefill_plan(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
                  CacheMode.UINT4: 4}[mode],
         kv_dtype_name=kv_dtype_name, has_qkv_bias=dp.has_qkv_bias,
         qkv=dp.qkv, o=dp.o, gu=dp.gu, dn=dp.dn, lm=dp.lm,
-        rms_eps=dp.rms_eps, qk_norm=dp.qk_norm, E=dp.E, k_top=dp.k_top,
+        rms_eps=dp.rms_eps, qk_norm=dp.qk_norm, alibi=dp.alibi, E=dp.E,
+        k_top=dp.k_top,
         norm_topk=dp.norm_topk,
         has_shared=dp.has_shared, has_shared_gate=dp.has_shared_gate,
         EP=dp.EP, shared_inter=dp.shared_inter, rt=dp.rt, sgu=dp.sgu,
@@ -257,7 +259,8 @@ class PrefillInputs:
     """The per-prefill inputs of the layer pieces below, derived once: the
     bf16 RoPE tiles as f32, the prompt length n, each prompt row's page
     (layer 0's physical page of the logical page it falls in) and offset,
-    and the causal mask of the bucket."""
+    the causal mask of the bucket and its ALiBi distances key - row [q, k]
+    f32."""
 
     def __init__(self, plan: PrefillPlan, cos: torch.Tensor,
                  sin: torch.Tensor, page_row: torch.Tensor, n_tokens):
@@ -271,15 +274,17 @@ class PrefillInputs:
         self.offs = pos % plan.ps
         t = torch.arange(plan.S, device=dev)
         self.causal = t[None, :] <= t[:, None]               # [q, k]
+        self.dist = (t[None, :] - t[:, None]).float()
 
 
 def prefill_attention_block_ref(plan: PrefillPlan, packed: Dict, layer: int,
                                 resid: torch.Tensor, inp: PrefillInputs,
                                 cache: KVCache, bf16_scores: bool = False
                                 ) -> torch.Tensor:
-    """One layer's RMSNorm, q|k|v (+ bias), RoPE, the K/V write of rows < n,
-    causal attention and o product, from the f32 residual [S, hid]; updates
-    the pool in place and returns the o product [S, hid] f32.
+    """One layer's RMSNorm, q|k|v (+ bias), RoPE (an ALiBi plan: the score
+    bias slope_h * (key - row) instead), the K/V write of rows < n, causal
+    attention and o product, from the f32 residual [S, hid]; updates the
+    pool in place and returns the o product [S, hid] f32.
     `bf16_scores` rounds q and k to bf16 before the score product, as the
     CUDA kernel's tensor-core operands are."""
     S, H, KH, D, G = plan.S, plan.H, plan.KH, plan.D, plan.G
@@ -292,12 +297,15 @@ def prefill_attention_block_ref(plan: PrefillPlan, packed: Dict, layer: int,
         qkv = qkv + packed["qkv_b"][layer]
     qn, kn = mk.qk_norm_heads(plan, packed, layer, qkv[:, :HD],
                               qkv[:, HD:HD + KD])
-    q = _rope(qn.reshape(S, H, D), inp.cosf, inp.sinf)
-    k = _rope(kn.reshape(S, KH, D), inp.cosf, inp.sinf)
+    q, k = qn.reshape(S, H, D), kn.reshape(S, KH, D)
+    if not plan.alibi:
+        q, k = _rope(q, inp.cosf, inp.sinf), _rope(k, inp.cosf, inp.sinf)
     v = qkv[:, HD + KD:].reshape(S, KH, D)
     qs, ks = (q.to(bf).float(), k.to(bf).float()) if bf16_scores else (q, k)
     s = torch.einsum("qhgd,khd->hgqk", qs.reshape(S, KH, G, D), ks) * \
         (1.0 / math.sqrt(D))
+    if plan.alibi:
+        s = s + packed["slopes"].reshape(KH, G, 1, 1) * inp.dist
     s = torch.where(inp.causal, s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     attn = torch.einsum("hgqk,khd->qhgd", p.to(bf).float(),
@@ -472,7 +480,7 @@ _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "page_row",
           "eslot", "ecount", "launches", "trace", "S", "L", "hid", "H", "KH",
           "inter", "V", "ps", "maxPb", "kv_kind", "ql", "grid", "E", "k_top",
           "norm_topk", "has_shared", "has_sgate", "shared_inter", "EP",
-          "scap", "qk_norm")
+          "scap", "qk_norm", "slopes")
 _P, _I = mk._P, mk._I
 
 # the kernel's phases, in order, each followed by a grid barrier
@@ -830,7 +838,8 @@ def prefill_megakernel(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
         has_shared=int(plan.has_shared), has_sgate=int(plan.has_shared_gate),
         shared_inter=plan.shared_inter, EP=plan.EP,
         scap=slot_capacity(plan),
-        qk_norm=mk.qk_norm_arg(plan, packed, dev, "prefill_megakernel"))
+        qk_norm=mk.qk_norm_arg(plan, packed, dev, "prefill_megakernel"),
+        slopes=mk.slopes_arg(plan, packed, dev, "prefill_megakernel"))
     ia = [vals[k] for k in _IARGS]
     ia += mk.packed_stream_args(plan, packed, st.splits, dev,
                                 "prefill_megakernel", lm_valid=plan.V)

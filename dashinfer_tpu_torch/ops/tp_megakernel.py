@@ -220,7 +220,7 @@ def local_config(cfg: ModelConfig, n: int) -> ModelConfig:
 def supports_tp(cfg: ModelConfig, rt: RuntimeConfig, params: Dict, n: int,
                 local: Optional[Dict] = None) -> bool:
     """Whether a model decodes through the segments on a model axis of n:
-    the JAX rules (heads, KV heads, MLP width and vocab divisible by n; a
+    the JAX rules (RoPE or ALiBi; heads, KV heads, MLP width and vocab divisible by n; a
     dense model's rank MLP width a multiple of 128; a MoE model's experts
     divisible by n and its shared expert's rank width a multiple of 128;
     group sizes of the row-split leaves, the shared expert's down among
@@ -233,7 +233,7 @@ def supports_tp(cfg: ModelConfig, rt: RuntimeConfig, params: Dict, n: int,
     has it (only shapes are read)."""
     if n < 2:
         return False
-    if cfg.position_embedding.value != "rope":
+    if cfg.position_embedding.value not in ("rope", "alibi"):
         return False
     if (cfg.num_heads % n or cfg.num_kv_heads % n or
             cfg.intermediate_size % n or cfg.vocab_size % n):
@@ -281,7 +281,10 @@ def make_tp_plan(cfg: ModelConfig, rt: RuntimeConfig, parts: Sequence[Dict]):
     (`E`), its router the global one over `E_global` experts, packed on
     every rank as [L, hid, EP] bf16 with EP = the experts and the shared
     expert's gate lane rounded up to 128 (the gate at lane E_global), as
-    the JAX `make_tp_plan` packs `router_w`."""
+    the JAX `make_tp_plan` packs `router_w`. An ALiBi plan's `slopes` are
+    each rank's slice of the GLOBAL table, heads r * H/n .. (r + 1) * H/n
+    (the local pack's `alibi_slopes(H/n)` would be another table), as the
+    JAX `make_tp_plan` replaces them."""
     n = len(parts)
     cfg_l = local_config(cfg, n)
     plan = mk.make_plan(cfg_l, rt, parts[0])
@@ -291,7 +294,13 @@ def make_tp_plan(cfg: ModelConfig, rt: RuntimeConfig, parts: Sequence[Dict]):
         plan = dataclasses.replace(
             plan, E_global=E_g, EP=EP,
             rt=mk.StreamPlan("rt", ("router",), 16, plan.hid, (EP,), 0))
-    return plan, [mk.pack_params(cfg_l, plan, p) for p in parts]
+    packs = [mk.pack_params(cfg_l, plan, p) for p in parts]
+    if plan.alibi:
+        glob = mk.alibi_slopes(cfg.num_heads)
+        for r, pk in enumerate(packs):
+            pk["slopes"] = glob[r * plan.H:(r + 1) * plan.H].to(
+                pk["norms"].device)
+    return plan, packs
 
 
 # ---------------------------------------------------------------------------
@@ -662,7 +671,8 @@ def _launch(kind: str, plan: mk.MegaPlan, packed: Dict, layer: int,
         V=plan.V, ps=plan.ps, maxP=plan.maxP,
         kv_kind=mk._KV_KIND[plan.kv_dtype_name], nsplit=st.nsplit,
         split_len=st.split_len, mpad=st.mpad, grid=st.grid[kind],
-        qk_norm=mk.qk_norm_arg(plan, packed, dev, who))
+        qk_norm=mk.qk_norm_arg(plan, packed, dev, who),
+        slopes=mk.slopes_arg(plan, packed, dev, who))
     if kind == "attn":
         cache = step["cache"]
         for name, dt, shape in (
@@ -853,25 +863,23 @@ def supports_prefill_tp(cfg: ModelConfig, rt: RuntimeConfig, params: Dict,
                         bucket: int, n: int,
                         local: Optional[Dict] = None) -> bool:
     """Whether a fresh prompt of this bucket is prefilled through the TP
-    prefill segments on a model axis of n: the JAX rules (RoPE; `supports_tp`;
-    the prefill megakernel's `supports_prefill` on the local config and rank
-    0's split tree). The JAX package also admits ALiBi, a branch the port's
-    model code lacks. A MoE model says no at every bucket: the JAX package
+    prefill segments on a model axis of n: the JAX rules (RoPE or ALiBi;
+    `supports_tp`; the prefill megakernel's `supports_prefill` on the local
+    config and rank 0's split tree). A MoE model says no at every bucket: the JAX package
     admits it, but its prefill segments stream the expert pack as one dense
     MLP (no router, no expert loop, no shared expert), so they compute
     another function (ROADMAP C.3: on a tiny MoE model at n = 2 its
     last-row logits differ from the per-op prefill's by 1.09 x their
     largest); the port prefills a MoE model per-op TP. `local`: rank 0's
     split tree when the caller has it (only shapes are read)."""
-    if cfg.moe is not None or cfg.position_embedding.value != "rope":
+    if cfg.moe is not None or \
+            cfg.position_embedding.value not in ("rope", "alibi"):
         return False
-    if local is None:
-        view = mk.weight_only_decode_view(params)
-        if view is None:
-            return False
-        local = _split_rank(_as_tensors(view), cfg, n, 0)
     if not supports_tp(cfg, rt, params, n, local=local):
-        return False
+        return False     # before any split of rank 0's share below
+    if local is None:
+        local = _split_rank(_as_tensors(mk.weight_only_decode_view(params)),
+                            cfg, n, 0)
     return pmk.supports_prefill(local_config(cfg, n), rt, local, bucket)
 
 
@@ -1096,7 +1104,8 @@ def _prefill_launch(kind: str, plan, packed: Dict, layer: int,
         S=S, L=plan.L, hid=plan.hid,
         H=plan.H, KH=plan.KH, inter=plan.inter, V=plan.V, ps=plan.ps,
         maxPb=plan.maxPb, kv_kind=mk._KV_KIND[plan.kv_dtype_name],
-        grid=st.grid[kind], qk_norm=mk.qk_norm_arg(plan, packed, dev, who))
+        grid=st.grid[kind], qk_norm=mk.qk_norm_arg(plan, packed, dev, who),
+        slopes=mk.slopes_arg(plan, packed, dev, who))
     if kind == "attn":
         cache = step["cache"]
         for name, dt, shape in (

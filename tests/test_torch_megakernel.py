@@ -131,9 +131,9 @@ def test_supports_agrees_with_jax_on_tiny_configs(quant, mode):
 
 
 def test_supports_turns_down_what_the_port_has_not():
-    """ALiBi takes the JAX megakernel; the port's model code and kernel do
-    not have it yet, so the port says no. QK-norm (Qwen3) is ported: on it
-    the port's `supports` agrees with the JAX package's."""
+    """QK-norm (Qwen3) and ALiBi (Baichuan-13B) are ported: on both the
+    port's `supports` agrees with the JAX package's, which admits them; an
+    ALiBi model with LayerNorm leaves (Bloom's w / b) says no in both."""
     for kw in (dict(qk_norm=True), dict(alibi=True)):
         cfg, rt, params = _tiny(**kw)
         assert jmk.supports(cfg, rt, params)
@@ -143,11 +143,15 @@ def test_supports_turns_down_what_the_port_has_not():
         from dashinfer_tpu_torch.config import ModelConfig, PositionEmbedding
         tcfg = ModelConfig(**kws, position_embedding=PositionEmbedding(
             cfg.position_embedding.value))
-        got = tmk.supports(tcfg, _port_rt(rt, "default"), _np_tree(params))
-        if "qk_norm" in kw:
-            assert got == jmk.supports(cfg, rt, params)
-        else:
-            assert not got
+        trt = _port_rt(rt, "default")
+        assert tmk.supports(tcfg, trt, _np_tree(params))
+        if "alibi" in kw:
+            lp = params["layers"]
+            ln = dict(params, layers=dict(lp, input_layernorm={
+                "w": lp["input_layernorm"],
+                "b": np.zeros_like(lp["input_layernorm"])}))
+            assert not jmk.supports(cfg, rt, ln)
+            assert not tmk.supports(tcfg, trt, _np_tree(ln))
 
 
 @pytest.mark.parametrize("quant", ["none", "a16w4", "a16w8"])

@@ -322,7 +322,8 @@ def test_attention_chunks_at_b32_g1_cover_a_whole_sequence():
 # ---------------------------------------------------------------------------
 
 def attention_chunked(plan, q, k_new, v_new, cache, phys, len_eff, scale,
-                      chunk_tokens=32, warp_tokens=16, p_terms=None):
+                      slopes=None, chunk_tokens=32, warp_tokens=16,
+                      p_terms=None):
     """The megakernel attention phase's order on the CPU (the signature of
     `megakernel._attend_ref`): a slot's tokens cut into chunks of
     `chunk_tokens`; in a chunk, runs of `warp_tokens` (a warp's share of a
@@ -334,7 +335,8 @@ def attention_chunked(plan, q, k_new, v_new, cache, phys, len_eff, scale,
     bf16 pool) P, folded with the V scale, enters the V product as
     `p_terms` bf16 parts (the kernel's three by default; None: f32).
     Inactive slots (len 0 here) still attend the new token, as the plain
-    version does. f32 sums."""
+    version does. `slopes` (ALiBi): the plain version's bias, one origin
+    (the slot's new token) for every chunk. f32 sums."""
     B, KH, G, D = q.shape[0], plan.KH, plan.G, plan.D
     ps = plan.ps
     S = plan.maxP * ps
@@ -366,6 +368,8 @@ def attention_chunked(plan, q, k_new, v_new, cache, phys, len_eff, scale,
         vs = torch.ones((B, KH, S))
         vz = torch.zeros((B, KH, S))
     s = s * scale
+    if slopes is not None:
+        s = s + tmk.alibi_bias(plan, slopes, torch.arange(S), len_eff)
     valid = torch.arange(S)[None, :] < len_eff[:, None]          # [B, S]
     s = torch.where(valid[:, None, None, :], s, -math.inf)
     v_lev = torch.where(valid[:, None, :, None], v_lev, 0.0)

@@ -30,10 +30,16 @@ from tests.test_torch_tp_segments import (ACTIVE, LENS, N, assert_pool,
 @pytest.mark.parametrize("quant,mode,KH", [
     ("none", "int8", 2), ("a16w4", "uint4", 4)])
 def test_tp_decode_ref_matches_jax_tp_decode_fn(quant, mode, KH):
+    check_tp_decode_against_jax(tp_case(quant, mode, KH), quant)
+
+
+def check_tp_decode_against_jax(c, quant):
+    """`tp_decode_ref` against `build_tp_decode_fn` on a (1, 2) CPU mesh, at
+    the module's tolerances (`quant`: the weights' quantization)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    c = tp_case(quant, mode, KH)
     cfg, params, jplan, plan, pt = (c["cfg"], c["params"], c["jplan"],
                                     c["plan"], c["pt"])
+    mode, KH = c["mode"], cfg.num_kv_heads
     B, L, ps = plan.B, plan.L, plan.ps
     tokens = np.asarray([7, 11, 13, 0], np.int32)
 

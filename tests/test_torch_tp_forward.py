@@ -58,7 +58,14 @@ def _after(cache):
 @pytest.mark.parametrize("quant,mode,KH", [("none", "int8", 2),
                                           ("a16w4", "uint4", 4)])
 def test_tp_forward_matches_jax_spmd(quant, mode, KH):
-    cfg, rt, params = tp_fixture(quant, KH=KH)
+    check_tp_forward_against_jax(quant, mode, KH)
+
+
+def check_tp_forward_against_jax(quant, mode, KH, alibi=False):
+    """One decode step over a prefilled pool and a 20-token prefill through
+    the port's per-op TP forwards and the JAX SPMD model (`alibi`: the
+    tiny model's ALiBi twin), at the module's tolerances."""
+    cfg, rt, params = tp_fixture(quant, KH=KH, alibi=alibi)
     jm = JMode(mode)
     tcfg = port_config(cfg)
     B, L, ps = rt.max_batch, cfg.num_layers, rt.cache.page_size

@@ -120,10 +120,16 @@ def _written(page_row, n_tokens, L, ps, shape):
     ("a16w4", "int8", 2, 45), ("a16w8", "uint4", 4, 128)])
 def test_tp_prefill_ref_matches_jax_tp_prefill_fn(quant, mode, KH,
                                                   n_tokens):
+    check_tp_prefill_against_jax(prefill_case(quant, mode, KH),
+                                 tp_fixture(quant, KH=KH)[2], n_tokens)
+
+
+def check_tp_prefill_against_jax(c, params, n_tokens):
+    """`tp_prefill_ref` against `build_tp_prefill_fn` on a (1, 2) CPU mesh
+    (`params`: the case's numpy weights), at the module's tolerances."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    c = prefill_case(quant, mode, KH)
     cfg, jplan, ps, L = c["cfg"], c["jplan"], c["ps"], c["cfg"].num_layers
-    _, _, params = tp_fixture(quant, KH=KH)
+    mode, KH = c["mode"], cfg.num_kv_heads
     toks = _tokens(cfg, n_tokens)
     page_row = prompt_inputs(c, n_tokens)["page_row"]
 

@@ -43,10 +43,11 @@ N = 2
 BUCKET = 128
 
 
-def prefill_case(quant, mode, KH, n=N):
+def prefill_case(quant, mode, KH, n=N, alibi=False):
     """The JAX and the port's local prefill plan and per-rank packs of one
-    tiny TP model at bucket 128, and a random full pool (JAX layout)."""
-    cfg, rt, params = tp_fixture(quant, KH=KH)
+    tiny TP model (`alibi`: its ALiBi twin) at bucket 128, and a random
+    full pool (JAX layout)."""
+    cfg, rt, params = tp_fixture(quant, KH=KH, alibi=alibi)
     ps = rt.cache.page_size
     rt = dataclasses.replace(
         rt, max_length=BUCKET + ps,
@@ -119,8 +120,15 @@ def assert_close(got, ref, what):
     ("a16w4", "int8", 2), ("a16w8", "uint4", 4), ("none", "default", 2)])
 @pytest.mark.parametrize("n_tokens", [45, BUCKET])
 def test_prefill_segments_match_jax_per_rank(quant, mode, KH, n_tokens):
-    c = prefill_case(quant, mode, KH)
+    check_prefill_segments_against_jax(prefill_case(quant, mode, KH),
+                                       n_tokens)
+
+
+def check_prefill_segments_against_jax(c, n_tokens):
+    """Each rank's prefill attn, mlp and lm segments (plain) against the JAX
+    segments in interpret mode at layer 1, at the module's tolerances."""
     cfg, jplan, plan, ps = c["cfg"], c["jplan"], c["plan"], c["ps"]
+    mode, KH = c["mode"], cfg.num_kv_heads
     assert (plan.S, plan.H, plan.KH, plan.V) == \
         (jplan.S, jplan.H, jplan.KH, cfg.vocab_size // N)
     inp = prompt_inputs(c, n_tokens)

@@ -44,10 +44,11 @@ LENS = np.asarray([17, 16, 5, 0], np.int32)
 ACTIVE = np.asarray([1, 1, 1, 0], np.int32)
 
 
-def tp_case(quant, mode, KH, n=N):
-    """The JAX and the port's plan and packs of one tiny TP model, and a
-    pool prefilled through the JAX per-op prefill."""
-    cfg, rt, params = tp_fixture(quant, KH=KH)
+def tp_case(quant, mode, KH, n=N, alibi=False):
+    """The JAX and the port's plan and packs of one tiny TP model (`alibi`:
+    its ALiBi twin), and a pool prefilled through the JAX per-op
+    prefill."""
+    cfg, rt, params = tp_fixture(quant, KH=KH, alibi=alibi)
     rt = dataclasses.replace(
         rt, cache=dataclasses.replace(rt.cache, mode=JMode(mode)))
     assert jtpk.supports_tp(cfg, rt, params, n)
@@ -131,8 +132,15 @@ def written_rows(pt, layers, L, ps, shape):
 @pytest.mark.parametrize("quant,mode,KH", [
     ("none", "default", 2), ("a16w4", "int8", 2), ("a16w8", "uint4", 4)])
 def test_segments_match_jax_per_rank(quant, mode, KH):
-    c = tp_case(quant, mode, KH)
+    check_segments_against_jax(tp_case(quant, mode, KH))
+
+
+def check_segments_against_jax(c):
+    """Each rank's attn segment, and rank 1's mlp and lm segments (plain)
+    against the JAX segments in interpret mode at layer 1, at the module's
+    tolerances."""
     cfg, jplan, plan, pt = c["cfg"], c["jplan"], c["plan"], c["pt"]
+    mode, KH = c["mode"], cfg.num_kv_heads
     B, L, ps = plan.B, plan.L, plan.ps
     assert (plan.H, plan.KH) == (jplan.H, jplan.KH) and \
         plan.V == cfg.vocab_size // N

@@ -26,13 +26,15 @@ from tests.test_torch_transformer import port_config
 _cache = {}
 
 
-def tp_fixture(quant: str, KH: int = 2, dtype: str = "float32"):
+def tp_fixture(quant: str, KH: int = 2, dtype: str = "float32",
+               alibi: bool = False):
     """(cfg, rt, numpy params) of the tiny TP shape, quantized: "a16w4"
-    (group 128), "a16w8" (per-channel), "a16w8g" (group 128) or "none"."""
-    key = (quant, KH, dtype)
+    (group 128), "a16w8" (per-channel), "a16w8g" (group 128) or "none";
+    `alibi`: the ALiBi model of that shape (no q|k|v bias)."""
+    key = (quant, KH, dtype, alibi)
     if key not in _cache:
         cfg, rt, params = _tiny(B=4, L=2, KH=KH, H=4, hid=256, inter=256,
-                                vocab=512, dtype=dtype)
+                                vocab=512, dtype=dtype, alibi=alibi)
         if quant != "none":
             q = QuantConfig(mode=quant[:5], group_size=(
                 -1 if quant == "a16w8" else 128))

@@ -39,15 +39,17 @@ def tiny_qwen2():
 
 def port_config(cfg):
     """The JAX ModelConfig's fields, as the port's ModelConfig (a MoE
-    config's too)."""
+    config's and the position embedding too)."""
     import dataclasses
     from dashinfer_tpu_torch.config import MoEConfig as TMoECfg
+    from dashinfer_tpu_torch.config import PositionEmbedding as TPosEmb
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
           if f.name not in ("activation", "position_embedding",
                             "rope_scaling", "moe")}
     if cfg.moe is not None:
         kw["moe"] = TMoECfg(**dataclasses.asdict(cfg.moe))
-    return TModelCfg(**kw)
+    return TModelCfg(**kw, position_embedding=TPosEmb(
+        cfg.position_embedding.value))
 
 
 def _assert_pools_close(jc, tc, mode, rtol):
