@@ -317,6 +317,13 @@ PROJECTIONS = [("q_proj+o_proj", 3584, 3584, 2 * 28),
 KERNEL_RTOL = 1e-3
 BF16_STEP = 2.0 ** -7
 LOGITS_RTOL = 1e-2
+# The prefill kernels' one-row lm_head (di_prefill_layer.cuh `lm_row`)
+# against its own rounding (`prefill_megakernel.lm_row_ref`) on the row the
+# kernel normed (`kernel_x_last`): the same f32 products, parted only by
+# the order of the f32 sums (the K split and the splits' ticket sum), so
+# held to a hundredth of the logits rule. The logits rule itself holds the
+# kernel against the TPU kernel's weight-side form, as before.
+ORDER_RTOL = 1e-4
 QPARAM_RTOL = 1e-3
 DEEP_QPARAM_RTOL = 5e-2
 # The prefill megakernel against its plain version run with the kernel's
@@ -2540,7 +2547,8 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
     a near-tie of the plain version's router logits (gap <= TIE_LOGIT) or
     ill-conditioned at the layer where it first flips. `alibi_fault` (an
     ALiBi model): the plain version with every slope zero (no bias) must
-    fail the logits check the kernel passed."""
+    fail the logits check the kernel passed. The lm_head is also held to
+    its own rounding on the row the kernel normed (`lm_row_order`)."""
     import torch
     from dashinfer_tpu_torch.ops import megakernel as mk
     from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
@@ -2554,6 +2562,8 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
     ref32_cache = before.clone()
     got = pmk.prefill_megakernel(*args, got_cache)
     pmk.check_status(dev)
+    what = f"prefill_megakernel {stream}/{mode.value} S={bucket} n={n}"
+    order = lm_row_order(plan, packed, got, dev, what)
     routes = {True: [], False: []}
     norms = []
     ref = pmk.prefill_megakernel_ref(
@@ -2563,7 +2573,6 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
     ref32 = pmk.prefill_megakernel_ref(*args, ref32_cache,
                                        routing=routes[False])
     torch.cuda.synchronize()
-    what = f"prefill_megakernel {stream}/{mode.value} S={bucket} n={n}"
     check(tuple(got.shape) == (cfg.vocab_size,) and
           bool(torch.isfinite(got).all()), f"{what}: logits not finite")
     # a MoE prompt's tokens that the kernel routed differently from the
@@ -2631,8 +2640,13 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
     lv_err, qp_err0, rel_max, ill, ill_max, plain_max = check_prefill_pool(
         what, mode, got_cache, ref_cache, ref32_cache, before, written, cfg,
         dev, exempt)
-    print(f"{what}: logits max|d|={err:.3e} (ref max {ref_max:.3e}; against "
-          f"f32 scores {err32:.3e}), argmax {pick}; layer 0 rows within "
+    margin = err / (LOGITS_RTOL * ref_max)
+    print(f"{what}: logits max|d|={err:.3e} (ref max {ref_max:.3e}: "
+          f"{margin:.3f} of the tolerance; against f32 scores {err32:.3e}; "
+          f"the lm_head against its own rounding {order[0]:.3f} of "
+          f"{ORDER_RTOL}; from the f64 product of its row: the kernel "
+          f"{order[1]:.4f}, the weight-side form {order[2]:.4f} of the "
+          f"tolerance), argmax {pick}; layer 0 rows within "
           f"{lv_err:g} level, qparams rel {qp_err0:.1e}; all rows within "
           f"{rel_max:.1e} of their range, but for {ill} ill-conditioned "
           f"(row, head) pairs (up to {ill_max:.1e}; the two plain versions "
@@ -2654,7 +2668,10 @@ def check_prefill_case(cfg, params, stream, mode, bucket, n, gen, dev,
                 routed_as_kernel=forced,
                 expert_rows=counts.tolist() if plan.E else None,
                 max_abs_err=err, max_abs_err_f32_scores=err32,
-                ref_max=ref_max, pool_levels_layer0=lv_err,
+                ref_max=ref_max, logits_margin=margin,
+                lm_row_order=order[0], lm_exact_kernel=order[1],
+                lm_exact_weight_side=order[2],
+                pool_levels_layer0=lv_err,
                 qparam_rel_layer0=qp_err0, row_rel_max=rel_max,
                 ill_conditioned_rows=ill, ill_row_rel_max=ill_max,
                 plain_versions_row_rel_max=plain_max,
@@ -3081,12 +3098,23 @@ def check_probes(dev, details):
                                        (0, 0, 0, prs.G8 - G)), [()], iters=28)
     print(f"probe_reshape library F.pad {1e3 * library_ms:.2f} us a "
           "re-layout", flush=True)
+    # the floor of one kernel node in a graph replay (the re-layout of one
+    # row, B = 1): a re-layout within twice that floor plus its byte time
+    # is at its launch floor
+    bound = bounds(first["bytes"], 0)["bytes_ms"]
+    at_floor = first["ms"] <= 2 * (first["floor_ms"] + bound)
+    print(f"probe_reshape {first['variant']}: {1e3 * first['ms']:.2f} us "
+          f"against the launch floor {1e3 * first['floor_ms']:.2f} us (B = 1, "
+          f"{first['floor_bytes']} bytes) + {1e3 * bound:.2f} us of bytes: "
+          + ("at its launch floor" if at_floor else "above twice its floor"),
+          flush=True)
     out["probe_reshape"] = dict(
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
         shape=f"variant {first['variant']}", ms=first["ms"],
         plain_ms=first["plain_ms"], library_ms=library_ms,
         us_by_variant={r["variant"]: 1e3 * r["ms"] for r in rows},
-        bound_ms=bounds(first["bytes"], 0)["bytes_ms"], bound_by="bytes")
+        launch_floor_ms=first["floor_ms"], at_launch_floor=at_floor,
+        bound_ms=bound, bound_by="bytes")
     return out
 
 
@@ -3253,6 +3281,53 @@ def held_rows(got, ref, act, what):
     check(err <= LOGITS_RTOL * ref_max,
           f"{what}: differs {err:.3e} > {LOGITS_RTOL} * {ref_max:.3e}")
     return err
+
+
+def lm_exact(packed, x, n):
+    """The lm_head of the bf16 row x [hid] in f64, with no rounding but
+    f64's: x . (levels x scale + zero), scale and zero rounded to bf16 as
+    both the kernel and the TPU kernel apply them -> [n] f64 (K in blocks
+    of 512 rows)."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops.u4pack import weight_levels
+    leaf = mk.loader_view(packed["lm_head"])
+    xd = x.double()
+    if "w" in leaf:
+        return (xd @ leaf["w"].to(torch.bfloat16).double())[:n]
+    scale = leaf["scale"].to(torch.bfloat16).double()
+    zero = leaf["zero"].to(torch.bfloat16).double()
+    K = xd.shape[0]
+    gs = K // scale.shape[0]
+    out = 0
+    for k0 in range(0, K, 512):
+        g = torch.arange(k0, min(K, k0 + 512), device=xd.device) // gs
+        w = weight_levels(leaf["w_q"][k0:k0 + 512]).double() * scale[g] + \
+            zero[g]
+        out = out + xd[k0:k0 + 512] @ w
+    return out[:n]
+
+
+def lm_row_order(plan, packed, got, dev, what):
+    """The device's last lm_head launch (`got`: the logits of the prefill
+    megakernel or of a TP lm segment of `plan`) against `lm_row_ref` on the
+    row it normed, within ORDER_RTOL of the largest there. Read beside it,
+    not held: the kernel's and the TPU kernel's weight-side form's distance
+    from the f64 product of that row (`lm_exact`). Returns (max|d| over the
+    ORDER tolerance, the kernel's and the weight-side form's distance from
+    the f64 product over the logits tolerance)."""
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    x = pmk.kernel_x_last(plan, dev)
+    ref = pmk.lm_row_ref(plan, packed, x)
+    err = (got - ref).abs().max().item()
+    tol = ORDER_RTOL * ref.abs().max().item()
+    check(err <= tol, f"{what}: the lm_head differs from its own rounding "
+          f"on its own row by {err:.3e} > {ORDER_RTOL} * max|ref|")
+    ex = lm_exact(packed, x, got.numel())
+    wside = pmk._wdeq_dot(x[None], packed, plan.lm, None)[0]
+    ex_tol = LOGITS_RTOL * ex.abs().max().item()
+    return (err / tol, (got.double() - ex).abs().max().item() / ex_tol,
+            (wside.double() - ex).abs().max().item() / ex_tol)
 
 
 def torch_isfinite(t):
@@ -3581,6 +3656,11 @@ def check_tp_segments(params, dev, details):
     replays_bit_equal("tp_mlp_segment n=2/int8", lambda: tpk.tp_mlp_segment(
         s["plan"], s["packs"][0], 0, x))
     tpk.check_status(s["plan"], dev)
+    lm_library_ms = lm_matmul_yardstick(s["plan"], s["packs"][0], x)
+    print(f"  tp_lm_segment's yardstick (torch.matmul of the {s['plan'].B} "
+          f"normed bf16 rows by the rank's bf16 [{s['plan'].hid}, "
+          f"{s['plan'].lm.Nptot}] shard, cold): {lm_library_ms:.4f} ms",
+          flush=True)
     del s, st, x
     torch.cuda.empty_cache()
     mlp_rows = check_tp_mlp_cases(cfg, params, gen, dev)
@@ -3592,7 +3672,8 @@ def check_tp_segments(params, dev, details):
     return {f"tp_{k}_segment": dict(
         max_abs_err=err[k], ms=t[k]["ms"],
         plain_ms=t[k]["plain_ms"], bound_ms=t[k]["bound_ms"],
-        bound_by=t[k]["bound_by"], library_ms=None)
+        bound_by=t[k]["bound_by"],
+        library_ms=lm_library_ms if k == "lm" else None)
         for k in ("attn", "mlp", "lm")}
 
 
@@ -3761,6 +3842,8 @@ def check_tp_prefill_case(cfg, params, s, single, mode_name, bucket, n_tok,
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 31 + bucket + n)
     errs = dict(attn=0.0, mlp=0.0, lm=0.0)
+    lm_margin = 0.0
+    lm_order = (0.0, 0.0, 0.0)
     pool0 = {}
     for r in range(n):
         pk = s["packs"][r]
@@ -3806,15 +3889,19 @@ def check_tp_prefill_case(cfg, params, s, single, mode_name, bucket, n_tok,
         lg = {"k": tpk.tp_prefill_lm_segment(plan, pk, xs["k"], st["n"],
                                              add=add)}
         tpk.check_prefill_status(dev)
+        what = f"{what0} lm rank {r}"
+        lm_order = tuple(map(max, lm_order, lm_row_order(plan, pk, lg["k"],
+                                                         dev, what)))
         lg["p"] = tpk.prefill_lm_segment_ref(plan, pk, xs["p"], st["n"],
                                              add=add)
-        what = f"{what0} lm rank {r}"
         check(tuple(lg["k"].shape) == (cfg.vocab_size // n,),
               f"{what}: shard {tuple(lg['k'].shape)}")
         check(bool((xs["k"][n_tok - 1] == xs["p"][n_tok - 1]).all()),
               f"{what}: x + add differs in row n - 1")
-        errs["lm"] = max(errs["lm"], held_rows(
-            lg["k"][None], lg["p"][None], slice(0, 1), what))
+        err = held_rows(lg["k"][None], lg["p"][None], slice(0, 1), what)
+        errs["lm"] = max(errs["lm"], err)
+        lm_margin = max(lm_margin,
+                        err / (LOGITS_RTOL * lg["p"].abs().max().item()))
     # the whole prefill, on clones of the ranks' pools
     devices = s["mesh"].devices
     cs = {k: [c.clone() for c in st["caches"]] for k in ("k", "p", "p32")}
@@ -3855,13 +3942,20 @@ def check_tp_prefill_case(cfg, params, s, single, mode_name, bucket, n_tok,
                                 dev)
     row = dict(n=n, stream=s["stream"], mode=mode.value, bucket=bucket,
                n_tokens=n_tok,
-               errs=errs, layer0_pool=pool0, whole_err=f_err,
+               errs=errs, lm_margin=lm_margin, lm_row_order=lm_order[0],
+               lm_exact_kernel=lm_order[1],
+               lm_exact_weight_side=lm_order[2],
+               layer0_pool=pool0, whole_err=f_err,
                whole_ref_max=logits["p"].abs().max().item(),
                whole_ill_conditioned=ill, vs_megakernel_err=m_err,
                vs_megakernel_pool=m_pool[:4],
                geometry=tpk.prefill_launch_geometry(plan, dev))
     print(f"{what0}: segments max|d| attn {errs['attn']:.3e} mlp "
-          f"{errs['mlp']:.3e} lm {errs['lm']:.3e}; whole prefill vs plain "
+          f"{errs['mlp']:.3e} lm {errs['lm']:.3e} ({lm_margin:.3f} of the "
+          f"tolerance; against its own rounding {lm_order[0]:.3f} of "
+          f"{ORDER_RTOL}; from the f64 product: the kernel "
+          f"{lm_order[1]:.4f}, the weight-side form {lm_order[2]:.4f} of "
+          f"the tolerance); whole prefill vs plain "
           f"{f_err:.3e} (ref max {row['whole_ref_max']:.3e}), vs the "
           f"single-device prefill megakernel {m_err:.3e}; pools held "
           f"({ill} ill-conditioned (row, head) pairs); geometry "
@@ -4026,6 +4120,72 @@ def tp_prefill_timing(cfg, params, s, single, case, dev):
     return row
 
 
+def lm_matmul_yardstick(plan, packed, x_rows):
+    """ms of one torch.matmul of the final-normed rows (bf16 [M, hid]) by
+    the rank's vocab shard dequantized to bf16 [hid, Np] beforehand: the
+    library call that computes an lm segment's product, cold (the shard
+    is larger than the 50 MB L2). A yardstick, never called by the port."""
+    import torch
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    w = pmk.dequantized_leaf(packed["lm_head"]).to(torch.bfloat16)
+    xb = mk._rms(x_rows, packed["final_norm"], plan.rms_eps).to(
+        torch.bfloat16)
+    ms = time_ms(torch.matmul, [(xb, w)], iters=20)
+    del w
+    torch.cuda.empty_cache()
+    return ms
+
+
+def lm_row_faults(plan, pk, st, what, dev):
+    """The TP prefill lm segment's one-row product (`lm_row`) on one rank:
+    with the last K split's scale rows zeroed in the kernel's copy of the
+    pack it must fail the logits check the kernel passes on the pack
+    (the ratio of its difference to the tolerance is printed); on zero-mean
+    lm_head weights (each zero -7.5 x its scale, as Baichuan's checks take
+    them: no common mode for the logits to follow) it is held to its plain
+    version."""
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    x = st["x0"].float()
+    ref = tpk.prefill_lm_segment_ref(plan, pk, x.clone(), st["n"])
+    tol = LOGITS_RTOL * ref.abs().max().item()
+    got = tpk.tp_prefill_lm_segment(plan, pk, x, st["n"])
+    order = lm_row_order(plan, pk, got, dev, what)[0]
+    err = held_rows(got[None], ref[None], slice(0, 1), what)
+    ks, cps = tpk.prefill_launch_geometry(plan, dev)["splits"]["lm"]
+    lm = pk["lm_head"]
+    g0 = (ks - 1) * cps * 64 // (plan.lm.K // lm["scale"].shape[0])
+    scale = lm["scale"].clone()
+    scale[g0:] = 0
+    bad = tpk.tp_prefill_lm_segment(plan, dict(pk, lm_head=dict(
+        lm, scale=scale)), x, st["n"])
+    tpk.check_prefill_status(dev)
+    fault = (bad - ref).abs().max().item()
+    check(fault > tol, f"{what}: the planted fault (split {ks - 1}'s scale "
+          f"rows {g0}.. zero) passes the logits check ({fault:.3e} <= "
+          f"{tol:.3e})")
+    zm = dict(pk, lm_head=dict(lm, zero=-7.5 * lm["scale"]))
+    ref_z = tpk.prefill_lm_segment_ref(plan, zm, x.clone(), st["n"])
+    got_z = tpk.tp_prefill_lm_segment(plan, zm, x, st["n"])
+    tpk.check_prefill_status(dev)
+    order_z = lm_row_order(plan, zm, got_z, dev, f"{what} zero-mean")[0]
+    err_z = held_rows(got_z[None], ref_z[None], slice(0, 1),
+                      f"{what} zero-mean")
+    tol_z = LOGITS_RTOL * ref_z.abs().max().item()
+    print(f"{what}: K split {ks} x {cps} chunks; logits max|d| {err:.3e} "
+          f"({err / tol:.3f} of the tolerance; against its own rounding "
+          f"{order:.3f} of {ORDER_RTOL}); the planted fault (split "
+          f"{ks - 1}'s scale rows {g0}.. zero) {fault:.3e}, "
+          f"{fault / tol:.1f}x the tolerance; zero-mean lm_head max|d| "
+          f"{err_z:.3e} ({err_z / tol_z:.3f} of the tolerance; against its "
+          f"own rounding {order_z:.3f} of {ORDER_RTOL})", flush=True)
+    return dict(split=(ks, cps), max_abs_err=err, margin=err / tol,
+                lm_row_order=order, planted_fault=fault,
+                planted_fault_ratio=fault / tol, zero_mean_err=err_z,
+                zero_mean_margin=err_z / tol_z, zero_mean_order=order_z,
+                zero_mean_ref_max=ref_z.abs().max().item())
+
+
 def check_tp_prefill(params, dev, details):
     import dataclasses
     import torch
@@ -4037,7 +4197,8 @@ def check_tp_prefill(params, dev, details):
     gen.manual_seed(SEED + 29)
     dplan = mk.make_plan(cfg, tp_prefill_rt(1, CacheMode.INT8), params)
     single = dict(dplan=dplan, pack=mk.pack_params(cfg, dplan, params))
-    rows, times = [], []
+    rows, times, lm_cases = [], [], []
+    lm_library_ms = None
     for n, mode, cases in TP_PREFILL_CASES:
         s = tp_prefill_setup(cfg, params, n, dev)
         for bucket, n_tok in cases:
@@ -4070,7 +4231,23 @@ def check_tp_prefill(params, dev, details):
                         lambda: tpk.tp_prefill_attn_segment(
                             p_, s["packs"][0], 0, x_, st_["cos"], st_["sin"],
                             st_["page_row"], st_["n"], st_["caches"][0]))
+                    # the lm_head's split tickets go back to 0
+                    replays_bit_equal(
+                        f"tp_prefill_lm_segment n=2/int8 {b} n={n_}",
+                        lambda: tpk.tp_prefill_lm_segment(
+                            p_, s["packs"][0], x_, st_["n"]))
                     del p_, st_, x_
+                for r in range(n):
+                    lm_cases.append(lm_row_faults(
+                        plan, s["packs"][r], st,
+                        f"tp_prefill_lm_segment n=2/int8 1024 rank {r}",
+                        dev))
+                lm_library_ms = lm_matmul_yardstick(
+                    plan, s["packs"][0], st["x0"].float()[-1:])
+                print(f"  tp_prefill_lm_segment's yardstick (torch.matmul of "
+                      f"the normed bf16 row by the rank's bf16 [{plan.hid}, "
+                      f"{plan.lm.Nptot}] shard, cold): {lm_library_ms:.4f} "
+                      "ms", flush=True)
                 tpk.check_prefill_status(dev)
                 del plan, st, x
             del case
@@ -4095,14 +4272,23 @@ def check_tp_prefill(params, dev, details):
             del case
         del s, single, p
         torch.cuda.empty_cache()
-    details["tp_prefill"] = dict(cases=rows, times=times)
+    # the registers and spills of the prefill kernels' instantiations
+    # (pmk_kernel<ALIBI>, pseg_kernel<kind, ALIBI>)
+    figs = ptxas_figures(("prefill_megakernel", "tp_prefill_segments"),
+                         ("pmk_kernel", "pseg_kernel"))
+    print(f"  ptxas (registers, spill stores, spill loads): {figs}",
+          flush=True)
+    details["tp_prefill"] = dict(cases=rows, times=times, lm_row=lm_cases,
+                                 ptxas=figs)
     big = times[-1]["segments"]
     return {f"tp_prefill_{k}_segment": dict(
-        max_abs_err=max(r["errs"][k] for r in rows),
+        max_abs_err=max([r["errs"][k] for r in rows] + (
+            [c["max_abs_err"] for c in lm_cases] if k == "lm" else [])),
         shape="n = 2, rank 0, layer 0, bucket 1024, n = 1024",
         ms=big[k]["ms"], plain_ms=big[k]["plain_ms"],
         bound_ms=big[k]["bound_ms"], bound_by=big[k]["bound_by"],
-        library_ms=None,
+        library_ms=lm_library_ms if k == "lm" else None,
+        **({"lm_row": lm_cases, "ptxas": figs} if k == "lm" else {}),
         ms_by_bucket={str(t["bucket"]): t["segments"][k]["ms"]
                       for t in times},
         product_yardstick=big[k].get("product_yardstick"))

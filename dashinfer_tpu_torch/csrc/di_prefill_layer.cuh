@@ -5,8 +5,10 @@
 // with the weight-side dequantized weights as the register A operand and
 // x as the 128-byte swizzled shared-memory B operand, fed by bulk copies
 // on mbarriers; `product`, its one call site a kernel; the lm_head's
-// one-row product on mma.sync), the residual update and RMSNorm of the
-// rows, q|k|v + bias + RoPE with the quantize + write of the prompt's K/V
+// one-row product `lm_row`: the decode product over K-split items that
+// fill the grid, the splits summed by tickets), the residual update and
+// RMSNorm of the rows, q|k|v + bias + RoPE with the quantize + write of
+// the prompt's K/V
 // rows, causal attention over the bf16 q / k / v scratch, SwiGLU, the
 // final norm of row n - 1, the block's dynamic shared memory and the
 // integer arguments the wrappers pass (ops/prefill_megakernel.py,
@@ -26,9 +28,6 @@ using namespace di;
 constexpr int kMTile = 128;     // prompt rows per dense product item and per
                                 // attention item
 constexpr int kETile = 64;      // routed rows per expert product item
-constexpr int kAPad = 72;       // bf16 per staged x row of the one-row
-                                // product (64 + 8: no conflicts)
-constexpr int kPStages = 3;     // cp.async ring depth of the one-row product
 constexpr int kKeyTile = 64;    // keys per attention tile
 constexpr int kKVPad = 136;     // bf16 per staged K / V row (128 + 8)
 constexpr int kRingBytes = 200 * 1024;   // the products' stages
@@ -61,7 +60,9 @@ struct PArgs {
   __nv_bfloat16* vb;         // [S, KH * D]
   __nv_bfloat16* attn;       // [S, H * D], x layout
   __nv_bfloat16* act;        // [S or scap, inter], x layout
-  __nv_bfloat16* x_last;     // [16, hid], rows 1.. stay zero
+  uint8_t* x_last;           // row n - 1 final-normed, as x records
+                             // (write_row_records)
+  unsigned* tickets;         // [lm tiles] of the lm_head's K splits
   unsigned* barrier;
   int* status;
   float* edn;                // MoE: the experts' down partials
@@ -683,143 +684,121 @@ __device__ __forceinline__ void product(const PArgs& a, int sid, bool grouped,
   }
 }
 
-// The lm_head's product of one row (x_last, row-major [16][hid]): each warp
-// owns 32 of a 256-column tile's columns, dequantizes them once a chunk
-// and runs mma.sync m16n8k16 with the row as the A operand, the chunks and
-// x through a cp.async ring (wgmma with N = 1 gains nothing).
-template <int BITS>
-__device__ __forceinline__ void gemm_row_phase(const Stream& st,
-                                               const __nv_bfloat16* A,
-                                               int lda, float* out,
-                                               uint8_t* smem) {
-  using T = Tile<BITS>;
-  constexpr int kRows = 16;
-  constexpr int kABytes = kRows * kAPad * 2;
-  constexpr int kStage = kABytes + T::kChunkBytes;
-  constexpr int kAVecs = kRows * 8;
-  constexpr int kWVecs = T::kChunkBytes / 16;
+// The lm_head's product of one row (row n - 1, final-normed, as x records
+// in x_last) with the vocab shard's stream: logits [st.nvalid] f32.
+//
+// Bound by bytes: one row against the shard's payload and qparams (Qwen2-7B
+// a16w4 at n = 2: 153.6 MB, 0.046 ms at 3.35 TB/s), so every SM has to pull
+// ~25 GB/s for the whole launch. What the design does about it:
+// - It runs the decode kernels' product (di_product.cuh `product_phase`,
+//   one m16 tile of x records whose row 0 is x_last): the weights are the
+//   mma's A operand, straight from the payload registers (the u4 levels as
+//   bf16(128 + n), the group affine applied to the f32 sums at the end of
+//   each group), x_last the B operand's one live n8 tile, and one bulk-copy
+//   ring on mbarriers a block, whose stages (payload, x records, the
+//   qparam rows at a group's end) are issued two behind the chunk being
+//   computed, across items, with no block-wide barrier a chunk. A stage
+//   brings the chunk's whole m16 record tile (2112 B, 15 rows of it zero)
+//   beside its payload (8 KB of u4), as the decode product does: x_last
+//   is not staged once an item. The ring's depth was measured to gain
+//   nothing here (the warps' latencies hold the product, not the bytes in
+//   flight), so those 25% more copied bytes, from L2, were left.
+// - An item is (256-column tile, K split), tile-major, dealt round the
+//   grid; the wrapper's split (ops/prefill_megakernel.py
+//   `choose_row_split`) weighs the items each SM streams against what
+//   each item costs beyond its chunks (Qwen2-7B's vocab in the prefill
+//   megakernel: 594 tiles x 2 splits of 28 chunks = 9 items on each of
+//   132 SMs; its n = 2 shard in the TP lm segment, two blocks an SM: 297 x
+//   2 of 28, at most 5 items an SM), where whole-K items left the last
+//   wave a quarter full.
+// - Each item writes its split's f32 sums into a.partial ([split][ntot]);
+//   once the block's items are done, each of its threads takes the ticket
+//   of one of its items' tiles (a.tickets, one load round trip for all),
+//   and the block that takes a tile's last ticket adds the tile's splits in
+//   ascending order from 0, writes its true columns and sets the ticket
+//   back to 0 for the next launch or graph replay.
+// So the phase adds no grid barrier, the order of every f32 sum is fixed,
+// and a launch repeats bit for bit.
+struct RowArgs {             // what product_phase reads of its launch
+  const uint8_t* rec;        // x records, [hid / 64][rec_bytes(16)]
+  int* status;
+  int mpad, B, probe;
+};
+constexpr int kRowPad = 16;  // record rows: x_last's one row and 15 zero
+constexpr int kRowFlagOff =  // the tickets' results, after the ring
+    imax(imax(Ring<4, 1>::kBytes, Ring<8, 1>::kBytes), Ring<16, 1>::kBytes);
+// Dynamic shared memory of a kernel that runs lm_row and the final norm of
+// a row of at most kLmSmem / 4 - kWarps floats (the TP prefill lm segment:
+// ~106 KB, two blocks an SM).
+constexpr int kLmSmem = kRowFlagOff + kThreads * 4;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int chunks_total = st.K / kChunkK;
-  const int gs = st.K / st.G;              // K rows per quant group
-  const int n_items = st.tile0[st.nleaf];   // one K split
-
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int t = item;
-    const int leaf = (st.nleaf > 1 && t >= st.tile0[1]) +
-                     (st.nleaf > 2 && t >= st.tile0[2]);
-    const int lt = t - st.tile0[leaf];
-    const int n_leaf = st.n[leaf];
-    const uint8_t* w_tile =
-        st.w[leaf] + (size_t)lt * chunks_total * T::kChunkBytes;
-    const float* s_leaf = BITS == 16 ? nullptr : st.s[leaf];
-    const float* z_leaf = BITS == 16 ? nullptr : st.z[leaf];
-    const int col_leaf = lt * 256, col_out = t * 256;
-    const int nc = chunks_total;
-
-    auto load = [&](int c, int buf) {
-      uint8_t* a_s = smem + (size_t)buf * kStage;
-      uint8_t* w_s = a_s + kABytes;
-      const __nv_bfloat16* asrc = A + (size_t)c * kChunkK;
-      for (int i = tid; i < kAVecs; i += kThreads) {
-        const int row = i >> 3, seg = i & 7;
-        cp_async16(a_s + row * (kAPad * 2) + seg * 16,
-                   asrc + (size_t)row * lda + seg * 8);
-      }
-      const uint8_t* wsrc = w_tile + (size_t)c * T::kChunkBytes;
-      for (int i = tid; i < kWVecs; i += kThreads)
-        cp_async16(w_s + i * 16, wsrc + i * 16);
-    };
-
-    float acc[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-    for (int s = 0; s < kPStages - 1; ++s) {
-      if (s < nc) load(s, s);
-      cp_async_commit();
+// The block's items' tickets and the sums of the tiles whose last ticket it
+// takes (product_phase's items of this block, in its order: item = tile x
+// ks + split).
+__device__ __forceinline__ void row_sums(const PArgs& a, const Stream& st,
+                                         float* out, uint8_t* smem) {
+  int* last = reinterpret_cast<int*>(smem + kRowFlagOff);
+  const int ks = st.ksplit, n_items = st.tile0[st.nleaf] * ks;
+  const int tid = threadIdx.x;
+  for (int j0 = 0; blockIdx.x + j0 * gridDim.x < n_items; j0 += kThreads) {
+    __syncthreads();          // the block's partials (and the flags read)
+    const int item = blockIdx.x + (j0 + tid) * gridDim.x;
+    if (item < n_items) {
+      __threadfence();
+      unsigned* tk = a.tickets + item / ks;
+      const bool is_last = atomicAdd(tk, 1u) == (unsigned)ks - 1;
+      if (is_last) *tk = 0u;
+      last[tid] = is_last;
     }
-    // this lane's four B columns [half * 2 + nt]; a chunk's qparams are
-    // fetched while the chunk before is computed
-    __nv_bfloat162 s2[4], z2[4];
-    float sc[4] = {1.f, 1.f, 1.f, 1.f}, ze[4] = {0.f, 0.f, 0.f, 0.f};
-    float s_raw[4], z_raw[4];
-    auto fetch_qparams = [&](int c) {
-      const int g = (c * kChunkK) / gs;
+    __syncthreads();
+    for (int j = 0; j < kThreads; ++j) {
+      const int it = blockIdx.x + (j0 + j) * gridDim.x;
+      if (it >= n_items) break;
+      if (!last[j]) continue;
+      __threadfence();        // the other blocks' partials
+      const int col = it / ks * 256 + tid;    // a thread a column
+      const float* src = a.partial + col;
+      float v = 0.f;
+      for (int s = 0; s < ks; s += 8) {
+        float p[8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col =
-            col_leaf + (j >> 1) * 128 + 16 * warp + 8 * (j & 1) + gid;
-        s_raw[j] = s_leaf[(size_t)g * n_leaf + col];
-        z_raw[j] = z_leaf[(size_t)g * n_leaf + col];
+        for (int q = 0; q < 8; ++q)
+          p[q] = s + q < ks ? __ldcg(src + (size_t)(s + q) * st.ldo) : 0.f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (s + q < ks) v += p[q];    // ascending, and no + 0.f beyond
       }
-    };
-    if (BITS != 16) fetch_qparams(0);
-    for (int c = 0; c < nc; ++c) {
-      if (BITS != 16) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s2[j] = __float2bfloat162_rn(s_raw[j]);
-          z2[j] = __float2bfloat162_rn(z_raw[j]);
-          sc[j] = __low2float(s2[j]);
-          ze[j] = __low2float(z2[j]);
-        }
-        if (c + 1 < nc) fetch_qparams(c + 1);
-      }
-      cp_async_wait<kPStages - 2>();
-      __syncthreads();   // chunk c has landed; buffer (c - 1) % stages is free
-      if (c + kPStages - 1 < nc)
-        load(c + kPStages - 1, (c + kPStages - 1) % kPStages);
-      cp_async_commit();
-
-      const uint8_t* base = smem + (size_t)(c % kPStages) * kStage;
-      const __nv_bfloat16* a_s = reinterpret_cast<const __nv_bfloat16*>(base);
-      const uint8_t* wq =
-          base + kABytes + warp * (T::kQuarters * 512) + lane * 16;
-#pragma unroll
-      for (int s = 0; s < kChunkK / 16; ++s) {
-        uint32_t alo[4], ahi[4];
-        a_frags<BITS>(wq, s, s2, z2, sc, ze, alo, ahi);
-        // the weights' A fragments read as B fragments: b0 = [nt][i 0],
-        // b1 = [nt][i 1] of the column gid of n8 tile nt
-        uint32_t xf[4];
-        ldmatrix_x4(xf, a_s + (lane & 15) * kAPad + 16 * s + 8 * (lane >> 4));
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          mma_bf16_16816(acc[nt], xf, alo[nt], alo[2 + nt]);
-          mma_bf16_16816(acc[2 + nt], xf, ahi[nt], ahi[2 + nt]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();   // the ring is free for the next item
-
-    if (gid == 0) {    // row 0 of the m16 tile is x_last's row 0
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = col_out + (j >> 1) * 128 + 16 * warp + 8 * (j & 1) +
-                        2 * tig;
-        if (col < st.nvalid)
-          *reinterpret_cast<float2*>(out + col) =
-              make_float2(acc[j][0], acc[j][1]);
-      }
+      if (col < st.nvalid) out[col] = v;
     }
   }
 }
 
-// The lm_head: one row, one K split (its sums ARE the logits).
-__device__ __noinline__ void gemm_row(const Stream& st,
-                                      const __nv_bfloat16* A, int lda,
-                                      float* out, uint8_t* smem) {
+// The lm_head of row n - 1 into `out`, in a function of its own: its
+// registers are allocated apart from the kernel's other phases.
+__device__ __noinline__ void lm_row(const PArgs& a, float* out,
+                                    uint8_t* smem) {
+  static_assert(kThreads == 256, "the splits' sum: a thread a column");
+  const Stream& st = a.st[kLm];
+  const RowArgs ra{a.x_last, a.status, kRowPad, 1, 0};
   if (st.bits == 4)
-    gemm_row_phase<4>(st, A, lda, out, smem);
+    product_phase<4, 1, false>(ra, st, 0, a.partial, smem, nullptr, 1, 0);
   else if (st.bits == 8)
-    gemm_row_phase<8>(st, A, lda, out, smem);
+    product_phase<8, 1, false>(ra, st, 0, a.partial, smem, nullptr, 1, 0);
   else
-    gemm_row_phase<16>(st, A, lda, out, smem);
+    product_phase<16, 1, false>(ra, st, 0, a.partial, smem, nullptr, 1, 0);
+  row_sums(a, st, out, smem);
+}
+
+// Row n - 1's final-normed values (`val(k)`, bf16-rounded here) as x_last's
+// records (di_product.cuh `write_record`, row 0 of one m16 tile; rows 1..15
+// stay zero from the scratch's allocation): warp w writes chunks w, w + 8..
+template <class F>
+__device__ __forceinline__ void write_row_records(const PArgs& a, F val) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = warp; c < a.hid / kChunkK; c += kWarps) {
+    const int k = c * kChunkK + 2 * lane;
+    write_record(a.x_last, kRowPad, c, 0, lane, val(k), val(k + 1));
+  }
 }
 
 // resid[row] = x0[row] (first layer) or resid[row] + the K splits of the
@@ -1336,7 +1315,7 @@ __device__ void norm_phase(const PArgs& a, int rows, int ksplit,
 }
 
 // Row n - 1: the last down product's splits into the residual, the final
-// norm, bf16 -> row 0 of x_last. Block 0 alone (one row).
+// norm, bf16 -> x_last's records. Block 0 alone (one row).
 __device__ void final_norm_phase(const PArgs& a, int n, int ksplit,
                                  bool moe, float* smem) {
   if (blockIdx.x != 0) return;
@@ -1374,14 +1353,22 @@ __device__ void final_norm_phase(const PArgs& a, int n, int ksplit,
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) tot += red[w];
   const float inv = rsqrtf(tot / (float)hid + a.eps);
-  for (int i = tid; i < hid; i += kThreads)
-    a.x_last[i] = __float2bfloat16(vals[i] * inv * a.final_norm[i]);
+  write_row_records(a, [&](int k) { return vals[k] * inv * a.final_norm[k]; });
+}
+
+// What lm_row takes: a K split of at least one chunk a split, partials
+// strided by the padded width, the tickets and x_last's records.
+inline bool lm_row_args_ok(const PArgs& a) {
+  const Stream& st = a.st[kLm];
+  return st.K == a.hid && st.ksplit >= 1 && st.cps >= 1 &&
+         (st.ksplit - 1) * st.cps < st.K / kChunkK && st.ldo >= st.ntot &&
+         a.tickets != nullptr && a.x_last != nullptr;
 }
 
 int pmk_smem_bytes() {
   // the products' ring (aligned to 1024 bytes) and the routed tables; the
-  // one-row product's cp.async ring, the attention tiles and the final
-  // norm's [hid] floats are far below
+  // one-row product's ring (di_product.cuh Ring<*, 1>), the attention
+  // tiles and the final norm's [hid] floats are far below
   return 1024 + kTabOff + (3 * kMaxE + 1) * 4;
 }
 
@@ -1390,9 +1377,9 @@ int pmk_smem_bytes() {
 enum IArg {
   I_NORMS, I_FINAL_NORM, I_QKV_B, I_X0, I_COS, I_SIN, I_PAGE_ROW, I_N_TOKENS,
   I_K_POOL, I_V_POOL, I_K_QP, I_V_QP, I_LOGITS, I_RESID, I_XN, I_PARTIAL,
-  I_QB, I_KB, I_VB, I_ATTN, I_ACT, I_X_LAST, I_BARRIER, I_STATUS, I_EDN,
-  I_ACC, I_GATES, I_SGATE, I_XE, I_EIDX, I_ESLOT, I_ECOUNT, I_LAUNCHES,
-  I_TRACE, I_S, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXPB,
+  I_QB, I_KB, I_VB, I_ATTN, I_ACT, I_X_LAST, I_TICKETS, I_BARRIER,
+  I_STATUS, I_EDN, I_ACC, I_GATES, I_SGATE, I_XE, I_EIDX, I_ESLOT, I_ECOUNT,
+  I_LAUNCHES, I_TRACE, I_S, I_L, I_HID, I_H, I_KH, I_INTER, I_V, I_PS, I_MAXPB,
   I_KV_KIND, I_QL, I_GRID, I_E, I_K_TOP, I_NORM_TOPK, I_HAS_SHARED,
   I_HAS_SGATE, I_SHARED_INTER, I_EP, I_SCAP, I_QK_NORM, I_SLOPES,
   I_STREAMS
@@ -1425,7 +1412,8 @@ inline void fill_pargs(PArgs& a, const long long* ia, const double* fa) {
   a.vb = ptr<__nv_bfloat16>(ia[I_VB]);
   a.attn = ptr<__nv_bfloat16>(ia[I_ATTN]);
   a.act = ptr<__nv_bfloat16>(ia[I_ACT]);
-  a.x_last = ptr<__nv_bfloat16>(ia[I_X_LAST]);
+  a.x_last = ptr<uint8_t>(ia[I_X_LAST]);
+  a.tickets = ptr<unsigned>(ia[I_TICKETS]);
   a.barrier = ptr<unsigned>(ia[I_BARRIER]);
   a.status = ptr<int>(ia[I_STATUS]);
   a.edn = ptr<float>(ia[I_EDN]);

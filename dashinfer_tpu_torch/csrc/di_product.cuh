@@ -351,9 +351,14 @@ __device__ __noinline__ void qkv_epilogue(const Args& a, const Stream& st,
 // instantiation folds all of that away (a MoE model's products run in a
 // separate function, so that they add nothing to the dense products'
 // registers).
-template <int BITS, int MT, bool GROUPED>
+//
+// A: the launch's arguments, of which the phase reads the x records and
+// their rows (rec, mpad, B), the probe variant and the status word: the
+// decode kernels' `Args`, or the prefill kernels' one-row view of their
+// lm_head (di_prefill_layer.cuh `RowArgs`).
+template <int BITS, int MT, bool GROUPED, class A>
 __device__ __forceinline__ void product_phase(
-    const Args& a, const Stream& st, int layer, float* out, uint8_t* smem,
+    const A& a, const Stream& st, int layer, float* out, uint8_t* smem,
     const Part* parts, int nparts, int first) {
   using T = Tile<BITS>;
   using R = Ring<BITS, MT>;

@@ -24,8 +24,10 @@
 // groups' partial sums added in a fixed order) -> attn_out bf16; o product
 // into the f32 residual; RMSNorm; gate|up products; SwiGLU rounded to bf16;
 // down product into the residual. Then the final norm of row n - 1 and the
-// lm_head for that row. The score product's operands are bf16 q and k (the
-// tensor cores'), where the TPU kernel's are f32.
+// lm_head for that row, with the decode product's rounding (bf16 x by the
+// bf16 levels, the group affine on the f32 sums: within PERF.md §2's
+// logits rule of the weight-side form). The score product's operands are
+// bf16 q and k (the tensor cores'), where the TPU kernel's are f32.
 //
 // What bounds it on the H100: operations at S >= 256 (about 13 GFLOP a
 // prompt row for Qwen2-7B against 3.98 GB of weights: 295 operations a byte
@@ -75,7 +77,12 @@
 // sharing its key tiles, dealt longest first in rounds that turn back,
 // over 64-key tiles of bf16 K / V in two cp.async stages; V's mma operand
 // comes from ldmatrix.trans.
-// The lm_head's one row stays on mma.sync (wgmma with N = 1 gains nothing).
+// The lm_head's one row (`lm_row`, bound by the vocab's bytes: 307 MB of
+// u4 payload and qparams at Qwen2-7B, 0.092 ms) runs the decode kernels'
+// mma.sync product (wgmma with N = 1 gains nothing) over (256-column tile,
+// K split) items whose split fills whole waves of the grid (594 tiles x 2 =
+// 9 waves of 132), the splits summed by the block that takes a tile's last
+// ticket; it stays the last phase.
 //
 // MoE layers: the experts run over their routed rows only. After norm2:
 // the router product (bf16, a 256-column stream) and a gates phase (one
@@ -374,7 +381,7 @@ pmk_kernel(const __grid_constant__ PArgs a) {
   }
   final_norm_phase(a, n, mlp_ks, moe, reinterpret_cast<float*>(smem));
   barrier();
-  gemm_row(a.st[kLm], a.x_last, hid, a.logits, smem);
+  lm_row(a, a.logits, smem);
   barrier();   // so that a trace shows the lm_head's end
 }
 
@@ -418,7 +425,8 @@ extern "C" int di_prefill_megakernel(const long long* ia, const double* fa,
   if (a.S % kMTile != 0 || a.S <= 0 || a.hid % 128 != 0 ||
       a.inter % 4 != 0 ||
       (a.hid + kWarps) * 4 > pmk_smem_bytes() ||
-      (2 * a.EP + 2 * a.S * a.k_top) * 4 > pmk_smem_bytes())
+      (2 * a.EP + 2 * a.S * a.k_top) * 4 > pmk_smem_bytes() ||
+      !lm_row_args_ok(a))
     return (int)cudaErrorInvalidValue;
   if (a.E > 0 && (a.E + a.has_sgate > a.EP || a.EP > kMaxLanes ||
                   a.k_top < 1 || a.k_top > kMaxTopk ||

@@ -35,7 +35,8 @@
 // What bounds them on the H100: operations for attn and mlp at S >= 256
 // (Qwen2-7B a16w4 at n = 2, bucket 1024: ~34 GFLOP attn and ~209 GFLOP mlp
 // a rank and layer against ~8 and ~57 MB of weights), bytes for lm (one
-// row against ~150 MB of the vocab shard's u4 payload and qparams).
+// row against 153.6 MB of the vocab shard's u4 payload and qparams: 0.046
+// ms at 3.35 TB/s, ~25 GB/s from every SM for the whole launch).
 //
 // What the design does about it: the products run the prefill megakernel's
 // wgmma product over 128-row tiles (the weight dequantized once per chunk
@@ -51,9 +52,17 @@
 // 64-row half of a query tile), two warp groups of a block sharing a
 // half's key tiles (di_prefill_layer.cuh): at bucket 1024 and n = 2, 224
 // halves on 132 SMs, where (query head, query tile) items were 112.
-// The lm segment has one row: its items are the vocab shard's 256-column
-// tiles (297 at n = 2), each streaming its whole K, so it is bound by the
-// shard's bytes.
+// The lm segment has one row (di_prefill_layer.cuh `lm_row`: the decode
+// kernels' product at one row): its items are (256-column tile, K split),
+// the split chosen by the wrapper from the SMs' loads (297 tiles x 2
+// splits at n = 2, at most 5 items an SM, where whole-K items on 132
+// blocks left the last of 3 waves a quarter full), streamed through the
+// product's bulk-copy ring, and the block that takes a tile's last ticket
+// sums its splits in order, so the segment keeps its one grid barrier
+// (after the final norm). It needs only that ring, so it runs two blocks
+// an SM (kLmSmem): with one row its warps wait on latencies, and twice the
+// warps hide more of them (`tools/ab_decode.py --lm-splits` times it on
+// both grids at each split).
 
 #include "di_prefill_layer.cuh"
 
@@ -133,7 +142,7 @@ __device__ void sum_splits(const PArgs& a, const Stream& st, int rows,
 }
 
 // Row n - 1: x[n - 1] += add[n - 1] (when given), the final norm, bf16 ->
-// row 0 of x_last. Block 0 alone (one row), as final_norm_phase.
+// x_last's records. Block 0 alone (one row), as final_norm_phase.
 __device__ void lm_norm_phase(const PArgs& a, const float* add, int n,
                               float* smem) {
   if (blockIdx.x != 0) return;
@@ -158,14 +167,15 @@ __device__ void lm_norm_phase(const PArgs& a, const float* add, int n,
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) tot += red[w];
   const float inv = rsqrtf(tot / (float)hid + a.eps);
-  for (int i = tid; i < hid; i += kThreads)
-    a.x_last[i] = __float2bfloat16(vals[i] * inv * a.final_norm[i]);
+  write_row_records(a, [&](int k) { return vals[k] * inv * a.final_norm[k]; });
 }
 
 // ALIBI: the attn segment of an ALiBi model (a.slopes), an instantiation of
 // its own, so that the RoPE model's code is unchanged.
+// The lm segment needs only the one-row product's ring: two of its blocks
+// fit an SM, twice the warps to hide the product's latencies.
 template <int KIND, bool ALIBI = false>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, KIND == kLmSeg ? 2 : 1)
 pseg_kernel(const __grid_constant__ PArgs a, const __grid_constant__ PSeg g) {
   static_assert(!ALIBI || KIND == kAttnSeg, "ALiBi: the attn segment only");
   extern __shared__ __align__(16) uint8_t smem[];
@@ -185,7 +195,7 @@ pseg_kernel(const __grid_constant__ PArgs a, const __grid_constant__ PSeg g) {
   if constexpr (KIND == kLmSeg) {
     lm_norm_phase(a, g.add, n, fsmem);
     barrier();
-    gemm_row(a.st[kLm], a.x_last, hid, g.out, smem);
+    lm_row(a, g.out, smem);
   } else {
     // norm, product, rope + KV, attention, product, the splits' sum (attn)
     // or norm, product, SwiGLU, product, the splits' sum (mlp); the
@@ -244,9 +254,9 @@ void launch(const PArgs& a, const PSeg& g, int grid, int smem,
 }  // namespace
 
 // The largest grid of segment `kind` (0 attn, 1 mlp, 2 lm) whose blocks are
-// all resident at once on `device`: SMs x (at most one) block per SM (the
-// attn segment: of both its instantiations, RoPE and ALiBi). Returns 0 on
-// error.
+// all resident at once on `device`: SMs x (at most one; the lm segment at
+// most two) blocks per SM (the attn segment: of both its instantiations,
+// RoPE and ALiBi). Returns 0 on error.
 extern "C" int di_tp_prefill_segment_grid(int device, int kind) {
   const int smem = pmk_smem_bytes();
   const int attn = per_sm<kAttnSeg>(smem),
@@ -254,14 +264,15 @@ extern "C" int di_tp_prefill_segment_grid(int device, int kind) {
   const int n = kind == kAttnSeg
                     ? (attn < attn_alibi ? attn : attn_alibi)
                     : (kind == kMlpSeg ? per_sm<kMlpSeg>(smem)
-                                       : per_sm<kLmSeg>(smem));
+                                       : per_sm<kLmSeg>(kLmSmem));
+  const int cap = kind == kLmSeg ? 2 : 1;
   int sms = 0;
   if (n == 0 || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                        device) != cudaSuccess) {
     cudaGetLastError();
     return 0;
   }
-  return sms * (n < 1 ? n : 1);
+  return sms * (n < cap ? n : cap);
 }
 
 // One segment launch of layer `layer`. `ia` is di_prefill_megakernel's (the
@@ -280,7 +291,8 @@ extern "C" int di_tp_prefill_segment(int kind, int layer, const long long* ia,
   if (kind < kAttnSeg || kind > kLmSeg || a.E != 0 || a.S % kMTile != 0 ||
       a.S <= 0 || a.hid % 128 != 0 || a.inter % 4 != 0 || layer < 0 ||
       layer >= a.L || g.out == nullptr ||
-      (a.hid + kWarps) * 4 > pmk_smem_bytes())
+      (a.hid + kWarps) * 4 > (kind == kLmSeg ? kLmSmem : pmk_smem_bytes()) ||
+      !lm_row_args_ok(a))
     return (int)cudaErrorInvalidValue;
   const int grid = (int)ia[I_GRID];
   const int smem = pmk_smem_bytes();
@@ -292,6 +304,6 @@ extern "C" int di_tp_prefill_segment(int kind, int layer, const long long* ia,
   else if (kind == kMlpSeg)
     launch<kMlpSeg>(a, g, grid, smem, s);
   else
-    launch<kLmSeg>(a, g, grid, smem, s);
+    launch<kLmSeg>(a, g, grid, kLmSmem, s);
   return (int)cudaGetLastError();
 }

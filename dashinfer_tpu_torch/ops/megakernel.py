@@ -1336,11 +1336,12 @@ def stream_args(sp: Optional[StreamPlan], leaves: List[Dict], layered: bool,
     """One stream of packed leaves as csrc/di_product.cuh `fill_stream`
     reads it: per leaf its payload, scale and zero addresses, the strides
     between layers and between experts and its padded width; then the
-    stream's shape, its K split, and the row stride of the product's output
-    with the columns it writes back (`valid`: the true width of a one-leaf
-    stream whose output is the result, as the prefill kernel's logits; else
-    every padded column of its partial sums, as the decode kernel writes
-    its logits too). None gives an empty stream."""
+    stream's shape, its K split, the row stride of the product's output
+    (every padded column of its partial sums) and the columns written back
+    (`valid`: the true width of a one-leaf stream whose output is the
+    result, as the prefill kernels' logits; else every padded column, as
+    the decode kernel writes its logits too). None gives an empty
+    stream."""
     if sp is None:
         return [0] * STREAM_ARGS
     w, s, z, w_ls, q_ls, n, e_ls, qe_ls = ([0] * 3 for _ in range(8))
@@ -1355,9 +1356,9 @@ def stream_args(sp: Optional[StreamPlan], leaves: List[Dict], layered: bool,
             q_ls[j] = leaf["scale"].stride(0) if layered else 0
             qe_ls[j] = leaf["scale"].stride(1) if sp.E else 0
     G = 1 if not sp.gs else sp.K // sp.gs
-    ldo = sp.Nptot if valid is None else valid
     return w + s + z + w_ls + q_ls + n + e_ls + qe_ls + [
-        len(leaves), sp.K, G, sp.bits, ksplit, cps, ldo, ldo]
+        len(leaves), sp.K, G, sp.bits, ksplit, cps, sp.Nptot,
+        sp.Nptot if valid is None else valid]
 
 
 def qk_norm_arg(plan, packed: Dict, dev, who: str) -> int:

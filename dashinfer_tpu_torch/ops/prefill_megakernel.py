@@ -26,8 +26,8 @@ here:
   scratch's size (`slot_capacity`, `routed_tiles`);
 * the device's one scratch set (`reserve_scratch`, `device_scratch`,
   `release_scratch`, `check_status`), which the TP prefill segments of
-  every rank on the device share, and what a MoE launch leaves in it
-  (`kernel_gates`, `kernel_counts`).
+  every rank on the device share, and what a launch leaves in it
+  (`kernel_gates`, `kernel_counts`, `kernel_x_last`).
 
 Numerics (the TPU kernel's rounding points): residual in f32; x_norm bf16;
 WEIGHT-SIDE dequant, `w = bf16(f32(q) * s + z)` with s and z rounded to bf16
@@ -41,7 +41,10 @@ bf16; K/V quantized per token and KV head from the unquantized f32 values; the
 SwiGLU activation rounded to bf16; the last valid row n-1 through the final
 norm, bf16, then the lm_head in f32. The TPU kernel feeds the score product f32
 q and k; the CUDA kernel's tensor-core operands are bf16, which
-`bf16_scores=True` reproduces in the plain version. The pool rows `< n` of the
+`bf16_scores=True` reproduces in the plain version. The CUDA kernel's
+lm_head is the decode product at one row (the group affine on the f32 sums
+of bf16 x by the levels), summed in K splits: the plain version keeps the
+TPU kernel's weight-side form, and `lm_row_ref` the CUDA kernel's own. The pool rows `< n` of the
 owned pages are written and nothing else (the TPU kernel copies whole pages).
 """
 
@@ -61,6 +64,10 @@ from dashinfer_tpu_torch.runtime.kv_cache import KVCache
 
 MAX_BUCKET = 1024
 M_TILE = 128        # prompt rows per product item and per attention item
+# bytes of the lm_head's x records a 64-row chunk: one m16 tile of bf16
+# rows (row n - 1 and 15 zero rows) and their f32 sums (csrc/di_product.cuh
+# `rec_bytes(16)`)
+ROW_RECORD_BYTES = 16 * (mk.CHUNK_K * 2 + 4)
 E_TILE = 64         # routed rows per expert product item (csrc kETile)
 SLOT_ALIGN = 8      # an expert's first routed slot is a multiple of this
 _NEG_INF = torch.finfo(torch.float32).min
@@ -330,10 +337,22 @@ def prefill_mlp_block_ref(plan: PrefillPlan, packed: Dict, layer: int,
 def prefill_lm_ref(plan: PrefillPlan, packed: Dict, resid: torch.Tensor,
                    n: int) -> torch.Tensor:
     """The final RMSNorm of row n - 1, bf16, and the lm_head -> logits [V]
-    f32."""
+    f32, dequantized weight-side as the TPU kernel does (the reference of
+    PERF.md §2's logits rule)."""
     x = mk._rms(resid[n - 1:n], packed["final_norm"], plan.rms_eps).to(
         torch.bfloat16)
     return _wdeq_dot(x, packed, plan.lm, None)[0]
+
+
+def lm_row_ref(plan: PrefillPlan, packed: Dict,
+               x_last: torch.Tensor) -> torch.Tensor:
+    """The lm_head of one final-normed bf16 row `x_last` [hid] -> logits
+    [V] f32 with the CUDA kernels' own rounding (di_prefill_layer.cuh
+    `lm_row`, the decode product: bf16 x by the levels, the group affine
+    on the f32 sums). Fed the kernel's own row (`kernel_x_last`), it parts
+    from the kernel's logits only by the order of the f32 sums (the K
+    split and the splits' sum)."""
+    return mk._stream_dot(x_last[None], packed, plan.lm, None)[0]
 
 
 def chosen_experts(plan, logits: torch.Tensor) -> torch.Tensor:
@@ -476,11 +495,11 @@ def prefill_megakernel_ref(plan: PrefillPlan, packed: Dict, x0: torch.Tensor,
 _IARGS = ("norms", "final_norm", "qkv_b", "x0", "cos", "sin", "page_row",
           "n_tokens", "k_pool", "v_pool", "k_qp", "v_qp", "logits", "resid",
           "xn", "partial", "qb", "kb", "vb", "attn", "act", "x_last",
-          "barrier", "status", "edn", "acc", "gates", "sgate", "xe", "eidx",
-          "eslot", "ecount", "launches", "trace", "S", "L", "hid", "H", "KH",
-          "inter", "V", "ps", "maxPb", "kv_kind", "ql", "grid", "E", "k_top",
-          "norm_topk", "has_shared", "has_sgate", "shared_inter", "EP",
-          "scap", "qk_norm", "slopes")
+          "tickets", "barrier", "status", "edn", "acc", "gates", "sgate",
+          "xe", "eidx", "eslot", "ecount", "launches", "trace", "S", "L",
+          "hid", "H", "KH", "inter", "V", "ps", "maxPb", "kv_kind", "ql",
+          "grid", "E", "k_top", "norm_topk", "has_shared", "has_sgate",
+          "shared_inter", "EP", "scap", "qk_norm", "slopes")
 _P, _I = mk._P, mk._I
 
 # the kernel's phases, in order, each followed by a grid barrier
@@ -524,6 +543,38 @@ def choose_split(tiles: int, chunks: int, mtiles: int,
     return best[1], best[2]
 
 
+# chunk times an item of the one-row product costs beyond its chunks (the
+# ring's fill and drain, the epilogue, a split's partial sums and ticket):
+# fitted to the lm segment's times on one block an SM at 1 .. 14 splits
+# (PERF.md §6, the one-row lm_head; `tools/ab_decode.py --lm-splits`
+# times them)
+ROW_ITEM_CHUNKS = 5
+
+
+def choose_row_split(tiles: int, chunks: int, grid: int,
+                     per_sm: int = 1) -> Tuple[int, int]:
+    """K split of the lm_head's one-row product (di_prefill_layer.cuh
+    `lm_row`): (ksplit, chunks per split). An item is one (256-column tile,
+    split), dealt round the grid, `per_sm` blocks on an SM, which share its
+    bandwidth: the cost of a split, in chunk times on the busiest SM, is
+    the items the SM streams x (chunks of an item + ROW_ITEM_CHUNKS). Ties
+    go to the fewer splits. Qwen2-7B's whole vocab (the prefill
+    megakernel's lm_head, 132 blocks): 594 tiles x 2 splits of 28 chunks,
+    9 items an SM; its n = 2 shard (the TP lm segment, two blocks an SM):
+    297 x 2 of 28 (5 x 33 chunk times an SM), where 4 splits of 14 would
+    fill whole waves at 9 x 19."""
+    sms = max(1, grid // per_sm)
+    best = None
+    for ks in range(1, chunks + 1):
+        cps = -(-chunks // ks)
+        if -(-chunks // cps) != ks:
+            continue
+        cost = -(-tiles * ks // sms) * (cps + ROW_ITEM_CHUNKS)
+        if best is None or cost < best[0]:
+            best = (cost, ks, cps)
+    return best[1], best[2]
+
+
 # the kernel's scratch buffers (flat; IArg names of the same spelling)
 _SCRATCH_DTYPES = dict(
     partial=torch.float32, resid=torch.float32, xn=torch.bfloat16,
@@ -532,7 +583,7 @@ _SCRATCH_DTYPES = dict(
     barrier=torch.int32, status=torch.int32, edn=torch.float32,
     acc=torch.float32, gates=torch.float32, sgate=torch.float32,
     xe=torch.bfloat16, eidx=torch.int32, eslot=torch.int32,
-    ecount=torch.int32)
+    ecount=torch.int32, tickets=torch.int32)
 
 
 class _Launch:
@@ -557,8 +608,9 @@ class _Launch:
         mtiles = plan.S // M_TILE
         self.splits = {}
         for sp in plan.streams:
-            if sp.name == "lm":     # one row: its sums ARE the logits
-                self.splits[sp.name] = (1, sp.K // mk.CHUNK_K)
+            if sp.name == "lm":
+                self.splits[sp.name] = choose_row_split(
+                    sp.Nptot // 256, sp.K // mk.CHUNK_K, self.grid)
             else:
                 # an expert stream's row tiles: those of a full bucket's
                 # routed slots
@@ -598,19 +650,22 @@ def scratch_need(plan: PrefillPlan, splits: Dict,
     kernel's; a TP segment updates its rank's own). A MoE plan's experts
     work over the routed slots (`slot_capacity`): their x_norm, gate|up
     partials, SwiGLU activation and down partials are by slot, so they
-    grow with n x k and not with the experts."""
+    grow with n x k and not with the experts. The lm_head's K splits
+    (`choose_row_split`) write their partial sums into `partial` too, after
+    the last layer's are read, and count on one ticket a 256-column tile."""
     S = plan.S
     HD, KD = plan.H * plan.D, plan.KH * plan.D
     scap = slot_capacity(plan)
     parts = [splits[sp.name][0] * (scap if sp.E else S) * sp.Nptot
              for sp in plan.layer_streams if sp.name != "dn" or not plan.E]
+    parts.append(splits["lm"][0] * plan.lm.Nptot)
     need = dict(
         partial=max(parts), xn=S * plan.hid, qb=S * HD, kb=S * KD,
         vb=S * KD, attn=S * HD,
         act=max(S * plan.shared_inter,
                 (scap if plan.E else S) * plan.inter),
-        x_last=16 * plan.hid,           # row 0 is written
-        barrier=1, status=1)
+        x_last=plan.hid // mk.CHUNK_K * ROW_RECORD_BYTES // 2,   # bf16
+        tickets=plan.lm.Nptot // 256, barrier=1, status=1)
     if resid:
         need["resid"] = S * plan.hid
     if plan.E:
@@ -629,8 +684,9 @@ class _Scratch:
     launch's own S. The TP prefill segments (ops/tp_megakernel.py) of every
     rank on the device use the same set: their launches run one after the
     other too, and what one segment leaves for the all-reduce is a tensor of
-    its rank's, not scratch. A buffer is zeroed when it is allocated (rows
-    1.. of x_last must be zero; the rest is written before it is read)."""
+    its rank's, not scratch. A buffer is zeroed when it is allocated (the
+    tickets must start at 0, and each launch leaves them so; rows 1.. of
+    x_last's records stay zero; the rest is written before it is read)."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
@@ -725,19 +781,38 @@ def kernel_counts(plan: PrefillPlan, device) -> torch.Tensor:
     return sc.bufs["ecount"][:plan.L * plan.E].reshape(plan.L, plan.E)
 
 
+def kernel_x_last(plan: PrefillPlan, device) -> torch.Tensor:
+    """The final-normed bf16 row [hid] the device's last launch of a
+    kernel's lm_head (`plan`'s: the prefill megakernel or a TP lm segment)
+    left in x_last's records (csrc/di_product.cuh `write_record`, row 0 of
+    each 64-row chunk's m16 tile): `lm_row_ref`'s input."""
+    sc = _scratch[mk._indexed(device)]
+    chunks = plan.hid // mk.CHUNK_K
+    rec = sc.bufs["x_last"][:chunks * ROW_RECORD_BYTES // 2].reshape(
+        chunks, ROW_RECORD_BYTES // 2)
+    # element k of a chunk: lane k // 2's bf16 pair, k16 step s = k // 16,
+    # (tig, khalf) from k % 16, at ((s * 32 + tig) * 16 + 8 * khalf) bytes
+    k = torch.arange(mk.CHUNK_K)
+    kk = k % 16
+    idx = (k // 16 * 32 + (kk % 8) // 2) * 8 + 4 * (kk // 8) + k % 2
+    return rec[:, idx.to(rec.device)].reshape(plan.hid)
+
+
 def check_status(device, who: str = "prefill_megakernel") -> None:
     """Waits for the device and raises if a launch on it that uses the
     device's prefill scratch (`who`: the kernel named in the error) gave up
-    at a grid barrier (blocks that never became co-resident)."""
+    at a grid barrier (blocks that never became co-resident) or at a wait
+    of a product's copy ring."""
     sc = _scratch.get(mk._indexed(device))
     if sc is None or "status" not in sc.bufs:
         return
     code = int(sc.bufs["status"].item())
     if code:
-        sc.bufs["status"].zero_()
-        sc.bufs["barrier"].zero_()
-        raise RuntimeError(f"{who}: grid barrier after phase {code - 1} "
-                           "timed out")
+        # a launch that gave up may leave the barrier or tickets counted
+        for name in ("status", "barrier", "tickets"):
+            if name in sc.bufs:
+                sc.bufs[name].zero_()
+        raise RuntimeError(f"{who}: {mk.status_fault(code)}")
 
 
 def launch_geometry(plan: PrefillPlan, device) -> Dict:

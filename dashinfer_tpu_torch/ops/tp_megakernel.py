@@ -1020,7 +1020,11 @@ class _PrefillLaunch:
             raise RuntimeError("tp prefill segments: a kernel does not fit "
                                "on the device (occupancy query gave 0)")
         mtiles = plan.S // pmk.M_TILE
-        self.splits = {"lm": (1, plan.lm.K // mk.CHUNK_K)}
+        # the lm segment's blocks: two an SM where they fit
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        self.splits = {"lm": pmk.choose_row_split(
+            plan.lm.Nptot // 256, plan.lm.K // mk.CHUNK_K, self.grid["lm"],
+            self.grid["lm"] // sms)}
         for sp in plan.layer_streams:
             self.splits[sp.name] = pmk.choose_split(
                 sp.Nptot // 256, sp.K // mk.CHUNK_K, mtiles,

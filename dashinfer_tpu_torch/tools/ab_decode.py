@@ -15,7 +15,9 @@ and the TP prefill segments of csrc/tp_prefill_segments.cu (attn, mlp and
 lm of rank 0 at layer 0, a (1, 2) mesh whose ranks share the card, INT8,
 the u4 and the i8 stream) at the same buckets (the mlp segment's
 per-phase times at 128 and 1024, where the checkout's wrapper takes a
-trace), or with `--tp-prefill` those TP prefill segments alone, or with
+trace) and the lm segment at Qwen3-8B's 75968-column shard and at
+Baichuan2-13B's TP check geometry (one layer each), or with
+`--tp-prefill` those TP prefill segments alone, or with
 `--tp` the TP segments (csrc/tp_segments.cu: attn, mlp or moe, and lm of
 rank 0 at layer 0, with the attn and moe segments' per-phase times) and
 the TP decode step of Qwen2-7B and of Qwen1.5-MoE on a (1, 2) mesh whose
@@ -44,7 +46,13 @@ sampler's Gumbel noise of one decode step (`ops/sampling.py`
 `gumbel_noise`, every row seeded, K = 128, B = 8 and 32) drawn on the card
 and drawn on the host and copied: host ms a call, device ms a call with
 the host ahead, ms to the noise's arrival, and ms it adds to a step behind
-a 4.5 ms forward, for each checkout root
+a 4.5 ms forward, or with `--lm-splits` the prefill kernels' one-row
+lm_head (di_prefill_layer.cuh `lm_row`) at each K split in LM_SPLITS: a
+launch of the TP prefill lm segment (rank 0 of a (1, 2) mesh, bucket 1024,
+Qwen2-7B u4) on its own grid and on one block an SM, and the prefill
+megakernel's lm_head phase at bucket 128 (block 0's trace), the data that
+ops/prefill_megakernel.py `choose_row_split` was fitted to (a checkout
+that has that function), for each checkout root
 given, in the order
 given, each in a process of its own that imports that checkout's
 `dashinfer_tpu_torch` and `chip_smoke.py`.
@@ -57,7 +65,8 @@ run kept on one fixed state, the largest |difference| from the first
 run's (the decode mode: the decode megakernel's logits and pool at u4
 B = 8 and the TP attn segment's o partial and pool; `--moe`: the MoE
 megakernel's logits at B = 8; `--tp`: every segment's output; `--prefill`:
-each prefill launch's logits and each TP prefill segment's output). A
+each prefill launch's logits and pool and each TP prefill segment's
+output). A
 change that keeps the arithmetic shows 0 against the parent.
 
     python -m dashinfer_tpu_torch.tools.ab_decode build/parent . . build/parent
@@ -68,6 +77,7 @@ change that keeps the arithmetic shows 0 against the parent.
     python -m dashinfer_tpu_torch.tools.ab_decode --kernels build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --qmm build/parent . . build/parent
     python -m dashinfer_tpu_torch.tools.ab_decode --noise build/parent . . build/parent
+    python -m dashinfer_tpu_torch.tools.ab_decode --lm-splits .
 """
 
 import json
@@ -90,10 +100,12 @@ _KERNELS = {"decode": (("megakernel", "mk_kernel"),),
                         ("quant_matmul", "qmm_")),
             "qmm": (("quant_matmul", "qmm_"),),
             "tp": (("tp_segments", "seg_kernel"), ("megakernel", "mk_kernel")),
-            "noise": ()}
+            "noise": (),
+            "lm_splits": (("prefill_megakernel", "pmk_kernel"),
+                          ("tp_prefill_segments", "pseg_kernel"))}
 _FLAGS = {"--prefill": "prefill", "--moe": "moe", "--kernels": "kernels",
           "--qmm": "qmm", "--noise": "noise", "--tp": "tp",
-          "--tp-prefill": "tp_prefill"}
+          "--tp-prefill": "tp_prefill", "--lm-splits": "lm_splits"}
 PREFILL_BUCKETS = (128, 256, 512, 1024)
 PREFILL_TRACED = (128, 1024)
 PHASE_TRACES = 5              # launches a phase trace is the mean of
@@ -109,6 +121,7 @@ QMM_MS = (1, 8, 32)
 QMM_KINDS = (("u4_g128", 4, 128), ("i8_g128", 8, 128), ("u4_pc", 4, 0))
 QMM_SPLIT = ("k_proj+v_proj", "gate_proj+up_proj")   # profiled at M = 8
 PREFILL_SMALL = 32            # the per-op prefill bucket below 128
+LM_SPLITS = (1, 2, 4, 7, 8, 14)   # K splits of Qwen2-7B's 56 lm chunks
 # outputs a run keeps for AB_DIFF (name -> tensor on the host), saved where
 # the AB_DUMP environment variable says
 _DUMPS = {}
@@ -381,6 +394,8 @@ def _prefill(cs, name, cfg, params, gen, dev) -> dict:
                                                 [args], iters=5)
         pmk.check_status(dev)
         _keep(f"{name}_logits_{bucket}", pmk.prefill_megakernel(*args))
+        _keep(f"{name}_pool_k_{bucket}", st["cache"].k)
+        _keep(f"{name}_pool_v_{bucket}", st["cache"].v)
         out[f"{name}_ops_bound_ms_{bucket}"] = cs.bounds(
             0, plan.operations(bucket))["ops_ms"]
         if bucket in PREFILL_TRACED:
@@ -453,6 +468,114 @@ def _tp_prefill(cs, cfg, params, gen, dev, stream="u4") -> dict:
             tpk.check_prefill_status(dev)
         del st
         torch.cuda.empty_cache()
+    return out
+
+
+def _lm_shards(cs, gen, dev) -> dict:
+    """ms a launch of the TP prefill lm segment (rank 0 of a (1, 2) mesh,
+    bucket 1024, n = 1024) at Qwen3-8B's 75968-column shard and at
+    Baichuan2-13B's TP check geometry (zero-mean weights, unit-normed lm_head
+    columns, as chip_smoke.py's checks take them), each at one layer: the
+    segment reads the final norm and the lm_head only."""
+    import dataclasses
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode, ModelConfig
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+    from dashinfer_tpu_torch.tools import bench_stream
+    out = {}
+    for name, cfg, make in (
+            ("qwen3_8b", dataclasses.replace(ModelConfig(**cs.QWEN3_8B),
+                                             num_layers=1),
+             lambda c: bench_stream.random_a16w4_params(c, cs.SEED, dev,
+                                                        cs.GROUP)),
+            ("baichuan_tp_check", cs.baichuan_config(
+                **dict(cs.BAICHUAN_TP_GEOMETRY, num_layers=1)),
+             lambda c: cs.random_baichuan_params(c, cs.SEED, dev))):
+        params = make(cfg)
+        s = cs.tp_prefill_setup(cfg, params, 2, dev)
+        plan = tpk.make_tp_prefill_plans(
+            cfg, cs.tp_prefill_rt(2, CacheMode.INT8), s["parts"], [1024],
+            s["tp_plan"])[1024]
+        st = cs.tp_prefill_inputs(cfg, params, s, plan, CacheMode.INT8,
+                                  1024, gen, dev)
+        x = st["x0"].float()
+        out[f"tp_prefill_lm_{name}_ms"] = cs.time_ms(
+            lambda: tpk.tp_prefill_lm_segment(plan, s["packs"][0], x,
+                                              st["n"]), [()], iters=10)
+        _keep(f"tp_prefill_lm_{name}", tpk.tp_prefill_lm_segment(
+            plan, s["packs"][0], x, st["n"]))
+        tpk.check_prefill_status(dev)
+        del params, s, plan, st, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lm_splits(cs, cfg, params, gen, dev) -> dict:
+    """`--lm-splits`: ms of the one-row lm_head at each K split in
+    LM_SPLITS (see the module's doc), beside the split the wrappers take.
+    Each wrapper's own geometry is put back after; the scratch is grown
+    for the largest split."""
+    import torch
+    from dashinfer_tpu_torch.config import CacheMode
+    from dashinfer_tpu_torch.ops import megakernel as mk
+    from dashinfer_tpu_torch.ops import prefill_megakernel as pmk
+    from dashinfer_tpu_torch.ops import tp_megakernel as tpk
+
+    def sweep(launch, key, call):
+        grid, split = launch.grid, launch.splits[key]
+        out = {}
+        try:
+            for ks in LM_SPLITS:
+                launch.splits[key] = (ks, -(-56 // ks))
+                out[str(ks)] = call()
+        finally:
+            launch.grid, launch.splits[key] = grid, split
+        return out
+
+    def grown(launch):
+        need = dict(launch.need)
+        need["partial"] = max(need["partial"],
+                              max(LM_SPLITS) * plan.lm.Nptot)
+        pmk.device_scratch(dev, need)
+
+    out = {}
+    s = cs.tp_prefill_setup(cfg, params, 2, dev)
+    plan = tpk.make_tp_prefill_plans(
+        cfg, cs.tp_prefill_rt(2, CacheMode.INT8), s["parts"], [1024],
+        s["tp_plan"])[1024]
+    st = cs.tp_prefill_inputs(cfg, params, s, plan, CacheMode.INT8, 1024,
+                              gen, dev)
+    x = st["x0"].float()
+    launch, _ = tpk._prefill_launch_state(plan, dev)
+    grown(launch)
+    grid = dict(launch.grid)
+    out["tp_lm_split"] = launch.splits["lm"]
+    for g in (grid["lm"], grid["lm"] // 2):
+        def one():
+            launch.grid = dict(grid, lm=g)
+            ms = cs.time_ms(lambda: tpk.tp_prefill_lm_segment(
+                plan, s["packs"][0], x, st["n"]), [()], iters=10)
+            tpk.check_prefill_status(dev)
+            return ms
+        out[f"tp_lm_ms_grid{g}"] = sweep(launch, "lm", one)
+    del s, plan, st, x
+    torch.cuda.empty_cache()
+    plan, packed = cs.pmk_plan_pack(cfg, params, 128, CacheMode.INT8)
+    st = cs.pmk_inputs(cfg, params, plan, CacheMode.INT8, 128, gen, dev)
+    args = (plan, packed, st["x0"], st["cos"], st["sin"], st["page_row"],
+            st["n"], st["cache"])
+    launch, _ = pmk._launch_state(plan, dev)
+    grown(launch)
+    out["pmk_lm_split"] = launch.splits["lm"]
+    out["pmk_grid"] = launch.grid
+
+    def phase():
+        t = _mean_phases(mk, pmk._phase_names(plan),
+                         lambda tr: pmk.prefill_megakernel(*args, trace=tr),
+                         dev)["lm_head"]
+        pmk.check_status(dev)
+        return t["work"] + t["wait"]
+    out["pmk_lm_head_ms_128"] = sweep(launch, "lm", phase)
     return out
 
 
@@ -719,6 +842,10 @@ def _run(cs, root: str, mode: str) -> None:
         return
     cfg = ModelConfig(**cs.QWEN2_7B)
     params = cs.random_qwen2_7b_params(cs.SEED, dev)
+    if mode == "lm_splits":
+        print("AB", json.dumps(dict(root=root, **_lm_splits(
+            cs, cfg, params, gen, dev))), flush=True)
+        return
     if mode == "decode":
         out = {"root": root}
         lens32 = [(37 + 61 * i) % 1500 + 1 for i in range(32)]
@@ -758,6 +885,7 @@ def _run(cs, root: str, mode: str) -> None:
     out.update(_tp_prefill(cs, cfg, i8, gen, dev, "i8"))
     del i8, embed
     torch.cuda.empty_cache()
+    out.update(_lm_shards(cs, gen, dev))
     if tp_only:
         print("AB", json.dumps(out), flush=True)
         return

@@ -68,22 +68,29 @@ def relayout(q: torch.Tensor, kv_heads: int, variant: str = "rows",
 
 def measure(device="cuda", seed: int = 0) -> List[Dict]:
     """Per variant: equality with the plain version and us per re-layout
-    (a CUDA graph of 28 launches, one per layer of a step)."""
+    (a CUDA graph of 28 launches, one per layer of a step), and beside it
+    the same graph of one-row re-layouts (B = 1: 30 KB moved, so what it
+    takes is the floor of one kernel node in a graph replay)."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H * D), generator=gen, device=dev)
+    q1 = q[:1].contiguous()
     want = relayout_plain(q, KH)
     plain_ms = graph_ms(lambda: relayout_plain(q, KH), 28)
     rows = []
     for variant in VARIANTS:
         out = torch.full((B, KH, G8, D), float("nan"), device=dev)
+        out1 = torch.empty((1, KH, G8, D), device=dev)
         relayout(q, KH, variant, out)
         equal = bool(torch.equal(out, want))
         ms = graph_ms(lambda: relayout(q, KH, variant, out), 28)
+        floor_ms = graph_ms(lambda: relayout(q1, KH, variant, out1), 28)
         rows.append(dict(variant=variant, equal=equal,
                          max_abs_err=(out - want).abs().max().item(),
                          ms=ms, plain_ms=plain_ms,
-                         bytes=q.numel() * 4 + out.numel() * 4))
+                         bytes=q.numel() * 4 + out.numel() * 4,
+                         floor_ms=floor_ms,
+                         floor_bytes=q1.numel() * 4 + out1.numel() * 4))
     return rows
 
 
@@ -95,7 +102,8 @@ def main(argv=None) -> int:
         for r in measure():
             print(f"{r['variant']:5s} equal={r['equal']} "
                   f"{1e3 * r['ms']:.2f} us/re-layout (plain version "
-                  f"{1e3 * r['plain_ms']:.2f})", flush=True)
+                  f"{1e3 * r['plain_ms']:.2f}; one row, the launch floor, "
+                  f"{1e3 * r['floor_ms']:.2f})", flush=True)
             print(json.dumps(r))
     return 0
 
