@@ -118,6 +118,24 @@ on one of them, and then prints no final result line):
               tokens equal across the paths, an adapter unloaded and
               another loaded into its slot mid-run, ms/step with and
               without adapters and TTFT.
+  serve_multistep
+              Qwen2-7B served with decode windows (decode_steps_per_launch
+              4: four decode steps, their samplers and bookkeeping in one
+              CUDA graph) on the default path, per-op and on a (1, 2) mesh
+              sharing the card, each beside the single-step serving of the
+              same path, every prefill admitted before the first decode
+              step: every token of the six requests equal, the kernels'
+              launches == 4 x windows + single steps, one graph capture a
+              window key; the default path also with windows of 8; ms/step
+              of both side by side. On the window engines: two requests
+              with bad words from the single-step run's output and
+              no_repeat_ngram_size 3 through windows (the on-device mask)
+              and through the host channel (single steps), equal and clean
+              by the host oracle; a top_logprobs = 5 request on the default
+              and per-op paths (top-1 id and logprob, finite, <= 0, the
+              paths within 4 x LOGITS_RTOL x max|logit| where their tokens
+              agree); a seeded JSON-mode request over a 152,064-id
+              JSON-ish tokenizer, a JSON prefix.
 Then Qwen2-7B's weights go, and Qwen3-8B (per-head QK RMSNorm; 36 layers,
 32 heads on 8 KV heads, vocab 151936, random a16w4 weights made on the
 card with q_norm / k_norm not all ones) runs:
@@ -1317,7 +1335,8 @@ def model_name(cfg) -> str:
 
 
 def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
-          devices=None):
+          devices=None, n_steps: int = 1, together: bool = False,
+          tokenizer=None, extra=None):
     """Six concurrent requests through `Engine`: path "megakernel" (every
     flag at its default: decode and qualifying prefills through the two
     megakernels), "per-op" (`enable_megakernel` off) or "pack_only"
@@ -1329,8 +1348,19 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
     1024 through the TP prefill segments (a MoE model's per-op TP), the
     others per-op TP), "tp prefill per-op" (DI_PREFILL_MEGAKERNEL=0: every
     prefill per-op TP, as before the TP prefill segments) or "tp per-op".
-    `cfg`: Qwen2-7B unless given (the MoE model). Returns (launch counts of
-    the timed requests, generated tokens per request)."""
+    `cfg`: Qwen2-7B unless given (the MoE model). `n_steps`:
+    decode_steps_per_launch (windows of n_steps decode steps in one CUDA
+    graph; their launch counts and captures are checked, and the warm-up
+    request runs one window, so that its capture is set-up). `together`:
+    every prefill admitted in one tick of the loop (max_prefills_per_tick
+    0, the loop held while the six requests are started), before any
+    decode step, so that every decode step sees the same batch whatever
+    n_steps is. `tokenizer`: the engine's (guided decoding). `extra`:
+    fn(eng, run, name, prompts, tokens) called after the timed requests,
+    on the same engine. Returns (launch counts of the timed requests,
+    generated tokens per request, memory); the details entry also holds
+    the runtime's window / single-step counts and the windows'
+    captures."""
     import torch
     from dashinfer_tpu_torch import (CacheMode, Engine, GenerateRequestStatus,
                                      GenerationConfig, ModelConfig,
@@ -1368,8 +1398,14 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
         b = b.update({"weight_residency": "pack_only"})
     if devices:
         b = b.mesh(1, len(devices))
+    if n_steps > 1:
+        b = b.update({"decode_steps_per_launch": n_steps})
+    if together:
+        b = b.update({"max_prefills_per_tick": 0})
     rt = b.build()
     check(rt.enable_megakernel == megakernel, "enable_megakernel default")
+    if n_steps > 1:
+        label += f" x{n_steps}"
     torch.cuda.synchronize()
     pmk.release_scratch(dev)    # what the kernel checks left: the install
     torch.cuda.empty_cache()    # reserves its own, before it plans the pool
@@ -1382,7 +1418,8 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
         os.environ["DI_PREFILL_MEGAKERNEL"] = "0"
     try:
         eng = Engine().install_model(name, rt, params=params,
-                                     model_config=cfg, device=devices or dev)
+                                     model_config=cfg, device=devices or dev,
+                                     tokenizer=tokenizer)
     finally:
         os.environ.pop("DI_PREFILL_MEGAKERNEL", None)
     del params
@@ -1434,27 +1471,39 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
         _, h, _ = eng.start_request(
             name, torch.randint(1, cfg.vocab_size, (20,),
                                 generator=g).tolist(),
-            GenerationConfig(max_length=24, do_sample=False, top_k=1,
-                             eos_token_id=-1))
+            GenerationConfig(max_length=20 + max(4, n_steps),
+                             do_sample=False, top_k=1, eos_token_id=-1))
         eng.sync_request(name, h, timeout_s=600)
         # the kernels count their own launches on the card (CUDA graph
         # replays of the decode forward included)
         for c in counters.values():
             c.reset()
+        dl0 = dict(run.decode_launches)
         t0 = time.monotonic()
-        handles = []
-        for i, n in enumerate(PROMPT_LENS):
-            ids = torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
-            gc = GenerationConfig(max_length=n + new_tokens,
-                                  do_sample=bool(i % 2), top_k=20,
-                                  temperature=0.8, seed=1000 + i,
-                                  eos_token_id=-1)
-            _, h, q = eng.start_request(name, ids, gc)
-            handles.append((h, q, gc.do_sample))
+        handles, prompts = [], []
+        with held_loop(eng, name, together):
+            for i, n in enumerate(PROMPT_LENS):
+                ids = torch.randint(1, cfg.vocab_size, (n,),
+                                    generator=g).tolist()
+                gc = GenerationConfig(max_length=n + new_tokens,
+                                      do_sample=bool(i % 2), top_k=20,
+                                      temperature=0.8, seed=1000 + i,
+                                      eos_token_id=-1)
+                _, h, q = eng.start_request(name, ids, gc)
+                handles.append((h, q, gc.do_sample))
+                prompts.append(ids)
         for h, _, _ in handles:
             eng.sync_request(name, h, timeout_s=600)
         wall = time.monotonic() - t0
         launches = {k: c.read() for k, c in counters.items()}
+        decode_launches = {k: v - dl0[k]
+                           for k, v in run.decode_launches.items()}
+        captures = {str(k): f.window.captures
+                    for k, f in run._decode_steps.items()
+                    if hasattr(f, "window")}
+        if extra is not None:
+            extra(eng, run, name, prompts,
+                  [q.GetAllGeneratedTokens() for _, q, _ in handles])
     finally:
         eng.release_model(name)
     check(pmk.scratch_bytes(dev) == 0,
@@ -1584,9 +1633,26 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
               f"through the TP prefill segments and "
               f"{len(PROMPT_LENS) - seg_prefills} per-op TP prefills "
               f"({expect})")
-    details[f"serving_{name}_{path}"] = dict(
+    if n_steps > 1:
+        # a window launches the path's decode kernels n_steps times, in one
+        # CUDA graph captured once (in the warm-up request's window)
+        check(decode_launches["multi"] > 0 and
+              steps == n_steps * decode_launches["multi"] +
+              decode_launches["single"] and
+              list(captures.values()) == [1],
+              f"{label}: {steps} decode steps by the kernels' counts, "
+              f"windows / single steps {decode_launches}, window graph "
+              f"captures {captures}")
+    else:
+        check(decode_launches == {"multi": 0, "single": steps},
+              f"{label}: {steps} decode steps by the kernels' counts, "
+              f"windows / single steps {decode_launches}")
+    key = f"serving_{name}_{path}" + (f"_x{n_steps}" if n_steps > 1
+                                      else "") + \
+        ("_together" if together else "")
+    details[key] = dict(
         requests=reqs, launches=launches, wall_s=wall, decode_steps=steps,
-        memory=memory)
+        memory=memory, decode_launches=decode_launches, captures=captures)
     for r in reqs:
         print(f"{label} request prompt={r['prompt_len']:4d} "
               f"{'top-k' if r['sampled'] else 'greedy':6s} {r['status']} "
@@ -1602,6 +1668,31 @@ def serve(params, dev, details, path: str, new_tokens: int, cfg=None,
           f"({memory['logical_pages']} logical pages), prefill scratch "
           f"{memory['prefill_scratch_bytes'] / gib:.2f} GiB", flush=True)
     return launches, tokens, memory
+
+
+class held_loop:
+    """With `hold`, the model's scheduler loop waits (on a control message)
+    while the block starts requests, so that its next tick finds them all
+    pending."""
+
+    def __init__(self, eng, name, hold: bool):
+        import threading
+        self.loop = eng._loops[name] if hold else None
+        self.go = threading.Event()
+        self.waiting = threading.Event()
+
+    def __enter__(self):
+        if self.loop is not None:
+            def wait():
+                self.waiting.set()
+                self.go.wait(60)
+            self.loop.submit(wait)
+            check(self.waiting.wait(60), "the scheduler loop did not stop")
+        return self
+
+    def __exit__(self, *exc):
+        self.go.set()
+        return False
 
 
 def agree_first(a_tokens, b_tokens, what, need=8):
@@ -5766,6 +5857,284 @@ def serve_lora_run(params, dev, details, path, new_tokens, adapters, swap):
             stats["swap"][0]["tokens"], stats)
 
 
+# -- multi-step decode windows and the per-token features --------------------
+
+MS_STEPS = 4                 # decode_steps_per_launch of the window runs
+MS_TOKENS = {"megakernel": 64, "per-op": 32, "tp": 32}   # new tokens a request
+MS_FEATURE_TOKENS = 32       # of the ban and logprobs requests
+MS_JSON_TOKENS = 48
+MS_TOP_LOGPROBS = 5
+# tests/test_guided.py's token strings: even ids JSON-ish, odd ids garbage
+JSONISH = ['{', '}', '[', ']', '"', ':', ',', ' ', 'a', 'b', 'key', 'val',
+           '1', '2', '37', 'true', 'false', 'null', '"x"', '0.5', '-3',
+           '{"', '"}', '": ', 'e8', '\\n']
+GARBAGE = ['<?', 'def ', '>>>', '%%', ');', 'END', '\x01', '<<']
+JSON_EOS = 1                 # a garbage string: allowed once the JSON is whole
+
+
+class JsonishTokenizer:
+    """A tokenizer over `n` ids for the JSON enforcer: id i decodes to
+    JSONISH (even i) or GARBAGE (odd i), cycling."""
+
+    def __init__(self, n: int):
+        self.strings = [(JSONISH if i % 2 == 0 else GARBAGE)[
+            (i // 2) % len(JSONISH if i % 2 == 0 else GARBAGE)]
+            for i in range(n)]
+
+    def __len__(self):
+        return len(self.strings)
+
+    def decode(self, ids, **kw):
+        return "".join(self.strings[i] for i in ids)
+
+    def batch_decode(self, batch, **kw):
+        return [self.decode(ids) for ids in batch]
+
+
+def oracle_banned(ctx, gen, vocab: int) -> set:
+    """The runtime's host oracle (`_banned_ids`) on a context, capped at the
+    vocab (so not capped): the tokens the request's bans forbid next."""
+    from types import SimpleNamespace as NS
+    from dashinfer_tpu_torch.engine.model_runtime import ModelRuntime
+    out = ModelRuntime._banned_ids(
+        NS(rt=NS(max_banned_tokens=vocab)),
+        NS(gen_cfg=gen, input_ids=list(ctx), generated_ids=[]))
+    return set() if out is None else {t for t in out if t >= 0}
+
+
+def serve_together(eng, name, reqs):
+    """Requests [(ids, GenerationConfig)] started while the loop is held
+    (admitted in one tick); returns their queues, each finished."""
+    from dashinfer_tpu_torch import GenerateRequestStatus
+    with held_loop(eng, name, True):
+        hs = [eng.start_request(name, ids, gc) for ids, gc in reqs]
+    for _, h, _ in hs:
+        eng.sync_request(name, h, timeout_s=600)
+    for _, h, q in hs:
+        check(q.GenerateStatus() == GenerateRequestStatus.GenerateFinished,
+              f"{name}: a request ended {q.GenerateStatus().value}")
+        eng.release_request(name, h)
+    return [q for _, _, q in hs]
+
+
+def logprob_request(eng, run, name, ids, what):
+    """One greedy request with top_logprobs = 5: every token is its top-1
+    id, its logprob is the top-1 logprob, every value finite and <= 0, the
+    top-5 in descending order; it takes single steps only. Returns
+    (tokens, token logprobs, top pairs)."""
+    from dashinfer_tpu_torch import GenerationConfig
+    dl0 = dict(run.decode_launches)
+    gc = GenerationConfig(max_length=len(ids) + MS_FEATURE_TOKENS,
+                          do_sample=False, top_k=1, eos_token_id=-1,
+                          logprobs=True, top_logprobs=MS_TOP_LOGPROBS)
+    el = serve_together(eng, name, [(ids, gc)])[0].GetNoWait()
+    toks, lps, pairs = (el.ids_from_generate, el.token_logprobs_list,
+                        el.log_probs_list)
+    check(len(toks) == len(lps) == len(pairs) == MS_FEATURE_TOKENS,
+          f"{what} logprobs: {len(toks)} tokens, {len(lps)} logprobs, "
+          f"{len(pairs)} top lists")
+    for i, (t, lp, pr) in enumerate(zip(toks, lps, pairs)):
+        vals = [v for _, v in pr]
+        check(len(pr) == MS_TOP_LOGPROBS and pr[0][0] == t and
+              vals[0] == lp and all(math.isfinite(v) and v <= 0
+                                    for v in vals) and
+              vals == sorted(vals, reverse=True),
+              f"{what} logprobs, token {i}: token {t}, logprob {lp}, top "
+              f"{pr}")
+    check(run.decode_launches["multi"] == dl0["multi"],
+          f"{what}: a logprobs request ran in a window")
+    return toks, lps, pairs
+
+
+def ban_requests(eng, run, name, prompts, single):
+    """Two greedy requests whose bad words come from the single-step run's
+    own output (greedy request 0's 4th token; greedy request 2's 6th and
+    7th) with no_repeat_ngram_size 3: through windows with the on-device
+    mask, then through the host channel (`_device_ban_fits` forced false:
+    single synchronous steps). The tokens are equal, the first run used
+    windows, and no token is one the host oracle bans at its position."""
+    from dashinfer_tpu_torch import GenerationConfig
+    words = [[single[0][3]], [single[2][5], single[2][6]]]
+
+    def reqs():
+        return [(prompts[i], GenerationConfig(
+            max_length=len(prompts[i]) + MS_FEATURE_TOKENS, do_sample=False,
+            top_k=1, eos_token_id=-1, bad_words_ids=words,
+            no_repeat_ngram_size=3)) for i in (0, 2)]
+    dl0 = dict(run.decode_launches)
+    dev = [q.GetAllGeneratedTokens() for q in serve_together(eng, name,
+                                                             reqs())]
+    dl1 = dict(run.decode_launches)
+    run._device_ban_fits = lambda g: False
+    try:
+        host = [q.GetAllGeneratedTokens() for q in serve_together(
+            eng, name, reqs())]
+    finally:
+        del run._device_ban_fits
+    dl2 = dict(run.decode_launches)
+    windows = dl1["multi"] - dl0["multi"]
+    check(dev == host, f"bans: the on-device mask's tokens {dev} differ "
+          f"from the host channel's {host}")
+    check(windows > 0 and dl2["multi"] == dl1["multi"],
+          f"bans: windows {windows} with the device mask, "
+          f"{dl2['multi'] - dl1['multi']} with the host channel")
+    for (ids, gc), toks in zip(reqs(), dev):
+        for t, tok in enumerate(toks):
+            check(tok not in oracle_banned(ids + toks[:t], gc,
+                                           run.cfg.vocab_size),
+                  f"bans: token {t} ({tok}) is banned by the host oracle")
+    moved = [d != s[:MS_FEATURE_TOKENS] for d, s in zip(dev, (single[0],
+                                                             single[2]))]
+    print(f"bans (words {words}, no_repeat_ngram_size 3): {windows} "
+          f"windows with the device mask, {dl2['single'] - dl1['single']} "
+          f"single steps through the host channel, tokens equal, none "
+          f"banned by the host oracle; the bans moved the tokens of "
+          f"request(s) {[i for i, m in zip((0, 2), moved) if m]}",
+          flush=True)
+    return dict(words=words, windows=windows,
+                host_single_steps=dl2["single"] - dl1["single"])
+
+
+def json_request(eng, run, name, tok, ids):
+    """One seeded json_object request (the JsonishTokenizer over the whole
+    vocab, EOS a garbage id): its text is a JSON prefix by the port's
+    `advance_str` (whole JSON, by `json.loads`, if the acceptor says so);
+    it takes single steps only."""
+    from dashinfer_tpu_torch import GenerationConfig
+    from dashinfer_tpu_torch.engine.guided import (JsonState, advance_str,
+                                                   is_complete)
+    dl0 = dict(run.decode_launches)
+    gc = GenerationConfig(max_length=len(ids) + MS_JSON_TOKENS,
+                          do_sample=True, top_k=0, temperature=1.0, seed=11,
+                          eos_token_id=JSON_EOS,
+                          response_format={"type": "json_object"})
+    out = serve_together(eng, name, [(ids, gc)])[0].GetAllGeneratedTokens()
+    text = "".join(tok.strings[i] for i in out if i != JSON_EOS)
+    st = JsonState()
+    check(advance_str(st, text), f"JSON mode: not a JSON prefix: {text!r}")
+    if is_complete(st):
+        json.loads(text)
+    check(run.decode_launches["multi"] == dl0["multi"],
+          "JSON mode: a guided request ran in a window")
+    print(f"JSON mode: {len(out)} tokens, {'whole JSON' if is_complete(st) else 'a JSON prefix'}: "
+          f"{text[:160]!r}", flush=True)
+    return dict(tokens=len(out), complete=is_complete(st), text=text[:400])
+
+
+def check_serving_multistep(params, dev, details):
+    """Qwen2-7B served with decode windows of MS_STEPS steps (one CUDA graph
+    a window) on the default path, per-op and on a (1, 2) mesh whose ranks
+    share the card (TP segments), each beside the single-step serving of
+    the same path in this call, every prefill admitted before the first
+    decode step so that both see the same batch at every step: every
+    token, greedy and seeded, equal; the launch counts match the windows
+    and one graph capture a window key (serve()). The default path also
+    with windows of 8. On the default path's window engine: bans (device
+    mask in windows against the host channel), logprobs (and on the per-op
+    one, the two paths' logprobs within 4 x LOGITS_RTOL x max|logit| where
+    their tokens agree) and guided JSON."""
+    import torch
+    from dashinfer_tpu_torch import ModelConfig
+    from dashinfer_tpu_torch.engine.guided import JsonFormatEnforcer
+    cfg = ModelConfig(**QWEN2_7B)
+    tok = JsonishTokenizer(cfg.vocab_size)
+    t0 = time.monotonic()
+    JsonFormatEnforcer(tok, JSON_EOS, cfg.vocab_size).allowed_mask()
+    build_s = time.monotonic() - t0
+    print(f"JSON enforcer over {cfg.vocab_size} ids: trie and first mask in "
+          f"{build_s:.2f} s", flush=True)
+    # the logprobs tolerance: each path's logits within LOGITS_RTOL x
+    # max|logit| of the reference (section 2), so the two paths within
+    # twice that; a log-softmax moves by at most twice its logits' max|d|
+    rows = paths_teacher_forced(cfg, params, dev, n=20, steps=8)
+    max_logit = max(r[2] for r in rows)
+    lp_tol = 4 * LOGITS_RTOL * max_logit
+    out = dict(enforcer_build_s=build_s, logprob_tol=lp_tol,
+               teacher_forced_max_d=max(r[0] for r in rows))
+    devices = tp_devices(dev)
+    tokens, features = {}, {}
+    for path, n_steps in (("megakernel", 1), ("megakernel", MS_STEPS),
+                          ("megakernel", 8), ("per-op", 1),
+                          ("per-op", MS_STEPS), ("tp", 1),
+                          ("tp", MS_STEPS)):
+        extra = None
+        if n_steps == MS_STEPS and path != "tp":
+            def extra(eng, run, name, prompts, toks, path=path):
+                if path == "megakernel":
+                    features["bans"] = ban_requests(
+                        eng, run, name, prompts, tokens[("megakernel", 1)])
+                    features["json"] = json_request(eng, run, name, tok,
+                                                    prompts[1])
+                features[f"logprobs {path}"] = logprob_request(
+                    eng, run, name, prompts[0], path)
+        _, tokens[(path, n_steps)], _ = serve(
+            params, dev, details, path, MS_TOKENS[path],
+            devices=devices if path == "tp" else None, n_steps=n_steps,
+            together=True, tokenizer=tok if extra else None, extra=extra)
+        if n_steps > 1:
+            a, b = tokens[(path, 1)], tokens[(path, n_steps)]
+            apart = [(PROMPT_LENS[i], j) for i in range(len(a))
+                     for j in range(len(a[i])) if a[i][j] != b[i][j]][:8]
+            check(not apart, f"{path} x{n_steps}: tokens differ from the "
+                  f"single-step serving's at (prompt, token) {apart}")
+            print(f"{path} x{n_steps}: every token of the six requests "
+                  "equal to the single-step serving's", flush=True)
+    # the two paths' logprobs where their tokens agree
+    (ta, la, pa), (tb, lb, pb) = (features["logprobs megakernel"],
+                                  features["logprobs per-op"])
+    same = next((j for j in range(len(ta)) if ta[j] != tb[j]), len(ta))
+    d = max([abs(x - y) for x, y in zip(la[:same], lb[:same])] +
+            [abs(u[1] - v[1]) for p, q in zip(pa[:same], pb[:same])
+             for u, v in zip(p, q) if u[0] == v[0]] + [0.0])
+    check(d <= lp_tol, f"logprobs: the default and per-op paths differ by "
+          f"{d:.4g} over their first {same} common tokens (tolerance "
+          f"{lp_tol:.4g})")
+    print(f"logprobs (top {MS_TOP_LOGPROBS}): the default and per-op paths "
+          f"agree on {same} of {len(ta)} tokens, their logprobs there within "
+          f"{d:.4g} (tolerance {lp_tol:.4g} = 4 x {LOGITS_RTOL} x "
+          f"max|logit| {max_logit:.2f})", flush=True)
+    out.update(bans=features["bans"], json=features["json"],
+               logprob_agree=same, logprob_max_d=d)
+    # decode ms/step: StatInfo's generate_tps counts the tokens after the
+    # first over the time from the first token's drain to the finish; the
+    # first token is drained at the second decode launch, and that drain's
+    # copy waits for the launch before it returns, so the interval spans
+    # the steps after the first two launches (2 x n_steps), not the tokens
+    # it counts: ms/step = the interval / those steps
+    summary = {}
+    smi = nvidia_smi_line()
+    for path, n_steps in tokens:
+        key = f"serving_qwen2-7b_{path}" + (f"_x{n_steps}" if n_steps > 1
+                                            else "") + "_together"
+        e = details[key]
+        ms = [r["decode_ms_per_step"] for r in e["requests"]]
+        dl = e["decode_launches"]
+        steps = n_steps * dl["multi"] + dl["single"]
+        per_step = [m * (r["n_tokens"] - 1) / (steps - 2 * n_steps)
+                    for m, r in zip(ms, e["requests"])]
+        summary[f"{path} x{n_steps}"] = dict(
+            ms_per_step=(min(per_step), max(per_step)),
+            stat_ms_per_token=(min(ms), max(ms)),
+            wall_ms_per_step=1e3 * e["wall_s"] / steps,
+            decode_launches=e["decode_launches"], captures=e["captures"])
+    for path in ("megakernel", "per-op", "tp"):
+        for n_steps in (MS_STEPS, 8):
+            w = summary.get(f"{path} x{n_steps}")
+            if w is None:
+                continue
+            s = summary[f"{path} x1"]
+            print(f"qwen2-7b {path}: decode ms/step single step "
+                  f"{s['ms_per_step'][0]:.3f} .. {s['ms_per_step'][1]:.3f} "
+                  f"| windows of {n_steps} {w['ms_per_step'][0]:.3f} .. "
+                  f"{w['ms_per_step'][1]:.3f} ({w['decode_launches']}; "
+                  f"StatInfo ms a token {s['stat_ms_per_token'][1]:.3f} | "
+                  f"{w['stat_ms_per_token'][1]:.3f}) [{smi}]", flush=True)
+    out["summary"] = summary
+    details["serve_multistep"] = out
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_serving_lora(params, dev, details):
     """Qwen2-7B with `enable_lora` served through `Engine` with the default
     flags and on the per-op path (serve_lora_run): the LoRA batch's decode
@@ -5849,7 +6218,8 @@ def check_serving_lora(params, dev, details):
 PHASES = ("quant_matmul", "paged_attention", "grouped_quant_matmul",
           "stream_probe", "probes", "megakernel", "prefill_megakernel",
           "serve", "decode_logits", "tp_segments", "tp_prefill", "serve_tp",
-          "lora", "serve_lora", "qwen3", "serve_qwen3", "baichuan",
+          "lora", "serve_lora", "serve_multistep", "qwen3", "serve_qwen3",
+          "baichuan",
           "serve_baichuan", "tp_moe", "serve_tp_moe", "qwen3_moe")
 MOE_PHASES = ("megakernel", "prefill_megakernel", "serve", "tp_moe",
               "serve_tp_moe")
@@ -5944,6 +6314,8 @@ def main(argv=None) -> int:
                 res["lora"] = check_lora(params, dev, details)
             if phase("serve_lora"):
                 lora_launches = check_serving_lora(params, dev, details)
+            if phase("serve_multistep"):
+                check_serving_multistep(params, dev, details)
             # Qwen3-8B (QK-norm), on the card alone: Qwen2-7B's weights go
             # first
             del params

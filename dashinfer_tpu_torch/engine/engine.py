@@ -170,7 +170,8 @@ class Engine:
     # -- model lifecycle ------------------------------------------------------
     def install_model(self, model, runtime_config: RuntimeConfig,
                       params=None, model_config: Optional[ModelConfig] = None,
-                      device: Union[str, torch.device, Sequence] = "cuda"):
+                      device: Union[str, torch.device, Sequence] = "cuda",
+                      tokenizer=None):
         """Install a model from (model_config, params). `params` is the
         JAX package's stacked param tree, as numpy / ml_dtypes arrays (the
         loader output, quantized here when runtime_config.quant asks) or as
@@ -178,7 +179,9 @@ class Engine:
         asks for the CPU. On a `(1, n)` mesh (runtime_config.mesh_shape)
         `device` may list the ranks' devices (["cpu", "cpu"] on the CPU;
         one card named n times runs every rank on it); the default "cuda"
-        takes cuda:0 .. n-1 and raises when fewer cards exist."""
+        takes cuda:0 .. n-1 and raises when fewer cards exist. `tokenizer`
+        (`len()` and `decode` / `batch_decode` of single ids) enables
+        guided (JSON) decoding, as in the JAX Engine."""
         if params is None or model_config is None:
             raise NotImplementedError(
                 f"loading {model!r} from a checkpoint is not ported to the "
@@ -207,7 +210,8 @@ class Engine:
             if name in self._models:
                 raise ValueError(f"model {name} already installed")
             self._models[name] = ModelRuntime(
-                name, model_config, params, runtime_config, device=device)
+                name, model_config, params, runtime_config, device=device,
+                tokenizer=tokenizer)
         return self
 
     def start_model(self, name: str):

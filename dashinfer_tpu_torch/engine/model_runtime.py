@@ -4,8 +4,8 @@ Counterpart of the single-device serving subset of
 `dashinfer_tpu.engine.model_runtime`: the megakernel install (weight-only
 view, stream rule, plan, pack), request validation, prefill buckets,
 KV-pool planning, the decide/execute split of prefill admission and of the
-single-step decode tick, token drains, finishing, OOM eviction and
-stop/release. The Engine's control loop (engine/engine.py) calls into this.
+decode tick (single- or multi-step), token drains, finishing, OOM eviction
+and stop/release. The Engine's control loop (engine/engine.py) calls into this.
 Decode runs through the decode megakernel when `ops.megakernel.supports`
 admits the model, else through the per-op path. A fresh prompt whose bucket
 is a multiple of 128 up to 1024 is prefilled by one launch of the prefill
@@ -40,10 +40,27 @@ runtime.
 Page accounting: the allocator hands out LOGICAL pages; logical page `g`
 owns physical pages `g*L + l` for each layer l.
 
+Multi-step decode (`decode_steps_per_launch` N > 1): a tick whose every
+request has N tokens of budget left, and none of which needs the host
+between tokens (guided JSON, a ban config too large for the state's
+arrays: "sync" requests), nor logprobs, nor an adapter, launches a window
+of N steps (engine/steps.py `build_multi_decode_step`; one CUDA graph on
+the card) with the page crossings of all N steps allocated ahead; when the
+pool cannot give them it falls through to the single step, which evicts.
+Bad-words and n-gram bans whose config fits the state's arrays run on the
+device and keep the window; guided requests and oversized ban configs
+(the host channel) take synchronous single steps, drained before the next
+mask is computed. `decode_launches` counts windows and single steps.
+
 Token drains: a step's sampled tokens stay on the device until the step
 after it has been launched; the drain then reads them with a plain `.cpu()`,
 which waits only for the earlier step. Prefill first tokens are read the
-same way at the next drain.
+same way at the next drain. A window's rows are drained in order; each
+token advances the request's JSON enforcer, and a request that finishes
+mid-window drops its later rows. Its slot stays active on the card for the
+rest of that window and of the one already launched after it: their
+writes reach only its own pages, and those pages go to a new request only
+through work enqueued after both windows on the same stream.
 """
 
 import dataclasses
@@ -58,6 +75,7 @@ import torch
 from dashinfer_tpu_torch.config import (EvictionStrategy, GenerationConfig,
                                         ModelConfig, RuntimeConfig)
 from dashinfer_tpu_torch.engine import steps as steps_mod
+from dashinfer_tpu_torch.engine.guided import JsonFormatEnforcer
 from dashinfer_tpu_torch.engine.stats import EngineStat
 from dashinfer_tpu_torch.lora.manager import LoraManager
 from dashinfer_tpu_torch.loader.convert import (params_from_numpy,
@@ -94,10 +112,15 @@ class PrefillDecision:
 @dataclasses.dataclass
 class DecodeDecision:
     """One decode-tick decision: which slots step, which new pages they
-    get."""
+    get: a single step ("single", `new_page_ids` [B]) or a window of
+    decode_steps_per_launch steps ("multi", `npi` [N, B])."""
 
     act: List[Request]
-    new_page_ids: np.ndarray      # [B] logical page per slot, -1 = none
+    new_page_ids: Optional[np.ndarray] = None   # [B] logical page, -1 none
+    kind: str = "single"
+    npi: Optional[np.ndarray] = None            # [N, B]
+    with_banned: bool = False       # a window with on-device bans
+    sync_mode: bool = False         # drain right after the step
 
 
 def _unported_runtime_features(rt: RuntimeConfig) -> List[str]:
@@ -105,21 +128,19 @@ def _unported_runtime_features(rt: RuntimeConfig) -> List[str]:
         ("prefix cache", rt.enable_prefix_cache),
         ("a data-parallel mesh axis", rt.mesh_shape[0] != 1),
         ("chunked prefill (max_prefill_chunk)", rt.max_prefill_chunk > 0),
-        ("multi-step decode (decode_steps_per_launch)",
-         rt.decode_steps_per_launch > 1),
-        ("JSON mode", rt.enable_json_mode),
     ) if on]
 
 
 def _unported_request_features(g: GenerationConfig) -> List[str]:
     return [name for name, on in (
-        ("logprobs", g.logprobs or g.top_logprobs > 0),
-        ("response_format", bool(g.response_format)),
-        ("bad_words_ids", bool(g.bad_words_ids)),
-        ("no_repeat_ngram_size", g.no_repeat_ngram_size > 0),
         ("multimodal inputs", g.mm_info is not None or
          g.mrope_positions is not None or g.mrope_position_delta != 0),
     ) if on]
+
+
+def _host_lp(lp):
+    """A launch's logprob tensors -> numpy (None stays None)."""
+    return None if lp is None else tuple(t.cpu().numpy() for t in lp)
 
 
 def _weight_bytes(params) -> int:
@@ -193,12 +214,13 @@ def mesh_devices(rt: RuntimeConfig, device):
 
 class ModelRuntime:
     def __init__(self, name: str, cfg: ModelConfig, params: Dict,
-                 rt: RuntimeConfig, device="cuda"):
+                 rt: RuntimeConfig, device="cuda", tokenizer=None):
         """params: the stacked param tree as tensors on `device` (rank 0's
         device on a mesh: loader.params_from_numpy). `device`: one device,
         or on a `(1, n)` mesh (rt.mesh_shape) the list of the ranks'
         devices; a list that names one device several times puts several
-        ranks on it."""
+        ranks on it. `tokenizer`: for guided (JSON) requests (without one
+        their response_format is ignored, as in the JAX runtime)."""
         check_supported(cfg)
         missing = _unported_runtime_features(rt)
         if missing:
@@ -212,6 +234,7 @@ class ModelRuntime:
         self.name = name
         self.cfg = cfg
         self.rt = rt
+        self.tokenizer = tokenizer
         self.mesh = None
         if tuple(rt.mesh_shape) != (1, 1):
             self.mesh = make_mesh(tuple(rt.mesh_shape),
@@ -283,6 +306,10 @@ class ModelRuntime:
                 if self._mega_lora_ok else None,
                 lora_pool=self.lora_manager.pool)
         self._prefill_steps: Dict = {}     # (bucket, mega) -> step
+        # the decode steps of the per-token features and the windows, each
+        # around the forward of its path
+        self._decode_steps: Dict = {}
+        self.decode_launches = {"multi": 0, "single": 0}
         self._deactivate = steps_mod.build_deactivate(cfg, rt)
 
         self.pending: deque = deque()           # Requests awaiting prefill
@@ -765,6 +792,45 @@ class ModelRuntime:
                 lora_pool=self.lora_manager.pool if mega == "lora" else None)
         return self._prefill_steps[key]
 
+    def _decode_fn(self, with_logprobs: bool, with_guided: bool,
+                   with_lora: bool = False,
+                   with_banned: bool = False) -> Callable:
+        """The single decode step for the batch's features: the plain step
+        of its path (with or without an adapter), or a step of its own for
+        each combination of logprobs, guided and on-device bans, sharing
+        that step's forward (and so its CUDA graph)."""
+        base = self._lora_decode_step if with_lora else self._decode_step
+        if not (with_logprobs or with_guided or with_banned):
+            return base
+        key = ("dec", with_logprobs, with_guided, with_lora, with_banned)
+        if key not in self._decode_steps:
+            self._decode_steps[key] = steps_mod.build_decode_step(
+                self.cfg, self.rt, with_logprobs=with_logprobs,
+                with_guided=with_guided, with_banned=with_banned,
+                forward=base.forward)
+        return self._decode_steps[key]
+
+    def _multi_decode_fn(self, with_banned: bool = False) -> Callable:
+        """The window of decode_steps_per_launch steps around the forward
+        of the runtime's decode path; one CUDA graph a key on the card."""
+        key = ("multidec", self.rt.decode_steps_per_launch, with_banned)
+        if key not in self._decode_steps:
+            self._decode_steps[key] = steps_mod.build_multi_decode_step(
+                self.cfg, self.rt, self.rt.decode_steps_per_launch,
+                with_banned=with_banned, forward=self._decode_step.forward)
+        return self._decode_steps[key]
+
+    def _make_enforcer(self, req: Request):
+        fmt = req.gen_cfg.response_format or {}
+        if fmt.get("type") not in ("json_object", "json"):
+            return None
+        if self.tokenizer is None:
+            logger.warning("json response_format requested but no tokenizer "
+                           "installed; ignoring")
+            return None
+        return JsonFormatEnforcer(self.tokenizer, req.gen_cfg.eos_token_id,
+                                  self.cfg.vocab_size)
+
     # -- request entry -------------------------------------------------------
     def register(self, req: Request, queue: ResultQueue):
         """Called on the USER thread before the enqueue message is
@@ -874,14 +940,29 @@ class ModelRuntime:
             self._fail_admitted(req)
             return
         fn = self._prefill_fn(bucket, mega=mega)
+        # the per-token features act on the logits of every prefill path
+        req.format_enforcer = self._make_enforcer(req)
+        banned = self._banned_ids(req)
+        # the full prompt ids for the slot's history (the device bans scan
+        # it)
+        hist = np.full((self.rt.max_length,), -1, np.int32)
+        hist[:req.prompt_len] = req.input_ids
+        kwargs = dict(hist=steps_mod.to_device(hist, self.device),
+                      with_logprobs=bool(req.gen_cfg.logprobs))
+        if banned is not None:
+            kwargs["banned"] = steps_mod.to_device(
+                np.asarray(banned, np.int32), self.device)
+        if req.format_enforcer is not None:
+            kwargs["allowed"] = steps_mod.to_device(
+                req.format_enforcer.allowed_mask(), self.device)
         t0 = time.monotonic()
         try:
-            tok, self.cache, self.state = fn(
+            tok, lp, self.cache, self.state = fn(
                 self.mega_params if mega in (True, "tp") else self.params,
                 self.cache, self.state,
                 steps_mod.to_device(tok_buf, self.device),
                 steps_mod.to_device(page_row, self.device),
-                0, total_len, self._slot_init(req, slot))
+                0, total_len, self._slot_init(req, slot), **kwargs)
         except Exception:
             # fail THIS request (reference converts per-rank exceptions to
             # request status, as_engine_prefill.cpp:216-232)
@@ -892,7 +973,7 @@ class ModelRuntime:
         req.prefilled_len = total_len
         req.status = GenerateRequestStatus.Generating
         req.stat.time_in_queue = t0 - req.enqueue_time
-        self._inflight_prefills.append((tok, req, t0, mega))
+        self._inflight_prefills.append((tok, lp, req, t0, mega))
         self.stat.total_prefill_tokens += total_len
 
     def _fail_admitted(self, req: Request) -> None:
@@ -908,6 +989,51 @@ class ModelRuntime:
         if q is not None:
             q.set_status(GenerateRequestStatus.InternalError)
 
+    def _banned_ids(self, req: Request) -> Optional[List[int]]:
+        """The host oracle: next tokens banned THIS step by the request's
+        bad_words_ids and no_repeat_ngram_size (reference bad-words and
+        n-gram filters in the process_id kernels), padded with -1 to
+        max_banned_tokens; None without bans."""
+        g = req.gen_cfg
+        if not g.bad_words_ids and not g.no_repeat_ngram_size:
+            return None
+        ctx = req.input_ids + req.generated_ids
+        banned = set()
+        for w in g.bad_words_ids:
+            w = [int(t) for t in w]
+            if len(w) == 1:
+                banned.add(w[0])
+            elif len(w) - 1 <= len(ctx) and ctx[-(len(w) - 1):] == w[:-1]:
+                banned.add(w[-1])
+        n = g.no_repeat_ngram_size
+        if n > 0 and len(ctx) >= n - 1:
+            tail = tuple(ctx[-(n - 1):]) if n > 1 else ()
+            for i in range(len(ctx) - n + 1):
+                if tuple(ctx[i:i + n - 1]) == tail:
+                    banned.add(ctx[i + n - 1])
+        cap = self.rt.max_banned_tokens
+        out = sorted(banned)[:cap]
+        return (out + [-1] * cap)[:cap]
+
+    def _device_ban_fits(self, g: GenerationConfig) -> bool:
+        """True when the request's bad-words / n-gram config fits the
+        state's ban arrays (bad_words [max_bad_words, max_bad_word_len],
+        max_ngram): then the bans run on the device. Larger configs take
+        the synchronous host channel."""
+        rt = self.rt
+        if g.no_repeat_ngram_size > rt.max_ngram:
+            return False
+        if len(g.bad_words_ids) > rt.max_bad_words:
+            return False
+        return all(1 <= len(w) <= rt.max_bad_word_len
+                   for w in g.bad_words_ids)
+
+    def _needs_host_banned(self, req: Request) -> bool:
+        g = req.gen_cfg
+        if not g.bad_words_ids and not g.no_repeat_ngram_size:
+            return False
+        return not self._device_ban_fits(g)
+
     def _slot_init(self, req: Request, slot: int) -> steps_mod.SlotInit:
         g = req.gen_cfg
         max_stop = self.rt.max_stop_token_ids
@@ -921,6 +1047,16 @@ class ModelRuntime:
         lora_idx = -1
         if self.lora_manager is not None:
             lora_idx = self.lora_manager.index_of(g.lora_name)
+        MW, WL = self.rt.max_bad_words, self.rt.max_bad_word_len
+        bad_words = np.full((MW, WL), -1, np.int32)
+        ngram_n = 0
+        if (g.bad_words_ids or g.no_repeat_ngram_size) and \
+                self._device_ban_fits(g):
+            # right-aligned: the last column is the banned token, the ones
+            # before it the context tail it needs (-1: a shorter word)
+            for j, w in enumerate(g.bad_words_ids):
+                bad_words[j, WL - len(w):] = [int(t) for t in w]
+            ngram_n = int(g.no_repeat_ngram_size)
         return steps_mod.SlotInit(
             slot=slot, temperature=float(g.temperature),
             top_k=int(g.top_k if g.do_sample else 1), top_p=float(g.top_p),
@@ -928,17 +1064,22 @@ class ModelRuntime:
             presence_penalty=float(g.presence_penalty),
             frequency_penalty=float(g.frequency_penalty),
             seed=int(g.seed) & 0xFFFFFFFF, min_gen_len=int(g.min_length),
-            stop_token_ids=tuple(stop_ids), lora_idx=lora_idx)
+            stop_token_ids=tuple(stop_ids), lora_idx=lora_idx,
+            bad_words=bad_words, ngram_n=ngram_n)
 
     # -- decode --------------------------------------------------------------
     def active_requests(self) -> List[Request]:
         return [r for r in self.slots if r is not None]
 
     def decode_tick(self) -> int:
-        """One batched decode step over all active slots; returns the number
-        of requests stepped. The step is launched before the previous
-        step's tokens are drained, so the host prepares step N+1 while the
-        device runs step N."""
+        """One batched decode launch over all active slots (a single step
+        or a window of decode_steps_per_launch steps); returns the number
+        of requests stepped. The launch comes before the previous one's
+        tokens are drained, so the host prepares launch k+1 while the
+        device runs launch k. Requests whose next logits depend on the
+        previous token on the host (guided JSON, host-channel bans) force
+        a synchronous tick, as does a request at its length limit (so the
+        pipeline never launches a step past a finished request)."""
         d = self.decode_decide()
         if d is None:
             return 0
@@ -949,17 +1090,56 @@ class ModelRuntime:
         if not act:
             self._drain_inflight()
             return None
+        # bans whose config fits the state run on the device and do not
+        # force synchronous ticks; guided JSON (the host's FSM) and
+        # oversized ban configs (the host channel) do
+        sync_mode = any(
+            r.format_enforcer is not None or self._needs_host_banned(r)
+            for r in act)
         near_limit = any(
             self._cached_len.get(r.uuid, 0) >=
             min(r.gen_cfg.max_length, self.rt.max_length) for r in act)
-        if near_limit and (self._inflight is not None or
-                           self._inflight_prefills):
-            # never launch a step past a request that is about to finish
+        if (sync_mode or near_limit) and (self._inflight is not None or
+                                          self._inflight_prefills):
+            # a sync request's enforcer must have seen every emitted token,
+            # prefill first tokens in flight included, before this step's
+            # allowed / banned sets are computed; and never launch a step
+            # past a request that is about to finish
             self._drain_inflight()
             act = self.active_requests()
             if not act:
                 return None
         B, ps = self.rt.max_batch, self.rt.cache.page_size
+
+        # a window of N steps: only when no request needs the host between
+        # tokens, none wants logprobs or an adapter, and every one has N
+        # tokens of budget left (EOS or a stop word may still end one
+        # mid-window: its later rows are dropped at the drain)
+        N = self.rt.decode_steps_per_launch
+        if N > 1 and not sync_mode and not any(
+                r.gen_cfg.logprobs or r.gen_cfg.lora_name is not None
+                for r in act) and all(
+                r.uuid in self._cached_len and
+                min(r.gen_cfg.max_length, self.rt.max_length) -
+                self._cached_len[r.uuid] >= N for r in act):
+            # the page crossings of all N steps, allocated ahead
+            needs = [(req, i) for req in act for i in range(N)
+                     if (self._cached_len[req.uuid] + i) % ps == 0]
+            try:
+                pages = self.allocator.alloc(len(needs)) if needs else []
+            except NoFreePages:
+                pages = None    # the single step below evicts
+            if pages is not None:
+                npi = np.full((N, B), -1, np.int32)
+                for (req, i), g in zip(needs, pages):
+                    req.logical_pages.append([g])
+                    npi[i, req.slot] = g
+                return DecodeDecision(
+                    act=act, kind="multi", npi=npi,
+                    with_banned=any(r.gen_cfg.bad_words_ids or
+                                    r.gen_cfg.no_repeat_ngram_size
+                                    for r in act))
+
         new_page_ids = np.full((B,), -1, np.int32)
         # allocate pages for slots whose incoming token starts a new page
         for req in list(act):
@@ -986,34 +1166,86 @@ class ModelRuntime:
         act = self.active_requests()
         if not act:
             return None
-        return DecodeDecision(act=act, new_page_ids=new_page_ids)
+        return DecodeDecision(act=act, new_page_ids=new_page_ids,
+                              sync_mode=sync_mode)
+
+    def _noise_row(self, req: Request, step: int):
+        """The (seed, step) of a sampling request's Gumbel row, None for a
+        greedy one."""
+        g = req.gen_cfg
+        if g.do_sample and g.top_k != 1:
+            return int(g.seed) & 0xFFFFFFFF, step
+        return None
 
     def decode_execute(self, d: DecodeDecision) -> int:
-        act = d.act
-        noise_rows: List = [None] * self.rt.max_batch
-        for r in act:
-            if r.gen_cfg.do_sample and r.gen_cfg.top_k != 1:
-                noise_rows[r.slot] = (int(r.gen_cfg.seed) & 0xFFFFFFFF,
-                                      self._cached_len[r.uuid])
+        act, B = d.act, self.rt.max_batch
         kernel = self.mega_plan is not None or self.tp_mega_plan is not None
-        step = self._decode_step
-        if self.lora_manager is not None and any(
-                r.gen_cfg.lora_name is not None for r in act):
+        if d.kind == "multi":
+            N = self.rt.decode_steps_per_launch
+            rows = [[None] * B for _ in range(N)]
+            for r in act:
+                for i in range(N):
+                    rows[i][r.slot] = self._noise_row(
+                        r, self._cached_len[r.uuid] + i)
+            tokens, self.cache, self.state = self._multi_decode_fn(
+                d.with_banned)(self.mega_params if kernel else self.params,
+                               self.cache, self.state, d.npi, rows)
+            self.decode_launches["multi"] += 1
+            for req in act:
+                self._cached_len[req.uuid] += N
+            prev, self._inflight = self._inflight, (tokens, None, act,
+                                                    kernel)
+            if prev is not None:
+                self._drain_batch(prev)
+            return len(act)
+
+        noise_rows: List = [None] * B
+        for r in act:
+            noise_rows[r.slot] = self._noise_row(r, self._cached_len[r.uuid])
+        with_lp = any(r.gen_cfg.logprobs for r in act)
+        guided = [r for r in act if r.format_enforcer is not None]
+        with_lora = self.lora_manager is not None and any(
+            r.gen_cfg.lora_name is not None for r in act)
+        if with_lora:
             # a batch that carries an adapter: its own step and graph
-            step, kernel = self._lora_decode_step, self._mega_lora_ok
-        tokens, self.cache, self.state = step(
+            kernel = self._mega_lora_ok
+        # on-device bans for the configs that fit the state's arrays; the
+        # host channel serves only the oversized ones (sync_mode)
+        dev_banned = any(
+            (r.gen_cfg.bad_words_ids or r.gen_cfg.no_repeat_ngram_size) and
+            not self._needs_host_banned(r) for r in act)
+        kwargs = {}
+        host_banned = [r for r in act if self._needs_host_banned(r)]
+        if host_banned:
+            cap = self.rt.max_banned_tokens
+            bmat = np.full((B, cap), -1, np.int32)
+            for r in host_banned:
+                bmat[r.slot] = self._banned_ids(r)
+            kwargs["banned"] = steps_mod.to_device(bmat, self.device)
+        if guided:
+            allowed = np.ones((B, self.cfg.vocab_size), bool)
+            for r in guided:
+                allowed[r.slot] = r.format_enforcer.allowed_mask()
+            kwargs["allowed"] = steps_mod.to_device(allowed, self.device)
+        step = self._decode_fn(with_lp, bool(guided), with_lora, dev_banned)
+        tokens, lp, self.cache, self.state = step(
             self.mega_params if kernel else self.params,
             self.cache, self.state,
-            steps_mod.to_device(d.new_page_ids, self.device), noise_rows)
+            steps_mod.to_device(d.new_page_ids, self.device), noise_rows,
+            **kwargs)
+        self.decode_launches["single"] += 1
         for req in act:
             self._cached_len[req.uuid] += 1
-        prev, self._inflight = self._inflight, (tokens, act, kernel)
-        if prev is not None:
+        prev, self._inflight = self._inflight, (tokens, lp, act, kernel)
+        if d.sync_mode:
+            self._drain_inflight()
+        elif prev is not None:
             self._drain_batch(prev)
         return len(act)
 
     def _drain_inflight(self):
-        """Wait for the in-flight decode step (if any) and emit its tokens."""
+        """Wait for the in-flight decode launch (if any) and emit its
+        tokens."""
         self._drain_prefill_tokens()
         batch, self._inflight = self._inflight, None
         if batch is not None:
@@ -1023,7 +1255,7 @@ class ModelRuntime:
         """Emit first tokens of launched prefills (oldest first), before any
         decode-batch drain so each request's token order is preserved."""
         lst, self._inflight_prefills = self._inflight_prefills, []
-        for tok_t, req, t_launch, mega in lst:
+        for tok_t, lp, req, t_launch, mega in lst:
             if self.requests.get(req.uuid) is not req or req.slot < 0:
                 continue   # stopped/evicted while the prefill was in flight
             try:
@@ -1046,15 +1278,18 @@ class ModelRuntime:
             req.stat.time_to_first_token = t1 - req.enqueue_time
             req.stat.context_tps = req.prefilled_len / max(t1 - t_launch,
                                                            1e-9)
-            self._emit(req, [tok])
+            if req.format_enforcer is not None:
+                req.format_enforcer.advance(tok)
+            self._emit(req, [tok], _host_lp(lp), 0)
             self._maybe_finish(req, tok)
 
     def _drain_batch(self, batch):
         self._drain_prefill_tokens()
-        tokens_t, act, kernel = batch
+        tokens_t, lp, act, kernel = batch
         tokens = tokens_t.cpu().numpy()
-        # a grid barrier or a ring wait that gave up leaves its mark here:
-        # raise
+        lp = _host_lp(lp)
+        # a grid barrier or a ring wait that gave up leaves its mark here
+        # (once a launch: a step or a window): raise
         if kernel and self.mega_plan is not None:
             mk.check_status(self.mega_plan, self.device)
         elif kernel:
@@ -1062,14 +1297,22 @@ class ModelRuntime:
                 tpk.check_status(self.tp_mega_plan, dev)
         else:   # the per-op decode forward's products
             self._check_per_op()
+        # a single step gives [B], a window [N, B]
+        rows = tokens[None] if tokens.ndim == 1 else tokens
         n = 0
         for req in act:
             if self.requests.get(req.uuid) is not req or req.slot < 0:
                 continue  # stopped/evicted while the step was in flight
-            tok = int(tokens[req.slot])
-            self._emit(req, [tok])
-            self._maybe_finish(req, tok)
-            n += 1
+            slot = req.slot
+            for row in rows:
+                tok = int(row[slot])
+                if req.format_enforcer is not None:
+                    req.format_enforcer.advance(tok)
+                self._emit(req, [tok], lp, slot)
+                self._maybe_finish(req, tok)
+                n += 1
+                if req.slot < 0:
+                    break   # finished mid-window: its later rows go
         self.stat.total_gen_tokens += n
 
     def _check_per_op(self):
@@ -1080,16 +1323,29 @@ class ModelRuntime:
             qm.check_status(dev)
 
     # -- token emission & finish ---------------------------------------------
-    def _emit(self, req: Request, toks: List[int]):
+    def _emit(self, req: Request, toks: List[int], lp=None, row: int = 0):
+        """lp: the launch's (token logprobs, top ids, top logprobs) on the
+        host, read at `row`, or None."""
         req.generated_ids.extend(toks)
         q = self.queues.get(req.uuid)
-        if q is not None:
+        if q is None:
+            return
+        if lp is not None and req.gen_cfg.logprobs:
+            token_lp, top_ids, top_lp = lp
+            n = req.gen_cfg.top_logprobs or 1
+            pairs = [list(zip(top_ids[row][:n].tolist(),
+                              top_lp[row][:n].tolist()))]
+            q.append(toks, logprobs=pairs,
+                     token_logprobs=[float(token_lp[row])])
+        else:
             q.append(toks)
 
     def _maybe_finish(self, req: Request, last_tok: int):
         g = req.gen_cfg
-        finished = (g.early_stopping and g.eos_token_id >= 0 and
-                    last_tok == g.eos_token_id)
+        finished = req.format_enforcer is not None and \
+            req.format_enforcer.complete
+        finished = finished or (g.early_stopping and g.eos_token_id >= 0 and
+                                last_tok == g.eos_token_id)
         if not finished and \
                 req.prompt_len + len(req.generated_ids) >= g.max_length:
             finished = True

@@ -3,10 +3,12 @@
 
 Fixed `max_batch` decode slots: every per-request quantity lives in a
 `[max_batch]` tensor and inactive slots are masked. The steps of
-engine/steps.py update these tensors in place. The JAX package's token
-history, bad-words, n-gram and mRoPE fields belong to features this port
-does not serve yet and are left out, as are its per-slot seeds and prompt
-lengths: the sampler's seeds come from the host (engine/steps.py).
+engine/steps.py update these tensors in place. The token history, the
+bad-words and n-gram ban config and the prompt lengths are the JAX
+package's: the bans are computed on the device from them
+(ops/sampling.py `device_banned_mask`). Its mRoPE position offsets (VLM)
+are left out, as are its per-slot seeds: the sampler's seeds come from the
+host (engine/steps.py).
 """
 
 import dataclasses
@@ -36,12 +38,18 @@ class DecodeState:
 
     token_ids: torch.Tensor       # i32 [B] next input token
     context_lens: torch.Tensor    # i32 [B] tokens currently in KV cache
+    prompt_lens: torch.Tensor     # i32 [B]
     gen_lens: torch.Tensor        # i32 [B] tokens generated so far
     page_tables: torch.Tensor     # i32 [B, max_pages_per_seq] LOGICAL pages
     active: torch.Tensor          # bool [B]
     token_counts: torch.Tensor    # i32 [B, vocab] occurrences (penalties)
     sampling: SamplingParams
     lora_idx: torch.Tensor        # i32 [B] adapter pool slot, -1 = none
+    # prompt + generated ids (-1 pad) and each slot's ban config, so that
+    # bad-words / n-gram bans are computed on the device
+    history: torch.Tensor         # i32 [B, max_length]
+    bad_words: torch.Tensor       # i32 [B, MW, WL] right-aligned, -1 pad
+    ngram_n: torch.Tensor         # i32 [B] no_repeat_ngram_size, 0 = off
 
     @property
     def max_batch(self) -> int:
@@ -74,13 +82,20 @@ def make_decode_state(model_cfg: ModelConfig, rt_cfg: RuntimeConfig,
     def zeros(shape, dt=torch.int32):
         return torch.zeros(shape, dtype=dt, device=device)
 
+    def pads(shape):
+        return torch.full(shape, -1, dtype=torch.int32, device=device)
+
     return DecodeState(
         token_ids=zeros((B,)),
         context_lens=zeros((B,)),
+        prompt_lens=zeros((B,)),
         gen_lens=zeros((B,)),
         page_tables=zeros((B, rt_cfg.max_pages_per_seq)),
         active=zeros((B,), torch.bool),
         token_counts=zeros((B, model_cfg.vocab_size)),
         sampling=make_sampling_params(B, rt_cfg.max_stop_token_ids, device),
-        lora_idx=torch.full((B,), -1, dtype=torch.int32, device=device),
+        lora_idx=pads((B,)),
+        history=pads((B, rt_cfg.max_length)),
+        bad_words=pads((B, rt_cfg.max_bad_words, rt_cfg.max_bad_word_len)),
+        ngram_n=zeros((B,)),
     )

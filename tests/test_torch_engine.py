@@ -1,7 +1,8 @@
 """The port's Engine on the CPU: the verify drive against the JAX Engine,
 the decode and prefill megakernel paths against the JAX Engine's
 interpret-mode megakernels, weight residency, fail-fast for impossible
-requests, stop/release, unported request features, seeded sampling."""
+requests, stop/release, unported and lifted request features, seeded
+sampling."""
 
 import numpy as np
 import pytest
@@ -102,10 +103,6 @@ def test_stop_request_interrupts_and_frees_pages():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("logprobs", True),
-    ("response_format", {"type": "json_object"}),
-    ("bad_words_ids", [[3]]),
-    ("no_repeat_ngram_size", 2),
     ("lora_name", "adapter"),
     ("mm_info", [(5, np.zeros((1, 64), np.float32))]),
 ])
@@ -122,6 +119,41 @@ def test_unported_request_feature_raises(field, value):
             eng.start_request("m", PROMPT, gen)
     finally:
         eng.release_model("m")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("logprobs", True),
+    ("response_format", {"type": "json_object"}),
+    ("bad_words_ids", [[3]]),
+    ("no_repeat_ngram_size", 2),
+])
+def test_lifted_request_feature_is_served(field, value):
+    """The per-token features the port serves (tests/test_torch_bans.py,
+    test_torch_guided.py and test_torch_multistep.py hold them against the
+    JAX Engine): a request with one finishes with its 14 tokens and the
+    JAX Engine's tokens. Without a tokenizer, response_format is ignored,
+    as in the JAX runtime."""
+    import dashinfer_tpu as jp
+    import dashinfer_tpu_torch as tp
+    cfg, params = tiny_qwen2()
+    jeng = jp.Engine().install_model("m", _rt(jp), params=params,
+                                     model_config=cfg).start_model("m")
+    try:
+        _, jq = _run(jeng, jp, PROMPT, _greedy(jp).update({field: value}))
+    finally:
+        jeng.release_model("m")
+    eng = _port_engine()
+    try:
+        _, q = _run(eng, tp, PROMPT, _greedy(tp).update({field: value}))
+    finally:
+        eng.release_model("m")
+    assert q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+    toks = q.GetAllGeneratedTokens()
+    assert len(toks) == 14 and toks == jq.GetAllGeneratedTokens()
+    if field == "bad_words_ids":
+        assert 3 not in toks
+    if field == "logprobs":
+        assert len(q.GetNoWait().token_logprobs_list) == 14
 
 
 def test_seeded_sampling_is_reproducible():

@@ -297,6 +297,72 @@ def test_port_serves_lora_with_jax_blocked():
             "dashinfer_tpu_torch/lora/manager.py"} <= rel
 
 
+_SERVE_WINDOWS_WITHOUT_JAX = _SERVE_WITHOUT_JAX.split("rt = (")[0] + r"""
+class Tok:                      # ids -> JSON-ish strings, EOS 0
+    strings = ['{', '}', '"a"', ':', ' ', '1', ',', '[', ']', 'x'] * (V // 10)
+    strings += ['?'] * (V - len(strings))
+    def __len__(self):
+        return V
+    def decode(self, ids, **kw):
+        return "".join(self.strings[i] for i in ids)
+rt = (tp.RuntimeConfigBuilder("m").max_length(64).max_batch(3)
+      .kv_cache_page_size(16).dtype("float32")
+      .update({"decode_steps_per_launch": 3, "enable_json_mode": True})
+      .build())
+eng = tp.Engine().install_model("m", rt, params=params, model_config=cfg,
+                                device="cpu", tokenizer=Tok())
+eng.start_model("m")
+run = eng._models["m"]
+gens = [tp.GenerationConfig(max_length=40, do_sample=False, top_k=1,
+                            eos_token_id=-1, bad_words_ids=[[5], [7, 8]],
+                            no_repeat_ngram_size=2),
+        tp.GenerationConfig(max_length=20, do_sample=False, top_k=1,
+                            eos_token_id=-1, logprobs=True, top_logprobs=2),
+        tp.GenerationConfig(max_length=20, do_sample=True, top_k=0, seed=3,
+                            eos_token_id=0,
+                            response_format={"type": "json_object"})]
+hs = [eng.start_request("m", [1, 2, 3], g) for g in gens]
+for _, h, _q in hs:
+    eng.sync_request("m", h, timeout_s=120)
+launches = dict(run.decode_launches)
+eng.release_model("m")
+(_, _, qb), (_, _, ql), (_, _, qj) = hs
+for _, _, q in hs:
+    assert q.GenerateStatus() == tp.GenerateRequestStatus.GenerateFinished
+banned = qb.GetAllGeneratedTokens()
+assert len(banned) == 37 and 5 not in banned
+seq = [1, 2, 3] + banned
+assert len(set(zip(seq, seq[1:]))) == len(seq) - 1
+el = ql.GetNoWait()
+assert len(el.token_logprobs_list) == len(el.ids_from_generate) == 17
+assert all(p[0][0] == t for p, t in zip(el.log_probs_list,
+                                        el.ids_from_generate))
+from dashinfer_tpu_torch.engine.guided import JsonState, advance_str
+text = "".join(Tok.strings[i] for i in qj.GetAllGeneratedTokens() if i)
+assert advance_str(JsonState(), text), text
+assert launches["multi"] > 0 and launches["single"] > 0, launches
+assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "dashinfer_tpu" or m.startswith("dashinfer_tpu.")
+               for m in sys.modules)
+print("SERVED")
+"""
+
+
+def test_port_serves_windows_and_token_features_with_jax_blocked():
+    """decode_steps_per_launch = 3 with JAX blocked: a banned request (bad
+    words and a no-repeat 2-gram), a logprobs request and a JSON request
+    (a tokenizer of JSON-ish strings) served together; the bans hold, each
+    token has its logprobs, the JSON text is a JSON prefix, and windows and
+    single steps were both launched (windows once the banned request,
+    the longest, runs alone)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", _SERVE_WINDOWS_WITHOUT_JAX],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "SERVED" in r.stdout
+
+
 def _port_sources():
     pkg = os.path.join(ROOT, "dashinfer_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
@@ -327,9 +393,9 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_the_new_modules_are_checked():
-    """The megakernel modules, the MoE modules, the probe tools and the
-    tensor-parallel modules are among the sources the import check
-    walks."""
+    """The megakernel modules, the MoE modules, the probe tools, the
+    tensor-parallel modules and the JSON enforcer are among the sources
+    the import check walks."""
     rel = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {"dashinfer_tpu_torch/ops/megakernel.py",
             "dashinfer_tpu_torch/ops/tp_megakernel.py",
@@ -345,4 +411,5 @@ def test_the_new_modules_are_checked():
             "dashinfer_tpu_torch/tools/probe_reshape.py",
             "dashinfer_tpu_torch/tools/ab_decode.py",
             "dashinfer_tpu_torch/tools/moe_drift.py",
-            "dashinfer_tpu_torch/engine/steps.py"} <= rel
+            "dashinfer_tpu_torch/engine/steps.py",
+            "dashinfer_tpu_torch/engine/guided.py"} <= rel

@@ -75,7 +75,7 @@ def test_greedy_tokens_match_jax(seed):
         got = tsamp.sample(torch.from_numpy(logits), tsp,
                            torch.from_numpy(counts),
                            torch.from_numpy(gen_lens), gumbel,
-                           max_top_k=16).numpy()
+                           max_top_k=16).tokens.numpy()
         assert np.array_equal(got, want)
 
 
@@ -88,7 +88,7 @@ def test_same_seed_same_tokens():
         return tsamp.sample(torch.from_numpy(logits), tsp,
                             torch.from_numpy(counts),
                             torch.from_numpy(gen_lens), noise,
-                            max_top_k=16).numpy()
+                            max_top_k=16).tokens.numpy()
 
     seeds = list(range(100, 100 + B))
     a, b = draw(seeds, 3), draw(seeds, 3)
@@ -185,10 +185,10 @@ def test_seeded_tokens_match_jax(draw):
     noise = tsamp.gumbel_noise(rows, 64, "cpu")
     got = tsamp.sample(torch.from_numpy(logits), tsp,
                        torch.from_numpy(counts), torch.from_numpy(gen_lens),
-                       noise, max_top_k=64).numpy()
+                       noise, max_top_k=64).tokens.numpy()
     assert np.array_equal(got, want)
     # the noise moves tokens: without it some seeded rows pick otherwise
     plain = tsamp.sample(torch.from_numpy(logits), tsp,
                          torch.from_numpy(counts), torch.from_numpy(gen_lens),
-                         None, max_top_k=64).numpy()
+                         None, max_top_k=64).tokens.numpy()
     assert not np.array_equal(got, plain)
